@@ -1,0 +1,372 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port (stencil_tpu_torch) on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises, prints its traceback and exits
+non-zero before the result line:
+
+1. device: a CUDA device must be present; prints its name and power limit;
+2. build: compiles every CUDA source of the port with nvcc, all at once;
+3. kernel vs plain: each kernel against its plain PyTorch version on the
+   card, on seeded inputs at a ragged size and at the main path's shapes;
+   the expected result is bitwise equality;
+4. main path, wrap route: Jacobi3D at 512^3 f32 on one subdomain, 200 steps
+   through the entry points a user calls, launch counters reset just before
+   and read just after; checked bitwise against the plain path at step 10,
+   within rtol 1e-6 of the torch engine (another summation order), finite
+   and inside [COLD, HOT] at step 200;
+5. main path, shell route: the same on a 2x2x2 subdomain grid (exchange
+   with blend_slab, then jacobi_plane_step); bitwise equal to phase 4 at
+   step 10;
+6. times with CUDA events (median of 7 reps after a dropped warm-up rep) of
+   each kernel, its plain version and, for blend_slab, the library copy,
+   beside the least time the card could take (bytes over 3.35 TB/s or f32
+   operations over 67 TFLOP/s, H100 SXM); each route's Mcells/s; and, from
+   20 more steps of each route under torch.profiler, device time by kernel
+   and the device's idle share.
+
+Then it prints the card line, one ``{"kernels": [...]}`` JSON line and, as the
+last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
+chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N = 512  # the reference's default domain, 512^3 f32
+STEPS = 200
+CHECK_AT = 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+OUT_DIR = "chiprun_out"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int = 7, inner: int = 5) -> float:
+    """Median ms per call over ``reps`` timed reps of ``inner`` calls each,
+    after one dropped warm-up rep."""
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    return statistics.median(times[1:])
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def seeded(shape, seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def device_breakdown(model, steps: int = 20) -> dict:
+    """``steps`` steps of a built model under torch.profiler: wall ms per step
+    (profiler on), device ms per step by CUDA kernel, and the device's idle
+    share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.step(steps)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = {
+        e.key[:72]: e.self_device_time_total / 1e3 / steps
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    }
+    busy = sum(kernels.values())
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
+            "idle_share": 1 - busy / wall_ms, "kernels_ms_per_step": kernels}
+
+
+def log_breakdown(route: str, b: dict) -> None:
+    top = sorted(b["kernels_ms_per_step"].items(), key=lambda kv: -kv[1])
+    log(f"profile {route}: wall {b['wall_ms_per_step']:.4f} ms/step (profiler on), device busy "
+        f"{b['device_ms_per_step']:.4f} ms/step, idle share {b['idle_share']:.3f}; "
+        + "; ".join(f"{k} {v:.4f}" for k, v in top))
+
+
+def main() -> int:
+    # --- 1. device ------------------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    dev = torch.device("cuda")
+
+    from stencil_tpu_torch.kernels import build, ledger
+    from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
+    from stencil_tpu_torch.ops import halo_blend as hb
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.ops.exchange import halo_exchange_shard
+
+    # --- 2. build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall for {list(build.SOURCES)} "
+        + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in build.BUILD_LOG.items()))
+
+    # --- 3. kernel vs plain on the card -----------------------------------------
+    errs = {"jacobi_wrap_step": 0.0, "jacobi_plane_step": 0.0, "blend_slab": 0.0}
+
+    def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+        sync()
+        e = max_err(got, want)
+        errs[name] = max(errs[name], e)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: kernel != plain version (max abs err {e})")
+
+    ragged = seeded((66, 70, 130), 1, dev)
+    for k in (1, 2, 3):
+        hold("jacobi_wrap_step", jk.jacobi_wrap_step(ragged, k), jk.jacobi_wrap_step_plain(ragged, k),
+             f"66x70x130 k={k}")
+    full = seeded((N, N, N), 2, dev)
+    hold("jacobi_wrap_step", jk.jacobi_wrap_step(full, 1), jk.jacobi_wrap_step_plain(full, 1), f"{N}^3 k=1")
+    del full
+
+    gs_r = (130, 140, 260)
+    blocks_r = seeded((2, 66, 70, 130), 3, dev)
+    org_r = torch.tensor([[64, 0, 128], [0, 68, 0]], dtype=torch.int32, device=dev)
+    d2_r = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (68, 128), gs_r, dev) for o in org_r])
+    hold("jacobi_plane_step", jk.jacobi_plane_step(blocks_r, org_r, d2_r, gs_r),
+         jk.jacobi_plane_step_plain(blocks_r, org_r, d2_r, gs_r), "2x66x70x130")
+    half = N // 2
+    gs = (N, N, N)
+    blocks = seeded((8, half + 2, half + 2, half + 2), 4, dev)
+    org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
+                       dtype=torch.int32, device=dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in org])
+    hold("jacobi_plane_step", jk.jacobi_plane_step(blocks, org, d2, gs),
+         jk.jacobi_plane_step_plain(blocks, org, d2, gs), f"8x{half + 2}^3")
+
+    small = seeded((3, 17, 19, 23), 5, dev) * 100
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.uint8):
+        for axis in (0, 1, 2):
+            ext = small.shape[1 + axis]
+            for r, pos in ((1, 0), (2, 5), (3, ext - 3)):
+                shape = list(small.shape)
+                shape[1 + axis] = r
+                slab = (seeded(shape, 6 + r, dev) * 100).to(dtype)
+                base = small.to(dtype)
+                hold("blend_slab", hb.blend_slab(base.clone(), slab, axis, pos),
+                     hb.blend_slab_plain(base.clone(), slab, axis, pos), f"{dtype} axis {axis} pos {pos}")
+    # the exchange's six writes at the main path's shapes
+    main_slabs = []
+    for axis in (0, 1, 2):
+        for pos in (0, half + 1):
+            shape = list(blocks.shape)
+            shape[1 + axis] = 1
+            main_slabs.append((seeded(shape, 10 + axis * 2 + pos, dev), axis, pos))
+    for slab, axis, pos in main_slabs:
+        hold("blend_slab", hb.blend_slab(blocks.clone(), slab, axis, pos),
+             hb.blend_slab_plain(blocks.clone(), slab, axis, pos), f"8x{half + 2}^3 axis {axis} pos {pos}")
+    log(f"kernel vs plain: bitwise equal on every case; max abs err {errs}")
+
+    # --- 4. main path, wrap route ---------------------------------------------
+    cells = N ** 3
+    wrap = Jacobi3D(N, N, N, kernel_impl="cuda")
+    wrap.realize()
+    ledger.reset_launch_counts()
+    sync()
+    wrap.step(CHECK_AT)
+    sync()
+    wrap_at_check = wrap.temperature()
+    t0 = time.perf_counter()
+    wrap.step(STEPS - CHECK_AT)
+    sync()
+    wrap_s = time.perf_counter() - t0
+    wrap_counts = ledger.launch_counts()
+    if wrap._pallas_path != "wrap" or wrap_counts["jacobi_wrap_step"] == 0:
+        raise AssertionError(f"wrap route did not launch the wrap kernel: {wrap._pallas_path} {wrap_counts}")
+    final = wrap.temperature()
+    if not (np.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+        raise AssertionError("wrap route: field not finite or outside [COLD, HOT] after 200 steps")
+    log(f"wrap route: {STEPS} steps, launches {wrap_counts}, field in [{final.min()}, {final.max()}]")
+    wrap_profile = device_breakdown(wrap)
+    log_breakdown("wrap", wrap_profile)
+    del wrap, final
+
+    plain = torch.full((N, N, N), (HOT_TEMP + COLD_TEMP) / 2, device=dev)
+    for _ in range(CHECK_AT):
+        plain = jk.jacobi_wrap_step_plain(plain, 1)
+    if not np.array_equal(plain.cpu().numpy(), wrap_at_check):
+        raise AssertionError("wrap route != plain path on the card at step 10")
+    del plain
+    ref = Jacobi3D(N, N, N, kernel_impl="torch")
+    ref.realize()
+    sync()
+    t0 = time.perf_counter()
+    ref.step(CHECK_AT)
+    sync()
+    torch_s = time.perf_counter() - t0
+    ref_at_check = ref.temperature()
+    del ref
+    torch.cuda.empty_cache()
+    # the torch engine sums in _kernel's order, the kernels in the TPU kernels'
+    np.testing.assert_allclose(wrap_at_check, ref_at_check, rtol=1e-6)
+    log("wrap route: bitwise equal to the plain path and within rtol 1e-6 of the torch engine at step 10")
+
+    # --- 5. main path, shell route --------------------------------------------
+    shell = Jacobi3D(N, N, N, kernel_impl="cuda")
+    shell.dd.set_partition(2, 2, 2)
+    shell.realize()
+    ledger.reset_launch_counts()
+    sync()
+    shell.step(CHECK_AT)
+    sync()
+    shell_at_check = shell.temperature()
+    t0 = time.perf_counter()
+    shell.step(STEPS - CHECK_AT)
+    sync()
+    shell_s = time.perf_counter() - t0
+    shell_counts = ledger.launch_counts()
+    if shell._pallas_path != "shell" or not (
+        shell_counts["blend_slab"] > 0 and shell_counts["jacobi_plane_step"] > 0
+    ):
+        raise AssertionError(f"shell route did not launch its kernels: {shell._pallas_path} {shell_counts}")
+    final = shell.temperature()
+    if not (np.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+        raise AssertionError("shell route: field not finite or outside [COLD, HOT] after 200 steps")
+    if not np.array_equal(shell_at_check, wrap_at_check):
+        raise AssertionError("shell route != wrap route at step 10")
+    np.testing.assert_allclose(shell_at_check, ref_at_check, rtol=1e-6)
+    log(f"shell route: {STEPS} steps, launches {shell_counts}; bitwise equal to the wrap route at step 10")
+    shell_profile = device_breakdown(shell)
+    log_breakdown("shell", shell_profile)
+    stack = shell.dd.get_curr(shell.h)
+    del final
+
+    # --- 6. times ---------------------------------------------------------------
+    src = torch.empty((N, N, N), device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(lambda: dst.copy_(src))
+    copy_bw = 2 * src.numel() * 4 / (copy_ms * 1e-3)
+    log(f"copy_ on {N}^3 f32: {copy_ms:.4f} ms, {copy_bw / 1e9:.1f} GB/s")
+    del dst
+
+    block = seeded((N, N, N), 20, dev)
+    wrap_bytes = 2 * cells * 4
+    wrap_ms = cuda_ms(lambda: jk.jacobi_wrap_step(block, 1))
+    wrap_plain_ms = cuda_ms(lambda: jk.jacobi_wrap_step_plain(block, 1), inner=2)
+    del block, src
+
+    blocks = stack.view(-1, *stack.shape[3:])
+    out = torch.empty_like(blocks)
+    plane_bytes = 2 * blocks.numel() * 4 + d2.numel() * 4 + org.numel() * 4
+    plane_ms = cuda_ms(lambda: jk.jacobi_plane_step(blocks, org, d2, gs, out=out))
+    plane_plain_ms = cuda_ms(lambda: jk.jacobi_plane_step_plain(blocks, org, d2, gs, out=out), inner=2)
+
+    def exchange_writes(fn):
+        def run():
+            for slab, axis, pos in main_slabs:
+                fn(blocks, slab, axis, pos)
+        return run
+
+    blend_bytes = sum(2 * s.numel() * 4 for s, _, _ in main_slabs)
+    blend_ms = cuda_ms(exchange_writes(hb.blend_slab))
+    blend_plain_ms = cuda_ms(exchange_writes(hb.blend_slab_plain))
+    blend_lib_ms = cuda_ms(exchange_writes(lambda b, s, a, p: b.narrow(1 + a, p, s.shape[1 + a]).copy_(s)))
+    per_axis = {
+        axis: cuda_ms(lambda axis=axis: [hb.blend_slab(blocks, s, a, p) for s, a, p in main_slabs if a == axis])
+        for axis in (0, 1, 2)
+    }
+    log("blend_slab per axis (lo+hi writes of one exchange, ms): "
+        + ", ".join(f"axis {a}: {t:.4f}" for a, t in per_axis.items()))
+    exchange_ms = cuda_ms(lambda: halo_exchange_shard(stack, shell.dd.radius()))
+    log(f"shell route exchange (gathers + 6 blend_slab writes): {exchange_ms:.4f} ms")
+
+    wrap_mcells = cells * (STEPS - CHECK_AT) / wrap_s / 1e6
+    shell_mcells = cells * (STEPS - CHECK_AT) / shell_s / 1e6
+    torch_mcells = cells * CHECK_AT / torch_s / 1e6
+    log(f"route wrap: {wrap_mcells:.1f} Mcells/s ({N}^3 f32, 1 subdomain, {STEPS - CHECK_AT} steps) on {card}")
+    log(f"route shell: {shell_mcells:.1f} Mcells/s ({N}^3 f32, 2x2x2 subdomains, {STEPS - CHECK_AT} steps) on {card}")
+    log(f"engine torch: {torch_mcells:.1f} Mcells/s ({N}^3 f32, 1 subdomain, {CHECK_AT} steps) on {card}")
+
+    rows = []
+    specs = [
+        ("jacobi_wrap_step", wrap_counts, wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells,
+         f"({N},{N},{N}) f32, k=1"),
+        ("jacobi_plane_step", shell_counts, plane_ms, plane_plain_ms, None, plane_bytes,
+         7 * 8 * half ** 3, f"(8,{half + 2},{half + 2},{half + 2}) f32"),
+        ("blend_slab", shell_counts, blend_ms, blend_plain_ms, blend_lib_ms, blend_bytes, 0,
+         f"6 writes of one exchange, slabs (8,1,{half + 2},{half + 2}) per axis"),
+    ]
+    entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
+    for name, counts, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
+        b_ms, b_by = bound(nbytes, flops)
+        e = entries[name]
+        rows.append({
+            "name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
+            "launches": counts[name], "launches_per_step": counts[name] / STEPS,
+            "max_abs_err": errs[name], "bitwise": errs[name] == 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "copy_bound_ms": nbytes / copy_bw * 1e3, "library_ms": lib_ms, "shape": shape,
+        })
+    missing = set(entries) - {r["name"] for r in rows}
+    if missing:
+        raise AssertionError(f"ported kernels without a row: {missing}")
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({
+            "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+            "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
+            "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
+            "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
+                       "torch_engine_mcells_per_s": torch_mcells,
+                       "wrap_launches": wrap_counts, "shell_launches": shell_counts},
+            "profile": {"wrap": wrap_profile, "shell": shell_profile},
+            "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
+        }, f, indent=1)
+
+    log(card)  # the nvidia-smi line as it prints it: name, power limit
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

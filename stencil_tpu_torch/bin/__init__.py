@@ -1,0 +1,1 @@
+"""bin of the PyTorch port (counterpart of stencil_tpu/bin)."""

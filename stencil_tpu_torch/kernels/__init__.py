@@ -1,0 +1,40 @@
+"""Kernel build, binding and bookkeeping shared by the ops wrappers.
+
+``build`` compiles ``csrc/*.cu`` (imported lazily by the wrappers, so this
+package imports on a CPU-only install); ``ledger`` maps every TPU kernel of
+the JAX package to its port.  The helpers below are the wrappers' common
+argument checks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def check_tensor(t: torch.Tensor, what: str, ndims=None, dtype=None) -> None:
+    """Raise on what a kernel does not take: a non-tensor, a device other
+    than cpu/cuda, a wrong rank or dtype, or a non-contiguous layout."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} lies on {t.device}; the kernels run on cuda (plain versions on cpu)")
+    if ndims is not None and t.dim() not in ndims:
+        raise ValueError(f"{what} must have {' or '.join(map(str, ndims))} dims, got shape {tuple(t.shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be C-contiguous")
+
+
+def same_device(*ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    for t in ts[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors lie on different devices: {dev} and {t.device}")
+    return dev
+
+
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current stream on ``device``, as the raw handle the C
+    interface takes."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,84 @@
+"""The halo exchange over the subdomains of one device.
+
+Counterpart of ``halo_exchange_multi`` / ``halo_exchange_shard``
+(``stencil_tpu/ops/exchange.py:428-607``), ``direct`` route.  A quantity is a
+``(px, py, pz, Xr, Yr, Zr)`` stack of shell-carrying blocks.  The exchange runs
+three sweeps, x then y then z; each sweep sends slabs spanning the full raw
+extent of the other axes, so edges and corners ride along.  Slab positions
+follow the JAX package exactly: the low halo ``[0, r_lo)`` receives the -1
+neighbour's top interior slab ``[n, r_lo + n)``, the high halo
+``[r_lo + n, size)`` the +1 neighbour's bottom interior slab
+``[r_lo, r_lo + r_hi)``, the ``-dir`` convention (packer.cuh:91-93).
+
+``lax.ppermute`` becomes a neighbour gather: ``torch.roll`` of the slabs by
+one along the grid axis, which on a size-1 axis wraps a subdomain onto itself
+(the periodic boundary).  The JAX package leaves this to an XLA collective,
+not to Pallas, so plain torch does it here.  The halo WRITES go through
+``blend_slab``, the kernel the TPU path uses for them.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from stencil_tpu_torch.core.radius import Radius
+from stencil_tpu_torch.ops.halo_blend import blend_slab
+
+#: uneven sizes need per-subdomain slab offsets (``blend_slab_dynamic``)
+UNEVEN_ROADMAP = (
+    "uneven global sizes (pad-and-mask, blend_slab_dynamic) are not ported yet: "
+    "ROADMAP.md queue 1 item 3 / queue 2 (blend_slab_dynamic)"
+)
+
+
+def halo_exchange_multi(
+    stacks: Sequence[torch.Tensor],
+    radius: Radius,
+    valid_last: Optional[Tuple[Optional[int], Optional[int], Optional[int]]] = None,
+) -> List[torch.Tensor]:
+    """Fill the halo shells of several quantities' stacks, in place, and
+    return them.  Each stack is ``(px, py, pz, Xr, Yr, Zr)`` and all share one
+    shape.  ``valid_last`` (valid cells of the last subdomain per axis, for
+    uneven sizes) must be all None in this version."""
+    if valid_last is not None and any(v is not None for v in valid_last):
+        raise ValueError(UNEVEN_ROADMAP)
+    stacks = list(stacks)
+    if not stacks:
+        return stacks
+    shape = stacks[0].shape
+    if any(s.dim() != 6 or s.shape != shape for s in stacks):
+        raise ValueError(
+            "every quantity must be a (px, py, pz, Xr, Yr, Zr) stack of one shape; got "
+            f"{[tuple(s.shape) for s in stacks]}"
+        )
+    spatial = shape[3:]
+    for axis in range(3):
+        r_lo = radius.axis(axis, -1)  # my low-side halo width
+        r_hi = radius.axis(axis, +1)  # my high-side halo width
+        if r_lo == 0 and r_hi == 0:
+            continue
+        dim = 3 + axis
+        n = spatial[axis] - r_lo - r_hi  # interior width on this axis
+        # gather every received slab before any halo write of this sweep
+        lo_recv = hi_recv = None
+        if r_lo > 0:
+            # data moves +axis: each subdomain receives its -1 neighbour's
+            # top slab of interior, width r_lo
+            lo_recv = [torch.roll(s.narrow(dim, n, r_lo), 1, axis).contiguous() for s in stacks]
+        if r_hi > 0:
+            # data moves -axis: the +1 neighbour's bottom interior slab
+            hi_recv = [torch.roll(s.narrow(dim, r_lo, r_hi), -1, axis).contiguous() for s in stacks]
+        for j, s in enumerate(stacks):
+            blocks = s.view(-1, *spatial)
+            if lo_recv is not None:
+                blend_slab(blocks, lo_recv[j].view(blocks.shape[0], *lo_recv[j].shape[3:]), axis, 0)
+            if hi_recv is not None:
+                blend_slab(blocks, hi_recv[j].view(blocks.shape[0], *hi_recv[j].shape[3:]), axis, r_lo + n)
+    return stacks
+
+
+def halo_exchange_shard(stack: torch.Tensor, radius: Radius, valid_last=None) -> torch.Tensor:
+    """Single-quantity convenience wrapper over ``halo_exchange_multi``."""
+    return halo_exchange_multi([stack], radius, valid_last)[0]

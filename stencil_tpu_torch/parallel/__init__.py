@@ -1,0 +1,1 @@
+"""parallel of the PyTorch port (counterpart of stencil_tpu/parallel)."""
