@@ -18,15 +18,23 @@ non-zero before the result line:
    and read just after; checked bitwise against the plain path at step 10,
    within rtol 1e-6 of the torch engine (another summation order), finite
    and inside [COLD, HOT] at step 200;
-5. main path, shell route: the same on a 2x2x2 subdomain grid (exchange
-   with blend_slab, then jacobi_plane_step); bitwise equal to phase 4 at
-   step 10;
-6. times with CUDA events (median of 7 reps after a dropped warm-up rep) of
+5. main path, shell route: the same on a 2x2x2 subdomain grid with
+   ``pallas_path="shell"`` (exchange with blend_slab, then
+   jacobi_plane_step); bitwise equal to phase 4 at step 10;
+6. main path, wavefront route: the same grid with the default
+   ``pallas_path="auto"``, which takes the temporally blocked z-ring
+   wavefront (jacobi_zring_wavefront_step, one launch per macro step of m
+   levels); then the ``z_ring=False`` form (jacobi_shell_wavefront_step
+   with z slabs), 200 steps each with the counters reset before and read
+   after; both bitwise equal to phase 4 at step 10, within rtol 1e-6 of the
+   torch engine, finite and inside [COLD, HOT] at step 200;
+7. times with CUDA events (median of 7 reps after a dropped warm-up rep) of
    each kernel, its plain version and, for blend_slab, the library copy,
    beside the least time the card could take (bytes over 3.35 TB/s or f32
-   operations over 67 TFLOP/s, H100 SXM); each route's Mcells/s; and, from
-   20 more steps of each route under torch.profiler, device time by kernel
-   and the device's idle share.
+   operations over 67 TFLOP/s, H100 SXM); each route's Mcells/s; from 20
+   more steps of each route under torch.profiler, device time by kernel and
+   the device's idle share; and the host-clock ms of a ``step(1)`` call on
+   the wavefront and shell routes.
 
 Then it prints the card line, one ``{"kernels": [...]}`` JSON line and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -148,7 +156,8 @@ def main() -> int:
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in build.BUILD_LOG.items()))
 
     # --- 3. kernel vs plain on the card -----------------------------------------
-    errs = {"jacobi_wrap_step": 0.0, "jacobi_plane_step": 0.0, "blend_slab": 0.0}
+    errs = {"jacobi_wrap_step": 0.0, "jacobi_plane_step": 0.0, "blend_slab": 0.0,
+            "jacobi_zring_wavefront_step": 0.0, "jacobi_shell_wavefront_step": 0.0}
 
     def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -156,6 +165,43 @@ def main() -> int:
         errs[name] = max(errs[name], e)
         if not torch.equal(got, want):
             raise AssertionError(f"{name} {what}: kernel != plain version (max abs err {e})")
+
+    def wavefront_args(n, Xr, Yr, Z, s_off, ring, slabs, gs, seed):
+        """Seeded inputs of one wavefront call over n blocks: raw, origins,
+        d2 in the form's layout and (optionally) z slabs."""
+        raw = seeded((n, Xr, Yr, Z), seed, dev)
+        org = torch.tensor([[(7 * b) % gs[0], (5 * b) % gs[1], (3 * b) % gs[2]] for b in range(n)],
+                           dtype=torch.int32, device=dev)
+        if ring:
+            d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - s_off, int(o[2]), s_off, Yr, Z, gs, dev)
+                              for o in org])
+        else:
+            d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - s_off, int(o[2]) - s_off, (Yr, Z), gs, dev)
+                              for o in org])
+        zs = seeded((n, Xr, 2 * s_off, Yr), seed + 1, dev) if slabs else None
+        return raw, org, d2, zs
+
+    def hold_wavefront(ring, m, s_off, raw, org, d2, zs, gs, z_valid, what):
+        """Kernel vs plain on the valid region: the block interior
+        [s, ext - s) of every shelled axis, and the emitted z slabs at
+        interior x planes and y rows (shell cells are unspecified)."""
+        S = slice(s_off, -s_off)
+        if ring:
+            name, zsl = "jacobi_zring_wavefront_step", slice(None)
+            kw = dict(interior_offset=s_off)
+            got = jk.jacobi_zring_wavefront_step(raw, m, org, d2, gs, zs, **kw)
+            want = jk.jacobi_zring_wavefront_step_plain(raw, m, org, d2, gs, zs, **kw)
+        else:
+            name = "jacobi_shell_wavefront_step"
+            zsl = slice(s_off, (z_valid or raw.shape[-1]) - s_off)
+            kw = dict(interior_offset=s_off, z_slabs=zs, z_valid=z_valid)
+            got = jk.jacobi_shell_wavefront_step(raw, m, org, d2, gs, **kw)
+            want = jk.jacobi_shell_wavefront_step_plain(raw, m, org, d2, gs, **kw)
+        if zs is None:
+            got, want = (got,), (want,)
+        hold(name, got[0][:, S, S, zsl], want[0][:, S, S, zsl], what)
+        if zs is not None:
+            hold(name, got[1][:, S, :, S], want[1][:, S, :, S], what + " z_out")
 
     ragged = seeded((66, 70, 130), 1, dev)
     for k in (1, 2, 3):
@@ -201,6 +247,25 @@ def main() -> int:
     for slab, axis, pos in main_slabs:
         hold("blend_slab", hb.blend_slab(blocks.clone(), slab, axis, pos),
              hb.blend_slab_plain(blocks.clone(), slab, axis, pos), f"8x{half + 2}^3 axis {axis} pos {pos}")
+    # the wavefront kernels: ragged blocks, m below and at the shell width,
+    # z slabs none and set, dead columns (z_valid < Zr); then the main path's
+    # shapes (2x2x2 subdomains of 256^3 at the depth the plan picks)
+    for m in (1, 2, 3):
+        for s_off in (m, m + 1):
+            gs_w = (2 * (22 - 2 * s_off) + 3, 2 * (26 - 2 * s_off), 60)
+            for slabs in (False, True):
+                hold_wavefront(False, m, s_off, *wavefront_args(2, 22, 26, 30, s_off, False, slabs, gs_w, m),
+                               gs_w, z_valid=27, what=f"2x(22,26,30) m={m} s={s_off} slabs={slabs}")
+            gs_w = (gs_w[0], gs_w[1], 256)
+            hold_wavefront(True, m, s_off, *wavefront_args(2, 22, 26, 128, s_off, True, True, gs_w, m),
+                           gs_w, z_valid=None, what=f"2x(22,26,128) m={m} s={s_off}")
+    mw = jk.wavefront_auto_depth(half)  # the depth the 2x2x2 plan picks
+    rw = half + 2 * mw
+    main_ring = wavefront_args(8, rw, rw, half, mw, True, True, gs, 30)
+    hold_wavefront(True, mw, mw, *main_ring, gs, None, f"8x({rw},{rw},{half}) m={mw}")
+    main_shell = wavefront_args(8, rw, rw, rw, mw, False, True, gs, 32)
+    hold_wavefront(False, mw, mw, *main_shell, gs, rw, f"8x{rw}^3 m={mw} slabs")
+    hold_wavefront(False, mw, mw, *main_shell[:3], None, gs, None, f"8x{rw}^3 m={mw} no slabs")
     log(f"kernel vs plain: bitwise equal on every case; max abs err {errs}")
 
     # --- 4. main path, wrap route ---------------------------------------------
@@ -248,7 +313,7 @@ def main() -> int:
     log("wrap route: bitwise equal to the plain path and within rtol 1e-6 of the torch engine at step 10")
 
     # --- 5. main path, shell route --------------------------------------------
-    shell = Jacobi3D(N, N, N, kernel_impl="cuda")
+    shell = Jacobi3D(N, N, N, kernel_impl="cuda", pallas_path="shell")
     shell.dd.set_partition(2, 2, 2)
     shell.realize()
     ledger.reset_launch_counts()
@@ -277,7 +342,71 @@ def main() -> int:
     stack = shell.dd.get_curr(shell.h)
     del final
 
-    # --- 6. times ---------------------------------------------------------------
+    # --- 6. main path, wavefront route -----------------------------------------
+    def run_wavefront(**kw):
+        model = Jacobi3D(N, N, N, kernel_impl="cuda", **kw)
+        model.dd.set_partition(2, 2, 2)
+        model.realize()
+        ledger.reset_launch_counts()
+        sync()
+        model.step(CHECK_AT)
+        sync()
+        at_check = model.temperature()
+        t0 = time.perf_counter()
+        model.step(STEPS - CHECK_AT)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = ledger.launch_counts()
+        final = model.temperature()
+        form = "z-ring" if model._wavefront_z_ring else "padded z-slab"
+        if model._pallas_path != "wavefront" or not model._wavefront_z_slabs:
+            raise AssertionError(f"expected the wavefront z-slab route, got {model._pallas_path}")
+        if not (np.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+            raise AssertionError(f"wavefront {form}: field not finite or outside [COLD, HOT] after 200 steps")
+        if not np.array_equal(at_check, wrap_at_check):
+            raise AssertionError(f"wavefront {form} != wrap route at step 10")
+        np.testing.assert_allclose(at_check, ref_at_check, rtol=1e-6)
+        m = model._wavefront_m
+        # one launch per macro step of m levels, plus one per remainder
+        launches = sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT))
+        kernel = "jacobi_zring_wavefront_step" if model._wavefront_z_ring else "jacobi_shell_wavefront_step"
+        if counts[kernel] != launches or counts["blend_slab"] == 0:
+            raise AssertionError(f"wavefront {form}: launches {counts}, want {launches} of {kernel}")
+        log(f"wavefront route ({form}, m={m}, shells {model.dd.local_spec().raw_size()}): {STEPS} steps, "
+            f"launches {counts}; bitwise equal to the wrap route at step 10")
+        return model, seconds, counts
+
+    def single_steps(model, calls: int = 20):
+        """ms per ``step(1)`` call, the host clock around the call and a
+        synchronize: (min, median) over ``calls`` calls after a dropped one."""
+        times = []
+        for _ in range(calls + 1):
+            sync()
+            t0 = time.perf_counter()
+            model.step(1)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        final = model.temperature()
+        if not (np.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+            raise AssertionError("step(1) calls: field not finite or outside [COLD, HOT]")
+        return min(times[1:]), statistics.median(times[1:])
+
+    wave, wave_s, wave_counts = run_wavefront()  # pallas_path="auto"
+    if not wave._wavefront_z_ring or wave._wavefront_m != mw:
+        raise AssertionError(f"auto at 512^3 on 2x2x2: want the z-ring form at m={mw}")
+    wave_profile = device_breakdown(wave)
+    log_breakdown("wavefront", wave_profile)
+    step1 = {"wavefront_zring": single_steps(wave), "shell": single_steps(shell)}
+    log("step(1) per call, ms (min, median of 20): "
+        + ", ".join(f"{k} {v[0]:.4f}, {v[1]:.4f}" for k, v in step1.items()))
+    del wave
+    slab, slab_s, slab_counts = run_wavefront(pallas_path="wavefront", z_ring=False)
+    slab_profile = device_breakdown(slab)
+    log_breakdown("wavefront z-slab", slab_profile)
+    del slab
+    torch.cuda.empty_cache()
+
+    # --- 7. times ---------------------------------------------------------------
     src = torch.empty((N, N, N), device=dev)
     dst = torch.empty_like(src)
     copy_ms = cuda_ms(lambda: dst.copy_(src))
@@ -316,11 +445,51 @@ def main() -> int:
     exchange_ms = cuda_ms(lambda: halo_exchange_shard(stack, shell.dd.radius()))
     log(f"shell route exchange (gathers + 6 blend_slab writes): {exchange_ms:.4f} ms")
 
+    def wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs):
+        """Bytes one wavefront call over n blocks must move: each cell its m
+        levels reach read once (planes and rows [s-m, ext-s+m), the columns
+        the array holds, the slabs' m columns a side, d2 over those rows and
+        columns, the origins) and the valid region written once (the block
+        interior; the slabs at interior planes and rows).  W is the logical
+        plane width (z_valid, or Zi + 2s on the ring), whose s outer columns a
+        side come from the slabs when they are given."""
+        e = s_off - m  # shell cells no level reaches
+        Xa, Ya, Wa = Xr - 2 * e, Yr - 2 * e, W - 2 * e
+        Xi, Yi, Wi = Xr - 2 * s_off, Yr - 2 * s_off, W - 2 * s_off
+        reads = Xa * Ya * (Wa - 2 * m if slabs else Wa) + Ya * Wa + 3
+        writes = Xi * Yi * Wi
+        if slabs:
+            reads += Xa * 2 * m * Ya
+            writes += Xi * 2 * s_off * Yi
+        return n * (reads + writes) * 4
+
+    ring_raw, ring_org, ring_d2, ring_zs = main_ring
+    zring_ms = cuda_ms(lambda: jk.jacobi_zring_wavefront_step(ring_raw, mw, ring_org, ring_d2, gs, ring_zs), inner=2)
+    zring_plain_ms = cuda_ms(
+        lambda: jk.jacobi_zring_wavefront_step_plain(ring_raw, mw, ring_org, ring_d2, gs, ring_zs), reps=3, inner=1)
+    zring_bytes = wavefront_bytes(8, rw, rw, half + 2 * mw, mw, mw, True)
+    del main_ring, ring_raw, ring_zs
+    sh_raw, sh_org, sh_d2, sh_zs = main_shell
+    shwf_ms = cuda_ms(lambda: jk.jacobi_shell_wavefront_step(sh_raw, mw, sh_org, sh_d2, gs, z_slabs=sh_zs,
+                                                             z_valid=rw), inner=2)
+    shwf_plain_ms = cuda_ms(lambda: jk.jacobi_shell_wavefront_step_plain(sh_raw, mw, sh_org, sh_d2, gs,
+                                                                         z_slabs=sh_zs, z_valid=rw),
+                            reps=3, inner=1)
+    shwf_bytes = wavefront_bytes(8, rw, rw, rw, mw, mw, True)
+    del main_shell, sh_raw, sh_zs
+    wave_flops = 7 * 8 * half ** 3 * mw  # six adds and a multiply per cell and level
+
     wrap_mcells = cells * (STEPS - CHECK_AT) / wrap_s / 1e6
     shell_mcells = cells * (STEPS - CHECK_AT) / shell_s / 1e6
+    wave_mcells = cells * (STEPS - CHECK_AT) / wave_s / 1e6
+    slab_mcells = cells * (STEPS - CHECK_AT) / slab_s / 1e6
     torch_mcells = cells * CHECK_AT / torch_s / 1e6
     log(f"route wrap: {wrap_mcells:.1f} Mcells/s ({N}^3 f32, 1 subdomain, {STEPS - CHECK_AT} steps) on {card}")
     log(f"route shell: {shell_mcells:.1f} Mcells/s ({N}^3 f32, 2x2x2 subdomains, {STEPS - CHECK_AT} steps) on {card}")
+    log(f"route wavefront z-ring (m={mw}): {wave_mcells:.1f} Mcells/s ({N}^3 f32, 2x2x2 subdomains, "
+        f"{STEPS - CHECK_AT} steps) on {card}")
+    log(f"route wavefront z-slab (m={mw}): {slab_mcells:.1f} Mcells/s ({N}^3 f32, 2x2x2 subdomains, "
+        f"{STEPS - CHECK_AT} steps) on {card}")
     log(f"engine torch: {torch_mcells:.1f} Mcells/s ({N}^3 f32, 1 subdomain, {CHECK_AT} steps) on {card}")
 
     rows = []
@@ -331,6 +500,10 @@ def main() -> int:
          7 * 8 * half ** 3, f"(8,{half + 2},{half + 2},{half + 2}) f32"),
         ("blend_slab", shell_counts, blend_ms, blend_plain_ms, blend_lib_ms, blend_bytes, 0,
          f"6 writes of one exchange, slabs (8,1,{half + 2},{half + 2}) per axis"),
+        ("jacobi_zring_wavefront_step", wave_counts, zring_ms, zring_plain_ms, None, zring_bytes, wave_flops,
+         f"(8,{rw},{rw},{half}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), d2 (8,{rw},{half + 128})"),
+        ("jacobi_shell_wavefront_step", slab_counts, shwf_ms, shwf_plain_ms, None, shwf_bytes, wave_flops,
+         f"(8,{rw},{rw},{rw}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), z_valid={rw}"),
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     for name, counts, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
@@ -353,10 +526,15 @@ def main() -> int:
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
+            "step1_ms_min_median": step1,
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
+                       "wavefront_zring_mcells_per_s": wave_mcells,
+                       "wavefront_zslab_mcells_per_s": slab_mcells, "wavefront_m": mw,
                        "torch_engine_mcells_per_s": torch_mcells,
-                       "wrap_launches": wrap_counts, "shell_launches": shell_counts},
-            "profile": {"wrap": wrap_profile, "shell": shell_profile},
+                       "wrap_launches": wrap_counts, "shell_launches": shell_counts,
+                       "wavefront_zring_launches": wave_counts, "wavefront_zslab_launches": slab_counts},
+            "profile": {"wrap": wrap_profile, "shell": shell_profile,
+                        "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
             "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
         }, f, indent=1)
 

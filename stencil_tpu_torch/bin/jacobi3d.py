@@ -8,10 +8,16 @@ flags) and the same CSV row
     jacobi3d,<methods>,ranks,devCount,x,y,z,min(s),trimean(s)
 
 (jacobi3d.cu:378-379), plus ``--partition px,py,pz`` (subdomains on the one
-device) and ``--device``.  Per-iteration time is the wall time around one
-step and a device synchronize.
+device), ``--device``, and the JAX driver's ``--pallas-path``,
+``--halo-multiplier`` and ``--temporal-k``.  Each timed sample is one macro
+step (``halo multiplier`` iterations: k on the torch engine under
+``--halo-multiplier k``, the depth m on the wavefront route, else 1) and a
+device synchronize; the CSV reports it per iteration, as the JAX driver
+does for its halo multiplier, so routes of different depths compare.
 
     python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale --iters 200
+    python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
+        --partition 2,2,2 --pallas-path wavefront --iters 200
 """
 
 from __future__ import annotations
@@ -55,8 +61,14 @@ def main(argv=None) -> int:
     p.add_argument("--no-weak-scale", action="store_true", help="use x y z as the global size directly")
     p.add_argument("--kernel-impl", choices=["cuda", "torch"], default="cuda",
                    help="hand-written CUDA kernels (fast) or plain tensor code")
-    p.add_argument("--pallas-path", choices=["auto", "wrap", "shell"], default="auto",
-                   help="route of the cuda engine (auto: wrap on one subdomain, else shell)")
+    p.add_argument("--pallas-path", choices=["auto", "wrap", "shell", "wavefront"], default="auto",
+                   help="route of the cuda engine (auto: wrap on one subdomain, else the "
+                        "temporally blocked wavefront when its depth is >= 2, else shell)")
+    p.add_argument("--halo-multiplier", type=int, default=1,
+                   help="exchange k*radius-wide shells every k steps (torch engine; the "
+                        "wavefront route sets its own)")
+    p.add_argument("--temporal-k", default="auto",
+                   help="levels per kernel pass on the wrap/wavefront routes (int or auto)")
     p.add_argument("--partition", type=_parse_partition, default=None,
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
@@ -86,20 +98,27 @@ def main(argv=None) -> int:
         subdomains=n_sub,
         kernel_impl=args.kernel_impl,
         pallas_path=args.pallas_path,
+        temporal_k=args.temporal_k if args.temporal_k == "auto" else int(args.temporal_k),
         device=args.device,
     )
     if args.partition is not None:
         model.dd.set_partition(*args.partition)
+    if args.halo_multiplier != 1:
+        model.dd.set_halo_multiplier(args.halo_multiplier)
     model.realize()
+    # one macro step per timed sample: the torch engine under a halo
+    # multiplier steps in whole macros, and a wavefront call of fewer than m
+    # iterations is a whole shallower pass
+    macro = model.dd.halo_multiplier()
 
     iter_time = Statistics()
-    model.step(1)  # first call builds the kernels; keep it out of the timing
+    model.step(macro)  # first call builds the kernels; untimed
     model.block_until_ready()
     for _ in range(args.iters):
         t0 = time.perf_counter()
-        model.step(1)
+        model.step(macro)
         model.block_until_ready()
-        iter_time.insert(time.perf_counter() - t0)
+        iter_time.insert((time.perf_counter() - t0) / macro)
 
     names = [name for flag, _, name in _METHOD_FLAGS if getattr(args, flag)] or ["ppermute"]
     if iter_time.count() > 0:

@@ -22,8 +22,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from stencil_tpu_torch.core.dim3 import Dim3
-from stencil_tpu_torch.core.geometry import LocalSpec
+from stencil_tpu_torch.core.dim3 import Dim3, Rect3
+from stencil_tpu_torch.core.geometry import LocalSpec, shrink_by_radius
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
 from stencil_tpu_torch.ops.exchange import UNEVEN_ROADMAP, halo_exchange_multi
@@ -153,13 +153,13 @@ class DistributedDomain:
         self._force_dim = Dim3(px, py, pz)
 
     def set_halo_multiplier(self, k: int) -> None:
+        """Allocate ``k * radius``-wide shells and run ``k`` compute sub-steps
+        per exchange (the reference's future-work item, README.md:157-176).
+        A step built by ``make_step`` then advances ``k`` iterations per
+        call."""
         assert k >= 1
         assert not self._realized, "set_halo_multiplier must precede realize()"
-        if k != 1:
-            raise NotImplementedError(
-                "halo multiplier > 1 is not ported yet (ROADMAP.md queue 1 item 6)"
-            )
-        self._halo_mult = 1
+        self._halo_mult = int(k)
 
     def halo_multiplier(self) -> int:
         return self._halo_mult
@@ -174,15 +174,18 @@ class DistributedDomain:
         return self._size
 
     # --- realize (src/stencil.cu:27-539) -------------------------------------
+    def planned_grid(self) -> SubdomainGrid:
+        """The subdomain grid ``realize()`` builds from the configuration so
+        far; callers that size things before ``realize()`` ask here."""
+        return make_grid(self._size, self._radius, self._subdomains, self._strategy, self._force_dim)
+
     def realize(self) -> None:
         self._radius.validate()
         if self._methods in (MethodFlags.AllGather, MethodFlags.RollCompare):
             raise NotImplementedError(
                 f"exchange method {self._methods} is not ported yet (ROADMAP.md queue 1 item 3)"
             )
-        self.grid = make_grid(
-            self._size, self._radius, self._subdomains, self._strategy, self._force_dim
-        )
+        self.grid = self.planned_grid()
         dim = self.grid.dim()
         if (self._size % dim).any_gt(0):
             raise ValueError(
@@ -205,6 +208,10 @@ class DistributedDomain:
     # --- geometry accessors ---------------------------------------------------
     def local_spec(self) -> LocalSpec:
         return self._spec
+
+    def shell_radius(self) -> Radius:
+        """The allocated shell: the radius scaled by the halo multiplier."""
+        return self._shell_radius
 
     def num_subdomains(self) -> int:
         return self.grid.count()
@@ -250,7 +257,9 @@ class DistributedDomain:
         quantity_to_host, local_domain.cuh:329-346)."""
         inner = self._interior_view(self._curr[h.name])
         out = inner.permute(0, 3, 1, 4, 2, 5).reshape(self._size.tuple())
-        return out.cpu().numpy()
+        # a copy even on the CPU, where reshape may return a view of the
+        # live storage that the next step overwrites
+        return out.to("cpu", copy=True).numpy()
 
     def mark_shell_stale(self) -> None:
         """Steps that skip the shell (the single-subdomain wrap route) leave
@@ -266,7 +275,7 @@ class DistributedDomain:
             self.exchange()
         stack = self._curr[h.name]
         px, py, pz, X, Y, Z = stack.shape
-        return stack.permute(0, 3, 1, 4, 2, 5).reshape(px * X, py * Y, pz * Z).cpu().numpy()
+        return stack.permute(0, 3, 1, 4, 2, 5).reshape(px * X, py * Y, pz * Z).to("cpu", copy=True).numpy()
 
     def set_raw(self, h: DataHandle, raw: np.ndarray) -> None:
         """Load the JAX package's raw global array ``(px*Xr, py*Yr, pz*Zr)``
@@ -319,8 +328,12 @@ class DistributedDomain:
         reference route, domain.py:1411 of the JAX package).
 
         Each step exchanges, then evaluates ``kernel`` over every subdomain's
-        interior at once and writes the result back in place.  ``overlap``
-        is accepted and computes the same cells: the two-stream
+        interior at once and writes the result back in place.  With a halo
+        multiplier ``k`` each step is a MACRO step: one exchange of the
+        ``k*r``-wide shells, then ``k`` sub-steps over regions that shrink by
+        the user radius from the whole shell down to the interior, so
+        ``step(curr, s)`` advances ``s*k`` iterations.  ``overlap`` is
+        accepted and computes the same cells: the two-stream
         interior/exterior split is ROADMAP.md queue 1 item 8."""
         assert self._realized
         del overlap
@@ -332,19 +345,29 @@ class DistributedDomain:
         if engine != "torch":
             raise ValueError(f"unknown engine {engine!r}")
         n = self._spec.sz
-        lo = self._shell_radius.lo()
+        shell = self._shell_radius
+        lo = shell.lo()
         names = [h.name for h in self._handles]
-        region = tuple(slice(0, n[ax]) for ax in range(3))
-        info = BlockInfo(self._origin_views(), n, self._size, self._radius, region)
+        # sub-step regions in interior-local coords: the whole shell is valid
+        # after the exchange and each sub-step shrinks it by the user radius,
+        # landing on the interior after the last one (domain.py:1553-1569 of
+        # the JAX package); multiplier 1 gives the interior alone
+        rect = Rect3(Dim3(0, 0, 0) - lo, n + shell.hi())
+        infos = []
+        for _ in range(self._halo_mult):
+            rect = shrink_by_radius(rect, self._radius)
+            region = tuple(slice(rect.lo[ax], rect.hi[ax]) for ax in range(3))
+            infos.append(BlockInfo(self._origin_views(), n, self._size, self._radius, region))
 
         def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
             for _ in range(steps):
-                stacks = halo_exchange_multi([curr[k] for k in names], self._shell_radius)
+                stacks = halo_exchange_multi([curr[k] for k in names], shell)
                 blocks = dict(zip(names, stacks))
-                views = {k: ShardView(b, lo, region) for k, b in blocks.items()}
-                vals = kernel(views, info)  # all values computed before any write
-                for k, v in vals.items():
-                    self._interior_view(blocks[k]).copy_(v)
+                for info in infos:
+                    views = {k: ShardView(b, lo, info.region) for k, b in blocks.items()}
+                    vals = kernel(views, info)  # all values computed before any write
+                    for k, v in vals.items():
+                        views[k].center().copy_(v)
             return curr
 
         return step

@@ -49,6 +49,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "halo_blend": {
         "stp_blend_slab": [_P, _P, _I, _L, _L, _L, _L, _I, _L, _L, _P],
     },
+    "jacobi_wavefront": {
+        "stp_jacobi_wavefront": [_P] * 6 + [_I] * 13 + [_P],
+    },
 }
 SOURCES = tuple(SIGNATURES)
 
@@ -98,7 +101,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         so = library_path(name)
         paths[name] = so
         if os.path.exists(so):
-            BUILD_LOG[name] = {"seconds": 0.0, "cached": True, "output": ""}
+            # keep the record of the build that made it, if this process did
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "cached": True, "output": ""})
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)]

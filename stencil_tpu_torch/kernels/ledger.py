@@ -54,8 +54,18 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
         "stencil_tpu_torch/csrc/halo_blend.cu",
         f"{_HB}:84",
     ),
-    (_JP, "jacobi_shell_wavefront_step"): _to_port(f"{_JP}:983"),
-    (_JP, "jacobi_zring_wavefront_step"): _to_port(f"{_JP}:1204"),
+    (_JP, "jacobi_zring_wavefront_step"): _ported(
+        "stencil_tpu_torch.ops.jacobi_kernels:jacobi_zring_wavefront_step",
+        "stencil_tpu_torch.ops.jacobi_kernels:jacobi_zring_wavefront_step_plain",
+        "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
+        f"{_JP}:1204",
+    ),
+    (_JP, "jacobi_shell_wavefront_step"): _ported(
+        "stencil_tpu_torch.ops.jacobi_kernels:jacobi_shell_wavefront_step",
+        "stencil_tpu_torch.ops.jacobi_kernels:jacobi_shell_wavefront_step_plain",
+        "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
+        f"{_JP}:983",
+    ),
     (_JP, "jacobi_slab_step"): _to_port(f"{_JP}:1347"),
     (_ST, "stream_plane_pass"): _to_port(f"{_ST}:279"),
     (_ST, "stream_wavefront_pass"): _to_port(f"{_ST}:481"),

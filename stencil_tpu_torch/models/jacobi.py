@@ -12,9 +12,16 @@ Engines (``kernel_impl``):
   plain tensor code over every subdomain at once.
 * ``"cuda"``, the counterpart of ``"pallas"``, through the hand-written
   kernels.  ``pallas_path="auto"`` picks ``wrap`` for one subdomain (slice out
-  the interior, ``jacobi_wrap_step``, write back; the shell goes stale) and
-  ``shell`` otherwise (exchange with ``blend_slab`` halo writes, then
-  ``jacobi_plane_step`` on all subdomains in one launch, every iteration).
+  the interior, ``jacobi_wrap_step``, write back; the shell goes stale), and
+  otherwise ``wavefront`` when the plan gives a depth m >= 2, else ``shell``
+  (exchange with ``blend_slab`` halo writes, then ``jacobi_plane_step`` on all
+  subdomains in one launch, every iteration).  ``wavefront`` is the JAX
+  package's temporally blocked route (``_make_wavefront_step``): m-wide
+  shells, and per macro step one x/y exchange in the array, one z exchange on
+  separate z-major slab buffers, and ONE m-level kernel launch
+  (``jacobi_zring_wavefront_step`` when the subdomain's z extent is a
+  multiple of 128, else ``jacobi_shell_wavefront_step``); a ``steps % m``
+  remainder runs one shallower launch over the same shell.
 
 The two engines sum the neighbours in different orders (``_kernel``: x+1,
 x-1, y+1, y-1, z+1, z-1; the kernels: x-1, x+1, y-1, y+1, z-1, z+1), so they
@@ -32,11 +39,24 @@ from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
 from stencil_tpu_torch.ops.exchange import halo_exchange_shard
 from stencil_tpu_torch.ops.jacobi_kernels import (
+    _ZRING_OFF,
     SIXTH,
     choose_temporal_k,
     jacobi_plane_step,
+    jacobi_shell_wavefront_step,
     jacobi_wrap_step,
+    jacobi_zring_wavefront_step,
+    pack_d2,
+    wavefront_auto_depth,
+    wavefront_smem_bytes,
+    wavefront_smem_fits,
     yz_dist2_plane,
+    zring_dist2_plane,
+)
+from stencil_tpu_torch.ops.stream import (
+    make_slab_extenders,
+    permute_and_extend_z_slabs,
+    prime_z_slabs,
 )
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
 
@@ -44,8 +64,7 @@ COLD_TEMP = 0.0
 HOT_TEMP = 1.0
 
 _PATH_ROADMAP = {
-    "wavefront": "the temporally blocked wavefront route is the next port slice (ROADMAP.md queue 1 item 6)",
-    "slab": "the slab route (jacobi_slab_step) is not ported yet (ROADMAP.md queue 1 item 6)",
+    "slab": "the slab route (jacobi_slab_step) is the next port slice (ROADMAP.md queue 1 item 6)",
 }
 
 
@@ -61,8 +80,11 @@ class Jacobi3D:
         subdomains: int = 1,  # the JAX package's device count
         dtype=torch.float32,
         kernel_impl: str = "torch",  # "torch" (plain tensors) | "cuda" (kernels)
-        temporal_k="auto",  # wrap-route levels per call (int | "auto")
-        pallas_path: str = "auto",  # "auto" | "wrap" | "shell"
+        temporal_k="auto",  # wrap / wavefront levels per call (int | "auto")
+        pallas_path: str = "auto",  # "auto" | "wrap" | "shell" | "wavefront"
+        z_ring: bool = None,  # wavefront: z-ring layout where it applies
+        # (None = yes); False keeps the z shell columns in the array
+        wavefront_alias: bool = None,  # in-place wavefront: refused
         compute_unit: str = None,  # only the vpu form is ported
         storage_dtype: str = None,  # only native storage is ported
         device="cuda",
@@ -80,8 +102,14 @@ class Jacobi3D:
             raise ValueError(f"unknown kernel_impl {kernel_impl!r} (torch | cuda)")
         if pallas_path in _PATH_ROADMAP:
             raise NotImplementedError(f"pallas_path={pallas_path!r}: {_PATH_ROADMAP[pallas_path]}")
-        if pallas_path not in ("auto", "wrap", "shell"):
+        if pallas_path not in ("auto", "wrap", "shell", "wavefront"):
             raise ValueError(f"unknown pallas_path {pallas_path!r}")
+        if wavefront_alias:
+            raise NotImplementedError(
+                "wavefront_alias=True is refused: the CUDA wavefront's blocks march x "
+                "independently, so an in-place write can land before a neighbouring "
+                "tile reads it (ROADMAP.md, deliberate differences)"
+            )
         if compute_unit not in (None, "auto", "vpu"):
             raise NotImplementedError(
                 f"compute_unit={compute_unit!r} is not ported yet (ROADMAP.md queue 1 item 9)"
@@ -98,17 +126,46 @@ class Jacobi3D:
         self.kernel_impl = kernel_impl
         self.temporal_k = temporal_k
         self.pallas_path_request = pallas_path
+        self.z_ring_request = z_ring
         self._step = None
-        # which route realize() picked: "wrap" | "shell" (None on the torch engine)
+        # which route realize() picked: "wrap" | "shell" | "wavefront" (None on
+        # the torch engine); the wavefront's depth and form
         self._pallas_path = None
+        self._wavefront_m = 0
+        self._wavefront_z_slabs = False
+        self._wavefront_z_ring = False
 
     def realize(self) -> None:
+        self._wavefront_m = 0
+        if self.kernel_impl == "cuda" and self.pallas_path_request in ("auto", "wavefront"):
+            # decided BEFORE dd.realize(): the wavefront rides the halo
+            # multiplier (m-wide shells), which shapes the allocation
+            if self.pallas_path_request == "wavefront":
+                self._wavefront_m = self._plan_wavefront()  # raises if not viable
+            elif self.dd.halo_multiplier() == 1 and self.dd.planned_grid().count() > 1:
+                try:
+                    m = self._plan_wavefront()
+                except ValueError:
+                    m = 0
+                # depth 1 buys nothing over the one-level routes
+                self._wavefront_m = m if m >= 2 else 0
+            if self._wavefront_m:
+                self.dd.set_halo_multiplier(self._wavefront_m)
         self.dd.realize()
         # set compute region to (HOT+COLD)/2 (jacobi3d.cu:15-29, 253-263)
         mid = (HOT_TEMP + COLD_TEMP) / 2
         self.dd.init_by_coords(self.h, lambda x, y, z: torch.full((), mid) + 0 * (x + y + z))
         if self.kernel_impl == "cuda":
-            self._step = self._make_cuda_step()
+            if self._wavefront_m:
+                self._step = self._make_wavefront_step()
+            elif self.dd.halo_multiplier() != 1:
+                raise ValueError(
+                    "kernel_impl='cuda' requires halo multiplier 1 on the wrap and shell "
+                    "routes (their kernels assume a radius-1 shell); use kernel_impl='torch' "
+                    "with set_halo_multiplier, or pallas_path='wavefront', which sets its own"
+                )
+            else:
+                self._step = self._make_cuda_step()
         else:
             self._step = self.dd.make_step(self._kernel, overlap=self.overlap)
 
@@ -119,7 +176,7 @@ class Jacobi3D:
         if want == "wrap" and not single:
             raise ValueError("pallas_path='wrap' requires a single subdomain")
         n = dd.local_spec().sz
-        lo = dd._shell_radius.lo()
+        lo = dd.shell_radius().lo()
         name = self.h.name
         if want == "wrap" or (want == "auto" and single):
             self._pallas_path = "wrap"
@@ -142,7 +199,7 @@ class Jacobi3D:
             return wrap_step
 
         self._pallas_path = "shell"
-        shell = dd._shell_radius
+        shell = dd.shell_radius()
         gsize = dd.size().tuple()
         origins = dd.origins()
         yz_d2 = torch.stack(
@@ -165,6 +222,168 @@ class Jacobi3D:
             return curr
 
         return shell_step
+
+    def _plan_wavefront(self) -> int:
+        """The wavefront depth m (>= 1), chosen before ``dd.realize()`` as
+        the JAX package's ``_plan_wavefront`` does (models/jacobi.py:227-348):
+        an explicit ``temporal_k`` must satisfy 1 <= m <= the smallest shard
+        extent; "auto" takes the deepest m up to
+        ``min(_WRAP_MAX_K, n_min // 4, n_min)`` whose kernel fits the H100's
+        shared memory per block (``wavefront_smem_fits``, the Hopper
+        counterpart of the VMEM model).  m >= 2 plans the z-slab forms, m = 1
+        the plain form, as in the JAX package.  (Its tune cache and its MXU
+        and bf16 axes are not ported: ROADMAP.md queue 1 items 9 and 11.)"""
+        dd = self.dd
+        if dd.halo_multiplier() != 1:
+            raise ValueError("pallas_path='wavefront' manages the halo multiplier itself")
+        size = dd.size()
+        dim = dd.planned_grid().dim()
+        n = [-(-size[ax] // dim[ax]) for ax in range(3)]
+        # last-shard valid extents; the smallest caps the depth
+        v = [size[ax] - n[ax] * (dim[ax] - 1) for ax in range(3)]
+        if min(v) < 1:
+            raise ValueError(
+                f"pallas_path='wavefront': empty last shard for {tuple(size)} over {tuple(dim)}"
+            )
+        n_min = min(min(n), min(v))
+        if self.temporal_k != "auto":
+            m = int(self.temporal_k)
+            if not 1 <= m <= n_min:
+                raise ValueError(
+                    f"wavefront temporal_k={m} needs 1 <= m <= min(shard/valid)={n_min}"
+                )
+            if not wavefront_smem_fits(m):
+                raise ValueError(
+                    f"wavefront temporal_k={m} needs {wavefront_smem_bytes(m)} bytes of shared "
+                    "memory per block, more than the H100 grants one block"
+                )
+            self._wavefront_z_planned = True
+            return m
+        m = wavefront_auto_depth(n_min)
+        self._wavefront_z_planned = m >= 2
+        return m
+
+    def _make_wavefront_step(self):
+        """The temporally blocked multi-subdomain step (the JAX package's
+        ``_make_wavefront_step``, models/jacobi.py:350-629).  Per macro step:
+        exchange the m-wide x/y shells in the array, shift and extend the
+        z-major z-slab buffers (the z halo never touches the array), then one
+        m-level wavefront launch over every subdomain, which also emits the
+        next slabs.  ``steps % m`` runs one shallower launch over the same
+        m-wide shell (``interior_offset=m``).  Three forms, as in the JAX
+        package: z-ring (the array holds only the z interior), padded z-slab
+        (without the lane padding: a Hopper row coalesces at any width) and
+        plain (all three axes exchanged in the array; depth 1 only, since the
+        port has no uneven sizes yet).  A call takes up the working array and
+        slabs the last one left when the quantity is untouched since, so
+        ``step(1)`` repeated costs a depth-1 pass and the copy back each, not
+        the copy out and the priming too.  The shell goes stale."""
+        dd = self.dd
+        m = self._wavefront_m
+        n = dd.local_spec().sz
+        shell = dd.shell_radius()
+        raw = dd.local_spec().raw_size()
+        Xr, Yr, Zr = raw.tuple()
+        grid = dd.grid_dim().tuple()
+        count = dd.num_subdomains()
+        gsize = dd.size().tuple()
+        origins = dd.origins()
+        org = origins.cpu().tolist()
+        name = self.h.name
+        z_slab_mode = self._wavefront_z_planned
+        ring_pref = True if self.z_ring_request is None else bool(self.z_ring_request)
+        z_ring_mode = z_slab_mode and n.z % 128 == 0 and 2 * m <= _ZRING_OFF and ring_pref
+        self._pallas_path = "wavefront"
+        self._wavefront_z_slabs = z_slab_mode
+        self._wavefront_z_ring = z_ring_mode
+        yext, xext = make_slab_extenders(Xr, Yr, m)
+
+        def depths(steps):
+            macros, rem = divmod(steps, m)
+            return [m] * macros + ([rem] if rem else [])
+
+        def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
+            return t.view(count, *t.shape[3:])
+
+        def stacked(t):
+            return t.view(*grid, *t.shape[1:])
+
+        # what the last call left: its working array and outgoing z slabs,
+        # taken up again while nothing has written the quantity since (its
+        # version counter), so a caller stepping one iteration at a time
+        # pays neither the z-interior copy out nor the slab priming again
+        kept = {}
+
+        def resume(t):
+            if kept.get("t") is t and kept["version"] == t._version:
+                return kept["work"], kept["zout"]
+            return None
+
+        def keep(t, work, zout):
+            kept.clear()
+            if not t.is_inference():  # inference tensors have no version counter
+                kept.update(t=t, version=t._version, work=work, zout=zout)
+
+        if z_ring_mode:
+            Zi = n.z
+            d2 = torch.stack([
+                pack_d2(zring_dist2_plane(o[1] - m, o[2], m, Yr, Zi, gsize, dd.device), gsize)
+                for o in org
+            ])
+
+            def ring_step(curr, steps: int = 1):
+                stack = curr[name]
+                last = resume(stack)
+                if last is not None:
+                    b, zout = last
+                else:
+                    b = stack[..., m : m + Zi].contiguous()  # no z shell in the array
+                    zout = prime_z_slabs(stack, Zr, m)
+                for depth in depths(steps):
+                    halo_exchange_shard(b, shell, axes=(0, 1))
+                    zs = permute_and_extend_z_slabs(zout, m, yext, xext)
+                    b, zout = jacobi_zring_wavefront_step(
+                        batch(b), depth, origins, d2, gsize, z_slabs=batch(zs), interior_offset=m
+                    )
+                    b, zout = stacked(b), stacked(zout)
+                stack[..., m : m + Zi] = b
+                keep(stack, b, zout)
+                return curr
+
+            step = ring_step
+        else:
+            d2 = torch.stack([
+                pack_d2(yz_dist2_plane(o[1] - m, o[2] - m, (Yr, Zr), gsize, dd.device), gsize)
+                for o in org
+            ])
+
+            def slab_step(curr, steps: int = 1):
+                b = curr[name]
+                zout = None
+                if z_slab_mode:
+                    last = resume(b)
+                    zout = prime_z_slabs(b, Zr, m) if last is None else last[1]
+                for depth in depths(steps):
+                    if z_slab_mode:
+                        halo_exchange_shard(b, shell, axes=(0, 1))
+                        zs = permute_and_extend_z_slabs(zout, m, yext, xext)
+                        b, zout = jacobi_shell_wavefront_step(
+                            batch(b), depth, origins, d2, gsize, interior_offset=m,
+                            z_slabs=batch(zs), z_valid=Zr,
+                        )
+                        zout = stacked(zout)
+                    else:
+                        halo_exchange_shard(b, shell)
+                        b = jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize,
+                                                        interior_offset=m)
+                    b = stacked(b)
+                curr[name] = b
+                keep(b, None, zout)
+                return curr
+
+            step = slab_step
+        step._marks_shell_stale = True
+        return step
 
     def _kernel(self, views, info):
         size = info.global_size
@@ -197,7 +416,18 @@ class Jacobi3D:
         return {"temp": val.to(src.center().dtype)}
 
     def step(self, steps: int = 1) -> None:
-        """Advance ``steps`` iterations."""
+        """Advance ``steps`` iterations.  The torch engine under a halo
+        multiplier is built in macro steps (one exchange per ``mult``
+        iterations), so ``steps`` must divide into whole macros there; the
+        cuda routes count iterations themselves."""
+        mult = self.dd.halo_multiplier()
+        if self.kernel_impl == "torch" and mult > 1:
+            if steps % mult:
+                raise ValueError(
+                    f"steps={steps} must be a multiple of the halo multiplier {mult} "
+                    "on the torch engine (macro steps)"
+                )
+            steps //= mult
         self.dd.run_step(self._step, steps)
 
     def temperature(self) -> np.ndarray:

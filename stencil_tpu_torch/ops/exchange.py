@@ -3,18 +3,19 @@
 Counterpart of ``halo_exchange_multi`` / ``halo_exchange_shard``
 (``stencil_tpu/ops/exchange.py:428-607``), ``direct`` route.  A quantity is a
 ``(px, py, pz, Xr, Yr, Zr)`` stack of shell-carrying blocks.  The exchange runs
-three sweeps, x then y then z; each sweep sends slabs spanning the full raw
-extent of the other axes, so edges and corners ride along.  Slab positions
-follow the JAX package exactly: the low halo ``[0, r_lo)`` receives the -1
-neighbour's top interior slab ``[n, r_lo + n)``, the high halo
-``[r_lo + n, size)`` the +1 neighbour's bottom interior slab
+up to three sweeps, x then y then z (``axes`` picks which); each sweep sends
+slabs spanning the full raw extent of the other axes, so edges and corners
+ride along.  Slab positions follow the JAX package exactly: the low halo
+``[0, r_lo)`` receives the -1 neighbour's top interior slab ``[n, r_lo + n)``,
+the high halo ``[r_lo + n, size)`` the +1 neighbour's bottom interior slab
 ``[r_lo, r_lo + r_hi)``, the ``-dir`` convention (packer.cuh:91-93).
 
-``lax.ppermute`` becomes a neighbour gather: ``torch.roll`` of the slabs by
-one along the grid axis, which on a size-1 axis wraps a subdomain onto itself
-(the periodic boundary).  The JAX package leaves this to an XLA collective,
-not to Pallas, so plain torch does it here.  The halo WRITES go through
-``blend_slab``, the kernel the TPU path uses for them.
+``lax.ppermute`` becomes a neighbour gather (``shift_from_low`` /
+``shift_from_high``): ``torch.roll`` by one along the grid axis, which on a
+size-1 axis wraps a subdomain onto itself (the periodic boundary).  The JAX
+package leaves this to an XLA collective, not to Pallas, so plain torch does
+it here.  The halo WRITES go through ``blend_slab``, the kernel the TPU path
+uses for them.
 """
 
 from __future__ import annotations
@@ -33,15 +34,31 @@ UNEVEN_ROADMAP = (
 )
 
 
+def shift_from_low(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Each subdomain receives the value held by its -1 neighbour along grid
+    axis ``axis`` (data moves +): ``x`` is a ``(px, py, pz, ...)`` stack
+    (``_shift_from_low``, stencil_tpu/ops/exchange.py:181)."""
+    return torch.roll(x, 1, axis)
+
+
+def shift_from_high(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Each subdomain receives the value held by its +1 neighbour (data moves
+    -) (``_shift_from_high``, stencil_tpu/ops/exchange.py:189)."""
+    return torch.roll(x, -1, axis)
+
+
 def halo_exchange_multi(
     stacks: Sequence[torch.Tensor],
     radius: Radius,
     valid_last: Optional[Tuple[Optional[int], Optional[int], Optional[int]]] = None,
+    axes: Tuple[int, ...] = (0, 1, 2),
 ) -> List[torch.Tensor]:
     """Fill the halo shells of several quantities' stacks, in place, and
     return them.  Each stack is ``(px, py, pz, Xr, Yr, Zr)`` and all share one
-    shape.  ``valid_last`` (valid cells of the last subdomain per axis, for
-    uneven sizes) must be all None in this version."""
+    shape.  ``axes`` lists the sweeps to run (the wavefront route exchanges
+    x and y in the array and carries z on separate slabs).  ``valid_last``
+    (valid cells of the last subdomain per axis, for uneven sizes) must be
+    all None in this version."""
     if valid_last is not None and any(v is not None for v in valid_last):
         raise ValueError(UNEVEN_ROADMAP)
     stacks = list(stacks)
@@ -54,7 +71,7 @@ def halo_exchange_multi(
             f"{[tuple(s.shape) for s in stacks]}"
         )
     spatial = shape[3:]
-    for axis in range(3):
+    for axis in axes:
         r_lo = radius.axis(axis, -1)  # my low-side halo width
         r_hi = radius.axis(axis, +1)  # my high-side halo width
         if r_lo == 0 and r_hi == 0:
@@ -66,10 +83,10 @@ def halo_exchange_multi(
         if r_lo > 0:
             # data moves +axis: each subdomain receives its -1 neighbour's
             # top slab of interior, width r_lo
-            lo_recv = [torch.roll(s.narrow(dim, n, r_lo), 1, axis).contiguous() for s in stacks]
+            lo_recv = [shift_from_low(s.narrow(dim, n, r_lo), axis).contiguous() for s in stacks]
         if r_hi > 0:
             # data moves -axis: the +1 neighbour's bottom interior slab
-            hi_recv = [torch.roll(s.narrow(dim, r_lo, r_hi), -1, axis).contiguous() for s in stacks]
+            hi_recv = [shift_from_high(s.narrow(dim, r_lo, r_hi), axis).contiguous() for s in stacks]
         for j, s in enumerate(stacks):
             blocks = s.view(-1, *spatial)
             if lo_recv is not None:
@@ -79,6 +96,8 @@ def halo_exchange_multi(
     return stacks
 
 
-def halo_exchange_shard(stack: torch.Tensor, radius: Radius, valid_last=None) -> torch.Tensor:
+def halo_exchange_shard(
+    stack: torch.Tensor, radius: Radius, valid_last=None, axes: Tuple[int, ...] = (0, 1, 2)
+) -> torch.Tensor:
     """Single-quantity convenience wrapper over ``halo_exchange_multi``."""
-    return halo_exchange_multi([stack], radius, valid_last)[0]
+    return halo_exchange_multi([stack], radius, valid_last, axes=axes)[0]

@@ -1,9 +1,11 @@
-"""Jacobi level kernels: ``jacobi_wrap_step``, ``jacobi_plane_step`` and their
+"""Jacobi level kernels: ``jacobi_wrap_step``, ``jacobi_plane_step``,
+``jacobi_shell_wavefront_step``, ``jacobi_zring_wavefront_step`` and their
 plain versions.
 
 Counterpart of ``stencil_tpu/ops/jacobi_pallas.py`` in its ``vpu``/native f32
 form.  On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/jacobi.cu``); on a CPU tensor it runs the plain PyTorch version.
+(``csrc/jacobi.cu``, ``csrc/jacobi_wavefront.cu``); on a CPU tensor it runs
+the plain PyTorch version.
 
 Semantics, per level, match ``Jacobi3D._kernel`` of the JAX package: mean of
 the six face neighbours, then the hot and cold sphere clamps.  Two details
@@ -36,6 +38,23 @@ SIXTH = float(np.float32(1.0 / 6.0))
 #: level per launch, so the depth only sets how many launches one call makes;
 #: a shared-memory temporal-blocking kernel will re-derive it from tile sizes.
 WRAP_AUTO_K = 8
+
+#: the deepest temporal depth the JAX package plans (jacobi_pallas.py:627);
+#: the wavefront plan caps its depth with it, as the JAX package does
+_WRAP_MAX_K = 16
+
+#: lane offset of the interior in the z-ring working plane and d2 layout
+#: (jacobi_pallas.py:1183): the low halo sits just below it, the high halo
+#: wraps to column 0
+_ZRING_OFF = 128
+
+#: the wavefront kernel's tile per block: 32 output rows of y, and 64 columns
+#: of z with the m-cell apron on each side (64 - 2m output columns); and the
+#: shared memory one block may opt into on an H100 (232,448 bytes).
+#: ``wavefront_smem_bytes`` models ``csrc/jacobi_wavefront.cu`` with them
+WAVEFRONT_TILE_Y = 32
+WAVEFRONT_TILE_W = 64
+SMEM_PER_BLOCK = 232_448
 
 
 def sphere_params(gx: int):
@@ -213,3 +232,256 @@ def jacobi_plane_step(blocks, origins, yz_d2, global_size, out=None) -> torch.Te
 
 #: kernel launches made by ``jacobi_plane_step`` (plain-version calls do not count)
 jacobi_plane_step.launches = 0
+
+
+# --- the wavefront kernels ----------------------------------------------------
+
+
+def zring_dist2_plane(origin_y: int, origin_z: int, s_off: int, shape_y: int, z_interior: int,
+                      global_size, device=None) -> torch.Tensor:
+    """``yz_dist2_plane`` in the z-ring layout (jacobi_pallas.py:1186-1201):
+    columns ``[0, s_off)`` hold the high halo (z = Zi .. Zi+s_off), columns
+    ``[_ZRING_OFF - s_off, _ZRING_OFF)`` the low halo, columns
+    ``[_ZRING_OFF, _ZRING_OFF + Zi)`` the interior; ``(Yr, Zi + 128)`` int32."""
+    gy, gz = global_size[1], global_size[2]
+    y = (origin_y + torch.arange(shape_y, device=device)) % gy
+    c = torch.arange(_ZRING_OFF + z_interior, device=device)
+    z = torch.where(c < s_off, origin_z + z_interior + c, origin_z + c - _ZRING_OFF) % gz
+    return (((y - gy // 2) ** 2)[:, None] + ((z - gz // 2) ** 2)[None, :]).to(torch.int32)
+
+
+def pack_d2(yz_d2: torch.Tensor, global_size) -> torch.Tensor:
+    """The d2 plane as int32 (jacobi_pallas.py:740)."""
+    del global_size
+    return yz_d2.to(torch.int32)
+
+
+def wavefront_smem_bytes(m: int) -> int:
+    """Shared memory of one block of the m-level wavefront kernel: 2m+1
+    working planes (two per level below m, one incoming) and the d2 tile,
+    each a (32 + 2m) x 64 tile of 4-byte cells.  A constant of m, so the CPU
+    and the card plan the same depth."""
+    return (2 * m + 2) * (WAVEFRONT_TILE_Y + 2 * m) * WAVEFRONT_TILE_W * 4
+
+
+def wavefront_smem_fits(m: int) -> bool:
+    return wavefront_smem_bytes(m) <= SMEM_PER_BLOCK
+
+
+def wavefront_auto_depth(n_min: int) -> int:
+    """The wavefront depth ``temporal_k="auto"`` plans for a smallest shard
+    extent ``n_min`` (the JAX package's static plan, models/jacobi.py:336-347):
+    the deepest m in ``[2, min(_WRAP_MAX_K, n_min // 4, n_min)]`` whose kernel
+    fits, else 1.  The n_min // 4 cap keeps the redundant shell traffic a
+    small fraction of the shard."""
+    depth_cap = min(_WRAP_MAX_K, max(1, n_min // 4), n_min)
+    m = 1
+    for cand in range(2, depth_cap + 1):
+        if wavefront_smem_fits(cand):
+            m = cand
+    return m
+
+
+def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, ring, z_valid=None):
+    """Validate one wavefront call; returns (n, Xr, Yr, Zraw, zv)."""
+    if alias:
+        raise NotImplementedError(
+            "alias=True (an in-place wavefront) is refused: blocks march along x "
+            "independently, so a write can land before a neighbouring tile reads "
+            "it; see ROADMAP.md (deliberate differences)"
+        )
+    check_tensor(raw, "raw", ndims=(3, 4), dtype=torch.float32)
+    single = raw.dim() == 3
+    n = 1 if single else raw.shape[0]
+    Xr, Yr, Zraw = raw.shape[-3:]
+    check_tensor(origin, "origin", ndims=(1,) if single else (2,), dtype=torch.int32)
+    if tuple(origin.shape) != ((3,) if single else (n, 3)):
+        raise ValueError(f"origin shape {tuple(origin.shape)} does not fit {n} block(s)")
+    check_tensor(d2, "d2", ndims=(2,) if single else (3,), dtype=torch.int32)
+    zv = Zraw if z_valid is None else int(z_valid)
+    want_d2 = (Yr, _ZRING_OFF + Zraw) if ring else (Yr, Zraw)
+    if tuple(d2.shape[-2:]) != want_d2 or (not single and d2.shape[0] != n):
+        raise ValueError(f"d2 shape {tuple(d2.shape)}, want {want_d2} per block")
+    if not 1 <= m <= s_off:
+        raise ValueError(f"m={m} needs 1 <= m <= interior_offset={s_off}")
+    shelled = (Xr, Yr) if ring else (Xr, Yr, zv)
+    if 2 * s_off >= min(shelled):
+        raise ValueError(f"raw {tuple(raw.shape)} needs > 2*{s_off} cells per shelled axis")
+    if 2 * s_off >= global_size[0]:
+        # keeps the kernel's x_g = (origin_x + gx + p - s_off) mod gx operand >= 0
+        raise ValueError(f"interior_offset={s_off} needs 2*interior_offset < gx = {global_size[0]}")
+    if not zv <= Zraw:
+        raise ValueError(f"z_valid={zv} exceeds the plane width {Zraw}")
+    if ring and not (2 * s_off <= _ZRING_OFF and s_off <= Zraw):
+        raise ValueError(
+            f"the z-ring layout needs 2*interior_offset <= {_ZRING_OFF} and "
+            f"interior_offset <= Zi = {Zraw}"
+        )
+    if not wavefront_smem_fits(m):
+        raise ValueError(
+            f"m={m} needs {wavefront_smem_bytes(m)} bytes of shared memory per block, "
+            f"over the H100's {SMEM_PER_BLOCK}"
+        )
+    tensors = [raw, origin, d2]
+    if z_slabs is not None:
+        check_tensor(z_slabs, "z_slabs", ndims=(raw.dim(),), dtype=torch.float32)
+        want = (Xr, 2 * s_off, Yr) if single else (n, Xr, 2 * s_off, Yr)
+        if tuple(z_slabs.shape) != want:
+            raise ValueError(f"z_slabs shape {tuple(z_slabs.shape)}, want {want}")
+        tensors.append(z_slabs)
+    same_device(*tensors)
+    return n, Xr, Yr, Zraw, zv
+
+
+def _wavefront_levels(w, m, origin, d2, global_size, s_off):
+    """``m`` Jacobi levels over the working planes ``w`` (n, Xr, Yr, W) with
+    rolls: every axis wraps, and the wrapped cells are the ones the shell was
+    sized to sacrifice.  Raw plane p sits at global x ``origin_x + p - s_off``;
+    the sphere test follows it on shell planes too, since their intermediate
+    levels feed valid cells."""
+    gx = global_size[0]
+    hot_x, cold_x, in_r2 = sphere_params(gx)
+    Xr = w.shape[1]
+    x_g = (origin[:, 0:1].long() + gx + torch.arange(Xr, device=w.device) - s_off) % gx
+    x_g = x_g[:, :, None, None]
+    d2 = d2[:, None]
+    for _ in range(m):
+        s = torch.roll(w, 1, 1) + torch.roll(w, -1, 1)  # x-1, x+1
+        s = s + torch.roll(w, 1, 2)  # y-1
+        s = s + torch.roll(w, -1, 2)  # y+1
+        s = s + torch.roll(w, 1, 3)  # z-1
+        s = s + torch.roll(w, -1, 3)  # z+1
+        w = _clamp_spheres(s * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
+    return w
+
+
+def _emit(w, lo_col: int, hi_col: int, s_off: int) -> torch.Tensor:
+    """The outgoing z slabs, z-major ``(n, Xr, 2s, Yr)``: rows [0, s) the
+    columns from ``hi_col`` (top interior, the -z-bound message), rows
+    [s, 2s) the columns from ``lo_col`` (bottom interior, +z-bound)."""
+    return torch.cat(
+        [w[..., hi_col : hi_col + s_off], w[..., lo_col : lo_col + s_off]], dim=-1
+    ).transpose(-1, -2).contiguous()
+
+
+def _batched(*ts):
+    return [None if t is None else t[None] for t in ts]
+
+
+def jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_offset=None,
+                                      alias=False, z_slabs=None, z_valid=None):
+    """``m`` Jacobi levels over s-shelled block(s) ``(Xr, Yr, Zr)`` or
+    ``(n, Xr, Yr, Zr)`` (jacobi_pallas.py:983).  ``d2`` is
+    ``yz_dist2_plane`` over each raw plane; ``z_slabs`` ``(.., Xr, 2s, Yr)``
+    replace the z-shell columns ``[0, s)`` and ``[z_valid - s, z_valid)``
+    (columns ``[z_valid, Zr)`` are dead).  Returns the new block(s), and with
+    ``z_slabs`` also the outgoing slabs.  The interior ``[s, ext - s)`` of
+    every axis is exact; shell cells are unspecified."""
+    s_off = m if interior_offset is None else interior_offset
+    _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid)
+    single = raw.dim() == 3
+    if single:
+        raw, origin, d2, z_slabs = _batched(raw, origin, d2, z_slabs)
+    zv = raw.shape[-1] if z_valid is None else z_valid
+    w = raw.clone()
+    if z_slabs is not None:
+        zst = z_slabs.transpose(-1, -2)  # (n, Xr, Yr, 2s)
+        w[..., 0:s_off] = zst[..., 0:s_off]
+        w[..., zv - s_off : zv] = zst[..., s_off:]
+    w = _wavefront_levels(w, m, origin, d2, global_size, s_off)
+    out = w[0] if single else w
+    if z_slabs is None:
+        return out
+    z_out = _emit(w, s_off, zv - 2 * s_off, s_off)
+    return out, (z_out[0] if single else z_out)
+
+
+def jacobi_shell_wavefront_step(raw, m, origin, d2, global_size, interior_offset=None,
+                                alias=False, z_slabs=None, z_valid=None):
+    """``m`` Jacobi levels over s-shelled block(s) in ONE pass: the compute
+    half of the temporally blocked multi-subdomain route.  Arguments and
+    result as ``jacobi_shell_wavefront_step_plain``; ``alias=True`` is
+    refused (see ``_check_wavefront``).  One CUDA launch serves all ``n``
+    blocks; the output is a fresh buffer."""
+    s_off = m if interior_offset is None else interior_offset
+    n, Xr, Yr, Zr, zv = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid)
+    if raw.device.type == "cpu":
+        return jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_offset,
+                                                 alias, z_slabs, z_valid)
+    out = torch.empty_like(raw)
+    z_out = None if z_slabs is None else torch.empty_like(z_slabs)
+    _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zr, zv, m, s_off,
+                      Zr, global_size, ring=False)
+    jacobi_shell_wavefront_step.launches += 1
+    return out if z_out is None else (out, z_out)
+
+
+#: kernel launches made by ``jacobi_shell_wavefront_step``
+jacobi_shell_wavefront_step.launches = 0
+
+
+def jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
+                                      interior_offset=None, alias=False):
+    """``m`` Jacobi levels over block(s) ``(Xr, Yr, Zi)`` that carry their
+    x/y shell in the array and no z shell (jacobi_pallas.py:1204): each plane
+    is staged into the z-ring working plane ``(Yr, 128 + Zi)`` (interior at
+    column 128, low halo just below, high halo wrapped to column 0, from
+    ``z_slabs``), ``d2`` is ``zring_dist2_plane``.  Returns ``(out, z_out)``;
+    exact on the x/y interior and every z column."""
+    s_off = m if interior_offset is None else interior_offset
+    _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True)
+    single = raw.dim() == 3
+    if single:
+        raw, origin, d2, z_slabs = _batched(raw, origin, d2, z_slabs)
+    Zi = raw.shape[-1]
+    w = torch.zeros(raw.shape[:-1] + (_ZRING_OFF + Zi,), dtype=raw.dtype, device=raw.device)
+    w[..., _ZRING_OFF:] = raw
+    zst = z_slabs.transpose(-1, -2)  # (n, Xr, Yr, 2s)
+    w[..., _ZRING_OFF - s_off : _ZRING_OFF] = zst[..., 0:s_off]
+    w[..., 0:s_off] = zst[..., s_off:]
+    w = _wavefront_levels(w, m, origin, d2, global_size, s_off)
+    out = w[..., _ZRING_OFF:].contiguous()
+    z_out = _emit(w, _ZRING_OFF, _ZRING_OFF + Zi - s_off, s_off)
+    return (out[0], z_out[0]) if single else (out, z_out)
+
+
+def jacobi_zring_wavefront_step(raw, m, origin, d2, global_size, z_slabs,
+                                interior_offset=None, alias=False):
+    """``m`` Jacobi levels in ONE pass over z-interior-only block(s), the z
+    halo taken from ``z_slabs`` and the next slabs emitted; arguments and
+    result as ``jacobi_zring_wavefront_step_plain``.  One CUDA launch serves
+    all ``n`` blocks; the outputs are fresh buffers."""
+    s_off = m if interior_offset is None else interior_offset
+    n, Xr, Yr, Zi, _ = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True)
+    if raw.device.type == "cpu":
+        return jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
+                                                 interior_offset, alias)
+    out = torch.empty_like(raw)
+    z_out = torch.empty_like(z_slabs)
+    _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zi, Zi + 2 * s_off, m,
+                      s_off, _ZRING_OFF + Zi, global_size, ring=True)
+    jacobi_zring_wavefront_step.launches += 1
+    return out, z_out
+
+
+#: kernel launches made by ``jacobi_zring_wavefront_step``
+jacobi_zring_wavefront_step.launches = 0
+
+
+def _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zraw, width, m, s_off,
+                      d2_w, global_size, ring):
+    """One launch of ``csrc/jacobi_wavefront.cu`` over all ``n`` blocks;
+    ``width`` is the logical plane width (z_valid, or Zi + 2s on the ring)."""
+    from stencil_tpu_torch.kernels import build
+
+    lib = build.load("jacobi_wavefront")
+    gx = int(global_size[0])
+    hot_x, cold_x, in_r2 = sphere_params(gx)
+    rc = lib.stp_jacobi_wavefront(
+        raw.data_ptr(), out.data_ptr(), origin.data_ptr(), d2.data_ptr(),
+        None if z_slabs is None else z_slabs.data_ptr(),
+        None if z_out is None else z_out.data_ptr(),
+        n, Xr, Yr, Zraw, width, m, s_off, d2_w, gx, hot_x, cold_x, in_r2, int(ring),
+        stream_handle(raw.device),
+    )
+    build.check(lib, rc, "jacobi_zring_wavefront_step" if ring else "jacobi_shell_wavefront_step")

@@ -63,7 +63,7 @@ def test_cuda_wrap_route_bitwise_vs_pallas_wrap():
 def test_cuda_shell_route_bitwise_vs_pallas_shell():
     size = (24, 24, 24)
     j = _jax(size, kernel_impl="pallas", interpret=True, pallas_path="shell")
-    t = _port(size, subdomains=8, kernel_impl="cuda")
+    t = _port(size, subdomains=8, kernel_impl="cuda", pallas_path="shell")
     assert t._pallas_path == "shell" and tuple(t.dd.grid_dim()) == (2, 2, 2)
     j.step(4)
     t.step(4)
@@ -87,7 +87,7 @@ def test_torch_route_vs_cuda_routes():
     and shell routes share the kernels' order and agree bitwise."""
     size = (24, 24, 24)
     ref = _port(size, subdomains=8)
-    shell = _port(size, subdomains=8, kernel_impl="cuda")
+    shell = _port(size, subdomains=8, kernel_impl="cuda", pallas_path="shell")
     wrap = _port(size, kernel_impl="cuda")
     for m in (ref, shell, wrap):
         m.step(4)
@@ -105,7 +105,7 @@ def test_state_carries_between_packages(route):
         t = _port(size, kernel_impl="cuda")
     else:
         j = _jax(size, kernel_impl="pallas", interpret=True, pallas_path="shell")
-        t = _port(size, subdomains=8, kernel_impl="cuda")
+        t = _port(size, subdomains=8, kernel_impl="cuda", pallas_path="shell")
     j.step(3)
     to_torch_state(j.dd.raw_to_host(j.h), t.dd)
     np.testing.assert_array_equal(t.temperature(), j.temperature())
@@ -114,7 +114,7 @@ def test_state_carries_between_packages(route):
     np.testing.assert_array_equal(t.temperature(), j.temperature())
     raw = to_jax_state(t.dd)
     assert raw.shape == j.dd.raw_to_host(j.h).shape
-    back = _port(size, subdomains=t.dd.num_subdomains(), kernel_impl="cuda")
+    back = _port(size, subdomains=t.dd.num_subdomains(), kernel_impl="cuda", pallas_path=route)
     to_torch_state(raw, back.dd)
     np.testing.assert_array_equal(back.temperature(), t.temperature())
 
@@ -132,8 +132,8 @@ def test_wrap_marks_shell_stale_and_readback_reexchanges():
 
 def test_unported_options_name_the_roadmap():
     for kw in (
-        {"pallas_path": "wavefront"},
         {"pallas_path": "slab"},
+        {"wavefront_alias": True},
         {"compute_unit": "mxu"},
         {"storage_dtype": "bf16"},
         {"kernel_impl": "cuda", "dtype": torch.float64},
@@ -141,8 +141,6 @@ def test_unported_options_name_the_roadmap():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Jacobi3D(8, 8, 8, device="cpu", **kw)
     m = Jacobi3D(8, 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.dd.set_halo_multiplier(2)
     m.realize()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.dd.make_step(m._kernel, engine="stream")
