@@ -34,7 +34,25 @@ non-zero before the result line:
    operations over 67 TFLOP/s, H100 SXM); each route's Mcells/s; from 20
    more steps of each route under torch.profiler, device time by kernel and
    the device's idle share; and the host-clock ms of a ``step(1)`` call on
-   the wavefront and shell routes.
+   the wavefront and shell routes;
+8. the Astaroth main path: ``AstarothSim(512, 512, 512, num_quantities=8,
+   kernel_impl="cuda", schedule="wavefront")`` on one subdomain (the
+   ``bench.py`` configuration: per-field stream_wavefront_pass launches at
+   m = 3), then ``auto`` (the wrap route, stream_wrap_pass), ``per-step`` on
+   2x2x2 (the plane route, stream_plane_pass) and ``auto`` on 2x2x2 (the
+   wavefront again), 24 iterations each with the counters reset before and
+   read after; every route bitwise equal to the first after those 24, the
+   fields finite and inside [-1, 1]; then 2 x 24 timed iterations (the
+   better is ms/iter and Mupdates/s = 8 * 512^3 / dt, as ``bench.py``), 24
+   under torch.profiler (device time by kernel, idle share).  Before it, the
+   same routes at 32^3 with 2 quantities against the torch engine, bitwise;
+9. times of the three stream kernels at the main path's shapes, as phase 7.
+
+Phase 2 builds the stream kernels (templates plus the traced Astaroth
+kernel's emitted body, and the bodies the phase-3 checks use) in the same
+parallel nvcc batch as the other sources; phase 3 also holds every stream
+kernel against its plain version, on ragged shapes (a 27-point and a
+coordinate-forced kernel, two joint fields) and at the main path's shapes.
 
 Then it prints the card line, one ``{"kernels": [...]}`` JSON line and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -56,6 +74,8 @@ import torch
 N = 512  # the reference's default domain, 512^3 f32
 STEPS = 200
 CHECK_AT = 10
+AST_Q = 8  # the real Astaroth's field count (bench.py's astaroth section)
+AST_ITERS = 24  # bench.py's astaroth iterations
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 OUT_DIR = "chiprun_out"
@@ -98,6 +118,26 @@ def seeded(shape, seed: int, dev) -> torch.Tensor:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def k27_kernel(views, info):
+    """The 27-point user kernel of ``__graft_entry__.py``."""
+    src, acc = views["u"], 0.0
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                acc = acc + src.sh(dx, dy, dz) / (2.0 ** (abs(dx) + abs(dy) + abs(dz)))
+    return {"u": acc / 8.0}
+
+
+def forced_kernel(views, info):
+    """Coordinate forcing (tests/test_stream.py) that also reads the level."""
+    src = views["u"]
+    cx, cy, cz = info.coords()
+    g = info.global_size
+    val = (src.sh(1, 0, 0) + src.sh(-1, 0, 0) + src.sh(0, 1, 0) + src.sh(0, -1, 0)) / 4.0
+    d2 = (cx - g.x // 2) ** 2 + (cy - g.y // 2) ** 2 + (cz - g.z // 2) ** 2
+    return {"u": torch.where(d2 < 9, 1.0, val * info.level)}
 
 
 def device_breakdown(model, steps: int = 20) -> dict:
@@ -143,21 +183,55 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     dev = torch.device("cuda")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stencil_tpu_torch.core.dim3 import Dim3
     from stencil_tpu_torch.kernels import build, ledger
+    from stencil_tpu_torch.models.astaroth import AstarothSim
     from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
     from stencil_tpu_torch.ops import halo_blend as hb
     from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.ops import stream as st
     from stencil_tpu_torch.ops.exchange import halo_exchange_shard
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    # the traced kernels phase 3 runs: Astaroth's own (one field for the
+    # per-field wavefront, all 8 for the joint wrap and plane passes), and
+    # ragged cases of a 27-point and a coordinate-forced kernel
+    ast_kernel = AstarothSim(8, 8, 8, device=dev)._kernel
+    ast_names = [f"d{i}" for i in range(AST_Q)]
+    gs_main = (N, N, N)
+    ak1 = StreamKernel(ast_kernel, ast_names[:1], 1, gs_main)
+    ak8 = StreamKernel(ast_kernel, ast_names, 1, gs_main)
+    gs_r = (30, 40, 140)
+    ragged_k = {name: StreamKernel(fn, names, 1, gs_r) for name, fn, names in (
+        ("k27", k27_kernel, ["u"]), ("forced", forced_kernel, ["u"]), ("mean6x2", ast_kernel, ["a", "b"]))}
+    stream_sources = [("stream_wrap", st._source(ak8, "stream_wrap", st._WRAP_LEVELS)),
+                      ("stream_plane", st._source(ak8, "stream_plane", [1]))]
+    stream_sources += [("stream_wavefront", st._source(ak1, *st._wavefront_variant(m))) for m in (1, 2, 3)]
+    # phase 8's small check runs Astaroth with 2 joint fields (the same body
+    # as "mean6x2": field names do not reach the emitted code)
+    ak2 = StreamKernel(ast_kernel, ast_names[:2], 1, (32, 32, 32))
+    stream_sources += [("stream_wavefront", st._source(ak2, *st._wavefront_variant(m))) for m in (1, 3)]
+    for sk in ragged_k.values():
+        stream_sources += [("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS)),
+                           ("stream_plane", st._source(sk, "stream_plane", [1])),
+                           ("stream_wavefront", st._source(sk, *st._wavefront_variant(2)))]
 
     # --- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s wall for {list(build.SOURCES)} "
+    with ThreadPoolExecutor(2) as pool:  # every nvcc of both calls at once
+        jobs = [pool.submit(build.build), pool.submit(build.build_generated, dict.fromkeys(stream_sources))]
+        for job in jobs:
+            job.result()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall for {list(build.SOURCES)} and "
+        f"{len(set(stream_sources))} stream variants; "
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in build.BUILD_LOG.items()))
 
     # --- 3. kernel vs plain on the card -----------------------------------------
     errs = {"jacobi_wrap_step": 0.0, "jacobi_plane_step": 0.0, "blend_slab": 0.0,
-            "jacobi_zring_wavefront_step": 0.0, "jacobi_shell_wavefront_step": 0.0}
+            "jacobi_zring_wavefront_step": 0.0, "jacobi_shell_wavefront_step": 0.0,
+            "stream_wrap_pass": 0.0, "stream_plane_pass": 0.0, "stream_wavefront_pass": 0.0}
 
     def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -266,6 +340,63 @@ def main() -> int:
     main_shell = wavefront_args(8, rw, rw, rw, mw, False, True, gs, 32)
     hold_wavefront(False, mw, mw, *main_shell, gs, rw, f"8x{rw}^3 m={mw} slabs")
     hold_wavefront(False, mw, mw, *main_shell[:3], None, gs, None, f"8x{rw}^3 m={mw} no slabs")
+
+    # the stream kernels: ragged cases, then the Astaroth main path's shapes
+    def hold_fields(name, got, want, what):
+        for q, (g, w) in enumerate(zip(got, want)):
+            hold(name, g, w, f"{what} field {q}")
+
+    def hold_stream_wavefront(sk, raws, m, s_off, org, gs_w, zs, z_valid, what):
+        kw = dict(z_slabs=zs, z_valid=z_valid)
+        got, got_z = st.stream_wavefront_pass(sk, sk.names, raws, m, s_off, org, gs_w, **kw)
+        want, want_z = st.stream_wavefront_pass_plain(sk, sk.names, raws, m, s_off, org, gs_w, **kw)
+        S, zv = slice(s_off, -s_off), z_valid or raws[0].shape[-1]
+        hold_fields("stream_wavefront_pass", [g[:, S, S, s_off:zv - s_off] for g in got],
+                    [w[:, S, S, s_off:zv - s_off] for w in want], what)
+        if zs is not None:
+            hold_fields("stream_wavefront_pass", [g[:, S, :, S] for g in got_z],
+                        [w[:, S, :, S] for w in want_z], what + " z_out")
+
+    for name, sk in ragged_k.items():
+        nf = len(sk.names)
+        blocks_w = [seeded(gs_r, 40 + q, dev) for q in range(nf)]
+        org0 = torch.zeros(3, dtype=torch.int32, device=dev)
+        hold_fields("stream_wrap_pass", st.stream_wrap_pass(sk, sk.names, blocks_w, 2, org0, gs_r),
+                    st.stream_wrap_pass_plain(sk, sk.names, blocks_w, 2, org0, gs_r), f"{name} {gs_r} k=2")
+        raws_p = [seeded((2, 17, 19, 70), 50 + q, dev) for q in range(nf)]
+        org_p = torch.tensor([[0, 0, 0], [13, 17, 60]], dtype=torch.int32, device=dev)
+        lo_p, hi_p = Dim3(1, 2, 1), Dim3(2, 1, 3)
+        hold_fields("stream_plane_pass", st.stream_plane_pass(sk, sk.names, raws_p, lo_p, hi_p, 1, org_p, gs_r),
+                    st.stream_plane_pass_plain(sk, sk.names, raws_p, lo_p, hi_p, 1, org_p, gs_r),
+                    f"{name} 2x(17,19,70)")
+        raws_w = [seeded((2, 22, 26, 40), 60 + q, dev) for q in range(nf)]
+        zs_w = [seeded((2, 22, 6, 26), 70 + q, dev) for q in range(nf)]
+        org_w = torch.tensor([[5, 0, 7], [27, 20, 0]], dtype=torch.int32, device=dev)
+        for slabs in (False, True):
+            hold_stream_wavefront(sk, raws_w, 2, 3, org_w, gs_r, zs_w if slabs else None, 37 if slabs else None,
+                                  f"{name} 2x(22,26,40) m=2 s=3 slabs={slabs}")
+    # main path shapes: the wrap pass over 8 fields of 512^3, the plane pass
+    # over 8 fields of 8 x 262^3 blocks, the wavefront over one 518^3 field
+    # (one subdomain) and one field of 8 x 262^3 blocks (2x2x2)
+    org0 = torch.zeros(3, dtype=torch.int32, device=dev)
+    main_wrap = [seeded(gs_main, 80 + q, dev) for q in range(AST_Q)]
+    hold_fields("stream_wrap_pass", st.stream_wrap_pass(ak8, ast_names, main_wrap, 1, org0, gs_main),
+                st.stream_wrap_pass_plain(ak8, ast_names, main_wrap, 1, org0, gs_main), f"{AST_Q}x{N}^3 k=1")
+    torch.cuda.empty_cache()
+    ps = half + 6
+    main_plane = [seeded((8, ps, ps, ps), 90 + q, dev) for q in range(AST_Q)]
+    shell3 = Dim3(3, 3, 3)
+    hold_fields("stream_plane_pass", st.stream_plane_pass(ak8, ast_names, main_plane, shell3, shell3, 1, org, gs),
+                st.stream_plane_pass_plain(ak8, ast_names, main_plane, shell3, shell3, 1, org, gs),
+                f"{AST_Q} fields x 8x{ps}^3")
+    torch.cuda.empty_cache()
+    ws = N + 6
+    main_wf = ([seeded((1, ws, ws, ws), 100, dev)], seeded((1, ws, 6, ws), 101, dev))
+    hold_stream_wavefront(ak1, main_wf[0], 3, 3, org0.view(1, 3), gs_main, [main_wf[1]], ws,
+                          f"1x{ws}^3 m=3 slabs")
+    main_wf8 = ([main_plane[0]], seeded((8, ps, 6, ps), 102, dev))
+    hold_stream_wavefront(ak1, main_wf8[0], 3, 3, org, gs, [main_wf8[1]], ps, f"8x{ps}^3 m=3 slabs")
+    torch.cuda.empty_cache()
     log(f"kernel vs plain: bitwise equal on every case; max abs err {errs}")
 
     # --- 4. main path, wrap route ---------------------------------------------
@@ -492,6 +623,137 @@ def main() -> int:
         f"{STEPS - CHECK_AT} steps) on {card}")
     log(f"engine torch: {torch_mcells:.1f} Mcells/s ({N}^3 f32, 1 subdomain, {CHECK_AT} steps) on {card}")
 
+    # --- 8. the Astaroth main path ------------------------------------------------
+    del main_wrap, main_plane, main_wf, main_wf8, stack, blocks, out, shell
+    torch.cuda.empty_cache()
+    ast_cases = (("wavefront", "wavefront", None), ("auto", "wrap", None),
+                 ("per-step", "plane", (2, 2, 2)), ("auto", "wavefront", (2, 2, 2)))
+    # a small input first: every route against the torch engine, bitwise
+    small_ref = AstarothSim(32, 32, 32, num_quantities=2)
+    small_ref.realize()
+    small_ref.step(7)
+    for schedule, route, part in ast_cases:
+        sim = AstarothSim(32, 32, 32, num_quantities=2, kernel_impl="cuda", schedule=schedule,
+                          subdomains=1 if part is None else 8)
+        sim.realize()
+        sim.step(7)
+        if sim._step._stream_plan["route"] != route or not all(
+                np.array_equal(sim.field(i), small_ref.field(i)) for i in range(2)):
+            raise AssertionError(f"astaroth 32^3 {schedule} {part}: not the torch engine's fields")
+    log("astaroth 32^3, 2 quantities: every route bitwise equal to the torch engine after 7 steps")
+
+    def interiors(sim) -> torch.Tensor:
+        """Every field's interior on the card, (q, X, Y, Z) in global order."""
+        lo, n = sim.dd.shell_radius().lo(), sim.dd.local_spec().sz
+        return torch.stack([
+            sim.dd.get_curr(h)[..., lo.x:lo.x + n.x, lo.y:lo.y + n.y, lo.z:lo.z + n.z]
+            .permute(0, 3, 1, 4, 2, 5).reshape(N, N, N) for h in sim.handles])
+
+    ast = {}
+    ast_first = None
+    for schedule, route, part in ast_cases:
+        key = f"{schedule} {'x'.join(map(str, part or (1, 1, 1)))}"
+        sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", schedule=schedule)
+        if part is not None:
+            sim.dd.set_partition(*part)
+        t0 = time.perf_counter()
+        sim.realize()  # allocation, init and the kernels' build
+        setup_s = time.perf_counter() - t0
+        plan = sim._step._stream_plan
+        ledger.reset_launch_counts()
+        sync()
+        sim.step(AST_ITERS)
+        sync()
+        counts = ledger.launch_counts()
+        if plan["route"] != route:
+            raise AssertionError(f"astaroth {key}: route {plan['route']}, want {route}")
+        kernel = f"stream_{route}_pass"
+        if counts[kernel] == 0:
+            raise AssertionError(f"astaroth {key}: {kernel} never launched: {counts}")
+        got = interiors(sim)
+        if not (bool(torch.isfinite(got).all()) and float(got.abs().max()) <= 1.0):
+            raise AssertionError(f"astaroth {key}: fields not finite or outside [-1, 1]")
+        if ast_first is None:
+            ast_first = got
+        elif not torch.equal(got, ast_first):
+            raise AssertionError(f"astaroth {key} != {ast_cases[0][0]} after {AST_ITERS} iterations")
+        del got
+        dts = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dts.append((time.perf_counter() - t0) / AST_ITERS)
+        dt = min(dts)
+        prof = device_breakdown(sim, AST_ITERS)
+        ledger.reset_launch_counts()  # the unit of PERF.md's kernel table
+        sim.step(STEPS)
+        sync()
+        counts_200 = {k: v for k, v in ledger.launch_counts().items() if v}
+        ast[key] = {"route": plan["route"], "m": plan["m"], "grouping": plan["grouping"],
+                    "z_slabs": plan["z_slabs"], "launches": counts, f"launches_{STEPS}": counts_200,
+                    "ms_per_iter": dt * 1e3,
+                    "ms_per_iter_runs": [t * 1e3 for t in dts],
+                    "mupdates_per_s": AST_Q * N ** 3 / dt / 1e6, "setup_s": setup_s, "profile": prof}
+        log(f"astaroth {AST_Q}q {N}^3 schedule={key} ({plan['route']}, m={plan['m']}, {plan['grouping']}): "
+            f"{dt * 1e3:.4f} ms/iter, {AST_Q * N ** 3 / dt / 1e6:.1f} Mupdates/s on {card}; launches per "
+            f"{AST_ITERS} iterations {dict((k, v) for k, v in counts.items() if v)}, per {STEPS} {counts_200}; "
+            f"bitwise equal to {ast_cases[0][0]}")
+        log_breakdown(f"astaroth {key}", prof)
+        del sim
+        torch.cuda.empty_cache()
+    del ast_first
+    torch.cuda.empty_cache()
+
+    # --- 9. stream kernel times at the main path's shapes ------------------------------
+    def trace_ops(sk) -> int:
+        """Arithmetic operations per cell of one field's update."""
+        return sum(n.op not in ("load", "coord", "const") for n in sk.trace().live()) // len(sk.names)
+
+    def stream_wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs, fields):
+        """Bytes one stream wavefront call must move (as wavefront_bytes,
+        without the d2 plane): per field and block, the cells its m levels
+        reach read once, the valid region written once; the origins."""
+        e = s_off - m
+        Xa, Ya, Wa = Xr - 2 * e, Yr - 2 * e, W - 2 * e
+        Xi, Yi, Wi = Xr - 2 * s_off, Yr - 2 * s_off, W - 2 * s_off
+        reads = Xa * Ya * (Wa - 2 * m if slabs else Wa)
+        writes = Xi * Yi * Wi
+        if slabs:
+            reads += Xa * 2 * m * Ya
+            writes += Xi * 2 * s_off * Yi
+        return fields * n * (reads + writes) * 4 + n * 12
+
+    ops = trace_ops(ak1)
+    wf_raw = [seeded((1, ws, ws, ws), 110, dev)]
+    wf_zs = [seeded((1, ws, 6, ws), 111, dev)]
+    wf_args = (ak1, ast_names[:1], wf_raw, 3, 3, org0.view(1, 3), gs_main)
+    swf_ms = cuda_ms(lambda: st.stream_wavefront_pass(*wf_args, z_slabs=wf_zs, z_valid=ws), inner=2)
+    swf_plain_ms = cuda_ms(lambda: st.stream_wavefront_pass_plain(*wf_args, z_slabs=wf_zs, z_valid=ws),
+                           reps=3, inner=1)
+    swf_bytes = stream_wavefront_bytes(1, ws, ws, ws, 3, 3, True, 1)
+    swf_flops = ops * N ** 3 * 3
+    del wf_raw, wf_zs
+    torch.cuda.empty_cache()
+    wrap_in = [seeded(gs_main, 120 + q, dev) for q in range(AST_Q)]
+    swr_ms = cuda_ms(lambda: st.stream_wrap_pass(ak8, ast_names, wrap_in, 1, org0, gs_main), inner=2)
+    swr_plain_ms = cuda_ms(lambda: st.stream_wrap_pass_plain(ak8, ast_names, wrap_in, 1, org0, gs_main),
+                           reps=3, inner=1)
+    swr_bytes = 2 * AST_Q * N ** 3 * 4 + 12
+    del wrap_in
+    torch.cuda.empty_cache()
+    plane_in = [seeded((8, ps, ps, ps), 130 + q, dev) for q in range(AST_Q)]
+    pl_args = (ak8, ast_names, plane_in, shell3, shell3, 1, org, gs)
+    spl_ms = cuda_ms(lambda: st.stream_plane_pass(*pl_args), inner=2)
+    spl_plain_ms = cuda_ms(lambda: st.stream_plane_pass_plain(*pl_args), reps=3, inner=1)
+    spl_bytes = 2 * AST_Q * 8 * ps ** 3 * 4 + 8 * 12
+    del plane_in
+    torch.cuda.empty_cache()
+    log(f"stream kernels at the main path's shapes (ms, CUDA events): wavefront {swf_ms:.4f} "
+        f"(plain {swf_plain_ms:.4f}), wrap {swr_ms:.4f} (plain {swr_plain_ms:.4f}), plane {spl_ms:.4f} "
+        f"(plain {spl_plain_ms:.4f}) on {card}")
+
     rows = []
     specs = [
         ("jacobi_wrap_step", wrap_counts, wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells,
@@ -504,14 +766,21 @@ def main() -> int:
          f"(8,{rw},{rw},{half}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), d2 (8,{rw},{half + 128})"),
         ("jacobi_shell_wavefront_step", slab_counts, shwf_ms, shwf_plain_ms, None, shwf_bytes, wave_flops,
          f"(8,{rw},{rw},{rw}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), z_valid={rw}"),
+        ("stream_wrap_pass", ast["auto 1x1x1"]["launches"], swr_ms, swr_plain_ms, None, swr_bytes,
+         ops * AST_Q * N ** 3, f"{AST_Q} fields x ({N},{N},{N}) f32, k=1, Astaroth kernel"),
+        ("stream_plane_pass", ast["per-step 2x2x2"]["launches"], spl_ms, spl_plain_ms, None, spl_bytes,
+         ops * AST_Q * 8 * half ** 3, f"{AST_Q} fields x (8,{ps},{ps},{ps}) f32, shell 3, r=1, Astaroth kernel"),
+        ("stream_wavefront_pass", ast["wavefront 1x1x1"]["launches"], swf_ms, swf_plain_ms, None, swf_bytes,
+         swf_flops, f"1 field x (1,{ws},{ws},{ws}) f32 m=3 s=3, z slabs (1,{ws},6,{ws}), Astaroth kernel"),
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     for name, counts, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
         b_ms, b_by = bound(nbytes, flops)
         e = entries[name]
+        per_run = AST_ITERS if name.startswith("stream_") else STEPS
         rows.append({
             "name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
-            "launches": counts[name], "launches_per_step": counts[name] / STEPS,
+            "launches": counts[name], "launches_per_step": counts[name] / per_run,
             "max_abs_err": errs[name], "bitwise": errs[name] == 0.0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "copy_bound_ms": nbytes / copy_bw * 1e3, "library_ms": lib_ms, "shape": shape,
@@ -526,7 +795,7 @@ def main() -> int:
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
-            "step1_ms_min_median": step1,
+            "step1_ms_min_median": step1, "astaroth": ast,
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
                        "wavefront_zring_mcells_per_s": wave_mcells,
                        "wavefront_zslab_mcells_per_s": slab_mcells, "wavefront_m": mw,
@@ -536,8 +805,10 @@ def main() -> int:
             "profile": {"wrap": wrap_profile, "shell": shell_profile,
                         "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
             "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         }, f, indent=1)
 
+    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log(card)  # the nvidia-smi line as it prints it: name, power limit
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

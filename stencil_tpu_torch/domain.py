@@ -27,6 +27,7 @@ from stencil_tpu_torch.core.geometry import LocalSpec, shrink_by_radius
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
 from stencil_tpu_torch.ops.exchange import UNEVEN_ROADMAP, halo_exchange_multi
+from stencil_tpu_torch.ops.stream_trace import StreamKernel
 from stencil_tpu_torch.parallel.mesh import SubdomainGrid, make_grid
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
 
@@ -172,6 +173,11 @@ class DistributedDomain:
 
     def size(self) -> Dim3:
         return self._size
+
+    def field_dtype(self, h: DataHandle) -> torch.dtype:
+        """The storage dtype of ``h``'s buffers: its own dtype (only native
+        storage is ported, ROADMAP.md queue 1 item 9)."""
+        return h.dtype
 
     # --- realize (src/stencil.cu:27-539) -------------------------------------
     def planned_grid(self) -> SubdomainGrid:
@@ -323,27 +329,61 @@ class DistributedDomain:
     def get_next(self, h: DataHandle) -> torch.Tensor:
         return self._next[h.name]
 
-    def make_step(self, kernel: StepKernel, overlap: bool = True, engine: str = "torch"):
+    def make_step(
+        self,
+        kernel: StepKernel,
+        overlap: bool = True,
+        engine: str = "torch",
+        x_radius: int = None,
+        stream_path: str = "auto",
+        separable: bool = False,
+        stream_depth: int = None,
+        stream_overlap: str = "auto",
+        stream_halo: str = "auto",
+        compute_unit: str = "auto",
+        mxu_input: str = "auto",
+        mxu_kernel=None,
+        stream_z_slabs: bool = None,
+    ):
         """Build ``step(curr, steps) -> curr`` fusing exchange + compute (the
-        reference route, domain.py:1411 of the JAX package).
+        JAX package's ``make_step``, domain.py:1411).
 
-        Each step exchanges, then evaluates ``kernel`` over every subdomain's
-        interior at once and writes the result back in place.  With a halo
-        multiplier ``k`` each step is a MACRO step: one exchange of the
-        ``k*r``-wide shells, then ``k`` sub-steps over regions that shrink by
-        the user radius from the whole shell down to the interior, so
-        ``step(curr, s)`` advances ``s*k`` iterations.  ``overlap`` is
+        ``engine="torch"`` (the JAX package's ``"xla"``): each step exchanges,
+        then evaluates ``kernel`` over every subdomain's interior at once and
+        writes the result back in place.  The kernel is traced once
+        (``ops/stream_trace.py``) and evaluated with torch on the shifted
+        slices, so its arithmetic is the stream engine's and XLA's: a
+        division by a Python number is a multiply by its float32 reciprocal.
+        With a halo multiplier ``k`` each step is a MACRO step: one exchange
+        of the ``k*r``-wide shells, then ``k`` sub-steps over regions that
+        shrink by the user radius from the whole shell down to the interior,
+        so ``step(curr, s)`` advances ``s*k`` iterations.  ``overlap`` is
         accepted and computes the same cells: the two-stream
-        interior/exterior split is ROADMAP.md queue 1 item 8."""
+        interior/exterior split is ROADMAP.md queue 1 item 8.
+
+        ``engine="stream"``: the plane-streaming engine
+        (``ops/stream.make_stream_step``) with the hand-written CUDA stream
+        kernels: ``wrap`` on one subdomain, the temporally blocked
+        ``wavefront`` when a uniform shell >= 2 allows it, ``plane``
+        otherwise; ``x_radius`` (default the largest user radius) bounds the
+        kernel's shifts, ``stream_path``/``separable``/``stream_depth`` and
+        the axis arguments as in ``make_stream_step`` (``stream_z_slabs``
+        is its ``z_slabs``).  A stream step counts RAW iterations."""
         assert self._realized
-        del overlap
         if engine == "stream":
-            raise NotImplementedError(
-                "engine='stream' (the user-kernel stream engine) is not ported yet "
-                "(ROADMAP.md queue 1 item 7)"
+            from stencil_tpu_torch.ops.stream import make_stream_step
+
+            if x_radius is None:
+                x_radius = max(*self._radius.lo(), *self._radius.hi())
+            return make_stream_step(
+                self, kernel, x_radius=x_radius, path=stream_path, separable=separable,
+                max_depth=stream_depth, overlap=stream_overlap, halo=stream_halo,
+                compute_unit=compute_unit, mxu_input=mxu_input, mxu_kernel=mxu_kernel,
+                z_slabs=stream_z_slabs,
             )
         if engine != "torch":
             raise ValueError(f"unknown engine {engine!r}")
+        del overlap
         n = self._spec.sz
         shell = self._shell_radius
         lo = shell.lo()
@@ -353,21 +393,25 @@ class DistributedDomain:
         # landing on the interior after the last one (domain.py:1553-1569 of
         # the JAX package); multiplier 1 gives the interior alone
         rect = Rect3(Dim3(0, 0, 0) - lo, n + shell.hi())
-        infos = []
+        subs = []
         for _ in range(self._halo_mult):
             rect = shrink_by_radius(rect, self._radius)
             region = tuple(slice(rect.lo[ax], rect.hi[ax]) for ax in range(3))
-            infos.append(BlockInfo(self._origin_views(), n, self._size, self._radius, region))
+            info = BlockInfo(self._origin_views(), n, self._size, self._radius, region)
+            static = {"interior": info.interior, "radius": info.radius, "region": info.region}
+            subs.append((info, StreamKernel(kernel, names, None, self._size, static)))
 
         def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
             for _ in range(steps):
                 stacks = halo_exchange_multi([curr[k] for k in names], shell)
-                blocks = dict(zip(names, stacks))
-                for info in infos:
-                    views = {k: ShardView(b, lo, info.region) for k, b in blocks.items()}
-                    vals = kernel(views, info)  # all values computed before any write
-                    for k, v in vals.items():
-                        views[k].center().copy_(v)
+                for info, sk in subs:
+                    views = [ShardView(b, lo, info.region) for b in stacks]
+                    # all values computed before any write
+                    vals = sk.evaluate(lambda q, dx, dy, dz: views[q].sh(dx, dy, dz), info.coords,
+                                       self.device)
+                    for view, v, written in zip(views, vals, sk.updates()):
+                        if written:
+                            view.center().copy_(v)
             return curr
 
         return step

@@ -67,9 +67,24 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
         f"{_JP}:983",
     ),
     (_JP, "jacobi_slab_step"): _to_port(f"{_JP}:1347"),
-    (_ST, "stream_plane_pass"): _to_port(f"{_ST}:279"),
-    (_ST, "stream_wavefront_pass"): _to_port(f"{_ST}:481"),
-    (_ST, "stream_wrap_pass"): _to_port(f"{_ST}:698"),
+    (_ST, "stream_wrap_pass"): _ported(
+        "stencil_tpu_torch.ops.stream:stream_wrap_pass",
+        "stencil_tpu_torch.ops.stream:stream_wrap_pass_plain",
+        "stencil_tpu_torch/csrc/stream_wrap.cu",
+        f"{_ST}:698",
+    ),
+    (_ST, "stream_plane_pass"): _ported(
+        "stencil_tpu_torch.ops.stream:stream_plane_pass",
+        "stencil_tpu_torch.ops.stream:stream_plane_pass_plain",
+        "stencil_tpu_torch/csrc/stream_plane.cu",
+        f"{_ST}:279",
+    ),
+    (_ST, "stream_wavefront_pass"): _ported(
+        "stencil_tpu_torch.ops.stream:stream_wavefront_pass",
+        "stencil_tpu_torch.ops.stream:stream_wavefront_pass_plain",
+        "stencil_tpu_torch/csrc/stream_wavefront.cu",
+        f"{_ST}:481",
+    ),
     (_HB, "blend_slab_dynamic"): _to_port(f"{_HB}:179"),
     (_PK, "pallas_pack_slab"): _to_port(f"{_PK}:197"),
     (_PK, "pallas_unpack_slab"): _to_port(f"{_PK}:225"),

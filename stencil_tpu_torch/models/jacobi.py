@@ -40,7 +40,6 @@ from stencil_tpu_torch.domain import DistributedDomain
 from stencil_tpu_torch.ops.exchange import halo_exchange_shard
 from stencil_tpu_torch.ops.jacobi_kernels import (
     _ZRING_OFF,
-    SIXTH,
     choose_temporal_k,
     jacobi_plane_step,
     jacobi_shell_wavefront_step,
@@ -392,8 +391,8 @@ class Jacobi3D:
         sphere_r = size.x // 10
 
         src = views["temp"]
-        # the JAX source divides by 6.0, which XLA compiles as a multiply by
-        # float32(1/6); SIXTH is that constant, so this matches it bitwise
+        # the engines trace the kernel: `/ 6.0` is a multiply by float32(1/6),
+        # as XLA compiles the JAX source's division
         val = (
             src.sh(1, 0, 0)
             + src.sh(-1, 0, 0)
@@ -401,7 +400,7 @@ class Jacobi3D:
             + src.sh(0, -1, 0)
             + src.sh(0, 0, 1)
             + src.sh(0, 0, -1)
-        ) * SIXTH
+        ) / 6.0
 
         cx, cy, cz = info.coords()
 

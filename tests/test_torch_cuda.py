@@ -16,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from stencil_tpu_torch.core.dim3 import Dim3
+from stencil_tpu_torch.models.astaroth import AstarothSim
 from stencil_tpu_torch.models.jacobi import Jacobi3D
 from stencil_tpu_torch.ops import halo_blend as hb
 from stencil_tpu_torch.ops import jacobi_kernels as jk
+from stencil_tpu_torch.ops import stream as st
 
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +132,150 @@ def test_model_routes_agree_on_card(dev):
     assert np.array_equal(wrap.temperature(), shell.temperature())
     assert np.array_equal(wrap.temperature(), wavefront.temperature())
     np.testing.assert_allclose(wrap.temperature(), ref.temperature(), rtol=1e-6)
+
+
+# --- the stream kernels: traced user kernels, emitted into csrc/stream_*.cu -----------
+
+
+def _mean6(views, info):
+    return {n: (v.sh(-1, 0, 0) + v.sh(0, -1, 0) + v.sh(0, 0, -1) + v.sh(1, 0, 0) + v.sh(0, 1, 0)
+                + v.sh(0, 0, 1)) / 6.0 for n, v in views.items()}
+
+
+def _k27(views, info):
+    src, acc = views["u"], 0.0
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                acc = acc + src.sh(dx, dy, dz) / (2.0 ** (abs(dx) + abs(dy) + abs(dz)))
+    return {"u": acc / 8.0}
+
+
+def _forced(views, info):
+    src = views["u"]
+    cx, cy, cz = info.coords()
+    g = info.global_size
+    val = (src.sh(1, 0, 0) + src.sh(-1, 0, 0) + src.sh(0, 1, 0) + src.sh(0, -1, 0)) / 4.0
+    d2 = (cx - g.x // 2) ** 2 + (cy - g.y // 2) ** 2 + (cz - g.z // 2) ** 2
+    return {"u": torch.where(d2 < 9, 1.0, val * info.level)}
+
+
+def _vc(views, info):
+    u, c = views["u"], views["c"]
+    lap = (u.sh(-1, 0, 0) + u.sh(1, 0, 0) + u.sh(0, -1, 0) + u.sh(0, 1, 0) + u.sh(0, 0, -1)
+           + u.sh(0, 0, 1) - 6.0 * u.center())
+    return {"u": u.center() + c.center() * lap}
+
+
+def _r2(views, info):
+    s = views["u"]
+    return {"u": (s.sh(-2, 0, 0) + s.sh(2, 0, 1) + s.sh(0, -2, 1) + s.sh(1, 2, 0) + s.sh(0, 0, -2)
+                  + s.sh(-1, 0, 2)) / 6.0}
+
+
+STREAM_KERNELS = {"mean6": (_mean6, ["a", "b"]), "k27": (_k27, ["u"]), "forced": (_forced, ["u"]),
+                  "vc": (_vc, ["u", "c"])}
+
+
+def _wavefront_gs(s, slabs):
+    return (2 * (90 - 2 * s) + 3, 2 * (70 - 2 * s), 2 * ((127 if slabs else 130) - 2 * s))
+
+
+@pytest.fixture(scope="module")
+def stream_libs():
+    """The card, with every stream library the tests below launch built up
+    front, one nvcc each, all at once (a lazy build would run them one by
+    one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from stencil_tpu_torch.kernels import build
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    want = []
+    for kern, names in STREAM_KERNELS.values():
+        want.append(("stream_wrap", st._source(StreamKernel(kern, names, 1, (18, 20, 70)), "stream_wrap",
+                                                st._WRAP_LEVELS)))
+        want.append(("stream_plane", st._source(StreamKernel(kern, names, 1, (30, 40, 140)),
+                                                 "stream_plane", [1])))
+        for m, s in ((1, 1), (2, 3), (3, 3)):
+            for slabs in (False, True):
+                sk = StreamKernel(kern, names, 1, _wavefront_gs(s, slabs))
+                want.append(("stream_wavefront", st._source(sk, *st._wavefront_variant(m))))
+    want.append(("stream_plane", st._source(StreamKernel(_r2, ["u"], 2, (30, 40, 140)), "stream_plane", [1])))
+    build.build_generated(dict.fromkeys(want))
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("name", sorted(STREAM_KERNELS))
+def test_stream_wrap_kernel_equals_plain(stream_libs, name, k):
+    dev = stream_libs
+    kern, names = STREAM_KERNELS[name]
+    gs = (18, 20, 70)
+    blocks = [_rand(gs, 11 + q, dev) for q in range(len(names))]
+    org = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = st.stream_wrap_pass.launches
+    got = st.stream_wrap_pass(kern, names, blocks, k, org, gs)
+    torch.cuda.synchronize()
+    assert st.stream_wrap_pass.launches == before + k  # one level per launch
+    for g, w in zip(got, st.stream_wrap_pass_plain(kern, names, blocks, k, org, gs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,r", [("mean6", 1), ("k27", 1), ("forced", 1), ("vc", 1), ("r2", 2)])
+def test_stream_plane_kernel_equals_plain(stream_libs, name, r):
+    dev = stream_libs
+    kern, names = STREAM_KERNELS[name] if name in STREAM_KERNELS else (_r2, ["u"])
+    lo, hi = Dim3(r, r + 1, r), Dim3(r + 1, r, r + 2)
+    gs = (30, 40, 140)
+    raws = [_rand((2, 17, 19, 70), 21 + q, dev) for q in range(len(names))]
+    org = torch.tensor([[0, 0, 0], [13, 17, 60]], dtype=torch.int32, device=dev)
+    before = st.stream_plane_pass.launches
+    got = st.stream_plane_pass(kern, names, raws, lo, hi, r, org, gs)
+    torch.cuda.synchronize()
+    assert st.stream_plane_pass.launches == before + 1  # all blocks and fields in one launch
+    for g, w in zip(got, st.stream_plane_pass_plain(kern, names, raws, lo, hi, r, org, gs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,s", [(1, 1), (2, 3), (3, 3)])
+@pytest.mark.parametrize("slabs", [False, True])
+@pytest.mark.parametrize("name", sorted(STREAM_KERNELS))
+def test_stream_wavefront_kernel_equals_plain(stream_libs, name, m, s, slabs):
+    """Ragged blocks (several tiles and x chunks), dead columns past z_valid
+    in the slab form; compared on the valid region."""
+    dev = stream_libs
+    kern, names = STREAM_KERNELS[name]
+    Xr, Yr, Zr = 90, 70, 130
+    zv = 127 if slabs else Zr
+    gs = _wavefront_gs(s, slabs)
+    raws = [_rand((2, Xr, Yr, Zr), 31 + q, dev) for q in range(len(names))]
+    zs = [_rand((2, Xr, 2 * s, Yr), 41 + q, dev) for q in range(len(names))] if slabs else None
+    org = torch.tensor([[5, 0, 7], [gs[0] - 3, Yr - 2 * s, 0]], dtype=torch.int32, device=dev)
+    kw = dict(z_slabs=zs, z_valid=zv if slabs else None)
+    before = st.stream_wavefront_pass.launches
+    got, got_z = st.stream_wavefront_pass(kern, names, raws, m, s, org, gs, **kw)
+    torch.cuda.synchronize()
+    assert st.stream_wavefront_pass.launches == before + 1  # m levels in one launch
+    want, want_z = st.stream_wavefront_pass_plain(kern, names, raws, m, s, org, gs, **kw)
+    S = slice(s, -s)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, S, S, s:zv - s], w[:, S, S, s:zv - s])
+    for g, w in zip(got_z or [], want_z or []):
+        assert torch.equal(g[:, S, :, S], w[:, S, :, S])
+
+
+def test_astaroth_routes_agree_on_card(dev):
+    """wrap, plane and both wavefront forms on 1 and 8 subdomains against the
+    torch engine, 2 quantities: bitwise."""
+    runs = [AstarothSim(32, 32, 32, num_quantities=2)]
+    for sub in (1, 8):
+        for schedule in ("auto", "per-step", "wavefront"):
+            runs.append(AstarothSim(32, 32, 32, num_quantities=2, subdomains=sub, kernel_impl="cuda",
+                                    schedule=schedule))
+    for m in runs:
+        m.realize()
+        m.step(7)
+    for m in runs[1:]:
+        for i in range(2):
+            assert np.array_equal(m.field(i), runs[0].field(i))

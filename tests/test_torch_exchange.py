@@ -17,6 +17,7 @@ from stencil_tpu_torch.core.geometry import ripple_field
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain, ShardView
 from stencil_tpu_torch.ops.exchange import halo_exchange_shard
+from stencil_tpu_torch.ops.stream_trace import run_kernel
 
 # several test workers share the host's cores; these small tensors need no
 # intra-op threads
@@ -94,7 +95,9 @@ def test_exchange_rejects_uneven_sizes_naming_roadmap():
 
 def test_reference_loop_equals_make_step():
     """The reference-style loop (exchange, compute into the next slot, swap)
-    gives what ``make_step`` + ``run_step`` give."""
+    gives what ``make_step`` + ``run_step`` give, when the loop evaluates the
+    kernel with the engine's arithmetic (``run_kernel``: ``/ 6`` is a
+    multiply by float32(1/6), as XLA compiles it)."""
 
     def mean6(views, info):
         s = views["q"]
@@ -118,7 +121,7 @@ def test_reference_loop_equals_make_step():
         b.exchange()
         lo, n = b.local_spec().radius.lo(), b.local_spec().sz
         region = tuple(slice(0, n[ax]) for ax in range(3))
-        vals = mean6({"q": ShardView(b.get_curr(hb), lo, region)}, None)["q"]
+        vals = run_kernel(mean6, {"q": ShardView(b.get_curr(hb), lo, region)})["q"]
         b.get_next(hb)[..., 1:-1, 1:-1, 1:-1] = vals
         b.swap()
     np.testing.assert_array_equal(a.quantity_to_host(ha), b.quantity_to_host(hb))

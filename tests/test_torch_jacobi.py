@@ -141,14 +141,26 @@ def test_unported_options_name_the_roadmap():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Jacobi3D(8, 8, 8, device="cpu", **kw)
     m = Jacobi3D(8, 8, 8, device="cpu")
-    m.realize()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.dd.make_step(m._kernel, engine="stream")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.dd.add_data("v", components=(3,))
     wrap8 = Jacobi3D(16, 16, 16, subdomains=8, kernel_impl="cuda", pallas_path="wrap", device="cpu")
     with pytest.raises(ValueError, match="single subdomain"):
         wrap8.realize()
+
+
+@pytest.mark.parametrize("subdomains", [1, 8])
+def test_jacobi_kernel_on_the_stream_engine(subdomains):
+    """Jacobi3D's own kernel runs on ``make_step(engine="stream")`` (the
+    wrap route on one subdomain, the plane route on 2x2x2) and equals the
+    torch engine bitwise: both evaluate the same trace."""
+    size = (16, 16, 16)
+    ref = _port(size, subdomains=subdomains)
+    m = _port(size, subdomains=subdomains)
+    step = m.dd.make_step(m._kernel, engine="stream")
+    assert step._stream_plan["route"] == ("wrap" if subdomains == 1 else "plane")
+    ref.step(5)
+    m.dd.run_step(step, 5)
+    np.testing.assert_array_equal(m.temperature(), ref.temperature())
 
 
 def test_weak_scaled_size_matches():

@@ -62,6 +62,9 @@ def test_ledger_covers_every_tpu_kernel():
         ("stencil_tpu/ops/halo_blend.py", "blend_slab"),
         ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_zring_wavefront_step"),
         ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_shell_wavefront_step"),
+        ("stencil_tpu/ops/stream.py", "stream_wrap_pass"),
+        ("stencil_tpu/ops/stream.py", "stream_plane_pass"),
+        ("stencil_tpu/ops/stream.py", "stream_wavefront_pass"),
     }
     for (path, fn), entry in ledger.PORTED_KERNELS.items():
         # every entry points at the line that defines the TPU kernel
