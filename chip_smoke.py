@@ -46,7 +46,27 @@ non-zero before the result line:
    better is ms/iter and Mupdates/s = 8 * 512^3 / dt, as ``bench.py``), 24
    under torch.profiler (device time by kernel, idle share).  Before it, the
    same routes at 32^3 with 2 quantities against the torch engine, bitwise;
-9. times of the three stream kernels at the main path's shapes, as phase 7.
+9. times of the three stream kernels at the main path's shapes, as phase 7;
+10. the slab route: ``Jacobi3D(512, 512, 512, kernel_impl="cuda",
+    pallas_path="slab")`` on 2x2x2, 200 steps with the counters reset before
+    and read after (one jacobi_slab_step launch per step, no halo written),
+    bitwise equal to phase 4 at step 10, finite and inside [COLD, HOT] at
+    step 200; Mcells/s and a torch.profiler breakdown;
+11. uneven sizes: ``Jacobi3D(511, 511, 511, kernel_impl="cuda")`` on 2x2x2
+    (256 + 255 cells a side, every axis padded): ``auto`` takes the plain
+    wavefront and forced ``shell`` the plane kernel, 200 steps each with the
+    counters reset before and read after, every +axis halo of the exchange
+    written by blend_slab_dynamic; both bitwise equal to the one-subdomain
+    511^3 wrap route at step 10; then ``AstarothSim(511, 511, 511,
+    num_quantities=8, kernel_impl="cuda")`` on 2x2x2, ``auto`` (per-field
+    plain wavefront) and ``per-step`` (plane), 24 iterations each, bitwise
+    equal to the one-subdomain 511^3 wrap route; Mcells/s or ms/iter, and
+    profiles;
+12. times of jacobi_slab_step at the slab route's shapes and of
+    blend_slab_dynamic at the uneven wavefront's +x, +y and +z halo writes,
+    beside their bounds, plain versions and, for blend_slab_dynamic, the
+    library call that makes the same write (``Tensor.scatter_`` with
+    per-block indices).
 
 Phase 2 builds the stream kernels (templates plus the traced Astaroth
 kernel's emitted body, and the bodies the phase-3 checks use) in the same
@@ -171,6 +191,14 @@ def log_breakdown(route: str, b: dict) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase_start(phase: int) -> None:
+        """Log and keep the seconds since the start at which ``phase`` begins."""
+        phase_s[phase] = time.perf_counter() - t_start
+        log(f"[{phase_s[phase]:.1f} s] phase {phase}")
+
     # --- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -219,6 +247,7 @@ def main() -> int:
                            ("stream_wavefront", st._source(sk, *st._wavefront_variant(2)))]
 
     # --- 2. build -------------------------------------------------------------
+    phase_start(2)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:  # every nvcc of both calls at once
         jobs = [pool.submit(build.build), pool.submit(build.build_generated, dict.fromkeys(stream_sources))]
@@ -229,9 +258,11 @@ def main() -> int:
         + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in build.BUILD_LOG.items()))
 
     # --- 3. kernel vs plain on the card -----------------------------------------
+    phase_start(3)
     errs = {"jacobi_wrap_step": 0.0, "jacobi_plane_step": 0.0, "blend_slab": 0.0,
             "jacobi_zring_wavefront_step": 0.0, "jacobi_shell_wavefront_step": 0.0,
-            "stream_wrap_pass": 0.0, "stream_plane_pass": 0.0, "stream_wavefront_pass": 0.0}
+            "stream_wrap_pass": 0.0, "stream_plane_pass": 0.0, "stream_wavefront_pass": 0.0,
+            "jacobi_slab_step": 0.0, "blend_slab_dynamic": 0.0}
 
     def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -321,6 +352,60 @@ def main() -> int:
     for slab, axis, pos in main_slabs:
         hold("blend_slab", hb.blend_slab(blocks.clone(), slab, axis, pos),
              hb.blend_slab_plain(blocks.clone(), slab, axis, pos), f"8x{half + 2}^3 axis {axis} pos {pos}")
+    # blend_slab_dynamic: ragged blocks, an offset per block (the last one
+    # differing, as on a padded axis, and one past the end, clamped); then
+    # the three +axis halo writes of the uneven wavefront route (511^3 on
+    # 2x2x2 at the depth its plan picks: 256 + 255 cells a side)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.uint8):
+        for axis in (0, 1, 2):
+            ext = small.shape[1 + axis]
+            for r, pos in ((1, [ext - 1, ext - 1, ext - 2]), (2, [0, 5, ext + 3]), (3, [ext - 4] * 2 + [ext - 3])):
+                shape = list(small.shape)
+                shape[1 + axis] = r
+                slab = (seeded(shape, 16 + r, dev) * 100).to(dtype)
+                p = torch.tensor(pos, dtype=torch.int32, device=dev)
+                base = small.to(dtype)
+                hold("blend_slab_dynamic", hb.blend_slab_dynamic(base.clone(), slab, axis, p),
+                     hb.blend_slab_dynamic_plain(base.clone(), slab, axis, p), f"{dtype} axis {axis} pos {pos}")
+    NU = N - 1  # the uneven size
+    mu = jk.wavefront_auto_depth(NU - half)  # the depth the padded plan picks
+    ru = half + 2 * mu
+    dyn_blocks = seeded((8, ru, ru, ru), 18, dev)
+    dyn_writes = []  # (slab, axis, per-block offsets): the +axis halo lands after the valid cells
+    for axis in (0, 1, 2):
+        shape = [8, ru, ru, ru]
+        shape[1 + axis] = mu
+        last = [(b >> (2 - axis)) & 1 for b in range(8)]  # grid index on `axis`, stack order
+        pos = torch.tensor([mu + (NU - half if i else half) for i in last], dtype=torch.int32, device=dev)
+        dyn_writes.append((seeded(shape, 19 + axis, dev), axis, pos))
+    for slab, axis, pos in dyn_writes:
+        hold("blend_slab_dynamic", hb.blend_slab_dynamic(dyn_blocks.clone(), slab, axis, pos),
+             hb.blend_slab_dynamic_plain(dyn_blocks.clone(), slab, axis, pos), f"8x{ru}^3 +axis {axis} m={mu}")
+    # jacobi_slab_step: ragged blocks with random faces and with their own
+    # faces (the periodic wrap), then the slab route's shapes (8 x 256^3)
+    def slab_args(n, X, Y, Z, gs_s, seed, own=False):
+        blk = seeded((n, X, Y, Z), seed, dev)
+        if own:
+            faces = [t.contiguous() for t in (blk[:, -1], blk[:, 0], blk[:, :, -1], blk[:, :, 0],
+                                              blk[..., -1], blk[..., 0])]
+        else:
+            faces = [seeded((n,) + s, seed + 1 + i, dev)
+                     for i, s in enumerate(((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
+        o = torch.tensor([[(b * X + 2) % gs_s[0], (5 * b) % gs_s[1], (7 * b) % gs_s[2]] for b in range(n)],
+                         dtype=torch.int32, device=dev)
+        dd2 = torch.stack([jk.yz_dist2_plane(int(v[1]), int(v[2]), (Y, Z), gs_s, dev) for v in o])
+        return blk, faces, o, dd2
+
+    for n_s, X_s, Y_s, Z_s in ((1, 2, 3, 5), (3, 7, 33, 70)):
+        gs_s = (n_s * X_s + 3, 2 * Y_s + 1, 3 * Z_s)
+        for own in (False, True):
+            blk, faces, o, dd2 = slab_args(n_s, X_s, Y_s, Z_s, gs_s, 24, own)
+            hold("jacobi_slab_step", jk.jacobi_slab_step(blk, *faces, o, dd2, gs_s),
+                 jk.jacobi_slab_step_plain(blk, *faces, o, dd2, gs_s), f"{n_s}x({X_s},{Y_s},{Z_s}) own={own}")
+    slab_in = seeded((8, half, half, half), 32, dev)
+    slab_faces = [seeded((8, half, half), 33 + i, dev) for i in range(6)]
+    hold("jacobi_slab_step", jk.jacobi_slab_step(slab_in, *slab_faces, org, d2, gs),
+         jk.jacobi_slab_step_plain(slab_in, *slab_faces, org, d2, gs), f"8x{half}^3")
     # the wavefront kernels: ragged blocks, m below and at the shell width,
     # z slabs none and set, dead columns (z_valid < Zr); then the main path's
     # shapes (2x2x2 subdomains of 256^3 at the depth the plan picks)
@@ -400,6 +485,7 @@ def main() -> int:
     log(f"kernel vs plain: bitwise equal on every case; max abs err {errs}")
 
     # --- 4. main path, wrap route ---------------------------------------------
+    phase_start(4)
     cells = N ** 3
     wrap = Jacobi3D(N, N, N, kernel_impl="cuda")
     wrap.realize()
@@ -444,6 +530,7 @@ def main() -> int:
     log("wrap route: bitwise equal to the plain path and within rtol 1e-6 of the torch engine at step 10")
 
     # --- 5. main path, shell route --------------------------------------------
+    phase_start(5)
     shell = Jacobi3D(N, N, N, kernel_impl="cuda", pallas_path="shell")
     shell.dd.set_partition(2, 2, 2)
     shell.realize()
@@ -474,6 +561,7 @@ def main() -> int:
     del final
 
     # --- 6. main path, wavefront route -----------------------------------------
+    phase_start(6)
     def run_wavefront(**kw):
         model = Jacobi3D(N, N, N, kernel_impl="cuda", **kw)
         model.dd.set_partition(2, 2, 2)
@@ -538,6 +626,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 7. times ---------------------------------------------------------------
+    phase_start(7)
     src = torch.empty((N, N, N), device=dev)
     dst = torch.empty_like(src)
     copy_ms = cuda_ms(lambda: dst.copy_(src))
@@ -624,6 +713,7 @@ def main() -> int:
     log(f"engine torch: {torch_mcells:.1f} Mcells/s ({N}^3 f32, 1 subdomain, {CHECK_AT} steps) on {card}")
 
     # --- 8. the Astaroth main path ------------------------------------------------
+    phase_start(8)
     del main_wrap, main_plane, main_wf, main_wf8, stack, blocks, out, shell
     torch.cuda.empty_cache()
     ast_cases = (("wavefront", "wavefront", None), ("auto", "wrap", None),
@@ -707,6 +797,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 9. stream kernel times at the main path's shapes ------------------------------
+    phase_start(9)
     def trace_ops(sk) -> int:
         """Arithmetic operations per cell of one field's update."""
         return sum(n.op not in ("load", "coord", "const") for n in sk.trace().live()) // len(sk.names)
@@ -754,6 +845,177 @@ def main() -> int:
         f"(plain {swf_plain_ms:.4f}), wrap {swr_ms:.4f} (plain {swr_plain_ms:.4f}), plane {spl_ms:.4f} "
         f"(plain {spl_plain_ms:.4f}) on {card}")
 
+    # --- 10. the slab route ---------------------------------------------------------
+    phase_start(10)
+    def run_jacobi(size, **kw):
+        """A Jacobi3D on 2x2x2 through ``STEPS`` steps, the counters reset
+        just before and read just after: (model, field at step 10, seconds of
+        the last STEPS - 10 steps, counts); the field is finite and inside
+        [COLD, HOT] at the end."""
+        model = Jacobi3D(size, size, size, kernel_impl="cuda", **kw)
+        model.dd.set_partition(2, 2, 2)
+        model.realize()
+        ledger.reset_launch_counts()
+        sync()
+        model.step(CHECK_AT)
+        sync()
+        at_check = model.temperature()
+        t0 = time.perf_counter()
+        model.step(STEPS - CHECK_AT)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = ledger.launch_counts()
+        final = model.temperature()
+        if not (np.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+            raise AssertionError(f"{size}^3 {kw} ({model._pallas_path}): field not finite or outside "
+                                 f"[COLD, HOT] after {STEPS} steps")
+        return model, at_check, seconds, counts
+
+    slabm, slab_at_check, slabr_s, slabr_counts = run_jacobi(N, pallas_path="slab")
+    if slabm._pallas_path != "slab" or slabr_counts["jacobi_slab_step"] != STEPS:
+        raise AssertionError(f"slab route: {slabm._pallas_path}, launches {slabr_counts}, want {STEPS} slab")
+    if any(slabr_counts[k] for k in ("blend_slab", "blend_slab_dynamic", "jacobi_plane_step")):
+        raise AssertionError(f"slab route wrote halos or ran the plane kernel: {slabr_counts}")
+    if not np.array_equal(slab_at_check, wrap_at_check):
+        raise AssertionError("slab route != wrap route at step 10")
+    slabr_mcells = cells * (STEPS - CHECK_AT) / slabr_s / 1e6
+    log(f"slab route: {STEPS} steps, launches {slabr_counts}; bitwise equal to the wrap route at step 10; "
+        f"{slabr_mcells:.1f} Mcells/s ({N}^3 f32, 2x2x2 subdomains, {STEPS - CHECK_AT} steps) on {card}")
+    slabr_profile = device_breakdown(slabm)
+    log_breakdown("slab", slabr_profile)
+    del slabm, slab_at_check
+    torch.cuda.empty_cache()
+
+    # --- 11. uneven sizes -------------------------------------------------------------
+    phase_start(11)
+    cells_u = NU ** 3
+    wrap_u = Jacobi3D(NU, NU, NU, kernel_impl="cuda")
+    wrap_u.realize()
+    wrap_u.step(CHECK_AT)
+    wrap_u_at_check = wrap_u.temperature()
+    if wrap_u._pallas_path != "wrap":
+        raise AssertionError(f"{NU}^3 on one subdomain: {wrap_u._pallas_path}, want wrap")
+    del wrap_u
+    torch.cuda.empty_cache()
+    uneven = {}
+    for label, kw, path in (("wavefront", {}, "wavefront"), ("shell", {"pallas_path": "shell"}, "shell")):
+        model, at_check, seconds, counts = run_jacobi(NU, **kw)
+        if model._pallas_path != path or model._wavefront_z_slabs or not model.dd.padded():
+            raise AssertionError(f"{NU}^3 {label}: {model._pallas_path}, z slabs {model._wavefront_z_slabs}")
+        # every exchange writes the +x, +y and +z halo after the valid cells
+        exchanges = STEPS if path == "shell" else sum(-(-k // mu) for k in (CHECK_AT, STEPS - CHECK_AT))
+        kernel = "jacobi_plane_step" if path == "shell" else "jacobi_shell_wavefront_step"
+        if counts["blend_slab_dynamic"] != 3 * exchanges or counts[kernel] != exchanges:
+            raise AssertionError(f"{NU}^3 {label}: launches {counts}, want {3 * exchanges} blend_slab_dynamic "
+                                 f"and {exchanges} {kernel}")
+        if path == "wavefront" and model._wavefront_m != mu:
+            raise AssertionError(f"{NU}^3 auto: depth {model._wavefront_m}, want {mu}")
+        if not np.array_equal(at_check, wrap_u_at_check):
+            raise AssertionError(f"{NU}^3 {label} on 2x2x2 != the one-subdomain wrap route at step 10")
+        mcells = cells_u * (STEPS - CHECK_AT) / seconds / 1e6
+        prof = device_breakdown(model)
+        uneven[label] = {"path": path, "m": model._wavefront_m, "launches": counts, "mcells_per_s": mcells,
+                         "profile": prof}
+        log(f"uneven {NU}^3 {label} (m={model._wavefront_m}, raw {model.dd.local_spec().raw_size()}, valid last "
+            f"{model.dd.valid_last()}): {STEPS} steps, launches {counts}; bitwise equal to the one-subdomain wrap "
+            f"route at step 10; {mcells:.1f} Mcells/s on {card}")
+        log_breakdown(f"uneven {label}", prof)
+        del model, at_check
+        torch.cuda.empty_cache()
+
+    def ast_interiors(sim, size) -> torch.Tensor:
+        """Every field's valid interior on the card, (q, X, Y, Z) in global order."""
+        lo, n = sim.dd.shell_radius().lo(), sim.dd.local_spec().sz
+        dim = sim.dd.grid_dim()
+        return torch.stack([
+            sim.dd.get_curr(h)[..., lo.x:lo.x + n.x, lo.y:lo.y + n.y, lo.z:lo.z + n.z]
+            .permute(0, 3, 1, 4, 2, 5).reshape(dim.x * n.x, dim.y * n.y, dim.z * n.z)[:size, :size, :size]
+            for h in sim.handles])
+
+    ref_ast = AstarothSim(NU, NU, NU, num_quantities=AST_Q, kernel_impl="cuda")
+    ref_ast.realize()
+    ref_ast.step(AST_ITERS)
+    if ref_ast._step._stream_plan["route"] != "wrap":
+        raise AssertionError("astaroth 511^3 on one subdomain: not the wrap route")
+    ast_u_ref = ast_interiors(ref_ast, NU)
+    del ref_ast
+    torch.cuda.empty_cache()
+    ast_u = {}
+    for schedule, route in (("auto", "wavefront"), ("per-step", "plane")):
+        sim = AstarothSim(NU, NU, NU, num_quantities=AST_Q, kernel_impl="cuda", schedule=schedule)
+        sim.dd.set_partition(2, 2, 2)
+        sim.realize()
+        plan = sim._step._stream_plan
+        ledger.reset_launch_counts()
+        sync()
+        sim.step(AST_ITERS)
+        sync()
+        counts = ledger.launch_counts()
+        if plan["route"] != route or plan["z_slabs"] or counts[f"stream_{route}_pass"] == 0 \
+                or counts["blend_slab_dynamic"] == 0:
+            raise AssertionError(f"astaroth {NU}^3 {schedule} 2x2x2: plan {plan}, launches {counts}")
+        got = ast_interiors(sim, NU)
+        if not (bool(torch.isfinite(got).all()) and float(got.abs().max()) <= 1.0):
+            raise AssertionError(f"astaroth {NU}^3 {schedule}: fields not finite or outside [-1, 1]")
+        if not torch.equal(got, ast_u_ref):
+            raise AssertionError(f"astaroth {NU}^3 {schedule} on 2x2x2 != the one-subdomain wrap route "
+                                 f"after {AST_ITERS} iterations")
+        del got
+        dts = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dts.append((time.perf_counter() - t0) / AST_ITERS)
+        dt = min(dts)
+        prof = device_breakdown(sim, AST_ITERS)
+        ast_u[schedule] = {"route": route, "m": plan["m"], "grouping": plan["grouping"], "launches": counts,
+                           "ms_per_iter": dt * 1e3, "ms_per_iter_runs": [t * 1e3 for t in dts],
+                           "mupdates_per_s": AST_Q * cells_u / dt / 1e6, "profile": prof}
+        log(f"astaroth {AST_Q}q {NU}^3 schedule={schedule} 2x2x2 ({route}, m={plan['m']}, {plan['grouping']}): "
+            f"{dt * 1e3:.4f} ms/iter, {AST_Q * cells_u / dt / 1e6:.1f} Mupdates/s on {card}; launches per "
+            f"{AST_ITERS} iterations {dict((k, v) for k, v in counts.items() if v)}; bitwise equal to the "
+            f"one-subdomain wrap route")
+        log_breakdown(f"astaroth uneven {schedule}", prof)
+        del sim
+        torch.cuda.empty_cache()
+    del ast_u_ref
+    torch.cuda.empty_cache()
+
+    # --- 12. times of the slab and dynamic blend kernels ----------------------------
+    phase_start(12)
+    slab_out = torch.empty_like(slab_in)
+    slab_args_main = (slab_in, *slab_faces, org, d2, gs)
+    slabk_ms = cuda_ms(lambda: jk.jacobi_slab_step(*slab_args_main, out=slab_out))
+    slabk_plain_ms = cuda_ms(lambda: jk.jacobi_slab_step_plain(*slab_args_main, out=slab_out), inner=2)
+    slabk_bytes = (2 * slab_in.numel() + sum(f.numel() for f in slab_faces) + d2.numel() + org.numel()) * 4
+    slabk_flops = 7 * slab_in.numel()
+    del slab_out, slab_in, slab_faces
+    dyn_ms, dyn_plain_ms, dyn_lib_ms = {}, {}, {}
+    for slab, axis, pos in dyn_writes:
+        dyn_ms[axis] = cuda_ms(lambda: hb.blend_slab_dynamic(dyn_blocks, slab, axis, pos))
+        dyn_plain_ms[axis] = cuda_ms(lambda: hb.blend_slab_dynamic_plain(dyn_blocks, slab, axis, pos))
+        # the one PyTorch call that makes the same write: scatter_ along the
+        # axis with each block's indices pos[b] + i
+        shape = [1, 1, 1, 1]
+        shape[1 + axis] = mu
+        index = (pos.long().view(8, 1, 1, 1) + torch.arange(mu, device=dev).view(shape)).expand(slab.shape)
+        index = index.contiguous()
+        lib_out = dyn_blocks.clone().scatter_(1 + axis, index, slab)
+        if not torch.equal(lib_out, hb.blend_slab_dynamic(dyn_blocks.clone(), slab, axis, pos)):
+            raise AssertionError(f"scatter_ and blend_slab_dynamic disagree on axis {axis}")
+        del lib_out
+        dyn_lib_ms[axis] = cuda_ms(lambda: dyn_blocks.scatter_(1 + axis, index, slab))
+        del index
+    dyn_bytes = 2 * dyn_writes[0][0].numel() * 4 + 8 * 4  # the +x write: slab read, slab written, offsets
+    log("blend_slab_dynamic per +axis halo write at (8,{0},{0},{0}) m={1} (ms: kernel, plain, scatter_): ".format(
+        ru, mu) + ", ".join(f"axis {a}: {dyn_ms[a]:.4f}, {dyn_plain_ms[a]:.4f}, {dyn_lib_ms[a]:.4f}"
+                           for a in (0, 1, 2)))
+    log(f"jacobi_slab_step at 8x{half}^3: {slabk_ms:.4f} ms (plain {slabk_plain_ms:.4f}) on {card}")
+    del dyn_blocks, dyn_writes
+    torch.cuda.empty_cache()
+
     rows = []
     specs = [
         ("jacobi_wrap_step", wrap_counts, wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells,
@@ -772,6 +1034,11 @@ def main() -> int:
          ops * AST_Q * 8 * half ** 3, f"{AST_Q} fields x (8,{ps},{ps},{ps}) f32, shell 3, r=1, Astaroth kernel"),
         ("stream_wavefront_pass", ast["wavefront 1x1x1"]["launches"], swf_ms, swf_plain_ms, None, swf_bytes,
          swf_flops, f"1 field x (1,{ws},{ws},{ws}) f32 m=3 s=3, z slabs (1,{ws},6,{ws}), Astaroth kernel"),
+        ("jacobi_slab_step", slabr_counts, slabk_ms, slabk_plain_ms, None, slabk_bytes, slabk_flops,
+         f"(8,{half},{half},{half}) f32, six face slabs (8,{half},{half}), one level"),
+        ("blend_slab_dynamic", uneven["wavefront"]["launches"], dyn_ms[0], dyn_plain_ms[0], dyn_lib_ms[0],
+         dyn_bytes, 0, f"the +x halo write of the uneven {NU}^3 wavefront: slab (8,{mu},{ru},{ru}) into "
+                       f"(8,{ru},{ru},{ru}) f32 at per-block offsets"),
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     for name, counts, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
@@ -796,6 +1063,9 @@ def main() -> int:
             "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
             "step1_ms_min_median": step1, "astaroth": ast,
+            "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
+            "uneven_jacobi": uneven, "uneven_astaroth": ast_u,
+            "blend_slab_dynamic_ms": {"kernel": dyn_ms, "plain": dyn_plain_ms, "scatter_": dyn_lib_ms},
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
                        "wavefront_zring_mcells_per_s": wave_mcells,
                        "wavefront_zslab_mcells_per_s": slab_mcells, "wavefront_m": mw,
@@ -805,10 +1075,12 @@ def main() -> int:
             "profile": {"wrap": wrap_profile, "shell": shell_profile,
                         "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
             "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
+            "phase_start_s": phase_s, "total_s": time.perf_counter() - t_start,
             "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         }, f, indent=1)
 
-    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
     log(card)  # the nvidia-smi line as it prints it: name, power limit
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

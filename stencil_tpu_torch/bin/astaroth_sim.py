@@ -59,8 +59,9 @@ def main(argv=None) -> int:
         print("--no-overlap forces --kernel-impl torch", file=sys.stderr)
         kernel_impl = "torch"
     part = args.partition or (1, 1, 1)
-    # the nearest size each grid axis divides (the port has no uneven shards
-    # yet), at least the radius-3 shell per subdomain, as fit_to_mesh does
+    # the nearest size each grid axis divides, at least the radius-3 shell
+    # per subdomain, as the JAX driver's fit_to_mesh does (it keeps
+    # weak-scaled runs comparable; the domain itself takes uneven sizes)
     x, y, z = (max(round(v / d), 3) * d for v, d in zip((args.x, args.y, args.z), part))
     print(f"domain: {x},{y},{z} over {part[0]}x{part[1]}x{part[2]} subdomains", file=sys.stderr)
     sim = AstarothSim(

@@ -18,6 +18,13 @@ does for its halo multiplier, so routes of different depths compare.
     python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale --iters 200
     python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
         --partition 2,2,2 --pallas-path wavefront --iters 200
+    python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
+        --partition 2,2,2 --pallas-path slab --iters 200
+    python -m stencil_tpu_torch.bin.jacobi3d 511 511 511 --no-weak-scale \
+        --partition 2,2,2 --iters 200
+
+An uneven size (one the grid does not divide, given with --no-weak-scale)
+pads every subdomain to ceil(size / grid) cells per axis, as the domain does.
 """
 
 from __future__ import annotations
@@ -61,9 +68,10 @@ def main(argv=None) -> int:
     p.add_argument("--no-weak-scale", action="store_true", help="use x y z as the global size directly")
     p.add_argument("--kernel-impl", choices=["cuda", "torch"], default="cuda",
                    help="hand-written CUDA kernels (fast) or plain tensor code")
-    p.add_argument("--pallas-path", choices=["auto", "wrap", "shell", "wavefront"], default="auto",
+    p.add_argument("--pallas-path", choices=["auto", "wrap", "slab", "shell", "wavefront"], default="auto",
                    help="route of the cuda engine (auto: wrap on one subdomain, else the "
-                        "temporally blocked wavefront when its depth is >= 2, else shell)")
+                        "temporally blocked wavefront when its depth is >= 2, else slab on "
+                        "even sizes, else shell)")
     p.add_argument("--halo-multiplier", type=int, default=1,
                    help="exchange k*radius-wide shells every k steps (torch engine; the "
                         "wavefront route sets its own)")

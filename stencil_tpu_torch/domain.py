@@ -10,8 +10,13 @@ Storage: each quantity is ONE tensor of shape ``(px, py, pz, Xr, Yr, Zr)``: the
 ``px*py*pz`` subdomains of the grid, each the reference's shell-carrying
 ``LocalDomain`` allocation (``raw_size``), all on the one device.  The JAX
 package's global raw array ``(px*Xr, py*Yr, pz*Zr)`` is the same data in
-another order; ``set_raw`` / ``raw_to_host`` convert.  Sizes must divide
-evenly over the grid in this version.
+another order; ``set_raw`` / ``raw_to_host`` convert.
+
+Uneven sizes are padded and masked as in the JAX package
+(``stencil_tpu/domain.py:478-510``, the reference's partition.hpp:83-114):
+every subdomain on an axis holds ``n = ceil(size / dim)`` interior cells and
+the last one owns the remainder, ``valid_last`` valid cells followed by pad
+cells; the exchange writes each +axis halo right after the valid cells.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from stencil_tpu_torch.core.dim3 import Dim3, Rect3
 from stencil_tpu_torch.core.geometry import LocalSpec, shrink_by_radius
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
-from stencil_tpu_torch.ops.exchange import UNEVEN_ROADMAP, halo_exchange_multi
+from stencil_tpu_torch.ops.exchange import ValidLast, halo_exchange_multi
 from stencil_tpu_torch.ops.stream_trace import StreamKernel
 from stencil_tpu_torch.parallel.mesh import SubdomainGrid, make_grid
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
@@ -116,6 +121,7 @@ class DistributedDomain:
         self.grid: Optional[SubdomainGrid] = None
         self._spec: Optional[LocalSpec] = None
         self._shell_radius: Optional[Radius] = None
+        self._valid_last: ValidLast = (None, None, None)
         self._curr: Dict[str, torch.Tensor] = {}
         self._next: Dict[str, torch.Tensor] = {}
 
@@ -193,16 +199,25 @@ class DistributedDomain:
             )
         self.grid = self.planned_grid()
         dim = self.grid.dim()
-        if (self._size % dim).any_gt(0):
+        # uneven sizes: pad each axis to ceil(size/dim); the LAST subdomain
+        # on a padded axis owns size - (dim-1)*n valid cells
+        n = Dim3(*(-(-self._size[ax] // dim[ax]) for ax in range(3)))
+        vlast = [self._size[ax] - (dim[ax] - 1) * n[ax] for ax in range(3)]
+        valid_last = tuple(None if v == n[ax] else v for ax, v in enumerate(vlast))
+        if min(vlast) <= 0:
+            # the remainder must fit ONE trailing subdomain; the reference
+            # spreads +-1-cell remainders instead, which has no equal-block
+            # analog (stencil_tpu/domain.py:492-503)
             raise ValueError(
-                f"size {self._size} does not divide evenly over the subdomain grid {dim}; "
-                + UNEVEN_ROADMAP
+                f"axis remainder does not fit in one trailing subdomain: size {self._size} over "
+                f"grid {dim} gives last-subdomain valid cells {valid_last}; choose a grid with "
+                "(dim-1)*ceil(size/dim) < size"
             )
-        n = self._size // dim
         r = self._radius.scaled(self._halo_mult)
         max_r = max(*r.lo(), *r.hi())
-        if min(n) < max_r:
-            raise ValueError(f"subdomain {n} smaller than radius shell")
+        if min(n) < max_r or min(vlast) < max_r:
+            raise ValueError(f"subdomain {n} (last-subdomain valid {valid_last}) smaller than radius shell")
+        self._valid_last = valid_last
         self._shell_radius = r
         self._spec = LocalSpec.make(n, Dim3(0, 0, 0), r)
         shape = dim.tuple() + self._spec.raw_size().tuple()
@@ -224,6 +239,23 @@ class DistributedDomain:
 
     def grid_dim(self) -> Dim3:
         return self.grid.dim()
+
+    def valid_last(self) -> ValidLast:
+        """Valid cells of the last subdomain per axis; None where the axis
+        divides evenly."""
+        return self._valid_last
+
+    def padded(self) -> bool:
+        return any(v is not None for v in self._valid_last)
+
+    def shard_valid(self, idx) -> Dim3:
+        """Valid (unpadded) interior extent of the subdomain at grid index
+        ``idx``: the last one on a padded axis owns the remainder."""
+        dim, n = self.grid.dim(), self._spec.sz
+        return Dim3(*(
+            self._valid_last[ax] if idx[ax] == dim[ax] - 1 and self._valid_last[ax] is not None else n[ax]
+            for ax in range(3)
+        ))
 
     def origins(self) -> torch.Tensor:
         """``(n, 3)`` int32 global interior starts, one row per subdomain in
@@ -250,22 +282,30 @@ class DistributedDomain:
         return stack[..., lo.x : lo.x + n.x, lo.y : lo.y + n.y, lo.z : lo.z + n.z]
 
     def set_quantity(self, h: DataHandle, interior: np.ndarray) -> None:
-        """Load a full (X, Y, Z) user-domain array into a quantity's interior."""
+        """Load a full (X, Y, Z) user-domain array into a quantity's valid
+        interior cells; the shell and the pad cells of uneven sizes are zeroed,
+        as the JAX package's ``_to_raw_global`` leaves them."""
         if tuple(interior.shape) != self._size.tuple():
             raise ValueError(f"interior shape {interior.shape}, want {self._size.tuple()}")
         dim, n = self.grid.dim(), self._spec.sz
-        blocks = torch.tensor(np.asarray(interior)).to(h.dtype)
-        blocks = blocks.reshape(dim.x, n.x, dim.y, n.y, dim.z, n.z).permute(0, 2, 4, 1, 3, 5)
-        self._interior_view(self._curr[h.name]).copy_(blocks.to(self.device))
+        padded = torch.zeros((dim * n).tuple(), dtype=h.dtype)
+        X, Y, Z = self._size.tuple()
+        padded[:X, :Y, :Z] = torch.tensor(np.asarray(interior)).to(h.dtype)
+        blocks = padded.reshape(dim.x, n.x, dim.y, n.y, dim.z, n.z).permute(0, 2, 4, 1, 3, 5)
+        stack = self._curr[h.name]
+        stack.zero_()
+        self._interior_view(stack).copy_(blocks.to(self.device))
 
     def quantity_to_host(self, h: DataHandle) -> np.ndarray:
-        """Gather a quantity's interior to a (X, Y, Z) host array (reference
-        quantity_to_host, local_domain.cuh:329-346)."""
+        """Gather a quantity's valid interior cells to a (X, Y, Z) host array
+        (reference quantity_to_host, local_domain.cuh:329-346)."""
         inner = self._interior_view(self._curr[h.name])
-        out = inner.permute(0, 3, 1, 4, 2, 5).reshape(self._size.tuple())
+        dim, n = self.grid.dim(), self._spec.sz
+        out = inner.permute(0, 3, 1, 4, 2, 5).reshape((dim * n).tuple())
+        X, Y, Z = self._size.tuple()
         # a copy even on the CPU, where reshape may return a view of the
         # live storage that the next step overwrites
-        return out.to("cpu", copy=True).numpy()
+        return out[:X, :Y, :Z].to("cpu", copy=True).numpy()
 
     def mark_shell_stale(self) -> None:
         """Steps that skip the shell (the single-subdomain wrap route) leave
@@ -297,7 +337,8 @@ class DistributedDomain:
     def init_by_coords(self, h: DataHandle, fn) -> None:
         """Fill the interior with ``fn(cx, cy, cz)``, which maps broadcastable
         global coordinate tensors (``(px,1,1,nx,1,1)``-shaped and so on) to
-        values."""
+        values.  Pad cells of uneven sizes get ``fn`` of their unwrapped
+        coordinates (``>= size``), as in the JAX package."""
         coords = []
         for ax, origin in enumerate(self._origin_views()):
             shape = [1] * 6
@@ -311,7 +352,8 @@ class DistributedDomain:
     def exchange(self) -> None:
         """Fill every quantity's halo shell (src/stencil.cu:670-864)."""
         assert self._realized
-        halo_exchange_multi([self._curr[h.name] for h in self._handles], self._shell_radius)
+        halo_exchange_multi([self._curr[h.name] for h in self._handles], self._shell_radius,
+                            self._valid_last)
         self._shell_stale = False
 
     def swap(self) -> None:
@@ -403,7 +445,7 @@ class DistributedDomain:
 
         def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
             for _ in range(steps):
-                stacks = halo_exchange_multi([curr[k] for k in names], shell)
+                stacks = halo_exchange_multi([curr[k] for k in names], shell, self._valid_last)
                 for info, sk in subs:
                     views = [ShardView(b, lo, info.region) for b in stacks]
                     # all values computed before any write

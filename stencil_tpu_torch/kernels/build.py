@@ -53,6 +53,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "halo_blend": {
         "stp_blend_slab": [_P, _P, _I, _L, _L, _L, _L, _I, _L, _L, _P],
+        "stp_blend_slab_dynamic": [_P, _P, _P, _I, _L, _L, _L, _L, _I, _L, _P],
+    },
+    "jacobi_slab": {
+        "stp_jacobi_slab_level": [_P] * 10 + [_I] * 8 + [_P],
     },
     "jacobi_wavefront": {
         "stp_jacobi_wavefront": [_P] * 6 + [_I] * 13 + [_P],

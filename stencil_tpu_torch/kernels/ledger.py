@@ -66,7 +66,12 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
         "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
         f"{_JP}:983",
     ),
-    (_JP, "jacobi_slab_step"): _to_port(f"{_JP}:1347"),
+    (_JP, "jacobi_slab_step"): _ported(
+        "stencil_tpu_torch.ops.jacobi_kernels:jacobi_slab_step",
+        "stencil_tpu_torch.ops.jacobi_kernels:jacobi_slab_step_plain",
+        "stencil_tpu_torch/csrc/jacobi_slab.cu",
+        f"{_JP}:1347",
+    ),
     (_ST, "stream_wrap_pass"): _ported(
         "stencil_tpu_torch.ops.stream:stream_wrap_pass",
         "stencil_tpu_torch.ops.stream:stream_wrap_pass_plain",
@@ -85,7 +90,12 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
         "stencil_tpu_torch/csrc/stream_wavefront.cu",
         f"{_ST}:481",
     ),
-    (_HB, "blend_slab_dynamic"): _to_port(f"{_HB}:179"),
+    (_HB, "blend_slab_dynamic"): _ported(
+        "stencil_tpu_torch.ops.halo_blend:blend_slab_dynamic",
+        "stencil_tpu_torch.ops.halo_blend:blend_slab_dynamic_plain",
+        "stencil_tpu_torch/csrc/halo_blend.cu",
+        f"{_HB}:179",
+    ),
     (_PK, "pallas_pack_slab"): _to_port(f"{_PK}:197"),
     (_PK, "pallas_unpack_slab"): _to_port(f"{_PK}:225"),
     (_PK, "pack_zshell_pallas"): _to_port(f"{_PK}:331"),

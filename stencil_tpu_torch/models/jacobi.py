@@ -13,15 +13,25 @@ Engines (``kernel_impl``):
 * ``"cuda"``, the counterpart of ``"pallas"``, through the hand-written
   kernels.  ``pallas_path="auto"`` picks ``wrap`` for one subdomain (slice out
   the interior, ``jacobi_wrap_step``, write back; the shell goes stale), and
-  otherwise ``wavefront`` when the plan gives a depth m >= 2, else ``shell``
-  (exchange with ``blend_slab`` halo writes, then ``jacobi_plane_step`` on all
+  otherwise ``wavefront`` when the plan gives a depth m >= 2, else ``slab``
+  on even sizes with >= 2 x-planes per subdomain, else ``shell`` (exchange
+  with ``blend_slab`` halo writes, then ``jacobi_plane_step`` on all
   subdomains in one launch, every iteration).  ``wavefront`` is the JAX
   package's temporally blocked route (``_make_wavefront_step``): m-wide
   shells, and per macro step one x/y exchange in the array, one z exchange on
   separate z-major slab buffers, and ONE m-level kernel launch
   (``jacobi_zring_wavefront_step`` when the subdomain's z extent is a
   multiple of 128, else ``jacobi_shell_wavefront_step``); a ``steps % m``
-  remainder runs one shallower launch over the same shell.
+  remainder runs one shallower launch over the same shell.  ``slab`` is its
+  one-level baseline (``_make_slab_step``): the bare interiors, six face slabs
+  gathered from the neighbours and ONE ``jacobi_slab_step`` launch per step,
+  with no halo written.
+
+Uneven sizes (padded subdomains, ``DistributedDomain``) run on the torch
+engine, on ``shell`` and on the wavefront in its plain form (every axis
+exchanged in the array), as in the JAX package: each exchange writes the +axis
+halo right after the valid cells (``blend_slab_dynamic``), and the clamp's
+global x, ``(origin + x) mod gx``, wraps there to the cells past the boundary.
 
 The two engines sum the neighbours in different orders (``_kernel``: x+1,
 x-1, y+1, y-1, z+1, z-1; the kernels: x-1, x+1, y-1, y+1, z-1, z+1), so they
@@ -37,12 +47,13 @@ import torch
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
-from stencil_tpu_torch.ops.exchange import halo_exchange_shard
+from stencil_tpu_torch.ops.exchange import halo_exchange_shard, shift_from_high, shift_from_low
 from stencil_tpu_torch.ops.jacobi_kernels import (
     _ZRING_OFF,
     choose_temporal_k,
     jacobi_plane_step,
     jacobi_shell_wavefront_step,
+    jacobi_slab_step,
     jacobi_wrap_step,
     jacobi_zring_wavefront_step,
     pack_d2,
@@ -62,10 +73,6 @@ from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
 COLD_TEMP = 0.0
 HOT_TEMP = 1.0
 
-_PATH_ROADMAP = {
-    "slab": "the slab route (jacobi_slab_step) is the next port slice (ROADMAP.md queue 1 item 6)",
-}
-
 
 class Jacobi3D:
     def __init__(
@@ -80,7 +87,7 @@ class Jacobi3D:
         dtype=torch.float32,
         kernel_impl: str = "torch",  # "torch" (plain tensors) | "cuda" (kernels)
         temporal_k="auto",  # wrap / wavefront levels per call (int | "auto")
-        pallas_path: str = "auto",  # "auto" | "wrap" | "shell" | "wavefront"
+        pallas_path: str = "auto",  # "auto" | "wrap" | "slab" | "shell" | "wavefront"
         z_ring: bool = None,  # wavefront: z-ring layout where it applies
         # (None = yes); False keeps the z shell columns in the array
         wavefront_alias: bool = None,  # in-place wavefront: refused
@@ -99,9 +106,7 @@ class Jacobi3D:
         self.h = self.dd.add_data("temp", dtype=dtype)
         if kernel_impl not in ("torch", "cuda"):
             raise ValueError(f"unknown kernel_impl {kernel_impl!r} (torch | cuda)")
-        if pallas_path in _PATH_ROADMAP:
-            raise NotImplementedError(f"pallas_path={pallas_path!r}: {_PATH_ROADMAP[pallas_path]}")
-        if pallas_path not in ("auto", "wrap", "shell", "wavefront"):
+        if pallas_path not in ("auto", "wrap", "slab", "shell", "wavefront"):
             raise ValueError(f"unknown pallas_path {pallas_path!r}")
         if wavefront_alias:
             raise NotImplementedError(
@@ -127,7 +132,7 @@ class Jacobi3D:
         self.pallas_path_request = pallas_path
         self.z_ring_request = z_ring
         self._step = None
-        # which route realize() picked: "wrap" | "shell" | "wavefront" (None on
+        # which route realize() picked: "wrap" | "slab" | "shell" | "wavefront" (None on
         # the torch engine); the wavefront's depth and form
         self._pallas_path = None
         self._wavefront_m = 0
@@ -159,8 +164,8 @@ class Jacobi3D:
                 self._step = self._make_wavefront_step()
             elif self.dd.halo_multiplier() != 1:
                 raise ValueError(
-                    "kernel_impl='cuda' requires halo multiplier 1 on the wrap and shell "
-                    "routes (their kernels assume a radius-1 shell); use kernel_impl='torch' "
+                    "kernel_impl='cuda' requires halo multiplier 1 on the wrap, slab and "
+                    "shell routes (their kernels assume a radius-1 shell); use kernel_impl='torch' "
                     "with set_halo_multiplier, or pallas_path='wavefront', which sets its own"
                 )
             else:
@@ -175,6 +180,14 @@ class Jacobi3D:
         if want == "wrap" and not single:
             raise ValueError("pallas_path='wrap' requires a single subdomain")
         n = dd.local_spec().sz
+        # the slab kernel needs bare interiors of >= 2 x-planes (its contract)
+        # and no padding; the JAX package's 128-aligned x gate is a Mosaic
+        # constraint, absent here as in its interpret mode
+        slab_ok = not dd.padded() and n.x >= 2
+        if want == "slab" and not slab_ok:
+            raise ValueError(
+                "pallas_path='slab' requires even (unpadded) sizes and >= 2 x-planes per subdomain"
+            )
         lo = dd.shell_radius().lo()
         name = self.h.name
         if want == "wrap" or (want == "auto" and single):
@@ -197,13 +210,17 @@ class Jacobi3D:
             wrap_step._marks_shell_stale = True
             return wrap_step
 
-        self._pallas_path = "shell"
-        shell = dd.shell_radius()
         gsize = dd.size().tuple()
         origins = dd.origins()
         yz_d2 = torch.stack(
             [yz_dist2_plane(int(o[1]), int(o[2]), (n.y, n.z), gsize, dd.device) for o in origins.cpu()]
         )
+        if want in ("auto", "slab") and slab_ok:
+            return self._make_slab_step(origins, yz_d2)
+
+        self._pallas_path = "shell"
+        shell = dd.shell_radius()
+        valid_last = dd.valid_last()
         spare = {}
 
         def shell_step(curr, steps: int = 1):
@@ -212,7 +229,7 @@ class Jacobi3D:
             if out is None:
                 out = torch.empty_like(stack)
             for _ in range(steps):
-                halo_exchange_shard(stack, shell)
+                halo_exchange_shard(stack, shell, valid_last)
                 blocks = stack.view(-1, *stack.shape[3:])
                 jacobi_plane_step(blocks, origins, yz_d2, gsize, out=out.view(blocks.shape))
                 stack, out = out, stack
@@ -222,6 +239,45 @@ class Jacobi3D:
 
         return shell_step
 
+    def _make_slab_step(self, origins, yz_d2):
+        """The one-level multi-subdomain route without halo writes (the JAX
+        package's ``_make_slab_step``, models/jacobi.py:832-909): the bare
+        interiors are sliced out of the stack once per call; each step gathers
+        the six face slabs, each the sending neighbour's outermost interior
+        plane (the ``-dir`` convention, packer.cuh:91-93), with the neighbour
+        shifts, and ONE ``jacobi_slab_step`` launch advances every subdomain;
+        the interiors are written back once per call.  The shell goes stale."""
+        dd = self.dd
+        n = dd.local_spec().sz
+        lo = dd.shell_radius().lo()
+        name = self.h.name
+        count = dd.num_subdomains()
+        gsize = dd.size().tuple()
+        self._pallas_path = "slab"
+        inner = (Ellipsis, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
+
+        def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
+            return t.contiguous().view(count, *t.shape[3:])
+
+        def slab_step(curr, steps: int = 1):
+            interior = curr[name][inner]
+            b = interior.contiguous()
+            out = torch.empty_like(b)
+            for _ in range(steps):
+                faces = (
+                    shift_from_low(b[..., n.x - 1, :, :], 0), shift_from_high(b[..., 0, :, :], 0),
+                    shift_from_low(b[..., :, n.y - 1, :], 1), shift_from_high(b[..., :, 0, :], 1),
+                    shift_from_low(b[..., n.z - 1], 2), shift_from_high(b[..., 0], 2),
+                )
+                jacobi_slab_step(batch(b), *(batch(f) for f in faces), origins, yz_d2, gsize,
+                                 out=batch(out))
+                b, out = out, b
+            interior.copy_(b)
+            return curr
+
+        slab_step._marks_shell_stale = True
+        return slab_step
+
     def _plan_wavefront(self) -> int:
         """The wavefront depth m (>= 1), chosen before ``dd.realize()`` as
         the JAX package's ``_plan_wavefront`` does (models/jacobi.py:227-348):
@@ -230,8 +286,10 @@ class Jacobi3D:
         ``min(_WRAP_MAX_K, n_min // 4, n_min)`` whose kernel fits the H100's
         shared memory per block (``wavefront_smem_fits``, the Hopper
         counterpart of the VMEM model).  m >= 2 plans the z-slab forms, m = 1
-        the plain form, as in the JAX package.  (Its tune cache and its MXU
-        and bf16 axes are not ported: ROADMAP.md queue 1 items 9 and 11.)"""
+        the plain form, as in the JAX package; padded (uneven) subdomains plan
+        the plain form at any depth, capped by the smallest valid extent
+        (models/jacobi.py:234-241).  (Its tune cache and its MXU and bf16 axes
+        are not ported: ROADMAP.md queue 1 items 9 and 11.)"""
         dd = self.dd
         if dd.halo_multiplier() != 1:
             raise ValueError("pallas_path='wavefront' manages the halo multiplier itself")
@@ -240,6 +298,7 @@ class Jacobi3D:
         n = [-(-size[ax] // dim[ax]) for ax in range(3)]
         # last-shard valid extents; the smallest caps the depth
         v = [size[ax] - n[ax] * (dim[ax] - 1) for ax in range(3)]
+        padded = v != n
         if min(v) < 1:
             raise ValueError(
                 f"pallas_path='wavefront': empty last shard for {tuple(size)} over {tuple(dim)}"
@@ -256,10 +315,12 @@ class Jacobi3D:
                     f"wavefront temporal_k={m} needs {wavefront_smem_bytes(m)} bytes of shared "
                     "memory per block, more than the H100 grants one block"
                 )
-            self._wavefront_z_planned = True
+            # the z-slab forms' emit slices sit at the interior z boundary,
+            # so padded subdomains take the plain form
+            self._wavefront_z_planned = not padded
             return m
         m = wavefront_auto_depth(n_min)
-        self._wavefront_z_planned = m >= 2
+        self._wavefront_z_planned = m >= 2 and not padded
         return m
 
     def _make_wavefront_step(self):
@@ -272,8 +333,9 @@ class Jacobi3D:
         m-wide shell (``interior_offset=m``).  Three forms, as in the JAX
         package: z-ring (the array holds only the z interior), padded z-slab
         (without the lane padding: a Hopper row coalesces at any width) and
-        plain (all three axes exchanged in the array; depth 1 only, since the
-        port has no uneven sizes yet).  A call takes up the working array and
+        plain (all three axes exchanged in the array: depth 1, or padded
+        subdomains, whose +axis halos land after the valid cells).  A call
+        takes up the working array and
         slabs the last one left when the quantity is untouched since, so
         ``step(1)`` repeated costs a depth-1 pass and the copy back each, not
         the copy out and the priming too.  The shell goes stale."""
@@ -289,6 +351,7 @@ class Jacobi3D:
         origins = dd.origins()
         org = origins.cpu().tolist()
         name = self.h.name
+        valid_last = dd.valid_last()
         z_slab_mode = self._wavefront_z_planned
         ring_pref = True if self.z_ring_request is None else bool(self.z_ring_request)
         z_ring_mode = z_slab_mode and n.z % 128 == 0 and 2 * m <= _ZRING_OFF and ring_pref
@@ -372,7 +435,7 @@ class Jacobi3D:
                         )
                         zout = stacked(zout)
                     else:
-                        halo_exchange_shard(b, shell)
+                        halo_exchange_shard(b, shell, valid_last)
                         b = jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize,
                                                         interior_offset=m)
                     b = stacked(b)

@@ -1,11 +1,11 @@
 """Jacobi level kernels: ``jacobi_wrap_step``, ``jacobi_plane_step``,
-``jacobi_shell_wavefront_step``, ``jacobi_zring_wavefront_step`` and their
-plain versions.
+``jacobi_slab_step``, ``jacobi_shell_wavefront_step``,
+``jacobi_zring_wavefront_step`` and their plain versions.
 
 Counterpart of ``stencil_tpu/ops/jacobi_pallas.py`` in its ``vpu``/native f32
 form.  On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/jacobi.cu``, ``csrc/jacobi_wavefront.cu``); on a CPU tensor it runs
-the plain PyTorch version.
+(``csrc/jacobi.cu``, ``csrc/jacobi_slab.cu``, ``csrc/jacobi_wavefront.cu``);
+on a CPU tensor it runs the plain PyTorch version.
 
 Semantics, per level, match ``Jacobi3D._kernel`` of the JAX package: mean of
 the six face neighbours, then the hot and cold sphere clamps.  Two details
@@ -232,6 +232,102 @@ def jacobi_plane_step(blocks, origins, yz_d2, global_size, out=None) -> torch.Te
 
 #: kernel launches made by ``jacobi_plane_step`` (plain-version calls do not count)
 jacobi_plane_step.launches = 0
+
+
+# --- jacobi_slab_step ---------------------------------------------------------
+
+
+def _check_slab(block, slabs, origins, yz_d2, out):
+    check_tensor(block, "block", ndims=(3, 4), dtype=torch.float32)
+    single = block.dim() == 3
+    n = 1 if single else block.shape[0]
+    X, Y, Z = block.shape[-3:]
+    if X < 2:
+        # the TPU kernel's first and last plane branches both fire at X == 1
+        # (jacobi_pallas.py:1393-1395); the route choice keeps the same rule
+        raise ValueError(f"jacobi_slab_step requires X >= 2 planes per block, got {X}")
+    lead = () if single else (n,)
+    faces = {"xlo": (Y, Z), "xhi": (Y, Z), "ylo": (X, Z), "yhi": (X, Z), "zlo": (X, Y), "zhi": (X, Y)}
+    for (what, want), t in zip(faces.items(), slabs):
+        check_tensor(t, what, ndims=(block.dim() - 1,), dtype=torch.float32)
+        if tuple(t.shape) != lead + want:
+            raise ValueError(f"{what} shape {tuple(t.shape)}, want {lead + want}")
+    check_tensor(origins, "origins", ndims=(1,) if single else (2,), dtype=torch.int32)
+    if tuple(origins.shape) != lead + (3,):
+        raise ValueError(f"origins shape {tuple(origins.shape)} does not fit {n} block(s)")
+    check_tensor(yz_d2, "yz_d2", ndims=(block.dim() - 1,), dtype=torch.int32)
+    if tuple(yz_d2.shape) != lead + (Y, Z):
+        raise ValueError(f"yz_d2 shape {tuple(yz_d2.shape)}, want {lead + (Y, Z)}")
+    tensors = [block, *slabs, origins, yz_d2]
+    if out is not None:
+        check_tensor(out, "out", ndims=(block.dim(),), dtype=torch.float32)
+        if out.shape != block.shape or out.data_ptr() == block.data_ptr():
+            raise ValueError("out must be a separate tensor of the block's shape")
+        tensors.append(out)
+    same_device(*tensors)
+    return n, X, Y, Z
+
+
+def jacobi_slab_step_plain(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, global_size,
+                           out=None) -> torch.Tensor:
+    """One Jacobi level over bare interior(s) ``(X, Y, Z)`` or ``(n, X, Y,
+    Z)`` (no shell), the boundary neighbours taken from the six received face
+    slabs: ``xlo``/``xhi`` ``(.., Y, Z)`` (the -x / +x neighbour's outermost
+    plane), ``ylo``/``yhi`` ``(.., X, Z)`` and ``zlo``/``zhi`` ``(.., X, Y)``.
+    ``origins`` are each block's global start, ``yz_d2`` its
+    ``yz_dist2_plane`` over the (Y, Z) interior.  Returns ``out`` (a fresh
+    tensor when None).
+
+    The JAX kernel takes the z slabs transposed, ``(Y, X)``; the port keeps
+    them ``(X, Y)`` (a GPU has no lane axis to put x on)."""
+    slabs = (xlo, xhi, ylo, yhi, zlo, zhi)
+    _check_slab(block, slabs, origins, yz_d2, out)
+    single = block.dim() == 3
+    if single:
+        block, origins, yz_d2, out = _batched(block, origins, yz_d2, out)
+        slabs = _batched(*slabs)
+    xlo, xhi, ylo, yhi, zlo, zhi = slabs
+    c = block
+    X = c.shape[1]
+    gx = global_size[0]
+    hot_x, cold_x, in_r2 = sphere_params(gx)
+    s = torch.cat([xlo[:, None], c[:, :-1]], 1) + torch.cat([c[:, 1:], xhi[:, None]], 1)  # x-1, x+1
+    s = s + torch.cat([ylo[:, :, None], c[:, :, :-1]], 2)  # y-1
+    s = s + torch.cat([c[:, :, 1:], yhi[:, :, None]], 2)  # y+1
+    s = s + torch.cat([zlo[..., None], c[..., :-1]], 3)  # z-1
+    s = s + torch.cat([c[..., 1:], zhi[..., None]], 3)  # z+1
+    x_g = (origins[:, 0:1].long() + torch.arange(X, device=c.device)) % gx
+    val = _clamp_spheres(s * SIXTH, yz_d2[:, None], x_g[:, :, None, None], hot_x, cold_x, in_r2)
+    res = val if out is None else out.copy_(val)
+    return res[0] if single else res
+
+
+def jacobi_slab_step(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, global_size,
+                     out=None) -> torch.Tensor:
+    """One Jacobi level over bare interior(s) from six received face slabs
+    (the ``slab`` route's kernel); arguments and result as
+    ``jacobi_slab_step_plain``.  One CUDA launch serves all ``n`` blocks."""
+    slabs = (xlo, xhi, ylo, yhi, zlo, zhi)
+    n, X, Y, Z = _check_slab(block, slabs, origins, yz_d2, out)
+    if block.device.type == "cpu":
+        return jacobi_slab_step_plain(block, *slabs, origins, yz_d2, global_size, out)
+    from stencil_tpu_torch.kernels import build
+
+    lib = build.load("jacobi_slab")
+    gx = int(global_size[0])
+    hot_x, cold_x, in_r2 = sphere_params(gx)
+    res = torch.empty_like(block) if out is None else out
+    rc = lib.stp_jacobi_slab_level(
+        block.data_ptr(), res.data_ptr(), *(t.data_ptr() for t in slabs), origins.data_ptr(),
+        yz_d2.data_ptr(), n, X, Y, Z, gx, hot_x, cold_x, in_r2, stream_handle(block.device),
+    )
+    build.check(lib, rc, "jacobi_slab_step")
+    jacobi_slab_step.launches += 1
+    return res
+
+
+#: kernel launches made by ``jacobi_slab_step`` (plain-version calls do not count)
+jacobi_slab_step.launches = 0
 
 
 # --- the wavefront kernels ----------------------------------------------------

@@ -500,8 +500,16 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
     falls with the field count (3 fields at s = 3 plan per-field m = 3, or
     joint m = 2 when not separable, where the JAX package keeps joint m = 3
     at small sizes); the plane route never groups per field; the z-slab
-    form needs no lane padding, so the plain form is never planned (it is
-    reached with ``make_stream_step(z_slabs=False)``)."""
+    form needs no lane padding, so on even subdomains the plain form is
+    reached only with ``make_stream_step(z_slabs=False)``.
+
+    Padded (uneven) subdomains take both routes as in the JAX package
+    (``stencil_tpu/ops/stream.py:926-938``): the exchange writes each +axis
+    halo right after the valid cells, where the wrapped coordinates ``(origin
+    - s + index) mod g`` are right too, and pad cells past it reach only the
+    levels the shell sacrifices; only the z-slab form, whose emitted slabs
+    sit at the interior z boundary, stays even-only, so they plan the plain
+    wavefront."""
     if path not in ("auto", "plane", "wavefront", "wrap"):
         raise ValueError(f"unknown stream path {path!r}")
     shell = dd.shell_radius()
@@ -529,7 +537,7 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
         for grouping, fields in groupings:
             m = max([c for c in range(2, cap + 1) if stream_smem_fits(c, fields)], default=0)
             if m >= 2 and (best is None or m > best["m"]):
-                best = {"route": "wavefront", "m": m, "z_slabs": True, "grouping": grouping}
+                best = {"route": "wavefront", "m": m, "z_slabs": not dd.padded(), "grouping": grouping}
         if best is not None:
             return best
     if path == "wavefront":
@@ -585,7 +593,8 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     the port runs (off, array, vpu, f32); ``mxu_kernel`` is accepted and
     unused.  ``z_slabs=False`` runs a wavefront plan in its plain form
     (every axis exchanged in the array; the JAX package reaches that form
-    through its split, fused and uneven paths, not ported yet).
+    through its split and fused paths, not ported yet, and on uneven sizes,
+    where the plan takes it and ``z_slabs=True`` raises).
 
     Per call, on the plan's route: ``wrap`` slices each subdomain interior
     out, runs ``steps // k`` passes of k levels and one of ``steps % k``,
@@ -602,6 +611,8 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     max_depth = _check_depth(max_depth)
     plan = dict(plan_stream(dd, x_radius, path, separable, max_m=max_depth))
     if z_slabs is not None and plan["route"] == "wavefront":
+        if z_slabs and dd.padded():
+            raise ValueError("z_slabs=True: the z-slab wavefront form needs even (unpadded) subdomains")
         plan["z_slabs"] = bool(z_slabs)
     plan.update(overlap="off", halo="array", compute_unit="vpu", mxu_input="f32")
     names = [h.name for h in dd._handles]
@@ -665,12 +676,13 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
     origins = dd.origins()
     count = dd.num_subdomains()
     gsize = dd.size()
+    valid_last = dd.valid_last()
 
     def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
         stacks = [curr[name] for name in names]
         shape = stacks[0].shape
         for _ in range(steps):
-            halo_exchange_multi(stacks, shell)
+            halo_exchange_multi(stacks, shell, valid_last)
             blocks = [s.view(count, *shape[3:]) for s in stacks]
             new = list(stacks)
             for g, sk in zip(groups, programs):
@@ -694,6 +706,7 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
     origins = dd.origins()
     count = dd.num_subdomains()
     gsize = dd.size()
+    valid_last = dd.valid_last()
     yext, xext = make_slab_extenders(Xr, Yr, s)
 
     def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
@@ -709,7 +722,7 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
         macros, rem = divmod(steps, m)
         zouts = [prime_z_slabs(b, Zr, s) for b in stacks] if z_slab_mode else None
         for depth in [m] * macros + ([rem] if rem else []):
-            halo_exchange_multi(stacks, shell, axes=(0, 1) if z_slab_mode else (0, 1, 2))
+            halo_exchange_multi(stacks, shell, valid_last, axes=(0, 1) if z_slab_mode else (0, 1, 2))
             zs = [permute_and_extend_z_slabs(z, s, yext, xext) for z in zouts] if z_slab_mode else None
             new, new_z = list(stacks), list(zouts) if z_slab_mode else None
             for g, sk in zip(groups, programs):

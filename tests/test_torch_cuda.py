@@ -118,20 +118,85 @@ def test_zring_wavefront_kernel_equals_plain(dev, m, s_off):
     assert torch.equal(got[1][:, S, :, S], want[1][:, S, :, S])
 
 
+@pytest.mark.parametrize("n,X,Y,Z", [(1, 2, 3, 5), (3, 7, 33, 70), (8, 16, 40, 129)])
+@pytest.mark.parametrize("faces", ["random", "self"])
+def test_slab_kernel_equals_plain(dev, n, X, Y, Z, faces):
+    """Ragged blocks (partial tiles in y and z, grid-strided planes), random
+    face slabs or each block's own faces; origins past gx wrap."""
+    gs = (n * X + 3, 2 * Y + 1, 3 * Z)
+    block = _rand((n, X, Y, Z), 50, dev)
+    if faces == "self":
+        slabs = [t.contiguous() for t in (block[:, -1], block[:, 0], block[:, :, -1], block[:, :, 0],
+                                          block[..., -1], block[..., 0])]
+    else:
+        slabs = [_rand((n,) + s, 51 + i, dev)
+                 for i, s in enumerate(((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
+    org = torch.tensor([[(b * X + 2) % gs[0], (5 * b) % gs[1], (7 * b) % gs[2]] for b in range(n)],
+                       dtype=torch.int32, device=dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y, Z), gs, dev) for o in org])
+    before = jk.jacobi_slab_step.launches
+    got = jk.jacobi_slab_step(block, *slabs, org, d2, gs)
+    torch.cuda.synchronize()
+    assert jk.jacobi_slab_step.launches == before + 1  # all blocks in one launch
+    assert torch.equal(got, jk.jacobi_slab_step_plain(block, *slabs, org, d2, gs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_blend_dynamic_kernel_equals_plain(dev, axis, dtype):
+    """Per-block offsets as the uneven exchange makes them (the last block
+    differs), every offset of a row of blocks, and an offset past the end
+    (clamped)."""
+    blocks = (_rand((4, 17, 19, 23), 60, dev) * 100).to(dtype)
+    ext = blocks.shape[1 + axis]
+    for r in (1, 2, 3):
+        shape = list(blocks.shape)
+        shape[1 + axis] = r
+        slab = (_rand(shape, 61 + r, dev) * 100).to(dtype)
+        for pos in ([ext - r] * 3 + [ext - r - 4], [0, 5, ext - r, ext + 9]):
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            before = hb.blend_slab_dynamic.launches
+            got = hb.blend_slab_dynamic(blocks.clone(), slab, axis, p)
+            torch.cuda.synchronize()
+            assert hb.blend_slab_dynamic.launches == before + 1
+            assert torch.equal(got, hb.blend_slab_dynamic_plain(blocks.clone(), slab, axis, p))
+
+
 def test_model_routes_agree_on_card(dev):
     wrap = Jacobi3D(32, 32, 32, kernel_impl="cuda")
     shell = Jacobi3D(32, 32, 32, kernel_impl="cuda", pallas_path="shell")
     shell.dd.set_partition(2, 2, 2)
     wavefront = Jacobi3D(32, 32, 32, kernel_impl="cuda")
     wavefront.dd.set_partition(2, 2, 2)
+    slab = Jacobi3D(32, 32, 32, kernel_impl="cuda", pallas_path="slab")
+    slab.dd.set_partition(2, 2, 2)
     ref = Jacobi3D(32, 32, 32)
-    for m in (wrap, shell, wavefront, ref):
+    for m in (wrap, shell, wavefront, slab, ref):
         m.realize()
         m.step(6)
-    assert wavefront._pallas_path == "wavefront"
+    assert wavefront._pallas_path == "wavefront" and slab._pallas_path == "slab"
     assert np.array_equal(wrap.temperature(), shell.temperature())
     assert np.array_equal(wrap.temperature(), wavefront.temperature())
+    assert np.array_equal(wrap.temperature(), slab.temperature())
     np.testing.assert_allclose(wrap.temperature(), ref.temperature(), rtol=1e-6)
+
+
+def test_uneven_routes_agree_on_card(dev):
+    """33^3 over 2x2x2 (17 + 16 cells a side): auto (the plain wavefront),
+    shell and the torch engine against one unpadded subdomain."""
+    wrap = Jacobi3D(33, 33, 33, kernel_impl="cuda")
+    runs = [Jacobi3D(33, 33, 33, kernel_impl="cuda", **kw) for kw in ({}, {"pallas_path": "shell"})]
+    ref = Jacobi3D(33, 33, 33)
+    for m in runs + [ref]:
+        m.dd.set_partition(2, 2, 2)
+    for m in [wrap] + runs + [ref]:
+        m.realize()
+        m.step(7)
+    assert runs[0]._pallas_path == "wavefront" and not runs[0]._wavefront_z_slabs
+    assert runs[0].dd.padded()
+    for m in runs:
+        assert np.array_equal(m.temperature(), wrap.temperature())
+    np.testing.assert_allclose(ref.temperature(), wrap.temperature(), rtol=1e-6)
 
 
 # --- the stream kernels: traced user kernels, emitted into csrc/stream_*.cu -----------
@@ -277,5 +342,22 @@ def test_astaroth_routes_agree_on_card(dev):
         m.realize()
         m.step(7)
     for m in runs[1:]:
+        for i in range(2):
+            assert np.array_equal(m.field(i), runs[0].field(i))
+
+
+def test_astaroth_uneven_routes_agree_on_card(dev):
+    """31^3 over 2x2x2 (16 + 15 cells a side), auto (per-field plain
+    wavefront) and per-step (plane), against one unpadded subdomain."""
+    runs = [AstarothSim(31, 31, 31, num_quantities=2, kernel_impl="cuda")]
+    for schedule in ("auto", "per-step"):
+        runs.append(AstarothSim(31, 31, 31, num_quantities=2, kernel_impl="cuda", schedule=schedule))
+        runs[-1].dd.set_partition(2, 2, 2)
+    for m in runs:
+        m.realize()
+        m.step(7)
+    assert runs[1]._step._stream_plan["route"] == "wavefront" and not runs[1]._step._stream_plan["z_slabs"]
+    for m in runs[1:]:
+        assert m.dd.padded()
         for i in range(2):
             assert np.array_equal(m.field(i), runs[0].field(i))

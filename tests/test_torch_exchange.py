@@ -83,14 +83,26 @@ def test_size1_axis_wraps_onto_itself():
 
 
 def test_exchange_rejects_uneven_sizes_naming_roadmap():
+    """Uneven sizes are padded now (tests/test_torch_uneven.py); what is
+    still refused is a remainder that does not fit one trailing subdomain,
+    which the JAX package refuses too (its domain.py:492-503)."""
     dd = DistributedDomain(15, 16, 16, device="cpu")
     dd.set_radius(1)
     dd.set_subdomains(8)
     dd.add_data("q")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        dd.realize()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        halo_exchange_shard(torch.zeros(2, 2, 2, 4, 4, 4), Radius.constant(1), valid_last=(3, None, None))
+    dd.realize()
+    assert dd.valid_last() == (7, None, None)
+    empty = DistributedDomain(10, 8, 8, device="cpu")
+    empty.set_radius(1)
+    empty.set_partition(8, 1, 1)
+    empty.add_data("q")
+    with pytest.raises(ValueError, match="trailing subdomain"):
+        empty.realize()
+    # a padded axis on its own: the -x halo of subdomain 0 holds the last
+    # valid plane (index 3 of subdomain 1), not its pad plane
+    stack = torch.arange(2 * 6 * 3 * 3, dtype=torch.float32).view(2, 1, 1, 6, 3, 3)
+    halo_exchange_shard(stack, Radius.constant(0).set_face(1), valid_last=(3, None, None))
+    assert torch.equal(stack[0, 0, 0, 0, 1:2, 1:2], stack[1, 0, 0, 3, 1:2, 1:2])
 
 
 def test_reference_loop_equals_make_step():

@@ -132,7 +132,6 @@ def test_wrap_marks_shell_stale_and_readback_reexchanges():
 
 def test_unported_options_name_the_roadmap():
     for kw in (
-        {"pallas_path": "slab"},
         {"wavefront_alias": True},
         {"compute_unit": "mxu"},
         {"storage_dtype": "bf16"},

@@ -260,9 +260,7 @@ def test_auto_route_matches_jax(size, partition):
     count = 1 if partition is None else int(np.prod(partition))
     j = _jax(size, jax.devices()[:count], partition, kernel_impl="pallas", interpret=True)
     t = _port(size, partition, kernel_impl="cuda")
-    # the JAX package falls back to its slab route where the port, which has
-    # no slab route yet, takes shell (ROADMAP.md, deliberate differences)
-    assert t._pallas_path == ("shell" if j._pallas_path == "slab" else j._pallas_path)
+    assert t._pallas_path == j._pallas_path
     if j._pallas_path == "wavefront":
         assert t._wavefront_m == j._wavefront_m
         assert t._wavefront_z_slabs == j._wavefront_z_slabs
