@@ -66,7 +66,26 @@ non-zero before the result line:
     blend_slab_dynamic at the uneven wavefront's +x, +y and +z halo writes,
     beside their bounds, plain versions and, for blend_slab_dynamic, the
     library call that makes the same write (``Tensor.scatter_`` with
-    per-block indices).
+    per-block indices);
+13. the packed exchange routes: ``AstarothSim(512, 512, 512,
+    num_quantities=8, kernel_impl="cuda", schedule="per-step",
+    exchange_route=r)`` on 2x2x2 (the plane route, one 8-field exchange an
+    iteration) for ``direct`` and the four packed routes, 24 iterations each
+    with the counters reset before and read after: exactly 16 launches an
+    iteration of each shell-pack kernel a route's packed sweeps use (8
+    fields x 2 directions) and the matching blend_slab count; every route
+    bitwise equal to phase 8's result; ms/iter and Mupdates/s (the
+    better of 2 x 24 timed iterations), the ms of one 8-field
+    ``dd.exchange()`` (median of 7 CUDA-event reps of 2 calls, host issue
+    included) and its device ms (torch.profiler, 7 calls) and, on
+    ``yzpack_pallas``, a torch.profiler breakdown and the launches of 200
+    iterations; then the times of the four shell-pack kernels at that
+    path's shapes (8 blocks of 262^3 f32, depth 3), their plain versions
+    and the library call that makes the same copy (``Tensor.copy_`` between
+    the buffer and the permuted window of the block), and each kernel's
+    device ms a launch: in the ``yzpack_pallas`` profile (the window cold
+    in L2, the ``device_ms`` of the kernels line) and back to back on one
+    block (the window hot in the 50 MB L2).
 
 Phase 2 builds the stream kernels (templates plus the traced Astaroth
 kernel's emitted body, and the bodies the phase-3 checks use) in the same
@@ -183,6 +202,23 @@ def device_breakdown(model, steps: int = 20) -> dict:
             "idle_share": 1 - busy / wall_ms, "kernels_ms_per_step": kernels}
 
 
+def device_ms_per_call(fn, calls: int = 7) -> float:
+    """Device ms per call of ``fn`` under torch.profiler: the CUDA kernels'
+    self time over ``calls`` calls, divided by ``calls`` (the host's issue
+    time, which CUDA events between calls would count, left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
 def log_breakdown(route: str, b: dict) -> None:
     top = sorted(b["kernels_ms_per_step"].items(), key=lambda kv: -kv[1])
     log(f"profile {route}: wall {b['wall_ms_per_step']:.4f} ms/step (profiler on), device busy "
@@ -219,8 +255,9 @@ def main() -> int:
     from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
     from stencil_tpu_torch.ops import halo_blend as hb
     from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.ops import pack as pk
     from stencil_tpu_torch.ops import stream as st
-    from stencil_tpu_torch.ops.exchange import halo_exchange_shard
+    from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES, halo_exchange_shard
     from stencil_tpu_torch.ops.stream_trace import StreamKernel
 
     # the traced kernels phase 3 runs: Astaroth's own (one field for the
@@ -262,7 +299,8 @@ def main() -> int:
     errs = {"jacobi_wrap_step": 0.0, "jacobi_plane_step": 0.0, "blend_slab": 0.0,
             "jacobi_zring_wavefront_step": 0.0, "jacobi_shell_wavefront_step": 0.0,
             "stream_wrap_pass": 0.0, "stream_plane_pass": 0.0, "stream_wavefront_pass": 0.0,
-            "jacobi_slab_step": 0.0, "blend_slab_dynamic": 0.0}
+            "jacobi_slab_step": 0.0, "blend_slab_dynamic": 0.0, "pack_zshell_pallas": 0.0,
+            "unpack_zshell_pallas": 0.0, "pack_yshell_pallas": 0.0, "unpack_yshell_pallas": 0.0}
 
     def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -474,6 +512,30 @@ def main() -> int:
     hold_fields("stream_plane_pass", st.stream_plane_pass(ak8, ast_names, main_plane, shell3, shell3, 1, org, gs),
                 st.stream_plane_pass_plain(ak8, ast_names, main_plane, shell3, shell3, 1, org, gs),
                 f"{AST_Q} fields x 8x{ps}^3")
+    # the shell packs: ragged blocks of four dtypes, one and three at once,
+    # then the plane route's shapes (8 x 262^3, the radius-3 shell's windows)
+    packs = {axis: (getattr(pk, f"pack_{axis}shell_pallas"), getattr(pk, f"pack_{axis}shell_pallas_plain"),
+                    getattr(pk, f"unpack_{axis}shell_pallas"), getattr(pk, f"unpack_{axis}shell_pallas_plain"))
+             for axis in ("z", "y")}
+
+    def hold_packs(axis, blks, windows, seed, what):
+        pack, pack_plain, unpack, unpack_plain = packs[axis]
+        for start, depth in windows:
+            buf = pack(blks, start, depth)
+            hold(pack.__name__, buf, pack_plain(blks, start, depth), f"{what} [{start}, {start + depth})")
+            new = (seeded(tuple(buf.shape), seed + start, dev) * 100).to(blks.dtype)
+            hold(unpack.__name__, unpack(blks.clone(), new, start, depth),
+                 unpack_plain(blks.clone(), new, start, depth), f"{what} [{start}, {start + depth})")
+
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.uint8):
+        base = small.to(dtype)
+        for axis, dim in (("z", 2), ("y", 1)):
+            ext = small.shape[1 + dim]
+            windows = ((0, 1), (5, 3), (ext - 3, 3), (0, ext))
+            hold_packs(axis, base, windows, 140, f"{axis} {dtype} 3x(17,19,23)")
+            hold_packs(axis, base[1].contiguous(), windows, 150, f"{axis} {dtype} (17,19,23)")
+    for axis in ("z", "y"):
+        hold_packs(axis, main_plane[0], ((ps - 6, 3), (3, 3), (0, 3), (ps - 3, 3)), 160, f"{axis} 8x{ps}^3")
     torch.cuda.empty_cache()
     ws = N + 6
     main_wf = ([seeded((1, ws, ws, ws), 100, dev)], seeded((1, ws, 6, ws), 101, dev))
@@ -793,6 +855,7 @@ def main() -> int:
         log_breakdown(f"astaroth {key}", prof)
         del sim
         torch.cuda.empty_cache()
+    ast_ref = ast_first.cpu()  # phase 13's reference, off the card until then
     del ast_first
     torch.cuda.empty_cache()
 
@@ -1016,42 +1079,164 @@ def main() -> int:
     del dyn_blocks, dyn_writes
     torch.cuda.empty_cache()
 
+    # --- 13. the packed exchange routes -----------------------------------------------
+    phase_start(13)
+    # blend_slab launches an iteration: 8 fields x 2 directions per sweep
+    # that writes through it (x always, y and z unless packed by the kernels)
+    blends = {"direct": 48, "zpack_xla": 48, "zpack_pallas": 32, "yzpack_xla": 48, "yzpack_pallas": 16}
+    routes_13 = {}
+    ast_ref = ast_ref.to(dev)
+    for route in EXCHANGE_ROUTES:
+        sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", schedule="per-step",
+                          exchange_route=route)
+        sim.dd.set_partition(2, 2, 2)
+        sim.realize()
+        ledger.reset_launch_counts()
+        sync()
+        sim.step(AST_ITERS)
+        sync()
+        counts = ledger.launch_counts()
+        z_on, y_on = route.endswith("pallas"), route == "yzpack_pallas"
+        want = {"stream_plane_pass": AST_ITERS, "blend_slab": blends[route] * AST_ITERS,
+                "pack_zshell_pallas": 16 * AST_ITERS * z_on, "unpack_zshell_pallas": 16 * AST_ITERS * z_on,
+                "pack_yshell_pallas": 16 * AST_ITERS * y_on, "unpack_yshell_pallas": 16 * AST_ITERS * y_on}
+        if sim.dd.exchange_route() != route or {k: counts[k] for k in want} != want \
+                or sum(counts.values()) != sum(want.values()):
+            raise AssertionError(f"astaroth per-step {route}: route {sim.dd.exchange_route()}, launches "
+                                 f"{counts}, want {want}")
+        got = interiors(sim)
+        if not torch.equal(got, ast_ref):
+            raise AssertionError(f"astaroth per-step {route} != phase 8's result after {AST_ITERS} iterations")
+        del got
+        dts = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dts.append((time.perf_counter() - t0) / AST_ITERS)
+        dt = min(dts)
+        ex_ms = cuda_ms(sim.dd.exchange, inner=2)
+        ex_dev_ms = device_ms_per_call(sim.dd.exchange)
+        entry = {"launches": counts, "ms_per_iter": dt * 1e3, "ms_per_iter_runs": [t * 1e3 for t in dts],
+                 "mupdates_per_s": AST_Q * N ** 3 / dt / 1e6, "exchange_ms": ex_ms,
+                 "exchange_device_ms": ex_dev_ms}
+        if route == "yzpack_pallas":
+            entry["profile"] = device_breakdown(sim, AST_ITERS)
+            ledger.reset_launch_counts()  # the unit of PERF.md's kernel table
+            sim.step(STEPS)
+            sync()
+            entry[f"launches_{STEPS}"] = {k: v for k, v in ledger.launch_counts().items() if v}
+            pack_counts = counts
+        routes_13[route] = entry
+        log(f"astaroth {AST_Q}q {N}^3 per-step 2x2x2 exchange_route={route}: {dt * 1e3:.4f} ms/iter, "
+            f"{AST_Q * N ** 3 / dt / 1e6:.1f} Mupdates/s, one {AST_Q}-field exchange {ex_ms:.4f} ms "
+            f"({ex_dev_ms:.4f} device ms) on {card}; "
+            f"launches per {AST_ITERS} iterations {dict((k, v) for k, v in counts.items() if v)}; bitwise "
+            f"equal to phase 8's result")
+        if "profile" in entry:
+            log_breakdown(f"astaroth per-step {route}", entry["profile"])
+        del sim
+        torch.cuda.empty_cache()
+    del ast_ref
+    torch.cuda.empty_cache()
+    # the four kernels at that path's shapes: one field's 8 blocks of 262^3,
+    # the radius-3 shell; the library call is the same copy as one copy_
+    pk_blocks = seeded((8, ps, ps, ps), 170, dev)
+    zbuf = pk.pack_zshell_pallas(pk_blocks, ps - 6, 3)
+    ybuf = pk.pack_yshell_pallas(pk_blocks, ps - 6, 3)
+    pack_cases = {
+        "pack_zshell_pallas": (lambda: pk.pack_zshell_pallas(pk_blocks, ps - 6, 3),
+                               lambda: pk.pack_zshell_pallas_plain(pk_blocks, ps - 6, 3),
+                               lambda: zbuf.copy_(pk_blocks.narrow(3, ps - 6, 3).permute(0, 3, 2, 1))),
+        "unpack_zshell_pallas": (lambda: pk.unpack_zshell_pallas(pk_blocks, zbuf, 0, 3),
+                                 lambda: pk.unpack_zshell_pallas_plain(pk_blocks, zbuf, 0, 3),
+                                 lambda: pk_blocks.narrow(3, 0, 3).copy_(zbuf.permute(0, 3, 2, 1))),
+        "pack_yshell_pallas": (lambda: pk.pack_yshell_pallas(pk_blocks, ps - 6, 3),
+                               lambda: pk.pack_yshell_pallas_plain(pk_blocks, ps - 6, 3),
+                               lambda: ybuf.copy_(pk_blocks.narrow(2, ps - 6, 3).transpose(1, 2))),
+        "unpack_yshell_pallas": (lambda: pk.unpack_yshell_pallas(pk_blocks, ybuf, 0, 3),
+                                 lambda: pk.unpack_yshell_pallas_plain(pk_blocks, ybuf, 0, 3),
+                                 lambda: pk_blocks.narrow(2, 0, 3).copy_(ybuf.transpose(1, 2))),
+    }
+    # the library copies make what the kernels make
+    if not (torch.equal(pack_cases["pack_zshell_pallas"][2](), pk.pack_zshell_pallas(pk_blocks, ps - 6, 3))
+            and torch.equal(pack_cases["pack_yshell_pallas"][2](), pk.pack_yshell_pallas(pk_blocks, ps - 6, 3))):
+        raise AssertionError("copy_ into the buffer and the pack kernels disagree")
+    pack_ms = {name: [cuda_ms(fn) for fn in fns] for name, fns in pack_cases.items()}
+    # a launch's device time.  In the route: the profile's kernel time an
+    # iteration over the launches an iteration (the window cold in L2; the
+    # kernels are zshell_kernel / yshell_kernel, <T, true> packing).  Back to
+    # back on one block the window stays in L2, and CUDA events between calls
+    # count the host's issue time.
+    route_prof = routes_13["yzpack_pallas"]["profile"]["kernels_ms_per_step"]
+    pack_dev_ms, pack_hot_ms = {}, {}
+    for name, fns in pack_cases.items():
+        tag, packs = name.split("_")[-2][-6:] + "_kernel<", name.startswith("pack")
+        per_iter = [v for k, v in route_prof.items() if tag in k and (", true>" in k) == packs]
+        if len(per_iter) != 1:
+            raise AssertionError(f"{name}: {len(per_iter)} profiler entries of {tag}: {list(route_prof)}")
+        pack_dev_ms[name] = per_iter[0] / (pack_counts[name] / AST_ITERS)
+        pack_hot_ms[name] = device_ms_per_call(fns[0], calls=20)
+    pack_bytes = 2 * zbuf.numel() * 4  # the window read once and written once
+    log("shell packs at (8,{0},{0},{0}) f32 depth 3 (ms: kernel, plain, copy_): ".format(ps)
+        + ", ".join(f"{k}: {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in pack_ms.items()) + "; device ms a "
+        "launch in the route (profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in pack_dev_ms.items())
+        + "; back to back, hot in L2: " + ", ".join(f"{k} {v:.4f}" for k, v in pack_hot_ms.items()) + f" on {card}")
+    del pk_blocks, zbuf, ybuf, pack_cases
+    torch.cuda.empty_cache()
+
     rows = []
+    # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
+    macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
+    m_ast = ast["wavefront 1x1x1"]["m"]
+    # (name, launch counts, steps of their run, launches expected in it, ...)
     specs = [
-        ("jacobi_wrap_step", wrap_counts, wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells,
+        ("jacobi_wrap_step", wrap_counts, STEPS, STEPS, wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells,
          f"({N},{N},{N}) f32, k=1"),
-        ("jacobi_plane_step", shell_counts, plane_ms, plane_plain_ms, None, plane_bytes,
+        ("jacobi_plane_step", shell_counts, STEPS, STEPS, plane_ms, plane_plain_ms, None, plane_bytes,
          7 * 8 * half ** 3, f"(8,{half + 2},{half + 2},{half + 2}) f32"),
-        ("blend_slab", shell_counts, blend_ms, blend_plain_ms, blend_lib_ms, blend_bytes, 0,
+        ("blend_slab", shell_counts, STEPS, 6 * STEPS, blend_ms, blend_plain_ms, blend_lib_ms, blend_bytes, 0,
          f"6 writes of one exchange, slabs (8,1,{half + 2},{half + 2}) per axis"),
-        ("jacobi_zring_wavefront_step", wave_counts, zring_ms, zring_plain_ms, None, zring_bytes, wave_flops,
+        ("jacobi_zring_wavefront_step", wave_counts, STEPS, macros[mw], zring_ms, zring_plain_ms, None,
+         zring_bytes, wave_flops,
          f"(8,{rw},{rw},{half}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), d2 (8,{rw},{half + 128})"),
-        ("jacobi_shell_wavefront_step", slab_counts, shwf_ms, shwf_plain_ms, None, shwf_bytes, wave_flops,
-         f"(8,{rw},{rw},{rw}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), z_valid={rw}"),
-        ("stream_wrap_pass", ast["auto 1x1x1"]["launches"], swr_ms, swr_plain_ms, None, swr_bytes,
-         ops * AST_Q * N ** 3, f"{AST_Q} fields x ({N},{N},{N}) f32, k=1, Astaroth kernel"),
-        ("stream_plane_pass", ast["per-step 2x2x2"]["launches"], spl_ms, spl_plain_ms, None, spl_bytes,
-         ops * AST_Q * 8 * half ** 3, f"{AST_Q} fields x (8,{ps},{ps},{ps}) f32, shell 3, r=1, Astaroth kernel"),
-        ("stream_wavefront_pass", ast["wavefront 1x1x1"]["launches"], swf_ms, swf_plain_ms, None, swf_bytes,
-         swf_flops, f"1 field x (1,{ws},{ws},{ws}) f32 m=3 s=3, z slabs (1,{ws},6,{ws}), Astaroth kernel"),
-        ("jacobi_slab_step", slabr_counts, slabk_ms, slabk_plain_ms, None, slabk_bytes, slabk_flops,
-         f"(8,{half},{half},{half}) f32, six face slabs (8,{half},{half}), one level"),
-        ("blend_slab_dynamic", uneven["wavefront"]["launches"], dyn_ms[0], dyn_plain_ms[0], dyn_lib_ms[0],
-         dyn_bytes, 0, f"the +x halo write of the uneven {NU}^3 wavefront: slab (8,{mu},{ru},{ru}) into "
-                       f"(8,{ru},{ru},{ru}) f32 at per-block offsets"),
+        ("jacobi_shell_wavefront_step", slab_counts, STEPS, macros[mw], shwf_ms, shwf_plain_ms, None,
+         shwf_bytes, wave_flops, f"(8,{rw},{rw},{rw}) f32 m={mw}, z slabs (8,{rw},{2 * mw},{rw}), z_valid={rw}"),
+        ("stream_wrap_pass", ast["auto 1x1x1"]["launches"], AST_ITERS, AST_ITERS, swr_ms, swr_plain_ms, None,
+         swr_bytes, ops * AST_Q * N ** 3, f"{AST_Q} fields x ({N},{N},{N}) f32, k=1, Astaroth kernel"),
+        ("stream_plane_pass", ast["per-step 2x2x2"]["launches"], AST_ITERS, AST_ITERS, spl_ms, spl_plain_ms,
+         None, spl_bytes, ops * AST_Q * 8 * half ** 3,
+         f"{AST_Q} fields x (8,{ps},{ps},{ps}) f32, shell 3, r=1, Astaroth kernel"),
+        ("stream_wavefront_pass", ast["wavefront 1x1x1"]["launches"], AST_ITERS, AST_Q * -(-AST_ITERS // m_ast),
+         swf_ms, swf_plain_ms, None, swf_bytes, swf_flops,
+         f"1 field x (1,{ws},{ws},{ws}) f32 m=3 s=3, z slabs (1,{ws},6,{ws}), Astaroth kernel"),
+        ("jacobi_slab_step", slabr_counts, STEPS, STEPS, slabk_ms, slabk_plain_ms, None, slabk_bytes,
+         slabk_flops, f"(8,{half},{half},{half}) f32, six face slabs (8,{half},{half}), one level"),
+        ("blend_slab_dynamic", uneven["wavefront"]["launches"], STEPS, 3 * macros[mu], dyn_ms[0],
+         dyn_plain_ms[0], dyn_lib_ms[0], dyn_bytes, 0,
+         f"the +x halo write of the uneven {NU}^3 wavefront: slab (8,{mu},{ru},{ru}) into "
+         f"(8,{ru},{ru},{ru}) f32 at per-block offsets"),
+    ] + [
+        (name, pack_counts, AST_ITERS, 16 * AST_ITERS, ms, plain_ms, lib_ms, pack_bytes, 0,
+         f"(8,{ps},{ps},{ps}) f32, depth 3, buffer (8,3,{ps},{ps})")
+        for name, (ms, plain_ms, lib_ms) in pack_ms.items()
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
-    for name, counts, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
+    for name, counts, steps, want, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} launches in its {steps}-step run, want {want}")
         b_ms, b_by = bound(nbytes, flops)
         e = entries[name]
-        per_run = AST_ITERS if name.startswith("stream_") else STEPS
         rows.append({
             "name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
-            "launches": counts[name], "launches_per_step": counts[name] / per_run,
+            "launches": counts[name], "launches_per_step": counts[name] / steps,
             "max_abs_err": errs[name], "bitwise": errs[name] == 0.0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "copy_bound_ms": nbytes / copy_bw * 1e3, "library_ms": lib_ms, "shape": shape,
         })
+        if name in pack_dev_ms:
+            rows[-1]["device_ms"] = pack_dev_ms[name]
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1064,7 +1249,9 @@ def main() -> int:
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
             "step1_ms_min_median": step1, "astaroth": ast,
             "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
-            "uneven_jacobi": uneven, "uneven_astaroth": ast_u,
+            "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,
+            "shell_pack_ms": {k: dict(zip(("kernel", "plain", "copy_"), v), device_in_route=pack_dev_ms[k],
+                                      device_back_to_back=pack_hot_ms[k]) for k, v in pack_ms.items()},
             "blend_slab_dynamic_ms": {"kernel": dyn_ms, "plain": dyn_plain_ms, "scatter_": dyn_lib_ms},
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
                        "wavefront_zring_mcells_per_s": wave_mcells,

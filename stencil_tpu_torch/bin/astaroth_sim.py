@@ -8,13 +8,16 @@ fixes), and one CSV row
     astaroth,<methods>,ranks,devCount,x,y,z,min(s),trimean(s)
 
 with ``--quantities``, ``--kernel-impl`` (cuda | torch), ``--schedule``
-(auto | per-step | wavefront), the reference's method flags, ``--no-overlap``
-and ``--trivial``, plus ``--partition px,py,pz`` (subdomains on the one
-device) and ``--device``.  Each timed sample is one iteration and a device
-synchronize, after one untimed warm-up step (``realize()`` builds the
-kernels).
+(auto | per-step | wavefront), ``--exchange-route`` (auto | direct |
+zpack_xla | zpack_pallas | yzpack_xla | yzpack_pallas), the reference's method
+flags, ``--no-overlap`` and ``--trivial``, plus ``--partition px,py,pz``
+(subdomains on the one device) and ``--device``.  Each timed sample is one
+iteration and a device synchronize, after one untimed warm-up step
+(``realize()`` builds the kernels).
 
     python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --schedule wavefront --iters 24
+    python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --partition 2,2,2 \
+        --schedule per-step --exchange-route yzpack_pallas --iters 24
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import argparse
 import sys
 import time
 
-from stencil_tpu_torch.bin.jacobi3d import _METHOD_FLAGS, _parse_partition
+from stencil_tpu_torch.bin.jacobi3d import _METHOD_FLAGS, _add_exchange_route_flag, _parse_partition
 from stencil_tpu_torch.models.astaroth import AstarothSim
 from stencil_tpu_torch.utils.config import PlacementStrategy
 from stencil_tpu_torch.utils.statistics import Statistics
@@ -52,6 +55,7 @@ def main(argv=None) -> int:
     p.add_argument("--partition", type=_parse_partition, default=None,
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
+    _add_exchange_route_flag(p)
     args = p.parse_args(argv)
 
     kernel_impl = args.kernel_impl
@@ -72,6 +76,7 @@ def main(argv=None) -> int:
         subdomains=part[0] * part[1] * part[2],
         kernel_impl=kernel_impl,
         schedule=args.schedule,
+        exchange_route=args.exchange_route,
         device=args.device,
     )
     if args.partition is not None:

@@ -9,11 +9,12 @@ flags) and the same CSV row
 
 (jacobi3d.cu:378-379), plus ``--partition px,py,pz`` (subdomains on the one
 device), ``--device``, and the JAX driver's ``--pallas-path``,
-``--halo-multiplier`` and ``--temporal-k``.  Each timed sample is one macro
-step (``halo multiplier`` iterations: k on the torch engine under
-``--halo-multiplier k``, the depth m on the wavefront route, else 1) and a
-device synchronize; the CSV reports it per iteration, as the JAX driver
-does for its halo multiplier, so routes of different depths compare.
+``--halo-multiplier``, ``--temporal-k`` and ``--exchange-route``.  Each timed
+sample is one macro step (``halo multiplier`` iterations: k on the torch
+engine under ``--halo-multiplier k``, the depth m on the wavefront route,
+else 1) and a device synchronize; the CSV reports it per iteration, as the
+JAX driver does for its halo multiplier, so routes of different depths
+compare.
 
     python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale --iters 200
     python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
@@ -34,6 +35,7 @@ import sys
 import time
 
 from stencil_tpu_torch.models.jacobi import Jacobi3D, weak_scaled_size
+from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
 from stencil_tpu_torch.utils.statistics import Statistics
 
@@ -46,6 +48,14 @@ _METHOD_FLAGS = (
     ("peer", MethodFlags.CudaMemcpyPeer, "peer"),
     ("kernel", MethodFlags.CudaKernel, "kernel"),
 )
+
+
+def _add_exchange_route_flag(p: argparse.ArgumentParser) -> None:
+    """``--exchange-route`` (``stencil_tpu/bin/_common.py:172-193``): pin the
+    halo exchange's y/z-sweep route; ``auto`` (default) resolves ``direct``."""
+    p.add_argument("--exchange-route", default="auto", choices=("auto",) + EXCHANGE_ROUTES,
+                   help="y/z-sweep exchange route: direct slabs, or the z shell (zpack_*) or y and "
+                        "z shells (yzpack_*) as packed buffers; *_pallas packs with the CUDA kernels")
 
 
 def _parse_partition(text: str):
@@ -80,6 +90,7 @@ def main(argv=None) -> int:
     p.add_argument("--partition", type=_parse_partition, default=None,
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
+    _add_exchange_route_flag(p)
     p.add_argument("x", type=int, nargs="?", default=512)
     p.add_argument("y", type=int, nargs="?", default=512)
     p.add_argument("z", type=int, nargs="?", default=512)
@@ -113,6 +124,9 @@ def main(argv=None) -> int:
         model.dd.set_partition(*args.partition)
     if args.halo_multiplier != 1:
         model.dd.set_halo_multiplier(args.halo_multiplier)
+    # the route reaches the torch engine and the stale-shell readback; the
+    # cuda routes exchange without one, as the JAX package's do
+    model.dd.set_exchange_route(args.exchange_route)
     model.realize()
     # one macro step per timed sample: the torch engine under a halo
     # multiplier steps in whole macros, and a wavefront call of fewer than m

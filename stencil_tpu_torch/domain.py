@@ -22,6 +22,7 @@ cells; the exchange writes each +axis halo right after the valid cells.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,7 +32,7 @@ from stencil_tpu_torch.core.dim3 import Dim3, Rect3
 from stencil_tpu_torch.core.geometry import LocalSpec, shrink_by_radius
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
-from stencil_tpu_torch.ops.exchange import ValidLast, halo_exchange_multi
+from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES, ValidLast, halo_exchange_multi, route_supported
 from stencil_tpu_torch.ops.stream_trace import StreamKernel
 from stencil_tpu_torch.parallel.mesh import SubdomainGrid, make_grid
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
@@ -116,6 +117,8 @@ class DistributedDomain:
         self._subdomains = 1
         self._force_dim: Optional[Dim3] = None
         self._halo_mult = 1
+        self._exchange_route_req: Optional[str] = None
+        self._exchange_route = "direct"
         self._realized = False
         self._shell_stale = False
         self.grid: Optional[SubdomainGrid] = None
@@ -171,6 +174,41 @@ class DistributedDomain:
     def halo_multiplier(self) -> int:
         return self._halo_mult
 
+    def set_exchange_route(self, route: Optional[str]) -> None:
+        """Pin the y/z-sweep exchange route (``ops/exchange.py``
+        ``EXCHANGE_ROUTES``); ``None``/"auto" clears the request, and
+        ``realize()`` then resolves ``direct``.  A pinned route degrades to
+        ``direct`` at ``realize()`` when none of its packed sweeps can engage
+        (``route_supported``)."""
+        if route in (None, "auto"):
+            self._exchange_route_req = None
+            return
+        if route not in EXCHANGE_ROUTES:
+            raise ValueError(f"unknown exchange route {route!r} (one of {EXCHANGE_ROUTES})")
+        assert not self._realized, "set_exchange_route must precede realize()"
+        self._exchange_route_req = route
+
+    def exchange_route(self) -> str:
+        """The resolved y/z-sweep route (meaningful after ``realize()``)."""
+        return self._exchange_route
+
+    def _resolve_exchange_route(self) -> str:
+        """The explicit request, else the static ``direct``
+        (``stencil_tpu/domain.py:809-863`` without its environment variable
+        and tune cache); a route none of whose packed sweeps can engage here
+        (uneven packed axes, a dtype the kernels do not take) degrades to
+        ``direct`` with a warning."""
+        route = self._exchange_route_req or "direct"
+        if not route_supported(route, [self.field_dtype(h) for h in self._handles], self._valid_last):
+            warnings.warn(
+                f"exchange route {route!r} cannot engage here (uneven packed axes or unsupported "
+                "dtype); degrading to 'direct'",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            route = "direct"
+        return route
+
     def set_storage(self, storage: str) -> None:
         if storage != "native":
             raise NotImplementedError(
@@ -218,6 +256,7 @@ class DistributedDomain:
         if min(n) < max_r or min(vlast) < max_r:
             raise ValueError(f"subdomain {n} (last-subdomain valid {valid_last}) smaller than radius shell")
         self._valid_last = valid_last
+        self._exchange_route = self._resolve_exchange_route()
         self._shell_radius = r
         self._spec = LocalSpec.make(n, Dim3(0, 0, 0), r)
         shape = dim.tuple() + self._spec.raw_size().tuple()
@@ -353,7 +392,7 @@ class DistributedDomain:
         """Fill every quantity's halo shell (src/stencil.cu:670-864)."""
         assert self._realized
         halo_exchange_multi([self._curr[h.name] for h in self._handles], self._shell_radius,
-                            self._valid_last)
+                            self._valid_last, route=self._exchange_route)
         self._shell_stale = False
 
     def swap(self) -> None:
@@ -390,12 +429,13 @@ class DistributedDomain:
         """Build ``step(curr, steps) -> curr`` fusing exchange + compute (the
         JAX package's ``make_step``, domain.py:1411).
 
-        ``engine="torch"`` (the JAX package's ``"xla"``): each step exchanges,
-        then evaluates ``kernel`` over every subdomain's interior at once and
-        writes the result back in place.  The kernel is traced once
-        (``ops/stream_trace.py``) and evaluated with torch on the shifted
-        slices, so its arithmetic is the stream engine's and XLA's: a
-        division by a Python number is a multiply by its float32 reciprocal.
+        ``engine="torch"`` (the JAX package's ``"xla"``): each step exchanges
+        (through ``exchange_route()``), then evaluates ``kernel`` over every
+        subdomain's interior at once and writes the result back in place.
+        The kernel is traced once (``ops/stream_trace.py``) and evaluated
+        with torch on the shifted slices, so its arithmetic is the stream
+        engine's and XLA's: a division by a Python number is a multiply by
+        its float32 reciprocal.
         With a halo multiplier ``k`` each step is a MACRO step: one exchange
         of the ``k*r``-wide shells, then ``k`` sub-steps over regions that
         shrink by the user radius from the whole shell down to the interior,
@@ -430,6 +470,7 @@ class DistributedDomain:
         shell = self._shell_radius
         lo = shell.lo()
         names = [h.name for h in self._handles]
+        route = self._exchange_route
         # sub-step regions in interior-local coords: the whole shell is valid
         # after the exchange and each sub-step shrinks it by the user radius,
         # landing on the interior after the last one (domain.py:1553-1569 of
@@ -445,7 +486,7 @@ class DistributedDomain:
 
         def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
             for _ in range(steps):
-                stacks = halo_exchange_multi([curr[k] for k in names], shell, self._valid_last)
+                stacks = halo_exchange_multi([curr[k] for k in names], shell, self._valid_last, route=route)
                 for info, sk in subs:
                     views = [ShardView(b, lo, info.region) for b in stacks]
                     # all values computed before any write

@@ -61,6 +61,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "jacobi_wavefront": {
         "stp_jacobi_wavefront": [_P] * 6 + [_I] * 13 + [_P],
     },
+    "pack": {
+        fn: [_P, _P, _I] + [_L] * 6 + [_P]
+        for fn in ("stp_pack_zshell", "stp_unpack_zshell", "stp_pack_yshell", "stp_unpack_yshell")
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

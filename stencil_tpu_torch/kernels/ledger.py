@@ -96,12 +96,18 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
         "stencil_tpu_torch/csrc/halo_blend.cu",
         f"{_HB}:179",
     ),
+    **{
+        (_PK, fn): _ported(
+            f"stencil_tpu_torch.ops.pack:{fn}",
+            f"stencil_tpu_torch.ops.pack:{fn}_plain",
+            "stencil_tpu_torch/csrc/pack.cu",
+            f"{_PK}:{line}",
+        )
+        for fn, line in (("pack_zshell_pallas", 331), ("unpack_zshell_pallas", 358),
+                         ("pack_yshell_pallas", 422), ("unpack_yshell_pallas", 449))
+    },
     (_PK, "pallas_pack_slab"): _to_port(f"{_PK}:197"),
     (_PK, "pallas_unpack_slab"): _to_port(f"{_PK}:225"),
-    (_PK, "pack_zshell_pallas"): _to_port(f"{_PK}:331"),
-    (_PK, "unpack_zshell_pallas"): _to_port(f"{_PK}:358"),
-    (_PK, "pack_yshell_pallas"): _to_port(f"{_PK}:422"),
-    (_PK, "unpack_yshell_pallas"): _to_port(f"{_PK}:449"),
     (_PS, "mean6_shell_wavefront_step"): _to_port(f"{_PS}:20"),
     (_PS, "mean6_plane_step"): _to_port(f"{_PS}:114"),
 }

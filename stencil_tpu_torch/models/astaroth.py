@@ -32,12 +32,18 @@ package computes it with 64-bit mode on (its tests); a ``sin`` of another
 library may differ in the last bit of a float64, so the tests hand the JAX
 package's initial fields across with ``load_state``.
 
+``exchange_route`` pins the halo exchange's y/z-sweep route (one of
+``ops/exchange.py`` ``EXCHANGE_ROUTES``; None or ``"auto"`` resolves
+``direct``): it reaches every exchange of the torch engine, the plane route
+and the plain wavefront form, and the packed ``*_pallas`` routes run the
+hand-written shell pack kernels.  The z-slab wavefront's x/y exchange stays
+``direct``, as in the JAX package.
+
 Not ported: the MXU form (``_kernel_mxu``, ``compute_unit="mxu"``; ROADMAP.md
 queue 1 item 9), bf16 storage (item 9), the numerics guardband and
-divergence sentinel (items 10/11), ``exchange_route`` choices (item 8),
-``rebuild_after_reshard`` and the tune cache (items 11/13).  Each raises
-``NotImplementedError`` naming its item where the JAX package takes an
-argument for it.
+divergence sentinel (items 10/11), ``rebuild_after_reshard`` and the tune
+cache (items 11/13).  Each raises ``NotImplementedError`` naming its item
+where the JAX package takes an argument for it.
 """
 
 from __future__ import annotations
@@ -84,10 +90,6 @@ class AstarothSim:
             raise NotImplementedError(
                 "the divergence sentinel is not ported yet (ROADMAP.md queue 1 items 10/11)"
             )
-        if exchange_route not in (None, "auto", "direct"):
-            raise NotImplementedError(
-                f"exchange_route={exchange_route!r} is not ported yet (ROADMAP.md queue 1 item 8)"
-            )
         if storage_dtype not in (None, "auto", "native"):
             raise NotImplementedError(
                 f"storage_dtype={storage_dtype!r} is not ported yet (ROADMAP.md queue 1 item 9)"
@@ -101,6 +103,8 @@ class AstarothSim:
         self.dd.set_radius(Radius.constant(3))  # astaroth_sim.cu:184
         self.dd.set_placement(strategy)
         self.dd.set_subdomains(subdomains)
+        if exchange_route not in (None, "auto"):
+            self.dd.set_exchange_route(exchange_route)  # raises ValueError on an unknown route
         self.period = period
         self.handles = [self.dd.add_data(f"d{i}", dtype=dtype) for i in range(num_quantities)]
         self.overlap = overlap

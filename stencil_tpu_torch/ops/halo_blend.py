@@ -20,6 +20,13 @@ import torch
 from stencil_tpu_torch.kernels import check_tensor, same_device, stream_handle
 
 
+def supports(dtype: torch.dtype) -> bool:
+    """Do the kernels (these and the shell packs) take ``dtype``?  Any of
+    1, 2, 4 or 8 bytes (``stencil_tpu/ops/halo_blend.py:59`` knows the
+    (8,128) tile geometry of the same widths)."""
+    return dtype.itemsize in (1, 2, 4, 8)
+
+
 def _check(block: torch.Tensor, slab: torch.Tensor, axis: int, pos: int) -> int:
     check_tensor(block, "block", ndims=(3, 4))
     check_tensor(slab, "slab", ndims=(block.dim(),))

@@ -602,7 +602,9 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     ``wavefront`` runs ``steps // m`` macro steps of m levels and one of
     ``steps % m`` over the same s-wide shell, each macro exchanging x/y in
     the array and z on the slab buffers (z-slab form) or all axes in the
-    array (plain form).  Fields stream jointly or per field as the plan
+    array (plain form).  The plane route and the plain form exchange through
+    ``dd.exchange_route()``; the z-slab form's x/y exchange is ``direct``,
+    as in the JAX package.  Fields stream jointly or per field as the plan
     groups them.  On CUDA every kernel variant the plan can launch is built
     when the step is built, all nvcc runs at once.  The shell goes stale
     (``step._marks_shell_stale``); ``step._stream_plan`` is the plan."""
@@ -677,12 +679,13 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
     count = dd.num_subdomains()
     gsize = dd.size()
     valid_last = dd.valid_last()
+    route = dd.exchange_route()
 
     def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
         stacks = [curr[name] for name in names]
         shape = stacks[0].shape
         for _ in range(steps):
-            halo_exchange_multi(stacks, shell, valid_last)
+            halo_exchange_multi(stacks, shell, valid_last, route=route)
             blocks = [s.view(count, *shape[3:]) for s in stacks]
             new = list(stacks)
             for g, sk in zip(groups, programs):
@@ -708,6 +711,10 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
     gsize = dd.size()
     valid_last = dd.valid_last()
     yext, xext = make_slab_extenders(Xr, Yr, s)
+    # the z-slab form's in-array x/y exchange takes no route, as in the JAX
+    # package (stencil_tpu/ops/stream.py:1821); the plain form takes the
+    # domain's
+    axes, route = ((0, 1), "direct") if z_slab_mode else ((0, 1, 2), dd.exchange_route())
 
     def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
         return t.view(count, *t.shape[3:])
@@ -722,7 +729,7 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
         macros, rem = divmod(steps, m)
         zouts = [prime_z_slabs(b, Zr, s) for b in stacks] if z_slab_mode else None
         for depth in [m] * macros + ([rem] if rem else []):
-            halo_exchange_multi(stacks, shell, valid_last, axes=(0, 1) if z_slab_mode else (0, 1, 2))
+            halo_exchange_multi(stacks, shell, valid_last, axes=axes, route=route)
             zs = [permute_and_extend_z_slabs(z, s, yext, xext) for z in zouts] if z_slab_mode else None
             new, new_z = list(stacks), list(zouts) if z_slab_mode else None
             for g, sk in zip(groups, programs):

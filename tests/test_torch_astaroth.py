@@ -152,10 +152,13 @@ def test_state_round_trips_between_packages():
 
 
 def test_unported_options_name_the_roadmap():
-    for kw in ({"check_divergence_every": 5}, {"exchange_route": "yzpack_all"},
-               {"storage_dtype": "bf16"}, {"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
+    for kw in ({"check_divergence_every": 5}, {"storage_dtype": "bf16"}, {"compute_unit": "mxu"},
+               {"mxu_input": "bf16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AstarothSim(8, 8, 8, device="cpu", **kw)
+    # the exchange routes are ported: an unknown one is refused as in the JAX package
+    with pytest.raises(ValueError, match="unknown exchange route"):
+        AstarothSim(8, 8, 8, device="cpu", exchange_route="yzpack_all")
     m = AstarothSim(8, 8, 8, kernel_impl="cuda", device="cpu", stream_overlap="split")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.realize()

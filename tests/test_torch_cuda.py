@@ -21,6 +21,7 @@ from stencil_tpu_torch.models.astaroth import AstarothSim
 from stencil_tpu_torch.models.jacobi import Jacobi3D
 from stencil_tpu_torch.ops import halo_blend as hb
 from stencil_tpu_torch.ops import jacobi_kernels as jk
+from stencil_tpu_torch.ops import pack as pk
 from stencil_tpu_torch.ops import stream as st
 
 pytestmark = pytest.mark.cuda
@@ -197,6 +198,72 @@ def test_uneven_routes_agree_on_card(dev):
     for m in runs:
         assert np.array_equal(m.temperature(), wrap.temperature())
     np.testing.assert_allclose(ref.temperature(), wrap.temperature(), rtol=1e-6)
+
+
+# --- the shell packs of the packed exchange routes (csrc/pack.cu) ------------------------
+
+PACKS = {"z": (2, pk.pack_zshell_pallas, pk.pack_zshell_pallas_plain, pk.unpack_zshell_pallas,
+               pk.unpack_zshell_pallas_plain),
+         "y": (1, pk.pack_yshell_pallas, pk.pack_yshell_pallas_plain, pk.unpack_yshell_pallas,
+               pk.unpack_yshell_pallas_plain)}
+
+
+def _hold_packs(axis, blocks, windows, seed):
+    """Each pack and unpack kernel against its plain version at each
+    ``(start, depth)`` window: bitwise, one launch a call."""
+    _, pack, pack_plain, unpack, unpack_plain = PACKS[axis]
+    for start, depth in windows:
+        before = (pack.launches, unpack.launches)
+        buf = pack(blocks, start, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, pack_plain(blocks, start, depth))
+        new = (_rand(tuple(buf.shape), seed + start, blocks.device) * 100).to(blocks.dtype)
+        got = unpack(blocks.clone(), new, start, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(got, unpack_plain(blocks.clone(), new, start, depth))
+        assert (pack.launches, unpack.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("axis", ["z", "y"])
+def test_shell_pack_kernels_equal_plain(dev, axis, dtype):
+    """Ragged blocks, one and three at once, windows at both ends and inside."""
+    blocks = (_rand((3, 17, 19, 23), 70, dev) * 100).to(dtype)
+    ext = blocks.shape[1 + PACKS[axis][0]]
+    windows = ((0, 1), (5, 3), (ext - 3, 3), (0, ext))
+    _hold_packs(axis, blocks, windows, 71)
+    _hold_packs(axis, blocks[1].contiguous(), windows, 72)
+
+
+@pytest.mark.parametrize("axis", ["z", "y"])
+def test_shell_pack_kernels_at_main_path_shapes(dev, axis):
+    """Astaroth's plane route at 512^3 on 2x2x2: 8 blocks of 262^3, the
+    radius-3 shell's four windows."""
+    blocks = _rand((8, 262, 262, 262), 73, dev)
+    _hold_packs(axis, blocks, ((256, 3), (3, 3), (0, 3), (259, 3)), 74)
+
+
+def test_astaroth_packed_routes_agree_on_card(dev):
+    """The plane route under every exchange route, 2 quantities on 2x2x2:
+    bitwise equal to direct; the pallas routes launch the pack kernels."""
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
+
+    fields = {}
+    for route in EXCHANGE_ROUTES:
+        m = AstarothSim(32, 32, 32, num_quantities=2, subdomains=8, kernel_impl="cuda",
+                        schedule="per-step", exchange_route=route)
+        m.realize()
+        ledger.reset_launch_counts()
+        m.step(5)
+        counts = ledger.launch_counts()
+        fields[route] = [m.field(i) for i in range(2)]
+        want = 2 * 2 * 5 if route.endswith("pallas") else 0  # 2 fields x 2 directions a step
+        assert counts["pack_zshell_pallas"] == counts["unpack_zshell_pallas"] == want
+        assert counts["pack_yshell_pallas"] == (want if route == "yzpack_pallas" else 0)
+    for route in EXCHANGE_ROUTES[1:]:
+        for got, ref in zip(fields[route], fields["direct"]):
+            assert np.array_equal(got, ref), route
 
 
 # --- the stream kernels: traced user kernels, emitted into csrc/stream_*.cu -----------

@@ -67,6 +67,10 @@ def test_ledger_covers_every_tpu_kernel():
         ("stencil_tpu/ops/stream.py", "stream_wrap_pass"),
         ("stencil_tpu/ops/stream.py", "stream_plane_pass"),
         ("stencil_tpu/ops/stream.py", "stream_wavefront_pass"),
+        ("stencil_tpu/ops/pack.py", "pack_zshell_pallas"),
+        ("stencil_tpu/ops/pack.py", "unpack_zshell_pallas"),
+        ("stencil_tpu/ops/pack.py", "pack_yshell_pallas"),
+        ("stencil_tpu/ops/pack.py", "unpack_yshell_pallas"),
     }
     for (path, fn), entry in ledger.PORTED_KERNELS.items():
         # every entry points at the line that defines the TPU kernel
@@ -80,7 +84,7 @@ def test_ledger_covers_every_tpu_kernel():
     ledger.reset_launch_counts()
     counts = ledger.launch_counts()
     assert set(counts.values()) == {0}
-    assert {"jacobi_slab_step", "blend_slab_dynamic"} <= set(counts)
+    assert {"jacobi_slab_step", "blend_slab_dynamic", "pack_zshell_pallas", "unpack_yshell_pallas"} <= set(counts)
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
