@@ -11,8 +11,9 @@ non-zero before the result line:
 1. device: a CUDA device must be present; prints its name and power limit;
 2. build: compiles every CUDA source of the port with nvcc, all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, on seeded inputs at a ragged size and at the main path's shapes;
-   the expected result is bitwise equality;
+   card, on seeded inputs at a ragged size and at the main path's shapes
+   (phases 14-15 hold the slab and mean6 kernels at theirs); the expected
+   result is bitwise equality;
 4. main path, wrap route: Jacobi3D at 512^3 f32 on one subdomain, 200 steps
    through the entry points a user calls, launch counters reset just before
    and read just after; checked bitwise against the plain path at step 10,
@@ -85,10 +86,33 @@ non-zero before the result line:
     the buffer and the permuted window of the block), and each kernel's
     device ms a launch: in the ``yzpack_pallas`` profile (the window cold
     in L2, the ``device_ms`` of the kernels line) and back to back on one
-    block (the window hot in the 50 MB L2).
+    block (the window hot in the 50 MB L2);
+14. bench-pack: ``stencil_tpu_torch.bin.bench_pack.main`` in-process at
+    ``--size 512`` (518^3 f32, radius 3) on the ``pallas`` backend (the slab
+    kernels; exactly the launches bench-pack makes, counters reset before
+    and read after), the ``xla`` backend (no kernel) and ``--inner 8``, its
+    lines logged; then pallas_pack_slab and pallas_unpack_slab on each face,
+    held bitwise against their plain versions and timed beside their bound,
+    plain versions and the one PyTorch call that makes the same copy
+    (``.contiguous()`` of the box, ``copy_`` into it), and ``make_pack_fn``
+    (the uint8 buffer) against ``make_pack_fn_pallas``;
+15. the mean6 kernels at full width, one 512^3 f32 subdomain with a radius-3
+    shell (518^3 raw, the Astaroth proxy's geometry) of a periodic
+    ``DistributedDomain``: 200 levels of ``dd.exchange()`` +
+    mean6_plane_step, and 200 levels of one exchange + one
+    mean6_shell_wavefront_step a pass (m = 3; 10 levels in passes of 3, 3, 3
+    and 1, then 190 in 63 of 3 and 1 of 1), counters reset before each run
+    and checked after; both bitwise equal at level 10 and 200 to the stream
+    engine's ``plane`` route running a mean6 user kernel written in the
+    kernels' order; each kernel held bitwise against its plain version and
+    timed beside its bound.
+
+``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
+phase's peak device memory goes to ``phase_peak_gb``.
 
 Phase 2 builds the stream kernels (templates plus the traced Astaroth
-kernel's emitted body, and the bodies the phase-3 checks use) in the same
+kernel's emitted body, the mean6 reference's, and the bodies the phase-3
+checks use) in the same
 parallel nvcc batch as the other sources; phase 3 also holds every stream
 kernel against its plain version, on ragged shapes (a 27-point and a
 coordinate-forced kernel, two joint fields) and at the main path's shapes.
@@ -100,6 +124,8 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -179,6 +205,14 @@ def forced_kernel(views, info):
     return {"u": torch.where(d2 < 9, 1.0, val * info.level)}
 
 
+def mean6_kernel(views, info):
+    """The mean of the six face neighbours, summed in the mean6 kernels'
+    order (x-1, x+1, y-1, y+1, z-1, z+1)."""
+    u = views["u"]
+    return {"u": (u.sh(-1, 0, 0) + u.sh(1, 0, 0) + u.sh(0, -1, 0) + u.sh(0, 1, 0) + u.sh(0, 0, -1)
+                  + u.sh(0, 0, 1)) / 6.0}
+
+
 def device_breakdown(model, steps: int = 20) -> dict:
     """``steps`` steps of a built model under torch.profiler: wall ms per step
     (profiler on), device ms per step by CUDA kernel, and the device's idle
@@ -229,9 +263,18 @@ def log_breakdown(route: str, b: dict) -> None:
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
+    phase_peak_gb = {}
+
+    def phase_end() -> None:
+        """Keep the peak device memory of the phase that is running."""
+        if phase_s:
+            phase_peak_gb[max(phase_s)] = torch.cuda.max_memory_allocated() / 1e9
 
     def phase_start(phase: int) -> None:
-        """Log and keep the seconds since the start at which ``phase`` begins."""
+        """Log and keep the seconds since the start at which ``phase`` begins;
+        close the previous phase's peak memory and reset the peak."""
+        phase_end()
+        torch.cuda.reset_peak_memory_stats()
         phase_s[phase] = time.perf_counter() - t_start
         log(f"[{phase_s[phase]:.1f} s] phase {phase}")
 
@@ -249,13 +292,18 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from stencil_tpu_torch.bin import bench_pack as bp
     from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.core.geometry import LocalSpec
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
     from stencil_tpu_torch.kernels import build, ledger
     from stencil_tpu_torch.models.astaroth import AstarothSim
     from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
     from stencil_tpu_torch.ops import halo_blend as hb
     from stencil_tpu_torch.ops import jacobi_kernels as jk
     from stencil_tpu_torch.ops import pack as pk
+    from stencil_tpu_torch.ops import plane_stencil as m6
     from stencil_tpu_torch.ops import stream as st
     from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES, halo_exchange_shard
     from stencil_tpu_torch.ops.stream_trace import StreamKernel
@@ -278,6 +326,9 @@ def main() -> int:
     # as "mean6x2": field names do not reach the emitted code)
     ak2 = StreamKernel(ast_kernel, ast_names[:2], 1, (32, 32, 32))
     stream_sources += [("stream_wavefront", st._source(ak2, *st._wavefront_variant(m))) for m in (1, 3)]
+    # phase 15's reference: the plane route of a mean6 user kernel
+    stream_sources.append(("stream_plane", st._source(StreamKernel(mean6_kernel, ["u"], 1, gs_main),
+                                                      "stream_plane", [1])))
     for sk in ragged_k.values():
         stream_sources += [("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS)),
                            ("stream_plane", st._source(sk, "stream_plane", [1])),
@@ -300,7 +351,9 @@ def main() -> int:
             "jacobi_zring_wavefront_step": 0.0, "jacobi_shell_wavefront_step": 0.0,
             "stream_wrap_pass": 0.0, "stream_plane_pass": 0.0, "stream_wavefront_pass": 0.0,
             "jacobi_slab_step": 0.0, "blend_slab_dynamic": 0.0, "pack_zshell_pallas": 0.0,
-            "unpack_zshell_pallas": 0.0, "pack_yshell_pallas": 0.0, "unpack_yshell_pallas": 0.0}
+            "unpack_zshell_pallas": 0.0, "pack_yshell_pallas": 0.0, "unpack_yshell_pallas": 0.0,
+            "pallas_pack_slab": 0.0, "pallas_unpack_slab": 0.0, "mean6_shell_wavefront_step": 0.0,
+            "mean6_plane_step": 0.0}
 
     def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -536,6 +589,30 @@ def main() -> int:
             hold_packs(axis, base[1].contiguous(), windows, 150, f"{axis} {dtype} (17,19,23)")
     for axis in ("z", "y"):
         hold_packs(axis, main_plane[0], ((ps - 6, 3), (3, 3), (0, 3), (ps - 3, 3)), 160, f"{axis} 8x{ps}^3")
+    # the slab packs: a ragged block of four widths, boxes on faces, an edge,
+    # a corner and the whole block (phase 14 holds them at bench-pack's
+    # shapes); the mean6 kernels at a ragged size with uneven shells, the
+    # wavefront at m = 1, 2, 3 on its valid interior (phase 15: at 518^3)
+    slab_boxes = ((Dim3(0, 0, 0), Dim3(3, 19, 23)), (Dim3(2, 16, 0), Dim3(13, 3, 23)),
+                  (Dim3(1, 2, 20), Dim3(15, 17, 3)), (Dim3(14, 0, 5), Dim3(3, 3, 11)),
+                  (Dim3(14, 16, 20), Dim3(3, 3, 3)), (Dim3(0, 0, 0), Dim3(17, 19, 23)))
+    for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.uint8):
+        base = small[0].to(dtype)
+        for i, (pos, ext) in enumerate(slab_boxes):
+            hold("pallas_pack_slab", pk.pallas_pack_slab(base, pos, ext), pk.pallas_pack_slab_plain(base, pos, ext),
+                 f"{dtype} (17,19,23) box {pos} {ext}")
+            new = (seeded(tuple(ext), 170 + i, dev) * 100).to(dtype)
+            hold("pallas_unpack_slab", pk.pallas_unpack_slab(base.clone(), new, pos, ext),
+                 pk.pallas_unpack_slab_plain(base.clone(), new, pos, ext), f"{dtype} (17,19,23) box {pos} {ext}")
+    m6_raw = seeded((37, 41, 70), 180, dev)
+    for lo, hi in (((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2))):
+        hold("mean6_plane_step", m6.mean6_plane_step(m6_raw, lo, hi), m6.mean6_plane_step_plain(m6_raw, lo, hi),
+             f"(37,41,70) lo={lo} hi={hi}")
+    S3 = slice(3, -3)
+    for m in (1, 2, 3):
+        hold("mean6_shell_wavefront_step", m6.mean6_shell_wavefront_step(m6_raw, m, 3)[S3, S3, S3],
+             m6.mean6_shell_wavefront_step_plain(m6_raw, m, 3)[S3, S3, S3], f"(37,41,70) m={m} s=3")
+    del m6_raw
     torch.cuda.empty_cache()
     ws = N + 6
     main_wf = ([seeded((1, ws, ws, ws), 100, dev)], seeded((1, ws, 6, ws), 101, dev))
@@ -1186,6 +1263,170 @@ def main() -> int:
     del pk_blocks, zbuf, ybuf, pack_cases
     torch.cuda.empty_cache()
 
+    # --- 14. bench-pack ------------------------------------------------------------------
+    phase_start(14)
+    BP_ITERS = 20
+
+    def run_bench_pack(*extra):
+        """bench_pack.main in-process at 512^3, counters reset just before
+        and read just after: (its three lines, counts)."""
+        argv = ["--size", str(N), "--iters", str(BP_ITERS), *extra]
+        out = io.StringIO()
+        ledger.reset_launch_counts()
+        sync()
+        with contextlib.redirect_stdout(out):
+            rc = bp.main(argv)
+        sync()
+        counts = ledger.launch_counts()
+        lines = out.getvalue().strip().splitlines()
+        if rc != 0 or len(lines) != 3 or any(int(ln.split()[2]) != N * N * 3 * 4 for ln in lines):
+            raise AssertionError(f"bench-pack {argv}: exit {rc}, lines {lines}")
+        for line in lines:
+            log(f"bench-pack {' '.join(argv)}: {line}")
+        return lines, counts
+
+    # a face: one message pack to unpack, a warm-up and BP_ITERS timed calls
+    # of each; the round-trip form: a warm-up sample and BP_ITERS samples of 8
+    bench_pack_runs = {}
+    for label, extra, want in (
+            ("pallas", ("--backend", "pallas"),
+             {"pallas_pack_slab": 3 * (BP_ITERS + 2), "pallas_unpack_slab": 3 * (BP_ITERS + 1)}),
+            ("xla", ("--backend", "xla"), {}),
+            ("pallas_inner8", ("--backend", "pallas", "--inner", "8"),
+             {"pallas_pack_slab": 3 * (BP_ITERS + 1) * 8, "pallas_unpack_slab": 3 * (BP_ITERS + 1) * 8})):
+        lines, counts = run_bench_pack(*extra)
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"bench-pack {label}: launches {counts}, want {want}")
+        bench_pack_runs[label] = {"lines": lines, "launches": counts}
+    bp_counts = bench_pack_runs["pallas"]["launches"]
+    # each face at bench-pack's shapes: kernel vs plain, bitwise; times
+    bp_spec = LocalSpec.make(Dim3(N, N, N), Dim3(0, 0, 0), Radius.constant(3))
+    bp_block = seeded(tuple(bp_spec.raw_size()), 200, dev)
+
+    def box(t, p, e):
+        return t[p.x:p.x + e.x, p.y:p.y + e.y, p.z:p.z + e.z]
+
+    slab_face = {}
+    for d in bp.FACES:
+        (slot,) = pk.PackPlan.make(bp_spec, [d], [4]).slots
+        pos, upos, ext = slot.pos, slot.unpack_pos, slot.extent
+        slab = pk.pallas_pack_slab(bp_block, pos, ext)
+        hold("pallas_pack_slab", slab, pk.pallas_pack_slab_plain(bp_block, pos, ext), f"{N}^3 r=3 face {d}")
+        hold("pallas_unpack_slab", pk.pallas_unpack_slab(bp_block.clone(), slab, upos, ext),
+             pk.pallas_unpack_slab_plain(bp_block.clone(), slab, upos, ext), f"{N}^3 r=3 face {d}")
+        if not torch.equal(box(bp_block, pos, ext).contiguous(), slab):
+            raise AssertionError(f"face {d}: .contiguous() of the box and pallas_pack_slab disagree")
+        pack_x, _ = pk.make_pack_fn(bp_spec, [d], [torch.float32])
+        pack_p, _ = pk.make_pack_fn_pallas(bp_spec, [d], torch.float32)
+        fns = {"pack": (lambda: pk.pallas_pack_slab(bp_block, pos, ext),
+                        lambda: pk.pallas_pack_slab_plain(bp_block, pos, ext),
+                        lambda: box(bp_block, pos, ext).contiguous()),
+               "unpack": (lambda: pk.pallas_unpack_slab(bp_block, slab, upos, ext),
+                          lambda: pk.pallas_unpack_slab_plain(bp_block, slab, upos, ext),
+                          lambda: box(bp_block, upos, ext).copy_(slab))}
+        slab_face[str(d)] = {
+            kind: dict(zip(("kernel", "plain", "library"), (cuda_ms(f) for f in fs)),
+                       device=device_ms_per_call(fs[0], calls=20))
+            for kind, fs in fns.items()}
+        slab_face[str(d)]["make_pack_fn"] = cuda_ms(lambda: pack_x([bp_block]))
+        slab_face[str(d)]["make_pack_fn_pallas"] = cuda_ms(lambda: pack_p(bp_block))
+    slab_bytes = 2 * N * N * 3 * 4  # the box read once and written once
+    log(f"slab packs at {ws}^3 f32, radius 3, per face (ms: kernel, plain, library; device ms a launch): " + "; ".join(
+        f"{d} " + ", ".join(f"{k} {v['kernel']:.4f}, {v['plain']:.4f}, {v['library']:.4f}; {v['device']:.4f}"
+                            for k, v in f.items() if k in ("pack", "unpack"))
+        + f"; make_pack_fn {f['make_pack_fn']:.4f}, make_pack_fn_pallas {f['make_pack_fn_pallas']:.4f}"
+        for d, f in slab_face.items()) + f" on {card}")
+    del bp_block, slab
+    torch.cuda.empty_cache()
+
+    # --- 15. the mean6 kernels at full width ---------------------------------------------
+    phase_start(15)
+    m6_init = np.random.default_rng(210).random((N, N, N)).astype(np.float32)
+    m6_shell = Dim3(3, 3, 3)
+
+    def mean6_domain():
+        dd = DistributedDomain(N, N, N, device=dev)
+        dd.set_radius(3)
+        h = dd.add_data("u")
+        dd.realize()
+        dd.set_quantity(h, m6_init)
+        return dd, h
+
+    def m6_interior(dd, h):
+        return dd.get_curr(h)[0, 0, 0, 3:-3, 3:-3, 3:-3].clone()
+
+    ref_dd, ref_h = mean6_domain()
+    ref_step = ref_dd.make_step(mean6_kernel, engine="stream", x_radius=1, stream_path="plane")
+    if ref_step._stream_plan["route"] != "plane":
+        raise AssertionError(f"mean6 reference: route {ref_step._stream_plan['route']}, want plane")
+    ref_dd.run_step(ref_step, CHECK_AT)
+    m6_ref = {CHECK_AT: m6_interior(ref_dd, ref_h)}
+    ref_dd.run_step(ref_step, STEPS - CHECK_AT)
+    m6_ref[STEPS] = m6_interior(ref_dd, ref_h)
+    del ref_dd, ref_step
+
+    def plane_levels(dd, h, levels):
+        for _ in range(levels):
+            dd.exchange()
+            m6.mean6_plane_step(dd.get_curr(h)[0, 0, 0], m6_shell, m6_shell, out=dd.get_next(h)[0, 0, 0])
+            dd.swap()
+
+    def wavefront_levels(dd, h, levels):
+        while levels:
+            m = min(3, levels)
+            dd.exchange()
+            m6.mean6_shell_wavefront_step(dd.get_curr(h)[0, 0, 0], m, 3, out=dd.get_next(h)[0, 0, 0])
+            dd.swap()
+            levels -= m
+
+    mean6_runs = {}
+    for name, run, want in (("mean6_plane_step", plane_levels, STEPS),
+                            ("mean6_shell_wavefront_step", wavefront_levels,
+                             sum(-(-k // 3) for k in (CHECK_AT, STEPS - CHECK_AT)))):
+        dd, h = mean6_domain()
+        ledger.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        run(dd, h, CHECK_AT)
+        at_check = m6_interior(dd, h)
+        run(dd, h, STEPS - CHECK_AT)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = ledger.launch_counts()
+        final = m6_interior(dd, h)
+        # one exchange a launch, whose six halo writes are blend_slab's
+        if {k: v for k, v in counts.items() if v} != {name: want, "blend_slab": 6 * want}:
+            raise AssertionError(f"{name} run: launches {counts}, want {want} of {name} and {6 * want} blend_slab")
+        if not (torch.equal(at_check, m6_ref[CHECK_AT]) and torch.equal(final, m6_ref[STEPS])):
+            raise AssertionError(f"{name} run != the stream engine's plane route at level {CHECK_AT} or {STEPS}")
+        if not (bool(torch.isfinite(final).all()) and 0.0 <= float(final.min()) and float(final.max()) <= 1.0):
+            raise AssertionError(f"{name} run: field not finite or outside [0, 1] after {STEPS} levels")
+        mean6_runs[name] = {"launches": counts[name], "ms_per_level": seconds * 1e3 / STEPS}
+        log(f"{name} run: {STEPS} levels on one periodic {N}^3 subdomain, shell 3, launches {counts[name]}, "
+            f"{seconds * 1e3 / STEPS:.4f} ms a level (exchanges included); bitwise equal to the stream "
+            f"engine's plane route at levels {CHECK_AT} and {STEPS}")
+        del dd, at_check, final
+    del m6_ref
+    torch.cuda.empty_cache()
+    m6_blk = seeded((ws, ws, ws), 220, dev)
+    m6_out = torch.empty_like(m6_blk)
+    hold("mean6_plane_step", m6.mean6_plane_step(m6_blk, m6_shell, m6_shell),
+         m6.mean6_plane_step_plain(m6_blk, m6_shell, m6_shell), f"{ws}^3 shell 3")
+    S3 = slice(3, -3)
+    hold("mean6_shell_wavefront_step", m6.mean6_shell_wavefront_step(m6_blk, 3, 3)[S3, S3, S3],
+         m6.mean6_shell_wavefront_step_plain(m6_blk, 3, 3)[S3, S3, S3], f"{ws}^3 m=3 s=3")
+    m6p_ms = cuda_ms(lambda: m6.mean6_plane_step(m6_blk, m6_shell, m6_shell, out=m6_out))
+    m6p_plain_ms = cuda_ms(lambda: m6.mean6_plane_step_plain(m6_blk, m6_shell, m6_shell, out=m6_out), inner=2)
+    m6w_ms = cuda_ms(lambda: m6.mean6_shell_wavefront_step(m6_blk, 3, 3, out=m6_out), inner=2)
+    m6w_plain_ms = cuda_ms(lambda: m6.mean6_shell_wavefront_step_plain(m6_blk, 3, 3, out=m6_out), reps=3, inner=1)
+    m6p_bytes = 2 * ws ** 3 * 4  # every cell read once and written once
+    m6w_bytes = (ws ** 3 + N ** 3) * 4  # every cell read once, the interior written once
+    log(f"mean6 kernels at {ws}^3 f32 (ms, CUDA events): mean6_plane_step {m6p_ms:.4f} (plain {m6p_plain_ms:.4f}), "
+        f"mean6_shell_wavefront_step m=3 {m6w_ms:.4f} (plain {m6w_plain_ms:.4f}) on {card}")
+    del m6_blk, m6_out
+    torch.cuda.empty_cache()
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -1221,6 +1462,19 @@ def main() -> int:
         (name, pack_counts, AST_ITERS, 16 * AST_ITERS, ms, plain_ms, lib_ms, pack_bytes, 0,
          f"(8,{ps},{ps},{ps}) f32, depth 3, buffer (8,3,{ps},{ps})")
         for name, (ms, plain_ms, lib_ms) in pack_ms.items()
+    ] + [
+        (f"pallas_{kind}_slab", bp_counts, BP_ITERS, 3 * (BP_ITERS + 2 if kind == "pack" else BP_ITERS + 1),
+         slab_face[str(bp.FACES[2])][kind]["kernel"], slab_face[str(bp.FACES[2])][kind]["plain"],
+         slab_face[str(bp.FACES[2])][kind]["library"], slab_bytes, 0,
+         f"bench-pack --size {N} --backend pallas: ({ws},{ws},{ws}) f32, the z face's slab ({N},{N},3) "
+         "(every face in chip_smoke.json)")
+        for kind in ("pack", "unpack")
+    ] + [
+        ("mean6_plane_step", {k: v["launches"] for k, v in mean6_runs.items()}, STEPS, STEPS, m6p_ms, m6p_plain_ms,
+         None, m6p_bytes, 6 * N ** 3, f"({ws},{ws},{ws}) f32, lo = hi = 3"),
+        ("mean6_shell_wavefront_step", {k: v["launches"] for k, v in mean6_runs.items()}, STEPS,
+         sum(-(-k // 3) for k in (CHECK_AT, STEPS - CHECK_AT)), m6w_ms, m6w_plain_ms, None, m6w_bytes,
+         6 * N ** 3 * 3, f"({ws},{ws},{ws}) f32, m = 3, s = 3"),
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     for name, counts, steps, want, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
@@ -1237,6 +1491,8 @@ def main() -> int:
         })
         if name in pack_dev_ms:
             rows[-1]["device_ms"] = pack_dev_ms[name]
+        if name.endswith("_slab") and name.startswith("pallas_"):
+            rows[-1]["device_ms"] = slab_face[str(bp.FACES[2])][name.split("_")[1]]["device"]
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1262,12 +1518,17 @@ def main() -> int:
             "profile": {"wrap": wrap_profile, "shell": shell_profile,
                         "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
             "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
+            "bench_pack": bench_pack_runs, "slab_faces_ms": slab_face, "mean6_runs": mean6_runs,
+            "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
+                         "wavefront_m3_plain": m6w_plain_ms},
             "phase_start_s": phase_s, "total_s": time.perf_counter() - t_start,
-            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "phase_peak_gb": phase_peak_gb, "peak_device_gb": max(phase_peak_gb.values()),
         }, f, indent=1)
 
-    log(f"peak device memory allocated: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-        f"{time.perf_counter() - t_start:.1f} s in all")
+    top = max(phase_peak_gb, key=phase_peak_gb.get)
+    log(f"peak device memory allocated: {phase_peak_gb[top]:.2f} GB (phase {top}); per phase "
+        + ", ".join(f"{p} {g:.2f}" for p, g in phase_peak_gb.items())
+        + f" GB; {time.perf_counter() - t_start:.1f} s in all")
     log(card)  # the nvidia-smi line as it prints it: name, power limit
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,15 @@
 // Both kernels' defining property is kept: m levels in ONE pass, each input
 // plane read once and each output plane written once per m iterations.
 //
+// The same body without the sphere clamp (kClamp = false: no d2 tile, no
+// sphere test, one plane of shared memory fewer) replaces
+//
+//   stencil_tpu/ops/plane_stencil.py:20   mean6_shell_wavefront_step
+//     m <= s mean-of-6 levels over an s-shelled (Xr, Yr, Zr) block, valid on
+//     the interior [s, ext - s); exported as stp_mean6_wavefront.
+//
+// The Jacobi instantiations (kClamp = true) are the code they were.
+//
 // Layout.  Each block works on a "logical plane" of width W: the raw columns
 // (shell form: W = z_valid) or low halo | interior | high halo (ring form:
 // W = Zi + 2s, logical column c = raw column c - s).  The TPU kernels' lane
@@ -32,6 +41,8 @@
 //   one) and the block's d2 tile.  m = 8: 221,184 B, the deepest that fits
 //   the H100's 232,448 B opt-in; wavefront_smem_bytes in
 //   ops/jacobi_kernels.py is the same formula, so the plan never asks more.
+//   Without the clamp the d2 tile goes: 2m + 1 planes, 208,896 B at m = 8
+//   (m = 9 would need 243,200 B, so kMaxM = 8 holds for both).
 //
 // A level's result overwrites the oldest plane of the level below in place:
 // the thread that writes cell k read that plane only at k, just before.
@@ -99,7 +110,7 @@ __device__ __forceinline__ int pmod(int a, int n) {
   return r < 0 ? r + n : r;
 }
 
-template <int M, bool kRing, bool kSlabs>
+template <int M, bool kRing, bool kSlabs, bool kClamp = true>
 __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   extern __shared__ float smem[];
   constexpr int m = M;
@@ -112,7 +123,7 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   constexpr int kColIters = (TW + kThreadsZ - 1) / kThreadsZ;
   const int s = a.s;
   int* d2t = reinterpret_cast<int*>(smem);
-  float* pool = smem + P;  // 2m + 1 planes
+  float* pool = kClamp ? smem + P : smem;  // 2m + 1 planes
   const int b = blockIdx.z;
   // logical (row, column) of tile cell (0, 0); >= 0 since s >= m
   const int y0 = s + blockIdx.y * kTileY - m;
@@ -125,21 +136,23 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   const int64_t zplane = (int64_t)2 * s * Yr;
   const float* __restrict__ zs = kSlabs ? a.zs + (int64_t)b * a.Xr * zplane : nullptr;
   float* __restrict__ zout = kSlabs ? a.zout + (int64_t)b * a.Xr * zplane : nullptr;
-  const int origin_x = a.origins[3 * b];
+  const int origin_x = kClamp ? a.origins[3 * b] : 0;
   const int tz0 = threadIdx.x, ty0 = threadIdx.y;
 
   // the block's d2 tile, in the layout the wrapper was given
-  const int* d2 = a.d2 + (int64_t)b * Yr * a.d2_w;
-  for (int ty = ty0; ty < H; ty += kThreadsY) {
-    for (int tz = tz0; tz < TW; tz += kThreadsZ) {
-      const int y = y0 + ty, c = c0 + tz;
-      int v = kFar;
-      if (y < Yr && c < W) {
-        int col = c;
-        if (kRing) col = c < W - s ? c - s + kRingOff : c - (W - s);
-        v = d2[(int64_t)y * a.d2_w + col];
+  if constexpr (kClamp) {
+    const int* d2 = a.d2 + (int64_t)b * Yr * a.d2_w;
+    for (int ty = ty0; ty < H; ty += kThreadsY) {
+      for (int tz = tz0; tz < TW; tz += kThreadsZ) {
+        const int y = y0 + ty, c = c0 + tz;
+        int v = kFar;
+        if (y < Yr && c < W) {
+          int col = c;
+          if (kRing) col = c < W - s ? c - s + kRingOff : c - (W - s);
+          v = d2[(int64_t)y * a.d2_w + col];
+        }
+        d2t[ty * TW + tz] = v;
       }
-      d2t[ty * TW + tz] = v;
     }
   }
 
@@ -204,10 +217,14 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
       const float* __restrict__ cent = pool + newer[l - 1] * P;  // plane i-l
       const float* __restrict__ next = pool + cur * P;  // plane i-l+1
       const int p = i - l;  // raw plane of this level's result
-      const int x_g = pmod(origin_x + a.gx + p - s, a.gx);
-      const int hot_lim = a.in_r2 - (x_g - a.hot_x) * (x_g - a.hot_x);
-      const int cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
-      const bool spheres = hot_lim > 0 || cold_lim > 0;
+      int hot_lim = 0, cold_lim = 0;
+      bool spheres = false;
+      if constexpr (kClamp) {
+        const int x_g = pmod(origin_x + a.gx + p - s, a.gx);
+        hot_lim = a.in_r2 - (x_g - a.hot_x) * (x_g - a.hot_x);
+        cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
+        spheres = hot_lim > 0 || cold_lim > 0;
+      }
       const bool last = l == m;
 #pragma unroll
       for (int r = 0; r < kRowIters; ++r) {
@@ -222,7 +239,7 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
           sum = sum + cent[k - 1];        // z-1
           sum = sum + cent[k + 1];        // z+1
           float v = sum * kSixth;
-          if (spheres) {  // d2 >= 0: no clamp can fire on this plane otherwise
+          if (kClamp && spheres) {  // d2 >= 0: no clamp can fire on this plane otherwise
             const int d = d2t[k];
             if (d < hot_lim) v = kHot;
             if (d < cold_lim) v = kCold;
@@ -254,16 +271,16 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   }
 }
 
-template <int M, bool kRing, bool kSlabs>
+template <int M, bool kRing, bool kSlabs, bool kClamp = true>
 int launch(const Args& a, int n, cudaStream_t stream) {
   constexpr int TZ = kTileW - 2 * M;
-  constexpr size_t smem = (size_t)(2 * M + 2) * (kTileY + 2 * M) * kTileW * 4;
-  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kRing, kSlabs>,
+  constexpr size_t smem = (size_t)(kClamp ? 2 * M + 2 : 2 * M + 1) * (kTileY + 2 * M) * kTileW * 4;
+  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kRing, kSlabs, kClamp>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int interior_y = a.Yr - 2 * a.s, interior_z = a.W - 2 * a.s;
   dim3 grid((interior_z + TZ - 1) / TZ, (interior_y + kTileY - 1) / kTileY, n);
-  wavefront<M, kRing, kSlabs><<<grid, dim3(kThreadsZ, kThreadsY), smem, stream>>>(a);
+  wavefront<M, kRing, kSlabs, kClamp><<<grid, dim3(kThreadsZ, kThreadsY), smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -299,6 +316,28 @@ int stp_jacobi_wavefront(const float* raw, float* out, const int* origins, const
     case 6: return launch_form<6>(a, n, ring, st);
     case 7: return launch_form<7>(a, n, ring, st);
     default: return launch_form<kMaxM>(a, n, ring, st);
+  }
+}
+
+// m mean-of-6 levels over n s-shelled blocks (Xr, Yr, Zr): only the interior
+// [s, ext - s) of `out` is written.  Returns a CUDA error code, or -1 for
+// arguments the kernel does not take.
+int stp_mean6_wavefront(const float* raw, float* out, int n, int Xr, int Yr, int Zr, int m, int s,
+                        void* stream) {
+  if (m < 1 || m > kMaxM || m > s || n < 1 || n > 65535 || 2 * s >= Xr || 2 * s >= Yr ||
+      2 * s >= Zr)
+    return -1;
+  Args a{raw, out, nullptr, nullptr, nullptr, nullptr, Xr, Yr, Zr, Zr, m, s, 0, 1, 0, 0, 0};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (m) {
+    case 1: return launch<1, false, false, false>(a, n, st);
+    case 2: return launch<2, false, false, false>(a, n, st);
+    case 3: return launch<3, false, false, false>(a, n, st);
+    case 4: return launch<4, false, false, false>(a, n, st);
+    case 5: return launch<5, false, false, false>(a, n, st);
+    case 6: return launch<6, false, false, false>(a, n, st);
+    case 7: return launch<7, false, false, false>(a, n, st);
+    default: return launch<kMaxM, false, false, false>(a, n, st);
   }
 }
 

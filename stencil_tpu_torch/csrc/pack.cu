@@ -1,7 +1,28 @@
-// Shell packs of the packed exchange routes for Hopper (sm_90a), bound to
-// Python through ctypes (stencil_tpu_torch/kernels/build.py,
-// stencil_tpu_torch/ops/pack.py).  Each takes n blocks (n, X, Y, Z) and a
-// window of `depth` cells starting at `start` on one axis:
+// Pack kernels for Hopper (sm_90a), bound to Python through ctypes
+// (stencil_tpu_torch/kernels/build.py, stencil_tpu_torch/ops/pack.py).
+//
+// The slab packs of bench-pack and make_pack_fn_pallas take one block
+// (X, Y, Z) and a box at (px, py, pz) of extent (ex, ey, ez):
+//
+//   stp_pack_slab      replaces stencil_tpu/ops/pack.py:197 pallas_pack_slab:
+//                      slab[i, j, k] = block[px + i, py + j, pz + k]
+//   stp_unpack_slab    replaces stencil_tpu/ops/pack.py:225 pallas_unpack_slab:
+//                      block[px + i, py + j, pz + k] = slab[i, j, k], in place
+//
+// The TPU kernels DMA whole x-planes into VMEM and cut the window there (an
+// HBM DMA must not cut the (8,128) tiling); the port keeps the box copy, the
+// reference's grid_pack / grid_unpack (pack_kernel.cuh:16-40, copy.cuh:26-64).
+// Bound on an H100 SXM: bytes, the box read once and written once.  Design:
+// one thread per slab element, the slab walked in its C order, so a warp
+// covers consecutive z (then y) cells: the slab side always coalesces, and
+// the block side does for the x and y faces; on a z face (ez = 3 at radius 3)
+// each (x, y) of the block is an ez-wide run, a 32-byte sector for ez *
+// itemsize wanted bytes, the cost the z shell packs pay too (PERF.md).  The
+// slab index is 32-bit (the wrapper refuses 2^31 cells), block offsets
+// 64-bit.
+//
+// The shell packs of the packed exchange routes each take n blocks
+// (n, X, Y, Z) and a window of `depth` cells starting at `start` on one axis:
 //
 //   stp_pack_zshell    replaces stencil_tpu/ops/pack.py:331 pack_zshell_pallas:
 //                      buf[b, k, y, x] = block[b, x, y, start + k]
@@ -141,6 +162,62 @@ int launch(bool z, bool pack, void* block, void* buf, int64_t n, int64_t X, int6
   return (int)cudaGetLastError();
 }
 
+constexpr int kSlabThreads = 256;
+
+// kPack: block -> slab; otherwise slab -> block.  i runs over the slab in
+// C order; total < 2^31, so i + the grid stride stays below 2^32.
+template <typename T, bool kPack>
+__global__ void slab_kernel(T* __restrict__ block, T* __restrict__ slab, unsigned total, unsigned ey,
+                            unsigned ez, int64_t Y, int64_t Z, int64_t px, int64_t py, int64_t pz) {
+  for (unsigned i = blockIdx.x * kSlabThreads + threadIdx.x; i < total; i += gridDim.x * kSlabThreads) {
+    const unsigned row = i / ez;  // (x, y) of the slab
+    const unsigned k = i - row * ez;
+    const unsigned x = row / ey;
+    const unsigned j = row - x * ey;
+    const int64_t at = ((px + x) * Y + py + j) * Z + pz + k;
+    if (kPack) {
+      slab[i] = block[at];
+    } else {
+      block[at] = slab[i];
+    }
+  }
+}
+
+template <typename T>
+int launch_slab(bool pack, void* block, void* slab, int64_t Y, int64_t Z, int64_t px, int64_t py,
+                int64_t pz, int64_t ex, int64_t ey, int64_t ez, cudaStream_t stream) {
+  const int64_t total = ex * ey * ez;
+  if (total >= INT32_MAX) return -1;
+  if (total == 0) return 0;
+  int64_t blocks = (total + kSlabThreads - 1) / kSlabThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  T* bl = (T*)block;
+  T* sl = (T*)slab;
+  const unsigned t = (unsigned)total;
+  if (pack) {
+    slab_kernel<T, true><<<(unsigned)blocks, kSlabThreads, 0, stream>>>(bl, sl, t, (unsigned)ey,
+                                                                        (unsigned)ez, Y, Z, px, py, pz);
+  } else {
+    slab_kernel<T, false><<<(unsigned)blocks, kSlabThreads, 0, stream>>>(bl, sl, t, (unsigned)ey,
+                                                                         (unsigned)ez, Y, Z, px, py, pz);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch_slab(bool pack, void* block, void* slab, int itemsize, int64_t X, int64_t Y, int64_t Z,
+                  int64_t px, int64_t py, int64_t pz, int64_t ex, int64_t ey, int64_t ez,
+                  void* stream) {
+  if (px < 0 || py < 0 || pz < 0 || px + ex > X || py + ey > Y || pz + ez > Z) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (itemsize) {
+    case 1: return launch_slab<uint8_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
+    case 2: return launch_slab<uint16_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
+    case 4: return launch_slab<uint32_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
+    case 8: return launch_slab<uint64_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
+    default: return -1;
+  }
+}
+
 int dispatch(bool z, bool pack, void* block, void* buf, int itemsize, int64_t n, int64_t X,
              int64_t Y, int64_t Z, int64_t start, int64_t depth, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -158,7 +235,18 @@ int dispatch(bool z, bool pack, void* block, void* buf, int itemsize, int64_t n,
 extern "C" {
 
 // Each returns a cudaError_t, or -1 for an itemsize the kernels do not take
-// (or a row longer than an int counts).
+// (or a row longer than an int counts, or a box that leaves the block).
+int stp_pack_slab(void* block, void* slab, int itemsize, int64_t X, int64_t Y, int64_t Z, int64_t px,
+                  int64_t py, int64_t pz, int64_t ex, int64_t ey, int64_t ez, void* stream) {
+  return dispatch_slab(true, block, slab, itemsize, X, Y, Z, px, py, pz, ex, ey, ez, stream);
+}
+
+int stp_unpack_slab(void* block, void* slab, int itemsize, int64_t X, int64_t Y, int64_t Z,
+                    int64_t px, int64_t py, int64_t pz, int64_t ex, int64_t ey, int64_t ez,
+                    void* stream) {
+  return dispatch_slab(false, block, slab, itemsize, X, Y, Z, px, py, pz, ex, ey, ez, stream);
+}
+
 int stp_pack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
                     int64_t Z, int64_t z0, int64_t depth, void* stream) {
   return dispatch(true, true, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);

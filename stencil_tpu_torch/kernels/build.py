@@ -60,10 +60,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "jacobi_wavefront": {
         "stp_jacobi_wavefront": [_P] * 6 + [_I] * 13 + [_P],
+        "stp_mean6_wavefront": [_P, _P] + [_I] * 6 + [_P],
     },
     "pack": {
-        fn: [_P, _P, _I] + [_L] * 6 + [_P]
-        for fn in ("stp_pack_zshell", "stp_unpack_zshell", "stp_pack_yshell", "stp_unpack_yshell")
+        **{fn: [_P, _P, _I] + [_L] * 6 + [_P]
+           for fn in ("stp_pack_zshell", "stp_unpack_zshell", "stp_pack_yshell", "stp_unpack_yshell")},
+        **{fn: [_P, _P, _I] + [_L] * 9 + [_P] for fn in ("stp_pack_slab", "stp_unpack_slab")},
+    },
+    "plane_stencil": {
+        "stp_mean6_plane_level": [_P, _P] + [_I] * 9 + [_P],
     },
 }
 SOURCES = tuple(SIGNATURES)

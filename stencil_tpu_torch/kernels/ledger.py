@@ -4,8 +4,7 @@ Keyed by the JAX package's ``(file, function)`` pairs, the same set as
 ``PALLAS_KERNELS`` in ``stencil_tpu/analysis/registry.py``.  A ported entry
 names the port's wrapper (which launches the hand-written kernel on CUDA
 tensors), its plain PyTorch version, the CUDA source and the line of the TPU
-kernel it replaces.  An entry still to port stays in the ledger with status
-``"to port"``; ROADMAP.md queue 2 orders them.
+kernel it replaces.  Every entry is ported.
 """
 
 from __future__ import annotations
@@ -29,10 +28,6 @@ def _ported(wrapper: str, plain: str, source: str, replaces: str) -> dict:
         "source": source,
         "replaces": replaces,
     }
-
-
-def _to_port(replaces: str) -> dict:
-    return {"status": "to port", "replaces": replaces}
 
 
 PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
@@ -104,12 +99,21 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
             f"{_PK}:{line}",
         )
         for fn, line in (("pack_zshell_pallas", 331), ("unpack_zshell_pallas", 358),
-                         ("pack_yshell_pallas", 422), ("unpack_yshell_pallas", 449))
+                         ("pack_yshell_pallas", 422), ("unpack_yshell_pallas", 449),
+                         ("pallas_pack_slab", 197), ("pallas_unpack_slab", 225))
     },
-    (_PK, "pallas_pack_slab"): _to_port(f"{_PK}:197"),
-    (_PK, "pallas_unpack_slab"): _to_port(f"{_PK}:225"),
-    (_PS, "mean6_shell_wavefront_step"): _to_port(f"{_PS}:20"),
-    (_PS, "mean6_plane_step"): _to_port(f"{_PS}:114"),
+    (_PS, "mean6_shell_wavefront_step"): _ported(
+        "stencil_tpu_torch.ops.plane_stencil:mean6_shell_wavefront_step",
+        "stencil_tpu_torch.ops.plane_stencil:mean6_shell_wavefront_step_plain",
+        "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
+        f"{_PS}:20",
+    ),
+    (_PS, "mean6_plane_step"): _ported(
+        "stencil_tpu_torch.ops.plane_stencil:mean6_plane_step",
+        "stencil_tpu_torch.ops.plane_stencil:mean6_plane_step_plain",
+        "stencil_tpu_torch/csrc/plane_stencil.cu",
+        f"{_PS}:114",
+    ),
 }
 
 

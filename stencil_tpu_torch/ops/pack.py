@@ -1,7 +1,23 @@
-"""The shell packs of the packed exchange routes: z and y shells as message
-buffers.
+"""Halo pack/unpack: the fused per-neighbour message layout, the slab packs
+of bench-pack, and the shell packs of the packed exchange routes.
 
-Counterpart of the shell half of ``stencil_tpu/ops/pack.py`` (``:286-474``).
+Counterpart of ``stencil_tpu/ops/pack.py``, in two halves.
+
+**The plan half** (``:73-283``): ``PackPlan`` lays out one neighbour's
+fused message as the reference's ``DevicePacker`` does (packer.cuh:136-178):
+messages sorted by direction, for each quantity the offset aligned to its
+itemsize, the receiver's ``-d`` halo extent ruling the slot's size.
+``make_pack_fn`` / ``make_unpack_fn`` (the JAX package's ``xla`` backend)
+gather every slot into one ``torch.uint8`` buffer (zeroed alignment gaps,
+each slab in C order on (x, y, z), little-endian as JAX's bitcast) and
+scatter it back into the halos in place.  ``make_pack_fn_pallas`` /
+``make_unpack_fn_pallas`` do one quantity with one kernel launch a slot:
+``pallas_pack_slab`` gathers ``block[pos:pos+ext]`` into a dense slab and
+``pallas_unpack_slab`` writes a slab into that box in place, on a CUDA
+tensor through ``csrc/pack.cu`` (any 1/2/4/8-byte dtype), on a CPU tensor
+through the plain versions (``*_plain``).  Dtypes are torch dtypes.
+
+**The shell half** (``:286-474``).
 The packed exchange routes (``ops/exchange.py`` ``EXCHANGE_ROUTES``) send a
 thin shell of every block not as the sliced slab but as a buffer whose thin
 extent leads:
@@ -31,10 +47,204 @@ while a Hopper row coalesces at any width, so the port's buffer is
 
 from __future__ import annotations
 
+import dataclasses
+from typing import List, Sequence, Tuple
+
 import torch
 
+from stencil_tpu_torch.core.dim3 import Dim3
+from stencil_tpu_torch.core.geometry import LocalSpec
 from stencil_tpu_torch.kernels import check_tensor, same_device, stream_handle
 from stencil_tpu_torch.ops.halo_blend import supports
+
+# --- the message layout (stencil_tpu/ops/pack.py:73-126) -----------------------
+
+
+def next_align_of(x: int, align: int) -> int:
+    """Round ``x`` up to a multiple of ``align`` (reference align.cuh:7)."""
+    return (x + align - 1) // align * align
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSlot:
+    """One (message, quantity) slice of the packed buffer."""
+
+    direction: Dim3
+    quantity: int
+    offset: int  # bytes from buffer start (aligned to itemsize)
+    pos: Dim3  # allocation-relative source position (interior side)
+    unpack_pos: Dim3  # allocation-relative destination position (halo side)
+    extent: Dim3
+    itemsize: int
+
+    @property
+    def nbytes(self) -> int:
+        return self.extent.flatten() * self.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class PackPlan:
+    """Buffer layout for one neighbour's fused message
+    (packer.cuh:136-178 prepare)."""
+
+    slots: Tuple[PackSlot, ...]
+    size: int  # total bytes
+
+    @staticmethod
+    def make(spec: LocalSpec, directions: Sequence, itemsizes: Sequence[int]) -> "PackPlan":
+        dirs = sorted(Dim3.of(d) for d in directions)  # sorted by dir (packer.cuh:140)
+        slots: List[PackSlot] = []
+        size = 0
+        for d in dirs:
+            for qi, isz in enumerate(itemsizes):
+                size = next_align_of(size, isz)
+                ext = spec.halo_extent(-d)  # the receiver's -d halo width rules
+                slots.append(PackSlot(direction=d, quantity=qi, offset=size, pos=spec.halo_pos(d, halo=False),
+                                      unpack_pos=spec.halo_pos(-d, halo=True), extent=ext, itemsize=isz))
+                size += ext.flatten() * isz
+        if size == 0:
+            raise ValueError("zero-size packer was prepared")  # packer.cuh:162
+        return PackPlan(tuple(slots), size)
+
+
+def _box(block: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
+    """The ``ext``-sized view of ``block`` at ``pos``."""
+    return block[pos.x : pos.x + ext.x, pos.y : pos.y + ext.y, pos.z : pos.z + ext.z]
+
+
+def make_pack_fn(spec: LocalSpec, directions: Sequence, dtypes: Sequence[torch.dtype]):
+    """``pack(blocks) -> uint8 buffer`` over one subdomain's raw blocks (one
+    per quantity, each of shape ``spec.raw_size()``), laid out by the
+    ``PackPlan``; returns ``(pack, plan)``."""
+    plan = PackPlan.make(spec, directions, [t.itemsize for t in dtypes])
+
+    def pack(blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        parts = []
+        cursor = 0
+        dev = blocks[0].device
+        for slot in plan.slots:
+            if slot.offset != cursor:  # alignment gap
+                parts.append(torch.zeros(slot.offset - cursor, dtype=torch.uint8, device=dev))
+            parts.append(_box(blocks[slot.quantity], slot.pos, slot.extent).contiguous().view(torch.uint8).reshape(-1))
+            cursor = slot.offset + slot.nbytes
+        return torch.cat(parts)
+
+    return pack, plan
+
+
+def make_unpack_fn(spec: LocalSpec, directions: Sequence, dtypes: Sequence[torch.dtype]):
+    """``unpack(buffer, blocks) -> blocks`` writing each slot into the halo
+    shell of its quantity's block, in place (copy.cuh:26-64 semantics; the
+    JAX twin donates the blocks); returns ``(unpack, plan)``."""
+    plan = PackPlan.make(spec, directions, [t.itemsize for t in dtypes])
+
+    def unpack(buf: torch.Tensor, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        for slot in plan.slots:
+            chunk = buf[slot.offset : slot.offset + slot.nbytes].view(dtypes[slot.quantity])
+            _box(blocks[slot.quantity], slot.unpack_pos, slot.extent).copy_(chunk.view(tuple(slot.extent)))
+        return list(blocks)
+
+    return unpack, plan
+
+
+# --- the slab packs (stencil_tpu/ops/pack.py:197-283) ----------------------------
+
+
+def _check_slab(block: torch.Tensor, pos: Dim3, ext: Dim3, slab: torch.Tensor = None) -> None:
+    check_tensor(block, "block", ndims=(3,))
+    if not supports(block.dtype):
+        raise TypeError(f"the slab kernels take 1/2/4/8-byte dtypes, got {block.dtype}")
+    if pos.any_lt(0) or ext.any_lt(0) or any(pos[a] + ext[a] > block.shape[a] for a in range(3)):
+        raise ValueError(f"box at {pos} of extent {ext} leaves block {tuple(block.shape)}")
+    if ext.flatten() >= 2 ** 31:
+        raise ValueError(f"slab extent {ext} holds 2^31 cells or more")
+    if slab is None:
+        return
+    check_tensor(slab, "slab", ndims=(3,))
+    same_device(block, slab)
+    if slab.dtype != block.dtype:
+        raise TypeError(f"slab dtype {slab.dtype} != block dtype {block.dtype}")
+    if tuple(slab.shape) != tuple(ext):
+        raise ValueError(f"slab shape {tuple(slab.shape)}, want {tuple(ext)}")
+
+
+def _launch_slab(fn: str, block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ext: Dim3) -> None:
+    from stencil_tpu_torch.kernels import build
+
+    lib = build.load("pack")
+    rc = getattr(lib, fn)(block.data_ptr(), slab.data_ptr(), block.element_size(), *block.shape, *pos, *ext,
+                          stream_handle(block.device))
+    build.check(lib, rc, fn)
+
+
+def pallas_pack_slab_plain(block: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
+    """``block[pos:pos+ext]`` as a new dense ``ext``-shaped tensor."""
+    _check_slab(block, pos, ext)
+    return _box(block, pos, ext).clone(memory_format=torch.contiguous_format)
+
+
+def pallas_pack_slab(block: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
+    """The box ``block[pos:pos+ext]`` of an ``(X, Y, Z)`` block as a new dense
+    ``ext``-shaped tensor, C order on (x, y, z).  CUDA tensors launch the
+    kernel (any 1/2/4/8-byte dtype); CPU tensors take the plain version."""
+    pos, ext = Dim3.of(pos), Dim3.of(ext)
+    _check_slab(block, pos, ext)
+    if block.device.type == "cpu":
+        return pallas_pack_slab_plain(block, pos, ext)
+    slab = torch.empty(tuple(ext), dtype=block.dtype, device=block.device)
+    _launch_slab("stp_pack_slab", block, slab, pos, ext)
+    pallas_pack_slab.launches += 1
+    return slab
+
+
+def pallas_unpack_slab_plain(block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
+    """``block[pos:pos+ext] = slab``, in place."""
+    _check_slab(block, pos, ext, slab)
+    _box(block, pos, ext).copy_(slab)
+    return block
+
+
+def pallas_unpack_slab(block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
+    """Write the dense ``ext``-shaped ``slab`` into the box at ``pos`` of an
+    ``(X, Y, Z)`` block in place and return ``block``; every cell outside the
+    box keeps its value.  CUDA tensors launch the kernel; CPU tensors take
+    the plain version."""
+    pos, ext = Dim3.of(pos), Dim3.of(ext)
+    _check_slab(block, pos, ext, slab)
+    if block.device.type == "cpu":
+        return pallas_unpack_slab_plain(block, slab, pos, ext)
+    _launch_slab("stp_unpack_slab", block, slab, pos, ext)
+    pallas_unpack_slab.launches += 1
+    return block
+
+
+def make_pack_fn_pallas(spec: LocalSpec, directions: Sequence, dtype: torch.dtype):
+    """``pack(block) -> list of slabs`` for one quantity, one
+    ``pallas_pack_slab`` launch a slot (layout per ``PackPlan``); returns
+    ``(pack, plan)``."""
+    plan = PackPlan.make(spec, directions, [dtype.itemsize])
+
+    def pack(block: torch.Tensor) -> List[torch.Tensor]:
+        return [pallas_pack_slab(block, slot.pos, slot.extent) for slot in plan.slots]
+
+    return pack, plan
+
+
+def make_unpack_fn_pallas(spec: LocalSpec, directions: Sequence, dtype: torch.dtype):
+    """``unpack(block, slabs) -> block`` for one quantity, one
+    ``pallas_unpack_slab`` launch a slot, in place; returns ``(unpack,
+    plan)``."""
+    plan = PackPlan.make(spec, directions, [dtype.itemsize])
+
+    def unpack(block: torch.Tensor, slabs: Sequence[torch.Tensor]) -> torch.Tensor:
+        for slot, slab in zip(plan.slots, slabs):
+            pallas_unpack_slab(block, slab, slot.unpack_pos, slot.extent)
+        return block
+
+    return unpack, plan
+
+
+# --- the shell packs (stencil_tpu/ops/pack.py:286-474) ----------------------------
 
 
 def zshell_buffer_shape(block_shape, depth: int) -> tuple:
@@ -183,6 +393,8 @@ def unpack_yshell_pallas(block: torch.Tensor, buf: torch.Tensor, y0: int, depth:
 
 
 #: kernel launches made by each wrapper (plain-version calls do not count)
+pallas_pack_slab.launches = 0
+pallas_unpack_slab.launches = 0
 pack_zshell_pallas.launches = 0
 unpack_zshell_pallas.launches = 0
 pack_yshell_pallas.launches = 0

@@ -243,6 +243,50 @@ def test_shell_pack_kernels_at_main_path_shapes(dev, axis):
     _hold_packs(axis, blocks, ((256, 3), (3, 3), (0, 3), (259, 3)), 74)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.uint8])
+def test_slab_pack_kernels_equal_plain(dev, dtype):
+    """A ragged block; boxes on faces, an edge, a corner and the whole block."""
+    block = (_rand((17, 19, 23), 80, dev) * 100).to(dtype)
+    boxes = ((Dim3(0, 0, 0), Dim3(3, 19, 23)), (Dim3(2, 16, 0), Dim3(13, 3, 23)), (Dim3(1, 2, 20), Dim3(15, 17, 3)),
+             (Dim3(14, 0, 5), Dim3(3, 3, 11)), (Dim3(14, 16, 20), Dim3(3, 3, 3)), (Dim3(0, 0, 0), Dim3(17, 19, 23)))
+    for i, (pos, ext) in enumerate(boxes):
+        before = (pk.pallas_pack_slab.launches, pk.pallas_unpack_slab.launches)
+        slab = pk.pallas_pack_slab(block, pos, ext)
+        torch.cuda.synchronize()
+        assert torch.equal(slab, pk.pallas_pack_slab_plain(block, pos, ext))
+        new = (_rand(tuple(ext), 81 + i, dev) * 100).to(dtype)
+        got = pk.pallas_unpack_slab(block.clone(), new, pos, ext)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pk.pallas_unpack_slab_plain(block.clone(), new, pos, ext))
+        assert (pk.pallas_pack_slab.launches, pk.pallas_unpack_slab.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("lo,hi", [((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2))])
+def test_mean6_plane_kernel_equals_plain(dev, lo, hi):
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    block = _rand((37, 41, 70), 90, dev)
+    before = ps.mean6_plane_step.launches
+    got = ps.mean6_plane_step(block, lo, hi)
+    torch.cuda.synchronize()
+    assert ps.mean6_plane_step.launches == before + 1
+    assert torch.equal(got, ps.mean6_plane_step_plain(block, lo, hi))
+
+
+@pytest.mark.parametrize("m,s", [(1, 1), (1, 3), (2, 3), (3, 3), (8, 8)])
+def test_mean6_wavefront_kernel_equals_plain(dev, m, s):
+    """Ragged blocks (several tiles, partial ones); the valid interior."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    raw = _rand((40, 75, 130), 91, dev)
+    before = ps.mean6_shell_wavefront_step.launches
+    got = ps.mean6_shell_wavefront_step(raw, m, s)
+    torch.cuda.synchronize()
+    assert ps.mean6_shell_wavefront_step.launches == before + 1  # m levels in one launch
+    S = slice(s, -s)
+    assert torch.equal(got[S, S, S], ps.mean6_shell_wavefront_step_plain(raw, m, s)[S, S, S])
+
+
 def test_astaroth_packed_routes_agree_on_card(dev):
     """The plane route under every exchange route, 2 quantities on 2x2x2:
     bitwise equal to direct; the pallas routes launch the pack kernels."""

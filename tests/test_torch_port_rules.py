@@ -1,8 +1,8 @@
 """Standing rules of the PyTorch port.
 
 * the port and ``chip_smoke.py`` import neither jax nor the JAX package;
-* the kernel ledger covers exactly the JAX package's TPU kernels, with the
-  kernels of this slice marked ported;
+* the kernel ledger covers exactly the JAX package's TPU kernels, every one
+  of them marked ported;
 * nothing falls back to the CPU or to a plain version on its own;
 * the driver prints the reference's CSV row.
 """
@@ -56,35 +56,22 @@ def test_port_imports_no_jax():
 def test_ledger_covers_every_tpu_kernel():
     want = {(f, fn) for f, fns in PALLAS_KERNELS.items() for fn in fns}
     assert set(ledger.PORTED_KERNELS) == want
-    assert set(ledger.ported()) == {
-        ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_wrap_step"),
-        ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_plane_step"),
-        ("stencil_tpu/ops/halo_blend.py", "blend_slab"),
-        ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_zring_wavefront_step"),
-        ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_shell_wavefront_step"),
-        ("stencil_tpu/ops/jacobi_pallas.py", "jacobi_slab_step"),
-        ("stencil_tpu/ops/halo_blend.py", "blend_slab_dynamic"),
-        ("stencil_tpu/ops/stream.py", "stream_wrap_pass"),
-        ("stencil_tpu/ops/stream.py", "stream_plane_pass"),
-        ("stencil_tpu/ops/stream.py", "stream_wavefront_pass"),
-        ("stencil_tpu/ops/pack.py", "pack_zshell_pallas"),
-        ("stencil_tpu/ops/pack.py", "unpack_zshell_pallas"),
-        ("stencil_tpu/ops/pack.py", "pack_yshell_pallas"),
-        ("stencil_tpu/ops/pack.py", "unpack_yshell_pallas"),
-    }
+    # every TPU kernel has its hand-written counterpart
+    assert set(ledger.ported()) == want
     for (path, fn), entry in ledger.PORTED_KERNELS.items():
         # every entry points at the line that defines the TPU kernel
         rel, line = entry["replaces"].split(":")
         assert rel == path
         with open(os.path.join(REPO, path)) as f:
             assert f.readlines()[int(line) - 1].startswith(f"def {fn}("), entry
-        if entry["status"] == "ported":
-            assert os.path.exists(os.path.join(REPO, entry["source"]))
-            assert callable(ledger.resolve(entry["kernel"])) and callable(ledger.resolve(entry["plain"]))
+        assert entry["source"].startswith("stencil_tpu_torch/csrc/") and entry["source"].endswith(".cu")
+        assert os.path.exists(os.path.join(REPO, entry["source"]))
+        assert callable(ledger.resolve(entry["kernel"])) and callable(ledger.resolve(entry["plain"]))
     ledger.reset_launch_counts()
     counts = ledger.launch_counts()
     assert set(counts.values()) == {0}
-    assert {"jacobi_slab_step", "blend_slab_dynamic", "pack_zshell_pallas", "unpack_yshell_pallas"} <= set(counts)
+    assert {"jacobi_slab_step", "blend_slab_dynamic", "pack_zshell_pallas", "unpack_yshell_pallas",
+            "pallas_pack_slab", "pallas_unpack_slab", "mean6_shell_wavefront_step", "mean6_plane_step"} <= set(counts)
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
