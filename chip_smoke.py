@@ -83,10 +83,13 @@ non-zero before the result line:
     iterations; then the times of the four shell-pack kernels at that
     path's shapes (8 blocks of 262^3 f32, depth 3), their plain versions
     and the library call that makes the same copy (``Tensor.copy_`` between
-    the buffer and the permuted window of the block), and each kernel's
-    device ms a launch: in the ``yzpack_pallas`` profile (the window cold
-    in L2, the ``device_ms`` of the kernels line) and back to back on one
-    block (the window hot in the 50 MB L2);
+    the buffer and the permuted window of the block; for pack_yshell_pallas,
+    which allocates its buffer, the allocating ``pack_yshell_xla``, with the
+    ``copy_`` kept beside it), and each kernel's device ms a launch: in the
+    ``yzpack_pallas`` profile (the window cold in L2, the ``device_ms`` of
+    the kernels line) and back to back on one block (the window hot in the
+    50 MB L2), beside the library call's back to back; pack_yshell_pallas's
+    host µs a call (100 calls on the host clock, no synchronize between);
 14. bench-pack: ``stencil_tpu_torch.bin.bench_pack.main`` in-process at
     ``--size 512`` (518^3 f32, radius 3) on the ``pallas`` backend (the slab
     kernels; exactly the launches bench-pack makes, counters reset before
@@ -94,8 +97,9 @@ non-zero before the result line:
     lines logged; then pallas_pack_slab and pallas_unpack_slab on each face,
     held bitwise against their plain versions and timed beside their bound,
     plain versions and the one PyTorch call that makes the same copy
-    (``.contiguous()`` of the box, ``copy_`` into it), and ``make_pack_fn``
-    (the uint8 buffer) against ``make_pack_fn_pallas``;
+    (``.contiguous()`` of the box, ``copy_`` into it), both device ms a
+    launch back to back, the host µs a call of the unpack and its ``copy_``,
+    and ``make_pack_fn`` (the uint8 buffer) against ``make_pack_fn_pallas``;
 15. the mean6 kernels at full width, one 512^3 f32 subdomain with a radius-3
     shell (518^3 raw, the Astaroth proxy's geometry) of a periodic
     ``DistributedDomain``: 200 levels of ``dd.exchange()`` +
@@ -251,6 +255,19 @@ def device_ms_per_call(fn, calls: int = 7) -> float:
         sync()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host µs a call of ``fn`` over ``calls`` calls with no synchronize
+    between them (the issue time), then one synchronize."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    sync()
+    return dt / calls * 1e6
 
 
 def log_breakdown(route: str, b: dict) -> None:
@@ -1218,7 +1235,8 @@ def main() -> int:
     del ast_ref
     torch.cuda.empty_cache()
     # the four kernels at that path's shapes: one field's 8 blocks of 262^3,
-    # the radius-3 shell; the library call is the same copy as one copy_
+    # the radius-3 shell; the library call is the same copy as one copy_ (as
+    # one allocating pack_yshell_xla for pack_yshell_pallas)
     pk_blocks = seeded((8, ps, ps, ps), 170, dev)
     zbuf = pk.pack_zshell_pallas(pk_blocks, ps - 6, 3)
     ybuf = pk.pack_yshell_pallas(pk_blocks, ps - 6, 3)
@@ -1231,36 +1249,56 @@ def main() -> int:
                                  lambda: pk_blocks.narrow(3, 0, 3).copy_(zbuf.permute(0, 3, 2, 1))),
         "pack_yshell_pallas": (lambda: pk.pack_yshell_pallas(pk_blocks, ps - 6, 3),
                                lambda: pk.pack_yshell_pallas_plain(pk_blocks, ps - 6, 3),
-                               lambda: ybuf.copy_(pk_blocks.narrow(2, ps - 6, 3).transpose(1, 2))),
+                               lambda: pk.pack_yshell_xla(pk_blocks, ps - 6, 3)),
         "unpack_yshell_pallas": (lambda: pk.unpack_yshell_pallas(pk_blocks, ybuf, 0, 3),
                                  lambda: pk.unpack_yshell_pallas_plain(pk_blocks, ybuf, 0, 3),
                                  lambda: pk_blocks.narrow(2, 0, 3).copy_(ybuf.transpose(1, 2))),
     }
+    # like for like, pack_yshell_pallas's library call allocates its buffer
+    # as the wrapper does; the copy_ into a buffer made beforehand is kept beside
+    def ycopy():
+        return ybuf.copy_(pk_blocks.narrow(2, ps - 6, 3).transpose(1, 2))
+
     # the library copies make what the kernels make
     if not (torch.equal(pack_cases["pack_zshell_pallas"][2](), pk.pack_zshell_pallas(pk_blocks, ps - 6, 3))
-            and torch.equal(pack_cases["pack_yshell_pallas"][2](), pk.pack_yshell_pallas(pk_blocks, ps - 6, 3))):
-        raise AssertionError("copy_ into the buffer and the pack kernels disagree")
+            and torch.equal(pack_cases["pack_yshell_pallas"][2](), pk.pack_yshell_pallas(pk_blocks, ps - 6, 3))
+            and torch.equal(ycopy(), pk.pack_yshell_pallas(pk_blocks, ps - 6, 3))):
+        raise AssertionError("the library copies and the pack kernels disagree")
     pack_ms = {name: [cuda_ms(fn) for fn in fns] for name, fns in pack_cases.items()}
+    ycopy_ms = cuda_ms(ycopy)
     # a launch's device time.  In the route: the profile's kernel time an
     # iteration over the launches an iteration (the window cold in L2; the
-    # kernels are zshell_kernel / yshell_kernel, <T, true> packing).  Back to
-    # back on one block the window stays in L2, and CUDA events between calls
-    # count the host's issue time.
+    # kernels are zshell_kernel <T, true> packing and <T, false> unpacking,
+    # ypack_kernel and yshell_kernel <T, false>).  Back to back on one block
+    # the window stays in L2, and CUDA events between calls count the host's
+    # issue time.
     route_prof = routes_13["yzpack_pallas"]["profile"]["kernels_ms_per_step"]
-    pack_dev_ms, pack_hot_ms = {}, {}
+    kernel_names = {"pack_zshell_pallas": ("zshell_kernel<", ", true>"),
+                    "unpack_zshell_pallas": ("zshell_kernel<", ", false>"),
+                    "pack_yshell_pallas": ("ypack_kernel<", ""), "unpack_yshell_pallas": ("yshell_kernel<", ", false>")}
+    pack_dev_ms, pack_hot_ms, pack_lib_dev_ms = {}, {}, {}
     for name, fns in pack_cases.items():
-        tag, packs = name.split("_")[-2][-6:] + "_kernel<", name.startswith("pack")
-        per_iter = [v for k, v in route_prof.items() if tag in k and (", true>" in k) == packs]
+        tag, form = kernel_names[name]
+        per_iter = [v for k, v in route_prof.items() if tag in k and form in k]
         if len(per_iter) != 1:
             raise AssertionError(f"{name}: {len(per_iter)} profiler entries of {tag}: {list(route_prof)}")
         pack_dev_ms[name] = per_iter[0] / (pack_counts[name] / AST_ITERS)
         pack_hot_ms[name] = device_ms_per_call(fns[0], calls=20)
+        pack_lib_dev_ms[name] = device_ms_per_call(fns[2], calls=20)
+    ycopy_dev_ms = device_ms_per_call(ycopy, calls=20)
+    ypack_host_us = {kind: host_us_per_call(fn) for kind, fn in
+                     (("kernel", pack_cases["pack_yshell_pallas"][0]), ("library", pack_cases["pack_yshell_pallas"][2]),
+                      ("copy_", ycopy))}
     pack_bytes = 2 * zbuf.numel() * 4  # the window read once and written once
     log("shell packs at (8,{0},{0},{0}) f32 depth 3 (ms: kernel, plain, copy_): ".format(ps)
         + ", ".join(f"{k}: {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in pack_ms.items()) + "; device ms a "
         "launch in the route (profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in pack_dev_ms.items())
-        + "; back to back, hot in L2: " + ", ".join(f"{k} {v:.4f}" for k, v in pack_hot_ms.items()) + f" on {card}")
-    del pk_blocks, zbuf, ybuf, pack_cases
+        + "; back to back, hot in L2: " + ", ".join(f"{k} {v:.4f} (library {pack_lib_dev_ms[k]:.4f})"
+                                                    for k, v in pack_hot_ms.items())
+        + f"; pack_yshell_pallas against the allocating pack_yshell_xla, copy_ {ycopy_ms:.4f} ms, "
+        f"{ycopy_dev_ms:.4f} device; host µs a call: " + ", ".join(f"{k} {v:.2f}" for k, v in ypack_host_us.items())
+        + f" on {card}")
+    del pk_blocks, zbuf, ybuf, pack_cases, ycopy
     torch.cuda.empty_cache()
 
     # --- 14. bench-pack ------------------------------------------------------------------
@@ -1326,14 +1364,18 @@ def main() -> int:
                           lambda: box(bp_block, upos, ext).copy_(slab))}
         slab_face[str(d)] = {
             kind: dict(zip(("kernel", "plain", "library"), (cuda_ms(f) for f in fs)),
-                       device=device_ms_per_call(fs[0], calls=20))
+                       device=device_ms_per_call(fs[0], calls=20), library_device=device_ms_per_call(fs[2], calls=20))
             for kind, fs in fns.items()}
+        slab_face[str(d)]["unpack"]["host_us"] = {"kernel": host_us_per_call(fns["unpack"][0]),
+                                                  "library": host_us_per_call(fns["unpack"][2])}
         slab_face[str(d)]["make_pack_fn"] = cuda_ms(lambda: pack_x([bp_block]))
         slab_face[str(d)]["make_pack_fn_pallas"] = cuda_ms(lambda: pack_p(bp_block))
     slab_bytes = 2 * N * N * 3 * 4  # the box read once and written once
-    log(f"slab packs at {ws}^3 f32, radius 3, per face (ms: kernel, plain, library; device ms a launch): " + "; ".join(
-        f"{d} " + ", ".join(f"{k} {v['kernel']:.4f}, {v['plain']:.4f}, {v['library']:.4f}; {v['device']:.4f}"
-                            for k, v in f.items() if k in ("pack", "unpack"))
+    log(f"slab packs at {ws}^3 f32, radius 3, per face (ms: kernel, plain, library; device ms a launch: kernel, "
+        "library; unpack host µs a call: kernel, library): " + "; ".join(
+        f"{d} " + ", ".join(f"{k} {v['kernel']:.4f}, {v['plain']:.4f}, {v['library']:.4f}; {v['device']:.4f}, "
+                            f"{v['library_device']:.4f}" for k, v in f.items() if k in ("pack", "unpack"))
+        + f"; {f['unpack']['host_us']['kernel']:.2f}, {f['unpack']['host_us']['library']:.2f}"
         + f"; make_pack_fn {f['make_pack_fn']:.4f}, make_pack_fn_pallas {f['make_pack_fn_pallas']:.4f}"
         for d, f in slab_face.items()) + f" on {card}")
     del bp_block, slab
@@ -1490,9 +1532,15 @@ def main() -> int:
             "copy_bound_ms": nbytes / copy_bw * 1e3, "library_ms": lib_ms, "shape": shape,
         })
         if name in pack_dev_ms:
-            rows[-1]["device_ms"] = pack_dev_ms[name]
+            rows[-1].update(device_ms=pack_dev_ms[name], device_ms_back_to_back=pack_hot_ms[name],
+                            library_device_ms=pack_lib_dev_ms[name])
         if name.endswith("_slab") and name.startswith("pallas_"):
-            rows[-1]["device_ms"] = slab_face[str(bp.FACES[2])][name.split("_")[1]]["device"]
+            face = slab_face[str(bp.FACES[2])][name.split("_")[1]]
+            rows[-1].update(device_ms=face["device"], library_device_ms=face["library_device"])
+            if "host_us" in face:
+                rows[-1]["host_us"] = face["host_us"]
+        if name == "pack_yshell_pallas":
+            rows[-1]["host_us"] = ypack_host_us
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1506,8 +1554,10 @@ def main() -> int:
             "step1_ms_min_median": step1, "astaroth": ast,
             "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
             "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,
-            "shell_pack_ms": {k: dict(zip(("kernel", "plain", "copy_"), v), device_in_route=pack_dev_ms[k],
-                                      device_back_to_back=pack_hot_ms[k]) for k, v in pack_ms.items()},
+            "shell_pack_ms": {k: dict(zip(("kernel", "plain", "library"), v), device_in_route=pack_dev_ms[k],
+                                      device_back_to_back=pack_hot_ms[k], library_device=pack_lib_dev_ms[k])
+                              for k, v in pack_ms.items()},
+            "pack_yshell_copy_": {"ms": ycopy_ms, "device_ms": ycopy_dev_ms, "host_us": ypack_host_us},
             "blend_slab_dynamic_ms": {"kernel": dyn_ms, "plain": dyn_plain_ms, "scatter_": dyn_lib_ms},
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
                        "wavefront_zring_mcells_per_s": wave_mcells,

@@ -4,16 +4,17 @@
 // The slab packs of bench-pack and make_pack_fn_pallas take one block
 // (X, Y, Z) and a box at (px, py, pz) of extent (ex, ey, ez):
 //
-//   stp_pack_slab      replaces stencil_tpu/ops/pack.py:197 pallas_pack_slab:
-//                      slab[i, j, k] = block[px + i, py + j, pz + k]
-//   stp_unpack_slab    replaces stencil_tpu/ops/pack.py:225 pallas_unpack_slab:
-//                      block[px + i, py + j, pz + k] = slab[i, j, k], in place
+//   stp_pack_slab         replaces stencil_tpu/ops/pack.py:197 pallas_pack_slab:
+//                         slab[i, j, k] = block[px + i, py + j, pz + k]
+//   stp_unpack_slab_desc  replaces stencil_tpu/ops/pack.py:225 pallas_unpack_slab:
+//                         block[px + i, py + j, pz + k] = slab[i, j, k], in place
+//                         (its own kernels: "The descriptor entries" below)
 //
 // The TPU kernels DMA whole x-planes into VMEM and cut the window there (an
 // HBM DMA must not cut the (8,128) tiling); the port keeps the box copy, the
 // reference's grid_pack / grid_unpack (pack_kernel.cuh:16-40, copy.cuh:26-64).
-// Bound on an H100 SXM: bytes, the box read once and written once.  Design:
-// one thread per slab element, the slab walked in its C order, so a warp
+// Bound on an H100 SXM: bytes, the box read once and written once.  Design of
+// the pack (the unpack's is below): one thread per slab element, the slab walked in its C order, so a warp
 // covers consecutive z (then y) cells: the slab side always coalesces, and
 // the block side does for the x and y faces; on a z face (ez = 3 at radius 3)
 // each (x, y) of the block is an ez-wide run, a 32-byte sector for ez *
@@ -28,8 +29,9 @@
 //                      buf[b, k, y, x] = block[b, x, y, start + k]
 //   stp_unpack_zshell  replaces stencil_tpu/ops/pack.py:358 unpack_zshell_pallas:
 //                      block[b, x, y, start + k] = buf[b, k, y, x], in place
-//   stp_pack_yshell    replaces stencil_tpu/ops/pack.py:422 pack_yshell_pallas:
-//                      buf[b, k, x, z] = block[b, x, start + k, z]
+//   stp_pack_yshell_desc  replaces stencil_tpu/ops/pack.py:422 pack_yshell_pallas:
+//                         buf[b, k, x, z] = block[b, x, start + k, z]
+//                         (its own kernel: "The descriptor entries" below)
 //   stp_unpack_yshell  replaces stencil_tpu/ops/pack.py:449 unpack_yshell_pallas:
 //                      block[b, x, start + k, z] = buf[b, k, x, z], in place
 //
@@ -42,7 +44,8 @@
 // without the TPU's lane padding of X.
 //
 // Bound on an H100 SXM: bytes, the window read once and written once, 2 * n *
-// depth * (the other two extents) * itemsize.  Design: one warp per row, a row
+// depth * (the other two extents) * itemsize.  Design of the z pair and the y
+// unpack (the y pack's is below): one warp per row, a row
 // being a run of the window that the warp walks 32 elements at a time, with
 // kUnroll loads in flight before their stores.  y shell: a row is (b, k, x),
 // Z cells contiguous on both sides, so loads and stores coalesce.  z shell: a
@@ -59,6 +62,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -230,6 +234,249 @@ int dispatch(bool z, bool pack, void* block, void* buf, int itemsize, int64_t n,
   }
 }
 
+// --- The descriptor entries: pallas_unpack_slab and pack_yshell_pallas -------
+//
+// Each takes the address of a host array of int64 fields that the wrapper
+// builds once per geometry and caches (ops/pack.py), the two data pointers and
+// the stream: four arguments, so that the call costs no more host time than a
+// PyTorch copy.  The fields are read here, on the host, and reach the kernel by
+// value; the pointers' alignment is read per call, never cached.
+//
+// Both copy rows that are contiguous on both sides.  A row goes to one warp:
+// a head of elements up to the destination's next 16-byte boundary, then
+// 16-byte stores, each vector loaded in the widest words that the source's
+// alignment relative to the destination allows (16 bytes where the two rows
+// share their alignment, else 8, 4, 2 or 1), kRowUnroll vectors in flight a
+// lane, then a tail of elements.  No TMA and no cp.async.bulk: both need
+// 16-byte strides, and a 518-wide f32 row is 2,072 B and a 262-wide one
+// 1,048 B, both 8 mod 16.
+//
+// pack_yshell_pallas: a row is (b, k, x), Z cells, the buffer's row order;
+// the destination is the buffer.  At the route's (8, 262, 262, 262) f32 depth
+// 3 that is 6,288 rows of 1,048 B, 786 blocks of 8 warps, one wave on 132 SMs.
+//
+// pallas_unpack_slab: the destination is the block.  A slab row of ez cells of
+// at least kRowBytes bytes (the x and y faces) goes to a warp as above.
+// Shorter rows (the z face's 12-byte ez = 3 runs) go to the cell kernel: a
+// block stages kStageBytes of the slab in shared memory (16-byte loads when the
+// slab's pointer is 16-byte aligned, else element loads), all loads issued
+// before any store, then stores one cell a lane in the slab's C order, so a
+// warp-wide store covers each 32-byte sector of the block once.  A cell's (i,
+// j, k) comes from two multiply-high divisions, not a runtime divide.  Bound:
+// bytes, the slab read once and the box written once; but on the z face each
+// 12-byte run fills part of a sector, and that sector traffic, which no order
+// of the stores avoids, sets the time (PERF.md).
+
+constexpr int kRowWarps = 8;       // rows per block in the row kernels
+constexpr int kRowUnroll = 4;      // 16-byte vectors in flight a lane
+constexpr int kRowBytes = 512;     // a slab row this long or longer goes to a warp
+constexpr int kCellThreads = 256;  // the cell kernel's block
+constexpr int kStageBytes = 8192;  // slab bytes a cell block stages at once
+
+// Division by a fixed divisor as a multiply-high, exact for n < 2^31
+// (CUTLASS's FastDivmod, cutlass/fast_math.h).  Built on the host.
+struct FastDiv {
+  uint32_t d, mul, shr;
+  void init(uint32_t div) {
+    d = div;
+    mul = shr = 0;
+    if (div > 1) {
+      int log2 = 0;
+      while ((1ull << log2) < div) ++log2;  // ceil(log2(div))
+      const int p = 31 + log2;
+      mul = (uint32_t)(((1ull << p) + div - 1) / div);
+      shr = (uint32_t)(p - 32);
+    }
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return d == 1 ? n : __umulhi(n, mul) >> shr;
+  }
+};
+
+// 16 bytes from p, in words of W (W's alignment is all p has).
+template <typename W>
+__device__ __forceinline__ uint4 load16(const char* p) {
+  if constexpr (sizeof(W) == 16) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    W w[16 / sizeof(W)];
+#pragma unroll
+    for (int i = 0; i < (int)(16 / sizeof(W)); ++i) w[i] = reinterpret_cast<const W*>(p)[i];
+    uint4 v;
+    memcpy(&v, w, 16);
+    return v;
+  }
+}
+
+// nvec 16-byte vectors from s to d (d 16-byte aligned) by the lanes of a warp.
+template <typename W>
+__device__ __forceinline__ void copy_vectors(char* __restrict__ d, const char* __restrict__ s, int nvec,
+                                             int lane) {
+  for (int v0 = lane; v0 < nvec; v0 += 32 * kRowUnroll) {
+    uint4 r[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      if (v0 + 32 * u < nvec) r[u] = load16<W>(s + 16 * (v0 + 32 * u));
+    }
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      if (v0 + 32 * u < nvec) *reinterpret_cast<uint4*>(d + 16 * (v0 + 32 * u)) = r[u];
+    }
+  }
+}
+
+// One row of `bytes` bytes (a whole number of T) from src to dst, by a warp.
+template <typename T>
+__device__ __forceinline__ void warp_copy_row(char* __restrict__ dst, const char* __restrict__ src, int bytes,
+                                              int lane) {
+  constexpr int kT = (int)sizeof(T);
+  const int to16 = (int)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15);
+  const int head = to16 < bytes ? to16 : bytes;
+  const int nvec = (bytes - head) >> 4;
+  const int tail = head + (nvec << 4);
+  for (int b = lane * kT; b < head; b += 32 * kT) {
+    *reinterpret_cast<T*>(dst + b) = *reinterpret_cast<const T*>(src + b);
+  }
+  for (int b = tail + lane * kT; b < bytes; b += 32 * kT) {
+    *reinterpret_cast<T*>(dst + b) = *reinterpret_cast<const T*>(src + b);
+  }
+  char* d = dst + head;
+  const char* s = src + head;
+  const int rel = (int)(reinterpret_cast<uintptr_t>(s) & 15);  // d is 16-byte aligned
+  const int w = rel == 0 ? 16 : rel & -rel;                    // at least kT: s is T-aligned
+  if (w == 16) {
+    copy_vectors<uint4>(d, s, nvec, lane);
+  } else if (w == 8) {
+    copy_vectors<uint64_t>(d, s, nvec, lane);
+  } else if constexpr (kT <= 4) {
+    if (w == 4) {
+      copy_vectors<uint32_t>(d, s, nvec, lane);
+    } else if constexpr (kT <= 2) {
+      if (w == 2) {
+        copy_vectors<uint16_t>(d, s, nvec, lane);
+      } else if constexpr (kT == 1) {
+        copy_vectors<uint8_t>(d, s, nvec, lane);
+      }
+    }
+  }
+}
+
+// The box of the block a slab fills: block strides, the offset of block[px,
+// py, pz], the slab's extents and cells, and divisions by ey and ez.
+struct SlabGeom {
+  int64_t Y, Z, base;
+  uint32_t ey, ez, rows, total;
+  FastDiv by_ey, by_ez;
+};
+
+template <typename T>
+__global__ void unpack_slab_rows_kernel(T* __restrict__ block, const T* __restrict__ slab, SlabGeom g) {
+  const int lane = threadIdx.x & 31;
+  for (uint32_t row = blockIdx.x * kRowWarps + (threadIdx.x >> 5); row < g.rows; row += gridDim.x * kRowWarps) {
+    const uint32_t i = g.by_ey.div(row);
+    const uint32_t j = row - i * g.ey;
+    T* dst = block + g.base + ((int64_t)i * g.Y + j) * g.Z;
+    warp_copy_row<T>(reinterpret_cast<char*>(dst), reinterpret_cast<const char*>(slab + (int64_t)row * g.ez),
+                     (int)(g.ez * sizeof(T)), lane);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCellThreads)
+    unpack_slab_cells_kernel(T* __restrict__ block, const T* __restrict__ slab, SlabGeom g, int vec) {
+  constexpr int kCells = kStageBytes / (int)sizeof(T);  // cells a block stages
+  constexpr int kVecs = kStageBytes / 16 / kCellThreads;
+  constexpr int kPer = kCells / kCellThreads;
+  __shared__ uint4 stage[kStageBytes / 16];
+  T* cells = reinterpret_cast<T*>(stage);
+  const int t = threadIdx.x;
+  for (uint32_t c0 = blockIdx.x * kCells; c0 < g.total; c0 += gridDim.x * kCells) {
+    const uint32_t n = g.total - c0 < (uint32_t)kCells ? g.total - c0 : (uint32_t)kCells;
+    if (vec && n == (uint32_t)kCells) {
+      const uint4* src = reinterpret_cast<const uint4*>(slab + c0);
+      uint4 r[kVecs];
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) r[u] = src[t + u * kCellThreads];
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) stage[t + u * kCellThreads] = r[u];
+    } else {
+      T r[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const uint32_t e = t + u * kCellThreads;
+        if (e < n) r[u] = slab[c0 + e];
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const uint32_t e = t + u * kCellThreads;
+        if (e < n) cells[e] = r[u];
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int u = 0; u < kPer; ++u) {
+      const uint32_t e = t + u * kCellThreads;
+      if (e < n) {
+        const uint32_t cell = c0 + e;
+        const uint32_t row = g.by_ez.div(cell);
+        const uint32_t k = cell - row * g.ez;
+        const uint32_t i = g.by_ey.div(row);
+        const uint32_t j = row - i * g.ey;
+        block[g.base + ((int64_t)i * g.Y + j) * g.Z + k] = cells[e];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_unpack_slab(const SlabGeom& g, void* block, const void* slab, cudaStream_t stream) {
+  T* bl = (T*)block;
+  const T* sl = (const T*)slab;
+  if ((int64_t)g.ez * (int64_t)sizeof(T) >= kRowBytes) {
+    int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    unpack_slab_rows_kernel<T><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
+  } else {
+    constexpr int64_t kCells = kStageBytes / sizeof(T);
+    int64_t blocks = ((int64_t)g.total + kCells - 1) / kCells;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    const int vec = (reinterpret_cast<uintptr_t>(slab) & 15) == 0;
+    unpack_slab_cells_kernel<T><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The y-shell window: strides, the window, rows (b, k, x) and divisions by X
+// and depth.
+struct YGeom {
+  int64_t X, Y, Z, y0;
+  uint32_t rows, depth;
+  FastDiv by_x, by_depth;
+};
+
+template <typename T>
+__global__ void ypack_kernel(const T* __restrict__ block, T* __restrict__ buf, YGeom g) {
+  const int lane = threadIdx.x & 31;
+  for (uint32_t row = blockIdx.x * kRowWarps + (threadIdx.x >> 5); row < g.rows; row += gridDim.x * kRowWarps) {
+    const uint32_t bk = g.by_x.div(row);  // row = (b * depth + k) * X + x
+    const uint32_t x = row - bk * (uint32_t)g.X;
+    const uint32_t b = g.by_depth.div(bk);
+    const uint32_t k = bk - b * g.depth;
+    const T* src = block + (((int64_t)b * g.X + x) * g.Y + g.y0 + k) * g.Z;
+    warp_copy_row<T>(reinterpret_cast<char*>(buf + (int64_t)row * g.Z), reinterpret_cast<const char*>(src),
+                     (int)(g.Z * (int64_t)sizeof(T)), lane);
+  }
+}
+
+template <typename T>
+int launch_ypack(const YGeom& g, const void* block, void* buf, cudaStream_t stream) {
+  int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  ypack_kernel<T><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>((const T*)block, (T*)buf, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,10 +488,33 @@ int stp_pack_slab(void* block, void* slab, int itemsize, int64_t X, int64_t Y, i
   return dispatch_slab(true, block, slab, itemsize, X, Y, Z, px, py, pz, ex, ey, ez, stream);
 }
 
-int stp_unpack_slab(void* block, void* slab, int itemsize, int64_t X, int64_t Y, int64_t Z,
-                    int64_t px, int64_t py, int64_t pz, int64_t ex, int64_t ey, int64_t ez,
-                    void* stream) {
-  return dispatch_slab(false, block, slab, itemsize, X, Y, Z, px, py, pz, ex, ey, ez, stream);
+// desc: itemsize, X, Y, Z, px, py, pz, ex, ey, ez (ops/pack.py SLAB_DESC_FIELDS)
+int stp_unpack_slab_desc(const int64_t* desc, void* block, const void* slab, void* stream) {
+  const int64_t itemsize = desc[0], X = desc[1], Y = desc[2], Z = desc[3];
+  const int64_t px = desc[4], py = desc[5], pz = desc[6], ex = desc[7], ey = desc[8], ez = desc[9];
+  if (px < 0 || py < 0 || pz < 0 || ex < 0 || ey < 0 || ez < 0 || px + ex > X || py + ey > Y || pz + ez > Z)
+    return -1;
+  const int64_t total = ex * ey * ez;
+  if (total >= INT32_MAX) return -1;
+  if (total == 0) return 0;
+  SlabGeom g;
+  g.Y = Y;
+  g.Z = Z;
+  g.base = (px * Y + py) * Z + pz;
+  g.ey = (uint32_t)ey;
+  g.ez = (uint32_t)ez;
+  g.rows = (uint32_t)(ex * ey);
+  g.total = (uint32_t)total;
+  g.by_ey.init(g.ey);
+  g.by_ez.init(g.ez);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (itemsize) {
+    case 1: return launch_unpack_slab<uint8_t>(g, block, slab, s);
+    case 2: return launch_unpack_slab<uint16_t>(g, block, slab, s);
+    case 4: return launch_unpack_slab<uint32_t>(g, block, slab, s);
+    case 8: return launch_unpack_slab<uint64_t>(g, block, slab, s);
+    default: return -1;
+  }
 }
 
 int stp_pack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
@@ -257,9 +527,31 @@ int stp_unpack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X
   return dispatch(true, false, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
 }
 
-int stp_pack_yshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                    int64_t Z, int64_t y0, int64_t depth, void* stream) {
-  return dispatch(false, true, block, buf, itemsize, n, X, Y, Z, y0, depth, stream);
+// desc: itemsize, n, X, Y, Z, y0, depth (ops/pack.py YSHELL_DESC_FIELDS)
+int stp_pack_yshell_desc(const int64_t* desc, const void* block, void* buf, void* stream) {
+  const int64_t itemsize = desc[0], n = desc[1], X = desc[2], Y = desc[3], Z = desc[4];
+  const int64_t y0 = desc[5], depth = desc[6];
+  if (n < 0 || X < 0 || Z < 0 || depth < 1 || y0 < 0 || y0 + depth > Y) return -1;
+  const int64_t rows = n * depth * X;
+  if (rows >= INT32_MAX || Z * itemsize >= INT32_MAX) return -1;  // rows and a row's bytes are 32-bit
+  if (rows == 0 || Z == 0) return 0;
+  YGeom g;
+  g.X = X;
+  g.Y = Y;
+  g.Z = Z;
+  g.y0 = y0;
+  g.rows = (uint32_t)rows;
+  g.depth = (uint32_t)depth;
+  g.by_x.init((uint32_t)X);
+  g.by_depth.init((uint32_t)depth);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (itemsize) {
+    case 1: return launch_ypack<uint8_t>(g, block, buf, s);
+    case 2: return launch_ypack<uint16_t>(g, block, buf, s);
+    case 4: return launch_ypack<uint32_t>(g, block, buf, s);
+    case 8: return launch_ypack<uint64_t>(g, block, buf, s);
+    default: return -1;
+  }
 }
 
 int stp_unpack_yshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,

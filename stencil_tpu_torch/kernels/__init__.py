@@ -38,3 +38,10 @@ def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as the raw handle the C
     interface takes."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def current_raw_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``,
+    read without building a ``torch.cuda.Stream`` as ``stream_handle`` does
+    (the call Triton's launcher makes).  The descriptor launches use it."""
+    return torch._C._cuda_getCurrentRawStream(index)

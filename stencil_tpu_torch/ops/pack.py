@@ -39,6 +39,11 @@ leaves every other cell of the block as it was.
 Each function takes one ``(X, Y, Z)`` block or ``n`` blocks ``(n, X, Y, Z)``
 with buffers ``(d, ·, ·)`` or ``(n, d, ·, ·)``; one launch serves all ``n``.
 
+``pallas_unpack_slab`` and ``pack_yshell_pallas`` launch through cached
+descriptors (``_unpack_slab_launch``, ``_pack_yshell_launch``): a geometry
+is checked once, and a call then costs about what a PyTorch copy costs on
+the host.  The other four kernels validate and pass every argument per call.
+
 The z buffer carries no lane padding: the TPU pads X to a multiple of 128
 (``lane_pad``, ``stencil_tpu/ops/pack.py:298-306``) for its (8,128) tiling,
 while a Hopper row coalesces at any width, so the port's buffer is
@@ -47,6 +52,7 @@ while a Hopper row coalesces at any width, so the port's buffer is
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import List, Sequence, Tuple
 
@@ -54,7 +60,7 @@ import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.geometry import LocalSpec
-from stencil_tpu_torch.kernels import check_tensor, same_device, stream_handle
+from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device, stream_handle
 from stencil_tpu_torch.ops.halo_blend import supports
 
 # --- the message layout (stencil_tpu/ops/pack.py:73-126) -----------------------
@@ -177,6 +183,86 @@ def _launch_slab(fn: str, block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ex
     build.check(lib, rc, fn)
 
 
+# --- the descriptor launch path (pallas_unpack_slab, pack_yshell_pallas) ----------
+#
+# A wrapper validates a geometry once and caches a launch for it: an int64
+# descriptor that its C entry reads on the host, the descriptor's address and
+# the shape of the slab it takes (or of the buffer it makes).  The cache key
+# holds everything the kernel depends on (block shape, dtype and the box or
+# window), so a hit needs no geometry check; each call still checks what can
+# differ under one key (the tensors' type, device and contiguity, the slab's
+# shape and dtype) and passes the data pointers and the stream anew, so the
+# kernel reads their alignment on every call.  The C entry takes four
+# arguments: the descriptor's address, the two data pointers and the stream.
+
+#: the int64 fields of a descriptor, in the order the C entries read them
+SLAB_DESC_FIELDS = ("itemsize", "X", "Y", "Z", "px", "py", "pz", "ex", "ey", "ez")
+YSHELL_DESC_FIELDS = ("itemsize", "n", "X", "Y", "Z", "y0", "depth")
+
+_MAX_LAUNCHES = 1024  # geometries a cache holds before it starts afresh
+_SLAB_LAUNCHES: dict = {}
+_YSHELL_LAUNCHES: dict = {}
+_ENTRIES: dict = {}
+
+
+def _remember(cache: dict, key, fields: Sequence[int], shape: tuple):
+    """Cache and return the launch ``(descriptor, its address, shape)`` of
+    ``fields`` under ``key``; the tuple keeps the descriptor alive."""
+    desc = (ctypes.c_int64 * len(fields))(*(int(f) for f in fields))
+    launch = (desc, ctypes.addressof(desc), shape)
+    if len(cache) >= _MAX_LAUNCHES:
+        cache.clear()
+    try:
+        cache[key] = launch
+    except TypeError:  # a list for a box corner or extent: checked anew each call
+        pass
+    return launch
+
+
+def _unpack_slab_launch(block: torch.Tensor, pos, ext):
+    """The cached launch of ``pallas_unpack_slab`` for this geometry:
+    ``(descriptor, its address, slab shape)``."""
+    key = (block.shape, block.dtype, pos, ext)
+    try:
+        return _SLAB_LAUNCHES[key]
+    except (KeyError, TypeError):
+        pass
+    pos, ext = Dim3.of(pos), Dim3.of(ext)
+    _check_slab(block, pos, ext)
+    return _remember(_SLAB_LAUNCHES, key, (block.element_size(), *block.shape, *pos, *ext), tuple(ext))
+
+
+def _pack_yshell_launch(block: torch.Tensor, y0: int, depth: int):
+    """The cached launch of ``pack_yshell_pallas`` for this geometry:
+    ``(descriptor, its address, buffer shape)``."""
+    key = (block.shape, block.dtype, y0, depth)
+    try:
+        return _YSHELL_LAUNCHES[key]
+    except (KeyError, TypeError):
+        pass
+    _check(block, 1, y0, depth)
+    n = block.shape[0] if block.dim() == 4 else 1
+    return _remember(_YSHELL_LAUNCHES, key, (block.element_size(), n, *block.shape[-3:], y0, depth),
+                     yshell_buffer_shape(tuple(block.shape), int(depth)))
+
+
+def _entry(fn: str):
+    """``(C entry, library)`` of ``csrc/pack.cu``, built and loaded at the first launch."""
+    entry = _ENTRIES.get(fn)
+    if entry is None:
+        from stencil_tpu_torch.kernels import build
+
+        lib = build.load("pack")
+        entry = _ENTRIES[fn] = (getattr(lib, fn), lib)
+    return entry
+
+
+def _raise_launch(fn: str, rc: int) -> None:
+    from stencil_tpu_torch.kernels import build
+
+    build.check(_entry(fn)[1], rc, fn)
+
+
 def pallas_pack_slab_plain(block: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
     """``block[pos:pos+ext]`` as a new dense ``ext``-shaped tensor."""
     _check_slab(block, pos, ext)
@@ -209,11 +295,18 @@ def pallas_unpack_slab(block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ext: 
     ``(X, Y, Z)`` block in place and return ``block``; every cell outside the
     box keeps its value.  CUDA tensors launch the kernel; CPU tensors take
     the plain version."""
-    pos, ext = Dim3.of(pos), Dim3.of(ext)
-    _check_slab(block, pos, ext, slab)
-    if block.device.type == "cpu":
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
+        pos, ext = Dim3.of(pos), Dim3.of(ext)
+        _check_slab(block, pos, ext, slab)
         return pallas_unpack_slab_plain(block, slab, pos, ext)
-    _launch_slab("stp_unpack_slab", block, slab, pos, ext)
+    dev = block.device
+    _, addr, slab_shape = _unpack_slab_launch(block, pos, ext)
+    if not (block.is_contiguous() and isinstance(slab, torch.Tensor) and slab.dtype == block.dtype
+            and slab.shape == slab_shape and slab.is_contiguous() and slab.device == dev):
+        _check_slab(block, Dim3.of(pos), Dim3.of(ext), slab)  # raises with the reason
+    rc = _entry("stp_unpack_slab_desc")[0](addr, block.data_ptr(), slab.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        _raise_launch("stp_unpack_slab_desc", rc)
     pallas_unpack_slab.launches += 1
     return block
 
@@ -364,11 +457,17 @@ def pack_yshell_pallas(block: torch.Tensor, y0: int, depth: int) -> torch.Tensor
     """The y shell ``[y0, y0+depth)`` of ``block`` as a new ``(..., depth,
     X, Z)`` buffer.  CUDA tensors launch the kernel (any 1/2/4/8-byte
     dtype); CPU tensors take the plain version."""
-    _check(block, 1, y0, depth)
-    if block.device.type == "cpu":
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
+        _check(block, 1, y0, depth)
         return pack_yshell_pallas_plain(block, y0, depth)
-    buf = torch.empty(yshell_buffer_shape(tuple(block.shape), depth), dtype=block.dtype, device=block.device)
-    _launch("stp_pack_yshell", block, buf, y0, depth)
+    dev = block.device
+    _, addr, buf_shape = _pack_yshell_launch(block, y0, depth)
+    if not block.is_contiguous():
+        _check(block, 1, y0, depth)  # raises with the reason
+    buf = torch.empty(buf_shape, dtype=block.dtype, device=dev)
+    rc = _entry("stp_pack_yshell_desc")[0](addr, block.data_ptr(), buf.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        _raise_launch("stp_pack_yshell_desc", rc)
     pack_yshell_pallas.launches += 1
     return buf
 

@@ -261,6 +261,132 @@ def test_slab_pack_kernels_equal_plain(dev, dtype):
         assert (pk.pallas_pack_slab.launches, pk.pallas_unpack_slab.launches) == (before[0] + 1, before[1] + 1)
 
 
+# --- the descriptor launch path: pallas_unpack_slab and pack_yshell_pallas ------------
+
+SWEEP_DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.uint8]
+
+
+def _at_offset(shape, dtype, off, seed, dev):
+    """A C-contiguous tensor of ``shape`` whose data starts ``off`` elements
+    past an aligned allocation, filled from ``seed``."""
+    n = int(np.prod(shape))
+    return (_rand((n + off,), seed, dev) * 100).to(dtype)[off:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_unpack_slab_kernel_alignment_sweep(dev, dtype):
+    """Block rows that start at every offset mod 16 (an odd Z, every pz < 16,
+    shifted block pointers), ez of 1, 3, 4, 5, 300 and the rest of the row
+    (both sides of the row kernel's 512-byte threshold for every width), the
+    slab's pointer 16-byte aligned and not; then boxes of several staged
+    chunks with a ragged last one."""
+    X, Y, Z = 4, 5, 521
+    cases = [((X, Y, Z), (px, py, pz), (ex, ey, ez), boff, soff)
+             for pz in range(16) for ez in (1, 3, 4, 5, 300, Z - pz)
+             for px, py, ex, ey in ((1, 2, 2, 3), (0, 0, X, Y))
+             for boff, soff in ((0, 0), (1, 1), (3, 0), (0, 1))]
+    cases += [((40, 41, 9), (2, 1, pz), (37, 39, ez), 0, soff) for pz, ez in ((5, 3), (2, 6), (0, 9))
+              for soff in (0, 1)]
+    before = pk.pallas_unpack_slab.launches
+    for i, (shape, pos, ext, boff, soff) in enumerate(cases):
+        block = _at_offset(shape, dtype, boff, i, dev)
+        slab = _at_offset(ext, dtype, soff, 10_000 + i, dev)
+        want = pk.pallas_unpack_slab_plain(block.clone(), slab, Dim3.of(pos), Dim3.of(ext))
+        got = pk.pallas_unpack_slab(block, slab, pos, ext)
+        torch.cuda.synchronize()
+        assert got is block
+        assert torch.equal(got, want), (shape, pos, ext, boff, soff)
+    assert pk.pallas_unpack_slab.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_pack_yshell_kernel_alignment_sweep(dev, dtype):
+    """One block and three, Z odd, 1 and a 1,048-byte f32 row (8 mod 16),
+    depth 1, 3 and the full extent, block pointers shifted so that rows
+    start at every offset mod 16."""
+    cases = [(lead + (X, Y, Z), (y0, depth), boff)
+             for lead, X, Y, Z in (((), 3, 6, 1), ((3,), 3, 6, 7), ((), 5, 7, 262), ((3,), 2, 4, 333),
+                                   ((3,), 2, 5, 64), ((1,), 2, 4, 521))
+             for y0, depth in ((0, 1), (1, 3), (Y - 3, 3), (0, Y))
+             for boff in (0, 1, 3, 5)]
+    before = pk.pack_yshell_pallas.launches
+    for i, (shape, (y0, depth), boff) in enumerate(cases):
+        block = _at_offset(shape, dtype, boff, 20_000 + i, dev)
+        buf = pk.pack_yshell_pallas(block, y0, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, pk.pack_yshell_pallas_plain(block, y0, depth)), (shape, y0, depth, boff)
+    assert pk.pack_yshell_pallas.launches == before + len(cases)
+
+
+def test_descriptor_launches_of_two_shapes_in_turn(dev):
+    """Each shape keeps its own cached launch: blocks of two shapes, in turn."""
+    blocks = [_rand((9, 10, 11), 90, dev), _rand((12, 10, 13), 91, dev)]
+    pos, ext = Dim3(2, 1, 3), Dim3(4, 7, 5)
+    for rep in range(2):
+        for i, blk in enumerate(blocks):
+            assert torch.equal(pk.pack_yshell_pallas(blk, 2, 3), pk.pack_yshell_pallas_plain(blk, 2, 3))
+            slab = _rand(tuple(ext), 92 + 2 * rep + i, dev)
+            assert torch.equal(pk.pallas_unpack_slab(blk.clone(), slab, pos, ext),
+                               pk.pallas_unpack_slab_plain(blk.clone(), slab, pos, ext))
+
+
+def test_descriptor_launches_run_on_the_current_stream(dev):
+    """Under ``torch.cuda.stream(s)`` both kernels run on ``s``: they see a
+    write queued on ``s`` behind a long sleep, and ``s.synchronize()`` is
+    enough to read their results."""
+    block = torch.zeros(64, 66, 70, device=dev)
+    slab = torch.zeros(60, 62, 3, device=dev)
+    blocks = torch.zeros(3, 64, 66, 70, device=dev)
+    s = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)  # tens of ms: a kernel on another stream would run first
+        slab.fill_(7.0)
+        blocks.fill_(5.0)
+        pk.pallas_unpack_slab(block, slab, Dim3(2, 2, 60), Dim3(60, 62, 3))
+        buf = pk.pack_yshell_pallas(blocks, 3, 3)
+    s.synchronize()
+    assert bool((block[2:62, 2:64, 60:63] == 7).all()) and float(block.sum()) == 7 * 60 * 62 * 3
+    assert bool((buf == 5).all())
+
+
+def test_descriptor_wrappers_refuse_on_cuda(dev):
+    """Every refusal the CPU tests pin raises on CUDA tensors too, with its
+    message, cached geometry or not."""
+    block = torch.zeros(6, 6, 6, device=dev)
+
+    def z(*shape, **kw):
+        return torch.zeros(*shape, device=dev, **kw)
+
+    pk.pallas_unpack_slab(block, z(2, 2, 2), (0, 0, 0), (2, 2, 2))  # cache the geometry
+    pk.pack_yshell_pallas(block, 0, 1)
+    cases = [
+        (TypeError, "1/2/4/8-byte", lambda: pk.pallas_unpack_slab(
+            block.to(torch.complex128), z(1, 1, 1, dtype=torch.complex128), (0, 0, 0), (1, 1, 1))),
+        (ValueError, "leaves block", lambda: pk.pallas_unpack_slab(block, z(3, 1, 1), (4, 0, 0), (3, 1, 1))),
+        (ValueError, "slab shape", lambda: pk.pallas_unpack_slab(block, z(2, 2, 2), (0, 0, 0), (2, 2, 3))),
+        (TypeError, "slab dtype", lambda: pk.pallas_unpack_slab(block, z(2, 2, 2, dtype=torch.float64), (0, 0, 0),
+                                                                (2, 2, 2))),
+        (ValueError, "slab must be C-contiguous", lambda: pk.pallas_unpack_slab(block, z(2, 2, 4)[:, :, ::2],
+                                                                                (0, 0, 0), (2, 2, 2))),
+        (ValueError, "block must be C-contiguous", lambda: pk.pallas_unpack_slab(
+            block.transpose(0, 2), z(2, 2, 2), (0, 0, 0), (2, 2, 2))),
+        (ValueError, "different devices", lambda: pk.pallas_unpack_slab(block, torch.zeros(2, 2, 2), (0, 0, 0),
+                                                                        (2, 2, 2))),
+        (TypeError, "slab must be a torch.Tensor", lambda: pk.pallas_unpack_slab(
+            block, np.zeros((2, 2, 2), np.float32), (0, 0, 0), (2, 2, 2))),
+        (ValueError, "does not fit", lambda: pk.pack_yshell_pallas(block, 5, 2)),
+        (TypeError, "1/2/4/8-byte", lambda: pk.pack_yshell_pallas(block.to(torch.complex128), 0, 1)),
+        (ValueError, "block must be C-contiguous", lambda: pk.pack_yshell_pallas(block.transpose(0, 2), 0, 1)),
+        (ValueError, "buf shape", lambda: pk.unpack_yshell_pallas(block, z(2, 6, 6), 0, 1)),
+    ]
+    before = (pk.pallas_unpack_slab.launches, pk.pack_yshell_pallas.launches)
+    for exc, match, call in cases:
+        with pytest.raises(exc, match=match):
+            call()
+    assert (pk.pallas_unpack_slab.launches, pk.pack_yshell_pallas.launches) == before
+
+
 @pytest.mark.parametrize("lo,hi", [((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2))])
 def test_mean6_plane_kernel_equals_plain(dev, lo, hi):
     from stencil_tpu_torch.ops import plane_stencil as ps
