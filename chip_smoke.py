@@ -88,8 +88,9 @@ non-zero before the result line:
     ``copy_`` kept beside it), and each kernel's device ms a launch: in the
     ``yzpack_pallas`` profile (the window cold in L2, the ``device_ms`` of
     the kernels line) and back to back on one block (the window hot in the
-    50 MB L2), beside the library call's back to back; pack_yshell_pallas's
-    host µs a call (100 calls on the host clock, no synchronize between);
+    50 MB L2), beside the library call's back to back; the host µs a call
+    (100 calls on the host clock, no synchronize between) of
+    pack_yshell_pallas and unpack_yshell_pallas beside their library calls;
 14. bench-pack: ``stencil_tpu_torch.bin.bench_pack.main`` in-process at
     ``--size 512`` (518^3 f32, radius 3) on the ``pallas`` backend (the slab
     kernels; exactly the launches bench-pack makes, counters reset before
@@ -98,7 +99,8 @@ non-zero before the result line:
     held bitwise against their plain versions and timed beside their bound,
     plain versions and the one PyTorch call that makes the same copy
     (``.contiguous()`` of the box, ``copy_`` into it), both device ms a
-    launch back to back, the host µs a call of the unpack and its ``copy_``,
+    launch back to back, the host µs a call of each kernel and its library
+    call,
     and ``make_pack_fn`` (the uint8 buffer) against ``make_pack_fn_pallas``;
 15. the mean6 kernels at full width, one 512^3 f32 subdomain with a radius-3
     shell (518^3 raw, the Astaroth proxy's geometry) of a periodic
@@ -1269,13 +1271,14 @@ def main() -> int:
     # a launch's device time.  In the route: the profile's kernel time an
     # iteration over the launches an iteration (the window cold in L2; the
     # kernels are zshell_kernel <T, true> packing and <T, false> unpacking,
-    # ypack_kernel and yshell_kernel <T, false>).  Back to back on one block
+    # yshell_rows_kernel <T, true> and <T, false>).  Back to back on one block
     # the window stays in L2, and CUDA events between calls count the host's
     # issue time.
     route_prof = routes_13["yzpack_pallas"]["profile"]["kernels_ms_per_step"]
     kernel_names = {"pack_zshell_pallas": ("zshell_kernel<", ", true>"),
                     "unpack_zshell_pallas": ("zshell_kernel<", ", false>"),
-                    "pack_yshell_pallas": ("ypack_kernel<", ""), "unpack_yshell_pallas": ("yshell_kernel<", ", false>")}
+                    "pack_yshell_pallas": ("yshell_rows_kernel<", ", true>"),
+                    "unpack_yshell_pallas": ("yshell_rows_kernel<", ", false>")}
     pack_dev_ms, pack_hot_ms, pack_lib_dev_ms = {}, {}, {}
     for name, fns in pack_cases.items():
         tag, form = kernel_names[name]
@@ -1289,6 +1292,8 @@ def main() -> int:
     ypack_host_us = {kind: host_us_per_call(fn) for kind, fn in
                      (("kernel", pack_cases["pack_yshell_pallas"][0]), ("library", pack_cases["pack_yshell_pallas"][2]),
                       ("copy_", ycopy))}
+    yunpack_host_us = {kind: host_us_per_call(pack_cases["unpack_yshell_pallas"][i])
+                       for kind, i in (("kernel", 0), ("copy_", 2))}
     pack_bytes = 2 * zbuf.numel() * 4  # the window read once and written once
     log("shell packs at (8,{0},{0},{0}) f32 depth 3 (ms: kernel, plain, copy_): ".format(ps)
         + ", ".join(f"{k}: {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in pack_ms.items()) + "; device ms a "
@@ -1297,6 +1302,7 @@ def main() -> int:
                                                     for k, v in pack_hot_ms.items())
         + f"; pack_yshell_pallas against the allocating pack_yshell_xla, copy_ {ycopy_ms:.4f} ms, "
         f"{ycopy_dev_ms:.4f} device; host µs a call: " + ", ".join(f"{k} {v:.2f}" for k, v in ypack_host_us.items())
+        + "; unpack_yshell_pallas host µs a call: " + ", ".join(f"{k} {v:.2f}" for k, v in yunpack_host_us.items())
         + f" on {card}")
     del pk_blocks, zbuf, ybuf, pack_cases, ycopy
     torch.cuda.empty_cache()
@@ -1366,16 +1372,16 @@ def main() -> int:
             kind: dict(zip(("kernel", "plain", "library"), (cuda_ms(f) for f in fs)),
                        device=device_ms_per_call(fs[0], calls=20), library_device=device_ms_per_call(fs[2], calls=20))
             for kind, fs in fns.items()}
-        slab_face[str(d)]["unpack"]["host_us"] = {"kernel": host_us_per_call(fns["unpack"][0]),
-                                                  "library": host_us_per_call(fns["unpack"][2])}
+        for kind, fs in fns.items():
+            slab_face[str(d)][kind]["host_us"] = {"kernel": host_us_per_call(fs[0]), "library": host_us_per_call(fs[2])}
         slab_face[str(d)]["make_pack_fn"] = cuda_ms(lambda: pack_x([bp_block]))
         slab_face[str(d)]["make_pack_fn_pallas"] = cuda_ms(lambda: pack_p(bp_block))
     slab_bytes = 2 * N * N * 3 * 4  # the box read once and written once
     log(f"slab packs at {ws}^3 f32, radius 3, per face (ms: kernel, plain, library; device ms a launch: kernel, "
-        "library; unpack host µs a call: kernel, library): " + "; ".join(
+        "library; host µs a call: kernel, library): " + "; ".join(
         f"{d} " + ", ".join(f"{k} {v['kernel']:.4f}, {v['plain']:.4f}, {v['library']:.4f}; {v['device']:.4f}, "
-                            f"{v['library_device']:.4f}" for k, v in f.items() if k in ("pack", "unpack"))
-        + f"; {f['unpack']['host_us']['kernel']:.2f}, {f['unpack']['host_us']['library']:.2f}"
+                            f"{v['library_device']:.4f}; {v['host_us']['kernel']:.2f}, {v['host_us']['library']:.2f}"
+                            for k, v in f.items() if k in ("pack", "unpack"))
         + f"; make_pack_fn {f['make_pack_fn']:.4f}, make_pack_fn_pallas {f['make_pack_fn_pallas']:.4f}"
         for d, f in slab_face.items()) + f" on {card}")
     del bp_block, slab
@@ -1536,11 +1542,11 @@ def main() -> int:
                             library_device_ms=pack_lib_dev_ms[name])
         if name.endswith("_slab") and name.startswith("pallas_"):
             face = slab_face[str(bp.FACES[2])][name.split("_")[1]]
-            rows[-1].update(device_ms=face["device"], library_device_ms=face["library_device"])
-            if "host_us" in face:
-                rows[-1]["host_us"] = face["host_us"]
+            rows[-1].update(device_ms=face["device"], library_device_ms=face["library_device"], host_us=face["host_us"])
         if name == "pack_yshell_pallas":
             rows[-1]["host_us"] = ypack_host_us
+        if name == "unpack_yshell_pallas":
+            rows[-1]["host_us"] = yunpack_host_us
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1558,6 +1564,7 @@ def main() -> int:
                                       device_back_to_back=pack_hot_ms[k], library_device=pack_lib_dev_ms[k])
                               for k, v in pack_ms.items()},
             "pack_yshell_copy_": {"ms": ycopy_ms, "device_ms": ycopy_dev_ms, "host_us": ypack_host_us},
+            "unpack_yshell_host_us": yunpack_host_us,
             "blend_slab_dynamic_ms": {"kernel": dyn_ms, "plain": dyn_plain_ms, "scatter_": dyn_lib_ms},
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
                        "wavefront_zring_mcells_per_s": wave_mcells,

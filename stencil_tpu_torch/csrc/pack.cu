@@ -4,36 +4,27 @@
 // The slab packs of bench-pack and make_pack_fn_pallas take one block
 // (X, Y, Z) and a box at (px, py, pz) of extent (ex, ey, ez):
 //
-//   stp_pack_slab         replaces stencil_tpu/ops/pack.py:197 pallas_pack_slab:
+//   stp_pack_slab_desc    replaces stencil_tpu/ops/pack.py:197 pallas_pack_slab:
 //                         slab[i, j, k] = block[px + i, py + j, pz + k]
 //   stp_unpack_slab_desc  replaces stencil_tpu/ops/pack.py:225 pallas_unpack_slab:
 //                         block[px + i, py + j, pz + k] = slab[i, j, k], in place
-//                         (its own kernels: "The descriptor entries" below)
 //
 // The TPU kernels DMA whole x-planes into VMEM and cut the window there (an
 // HBM DMA must not cut the (8,128) tiling); the port keeps the box copy, the
 // reference's grid_pack / grid_unpack (pack_kernel.cuh:16-40, copy.cuh:26-64).
-// Bound on an H100 SXM: bytes, the box read once and written once.  Design of
-// the pack (the unpack's is below): one thread per slab element, the slab walked in its C order, so a warp
-// covers consecutive z (then y) cells: the slab side always coalesces, and
-// the block side does for the x and y faces; on a z face (ez = 3 at radius 3)
-// each (x, y) of the block is an ez-wide run, a 32-byte sector for ez *
-// itemsize wanted bytes, the cost the z shell packs pay too (PERF.md).  The
-// slab index is 32-bit (the wrapper refuses 2^31 cells), block offsets
-// 64-bit.
+// Both go through the descriptor entries (below), as does the y-shell pair.
 //
 // The shell packs of the packed exchange routes each take n blocks
 // (n, X, Y, Z) and a window of `depth` cells starting at `start` on one axis:
 //
-//   stp_pack_zshell    replaces stencil_tpu/ops/pack.py:331 pack_zshell_pallas:
-//                      buf[b, k, y, x] = block[b, x, y, start + k]
-//   stp_unpack_zshell  replaces stencil_tpu/ops/pack.py:358 unpack_zshell_pallas:
-//                      block[b, x, y, start + k] = buf[b, k, y, x], in place
-//   stp_pack_yshell_desc  replaces stencil_tpu/ops/pack.py:422 pack_yshell_pallas:
-//                         buf[b, k, x, z] = block[b, x, start + k, z]
-//                         (its own kernel: "The descriptor entries" below)
-//   stp_unpack_yshell  replaces stencil_tpu/ops/pack.py:449 unpack_yshell_pallas:
-//                      block[b, x, start + k, z] = buf[b, k, x, z], in place
+//   stp_pack_zshell         replaces stencil_tpu/ops/pack.py:331 pack_zshell_pallas:
+//                           buf[b, k, y, x] = block[b, x, y, start + k]
+//   stp_unpack_zshell       replaces stencil_tpu/ops/pack.py:358 unpack_zshell_pallas:
+//                           block[b, x, y, start + k] = buf[b, k, y, x], in place
+//   stp_pack_yshell_desc    replaces stencil_tpu/ops/pack.py:422 pack_yshell_pallas:
+//                           buf[b, k, x, z] = block[b, x, start + k, z]
+//   stp_unpack_yshell_desc  replaces stencil_tpu/ops/pack.py:449 unpack_yshell_pallas:
+//                           block[b, x, start + k, z] = buf[b, k, x, z], in place
 //
 // The TPU kernels stream whole x-planes through VMEM only so that no DMA cuts
 // the (8,128) tiling; they compute the window copy above, and that is all the
@@ -44,21 +35,20 @@
 // without the TPU's lane padding of X.
 //
 // Bound on an H100 SXM: bytes, the window read once and written once, 2 * n *
-// depth * (the other two extents) * itemsize.  Design of the z pair and the y
-// unpack (the y pack's is below): one warp per row, a row
-// being a run of the window that the warp walks 32 elements at a time, with
-// kUnroll loads in flight before their stores.  y shell: a row is (b, k, x),
-// Z cells contiguous on both sides, so loads and stores coalesce.  z shell: a
-// row is (b, y), its X * depth cells in the block's order (x, then k), so
-// consecutive lanes touch the depth consecutive cells of one z run of the
-// block and the next x's; the buffer side reads (or writes) depth x-runs of
-// about 32 / depth cells each.  A z window costs a 32-byte sector per (x, y)
-// of the block whatever the kernel does (depth * itemsize bytes of it are
-// wanted, and an unpack writes the sector in part), so a shared-memory
-// transpose would gain nothing here; what counts is that a warp's store covers
-// each sector's depth cells at once (a lane per x looping over k stores each
-// sector depth times, and measured about twice as slow on the unpack:
-// PERF.md).  Row bases are 64-bit; a row's run fits an int.
+// depth * (the other two extents) * itemsize.  Design of the z pair, whose
+// entries take every argument per call (the y pair's design is below): one
+// warp per row, a row (b, y) being the X * depth cells of the window in the
+// block's order (x, then k), walked 32 elements at a time with kUnroll loads
+// in flight before their stores.  Consecutive lanes touch the depth
+// consecutive cells of one z run of the block and the next x's; the buffer
+// side reads (or writes) depth x-runs of about 32 / depth cells each.  A z
+// window costs a 32-byte sector per (x, y) of the block whatever the kernel
+// does (depth * itemsize bytes of it are wanted, and an unpack writes the
+// sector in part), so a shared-memory transpose would gain nothing here; what
+// counts is that a warp's store covers each sector's depth cells at once (a
+// lane per x looping over k stores each sector depth times, and measured about
+// twice as slow on the unpack: PERF.md).  Row bases are 64-bit; a row's run
+// fits an int.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,18 +74,11 @@ struct ZRow {
   }
 };
 
-// Element i of a y-shell row (b, k, x): z = i on both sides.
-struct YRow {
-  int64_t block, buf;
-  __device__ int64_t block_at(int i) const { return block + i; }
-  __device__ int64_t buf_at(int i) const { return buf + i; }
-};
-
-// One row's run of `run` elements, walked by the 32 lanes of a warp.
+// One z-shell row's run of `run` elements, walked by the 32 lanes of a warp.
 // kPack: block -> buf; otherwise buf -> block.
-template <typename T, bool kPack, typename Row>
-__device__ __forceinline__ void copy_row(T* __restrict__ block, T* __restrict__ buf, const Row& r,
-                                         int run, int lane) {
+template <typename T, bool kPack>
+__device__ __forceinline__ void copy_row(T* __restrict__ block, T* __restrict__ buf, const ZRow& r, int run,
+                                         int lane) {
   for (int i0 = lane; i0 < run; i0 += 32 * kUnroll) {
     T v[kUnroll];
 #pragma unroll
@@ -131,27 +114,11 @@ __global__ void zshell_kernel(T* __restrict__ block, T* __restrict__ buf, int64_
   }
 }
 
-template <typename T, bool kPack>
-__global__ void yshell_kernel(T* __restrict__ block, T* __restrict__ buf, int64_t rows, int64_t X,
-                              int64_t Y, int64_t Z, int64_t start, int depth) {
-  const int lane = threadIdx.x & 31;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += (int64_t)gridDim.x * kWarps) {
-    // row = (b * depth + k) * X + x, the buffer's row order
-    const int64_t x = row % X;
-    const int64_t bk = row / X;
-    const int64_t k = bk % depth;
-    const int64_t b = bk / depth;
-    const YRow r{((b * X + x) * Y + start + k) * Z, row * Z};
-    copy_row<T, kPack>(block, buf, r, (int)Z, lane);
-  }
-}
-
 template <typename T>
-int launch(bool z, bool pack, void* block, void* buf, int64_t n, int64_t X, int64_t Y, int64_t Z,
-           int64_t start, int64_t depth, cudaStream_t stream) {
-  const int64_t rows = z ? n * Y : n * depth * X;
-  if ((z ? X * depth : Z) > INT32_MAX) return -1;  // a row's run is an int
+int launch_zshell(bool pack, void* block, void* buf, int64_t n, int64_t X, int64_t Y, int64_t Z,
+                  int64_t start, int64_t depth, cudaStream_t stream) {
+  const int64_t rows = n * Y;
+  if (X * depth > INT32_MAX) return -1;  // a row's run is an int
   if (rows == 0 || X == 0 || Z == 0 || depth == 0) return 0;
   int64_t blocks = (rows + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -159,91 +126,39 @@ int launch(bool z, bool pack, void* block, void* buf, int64_t n, int64_t X, int6
   T* bl = (T*)block;
   T* bu = (T*)buf;
   const int d = (int)depth;
-  if (z && pack) zshell_kernel<T, true><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
-  if (z && !pack) zshell_kernel<T, false><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
-  if (!z && pack) yshell_kernel<T, true><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
-  if (!z && !pack) yshell_kernel<T, false><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
-  return (int)cudaGetLastError();
-}
-
-constexpr int kSlabThreads = 256;
-
-// kPack: block -> slab; otherwise slab -> block.  i runs over the slab in
-// C order; total < 2^31, so i + the grid stride stays below 2^32.
-template <typename T, bool kPack>
-__global__ void slab_kernel(T* __restrict__ block, T* __restrict__ slab, unsigned total, unsigned ey,
-                            unsigned ez, int64_t Y, int64_t Z, int64_t px, int64_t py, int64_t pz) {
-  for (unsigned i = blockIdx.x * kSlabThreads + threadIdx.x; i < total; i += gridDim.x * kSlabThreads) {
-    const unsigned row = i / ez;  // (x, y) of the slab
-    const unsigned k = i - row * ez;
-    const unsigned x = row / ey;
-    const unsigned j = row - x * ey;
-    const int64_t at = ((px + x) * Y + py + j) * Z + pz + k;
-    if (kPack) {
-      slab[i] = block[at];
-    } else {
-      block[at] = slab[i];
-    }
-  }
-}
-
-template <typename T>
-int launch_slab(bool pack, void* block, void* slab, int64_t Y, int64_t Z, int64_t px, int64_t py,
-                int64_t pz, int64_t ex, int64_t ey, int64_t ez, cudaStream_t stream) {
-  const int64_t total = ex * ey * ez;
-  if (total >= INT32_MAX) return -1;
-  if (total == 0) return 0;
-  int64_t blocks = (total + kSlabThreads - 1) / kSlabThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  T* bl = (T*)block;
-  T* sl = (T*)slab;
-  const unsigned t = (unsigned)total;
   if (pack) {
-    slab_kernel<T, true><<<(unsigned)blocks, kSlabThreads, 0, stream>>>(bl, sl, t, (unsigned)ey,
-                                                                        (unsigned)ez, Y, Z, px, py, pz);
+    zshell_kernel<T, true><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
   } else {
-    slab_kernel<T, false><<<(unsigned)blocks, kSlabThreads, 0, stream>>>(bl, sl, t, (unsigned)ey,
-                                                                         (unsigned)ez, Y, Z, px, py, pz);
+    zshell_kernel<T, false><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
   }
   return (int)cudaGetLastError();
 }
 
-int dispatch_slab(bool pack, void* block, void* slab, int itemsize, int64_t X, int64_t Y, int64_t Z,
-                  int64_t px, int64_t py, int64_t pz, int64_t ex, int64_t ey, int64_t ez,
-                  void* stream) {
-  if (px < 0 || py < 0 || pz < 0 || px + ex > X || py + ey > Y || pz + ez > Z) return -1;
+int dispatch_zshell(bool pack, void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
+                    int64_t Z, int64_t start, int64_t depth, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (itemsize) {
-    case 1: return launch_slab<uint8_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
-    case 2: return launch_slab<uint16_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
-    case 4: return launch_slab<uint32_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
-    case 8: return launch_slab<uint64_t>(pack, block, slab, Y, Z, px, py, pz, ex, ey, ez, s);
+    case 1: return launch_zshell<uint8_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
+    case 2: return launch_zshell<uint16_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
+    case 4: return launch_zshell<uint32_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
+    case 8: return launch_zshell<uint64_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
     default: return -1;
   }
 }
 
-int dispatch(bool z, bool pack, void* block, void* buf, int itemsize, int64_t n, int64_t X,
-             int64_t Y, int64_t Z, int64_t start, int64_t depth, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (itemsize) {
-    case 1: return launch<uint8_t>(z, pack, block, buf, n, X, Y, Z, start, depth, s);
-    case 2: return launch<uint16_t>(z, pack, block, buf, n, X, Y, Z, start, depth, s);
-    case 4: return launch<uint32_t>(z, pack, block, buf, n, X, Y, Z, start, depth, s);
-    case 8: return launch<uint64_t>(z, pack, block, buf, n, X, Y, Z, start, depth, s);
-    default: return -1;
-  }
-}
-
-// --- The descriptor entries: pallas_unpack_slab and pack_yshell_pallas -------
+// --- The descriptor entries: both slab packs and the y-shell pair -------------
 //
-// Each takes the address of a host array of int64 fields that the wrapper
-// builds once per geometry and caches (ops/pack.py), the two data pointers and
-// the stream: four arguments, so that the call costs no more host time than a
-// PyTorch copy.  The fields are read here, on the host, and reach the kernel by
-// value; the pointers' alignment is read per call, never cached.
+// pallas_pack_slab, pallas_unpack_slab, pack_yshell_pallas and
+// unpack_yshell_pallas.  Each entry takes the address of a host array of int64
+// fields that the wrapper builds once per geometry and caches (ops/pack.py),
+// the two data pointers and the stream: four arguments, so that the call costs
+// no more host time than a PyTorch copy.  The fields are read here, on the
+// host, and reach the kernel by value; the pointers' alignment is read per
+// call, never cached.  A pack and an unpack of one geometry share a
+// descriptor, and each pair shares its kernels, templated on the direction.
 //
-// Both copy rows that are contiguous on both sides.  A row goes to one warp:
-// a head of elements up to the destination's next 16-byte boundary, then
+// Both pairs copy rows that are contiguous on both sides.  A row goes to one
+// warp: a head of elements up to the destination's next 16-byte boundary, then
 // 16-byte stores, each vector loaded in the widest words that the source's
 // alignment relative to the destination allows (16 bytes where the two rows
 // share their alignment, else 8, 4, 2 or 1), kRowUnroll vectors in flight a
@@ -251,21 +166,26 @@ int dispatch(bool z, bool pack, void* block, void* buf, int itemsize, int64_t n,
 // 16-byte strides, and a 518-wide f32 row is 2,072 B and a 262-wide one
 // 1,048 B, both 8 mod 16.
 //
-// pack_yshell_pallas: a row is (b, k, x), Z cells, the buffer's row order;
-// the destination is the buffer.  At the route's (8, 262, 262, 262) f32 depth
-// 3 that is 6,288 rows of 1,048 B, 786 blocks of 8 warps, one wave on 132 SMs.
+// The y shell: a row is (b, k, x), Z cells, the buffer's row order; the
+// destination is the buffer (pack) or the block's row in the window (unpack),
+// and nothing outside the window is written.  At the route's (8, 262, 262,
+// 262) f32 depth 3 that is 6,288 rows of 1,048 B, 786 blocks of 8 warps, one
+// wave on 132 SMs.
 //
-// pallas_unpack_slab: the destination is the block.  A slab row of ez cells of
-// at least kRowBytes bytes (the x and y faces) goes to a warp as above.
-// Shorter rows (the z face's 12-byte ez = 3 runs) go to the cell kernel: a
-// block stages kStageBytes of the slab in shared memory (16-byte loads when the
-// slab's pointer is 16-byte aligned, else element loads), all loads issued
-// before any store, then stores one cell a lane in the slab's C order, so a
-// warp-wide store covers each 32-byte sector of the block once.  A cell's (i,
-// j, k) comes from two multiply-high divisions, not a runtime divide.  Bound:
-// bytes, the slab read once and the box written once; but on the z face each
-// 12-byte run fills part of a sector, and that sector traffic, which no order
-// of the stores avoids, sets the time (PERF.md).
+// The slab: a slab row of ez cells of at least kRowBytes bytes (the x and y
+// faces) goes to a warp as above, the slab row the destination of a pack and
+// the block's row that of an unpack.  Shorter rows (the z face's 12-byte
+// ez = 3 runs) go to the cell kernel, which moves kStageBytes of the slab a
+// block at once through shared memory, a cell a lane in the slab's C order on
+// the block's side, so that a warp-wide access covers each 32-byte sector of
+// the block once, and whole 16-byte words on the slab's side when its pointer
+// is 16-byte aligned (else elements).  A pack gathers the block's cells,
+// kUnroll loads in flight a lane, then writes the slab; an unpack loads the
+// slab, then scatters its cells.  A cell's (i, j, k) comes from two
+// multiply-high divisions, not a runtime divide.  Bound: bytes, the box read
+// once and written once; but on the z face each 12-byte run fills part of a
+// sector, and that sector traffic, which no order of the accesses avoids, sets
+// the time (PERF.md).
 
 constexpr int kRowWarps = 8;       // rows per block in the row kernels
 constexpr int kRowUnroll = 4;      // 16-byte vectors in flight a lane
@@ -367,129 +287,128 @@ struct SlabGeom {
   int64_t Y, Z, base;
   uint32_t ey, ez, rows, total;
   FastDiv by_ey, by_ez;
+  // the block offset of slab cell `cell` (C order on (i, j, k))
+  __device__ __forceinline__ int64_t at(uint32_t cell) const {
+    const uint32_t row = by_ez.div(cell);
+    const uint32_t k = cell - row * ez;
+    const uint32_t i = by_ey.div(row);
+    const uint32_t j = row - i * ey;
+    return base + ((int64_t)i * Y + j) * Z + k;
+  }
 };
 
-template <typename T>
-__global__ void unpack_slab_rows_kernel(T* __restrict__ block, const T* __restrict__ slab, SlabGeom g) {
+// kPack: block -> slab; otherwise slab -> block.
+template <typename T, bool kPack>
+__global__ void slab_rows_kernel(T* __restrict__ block, T* __restrict__ slab, SlabGeom g) {
   const int lane = threadIdx.x & 31;
+  const int bytes = (int)(g.ez * sizeof(T));
   for (uint32_t row = blockIdx.x * kRowWarps + (threadIdx.x >> 5); row < g.rows; row += gridDim.x * kRowWarps) {
     const uint32_t i = g.by_ey.div(row);
     const uint32_t j = row - i * g.ey;
-    T* dst = block + g.base + ((int64_t)i * g.Y + j) * g.Z;
-    warp_copy_row<T>(reinterpret_cast<char*>(dst), reinterpret_cast<const char*>(slab + (int64_t)row * g.ez),
-                     (int)(g.ez * sizeof(T)), lane);
+    char* in_block = reinterpret_cast<char*>(block + g.base + ((int64_t)i * g.Y + j) * g.Z);
+    char* in_slab = reinterpret_cast<char*>(slab + (int64_t)row * g.ez);
+    if (kPack) {
+      warp_copy_row<T>(in_slab, in_block, bytes, lane);
+    } else {
+      warp_copy_row<T>(in_block, in_slab, bytes, lane);
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kPack>
 __global__ void __launch_bounds__(kCellThreads)
-    unpack_slab_cells_kernel(T* __restrict__ block, const T* __restrict__ slab, SlabGeom g, int vec) {
+    slab_cells_kernel(T* __restrict__ block, T* __restrict__ slab, SlabGeom g, int vec) {
   constexpr int kCells = kStageBytes / (int)sizeof(T);  // cells a block stages
   constexpr int kVecs = kStageBytes / 16 / kCellThreads;
   constexpr int kPer = kCells / kCellThreads;
+  static_assert(kPer % kUnroll == 0, "a lane's cells come in kUnroll loads at a time");
   __shared__ uint4 stage[kStageBytes / 16];
   T* cells = reinterpret_cast<T*>(stage);
   const int t = threadIdx.x;
   for (uint32_t c0 = blockIdx.x * kCells; c0 < g.total; c0 += gridDim.x * kCells) {
     const uint32_t n = g.total - c0 < (uint32_t)kCells ? g.total - c0 : (uint32_t)kCells;
-    if (vec && n == (uint32_t)kCells) {
-      const uint4* src = reinterpret_cast<const uint4*>(slab + c0);
-      uint4 r[kVecs];
+    const bool whole = vec && n == (uint32_t)kCells;
+    if (kPack) {
+      // gather the block's cells in the slab's order, then write the slab
+      for (int u0 = 0; u0 < kPer; u0 += kUnroll) {
+        T r[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kVecs; ++u) r[u] = src[t + u * kCellThreads];
+        for (int u = 0; u < kUnroll; ++u) {
+          const uint32_t e = t + (u0 + u) * kCellThreads;
+          if (e < n) r[u] = block[g.at(c0 + e)];
+        }
 #pragma unroll
-      for (int u = 0; u < kVecs; ++u) stage[t + u * kCellThreads] = r[u];
+        for (int u = 0; u < kUnroll; ++u) {
+          const uint32_t e = t + (u0 + u) * kCellThreads;
+          if (e < n) cells[e] = r[u];
+        }
+      }
+      __syncthreads();
+      if (whole) {
+        uint4* dst = reinterpret_cast<uint4*>(slab + c0);
+#pragma unroll
+        for (int u = 0; u < kVecs; ++u) dst[t + u * kCellThreads] = stage[t + u * kCellThreads];
+      } else {
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const uint32_t e = t + u * kCellThreads;
+          if (e < n) slab[c0 + e] = cells[e];
+        }
+      }
     } else {
-      T r[kPer];
+      // stage the slab, all loads before any store, then scatter its cells
+      if (whole) {
+        const uint4* src = reinterpret_cast<const uint4*>(slab + c0);
+        uint4 r[kVecs];
 #pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const uint32_t e = t + u * kCellThreads;
-        if (e < n) r[u] = slab[c0 + e];
-      }
+        for (int u = 0; u < kVecs; ++u) r[u] = src[t + u * kCellThreads];
 #pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const uint32_t e = t + u * kCellThreads;
-        if (e < n) cells[e] = r[u];
+        for (int u = 0; u < kVecs; ++u) stage[t + u * kCellThreads] = r[u];
+      } else {
+        T r[kPer];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const uint32_t e = t + u * kCellThreads;
+          if (e < n) r[u] = slab[c0 + e];
+        }
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const uint32_t e = t + u * kCellThreads;
+          if (e < n) cells[e] = r[u];
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 #pragma unroll 8
-    for (int u = 0; u < kPer; ++u) {
-      const uint32_t e = t + u * kCellThreads;
-      if (e < n) {
-        const uint32_t cell = c0 + e;
-        const uint32_t row = g.by_ez.div(cell);
-        const uint32_t k = cell - row * g.ez;
-        const uint32_t i = g.by_ey.div(row);
-        const uint32_t j = row - i * g.ey;
-        block[g.base + ((int64_t)i * g.Y + j) * g.Z + k] = cells[e];
+      for (int u = 0; u < kPer; ++u) {
+        const uint32_t e = t + u * kCellThreads;
+        if (e < n) block[g.at(c0 + e)] = cells[e];
       }
     }
     __syncthreads();
   }
 }
 
-template <typename T>
-int launch_unpack_slab(const SlabGeom& g, void* block, const void* slab, cudaStream_t stream) {
+template <typename T, bool kPack>
+int launch_slab(const SlabGeom& g, void* block, void* slab, cudaStream_t stream) {
   T* bl = (T*)block;
-  const T* sl = (const T*)slab;
+  T* sl = (T*)slab;
   if ((int64_t)g.ez * (int64_t)sizeof(T) >= kRowBytes) {
     int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    unpack_slab_rows_kernel<T><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
+    slab_rows_kernel<T, kPack><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
   } else {
     constexpr int64_t kCells = kStageBytes / sizeof(T);
     int64_t blocks = ((int64_t)g.total + kCells - 1) / kCells;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     const int vec = (reinterpret_cast<uintptr_t>(slab) & 15) == 0;
-    unpack_slab_cells_kernel<T><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
+    slab_cells_kernel<T, kPack><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
   }
   return (int)cudaGetLastError();
-}
-
-// The y-shell window: strides, the window, rows (b, k, x) and divisions by X
-// and depth.
-struct YGeom {
-  int64_t X, Y, Z, y0;
-  uint32_t rows, depth;
-  FastDiv by_x, by_depth;
-};
-
-template <typename T>
-__global__ void ypack_kernel(const T* __restrict__ block, T* __restrict__ buf, YGeom g) {
-  const int lane = threadIdx.x & 31;
-  for (uint32_t row = blockIdx.x * kRowWarps + (threadIdx.x >> 5); row < g.rows; row += gridDim.x * kRowWarps) {
-    const uint32_t bk = g.by_x.div(row);  // row = (b * depth + k) * X + x
-    const uint32_t x = row - bk * (uint32_t)g.X;
-    const uint32_t b = g.by_depth.div(bk);
-    const uint32_t k = bk - b * g.depth;
-    const T* src = block + (((int64_t)b * g.X + x) * g.Y + g.y0 + k) * g.Z;
-    warp_copy_row<T>(reinterpret_cast<char*>(buf + (int64_t)row * g.Z), reinterpret_cast<const char*>(src),
-                     (int)(g.Z * (int64_t)sizeof(T)), lane);
-  }
-}
-
-template <typename T>
-int launch_ypack(const YGeom& g, const void* block, void* buf, cudaStream_t stream) {
-  int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  ypack_kernel<T><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>((const T*)block, (T*)buf, g);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// Each returns a cudaError_t, or -1 for an itemsize the kernels do not take
-// (or a row longer than an int counts, or a box that leaves the block).
-int stp_pack_slab(void* block, void* slab, int itemsize, int64_t X, int64_t Y, int64_t Z, int64_t px,
-                  int64_t py, int64_t pz, int64_t ex, int64_t ey, int64_t ez, void* stream) {
-  return dispatch_slab(true, block, slab, itemsize, X, Y, Z, px, py, pz, ex, ey, ez, stream);
 }
 
 // desc: itemsize, X, Y, Z, px, py, pz, ex, ey, ez (ops/pack.py SLAB_DESC_FIELDS)
-int stp_unpack_slab_desc(const int64_t* desc, void* block, const void* slab, void* stream) {
+template <bool kPack>
+int slab_desc(const int64_t* desc, void* block, void* slab, void* stream) {
   const int64_t itemsize = desc[0], X = desc[1], Y = desc[2], Z = desc[3];
   const int64_t px = desc[4], py = desc[5], pz = desc[6], ex = desc[7], ey = desc[8], ez = desc[9];
   if (px < 0 || py < 0 || pz < 0 || ex < 0 || ey < 0 || ez < 0 || px + ex > X || py + ey > Y || pz + ez > Z)
@@ -509,26 +428,53 @@ int stp_unpack_slab_desc(const int64_t* desc, void* block, const void* slab, voi
   g.by_ez.init(g.ez);
   cudaStream_t s = (cudaStream_t)stream;
   switch (itemsize) {
-    case 1: return launch_unpack_slab<uint8_t>(g, block, slab, s);
-    case 2: return launch_unpack_slab<uint16_t>(g, block, slab, s);
-    case 4: return launch_unpack_slab<uint32_t>(g, block, slab, s);
-    case 8: return launch_unpack_slab<uint64_t>(g, block, slab, s);
+    case 1: return launch_slab<uint8_t, kPack>(g, block, slab, s);
+    case 2: return launch_slab<uint16_t, kPack>(g, block, slab, s);
+    case 4: return launch_slab<uint32_t, kPack>(g, block, slab, s);
+    case 8: return launch_slab<uint64_t, kPack>(g, block, slab, s);
     default: return -1;
   }
 }
 
-int stp_pack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                    int64_t Z, int64_t z0, int64_t depth, void* stream) {
-  return dispatch(true, true, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
+// The y-shell window: strides, the window, rows (b, k, x) and divisions by X
+// and depth.
+struct YGeom {
+  int64_t X, Y, Z, y0;
+  uint32_t rows, depth;
+  FastDiv by_x, by_depth;
+};
+
+// kPack: block -> buf; otherwise buf -> block.
+template <typename T, bool kPack>
+__global__ void yshell_rows_kernel(T* __restrict__ block, T* __restrict__ buf, YGeom g) {
+  const int lane = threadIdx.x & 31;
+  const int bytes = (int)(g.Z * (int64_t)sizeof(T));
+  for (uint32_t row = blockIdx.x * kRowWarps + (threadIdx.x >> 5); row < g.rows; row += gridDim.x * kRowWarps) {
+    const uint32_t bk = g.by_x.div(row);  // row = (b * depth + k) * X + x
+    const uint32_t x = row - bk * (uint32_t)g.X;
+    const uint32_t b = g.by_depth.div(bk);
+    const uint32_t k = bk - b * g.depth;
+    char* in_block = reinterpret_cast<char*>(block + (((int64_t)b * g.X + x) * g.Y + g.y0 + k) * g.Z);
+    char* in_buf = reinterpret_cast<char*>(buf + (int64_t)row * g.Z);
+    if (kPack) {
+      warp_copy_row<T>(in_buf, in_block, bytes, lane);
+    } else {
+      warp_copy_row<T>(in_block, in_buf, bytes, lane);
+    }
+  }
 }
 
-int stp_unpack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                      int64_t Z, int64_t z0, int64_t depth, void* stream) {
-  return dispatch(true, false, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
+template <typename T, bool kPack>
+int launch_yshell(const YGeom& g, void* block, void* buf, cudaStream_t stream) {
+  int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  yshell_rows_kernel<T, kPack><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>((T*)block, (T*)buf, g);
+  return (int)cudaGetLastError();
 }
 
 // desc: itemsize, n, X, Y, Z, y0, depth (ops/pack.py YSHELL_DESC_FIELDS)
-int stp_pack_yshell_desc(const int64_t* desc, const void* block, void* buf, void* stream) {
+template <bool kPack>
+int yshell_desc(const int64_t* desc, void* block, void* buf, void* stream) {
   const int64_t itemsize = desc[0], n = desc[1], X = desc[2], Y = desc[3], Z = desc[4];
   const int64_t y0 = desc[5], depth = desc[6];
   if (n < 0 || X < 0 || Z < 0 || depth < 1 || y0 < 0 || y0 + depth > Y) return -1;
@@ -546,17 +492,45 @@ int stp_pack_yshell_desc(const int64_t* desc, const void* block, void* buf, void
   g.by_depth.init((uint32_t)depth);
   cudaStream_t s = (cudaStream_t)stream;
   switch (itemsize) {
-    case 1: return launch_ypack<uint8_t>(g, block, buf, s);
-    case 2: return launch_ypack<uint16_t>(g, block, buf, s);
-    case 4: return launch_ypack<uint32_t>(g, block, buf, s);
-    case 8: return launch_ypack<uint64_t>(g, block, buf, s);
+    case 1: return launch_yshell<uint8_t, kPack>(g, block, buf, s);
+    case 2: return launch_yshell<uint16_t, kPack>(g, block, buf, s);
+    case 4: return launch_yshell<uint32_t, kPack>(g, block, buf, s);
+    case 8: return launch_yshell<uint64_t, kPack>(g, block, buf, s);
     default: return -1;
   }
 }
 
-int stp_unpack_yshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                      int64_t Z, int64_t y0, int64_t depth, void* stream) {
-  return dispatch(false, false, block, buf, itemsize, n, X, Y, Z, y0, depth, stream);
+}  // namespace
+
+extern "C" {
+
+// Each returns a cudaError_t, or -1 for an itemsize the kernels do not take
+// (or a row longer than an int counts, or a box or window that leaves the
+// block).
+int stp_pack_slab_desc(const int64_t* desc, const void* block, void* slab, void* stream) {
+  return slab_desc<true>(desc, const_cast<void*>(block), slab, stream);
+}
+
+int stp_unpack_slab_desc(const int64_t* desc, void* block, const void* slab, void* stream) {
+  return slab_desc<false>(desc, block, const_cast<void*>(slab), stream);
+}
+
+int stp_pack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
+                    int64_t Z, int64_t z0, int64_t depth, void* stream) {
+  return dispatch_zshell(true, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
+}
+
+int stp_unpack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
+                      int64_t Z, int64_t z0, int64_t depth, void* stream) {
+  return dispatch_zshell(false, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
+}
+
+int stp_pack_yshell_desc(const int64_t* desc, const void* block, void* buf, void* stream) {
+  return yshell_desc<true>(desc, const_cast<void*>(block), buf, stream);
+}
+
+int stp_unpack_yshell_desc(const int64_t* desc, void* block, const void* buf, void* stream) {
+  return yshell_desc<false>(desc, block, const_cast<void*>(buf), stream);
 }
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

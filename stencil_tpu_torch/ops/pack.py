@@ -39,10 +39,11 @@ leaves every other cell of the block as it was.
 Each function takes one ``(X, Y, Z)`` block or ``n`` blocks ``(n, X, Y, Z)``
 with buffers ``(d, ·, ·)`` or ``(n, d, ·, ·)``; one launch serves all ``n``.
 
-``pallas_unpack_slab`` and ``pack_yshell_pallas`` launch through cached
-descriptors (``_unpack_slab_launch``, ``_pack_yshell_launch``): a geometry
-is checked once, and a call then costs about what a PyTorch copy costs on
-the host.  The other four kernels validate and pass every argument per call.
+``pallas_pack_slab``, ``pallas_unpack_slab``, ``pack_yshell_pallas`` and
+``unpack_yshell_pallas`` launch through cached descriptors, one a geometry
+that a pack and its unpack share (``_slab_launch``, ``_yshell_launch``): a
+geometry is checked once, and a call then costs about what a PyTorch copy
+costs on the host.  The z pair validates and passes every argument per call.
 
 The z buffer carries no lane padding: the TPU pads X to a multiple of 128
 (``lane_pad``, ``stencil_tpu/ops/pack.py:298-306``) for its (8,128) tiling,
@@ -60,7 +61,7 @@ import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.geometry import LocalSpec
-from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device, stream_handle
+from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device
 from stencil_tpu_torch.ops.halo_blend import supports
 
 # --- the message layout (stencil_tpu/ops/pack.py:73-126) -----------------------
@@ -174,16 +175,7 @@ def _check_slab(block: torch.Tensor, pos: Dim3, ext: Dim3, slab: torch.Tensor = 
         raise ValueError(f"slab shape {tuple(slab.shape)}, want {tuple(ext)}")
 
 
-def _launch_slab(fn: str, block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ext: Dim3) -> None:
-    from stencil_tpu_torch.kernels import build
-
-    lib = build.load("pack")
-    rc = getattr(lib, fn)(block.data_ptr(), slab.data_ptr(), block.element_size(), *block.shape, *pos, *ext,
-                          stream_handle(block.device))
-    build.check(lib, rc, fn)
-
-
-# --- the descriptor launch path (pallas_unpack_slab, pack_yshell_pallas) ----------
+# --- the descriptor launch path (the slab packs, the y-shell pair) ----------------
 #
 # A wrapper validates a geometry once and caches a launch for it: an int64
 # descriptor that its C entry reads on the host, the descriptor's address and
@@ -194,6 +186,7 @@ def _launch_slab(fn: str, block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ex
 # shape and dtype) and passes the data pointers and the stream anew, so the
 # kernel reads their alignment on every call.  The C entry takes four
 # arguments: the descriptor's address, the two data pointers and the stream.
+# A pack and an unpack of one geometry share its launch.
 
 #: the int64 fields of a descriptor, in the order the C entries read them
 SLAB_DESC_FIELDS = ("itemsize", "X", "Y", "Z", "px", "py", "pz", "ex", "ey", "ez")
@@ -219,9 +212,9 @@ def _remember(cache: dict, key, fields: Sequence[int], shape: tuple):
     return launch
 
 
-def _unpack_slab_launch(block: torch.Tensor, pos, ext):
-    """The cached launch of ``pallas_unpack_slab`` for this geometry:
-    ``(descriptor, its address, slab shape)``."""
+def _slab_launch(block: torch.Tensor, pos, ext):
+    """The cached launch of ``pallas_pack_slab`` and ``pallas_unpack_slab``
+    for this geometry: ``(descriptor, its address, slab shape)``."""
     key = (block.shape, block.dtype, pos, ext)
     try:
         return _SLAB_LAUNCHES[key]
@@ -232,9 +225,10 @@ def _unpack_slab_launch(block: torch.Tensor, pos, ext):
     return _remember(_SLAB_LAUNCHES, key, (block.element_size(), *block.shape, *pos, *ext), tuple(ext))
 
 
-def _pack_yshell_launch(block: torch.Tensor, y0: int, depth: int):
-    """The cached launch of ``pack_yshell_pallas`` for this geometry:
-    ``(descriptor, its address, buffer shape)``."""
+def _yshell_launch(block: torch.Tensor, y0: int, depth: int):
+    """The cached launch of ``pack_yshell_pallas`` and
+    ``unpack_yshell_pallas`` for this geometry: ``(descriptor, its address,
+    buffer shape)``."""
     key = (block.shape, block.dtype, y0, depth)
     try:
         return _YSHELL_LAUNCHES[key]
@@ -273,12 +267,16 @@ def pallas_pack_slab(block: torch.Tensor, pos: Dim3, ext: Dim3) -> torch.Tensor:
     """The box ``block[pos:pos+ext]`` of an ``(X, Y, Z)`` block as a new dense
     ``ext``-shaped tensor, C order on (x, y, z).  CUDA tensors launch the
     kernel (any 1/2/4/8-byte dtype); CPU tensors take the plain version."""
-    pos, ext = Dim3.of(pos), Dim3.of(ext)
-    _check_slab(block, pos, ext)
-    if block.device.type == "cpu":
-        return pallas_pack_slab_plain(block, pos, ext)
-    slab = torch.empty(tuple(ext), dtype=block.dtype, device=block.device)
-    _launch_slab("stp_pack_slab", block, slab, pos, ext)
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
+        return pallas_pack_slab_plain(block, Dim3.of(pos), Dim3.of(ext))
+    dev = block.device
+    _, addr, slab_shape = _slab_launch(block, pos, ext)
+    if not block.is_contiguous():
+        _check_slab(block, Dim3.of(pos), Dim3.of(ext))  # raises with the reason
+    slab = torch.empty(slab_shape, dtype=block.dtype, device=dev)
+    rc = _entry("stp_pack_slab_desc")[0](addr, block.data_ptr(), slab.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        _raise_launch("stp_pack_slab_desc", rc)
     pallas_pack_slab.launches += 1
     return slab
 
@@ -296,11 +294,9 @@ def pallas_unpack_slab(block: torch.Tensor, slab: torch.Tensor, pos: Dim3, ext: 
     box keeps its value.  CUDA tensors launch the kernel; CPU tensors take
     the plain version."""
     if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
-        pos, ext = Dim3.of(pos), Dim3.of(ext)
-        _check_slab(block, pos, ext, slab)
-        return pallas_unpack_slab_plain(block, slab, pos, ext)
+        return pallas_unpack_slab_plain(block, slab, Dim3.of(pos), Dim3.of(ext))
     dev = block.device
-    _, addr, slab_shape = _unpack_slab_launch(block, pos, ext)
+    _, addr, slab_shape = _slab_launch(block, pos, ext)
     if not (block.is_contiguous() and isinstance(slab, torch.Tensor) and slab.dtype == block.dtype
             and slab.shape == slab_shape and slab.is_contiguous() and slab.device == dev):
         _check_slab(block, Dim3.of(pos), Dim3.of(ext), slab)  # raises with the reason
@@ -399,7 +395,8 @@ def _check(block: torch.Tensor, axis: int, start: int, depth: int, buf: torch.Te
 
 
 def _launch(fn: str, block: torch.Tensor, buf: torch.Tensor, start: int, depth: int) -> None:
-    from stencil_tpu_torch.kernels import build
+    """Launch a z-shell kernel, every argument passed per call."""
+    from stencil_tpu_torch.kernels import build, stream_handle
 
     lib = build.load("pack")
     n = block.shape[0] if block.dim() == 4 else 1
@@ -458,10 +455,9 @@ def pack_yshell_pallas(block: torch.Tensor, y0: int, depth: int) -> torch.Tensor
     X, Z)`` buffer.  CUDA tensors launch the kernel (any 1/2/4/8-byte
     dtype); CPU tensors take the plain version."""
     if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
-        _check(block, 1, y0, depth)
         return pack_yshell_pallas_plain(block, y0, depth)
     dev = block.device
-    _, addr, buf_shape = _pack_yshell_launch(block, y0, depth)
+    _, addr, buf_shape = _yshell_launch(block, y0, depth)
     if not block.is_contiguous():
         _check(block, 1, y0, depth)  # raises with the reason
     buf = torch.empty(buf_shape, dtype=block.dtype, device=dev)
@@ -483,10 +479,16 @@ def unpack_yshell_pallas(block: torch.Tensor, buf: torch.Tensor, y0: int, depth:
     """Write a ``(..., depth, X, Z)`` buffer into ``block[..., y0:y0+depth,
     :]`` in place and return ``block``; no other cell changes.  CUDA tensors
     launch the kernel; CPU tensors take the plain version."""
-    _check(block, 1, y0, depth, buf)
-    if block.device.type == "cpu":
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return unpack_yshell_pallas_plain(block, buf, y0, depth)
-    _launch("stp_unpack_yshell", block, buf, y0, depth)
+    dev = block.device
+    _, addr, buf_shape = _yshell_launch(block, y0, depth)
+    if not (block.is_contiguous() and isinstance(buf, torch.Tensor) and buf.dtype == block.dtype
+            and buf.shape == buf_shape and buf.is_contiguous() and buf.device == dev):
+        _check(block, 1, y0, depth, buf)  # raises with the reason
+    rc = _entry("stp_unpack_yshell_desc")[0](addr, block.data_ptr(), buf.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        _raise_launch("stp_unpack_yshell_desc", rc)
     unpack_yshell_pallas.launches += 1
     return block
 

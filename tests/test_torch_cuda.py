@@ -261,7 +261,7 @@ def test_slab_pack_kernels_equal_plain(dev, dtype):
         assert (pk.pallas_pack_slab.launches, pk.pallas_unpack_slab.launches) == (before[0] + 1, before[1] + 1)
 
 
-# --- the descriptor launch path: pallas_unpack_slab and pack_yshell_pallas ------------
+# --- the descriptor launch path: the slab packs and the y-shell pair ------------------
 
 SWEEP_DTYPES = [torch.float32, torch.float64, torch.bfloat16, torch.uint8]
 
@@ -318,6 +318,55 @@ def test_pack_yshell_kernel_alignment_sweep(dev, dtype):
     assert pk.pack_yshell_pallas.launches == before + len(cases)
 
 
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_pack_slab_kernel_alignment_sweep(dev, dtype):
+    """Block rows that start at every offset mod 16 (an odd Z, every pz < 16,
+    shifted block pointers), ez of 1, 3, 4, 5, 300 and the rest of the row
+    (both sides of the row kernel's 512-byte threshold for every width);
+    then boxes of several staged chunks with a ragged last one."""
+    X, Y, Z = 4, 5, 521
+    cases = [((X, Y, Z), (px, py, pz), (ex, ey, ez), boff)
+             for pz in range(16) for ez in (1, 3, 4, 5, 300, Z - pz)
+             for px, py, ex, ey in ((1, 2, 2, 3), (0, 0, X, Y))
+             for boff in (0, 1, 3)]
+    cases += [((40, 41, 9), (2, 1, pz), (37, 39, ez), boff) for pz, ez in ((5, 3), (2, 6), (0, 9))
+              for boff in (0, 1)]
+    before = pk.pallas_pack_slab.launches
+    for i, (shape, pos, ext, boff) in enumerate(cases):
+        block = _at_offset(shape, dtype, boff, 30_000 + i, dev)
+        got = pk.pallas_pack_slab(block, pos, ext)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pk.pallas_pack_slab_plain(block, Dim3.of(pos), Dim3.of(ext))), (shape, pos, ext, boff)
+    assert pk.pallas_pack_slab.launches == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_unpack_yshell_kernel_alignment_sweep(dev, dtype):
+    """One block and three; Z of 1, 7, 262, 333 and 521; depth 1, 3 and the
+    full extent; windows at both ends; block and buffer pointers shifted so
+    that rows start at every offset mod 16 on both sides.  Every cell
+    outside the window keeps its value."""
+    cases = [(lead + (X, Y, Z), (y0, depth), boff, uoff)
+             for lead, X, Y, Z in (((), 3, 6, 1), ((3,), 3, 6, 7), ((), 5, 7, 262), ((3,), 2, 4, 333),
+                                   ((1,), 2, 4, 521))
+             for y0, depth in ((0, 1), (1, 3), (Y - 3, 3), (Y - 1, 1), (0, Y))
+             for boff, uoff in ((0, 0), (1, 1), (3, 0), (0, 5))]
+    before = pk.unpack_yshell_pallas.launches
+    for i, (shape, (y0, depth), boff, uoff) in enumerate(cases):
+        block = _at_offset(shape, dtype, boff, 40_000 + i, dev)
+        buf = _at_offset(pk.yshell_buffer_shape(shape, depth), dtype, uoff, 50_000 + i, dev)
+        old = block.clone()
+        want = pk.unpack_yshell_pallas_plain(block.clone(), buf, y0, depth)
+        got = pk.unpack_yshell_pallas(block, buf, y0, depth)
+        torch.cuda.synchronize()
+        assert got is block
+        assert torch.equal(got, want), (shape, y0, depth, boff, uoff)
+        Y = shape[-2]
+        assert torch.equal(got.narrow(-2, 0, y0), old.narrow(-2, 0, y0))
+        assert torch.equal(got.narrow(-2, y0 + depth, Y - y0 - depth), old.narrow(-2, y0 + depth, Y - y0 - depth))
+    assert pk.unpack_yshell_pallas.launches == before + len(cases)
+
+
 def test_descriptor_launches_of_two_shapes_in_turn(dev):
     """Each shape keeps its own cached launch: blocks of two shapes, in turn."""
     blocks = [_rand((9, 10, 11), 90, dev), _rand((12, 10, 13), 91, dev)]
@@ -328,26 +377,36 @@ def test_descriptor_launches_of_two_shapes_in_turn(dev):
             slab = _rand(tuple(ext), 92 + 2 * rep + i, dev)
             assert torch.equal(pk.pallas_unpack_slab(blk.clone(), slab, pos, ext),
                                pk.pallas_unpack_slab_plain(blk.clone(), slab, pos, ext))
+            assert torch.equal(pk.pallas_pack_slab(blk, pos, ext), pk.pallas_pack_slab_plain(blk, pos, ext))
+            buf = _rand(pk.yshell_buffer_shape(tuple(blk.shape), 3), 96 + 2 * rep + i, dev)
+            assert torch.equal(pk.unpack_yshell_pallas(blk.clone(), buf, 2, 3),
+                               pk.unpack_yshell_pallas_plain(blk.clone(), buf, 2, 3))
 
 
 def test_descriptor_launches_run_on_the_current_stream(dev):
-    """Under ``torch.cuda.stream(s)`` both kernels run on ``s``: they see a
-    write queued on ``s`` behind a long sleep, and ``s.synchronize()`` is
-    enough to read their results."""
+    """Under ``torch.cuda.stream(s)`` the four kernels run on ``s``: they
+    see a write queued on ``s`` behind a long sleep, and ``s.synchronize()``
+    is enough to read their results."""
     block = torch.zeros(64, 66, 70, device=dev)
     slab = torch.zeros(60, 62, 3, device=dev)
     blocks = torch.zeros(3, 64, 66, 70, device=dev)
+    target = torch.zeros(3, 64, 66, 70, device=dev)
+    ybuf = torch.zeros(3, 3, 64, 70, device=dev)
     s = torch.cuda.Stream()
     torch.cuda.synchronize()
     with torch.cuda.stream(s):
         torch.cuda._sleep(100_000_000)  # tens of ms: a kernel on another stream would run first
         slab.fill_(7.0)
         blocks.fill_(5.0)
+        ybuf.fill_(3.0)
         pk.pallas_unpack_slab(block, slab, Dim3(2, 2, 60), Dim3(60, 62, 3))
         buf = pk.pack_yshell_pallas(blocks, 3, 3)
+        packed = pk.pallas_pack_slab(blocks[1], Dim3(2, 2, 60), Dim3(60, 62, 3))
+        pk.unpack_yshell_pallas(target, ybuf, 10, 3)
     s.synchronize()
     assert bool((block[2:62, 2:64, 60:63] == 7).all()) and float(block.sum()) == 7 * 60 * 62 * 3
-    assert bool((buf == 5).all())
+    assert bool((buf == 5).all()) and bool((packed == 5).all())
+    assert bool((target[:, :, 10:13] == 3).all()) and float(target.sum()) == 3 * ybuf.numel()
 
 
 def test_descriptor_wrappers_refuse_on_cuda(dev):
@@ -358,8 +417,10 @@ def test_descriptor_wrappers_refuse_on_cuda(dev):
     def z(*shape, **kw):
         return torch.zeros(*shape, device=dev, **kw)
 
-    pk.pallas_unpack_slab(block, z(2, 2, 2), (0, 0, 0), (2, 2, 2))  # cache the geometry
+    pk.pallas_unpack_slab(block, z(2, 2, 2), (0, 0, 0), (2, 2, 2))  # cache the geometries
     pk.pack_yshell_pallas(block, 0, 1)
+    pk.pallas_pack_slab(block, (0, 0, 0), (1, 1, 1))
+    pk.unpack_yshell_pallas(block, z(1, 6, 6), 0, 1)
     cases = [
         (TypeError, "1/2/4/8-byte", lambda: pk.pallas_unpack_slab(
             block.to(torch.complex128), z(1, 1, 1, dtype=torch.complex128), (0, 0, 0), (1, 1, 1))),
@@ -379,12 +440,26 @@ def test_descriptor_wrappers_refuse_on_cuda(dev):
         (TypeError, "1/2/4/8-byte", lambda: pk.pack_yshell_pallas(block.to(torch.complex128), 0, 1)),
         (ValueError, "block must be C-contiguous", lambda: pk.pack_yshell_pallas(block.transpose(0, 2), 0, 1)),
         (ValueError, "buf shape", lambda: pk.unpack_yshell_pallas(block, z(2, 6, 6), 0, 1)),
+        (TypeError, "1/2/4/8-byte", lambda: pk.pallas_pack_slab(block.to(torch.complex128), (0, 0, 0), (1, 1, 1))),
+        (ValueError, "leaves block", lambda: pk.pallas_pack_slab(block, (4, 0, 0), (3, 1, 1))),
+        (ValueError, "block must be C-contiguous", lambda: pk.pallas_pack_slab(block.transpose(0, 2), (0, 0, 0),
+                                                                               (1, 1, 1))),
+        (ValueError, "does not fit", lambda: pk.unpack_yshell_pallas(block, z(2, 6, 6), 5, 2)),
+        (TypeError, "buf dtype", lambda: pk.unpack_yshell_pallas(block, z(1, 6, 6, dtype=torch.float64), 0, 1)),
+        (ValueError, "buf must be C-contiguous", lambda: pk.unpack_yshell_pallas(block, z(1, 6, 6).transpose(1, 2),
+                                                                                 0, 1)),
+        (ValueError, "block must be C-contiguous", lambda: pk.unpack_yshell_pallas(block.transpose(0, 2), z(1, 6, 6),
+                                                                                   0, 1)),
+        (ValueError, "different devices", lambda: pk.unpack_yshell_pallas(block, torch.zeros(1, 6, 6), 0, 1)),
+        (TypeError, "buf must be a torch.Tensor", lambda: pk.unpack_yshell_pallas(
+            block, np.zeros((1, 6, 6), np.float32), 0, 1)),
     ]
-    before = (pk.pallas_unpack_slab.launches, pk.pack_yshell_pallas.launches)
+    counters = (pk.pallas_pack_slab, pk.pallas_unpack_slab, pk.pack_yshell_pallas, pk.unpack_yshell_pallas)
+    before = [f.launches for f in counters]
     for exc, match, call in cases:
         with pytest.raises(exc, match=match):
             call()
-    assert (pk.pallas_unpack_slab.launches, pk.pack_yshell_pallas.launches) == before
+    assert [f.launches for f in counters] == before
 
 
 @pytest.mark.parametrize("lo,hi", [((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2))])
