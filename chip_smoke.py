@@ -48,6 +48,9 @@ non-zero before the result line:
    under torch.profiler (device time by kernel, idle share).  Before it, the
    same routes at 32^3 with 2 quantities against the torch engine, bitwise;
 9. times of the three stream kernels at the main path's shapes, as phase 7;
+   for the wavefront kernel at (1, 518^3) and (8, 262^3), m = 3, z slabs, its
+   launch (form, blocks an SM, waves, x chunks) and device ms a launch
+   (torch.profiler over 10 launches) beside its bound;
 10. the slab route: ``Jacobi3D(512, 512, 512, kernel_impl="cuda",
     pallas_path="slab")`` on 2x2x2, 200 steps with the counters reset before
     and read after (one jacobi_slab_step launch per step, no halo written),
@@ -78,19 +81,24 @@ non-zero before the result line:
     bitwise equal to phase 8's result; ms/iter and Mupdates/s (the
     better of 2 x 24 timed iterations), the ms of one 8-field
     ``dd.exchange()`` (median of 7 CUDA-event reps of 2 calls, host issue
-    included) and its device ms (torch.profiler, 7 calls) and, on
-    ``yzpack_pallas``, a torch.profiler breakdown and the launches of 200
-    iterations; then the times of the four shell-pack kernels at that
-    path's shapes (8 blocks of 262^3 f32, depth 3), their plain versions
-    and the library call that makes the same copy (``Tensor.copy_`` between
-    the buffer and the permuted window of the block; for pack_yshell_pallas,
-    which allocates its buffer, the allocating ``pack_yshell_xla``, with the
-    ``copy_`` kept beside it), and each kernel's device ms a launch: in the
-    ``yzpack_pallas`` profile (the window cold in L2, the ``device_ms`` of
-    the kernels line) and back to back on one block (the window hot in the
+    included) and its device ms (torch.profiler, 7 calls) and, on ``direct``
+    and ``yzpack_pallas``, a torch.profiler breakdown (on ``yzpack_pallas``
+    also the launches of 200 iterations); then the times of the four
+    shell-pack kernels at that path's shapes (8 blocks of 262^3 f32, depth
+    3), their plain versions and the library call that makes the same copy
+    (``Tensor.copy_`` between the buffer and the permuted window of the
+    block; for pack_yshell_pallas, which allocates its buffer, the
+    allocating ``pack_yshell_xla``, with the ``copy_`` kept beside it), and
+    each kernel's device ms a launch: in the ``yzpack_pallas`` profile (the
+    window cold in L2, the ``device_ms`` of the kernels line) and back to
+    back on one block (the window hot in the
     50 MB L2), beside the library call's back to back; the host µs a call
     (100 calls on the host clock, no synchronize between) of
     pack_yshell_pallas and unpack_yshell_pallas beside their library calls;
+    then blend_slab at the same shapes, each axis's depth-3 low and high
+    writes held against the plain version, and a launch's device ms back to
+    back and in the ``direct`` profile, CUDA-event ms and host µs, beside
+    ``narrow(...).copy_`` of the same write and the bound;
 14. bench-pack: ``stencil_tpu_torch.bin.bench_pack.main`` in-process at
     ``--size 512`` (518^3 f32, radius 3) on the ``pallas`` backend (the slab
     kernels; exactly the launches bench-pack makes, counters reset before
@@ -121,7 +129,9 @@ kernel's emitted body, the mean6 reference's, and the bodies the phase-3
 checks use) in the same
 parallel nvcc batch as the other sources; phase 3 also holds every stream
 kernel against its plain version, on ragged shapes (a 27-point and a
-coordinate-forced kernel, two joint fields) and at the main path's shapes.
+coordinate-forced kernel, two joint fields, and two joint fields read off
+the centre at x+-1: both forms of the wavefront kernel) and at the main
+path's shapes.
 
 Then it prints the card line, one ``{"kernels": [...]}`` JSON line and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -211,6 +221,13 @@ def forced_kernel(views, info):
     return {"u": torch.where(d2 < 9, 1.0, val * info.level)}
 
 
+def xdiag_kernel(views, info):
+    """Two joint fields that read x+-1 off the centre (the general form of
+    the wavefront kernel)."""
+    u, c = views["u"], views["c"]
+    return {"u": (u.sh(1, 1, 0) + c.sh(-1, 0, 1) + u.sh(0, -1, -1)) / 3.0, "c": c.sh(-1, 0, 0) * 0.5 + u.center()}
+
+
 def mean6_kernel(views, info):
     """The mean of the six face neighbours, summed in the mean6 kernels'
     order (x-1, x+1, y-1, y+1, z-1, z+1)."""
@@ -243,20 +260,26 @@ def device_breakdown(model, steps: int = 20) -> dict:
 
 
 def device_ms_per_call(fn, calls: int = 7) -> float:
-    """Device ms per call of ``fn`` under torch.profiler: the CUDA kernels'
-    self time over ``calls`` calls, divided by ``calls`` (the host's issue
-    time, which CUDA events between calls would count, left out)."""
+    """Device ms per call of ``fn`` under torch.profiler (the host's issue
+    time, which CUDA events between calls would count, left out): each CUDA
+    kernel's mean time over the launches the trace holds, times its launches
+    a call.  The trace can drop launches (on the H100's machine a trace
+    held none, and others read 0.8x: PERF.md), so the self time is not
+    divided by ``calls``; a trace that holds no launch is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
+        fn()
         sync()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            sync()
+        kept = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        if kept:
+            return sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in kept) / 1e3
+    raise AssertionError("torch.profiler held no kernel launch in three traces")
 
 
 def host_us_per_call(fn, calls: int = 100) -> float:
@@ -337,7 +360,8 @@ def main() -> int:
     ak8 = StreamKernel(ast_kernel, ast_names, 1, gs_main)
     gs_r = (30, 40, 140)
     ragged_k = {name: StreamKernel(fn, names, 1, gs_r) for name, fn, names in (
-        ("k27", k27_kernel, ["u"]), ("forced", forced_kernel, ["u"]), ("mean6x2", ast_kernel, ["a", "b"]))}
+        ("k27", k27_kernel, ["u"]), ("forced", forced_kernel, ["u"]), ("mean6x2", ast_kernel, ["a", "b"]),
+        ("xdiag", xdiag_kernel, ["u", "c"]))}
     stream_sources = [("stream_wrap", st._source(ak8, "stream_wrap", st._WRAP_LEVELS)),
                       ("stream_plane", st._source(ak8, "stream_plane", [1]))]
     stream_sources += [("stream_wavefront", st._source(ak1, *st._wavefront_variant(m))) for m in (1, 2, 3)]
@@ -552,6 +576,7 @@ def main() -> int:
             hold_fields("stream_wavefront_pass", [g[:, S, :, S] for g in got_z],
                         [w[:, S, :, S] for w in want_z], what + " z_out")
 
+    wavefront_forms = {}  # the form each traced kernel's wavefront library takes
     for name, sk in ragged_k.items():
         nf = len(sk.names)
         blocks_w = [seeded(gs_r, 40 + q, dev) for q in range(nf)]
@@ -570,6 +595,10 @@ def main() -> int:
         for slabs in (False, True):
             hold_stream_wavefront(sk, raws_w, 2, 3, org_w, gs_r, zs_w if slabs else None, 37 if slabs else None,
                                   f"{name} 2x(22,26,40) m=2 s=3 slabs={slabs}")
+        wavefront_forms[name] = st.stream_wavefront_launch(sk, sk.names, raws_w, 2, 3, gs_r)["form"]
+    # the register queue exactly where every x+-1 read is centred
+    if wavefront_forms != {"k27": "general", "forced": "queue", "mean6x2": "queue", "xdiag": "general"}:
+        raise AssertionError(f"wavefront forms {wavefront_forms}")
     # main path shapes: the wrap pass over 8 fields of 512^3, the plane pass
     # over 8 fields of 8 x 262^3 blocks, the wavefront over one 518^3 field
     # (one subdomain) and one field of 8 x 262^3 blocks (2x2x2)
@@ -640,7 +669,7 @@ def main() -> int:
     main_wf8 = ([main_plane[0]], seeded((8, ps, 6, ps), 102, dev))
     hold_stream_wavefront(ak1, main_wf8[0], 3, 3, org, gs, [main_wf8[1]], ps, f"8x{ps}^3 m=3 slabs")
     torch.cuda.empty_cache()
-    log(f"kernel vs plain: bitwise equal on every case; max abs err {errs}")
+    log(f"kernel vs plain: bitwise equal on every case; max abs err {errs}; wavefront forms {wavefront_forms}")
 
     # --- 4. main path, wrap route ---------------------------------------------
     phase_start(4)
@@ -984,7 +1013,26 @@ def main() -> int:
                            reps=3, inner=1)
     swf_bytes = stream_wavefront_bytes(1, ws, ws, ws, 3, 3, True, 1)
     swf_flops = ops * N ** 3 * 3
-    del wf_raw, wf_zs
+    # the launch (form, blocks an SM, waves) and its device ms a launch under
+    # the profiler, at the one-subdomain shape and the 2x2x2 auto route's
+    swf_launch = {}
+    wf_cases = ((wf_raw, wf_zs, org0.view(1, 3), ws),
+                ([seeded((8, ps, ps, ps), 112, dev)], [seeded((8, ps, 6, ps), 113, dev)], org, ps))
+    for raws, zs, org_w, ext in wf_cases:
+        n_w = raws[0].shape[0]
+        swf_launch[f"({n_w},{ext},{ext},{ext})"] = dict(
+            st.stream_wavefront_launch(ak1, ast_names[:1], raws, 3, 3, gs_main, z_slabs=zs, z_valid=ext),
+            device_ms=device_ms_per_call(lambda: st.stream_wavefront_pass(
+                ak1, ast_names[:1], raws, 3, 3, org_w, gs_main, z_slabs=zs, z_valid=ext), calls=10),
+            bound_ms=bound(stream_wavefront_bytes(n_w, ext, ext, ext, 3, 3, True, 1),
+                           ops * n_w * (ext - 6) ** 3 * 3)[0])
+    if swf_launch[f"(1,{ws},{ws},{ws})"]["form"] != "queue":
+        raise AssertionError(f"Astaroth's wavefront kernel is not in the register-queue form: {swf_launch}")
+    log("stream_wavefront_pass launches (Astaroth kernel, 1 field, m=3, z slabs): " + "; ".join(
+        f"{k} {v['form']} form, {v['threads']} threads, {v['smem_bytes']} B shared, {v['blocks_per_sm']} blocks/SM, "
+        f"{v['blocks']} blocks = {v['waves']:.2f} waves ({v['nchunks']} x chunks of {v['xchunk']}), "
+        f"{v['device_ms']:.4f} device ms a launch (bound {v['bound_ms']:.4f})" for k, v in swf_launch.items()))
+    del wf_raw, wf_zs, wf_cases, raws, zs
     torch.cuda.empty_cache()
     wrap_in = [seeded(gs_main, 120 + q, dev) for q in range(AST_Q)]
     swr_ms = cuda_ms(lambda: st.stream_wrap_pass(ak8, ast_names, wrap_in, 1, org0, gs_main), inner=2)
@@ -1217,8 +1265,9 @@ def main() -> int:
         entry = {"launches": counts, "ms_per_iter": dt * 1e3, "ms_per_iter_runs": [t * 1e3 for t in dts],
                  "mupdates_per_s": AST_Q * N ** 3 / dt / 1e6, "exchange_ms": ex_ms,
                  "exchange_device_ms": ex_dev_ms}
-        if route == "yzpack_pallas":
+        if route in ("direct", "yzpack_pallas"):
             entry["profile"] = device_breakdown(sim, AST_ITERS)
+        if route == "yzpack_pallas":
             ledger.reset_launch_counts()  # the unit of PERF.md's kernel table
             sim.step(STEPS)
             sync()
@@ -1305,6 +1354,48 @@ def main() -> int:
         + "; unpack_yshell_pallas host µs a call: " + ", ".join(f"{k} {v:.2f}" for k, v in yunpack_host_us.items())
         + f" on {card}")
     del pk_blocks, zbuf, ybuf, pack_cases, ycopy
+    # blend_slab at the same shapes: each axis's depth-3 low and high writes
+    # of one field, held against the plain version; device ms a launch back to
+    # back (the blocks hot in L2) and in the direct route's profile (its 16
+    # launches an iteration an axis; the kernels are slab_rows_kernel<T,
+    # false, axis> and, on z, slab_cells_kernel<T, false, 2>), beside
+    # narrow(...).copy_; CUDA-event ms and host µs a call
+    bl_blocks = seeded((8, ps, ps, ps), 175, dev)
+    direct_prof = routes_13["direct"]["profile"]["kernels_ms_per_step"]
+    blend_kernels = ("slab_rows_kernel<", "slab_cells_kernel<")
+    blend_step = {}
+    for axis in (0, 1, 2):
+        shape = [8, ps, ps, ps]
+        shape[1 + axis] = 3
+        writes = [(seeded(shape, 176 + 2 * axis + i, dev), pos) for i, pos in enumerate((0, ps - 3))]
+        for slab, pos in writes:
+            hold("blend_slab", hb.blend_slab(bl_blocks.clone(), slab, axis, pos),
+                 hb.blend_slab_plain(bl_blocks.clone(), slab, axis, pos), f"8x{ps}^3 depth 3 axis {axis} pos {pos}")
+
+        def blend_writes():
+            for slab, pos in writes:
+                hb.blend_slab(bl_blocks, slab, axis, pos)
+
+        def copy_writes():
+            for slab, pos in writes:
+                bl_blocks.narrow(1 + axis, pos, 3).copy_(slab)
+
+        in_route = [v for k, v in direct_prof.items() if any(n in k for n in blend_kernels) and f", {axis}>" in k]
+        blend_step[axis] = {
+            "device_ms": device_ms_per_call(blend_writes, calls=10) / 2,
+            "copy_device_ms": device_ms_per_call(copy_writes, calls=10) / 2,
+            "device_ms_in_route": sum(in_route) / 16, "ms": cuda_ms(blend_writes) / 2,
+            "copy_ms": cuda_ms(copy_writes) / 2, "host_us": host_us_per_call(blend_writes) / 2,
+            "copy_host_us": host_us_per_call(copy_writes) / 2,
+            "bound_ms": bound(2 * writes[0][0].numel() * 4, 0)[0]}
+    blend_route_ms = sum(v for k, v in direct_prof.items() if any(n in k for n in blend_kernels))
+    log(f"blend_slab at (8,{ps},{ps},{ps}) f32 depth 3, a launch (device ms back to back, in the direct route, "
+        "narrow(...).copy_; CUDA-event ms, copy_; host µs, copy_): " + "; ".join(
+            f"axis {a} {v['device_ms']:.4f}, {v['device_ms_in_route']:.4f}, {v['copy_device_ms']:.4f}; {v['ms']:.4f}, "
+            f"{v['copy_ms']:.4f}; {v['host_us']:.2f}, {v['copy_host_us']:.2f} (bound {v['bound_ms']:.4f})"
+            for a, v in blend_step.items())
+        + f"; blend_slab in the direct route: {blend_route_ms:.4f} device ms an iteration on {card}")
+    del bl_blocks, writes
     torch.cuda.empty_cache()
 
     # --- 14. bench-pack ------------------------------------------------------------------
@@ -1547,6 +1638,10 @@ def main() -> int:
             rows[-1]["host_us"] = ypack_host_us
         if name == "unpack_yshell_pallas":
             rows[-1]["host_us"] = yunpack_host_us
+        if name == "blend_slab":
+            rows[-1].update(per_step_shape=blend_step, direct_route_device_ms_per_iter=blend_route_ms)
+        if name == "stream_wavefront_pass":
+            rows[-1]["launch"] = swf_launch
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1557,6 +1652,8 @@ def main() -> int:
             "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
             "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
+            "blend_per_step_shape": blend_step, "blend_direct_route_device_ms_per_iter": blend_route_ms,
+            "stream_wavefront_launch": swf_launch,
             "step1_ms_min_median": step1, "astaroth": ast,
             "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
             "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,

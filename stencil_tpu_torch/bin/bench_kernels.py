@@ -1,0 +1,215 @@
+"""Device times of the stream wavefront kernel and of blend_slab at the main
+path's shapes, in a form that times an older tree of the port as well.
+
+    python -m stencil_tpu_torch.bin.bench_kernels [--out FILE]
+    PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's kernels
+
+It calls only what the port has had since both kernels landed
+(``stream_wavefront_pass``, ``blend_slab``, ``AstarothSim``), so two trees
+timed in turn on one card compare like with like.  It prints, and writes to
+``--out``, one JSON object with the card's name and power limit (as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them)
+and:
+
+* ``wavefront``: ``stream_wavefront_pass`` of the Astaroth kernel on one
+  field, m = 3, z slabs, at (1, 518, 518, 518) (``AstarothSim(512^3,
+  schedule="wavefront")`` on one subdomain) and (8, 262, 262, 262) (its
+  ``auto`` route on 2x2x2): device ms a launch (torch.profiler over 10
+  launches, the mean of the launches its trace holds) and CUDA-event ms a
+  call;
+* ``blend``: ``blend_slab`` at the per-step route's shapes, 8 blocks of
+  262^3 f32 and depth-3 slabs, each axis's low and high write in turn: device
+  ms a launch back to back (20 launches), the same for
+  ``narrow(...).copy_(slab)``, and the host µs a call of each (100 calls,
+  no synchronize between);
+* ``direct``: ``AstarothSim(512^3, num_quantities=8, schedule="per-step",
+  exchange_route="direct")`` on 2x2x2: ms/iter (the better of two runs of 24
+  iterations), and from 24 iterations under torch.profiler the device ms an
+  iteration of each kernel, of ``blend_slab``'s kernels together, and the
+  device's idle share.
+
+A CUDA card is required; it exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N = 512
+ITERS = 24
+#: the kernels that blend_slab launches, by name: the one-thread-a-cell
+#: scatter of csrc/halo_blend.cu, or the slab unpack of csrc/pack.cu
+BLEND_KERNEL_NAMES = ("blend_slab_kernel<", "slab_rows_kernel<", "slab_cells_kernel<")
+
+
+def _sync() -> None:
+    torch.cuda.synchronize()
+
+
+def _seeded(shape, seed: int, dev) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).random(shape).astype(np.float32)).to(dev)
+
+
+def _profile(fn, calls: int):
+    """``fn`` called ``calls`` times under torch.profiler after one warm-up
+    call: (device ms a call by CUDA kernel name, wall ms a call).  A
+    kernel's ms a call is its mean time over the launches the trace holds
+    times its launches a call: the trace can drop launches, so the self time
+    is not divided by ``calls``.  A trace that holds no launch is taken
+    again, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+        _sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            _sync()
+            wall = (time.perf_counter() - t0) * 1e3 / calls
+        kept = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        if kept:
+            return {e.key[:96]: e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / calls))
+                    for e in kept}, wall
+    raise RuntimeError("torch.profiler held no kernel launch in three traces")
+
+
+def _cuda_ms(fn, reps: int = 7, inner: int = 5) -> float:
+    """Median CUDA-event ms a call over ``reps`` reps of ``inner`` calls, after
+    a dropped warm-up rep."""
+    times = []
+    for _ in range(reps + 1):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    return statistics.median(times[1:])
+
+
+def _host_us(fn, calls: int = 100) -> float:
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    _sync()
+    return dt / calls * 1e6
+
+
+def blend_ms(kernels_ms: dict) -> dict:
+    """The entries of a profile (name: device ms) that are blend_slab's."""
+    return {k: v for k, v in kernels_ms.items() if any(n in k for n in BLEND_KERNEL_NAMES)}
+
+
+def wavefront_times(dev) -> dict:
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    kern = AstarothSim(8, 8, 8, device=dev)._kernel
+    out = {}
+    for n, ext in ((1, N + 6), (8, N // 2 + 6)):
+        gs = (N, N, N)
+        sk = StreamKernel(kern, ["d0"], 1, gs)
+        raws = [_seeded((n, ext, ext, ext), 1, dev)]
+        zs = [_seeded((n, ext, 6, ext), 2, dev)]
+        org = torch.tensor([[(ext - 6) * (b & 1), 0, 0] for b in range(n)], dtype=torch.int32, device=dev)
+
+        def call():
+            return st.stream_wavefront_pass(sk, ["d0"], raws, 3, 3, org, gs, z_slabs=zs, z_valid=ext)
+
+        prof, _ = _profile(call, 10)
+        out[f"({n},{ext},{ext},{ext})"] = {"device_ms": sum(prof.values()), "kernels": prof,
+                                           "ms": _cuda_ms(call, inner=2)}
+        del raws, zs
+        torch.cuda.empty_cache()
+    return out
+
+
+def blend_times(dev) -> dict:
+    from stencil_tpu_torch.ops.halo_blend import blend_slab
+
+    ps = N // 2 + 6
+    blocks = _seeded((8, ps, ps, ps), 3, dev)
+    out = {}
+    for axis in (0, 1, 2):
+        shape = [8, ps, ps, ps]
+        shape[1 + axis] = 3
+        slabs = [(_seeded(shape, 4 + 2 * axis + i, dev), pos) for i, pos in enumerate((0, ps - 3))]
+
+        def kernel():
+            for s, pos in slabs:
+                blend_slab(blocks, s, axis, pos)
+
+        def library():
+            for s, pos in slabs:
+                blocks.narrow(1 + axis, pos, 3).copy_(s)
+
+        out[str(axis)] = {
+            "device_ms": sum(_profile(kernel, 10)[0].values()) / 2,
+            "copy_device_ms": sum(_profile(library, 10)[0].values()) / 2,
+            "ms": _cuda_ms(kernel) / 2, "copy_ms": _cuda_ms(library) / 2,
+            "host_us": _host_us(kernel) / 2, "copy_host_us": _host_us(library) / 2,
+        }
+    return out
+
+
+def direct_route(dev) -> dict:
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+
+    sim = AstarothSim(N, N, N, num_quantities=8, kernel_impl="cuda", schedule="per-step", exchange_route="direct",
+                      device=dev)
+    sim.dd.set_partition(2, 2, 2)
+    sim.realize()
+    sim.step(ITERS)  # builds the kernels
+    dts = []
+    for _ in range(2):
+        _sync()
+        t0 = time.perf_counter()
+        sim.step(ITERS)
+        _sync()
+        dts.append((time.perf_counter() - t0) / ITERS * 1e3)
+    kernels, wall = _profile(lambda: sim.step(1), ITERS)
+    busy = sum(kernels.values())
+    blends = blend_ms(kernels)
+    return {"ms_per_iter": min(dts), "ms_per_iter_runs": dts, "device_ms_per_iter": busy,
+            "idle_share": 1 - busy / wall, "blend_device_ms_per_iter": sum(blends.values()),
+            "blend_kernels": blends, "kernels": kernels}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser("bench-kernels")
+    p.add_argument("--out", default=None, help="also write the JSON object here")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench-kernels: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    result = {"card": card, "wavefront": wavefront_times(dev), "blend": blend_times(dev),
+              "direct": direct_route(dev)}
+    text = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

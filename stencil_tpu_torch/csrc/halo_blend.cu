@@ -1,20 +1,11 @@
 // Halo slab write for Hopper (sm_90a), bound to Python through ctypes
 // (stencil_tpu_torch/kernels/build.py, stencil_tpu_torch/ops/halo_blend.py).
 //
-// stp_blend_slab replaces stencil_tpu/ops/halo_blend.py:84 blend_slab: write a
-// thin slab into n blocks (n, X, Y, Z) at a static offset `pos` along x, y or
-// z, in place.  On the TPU the kernel exists to keep the write tile-local
-// under the (8,128) layout; a GPU has no tiled layout, so the port is a plain
-// strided scatter: one thread per slab element, grid-stride, the element copied
-// as an unsigned integer of its width (1, 2, 4 or 8 bytes), so every dtype of
-// those widths moves bit for bit.
-//
-// Bound on an H100 SXM: bytes.  It reads the slab once and writes the same
-// number of bytes into the block: 2 * r * (other two extents) * itemsize per
-// block.  The x and y slabs are contiguous runs along z and coalesce; a z slab
-// of width r touches r elements per 32-byte sector, so its writes cost a
-// sector each, which a later packed route (ROADMAP queue 1 item 8) removes.
-// Linear offsets are 64-bit.
+// blend_slab (stencil_tpu/ops/halo_blend.py:84), the same write at a static
+// offset, is the slab unpack of csrc/pack.cu on its descriptor path
+// (stp_blend_slab_desc): a one-thread-a-cell scatter with three 64-bit
+// divisions a cell, as the kernel below still is, lost 4-6x to the write's
+// bound at the exchange's shapes (PERF.md).
 //
 // stp_blend_slab_dynamic replaces stencil_tpu/ops/halo_blend.py:179
 // blend_slab_dynamic: the same write at an offset known only at run time, one
@@ -22,13 +13,15 @@
 // a padded (uneven) axis lands: right after the block's own valid cells, so
 // only the last subdomain on that axis differs.  The TPU kernel visits the
 // (8,128) tiles the slab can touch and masks rows with iotas; none of that is
-// needed here: the kernel is blend_slab's strided scatter with the block's base
-// index read from pos.  An offset outside [0, extent - r] is clamped into it,
-// as lax.dynamic_update_slice does (the wrapper checks nothing on the device,
-// so a call never synchronizes).  It takes axis 0 as well: the JAX package
+// needed here: the kernel is a strided scatter, one thread a slab element,
+// grid-stride, the element copied as an unsigned integer of its width (1, 2,
+// 4 or 8 bytes), with the block's base index read from pos.  An offset
+// outside [0, extent - r] is clamped into it, as lax.dynamic_update_slice does
+// (the wrapper checks nothing on the device, so a call never synchronizes).  It takes axis 0 as well: the JAX package
 // writes the x halo with a dynamic_update_slice, but a sub-view of the port's
 // (n, X, Y, Z) stack is not contiguous, so the port sends all three axes here.
-// Bound: bytes, as stp_blend_slab, plus n int32 offsets.
+// Bound on an H100 SXM: bytes, the slab read once and the same bytes written
+// into the block, plus n int32 offsets.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,26 +30,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 32;
-
-template <typename T>
-__global__ void blend_slab_kernel(T* __restrict__ block, const T* __restrict__ slab,
-                                  int64_t count, int64_t sx, int64_t sy, int64_t sz,
-                                  int64_t X, int64_t Y, int64_t Z, int axis, int64_t pos) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t t = i;
-    int64_t z = t % sz;
-    t /= sz;
-    int64_t y = t % sy;
-    t /= sy;
-    int64_t x = t % sx;
-    const int64_t b = t / sx;
-    if (axis == 0) x += pos;
-    if (axis == 1) y += pos;
-    if (axis == 2) z += pos;
-    block[((b * X + x) * Y + y) * Z + z] = slab[i];
-  }
-}
 
 template <typename T>
 __global__ void blend_slab_dynamic_kernel(T* __restrict__ block, const T* __restrict__ slab,
@@ -83,21 +56,6 @@ __global__ void blend_slab_dynamic_kernel(T* __restrict__ block, const T* __rest
 }
 
 template <typename T>
-int launch(void* block, const void* slab, int64_t n, int64_t X, int64_t Y, int64_t Z,
-           int axis, int64_t r, int64_t pos, cudaStream_t stream) {
-  const int64_t sx = axis == 0 ? r : X;
-  const int64_t sy = axis == 1 ? r : Y;
-  const int64_t sz = axis == 2 ? r : Z;
-  const int64_t count = n * sx * sy * sz;
-  if (count == 0) return 0;
-  int64_t blocks = (count + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  blend_slab_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (T*)block, (const T*)slab, count, sx, sy, sz, X, Y, Z, axis, pos);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int launch_dynamic(void* block, const void* slab, const int* pos, int64_t n, int64_t X,
                    int64_t Y, int64_t Z, int axis, int64_t r, cudaStream_t stream) {
   const int64_t sx = axis == 0 ? r : X;
@@ -115,19 +73,6 @@ int launch_dynamic(void* block, const void* slab, const int* pos, int64_t n, int
 }  // namespace
 
 extern "C" {
-
-// Returns a cudaError_t, or -1 for an itemsize the kernel does not take.
-int stp_blend_slab(void* block, const void* slab, int itemsize, int64_t n, int64_t X,
-                   int64_t Y, int64_t Z, int axis, int64_t r, int64_t pos, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (itemsize) {
-    case 1: return launch<uint8_t>(block, slab, n, X, Y, Z, axis, r, pos, s);
-    case 2: return launch<uint16_t>(block, slab, n, X, Y, Z, axis, r, pos, s);
-    case 4: return launch<uint32_t>(block, slab, n, X, Y, Z, axis, r, pos, s);
-    case 8: return launch<uint64_t>(block, slab, n, X, Y, Z, axis, r, pos, s);
-    default: return -1;
-  }
-}
 
 // pos: n int32 offsets on the device, one per block.  Returns a cudaError_t,
 // or -1 for an itemsize the kernel does not take.

@@ -14,6 +14,19 @@
 // reference's grid_pack / grid_unpack (pack_kernel.cuh:16-40, copy.cuh:26-64).
 // Both go through the descriptor entries (below), as does the y-shell pair.
 //
+// The halo write of the exchange, n blocks (n, X, Y, Z) and a slab of width r
+// at a static offset `pos` on one axis, is the slab unpack of a box too:
+//
+//   stp_blend_slab_desc   replaces stencil_tpu/ops/halo_blend.py:84 blend_slab:
+//                         block[b, pos + i, j, k] = slab[b, i, j, k] (axis 0; y and z alike)
+//
+// The TPU kernel keeps that write tile-local under the (8,128) layout; here
+// the n blocks are one block whose box the slab fills: (n, X*Y, Z) with the
+// box (0, pos*Y, 0) of extent (n, r*Y, Z) on x, (n*X, Y, Z) with (0, pos, 0)
+// and (n*X, r, Z) on y, (0, 0, pos) and (n*X, Y, r) on z.  So the x and y
+// slabs go through the row kernel (rows of Z cells) and the z slab through
+// the cell kernel, as the slab unpack's faces do.
+//
 // The shell packs of the packed exchange routes each take n blocks
 // (n, X, Y, Z) and a window of `depth` cells starting at `start` on one axis:
 //
@@ -146,15 +159,15 @@ int dispatch_zshell(bool pack, void* block, void* buf, int itemsize, int64_t n, 
   }
 }
 
-// --- The descriptor entries: both slab packs and the y-shell pair -------------
+// --- The descriptor entries: both slab packs, the y-shell pair, blend_slab ----
 //
-// pallas_pack_slab, pallas_unpack_slab, pack_yshell_pallas and
-// unpack_yshell_pallas.  Each entry takes the address of a host array of int64
-// fields that the wrapper builds once per geometry and caches (ops/pack.py),
-// the two data pointers and the stream: four arguments, so that the call costs
-// no more host time than a PyTorch copy.  The fields are read here, on the
-// host, and reach the kernel by value; the pointers' alignment is read per
-// call, never cached.  A pack and an unpack of one geometry share a
+// pallas_pack_slab, pallas_unpack_slab, pack_yshell_pallas,
+// unpack_yshell_pallas and blend_slab.  Each entry takes the address of a host
+// array of int64 fields that the wrapper builds once per geometry and caches
+// (ops/pack.py, ops/halo_blend.py), the two data pointers and the stream:
+// four arguments, so that the call costs no more host time than a PyTorch
+// copy.  The fields are read here, on the host, and reach the kernel by value;
+// the pointers' alignment is read per call, never cached.  A pack and an unpack of one geometry share a
 // descriptor, and each pair shares its kernels, templated on the direction.
 //
 // Both pairs copy rows that are contiguous on both sides.  A row goes to one
@@ -297,8 +310,9 @@ struct SlabGeom {
   }
 };
 
-// kPack: block -> slab; otherwise slab -> block.
-template <typename T, bool kPack>
+// kPack: block -> slab; otherwise slab -> block.  kTag only names a launch
+// apart in a profile: -1 for the slab packs, the axis for blend_slab.
+template <typename T, bool kPack, int kTag>
 __global__ void slab_rows_kernel(T* __restrict__ block, T* __restrict__ slab, SlabGeom g) {
   const int lane = threadIdx.x & 31;
   const int bytes = (int)(g.ez * sizeof(T));
@@ -315,7 +329,7 @@ __global__ void slab_rows_kernel(T* __restrict__ block, T* __restrict__ slab, Sl
   }
 }
 
-template <typename T, bool kPack>
+template <typename T, bool kPack, int kTag>
 __global__ void __launch_bounds__(kCellThreads)
     slab_cells_kernel(T* __restrict__ block, T* __restrict__ slab, SlabGeom g, int vec) {
   constexpr int kCells = kStageBytes / (int)sizeof(T);  // cells a block stages
@@ -388,51 +402,88 @@ __global__ void __launch_bounds__(kCellThreads)
   }
 }
 
-template <typename T, bool kPack>
+template <typename T, bool kPack, int kTag = -1>
 int launch_slab(const SlabGeom& g, void* block, void* slab, cudaStream_t stream) {
   T* bl = (T*)block;
   T* sl = (T*)slab;
   if ((int64_t)g.ez * (int64_t)sizeof(T) >= kRowBytes) {
     int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    slab_rows_kernel<T, kPack><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
+    slab_rows_kernel<T, kPack, kTag><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
   } else {
     constexpr int64_t kCells = kStageBytes / sizeof(T);
     int64_t blocks = ((int64_t)g.total + kCells - 1) / kCells;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     const int vec = (reinterpret_cast<uintptr_t>(slab) & 15) == 0;
-    slab_cells_kernel<T, kPack><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
+    slab_cells_kernel<T, kPack, kTag><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
   }
   return (int)cudaGetLastError();
+}
+
+// The box (px, py, pz) of extent (ex, ey, ez) in a (X, Y, Z) block as a
+// SlabGeom; -1 for a box that leaves the block or holds 2^31 cells or more,
+// 1 for an empty one, else 0.
+int slab_geom(int64_t X, int64_t Y, int64_t Z, int64_t px, int64_t py, int64_t pz, int64_t ex, int64_t ey,
+              int64_t ez, SlabGeom* g) {
+  if (px < 0 || py < 0 || pz < 0 || ex < 0 || ey < 0 || ez < 0 || px + ex > X || py + ey > Y || pz + ez > Z)
+    return -1;
+  const int64_t total = ex * ey * ez;
+  if (total >= INT32_MAX) return -1;
+  if (total == 0) return 1;
+  g->Y = Y;
+  g->Z = Z;
+  g->base = (px * Y + py) * Z + pz;
+  g->ey = (uint32_t)ey;
+  g->ez = (uint32_t)ez;
+  g->rows = (uint32_t)(ex * ey);
+  g->total = (uint32_t)total;
+  g->by_ey.init(g->ey);
+  g->by_ez.init(g->ez);
+  return 0;
+}
+
+template <bool kPack, int kTag>
+int launch_slab_sized(int64_t itemsize, const SlabGeom& g, void* block, void* slab, cudaStream_t s) {
+  switch (itemsize) {
+    case 1: return launch_slab<uint8_t, kPack, kTag>(g, block, slab, s);
+    case 2: return launch_slab<uint16_t, kPack, kTag>(g, block, slab, s);
+    case 4: return launch_slab<uint32_t, kPack, kTag>(g, block, slab, s);
+    case 8: return launch_slab<uint64_t, kPack, kTag>(g, block, slab, s);
+    default: return -1;
+  }
 }
 
 // desc: itemsize, X, Y, Z, px, py, pz, ex, ey, ez (ops/pack.py SLAB_DESC_FIELDS)
 template <bool kPack>
 int slab_desc(const int64_t* desc, void* block, void* slab, void* stream) {
-  const int64_t itemsize = desc[0], X = desc[1], Y = desc[2], Z = desc[3];
-  const int64_t px = desc[4], py = desc[5], pz = desc[6], ex = desc[7], ey = desc[8], ez = desc[9];
-  if (px < 0 || py < 0 || pz < 0 || ex < 0 || ey < 0 || ez < 0 || px + ex > X || py + ey > Y || pz + ez > Z)
-    return -1;
-  const int64_t total = ex * ey * ez;
-  if (total >= INT32_MAX) return -1;
-  if (total == 0) return 0;
   SlabGeom g;
-  g.Y = Y;
-  g.Z = Z;
-  g.base = (px * Y + py) * Z + pz;
-  g.ey = (uint32_t)ey;
-  g.ez = (uint32_t)ez;
-  g.rows = (uint32_t)(ex * ey);
-  g.total = (uint32_t)total;
-  g.by_ey.init(g.ey);
-  g.by_ez.init(g.ez);
+  const int rc = slab_geom(desc[1], desc[2], desc[3], desc[4], desc[5], desc[6], desc[7], desc[8], desc[9], &g);
+  if (rc != 0) return rc < 0 ? -1 : 0;
+  return launch_slab_sized<kPack, -1>(desc[0], g, block, slab, (cudaStream_t)stream);
+}
+
+// desc: itemsize, n, X, Y, Z, axis, r, pos (ops/halo_blend.py BLEND_DESC_FIELDS):
+// the n blocks as one block and the slab as a box in it (see the top).
+int blend_desc(const int64_t* desc, void* block, void* slab, void* stream) {
+  const int64_t itemsize = desc[0], n = desc[1], X = desc[2], Y = desc[3], Z = desc[4];
+  const int64_t axis = desc[5], r = desc[6], pos = desc[7];
+  const int64_t ext = axis == 0 ? X : (axis == 1 ? Y : Z);
+  if (n < 0 || X < 0 || Y < 0 || Z < 0 || axis < 0 || axis > 2 || r < 0 || pos < 0 || pos + r > ext) return -1;
+  SlabGeom g;
+  int rc;
+  if (axis == 0) {
+    rc = slab_geom(n, X * Y, Z, 0, pos * Y, 0, n, r * Y, Z, &g);
+  } else if (axis == 1) {
+    rc = slab_geom(n * X, Y, Z, 0, pos, 0, n * X, r, Z, &g);
+  } else {
+    rc = slab_geom(n * X, Y, Z, 0, 0, pos, n * X, Y, r, &g);
+  }
+  if (rc != 0) return rc < 0 ? -1 : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (itemsize) {
-    case 1: return launch_slab<uint8_t, kPack>(g, block, slab, s);
-    case 2: return launch_slab<uint16_t, kPack>(g, block, slab, s);
-    case 4: return launch_slab<uint32_t, kPack>(g, block, slab, s);
-    case 8: return launch_slab<uint64_t, kPack>(g, block, slab, s);
-    default: return -1;
+  switch (axis) {
+    case 0: return launch_slab_sized<false, 0>(itemsize, g, block, slab, s);
+    case 1: return launch_slab_sized<false, 1>(itemsize, g, block, slab, s);
+    default: return launch_slab_sized<false, 2>(itemsize, g, block, slab, s);
   }
 }
 
@@ -513,6 +564,10 @@ int stp_pack_slab_desc(const int64_t* desc, const void* block, void* slab, void*
 
 int stp_unpack_slab_desc(const int64_t* desc, void* block, const void* slab, void* stream) {
   return slab_desc<false>(desc, block, const_cast<void*>(slab), stream);
+}
+
+int stp_blend_slab_desc(const int64_t* desc, void* block, const void* slab, void* stream) {
+  return blend_desc(desc, block, const_cast<void*>(slab), stream);
 }
 
 int stp_pack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,

@@ -5,7 +5,8 @@
 // A kernel template: the line `// @STP_GENERATED@` below is replaced by the
 // body that stencil_tpu_torch/ops/stream_trace.py emits for one user kernel
 // (STP_NF, the field count; STP_M, the depth this library runs; stp_body,
-// the kernel's arithmetic), and the result is built by nvcc into a library of
+// the kernel's arithmetic; STP_X_QUEUE when every read at x-1 or x+1 is at
+// in-plane offset (0, 0)), and the result is built by nvcc into a library of
 // its own, one per depth.
 //
 // stp_stream_wavefront replaces stencil_tpu/ops/stream.py:481
@@ -16,35 +17,63 @@
 //   field and the next slabs are emitted (kSlabs = true); W = z_valid, and
 //   columns [W, Zr) are dead.
 //
-// The design is csrc/jacobi_wavefront.cu's, with N fields and the emitted
-// body in place of the Jacobi arithmetic.  A block owns a kTileY x
-// (kTileW - 2m) tile of the plane interior [s, Yr-s) x [s, W-s) for one block
-// b and one chunk of output x planes, loads it with an m-cell apron (a tile
-// row with its apron is kTileW = 64 columns, two full warps) and marches x:
-// per step it loads level-0 plane i of every field and computes level l of
+// A block owns a tile of the plane interior [s, Yr-s) x [s, W-s) for one
+// block b and one chunk of output x planes, loads it with an m-cell apron (a
+// tile row with its apron is kTileW = 64 columns, two full warps) and marches
+// x: per step it loads level-0 plane i of every field and computes level l of
 // plane i-l for l = 1..m over the tile shrunk by l, so level m lands exactly
-// on the tile.  Shared memory per block:
+// on the tile.  The next plane's global loads are issued into registers
+// before the current plane's levels run.  Two forms, chosen when the module
+// is emitted:
 //
-//   STP_NF x (2m + 2) planes of (kTileY + 2m) x kTileW 4-byte cells
+// * The register-queue form (STP_X_QUEUE: Astaroth's and the mean6 bodies).
+//   Level l at plane p reads level l-1 at planes p-1 and p+1 only at its own
+//   cell, so a thread keeps its own cells' level-(l-1) planes p-1 and p in
+//   registers (with p+1, just computed, a queue three planes long) and only
+//   plane p of each level below m goes to shared memory, for the in-plane
+//   neighbours.  Those planes are double-buffered by the parity of the
+//   march, so a plane costs ONE block barrier:
 //
-// per field: the two most recent planes of each level below m (the TPU
-// kernel's (m, 2, Yr, Zr) VMEM ring, tiled), the incoming level-0 plane and
-// one spare plane that each level's result goes to.  Unlike the Jacobi
-// kernel, a level may not overwrite the plane it reads: a user kernel can
-// read x-1 at in-plane offsets (a 27-point stencil does), which a
-// neighbouring thread may already have overwritten.  m = 3, one field:
-// 77,824 B; stream_smem_bytes in ops/stream.py is the same formula, so the
-// plan never asks for more than the H100's 232,448 B opt-in.
+//     STP_NF x 2m planes of kQueueRows(m) x kTileW 4-byte cells
 //
-// Blocks march disjoint chunks of output planes [p_lo, p_hi), each starting
-// m planes early, so a single subdomain still fills the card (about four
-// blocks per SM); the chunking changes no value.
+//   (m = 3, one field: 49,152 B and 544 B of padding).  A thread owns
+//   kQueueRows / kQueueWarps = 2 consecutive rows of two columns; a y
+//   neighbour inside those rows comes from its registers, so the Astaroth
+//   body costs 4 shared accesses a cell and level (two z neighbours, one y
+//   neighbour, one store) where the general form pays 7.  Every cell of the
+//   tile runs every level, its apron's too, so no test guards a cell: the
+//   tile rows are whole thread rows, and padding around the planes keeps the
+//   edge's reads in bounds.  The tile (32 rows of 16 warps, 64 registers a
+//   thread, two blocks an SM) is the fastest of those timed on the H100
+//   (PERF.md): 48 rows spill at 64 registers or halve the blocks an SM, and
+//   planes loaded two ahead, in registers or by cp.async, lost to one.
+// * The general form (a 27-point kernel reads x-1 at in-plane offsets): per
+//   field the two most recent planes of each level below m, the incoming
+//   level-0 plane and one spare plane that each level's result goes to, all
+//   in shared memory:
+//
+//     STP_NF x (2m + 2) planes of (kTileY + 2m) x kTileW 4-byte cells
+//
+//   (m = 3, one field: 77,824 B) and m + 1 block barriers a plane.  A level
+//   may not overwrite the plane it reads: a neighbouring thread may still
+//   read it at x-1.  stream_smem_bytes in ops/stream.py is this formula, the
+//   plan's model; the queue form never asks more, and the launch computes the
+//   size it asks.
+//
+// Grid.  The launch asks the occupancy calculator how many blocks of the
+// chosen form fit on an SM at the shared memory it asks (registers, threads
+// and shared memory together), and cuts x into chunks so that the blocks fill
+// whole waves: it picks the chunk count that minimises (waves) x (planes a
+// block marches, its 2m-plane ramp included).  Blocks march disjoint chunks
+// of output planes [p_lo, p_hi), each starting m planes early; the chunking
+// changes no value.  stp_stream_wavefront_plan reports the choice.
 //
 // Bound on an H100 SXM: bytes.  Per pass of m levels the kernel must read the
 // input and the slabs and write the output and the new slabs once, 8/m B per
-// cell-level and field.  This simple design pays instead in shared-memory
-// traffic and m + 1 block barriers per plane; the next plane's global loads
-// are issued into registers before the current plane's levels run.
+// cell-level and field; what the tiles cost on top is the apron (the tile
+// with its apron over the tile: 32 x 64 over 26 x 58, 1.36x, in the queue
+// form at m = 3), the ramp of each chunk, the shared-memory traffic and the
+// issue of about ten instructions a cell and level.
 //
 // Cells outside the valid region (the apron beyond the plane's edge, which
 // loads 0 and never leaves the block's memory; planes before the march has
@@ -55,7 +84,8 @@
 //
 // Bitwise contract: stp_body uses __fadd_rn/__fmul_rn/... (no contraction);
 // the global coordinates are (origin + index - s) mod global size, as
-// _yz_coord_planes computes them in the JAX package.  Offsets are 64-bit.
+// _yz_coord_planes computes them in the JAX package.  Both forms evaluate the
+// same body on the same values.  Offsets are 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,11 +94,8 @@
 
 namespace {
 
-constexpr int kTileY = 32;  // == STREAM_TILE_Y in ops/stream.py
-constexpr int kTileW = 64;  // == STREAM_TILE_W: tile columns with the apron
+constexpr int kTileW = 64;  // == STREAM_TILE_W in ops/stream.py: tile columns with the apron
 constexpr int kThreadsZ = 32;
-constexpr int kThreadsY = 16;
-constexpr int kBlocksPerSm = 4;  // chunk x until the grid has this many blocks per SM
 
 struct Args {
   const float* raw[STP_NF];  // (n, Xr, Yr, Zr) each
@@ -88,8 +115,219 @@ __device__ __forceinline__ int pmod(int a, int n) {
   return r < 0 ? r + n : r;
 }
 
+// Level-0 cell (i, y, col) of field q: the slab buffer for the z shell
+// columns in the slab form, else the block; 0 past the plane's edge.
+template <bool kSlabs>
+__device__ __forceinline__ float load_cell(const Args& a, int q, int64_t xo, int64_t zxo, int y, int col) {
+  if (y >= a.Yr || col >= a.W) return 0.0f;
+  const int s = a.s;
+  if (kSlabs && col < s) return a.zs[q][zxo + (int64_t)col * a.Yr + y];
+  if (kSlabs && col >= a.W - s) return a.zs[q][zxo + (int64_t)(s + col - (a.W - s)) * a.Yr + y];
+  return a.raw[q][xo + (int64_t)y * a.Zr + col];
+}
+
+// Level m's value of cell (p, y, col) to the output and, in the slab form,
+// to the emitted slabs.
+template <bool kSlabs>
+__device__ __forceinline__ void store_out(const Args& a, int64_t bo, int64_t zbo, int p, int y, int col,
+                                          const float (&v)[STP_NF]) {
+  const int s = a.s, Yr = a.Yr, W = a.W;
+  const int64_t o = bo + (int64_t)p * Yr * a.Zr + (int64_t)y * a.Zr + col;
+#pragma unroll
+  for (int q = 0; q < STP_NF; ++q) {
+    a.out[q][o] = v[q];
+    if (kSlabs) {
+      // rows [0, s): top interior columns (the -z-bound message);
+      // rows [s, 2s): bottom interior columns (+z-bound)
+      const int64_t zo = zbo + (int64_t)p * 2 * s * Yr + y;
+      if (col >= W - 2 * s) a.zout[q][zo + (int64_t)(col - (W - 2 * s)) * Yr] = v[q];
+      if (col < 2 * s) a.zout[q][zo + (int64_t)col * Yr] = v[q];
+    }
+  }
+}
+
+#ifdef STP_X_QUEUE
+
+constexpr int kQueueWarps = 16;      // thread rows
+constexpr int kQueueTileRows = 32;   // tile rows with the apron, a multiple of the thread rows
+constexpr int kQueueMinBlocks = 2;   // blocks an SM the register budget is cut for (m <= 4)
+
+// The queue form's tile rows, its apron included: kQueueTileRows, or more
+// thread rows where 2m would leave fewer than 8 output rows.
+__host__ __device__ constexpr int kQueueRows(int m) {
+  int h = kQueueTileRows;
+  while (h - 2 * m < 8) h += kQueueWarps;
+  return h;
+}
+
+constexpr int kThreads = kThreadsZ * kQueueWarps;
+constexpr int kQueueForm = 1;
+
+// cells before the first plane and after the last, so that a read at an
+// in-plane offset from any tile cell stays inside the allocation
+constexpr int kPad = kTileW + 4;
+
+// per field: two planes of each level 0..m-1
+template <int M>
+constexpr size_t smem_bytes() {
+  return ((size_t)STP_NF * 2 * M * kQueueRows(M) * kTileW + 2 * kPad) * 4;
+}
+
+template <int M>
+constexpr int tile_rows() {
+  return kQueueRows(M) - 2 * M;
+}
+
+// At m <= 4 the registers are cut so that two blocks fit an SM (64 a thread).
 template <int M, bool kSlabs>
-__global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
+__global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefront(Args a) {
+  extern __shared__ float smem_all[];
+  float* const smem = smem_all + kPad;
+  constexpr int m = M;
+  constexpr int H = kQueueRows(M);
+  constexpr int TW = kTileW;
+  constexpr int TZ = kTileW - 2 * m;  // output columns per tile
+  constexpr int P = H * TW;
+  constexpr int RI = H / kQueueWarps;  // consecutive rows a thread owns
+  constexpr int CI = TW / kThreadsZ;   // columns a thread owns, 32 apart
+  // plane of level L (< m) of field q at march parity `par`
+  auto plane = [&](int q, int L, int par) -> float* { return smem + ((q * m + L) * 2 + par) * P; };
+  const int s = a.s;
+  const int b = blockIdx.z / a.nchunks;
+  const int chunk = blockIdx.z - b * a.nchunks;
+  const int p_lo = s + chunk * a.xchunk;
+  const int p_hi = min(p_lo + a.xchunk, a.Xr - s);
+  // tile cell (0, 0) at row y0, column c0; >= 0 since s >= m
+  const int y0 = s + blockIdx.y * (H - 2 * m) - m;
+  const int c0 = s + blockIdx.x * TZ - m;
+  const int Yr = a.Yr, W = a.W;
+  const int64_t plane_cells = (int64_t)Yr * a.Zr;
+  const int64_t zplane = (int64_t)2 * s * Yr;
+  const int64_t bo = (int64_t)b * a.Xr * plane_cells;
+  const int64_t zbo = (int64_t)b * a.Xr * zplane;
+  const int ox = a.origins[3 * b], oy = a.origins[3 * b + 1], oz = a.origins[3 * b + 2];
+  const int tz0 = threadIdx.x, ty0 = threadIdx.y * RI;
+  // the cells whose level m this thread writes: inside the tile's level-m
+  // region and the block's interior (bit r * CI + c)
+  unsigned own = 0;
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < CI; ++c) {
+      const int ty = ty0 + r, tz = tz0 + c * kThreadsZ;
+      if (ty >= m && ty < H - m && tz >= m && tz < TW - m && y0 + ty < Yr - s && c0 + tz < W - s)
+        own |= 1u << (r * CI + c);
+    }
+
+  // output plane p = i - m needs level-0 planes p-m .. p+m
+  const int i0 = p_lo - m;
+  const int i_end = p_hi + m;
+  // level-0 plane i of this thread's cells, fetched one plane ahead
+  float pre[STP_NF][RI][CI];
+  auto fetch = [&](int i) {
+    const int64_t xo = bo + (int64_t)i * plane_cells, zxo = zbo + (int64_t)i * zplane;
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < CI; ++c)
+#pragma unroll
+        for (int q = 0; q < STP_NF; ++q)
+          pre[q][r][c] = load_cell<kSlabs>(a, q, xo, zxo, y0 + ty0 + r, c0 + tz0 + c * kThreadsZ);
+  };
+
+  // the queue of level L < m at this thread's cells: old (plane j-1) and mid
+  // (plane j, also in shared memory), j = i - L - 1 while plane i marches in;
+  // nw holds the newest plane of the level below the one being computed
+  float old_[STP_NF][m][RI][CI], mid[STP_NF][m][RI][CI], nw[STP_NF][RI][CI];
+#pragma unroll
+  for (int q = 0; q < STP_NF; ++q)
+#pragma unroll
+    for (int L = 0; L < m; ++L)
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < CI; ++c) old_[q][L][r][c] = mid[q][L][r][c] = 0.0f;
+
+  fetch(i0);
+  for (int i = i0; i < i_end; ++i) {
+    const int wp = i & 1, rp = wp ^ 1;  // this plane's buffers; the previous plane's
+#pragma unroll
+    for (int q = 0; q < STP_NF; ++q)
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < CI; ++c) {
+          nw[q][r][c] = pre[q][r][c];
+          plane(q, 0, wp)[(ty0 + r) * TW + tz0 + c * kThreadsZ] = pre[q][r][c];
+        }
+    if (i + 1 < i_end) fetch(i + 1);
+#pragma unroll
+    for (int l = 1; l <= m; ++l) {
+      const int p = i - l;  // raw plane of this level's result
+      const int xg = pmod(ox + p - s, a.gx);
+      float res[STP_NF][RI][CI];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+#pragma unroll
+        for (int c = 0; c < CI; ++c) {
+          // every cell, the apron's too: outside the tile shrunk by l the
+          // value is garbage that feeds only garbage, and the padding keeps
+          // the reads of the tile's edge in bounds
+          const int ty = ty0 + r, tz = tz0 + c * kThreadsZ;
+          const int k = ty * TW + tz;
+          auto ld = [&](int q, int dx, int dy, int dz) -> float {
+            if (dx < 0) return old_[q][l - 1][r][c];
+            if (dx > 0) return nw[q][r][c];
+            if (dz == 0 && r + dy >= 0 && r + dy < RI) return mid[q][l - 1][r + dy][c];
+            return plane(q, l - 1, rp)[k + dy * TW + dz];
+          };
+          float v[STP_NF];
+          stp_body(ld, l, xg, pmod(oy + y0 + ty - s, a.gy), pmod(oz + c0 + tz - s, a.gz), v);
+          if (l == m && p >= p_lo && (own >> (r * CI + c) & 1u))
+            store_out<kSlabs>(a, bo, zbo, p, y0 + ty, c0 + tz, v);
+#pragma unroll
+          for (int q = 0; q < STP_NF; ++q) res[q][r][c] = v[q];
+        }
+      }
+      // level l-1 slides by one plane; level l's plane i-l is the newest
+#pragma unroll
+      for (int q = 0; q < STP_NF; ++q) {
+#pragma unroll
+        for (int r = 0; r < RI; ++r)
+#pragma unroll
+          for (int c = 0; c < CI; ++c) {
+            old_[q][l - 1][r][c] = mid[q][l - 1][r][c];
+            mid[q][l - 1][r][c] = nw[q][r][c];
+            nw[q][r][c] = res[q][r][c];
+            if (l < m) plane(q, l, wp)[(ty0 + r) * TW + tz0 + c * kThreadsZ] = res[q][r][c];
+          }
+      }
+    }
+    // this plane's writes before the next plane's reads of them, and this
+    // plane's reads of the other parity before the next plane overwrites it
+    __syncthreads();
+  }
+}
+
+#else  // the general form
+
+constexpr int kTileY = 32;     // == STREAM_TILE_Y in ops/stream.py: output rows of a tile
+constexpr int kThreadsY = 16;  // thread rows
+constexpr int kThreads = kThreadsZ * kThreadsY;
+constexpr int kQueueForm = 0;
+
+template <int M>
+constexpr size_t smem_bytes() {
+  return (size_t)STP_NF * (2 * M + 2) * (kTileY + 2 * M) * kTileW * 4;
+}
+
+template <int M>
+constexpr int tile_rows() {
+  return kTileY;
+}
+
+template <int M, bool kSlabs>
+__global__ void __launch_bounds__(kThreads) wavefront(Args a) {
   extern __shared__ float smem[];
   constexpr int m = M;
   constexpr int H = kTileY + 2 * m;
@@ -107,10 +345,10 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   // tile cell (0, 0) at row y0, column c0; >= 0 since s >= m
   const int y0 = s + blockIdx.y * kTileY - m;
   const int c0 = s + blockIdx.x * TZ - m;
-  const int Yr = a.Yr, W = a.W, Zr = a.Zr;
-  const int64_t plane = (int64_t)Yr * Zr;
+  const int Yr = a.Yr, W = a.W;
+  const int64_t plane_cells = (int64_t)Yr * a.Zr;
   const int64_t zplane = (int64_t)2 * s * Yr;
-  const int64_t bo = (int64_t)b * a.Xr * plane;
+  const int64_t bo = (int64_t)b * a.Xr * plane_cells;
   const int64_t zbo = (int64_t)b * a.Xr * zplane;
   const int ox = a.origins[3 * b], oy = a.origins[3 * b + 1], oz = a.origins[3 * b + 2];
   const int tz0 = threadIdx.x, ty0 = threadIdx.y;
@@ -119,28 +357,15 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   // plane ahead, so the loads fly while the levels of the plane before run
   float pre[STP_NF][kRowIters][kColIters];
   auto fetch = [&](int i) {
-    const int64_t xo = bo + (int64_t)i * plane;
+    const int64_t xo = bo + (int64_t)i * plane_cells, zxo = zbo + (int64_t)i * zplane;
 #pragma unroll
     for (int r = 0; r < kRowIters; ++r) {
 #pragma unroll
       for (int c = 0; c < kColIters; ++c) {
         const int ty = ty0 + r * kThreadsY, tz = tz0 + c * kThreadsZ;
-        const int y = y0 + ty, col = c0 + tz;
-        const bool in = ty < H && tz < TW && y < Yr && col < W;
 #pragma unroll
-        for (int q = 0; q < STP_NF; ++q) {
-          float v = 0.0f;
-          if (in) {
-            if (kSlabs && col < s) {
-              v = a.zs[q][zbo + i * zplane + (int64_t)col * Yr + y];
-            } else if (kSlabs && col >= W - s) {
-              v = a.zs[q][zbo + i * zplane + (int64_t)(s + col - (W - s)) * Yr + y];
-            } else {
-              v = a.raw[q][xo + (int64_t)y * Zr + col];
-            }
-          }
-          pre[q][r][c] = v;
-        }
+        for (int q = 0; q < STP_NF; ++q)
+          pre[q][r][c] = ty < H && tz < TW ? load_cell<kSlabs>(a, q, xo, zxo, y0 + ty, c0 + tz) : 0.0f;
       }
     }
   };
@@ -202,18 +427,7 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
             continue;
           }
           if (p < p_lo || y >= Yr - s || col >= W - s) continue;
-          const int64_t o = bo + (int64_t)p * plane + (int64_t)y * Zr + col;
-#pragma unroll
-          for (int q = 0; q < STP_NF; ++q) {
-            a.out[q][o] = v[q];
-            if (kSlabs) {
-              // rows [0, s): top interior columns (the -z-bound message);
-              // rows [s, 2s): bottom interior columns (+z-bound)
-              const int64_t zo = zbo + (int64_t)p * zplane + y;
-              if (col >= W - 2 * s) a.zout[q][zo + (int64_t)(col - (W - 2 * s)) * Yr] = v[q];
-              if (col < 2 * s) a.zout[q][zo + (int64_t)col * Yr] = v[q];
-            }
-          }
+          store_out<kSlabs>(a, bo, zbo, p, y, col, v);
         }
       }
       __syncthreads();
@@ -228,33 +442,73 @@ __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
   }
 }
 
+#endif  // STP_X_QUEUE
+
+// The launch of one form: shared memory, blocks an SM and the x chunking.
+struct Plan {
+  int queue, blocks_per_sm, sms, blocks, xchunk, nchunks, smem, threads, tiles_z, tiles_y;
+};
+
+template <int M, bool kSlabs>
+int plan_launch(int n, int Xr, int Yr, int W, int s, Plan* pl) {
+  constexpr int TZ = kTileW - 2 * M;
+  const size_t smem = smem_bytes<M>();
+  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kSlabs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 132, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront<M, kSlabs>, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return -1;
+  const int ix = Xr - 2 * s, iy = Yr - 2 * s, iz = W - 2 * s;
+  const int ty = tile_rows<M>();
+  pl->tiles_z = (iz + TZ - 1) / TZ;
+  pl->tiles_y = (iy + ty - 1) / ty;
+  const int64_t tiles = (int64_t)pl->tiles_z * pl->tiles_y * n;
+  const int64_t resident = (int64_t)per_sm * sms;
+  // the chunk count whose blocks fill whole waves best: waves x planes a
+  // block marches (its chunk and the 2m-plane ramp); ties to fewer blocks
+  int64_t best = -1;
+  for (int want = 1; want <= ix; ++want) {
+    const int xchunk = (ix + want - 1) / want;
+    const int nchunks = (ix + xchunk - 1) / xchunk;
+    if (nchunks != want || (int64_t)n * nchunks > 65535) continue;
+    const int64_t waves = (tiles * nchunks + resident - 1) / resident;
+    const int64_t cost = waves * (xchunk + 2 * M);
+    if (best < 0 || cost < best) {
+      best = cost;
+      pl->xchunk = xchunk;
+      pl->nchunks = nchunks;
+    }
+  }
+  if (best < 0) return -1;
+  pl->queue = kQueueForm;
+  pl->blocks_per_sm = per_sm;
+  pl->sms = sms;
+  pl->blocks = (int)(tiles * pl->nchunks);
+  pl->smem = (int)smem;
+  pl->threads = kThreads;
+  return 0;
+}
+
 template <int M, bool kSlabs>
 int launch(Args a, int n, cudaStream_t stream) {
-  constexpr int TZ = kTileW - 2 * M;
-  constexpr size_t smem = (size_t)STP_NF * (2 * M + 2) * (kTileY + 2 * M) * kTileW * 4;
-  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kSlabs>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int ix = a.Xr - 2 * a.s, iy = a.Yr - 2 * a.s, iz = a.W - 2 * a.s;
-  const int tiles = ((iz + TZ - 1) / TZ) * ((iy + kTileY - 1) / kTileY);
-  // chunks of at least 8m planes, so the 2m-plane ramp of a chunk stays small
-  const int want = (kBlocksPerSm * sms + tiles * n - 1) / (tiles * n);
-  int xchunk = (ix + want - 1) / want;
-  if (xchunk < 8 * M) xchunk = 8 * M;
-  a.xchunk = xchunk;
-  a.nchunks = (ix + xchunk - 1) / xchunk;
-  if ((int64_t)n * a.nchunks > 65535) return -1;
-  dim3 grid((iz + TZ - 1) / TZ, (iy + kTileY - 1) / kTileY, n * a.nchunks);
-  wavefront<M, kSlabs><<<grid, dim3(kThreadsZ, kThreadsY), smem, stream>>>(a);
+  Plan pl;
+  const int rc = plan_launch<M, kSlabs>(n, a.Xr, a.Yr, a.W, a.s, &pl);
+  if (rc != 0) return rc;
+  a.xchunk = pl.xchunk;
+  a.nchunks = pl.nchunks;
+  dim3 grid(pl.tiles_z, pl.tiles_y, n * pl.nchunks);
+  dim3 block(kThreadsZ, kThreads / kThreadsZ);
+  wavefront<M, kSlabs><<<grid, block, pl.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int M>
-int launch_form(const Args& a, int n, bool slabs, cudaStream_t stream) {
-  return slabs ? launch<M, true>(a, n, stream) : launch<M, false>(a, n, stream);
+bool bad_args(int n, int Xr, int Yr, int Zr, int W, int m, int s, int gx, int gy, int gz) {
+  return m != STP_M || m > s || n < 1 || 2 * s >= Xr || 2 * s >= Yr || 2 * s >= W || W > Zr || gx < 1 ||
+         gy < 1 || gz < 1;
 }
 
 }  // namespace
@@ -267,9 +521,7 @@ extern "C" {
 int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, void* const* zout,
                          const int* origins, int n, int Xr, int Yr, int Zr, int W, int m, int s,
                          int gx, int gy, int gz, int slabs, void* stream) {
-  if (m != STP_M || m > s || n < 1 || 2 * s >= Xr || 2 * s >= Yr || 2 * s >= W ||
-      W > Zr || gx < 1 || gy < 1 || gz < 1 || (slabs && (zs == nullptr || zout == nullptr)))
-    return -1;
+  if (bad_args(n, Xr, Yr, Zr, W, m, s, gx, gy, gz) || (slabs && (zs == nullptr || zout == nullptr))) return -1;
   Args a;
   for (int q = 0; q < STP_NF; ++q) {
     a.raw[q] = static_cast<const float*>(raw[q]);
@@ -287,7 +539,24 @@ int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, vo
   a.gy = gy;
   a.gz = gz;
   a.xchunk = a.nchunks = 0;
-  return launch_form<STP_M>(a, n, slabs, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  return slabs ? launch<STP_M, true>(a, n, st) : launch<STP_M, false>(a, n, st);
+}
+
+// The launch stp_stream_wavefront makes for these arguments, into info[10]:
+// form (1 register queue, 0 general), blocks an SM, SMs, blocks, x chunk,
+// chunks, shared memory bytes, threads a block, tiles along z and y.
+// Returns what the launch would.
+int stp_stream_wavefront_plan(int n, int Xr, int Yr, int Zr, int W, int m, int s, int slabs, int* info) {
+  if (bad_args(n, Xr, Yr, Zr, W, m, s, 1, 1, 1)) return -1;
+  Plan pl;
+  const int rc =
+      slabs ? plan_launch<STP_M, true>(n, Xr, Yr, W, s, &pl) : plan_launch<STP_M, false>(n, Xr, Yr, W, s, &pl);
+  if (rc != 0) return rc;
+  const int v[10] = {pl.queue, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks, pl.smem,
+                     pl.threads, pl.tiles_z, pl.tiles_y};
+  for (int j = 0; j < 10; ++j) info[j] = v[j];
+  return 0;
 }
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

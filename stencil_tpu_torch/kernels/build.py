@@ -52,7 +52,6 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "stp_jacobi_plane_level": [_P] * 4 + [_I] * 8 + [_P],
     },
     "halo_blend": {
-        "stp_blend_slab": [_P, _P, _I, _L, _L, _L, _L, _I, _L, _L, _P],
         "stp_blend_slab_dynamic": [_P, _P, _P, _I, _L, _L, _L, _L, _I, _L, _P],
     },
     "jacobi_slab": {
@@ -65,9 +64,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "pack": {
         **{fn: [_P, _P, _I] + [_L] * 6 + [_P] for fn in ("stp_pack_zshell", "stp_unpack_zshell")},
         # descriptor entries: the address of a cached int64 descriptor, two
-        # data pointers, the stream (ops/pack.py)
+        # data pointers, the stream (ops/pack.py, ops/halo_blend.py)
         **{fn: [_P] * 4 for fn in ("stp_pack_slab_desc", "stp_unpack_slab_desc", "stp_pack_yshell_desc",
-                                   "stp_unpack_yshell_desc")},
+                                   "stp_unpack_yshell_desc", "stp_blend_slab_desc")},
     },
     "plane_stencil": {
         "stp_mean6_plane_level": [_P, _P] + [_I] * 9 + [_P],
@@ -88,6 +87,7 @@ TEMPLATE_SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "stream_wavefront": {
         "stp_stream_wavefront": [_PP] * 4 + [_P] + [_I] * 11 + [_P],
+        "stp_stream_wavefront_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     },
 }
 

@@ -46,7 +46,7 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
     (_HB, "blend_slab"): _ported(
         "stencil_tpu_torch.ops.halo_blend:blend_slab",
         "stencil_tpu_torch.ops.halo_blend:blend_slab_plain",
-        "stencil_tpu_torch/csrc/halo_blend.cu",
+        "stencil_tpu_torch/csrc/pack.cu",
         f"{_HB}:84",
     ),
     (_JP, "jacobi_zring_wavefront_step"): _ported(

@@ -6,8 +6,17 @@ is a Pallas kernel that keeps a thin halo write tile-local under the (8,128)
 layout.  The port keeps what it computes: write ``slab`` into ``block`` at
 offset ``pos`` along ``axis``, in place.  ``blend_slab_dynamic`` is the same
 write at a run-time offset per block (the +axis halo of an uneven axis).  On a
-CUDA tensor each is the hand-written kernel ``csrc/halo_blend.cu``; on a CPU
-tensor it is the plain version, a copy into the narrowed view.
+CUDA tensor each is a hand-written kernel: ``blend_slab`` the slab unpack of
+``csrc/pack.cu`` (the n blocks as one block, the slab as a box in it),
+``blend_slab_dynamic`` ``csrc/halo_blend.cu``; on a CPU tensor each is the
+plain version, a copy into the narrowed view.
+
+``blend_slab`` launches through a cached descriptor, as the slab packs of
+``ops/pack.py`` do: a geometry (block shape, dtype, axis, slab width and
+position) is checked once and its int64 descriptor cached, and a call then
+checks the tensors, passes the descriptor's address, the two data pointers
+and the raw stream to a 4-argument C entry, and costs about what a PyTorch
+copy costs on the host.
 
 All take a single block ``(X, Y, Z)`` or ``n`` blocks ``(n, X, Y, Z)`` with
 slabs of matching rank; one launch serves all ``n`` blocks.
@@ -15,13 +24,15 @@ slabs of matching rank; one launch serves all ``n`` blocks.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from stencil_tpu_torch.kernels import check_tensor, same_device, stream_handle
+from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device, stream_handle
 
 
 def supports(dtype: torch.dtype) -> bool:
-    """Do the kernels (these and the shell packs) take ``dtype``?  Any of
+    """Do the kernels (these and the packs) take ``dtype``?  Any of
     1, 2, 4 or 8 bytes (``stencil_tpu/ops/halo_blend.py:59`` knows the
     (8,128) tile geometry of the same widths)."""
     return dtype.itemsize in (1, 2, 4, 8)
@@ -53,23 +64,76 @@ def blend_slab_plain(block: torch.Tensor, slab: torch.Tensor, axis: int, pos: in
     return block
 
 
+#: the int64 fields of a ``blend_slab`` descriptor, in the order the C entry
+#: ``stp_blend_slab_desc`` of ``csrc/pack.cu`` reads them
+BLEND_DESC_FIELDS = ("itemsize", "n", "X", "Y", "Z", "axis", "r", "pos")
+
+_BLEND_LAUNCHES: dict = {}
+_ENTRY = None
+
+
+def _blend_launch(block: torch.Tensor, axis: int, r: int, pos: int):
+    """The cached launch of ``blend_slab`` for this geometry: ``(descriptor,
+    its address, slab shape)``.  A geometry is checked before it is cached."""
+    key = (block.shape, block.dtype, axis, r, pos)
+    try:
+        return _BLEND_LAUNCHES[key]
+    except (KeyError, TypeError):
+        pass
+    check_tensor(block, "block", ndims=(3, 4))
+    if not supports(block.dtype):
+        raise TypeError(f"the blend kernel takes 1/2/4/8-byte dtypes, got {block.dtype}")
+    if axis not in (0, 1, 2):
+        raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
+    lead = block.dim() - 3
+    ext = block.shape[lead + axis]
+    if not (r >= 0 and 0 <= pos <= ext - r):
+        raise ValueError(f"slab of width {r} at {pos} leaves axis {axis} of extent {ext}")
+    shape = list(block.shape)
+    shape[lead + axis] = r
+    if math.prod(shape) >= 2 ** 31:
+        raise ValueError(f"slab {tuple(shape)} holds 2^31 cells or more")
+    from stencil_tpu_torch.ops.pack import _remember
+
+    n = block.shape[0] if lead else 1
+    return _remember(_BLEND_LAUNCHES, key, (block.element_size(), n, *block.shape[-3:], axis, r, pos),
+                     torch.Size(shape))
+
+
+def _entry():
+    """``(C entry, library)`` of ``stp_blend_slab_desc`` in ``csrc/pack.cu``,
+    built and loaded at the first launch."""
+    global _ENTRY
+    if _ENTRY is None:
+        from stencil_tpu_torch.kernels import build
+
+        lib = build.load("pack")
+        _ENTRY = (lib.stp_blend_slab_desc, lib)
+    return _ENTRY
+
+
 def blend_slab(block: torch.Tensor, slab: torch.Tensor, axis: int, pos: int) -> torch.Tensor:
     """Write ``slab`` into ``block`` at ``pos`` along ``axis`` (0 = x, 1 = y,
     2 = z), in place, and return ``block``.  CUDA tensors launch the kernel
-    (any 1/2/4/8-byte dtype); CPU tensors take the plain version."""
-    r = _check(block, slab, axis, pos)
-    if block.device.type == "cpu":
+    (any 1/2/4/8-byte dtype) through the cached descriptor of the geometry;
+    CPU tensors take the plain version."""
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return blend_slab_plain(block, slab, axis, pos)
-    from stencil_tpu_torch.kernels import build
+    try:
+        r = slab.shape[block.dim() - 3 + axis]
+    except (AttributeError, IndexError, TypeError):
+        r = _check(block, slab, axis, pos)  # raises with the reason
+    _, addr, slab_shape = _blend_launch(block, axis, r, pos)
+    dev = block.device
+    if not (block.is_contiguous() and isinstance(slab, torch.Tensor) and slab.dtype == block.dtype
+            and slab.shape == slab_shape and slab.is_contiguous() and slab.device == dev):
+        _check(block, slab, axis, pos)  # raises with the reason
+    entry, lib = _entry()
+    rc = entry(addr, block.data_ptr(), slab.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        from stencil_tpu_torch.kernels import build
 
-    lib = build.load("halo_blend")
-    n = block.shape[0] if block.dim() == 4 else 1
-    X, Y, Z = block.shape[-3:]
-    rc = lib.stp_blend_slab(
-        block.data_ptr(), slab.data_ptr(), block.element_size(),
-        n, X, Y, Z, axis, r, pos, stream_handle(block.device),
-    )
-    build.check(lib, rc, "blend_slab")
+        build.check(lib, rc, "blend_slab")
     blend_slab.launches += 1
     return block
 

@@ -13,7 +13,8 @@ TPU kernels:
   (``csrc/stream_plane.cu``);
 * ``stream_wavefront_pass`` (``stream.py:481``): m levels (r = 1) over
   s-shell blocks in one pass, in z-slab and plain forms
-  (``csrc/stream_wavefront.cu``).
+  (``csrc/stream_wavefront.cu``; a kernel that reads x-1 and x+1 only at
+  the centre, as Astaroth's does, gets its register-queue form).
 
 The kernel is traced once (``ops/stream_trace.py``) into an expression graph;
 its CUDA body is emitted into each kernel template and built by nvcc, and its
@@ -56,12 +57,13 @@ from stencil_tpu_torch.ops.stream_trace import PlaneInfo, PlaneView, StreamKerne
 __all__ = [
     "PlaneInfo", "PlaneView", "StreamKernel", "make_stream_step", "plan_stream",
     "stream_plane_pass", "stream_plane_pass_plain", "stream_smem_bytes", "stream_smem_fits",
-    "stream_wavefront_pass", "stream_wavefront_pass_plain", "stream_wrap_pass",
+    "stream_wavefront_launch", "stream_wavefront_pass", "stream_wavefront_pass_plain", "stream_wrap_pass",
     "stream_wrap_pass_plain",
 ]
 
-#: the stream wavefront kernel's tile per block: 32 output rows of y, and 64
-#: columns of z with the m-cell apron on each side (``csrc/stream_wavefront.cu``)
+#: the stream wavefront kernel's tile per block in its general form (the
+#: plan's model): 32 output rows of y, and 64 columns of z with the m-cell
+#: apron on each side (``csrc/stream_wavefront.cu``)
 STREAM_TILE_Y = 32
 STREAM_TILE_W = 64
 
@@ -134,9 +136,11 @@ def permute_and_extend_z_slabs(zout: torch.Tensor, s: int, yext, xext) -> torch.
 
 
 def stream_smem_bytes(m: int, n_fields: int) -> int:
-    """Shared memory of one block of the m-level stream wavefront kernel:
+    """The plan's model of one block of the m-level stream wavefront kernel:
     per field, 2m + 2 planes (two per level below m, the incoming one and a
-    spare for each level's result) of (32 + 2m) x 64 4-byte cells.  A
+    spare for each level's result) of (32 + 2m) x 64 4-byte cells, what the
+    kernel's general form asks; its register-queue form asks less
+    (``csrc/stream_wavefront.cu``), and each launch computes its own.  A
     constant of depth and field count, so the CPU and the card plan the same
     depth."""
     return n_fields * (2 * m + 2) * (STREAM_TILE_Y + 2 * m) * STREAM_TILE_W * 4
@@ -458,6 +462,34 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
     build.check(lib, rc, "stream_wavefront_pass")
     stream_wavefront_pass.launches += 1
     return outs, zouts
+
+
+#: the fields of ``stream_wavefront_launch``, in the order the C entry fills them
+WAVEFRONT_PLAN_FIELDS = ("queue", "blocks_per_sm", "sms", "blocks", "xchunk", "nchunks", "smem_bytes",
+                         "threads", "tiles_z", "tiles_y")
+
+
+def stream_wavefront_launch(kernel: Kernel, names, raws, m: int, s_off: int, global_size, z_slabs=None,
+                            z_valid=None) -> dict:
+    """The launch ``stream_wavefront_pass`` makes for these arguments on the
+    card, without making it: ``form`` ("queue", the register-queue form, or
+    "general"), the blocks an SM the occupancy calculator allows, the grid's
+    blocks and its ``waves`` (blocks over the blocks resident at once), the
+    x chunking, the shared memory and threads a block asks and the tiles
+    along z and y (fields as ``WAVEFRONT_PLAN_FIELDS``)."""
+    shape = raws[0].shape
+    n = 1 if len(shape) == 3 else shape[0]
+    Xr, Yr, Zr = shape[-3:]
+    zv = Zr if z_valid is None else int(z_valid)
+    sk = _as_kernel(kernel, names, 1, global_size)
+    lib = _library(sk, *_wavefront_variant(m))
+    info = (ctypes.c_int * len(WAVEFRONT_PLAN_FIELDS))()
+    rc = lib.stp_stream_wavefront_plan(n, Xr, Yr, Zr, zv, m, s_off, int(z_slabs is not None), info)
+    build.check(lib, rc, "stream_wavefront_launch")
+    plan = dict(zip(WAVEFRONT_PLAN_FIELDS, info))
+    plan["form"] = "queue" if plan.pop("queue") else "general"
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan
 
 
 def _wavefront_variant(m: int):

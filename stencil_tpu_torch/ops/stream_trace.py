@@ -11,7 +11,9 @@ views into a graph of ``Node``s and has two back ends for it:
   ``DistributedDomain.make_step`` runs user kernels through it too, so both
   engines share one arithmetic;
 * ``emit_cuda``: a ``__device__`` body for the kernel templates in
-  ``csrc/stream_*.cu``.
+  ``csrc/stream_*.cu``, and the macro that picks the wavefront kernel's
+  register-queue form for kernels that read x-1 and x+1 only at the
+  centre (``x_reads_centred``).
 
 What a traced kernel may do: ``views[name].sh(dx, dy, dz)`` (every offset
 within the declared ``x_radius``, as ``stream.py:179-181`` asserts) and
@@ -46,7 +48,7 @@ product feeding an add and are bitwise.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -643,14 +645,25 @@ def _emit_level(t: Trace, indent: str) -> List[str]:
     return lines
 
 
+def x_reads_centred(traces: Iterable[Trace]) -> bool:
+    """Does every read at x-1 or x+1 of these traces sit at in-plane offset
+    (0, 0)?  Then the wavefront kernel keeps a cell's x neighbours in
+    registers (its register-queue form, ``csrc/stream_wavefront.cu``)."""
+    return all(n.args[1] == 0 or n.args[2:] == (0, 0)
+               for t in traces for n in t.live() if n.op == "load")
+
+
 def emit_cuda(traces: Dict[Optional[int], Trace], n_fields: int) -> str:
-    """The generated part of a kernel template: the field count and
-    ``stp_body(ld, level, xg, yg, zg, out)``, which reads field ``q`` at an
-    offset through ``ld(q, dx, dy, dz)`` and writes every field's new value
-    (a pass-through field its centre) to ``out``.  ``traces`` maps a level to
-    its trace, or ``None`` to the one trace of a level-free kernel."""
-    lines = [
-        f"#define STP_NF {n_fields}",
+    """The generated part of a kernel template: the field count,
+    ``STP_X_QUEUE`` where ``x_reads_centred`` holds, and ``stp_body(ld,
+    level, xg, yg, zg, out)``, which reads field ``q`` at an offset through
+    ``ld(q, dx, dy, dz)`` and writes every field's new value (a pass-through
+    field its centre) to ``out``.  ``traces`` maps a level to its trace, or
+    ``None`` to the one trace of a level-free kernel."""
+    lines = [f"#define STP_NF {n_fields}"]
+    if x_reads_centred(traces.values()):
+        lines.append("#define STP_X_QUEUE 1")
+    lines += [
         "template <class Ld>",
         "__device__ __forceinline__ void stp_body(const Ld& ld, int level, int xg, int yg, int zg,",
         "                                         float (&out)[STP_NF]) {",
@@ -687,5 +700,5 @@ def run_kernel(kernel: Callable, views: Dict[str, object], info=None) -> Dict[st
 
 __all__ = [
     "Graph", "Node", "PlaneInfo", "PlaneView", "StreamKernel", "Trace", "emit_cuda",
-    "run_kernel", "where",
+    "run_kernel", "where", "x_reads_centred",
 ]

@@ -550,8 +550,14 @@ def _r2(views, info):
                   + s.sh(-1, 0, 2)) / 6.0}
 
 
+def _xdiag(views, info):
+    """Two joint fields that read x+-1 off the centre (the general form)."""
+    u, c = views["u"], views["c"]
+    return {"u": (u.sh(1, 1, 0) + c.sh(-1, 0, 1) + u.sh(0, -1, -1)) / 3.0, "c": c.sh(-1, 0, 0) * 0.5 + u.center()}
+
+
 STREAM_KERNELS = {"mean6": (_mean6, ["a", "b"]), "k27": (_k27, ["u"]), "forced": (_forced, ["u"]),
-                  "vc": (_vc, ["u", "c"])}
+                  "vc": (_vc, ["u", "c"]), "xdiag": (_xdiag, ["u", "c"])}
 
 
 def _wavefront_gs(s, slabs):
@@ -562,7 +568,7 @@ def _wavefront_gs(s, slabs):
 def stream_libs():
     """The card, with every stream library the tests below launch built up
     front, one nvcc each, all at once (a lazy build would run them one by
-    one)."""
+    one; a library does not depend on the global size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     from stencil_tpu_torch.kernels import build
@@ -640,6 +646,71 @@ def test_stream_wavefront_kernel_equals_plain(stream_libs, name, m, s, slabs):
         assert torch.equal(g[:, S, S, s:zv - s], w[:, S, S, s:zv - s])
     for g, w in zip(got_z or [], want_z or []):
         assert torch.equal(g[:, S, :, S], w[:, S, :, S])
+
+
+_FORM_GS = (2 * 61 - 3, 100, 2 * 77 - 9)
+
+
+@pytest.mark.parametrize("m,s", [(1, 1), (2, 3), (3, 3)])
+@pytest.mark.parametrize("slabs", [False, True])
+@pytest.mark.parametrize("name", sorted(STREAM_KERNELS))
+def test_stream_wavefront_forms_equal_plain(stream_libs, name, m, s, slabs):
+    """Each kernel's wavefront form (the register queue where x+-1 is read at
+    the centre, else the general form) at a second ragged shape, several
+    tiles a side in either form: bitwise on the valid region; the launch the
+    occupancy calculator sizes fills the card in whole x chunks."""
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel, x_reads_centred
+
+    dev = stream_libs
+    kern, names = STREAM_KERNELS[name]
+    sk = StreamKernel(kern, names, 1, _FORM_GS)
+    n, Xr, Yr, Zr = 1, 61 + s, 100, 77
+    zv = Zr - 2 if slabs else Zr
+    raws = [_rand((n, Xr, Yr, Zr), 51 + q, dev) for q in range(len(names))]
+    zs = [_rand((n, Xr, 2 * s, Yr), 61 + q, dev) for q in range(len(names))] if slabs else None
+    org = torch.tensor([[_FORM_GS[0] - 2, 7, 3]], dtype=torch.int32, device=dev)
+    kw = dict(z_slabs=zs, z_valid=zv if slabs else None)
+    plan = st.stream_wavefront_launch(sk, names, raws, m, s, _FORM_GS, **kw)
+    assert plan["form"] == ("queue" if x_reads_centred([sk.trace(lv) for lv in range(1, m + 1)]) else "general")
+    assert plan["blocks_per_sm"] >= 1 and plan["nchunks"] * plan["xchunk"] >= Xr - 2 * s
+    assert plan["blocks"] == plan["tiles_z"] * plan["tiles_y"] * plan["nchunks"] * n and plan["tiles_y"] >= 2
+    before = st.stream_wavefront_pass.launches
+    got, got_z = st.stream_wavefront_pass(sk, names, raws, m, s, org, _FORM_GS, **kw)
+    torch.cuda.synchronize()
+    assert st.stream_wavefront_pass.launches == before + 1
+    want, want_z = st.stream_wavefront_pass_plain(sk, names, raws, m, s, org, _FORM_GS, **kw)
+    S = slice(s, -s)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, S, S, s:zv - s], w[:, S, S, s:zv - s])
+    for g, w in zip(got_z or [], want_z or []):
+        assert torch.equal(g[:, S, :, S], w[:, S, :, S])
+
+
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_blend_slab_kernel_alignment_sweep(dev, dtype):
+    """blend_slab on its descriptor path: one block and n = 3 and 8, odd Z
+    (rows on both sides of the row kernel's 512-byte threshold), widths 1-3
+    and the whole axis at odd and even positions, block and slab pointers
+    shifted so that rows start at every offset mod 16.  Every cell outside
+    the slab keeps its value."""
+    cases = [(lead + (X, Y, Z), axis, r, pos, boff, soff)
+             for lead, X, Y, Z in (((), 5, 6, 7), ((3,), 4, 5, 133), ((8,), 3, 4, 21), ((1,), 6, 3, 300),
+                                   ((8,), 7, 9, 262))
+             for axis in (0, 1, 2)
+             for r, pos in ((1, 0), (2, 1), (3, (X, Y, Z)[axis] - 3), (1, (X, Y, Z)[axis] - 1), ((X, Y, Z)[axis], 0))
+             for boff, soff in ((0, 0), (1, 1), (3, 0), (0, 5))]
+    before = hb.blend_slab.launches
+    for i, (shape, axis, r, pos, boff, soff) in enumerate(cases):
+        sshape = list(shape)
+        sshape[len(shape) - 3 + axis] = r
+        block = _at_offset(shape, dtype, boff, 60_000 + i, dev)
+        slab = _at_offset(tuple(sshape), dtype, soff, 70_000 + i, dev)
+        want = hb.blend_slab_plain(block.clone(), slab, axis, pos)
+        got = hb.blend_slab(block, slab, axis, pos)
+        torch.cuda.synchronize()
+        assert got is block
+        assert torch.equal(got, want), (shape, axis, r, pos, boff, soff)
+    assert hb.blend_slab.launches == before + len(cases)
 
 
 def test_astaroth_routes_agree_on_card(dev):

@@ -33,7 +33,7 @@ from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
 from stencil_tpu_torch.kernels import build
 from stencil_tpu_torch.ops import stream as st
-from stencil_tpu_torch.ops.stream_trace import StreamKernel
+from stencil_tpu_torch.ops.stream_trace import StreamKernel, x_reads_centred
 
 # several test workers share the host's cores; these small tensors need no
 # intra-op threads
@@ -452,3 +452,87 @@ def test_generated_sources_and_missing_nvcc(monkeypatch, tmp_path):
     with pytest.raises(build.KernelBuildError, match="nvcc was not found"):
         build.build_generated([("stream_plane", a)])
     assert list(tmp_path.iterdir()) == []
+
+
+
+# --- the wavefront kernel's two forms -----------------------------------------------------
+
+
+def _forced_diag(where):
+    """Coordinate forcing that reads x+1 off the centre."""
+
+    def forced_diag(views, info):
+        src = views["u"]
+        cx, cy, _ = info.coords()
+        val = (src.sh(1, 1, 0) + src.sh(-1, 0, 0)) / 2.0
+        return {"u": where(cx + cy < 9, 1.0, val).astype(src.center().dtype)}
+
+    return forced_diag
+
+
+def level_diag(views, info):
+    """A level-dependent kernel that reads x-1 off the centre (its products
+    by powers of two are exact, so no contraction can change them)."""
+    u = views["u"]
+    return {"u": (u.sh(-1, 0, 1) + u.sh(1, 0, 0)) * (0.5 ** info.level)}
+
+
+def level_centred(views, info):
+    u = views["u"]
+    return {"u": (u.sh(-1, 0, 0) + u.sh(0, 1, -1) + u.sh(1, 0, 0)) * (0.5 ** info.level)}
+
+
+def _astaroth(n_fields):
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+
+    return AstarothSim(8, 8, 8, device="cpu")._kernel, [f"d{i}" for i in range(n_fields)]
+
+
+FORM_KERNELS = {  # name: (JAX kernel, port kernel)
+    "forced diag": (_forced_diag(jnp.where), _forced_diag(torch.where)),
+    "level diag": (level_diag, level_diag),
+    "level centred": (level_centred, level_centred),
+}
+
+
+@pytest.mark.parametrize("name,queue", [
+    ("astaroth", True), ("astaroth x2", True), ("mean6", True), ("vc_diffusion", True), ("forced", True),
+    ("level centred", True), ("k27", False), ("forced diag", False), ("level diag", False),
+])
+def test_emit_cuda_picks_the_wavefront_form(name, queue):
+    """The register-queue form (``STP_X_QUEUE``) exactly where every read at
+    x-1 or x+1 sits at in-plane offset (0, 0): Astaroth's and the mean6
+    bodies, the forced kernel of tests/test_stream.py (its x reads are
+    centred) and a centred level-dependent kernel; the general form for the
+    27-point kernel and for coordinate-forced and level-dependent kernels
+    that read x+-1 off the centre.  Every level's trace counts."""
+    if name.startswith("astaroth"):
+        kern, names = _astaroth(2 if name.endswith("x2") else 1)
+    elif name in FORM_KERNELS:
+        kern, names = FORM_KERNELS[name][1], ["u"]
+    else:
+        kern, names = KERNELS[name][1:3]
+    sk = StreamKernel(kern, names, 1, (16, 16, 16))
+    text = st._source(sk, *st._wavefront_variant(3))
+    assert ("#define STP_X_QUEUE 1" in text) is queue
+    assert x_reads_centred([sk.trace(level) for level in (1, 2, 3)]) is queue
+    assert build.GENERATED_HOOK not in text and text.count("stp_body(") == 3
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("name", sorted(FORM_KERNELS))
+def test_wavefront_pass_of_either_form_vs_pallas(m, name):
+    """The plain version of a pass, what either form is held to on the card,
+    against the JAX package's pass: bitwise at every depth, since every
+    product of these kernels is exact; compared on the valid region."""
+    jk, tk = FORM_KERNELS[name]
+    s, Xr, Yr, Zr = 3, 14, 16, 18
+    gs = (2 * (Xr - 2 * s), 2 * (Yr - 2 * s), 2 * (Zr - 2 * s))
+    orgs = np.array([[0, 0, 0], [Xr - 2 * s, 2, Zr - 2 * s]], np.int32)
+    raws = _rand((2, Xr, Yr, Zr), 70)
+    got, _ = st.stream_wavefront_pass(tk, ["u"], [torch.from_numpy(raws)], m, s, torch.from_numpy(orgs), gs)
+    S = slice(s, -s)
+    for b in range(2):
+        want, _ = jst.stream_wavefront_pass(jk, ["u"], [jnp.asarray(raws[b])], m, s, jnp.asarray(orgs[b]),
+                                            JDim3(*gs), interpret=True)
+        np.testing.assert_array_equal(got[0][b, S, S, S].numpy(), np.asarray(want[0])[S, S, S])
