@@ -12,8 +12,9 @@ non-zero before the result line:
 2. build: compiles every CUDA source of the port with nvcc, all at once;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, on seeded inputs at a ragged size and at the main path's shapes
-   (phases 14-15 hold the slab and mean6 kernels at theirs); the expected
-   result is bitwise equality;
+   (phases 14-15 hold the slab and mean6 kernels at theirs; the Jacobi
+   wavefront kernels also at m = 4, 6 and 8, one march and two, on ragged
+   blocks that both spheres cross); the expected result is bitwise equality;
 4. main path, wrap route: Jacobi3D at 512^3 f32 on one subdomain, 200 steps
    through the entry points a user calls, launch counters reset just before
    and read just after; checked bitwise against the plain path at step 10,
@@ -35,7 +36,11 @@ non-zero before the result line:
    operations over 67 TFLOP/s, H100 SXM); each route's Mcells/s; from 20
    more steps of each route under torch.profiler, device time by kernel and
    the device's idle share; and the host-clock ms of a ``step(1)`` call on
-   the wavefront and shell routes;
+   the wavefront and shell routes; for each Jacobi wavefront form (z-ring,
+   shell with z slabs, shell without: the 511^3 ``auto`` route's) at the main
+   path's shapes, m = 8, its device ms a call (torch.profiler) beside its
+   CUDA-event ms and bound, and its launch plan
+   (``jacobi_wavefront_launch``: marches, blocks an SM, waves, x chunks);
 8. the Astaroth main path: ``AstarothSim(512, 512, 512, num_quantities=8,
    kernel_impl="cuda", schedule="wavefront")`` on one subdomain (the
    ``bench.py`` configuration: per-field stream_wavefront_pass launches at
@@ -239,24 +244,36 @@ def mean6_kernel(views, info):
 def device_breakdown(model, steps: int = 20) -> dict:
     """``steps`` steps of a built model under torch.profiler: wall ms per step
     (profiler on), device ms per step by CUDA kernel, and the device's idle
-    share of the wall time."""
+    share of the wall time.  A trace that holds no launch is taken again
+    (``steps`` more steps), twice at most; after three such traces the
+    device numbers are None, the miss is logged and kept in
+    ``PROFILER_MISSES``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.step(steps)
+    for _ in range(3):
         sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {
-        e.key[:72]: e.self_device_time_total / 1e3 / steps
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    }
-    busy = sum(kernels.values())
-    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
-            "idle_share": 1 - busy / wall_ms, "kernels_ms_per_step": kernels}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.step(steps)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        kernels = {
+            e.key[:72]: e.self_device_time_total / 1e3 / steps
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        }
+        if kernels:
+            busy = sum(kernels.values())
+            return {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
+                    "idle_share": 1 - busy / wall_ms, "kernels_ms_per_step": kernels}
+    PROFILER_MISSES.append({"fn": f"device_breakdown({type(model).__name__}, {steps} steps)"})
+    log(f"torch.profiler held no kernel launch in three traces of {steps} steps of {type(model).__name__}")
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": None, "idle_share": None,
+            "kernels_ms_per_step": {}}
+
+
+PROFILER_MISSES = []  # readings that CUDA events took because no trace held a launch
 
 
 def device_ms_per_call(fn, calls: int = 7) -> float:
@@ -265,11 +282,13 @@ def device_ms_per_call(fn, calls: int = 7) -> float:
     kernel's mean time over the launches the trace holds, times its launches
     a call.  The trace can drop launches (on the H100's machine a trace
     held none, and others read 0.8x: PERF.md), so the self time is not
-    divided by ``calls``; a trace that holds no launch is taken again."""
+    divided by ``calls``; a trace that holds no launch is taken again, and
+    after five such traces the reading is the CUDA-event ms of ``calls``
+    back-to-back calls, logged and kept in ``PROFILER_MISSES``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
         fn()
         sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -279,7 +298,11 @@ def device_ms_per_call(fn, calls: int = 7) -> float:
         kept = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
         if kept:
             return sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in kept) / 1e3
-    raise AssertionError("torch.profiler held no kernel launch in three traces")
+    ms = cuda_ms(fn, reps=3, inner=calls)
+    where = f"{getattr(fn, '__qualname__', repr(fn))} ({calls} calls)"
+    PROFILER_MISSES.append({"fn": where, "cuda_event_ms": ms})
+    log(f"torch.profiler held no kernel launch in five traces of {where}: CUDA events read {ms:.4f} ms a call")
+    return ms
 
 
 def host_us_per_call(fn, calls: int = 100) -> float:
@@ -295,7 +318,16 @@ def host_us_per_call(fn, calls: int = 100) -> float:
     return dt / calls * 1e6
 
 
+def ms4(v) -> str:
+    """A reading to four places, or "not measured" where it is None."""
+    return "not measured" if v is None else f"{v:.4f}"
+
+
 def log_breakdown(route: str, b: dict) -> None:
+    if b["idle_share"] is None:
+        log(f"profile {route}: wall {b['wall_ms_per_step']:.4f} ms/step (profiler on), device time not measured "
+            "(no trace held a launch)")
+        return
     top = sorted(b["kernels_ms_per_step"].items(), key=lambda kv: -kv[1])
     log(f"profile {route}: wall {b['wall_ms_per_step']:.4f} ms/step (profiler on), device busy "
         f"{b['device_ms_per_step']:.4f} ms/step, idle share {b['idle_share']:.3f}; "
@@ -552,6 +584,18 @@ def main() -> int:
             gs_w = (gs_w[0], gs_w[1], 256)
             hold_wavefront(True, m, s_off, *wavefront_args(2, 22, 26, 128, s_off, True, True, gs_w, m),
                            gs_w, z_valid=None, what=f"2x(22,26,128) m={m} s={s_off}")
+    # the depths the main path runs, one march (m = 4) and two (m = 6, 8):
+    # three ragged blocks, partial tiles in y and z, 41 interior x planes,
+    # gx so small that both spheres cross every block
+    for m in (4, 6, 8):
+        for s_off in (m, m + 1):
+            Xd, Yd = 2 * s_off + 41, 2 * s_off + 29
+            for ring, slabs in ((True, True), (False, True), (False, False)):
+                Zd = 70 if ring else 75
+                zvd = None if ring else Zd - 3
+                gs_d = (2 * s_off + 5, Yd - 2 * s_off, Zd if ring else zvd - 2 * s_off)
+                hold_wavefront(ring, m, s_off, *wavefront_args(3, Xd, Yd, Zd, s_off, ring, slabs, gs_d, m),
+                               gs_d, zvd, f"3x({Xd},{Yd},{Zd}) m={m} s={s_off} ring={ring} slabs={slabs}")
     mw = jk.wavefront_auto_depth(half)  # the depth the 2x2x2 plan picks
     rw = half + 2 * mw
     main_ring = wavefront_args(8, rw, rw, half, mw, True, True, gs, 30)
@@ -870,21 +914,46 @@ def main() -> int:
             writes += Xi * 2 * s_off * Yi
         return n * (reads + writes) * 4
 
+    wave_flops = 7 * 8 * half ** 3 * mw  # six adds and a multiply per cell and level
     ring_raw, ring_org, ring_d2, ring_zs = main_ring
-    zring_ms = cuda_ms(lambda: jk.jacobi_zring_wavefront_step(ring_raw, mw, ring_org, ring_d2, gs, ring_zs), inner=2)
+
+    def zring_call():
+        return jk.jacobi_zring_wavefront_step(ring_raw, mw, ring_org, ring_d2, gs, ring_zs)
+
+    zring_ms = cuda_ms(zring_call, inner=2)
     zring_plain_ms = cuda_ms(
         lambda: jk.jacobi_zring_wavefront_step_plain(ring_raw, mw, ring_org, ring_d2, gs, ring_zs), reps=3, inner=1)
     zring_bytes = wavefront_bytes(8, rw, rw, half + 2 * mw, mw, mw, True)
-    del main_ring, ring_raw, ring_zs
     sh_raw, sh_org, sh_d2, sh_zs = main_shell
-    shwf_ms = cuda_ms(lambda: jk.jacobi_shell_wavefront_step(sh_raw, mw, sh_org, sh_d2, gs, z_slabs=sh_zs,
-                                                             z_valid=rw), inner=2)
+
+    def shwf_call():
+        return jk.jacobi_shell_wavefront_step(sh_raw, mw, sh_org, sh_d2, gs, z_slabs=sh_zs, z_valid=rw)
+
+    def plain_call():  # the shell form without slabs (the 511^3 auto route's)
+        return jk.jacobi_shell_wavefront_step(sh_raw, mw, sh_org, sh_d2, gs)
+
+    shwf_ms = cuda_ms(shwf_call, inner=2)
     shwf_plain_ms = cuda_ms(lambda: jk.jacobi_shell_wavefront_step_plain(sh_raw, mw, sh_org, sh_d2, gs,
                                                                          z_slabs=sh_zs, z_valid=rw),
                             reps=3, inner=1)
     shwf_bytes = wavefront_bytes(8, rw, rw, rw, mw, mw, True)
-    del main_shell, sh_raw, sh_zs
-    wave_flops = 7 * 8 * half ** 3 * mw  # six adds and a multiply per cell and level
+    # each Jacobi wavefront form at the main path's shapes: device ms a call
+    # (a call may launch two marches), CUDA-event ms a call, the bound and
+    # the launch plan
+    jacobi_wf = {}
+    for form, call, shape, ring, slabs, nbytes in (
+            ("z-ring", zring_call, tuple(ring_raw.shape), True, True, zring_bytes),
+            ("shell z-slab", shwf_call, tuple(sh_raw.shape), False, True, shwf_bytes),
+            ("shell", plain_call, tuple(sh_raw.shape), False, False, wavefront_bytes(8, rw, rw, rw, mw, mw, False))):
+        jacobi_wf[form] = {"device_ms": device_ms_per_call(call), "ms": cuda_ms(call, inner=2),
+                           "bound_ms": bound(nbytes, wave_flops)[0], "shape": shape,
+                           "launch": jk.jacobi_wavefront_launch(shape, mw, ring=ring, slabs=slabs)}
+        w = jacobi_wf[form]
+        log(f"jacobi wavefront {form} {shape} m={mw}: device {w['device_ms']:.4f} ms a call, CUDA events "
+            f"{w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms; launch " + ", ".join(
+                f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in w["launch"].items())
+            + f" on {card}")
+    del main_ring, ring_raw, ring_zs, main_shell, sh_raw, sh_zs
 
     wrap_mcells = cells * (STEPS - CHECK_AT) / wrap_s / 1e6
     shell_mcells = cells * (STEPS - CHECK_AT) / shell_s / 1e6
@@ -1332,9 +1401,10 @@ def main() -> int:
     for name, fns in pack_cases.items():
         tag, form = kernel_names[name]
         per_iter = [v for k, v in route_prof.items() if tag in k and form in k]
-        if len(per_iter) != 1:
+        if route_prof and len(per_iter) != 1:
             raise AssertionError(f"{name}: {len(per_iter)} profiler entries of {tag}: {list(route_prof)}")
-        pack_dev_ms[name] = per_iter[0] / (pack_counts[name] / AST_ITERS)
+        # None where the route's traces held no launch (device_breakdown)
+        pack_dev_ms[name] = per_iter[0] / (pack_counts[name] / AST_ITERS) if per_iter else None
         pack_hot_ms[name] = device_ms_per_call(fns[0], calls=20)
         pack_lib_dev_ms[name] = device_ms_per_call(fns[2], calls=20)
     ycopy_dev_ms = device_ms_per_call(ycopy, calls=20)
@@ -1346,7 +1416,8 @@ def main() -> int:
     pack_bytes = 2 * zbuf.numel() * 4  # the window read once and written once
     log("shell packs at (8,{0},{0},{0}) f32 depth 3 (ms: kernel, plain, copy_): ".format(ps)
         + ", ".join(f"{k}: {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in pack_ms.items()) + "; device ms a "
-        "launch in the route (profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in pack_dev_ms.items())
+        "launch in the route (profiler): " + ", ".join(
+            f"{k} {ms4(v)}" for k, v in pack_dev_ms.items())
         + "; back to back, hot in L2: " + ", ".join(f"{k} {v:.4f} (library {pack_lib_dev_ms[k]:.4f})"
                                                     for k, v in pack_hot_ms.items())
         + f"; pack_yshell_pallas against the allocating pack_yshell_xla, copy_ {ycopy_ms:.4f} ms, "
@@ -1384,17 +1455,18 @@ def main() -> int:
         blend_step[axis] = {
             "device_ms": device_ms_per_call(blend_writes, calls=10) / 2,
             "copy_device_ms": device_ms_per_call(copy_writes, calls=10) / 2,
-            "device_ms_in_route": sum(in_route) / 16, "ms": cuda_ms(blend_writes) / 2,
+            "device_ms_in_route": sum(in_route) / 16 if direct_prof else None, "ms": cuda_ms(blend_writes) / 2,
             "copy_ms": cuda_ms(copy_writes) / 2, "host_us": host_us_per_call(blend_writes) / 2,
             "copy_host_us": host_us_per_call(copy_writes) / 2,
             "bound_ms": bound(2 * writes[0][0].numel() * 4, 0)[0]}
-    blend_route_ms = sum(v for k, v in direct_prof.items() if any(n in k for n in blend_kernels))
+    blend_route_ms = (sum(v for k, v in direct_prof.items() if any(n in k for n in blend_kernels))
+                      if direct_prof else None)
     log(f"blend_slab at (8,{ps},{ps},{ps}) f32 depth 3, a launch (device ms back to back, in the direct route, "
         "narrow(...).copy_; CUDA-event ms, copy_; host µs, copy_): " + "; ".join(
-            f"axis {a} {v['device_ms']:.4f}, {v['device_ms_in_route']:.4f}, {v['copy_device_ms']:.4f}; {v['ms']:.4f}, "
+            f"axis {a} {v['device_ms']:.4f}, {ms4(v['device_ms_in_route'])}, {v['copy_device_ms']:.4f}; {v['ms']:.4f}, "
             f"{v['copy_ms']:.4f}; {v['host_us']:.2f}, {v['copy_host_us']:.2f} (bound {v['bound_ms']:.4f})"
             for a, v in blend_step.items())
-        + f"; blend_slab in the direct route: {blend_route_ms:.4f} device ms an iteration on {card}")
+        + f"; blend_slab in the direct route: {ms4(blend_route_ms)} device ms an iteration on {card}")
     del bl_blocks, writes
     torch.cuda.empty_cache()
 
@@ -1642,6 +1714,11 @@ def main() -> int:
             rows[-1].update(per_step_shape=blend_step, direct_route_device_ms_per_iter=blend_route_ms)
         if name == "stream_wavefront_pass":
             rows[-1]["launch"] = swf_launch
+        if name == "jacobi_zring_wavefront_step":
+            rows[-1].update(device_ms=jacobi_wf["z-ring"]["device_ms"], launch=jacobi_wf["z-ring"]["launch"])
+        if name == "jacobi_shell_wavefront_step":
+            rows[-1].update(device_ms=jacobi_wf["shell z-slab"]["device_ms"],
+                            launch=jacobi_wf["shell z-slab"]["launch"])
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1653,7 +1730,7 @@ def main() -> int:
             "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
             "blend_per_step_shape": blend_step, "blend_direct_route_device_ms_per_iter": blend_route_ms,
-            "stream_wavefront_launch": swf_launch,
+            "stream_wavefront_launch": swf_launch, "jacobi_wavefront": jacobi_wf, "profiler_misses": PROFILER_MISSES,
             "step1_ms_min_median": step1, "astaroth": ast,
             "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
             "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,

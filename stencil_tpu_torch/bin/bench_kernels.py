@@ -1,15 +1,26 @@
-"""Device times of the stream wavefront kernel and of blend_slab at the main
-path's shapes, in a form that times an older tree of the port as well.
+"""Device times of the Jacobi and stream wavefront kernels and of blend_slab
+at the main path's shapes, in a form that times an older tree of the port as
+well.
 
-    python -m stencil_tpu_torch.bin.bench_kernels [--out FILE]
+    python -m stencil_tpu_torch.bin.bench_kernels [--out FILE] [--only SECTION ...]
     PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's kernels
 
-It calls only what the port has had since both kernels landed
-(``stream_wavefront_pass``, ``blend_slab``, ``AstarothSim``), so two trees
+It calls only what the port has had since these kernels landed
+(``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
+``stream_wavefront_pass``, ``blend_slab``, ``AstarothSim``), so two trees
 timed in turn on one card compare like with like.  It prints, and writes to
 ``--out``, one JSON object with the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them)
-and:
+and (``--only`` keeps the sections named):
+
+* ``jacobi_wavefront``: the Jacobi wavefront kernels at the three shapes of
+  ``Jacobi3D`` on 2x2x2 that take them, m = 8: the z-ring form at (8, 272,
+  272, 256) with z slabs (512^3, ``pallas_path="auto"``), the shell form at
+  (8, 272, 272, 272) with z slabs (``z_ring=False``) and without (511^3,
+  ``auto``): device ms a call (torch.profiler over 10 calls, each kernel's
+  mean over the launches its trace holds times its launches a call; a call
+  may launch more than one kernel), CUDA-event ms a call and the bound (the
+  bytes a call must move over 3.35 TB/s);
 
 * ``wavefront``: ``stream_wavefront_pass`` of the Astaroth kernel on one
   field, m = 3, z slabs, at (1, 518, 518, 518) (``AstarothSim(512^3,
@@ -45,6 +56,7 @@ import torch
 
 N = 512
 ITERS = 24
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 #: the kernels that blend_slab launches, by name: the one-thread-a-cell
 #: scatter of csrc/halo_blend.cu, or the slab unpack of csrc/pack.cu
 BLEND_KERNEL_NAMES = ("blend_slab_kernel<", "slab_rows_kernel<", "slab_cells_kernel<")
@@ -113,6 +125,57 @@ def _host_us(fn, calls: int = 100) -> float:
 def blend_ms(kernels_ms: dict) -> dict:
     """The entries of a profile (name: device ms) that are blend_slab's."""
     return {k: v for k, v in kernels_ms.items() if any(n in k for n in BLEND_KERNEL_NAMES)}
+
+
+def wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs) -> int:
+    """Bytes one Jacobi wavefront call over n blocks must move (as
+    ``chip_smoke.py``): each cell its m levels reach read once, with d2 over
+    those rows and columns and the origins, the valid region written once;
+    W is the logical plane width, whose s outer columns a side come from the
+    slabs when they are given."""
+    e = s_off - m
+    Xa, Ya, Wa = Xr - 2 * e, Yr - 2 * e, W - 2 * e
+    Xi, Yi, Wi = Xr - 2 * s_off, Yr - 2 * s_off, W - 2 * s_off
+    reads = Xa * Ya * (Wa - 2 * m if slabs else Wa) + Ya * Wa + 3
+    writes = Xi * Yi * Wi
+    if slabs:
+        reads += Xa * 2 * m * Ya
+        writes += Xi * 2 * s_off * Yi
+    return n * (reads + writes) * 4
+
+
+def jacobi_wavefront_times(dev) -> dict:
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+    half, m = N // 2, 8
+    r = half + 2 * m
+    out = {}
+    for label, n_glob, Z, ring, slabs in (("zring", N, half, True, True), ("zslab", N, r, False, True),
+                                          ("plain_511", N - 1, r, False, False)):
+        gs = (n_glob,) * 3
+        raw = _seeded((8, r, r, Z), 30, dev)
+        org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
+                           dtype=torch.int32, device=dev)
+        zs = _seeded((8, r, 2 * m, r), 31, dev) if slabs else None
+        if ring:
+            d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - m, int(o[2]), m, r, Z, gs, dev) for o in org])
+
+            def call():
+                return jk.jacobi_zring_wavefront_step(raw, m, org, d2, gs, zs)
+        else:
+            d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - m, int(o[2]) - m, (r, Z), gs, dev) for o in org])
+
+            def call():
+                return jk.jacobi_shell_wavefront_step(raw, m, org, d2, gs, z_slabs=zs, z_valid=Z if slabs else None)
+
+        prof, _ = _profile(call, 10)
+        W = Z + 2 * m if ring else Z
+        out[label] = {"shape": [8, r, r, Z], "m": m, "device_ms": sum(prof.values()), "kernels": prof,
+                      "ms": _cuda_ms(call, inner=2),
+                      "bound_ms": wavefront_bytes(8, r, r, W, m, m, slabs) / HBM_BYTES_PER_S * 1e3}
+        del raw, zs, d2
+        torch.cuda.empty_cache()
+    return out
 
 
 def wavefront_times(dev) -> dict:
@@ -192,8 +255,11 @@ def direct_route(dev) -> dict:
 
 
 def main(argv=None) -> int:
+    sections = {"jacobi_wavefront": jacobi_wavefront_times, "wavefront": wavefront_times, "blend": blend_times,
+                "direct": direct_route}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
+    p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench-kernels: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -201,8 +267,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    result = {"card": card, "wavefront": wavefront_times(dev), "blend": blend_times(dev),
-              "direct": direct_route(dev)}
+    result = {"card": card}
+    for name, fn in sections.items():
+        if args.only is None or name in args.only:
+            result[name] = fn(dev)
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -1,68 +1,89 @@
 // The m-level Jacobi wavefront kernel for Hopper (sm_90a), bound to Python
 // through ctypes (stencil_tpu_torch/kernels/build.py,
-// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves both
-// TPU kernels it replaces:
+// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves both TPU
+// kernels it replaces:
 //
 //   stencil_tpu/ops/jacobi_pallas.py:983  jacobi_shell_wavefront_step
 //     m levels over an s-shelled (Xr, Yr, Zr) block; z columns [0, s) and
 //     [z_valid - s, z_valid) optionally from a z-major (Xr, 2s, Yr) slab
-//     buffer, and then the next slabs emitted (kRing = false);
+//     buffer, and then the next slabs emitted (forms kShellSlabs, kShell);
 //   stencil_tpu/ops/jacobi_pallas.py:1204 jacobi_zring_wavefront_step
 //     m levels over an (Xr, Yr, Zi) block with no z shell in the array, the
 //     z halo from the slab buffer, d2 in the (Yr, Zi + 128) ring layout
-//     (kRing = true).
+//     (form kRingForm).
 //
-// Both kernels' defining property is kept: m levels in ONE pass, each input
-// plane read once and each output plane written once per m iterations.
-//
-// The same body without the sphere clamp (kClamp = false: no d2 tile, no
-// sphere test, one plane of shared memory fewer) replaces
-//
-//   stencil_tpu/ops/plane_stencil.py:20   mean6_shell_wavefront_step
-//     m <= s mean-of-6 levels over an s-shelled (Xr, Yr, Zr) block, valid on
-//     the interior [s, ext - s); exported as stp_mean6_wavefront.
-//
-// The Jacobi instantiations (kClamp = true) are the code they were.
-//
-// Layout.  Each block works on a "logical plane" of width W: the raw columns
-// (shell form: W = z_valid) or low halo | interior | high halo (ring form:
+// Layout.  A block works on a "logical plane" of width W: the raw columns
+// (shell forms: W = z_valid) or low halo | interior | high halo (ring form:
 // W = Zi + 2s, logical column c = raw column c - s).  The TPU kernels' lane
 // ring (hi halo at lanes [0,s), lo halo at [128-s,128)) is a TPU layout
-// trick; only the d2 indexing follows it here.  A block owns a kTileY x
-// (kTileW - 2m) tile of the plane's interior [s, Yr-s) x [s, W-s) and loads
-// it with an m-cell apron, so a tile row with its apron is kTileW = 64
-// columns, two full warps.  It marches x: per step it loads level-0 plane i
-// and computes level l of plane i-l for l = 1..m over the tile shrunk by l,
-// so level m lands exactly on the tile.  Shared memory per block:
+// trick; only the d2 indexing follows it here.
 //
-//   (2m + 2) planes of (kTileY + 2m) x kTileW 4-byte cells
-//   = 2m + 1 working planes (two level-l planes for l < m, kept as the TPU
-//   kernel's VMEM ring (m, 2, Yr, Zr) keeps whole planes, plus the incoming
-//   one) and the block's d2 tile.  m = 8: 221,184 B, the deepest that fits
-//   the H100's 232,448 B opt-in; wavefront_smem_bytes in
-//   ops/jacobi_kernels.py is the same formula, so the plan never asks more.
-//   Without the clamp the d2 tile goes: 2m + 1 planes, 208,896 B at m = 8
-//   (m = 9 would need 243,200 B, so kMaxM = 8 holds for both).
+// The register-queue design.  A block owns a tile of kQRows x kQCols cells
+// (32 x 64, its apron of d cells a side included, d the march's depth) for
+// one block b and one chunk of output x planes, and marches x: per step it
+// loads level-0 plane i and computes level l of plane i-l for l = 1..d, so
+// level d lands on the tile shrunk by d.  The Jacobi body reads x-1 and x+1
+// only at the cell itself, so a thread keeps its own cells' level-(l-1)
+// planes p-1 and p in registers (with p+1, just computed, a queue three
+// planes long), and only plane p of each level below d goes to shared
+// memory, for the in-plane neighbours, double-buffered by the parity of the
+// march: ONE block barrier a plane.  A block is 8 warps; a thread owns four
+// consecutive rows of two columns 32 apart, and a y neighbour inside its
+// rows comes from its registers, so a cell and level costs 3.5 shared
+// accesses (two z neighbours, half a y neighbour, one store).  Its d2
+// values sit in registers, loaded once a block; the clamp (hot, then cold)
+// runs only on planes a sphere reaches.
+// Every tile cell runs every level, its apron's too: outside the tile
+// shrunk by l the value is garbage that feeds only garbage, and padding
+// around the planes keeps the edge's reads in bounds.  The next plane's
+// global loads are issued into registers before the current plane's levels
+// run.  This is stream_wavefront.cu's queue form with the Jacobi body.
 //
-// A level's result overwrites the oldest plane of the level below in place:
-// the thread that writes cell k read that plane only at k, just before.
+// Depth.  The queue holds 2d words a cell, so at d = 8 the registers of an
+// SM hold ~2,000 cells and a 2d apron eats most of the tile.
+// So m levels run as marches of at most kSubDepth = 4 levels: m <= 4 is one
+// march; m in 5..8 is two, the first of ceil(m/2) levels writing the
+// intermediate level, on the region its successor reads, to an (n, Xr, Yr,
+// W) f32 scratch that the wrapper allocates through torch's allocator; the
+// second reads it and writes the output and the slabs.  Each cell's levels
+// are the same operations on the same values, so the result is the one
+// pass's bit for bit: the port keeps what the TPU kernel computes (m levels
+// from one read of the input), not its schedule.  A call is one launch of
+// the wrapper (its `launches` counter) and one or two kernel launches.
+//
+// Shared memory.  2d planes of the tile and two rows of padding: 16,384 d +
+// 544 bytes, 66,080 at d = 4.  The plan's model,
+// wavefront_smem_bytes in ops/jacobi_kernels.py (the old design's
+// (2m + 2) x (32 + 2m) x 64 x 4 bytes, 221,184 at m = 8), stays the depth
+// plan; a static_assert holds every march below it, and the launch computes
+// the size it asks.
+//
+// Grid.  The launch asks the occupancy calculator how many blocks fit an SM
+// (two at d <= 4: 128 registers a thread, 16 warps an SM) and cuts x into
+// chunks so that the blocks fill whole waves: the chunk count that minimises
+// (waves) x (planes a block marches, its 2d-plane ramp included).
+// stp_jacobi_wavefront_plan reports the choice.
+//
+// Three designs were timed on the H100 at the z-ring shape, m = 8 (PERF.md):
+// one march of 8 levels in 16 warps of two rows (4.18-4.22 device ms a
+// call), two marches of 4 in 16 warps of two rows at 64 registers a thread,
+// which spill (3.05), and this one (2.41; 113-128 registers, up to 108 bytes
+// of spill in the slab forms at d = 4); the earlier design took 4.47-4.51.
 //
 // Bound on an H100 SXM: bytes.  Per macro step of m levels the kernel must
 // read the input and the slabs and write the output and the new slabs once
-// (8 B/cell plus the thin slabs), 8/m B per cell-level.  This simple design
-// pays instead in shared-memory traffic (six neighbour loads, the d2 load on
-// planes a sphere reaches, and one store per cell and level, over tiles
-// grown by the apron) and in m + 1 block barriers per plane.  The next
-// plane's global loads are issued into registers before the current plane's
-// levels run, so their latency hides behind the levels.  Register-held x
-// neighbours, fewer barriers, TMA loads and a persistent grid are later
-// work.
+// (8 B/cell plus the thin slabs); two marches move those bytes twice.  What
+// the tiles cost on top is the apron (32 x 64 over 24 x 56 at d = 4, 1.52x),
+// each chunk's ramp, the shared-memory traffic and the issue of about a
+// dozen instructions a cell and level.
 //
-// Cells outside the valid region (the apron beyond the plane's edge, the x
-// planes before the march has filled the levels) hold garbage that only ever
-// feeds other such cells, the shrinking-validity argument of the TPU kernel
-// (jacobi_pallas.py:1034-1038): only the block interior [s, ext-s) of `out`
-// and the interior x planes / y rows of `zout` are written.
+// Cells outside the valid region (the apron beyond the plane's edge, which
+// loads 0; planes before the march has filled the levels) hold garbage that
+// only ever feeds other such cells, the shrinking-validity argument of the
+// TPU kernel (jacobi_pallas.py:1034-1038): only the block interior
+// [s, ext-s) of `out` and the interior x planes / y rows of `zout` are
+// written (a first march: the region [s - d2, ext - s + d2) of the scratch,
+// d2 the second march's depth).
 //
 // Bitwise contract with the JAX package, as csrc/jacobi.cu: the six
 // neighbours summed as a left fold x-1, x+1, y-1, y+1, z-1, z+1; the mean a
@@ -71,6 +92,18 @@
 // x_g = (origin_x + gx + p - s) mod gx for raw plane p (skipped where the
 // right side is <= 0: d2, a squared distance, is never negative).  Offsets
 // are 64-bit.
+//
+// The same file keeps the earlier design, instantiated only without the
+// clamp, for
+//
+//   stencil_tpu/ops/plane_stencil.py:20   mean6_shell_wavefront_step
+//     m <= s mean-of-6 levels over an s-shelled (Xr, Yr, Zr) block, valid on
+//     the interior [s, ext - s); exported as stp_mean6_wavefront.
+//
+// That design (`wavefront` below) loads each plane of a (32 + 2m) x 64 tile
+// into shared memory and computes level l over the tile shrunk by l with a
+// block barrier after each level: 2m + 1 planes, 208,896 B at m = 8 (m = 9
+// would need 243,200 B, so kMaxM = 8), one block an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,9 +118,9 @@ constexpr int kTileW = 64;  // == WAVEFRONT_TILE_W: tile columns with the apron
 constexpr int kThreadsZ = 32;
 constexpr int kThreadsY = 16;
 constexpr int kRingOff = 128;  // == _ZRING_OFF
-// the deepest m whose block fits the 232,448 B opt-in (wavefront_smem_fits);
-// the kernel is instantiated for every m up to it, so tile extents, loop
-// counts and the slot bookkeeping are compile-time and stay in registers
+// the deepest m a call takes (wavefront_smem_fits); the kernels are
+// instantiated for every depth up to it, so tile extents, loop counts and
+// the queue are compile-time and stay in registers
 constexpr int kMaxM = 8;
 constexpr int kFar = 1 << 30;  // d2 of cells off the plane: inside no sphere
 
@@ -109,6 +142,306 @@ __device__ __forceinline__ int pmod(int a, int n) {
   int r = a % n;
   return r < 0 ? r + n : r;
 }
+
+// --- the Jacobi wavefront: register-queue marches ------------------------------
+
+constexpr int kQWarps = 8;     // thread rows
+constexpr int kQRows = 32;     // tile rows with the apron: four a thread
+constexpr int kQCols = 64;     // tile columns with the apron: two a lane, 32 apart
+constexpr int kSubDepth = 4;   // the deepest march; == WAVEFRONT_SUB_DEPTH
+constexpr int kQThreads = kThreadsZ * kQWarps;
+constexpr int kQMinBlocks = 2;  // blocks an SM the registers are cut for (128 a thread)
+// cells before the first plane and after the last, so that a read at an
+// in-plane offset from any tile cell stays inside the allocation
+constexpr int kQPad = kQCols + 4;
+
+enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2 };
+
+struct QArgs {
+  const float* raw;     // (n, Xr, Yr, Zraw)
+  float* out;           // (n, Xr, Yr, Zraw)
+  const int* origins;   // (n, 3)
+  const int* d2;        // (n, Yr, d2_w)
+  const float* zs;      // (n, Xr, 2s, Yr) or null
+  float* zout;          // (n, Xr, 2s, Yr) or null
+  const float* src;     // a later march's input: the scratch (n, Xr, Yr, W)
+  float* dst;           // an earlier march's output: the scratch
+  int Xr, Yr, Zraw;
+  int W;                // logical plane width
+  int s;                // interior offset (shell width)
+  int o;                // this march writes planes, rows and logical columns [o, ext - o)
+  int d2_w;
+  int gx, hot_x, cold_x, in_r2;
+  int xchunk, nchunks;  // output x planes per block, chunks per block b
+};
+
+template <int D>
+constexpr size_t queue_smem() {
+  return ((size_t)2 * D * kQRows * kQCols + 2 * kQPad) * 4;
+}
+
+// the plan's model of a block's shared memory (wavefront_smem_bytes)
+constexpr size_t plan_smem(int m) { return (size_t)(2 * m + 2) * (kTileY + 2 * m) * kTileW * 4; }
+
+// Level-0 cell (y, c) of plane i of block b: the scratch of an earlier
+// march, else the slab buffer for the z shell columns in the slab forms and
+// the block for the rest; 0 past the plane's edge.
+template <int kForm, bool kFromScratch>
+__device__ __forceinline__ float load0(const QArgs& a, int64_t bi, int y, int c) {
+  if (y >= a.Yr || c >= a.W) return 0.0f;
+  if (kFromScratch) return a.src[(bi * a.Yr + y) * a.W + c];
+  const int s = a.s;
+  if (kForm != kShell && c < s) return a.zs[(bi * 2 * s + c) * a.Yr + y];
+  if (kForm != kShell && c >= a.W - s) return a.zs[(bi * 2 * s + s + c - (a.W - s)) * a.Yr + y];
+  return a.raw[(bi * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)];
+}
+
+// The last level's value of cell (y, c) of plane p (bp = b * Xr + p): to the
+// scratch, or to the output and, in the slab forms, to the emitted slabs
+// (rows [0, s): top interior columns, the -z-bound message; rows [s, 2s):
+// bottom interior columns, +z-bound).
+template <int kForm, bool kToScratch>
+__device__ __forceinline__ void store_last(const QArgs& a, int64_t bp, int y, int c, float v) {
+  if (kToScratch) {
+    a.dst[(bp * a.Yr + y) * a.W + c] = v;
+    return;
+  }
+  const int s = a.s;
+  a.out[(bp * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)] = v;
+  if (kForm != kShell) {
+    const int64_t zo = bp * 2 * s * a.Yr + y;
+    if (c >= a.W - 2 * s) a.zout[zo + (int64_t)(c - (a.W - 2 * s)) * a.Yr] = v;
+    if (c < 2 * s) a.zout[zo + (int64_t)c * a.Yr] = v;
+  }
+}
+
+// d2 of cell (y, c), in the layout the wrapper was given
+template <int kForm>
+__device__ __forceinline__ int load_d2(const QArgs& a, const int* d2, int y, int c) {
+  if (y >= a.Yr || c >= a.W) return kFar;
+  const int col = kForm == kRingForm ? (c < a.W - a.s ? c - a.s + kRingOff : c - (a.W - a.s)) : c;
+  return d2[(int64_t)y * a.d2_w + col];
+}
+
+// One march of D levels.  At D <= 4 the registers are cut so that two
+// blocks fit an SM (128 a thread).
+template <int D, int kForm, bool kFromScratch, bool kToScratch>
+__global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_queue(QArgs a) {
+  extern __shared__ float smem_all[];
+  float* const smem = smem_all + kQPad;
+  constexpr int H = kQRows;
+  constexpr int TW = kQCols;
+  constexpr int TZ = TW - 2 * D;        // output columns per tile
+  constexpr int P = H * TW;
+  constexpr int RI = H / kQWarps;       // consecutive rows a thread owns
+  constexpr int CI = TW / kThreadsZ;    // columns a thread owns, 32 apart
+  // plane of level L (< D) at march parity `par`
+  auto plane = [&](int L, int par) -> float* { return smem + (L * 2 + par) * P; };
+  const int s = a.s, o = a.o;
+  const int b = blockIdx.z / a.nchunks;
+  const int chunk = blockIdx.z - b * a.nchunks;
+  const int p_lo = o + chunk * a.xchunk;
+  const int p_hi = min(p_lo + a.xchunk, a.Xr - o);
+  // tile cell (0, 0) at row y0, logical column c0; >= 0 since o >= D
+  const int y0 = o + blockIdx.y * (H - 2 * D) - D;
+  const int c0 = o + blockIdx.x * TZ - D;
+  const int Yr = a.Yr, W = a.W;
+  const int64_t bx = (int64_t)b * a.Xr;
+  const int origin_x = a.origins[3 * b];
+  const int tz0 = threadIdx.x, ty0 = threadIdx.y * RI;
+  // the cells whose last level this thread writes: inside the tile's
+  // level-D region and the march's output region (bit r * CI + q); and
+  // their d2, in registers for the whole march
+  unsigned own = 0;
+  int d2r[RI][CI];
+  const int* d2 = a.d2 + (int64_t)b * Yr * a.d2_w;
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int q = 0; q < CI; ++q) {
+      const int ty = ty0 + r, tz = tz0 + q * kThreadsZ;
+      if (ty >= D && ty < H - D && tz >= D && tz < TW - D && y0 + ty < Yr - o && c0 + tz < W - o)
+        own |= 1u << (r * CI + q);
+      d2r[r][q] = load_d2<kForm>(a, d2, y0 + ty, c0 + tz);
+    }
+
+  // output plane p = i - D needs level-0 planes p-D .. p+D
+  const int i0 = p_lo - D;
+  const int i_end = p_hi + D;
+  // level-0 plane i of this thread's cells, fetched one plane ahead
+  float pre[RI][CI];
+  auto fetch = [&](int i) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int q = 0; q < CI; ++q)
+        pre[r][q] = load0<kForm, kFromScratch>(a, bx + i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ);
+  };
+
+  // the queue of level L < D at this thread's cells: old (plane j-1) and mid
+  // (plane j, also in shared memory), j = i - L - 1 while plane i marches in;
+  // nw holds the newest plane of the level below the one being computed
+  float old_[D][RI][CI], mid[D][RI][CI], nw[RI][CI];
+#pragma unroll
+  for (int L = 0; L < D; ++L)
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int q = 0; q < CI; ++q) old_[L][r][q] = mid[L][r][q] = 0.0f;
+
+  fetch(i0);
+  for (int i = i0; i < i_end; ++i) {
+    const int wp = i & 1, rp = wp ^ 1;  // this plane's buffers; the previous plane's
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int q = 0; q < CI; ++q) {
+        nw[r][q] = pre[r][q];
+        plane(0, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = pre[r][q];
+      }
+    if (i + 1 < i_end) fetch(i + 1);
+#pragma unroll
+    for (int l = 1; l <= D; ++l) {
+      const int p = i - l;  // raw plane of this level's result
+      const int x_g = pmod(origin_x + a.gx + p - s, a.gx);
+      const int hot_lim = a.in_r2 - (x_g - a.hot_x) * (x_g - a.hot_x);
+      const int cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
+      const bool spheres = hot_lim > 0 || cold_lim > 0;
+      const float* below = plane(l - 1, rp);  // level l-1, plane i-l
+      float res[RI][CI];
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+#pragma unroll
+        for (int q = 0; q < CI; ++q) {
+          const int k = (ty0 + r) * TW + tz0 + q * kThreadsZ;
+          float sum = old_[l - 1][r][q] + nw[r][q];                        // x-1, x+1
+          sum = sum + (r > 0 ? mid[l - 1][r - 1][q] : below[k - TW]);       // y-1
+          sum = sum + (r + 1 < RI ? mid[l - 1][r + 1][q] : below[k + TW]);  // y+1
+          sum = sum + below[k - 1];                                         // z-1
+          sum = sum + below[k + 1];                                         // z+1
+          float v = sum * kSixth;
+          if (spheres) {  // d2 >= 0: no clamp can fire on this plane otherwise
+            if (d2r[r][q] < hot_lim) v = kHot;
+            if (d2r[r][q] < cold_lim) v = kCold;
+          }
+          if (l == D && p >= p_lo && (own >> (r * CI + q) & 1u))
+            store_last<kForm, kToScratch>(a, bx + p, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ, v);
+          res[r][q] = v;
+        }
+      }
+      // level l-1 slides by one plane; level l's plane i-l is the newest
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int q = 0; q < CI; ++q) {
+          old_[l - 1][r][q] = mid[l - 1][r][q];
+          mid[l - 1][r][q] = nw[r][q];
+          nw[r][q] = res[r][q];
+          if (l < D) plane(l, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = res[r][q];
+        }
+    }
+    // this plane's writes before the next plane's reads of them, and this
+    // plane's reads of the other parity before the next plane overwrites it
+    __syncthreads();
+  }
+}
+
+// The launch of one march: shared memory, blocks an SM and the x chunking.
+struct Plan {
+  int blocks_per_sm, sms, blocks, xchunk, nchunks, smem, threads, tiles_z, tiles_y;
+};
+
+template <int D, int kForm, bool kFrom, bool kTo>
+int march(QArgs a, int n, cudaStream_t stream, Plan* plan_only) {
+  constexpr int TZ = kQCols - 2 * D, TY = kQRows - 2 * D;
+  constexpr size_t smem = queue_smem<D>();
+  static_assert(smem <= plan_smem(D), "a march asks more shared memory than the plan's model");
+  cudaError_t err = cudaFuncSetAttribute(jacobi_queue<D, kForm, kFrom, kTo>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 132, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, jacobi_queue<D, kForm, kFrom, kTo>, kQThreads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return -1;
+  const int o = a.o;
+  const int ix = a.Xr - 2 * o, iy = a.Yr - 2 * o, iz = a.W - 2 * o;
+  Plan pl;
+  pl.tiles_z = (iz + TZ - 1) / TZ;
+  pl.tiles_y = (iy + TY - 1) / TY;
+  const int64_t tiles = (int64_t)pl.tiles_z * pl.tiles_y * n;
+  const int64_t resident = (int64_t)per_sm * sms;
+  // the chunk count whose blocks fill whole waves best: waves x planes a
+  // block marches (its chunk and the 2D-plane ramp); ties to fewer blocks
+  int64_t best = -1;
+  for (int want = 1; want <= ix; ++want) {
+    const int xchunk = (ix + want - 1) / want;
+    const int nchunks = (ix + xchunk - 1) / xchunk;
+    if (nchunks != want || (int64_t)n * nchunks > 65535) continue;
+    const int64_t waves = (tiles * nchunks + resident - 1) / resident;
+    const int64_t cost = waves * (xchunk + 2 * D);
+    if (best < 0 || cost < best) {
+      best = cost;
+      pl.xchunk = xchunk;
+      pl.nchunks = nchunks;
+    }
+  }
+  if (best < 0) return -1;
+  pl.blocks_per_sm = per_sm;
+  pl.sms = sms;
+  pl.blocks = (int)(tiles * pl.nchunks);
+  pl.smem = (int)smem;
+  pl.threads = kQThreads;
+  if (plan_only != nullptr) {
+    *plan_only = pl;
+    return 0;
+  }
+  a.xchunk = pl.xchunk;
+  a.nchunks = pl.nchunks;
+  dim3 grid(pl.tiles_z, pl.tiles_y, n * pl.nchunks);
+  jacobi_queue<D, kForm, kFrom, kTo><<<grid, dim3(kThreadsZ, kQWarps), smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// A march of depth D (<= kSubDepth) in one form: from the block or the
+// scratch, to the scratch or the output.
+template <int D, int kForm>
+int march_io(const QArgs& a, int n, bool from, bool to, cudaStream_t st, Plan* pl) {
+  if (from) return march<D, kForm, true, false>(a, n, st, pl);
+  if (to) return march<D, kForm, false, true>(a, n, st, pl);
+  return march<D, kForm, false, false>(a, n, st, pl);
+}
+
+template <int D>
+int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t st, Plan* pl) {
+  if (form == kRingForm) return march_io<D, kRingForm>(a, n, from, to, st, pl);
+  if (form == kShellSlabs) return march_io<D, kShellSlabs>(a, n, from, to, st, pl);
+  return march_io<D, kShell>(a, n, from, to, st, pl);
+}
+
+static_assert(kSubDepth == 4 && 2 * kSubDepth >= kMaxM, "run_march dispatches depths 1..4; two marches reach kMaxM");
+
+int run_march(const QArgs& a, int n, int depth, int form, bool from, bool to, cudaStream_t st, Plan* pl) {
+  switch (depth) {
+    case 1: return march_form<1>(a, n, form, from, to, st, pl);
+    case 2: return march_form<2>(a, n, form, from, to, st, pl);
+    case 3: return march_form<3>(a, n, form, from, to, st, pl);
+    case 4: return march_form<4>(a, n, form, from, to, st, pl);
+    default: return -1;
+  }
+}
+
+// the first march's depth: all m levels, or the deeper half of two marches
+int first_depth(int m) { return m <= kSubDepth ? m : (m + 1) / 2; }
+
+bool bad_jacobi_args(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int gx, bool ring, bool slabs) {
+  return m < 1 || m > kMaxM || m > s || n < 1 || n > 65535 || 2 * s >= Xr || 2 * s >= Yr || 2 * s >= W ||
+         gx < 1 || (ring && !slabs) || (ring ? W != Zraw + 2 * s || 2 * s > kRingOff : W > Zraw);
+}
+
+// --- the earlier design, kept for mean6_shell_wavefront_step ------------------
 
 template <int M, bool kRing, bool kSlabs, bool kClamp = true>
 __global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
@@ -284,39 +617,65 @@ int launch(const Args& a, int n, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int M>
-int launch_form(const Args& a, int n, bool ring, cudaStream_t stream) {
-  if (ring) return launch<M, true, true>(a, n, stream);
-  if (a.zs != nullptr) return launch<M, false, true>(a, n, stream);
-  return launch<M, false, false>(a, n, stream);
-}
 
 }  // namespace
 
 extern "C" {
 
 // ring: 1 = jacobi_zring_wavefront_step (slabs required), 0 = the shell form
-// (slabs optional: zs and zout both null or both set).  Returns a CUDA error
-// code, or -1 for arguments the kernel does not take.
+// (slabs optional: zs and zout both null or both set).  scratch: an
+// (n, Xr, Yr, W) f32 buffer, required where m needs two marches
+// (stp_jacobi_wavefront_plan's launches), else ignored.  Returns a CUDA
+// error code, or -1 for arguments the kernel does not take.
 int stp_jacobi_wavefront(const float* raw, float* out, const int* origins, const int* d2,
-                         const float* zs, float* zout, int n, int Xr, int Yr, int Zraw, int W,
-                         int m, int s, int d2_w, int gx, int hot_x, int cold_x, int in_r2,
+                         const float* zs, float* zout, float* scratch, int n, int Xr, int Yr, int Zraw,
+                         int W, int m, int s, int d2_w, int gx, int hot_x, int cold_x, int in_r2,
                          int ring, void* stream) {
-  if (m < 1 || m > kMaxM || m > s || n < 1 || n > 65535 || 2 * s >= Yr || 2 * s >= W ||
-      (zs == nullptr) != (zout == nullptr) || (ring && zs == nullptr))
+  if ((zs == nullptr) != (zout == nullptr) ||
+      bad_jacobi_args(n, Xr, Yr, Zraw, W, m, s, gx, ring, zs != nullptr))
     return -1;
-  Args a{raw, out, origins, d2, zs, zout, Xr, Yr, Zraw, W, m, s, d2_w, gx, hot_x, cold_x, in_r2};
+  const int d1 = first_depth(m), d2_depth = m - d1;
+  if (d2_depth > 0 && scratch == nullptr) return -1;
+  const int form = ring ? kRingForm : (zs != nullptr ? kShellSlabs : kShell);
+  QArgs a{raw, out, origins, d2, zs, zout, nullptr, nullptr, Xr, Yr, Zraw, W, s, s, d2_w,
+          gx, hot_x, cold_x, in_r2, 0, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  switch (m) {
-    case 1: return launch_form<1>(a, n, ring, st);
-    case 2: return launch_form<2>(a, n, ring, st);
-    case 3: return launch_form<3>(a, n, ring, st);
-    case 4: return launch_form<4>(a, n, ring, st);
-    case 5: return launch_form<5>(a, n, ring, st);
-    case 6: return launch_form<6>(a, n, ring, st);
-    case 7: return launch_form<7>(a, n, ring, st);
-    default: return launch_form<kMaxM>(a, n, ring, st);
-  }
+  if (d2_depth == 0) return run_march(a, n, m, form, false, false, st, nullptr);
+  // the first march writes the region the second reads: [s - d2, ext - s + d2)
+  a.o = s - d2_depth;
+  a.dst = scratch;
+  const int rc = run_march(a, n, d1, form, false, true, st, nullptr);
+  if (rc != 0) return rc;
+  a.o = s;
+  a.dst = nullptr;
+  a.src = scratch;
+  return run_march(a, n, d2_depth, form, true, false, st, nullptr);
+}
+
+// The launches stp_jacobi_wavefront makes for these arguments, into
+// info[12]: the form (0 ring, 1 shell with slabs, 2 shell), kernel launches
+// a call (marches), the first march's depth, and that march's blocks an SM,
+// SMs, blocks, x chunk, chunks, shared memory bytes, threads a block and
+// tiles along z and y.  Returns what the launch would.
+int stp_jacobi_wavefront_plan(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int ring, int slabs,
+                              int* info) {
+  if (bad_jacobi_args(n, Xr, Yr, Zraw, W, m, s, 1, ring, slabs)) return -1;
+  const int d1 = first_depth(m);
+  const int form = ring ? kRingForm : (slabs ? kShellSlabs : kShell);
+  QArgs a{};
+  a.Xr = Xr;
+  a.Yr = Yr;
+  a.Zraw = Zraw;
+  a.W = W;
+  a.s = s;
+  a.o = s - (m - d1);
+  Plan pl;
+  const int rc = run_march(a, n, d1, form, false, d1 < m, nullptr, &pl);
+  if (rc != 0) return rc;
+  const int w[12] = {form, d1 < m ? 2 : 1, d1, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk,
+                     pl.nchunks, pl.smem, pl.threads, pl.tiles_z, pl.tiles_y};
+  for (int j = 0; j < 12; ++j) info[j] = w[j];
+  return 0;
 }
 
 // m mean-of-6 levels over n s-shelled blocks (Xr, Yr, Zr): only the interior

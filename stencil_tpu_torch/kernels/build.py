@@ -58,7 +58,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "stp_jacobi_slab_level": [_P] * 10 + [_I] * 8 + [_P],
     },
     "jacobi_wavefront": {
-        "stp_jacobi_wavefront": [_P] * 6 + [_I] * 13 + [_P],
+        "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
+        "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
         "stp_mean6_wavefront": [_P, _P] + [_I] * 6 + [_P],
     },
     "pack": {

@@ -20,12 +20,13 @@ make the port bitwise equal to the TPU kernels:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from stencil_tpu_torch.kernels import check_tensor, same_device, stream_handle
+from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device, stream_handle
 
 HOT_TEMP = 1.0
 COLD_TEMP = 0.0
@@ -48,13 +49,18 @@ _WRAP_MAX_K = 16
 #: wraps to column 0
 _ZRING_OFF = 128
 
-#: the wavefront kernel's tile per block: 32 output rows of y, and 64 columns
+#: the tile of the wavefront depth plan: 32 output rows of y, and 64 columns
 #: of z with the m-cell apron on each side (64 - 2m output columns); and the
 #: shared memory one block may opt into on an H100 (232,448 bytes).
-#: ``wavefront_smem_bytes`` models ``csrc/jacobi_wavefront.cu`` with them
+#: ``wavefront_smem_bytes`` is the plan's model of a block; every launch of
+#: ``csrc/jacobi_wavefront.cu`` asks less (its header)
 WAVEFRONT_TILE_Y = 32
 WAVEFRONT_TILE_W = 64
 SMEM_PER_BLOCK = 232_448
+
+#: the deepest march one kernel launch of ``csrc/jacobi_wavefront.cu`` makes
+#: (``kSubDepth``): deeper calls run as two marches through a scratch buffer
+WAVEFRONT_SUB_DEPTH = 4
 
 
 def sphere_params(gx: int):
@@ -564,20 +570,82 @@ def jacobi_zring_wavefront_step(raw, m, origin, d2, global_size, z_slabs,
 jacobi_zring_wavefront_step.launches = 0
 
 
+def wavefront_marches(m: int) -> int:
+    """Kernel launches one wavefront call of ``m`` levels makes: one march,
+    or two (the first of ceil(m/2) levels) above ``WAVEFRONT_SUB_DEPTH``."""
+    return 1 if m <= WAVEFRONT_SUB_DEPTH else 2
+
+
+_ENTRY = None
+
+
+def _entry():
+    """``(C entry, library)`` of ``stp_jacobi_wavefront``, built and loaded
+    at the first launch."""
+    global _ENTRY
+    if _ENTRY is None:
+        from stencil_tpu_torch.kernels import build
+
+        lib = build.load("jacobi_wavefront")
+        _ENTRY = (lib.stp_jacobi_wavefront, lib)
+    return _ENTRY
+
+
 def _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zraw, width, m, s_off,
                       d2_w, global_size, ring):
-    """One launch of ``csrc/jacobi_wavefront.cu`` over all ``n`` blocks;
-    ``width`` is the logical plane width (z_valid, or Zi + 2s on the ring)."""
-    from stencil_tpu_torch.kernels import build
-
-    lib = build.load("jacobi_wavefront")
+    """One call of ``csrc/jacobi_wavefront.cu`` over all ``n`` blocks;
+    ``width`` is the logical plane width (z_valid, or Zi + 2s on the ring).
+    Two marches pass their intermediate level through an ``(n, Xr, Yr,
+    width)`` scratch from torch's caching allocator."""
     gx = int(global_size[0])
     hot_x, cold_x, in_r2 = sphere_params(gx)
-    rc = lib.stp_jacobi_wavefront(
+    scratch = None
+    if wavefront_marches(m) > 1:
+        scratch = raw.new_empty((n, Xr, Yr, width))
+    entry, lib = _entry()
+    rc = entry(
         raw.data_ptr(), out.data_ptr(), origin.data_ptr(), d2.data_ptr(),
         None if z_slabs is None else z_slabs.data_ptr(),
         None if z_out is None else z_out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         n, Xr, Yr, Zraw, width, m, s_off, d2_w, gx, hot_x, cold_x, in_r2, int(ring),
-        stream_handle(raw.device),
+        current_raw_stream(raw.device.index),
     )
-    build.check(lib, rc, "jacobi_zring_wavefront_step" if ring else "jacobi_shell_wavefront_step")
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
+        build.check(lib, rc, "jacobi_zring_wavefront_step" if ring else "jacobi_shell_wavefront_step")
+
+
+#: the fields of ``jacobi_wavefront_launch``, in the order the C entry
+#: ``stp_jacobi_wavefront_plan`` fills them
+WAVEFRONT_PLAN_FIELDS = ("form", "launches", "depth", "blocks_per_sm", "sms", "blocks", "xchunk", "nchunks",
+                         "smem_bytes", "threads", "tiles_z", "tiles_y")
+_WAVEFRONT_FORMS = ("z-ring", "shell z-slab", "shell")
+
+
+def jacobi_wavefront_launch(shape, m: int, interior_offset=None, ring: bool = False, slabs: bool = False,
+                            z_valid=None) -> dict:
+    """The launches a wavefront call over blocks of ``shape`` (``(Xr, Yr,
+    Z)`` or ``(n, Xr, Yr, Z)``) makes on the card, without making them:
+    ``form`` ("z-ring", "shell z-slab" or "shell"), kernel ``launches`` a call
+    (marches) and the first march's ``depth``, blocks an SM the occupancy
+    calculator allows, the grid's blocks and its ``waves`` (blocks over the
+    blocks resident at once), the x chunking, the shared memory and threads a
+    block asks and the tiles along z and y (fields as
+    ``WAVEFRONT_PLAN_FIELDS``)."""
+    n = 1 if len(shape) == 3 else shape[0]
+    Xr, Yr, Z = shape[-3:]
+    s_off = m if interior_offset is None else interior_offset
+    width = Z + 2 * s_off if ring else (Z if z_valid is None else int(z_valid))
+    lib = _entry()[1]
+    info = (ctypes.c_int * len(WAVEFRONT_PLAN_FIELDS))()
+    rc = lib.stp_jacobi_wavefront_plan(n, Xr, Yr, Z, width, m, s_off, int(ring), int(ring or slabs), info)
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
+        build.check(lib, rc, "jacobi_wavefront_launch")
+    plan = dict(zip(WAVEFRONT_PLAN_FIELDS, info))
+    plan["form"] = _WAVEFRONT_FORMS[plan["form"]]
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan

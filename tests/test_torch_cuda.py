@@ -119,6 +119,88 @@ def test_zring_wavefront_kernel_equals_plain(dev, m, s_off):
     assert torch.equal(got[1][:, S, :, S], want[1][:, S, :, S])
 
 
+def _deep_args(dev, n, m, s_off, form):
+    """Seeded arguments of one deep wavefront call (``form``: "ring",
+    "slabs" or "shell") over n ragged blocks: partial tiles in y and z, an
+    interior x extent of 41 planes (prime: chunks of more than one plane
+    leave a short last one), and gx so small that both spheres cross every
+    block; n = 1 gives single blocks (3-D tensors)."""
+    Xr, Yr = 2 * s_off + 41, 2 * s_off + 29
+    Z = 70 if form == "ring" else 75
+    zv = None if form == "ring" else Z - 3
+    gs = (2 * s_off + 5, Yr - 2 * s_off, Z if form == "ring" else zv - 2 * s_off)
+    lead = () if n == 1 else (n,)
+    raw = _rand(lead + (Xr, Yr, Z), 60 + m, dev)
+    org = torch.tensor([[(3 * b) % gs[0], b, 2 * b] for b in range(n)], dtype=torch.int32, device=dev)
+    if form == "ring":
+        d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - s_off, int(o[2]), s_off, Yr, Z, gs, dev) for o in org])
+    else:
+        d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - s_off, int(o[2]) - s_off, (Yr, Z), gs, dev) for o in org])
+    zs = _rand(lead + (Xr, 2 * s_off, Yr), 61 + m, dev) if form != "shell" else None
+    if n == 1:
+        org, d2 = org[0], d2[0]
+    return raw, org, d2, zs, gs, zv
+
+
+@pytest.mark.parametrize("m,s_off", [(4, 4), (4, 5), (6, 6), (6, 8), (8, 8), (8, 9)])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("form", ["ring", "slabs", "shell"])
+def test_deep_wavefront_kernel_equals_plain(dev, form, n, m, s_off):
+    """The depths the main path runs (m = 8 at 512^3 on 2x2x2), one march
+    (m = 4) and two (m = 6, 8), bitwise on the valid region, the clamp of
+    both spheres included."""
+    raw, org, d2, zs, gs, zv = _deep_args(dev, n, m, s_off, form)
+    S = slice(s_off, -s_off)
+    if form == "ring":
+        fn, plain, zsl = jk.jacobi_zring_wavefront_step, jk.jacobi_zring_wavefront_step_plain, slice(None)
+        args, kw = (raw, m, org, d2, gs, zs), dict(interior_offset=s_off)
+    else:
+        fn, plain, zsl = jk.jacobi_shell_wavefront_step, jk.jacobi_shell_wavefront_step_plain, slice(s_off, zv - s_off)
+        args, kw = (raw, m, org, d2, gs), dict(interior_offset=s_off, z_slabs=zs, z_valid=zv)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, **kw)
+    if zs is None:
+        got, want = (got,), (want,)
+    valid = want[0][..., S, S, zsl]
+    assert (valid == jk.HOT_TEMP).any() and (valid == jk.COLD_TEMP).any()
+    assert torch.equal(got[0][..., S, S, zsl], valid)
+    if zs is not None:
+        assert torch.equal(got[1][..., S, :, S], want[1][..., S, :, S])
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8])
+@pytest.mark.parametrize("form", ["z-ring", "shell z-slab", "shell"])
+def test_wavefront_plan_report(dev, form, m):
+    """The plan entry at the main path's shapes: the form asked for, one or
+    two marches, a block's shared memory within the depth plan's model, and
+    a grid of whole blocks an SM."""
+    ring, slabs = form == "z-ring", form != "shell"
+    shape = (8, 256 + 2 * m, 256 + 2 * m, 256 if ring else 256 + 2 * m)
+    plan = jk.jacobi_wavefront_launch(shape, m, ring=ring, slabs=slabs)
+    assert plan["form"] == form
+    assert plan["launches"] == jk.wavefront_marches(m)
+    assert plan["depth"] == (m if plan["launches"] == 1 else (m + 1) // 2)
+    assert 0 < plan["smem_bytes"] <= jk.wavefront_smem_bytes(m)
+    assert plan["blocks_per_sm"] >= 1 and plan["sms"] >= 1 and plan["threads"] % 32 == 0
+    assert plan["blocks"] == plan["tiles_z"] * plan["tiles_y"] * 8 * plan["nchunks"]
+    ix = 256 + 2 * (m - plan["depth"])  # the first march's output planes: [s - (m - depth), ...)
+    assert plan["xchunk"] * plan["nchunks"] >= ix > plan["xchunk"] * (plan["nchunks"] - 1)
+
+
+def test_wavefront_plan_of_the_deep_cases_leaves_a_short_chunk(dev):
+    """``_deep_args``' x extent leaves a short last chunk on some launch."""
+    shorts = []
+    for m, s_off in ((4, 5), (8, 9)):
+        raw = _deep_args(dev, 3, m, s_off, "ring")[0]
+        plan = jk.jacobi_wavefront_launch(tuple(raw.shape), m, s_off, ring=True, slabs=True)
+        ix = raw.shape[1] - 2 * (s_off - (m - plan["depth"]))
+        shorts.append(ix % plan["xchunk"] != 0)
+    assert any(shorts)
+
+
 @pytest.mark.parametrize("n,X,Y,Z", [(1, 2, 3, 5), (3, 7, 33, 70), (8, 16, 40, 129)])
 @pytest.mark.parametrize("faces", ["random", "self"])
 def test_slab_kernel_equals_plain(dev, n, X, Y, Z, faces):
