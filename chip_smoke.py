@@ -14,7 +14,10 @@ non-zero before the result line:
    card, on seeded inputs at a ragged size and at the main path's shapes
    (phases 14-15 hold the slab and mean6 kernels at theirs; the Jacobi
    wavefront kernels also at m = 4, 6 and 8, one march and two, on ragged
-   blocks that both spheres cross); the expected result is bitwise equality;
+   blocks that both spheres cross; the wrap kernel at k = 1..8 and 12 on a
+   ragged block, on axes shorter than a march's apron, and at 512^3 at
+   k = 1 and the main path's k = 8); the expected result is bitwise
+   equality;
 4. main path, wrap route: Jacobi3D at 512^3 f32 on one subdomain, 200 steps
    through the entry points a user calls, launch counters reset just before
    and read just after; checked bitwise against the plain path at step 10,
@@ -41,6 +44,8 @@ non-zero before the result line:
    path's shapes, m = 8, its device ms a call (torch.profiler) beside its
    CUDA-event ms and bound, and its launch plan
    (``jacobi_wavefront_launch``: marches, blocks an SM, waves, x chunks);
+   the same for the wrap kernel at 512^3, k = 8 (the wrap route's call) and
+   k = 1 (``jacobi_wrap_launch``);
 8. the Astaroth main path: ``AstarothSim(512, 512, 512, num_quantities=8,
    kernel_impl="cuda", schedule="wavefront")`` on one subdomain (the
    ``bench.py`` configuration: per-field stream_wavefront_pass launches at
@@ -474,12 +479,20 @@ def main() -> int:
         if zs is not None:
             hold(name, got[1][:, S, :, S], want[1][:, S, :, S], what + " z_out")
 
+    # the wrap kernel: ragged k = 1..8 and 12 (one march to three), axes
+    # shorter than a march's apron, and the main path's call at 512^3 (k =
+    # WRAP_AUTO_K) beside k = 1
     ragged = seeded((66, 70, 130), 1, dev)
-    for k in (1, 2, 3):
+    for k in (1, 2, 3, 4, 5, 6, 7, 8, 12):
         hold("jacobi_wrap_step", jk.jacobi_wrap_step(ragged, k), jk.jacobi_wrap_step_plain(ragged, k),
              f"66x70x130 k={k}")
+    for shape, k in (((16, 5, 7), 4), ((24, 9, 11), 12)):
+        tiny = seeded(shape, 3, dev)
+        hold("jacobi_wrap_step", jk.jacobi_wrap_step(tiny, k), jk.jacobi_wrap_step_plain(tiny, k), f"{shape} k={k}")
+    wrap_k = jk.choose_temporal_k((N, N, N))
     full = seeded((N, N, N), 2, dev)
-    hold("jacobi_wrap_step", jk.jacobi_wrap_step(full, 1), jk.jacobi_wrap_step_plain(full, 1), f"{N}^3 k=1")
+    for k in (1, wrap_k):
+        hold("jacobi_wrap_step", jk.jacobi_wrap_step(full, k), jk.jacobi_wrap_step_plain(full, k), f"{N}^3 k={k}")
     del full
 
     gs_r = (130, 140, 260)
@@ -865,10 +878,25 @@ def main() -> int:
     log(f"copy_ on {N}^3 f32: {copy_ms:.4f} ms, {copy_bw / 1e9:.1f} GB/s")
     del dst
 
+    # the wrap kernel: a call at the main path's k and at k = 1, each read
+    # once and written once whatever k (bound by bytes)
     block = seeded((N, N, N), 20, dev)
     wrap_bytes = 2 * cells * 4
-    wrap_ms = cuda_ms(lambda: jk.jacobi_wrap_step(block, 1))
-    wrap_plain_ms = cuda_ms(lambda: jk.jacobi_wrap_step_plain(block, 1), inner=2)
+    jacobi_wrap = {}
+    for k in (wrap_k, 1):
+        def wrap_call(k=k):
+            return jk.jacobi_wrap_step(block, k)
+
+        jacobi_wrap[k] = {
+            "ms": cuda_ms(wrap_call, inner=2), "device_ms": device_ms_per_call(wrap_call),
+            "plain_ms": cuda_ms(lambda k=k: jk.jacobi_wrap_step_plain(block, k), reps=3, inner=1),
+            "bound_ms": bound(wrap_bytes, 7 * cells * k)[0], "launch": jk.jacobi_wrap_launch((N, N, N), k)}
+        w = jacobi_wrap[k]
+        log(f"jacobi wrap ({N},{N},{N}) k={k}: device {w['device_ms']:.4f} ms a call, CUDA events {w['ms']:.4f} ms "
+            f"(plain {w['plain_ms']:.4f}), bound {w['bound_ms']:.4f} ms; launch " + ", ".join(
+                f"{key} {v:.3f}" if isinstance(v, float) else f"{key} {v}" for key, v in w["launch"].items())
+            + f" on {card}")
+    wrap_ms, wrap_plain_ms = jacobi_wrap[wrap_k]["ms"], jacobi_wrap[wrap_k]["plain_ms"]
     del block, src
 
     blocks = stack.view(-1, *stack.shape[3:])
@@ -1644,8 +1672,10 @@ def main() -> int:
     m_ast = ast["wavefront 1x1x1"]["m"]
     # (name, launch counts, steps of their run, launches expected in it, ...)
     specs = [
-        ("jacobi_wrap_step", wrap_counts, STEPS, STEPS, wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells,
-         f"({N},{N},{N}) f32, k=1"),
+        ("jacobi_wrap_step", wrap_counts, STEPS, sum(-(-k // wrap_k) for k in (CHECK_AT, STEPS - CHECK_AT)),
+         wrap_ms, wrap_plain_ms, None, wrap_bytes, 7 * cells * wrap_k,
+         f"({N},{N},{N}) f32, k={wrap_k} (the wrap route's call, {jacobi_wrap[wrap_k]['launch']['launches']} "
+         "marches; k = 1 in jacobi_wrap)"),
         ("jacobi_plane_step", shell_counts, STEPS, STEPS, plane_ms, plane_plain_ms, None, plane_bytes,
          7 * 8 * half ** 3, f"(8,{half + 2},{half + 2},{half + 2}) f32"),
         ("blend_slab", shell_counts, STEPS, 6 * STEPS, blend_ms, blend_plain_ms, blend_lib_ms, blend_bytes, 0,
@@ -1714,6 +1744,9 @@ def main() -> int:
             rows[-1].update(per_step_shape=blend_step, direct_route_device_ms_per_iter=blend_route_ms)
         if name == "stream_wavefront_pass":
             rows[-1]["launch"] = swf_launch
+        if name == "jacobi_wrap_step":
+            w = jacobi_wrap[wrap_k]
+            rows[-1].update(device_ms=w["device_ms"], launch=w["launch"], k1=jacobi_wrap[1])
         if name == "jacobi_zring_wavefront_step":
             rows[-1].update(device_ms=jacobi_wf["z-ring"]["device_ms"], launch=jacobi_wf["z-ring"]["launch"])
         if name == "jacobi_shell_wavefront_step":
@@ -1730,7 +1763,7 @@ def main() -> int:
             "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
             "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
             "blend_per_step_shape": blend_step, "blend_direct_route_device_ms_per_iter": blend_route_ms,
-            "stream_wavefront_launch": swf_launch, "jacobi_wavefront": jacobi_wf, "profiler_misses": PROFILER_MISSES,
+            "stream_wavefront_launch": swf_launch, "jacobi_wavefront": jacobi_wf, "jacobi_wrap": jacobi_wrap, "profiler_misses": PROFILER_MISSES,
             "step1_ms_min_median": step1, "astaroth": ast,
             "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
             "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,

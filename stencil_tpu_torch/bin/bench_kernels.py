@@ -1,18 +1,23 @@
-"""Device times of the Jacobi and stream wavefront kernels and of blend_slab
-at the main path's shapes, in a form that times an older tree of the port as
-well.
+"""Device times of the Jacobi wrap and wavefront kernels, the stream
+wavefront kernel and blend_slab at the main path's shapes, in a form that
+times an older tree of the port as well.
 
     python -m stencil_tpu_torch.bin.bench_kernels [--out FILE] [--only SECTION ...]
     PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's kernels
 
 It calls only what the port has had since these kernels landed
-(``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
+(``jacobi_wrap_step``, ``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
 ``stream_wavefront_pass``, ``blend_slab``, ``AstarothSim``), so two trees
 timed in turn on one card compare like with like.  It prints, and writes to
 ``--out``, one JSON object with the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them)
 and (``--only`` keeps the sections named):
 
+* ``jacobi_wrap``: ``jacobi_wrap_step`` over one 512^3 f32 domain at k = 8
+  (the wrap route's call) and k = 1: device ms a call (torch.profiler over
+  10 calls, as below: a call may launch several kernels), CUDA-event ms a
+  call, the bound (one read and one write of the domain over 3.35 TB/s,
+  whatever k) and, where the tree has ``jacobi_wrap_launch``, the plan;
 * ``jacobi_wavefront``: the Jacobi wavefront kernels at the three shapes of
   ``Jacobi3D`` on 2x2x2 that take them, m = 8: the z-ring form at (8, 272,
   272, 256) with z slabs (512^3, ``pallas_path="auto"``), the shell form at
@@ -144,6 +149,25 @@ def wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs) -> int:
     return n * (reads + writes) * 4
 
 
+def jacobi_wrap_times(dev) -> dict:
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+    block = _seeded((N, N, N), 40, dev)
+    plan = getattr(jk, "jacobi_wrap_launch", None)
+    out = {}
+    for k in (8, 1):
+        def call(k=k):
+            return jk.jacobi_wrap_step(block, k)
+
+        prof, _ = _profile(call, 10)
+        out[f"k={k}"] = {"device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call, inner=2),
+                         "bound_ms": 2 * N ** 3 * 4 / HBM_BYTES_PER_S * 1e3,
+                         "launch": None if plan is None else plan((N, N, N), k)}
+    del block
+    torch.cuda.empty_cache()
+    return out
+
+
 def jacobi_wavefront_times(dev) -> dict:
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
@@ -255,7 +279,7 @@ def direct_route(dev) -> dict:
 
 
 def main(argv=None) -> int:
-    sections = {"jacobi_wavefront": jacobi_wavefront_times, "wavefront": wavefront_times, "blend": blend_times,
+    sections = {"jacobi_wrap": jacobi_wrap_times, "jacobi_wavefront": jacobi_wavefront_times, "wavefront": wavefront_times, "blend": blend_times,
                 "direct": direct_route}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")

@@ -1,23 +1,19 @@
-// Jacobi level kernels for Hopper (sm_90a), bound to Python through ctypes
-// (stencil_tpu_torch/kernels/build.py, stencil_tpu_torch/ops/jacobi_kernels.py).
+// The Jacobi plane kernel for Hopper (sm_90a), bound to Python through
+// ctypes (stencil_tpu_torch/kernels/build.py,
+// stencil_tpu_torch/ops/jacobi_kernels.py).
 //
-// stp_jacobi_wrap_level replaces stencil_tpu/ops/jacobi_pallas.py:869
-//   jacobi_wrap_step: one Jacobi level (mean of the six face neighbours plus
-//   the hot/cold sphere clamps) over the whole periodic (X, Y, Z) domain.  The
-//   TPU kernel streams x-planes through a VMEM ring and runs k levels per pass;
-//   here one launch is one level and the wrapper ping-pongs k launches
-//   between two buffers.
 // stp_jacobi_plane_level replaces stencil_tpu/ops/jacobi_pallas.py:1484
-//   jacobi_plane_step: one level over n radius-1 shell-carrying blocks in one
-//   launch (the leading block dimension stands in for shard_map); shell cells
-//   are copied through.
+//   jacobi_plane_step: one level (mean of the six face neighbours plus the
+//   hot/cold sphere clamps) over n radius-1 shell-carrying blocks in one
+//   launch (the leading block dimension stands in for shard_map); shell
+//   cells are copied through.  (jacobi_wrap_step, jacobi_pallas.py:869, is
+//   the wrap form of csrc/jacobi_wavefront.cu.)
 //
 // Bound on an H100 SXM: bytes.  A level reads each cell once and writes it
 // once, 8 B/cell, against ~7 flops/cell: at 512^3 that is 1.07 GB, 0.32 ms at
 // 3.35 TB/s, while the flops need ~0.01 ms at 67 TFLOP/s f32.  The design is
 // the simple one: one thread per cell, z on threadIdx.x so a warp reads 128
-// contiguous bytes per neighbour, neighbour re-reads left to L1/L2.  The
-// shared-memory tiling that marches along x with a k-deep halo is later work.
+// contiguous bytes per neighbour, neighbour re-reads left to L1/L2.
 //
 // Bitwise contract with the JAX package:
 //  * the six neighbours are summed as a left fold in the TPU kernels' order
@@ -55,34 +51,6 @@ __device__ __forceinline__ float clamp_spheres(float v, int d2, int x_g, int hot
   int cx = x_g - cold_x;
   if (d2 < in_r2 - cx * cx) v = kCold;
   return v;
-}
-
-// grid: (ceil(Z/32), ceil(Y/8), min(X, 65535)); x strides by gridDim.z
-__global__ void wrap_level(const float* __restrict__ src, float* __restrict__ dst, int X,
-                           int Y, int Z, int hot_x, int cold_x, int in_r2, int cy, int cz) {
-  const int z = blockIdx.x * kTileZ + threadIdx.x;
-  const int y = blockIdx.y * kTileY + threadIdx.y;
-  if (z >= Z || y >= Y) return;
-  const int64_t plane = (int64_t)Y * Z;
-  const int ym = y == 0 ? Y - 1 : y - 1;
-  const int yp = y == Y - 1 ? 0 : y + 1;
-  const int zm = z == 0 ? Z - 1 : z - 1;
-  const int zp = z == Z - 1 ? 0 : z + 1;
-  const int dy = y - cy;
-  const int dz = z - cz;
-  const int d2 = dy * dy + dz * dz;
-  for (int x = blockIdx.z; x < X; x += gridDim.z) {
-    const int xm = x == 0 ? X - 1 : x - 1;
-    const int xp = x == X - 1 ? 0 : x + 1;
-    const int64_t row = (int64_t)x * plane + (int64_t)y * Z;
-    float s = src[(int64_t)xm * plane + (int64_t)y * Z + z];
-    s = s + src[(int64_t)xp * plane + (int64_t)y * Z + z];
-    s = s + src[(int64_t)x * plane + (int64_t)ym * Z + z];
-    s = s + src[(int64_t)x * plane + (int64_t)yp * Z + z];
-    s = s + src[row + zm];
-    s = s + src[row + zp];
-    dst[row + z] = clamp_spheres(s * kSixth, d2, x, hot_x, cold_x, in_r2);
-  }
 }
 
 // grid: (ceil(Z/32), ceil(Y/8), min(n*X, 65535)); p = block*X + x strides by
@@ -126,13 +94,6 @@ dim3 level_grid(int Y, int Z, int64_t planes) {
 }  // namespace
 
 extern "C" {
-
-int stp_jacobi_wrap_level(const float* src, float* dst, int X, int Y, int Z, int hot_x,
-                          int cold_x, int in_r2, int cy, int cz, void* stream) {
-  wrap_level<<<level_grid(Y, Z, X), dim3(kTileZ, kTileY), 0, (cudaStream_t)stream>>>(
-      src, dst, X, Y, Z, hot_x, cold_x, in_r2, cy, cz);
-  return (int)cudaGetLastError();
-}
 
 int stp_jacobi_plane_level(const float* src, float* dst, const int* origins,
                            const int* yz_d2, int n, int X, int Y, int Z, int gx, int hot_x,

@@ -1,7 +1,7 @@
 // The m-level Jacobi wavefront kernel for Hopper (sm_90a), bound to Python
 // through ctypes (stencil_tpu_torch/kernels/build.py,
-// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves both TPU
-// kernels it replaces:
+// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves the three
+// TPU kernels it replaces:
 //
 //   stencil_tpu/ops/jacobi_pallas.py:983  jacobi_shell_wavefront_step
 //     m levels over an s-shelled (Xr, Yr, Zr) block; z columns [0, s) and
@@ -10,7 +10,12 @@
 //   stencil_tpu/ops/jacobi_pallas.py:1204 jacobi_zring_wavefront_step
 //     m levels over an (Xr, Yr, Zi) block with no z shell in the array, the
 //     z halo from the slab buffer, d2 in the (Yr, Zi + 128) ring layout
-//     (form kRingForm).
+//     (form kRingForm);
+//   stencil_tpu/ops/jacobi_pallas.py:869  jacobi_wrap_step
+//     k levels over the whole periodic (X, Y, Z) domain (form kWrapForm,
+//     exported as stp_jacobi_wrap): no shell and no slabs, every level-0
+//     index read modulo its axis, d2 = (y - Y/2)^2 + (z - Z/2)^2 computed
+//     in the kernel, the last level written to all of (X, Y, Z).
 //
 // Layout.  A block works on a "logical plane" of width W: the raw columns
 // (shell forms: W = z_valid) or low halo | interior | high halo (ring form:
@@ -50,6 +55,23 @@
 // pass's bit for bit: the port keeps what the TPU kernel computes (m levels
 // from one read of the input), not its schedule.  A call is one launch of
 // the wrapper (its `launches` counter) and one or two kernel launches.
+//
+// The wrap form.  k levels run as ceil(k/4) marches of at most 4 levels, as
+// even as can be and the deeper first (k = 5: 3 + 2; 8: 4 + 4; 12: 4 + 4 +
+// 4; wrap_depth), ping-ponging between the output and one (X, Y, Z) f32
+// scratch so that the last march writes the output and no march reads the
+// buffer it writes.  Each march is a periodic pass of its depth d: its
+// tiles cover [0, Y) x [0, Z) with their apron around them, so a tile's
+// origin lies below 0 and its apron past the plane's end; every level-0
+// read takes its plane, row and column modulo X, Y and Z (an axis shorter
+// than the apron wraps more than once), and a chunk of output planes
+// [p_lo, p_hi) marches level-0 planes p_lo - d .. p_hi + d modulo X.  A
+// cell of [0, X) x [0, Y) x [0, Z) is written by the one thread that owns
+// it.  A call is one launch of the wrapper and ceil(k/4) kernel launches.
+// Its bound is 8 B a cell a call whatever k (0.3205 ms at 512^3; two
+// marches move it twice); at 512^3, k = 8 it took ~2.43 device ms a call on
+// the H100, where eight one-level launches of six global loads a cell took
+// ~5.1 (PERF.md).
 //
 // Shared memory.  2d planes of the tile and two rows of padding: 16,384 d +
 // 544 bytes, 66,080 at d = 4.  The plan's model,
@@ -155,7 +177,9 @@ constexpr int kQMinBlocks = 2;  // blocks an SM the registers are cut for (128 a
 // in-plane offset from any tile cell stays inside the allocation
 constexpr int kQPad = kQCols + 4;
 
-enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2 };
+enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2, kWrapForm = 3 };
+
+__host__ __device__ constexpr bool has_slabs(int form) { return form == kRingForm || form == kShellSlabs; }
 
 struct QArgs {
   const float* raw;     // (n, Xr, Yr, Zraw)
@@ -185,14 +209,15 @@ constexpr size_t plan_smem(int m) { return (size_t)(2 * m + 2) * (kTileY + 2 * m
 
 // Level-0 cell (y, c) of plane i of block b: the scratch of an earlier
 // march, else the slab buffer for the z shell columns in the slab forms and
-// the block for the rest; 0 past the plane's edge.
+// the block for the rest; 0 past the plane's edge.  (The wrap form reads
+// its planes in the kernel's fetch, every index modulo its axis.)
 template <int kForm, bool kFromScratch>
 __device__ __forceinline__ float load0(const QArgs& a, int64_t bi, int y, int c) {
   if (y >= a.Yr || c >= a.W) return 0.0f;
   if (kFromScratch) return a.src[(bi * a.Yr + y) * a.W + c];
   const int s = a.s;
-  if (kForm != kShell && c < s) return a.zs[(bi * 2 * s + c) * a.Yr + y];
-  if (kForm != kShell && c >= a.W - s) return a.zs[(bi * 2 * s + s + c - (a.W - s)) * a.Yr + y];
+  if (has_slabs(kForm) && c < s) return a.zs[(bi * 2 * s + c) * a.Yr + y];
+  if (has_slabs(kForm) && c >= a.W - s) return a.zs[(bi * 2 * s + s + c - (a.W - s)) * a.Yr + y];
   return a.raw[(bi * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)];
 }
 
@@ -208,16 +233,21 @@ __device__ __forceinline__ void store_last(const QArgs& a, int64_t bp, int y, in
   }
   const int s = a.s;
   a.out[(bp * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)] = v;
-  if (kForm != kShell) {
+  if (has_slabs(kForm)) {
     const int64_t zo = bp * 2 * s * a.Yr + y;
     if (c >= a.W - 2 * s) a.zout[zo + (int64_t)(c - (a.W - 2 * s)) * a.Yr] = v;
     if (c < 2 * s) a.zout[zo + (int64_t)c * a.Yr] = v;
   }
 }
 
-// d2 of cell (y, c), in the layout the wrapper was given
+// d2 of cell (y, c), in the layout the wrapper was given; the wrap form's
+// is yz_dist2_plane over the whole periodic plane, computed here
 template <int kForm>
 __device__ __forceinline__ int load_d2(const QArgs& a, const int* d2, int y, int c) {
+  if (kForm == kWrapForm) {
+    const int dy = pmod(y, a.Yr) - a.Yr / 2, dz = pmod(c, a.W) - a.W / 2;
+    return dy * dy + dz * dz;
+  }
   if (y >= a.Yr || c >= a.W) return kFar;
   const int col = kForm == kRingForm ? (c < a.W - a.s ? c - a.s + kRingOff : c - (a.W - a.s)) : c;
   return d2[(int64_t)y * a.d2_w + col];
@@ -242,12 +272,15 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
   const int chunk = blockIdx.z - b * a.nchunks;
   const int p_lo = o + chunk * a.xchunk;
   const int p_hi = min(p_lo + a.xchunk, a.Xr - o);
-  // tile cell (0, 0) at row y0, logical column c0; >= 0 since o >= D
+  // tile cell (0, 0) at row y0, logical column c0: >= 0 in the shell and
+  // ring forms since o >= D; below 0 in the wrap form (o = 0), whose reads
+  // take every index modulo its axis and whose owned cells (ty, tz >= D)
+  // lie at rows and columns >= 0
   const int y0 = o + blockIdx.y * (H - 2 * D) - D;
   const int c0 = o + blockIdx.x * TZ - D;
   const int Yr = a.Yr, W = a.W;
   const int64_t bx = (int64_t)b * a.Xr;
-  const int origin_x = a.origins[3 * b];
+  const int origin_x = kForm == kWrapForm ? 0 : a.origins[3 * b];
   const int tz0 = threadIdx.x, ty0 = threadIdx.y * RI;
   // the cells whose last level this thread writes: inside the tile's
   // level-D region and the march's output region (bit r * CI + q); and
@@ -265,17 +298,36 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
       d2r[r][q] = load_d2<kForm>(a, d2, y0 + ty, c0 + tz);
     }
 
-  // output plane p = i - D needs level-0 planes p-D .. p+D
+  // the wrap form's in-plane offsets of this thread's cells, row and column
+  // modulo Y and Z (Y * Z < 2^31: the entry checks it)
+  int wrow[RI], wcol[CI];
+  if constexpr (kForm == kWrapForm) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r) wrow[r] = pmod(y0 + ty0 + r, Yr) * W;
+#pragma unroll
+    for (int q = 0; q < CI; ++q) wcol[q] = pmod(c0 + tz0 + q * kThreadsZ, W);
+  }
+
+  // output plane p = i - D needs level-0 planes p-D .. p+D (modulo X in the
+  // wrap form)
   const int i0 = p_lo - D;
   const int i_end = p_hi + D;
   // level-0 plane i of this thread's cells, fetched one plane ahead
   float pre[RI][CI];
   auto fetch = [&](int i) {
+    if constexpr (kForm == kWrapForm) {
+      const float* pl = a.raw + (int64_t)pmod(i, a.Xr) * Yr * W;
 #pragma unroll
-    for (int r = 0; r < RI; ++r)
+      for (int r = 0; r < RI; ++r)
 #pragma unroll
-      for (int q = 0; q < CI; ++q)
-        pre[r][q] = load0<kForm, kFromScratch>(a, bx + i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ);
+        for (int q = 0; q < CI; ++q) pre[r][q] = pl[wrow[r] + wcol[q]];
+    } else {
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int q = 0; q < CI; ++q)
+          pre[r][q] = load0<kForm, kFromScratch>(a, bx + i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ);
+    }
   };
 
   // the queue of level L < D at this thread's cells: old (plane j-1) and mid
@@ -371,6 +423,7 @@ int march(QArgs a, int n, cudaStream_t stream, Plan* plan_only) {
   Plan pl;
   pl.tiles_z = (iz + TZ - 1) / TZ;
   pl.tiles_y = (iy + TY - 1) / TY;
+  if (pl.tiles_y > 65535) return -1;
   const int64_t tiles = (int64_t)pl.tiles_z * pl.tiles_y * n;
   const int64_t resident = (int64_t)per_sm * sms;
   // the chunk count whose blocks fill whole waves best: waves x planes a
@@ -416,6 +469,7 @@ int march_io(const QArgs& a, int n, bool from, bool to, cudaStream_t st, Plan* p
 
 template <int D>
 int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t st, Plan* pl) {
+  if (form == kWrapForm) return march<D, kWrapForm, false, false>(a, n, st, pl);  // buffer to buffer
   if (form == kRingForm) return march_io<D, kRingForm>(a, n, from, to, st, pl);
   if (form == kShellSlabs) return march_io<D, kShellSlabs>(a, n, from, to, st, pl);
   return march_io<D, kShell>(a, n, from, to, st, pl);
@@ -435,6 +489,36 @@ int run_march(const QArgs& a, int n, int depth, int form, bool from, bool to, cu
 
 // the first march's depth: all m levels, or the deeper half of two marches
 int first_depth(int m) { return m <= kSubDepth ? m : (m + 1) / 2; }
+
+// The wrap form: k levels as ceil(k/4) marches, the depth of march j (as
+// even as can be, the deeper first; == wrap_march_depths in
+// ops/jacobi_kernels.py)
+int wrap_marches(int k) { return (k + kSubDepth - 1) / kSubDepth; }
+int wrap_depth(int k, int j) {
+  const int q = wrap_marches(k);
+  return k / q + (j < k % q ? 1 : 0);
+}
+
+// 1 <= k <= max(1, X // 2), the JAX kernel's contract; in-plane offsets fit int
+bool bad_wrap_args(int X, int Y, int Z, int k) {
+  return X < 1 || Y < 1 || Z < 1 || k < 1 || k > (X / 2 > 1 ? X / 2 : 1) || (int64_t)Y * Z > INT32_MAX;
+}
+
+// The wrap form's arguments for one march from `src` to `dst`: origin 0,
+// no shell (s = o = 0), gx = X, the plane's width Z
+QArgs wrap_args(const float* src, float* dst, int X, int Y, int Z, int hot_x, int cold_x, int in_r2) {
+  QArgs a{};
+  a.raw = src;
+  a.out = dst;
+  a.Xr = X;
+  a.Yr = Y;
+  a.Zraw = a.W = a.d2_w = Z;
+  a.gx = X;
+  a.hot_x = hot_x;
+  a.cold_x = cold_x;
+  a.in_r2 = in_r2;
+  return a;
+}
 
 bool bad_jacobi_args(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int gx, bool ring, bool slabs) {
   return m < 1 || m > kMaxM || m > s || n < 1 || n > 65535 || 2 * s >= Xr || 2 * s >= Yr || 2 * s >= W ||
@@ -698,6 +782,45 @@ int stp_mean6_wavefront(const float* raw, float* out, int n, int Xr, int Yr, int
     case 7: return launch<7, false, false, false>(a, n, st);
     default: return launch<kMaxM, false, false, false>(a, n, st);
   }
+}
+
+// k periodic Jacobi levels over the whole (X, Y, Z) domain, `in` to `out`
+// (in untouched): ceil(k/4) marches, ping-ponging through `scratch`, an (X,
+// Y, Z) f32 buffer required where k needs more than one march
+// (stp_jacobi_wrap_plan's launches), else ignored.  Returns a CUDA error
+// code, or -1 for arguments the kernel does not take.
+int stp_jacobi_wrap(const float* in, float* out, float* scratch, int X, int Y, int Z, int k, int hot_x,
+                    int cold_x, int in_r2, void* stream) {
+  if (bad_wrap_args(X, Y, Z, k)) return -1;
+  const int q = wrap_marches(k);
+  if (q > 1 && (scratch == nullptr || scratch == in || scratch == out)) return -1;
+  if (in == out) return -1;
+  const float* src = in;
+  for (int j = 0; j < q; ++j) {
+    // the last march writes `out`, the one before it the scratch, and so on
+    float* dst = (q - 1 - j) % 2 == 0 ? out : scratch;
+    const int rc = run_march(wrap_args(src, dst, X, Y, Z, hot_x, cold_x, in_r2), 1, wrap_depth(k, j), kWrapForm,
+                             false, false, (cudaStream_t)stream, nullptr);
+    if (rc != 0) return rc;
+    src = dst;
+  }
+  return 0;
+}
+
+// The launches stp_jacobi_wrap makes for these arguments, into info[11]:
+// kernel launches a call (marches), the first march's depth, and that
+// march's blocks an SM, SMs, blocks, x chunk, chunks, shared memory bytes,
+// threads a block and tiles along z and y.  Returns what the launch would.
+int stp_jacobi_wrap_plan(int X, int Y, int Z, int k, int* info) {
+  if (bad_wrap_args(X, Y, Z, k)) return -1;
+  Plan pl;
+  const int d1 = wrap_depth(k, 0);
+  const int rc = run_march(wrap_args(nullptr, nullptr, X, Y, Z, 0, 0, 0), 1, d1, kWrapForm, false, false, nullptr, &pl);
+  if (rc != 0) return rc;
+  const int w[11] = {wrap_marches(k), d1, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks,
+                     pl.smem, pl.threads, pl.tiles_z, pl.tiles_y};
+  for (int j = 0; j < 11; ++j) info[j] = w[j];
+  return 0;
 }
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -34,7 +34,7 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
     (_JP, "jacobi_wrap_step"): _ported(
         "stencil_tpu_torch.ops.jacobi_kernels:jacobi_wrap_step",
         "stencil_tpu_torch.ops.jacobi_kernels:jacobi_wrap_step_plain",
-        "stencil_tpu_torch/csrc/jacobi.cu",
+        "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
         f"{_JP}:869",
     ),
     (_JP, "jacobi_plane_step"): _ported(

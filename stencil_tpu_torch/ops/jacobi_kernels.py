@@ -35,9 +35,9 @@ COLD_TEMP = 0.0
 #: multiplies by 0x1.555556p-3 (the constant XLA substitutes for `/ 6.0`)
 SIXTH = float(np.float32(1.0 / 6.0))
 
-#: the wrap route's depth for ``temporal_k="auto"``.  The wrap kernel runs one
-#: level per launch, so the depth only sets how many launches one call makes;
-#: a shared-memory temporal-blocking kernel will re-derive it from tile sizes.
+#: the wrap route's depth for ``temporal_k="auto"``: one call runs its k
+#: levels as ``wrap_march_depths(k)`` marches of the wavefront kernel's wrap
+#: form (two at k = 8)
 WRAP_AUTO_K = 8
 
 #: the deepest temporal depth the JAX package plans (jacobi_pallas.py:627);
@@ -126,36 +126,43 @@ def jacobi_wrap_step_plain(block: torch.Tensor, k: int = 1) -> torch.Tensor:
     return c
 
 
+def wrap_march_depths(k: int) -> list:
+    """The depths of the marches one ``jacobi_wrap_step`` call of ``k``
+    levels launches: ceil(k / ``WAVEFRONT_SUB_DEPTH``) of them, as even as
+    can be, the deeper first (``wrap_depth`` in csrc/jacobi_wavefront.cu)."""
+    q = -(-k // WAVEFRONT_SUB_DEPTH)
+    return [k // q + (1 if j < k % q else 0) for j in range(q)]
+
+
 def jacobi_wrap_step(block: torch.Tensor, k: int = 1) -> torch.Tensor:
     """``k`` Jacobi levels over the WHOLE periodic domain (the single-
-    subdomain route); returns a new tensor, ``block`` is left as it was.
+    subdomain route) from one read of ``block``; returns a new tensor,
+    ``block`` is left as it was.
 
-    On CUDA: ``k`` launches of the one-level kernel, ping-ponging between two
-    fresh buffers so the last level lands in the returned one."""
+    On CUDA: one call of the wavefront kernel's wrap form, its k levels as
+    ``wrap_march_depths(k)`` marches; more than one pass through an (X, Y,
+    Z) scratch from torch's caching allocator, the last march writing the
+    returned tensor."""
     _check_k(block, k)
     if block.device.type == "cpu":
         return jacobi_wrap_step_plain(block, k)
-    from stencil_tpu_torch.kernels import build
-
-    lib = build.load("jacobi")
     X, Y, Z = block.shape
     hot_x, cold_x, in_r2 = sphere_params(X)
-    bufs = [torch.empty_like(block), torch.empty_like(block) if k > 1 else None]
-    stream = stream_handle(block.device)
-    src = block
-    for level in range(k):
-        dst = bufs[(k - 1 - level) % 2]
-        rc = lib.stp_jacobi_wrap_level(
-            src.data_ptr(), dst.data_ptr(), X, Y, Z, hot_x, cold_x, in_r2,
-            Y // 2, Z // 2, stream,
-        )
+    out = torch.empty_like(block)
+    scratch = torch.empty_like(block) if k > WAVEFRONT_SUB_DEPTH else None
+    entry, lib = _wrap_entry()
+    rc = entry(block.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+               X, Y, Z, k, hot_x, cold_x, in_r2, current_raw_stream(block.device.index))
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
         build.check(lib, rc, "jacobi_wrap_step")
-        jacobi_wrap_step.launches += 1
-        src = dst
-    return bufs[0]
+    jacobi_wrap_step.launches += 1
+    return out
 
 
-#: kernel launches made by ``jacobi_wrap_step`` (plain-version calls do not count)
+#: calls of ``jacobi_wrap_step`` on CUDA, one a call whatever its marches
+#: (plain-version calls do not count)
 jacobi_wrap_step.launches = 0
 
 
@@ -577,6 +584,7 @@ def wavefront_marches(m: int) -> int:
 
 
 _ENTRY = None
+_WRAP_ENTRY = None
 
 
 def _entry():
@@ -589,6 +597,15 @@ def _entry():
         lib = build.load("jacobi_wavefront")
         _ENTRY = (lib.stp_jacobi_wavefront, lib)
     return _ENTRY
+
+
+def _wrap_entry():
+    """``(C entry, library)`` of ``stp_jacobi_wrap``, from the same library."""
+    global _WRAP_ENTRY
+    if _WRAP_ENTRY is None:
+        lib = _entry()[1]
+        _WRAP_ENTRY = (lib.stp_jacobi_wrap, lib)
+    return _WRAP_ENTRY
 
 
 def _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zraw, width, m, s_off,
@@ -647,5 +664,35 @@ def jacobi_wavefront_launch(shape, m: int, interior_offset=None, ring: bool = Fa
         build.check(lib, rc, "jacobi_wavefront_launch")
     plan = dict(zip(WAVEFRONT_PLAN_FIELDS, info))
     plan["form"] = _WAVEFRONT_FORMS[plan["form"]]
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan
+
+
+#: the fields of ``jacobi_wrap_launch``, in the order the C entry
+#: ``stp_jacobi_wrap_plan`` fills them
+WRAP_PLAN_FIELDS = ("launches", "depth", "blocks_per_sm", "sms", "blocks", "xchunk", "nchunks", "smem_bytes",
+                    "threads", "tiles_z", "tiles_y")
+
+
+def jacobi_wrap_launch(shape, k: int) -> dict:
+    """The launches a ``jacobi_wrap_step`` call of ``k`` levels over an
+    ``(X, Y, Z)`` domain makes on the card, without making them: kernel
+    ``launches`` a call (marches) and their ``depths``, and of the first
+    march its ``depth``, blocks an SM the occupancy calculator allows, SMs,
+    the grid's blocks and its ``waves``, the x chunking, the shared memory
+    and threads a block asks and the tiles along z and y (fields as
+    ``WRAP_PLAN_FIELDS``)."""
+    X, Y, Z = shape
+    lib = _entry()[1]
+    info = (ctypes.c_int * len(WRAP_PLAN_FIELDS))()
+    rc = lib.stp_jacobi_wrap_plan(X, Y, Z, k, info)
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
+        build.check(lib, rc, "jacobi_wrap_launch")
+    plan = dict(zip(WRAP_PLAN_FIELDS, info))
+    plan["depths"] = wrap_march_depths(k)
+    if (plan["launches"], plan["depth"]) != (len(plan["depths"]), plan["depths"][0]):
+        raise RuntimeError(f"stp_jacobi_wrap_plan splits k={k} otherwise than wrap_march_depths: {plan}")
     plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
     return plan

@@ -38,14 +38,30 @@ def _rand(shape, seed, dev):
     return torch.from_numpy(np.random.default_rng(seed).random(shape).astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
-def test_wrap_kernel_equals_plain(dev, k):
-    block = _rand((66, 70, 130), 1, dev)
+@pytest.mark.parametrize("shape,k", [((66, 70, 130), k) for k in (1, 2, 3, 4, 5, 6, 7, 8, 12)]
+                         + [((16, 5, 7), 4), ((24, 9, 11), 12), ((9, 2, 1), 4), ((2, 3, 3), 1)])
+def test_wrap_kernel_equals_plain(dev, shape, k):
+    """Ragged shapes that both spheres cross, and axes shorter than a
+    march's apron (every index wraps more than once)."""
+    block = _rand(shape, 1, dev)
+    keep = block.clone()
     before = jk.jacobi_wrap_step.launches
     got = jk.jacobi_wrap_step(block, k)
     torch.cuda.synchronize()
-    assert jk.jacobi_wrap_step.launches == before + k
+    assert jk.jacobi_wrap_step.launches == before + 1  # one a call, whatever its marches
+    assert torch.equal(block, keep)
     assert torch.equal(got, jk.jacobi_wrap_step_plain(block, k))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_wrap_kernel_equals_plain_at_the_main_path_shape(dev, k):
+    block = _rand((512, 512, 512), 2, dev)
+    got = jk.jacobi_wrap_step(block, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, jk.jacobi_wrap_step_plain(block, k))
+    plan = jk.jacobi_wrap_launch((512, 512, 512), k)
+    assert plan["depths"] == jk.wrap_march_depths(k) and plan["launches"] == len(plan["depths"])
+    assert plan["blocks_per_sm"] >= 1 and plan["smem_bytes"] <= jk.SMEM_PER_BLOCK
 
 
 def test_plane_kernel_equals_plain(dev):
