@@ -16,8 +16,11 @@ non-zero before the result line:
    wavefront kernels also at m = 4, 6 and 8, one march and two, on ragged
    blocks that both spheres cross; the wrap kernel at k = 1..8 and 12 on a
    ragged block, on axes shorter than a march's apron, and at 512^3 at
-   k = 1 and the main path's k = 8); the expected result is bitwise
-   equality;
+   k = 1 and the main path's k = 8; the plane and slab kernels, depth-1
+   marches, on ragged blocks both spheres cross, axes shorter than a tile,
+   X = 2 for the slab kernel, random faces and each block's own, and the
+   plane kernel at the shell route's blocks of 512^3 and of 511^3, padded
+   shards); the expected result is bitwise equality;
 4. main path, wrap route: Jacobi3D at 512^3 f32 on one subdomain, 200 steps
    through the entry points a user calls, launch counters reset just before
    and read just after; checked bitwise against the plain path at step 10,
@@ -45,7 +48,8 @@ non-zero before the result line:
    CUDA-event ms and bound, and its launch plan
    (``jacobi_wavefront_launch``: marches, blocks an SM, waves, x chunks);
    the same for the wrap kernel at 512^3, k = 8 (the wrap route's call) and
-   k = 1 (``jacobi_wrap_launch``);
+   k = 1 (``jacobi_wrap_launch``), and for jacobi_plane_step at the shell
+   route's (8, 258^3) (``jacobi_plane_launch``);
 8. the Astaroth main path: ``AstarothSim(512, 512, 512, num_quantities=8,
    kernel_impl="cuda", schedule="wavefront")`` on one subdomain (the
    ``bench.py`` configuration: per-field stream_wavefront_pass launches at
@@ -76,7 +80,8 @@ non-zero before the result line:
     plain wavefront) and ``per-step`` (plane), 24 iterations each, bitwise
     equal to the one-subdomain 511^3 wrap route; Mcells/s or ms/iter, and
     profiles;
-12. times of jacobi_slab_step at the slab route's shapes and of
+12. times of jacobi_slab_step at the slab route's shapes (its device ms a
+    call and launch plan, ``jacobi_slab_launch``, as phase 7) and of
     blend_slab_dynamic at the uneven wavefront's +x, +y and +z halo writes,
     beside their bounds, plain versions and, for blend_slab_dynamic, the
     library call that makes the same write (``Tensor.scatter_`` with
@@ -323,6 +328,11 @@ def host_us_per_call(fn, calls: int = 100) -> float:
     return dt / calls * 1e6
 
 
+def plan_str(plan: dict) -> str:
+    """A kernel's launch plan on one line."""
+    return ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in plan.items())
+
+
 def ms4(v) -> str:
     """A reading to four places, or "not measured" where it is None."""
     return "not measured" if v is None else f"{v:.4f}"
@@ -495,12 +505,33 @@ def main() -> int:
         hold("jacobi_wrap_step", jk.jacobi_wrap_step(full, k), jk.jacobi_wrap_step_plain(full, k), f"{N}^3 k={k}")
     del full
 
+    def crossing_origins(n, ext, gs_c):
+        """Block b's start: x such that its ``ext`` planes hold the hot
+        sphere's centre (b even) or the cold one's (b odd), y and z near 0."""
+        hot_x, cold_x, _ = jk.sphere_params(gs_c[0])
+        return torch.tensor([[((hot_x, cold_x)[b % 2] - ext // 2) % gs_c[0], b % gs_c[1], (3 * b) % gs_c[2]]
+                             for b in range(n)], dtype=torch.int32, device=dev)
+
+    # jacobi_plane_step (the plane form, a march of depth 1): ragged blocks
+    # that both spheres cross, axes shorter than one 32 x 64 tile, partial
+    # tiles in y and z, the tile exactly, n = 1 and 8; the whole block
+    # compared (the shell copied through); then the shell route's blocks at
+    # 512^3 and at 511^3 (the last shard a side padded)
     gs_r = (130, 140, 260)
     blocks_r = seeded((2, 66, 70, 130), 3, dev)
     org_r = torch.tensor([[64, 0, 128], [0, 68, 0]], dtype=torch.int32, device=dev)
     d2_r = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (68, 128), gs_r, dev) for o in org_r])
     hold("jacobi_plane_step", jk.jacobi_plane_step(blocks_r, org_r, d2_r, gs_r),
          jk.jacobi_plane_step_plain(blocks_r, org_r, d2_r, gs_r), "2x66x70x130")
+    for n_p, X_p, Y_p, Z_p in ((1, 3, 3, 3), (1, 5, 4, 7), (8, 12, 35, 67), (8, 20, 32, 64), (1, 9, 61, 125)):
+        gs_p = (60, Y_p - 1, Z_p)
+        blk = seeded((n_p, X_p, Y_p, Z_p), 22, dev)
+        o = crossing_origins(n_p, X_p - 2, gs_p)
+        dd2 = torch.stack([jk.yz_dist2_plane(int(v[1]), int(v[2]), (Y_p - 2, Z_p - 2), gs_p, dev) for v in o])
+        want = jk.jacobi_plane_step_plain(blk, o, dd2, gs_p)
+        if n_p == 8 and not ((want == HOT_TEMP).any() and (want == COLD_TEMP).any()):
+            raise AssertionError(f"jacobi_plane_step {n_p}x({X_p},{Y_p},{Z_p}): the spheres do not cross")
+        hold("jacobi_plane_step", jk.jacobi_plane_step(blk, o, dd2, gs_p), want, f"{n_p}x({X_p},{Y_p},{Z_p})")
     half = N // 2
     gs = (N, N, N)
     blocks = seeded((8, half + 2, half + 2, half + 2), 4, dev)
@@ -509,6 +540,11 @@ def main() -> int:
     d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in org])
     hold("jacobi_plane_step", jk.jacobi_plane_step(blocks, org, d2, gs),
          jk.jacobi_plane_step_plain(blocks, org, d2, gs), f"8x{half + 2}^3")
+    gs_u = (N - 1,) * 3
+    d2_u = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs_u, dev) for o in org])
+    hold("jacobi_plane_step", jk.jacobi_plane_step(blocks, org, d2_u, gs_u),
+         jk.jacobi_plane_step_plain(blocks, org, d2_u, gs_u), f"8x{half + 2}^3 of {N - 1}^3 (padded shards)")
+    del d2_u
 
     small = seeded((3, 17, 19, 23), 5, dev) * 100
     for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.uint8):
@@ -570,17 +606,23 @@ def main() -> int:
         else:
             faces = [seeded((n,) + s, seed + 1 + i, dev)
                      for i, s in enumerate(((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
-        o = torch.tensor([[(b * X + 2) % gs_s[0], (5 * b) % gs_s[1], (7 * b) % gs_s[2]] for b in range(n)],
-                         dtype=torch.int32, device=dev)
+        o = crossing_origins(n, X, gs_s)
         dd2 = torch.stack([jk.yz_dist2_plane(int(v[1]), int(v[2]), (Y, Z), gs_s, dev) for v in o])
         return blk, faces, o, dd2
 
-    for n_s, X_s, Y_s, Z_s in ((1, 2, 3, 5), (3, 7, 33, 70)):
-        gs_s = (n_s * X_s + 3, 2 * Y_s + 1, 3 * Z_s)
+    # (the slab form, a march of depth 1: X = 2 with axes shorter than a
+    # tile and with partial tiles, partial tiles in y and z, a tile's 30 x 62
+    # outputs exactly, n = 1, 3 and 8; both spheres cross where n >= 2)
+    for n_s, X_s, Y_s, Z_s in ((1, 2, 3, 5), (1, 2, 1, 1), (8, 2, 31, 63), (3, 7, 33, 70), (8, 5, 30, 62),
+                               (1, 9, 61, 125)):
+        gs_s = (60, Y_s + 1, Z_s + 2)
         for own in (False, True):
             blk, faces, o, dd2 = slab_args(n_s, X_s, Y_s, Z_s, gs_s, 24, own)
-            hold("jacobi_slab_step", jk.jacobi_slab_step(blk, *faces, o, dd2, gs_s),
-                 jk.jacobi_slab_step_plain(blk, *faces, o, dd2, gs_s), f"{n_s}x({X_s},{Y_s},{Z_s}) own={own}")
+            want = jk.jacobi_slab_step_plain(blk, *faces, o, dd2, gs_s)
+            if n_s > 1 and min(X_s, Y_s, Z_s) >= 5 and not ((want == HOT_TEMP).any() and (want == COLD_TEMP).any()):
+                raise AssertionError(f"jacobi_slab_step {n_s}x({X_s},{Y_s},{Z_s}): the spheres do not cross")
+            hold("jacobi_slab_step", jk.jacobi_slab_step(blk, *faces, o, dd2, gs_s), want,
+                 f"{n_s}x({X_s},{Y_s},{Z_s}) own={own}")
     slab_in = seeded((8, half, half, half), 32, dev)
     slab_faces = [seeded((8, half, half), 33 + i, dev) for i in range(6)]
     hold("jacobi_slab_step", jk.jacobi_slab_step(slab_in, *slab_faces, org, d2, gs),
@@ -893,9 +935,7 @@ def main() -> int:
             "bound_ms": bound(wrap_bytes, 7 * cells * k)[0], "launch": jk.jacobi_wrap_launch((N, N, N), k)}
         w = jacobi_wrap[k]
         log(f"jacobi wrap ({N},{N},{N}) k={k}: device {w['device_ms']:.4f} ms a call, CUDA events {w['ms']:.4f} ms "
-            f"(plain {w['plain_ms']:.4f}), bound {w['bound_ms']:.4f} ms; launch " + ", ".join(
-                f"{key} {v:.3f}" if isinstance(v, float) else f"{key} {v}" for key, v in w["launch"].items())
-            + f" on {card}")
+            f"(plain {w['plain_ms']:.4f}), bound {w['bound_ms']:.4f} ms; launch {plan_str(w['launch'])} on {card}")
     wrap_ms, wrap_plain_ms = jacobi_wrap[wrap_k]["ms"], jacobi_wrap[wrap_k]["plain_ms"]
     del block, src
 
@@ -904,6 +944,12 @@ def main() -> int:
     plane_bytes = 2 * blocks.numel() * 4 + d2.numel() * 4 + org.numel() * 4
     plane_ms = cuda_ms(lambda: jk.jacobi_plane_step(blocks, org, d2, gs, out=out))
     plane_plain_ms = cuda_ms(lambda: jk.jacobi_plane_step_plain(blocks, org, d2, gs, out=out), inner=2)
+    # the plane form (a march of depth 1): device ms a call and its launch plan
+    plane_dev_ms = device_ms_per_call(lambda: jk.jacobi_plane_step(blocks, org, d2, gs, out=out))
+    plane_launch = jk.jacobi_plane_launch(tuple(blocks.shape))
+    log(f"jacobi_plane_step {tuple(blocks.shape)}: device {plane_dev_ms:.4f} ms a call, CUDA events "
+        f"{plane_ms:.4f} ms (plain {plane_plain_ms:.4f}), bound {bound(plane_bytes, 7 * 8 * half ** 3)[0]:.4f} ms; "
+        f"launch {plan_str(plane_launch)} on {card}")
 
     def exchange_writes(fn):
         def run():
@@ -978,9 +1024,7 @@ def main() -> int:
                            "launch": jk.jacobi_wavefront_launch(shape, mw, ring=ring, slabs=slabs)}
         w = jacobi_wf[form]
         log(f"jacobi wavefront {form} {shape} m={mw}: device {w['device_ms']:.4f} ms a call, CUDA events "
-            f"{w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms; launch " + ", ".join(
-                f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in w["launch"].items())
-            + f" on {card}")
+            f"{w['ms']:.4f} ms, bound {w['bound_ms']:.4f} ms; launch {plan_str(w['launch'])} on {card}")
     del main_ring, ring_raw, ring_zs, main_shell, sh_raw, sh_zs
 
     wrap_mcells = cells * (STEPS - CHECK_AT) / wrap_s / 1e6
@@ -1295,6 +1339,9 @@ def main() -> int:
     slabk_plain_ms = cuda_ms(lambda: jk.jacobi_slab_step_plain(*slab_args_main, out=slab_out), inner=2)
     slabk_bytes = (2 * slab_in.numel() + sum(f.numel() for f in slab_faces) + d2.numel() + org.numel()) * 4
     slabk_flops = 7 * slab_in.numel()
+    # the slab form (a march of depth 1): device ms a call and its launch plan
+    slabk_dev_ms = device_ms_per_call(lambda: jk.jacobi_slab_step(*slab_args_main, out=slab_out))
+    slab_launch = jk.jacobi_slab_launch(tuple(slab_in.shape))
     del slab_out, slab_in, slab_faces
     dyn_ms, dyn_plain_ms, dyn_lib_ms = {}, {}, {}
     for slab, axis, pos in dyn_writes:
@@ -1316,7 +1363,9 @@ def main() -> int:
     log("blend_slab_dynamic per +axis halo write at (8,{0},{0},{0}) m={1} (ms: kernel, plain, scatter_): ".format(
         ru, mu) + ", ".join(f"axis {a}: {dyn_ms[a]:.4f}, {dyn_plain_ms[a]:.4f}, {dyn_lib_ms[a]:.4f}"
                            for a in (0, 1, 2)))
-    log(f"jacobi_slab_step at 8x{half}^3: {slabk_ms:.4f} ms (plain {slabk_plain_ms:.4f}) on {card}")
+    log(f"jacobi_slab_step at 8x{half}^3, six slabs: device {slabk_dev_ms:.4f} ms a call, CUDA events "
+        f"{slabk_ms:.4f} ms (plain {slabk_plain_ms:.4f}), bound {bound(slabk_bytes, slabk_flops)[0]:.4f} ms; "
+        f"launch {plan_str(slab_launch)} on {card}")
     del dyn_blocks, dyn_writes
     torch.cuda.empty_cache()
 
@@ -1747,6 +1796,10 @@ def main() -> int:
         if name == "jacobi_wrap_step":
             w = jacobi_wrap[wrap_k]
             rows[-1].update(device_ms=w["device_ms"], launch=w["launch"], k1=jacobi_wrap[1])
+        if name == "jacobi_plane_step":
+            rows[-1].update(device_ms=plane_dev_ms, launch=plane_launch)
+        if name == "jacobi_slab_step":
+            rows[-1].update(device_ms=slabk_dev_ms, launch=slab_launch)
         if name == "jacobi_zring_wavefront_step":
             rows[-1].update(device_ms=jacobi_wf["z-ring"]["device_ms"], launch=jacobi_wf["z-ring"]["launch"])
         if name == "jacobi_shell_wavefront_step":

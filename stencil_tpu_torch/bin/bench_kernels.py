@@ -1,13 +1,14 @@
-"""Device times of the Jacobi wrap and wavefront kernels, the stream
-wavefront kernel and blend_slab at the main path's shapes, in a form that
-times an older tree of the port as well.
+"""Device times of the Jacobi wrap, wavefront, plane and slab kernels, the
+stream wavefront kernel and blend_slab at the main path's shapes, in a form
+that times an older tree of the port as well.
 
     python -m stencil_tpu_torch.bin.bench_kernels [--out FILE] [--only SECTION ...]
     PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's kernels
 
 It calls only what the port has had since these kernels landed
 (``jacobi_wrap_step``, ``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
-``stream_wavefront_pass``, ``blend_slab``, ``AstarothSim``), so two trees
+``jacobi_plane_step``, ``jacobi_slab_step``, ``stream_wavefront_pass``,
+``blend_slab``, ``AstarothSim``), so two trees
 timed in turn on one card compare like with like.  It prints, and writes to
 ``--out``, one JSON object with the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them)
@@ -26,7 +27,13 @@ and (``--only`` keeps the sections named):
   mean over the launches its trace holds times its launches a call; a call
   may launch more than one kernel), CUDA-event ms a call and the bound (the
   bytes a call must move over 3.35 TB/s);
-
+* ``jacobi_plane``: ``jacobi_plane_step`` over the shell route's blocks on
+  2x2x2 at 512^3, (8, 258, 258, 258) f32 into ``out=``; ``jacobi_slab``:
+  ``jacobi_slab_step`` over the slab route's, (8, 256, 256, 256) f32 and six
+  face slabs (8, 256, 256): each its device ms a call (torch.profiler over
+  10 calls), CUDA-event ms a call, the bound (one read and one write of the
+  blocks, the slabs, d2 and the origins over 3.35 TB/s) and, where the tree
+  has ``jacobi_plane_launch`` / ``jacobi_slab_launch``, the plan;
 * ``wavefront``: ``stream_wavefront_pass`` of the Astaroth kernel on one
   field, m = 3, z slabs, at (1, 518, 518, 518) (``AstarothSim(512^3,
   schedule="wavefront")`` on one subdomain) and (8, 262, 262, 262) (its
@@ -202,6 +209,39 @@ def jacobi_wavefront_times(dev) -> dict:
     return out
 
 
+def _onelevel_case(dev, which: str) -> dict:
+    """The shell route's ``jacobi_plane_step`` call or the slab route's
+    ``jacobi_slab_step`` call on 2x2x2 at 512^3, timed as ``jacobi_wrap``."""
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+    half, gs = N // 2, (N, N, N)
+    ext = half + 2 if which == "plane" else half
+    block = _seeded((8, ext, ext, ext), 50, dev)
+    org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
+                       dtype=torch.int32, device=dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in org])
+    out = torch.empty_like(block)
+    if which == "plane":
+        slabs = []
+
+        def call():
+            return jk.jacobi_plane_step(block, org, d2, gs, out=out)
+    else:
+        slabs = [_seeded((8, half, half), 51 + i, dev) for i in range(6)]
+
+        def call():
+            return jk.jacobi_slab_step(block, *slabs, org, d2, gs, out=out)
+
+    prof, _ = _profile(call, 10)
+    nbytes = (2 * block.numel() + sum(s.numel() for s in slabs) + d2.numel() + org.numel()) * 4
+    plan = getattr(jk, f"jacobi_{which}_launch", None)
+    res = {"shape": list(block.shape), "device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "launch": None if plan is None else plan(tuple(block.shape))}
+    del block, slabs, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def wavefront_times(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
     from stencil_tpu_torch.ops import stream as st
@@ -279,8 +319,10 @@ def direct_route(dev) -> dict:
 
 
 def main(argv=None) -> int:
-    sections = {"jacobi_wrap": jacobi_wrap_times, "jacobi_wavefront": jacobi_wavefront_times, "wavefront": wavefront_times, "blend": blend_times,
-                "direct": direct_route}
+    sections = {"jacobi_wrap": jacobi_wrap_times, "jacobi_wavefront": jacobi_wavefront_times,
+                "jacobi_plane": lambda dev: _onelevel_case(dev, "plane"),
+                "jacobi_slab": lambda dev: _onelevel_case(dev, "slab"), "wavefront": wavefront_times,
+                "blend": blend_times, "direct": direct_route}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

@@ -1,6 +1,6 @@
-// The m-level Jacobi wavefront kernel for Hopper (sm_90a), bound to Python
+// The Jacobi register-queue kernel for Hopper (sm_90a), bound to Python
 // through ctypes (stencil_tpu_torch/kernels/build.py,
-// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves the three
+// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves the five
 // TPU kernels it replaces:
 //
 //   stencil_tpu/ops/jacobi_pallas.py:983  jacobi_shell_wavefront_step
@@ -15,7 +15,23 @@
 //     k levels over the whole periodic (X, Y, Z) domain (form kWrapForm,
 //     exported as stp_jacobi_wrap): no shell and no slabs, every level-0
 //     index read modulo its axis, d2 = (y - Y/2)^2 + (z - Z/2)^2 computed
-//     in the kernel, the last level written to all of (X, Y, Z).
+//     in the kernel, the last level written to all of (X, Y, Z);
+//   stencil_tpu/ops/jacobi_pallas.py:1484 jacobi_plane_step
+//     one level over n radius-1 shell-carrying blocks (n, X, Y, Z) (form
+//     kPlaneForm, exported as stp_jacobi_plane): a march of depth 1 over
+//     the raw plane, as kShell with s = 1, d2 over the (Y - 2, Z - 2)
+//     interior; the shell passes through: the thread that owns a ring row
+//     or column (the first and last tile's apron) stores its level-0
+//     value, and the first and last chunk store all of planes 0 and X - 1,
+//     so `out` is written whole;
+//   stencil_tpu/ops/jacobi_pallas.py:1347 jacobi_slab_step
+//     one level over n bare interiors (n, X, Y, Z) (form kSlabForm,
+//     exported as stp_jacobi_slab): a march of depth 1 whose tile origin
+//     lies at -1 in y and z, as in the wrap form, and whose level-0 fetch
+//     at plane -1 / X reads the x face slabs xlo / xhi (n, Y, Z), at row
+//     -1 / Y the y slabs (n, X, Z) and at column -1 / Z the z slabs
+//     (n, X, Y) (kept (X, Y), not the TPU's transposed layout); apron
+//     corners, which one level never reads, load 0.
 //
 // Layout.  A block works on a "logical plane" of width W: the raw columns
 // (shell forms: W = z_valid) or low halo | interior | high halo (ring form:
@@ -73,6 +89,15 @@
 // the H100, where eight one-level launches of six global loads a cell took
 // ~5.1 (PERF.md).
 //
+// The one-level forms (plane, slab) replace one-thread-a-cell kernels of
+// six global loads a cell that ran at 3.1-3.7x their bound (PERF.md): here
+// a cell is loaded once, its x neighbours come from the queue and its
+// in-plane ones from shared memory, and d2 is read once a block.  Their
+// bound is the bytes of one read and one write of the block (plus the
+// slabs and d2): 0.3287 ms at (8, 258^3), 0.3249 at (8, 256^3) with six
+// slabs.  At 256 a side the 32 x 64 tile's 30 x 62 outputs cover 9 x 5
+// tiles (1.28x the cells; its loads 1.41x).
+//
 // Shared memory.  2d planes of the tile and two rows of padding: 16,384 d +
 // 544 bytes, 66,080 at d = 4.  The plan's model,
 // wavefront_smem_bytes in ops/jacobi_kernels.py (the old design's
@@ -83,8 +108,10 @@
 // Grid.  The launch asks the occupancy calculator how many blocks fit an SM
 // (two at d <= 4: 128 registers a thread, 16 warps an SM) and cuts x into
 // chunks so that the blocks fill whole waves: the chunk count that minimises
-// (waves) x (planes a block marches, its 2d-plane ramp included).
-// stp_jacobi_wavefront_plan reports the choice.
+// (waves) x (planes a block marches, its 2d-plane ramp included), among the
+// counts that give at least kMinWaves = 4 waves of blocks where any does.
+// stp_jacobi_wavefront_plan (and the wrap, plane and slab plans) report the
+// choice.
 //
 // Three designs were timed on the H100 at the z-ring shape, m = 8 (PERF.md):
 // one march of 8 levels in 16 warps of two rows (4.18-4.22 device ms a
@@ -107,13 +134,16 @@
 // written (a first march: the region [s - d2, ext - s + d2) of the scratch,
 // d2 the second march's depth).
 //
-// Bitwise contract with the JAX package, as csrc/jacobi.cu: the six
-// neighbours summed as a left fold x-1, x+1, y-1, y+1, z-1, z+1; the mean a
-// multiply by 0x1.555556p-3f; built without fast-math and with --fmad=false;
-// the integer sphere test d2 < in_r2 - (x_g - c)^2 with
-// x_g = (origin_x + gx + p - s) mod gx for raw plane p (skipped where the
-// right side is <= 0: d2, a squared distance, is never negative).  Offsets
-// are 64-bit.
+// Bitwise contract with the JAX package: the six neighbours summed as a
+// left fold in the TPU kernels' order x-1, x+1, y-1, y+1, z-1, z+1
+// (jacobi_pallas.py:515-524, :1518-1525); the mean a multiply by the f32
+// constant 0x1.555556p-3f, as XLA compiles `sum / 6.0` (an IEEE divide
+// differs by 1 ulp on some cells); built without fast-math and with
+// --fmad=false, so nothing contracts; the integer sphere test, hot then
+// cold, d2 < in_r2 - (x_g - c)^2 with in_r2 = (gx/10 + 1)^2, gx the GLOBAL
+// x extent and x_g = (origin_x + gx + p - s) mod gx for raw plane p, a
+// non-negative modulo (skipped where the right side is <= 0: d2, a squared
+// distance, is never negative).  Offsets are 64-bit.
 //
 // The same file keeps the earlier design, instantiated only without the
 // clamp, for
@@ -173,11 +203,12 @@ constexpr int kQCols = 64;     // tile columns with the apron: two a lane, 32 ap
 constexpr int kSubDepth = 4;   // the deepest march; == WAVEFRONT_SUB_DEPTH
 constexpr int kQThreads = kThreadsZ * kQWarps;
 constexpr int kQMinBlocks = 2;  // blocks an SM the registers are cut for (128 a thread)
+constexpr int kMinWaves = 4;    // waves of blocks the x chunking asks for where it can
 // cells before the first plane and after the last, so that a read at an
 // in-plane offset from any tile cell stays inside the allocation
 constexpr int kQPad = kQCols + 4;
 
-enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2, kWrapForm = 3 };
+enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2, kWrapForm = 3, kPlaneForm = 4, kSlabForm = 5 };
 
 __host__ __device__ constexpr bool has_slabs(int form) { return form == kRingForm || form == kShellSlabs; }
 
@@ -197,6 +228,24 @@ struct QArgs {
   int d2_w;
   int gx, hot_x, cold_x, in_r2;
   int xchunk, nchunks;  // output x planes per block, chunks per block b
+};
+
+// The slab form's arguments: QArgs and the six face slabs.  Only the slab
+// form's kernel takes them: six more pointers in QArgs itself changed every
+// other form's machine code and moved their times by 3-7% (PERF.md)
+struct SlabArgs : QArgs {
+  const float *xlo, *xhi;  // (n, Y, Z)
+  const float *ylo, *yhi;  // (n, X, Z)
+  const float *zlo, *zhi;  // (n, X, Y)
+};
+
+template <int kForm>
+struct FormArgs {
+  using type = QArgs;
+};
+template <>
+struct FormArgs<kSlabForm> {
+  using type = SlabArgs;
 };
 
 template <int D>
@@ -248,15 +297,35 @@ __device__ __forceinline__ int load_d2(const QArgs& a, const int* d2, int y, int
     const int dy = pmod(y, a.Yr) - a.Yr / 2, dz = pmod(c, a.W) - a.W / 2;
     return dy * dy + dz * dz;
   }
+  if (kForm == kPlaneForm) {  // (Yr - 2, W - 2) over the interior: the ring is never clamped
+    if (y < 1 || c < 1 || y >= a.Yr - 1 || c >= a.W - 1) return kFar;
+    return d2[(int64_t)(y - 1) * a.d2_w + c - 1];
+  }
+  if (kForm == kSlabForm && (y < 0 || c < 0)) return kFar;  // the slab form's apron at -1
   if (y >= a.Yr || c >= a.W) return kFar;
   const int col = kForm == kRingForm ? (c < a.W - a.s ? c - a.s + kRingOff : c - (a.W - a.s)) : c;
   return d2[(int64_t)y * a.d2_w + col];
 }
 
+// The slab form's level-0 cell (y, c) of plane i (-1 <= i <= X) of block b:
+// the block inside, a face slab one cell outside it, 0 elsewhere (apron
+// corners and edges, which one level never reads, and cells past the face)
+__device__ __forceinline__ float load_slab(const SlabArgs& a, int b, int i, int y, int c) {
+  const int X = a.Xr, Y = a.Yr, Z = a.W;
+  const bool in_y = y >= 0 && y < Y, in_z = c >= 0 && c < Z;
+  if (i < 0 || i >= X) return in_y && in_z ? (i < 0 ? a.xlo : a.xhi)[((int64_t)b * Y + y) * Z + c] : 0.0f;
+  const int64_t bx = (int64_t)b * X + i;
+  if (in_y && in_z) return a.raw[(bx * Y + y) * Z + c];
+  if (in_z && (y == -1 || y == Y)) return (y < 0 ? a.ylo : a.yhi)[bx * Z + c];
+  if (in_y && (c == -1 || c == Z)) return (c < 0 ? a.zlo : a.zhi)[bx * Y + y];
+  return 0.0f;
+}
+
 // One march of D levels.  At D <= 4 the registers are cut so that two
 // blocks fit an SM (128 a thread).
 template <int D, int kForm, bool kFromScratch, bool kToScratch>
-__global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_queue(QArgs a) {
+__global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
+    jacobi_queue(typename FormArgs<kForm>::type a) {
   extern __shared__ float smem_all[];
   float* const smem = smem_all + kQPad;
   constexpr int H = kQRows;
@@ -272,10 +341,11 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
   const int chunk = blockIdx.z - b * a.nchunks;
   const int p_lo = o + chunk * a.xchunk;
   const int p_hi = min(p_lo + a.xchunk, a.Xr - o);
-  // tile cell (0, 0) at row y0, logical column c0: >= 0 in the shell and
-  // ring forms since o >= D; below 0 in the wrap form (o = 0), whose reads
-  // take every index modulo its axis and whose owned cells (ty, tz >= D)
-  // lie at rows and columns >= 0
+  // tile cell (0, 0) at row y0, logical column c0: >= 0 in the shell, ring
+  // and plane forms since o >= D; below 0 in the wrap and slab forms (o =
+  // 0), whose reads take every index modulo its axis (wrap) or from the
+  // face slabs (slab) and whose owned cells (ty, tz >= D) lie at rows and
+  // columns >= 0
   const int y0 = o + blockIdx.y * (H - 2 * D) - D;
   const int c0 = o + blockIdx.x * TZ - D;
   const int Yr = a.Yr, W = a.W;
@@ -284,17 +354,26 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
   const int tz0 = threadIdx.x, ty0 = threadIdx.y * RI;
   // the cells whose last level this thread writes: inside the tile's
   // level-D region and the march's output region (bit r * CI + q); and
-  // their d2, in registers for the whole march
-  unsigned own = 0;
+  // their d2, in registers for the whole march.  The plane form also
+  // writes the shell ring (`ring`), from the tile whose apron holds it:
+  // row 0 / column 0 the first tile's, row Yr - 1 / column W - 1 the last's
+  unsigned own = 0, ring = 0;
   int d2r[RI][CI];
-  const int* d2 = a.d2 + (int64_t)b * Yr * a.d2_w;
+  const int* d2 = a.d2 + (int64_t)b * (kForm == kPlaneForm ? Yr - 2 : Yr) * a.d2_w;
 #pragma unroll
   for (int r = 0; r < RI; ++r)
 #pragma unroll
     for (int q = 0; q < CI; ++q) {
       const int ty = ty0 + r, tz = tz0 + q * kThreadsZ;
-      if (ty >= D && ty < H - D && tz >= D && tz < TW - D && y0 + ty < Yr - o && c0 + tz < W - o)
+      if constexpr (kForm == kPlaneForm) {
+        const int y = y0 + ty, c = c0 + tz;
+        const bool in_row = ty >= D && ty < H - D && y < Yr - o, in_col = tz >= D && tz < TW - D && c < W - o;
+        const bool ring_row = y < o || (y >= Yr - o && y < Yr), ring_col = c < o || (c >= W - o && c < W);
+        if ((in_row || ring_row) && (in_col || ring_col)) own |= 1u << (r * CI + q);
+        if (ring_row || ring_col) ring |= 1u << (r * CI + q);
+      } else if (ty >= D && ty < H - D && tz >= D && tz < TW - D && y0 + ty < Yr - o && c0 + tz < W - o) {
         own |= 1u << (r * CI + q);
+      }
       d2r[r][q] = load_d2<kForm>(a, d2, y0 + ty, c0 + tz);
     }
 
@@ -321,6 +400,11 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
       for (int r = 0; r < RI; ++r)
 #pragma unroll
         for (int q = 0; q < CI; ++q) pre[r][q] = pl[wrow[r] + wcol[q]];
+    } else if constexpr (kForm == kSlabForm) {
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int q = 0; q < CI; ++q) pre[r][q] = load_slab(a, b, i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ);
     } else {
 #pragma unroll
       for (int r = 0; r < RI; ++r)
@@ -351,6 +435,14 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
         nw[r][q] = pre[r][q];
         plane(0, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = pre[r][q];
       }
+    if (kForm == kPlaneForm && (i == 0 || i == a.Xr - 1)) {  // the shell planes pass through
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int q = 0; q < CI; ++q)
+          if (own >> (r * CI + q) & 1u)
+            store_last<kForm, false>(a, bx + i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ, nw[r][q]);
+    }
     if (i + 1 < i_end) fetch(i + 1);
 #pragma unroll
     for (int l = 1; l <= D; ++l) {
@@ -376,8 +468,12 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1) jacobi_qu
             if (d2r[r][q] < hot_lim) v = kHot;
             if (d2r[r][q] < cold_lim) v = kCold;
           }
-          if (l == D && p >= p_lo && (own >> (r * CI + q) & 1u))
-            store_last<kForm, kToScratch>(a, bx + p, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ, v);
+          if (l == D && p >= p_lo && (own >> (r * CI + q) & 1u)) {
+            // the plane form (D = 1) stores a ring cell's level 0 unchanged
+            const bool keep = kForm == kPlaneForm && (ring >> (r * CI + q) & 1u);
+            store_last<kForm, kToScratch>(a, bx + p, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ,
+                                          keep ? mid[0][r][q] : v);
+          }
           res[r][q] = v;
         }
       }
@@ -404,10 +500,11 @@ struct Plan {
 };
 
 template <int D, int kForm, bool kFrom, bool kTo>
-int march(QArgs a, int n, cudaStream_t stream, Plan* plan_only) {
+int march(typename FormArgs<kForm>::type a, int n, cudaStream_t stream, Plan* plan_only) {
   constexpr int TZ = kQCols - 2 * D, TY = kQRows - 2 * D;
   constexpr size_t smem = queue_smem<D>();
   static_assert(smem <= plan_smem(D), "a march asks more shared memory than the plan's model");
+  static_assert((kForm != kPlaneForm && kForm != kSlabForm) || D == 1, "the one-level forms march depth 1");
   cudaError_t err = cudaFuncSetAttribute(jacobi_queue<D, kForm, kFrom, kTo>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -427,16 +524,23 @@ int march(QArgs a, int n, cudaStream_t stream, Plan* plan_only) {
   const int64_t tiles = (int64_t)pl.tiles_z * pl.tiles_y * n;
   const int64_t resident = (int64_t)per_sm * sms;
   // the chunk count whose blocks fill whole waves best: waves x planes a
-  // block marches (its chunk and the 2D-plane ramp); ties to fewer blocks
+  // block marches (its chunk and the 2D-plane ramp); ties to fewer blocks.
+  // A count with fewer than kMinWaves waves of blocks is taken only where
+  // none has more: a grid of one wave or less leaves too few loads in
+  // flight (PERF.md: the slab form at one chunk, 0.91 waves, took 17% longer
+  // than at eight)
   int64_t best = -1;
+  bool best_full = false;
   for (int want = 1; want <= ix; ++want) {
     const int xchunk = (ix + want - 1) / want;
     const int nchunks = (ix + xchunk - 1) / xchunk;
     if (nchunks != want || (int64_t)n * nchunks > 65535) continue;
     const int64_t waves = (tiles * nchunks + resident - 1) / resident;
     const int64_t cost = waves * (xchunk + 2 * D);
-    if (best < 0 || cost < best) {
+    const bool full = tiles * nchunks >= kMinWaves * resident;
+    if (best < 0 || (full && !best_full) || (full == best_full && cost < best)) {
       best = cost;
+      best_full = full;
       pl.xchunk = xchunk;
       pl.nchunks = nchunks;
     }
@@ -518,6 +622,43 @@ QArgs wrap_args(const float* src, float* dst, int X, int Y, int Z, int hot_x, in
   a.cold_x = cold_x;
   a.in_r2 = in_r2;
   return a;
+}
+
+// The one-level forms' arguments: the plane form (s = o = 1, d2 over the
+// (Y - 2, Z - 2) interior) takes X, Y, Z >= 3, the slab form (s = o = 0,
+// d2 over (Y, Z)) X >= 2, the JAX kernels' contracts
+bool bad_onelevel_args(int form, int n, int X, int Y, int Z, int gx) {
+  const int least = form == kPlaneForm ? 3 : 1;
+  return n < 1 || n > 65535 || X < (form == kPlaneForm ? 3 : 2) || Y < least || Z < least || gx < 1;
+}
+
+QArgs onelevel_args(int form, int X, int Y, int Z, int gx, int hot_x, int cold_x, int in_r2) {
+  QArgs a{};
+  a.Xr = X;
+  a.Yr = Y;
+  a.Zraw = a.W = Z;
+  a.s = a.o = form == kPlaneForm ? 1 : 0;
+  a.d2_w = form == kPlaneForm ? Z - 2 : Z;
+  a.gx = gx;
+  a.hot_x = hot_x;
+  a.cold_x = cold_x;
+  a.in_r2 = in_r2;
+  return a;
+}
+
+// the plan of a one-level form into info[9]: blocks an SM, SMs, blocks, x
+// chunk, chunks, shared memory bytes, threads a block, tiles along z and y
+int onelevel_plan(int form, int n, int X, int Y, int Z, int* info) {
+  if (bad_onelevel_args(form, n, X, Y, Z, 1)) return -1;
+  const QArgs a = onelevel_args(form, X, Y, Z, 1, 0, 0, 0);
+  Plan pl;
+  const int rc = form == kPlaneForm ? march<1, kPlaneForm, false, false>(a, n, nullptr, &pl)
+                                    : march<1, kSlabForm, false, false>(SlabArgs{a}, n, nullptr, &pl);
+  if (rc != 0) return rc;
+  const int w[9] = {pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks, pl.smem, pl.threads,
+                    pl.tiles_z, pl.tiles_y};
+  for (int j = 0; j < 9; ++j) info[j] = w[j];
+  return 0;
 }
 
 bool bad_jacobi_args(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int gx, bool ring, bool slabs) {
@@ -822,6 +963,50 @@ int stp_jacobi_wrap_plan(int X, int Y, int Z, int k, int* info) {
   for (int j = 0; j < 11; ++j) info[j] = w[j];
   return 0;
 }
+
+// One Jacobi level over n radius-1 shell-carrying blocks (n, X, Y, Z), `in`
+// to `out` (apart), every cell of `out` written: the interior computed, the
+// shell copied.  origins (n, 3), d2 (n, Y - 2, Z - 2).  Returns a CUDA error
+// code, or -1 for arguments the kernel does not take.
+int stp_jacobi_plane(const float* in, float* out, const int* origins, const int* d2, int n, int X, int Y, int Z,
+                     int gx, int hot_x, int cold_x, int in_r2, void* stream) {
+  if (bad_onelevel_args(kPlaneForm, n, X, Y, Z, gx) || in == out) return -1;
+  QArgs a = onelevel_args(kPlaneForm, X, Y, Z, gx, hot_x, cold_x, in_r2);
+  a.raw = in;
+  a.out = out;
+  a.origins = origins;
+  a.d2 = d2;
+  return march<1, kPlaneForm, false, false>(a, n, (cudaStream_t)stream, nullptr);
+}
+
+// One Jacobi level over n bare interiors (n, X, Y, Z), `in` to `out`
+// (apart), the neighbours beyond each face from its slab: xlo, xhi (n, Y,
+// Z), ylo, yhi (n, X, Z), zlo, zhi (n, X, Y).  origins (n, 3), d2 (n, Y, Z).
+// Returns a CUDA error code, or -1 for arguments the kernel does not take.
+int stp_jacobi_slab(const float* in, float* out, const float* xlo, const float* xhi, const float* ylo,
+                    const float* yhi, const float* zlo, const float* zhi, const int* origins, const int* d2, int n,
+                    int X, int Y, int Z, int gx, int hot_x, int cold_x, int in_r2, void* stream) {
+  if (bad_onelevel_args(kSlabForm, n, X, Y, Z, gx) || in == out) return -1;
+  SlabArgs a{onelevel_args(kSlabForm, X, Y, Z, gx, hot_x, cold_x, in_r2)};
+  a.raw = in;
+  a.out = out;
+  a.origins = origins;
+  a.d2 = d2;
+  a.xlo = xlo;
+  a.xhi = xhi;
+  a.ylo = ylo;
+  a.yhi = yhi;
+  a.zlo = zlo;
+  a.zhi = zhi;
+  return march<1, kSlabForm, false, false>(a, n, (cudaStream_t)stream, nullptr);
+}
+
+// The launch stp_jacobi_plane / stp_jacobi_slab makes for these arguments
+// (one kernel, a march of depth 1), into info[9]: blocks an SM, SMs,
+// blocks, x chunk, chunks, shared memory bytes, threads a block and tiles
+// along z and y.  Returns what the launch would.
+int stp_jacobi_plane_plan(int n, int X, int Y, int Z, int* info) { return onelevel_plan(kPlaneForm, n, X, Y, Z, info); }
+int stp_jacobi_slab_plan(int n, int X, int Y, int Z, int* info) { return onelevel_plan(kSlabForm, n, X, Y, Z, info); }
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -47,20 +47,18 @@ _L = ctypes.c_int64
 #: exported C functions per source, with their argument types (every pointer
 #: and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "jacobi": {
-        "stp_jacobi_plane_level": [_P] * 4 + [_I] * 8 + [_P],
-    },
     "halo_blend": {
         "stp_blend_slab_dynamic": [_P, _P, _P, _I, _L, _L, _L, _L, _I, _L, _P],
-    },
-    "jacobi_slab": {
-        "stp_jacobi_slab_level": [_P] * 10 + [_I] * 8 + [_P],
     },
     "jacobi_wavefront": {
         "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
         "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
         "stp_jacobi_wrap": [_P] * 3 + [_I] * 7 + [_P],
         "stp_jacobi_wrap_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+        "stp_jacobi_plane": [_P] * 4 + [_I] * 8 + [_P],
+        "stp_jacobi_plane_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+        "stp_jacobi_slab": [_P] * 10 + [_I] * 8 + [_P],
+        "stp_jacobi_slab_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
         "stp_mean6_wavefront": [_P, _P] + [_I] * 6 + [_P],
     },
     "pack": {

@@ -40,7 +40,7 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
     (_JP, "jacobi_plane_step"): _ported(
         "stencil_tpu_torch.ops.jacobi_kernels:jacobi_plane_step",
         "stencil_tpu_torch.ops.jacobi_kernels:jacobi_plane_step_plain",
-        "stencil_tpu_torch/csrc/jacobi.cu",
+        "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
         f"{_JP}:1484",
     ),
     (_HB, "blend_slab"): _ported(
@@ -64,7 +64,7 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
     (_JP, "jacobi_slab_step"): _ported(
         "stencil_tpu_torch.ops.jacobi_kernels:jacobi_slab_step",
         "stencil_tpu_torch.ops.jacobi_kernels:jacobi_slab_step_plain",
-        "stencil_tpu_torch/csrc/jacobi_slab.cu",
+        "stencil_tpu_torch/csrc/jacobi_wavefront.cu",
         f"{_JP}:1347",
     ),
     (_ST, "stream_wrap_pass"): _ported(

@@ -3,9 +3,9 @@
 ``jacobi_zring_wavefront_step`` and their plain versions.
 
 Counterpart of ``stencil_tpu/ops/jacobi_pallas.py`` in its ``vpu``/native f32
-form.  On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/jacobi.cu``, ``csrc/jacobi_slab.cu``, ``csrc/jacobi_wavefront.cu``);
-on a CPU tensor it runs the plain PyTorch version.
+form.  On a CUDA tensor each wrapper launches its hand-written kernel, a
+form of the register-queue march of ``csrc/jacobi_wavefront.cu``; on a CPU
+tensor it runs the plain PyTorch version.
 
 Semantics, per level, match ``Jacobi3D._kernel`` of the JAX package: mean of
 the six face neighbours, then the hot and cold sphere clamps.  Two details
@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device, stream_handle
+from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device
 
 HOT_TEMP = 1.0
 COLD_TEMP = 0.0
@@ -150,7 +150,7 @@ def jacobi_wrap_step(block: torch.Tensor, k: int = 1) -> torch.Tensor:
     hot_x, cold_x, in_r2 = sphere_params(X)
     out = torch.empty_like(block)
     scratch = torch.empty_like(block) if k > WAVEFRONT_SUB_DEPTH else None
-    entry, lib = _wrap_entry()
+    entry, lib = _c_entry("stp_jacobi_wrap")
     rc = entry(block.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
                X, Y, Z, k, hot_x, cold_x, in_r2, current_raw_stream(block.device.index))
     if rc:
@@ -224,21 +224,21 @@ def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None) -> to
 def jacobi_plane_step(blocks, origins, yz_d2, global_size, out=None) -> torch.Tensor:
     """One Jacobi level over radius-1 shell-carrying block(s); returns
     ``out`` (a fresh tensor when None).  One CUDA launch serves all ``n``
-    blocks, the port's counterpart of running the TPU kernel per shard."""
+    blocks, the port's counterpart of running the TPU kernel per shard: the
+    plane form of ``csrc/jacobi_wavefront.cu``, a march of depth 1 that
+    writes every cell of ``out`` (the shell copied through)."""
     n, X, Y, Z = _check_plane(blocks, origins, yz_d2, out)
     if blocks.device.type == "cpu":
         return jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out)
-    from stencil_tpu_torch.kernels import build
-
-    lib = build.load("jacobi")
     gx = int(global_size[0])
-    hot_x, cold_x, in_r2 = sphere_params(gx)
     res = torch.empty_like(blocks) if out is None else out
-    rc = lib.stp_jacobi_plane_level(
-        blocks.data_ptr(), res.data_ptr(), origins.data_ptr(), yz_d2.data_ptr(),
-        n, X, Y, Z, gx, hot_x, cold_x, in_r2, stream_handle(blocks.device),
-    )
-    build.check(lib, rc, "jacobi_plane_step")
+    entry, lib = _c_entry("stp_jacobi_plane")
+    rc = entry(blocks.data_ptr(), res.data_ptr(), origins.data_ptr(), yz_d2.data_ptr(),
+               n, X, Y, Z, gx, *sphere_params(gx), current_raw_stream(blocks.device.index))
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
+        build.check(lib, rc, "jacobi_plane_step")
     jacobi_plane_step.launches += 1
     return res
 
@@ -319,22 +319,22 @@ def jacobi_slab_step(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, global
                      out=None) -> torch.Tensor:
     """One Jacobi level over bare interior(s) from six received face slabs
     (the ``slab`` route's kernel); arguments and result as
-    ``jacobi_slab_step_plain``.  One CUDA launch serves all ``n`` blocks."""
+    ``jacobi_slab_step_plain``.  One CUDA launch serves all ``n`` blocks:
+    the slab form of ``csrc/jacobi_wavefront.cu``, a march of depth 1 whose
+    level-0 fetch reads a face slab one cell outside the block."""
     slabs = (xlo, xhi, ylo, yhi, zlo, zhi)
     n, X, Y, Z = _check_slab(block, slabs, origins, yz_d2, out)
     if block.device.type == "cpu":
         return jacobi_slab_step_plain(block, *slabs, origins, yz_d2, global_size, out)
-    from stencil_tpu_torch.kernels import build
-
-    lib = build.load("jacobi_slab")
     gx = int(global_size[0])
-    hot_x, cold_x, in_r2 = sphere_params(gx)
     res = torch.empty_like(block) if out is None else out
-    rc = lib.stp_jacobi_slab_level(
-        block.data_ptr(), res.data_ptr(), *(t.data_ptr() for t in slabs), origins.data_ptr(),
-        yz_d2.data_ptr(), n, X, Y, Z, gx, hot_x, cold_x, in_r2, stream_handle(block.device),
-    )
-    build.check(lib, rc, "jacobi_slab_step")
+    entry, lib = _c_entry("stp_jacobi_slab")
+    rc = entry(block.data_ptr(), res.data_ptr(), *(t.data_ptr() for t in slabs), origins.data_ptr(),
+               yz_d2.data_ptr(), n, X, Y, Z, gx, *sphere_params(gx), current_raw_stream(block.device.index))
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
+        build.check(lib, rc, "jacobi_slab_step")
     jacobi_slab_step.launches += 1
     return res
 
@@ -584,7 +584,7 @@ def wavefront_marches(m: int) -> int:
 
 
 _ENTRY = None
-_WRAP_ENTRY = None
+_ENTRIES = {}
 
 
 def _entry():
@@ -599,13 +599,15 @@ def _entry():
     return _ENTRY
 
 
-def _wrap_entry():
-    """``(C entry, library)`` of ``stp_jacobi_wrap``, from the same library."""
-    global _WRAP_ENTRY
-    if _WRAP_ENTRY is None:
+def _c_entry(name: str):
+    """``(C entry, library)`` of ``stp_jacobi_wrap``, ``stp_jacobi_plane`` or
+    ``stp_jacobi_slab``, from the same library, looked up at the first
+    launch."""
+    found = _ENTRIES.get(name)
+    if found is None:
         lib = _entry()[1]
-        _WRAP_ENTRY = (lib.stp_jacobi_wrap, lib)
-    return _WRAP_ENTRY
+        found = _ENTRIES[name] = (getattr(lib, name), lib)
+    return found
 
 
 def _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zraw, width, m, s_off,
@@ -696,3 +698,41 @@ def jacobi_wrap_launch(shape, k: int) -> dict:
         raise RuntimeError(f"stp_jacobi_wrap_plan splits k={k} otherwise than wrap_march_depths: {plan}")
     plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
     return plan
+
+
+#: the fields of ``jacobi_plane_launch`` and ``jacobi_slab_launch``, in the
+#: order the C entries ``stp_jacobi_plane_plan`` / ``stp_jacobi_slab_plan``
+#: fill them
+ONELEVEL_PLAN_FIELDS = ("blocks_per_sm", "sms", "blocks", "xchunk", "nchunks", "smem_bytes", "threads",
+                        "tiles_z", "tiles_y")
+
+
+def _onelevel_launch(plan_entry: str, shape) -> dict:
+    n = 1 if len(shape) == 3 else shape[0]
+    X, Y, Z = shape[-3:]
+    lib = _entry()[1]
+    info = (ctypes.c_int * len(ONELEVEL_PLAN_FIELDS))()
+    rc = getattr(lib, plan_entry)(n, X, Y, Z, info)
+    if rc:
+        from stencil_tpu_torch.kernels import build
+
+        build.check(lib, rc, plan_entry)
+    plan = dict(zip(ONELEVEL_PLAN_FIELDS, info))
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan
+
+
+def jacobi_plane_launch(shape) -> dict:
+    """The launch a ``jacobi_plane_step`` call over shell-carrying blocks of
+    ``shape`` (``(X, Y, Z)`` or ``(n, X, Y, Z)``) makes on the card, without
+    making it: one kernel, a march of depth 1; blocks an SM the occupancy
+    calculator allows, SMs, the grid's blocks and its ``waves``, the x
+    chunking, the shared memory and threads a block asks and the tiles along
+    z and y (fields as ``ONELEVEL_PLAN_FIELDS``)."""
+    return _onelevel_launch("stp_jacobi_plane_plan", shape)
+
+
+def jacobi_slab_launch(shape) -> dict:
+    """The launch a ``jacobi_slab_step`` call over bare interiors of
+    ``shape`` makes on the card, as ``jacobi_plane_launch``."""
+    return _onelevel_launch("stp_jacobi_slab_plan", shape)

@@ -64,14 +64,62 @@ def test_wrap_kernel_equals_plain_at_the_main_path_shape(dev, k):
     assert plan["blocks_per_sm"] >= 1 and plan["smem_bytes"] <= jk.SMEM_PER_BLOCK
 
 
-def test_plane_kernel_equals_plain(dev):
-    gs = (130, 140, 260)
-    blocks = _rand((2, 66, 70, 130), 2, dev)
-    origins = torch.tensor([[64, 0, 128], [0, 68, 0]], dtype=torch.int32, device=dev)
-    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (68, 128), gs, dev) for o in origins])
+def _crossing_origins(n, ext, gs, dev):
+    """Block b's global start: x such that its ``ext`` planes hold the hot
+    sphere's centre (b even) or the cold one's (b odd), y and z near 0, so
+    that the spheres (centred at gy/2, gz/2) cross the blocks."""
+    hot_x, cold_x, _ = jk.sphere_params(gs[0])
+    return torch.tensor([[((hot_x, cold_x)[b % 2] - ext // 2) % gs[0], b % gs[1], (3 * b) % gs[2]]
+                         for b in range(n)], dtype=torch.int32, device=dev)
+
+
+#: (n, X, Y, Z) of the plane form's cases: the ragged (2, 66, 70, 130);
+#: axes shorter than one 32 x 64 tile; partial tiles in y and z; the
+#: 32 x 64 tile exactly; n = 1 and n = 8
+PLANE_CASES = [(2, 66, 70, 130), (1, 3, 3, 3), (1, 5, 4, 7), (8, 12, 35, 67), (8, 20, 32, 64), (1, 9, 61, 125)]
+
+
+@pytest.mark.parametrize("n,X,Y,Z", PLANE_CASES)
+def test_plane_kernel_equals_plain(dev, n, X, Y, Z):
+    """Both spheres cross the blocks (n >= 2, wide enough); the whole block
+    is compared, the shell copied through."""
+    gs = (60, Y - 2 + 1, Z - 2 + 2)
+    blocks = _rand((n, X, Y, Z), 2, dev)
+    origins = _crossing_origins(n, X - 2, gs, dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y - 2, Z - 2), gs, dev) for o in origins])
+    before = jk.jacobi_plane_step.launches
     got = jk.jacobi_plane_step(blocks, origins, d2, gs)
     torch.cuda.synchronize()
-    assert torch.equal(got, jk.jacobi_plane_step_plain(blocks, origins, d2, gs))
+    assert jk.jacobi_plane_step.launches == before + 1  # all blocks in one launch
+    want = jk.jacobi_plane_step_plain(blocks, origins, d2, gs)
+    if n >= 2 and min(X, Y, Z) >= 12:
+        assert (want == jk.HOT_TEMP).any() and (want == jk.COLD_TEMP).any()
+    assert torch.equal(got, want)
+    # out= is written whole: no cell left from what it held
+    out = torch.full_like(blocks, float("nan"))
+    jk.jacobi_plane_step(blocks, origins, d2, gs, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("size", [512, 511])
+def test_plane_kernel_equals_plain_at_the_main_path_shape(dev, size):
+    """The shell route's blocks on 2x2x2, (8, 258^3): 512^3, and 511^3
+    whose last shard a side is padded (255 valid planes, the rest
+    compared all the same)."""
+    half, gs = 256, (size,) * 3
+    blocks = _rand((8, half + 2, half + 2, half + 2), 3, dev)
+    org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
+                       dtype=torch.int32, device=dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in org])
+    got = jk.jacobi_plane_step(blocks, org, d2, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, jk.jacobi_plane_step_plain(blocks, org, d2, gs))
+    plan = jk.jacobi_plane_launch(tuple(blocks.shape))
+    assert plan["blocks_per_sm"] >= 1 and plan["sms"] >= 1 and plan["smem_bytes"] <= jk.SMEM_PER_BLOCK
+    assert plan["blocks"] == plan["tiles_z"] * plan["tiles_y"] * 8 * plan["nchunks"]
+    assert plan["xchunk"] * plan["nchunks"] >= half > plan["xchunk"] * (plan["nchunks"] - 1)
+    assert plan["waves"] >= 4  # the x chunking's least where the extent allows it
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.uint8])
@@ -217,12 +265,20 @@ def test_wavefront_plan_of_the_deep_cases_leaves_a_short_chunk(dev):
     assert any(shorts)
 
 
-@pytest.mark.parametrize("n,X,Y,Z", [(1, 2, 3, 5), (3, 7, 33, 70), (8, 16, 40, 129)])
+#: (n, X, Y, Z) of the slab form's cases: X = 2 (the contract's least) with
+#: axes shorter than a tile and with partial tiles; partial tiles in y and
+#: z; the 30 x 62 outputs of a tile exactly; n = 1, 3 and 8
+SLAB_CASES = [(1, 2, 3, 5), (1, 2, 1, 1), (8, 2, 31, 63), (3, 7, 33, 70), (8, 16, 40, 129), (8, 5, 30, 62),
+              (1, 9, 61, 125)]
+
+
+@pytest.mark.parametrize("n,X,Y,Z", SLAB_CASES)
 @pytest.mark.parametrize("faces", ["random", "self"])
 def test_slab_kernel_equals_plain(dev, n, X, Y, Z, faces):
-    """Ragged blocks (partial tiles in y and z, grid-strided planes), random
-    face slabs or each block's own faces; origins past gx wrap."""
-    gs = (n * X + 3, 2 * Y + 1, 3 * Z)
+    """Ragged blocks (partial tiles in y and z, short axes), random face
+    slabs or each block's own faces; both spheres cross the blocks (n >= 2,
+    wide enough)."""
+    gs = (60, Y + 1, Z + 2)
     block = _rand((n, X, Y, Z), 50, dev)
     if faces == "self":
         slabs = [t.contiguous() for t in (block[:, -1], block[:, 0], block[:, :, -1], block[:, :, 0],
@@ -230,14 +286,35 @@ def test_slab_kernel_equals_plain(dev, n, X, Y, Z, faces):
     else:
         slabs = [_rand((n,) + s, 51 + i, dev)
                  for i, s in enumerate(((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
-    org = torch.tensor([[(b * X + 2) % gs[0], (5 * b) % gs[1], (7 * b) % gs[2]] for b in range(n)],
-                       dtype=torch.int32, device=dev)
+    org = _crossing_origins(n, X, gs, dev)
     d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y, Z), gs, dev) for o in org])
     before = jk.jacobi_slab_step.launches
     got = jk.jacobi_slab_step(block, *slabs, org, d2, gs)
     torch.cuda.synchronize()
     assert jk.jacobi_slab_step.launches == before + 1  # all blocks in one launch
+    want = jk.jacobi_slab_step_plain(block, *slabs, org, d2, gs)
+    if n >= 2 and min(X, Y, Z) >= 5:
+        assert (want == jk.HOT_TEMP).any() and (want == jk.COLD_TEMP).any()
+    assert torch.equal(got, want)
+
+
+def test_slab_kernel_equals_plain_at_the_main_path_shape(dev):
+    """The slab route's call on 2x2x2 at 512^3: (8, 256^3), six random
+    slabs; and its plan."""
+    half, gs = 256, (512,) * 3
+    block = _rand((8, half, half, half), 4, dev)
+    slabs = [_rand((8, half, half), 5 + i, dev) for i in range(6)]
+    org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
+                       dtype=torch.int32, device=dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in org])
+    got = jk.jacobi_slab_step(block, *slabs, org, d2, gs)
+    torch.cuda.synchronize()
     assert torch.equal(got, jk.jacobi_slab_step_plain(block, *slabs, org, d2, gs))
+    plan = jk.jacobi_slab_launch(tuple(block.shape))
+    assert plan["blocks_per_sm"] >= 1 and plan["smem_bytes"] <= jk.SMEM_PER_BLOCK
+    assert plan["blocks"] == plan["tiles_z"] * plan["tiles_y"] * 8 * plan["nchunks"]
+    assert (plan["tiles_y"], plan["tiles_z"]) == (9, 5)  # 30 x 62 outputs a tile over 256^2
+    assert plan["waves"] >= 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.uint8])

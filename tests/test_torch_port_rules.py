@@ -93,7 +93,7 @@ def test_missing_nvcc_raises_and_hands_back_nothing(monkeypatch, tmp_path):
     with pytest.raises(build.KernelBuildError, match="nvcc was not found"):
         build.build()
     with pytest.raises(build.KernelBuildError, match="nvcc was not found"):
-        build.load("jacobi")
+        build.load("jacobi_wavefront")
     assert os.listdir(tmp_path) == []
 
 

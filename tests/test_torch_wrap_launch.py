@@ -96,7 +96,7 @@ def on_card(monkeypatch):
 
     monkeypatch.setattr(build, "load", load)
     monkeypatch.setattr(jk, "_ENTRY", None)
-    monkeypatch.setattr(jk, "_WRAP_ENTRY", None)
+    monkeypatch.setattr(jk, "_ENTRIES", {})
     monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
     return card
 
