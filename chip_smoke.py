@@ -110,6 +110,10 @@ non-zero before the result line:
     50 MB L2), beside the library call's back to back; the host µs a call
     (100 calls on the host clock, no synchronize between) of
     pack_yshell_pallas and unpack_yshell_pallas beside their library calls;
+    each kernel's byte bound and, for the z pair, its sector floor (the
+    32-byte sectors of the block that the window's runs touch,
+    ``bench_kernels.zshell_sector_bytes``: read by the pack, filled and
+    written back by the unpack, beside the buffer's bytes);
     then blend_slab at the same shapes, each axis's depth-3 low and high
     writes held against the plain version, and a launch's device ms back to
     back and in the ``direct`` profile, CUDA-event ms and host µs, beside
@@ -381,6 +385,7 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from stencil_tpu_torch.bin import bench_kernels as bk
     from stencil_tpu_torch.bin import bench_pack as bp
     from stencil_tpu_torch.core.dim3 import Dim3
     from stencil_tpu_torch.core.geometry import LocalSpec
@@ -1465,13 +1470,13 @@ def main() -> int:
     ycopy_ms = cuda_ms(ycopy)
     # a launch's device time.  In the route: the profile's kernel time an
     # iteration over the launches an iteration (the window cold in L2; the
-    # kernels are zshell_kernel <T, true> packing and <T, false> unpacking,
-    # yshell_rows_kernel <T, true> and <T, false>).  Back to back on one block
-    # the window stays in L2, and CUDA events between calls count the host's
-    # issue time.
+    # kernels are zshell_tile_kernel <T, true> packing and <T, false>
+    # unpacking, yshell_rows_kernel <T, true> and <T, false>).  Back to back on
+    # one block the window stays in L2, and CUDA events between calls count the
+    # host's issue time.
     route_prof = routes_13["yzpack_pallas"]["profile"]["kernels_ms_per_step"]
-    kernel_names = {"pack_zshell_pallas": ("zshell_kernel<", ", true>"),
-                    "unpack_zshell_pallas": ("zshell_kernel<", ", false>"),
+    kernel_names = {"pack_zshell_pallas": ("zshell_tile_kernel<", ", true>"),
+                    "unpack_zshell_pallas": ("zshell_tile_kernel<", ", false>"),
                     "pack_yshell_pallas": ("yshell_rows_kernel<", ", true>"),
                     "unpack_yshell_pallas": ("yshell_rows_kernel<", ", false>")}
     pack_dev_ms, pack_hot_ms, pack_lib_dev_ms = {}, {}, {}
@@ -1491,6 +1496,18 @@ def main() -> int:
     yunpack_host_us = {kind: host_us_per_call(pack_cases["unpack_yshell_pallas"][i])
                        for kind, i in (("kernel", 0), ("copy_", 2))}
     pack_bytes = 2 * zbuf.numel() * 4  # the window read once and written once
+    # the z pair's sector floor: the 32-byte sectors of the block that the
+    # window's 12-byte runs touch, read by the pack beside the buffer's write,
+    # filled and written back by the unpack beside the buffer's read
+    z_sectors = {name: bk.zshell_sector_bytes(tuple(pk_blocks.shape), 4, z0, 3, pk_blocks.data_ptr())
+                 for name, z0 in (("pack_zshell_pallas", ps - 6), ("unpack_zshell_pallas", 0))}
+    z_floor_ms = {"pack_zshell_pallas": bound(z_sectors["pack_zshell_pallas"] + pack_bytes // 2, 0)[0],
+                  "unpack_zshell_pallas": bound(2 * z_sectors["unpack_zshell_pallas"] + pack_bytes // 2, 0)[0]}
+    log("shell packs at (8,{0},{0},{0}) f32 depth 3, each kernel's device ms a launch in the yzpack_pallas route "
+        "(cold in L2), back to back (hot), copy_'s back to back, then the byte bound and the sector floor: ".format(ps)
+        + "; ".join(f"{k} {ms4(pack_dev_ms[k])}, {pack_hot_ms[k]:.4f}, {pack_lib_dev_ms[k]:.4f}, "
+                    f"{bound(pack_bytes, 0)[0]:.4f}, {ms4(z_floor_ms.get(k, bound(pack_bytes, 0)[0]))}"
+                    for k in pack_cases) + f" on {card}")
     log("shell packs at (8,{0},{0},{0}) f32 depth 3 (ms: kernel, plain, copy_): ".format(ps)
         + ", ".join(f"{k}: {v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f}" for k, v in pack_ms.items()) + "; device ms a "
         "launch in the route (profiler): " + ", ".join(
@@ -1782,6 +1799,8 @@ def main() -> int:
         if name in pack_dev_ms:
             rows[-1].update(device_ms=pack_dev_ms[name], device_ms_back_to_back=pack_hot_ms[name],
                             library_device_ms=pack_lib_dev_ms[name])
+        if name in z_floor_ms:
+            rows[-1].update(sector_floor_ms=z_floor_ms[name], sector_bytes=z_sectors[name])
         if name.endswith("_slab") and name.startswith("pallas_"):
             face = slab_face[str(bp.FACES[2])][name.split("_")[1]]
             rows[-1].update(device_ms=face["device"], library_device_ms=face["library_device"], host_us=face["host_us"])

@@ -8,7 +8,8 @@ that times an older tree of the port as well.
 It calls only what the port has had since these kernels landed
 (``jacobi_wrap_step``, ``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
 ``jacobi_plane_step``, ``jacobi_slab_step``, ``stream_wavefront_pass``,
-``blend_slab``, ``AstarothSim``), so two trees
+``blend_slab``, ``pack_zshell_pallas``, ``unpack_zshell_pallas``,
+``AstarothSim``), so two trees
 timed in turn on one card compare like with like.  It prints, and writes to
 ``--out``, one JSON object with the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them)
@@ -45,6 +46,17 @@ and (``--only`` keeps the sections named):
   ms a launch back to back (20 launches), the same for
   ``narrow(...).copy_(slab)``, and the host µs a call of each (100 calls,
   no synchronize between);
+* ``zshell``: ``pack_zshell_pallas`` at z0 = 3 and 256 and
+  ``unpack_zshell_pallas`` at z0 = 0 and 259 (the windows the packed routes
+  send and receive), over 8 blocks of 262^3 f32, depth 3: device ms a launch
+  back to back (hot in L2; 20 launches) and cold (each launch after a 64 MB
+  scratch write that flushes the L2; 10 launches), the CUDA-event ms a call
+  back to back, the same device times of ``copy_`` between the window and
+  the buffer (the same function in one PyTorch call), the byte bound (the
+  window read once and written once over 3.35 TB/s) and the sector floor:
+  the 32-byte sectors of the block that the window's runs touch
+  (``zshell_sector_bytes``), read by a pack beside the buffer's bytes, and
+  filled and written back by an unpack beside the buffer read;
 * ``direct``: ``AstarothSim(512^3, num_quantities=8, schedule="per-step",
   exchange_route="direct")`` on 2x2x2: ms/iter (the better of two runs of 24
   iterations), and from 24 iterations under torch.profiler the device ms an
@@ -132,6 +144,15 @@ def _host_us(fn, calls: int = 100) -> float:
     dt = time.perf_counter() - t0
     _sync()
     return dt / calls * 1e6
+
+
+def zshell_sector_bytes(shape, itemsize: int, z0: int, depth: int, base: int = 0) -> int:
+    """Bytes of the 32-byte sectors that the z window ``[z0, z0+depth)`` of
+    ``(..., X, Y, Z)`` blocks at address ``base`` touches: each (x, y) run of
+    ``depth`` cells fills part of one sector or more."""
+    rows = int(np.prod(shape[:-1]))
+    start = base + (np.arange(rows, dtype=np.int64) * shape[-1] + z0) * itemsize
+    return int(((start + depth * itemsize - 1) // 32 - start // 32 + 1).sum()) * 32
 
 
 def blend_ms(kernels_ms: dict) -> dict:
@@ -295,6 +316,54 @@ def blend_times(dev) -> dict:
     return out
 
 
+def zshell_times(dev) -> dict:
+    from stencil_tpu_torch.ops import pack as pk
+
+    ps, depth = N // 2 + 6, 3
+    blocks = _seeded((8, ps, ps, ps), 5, dev)
+    buf = pk.pack_zshell_pallas(blocks, 0, depth)
+    scratch = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=dev)  # 64 MB, more than the 50 MB L2
+
+    def flush():
+        scratch.fill_(1.0)
+
+    def device_ms(fn, cold: bool) -> float:
+        """Device ms a call of ``fn``'s kernels; cold: each call after the flush,
+        whose kernel is left out."""
+        if not cold:
+            return sum(_profile(fn, 20)[0].values())
+        prof = _profile(lambda: (flush(), fn()), 10)[0]
+        return sum(v for k, v in prof.items() if "FillFunctor" not in k)
+
+    window = buf.numel() * 4
+    out = {}
+    for kind, z0s in (("pack", (3, ps - 6)), ("unpack", (0, ps - 3))):
+        for z0 in z0s:
+            if kind == "pack":
+                def kernel(z0=z0):
+                    return pk.pack_zshell_pallas(blocks, z0, depth)
+
+                def library(z0=z0):
+                    return buf.copy_(blocks.narrow(3, z0, depth).permute(0, 3, 2, 1))
+            else:
+                def kernel(z0=z0):
+                    return pk.unpack_zshell_pallas(blocks, buf, z0, depth)
+
+                def library(z0=z0):
+                    return blocks.narrow(3, z0, depth).copy_(buf.permute(0, 3, 2, 1))
+            sectors = zshell_sector_bytes(blocks.shape, 4, z0, depth, blocks.data_ptr())
+            floor = sectors + window if kind == "pack" else window + 2 * sectors
+            out[f"{kind} z0={z0}"] = {
+                "device_ms_hot": device_ms(kernel, False), "device_ms_cold": device_ms(kernel, True),
+                "ms": _cuda_ms(kernel), "copy_device_ms_hot": device_ms(library, False),
+                "copy_device_ms_cold": device_ms(library, True), "copy_ms": _cuda_ms(library),
+                "bound_ms": 2 * window / HBM_BYTES_PER_S * 1e3, "sector_bytes": sectors,
+                "sector_floor_ms": floor / HBM_BYTES_PER_S * 1e3}
+    del blocks, buf, scratch
+    torch.cuda.empty_cache()
+    return out
+
+
 def direct_route(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
 
@@ -322,7 +391,7 @@ def main(argv=None) -> int:
     sections = {"jacobi_wrap": jacobi_wrap_times, "jacobi_wavefront": jacobi_wavefront_times,
                 "jacobi_plane": lambda dev: _onelevel_case(dev, "plane"),
                 "jacobi_slab": lambda dev: _onelevel_case(dev, "slab"), "wavefront": wavefront_times,
-                "blend": blend_times, "direct": direct_route}
+                "blend": blend_times, "zshell": zshell_times, "direct": direct_route}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

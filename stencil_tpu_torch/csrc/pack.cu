@@ -30,9 +30,9 @@
 // The shell packs of the packed exchange routes each take n blocks
 // (n, X, Y, Z) and a window of `depth` cells starting at `start` on one axis:
 //
-//   stp_pack_zshell         replaces stencil_tpu/ops/pack.py:331 pack_zshell_pallas:
+//   stp_pack_zshell_desc    replaces stencil_tpu/ops/pack.py:331 pack_zshell_pallas:
 //                           buf[b, k, y, x] = block[b, x, y, start + k]
-//   stp_unpack_zshell       replaces stencil_tpu/ops/pack.py:358 unpack_zshell_pallas:
+//   stp_unpack_zshell_desc  replaces stencil_tpu/ops/pack.py:358 unpack_zshell_pallas:
 //                           block[b, x, y, start + k] = buf[b, k, y, x], in place
 //   stp_pack_yshell_desc    replaces stencil_tpu/ops/pack.py:422 pack_yshell_pallas:
 //                           buf[b, k, x, z] = block[b, x, start + k, z]
@@ -48,20 +48,8 @@
 // without the TPU's lane padding of X.
 //
 // Bound on an H100 SXM: bytes, the window read once and written once, 2 * n *
-// depth * (the other two extents) * itemsize.  Design of the z pair, whose
-// entries take every argument per call (the y pair's design is below): one
-// warp per row, a row (b, y) being the X * depth cells of the window in the
-// block's order (x, then k), walked 32 elements at a time with kUnroll loads
-// in flight before their stores.  Consecutive lanes touch the depth
-// consecutive cells of one z run of the block and the next x's; the buffer
-// side reads (or writes) depth x-runs of about 32 / depth cells each.  A z
-// window costs a 32-byte sector per (x, y) of the block whatever the kernel
-// does (depth * itemsize bytes of it are wanted, and an unpack writes the
-// sector in part), so a shared-memory transpose would gain nothing here; what
-// counts is that a warp's store covers each sector's depth cells at once (a
-// lane per x looping over k stores each sector depth times, and measured about
-// twice as slow on the unpack: PERF.md).  Row bases are 64-bit; a row's run
-// fits an int.
+// depth * (the other two extents) * itemsize.  The z pair's design is at its
+// kernel, below the y pair's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,100 +57,13 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per block
-constexpr int kUnroll = 4;  // loads in flight per lane
+constexpr int kUnroll = 4;  // loads in flight per lane in the cell kernel
 constexpr int64_t kMaxBlocks = 132 * 32;
 
-// Element i of a z-shell row (b, y): x = i / depth, k = i % depth.
-struct ZRow {
-  int64_t block, buf, yz, yx;  // row bases; the block's x stride, the buffer's k stride
-  int depth;
-  __device__ int64_t block_at(int i) const {
-    const int x = i / depth;
-    return block + x * yz + (i - x * depth);
-  }
-  __device__ int64_t buf_at(int i) const {
-    const int x = i / depth;
-    return buf + (i - x * depth) * yx + x;
-  }
-};
-
-// One z-shell row's run of `run` elements, walked by the 32 lanes of a warp.
-// kPack: block -> buf; otherwise buf -> block.
-template <typename T, bool kPack>
-__device__ __forceinline__ void copy_row(T* __restrict__ block, T* __restrict__ buf, const ZRow& r, int run,
-                                         int lane) {
-  for (int i0 = lane; i0 < run; i0 += 32 * kUnroll) {
-    T v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * 32;
-      if (i < run) v[u] = kPack ? block[r.block_at(i)] : buf[r.buf_at(i)];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int i = i0 + u * 32;
-      if (i < run) {
-        if (kPack) {
-          buf[r.buf_at(i)] = v[u];
-        } else {
-          block[r.block_at(i)] = v[u];
-        }
-      }
-    }
-  }
-}
-
-template <typename T, bool kPack>
-__global__ void zshell_kernel(T* __restrict__ block, T* __restrict__ buf, int64_t rows, int64_t X,
-                              int64_t Y, int64_t Z, int64_t start, int depth) {
-  const int lane = threadIdx.x & 31;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += (int64_t)gridDim.x * kWarps) {
-    const int64_t b = row / Y;
-    const int64_t y = row - b * Y;
-    // block[b, 0, y, start] and buf[b, 0, y, 0]
-    const ZRow r{(b * X * Y + y) * Z + start, (b * depth * Y + y) * X, Y * Z, Y * X, depth};
-    copy_row<T, kPack>(block, buf, r, (int)(X * depth), lane);
-  }
-}
-
-template <typename T>
-int launch_zshell(bool pack, void* block, void* buf, int64_t n, int64_t X, int64_t Y, int64_t Z,
-                  int64_t start, int64_t depth, cudaStream_t stream) {
-  const int64_t rows = n * Y;
-  if (X * depth > INT32_MAX) return -1;  // a row's run is an int
-  if (rows == 0 || X == 0 || Z == 0 || depth == 0) return 0;
-  int64_t blocks = (rows + kWarps - 1) / kWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const unsigned g = (unsigned)blocks;
-  T* bl = (T*)block;
-  T* bu = (T*)buf;
-  const int d = (int)depth;
-  if (pack) {
-    zshell_kernel<T, true><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
-  } else {
-    zshell_kernel<T, false><<<g, kWarps * 32, 0, stream>>>(bl, bu, rows, X, Y, Z, start, d);
-  }
-  return (int)cudaGetLastError();
-}
-
-int dispatch_zshell(bool pack, void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                    int64_t Z, int64_t start, int64_t depth, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (itemsize) {
-    case 1: return launch_zshell<uint8_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
-    case 2: return launch_zshell<uint16_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
-    case 4: return launch_zshell<uint32_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
-    case 8: return launch_zshell<uint64_t>(pack, block, buf, n, X, Y, Z, start, depth, s);
-    default: return -1;
-  }
-}
-
-// --- The descriptor entries: both slab packs, the y-shell pair, blend_slab ----
+// --- The descriptor entries: both slab packs, both shell pairs, blend_slab ----
 //
-// pallas_pack_slab, pallas_unpack_slab, pack_yshell_pallas,
-// unpack_yshell_pallas and blend_slab.  Each entry takes the address of a host
+// pallas_pack_slab, pallas_unpack_slab, the z- and y-shell packs and unpacks,
+// and blend_slab.  Each entry takes the address of a host
 // array of int64 fields that the wrapper builds once per geometry and caches
 // (ops/pack.py, ops/halo_blend.py), the two data pointers and the stream:
 // four arguments, so that the call costs no more host time than a PyTorch
@@ -170,7 +71,8 @@ int dispatch_zshell(bool pack, void* block, void* buf, int itemsize, int64_t n, 
 // the pointers' alignment is read per call, never cached.  A pack and an unpack of one geometry share a
 // descriptor, and each pair shares its kernels, templated on the direction.
 //
-// Both pairs copy rows that are contiguous on both sides.  A row goes to one
+// The slab packs and the y pair copy rows that are contiguous on both sides
+// (the z pair transposes; its design is at its kernel).  A row goes to one
 // warp: a head of elements up to the destination's next 16-byte boundary, then
 // 16-byte stores, each vector loaded in the widest words that the source's
 // alignment relative to the destination allows (16 bytes where the two rows
@@ -551,6 +453,170 @@ int yshell_desc(const int64_t* desc, void* block, void* buf, void* stream) {
   }
 }
 
+// The z shell.  A window is a run of depth cells per (b, x, y) of the block:
+// 12 bytes at the route's depth 3 in f32, one every Z cells along y and every
+// Y * Z along x, while the buffer holds it transposed, rows of X cells along x.
+// A CTA takes a tile of kZT x-columns by kZT y-rows of one block and walks its
+// window in chunks of up to 16 bytes of each run (kZK<T> levels), staged in
+// shared memory as [y][k][x] with one pad element a row:
+//  * the block side: a warp walks kZT / kZWarps y-rows of the tile, and a
+//    lane takes the cells lane + 32 j of a row's (x, k) run, k fastest, from
+//    offsets it computes once a chunk; so a warp's access covers whole runs of
+//    about 32 / depth x-planes at one y and requests each run's sectors at
+//    once (at most a 3-way bank conflict at depth 3);
+//  * the buffer side: rows (k, y) of kZT consecutive x, a warp a row: 128-byte
+//    lines in f32, no bank conflict;
+//  * a chunk's loads all issue before its first store: a pack gathers the
+//    block's cells (64 / itemsize loads in flight a lane), then writes the
+//    buffer rows; an unpack loads the buffer rows, then scatters the cells
+//    into the window and stores nothing else.
+// At (8, 262^3) that is 9 x 9 x 8 = 648 CTAs of 256 threads.  No TMA and no
+// cp.async.bulk, for the reason above (rows of 1,048 bytes).
+//
+// Bound: bytes, but a run fills part of every 32-byte sector it touches (1.25
+// sectors a run at the route's windows, a 1,048-byte row being 24 mod 32): the
+// block side moves 21.97 MB of sectors at (8, 262^3) depth 3 against a 6.59 MB
+// window, a floor of 8.5 µs for a pack and 15 µs for an unpack, whose partial
+// sectors are filled and written back.  The device times sit at about 3x
+// those floors whatever the order of the accesses, level with a warp-a-row
+// kernel (a warp per (b, y), lanes across x) and with Tensor.copy_ of the same
+// window: what sets them is the ~549,000 runs a launch, each a memory access
+// of its own, not their order.  Touching each run's sectors in L2 before the
+// unpack's stores (a prefetch.global.L2 or a load) made the unpack slower, and
+// lanes across the y-rows of one x-plane made both kernels slower (PERF.md).
+constexpr int kZT = 32;         // a tile's x-columns and y-rows
+constexpr int kZRow = kZT + 1;  // a staged x-run and its pad
+constexpr int kZThreads = 256;
+constexpr int kZWarps = kZThreads / 32;
+template <typename T>
+constexpr int kZK = 16 / (int)sizeof(T);  // levels a chunk stages
+
+// The z-shell window: strides, the window and the tile grid.
+struct ZGeom {
+  int64_t X, Y, Z, YZ, YX, z0;
+  uint32_t depth, tiles_y, tiles_xy, tiles;
+};
+
+// kPack: block -> buf; otherwise buf -> block.
+template <typename T, bool kPack>
+__global__ void __launch_bounds__(kZThreads) zshell_tile_kernel(T* __restrict__ block, T* __restrict__ buf, ZGeom g) {
+  constexpr int kK = kZK<T>;
+  constexpr int kRows = kZT / kZWarps;          // block-side y-rows a warp walks, kK cells of each a lane
+  constexpr int kBufRows = kZT * kK / kZWarps;  // buffer rows a warp walks, a cell of each a lane
+  __shared__ T stage[kZT * kK * kZRow];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (uint32_t tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+    const uint32_t b = tile / g.tiles_xy;
+    const uint32_t rem = tile - b * g.tiles_xy;
+    const uint32_t tx = rem / g.tiles_y;  // y tiles fastest: neighbouring CTAs share x-planes
+    const int x0 = (int)(tx * kZT), y0 = (int)((rem - tx * g.tiles_y) * kZT);
+    const int nx = min(kZT, (int)g.X - x0), ny = min(kZT, (int)g.Y - y0);
+    for (uint32_t k0 = 0; k0 < g.depth; k0 += kK) {
+      const int kc = min(kK, (int)(g.depth - k0));
+      // block[b, x0, y0, z0 + k0] and buf[b, k0, y0, x0]
+      T* bl = block + (((int64_t)b * g.X + x0) * g.Y + y0) * g.Z + g.z0 + k0;
+      T* bu = buf + ((int64_t)b * g.depth + k0) * g.YX + (int64_t)y0 * g.X + x0;
+      // this lane's cells of a y-row: cell lane + 32 j is (x, k) = divmod(., kc)
+      int64_t off[kK];  // from the row's start in the block
+      int at[kK];       // staged index, less the row's y * kc * kZRow
+      bool ok[kK];
+#pragma unroll
+      for (int j = 0; j < kK; ++j) {
+        const int e = lane + 32 * j, x = e / kc, k = e - x * kc;
+        ok[j] = j < kc && x < nx;
+        off[j] = x * g.YZ + k;
+        at[j] = k * kZRow + x;
+      }
+      if (kPack) {
+        T v[kRows][kK];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int y = warp * kRows + u;
+#pragma unroll
+          for (int j = 0; j < kK; ++j) {
+            if (y < ny && ok[j]) v[u][j] = bl[y * g.Z + off[j]];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int y = warp * kRows + u;
+#pragma unroll
+          for (int j = 0; j < kK; ++j) {
+            if (y < ny && ok[j]) stage[y * kc * kZRow + at[j]] = v[u][j];
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kBufRows; ++u) {
+          const int row = warp + u * kZWarps, k = row / kZT, y = row % kZT;  // row (k, y)
+          if (k < kc && y < ny && lane < nx) {
+            bu[k * g.YX + (int64_t)y * g.X + lane] = stage[(y * kc + k) * kZRow + lane];
+          }
+        }
+      } else {
+        T r[kBufRows];
+#pragma unroll
+        for (int u = 0; u < kBufRows; ++u) {
+          const int row = warp + u * kZWarps, k = row / kZT, y = row % kZT;
+          if (k < kc && y < ny && lane < nx) r[u] = bu[k * g.YX + (int64_t)y * g.X + lane];
+        }
+#pragma unroll
+        for (int u = 0; u < kBufRows; ++u) {
+          const int row = warp + u * kZWarps, k = row / kZT, y = row % kZT;
+          if (k < kc && y < ny && lane < nx) stage[(y * kc + k) * kZRow + lane] = r[u];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kRows; ++u) {
+          const int y = warp * kRows + u;
+#pragma unroll
+          for (int j = 0; j < kK; ++j) {
+            if (y < ny && ok[j]) bl[y * g.Z + off[j]] = stage[y * kc * kZRow + at[j]];
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <typename T, bool kPack>
+int launch_zshell(const ZGeom& g, void* block, void* buf, cudaStream_t stream) {
+  const int64_t blocks = g.tiles < kMaxBlocks ? g.tiles : kMaxBlocks;
+  zshell_tile_kernel<T, kPack><<<(unsigned)blocks, kZThreads, 0, stream>>>((T*)block, (T*)buf, g);
+  return (int)cudaGetLastError();
+}
+
+// desc: itemsize, n, X, Y, Z, z0, depth (ops/pack.py ZSHELL_DESC_FIELDS)
+template <bool kPack>
+int zshell_desc(const int64_t* desc, void* block, void* buf, void* stream) {
+  const int64_t itemsize = desc[0], n = desc[1], X = desc[2], Y = desc[3], Z = desc[4];
+  const int64_t z0 = desc[5], depth = desc[6];
+  if (n < 0 || X < 0 || Y < 0 || depth < 1 || z0 < 0 || z0 + depth > Z) return -1;
+  const int64_t tiles_y = (Y + kZT - 1) / kZT, tiles_xy = (X + kZT - 1) / kZT * tiles_y;
+  if (X >= INT32_MAX || Y >= INT32_MAX || depth >= INT32_MAX || n * tiles_xy >= INT32_MAX) return -1;
+  if (n * tiles_xy == 0) return 0;
+  ZGeom g;
+  g.X = X;
+  g.Y = Y;
+  g.Z = Z;
+  g.YZ = Y * Z;
+  g.YX = Y * X;
+  g.z0 = z0;
+  g.depth = (uint32_t)depth;
+  g.tiles_y = (uint32_t)tiles_y;
+  g.tiles_xy = (uint32_t)tiles_xy;
+  g.tiles = (uint32_t)(n * tiles_xy);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (itemsize) {
+    case 1: return launch_zshell<uint8_t, kPack>(g, block, buf, s);
+    case 2: return launch_zshell<uint16_t, kPack>(g, block, buf, s);
+    case 4: return launch_zshell<uint32_t, kPack>(g, block, buf, s);
+    case 8: return launch_zshell<uint64_t, kPack>(g, block, buf, s);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -570,14 +636,12 @@ int stp_blend_slab_desc(const int64_t* desc, void* block, const void* slab, void
   return blend_desc(desc, block, const_cast<void*>(slab), stream);
 }
 
-int stp_pack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                    int64_t Z, int64_t z0, int64_t depth, void* stream) {
-  return dispatch_zshell(true, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
+int stp_pack_zshell_desc(const int64_t* desc, const void* block, void* buf, void* stream) {
+  return zshell_desc<true>(desc, const_cast<void*>(block), buf, stream);
 }
 
-int stp_unpack_zshell(void* block, void* buf, int itemsize, int64_t n, int64_t X, int64_t Y,
-                      int64_t Z, int64_t z0, int64_t depth, void* stream) {
-  return dispatch_zshell(false, block, buf, itemsize, n, X, Y, Z, z0, depth, stream);
+int stp_unpack_zshell_desc(const int64_t* desc, void* block, const void* buf, void* stream) {
+  return zshell_desc<false>(desc, block, const_cast<void*>(buf), stream);
 }
 
 int stp_pack_yshell_desc(const int64_t* desc, const void* block, void* buf, void* stream) {

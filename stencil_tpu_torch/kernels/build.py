@@ -62,11 +62,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "stp_mean6_wavefront": [_P, _P] + [_I] * 6 + [_P],
     },
     "pack": {
-        **{fn: [_P, _P, _I] + [_L] * 6 + [_P] for fn in ("stp_pack_zshell", "stp_unpack_zshell")},
         # descriptor entries: the address of a cached int64 descriptor, two
         # data pointers, the stream (ops/pack.py, ops/halo_blend.py)
-        **{fn: [_P] * 4 for fn in ("stp_pack_slab_desc", "stp_unpack_slab_desc", "stp_pack_yshell_desc",
-                                   "stp_unpack_yshell_desc", "stp_blend_slab_desc")},
+        **{fn: [_P] * 4 for fn in ("stp_pack_slab_desc", "stp_unpack_slab_desc", "stp_pack_zshell_desc",
+                                   "stp_unpack_zshell_desc", "stp_pack_yshell_desc", "stp_unpack_yshell_desc",
+                                   "stp_blend_slab_desc")},
     },
     "plane_stencil": {
         "stp_mean6_plane_level": [_P, _P] + [_I] * 9 + [_P],

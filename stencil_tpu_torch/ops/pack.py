@@ -39,11 +39,10 @@ leaves every other cell of the block as it was.
 Each function takes one ``(X, Y, Z)`` block or ``n`` blocks ``(n, X, Y, Z)``
 with buffers ``(d, ·, ·)`` or ``(n, d, ·, ·)``; one launch serves all ``n``.
 
-``pallas_pack_slab``, ``pallas_unpack_slab``, ``pack_yshell_pallas`` and
-``unpack_yshell_pallas`` launch through cached descriptors, one a geometry
-that a pack and its unpack share (``_slab_launch``, ``_yshell_launch``): a
-geometry is checked once, and a call then costs about what a PyTorch copy
-costs on the host.  The z pair validates and passes every argument per call.
+The slab packs and both shell pairs launch through cached descriptors, one
+a geometry that a pack and its unpack share (``_slab_launch``,
+``_zshell_launch``, ``_yshell_launch``): a geometry is checked once, and a
+call then costs about what a PyTorch copy costs on the host.
 
 The z buffer carries no lane padding: the TPU pads X to a multiple of 128
 (``lane_pad``, ``stencil_tpu/ops/pack.py:298-306``) for its (8,128) tiling,
@@ -175,7 +174,7 @@ def _check_slab(block: torch.Tensor, pos: Dim3, ext: Dim3, slab: torch.Tensor = 
         raise ValueError(f"slab shape {tuple(slab.shape)}, want {tuple(ext)}")
 
 
-# --- the descriptor launch path (the slab packs, the y-shell pair) ----------------
+# --- the descriptor launch path (the slab packs, both shell pairs) ----------------
 #
 # A wrapper validates a geometry once and caches a launch for it: an int64
 # descriptor that its C entry reads on the host, the descriptor's address and
@@ -190,10 +189,12 @@ def _check_slab(block: torch.Tensor, pos: Dim3, ext: Dim3, slab: torch.Tensor = 
 
 #: the int64 fields of a descriptor, in the order the C entries read them
 SLAB_DESC_FIELDS = ("itemsize", "X", "Y", "Z", "px", "py", "pz", "ex", "ey", "ez")
+ZSHELL_DESC_FIELDS = ("itemsize", "n", "X", "Y", "Z", "z0", "depth")
 YSHELL_DESC_FIELDS = ("itemsize", "n", "X", "Y", "Z", "y0", "depth")
 
 _MAX_LAUNCHES = 1024  # geometries a cache holds before it starts afresh
 _SLAB_LAUNCHES: dict = {}
+_ZSHELL_LAUNCHES: dict = {}
 _YSHELL_LAUNCHES: dict = {}
 _ENTRIES: dict = {}
 
@@ -225,19 +226,31 @@ def _slab_launch(block: torch.Tensor, pos, ext):
     return _remember(_SLAB_LAUNCHES, key, (block.element_size(), *block.shape, *pos, *ext), tuple(ext))
 
 
-def _yshell_launch(block: torch.Tensor, y0: int, depth: int):
-    """The cached launch of ``pack_yshell_pallas`` and
-    ``unpack_yshell_pallas`` for this geometry: ``(descriptor, its address,
-    buffer shape)``."""
-    key = (block.shape, block.dtype, y0, depth)
+def _shell_launch(axis: int, block: torch.Tensor, start: int, depth: int):
+    """The cached launch of the shell pair on ``axis`` (2: z, 1: y) for this
+    geometry: ``(descriptor, its address, buffer shape)``."""
+    cache = _ZSHELL_LAUNCHES if axis == 2 else _YSHELL_LAUNCHES
+    key = (block.shape, block.dtype, start, depth)
     try:
-        return _YSHELL_LAUNCHES[key]
+        return cache[key]
     except (KeyError, TypeError):
         pass
-    _check(block, 1, y0, depth)
+    _check(block, axis, start, depth)
     n = block.shape[0] if block.dim() == 4 else 1
-    return _remember(_YSHELL_LAUNCHES, key, (block.element_size(), n, *block.shape[-3:], y0, depth),
-                     yshell_buffer_shape(tuple(block.shape), int(depth)))
+    return _remember(cache, key, (block.element_size(), n, *block.shape[-3:], start, depth),
+                     _SHAPES[axis](tuple(block.shape), int(depth)))
+
+
+def _zshell_launch(block: torch.Tensor, z0: int, depth: int):
+    """The cached launch of ``pack_zshell_pallas`` and
+    ``unpack_zshell_pallas``: ``(descriptor, its address, buffer shape)``."""
+    return _shell_launch(2, block, z0, depth)
+
+
+def _yshell_launch(block: torch.Tensor, y0: int, depth: int):
+    """The cached launch of ``pack_yshell_pallas`` and
+    ``unpack_yshell_pallas``: ``(descriptor, its address, buffer shape)``."""
+    return _shell_launch(1, block, y0, depth)
 
 
 def _entry(fn: str):
@@ -394,16 +407,29 @@ def _check(block: torch.Tensor, axis: int, start: int, depth: int, buf: torch.Te
         raise ValueError(f"buf shape {tuple(buf.shape)}, want {want} for block {tuple(block.shape)}")
 
 
-def _launch(fn: str, block: torch.Tensor, buf: torch.Tensor, start: int, depth: int) -> None:
-    """Launch a z-shell kernel, every argument passed per call."""
-    from stencil_tpu_torch.kernels import build, stream_handle
+def _pack_shell(entry: str, axis: int, block: torch.Tensor, start: int, depth: int) -> torch.Tensor:
+    """Launch a shell pack on a CUDA ``block`` through ``entry``; returns the new buffer."""
+    dev = block.device
+    _, addr, buf_shape = _shell_launch(axis, block, start, depth)
+    if not block.is_contiguous():
+        _check(block, axis, start, depth)  # raises with the reason
+    buf = torch.empty(buf_shape, dtype=block.dtype, device=dev)
+    rc = _entry(entry)[0](addr, block.data_ptr(), buf.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        _raise_launch(entry, rc)
+    return buf
 
-    lib = build.load("pack")
-    n = block.shape[0] if block.dim() == 4 else 1
-    X, Y, Z = block.shape[-3:]
-    rc = getattr(lib, fn)(block.data_ptr(), buf.data_ptr(), block.element_size(), n, X, Y, Z,
-                          start, depth, stream_handle(block.device))
-    build.check(lib, rc, fn)
+
+def _unpack_shell(entry: str, axis: int, block: torch.Tensor, buf: torch.Tensor, start: int, depth: int) -> None:
+    """Launch a shell unpack of ``buf`` into a CUDA ``block`` through ``entry``."""
+    dev = block.device
+    _, addr, buf_shape = _shell_launch(axis, block, start, depth)
+    if not (block.is_contiguous() and isinstance(buf, torch.Tensor) and buf.dtype == block.dtype
+            and buf.shape == buf_shape and buf.is_contiguous() and buf.device == dev):
+        _check(block, axis, start, depth, buf)  # raises with the reason
+    rc = _entry(entry)[0](addr, block.data_ptr(), buf.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        _raise_launch(entry, rc)
 
 
 def pack_zshell_pallas_plain(block: torch.Tensor, z0: int, depth: int) -> torch.Tensor:
@@ -416,11 +442,9 @@ def pack_zshell_pallas(block: torch.Tensor, z0: int, depth: int) -> torch.Tensor
     """The z shell ``[z0, z0+depth)`` of ``block`` as a new ``(..., depth,
     Y, X)`` buffer.  CUDA tensors launch the kernel (any 1/2/4/8-byte
     dtype); CPU tensors take the plain version."""
-    _check(block, 2, z0, depth)
-    if block.device.type == "cpu":
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return pack_zshell_pallas_plain(block, z0, depth)
-    buf = torch.empty(zshell_buffer_shape(tuple(block.shape), depth), dtype=block.dtype, device=block.device)
-    _launch("stp_pack_zshell", block, buf, z0, depth)
+    buf = _pack_shell("stp_pack_zshell_desc", 2, block, z0, depth)
     pack_zshell_pallas.launches += 1
     return buf
 
@@ -436,10 +460,9 @@ def unpack_zshell_pallas(block: torch.Tensor, buf: torch.Tensor, z0: int, depth:
     """Write a ``(..., depth, Y, X)`` buffer into ``block[..., z0:z0+depth]``
     in place and return ``block``; no other cell changes.  CUDA tensors
     launch the kernel; CPU tensors take the plain version."""
-    _check(block, 2, z0, depth, buf)
-    if block.device.type == "cpu":
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return unpack_zshell_pallas_plain(block, buf, z0, depth)
-    _launch("stp_unpack_zshell", block, buf, z0, depth)
+    _unpack_shell("stp_unpack_zshell_desc", 2, block, buf, z0, depth)
     unpack_zshell_pallas.launches += 1
     return block
 
@@ -456,14 +479,7 @@ def pack_yshell_pallas(block: torch.Tensor, y0: int, depth: int) -> torch.Tensor
     dtype); CPU tensors take the plain version."""
     if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return pack_yshell_pallas_plain(block, y0, depth)
-    dev = block.device
-    _, addr, buf_shape = _yshell_launch(block, y0, depth)
-    if not block.is_contiguous():
-        _check(block, 1, y0, depth)  # raises with the reason
-    buf = torch.empty(buf_shape, dtype=block.dtype, device=dev)
-    rc = _entry("stp_pack_yshell_desc")[0](addr, block.data_ptr(), buf.data_ptr(), current_raw_stream(dev.index))
-    if rc:
-        _raise_launch("stp_pack_yshell_desc", rc)
+    buf = _pack_shell("stp_pack_yshell_desc", 1, block, y0, depth)
     pack_yshell_pallas.launches += 1
     return buf
 
@@ -481,14 +497,7 @@ def unpack_yshell_pallas(block: torch.Tensor, buf: torch.Tensor, y0: int, depth:
     launch the kernel; CPU tensors take the plain version."""
     if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return unpack_yshell_pallas_plain(block, buf, y0, depth)
-    dev = block.device
-    _, addr, buf_shape = _yshell_launch(block, y0, depth)
-    if not (block.is_contiguous() and isinstance(buf, torch.Tensor) and buf.dtype == block.dtype
-            and buf.shape == buf_shape and buf.is_contiguous() and buf.device == dev):
-        _check(block, 1, y0, depth, buf)  # raises with the reason
-    rc = _entry("stp_unpack_yshell_desc")[0](addr, block.data_ptr(), buf.data_ptr(), current_raw_stream(dev.index))
-    if rc:
-        _raise_launch("stp_unpack_yshell_desc", rc)
+    _unpack_shell("stp_unpack_yshell_desc", 1, block, buf, y0, depth)
     unpack_yshell_pallas.launches += 1
     return block
 

@@ -542,6 +542,56 @@ def test_unpack_yshell_kernel_alignment_sweep(dev, dtype):
     assert pk.unpack_yshell_pallas.launches == before + len(cases)
 
 
+#: (block shape, z windows) of the z-shell tile kernels' sweep: X and Y
+#: ragged against the 32 x 32 tile, X or Y of 1, n = 1 and a bare block; every
+#: z0 mod 8 at depth 1, 3 and 5 (runs that start at every offset of a sector
+#: for every width), the last cell and depth = Z
+ZSHELL_CASES = [(shape, sorted({(z0, d) for z0 in range(8) for d in (1, 3, 5)} | {(shape[-1] - 1, 1), (0, shape[-1])}))
+                for shape in ((2, 33, 65, 13), (1, 70, 40, 16), (3, 1, 40, 13), (2, 40, 1, 14), (17, 19, 23),
+                              (1, 64, 32, 21))]
+
+
+@pytest.mark.parametrize("dtype", SWEEP_DTYPES)
+def test_zshell_kernels_tile_and_window_sweep(dev, dtype):
+    """The z-shell pack and unpack, bitwise against the plain versions, on
+    the shapes and windows of ``ZSHELL_CASES``, with block and buffer
+    pointers shifted off their allocation's alignment."""
+    before = (pk.pack_zshell_pallas.launches, pk.unpack_zshell_pallas.launches)
+    calls = 0
+    for i, (shape, windows) in enumerate(ZSHELL_CASES):
+        for j, (z0, depth) in enumerate(windows):
+            boff, uoff = (0, 0) if j % 2 else (1, 3)
+            block = _at_offset(shape, dtype, boff, 60_000 + 100 * i + j, dev)
+            buf = pk.pack_zshell_pallas(block, z0, depth)
+            torch.cuda.synchronize()
+            assert torch.equal(buf, pk.pack_zshell_pallas_plain(block, z0, depth)), (shape, z0, depth, boff)
+            new = _at_offset(tuple(buf.shape), dtype, uoff, 70_000 + 100 * i + j, dev)
+            want = pk.unpack_zshell_pallas_plain(block.clone(), new, z0, depth)
+            got = pk.unpack_zshell_pallas(block, new, z0, depth)
+            torch.cuda.synchronize()
+            assert got is block
+            assert torch.equal(got, want), (shape, z0, depth, boff, uoff)
+            calls += 1
+    assert (pk.pack_zshell_pallas.launches, pk.unpack_zshell_pallas.launches) == (before[0] + calls,
+                                                                                  before[1] + calls)
+
+
+@pytest.mark.parametrize("shape", [(8, 262, 262, 262), (2, 33, 65, 13), (17, 19, 23)])
+def test_zshell_unpack_writes_no_cell_outside_its_window(dev, shape):
+    """A block of random values: after the unpack every cell outside the
+    window holds its old bits and every cell inside the buffer's."""
+    Z = shape[-1]
+    for i, (z0, depth) in enumerate(((0, 3), (Z - 3, 3), (3, 3), (Z // 2, 1))):
+        block = _rand(shape, 64 + i, dev) * 100
+        old = block.clone()
+        buf = _rand(pk.zshell_buffer_shape(shape, depth), 65 + i, dev) - 1  # no value of the block's range
+        pk.unpack_zshell_pallas(block, buf, z0, depth)
+        torch.cuda.synchronize()
+        assert torch.equal(block.narrow(-1, 0, z0), old.narrow(-1, 0, z0))
+        assert torch.equal(block.narrow(-1, z0 + depth, Z - z0 - depth), old.narrow(-1, z0 + depth, Z - z0 - depth))
+        assert torch.equal(block.narrow(-1, z0, depth), buf.transpose(-3, -1))
+
+
 def test_descriptor_launches_of_two_shapes_in_turn(dev):
     """Each shape keeps its own cached launch: blocks of two shapes, in turn."""
     blocks = [_rand((9, 10, 11), 90, dev), _rand((12, 10, 13), 91, dev)]

@@ -1,5 +1,6 @@
 """The descriptor launch path of the slab packs (``pallas_pack_slab``,
-``pallas_unpack_slab``) and the y-shell pair (``pack_yshell_pallas``,
+``pallas_unpack_slab``), the z-shell pair (``pack_zshell_pallas``,
+``unpack_zshell_pallas``) and the y-shell pair (``pack_yshell_pallas``,
 ``unpack_yshell_pallas``) of ``stencil_tpu_torch/ops/pack.py``, on the CPU.
 
 * the descriptor holds the int64 fields the C entries of ``csrc/pack.cu``
@@ -7,7 +8,7 @@
 * one geometry hits its cached launch, and another block shape, dtype, box or
   window misses it; a pack and an unpack of one geometry share it;
 * a box or window that leaves the block raises before anything is cached;
-* every refusal of the four wrappers raises with its message, on the launch
+* every refusal of the six wrappers raises with its message, on the launch
   path's own checks as on the plain branch;
 * the wrappers on CPU tensors still run the plain versions, bitwise equal to
   the JAX package's Pallas kernels in interpret mode, and count no launch.
@@ -55,6 +56,16 @@ def test_yshell_descriptor_holds_the_fields_the_c_entry_reads(shape, n):
     assert buf_shape == pk.yshell_buffer_shape(shape, 3)
 
 
+@pytest.mark.parametrize("shape,n", [((17, 19, 23), 1), ((3, 17, 19, 23), 3)])
+def test_zshell_descriptor_holds_the_fields_the_c_entry_reads(shape, n):
+    block = torch.zeros(shape, dtype=torch.uint8)
+    desc, addr, buf_shape = pk._zshell_launch(block, 20, 3)
+    want = dict(itemsize=1, n=n, X=17, Y=19, Z=23, z0=20, depth=3)
+    assert _fields((desc,)) == [want[f] for f in pk.ZSHELL_DESC_FIELDS]
+    assert addr == ctypes.addressof(desc)
+    assert buf_shape == pk.zshell_buffer_shape(shape, 3) == shape[:-3] + (3, 19, 17)
+
+
 def test_slab_launch_cache_hits_one_geometry_and_misses_others():
     block = torch.zeros(9, 10, 11)
     first = pk._slab_launch(block, Dim3(2, 1, 3), Dim3(4, 7, 5))
@@ -89,6 +100,36 @@ def test_yshell_launch_cache_hits_one_geometry_and_misses_others():
     for other in others:
         assert other is not first and _fields(other) != _fields(first)
     assert others[0][2] == (2, 3, 5, 9) and others[4][2] == (3, 2, 5, 9)
+
+
+def test_zshell_launch_cache_hits_one_geometry_and_misses_others():
+    block = torch.zeros(3, 5, 7, 9)
+    first = pk._zshell_launch(block, 2, 3)
+    assert pk._zshell_launch(torch.ones(3, 5, 7, 9), 2, 3) is first
+    others = [
+        pk._zshell_launch(torch.zeros(2, 5, 7, 9), 2, 3),  # n
+        pk._zshell_launch(torch.zeros(5, 7, 9), 2, 3),  # one block
+        pk._zshell_launch(torch.zeros(3, 5, 8, 9), 2, 3),  # shape
+        pk._zshell_launch(block.to(torch.float64), 2, 3),  # dtype
+        pk._zshell_launch(block, 1, 3),  # window start
+        pk._zshell_launch(block, 2, 2),  # depth
+    ]
+    for other in others:
+        assert other is not first and _fields(other) != _fields(first)
+    assert others[0][2] == (2, 3, 7, 5) and others[5][2] == (3, 2, 7, 5)
+    # the y pair's cache is its own: the same geometry there is another launch
+    assert pk._yshell_launch(block, 2, 3)[2] == (3, 3, 5, 9)
+
+
+def test_a_zshell_window_that_leaves_the_block_is_refused_before_caching():
+    block = torch.zeros(6, 6, 6)
+    before = dict(pk._ZSHELL_LAUNCHES)
+    for z0, depth in ((5, 2), (-1, 2), (0, 0), (0, 7)):
+        with pytest.raises(ValueError, match="does not fit"):
+            pk._zshell_launch(block, z0, depth)
+    with pytest.raises(TypeError, match="1/2/4/8-byte"):
+        pk._zshell_launch(block.to(torch.complex128), 0, 1)
+    assert pk._ZSHELL_LAUNCHES == before
 
 
 def test_a_box_or_window_that_leaves_the_block_is_refused_before_caching():
@@ -157,13 +198,43 @@ def _refusals(fn, block, z):
                 np.zeros((6, 6, 6), np.float32), z(1, 6, 6), 0, 1)),
             (ValueError, "must have 3 or 4 dims", lambda: pk.unpack_yshell_pallas(z(6, 6), z(1, 6), 0, 1)),
         ]
+    if fn == "pack_zshell":
+        return [
+            (ValueError, "does not fit", lambda: pk.pack_zshell_pallas(block, 5, 2)),
+            (ValueError, "does not fit", lambda: pk.pack_zshell_pallas(block, 0, 0)),
+            (TypeError, "1/2/4/8-byte", lambda: pk.pack_zshell_pallas(block.to(torch.complex128), 0, 1)),
+            (ValueError, "block must be C-contiguous", lambda: pk.pack_zshell_pallas(block.transpose(0, 2), 0, 1)),
+            (ValueError, "must have 3 or 4 dims", lambda: pk.pack_zshell_pallas(z(6, 6), 0, 1)),
+            (TypeError, "block must be a torch.Tensor", lambda: pk.pack_zshell_pallas(
+                np.zeros((6, 6, 6), np.float32), 0, 1)),
+        ]
+    if fn == "unpack_zshell":
+        return [
+            (ValueError, "does not fit", lambda: pk.unpack_zshell_pallas(block, z(2, 6, 6), 5, 2)),
+            (ValueError, "does not fit", lambda: pk.unpack_zshell_pallas(block, z(0, 6, 6), 0, 0)),
+            (TypeError, "1/2/4/8-byte", lambda: pk.unpack_zshell_pallas(
+                block.to(torch.complex128), z(1, 6, 6, dtype=torch.complex128), 0, 1)),
+            (ValueError, "buf shape", lambda: pk.unpack_zshell_pallas(block, z(2, 6, 6), 0, 1)),
+            (ValueError, "buf shape", lambda: pk.unpack_zshell_pallas(block, z(3, 6, 5), 1, 3)),
+            (TypeError, "buf dtype", lambda: pk.unpack_zshell_pallas(block, z(1, 6, 6, dtype=torch.float64), 0, 1)),
+            (ValueError, "buf must be C-contiguous", lambda: pk.unpack_zshell_pallas(block, z(1, 6, 6).transpose(1, 2),
+                                                                                     0, 1)),
+            (ValueError, "block must be C-contiguous", lambda: pk.unpack_zshell_pallas(block.transpose(0, 2),
+                                                                                       z(1, 6, 6), 0, 1)),
+            (ValueError, "buf must have 3 dims", lambda: pk.unpack_zshell_pallas(block, z(1, 1, 6, 6), 0, 1)),
+            (TypeError, "buf must be a torch.Tensor", lambda: pk.unpack_zshell_pallas(
+                block, np.zeros((1, 6, 6), np.float32), 0, 1)),
+            (TypeError, "block must be a torch.Tensor", lambda: pk.unpack_zshell_pallas(
+                np.zeros((6, 6, 6), np.float32), z(1, 6, 6), 0, 1)),
+            (ValueError, "must have 3 or 4 dims", lambda: pk.unpack_zshell_pallas(z(6, 6), z(1, 6), 0, 1)),
+        ]
     raise KeyError(fn)
 
 
-@pytest.mark.parametrize("fn", ["unpack", "pack_yshell", "pack_slab", "unpack_yshell"])
+@pytest.mark.parametrize("fn", ["unpack", "pack_yshell", "pack_slab", "unpack_yshell", "pack_zshell", "unpack_zshell"])
 def test_every_refusal_still_raises(fn):
     block = torch.zeros(6, 6, 6)
-    if fn in ("pack_slab", "unpack_yshell"):
+    if fn in ("pack_slab", "unpack_yshell", "pack_zshell", "unpack_zshell"):
         cases = _refusals(fn, block, torch.zeros)
     elif fn == "unpack":
         cases = [
@@ -232,6 +303,28 @@ def test_pack_slab_and_unpack_yshell_on_cpu_equal_pallas_interpret(dtype):
     assert (pk.pallas_pack_slab.launches, pk.unpack_yshell_pallas.launches) == before
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.uint8, np.uint16])
+def test_zshell_wrappers_on_cpu_equal_pallas_interpret(dtype):
+    """The z pair on CPU tensors: their plain versions, bitwise equal to the
+    JAX package's kernels (whose buffer pads X to 128 lanes), no launch."""
+    rng = np.random.default_rng(15)
+    block = (rng.random((3, 9, 10, 11)) * 100).astype(dtype)
+    buf = (rng.random((3, 3, 10, 9)) * 100).astype(dtype)
+    before = (pk.pack_zshell_pallas.launches, pk.unpack_zshell_pallas.launches)
+    for z0, depth in ((4, 3), (0, 1), (10, 1), (0, 11)):
+        got = pk.pack_zshell_pallas(torch.from_numpy(block), z0, depth).numpy()
+        for b in range(3):  # the JAX kernel takes one block
+            want = jpk.pack_zshell_pallas(jnp.asarray(block[b]), z0, depth, interpret=True)
+            np.testing.assert_array_equal(got[b], np.asarray(want)[:, :, :9])
+    got = pk.unpack_zshell_pallas(torch.from_numpy(block.copy()), torch.from_numpy(buf), 8, 3).numpy()
+    for b in range(3):
+        padded = np.zeros((3, 10, jpk.lane_pad(9)), dtype)
+        padded[:, :, :9] = buf[b]
+        want = jpk.unpack_zshell_pallas(jnp.asarray(block[b]), jnp.asarray(padded), 8, 3, interpret=True)
+        np.testing.assert_array_equal(got[b], np.asarray(want))
+    assert (pk.pack_zshell_pallas.launches, pk.unpack_zshell_pallas.launches) == before
+
+
 # --- the launch path on the CPU: tensors that report a CUDA device -------------------
 
 
@@ -266,6 +359,17 @@ def _stand_in(fn: str, calls: list):
         calls.append((fn, addr, stream))
         return 0
 
+    def zshell(addr, block_ptr, buf_ptr, stream):
+        isz, n, X, Y, Z, z0, depth = (ctypes.c_int64 * 7).from_address(addr)
+        window = _host_view(block_ptr, isz, (n, X, Y, Z))[:, :, :, z0:z0 + depth].transpose(0, 3, 2, 1)
+        buf = _host_view(buf_ptr, isz, (n, depth, Y, X))
+        if fn.startswith("stp_pack"):
+            buf[...] = window
+        else:
+            window[...] = buf
+        calls.append((fn, addr, stream))
+        return 0
+
     def yshell(addr, block_ptr, buf_ptr, stream):
         isz, n, X, Y, Z, y0, depth = (ctypes.c_int64 * 7).from_address(addr)
         window = _host_view(block_ptr, isz, (n, X, Y, Z))[:, :, y0:y0 + depth, :].transpose(0, 2, 1, 3)
@@ -277,12 +381,12 @@ def _stand_in(fn: str, calls: list):
         calls.append((fn, addr, stream))
         return 0
 
-    return slab if "slab" in fn else yshell
+    return slab if "slab" in fn else zshell if "zshell" in fn else yshell
 
 
 @pytest.fixture
 def on_card(monkeypatch):
-    """Route the four descriptor wrappers through their launch path on host
+    """Route the six descriptor wrappers through their launch path on host
     memory: ``_OnCard`` tensors, ``torch.empty`` making them, a fixed raw
     stream, and the C entries' stand-ins.  Yields ``(to_card, calls)``."""
     calls = []
@@ -332,7 +436,25 @@ def test_yshell_pack_and_unpack_share_one_cached_launch(on_card, dtype, shape):
     assert (pk.pack_yshell_pallas.launches, pk.unpack_yshell_pallas.launches) == (before[0] + 3, before[1] + 3)
 
 
-@pytest.mark.parametrize("fn", ["pack_slab", "unpack_yshell"])
+@pytest.mark.parametrize("shape", [(9, 10, 11), (3, 9, 10, 11)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.uint8, torch.int16])
+def test_zshell_pack_and_unpack_share_one_cached_launch(on_card, dtype, shape):
+    to_card, calls = on_card
+    block = (torch.from_numpy(np.random.default_rng(16).random(shape)) * 100).to(dtype)
+    before = (pk.pack_zshell_pallas.launches, pk.unpack_zshell_pallas.launches)
+    for z0, depth in ((4, 3), (0, 1), (10, 1), (0, 11)):
+        buf = pk.pack_zshell_pallas(to_card(block), z0, depth)
+        assert isinstance(buf, _OnCard) and torch.equal(_host(buf), pk.pack_zshell_pallas_plain(block, z0, depth))
+        new = (buf.flip(-1) + 1).as_subclass(_OnCard)
+        got = pk.unpack_zshell_pallas(to_card(block), new, z0, depth)
+        assert torch.equal(_host(got), pk.unpack_zshell_pallas_plain(block.clone(), _host(new), z0, depth))
+        (pack_fn, pack_addr, stream), (unpack_fn, unpack_addr, _) = calls[-2:]
+        assert (pack_fn, unpack_fn, stream) == ("stp_pack_zshell_desc", "stp_unpack_zshell_desc", 7000)
+        assert pack_addr == unpack_addr == pk._zshell_launch(block, z0, depth)[1]
+    assert (pk.pack_zshell_pallas.launches, pk.unpack_zshell_pallas.launches) == (before[0] + 4, before[1] + 4)
+
+
+@pytest.mark.parametrize("fn", ["pack_slab", "unpack_yshell", "pack_zshell", "unpack_zshell"])
 def test_every_refusal_raises_on_the_launch_path(on_card, fn):
     """The refusals of the CPU branch, on tensors that take the launch
     path: the same messages, cached geometry or not, and no launch."""
@@ -344,11 +466,12 @@ def test_every_refusal_raises_on_the_launch_path(on_card, fn):
     block = z(6, 6, 6)
     pk.pallas_pack_slab(block, (0, 0, 0), (2, 2, 2))  # cache geometries the cases reuse
     pk.unpack_yshell_pallas(block, z(1, 6, 6), 0, 1)
+    pk.unpack_zshell_pallas(block, z(1, 6, 6), 0, 1)
     launched = len(calls)
     cases = _refusals(fn, block, z)
-    if fn == "unpack_yshell":
-        cases.append((ValueError, "different devices",
-                      lambda: pk.unpack_yshell_pallas(block, torch.zeros(1, 6, 6), 0, 1)))
+    if fn.startswith("unpack_"):
+        unpack = getattr(pk, f"{fn}_pallas")
+        cases.append((ValueError, "different devices", lambda: unpack(block, torch.zeros(1, 6, 6), 0, 1)))
     for exc, match, call in cases:
         with pytest.raises(exc, match=match):
             call()
