@@ -82,10 +82,11 @@ non-zero before the result line:
     profiles;
 12. times of jacobi_slab_step at the slab route's shapes (its device ms a
     call and launch plan, ``jacobi_slab_launch``, as phase 7) and of
-    blend_slab_dynamic at the uneven wavefront's +x, +y and +z halo writes,
-    beside their bounds, plain versions and, for blend_slab_dynamic, the
-    library call that makes the same write (``Tensor.scatter_`` with
-    per-block indices);
+    blend_slab_dynamic at the uneven wavefront's +x, +y and +z halo writes
+    (CUDA-event ms and device ms a call on each axis, and the cached
+    descriptor the +x write launches through), beside their bounds, plain
+    versions and, for blend_slab_dynamic, the library call that makes the
+    same write (``Tensor.scatter_`` with per-block indices);
 13. the packed exchange routes: ``AstarothSim(512, 512, 512,
     num_quantities=8, kernel_impl="cuda", schedule="per-step",
     exchange_route=r)`` on 2x2x2 (the plane route, one 8-field exchange an
@@ -138,7 +139,8 @@ non-zero before the result line:
     and checked after; both bitwise equal at level 10 and 200 to the stream
     engine's ``plane`` route running a mean6 user kernel written in the
     kernels' order; each kernel held bitwise against its plain version and
-    timed beside its bound.
+    timed beside its bound (the wavefront kernel's device ms a call as well,
+    and its launch plan at (518^3, m = 3), ``mean6_wavefront_launch``).
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -579,7 +581,8 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.uint8):
         for axis in (0, 1, 2):
             ext = small.shape[1 + axis]
-            for r, pos in ((1, [ext - 1, ext - 1, ext - 2]), (2, [0, 5, ext + 3]), (3, [ext - 4] * 2 + [ext - 3])):
+            for r, pos in ((1, [ext - 1, ext - 1, ext - 2]), (2, [0, 5, ext + 3]), (3, [ext - 4] * 2 + [ext - 3]),
+                           (2, [-3, ext, 1])):
                 shape = list(small.shape)
                 shape[1 + axis] = r
                 slab = (seeded(shape, 16 + r, dev) * 100).to(dtype)
@@ -587,6 +590,10 @@ def main() -> int:
                 base = small.to(dtype)
                 hold("blend_slab_dynamic", hb.blend_slab_dynamic(base.clone(), slab, axis, p),
                      hb.blend_slab_dynamic_plain(base.clone(), slab, axis, p), f"{dtype} axis {axis} pos {pos}")
+                # one block (n = 1, one offset)
+                hold("blend_slab_dynamic", hb.blend_slab_dynamic(base[2].clone(), slab[2], axis, p[2:]),
+                     hb.blend_slab_dynamic_plain(base[2].clone(), slab[2], axis, p[2:]),
+                     f"{dtype} axis {axis} one block, pos {pos[2]}")
     NU = N - 1  # the uneven size
     mu = jk.wavefront_auto_depth(NU - half)  # the depth the padded plan picks
     ru = half + 2 * mu
@@ -760,10 +767,11 @@ def main() -> int:
     for lo, hi in (((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2))):
         hold("mean6_plane_step", m6.mean6_plane_step(m6_raw, lo, hi), m6.mean6_plane_step_plain(m6_raw, lo, hi),
              f"(37,41,70) lo={lo} hi={hi}")
-    S3 = slice(3, -3)
-    for m in (1, 2, 3):
-        hold("mean6_shell_wavefront_step", m6.mean6_shell_wavefront_step(m6_raw, m, 3)[S3, S3, S3],
-             m6.mean6_shell_wavefront_step_plain(m6_raw, m, 3)[S3, S3, S3], f"(37,41,70) m={m} s=3")
+    for m in range(1, m6.MEAN6_MAX_M + 1):  # one march up to m = 4, then two through the scratch
+        sm = max(3, m)
+        Sm = slice(sm, -sm)
+        hold("mean6_shell_wavefront_step", m6.mean6_shell_wavefront_step(m6_raw, m, sm)[Sm, Sm, Sm],
+             m6.mean6_shell_wavefront_step_plain(m6_raw, m, sm)[Sm, Sm, Sm], f"(37,41,70) m={m} s={sm}")
     del m6_raw
     torch.cuda.empty_cache()
     ws = N + 6
@@ -1348,9 +1356,10 @@ def main() -> int:
     slabk_dev_ms = device_ms_per_call(lambda: jk.jacobi_slab_step(*slab_args_main, out=slab_out))
     slab_launch = jk.jacobi_slab_launch(tuple(slab_in.shape))
     del slab_out, slab_in, slab_faces
-    dyn_ms, dyn_plain_ms, dyn_lib_ms = {}, {}, {}
+    dyn_ms, dyn_dev_ms, dyn_plain_ms, dyn_lib_ms = {}, {}, {}, {}
     for slab, axis, pos in dyn_writes:
         dyn_ms[axis] = cuda_ms(lambda: hb.blend_slab_dynamic(dyn_blocks, slab, axis, pos))
+        dyn_dev_ms[axis] = device_ms_per_call(lambda: hb.blend_slab_dynamic(dyn_blocks, slab, axis, pos), calls=20)
         dyn_plain_ms[axis] = cuda_ms(lambda: hb.blend_slab_dynamic_plain(dyn_blocks, slab, axis, pos))
         # the one PyTorch call that makes the same write: scatter_ along the
         # axis with each block's indices pos[b] + i
@@ -1364,10 +1373,12 @@ def main() -> int:
         del lib_out
         dyn_lib_ms[axis] = cuda_ms(lambda: dyn_blocks.scatter_(1 + axis, index, slab))
         del index
-    dyn_bytes = 2 * dyn_writes[0][0].numel() * 4 + 8 * 4  # the +x write: slab read, slab written, offsets
-    log("blend_slab_dynamic per +axis halo write at (8,{0},{0},{0}) m={1} (ms: kernel, plain, scatter_): ".format(
-        ru, mu) + ", ".join(f"axis {a}: {dyn_ms[a]:.4f}, {dyn_plain_ms[a]:.4f}, {dyn_lib_ms[a]:.4f}"
-                           for a in (0, 1, 2)))
+    dyn_bytes = 2 * dyn_writes[0][0].numel() * 4 + 8 * 4  # a write (each axis's): slab read, slab written, offsets
+    dyn_desc = dict(zip(hb.BLEND_DYN_DESC_FIELDS, hb._blend_dynamic_launch(dyn_blocks, 0, mu)[0]))
+    log("blend_slab_dynamic per +axis halo write at (8,{0},{0},{0}) m={1} (ms: kernel CUDA events, kernel device, "
+        "plain, scatter_; bound {2:.4f} each): ".format(ru, mu, bound(dyn_bytes, 0)[0])
+        + ", ".join(f"axis {a}: {dyn_ms[a]:.4f}, {dyn_dev_ms[a]:.4f}, {dyn_plain_ms[a]:.4f}, {dyn_lib_ms[a]:.4f}"
+                    for a in (0, 1, 2)) + f"; the +x write's descriptor {dyn_desc} on {card}")
     log(f"jacobi_slab_step at 8x{half}^3, six slabs: device {slabk_dev_ms:.4f} ms a call, CUDA events "
         f"{slabk_ms:.4f} ms (plain {slabk_plain_ms:.4f}), bound {bound(slabk_bytes, slabk_flops)[0]:.4f} ms; "
         f"launch {plan_str(slab_launch)} on {card}")
@@ -1724,10 +1735,13 @@ def main() -> int:
     m6p_plain_ms = cuda_ms(lambda: m6.mean6_plane_step_plain(m6_blk, m6_shell, m6_shell, out=m6_out), inner=2)
     m6w_ms = cuda_ms(lambda: m6.mean6_shell_wavefront_step(m6_blk, 3, 3, out=m6_out), inner=2)
     m6w_plain_ms = cuda_ms(lambda: m6.mean6_shell_wavefront_step_plain(m6_blk, 3, 3, out=m6_out), reps=3, inner=1)
+    m6w_dev_ms = device_ms_per_call(lambda: m6.mean6_shell_wavefront_step(m6_blk, 3, 3, out=m6_out))
+    m6w_launch = m6.mean6_wavefront_launch((ws, ws, ws), 3, 3)
     m6p_bytes = 2 * ws ** 3 * 4  # every cell read once and written once
     m6w_bytes = (ws ** 3 + N ** 3) * 4  # every cell read once, the interior written once
     log(f"mean6 kernels at {ws}^3 f32 (ms, CUDA events): mean6_plane_step {m6p_ms:.4f} (plain {m6p_plain_ms:.4f}), "
-        f"mean6_shell_wavefront_step m=3 {m6w_ms:.4f} (plain {m6w_plain_ms:.4f}) on {card}")
+        f"mean6_shell_wavefront_step m=3 {m6w_ms:.4f} (plain {m6w_plain_ms:.4f}; device {m6w_dev_ms:.4f} a call, "
+        f"bound {bound(m6w_bytes, 0)[0]:.4f}); wavefront launch {plan_str(m6w_launch)} on {card}")
     del m6_blk, m6_out
     torch.cuda.empty_cache()
     phase_end()
@@ -1824,6 +1838,11 @@ def main() -> int:
         if name == "jacobi_shell_wavefront_step":
             rows[-1].update(device_ms=jacobi_wf["shell z-slab"]["device_ms"],
                             launch=jacobi_wf["shell z-slab"]["launch"])
+        if name == "mean6_shell_wavefront_step":
+            rows[-1].update(device_ms=m6w_dev_ms, launch=m6w_launch)
+        if name == "blend_slab_dynamic":
+            rows[-1].update(device_ms=dyn_dev_ms[0], ms_per_axis=dyn_ms, device_ms_per_axis=dyn_dev_ms,
+                            plain_ms_per_axis=dyn_plain_ms, library_ms_per_axis=dyn_lib_ms, descriptor=dyn_desc)
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -1844,7 +1863,8 @@ def main() -> int:
                               for k, v in pack_ms.items()},
             "pack_yshell_copy_": {"ms": ycopy_ms, "device_ms": ycopy_dev_ms, "host_us": ypack_host_us},
             "unpack_yshell_host_us": yunpack_host_us,
-            "blend_slab_dynamic_ms": {"kernel": dyn_ms, "plain": dyn_plain_ms, "scatter_": dyn_lib_ms},
+            "blend_slab_dynamic_ms": {"kernel": dyn_ms, "device": dyn_dev_ms, "plain": dyn_plain_ms,
+                                      "scatter_": dyn_lib_ms, "descriptor": dyn_desc},
             "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
                        "wavefront_zring_mcells_per_s": wave_mcells,
                        "wavefront_zslab_mcells_per_s": slab_mcells, "wavefront_m": mw,
@@ -1856,7 +1876,8 @@ def main() -> int:
             "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
             "bench_pack": bench_pack_runs, "slab_faces_ms": slab_face, "mean6_runs": mean6_runs,
             "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
-                         "wavefront_m3_plain": m6w_plain_ms},
+                         "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
+                         "wavefront_m3_launch": m6w_launch},
             "phase_start_s": phase_s, "total_s": time.perf_counter() - t_start,
             "phase_peak_gb": phase_peak_gb, "peak_device_gb": max(phase_peak_gb.values()),
         }, f, indent=1)

@@ -1,6 +1,7 @@
 """Device times of the Jacobi wrap, wavefront, plane and slab kernels, the
-stream wavefront kernel and blend_slab at the main path's shapes, in a form
-that times an older tree of the port as well.
+stream wavefront kernel, blend_slab, the z-shell pair, the mean6 wavefront
+and blend_slab_dynamic at the main path's shapes, in a form that times an
+older tree of the port as well.
 
     python -m stencil_tpu_torch.bin.bench_kernels [--out FILE] [--only SECTION ...]
     PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's kernels
@@ -9,7 +10,8 @@ It calls only what the port has had since these kernels landed
 (``jacobi_wrap_step``, ``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
 ``jacobi_plane_step``, ``jacobi_slab_step``, ``stream_wavefront_pass``,
 ``blend_slab``, ``pack_zshell_pallas``, ``unpack_zshell_pallas``,
-``AstarothSim``), so two trees
+``mean6_shell_wavefront_step``, ``blend_slab_dynamic``, ``AstarothSim``),
+so two trees
 timed in turn on one card compare like with like.  It prints, and writes to
 ``--out``, one JSON object with the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them)
@@ -57,6 +59,19 @@ and (``--only`` keeps the sections named):
   the 32-byte sectors of the block that the window's runs touch
   (``zshell_sector_bytes``), read by a pack beside the buffer's bytes, and
   filled and written back by an unpack beside the buffer read;
+* ``mean6``: ``mean6_shell_wavefront_step`` over one 518^3 f32 block (the
+  Astaroth proxy's 512^3 subdomain with a radius-3 shell), s = 3 at m = 3
+  and s = 8 at m = 8, into ``out=``: device ms a call (torch.profiler over 10
+  calls; a call may launch two kernels), CUDA-event ms a call, the bound
+  (the block read once and its interior written once over 3.35 TB/s) and,
+  where the tree has ``mean6_wavefront_launch``, the plan;
+* ``blend_dynamic``: ``blend_slab_dynamic`` at the uneven 511^3 wavefront's
+  +axis halo writes, 8 blocks of 272^3 f32 and slabs of width 8, and at the
+  511^3 ``shell`` route's, 8 blocks of 258^3 and slabs of width 1 (keys
+  "<axis> shell"), at per-block offsets (the last block's differ), each
+  axis in turn: device ms a launch back to back (20 launches), CUDA-event
+  ms a call and the bound (the slab read once and written once, and the
+  offsets);
 * ``direct``: ``AstarothSim(512^3, num_quantities=8, schedule="per-step",
   exchange_route="direct")`` on 2x2x2: ms/iter (the better of two runs of 24
   iterations), and from 24 iterations under torch.profiler the device ms an
@@ -81,8 +96,8 @@ import torch
 N = 512
 ITERS = 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-#: the kernels that blend_slab launches, by name: the one-thread-a-cell
-#: scatter of csrc/halo_blend.cu, or the slab unpack of csrc/pack.cu
+#: the kernels that blend_slab launches, by name: the slab unpack of
+#: csrc/pack.cu (or, in a tree before it, a one-thread-a-cell scatter)
 BLEND_KERNEL_NAMES = ("blend_slab_kernel<", "slab_rows_kernel<", "slab_cells_kernel<")
 
 
@@ -364,6 +379,54 @@ def zshell_times(dev) -> dict:
     return out
 
 
+def mean6_times(dev) -> dict:
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    ws = N + 6
+    block = _seeded((ws, ws, ws), 60, dev)
+    out = torch.empty_like(block)
+    plan = getattr(ps, "mean6_wavefront_launch", None)
+    res = {}
+    for m, s in ((3, 3), (8, 8)):
+        def call(m=m, s=s):
+            return ps.mean6_shell_wavefront_step(block, m, s, out=out)
+
+        prof, _ = _profile(call, 10)
+        res[f"m={m}"] = {"shape": [ws] * 3, "s": s, "device_ms": sum(prof.values()), "kernels": prof,
+                         "ms": _cuda_ms(call, inner=2),
+                         "bound_ms": (ws ** 3 + (ws - 2 * s) ** 3) * 4 / HBM_BYTES_PER_S * 1e3,
+                         "launch": None if plan is None else plan((ws, ws, ws), m, s)}
+    del block, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def blend_dynamic_times(dev) -> dict:
+    from stencil_tpu_torch.ops.halo_blend import blend_slab_dynamic
+
+    half = N // 2
+    out = {}
+    for tag, m in (("", 8), (" shell", 1)):  # the 511^3 wavefront's depth-8 halo; the shell route's
+        r = half + 2 * m
+        blocks = _seeded((8, r, r, r), 61, dev)
+        for axis in (0, 1, 2):
+            shape = [8, r, r, r]
+            shape[1 + axis] = m
+            slab = _seeded(shape, 62 + axis, dev)
+            last = [(b >> (2 - axis)) & 1 for b in range(8)]  # grid index on the axis, stack order
+            pos = torch.tensor([m + (half - 1 if i else half) for i in last], dtype=torch.int32, device=dev)
+
+            def kernel(slab=slab, axis=axis, pos=pos):
+                return blend_slab_dynamic(blocks, slab, axis, pos)
+
+            out[f"{axis}{tag}"] = {"slab": shape, "device_ms": sum(_profile(kernel, 20)[0].values()),
+                                   "ms": _cuda_ms(kernel),
+                                   "bound_ms": (2 * slab.numel() * 4 + 8 * 4) / HBM_BYTES_PER_S * 1e3}
+        del blocks
+        torch.cuda.empty_cache()
+    return out
+
+
 def direct_route(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
 
@@ -391,7 +454,8 @@ def main(argv=None) -> int:
     sections = {"jacobi_wrap": jacobi_wrap_times, "jacobi_wavefront": jacobi_wavefront_times,
                 "jacobi_plane": lambda dev: _onelevel_case(dev, "plane"),
                 "jacobi_slab": lambda dev: _onelevel_case(dev, "slab"), "wavefront": wavefront_times,
-                "blend": blend_times, "zshell": zshell_times, "direct": direct_route}
+                "blend": blend_times, "zshell": zshell_times, "mean6": mean6_times,
+                "blend_dynamic": blend_dynamic_times, "direct": direct_route}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

@@ -1,7 +1,7 @@
 // The Jacobi register-queue kernel for Hopper (sm_90a), bound to Python
 // through ctypes (stencil_tpu_torch/kernels/build.py,
-// stencil_tpu_torch/ops/jacobi_kernels.py).  One kernel body serves the five
-// TPU kernels it replaces:
+// stencil_tpu_torch/ops/jacobi_kernels.py, ops/plane_stencil.py).  One kernel
+// body serves the six TPU kernels it replaces:
 //
 //   stencil_tpu/ops/jacobi_pallas.py:983  jacobi_shell_wavefront_step
 //     m levels over an s-shelled (Xr, Yr, Zr) block; z columns [0, s) and
@@ -31,7 +31,12 @@
 //     at plane -1 / X reads the x face slabs xlo / xhi (n, Y, Z), at row
 //     -1 / Y the y slabs (n, X, Z) and at column -1 / Z the z slabs
 //     (n, X, Y) (kept (X, Y), not the TPU's transposed layout); apron
-//     corners, which one level never reads, load 0.
+//     corners, which one level never reads, load 0;
+//   stencil_tpu/ops/plane_stencil.py:20   mean6_shell_wavefront_step
+//     m <= s mean-of-6 levels over an s-shelled (Xr, Yr, Zr) block (form
+//     kMean6Form, exported as stp_mean6_march): kShell without the sphere
+//     clamp, compiled out, so no d2 and no origins are read; valid on the
+//     interior [s, ext - s), the only region written.
 //
 // Layout.  A block works on a "logical plane" of width W: the raw columns
 // (shell forms: W = z_valid) or low halo | interior | high halo (ring form:
@@ -145,17 +150,10 @@
 // non-negative modulo (skipped where the right side is <= 0: d2, a squared
 // distance, is never negative).  Offsets are 64-bit.
 //
-// The same file keeps the earlier design, instantiated only without the
-// clamp, for
-//
-//   stencil_tpu/ops/plane_stencil.py:20   mean6_shell_wavefront_step
-//     m <= s mean-of-6 levels over an s-shelled (Xr, Yr, Zr) block, valid on
-//     the interior [s, ext - s); exported as stp_mean6_wavefront.
-//
-// That design (`wavefront` below) loads each plane of a (32 + 2m) x 64 tile
-// into shared memory and computes level l over the tile shrunk by l with a
-// block barrier after each level: 2m + 1 planes, 208,896 B at m = 8 (m = 9
-// would need 243,200 B, so kMaxM = 8), one block an SM.
+// The mean-of-6 form is the Jacobi level without the clamp, summed in the
+// same order (plane_stencil.py:188-195): m <= 4 is one march, m in 5..8 two
+// through the scratch, as the shell form; so kMaxM = 8 is two marches of
+// kSubDepth, not a shared-memory limit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,27 +166,10 @@ constexpr float kCold = 0.0f;
 constexpr int kTileY = 32;  // == WAVEFRONT_TILE_Y in ops/jacobi_kernels.py
 constexpr int kTileW = 64;  // == WAVEFRONT_TILE_W: tile columns with the apron
 constexpr int kThreadsZ = 32;
-constexpr int kThreadsY = 16;
 constexpr int kRingOff = 128;  // == _ZRING_OFF
-// the deepest m a call takes (wavefront_smem_fits); the kernels are
-// instantiated for every depth up to it, so tile extents, loop counts and
-// the queue are compile-time and stay in registers
+// the deepest m a wavefront call takes: two marches of kSubDepth levels
 constexpr int kMaxM = 8;
 constexpr int kFar = 1 << 30;  // d2 of cells off the plane: inside no sphere
-
-struct Args {
-  const float* raw;     // (n, Xr, Yr, Zraw)
-  float* out;           // (n, Xr, Yr, Zraw)
-  const int* origins;   // (n, 3)
-  const int* d2;        // (n, Yr, d2_w)
-  const float* zs;      // (n, Xr, 2s, Yr) or null
-  float* zout;          // (n, Xr, 2s, Yr) or null
-  int Xr, Yr, Zraw;
-  int W;                // logical plane width
-  int m, s;             // levels, interior offset (shell width)
-  int d2_w;
-  int gx, hot_x, cold_x, in_r2;
-};
 
 __device__ __forceinline__ int pmod(int a, int n) {
   int r = a % n;
@@ -208,7 +189,7 @@ constexpr int kMinWaves = 4;    // waves of blocks the x chunking asks for where
 // in-plane offset from any tile cell stays inside the allocation
 constexpr int kQPad = kQCols + 4;
 
-enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2, kWrapForm = 3, kPlaneForm = 4, kSlabForm = 5 };
+enum Form { kRingForm = 0, kShellSlabs = 1, kShell = 2, kWrapForm = 3, kPlaneForm = 4, kSlabForm = 5, kMean6Form = 6 };
 
 __host__ __device__ constexpr bool has_slabs(int form) { return form == kRingForm || form == kShellSlabs; }
 
@@ -334,6 +315,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   constexpr int P = H * TW;
   constexpr int RI = H / kQWarps;       // consecutive rows a thread owns
   constexpr int CI = TW / kThreadsZ;    // columns a thread owns, 32 apart
+  constexpr bool kClamp = kForm != kMean6Form;  // the mean-of-6 form reads no d2 and no origins
   // plane of level L (< D) at march parity `par`
   auto plane = [&](int L, int par) -> float* { return smem + (L * 2 + par) * P; };
   const int s = a.s, o = a.o;
@@ -350,7 +332,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   const int c0 = o + blockIdx.x * TZ - D;
   const int Yr = a.Yr, W = a.W;
   const int64_t bx = (int64_t)b * a.Xr;
-  const int origin_x = kForm == kWrapForm ? 0 : a.origins[3 * b];
+  const int origin_x = kForm == kWrapForm || !kClamp ? 0 : a.origins[3 * b];
   const int tz0 = threadIdx.x, ty0 = threadIdx.y * RI;
   // the cells whose last level this thread writes: inside the tile's
   // level-D region and the march's output region (bit r * CI + q); and
@@ -359,7 +341,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   // row 0 / column 0 the first tile's, row Yr - 1 / column W - 1 the last's
   unsigned own = 0, ring = 0;
   int d2r[RI][CI];
-  const int* d2 = a.d2 + (int64_t)b * (kForm == kPlaneForm ? Yr - 2 : Yr) * a.d2_w;
+  const int* d2 = kClamp ? a.d2 + (int64_t)b * (kForm == kPlaneForm ? Yr - 2 : Yr) * a.d2_w : nullptr;
 #pragma unroll
   for (int r = 0; r < RI; ++r)
 #pragma unroll
@@ -374,7 +356,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
       } else if (ty >= D && ty < H - D && tz >= D && tz < TW - D && y0 + ty < Yr - o && c0 + tz < W - o) {
         own |= 1u << (r * CI + q);
       }
-      d2r[r][q] = load_d2<kForm>(a, d2, y0 + ty, c0 + tz);
+      if constexpr (kClamp) d2r[r][q] = load_d2<kForm>(a, d2, y0 + ty, c0 + tz);
     }
 
   // the wrap form's in-plane offsets of this thread's cells, row and column
@@ -447,10 +429,13 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
 #pragma unroll
     for (int l = 1; l <= D; ++l) {
       const int p = i - l;  // raw plane of this level's result
-      const int x_g = pmod(origin_x + a.gx + p - s, a.gx);
-      const int hot_lim = a.in_r2 - (x_g - a.hot_x) * (x_g - a.hot_x);
-      const int cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
-      const bool spheres = hot_lim > 0 || cold_lim > 0;
+      int hot_lim = 0, cold_lim = 0;
+      if constexpr (kClamp) {
+        const int x_g = pmod(origin_x + a.gx + p - s, a.gx);
+        hot_lim = a.in_r2 - (x_g - a.hot_x) * (x_g - a.hot_x);
+        cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
+      }
+      const bool spheres = kClamp && (hot_lim > 0 || cold_lim > 0);
       const float* below = plane(l - 1, rp);  // level l-1, plane i-l
       float res[RI][CI];
 #pragma unroll
@@ -576,6 +561,7 @@ int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t
   if (form == kWrapForm) return march<D, kWrapForm, false, false>(a, n, st, pl);  // buffer to buffer
   if (form == kRingForm) return march_io<D, kRingForm>(a, n, from, to, st, pl);
   if (form == kShellSlabs) return march_io<D, kShellSlabs>(a, n, from, to, st, pl);
+  if (form == kMean6Form) return march_io<D, kMean6Form>(a, n, from, to, st, pl);
   return march_io<D, kShell>(a, n, from, to, st, pl);
 }
 
@@ -666,182 +652,50 @@ bool bad_jacobi_args(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int g
          gx < 1 || (ring && !slabs) || (ring ? W != Zraw + 2 * s || 2 * s > kRingOff : W > Zraw);
 }
 
-// --- the earlier design, kept for mean6_shell_wavefront_step ------------------
-
-template <int M, bool kRing, bool kSlabs, bool kClamp = true>
-__global__ void __launch_bounds__(kThreadsZ * kThreadsY) wavefront(Args a) {
-  extern __shared__ float smem[];
-  constexpr int m = M;
-  constexpr int H = kTileY + 2 * m;
-  constexpr int TW = kTileW;
-  constexpr int TZ = kTileW - 2 * m;  // output columns per tile
-  constexpr int P = H * TW;
-  // a thread's cells of the tile: rows ty0 + r*kThreadsY, columns tz0 + q*kThreadsZ
-  constexpr int kRowIters = (H + kThreadsY - 1) / kThreadsY;
-  constexpr int kColIters = (TW + kThreadsZ - 1) / kThreadsZ;
-  const int s = a.s;
-  int* d2t = reinterpret_cast<int*>(smem);
-  float* pool = kClamp ? smem + P : smem;  // 2m + 1 planes
-  const int b = blockIdx.z;
-  // logical (row, column) of tile cell (0, 0); >= 0 since s >= m
-  const int y0 = s + blockIdx.y * kTileY - m;
-  const int c0 = s + blockIdx.x * TZ - m;
-  const int col_off = kRing ? s : 0;
-  const int Yr = a.Yr, W = a.W;
-  const int64_t plane = (int64_t)Yr * a.Zraw;
-  const float* __restrict__ raw = a.raw + (int64_t)b * a.Xr * plane;
-  float* __restrict__ out = a.out + (int64_t)b * a.Xr * plane;
-  const int64_t zplane = (int64_t)2 * s * Yr;
-  const float* __restrict__ zs = kSlabs ? a.zs + (int64_t)b * a.Xr * zplane : nullptr;
-  float* __restrict__ zout = kSlabs ? a.zout + (int64_t)b * a.Xr * zplane : nullptr;
-  const int origin_x = kClamp ? a.origins[3 * b] : 0;
-  const int tz0 = threadIdx.x, ty0 = threadIdx.y;
-
-  // the block's d2 tile, in the layout the wrapper was given
-  if constexpr (kClamp) {
-    const int* d2 = a.d2 + (int64_t)b * Yr * a.d2_w;
-    for (int ty = ty0; ty < H; ty += kThreadsY) {
-      for (int tz = tz0; tz < TW; tz += kThreadsZ) {
-        const int y = y0 + ty, c = c0 + tz;
-        int v = kFar;
-        if (y < Yr && c < W) {
-          int col = c;
-          if (kRing) col = c < W - s ? c - s + kRingOff : c - (W - s);
-          v = d2[(int64_t)y * a.d2_w + col];
-        }
-        d2t[ty * TW + tz] = v;
-      }
-    }
-  }
-
-  // level-0 plane i of this thread's tile cells, into registers: issued one
-  // plane ahead, so the loads fly while the levels of the plane before run
-  float pre[kRowIters][kColIters];
-  auto fetch = [&](int i) {
-    const int64_t xo = (int64_t)i * plane;
-#pragma unroll
-    for (int r = 0; r < kRowIters; ++r) {
-#pragma unroll
-      for (int q = 0; q < kColIters; ++q) {
-        const int ty = ty0 + r * kThreadsY, tz = tz0 + q * kThreadsZ;
-        const int y = y0 + ty, c = c0 + tz;
-        float v = 0.0f;
-        if (ty < H && tz < TW && y < Yr && c < W) {
-          if (kSlabs && c < s) {
-            v = zs[i * zplane + (int64_t)c * Yr + y];
-          } else if (kSlabs && c >= W - s) {
-            v = zs[i * zplane + (int64_t)(s + c - (W - s)) * Yr + y];
-          } else {
-            v = raw[xo + (int64_t)y * a.Zraw + (c - col_off)];
-          }
-        }
-        pre[r][q] = v;
-      }
-    }
-  };
-
-  // slot bookkeeping (the same in every thread): older[l] / newer[l] hold
-  // the two most recent level-l planes, free the slot the next load fills
-  int older[m], newer[m];
-#pragma unroll
-  for (int l = 0; l < m; ++l) {
-    older[l] = 2 * l;
-    newer[l] = 2 * l + 1;
-  }
-  int free_slot = 2 * m;
-
-  // output plane p = i - m needs level-0 planes p-m .. p+m: start where the
-  // first interior plane s can be produced, stop after the last one
-  const int i0 = s - m;
-  const int i_end = a.Xr - s + m;
-  fetch(i0);
-  for (int i = i0; i < i_end; ++i) {
-    float* in = pool + free_slot * P;
-#pragma unroll
-    for (int r = 0; r < kRowIters; ++r) {
-#pragma unroll
-      for (int q = 0; q < kColIters; ++q) {
-        const int ty = ty0 + r * kThreadsY, tz = tz0 + q * kThreadsZ;
-        if (ty < H && tz < TW) in[ty * TW + tz] = pre[r][q];
-      }
-    }
-    __syncthreads();
-    if (i + 1 < i_end) fetch(i + 1);
-    int cur = free_slot;  // the level-(l-1) plane i-l+1
-#pragma unroll
-    for (int l = 1; l <= m; ++l) {
-      // three distinct slots: the compiler may batch their loads
-      float* __restrict__ prev = pool + older[l - 1] * P;  // level l-1, plane i-l-1
-      const float* __restrict__ cent = pool + newer[l - 1] * P;  // plane i-l
-      const float* __restrict__ next = pool + cur * P;  // plane i-l+1
-      const int p = i - l;  // raw plane of this level's result
-      int hot_lim = 0, cold_lim = 0;
-      bool spheres = false;
-      if constexpr (kClamp) {
-        const int x_g = pmod(origin_x + a.gx + p - s, a.gx);
-        hot_lim = a.in_r2 - (x_g - a.hot_x) * (x_g - a.hot_x);
-        cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
-        spheres = hot_lim > 0 || cold_lim > 0;
-      }
-      const bool last = l == m;
-#pragma unroll
-      for (int r = 0; r < kRowIters; ++r) {
-#pragma unroll
-        for (int q = 0; q < kColIters; ++q) {
-          const int ty = ty0 + l + r * kThreadsY, tz = tz0 + l + q * kThreadsZ;
-          if (ty >= H - l || tz >= TW - l) continue;
-          const int k = ty * TW + tz;
-          float sum = prev[k] + next[k];  // x-1, x+1
-          sum = sum + cent[k - TW];       // y-1
-          sum = sum + cent[k + TW];       // y+1
-          sum = sum + cent[k - 1];        // z-1
-          sum = sum + cent[k + 1];        // z+1
-          float v = sum * kSixth;
-          if (kClamp && spheres) {  // d2 >= 0: no clamp can fire on this plane otherwise
-            const int d = d2t[k];
-            if (d < hot_lim) v = kHot;
-            if (d < cold_lim) v = kCold;
-          }
-          if (!last) {
-            prev[k] = v;  // this thread read prev only at k, just above
-            continue;
-          }
-          const int y = y0 + ty, c = c0 + tz;
-          if (p < s || y >= Yr - s || c >= W - s) continue;
-          out[(int64_t)p * plane + (int64_t)y * a.Zraw + (c - col_off)] = v;
-          if (kSlabs) {
-            // rows [0, s): top interior columns (the -z-bound message);
-            // rows [s, 2s): bottom interior columns (+z-bound)
-            if (c >= W - 2 * s) zout[p * zplane + (int64_t)(c - (W - 2 * s)) * Yr + y] = v;
-            if (c < 2 * s) zout[p * zplane + (int64_t)c * Yr + y] = v;
-          }
-        }
-      }
-      __syncthreads();
-      // level l-1 slides by one plane; the overwritten slot now holds level
-      // l's plane i-l (or, at l == m, nothing anyone reads)
-      const int written = older[l - 1];
-      older[l - 1] = newer[l - 1];
-      newer[l - 1] = cur;
-      cur = written;
-    }
-    free_slot = cur;
-  }
+// m levels in one form (a.o == a.s): one march, or two through the scratch
+// (n, Xr, Yr, W), the first writing the region the second reads: [s - d2,
+// ext - s + d2), d2 the second march's depth
+int run_levels(QArgs a, int n, int m, int form, float* scratch, cudaStream_t st) {
+  const int d1 = first_depth(m), d2_depth = m - d1;
+  if (d2_depth == 0) return run_march(a, n, m, form, false, false, st, nullptr);
+  if (scratch == nullptr) return -1;
+  a.o = a.s - d2_depth;
+  a.dst = scratch;
+  const int rc = run_march(a, n, d1, form, false, true, st, nullptr);
+  if (rc != 0) return rc;
+  a.o = a.s;
+  a.dst = nullptr;
+  a.src = scratch;
+  return run_march(a, n, d2_depth, form, true, false, st, nullptr);
 }
 
-template <int M, bool kRing, bool kSlabs, bool kClamp = true>
-int launch(const Args& a, int n, cudaStream_t stream) {
-  constexpr int TZ = kTileW - 2 * M;
-  constexpr size_t smem = (size_t)(kClamp ? 2 * M + 2 : 2 * M + 1) * (kTileY + 2 * M) * kTileW * 4;
-  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kRing, kSlabs, kClamp>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int interior_y = a.Yr - 2 * a.s, interior_z = a.W - 2 * a.s;
-  dim3 grid((interior_z + TZ - 1) / TZ, (interior_y + kTileY - 1) / kTileY, n);
-  wavefront<M, kRing, kSlabs, kClamp><<<grid, dim3(kThreadsZ, kThreadsY), smem, stream>>>(a);
-  return (int)cudaGetLastError();
+// The launches run_levels makes, into info[11]: kernel launches (marches),
+// the first march's depth, and that march's blocks an SM, SMs, blocks, x
+// chunk, chunks, shared memory bytes, threads a block and tiles along z and y
+int levels_plan(QArgs a, int n, int m, int form, int* info) {
+  const int d1 = first_depth(m);
+  a.o = a.s - (m - d1);
+  Plan pl;
+  const int rc = run_march(a, n, d1, form, false, d1 < m, nullptr, &pl);
+  if (rc != 0) return rc;
+  const int w[11] = {d1 < m ? 2 : 1, d1, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks,
+                     pl.smem, pl.threads, pl.tiles_z, pl.tiles_y};
+  for (int j = 0; j < 11; ++j) info[j] = w[j];
+  return 0;
 }
 
+// The mean-of-6 form's arguments: the shell form's layout (W = Zr, o = s),
+// no d2, origins or slabs
+QArgs mean6_args(const float* raw, float* out, int Xr, int Yr, int Zr, int s) {
+  QArgs a{};
+  a.raw = raw;
+  a.out = out;
+  a.Xr = Xr;
+  a.Yr = Yr;
+  a.Zraw = a.W = Zr;
+  a.s = a.o = s;
+  return a;
+}
 
 }  // namespace
 
@@ -859,22 +713,10 @@ int stp_jacobi_wavefront(const float* raw, float* out, const int* origins, const
   if ((zs == nullptr) != (zout == nullptr) ||
       bad_jacobi_args(n, Xr, Yr, Zraw, W, m, s, gx, ring, zs != nullptr))
     return -1;
-  const int d1 = first_depth(m), d2_depth = m - d1;
-  if (d2_depth > 0 && scratch == nullptr) return -1;
   const int form = ring ? kRingForm : (zs != nullptr ? kShellSlabs : kShell);
   QArgs a{raw, out, origins, d2, zs, zout, nullptr, nullptr, Xr, Yr, Zraw, W, s, s, d2_w,
           gx, hot_x, cold_x, in_r2, 0, 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (d2_depth == 0) return run_march(a, n, m, form, false, false, st, nullptr);
-  // the first march writes the region the second reads: [s - d2, ext - s + d2)
-  a.o = s - d2_depth;
-  a.dst = scratch;
-  const int rc = run_march(a, n, d1, form, false, true, st, nullptr);
-  if (rc != 0) return rc;
-  a.o = s;
-  a.dst = nullptr;
-  a.src = scratch;
-  return run_march(a, n, d2_depth, form, true, false, st, nullptr);
+  return run_levels(a, n, m, form, scratch, (cudaStream_t)stream);
 }
 
 // The launches stp_jacobi_wavefront makes for these arguments, into
@@ -885,44 +727,35 @@ int stp_jacobi_wavefront(const float* raw, float* out, const int* origins, const
 int stp_jacobi_wavefront_plan(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int ring, int slabs,
                               int* info) {
   if (bad_jacobi_args(n, Xr, Yr, Zraw, W, m, s, 1, ring, slabs)) return -1;
-  const int d1 = first_depth(m);
-  const int form = ring ? kRingForm : (slabs ? kShellSlabs : kShell);
   QArgs a{};
   a.Xr = Xr;
   a.Yr = Yr;
   a.Zraw = Zraw;
   a.W = W;
   a.s = s;
-  a.o = s - (m - d1);
-  Plan pl;
-  const int rc = run_march(a, n, d1, form, false, d1 < m, nullptr, &pl);
-  if (rc != 0) return rc;
-  const int w[12] = {form, d1 < m ? 2 : 1, d1, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk,
-                     pl.nchunks, pl.smem, pl.threads, pl.tiles_z, pl.tiles_y};
-  for (int j = 0; j < 12; ++j) info[j] = w[j];
-  return 0;
+  info[0] = ring ? kRingForm : (slabs ? kShellSlabs : kShell);
+  return levels_plan(a, n, m, info[0], info + 1);
 }
 
-// m mean-of-6 levels over n s-shelled blocks (Xr, Yr, Zr): only the interior
-// [s, ext - s) of `out` is written.  Returns a CUDA error code, or -1 for
-// arguments the kernel does not take.
-int stp_mean6_wavefront(const float* raw, float* out, int n, int Xr, int Yr, int Zr, int m, int s,
-                        void* stream) {
-  if (m < 1 || m > kMaxM || m > s || n < 1 || n > 65535 || 2 * s >= Xr || 2 * s >= Yr ||
-      2 * s >= Zr)
-    return -1;
-  Args a{raw, out, nullptr, nullptr, nullptr, nullptr, Xr, Yr, Zr, Zr, m, s, 0, 1, 0, 0, 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (m) {
-    case 1: return launch<1, false, false, false>(a, n, st);
-    case 2: return launch<2, false, false, false>(a, n, st);
-    case 3: return launch<3, false, false, false>(a, n, st);
-    case 4: return launch<4, false, false, false>(a, n, st);
-    case 5: return launch<5, false, false, false>(a, n, st);
-    case 6: return launch<6, false, false, false>(a, n, st);
-    case 7: return launch<7, false, false, false>(a, n, st);
-    default: return launch<kMaxM, false, false, false>(a, n, st);
-  }
+// m <= s mean-of-6 levels over n s-shelled blocks (n, Xr, Yr, Zr), `raw` to
+// `out` (apart): only the interior [s, ext - s) of `out` is written.
+// scratch: an (n, Xr, Yr, Zr) f32 buffer, required where m needs two marches
+// (stp_mean6_march_plan's launches), else ignored.  Returns a CUDA error
+// code, or -1 for arguments the kernel does not take.
+int stp_mean6_march(const float* raw, float* out, float* scratch, int n, int Xr, int Yr, int Zr, int m, int s,
+                    void* stream) {
+  if (bad_jacobi_args(n, Xr, Yr, Zr, Zr, m, s, 1, false, false) || raw == out) return -1;
+  if (scratch != nullptr && (scratch == raw || scratch == out)) return -1;
+  return run_levels(mean6_args(raw, out, Xr, Yr, Zr, s), n, m, kMean6Form, scratch, (cudaStream_t)stream);
+}
+
+// The launches stp_mean6_march makes for these arguments, into info[11]:
+// kernel launches a call (marches), the first march's depth, and that
+// march's blocks an SM, SMs, blocks, x chunk, chunks, shared memory bytes,
+// threads a block and tiles along z and y.  Returns what the launch would.
+int stp_mean6_march_plan(int n, int Xr, int Yr, int Zr, int m, int s, int* info) {
+  if (bad_jacobi_args(n, Xr, Yr, Zr, Zr, m, s, 1, false, false)) return -1;
+  return levels_plan(mean6_args(nullptr, nullptr, Xr, Yr, Zr, s), n, m, kMean6Form, info);
 }
 
 // k periodic Jacobi levels over the whole (X, Y, Z) domain, `in` to `out`

@@ -27,6 +27,24 @@
 // slabs go through the row kernel (rows of Z cells) and the z slab through
 // the cell kernel, as the slab unpack's faces do.
 //
+//   stp_blend_slab_dynamic_desc  replaces stencil_tpu/ops/halo_blend.py:179
+//                         blend_slab_dynamic: block[b, p_b + i, j, k] = slab[b, i, j, k]
+//                         (axis 0; y and z alike), p_b = clamp(pos[b], 0, ext - r)
+//
+// is the same write with one offset a block, known only on the device
+// (pos, n int32 values), which is where the +axis halo of a padded (uneven)
+// axis lands: right after the block's own valid cells.  Its box is the static
+// write's at position 0 (DynGeom): a box row's first coordinate i is the
+// block itself on x, b * X + x on y and z, so a row (the cell kernel: a cell)
+// reads pos[i / X] once and moves by p_b times the axis stride, Y * Z, Z or
+// 1.  On the z face, whose rows are a few cells, that read is not what the
+// time goes to: reading it once a stage instead moved nothing (PERF.md).  An
+// offset outside [0, ext - r] is clamped into it, as lax.dynamic_update_slice
+// clamps, and the wrapper reads no offset back, so a call never
+// synchronizes.  It takes axis 0 as well: the JAX package
+// writes the x halo with a dynamic_update_slice, but a sub-view of the
+// port's (n, X, Y, Z) stack is not contiguous.
+//
 // The shell packs of the packed exchange routes each take n blocks
 // (n, X, Y, Z) and a window of `depth` cells starting at `start` on one axis:
 //
@@ -55,19 +73,21 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kUnroll = 4;  // loads in flight per lane in the cell kernel
 constexpr int64_t kMaxBlocks = 132 * 32;
 
-// --- The descriptor entries: both slab packs, both shell pairs, blend_slab ----
+// --- The descriptor entries: both slab packs, both shell pairs, both blends ---
 //
 // pallas_pack_slab, pallas_unpack_slab, the z- and y-shell packs and unpacks,
-// and blend_slab.  Each entry takes the address of a host
+// blend_slab and blend_slab_dynamic.  Each entry takes the address of a host
 // array of int64 fields that the wrapper builds once per geometry and caches
-// (ops/pack.py, ops/halo_blend.py), the two data pointers and the stream:
-// four arguments, so that the call costs no more host time than a PyTorch
-// copy.  The fields are read here, on the host, and reach the kernel by value;
+// (ops/pack.py, ops/halo_blend.py), the two data pointers (and the dynamic
+// write's offsets) and the stream: four arguments, or five, so that the call
+// costs no more host time than a PyTorch copy.  The fields are read here, on the host, and reach the kernel by value;
 // the pointers' alignment is read per call, never cached.  A pack and an unpack of one geometry share a
 // descriptor, and each pair shares its kernels, templated on the direction.
 //
@@ -212,16 +232,41 @@ struct SlabGeom {
   }
 };
 
+// The dynamic write's box: SlabGeom at position 0, and each box row i moved
+// along the axis by its block's clamped offset (blend_slab_dynamic).
+struct DynGeom : SlabGeom {
+  const int* pos;  // n offsets, on the device
+  int64_t stride;  // block cells an offset step moves: Y * Z, Z or 1
+  int64_t top;     // ext - r, the largest offset
+  FastDiv by_x;    // box row -> block: by 1 on x, by X on y and z
+  __device__ __forceinline__ int64_t shift(uint32_t i) const {
+    const int64_t p = pos[by_x.div(i)];
+    return (p < 0 ? 0 : (p > top ? top : p)) * stride;
+  }
+  __device__ __forceinline__ int64_t at(uint32_t cell) const {
+    const uint32_t row = by_ez.div(cell);
+    const uint32_t i = by_ey.div(row);
+    return SlabGeom::at(cell) + shift(i);
+  }
+};
+
+// The geometry of the slab kernels: SlabGeom, or DynGeom for the dynamic write
+template <bool kDynamic>
+using Geom = typename std::conditional<kDynamic, DynGeom, SlabGeom>::type;
+
 // kPack: block -> slab; otherwise slab -> block.  kTag only names a launch
-// apart in a profile: -1 for the slab packs, the axis for blend_slab.
-template <typename T, bool kPack, int kTag>
-__global__ void slab_rows_kernel(T* __restrict__ block, T* __restrict__ slab, SlabGeom g) {
+// apart in a profile: -1 for the slab packs, the axis for blend_slab and
+// blend_slab_dynamic.  kDynamic: each row moved by its block's offset.
+template <typename T, bool kPack, int kTag, bool kDynamic = false>
+__global__ void slab_rows_kernel(T* __restrict__ block, T* __restrict__ slab, Geom<kDynamic> g) {
   const int lane = threadIdx.x & 31;
   const int bytes = (int)(g.ez * sizeof(T));
   for (uint32_t row = blockIdx.x * kRowWarps + (threadIdx.x >> 5); row < g.rows; row += gridDim.x * kRowWarps) {
     const uint32_t i = g.by_ey.div(row);
     const uint32_t j = row - i * g.ey;
-    char* in_block = reinterpret_cast<char*>(block + g.base + ((int64_t)i * g.Y + j) * g.Z);
+    int64_t at = g.base + ((int64_t)i * g.Y + j) * g.Z;
+    if constexpr (kDynamic) at += g.shift(i);
+    char* in_block = reinterpret_cast<char*>(block + at);
     char* in_slab = reinterpret_cast<char*>(slab + (int64_t)row * g.ez);
     if (kPack) {
       warp_copy_row<T>(in_slab, in_block, bytes, lane);
@@ -231,9 +276,9 @@ __global__ void slab_rows_kernel(T* __restrict__ block, T* __restrict__ slab, Sl
   }
 }
 
-template <typename T, bool kPack, int kTag>
+template <typename T, bool kPack, int kTag, bool kDynamic = false>
 __global__ void __launch_bounds__(kCellThreads)
-    slab_cells_kernel(T* __restrict__ block, T* __restrict__ slab, SlabGeom g, int vec) {
+    slab_cells_kernel(T* __restrict__ block, T* __restrict__ slab, Geom<kDynamic> g, int vec) {
   constexpr int kCells = kStageBytes / (int)sizeof(T);  // cells a block stages
   constexpr int kVecs = kStageBytes / 16 / kCellThreads;
   constexpr int kPer = kCells / kCellThreads;
@@ -304,20 +349,20 @@ __global__ void __launch_bounds__(kCellThreads)
   }
 }
 
-template <typename T, bool kPack, int kTag = -1>
-int launch_slab(const SlabGeom& g, void* block, void* slab, cudaStream_t stream) {
+template <typename T, bool kPack, int kTag = -1, bool kDynamic = false>
+int launch_slab(const Geom<kDynamic>& g, void* block, void* slab, cudaStream_t stream) {
   T* bl = (T*)block;
   T* sl = (T*)slab;
   if ((int64_t)g.ez * (int64_t)sizeof(T) >= kRowBytes) {
     int64_t blocks = ((int64_t)g.rows + kRowWarps - 1) / kRowWarps;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    slab_rows_kernel<T, kPack, kTag><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
+    slab_rows_kernel<T, kPack, kTag, kDynamic><<<(unsigned)blocks, kRowWarps * 32, 0, stream>>>(bl, sl, g);
   } else {
     constexpr int64_t kCells = kStageBytes / sizeof(T);
     int64_t blocks = ((int64_t)g.total + kCells - 1) / kCells;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     const int vec = (reinterpret_cast<uintptr_t>(slab) & 15) == 0;
-    slab_cells_kernel<T, kPack, kTag><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
+    slab_cells_kernel<T, kPack, kTag, kDynamic><<<(unsigned)blocks, kCellThreads, 0, stream>>>(bl, sl, g, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -344,13 +389,13 @@ int slab_geom(int64_t X, int64_t Y, int64_t Z, int64_t px, int64_t py, int64_t p
   return 0;
 }
 
-template <bool kPack, int kTag>
-int launch_slab_sized(int64_t itemsize, const SlabGeom& g, void* block, void* slab, cudaStream_t s) {
+template <bool kPack, int kTag, bool kDynamic = false>
+int launch_slab_sized(int64_t itemsize, const Geom<kDynamic>& g, void* block, void* slab, cudaStream_t s) {
   switch (itemsize) {
-    case 1: return launch_slab<uint8_t, kPack, kTag>(g, block, slab, s);
-    case 2: return launch_slab<uint16_t, kPack, kTag>(g, block, slab, s);
-    case 4: return launch_slab<uint32_t, kPack, kTag>(g, block, slab, s);
-    case 8: return launch_slab<uint64_t, kPack, kTag>(g, block, slab, s);
+    case 1: return launch_slab<uint8_t, kPack, kTag, kDynamic>(g, block, slab, s);
+    case 2: return launch_slab<uint16_t, kPack, kTag, kDynamic>(g, block, slab, s);
+    case 4: return launch_slab<uint32_t, kPack, kTag, kDynamic>(g, block, slab, s);
+    case 8: return launch_slab<uint64_t, kPack, kTag, kDynamic>(g, block, slab, s);
     default: return -1;
   }
 }
@@ -364,29 +409,48 @@ int slab_desc(const int64_t* desc, void* block, void* slab, void* stream) {
   return launch_slab_sized<kPack, -1>(desc[0], g, block, slab, (cudaStream_t)stream);
 }
 
-// desc: itemsize, n, X, Y, Z, axis, r, pos (ops/halo_blend.py BLEND_DESC_FIELDS):
-// the n blocks as one block and the slab as a box in it (see the top).
-int blend_desc(const int64_t* desc, void* block, void* slab, void* stream) {
-  const int64_t itemsize = desc[0], n = desc[1], X = desc[2], Y = desc[3], Z = desc[4];
-  const int64_t axis = desc[5], r = desc[6], pos = desc[7];
+// The box of a blend: the n blocks (n, X, Y, Z) as one block and the slab of
+// width r at `pos` on `axis` as a box in it (see the top); -1, 1 or 0 as
+// slab_geom.
+int blend_geom(int64_t n, int64_t X, int64_t Y, int64_t Z, int64_t axis, int64_t r, int64_t pos, SlabGeom* g) {
   const int64_t ext = axis == 0 ? X : (axis == 1 ? Y : Z);
   if (n < 0 || X < 0 || Y < 0 || Z < 0 || axis < 0 || axis > 2 || r < 0 || pos < 0 || pos + r > ext) return -1;
-  SlabGeom g;
-  int rc;
-  if (axis == 0) {
-    rc = slab_geom(n, X * Y, Z, 0, pos * Y, 0, n, r * Y, Z, &g);
-  } else if (axis == 1) {
-    rc = slab_geom(n * X, Y, Z, 0, pos, 0, n * X, r, Z, &g);
-  } else {
-    rc = slab_geom(n * X, Y, Z, 0, 0, pos, n * X, Y, r, &g);
-  }
-  if (rc != 0) return rc < 0 ? -1 : 0;
+  if (axis == 0) return slab_geom(n, X * Y, Z, 0, pos * Y, 0, n, r * Y, Z, g);
+  if (axis == 1) return slab_geom(n * X, Y, Z, 0, pos, 0, n * X, r, Z, g);
+  return slab_geom(n * X, Y, Z, 0, 0, pos, n * X, Y, r, g);
+}
+
+template <bool kDynamic>
+int launch_blend(int64_t itemsize, int64_t axis, const Geom<kDynamic>& g, void* block, void* slab, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (axis) {
-    case 0: return launch_slab_sized<false, 0>(itemsize, g, block, slab, s);
-    case 1: return launch_slab_sized<false, 1>(itemsize, g, block, slab, s);
-    default: return launch_slab_sized<false, 2>(itemsize, g, block, slab, s);
+    case 0: return launch_slab_sized<false, 0, kDynamic>(itemsize, g, block, slab, s);
+    case 1: return launch_slab_sized<false, 1, kDynamic>(itemsize, g, block, slab, s);
+    default: return launch_slab_sized<false, 2, kDynamic>(itemsize, g, block, slab, s);
   }
+}
+
+// desc: itemsize, n, X, Y, Z, axis, r, pos (ops/halo_blend.py BLEND_DESC_FIELDS)
+int blend_desc(const int64_t* desc, void* block, void* slab, void* stream) {
+  SlabGeom g;
+  const int rc = blend_geom(desc[1], desc[2], desc[3], desc[4], desc[5], desc[6], desc[7], &g);
+  if (rc != 0) return rc < 0 ? -1 : 0;
+  return launch_blend<false>(desc[0], desc[5], g, block, slab, stream);
+}
+
+// desc: itemsize, n, X, Y, Z, axis, r (ops/halo_blend.py BLEND_DYN_DESC_FIELDS);
+// pos: n int32 offsets on the device
+int blend_dynamic_desc(const int64_t* desc, void* block, void* slab, const int* pos, void* stream) {
+  const int64_t n = desc[1], X = desc[2], Y = desc[3], Z = desc[4], axis = desc[5], r = desc[6];
+  DynGeom g;
+  const int rc = blend_geom(n, X, Y, Z, axis, r, 0, &g);
+  if (rc != 0) return rc < 0 ? -1 : 0;
+  if (pos == nullptr) return -1;
+  g.pos = pos;
+  g.stride = axis == 0 ? Y * Z : (axis == 1 ? Z : 1);
+  g.top = (axis == 0 ? X : (axis == 1 ? Y : Z)) - r;
+  g.by_x.init(axis == 0 ? 1u : (uint32_t)X);
+  return launch_blend<true>(desc[0], axis, g, block, slab, stream);
 }
 
 // The y-shell window: strides, the window, rows (b, k, x) and divisions by X
@@ -634,6 +698,10 @@ int stp_unpack_slab_desc(const int64_t* desc, void* block, const void* slab, voi
 
 int stp_blend_slab_desc(const int64_t* desc, void* block, const void* slab, void* stream) {
   return blend_desc(desc, block, const_cast<void*>(slab), stream);
+}
+
+int stp_blend_slab_dynamic_desc(const int64_t* desc, void* block, const void* slab, const int* pos, void* stream) {
+  return blend_dynamic_desc(desc, block, const_cast<void*>(slab), pos, stream);
 }
 
 int stp_pack_zshell_desc(const int64_t* desc, const void* block, void* buf, void* stream) {

@@ -42,14 +42,10 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_int64
 
 #: exported C functions per source, with their argument types (every pointer
 #: and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "halo_blend": {
-        "stp_blend_slab_dynamic": [_P, _P, _P, _I, _L, _L, _L, _L, _I, _L, _P],
-    },
     "jacobi_wavefront": {
         "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
         "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
@@ -59,7 +55,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "stp_jacobi_plane_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
         "stp_jacobi_slab": [_P] * 10 + [_I] * 8 + [_P],
         "stp_jacobi_slab_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
-        "stp_mean6_wavefront": [_P, _P] + [_I] * 6 + [_P],
+        "stp_mean6_march": [_P] * 3 + [_I] * 6 + [_P],
+        "stp_mean6_march_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     },
     "pack": {
         # descriptor entries: the address of a cached int64 descriptor, two
@@ -67,6 +64,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         **{fn: [_P] * 4 for fn in ("stp_pack_slab_desc", "stp_unpack_slab_desc", "stp_pack_zshell_desc",
                                    "stp_unpack_zshell_desc", "stp_pack_yshell_desc", "stp_unpack_yshell_desc",
                                    "stp_blend_slab_desc")},
+        # and the dynamic write's offsets (n int32 on the device) before the stream
+        "stp_blend_slab_dynamic_desc": [_P] * 5,
     },
     "plane_stencil": {
         "stp_mean6_plane_level": [_P, _P] + [_I] * 9 + [_P],

@@ -88,7 +88,7 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
     (_HB, "blend_slab_dynamic"): _ported(
         "stencil_tpu_torch.ops.halo_blend:blend_slab_dynamic",
         "stencil_tpu_torch.ops.halo_blend:blend_slab_dynamic_plain",
-        "stencil_tpu_torch/csrc/halo_blend.cu",
+        "stencil_tpu_torch/csrc/pack.cu",
         f"{_HB}:179",
     ),
     **{

@@ -6,17 +6,17 @@ is a Pallas kernel that keeps a thin halo write tile-local under the (8,128)
 layout.  The port keeps what it computes: write ``slab`` into ``block`` at
 offset ``pos`` along ``axis``, in place.  ``blend_slab_dynamic`` is the same
 write at a run-time offset per block (the +axis halo of an uneven axis).  On a
-CUDA tensor each is a hand-written kernel: ``blend_slab`` the slab unpack of
-``csrc/pack.cu`` (the n blocks as one block, the slab as a box in it),
-``blend_slab_dynamic`` ``csrc/halo_blend.cu``; on a CPU tensor each is the
-plain version, a copy into the narrowed view.
+CUDA tensor each is the slab unpack of ``csrc/pack.cu`` (the n blocks as one
+block, the slab as a box in it; the dynamic write moves each block's rows by
+its offset, read on the device); on a CPU tensor each is the plain version, a
+copy into the narrowed view.
 
-``blend_slab`` launches through a cached descriptor, as the slab packs of
-``ops/pack.py`` do: a geometry (block shape, dtype, axis, slab width and
+Both launch through a cached descriptor, as the slab packs of ``ops/pack.py``
+do: a geometry (block shape, dtype, axis, slab width and, for ``blend_slab``,
 position) is checked once and its int64 descriptor cached, and a call then
-checks the tensors, passes the descriptor's address, the two data pointers
-and the raw stream to a 4-argument C entry, and costs about what a PyTorch
-copy costs on the host.
+checks the tensors, passes the descriptor's address, the data pointers (and
+the offsets') and the raw stream to the C entry, and costs about what a
+PyTorch copy costs on the host.
 
 All take a single block ``(X, Y, Z)`` or ``n`` blocks ``(n, X, Y, Z)`` with
 slabs of matching rank; one launch serves all ``n`` blocks.
@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device, stream_handle
+from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device
 
 
 def supports(dtype: torch.dtype) -> bool:
@@ -68,16 +68,22 @@ def blend_slab_plain(block: torch.Tensor, slab: torch.Tensor, axis: int, pos: in
 #: ``stp_blend_slab_desc`` of ``csrc/pack.cu`` reads them
 BLEND_DESC_FIELDS = ("itemsize", "n", "X", "Y", "Z", "axis", "r", "pos")
 
+#: the int64 fields of a ``blend_slab_dynamic`` descriptor, in the order the C
+#: entry ``stp_blend_slab_dynamic_desc`` reads them (the offsets come apart)
+BLEND_DYN_DESC_FIELDS = ("itemsize", "n", "X", "Y", "Z", "axis", "r")
+
 _BLEND_LAUNCHES: dict = {}
-_ENTRY = None
+_BLEND_DYN_LAUNCHES: dict = {}
+_ENTRIES: dict = {}
 
 
-def _blend_launch(block: torch.Tensor, axis: int, r: int, pos: int):
-    """The cached launch of ``blend_slab`` for this geometry: ``(descriptor,
-    its address, slab shape)``.  A geometry is checked before it is cached."""
-    key = (block.shape, block.dtype, axis, r, pos)
+def _blend_geometry(cache: dict, block: torch.Tensor, axis: int, r: int, pos):
+    """The cached launch of a blend for this geometry: ``(descriptor, its
+    address, slab shape)``; ``pos`` None is the dynamic write's, whose
+    descriptor has no position.  A geometry is checked before it is cached."""
+    key = (block.shape, block.dtype, axis, r) + (() if pos is None else (pos,))
     try:
-        return _BLEND_LAUNCHES[key]
+        return cache[key]
     except (KeyError, TypeError):
         pass
     check_tensor(block, "block", ndims=(3, 4))
@@ -87,7 +93,7 @@ def _blend_launch(block: torch.Tensor, axis: int, r: int, pos: int):
         raise ValueError(f"axis must be 0, 1 or 2, got {axis}")
     lead = block.dim() - 3
     ext = block.shape[lead + axis]
-    if not (r >= 0 and 0 <= pos <= ext - r):
+    if not (r >= 0 and 0 <= (0 if pos is None else pos) <= ext - r):
         raise ValueError(f"slab of width {r} at {pos} leaves axis {axis} of extent {ext}")
     shape = list(block.shape)
     shape[lead + axis] = r
@@ -96,20 +102,31 @@ def _blend_launch(block: torch.Tensor, axis: int, r: int, pos: int):
     from stencil_tpu_torch.ops.pack import _remember
 
     n = block.shape[0] if lead else 1
-    return _remember(_BLEND_LAUNCHES, key, (block.element_size(), n, *block.shape[-3:], axis, r, pos),
-                     torch.Size(shape))
+    fields = (block.element_size(), n, *block.shape[-3:], axis, r) + (() if pos is None else (pos,))
+    return _remember(cache, key, fields, torch.Size(shape))
 
 
-def _entry():
-    """``(C entry, library)`` of ``stp_blend_slab_desc`` in ``csrc/pack.cu``,
-    built and loaded at the first launch."""
-    global _ENTRY
-    if _ENTRY is None:
+def _blend_launch(block: torch.Tensor, axis: int, r: int, pos: int):
+    """The cached launch of ``blend_slab``: ``(descriptor, its address, slab shape)``."""
+    return _blend_geometry(_BLEND_LAUNCHES, block, axis, r, pos)
+
+
+def _blend_dynamic_launch(block: torch.Tensor, axis: int, r: int):
+    """The cached launch of ``blend_slab_dynamic``: ``(descriptor, its
+    address, slab shape)``; the offsets are not part of it."""
+    return _blend_geometry(_BLEND_DYN_LAUNCHES, block, axis, r, None)
+
+
+def _entry(fn: str = "stp_blend_slab_desc"):
+    """``(C entry, library)`` of ``fn`` in ``csrc/pack.cu``, built and loaded
+    at the first launch."""
+    found = _ENTRIES.get(fn)
+    if found is None:
         from stencil_tpu_torch.kernels import build
 
         lib = build.load("pack")
-        _ENTRY = (lib.stp_blend_slab_desc, lib)
-    return _ENTRY
+        found = _ENTRIES[fn] = (getattr(lib, fn), lib)
+    return found
 
 
 def blend_slab(block: torch.Tensor, slab: torch.Tensor, axis: int, pos: int) -> torch.Tensor:
@@ -174,25 +191,35 @@ def blend_slab_dynamic(block: torch.Tensor, slab: torch.Tensor, axis: int,
     Z)``), ``pos`` an int32 tensor of ``n`` offsets on the block's device;
     an offset outside ``[0, extent - r]`` is clamped into it, so the CUDA
     path reads no offset back to the host.  CUDA tensors launch the kernel
-    (any 1/2/4/8-byte dtype, all blocks in one launch); CPU tensors take the
-    plain version.
+    (any 1/2/4/8-byte dtype, all blocks in one launch) through the cached
+    descriptor of the geometry, the offsets checked and passed anew every
+    call; CPU tensors take the plain version.
 
     The TPU kernel serves axes 1 and 2; the JAX package writes the x halo
     with ``lax.dynamic_update_slice``.  The port sends axis 0 here too,
     because an x sub-view of the ``(n, X, Y, Z)`` stack is not contiguous."""
-    r = _check_dynamic(block, slab, axis, pos)
-    if block.device.type == "cpu":
+    if not isinstance(block, torch.Tensor) or block.device.type != "cuda":
         return blend_slab_dynamic_plain(block, slab, axis, pos)
-    from stencil_tpu_torch.kernels import build
+    dev = block.device
+    # the offsets first: a refused pos leaves the geometry's cache as it was
+    if not (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32 and pos.dim() == 1
+            and pos.shape[0] == (block.shape[0] if block.dim() == 4 else 1) and pos.is_contiguous()
+            and pos.device == dev):
+        _check_dynamic(block, slab, axis, pos)  # raises with the reason
+    try:
+        r = slab.shape[block.dim() - 3 + axis]
+    except (AttributeError, IndexError, TypeError):
+        r = _check_dynamic(block, slab, axis, pos)  # raises with the reason
+    _, addr, slab_shape = _blend_dynamic_launch(block, axis, r)
+    if not (block.is_contiguous() and isinstance(slab, torch.Tensor) and slab.dtype == block.dtype
+            and slab.shape == slab_shape and slab.is_contiguous() and slab.device == dev):
+        _check_dynamic(block, slab, axis, pos)  # raises with the reason
+    entry, lib = _entry("stp_blend_slab_dynamic_desc")
+    rc = entry(addr, block.data_ptr(), slab.data_ptr(), pos.data_ptr(), current_raw_stream(dev.index))
+    if rc:
+        from stencil_tpu_torch.kernels import build
 
-    lib = build.load("halo_blend")
-    n = block.shape[0] if block.dim() == 4 else 1
-    X, Y, Z = block.shape[-3:]
-    rc = lib.stp_blend_slab_dynamic(
-        block.data_ptr(), slab.data_ptr(), pos.data_ptr(), block.element_size(),
-        n, X, Y, Z, axis, r, stream_handle(block.device),
-    )
-    build.check(lib, rc, "blend_slab_dynamic")
+        build.check(lib, rc, "blend_slab_dynamic")
     blend_slab_dynamic.launches += 1
     return block
 

@@ -600,9 +600,9 @@ def _entry():
 
 
 def _c_entry(name: str):
-    """``(C entry, library)`` of ``stp_jacobi_wrap``, ``stp_jacobi_plane`` or
-    ``stp_jacobi_slab``, from the same library, looked up at the first
-    launch."""
+    """``(C entry, library)`` of ``stp_jacobi_wrap``, ``stp_jacobi_plane``,
+    ``stp_jacobi_slab`` or ``stp_mean6_march``, from the same library, looked
+    up at the first launch."""
     found = _ENTRIES.get(name)
     if found is None:
         lib = _entry()[1]

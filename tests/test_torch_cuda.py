@@ -319,23 +319,30 @@ def test_slab_kernel_equals_plain_at_the_main_path_shape(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16, torch.uint8])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-def test_blend_dynamic_kernel_equals_plain(dev, axis, dtype):
-    """Per-block offsets as the uneven exchange makes them (the last block
-    differs), every offset of a row of blocks, and an offset past the end
+@pytest.mark.parametrize("shape", [(4, 17, 19, 23), (17, 19, 23), (3, 11, 9, 520), (2, 40, 41, 23)])
+def test_blend_dynamic_kernel_equals_plain(dev, axis, dtype, shape):
+    """Every element width (1, 2, 4, 8 bytes); 4-D blocks and a 3-D one (n =
+    1, one offset); rows of 23 cells (the cell kernel, whose stages of cells
+    span several blocks, or at (2, 40, 41, 23) lie inside one) and of 520
+    (the row kernel on x and y, every alignment a block row can have);
+    per-block offsets as the uneven exchange makes them (the last block
+    differs), distinct ones, and offsets below 0 and past ext - r
     (clamped)."""
-    blocks = (_rand((4, 17, 19, 23), 60, dev) * 100).to(dtype)
-    ext = blocks.shape[1 + axis]
+    blocks = (_rand(shape, 60, dev) * 100).to(dtype)
+    n, lead = (shape[0], 1) if len(shape) == 4 else (1, 0)
+    ext = blocks.shape[lead + axis]
     for r in (1, 2, 3):
-        shape = list(blocks.shape)
-        shape[1 + axis] = r
-        slab = (_rand(shape, 61 + r, dev) * 100).to(dtype)
-        for pos in ([ext - r] * 3 + [ext - r - 4], [0, 5, ext - r, ext + 9]):
-            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        slab_shape = list(blocks.shape)
+        slab_shape[lead + axis] = r
+        slab = (_rand(slab_shape, 61 + r, dev) * 100 + 1).to(dtype)
+        for pos in ([ext - r] * (n - 1) + [ext - r - 4], [0, 5, ext - r, ext + 9], [n - 1 - b for b in range(n)],
+                    [-2, ext, -7, 1], [ext - r + 1] * n):
+            p = torch.tensor(pos[:n], dtype=torch.int32, device=dev)
             before = hb.blend_slab_dynamic.launches
             got = hb.blend_slab_dynamic(blocks.clone(), slab, axis, p)
             torch.cuda.synchronize()
             assert hb.blend_slab_dynamic.launches == before + 1
-            assert torch.equal(got, hb.blend_slab_dynamic_plain(blocks.clone(), slab, axis, p))
+            assert torch.equal(got, hb.blend_slab_dynamic_plain(blocks.clone(), slab, axis, p)), (r, pos[:n])
 
 
 def test_model_routes_agree_on_card(dev):
@@ -699,18 +706,59 @@ def test_mean6_plane_kernel_equals_plain(dev, lo, hi):
     assert torch.equal(got, ps.mean6_plane_step_plain(block, lo, hi))
 
 
-@pytest.mark.parametrize("m,s", [(1, 1), (1, 3), (2, 3), (3, 3), (8, 8)])
-def test_mean6_wavefront_kernel_equals_plain(dev, m, s):
-    """Ragged blocks (several tiles, partial ones); the valid interior."""
+def _mean6_shape(m: int, s: int, late: bool) -> tuple:
+    """A block on which the first march's tiles (32 x 64 with an apron of its
+    depth d a side) and its x chunks end one cell late (``late``: one more
+    row, column and plane than whole tiles and chunks) or one early.  The
+    x chunking is the card's (``mean6_wavefront_launch``), so the x extent is
+    found by asking for the plan."""
     from stencil_tpu_torch.ops import plane_stencil as ps
 
-    raw = _rand((40, 75, 130), 91, dev)
+    d = m if m <= 4 else -(-m // 2)
+    o = s - (m - d)  # the first march's output region starts here
+    dl = 1 if late else -1
+    Y, Z = 2 * o + 3 * (32 - 2 * d) + dl, 2 * o + 2 * (64 - 2 * d) + dl
+    for X in range(2 * s + 3, 2 * s + 400):
+        plan = ps.mean6_wavefront_launch((X, Y, Z), m, s)
+        last = (X - 2 * o) - (plan["nchunks"] - 1) * plan["xchunk"]
+        if plan["xchunk"] >= 3 and last == (1 if late else plan["xchunk"] - 1):
+            return X, Y, Z
+    raise AssertionError(f"no x extent ends a chunk {'late' if late else 'early'} at m={m} s={s}")
+
+
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("m,s", [(m, s) for m in range(1, 9) for s in (m, m + 1)] + [(1, 3), (3, 8)])
+def test_mean6_wavefront_kernel_equals_plain(dev, m, s, late):
+    """Every m = 1..8 (one march, or two through the scratch) and s >= m, on
+    blocks whose tiles and x chunks end one cell early or late; the valid
+    interior [s, ext - s), the only region the kernel writes."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    shape = _mean6_shape(m, s, late)
+    raw = _rand(shape, 91, dev)
     before = ps.mean6_shell_wavefront_step.launches
     got = ps.mean6_shell_wavefront_step(raw, m, s)
     torch.cuda.synchronize()
-    assert ps.mean6_shell_wavefront_step.launches == before + 1  # m levels in one launch
+    assert ps.mean6_shell_wavefront_step.launches == before + 1  # m levels in one call
     S = slice(s, -s)
-    assert torch.equal(got[S, S, S], ps.mean6_shell_wavefront_step_plain(raw, m, s)[S, S, S])
+    assert torch.equal(got[S, S, S], ps.mean6_shell_wavefront_step_plain(raw, m, s)[S, S, S]), shape
+    plan = ps.mean6_wavefront_launch(shape, m, s)
+    assert plan["launches"] == jk.wavefront_marches(m) and plan["smem_bytes"] == ps.mean6_wavefront_smem_bytes(m)
+
+
+def test_mean6_wavefront_kernel_at_the_main_path_shape(dev):
+    """Phase 15's call, 518^3 at m = 3, s = 3, and its plan: one march that
+    fills the card from one block by cutting x into chunks."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    raw = _rand((518, 518, 518), 92, dev)
+    got = ps.mean6_shell_wavefront_step(raw, 3, 3)
+    torch.cuda.synchronize()
+    S = slice(3, -3)
+    assert torch.equal(got[S, S, S], ps.mean6_shell_wavefront_step_plain(raw, 3, 3)[S, S, S])
+    plan = ps.mean6_wavefront_launch((518, 518, 518), 3, 3)
+    assert (plan["launches"], plan["depth"], plan["tiles_z"], plan["tiles_y"]) == (1, 3, 9, 20)
+    assert plan["waves"] >= 4
 
 
 def test_astaroth_packed_routes_agree_on_card(dev):

@@ -1,7 +1,8 @@
 """The descriptor launch path of the slab packs (``pallas_pack_slab``,
 ``pallas_unpack_slab``), the z-shell pair (``pack_zshell_pallas``,
 ``unpack_zshell_pallas``) and the y-shell pair (``pack_yshell_pallas``,
-``unpack_yshell_pallas``) of ``stencil_tpu_torch/ops/pack.py``, on the CPU.
+``unpack_yshell_pallas``) of ``stencil_tpu_torch/ops/pack.py``, and of
+``blend_slab_dynamic`` (``ops/halo_blend.py``, the same C source), on the CPU.
 
 * the descriptor holds the int64 fields the C entries of ``csrc/pack.cu``
   read, in their order;
@@ -11,7 +12,11 @@
 * every refusal of the six wrappers raises with its message, on the launch
   path's own checks as on the plain branch;
 * the wrappers on CPU tensors still run the plain versions, bitwise equal to
-  the JAX package's Pallas kernels in interpret mode, and count no launch.
+  the JAX package's Pallas kernels in interpret mode, and count no launch;
+* ``blend_slab_dynamic``'s descriptor holds no offset: the offsets (an int32
+  ``(n,)`` tensor on the block's device) are checked and passed anew every
+  call, and one of the wrong dtype, length or device is refused every time
+  and never cached.
 
 The launch path itself runs here on tensors that report a CUDA device, with
 a Python stand-in for each C entry that reads the descriptor at the address
@@ -29,6 +34,7 @@ import torch
 from stencil_tpu.core.dim3 import Dim3 as JDim3
 from stencil_tpu.ops import pack as jpk
 from stencil_tpu_torch.core.dim3 import Dim3
+from stencil_tpu_torch.ops import halo_blend as hb
 from stencil_tpu_torch.ops import pack as pk
 
 torch.set_num_threads(1)
@@ -476,3 +482,167 @@ def test_every_refusal_raises_on_the_launch_path(on_card, fn):
         with pytest.raises(exc, match=match):
             call()
     assert len(calls) == launched
+
+
+# --- blend_slab_dynamic: the same C source, a descriptor without the offsets ----------
+
+
+@pytest.mark.parametrize("shape,n", [((17, 19, 23), 1), ((3, 17, 19, 23), 3)])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_blend_dynamic_descriptor_holds_the_fields_the_c_entry_reads(shape, n, axis):
+    block = torch.zeros(shape, dtype=torch.int16)
+    desc, addr, slab_shape = hb._blend_dynamic_launch(block, axis, 3)
+    want = dict(itemsize=2, n=n, X=17, Y=19, Z=23, axis=axis, r=3)
+    assert _fields((desc,)) == [want[f] for f in hb.BLEND_DYN_DESC_FIELDS]
+    assert addr == ctypes.addressof(desc) and len(desc) == len(hb.BLEND_DYN_DESC_FIELDS)
+    want_shape = list(shape)
+    want_shape[len(shape) - 3 + axis] = 3
+    assert tuple(slab_shape) == tuple(want_shape)
+
+
+def test_blend_dynamic_launch_cache_hits_one_geometry_and_misses_others():
+    block = torch.zeros(3, 9, 10, 11)
+    first = hb._blend_dynamic_launch(block, 1, 2)
+    # the same geometry, in another block of the same shape and dtype
+    assert hb._blend_dynamic_launch(torch.ones(3, 9, 10, 11), 1, 2) is first
+    others = [
+        hb._blend_dynamic_launch(torch.zeros(2, 9, 10, 11), 1, 2),  # shape (n)
+        hb._blend_dynamic_launch(torch.zeros(9, 10, 11), 1, 2),  # one block
+        hb._blend_dynamic_launch(block.to(torch.uint8), 1, 2),  # dtype
+        hb._blend_dynamic_launch(block, 0, 2),  # axis
+        hb._blend_dynamic_launch(block, 1, 3),  # width
+    ]
+    for other in others:
+        assert other is not first and _fields(other) != _fields(first)
+    # the static write's cache is its own: its descriptor carries a position
+    assert hb._blend_launch(block, 1, 2, 0) is not first and len(hb._blend_launch(block, 1, 2, 0)[0]) == 8
+    for _ in range(2):
+        assert hb._blend_dynamic_launch(block, 1, 2) is first
+    with pytest.raises(ValueError, match="leaves axis"):
+        hb._blend_dynamic_launch(block, 2, 12)
+
+
+def _dynamic_stand_in(calls: list):
+    """A Python stand-in for ``stp_blend_slab_dynamic_desc``: it reads the
+    descriptor's fields and the n offsets at the addresses it is given, in
+    the C entry's order, clamps each offset into [0, ext - r] and makes the
+    write on host memory."""
+
+    def entry(addr, block_ptr, slab_ptr, pos_ptr, stream):
+        isz, n, X, Y, Z, axis, r = (ctypes.c_int64 * len(hb.BLEND_DYN_DESC_FIELDS)).from_address(addr)
+        pos = list((ctypes.c_int32 * n).from_address(pos_ptr))
+        blocks = _host_view(block_ptr, isz, (n, X, Y, Z))
+        shape = [n, X, Y, Z]
+        shape[1 + axis] = r
+        slabs = _host_view(slab_ptr, isz, shape)
+        for b, p in enumerate(pos):
+            p = min(max(p, 0), (X, Y, Z)[axis] - r)
+            index = [b, slice(None), slice(None), slice(None)]
+            index[1 + axis] = slice(p, p + r)
+            blocks[tuple(index)] = slabs[b]
+        calls.append((addr, pos, stream))
+        return 0
+
+    return entry
+
+
+@pytest.fixture
+def on_card_dynamic(monkeypatch):
+    """Route ``blend_slab_dynamic`` through its launch path on host memory:
+    a fixed raw stream and the C entry's stand-in.  Yields ``(to_card,
+    calls)``."""
+    calls = []
+    monkeypatch.setattr(hb, "current_raw_stream", lambda index: 7000 + index)
+    monkeypatch.setattr(hb, "_entry", lambda fn: (_dynamic_stand_in(calls), None) if fn ==
+                        "stp_blend_slab_dynamic_desc" else pytest.fail(f"blend_slab_dynamic asked for {fn}"))
+    yield (lambda t: t.clone().as_subclass(_OnCard)), calls
+
+
+@pytest.mark.parametrize("shape", [(9, 10, 11), (3, 9, 10, 11)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.uint8, torch.int16])
+def test_blend_dynamic_launch_path_writes_through_the_cached_launch(on_card_dynamic, dtype, shape):
+    """Distinct offsets, one below 0 and one past ext - r (both clamped on
+    the device), on every axis: equal to the plain version, one launch a
+    call, the descriptor cached per geometry whatever the offsets."""
+    to_card, calls = on_card_dynamic
+    rng = np.random.default_rng(31)
+    blocks = (torch.from_numpy(rng.random(shape)) * 100).to(dtype)
+    n = shape[0] if len(shape) == 4 else 1
+    lead = len(shape) - 3
+    before = hb.blend_slab_dynamic.launches
+    for axis in (0, 1, 2):
+        ext = shape[lead + axis]
+        sshape = list(shape)
+        sshape[lead + axis] = 2
+        slab = (torch.from_numpy(rng.random(sshape)) * 100 + 1).to(dtype)
+        for pos in ([ext - 2, 1, 4][:n], [-3, ext + 5, 0][:n], [ext - 1] * n):
+            p = torch.tensor(pos, dtype=torch.int32)
+            card = to_card(blocks)
+            got = hb.blend_slab_dynamic(card, to_card(slab), axis, to_card(p))
+            assert got is card
+            assert torch.equal(got.as_subclass(torch.Tensor), hb.blend_slab_dynamic_plain(blocks.clone(), slab, axis, p))
+            addr, seen, stream = calls[-1]
+            assert (addr, seen, stream) == (hb._blend_dynamic_launch(blocks, axis, 2)[1], pos, 7000)
+    assert hb.blend_slab_dynamic.launches == before + 9 and len(calls) == 9
+
+
+def test_blend_dynamic_refuses_a_bad_pos_on_every_call_and_never_caches_it(on_card_dynamic):
+    """Offsets of the wrong dtype, length, rank, layout or device raise with
+    the plain branch's messages on every call, launch nothing and leave the
+    geometry cache as it was; a good call afterwards launches."""
+    to_card, calls = on_card_dynamic
+    block, slab = to_card(torch.zeros(2, 6, 6, 6)), to_card(torch.ones(2, 6, 6, 2))
+    good = to_card(torch.tensor([4, 1], dtype=torch.int32))
+    hb.blend_slab_dynamic(block, slab, 2, good)  # the geometry is cached
+    cache, launched, before = dict(hb._BLEND_DYN_LAUNCHES), len(calls), hb.blend_slab_dynamic.launches
+    bad = [
+        (TypeError, "pos must be torch.int32", to_card(torch.tensor([4, 1], dtype=torch.int64))),
+        (ValueError, "pos holds 3 offsets for 2 block", to_card(torch.tensor([4, 1, 0], dtype=torch.int32))),
+        (ValueError, "pos holds 1 offsets for 2 block", to_card(torch.tensor([4], dtype=torch.int32))),
+        (ValueError, "pos must have 1 dims", to_card(torch.tensor([[4, 1]], dtype=torch.int32))),
+        (ValueError, "pos must be C-contiguous", to_card(torch.tensor([4, 0, 1, 0], dtype=torch.int32))[::2]),
+        (ValueError, "different devices", torch.tensor([4, 1], dtype=torch.int32)),
+        (TypeError, "pos must be a torch.Tensor", [4, 1]),
+    ]
+    for exc, match, pos in bad:
+        for _ in range(2):  # refused on every call, not only before the geometry is cached
+            with pytest.raises(exc, match=match):
+                hb.blend_slab_dynamic(block, slab, 2, pos)
+    # a new geometry with a bad pos is refused before it is cached
+    with pytest.raises(TypeError, match="int32"):
+        hb.blend_slab_dynamic(block, to_card(torch.ones(2, 6, 1, 6)), 1, bad[0][2])
+    assert hb._BLEND_DYN_LAUNCHES == cache and all(len(k) == 4 for k in cache)
+    assert len(calls) == launched and hb.blend_slab_dynamic.launches == before
+    hb.blend_slab_dynamic(block, slab, 2, good)
+    assert len(calls) == launched + 1 and hb.blend_slab_dynamic.launches == before + 1
+
+
+def test_blend_dynamic_every_refusal_raises_on_cpu_and_on_the_launch_path(on_card_dynamic):
+    """The slab's and the block's refusals: the same messages on the plain
+    branch and on the launch path, cached geometry or not, and no launch."""
+    to_card, calls = on_card_dynamic
+    for z in (torch.zeros, lambda *shape, dtype=torch.float32: to_card(torch.zeros(*shape, dtype=dtype))):
+        block = z(2, 6, 6, 6)
+        pos = z(2, dtype=torch.int32)
+        launched, before = len(calls), hb.blend_slab_dynamic.launches
+        cases = [
+            (ValueError, "does not fit", lambda: hb.blend_slab_dynamic(block, z(2, 6, 5, 1), 2, pos)),
+            (ValueError, "does not fit", lambda: hb.blend_slab_dynamic(block, z(1, 1, 6, 6), 0, pos)),
+            (ValueError, "leaves axis", lambda: hb.blend_slab_dynamic(block, z(2, 7, 6, 6), 0, pos)),
+            (ValueError, "axis must be", lambda: hb.blend_slab_dynamic(block, z(2, 6, 6, 1), 3, pos)),
+            (TypeError, "slab dtype", lambda: hb.blend_slab_dynamic(block, z(2, 1, 6, 6, dtype=torch.float64), 0,
+                                                                    pos)),
+            (ValueError, "slab must be C-contiguous", lambda: hb.blend_slab_dynamic(
+                block, z(2, 6, 1, 6).transpose(1, 3), 2, pos)),
+            (ValueError, "block must be C-contiguous", lambda: hb.blend_slab_dynamic(
+                block.transpose(1, 3), z(2, 1, 6, 6), 0, pos)),
+            (ValueError, "slab must have 4 dims", lambda: hb.blend_slab_dynamic(block, z(1, 6, 6), 0, pos)),
+            (TypeError, "slab must be a torch.Tensor", lambda: hb.blend_slab_dynamic(
+                block, np.zeros((2, 1, 6, 6), np.float32), 0, pos)),
+            (TypeError, "block must be a torch.Tensor", lambda: hb.blend_slab_dynamic(
+                np.zeros((2, 6, 6, 6), np.float32), z(2, 1, 6, 6), 0, pos)),
+        ]
+        for exc, match, call in cases:
+            with pytest.raises(exc, match=match):
+                call()
+        assert len(calls) == launched and hb.blend_slab_dynamic.launches == before

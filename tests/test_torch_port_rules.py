@@ -105,7 +105,7 @@ def test_failed_compile_raises_with_compiler_output(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda *a, **k: str(fake))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
     with pytest.raises(build.KernelBuildError, match="this compiler refuses"):
-        build.build(["halo_blend"])
+        build.build(["plane_stencil"])
 
 
 def test_driver_prints_csv_row(capsys):
