@@ -140,7 +140,24 @@ non-zero before the result line:
     engine's ``plane`` route running a mean6 user kernel written in the
     kernels' order; each kernel held bitwise against its plain version and
     timed beside its bound (the wavefront kernel's device ms a call as well,
-    and its launch plan at (518^3, m = 3), ``mean6_wavefront_launch``).
+    and its launch plan at (518^3, m = 3), ``mean6_wavefront_launch``);
+16. the fused halo and the split schedule: ``AstarothSim(512, 512, 512,
+    num_quantities=8, kernel_impl="cuda")`` on 2x2x2, 24 iterations each
+    with the counters reset before and read after: ``per-step`` on
+    ``yzpack_pallas`` with ``stream_halo="fused"`` (the plane route's fused
+    form; no unpack and no blend launch, 16 launches an iteration of each
+    shell pack), ``auto`` on ``yzpack_pallas`` fused (the plain wavefront's
+    fused form, m = 3), ``per-step`` on ``direct`` with
+    ``stream_overlap="split"`` (the exchange on a second CUDA stream) and
+    ``auto`` on ``direct`` split (the plain wavefront); each bitwise equal to
+    phase 8's result, its ms/iter and Mupdates/s (the better of 2 x 24), and
+    for the fused and split per-step runs a torch.profiler breakdown; then
+    ``AstarothSim(511, ...)`` on 2x2x2 ``auto`` split, bitwise equal to phase
+    11's 511^3 reference, and a fused request there, which degrades with its
+    warning; then each fused form held bitwise against its plain version at
+    (8, 262^3) (the plane form over 8 fields, the wavefront at m = 3) and
+    timed beside its bound, its plain version and (device ms a call) its
+    array form.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -169,6 +186,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -419,6 +437,10 @@ def main() -> int:
     stream_sources = [("stream_wrap", st._source(ak8, "stream_wrap", st._WRAP_LEVELS)),
                       ("stream_plane", st._source(ak8, "stream_plane", [1]))]
     stream_sources += [("stream_wavefront", st._source(ak1, *st._wavefront_variant(m))) for m in (1, 2, 3)]
+    # phase 16's fused forms: the plane's over 8 fields, the wavefront's per field
+    stream_sources.append(("stream_plane_fused", st._source(ak8, "stream_plane_fused", [1], st._FUSED)))
+    stream_sources += [("stream_wavefront_fused", st._source(ak1, *st._wavefront_variant(m, True)))
+                       for m in (1, 2, 3)]
     # phase 8's small check runs Astaroth with 2 joint fields (the same body
     # as "mean6x2": field names do not reach the emitted code)
     ak2 = StreamKernel(ast_kernel, ast_names[:2], 1, (32, 32, 32))
@@ -450,7 +472,7 @@ def main() -> int:
             "jacobi_slab_step": 0.0, "blend_slab_dynamic": 0.0, "pack_zshell_pallas": 0.0,
             "unpack_zshell_pallas": 0.0, "pack_yshell_pallas": 0.0, "unpack_yshell_pallas": 0.0,
             "pallas_pack_slab": 0.0, "pallas_unpack_slab": 0.0, "mean6_shell_wavefront_step": 0.0,
-            "mean6_plane_step": 0.0}
+            "mean6_plane_step": 0.0, "stream_plane_pass_fused": 0.0, "stream_wavefront_pass_fused": 0.0}
 
     def hold(name: str, got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         sync()
@@ -1134,7 +1156,7 @@ def main() -> int:
         log_breakdown(f"astaroth {key}", prof)
         del sim
         torch.cuda.empty_cache()
-    ast_ref = ast_first.cpu()  # phase 13's reference, off the card until then
+    ast_ref = ast_first.cpu()  # phases 13 and 16's reference, off the card until then
     del ast_first
     torch.cuda.empty_cache()
 
@@ -1341,7 +1363,7 @@ def main() -> int:
         log_breakdown(f"astaroth uneven {schedule}", prof)
         del sim
         torch.cuda.empty_cache()
-    del ast_u_ref
+    ast_u_ref = ast_u_ref.cpu()  # phase 16's reference, off the card until then
     torch.cuda.empty_cache()
 
     # --- 12. times of the slab and dynamic blend kernels ----------------------------
@@ -1391,7 +1413,7 @@ def main() -> int:
     # that writes through it (x always, y and z unless packed by the kernels)
     blends = {"direct": 48, "zpack_xla": 48, "zpack_pallas": 32, "yzpack_xla": 48, "yzpack_pallas": 16}
     routes_13 = {}
-    ast_ref = ast_ref.to(dev)
+    ref13 = ast_ref.to(dev)
     for route in EXCHANGE_ROUTES:
         sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", schedule="per-step",
                           exchange_route=route)
@@ -1411,7 +1433,7 @@ def main() -> int:
             raise AssertionError(f"astaroth per-step {route}: route {sim.dd.exchange_route()}, launches "
                                  f"{counts}, want {want}")
         got = interiors(sim)
-        if not torch.equal(got, ast_ref):
+        if not torch.equal(got, ref13):
             raise AssertionError(f"astaroth per-step {route} != phase 8's result after {AST_ITERS} iterations")
         del got
         dts = []
@@ -1445,7 +1467,7 @@ def main() -> int:
             log_breakdown(f"astaroth per-step {route}", entry["profile"])
         del sim
         torch.cuda.empty_cache()
-    del ast_ref
+    del ref13
     torch.cuda.empty_cache()
     # the four kernels at that path's shapes: one field's 8 blocks of 262^3,
     # the radius-3 shell; the library call is the same copy as one copy_ (as
@@ -1744,6 +1766,150 @@ def main() -> int:
         f"bound {bound(m6w_bytes, 0)[0]:.4f}); wavefront launch {plan_str(m6w_launch)} on {card}")
     del m6_blk, m6_out
     torch.cuda.empty_cache()
+
+    # --- 16. the fused halo and the split schedule ---------------------------------------
+    phase_start(16)
+    ast_ref = ast_ref.to(dev)
+    f16 = {}
+    cases16 = (("per-step fused", "per-step", "yzpack_pallas", "halo", "plane"),
+               ("auto fused", "auto", "yzpack_pallas", "halo", "wavefront"),
+               ("per-step split", "per-step", "direct", "overlap", "plane"),
+               ("auto split", "auto", "direct", "overlap", "wavefront"))
+    for key, schedule, route, axis, want_route in cases16:
+        fused = axis == "halo"
+        kw = {"stream_halo": "fused"} if fused else {"stream_overlap": "split"}
+        sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", schedule=schedule,
+                          exchange_route=route, **kw)
+        sim.dd.set_partition(2, 2, 2)
+        sim.realize()
+        plan = sim._step._stream_plan
+        if plan["route"] != want_route or plan["z_slabs"] or (plan["halo"], plan["overlap"]) != (
+                ("fused", "off") if fused else ("array", "split")):
+            raise AssertionError(f"astaroth {key}: plan {plan}")
+        ledger.reset_launch_counts()
+        sync()
+        sim.step(AST_ITERS)
+        sync()
+        counts = ledger.launch_counts()
+        # exchanges, and passes of the plan's groups (per field on the wavefront)
+        groups = AST_Q if plan["grouping"] == "per-field" else 1
+        exchanges = AST_ITERS if want_route == "plane" else -(-AST_ITERS // plan["m"])
+        kernel = f"stream_{want_route}_pass"
+        if fused:
+            # each field's two messages an axis packed; nothing unpacked or blended
+            want = {kernel + "_fused": groups * exchanges, kernel: 0, "pack_zshell_pallas": 2 * AST_Q * exchanges,
+                    "pack_yshell_pallas": 2 * AST_Q * exchanges, "unpack_zshell_pallas": 0,
+                    "unpack_yshell_pallas": 0, "blend_slab": 0, "blend_slab_dynamic": 0}
+        else:
+            # the interior pass and six band passes a group; each field's six
+            # halo writes of the exchange and four y and z band writes
+            want = {kernel: 7 * groups * exchanges, kernel + "_fused": 0, "blend_slab": 10 * AST_Q * exchanges}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"astaroth {key}: launches {counts}, want {want}")
+        got = interiors(sim)
+        if not torch.equal(got, ast_ref):
+            raise AssertionError(f"astaroth {key} != phase 8's result after {AST_ITERS} iterations")
+        del got
+        dts = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dts.append((time.perf_counter() - t0) / AST_ITERS)
+        dt = min(dts)
+        entry = {"route": want_route, "m": plan["m"], "grouping": plan["grouping"], "exchange_route": route,
+                 "halo": plan["halo"], "overlap": plan["overlap"], "launches": counts, "ms_per_iter": dt * 1e3,
+                 "ms_per_iter_runs": [t * 1e3 for t in dts], "mupdates_per_s": AST_Q * N ** 3 / dt / 1e6}
+        if schedule == "per-step":
+            entry["profile"] = device_breakdown(sim, AST_ITERS)
+        f16[key] = entry
+        log(f"astaroth {AST_Q}q {N}^3 {key} 2x2x2 ({want_route}, m={plan['m']}, {plan['grouping']}, {route}): "
+            f"{dt * 1e3:.4f} ms/iter, {AST_Q * N ** 3 / dt / 1e6:.1f} Mupdates/s on {card}; launches per "
+            f"{AST_ITERS} iterations {dict((k, v) for k, v in counts.items() if v)}; bitwise equal to phase 8's "
+            "result")
+        if "profile" in entry:
+            log_breakdown(f"astaroth {key}", entry["profile"])
+        del sim
+        torch.cuda.empty_cache()
+    del ast_ref
+    torch.cuda.empty_cache()
+    # uneven: split at per-block band offsets; fused degrades with its warning
+    ast_u_ref = ast_u_ref.to(dev)
+    sim = AstarothSim(NU, NU, NU, num_quantities=AST_Q, kernel_impl="cuda", stream_overlap="split")
+    sim.dd.set_partition(2, 2, 2)
+    sim.realize()
+    plan = sim._step._stream_plan
+    ledger.reset_launch_counts()
+    sync()
+    sim.step(AST_ITERS)
+    sync()
+    counts = ledger.launch_counts()
+    if plan["route"] != "wavefront" or plan["z_slabs"] or plan["overlap"] != "split" \
+            or counts["stream_wavefront_pass"] == 0 or counts["blend_slab_dynamic"] == 0:
+        raise AssertionError(f"astaroth {NU}^3 auto split: plan {plan}, launches {counts}")
+    if not torch.equal(ast_interiors(sim, NU), ast_u_ref):
+        raise AssertionError(f"astaroth {NU}^3 auto split != the one-subdomain wrap route after {AST_ITERS} "
+                             "iterations")
+    dts = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        sim.step(AST_ITERS)
+        sync()
+        dts.append((time.perf_counter() - t0) / AST_ITERS)
+    f16[f"{NU} auto split"] = {"route": "wavefront", "m": plan["m"], "launches": counts,
+                               "ms_per_iter": min(dts) * 1e3, "ms_per_iter_runs": [t * 1e3 for t in dts],
+                               "mupdates_per_s": AST_Q * NU ** 3 / min(dts) / 1e6}
+    log(f"astaroth {AST_Q}q {NU}^3 auto split 2x2x2 (wavefront, m={plan['m']}): {min(dts) * 1e3:.4f} ms/iter on "
+        f"{card}; launches per {AST_ITERS} iterations {dict((k, v) for k, v in counts.items() if v)}; bitwise "
+        "equal to the one-subdomain wrap route")
+    del sim, ast_u_ref
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = AstarothSim(NU, NU, NU, num_quantities=AST_Q, kernel_impl="cuda", exchange_route="yzpack_pallas",
+                          stream_halo="fused")
+        sim.dd.set_partition(2, 2, 2)
+        sim.realize()
+    said = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning) and "halo=fused" in str(w.message)]
+    if sim._step._stream_plan["halo"] != "array" or not said:
+        raise AssertionError(f"astaroth {NU}^3 fused: plan {sim._step._stream_plan}, warnings {caught}")
+    log(f"astaroth {NU}^3 fused request degrades: {said[0]}")
+    del sim
+    torch.cuda.empty_cache()
+    # the fused forms against their plain versions at (8, 262^3), and their times
+    f_raws = [seeded((8, ps, ps, ps), 300 + q, dev) for q in range(AST_Q)]
+    f_bufs = tuple([seeded((8, 6, ps, ps), 320 + 3 * q + j, dev) for q in range(AST_Q)] for j in range(3))
+    fpl_args = (ak8, ast_names, f_raws, shell3, shell3, 1, org, gs)
+    hold_fields("stream_plane_pass_fused", st.stream_plane_pass(*fpl_args, fused_shell=f_bufs),
+                st.stream_plane_pass_plain(*fpl_args, fused_shell=f_bufs), f"(8,{ps},{ps},{ps}) x {AST_Q} fields")
+    fpl_ms = cuda_ms(lambda: st.stream_plane_pass(*fpl_args, fused_shell=f_bufs), inner=2)
+    fpl_plain_ms = cuda_ms(lambda: st.stream_plane_pass_plain(*fpl_args, fused_shell=f_bufs), reps=3, inner=1)
+    fpl_dev_ms = device_ms_per_call(lambda: st.stream_plane_pass(*fpl_args, fused_shell=f_bufs))
+    fpl_array_dev_ms = device_ms_per_call(lambda: st.stream_plane_pass(*fpl_args))
+    fpl_bytes = spl_bytes  # each cell read once, from the block or a buffer, and written once
+    fpl_flops = ops * AST_Q * 8 * half ** 3
+    f1_bufs = tuple([b[0]] for b in f_bufs)
+    fwf_args = (ak1, ast_names[:1], f_raws[:1], 3, 3, org, gs_main)
+    S3 = slice(3, -3)
+    hold("stream_wavefront_pass_fused", st.stream_wavefront_pass(*fwf_args, fused_shell=f1_bufs)[0][0][:, S3, S3, S3],
+         st.stream_wavefront_pass_plain(*fwf_args, fused_shell=f1_bufs)[0][0][:, S3, S3, S3],
+         f"(8,{ps},{ps},{ps}) m=3, 1 field")
+    fwf_ms = cuda_ms(lambda: st.stream_wavefront_pass(*fwf_args, fused_shell=f1_bufs), inner=2)
+    fwf_plain_ms = cuda_ms(lambda: st.stream_wavefront_pass_plain(*fwf_args, fused_shell=f1_bufs), reps=3, inner=1)
+    fwf_dev_ms = device_ms_per_call(lambda: st.stream_wavefront_pass(*fwf_args, fused_shell=f1_bufs), calls=10)
+    fwf_array_dev_ms = device_ms_per_call(lambda: st.stream_wavefront_pass(*fwf_args), calls=10)
+    fwf_launch = st.stream_wavefront_launch(ak1, ast_names[:1], f_raws[:1], 3, 3, gs_main, fused=True)
+    fwf_bytes = stream_wavefront_bytes(8, ps, ps, ps, 3, 3, False, 1)
+    fwf_flops = ops * 8 * half ** 3 * 3
+    log(f"fused forms at (8,{ps},{ps},{ps}) f32 (ms: CUDA events, plain, device a call, the array form's device "
+        f"a call, bound): stream_plane_pass {AST_Q} fields {fpl_ms:.4f}, {fpl_plain_ms:.4f}, {fpl_dev_ms:.4f}, "
+        f"{fpl_array_dev_ms:.4f}, {bound(fpl_bytes, fpl_flops)[0]:.4f}; stream_wavefront_pass m=3 1 field "
+        f"{fwf_ms:.4f}, {fwf_plain_ms:.4f}, {fwf_dev_ms:.4f}, {fwf_array_dev_ms:.4f}, "
+        f"{bound(fwf_bytes, fwf_flops)[0]:.4f}; wavefront launch {plan_str(fwf_launch)} on {card}")
+    del f_raws, f_bufs, f1_bufs
+    torch.cuda.empty_cache()
     phase_end()
 
     rows = []
@@ -1796,8 +1962,15 @@ def main() -> int:
         ("mean6_shell_wavefront_step", {k: v["launches"] for k, v in mean6_runs.items()}, STEPS,
          sum(-(-k // 3) for k in (CHECK_AT, STEPS - CHECK_AT)), m6w_ms, m6w_plain_ms, None, m6w_bytes,
          6 * N ** 3 * 3, f"({ws},{ws},{ws}) f32, m = 3, s = 3"),
+        ("stream_plane_pass_fused", f16["per-step fused"]["launches"], AST_ITERS, AST_ITERS, fpl_ms, fpl_plain_ms,
+         None, fpl_bytes, fpl_flops, f"{AST_Q} fields x (8,{ps},{ps},{ps}) f32, shell 3, buffers (8,6,{ps},{ps}) "
+         "x 3 a field, Astaroth kernel"),
+        ("stream_wavefront_pass_fused", f16["auto fused"]["launches"], AST_ITERS,
+         AST_Q * -(-AST_ITERS // f16["auto fused"]["m"]), fwf_ms, fwf_plain_ms, None, fwf_bytes, fwf_flops,
+         f"1 field x (8,{ps},{ps},{ps}) f32 m=3 s=3, buffers (8,6,{ps},{ps}) x 3, Astaroth kernel"),
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
+    entries.update({name: ledger.form_entry(name) for name in ledger.FORMS})
     for name, counts, steps, want, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches in its {steps}-step run, want {want}")
@@ -1840,6 +2013,10 @@ def main() -> int:
                             launch=jacobi_wf["shell z-slab"]["launch"])
         if name == "mean6_shell_wavefront_step":
             rows[-1].update(device_ms=m6w_dev_ms, launch=m6w_launch)
+        if name == "stream_plane_pass_fused":
+            rows[-1].update(device_ms=fpl_dev_ms, array_form_device_ms=fpl_array_dev_ms)
+        if name == "stream_wavefront_pass_fused":
+            rows[-1].update(device_ms=fwf_dev_ms, array_form_device_ms=fwf_array_dev_ms, launch=fwf_launch)
         if name == "blend_slab_dynamic":
             rows[-1].update(device_ms=dyn_dev_ms[0], ms_per_axis=dyn_ms, device_ms_per_axis=dyn_dev_ms,
                             plain_ms_per_axis=dyn_plain_ms, library_ms_per_axis=dyn_lib_ms, descriptor=dyn_desc)
@@ -1878,6 +2055,11 @@ def main() -> int:
             "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
                          "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
                          "wavefront_m3_launch": m6w_launch},
+            "fused_split": f16,
+            "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
+                                   "array_device": fpl_array_dev_ms},
+                         "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,
+                                       "array_device": fwf_array_dev_ms, "launch": fwf_launch}},
             "phase_start_s": phase_s, "total_s": time.perf_counter() - t_start,
             "phase_peak_gb": phase_peak_gb, "peak_device_gb": max(phase_peak_gb.values()),
         }, f, indent=1)

@@ -9,8 +9,11 @@ fixes), and one CSV row
 
 with ``--quantities``, ``--kernel-impl`` (cuda | torch), ``--schedule``
 (auto | per-step | wavefront), ``--exchange-route`` (auto | direct |
-zpack_xla | zpack_pallas | yzpack_xla | yzpack_pallas), the reference's method
-flags, ``--no-overlap`` and ``--trivial``, plus ``--partition px,py,pz``
+zpack_xla | zpack_pallas | yzpack_xla | yzpack_pallas), ``--stream-overlap``
+(auto | off | split) and ``--stream-halo`` (auto | array | fused), the stream
+engine's split schedule and fused halo (``stencil_tpu/bin/_common.py:247-277``),
+the reference's method flags, ``--no-overlap`` and ``--trivial``, plus
+``--partition px,py,pz``
 (subdomains on the one device) and ``--device``.  Each timed sample is one
 iteration and a device synchronize, after one untimed warm-up step
 (``realize()`` builds the kernels).
@@ -18,6 +21,10 @@ iteration and a device synchronize, after one untimed warm-up step
     python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --schedule wavefront --iters 24
     python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --partition 2,2,2 \
         --schedule per-step --exchange-route yzpack_pallas --iters 24
+    python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --partition 2,2,2 \
+        --schedule per-step --exchange-route yzpack_pallas --stream-halo fused --iters 24
+    python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --partition 2,2,2 \
+        --stream-overlap split --iters 24
 """
 
 from __future__ import annotations
@@ -56,6 +63,14 @@ def main(argv=None) -> int:
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
     _add_exchange_route_flag(p)
+    p.add_argument("--stream-overlap", default="auto", choices=("auto", "off", "split"),
+                   help="stream-engine overlap schedule: off = exchange, then the pass; split = the "
+                        "interior pass beside the exchange on a second CUDA stream, then six narrow "
+                        "band passes (bitwise the same; auto = off)")
+    p.add_argument("--stream-halo", default="auto", choices=("auto", "array", "fused"),
+                   help="stream-engine halo consumption: array = unpack the received shell into the "
+                        "stacks; fused = the passes read it from the packed messages (bitwise the same; "
+                        "needs --exchange-route yzpack_*; auto = array)")
     args = p.parse_args(argv)
 
     kernel_impl = args.kernel_impl
@@ -77,6 +92,8 @@ def main(argv=None) -> int:
         kernel_impl=kernel_impl,
         schedule=args.schedule,
         exchange_route=args.exchange_route,
+        stream_overlap=args.stream_overlap,
+        stream_halo=args.stream_halo,
         device=args.device,
     )
     if args.partition is not None:

@@ -10,7 +10,8 @@ It calls only what the port has had since these kernels landed
 (``jacobi_wrap_step``, ``jacobi_zring_wavefront_step``, ``jacobi_shell_wavefront_step``,
 ``jacobi_plane_step``, ``jacobi_slab_step``, ``stream_wavefront_pass``,
 ``blend_slab``, ``pack_zshell_pallas``, ``unpack_zshell_pallas``,
-``mean6_shell_wavefront_step``, ``blend_slab_dynamic``, ``AstarothSim``),
+``mean6_shell_wavefront_step``, ``blend_slab_dynamic``, ``AstarothSim``;
+``stream_plane_pass`` and the fused forms only where the tree has them),
 so two trees
 timed in turn on one card compare like with like.  It prints, and writes to
 ``--out``, one JSON object with the card's name and power limit (as
@@ -72,6 +73,16 @@ and (``--only`` keeps the sections named):
   axis in turn: device ms a launch back to back (20 launches), CUDA-event
   ms a call and the bound (the slab read once and written once, and the
   offsets);
+* ``fused``: the stream plane kernel (#7) over 8 Astaroth fields and the
+  stream wavefront kernel (#8, m = 3, one field, the plain form) at the
+  phase-16 shapes of ``chip_smoke.py``, 8 blocks of 262^3 f32 (512^3 on
+  2x2x2, shell 3), in their array forms and, where the tree has them
+  (``fused_shell``), their fused forms, which read the shell from the
+  x/y/z buffers ``fused_shell_exchange`` returns: device ms a call
+  (torch.profiler over 10 calls), CUDA-event ms a call and the bound (each
+  cell read once, from the block or a buffer, and the output written once,
+  over 3.35 TB/s: the same for both forms; the wavefront's output is its
+  valid region);
 * ``direct``: ``AstarothSim(512^3, num_quantities=8, schedule="per-step",
   exchange_route="direct")`` on 2x2x2: ms/iter (the better of two runs of 24
   iterations), and from 24 iterations under torch.profiler the device ms an
@@ -427,6 +438,53 @@ def blend_dynamic_times(dev) -> dict:
     return out
 
 
+def fused_times(dev) -> dict:
+    import inspect
+
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    kern = AstarothSim(8, 8, 8, device=dev)._kernel
+    fused = "fused_shell" in inspect.signature(st.stream_plane_pass).parameters
+    gs = (N, N, N)
+    n, ext, s = 8, N // 2 + 6, 3
+    shell = Dim3(s, s, s)
+    org = torch.tensor([[(N // 2) * (b >> 2), (N // 2) * (b >> 1 & 1), (N // 2) * (b & 1)] for b in range(n)],
+                       dtype=torch.int32, device=dev)
+    block = n * ext ** 3 * 4
+    out = {"fused_forms": fused}
+    for kind, fields in (("plane", 8), ("wavefront", 1)):
+        names = [f"d{q}" for q in range(fields)]
+        sk = StreamKernel(kern, names, 1, gs)
+        raws = [_seeded((n, ext, ext, ext), 10 + q, dev) for q in range(fields)]
+        fs = tuple([_seeded((n, 2 * s, a, b), 20 + 3 * q + j, dev) for q in range(fields)]
+                   for j, (a, b) in enumerate(((ext, ext),) * 3))
+        # each cell read once (from the block or a buffer) and the output
+        # written once: the whole block on the plane, the valid region on
+        # the wavefront
+        nbytes = fields * (2 * block if kind == "plane" else block + n * (ext - 2 * s) ** 3 * 4)
+        for form in ("array", "fused") if fused else ("array",):
+            kw = {"fused_shell": fs} if form == "fused" else {}
+            if kind == "plane":
+                def call():
+                    return st.stream_plane_pass(sk, names, raws, shell, shell, 1, org, gs, **kw)
+            else:
+                def call():
+                    return st.stream_wavefront_pass(sk, names, raws, 3, s, org, gs, **kw)
+            prof, _ = _profile(call, 10)
+            out[f"{kind} {form}"] = {"device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call, inner=2),
+                                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "fields": fields,
+                                     "shape": [n, ext, ext, ext]}
+            if kind == "wavefront":
+                out[f"{kind} {form}"]["launch"] = st.stream_wavefront_launch(
+                    sk, names, raws, 3, s, gs, **({"fused": True} if form == "fused" else {}))
+        del raws, fs
+        torch.cuda.empty_cache()
+    return out
+
+
 def direct_route(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
 
@@ -455,7 +513,7 @@ def main(argv=None) -> int:
                 "jacobi_plane": lambda dev: _onelevel_case(dev, "plane"),
                 "jacobi_slab": lambda dev: _onelevel_case(dev, "slab"), "wavefront": wavefront_times,
                 "blend": blend_times, "zshell": zshell_times, "mean6": mean6_times,
-                "blend_dynamic": blend_dynamic_times, "direct": direct_route}
+                "blend_dynamic": blend_dynamic_times, "fused": fused_times, "direct": direct_route}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

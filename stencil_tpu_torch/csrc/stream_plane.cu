@@ -15,6 +15,27 @@
 //   streams x-planes through a 2r-deep VMEM ring; here each thread owns one
 //   (y, z) column and walks the planes of all blocks.
 //
+// The fused form (built with STP_FUSED defined; halo="fused" in
+//   ops/stream.py, the fused_shell inputs of stencil_tpu/ops/stream.py:425-458):
+//   the blocks carry a STALE shell, and the shell that the exchange would
+//   have written lives in three small buffers per field, over the n blocks:
+//   x planes (n, lox + hix, Y, Z), y rows (n, loy + hiy, X, Z) and z columns
+//   (n, loz + hiz, Y, X), each [low | high].  Every read of a shell-position
+//   cell, the pass-through included, goes to them, z column over y row over
+//   x plane (the exchange's sweep order x -> y -> z: the later sweep's write
+//   wins), so the pass computes what the array form computes after the
+//   exchange, bit for bit, shell included, and the blocks see no halo write.
+//   Two launches: the cells farther than the read radius r from the shell
+//   read the block alone, and take the array form's body (plane_level over
+//   FarFields, 32 registers like the array form); the band of the shell and
+//   the cells within r of it (9% of a 262^3 block at shell 3, r = 1) takes
+//   plane_band, which walks it as a flat index in three regions, each z
+//   minor: the x planes, the y rows of the other planes, the z columns of
+//   the other rows.  One kernel for both, with the band's reads branching
+//   per cell, held 92 registers and ran 2.2x the array form's time on the
+//   H100 (PERF.md); the array form's kernel is the same template at
+//   Fields, unchanged.
+//
 // Bound on an H100 SXM: bytes, 8 B per cell and field and level.  Interior
 // cells read their neighbours straight from global memory (re-reads left to
 // L1/L2): the shell is at least r wide, so no read leaves the block.  A
@@ -26,6 +47,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // @STP_GENERATED@
 
@@ -40,6 +63,20 @@ struct Fields {
   float* out[STP_NF];
 };
 
+// the fused form's far-interior launch: the array body over the cells more
+// than r from the shell, which it leaves to the band launch
+struct FarFields : Fields {
+  int r;
+};
+
+// the fused form's band launch: the shell buffers per field, and the read radius
+struct FusedFields : Fields {
+  const float* xb[STP_NF];  // (n, lox + hix, Y, Z)
+  const float* yb[STP_NF];  // (n, loy + hiy, X, Z)
+  const float* zb[STP_NF];  // (n, loz + hiz, Y, X)
+  int r;
+};
+
 struct Geometry {
   int n, X, Y, Z;
   int lox, loy, loz, hix, hiy, hiz;
@@ -52,17 +89,26 @@ __device__ __forceinline__ int pmod(int a, int n) {
 }
 
 // grid: (ceil(Z/32), ceil(Y/8), min(n*X, 65535)); p = block*X + x strides by
-// gridDim.z.  origins: (n, 3) int32, each block's interior start.
-__global__ void plane_level(Fields f, const int* __restrict__ origins, Geometry g) {
+// gridDim.z.  origins: (n, 3) int32, each block's interior start.  F is
+// Fields (the array form) or FarFields (the fused form's far interior).
+template <class F>
+__global__ void plane_level(F f, const int* __restrict__ origins, Geometry g) {
+  constexpr bool kFar = std::is_same<F, FarFields>::value;
   const int z = blockIdx.x * kTileZ + threadIdx.x;
   const int y = blockIdx.y * kTileY + threadIdx.y;
   if (z >= g.Z || y >= g.Y) return;
+  if constexpr (kFar) {  // a (y, z) column within r of the shell is the band's
+    if (y < g.loy + f.r || y >= g.Y - g.hiy - f.r || z < g.loz + f.r || z >= g.Z - g.hiz - f.r) return;
+  }
   const int64_t plane = (int64_t)g.Y * g.Z;
   const bool ring = y < g.loy || y >= g.Y - g.hiy || z < g.loz || z >= g.Z - g.hiz;
   const int64_t total = (int64_t)g.n * g.X;
   for (int64_t p = blockIdx.z; p < total; p += gridDim.z) {
     const int64_t b = p / g.X;
     const int x = (int)(p - b * g.X);
+    if constexpr (kFar) {
+      if (x < g.lox + f.r || x >= g.X - g.hix - f.r) continue;
+    }
     const int64_t idx = p * plane + (int64_t)y * g.Z + z;
     if (ring || x < g.lox || x >= g.X - g.hix) {
 #pragma unroll
@@ -82,9 +128,146 @@ __global__ void plane_level(Fields f, const int* __restrict__ origins, Geometry 
   }
 }
 
+template <class F>
+int launch(const F& f, const int* origins, const Geometry& g, void* stream) {
+  const int64_t planes = (int64_t)g.n * g.X;
+  dim3 grid((g.Z + kTileZ - 1) / kTileZ, (g.Y + kTileY - 1) / kTileY,
+            (unsigned)(planes < kMaxGridZ ? planes : kMaxGridZ));
+  plane_level<F><<<grid, dim3(kTileZ, kTileY), 0, (cudaStream_t)stream>>>(f, origins, g);
+  return (int)cudaGetLastError();
+}
+
+#ifdef STP_FUSED
+
+// Cell (x, y, z) of block b and field q after the exchange, in the fused
+// form: the z-column buffer over the y-row buffer over the x-plane buffer at
+// shell positions, the block elsewhere.
+// kAxes: the shells (bit 0 x, 1 y, 2 z) the cell may lie in.
+template <int kAxes = 7>
+__device__ __forceinline__ float fused_cell(const FusedFields& f, const Geometry& g, int q, int64_t b, int x,
+                                            int y, int z) {
+  if ((kAxes & 4) && (z < g.loz || z >= g.Z - g.hiz)) {
+    const int k = z < g.loz ? z : g.loz + z - (g.Z - g.hiz);
+    return f.zb[q][((b * (g.loz + g.hiz) + k) * g.Y + y) * g.X + x];
+  }
+  if ((kAxes & 2) && (y < g.loy || y >= g.Y - g.hiy)) {
+    const int k = y < g.loy ? y : g.loy + y - (g.Y - g.hiy);
+    return f.yb[q][((b * (g.loy + g.hiy) + k) * g.X + x) * g.Z + z];
+  }
+  if ((kAxes & 1) && (x < g.lox || x >= g.X - g.hix)) {
+    const int k = x < g.lox ? x : g.lox + x - (g.X - g.hix);
+    return f.xb[q][((b * (g.lox + g.hix) + k) * g.Y + y) * g.Z + z];
+  }
+  return f.in[q][((b * g.X + x) * g.Y + y) * g.Z + z];
+}
+
+// The band on one axis of extent ext: lo + r cells at the low side and hi +
+// r at the high side, cut so that the two sides never overlap (a short axis
+// is band throughout, and the far launch then has nothing on it).
+struct BandAxis {
+  int lo_r, hi_r, ext;
+  __device__ BandAxis(int lo, int hi, int r, int e) : lo_r(min(lo + r, e)), hi_r(min(hi + r, e - lo_r)), ext(e) {}
+  __device__ int width() const { return lo_r + hi_r; }
+  // index j < width() of the band to the axis's index
+  __device__ int at(int j) const { return j < lo_r ? j : ext - lo_r - hi_r + j; }
+};
+
+// The fused form's band: every cell of every block that is in the shell or
+// within r of it, as a flat index over n blocks of three regions each: A,
+// the band's x planes, (plane, y, z); B, the band's y rows of the other
+// planes, (x, row, z); C, the band's z columns of the other planes and
+// rows, (x, y, column): a warp writes the band cells of four rows, each
+// row's low and high cells one run each (lanes along x or y wrote one cell
+// a row each, and each 32-byte sector four times: 3.1-3.5 of the kernel's
+// 3.6 ms on the H100, PERF.md).  Shell cells pass the buffers'
+// value through; the others compute with every read through fused_cell,
+// which tests only the shells a read from the region can reach.
+__global__ void plane_band(FusedFields f, const int* __restrict__ origins, Geometry g) {
+  const int r = f.r;
+  const BandAxis ax(g.lox, g.hix, r, g.X), ay(g.loy, g.hiy, r, g.Y), az(g.loz, g.hiz, r, g.Z);
+  const int bx = ax.width(), by = ay.width(), bz = az.width();
+  const int64_t A = (int64_t)bx * g.Y * g.Z;
+  const int64_t B = (int64_t)(g.X - bx) * by * g.Z;
+  const int64_t C = (int64_t)(g.X - bx) * (g.Y - by) * bz;
+  const int64_t per_block = A + B + C;
+  const int64_t total = per_block * g.n;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t b = t / per_block;
+    int64_t u = t - b * per_block;
+    int x, y, z;
+    const int region = u < A ? 0 : u < A + B ? 1 : 2;
+    if (u < A) {
+      const int64_t yz = (int64_t)g.Y * g.Z;
+      x = ax.at((int)(u / yz));
+      u -= (u / yz) * yz;
+      y = (int)(u / g.Z);
+      z = (int)(u - (int64_t)y * g.Z);
+    } else if (u < A + B) {
+      u -= A;
+      const int64_t rz = (int64_t)by * g.Z;
+      x = ax.lo_r + (int)(u / rz);
+      u -= (u / rz) * rz;
+      y = ay.at((int)(u / g.Z));
+      z = (int)(u % g.Z);
+    } else {
+      u -= A + B;
+      const int ys = g.Y - by;
+      z = az.at((int)(u % bz));
+      u /= bz;
+      y = ay.lo_r + (int)(u % ys);
+      x = ax.lo_r + (int)(u / ys);
+    }
+    const int64_t idx = ((b * g.X + x) * g.Y + y) * g.Z + z;
+    if (x < g.lox || x >= g.X - g.hix || y < g.loy || y >= g.Y - g.hiy || z < g.loz || z >= g.Z - g.hiz) {
+#pragma unroll
+      for (int q = 0; q < STP_NF; ++q) f.out[q][idx] = fused_cell(f, g, q, b, x, y, z);  // shell passes through
+      continue;
+    }
+    const int xg = pmod(origins[3 * b] + x - g.lox, g.gx);
+    const int yg = pmod(origins[3 * b + 1] + y - g.loy, g.gy);
+    const int zg = pmod(origins[3 * b + 2] + z - g.loz, g.gz);
+    // a read from region B's cells may reach the y and z shells only, from
+    // region C's the z shell only (the regions leave out the x and y bands)
+    float out[STP_NF];
+    if (region == 2) {
+      auto ld = [&](int q, int dx, int dy, int dz) -> float {
+        return fused_cell<4>(f, g, q, b, x + dx, y + dy, z + dz);
+      };
+      stp_body(ld, 1, xg, yg, zg, out);
+    } else if (region == 1) {
+      auto ld = [&](int q, int dx, int dy, int dz) -> float {
+        return fused_cell<6>(f, g, q, b, x + dx, y + dy, z + dz);
+      };
+      stp_body(ld, 1, xg, yg, zg, out);
+    } else {
+      auto ld = [&](int q, int dx, int dy, int dz) -> float { return fused_cell(f, g, q, b, x + dx, y + dy, z + dz); };
+      stp_body(ld, 1, xg, yg, zg, out);
+    }
+#pragma unroll
+    for (int q = 0; q < STP_NF; ++q) f.out[q][idx] = out[q];
+  }
+}
+
+constexpr int kBandThreads = 256;
+constexpr int kBandBlocks = 132 * 8;  // a few waves of the H100's SMs; the band strides over them
+
+int launch_band(const FusedFields& f, const int* origins, const Geometry& g, void* stream) {
+  plane_band<<<kBandBlocks, kBandThreads, 0, (cudaStream_t)stream>>>(f, origins, g);
+  return (int)cudaGetLastError();
+}
+
+#endif  // STP_FUSED
+
+bool bad_args(int n, int X, int Y, int Z, int lox, int loy, int loz, int hix, int hiy, int hiz, int gx, int gy,
+              int gz) {
+  return n < 1 || lox + hix >= X || loy + hiy >= Y || loz + hiz >= Z || gx < 1 || gy < 1 || gz < 1;
+}
+
 }  // namespace
 
 extern "C" {
+
+#ifndef STP_FUSED
 
 // in/out: host arrays of STP_NF device pointers, each n (X, Y, Z) float32
 // blocks; origins: (n, 3) int32 on the device.  Returns a CUDA error code, or
@@ -92,21 +275,47 @@ extern "C" {
 int stp_stream_plane_level(void* const* in, void* const* out, const int* origins, int n, int X,
                            int Y, int Z, int lox, int loy, int loz, int hix, int hiy, int hiz,
                            int gx, int gy, int gz, void* stream) {
-  if (n < 1 || lox + hix >= X || loy + hiy >= Y || loz + hiz >= Z || gx < 1 || gy < 1 ||
-      gz < 1)
-    return -1;
+  if (bad_args(n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz)) return -1;
   Fields f;
   for (int q = 0; q < STP_NF; ++q) {
     f.in[q] = static_cast<const float*>(in[q]);
     f.out[q] = static_cast<float*>(out[q]);
   }
-  const Geometry g{n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz};
-  const int64_t planes = (int64_t)n * X;
-  dim3 grid((Z + kTileZ - 1) / kTileZ, (Y + kTileY - 1) / kTileY,
-            (unsigned)(planes < kMaxGridZ ? planes : kMaxGridZ));
-  plane_level<<<grid, dim3(kTileZ, kTileY), 0, (cudaStream_t)stream>>>(f, origins, g);
-  return (int)cudaGetLastError();
+  return launch(f, origins, Geometry{n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz}, stream);
 }
+
+#else
+
+// The fused form: as stp_stream_plane_level, plus xb/yb/zb, host arrays of
+// STP_NF device pointers to the shell buffers (layouts above), and the read
+// radius r (1 <= r <= every shell width; every shell width > 0).
+int stp_stream_plane_fused(void* const* in, void* const* xb, void* const* yb, void* const* zb, void* const* out,
+                           const int* origins, int n, int X, int Y, int Z, int lox, int loy, int loz, int hix,
+                           int hiy, int hiz, int r, int gx, int gy, int gz, void* stream) {
+  if (bad_args(n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz) || r < 1 || lox < r || loy < r ||
+      loz < r || hix < r || hiy < r || hiz < r)
+    return -1;
+  FusedFields f;
+  for (int q = 0; q < STP_NF; ++q) {
+    f.in[q] = static_cast<const float*>(in[q]);
+    f.out[q] = static_cast<float*>(out[q]);
+    f.xb[q] = static_cast<const float*>(xb[q]);
+    f.yb[q] = static_cast<const float*>(yb[q]);
+    f.zb[q] = static_cast<const float*>(zb[q]);
+  }
+  f.r = r;
+  const Geometry geo{n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz};
+  FarFields far;
+  for (int q = 0; q < STP_NF; ++q) {
+    far.in[q] = f.in[q];
+    far.out[q] = f.out[q];
+  }
+  far.r = r;
+  const int rc = launch(far, origins, geo, stream);
+  return rc != 0 ? rc : launch_band(f, origins, geo, stream);
+}
+
+#endif  // STP_FUSED
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

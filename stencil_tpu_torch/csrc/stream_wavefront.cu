@@ -17,6 +17,19 @@
 //   field and the next slabs are emitted (kSlabs = true); W = z_valid, and
 //   columns [W, Zr) are dead.
 //
+// The fused form (built with STP_FUSED defined; halo="fused" in
+// ops/stream.py, the fused_shell inputs of stencil_tpu/ops/stream.py:634-660)
+// is a third form of the plain layout (W = Zr): the blocks carry a STALE
+// shell, and the shell the exchange would have written comes from three
+// small buffers per field over the n blocks, x planes (n, 2s, Yr, Zr), y rows
+// (n, 2s, Xr, Zr) and z columns (n, 2s, Yr, Xr), each [low | high].  Every
+// level-0 cell enters through load_cell, which takes a shell-position cell
+// from them, z column over y row over x plane (the exchange's sweep order:
+// the later sweep's write wins), so the levels see what the array form sees
+// after the exchange, bit for bit, and the blocks see no halo write.  Both
+// the general and the register-queue form take it; the other forms are the
+// same templates with the plain Args, unchanged.
+//
 // A block owns a tile of the plane interior [s, Yr-s) x [s, W-s) for one
 // block b and one chunk of output x planes, loads it with an m-cell apron (a
 // tile row with its apron is kTileW = 64 columns, two full warps) and marches
@@ -90,6 +103,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // @STP_GENERATED@
 
 namespace {
@@ -110,6 +125,16 @@ struct Args {
   int xchunk, nchunks;       // output x planes per block, chunks per block b
 };
 
+// the fused form's arguments: the shell buffers per field (zs/zout unused)
+struct FusedArgs : Args {
+  const float* xb[STP_NF];   // (n, 2s, Yr, Zr) each
+  const float* yb[STP_NF];   // (n, 2s, Xr, Zr) each
+  const float* zb[STP_NF];   // (n, 2s, Yr, Xr) each
+};
+
+template <class A>
+constexpr bool kFusedArgs = std::is_same<A, FusedArgs>::value;
+
 __device__ __forceinline__ int pmod(int a, int n) {
   const int r = a % n;
   return r < 0 ? r + n : r;
@@ -124,6 +149,39 @@ __device__ __forceinline__ float load_cell(const Args& a, int q, int64_t xo, int
   if (kSlabs && col < s) return a.zs[q][zxo + (int64_t)col * a.Yr + y];
   if (kSlabs && col >= a.W - s) return a.zs[q][zxo + (int64_t)(s + col - (a.W - s)) * a.Yr + y];
   return a.raw[q][xo + (int64_t)y * a.Zr + col];
+}
+
+// The fused form's level-0 cell (i, y, col) of block b and field q: the
+// z-column buffer over the y-row buffer over the x-plane buffer at shell
+// positions, the block elsewhere (xo its plane's offset); 0 past the edge.
+__device__ __forceinline__ float load_cell(const FusedArgs& a, int q, int64_t b, int i, int64_t xo, int y,
+                                           int col) {
+  if (y >= a.Yr || col >= a.W) return 0.0f;
+  const int s = a.s, Xr = a.Xr, Yr = a.Yr, Zr = a.Zr;
+  if (col < s || col >= Zr - s) {
+    const int k = col < s ? col : s + col - (Zr - s);
+    return a.zb[q][((b * 2 * s + k) * Yr + y) * Xr + i];
+  }
+  if (y < s || y >= Yr - s) {
+    const int k = y < s ? y : s + y - (Yr - s);
+    return a.yb[q][((b * 2 * s + k) * Xr + i) * Zr + col];
+  }
+  if (i < s || i >= Xr - s) {
+    const int k = i < s ? i : s + i - (Xr - s);
+    return a.xb[q][((b * 2 * s + k) * Yr + y) * Zr + col];
+  }
+  return a.raw[q][xo + (int64_t)y * Zr + col];
+}
+
+// Level-0 cell (i, y, col) of form A (Args: kSlabs picks the z-slab form).
+template <bool kSlabs, class A>
+__device__ __forceinline__ float level0(const A& a, int q, int64_t b, int i, int64_t xo, int64_t zxo, int y,
+                                        int col) {
+  if constexpr (kFusedArgs<A>) {
+    return load_cell(a, q, b, i, xo, y, col);
+  } else {
+    return load_cell<kSlabs>(a, q, xo, zxo, y, col);
+  }
 }
 
 // Level m's value of cell (p, y, col) to the output and, in the slab form,
@@ -179,8 +237,8 @@ constexpr int tile_rows() {
 }
 
 // At m <= 4 the registers are cut so that two blocks fit an SM (64 a thread).
-template <int M, bool kSlabs>
-__global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefront(Args a) {
+template <int M, bool kSlabs, class A>
+__global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefront(A a) {
   extern __shared__ float smem_all[];
   float* const smem = smem_all + kPad;
   constexpr int m = M;
@@ -232,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
       for (int c = 0; c < CI; ++c)
 #pragma unroll
         for (int q = 0; q < STP_NF; ++q)
-          pre[q][r][c] = load_cell<kSlabs>(a, q, xo, zxo, y0 + ty0 + r, c0 + tz0 + c * kThreadsZ);
+          pre[q][r][c] = level0<kSlabs>(a, q, b, i, xo, zxo, y0 + ty0 + r, c0 + tz0 + c * kThreadsZ);
   };
 
   // the queue of level L < m at this thread's cells: old (plane j-1) and mid
@@ -326,8 +384,8 @@ constexpr int tile_rows() {
   return kTileY;
 }
 
-template <int M, bool kSlabs>
-__global__ void __launch_bounds__(kThreads) wavefront(Args a) {
+template <int M, bool kSlabs, class A>
+__global__ void __launch_bounds__(kThreads) wavefront(A a) {
   extern __shared__ float smem[];
   constexpr int m = M;
   constexpr int H = kTileY + 2 * m;
@@ -365,7 +423,7 @@ __global__ void __launch_bounds__(kThreads) wavefront(Args a) {
         const int ty = ty0 + r * kThreadsY, tz = tz0 + c * kThreadsZ;
 #pragma unroll
         for (int q = 0; q < STP_NF; ++q)
-          pre[q][r][c] = ty < H && tz < TW ? load_cell<kSlabs>(a, q, xo, zxo, y0 + ty, c0 + tz) : 0.0f;
+          pre[q][r][c] = ty < H && tz < TW ? level0<kSlabs>(a, q, b, i, xo, zxo, y0 + ty, c0 + tz) : 0.0f;
       }
     }
   };
@@ -449,17 +507,17 @@ struct Plan {
   int queue, blocks_per_sm, sms, blocks, xchunk, nchunks, smem, threads, tiles_z, tiles_y;
 };
 
-template <int M, bool kSlabs>
+template <int M, bool kSlabs, class A>
 int plan_launch(int n, int Xr, int Yr, int W, int s, Plan* pl) {
   constexpr int TZ = kTileW - 2 * M;
   const size_t smem = smem_bytes<M>();
-  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kSlabs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(wavefront<M, kSlabs, A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 132, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront<M, kSlabs>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wavefront<M, kSlabs, A>, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return -1;
   const int ix = Xr - 2 * s, iy = Yr - 2 * s, iz = W - 2 * s;
@@ -493,16 +551,16 @@ int plan_launch(int n, int Xr, int Yr, int W, int s, Plan* pl) {
   return 0;
 }
 
-template <int M, bool kSlabs>
-int launch(Args a, int n, cudaStream_t stream) {
+template <int M, bool kSlabs, class A>
+int launch(A a, int n, cudaStream_t stream) {
   Plan pl;
-  const int rc = plan_launch<M, kSlabs>(n, a.Xr, a.Yr, a.W, a.s, &pl);
+  const int rc = plan_launch<M, kSlabs, A>(n, a.Xr, a.Yr, a.W, a.s, &pl);
   if (rc != 0) return rc;
   a.xchunk = pl.xchunk;
   a.nchunks = pl.nchunks;
   dim3 grid(pl.tiles_z, pl.tiles_y, n * pl.nchunks);
   dim3 block(kThreadsZ, kThreads / kThreadsZ);
-  wavefront<M, kSlabs><<<grid, block, pl.smem, stream>>>(a);
+  wavefront<M, kSlabs, A><<<grid, block, pl.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -511,23 +569,13 @@ bool bad_args(int n, int Xr, int Yr, int Zr, int W, int m, int s, int gx, int gy
          gy < 1 || gz < 1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// raw/out (and zs/zout with slabs = 1): host arrays of STP_NF device
-// pointers; origins: (n, 3) int32 on the device.  Returns a CUDA error code,
-// or -1 for arguments the kernel does not take.
-int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, void* const* zout,
-                         const int* origins, int n, int Xr, int Yr, int Zr, int W, int m, int s,
-                         int gx, int gy, int gz, int slabs, void* stream) {
-  if (bad_args(n, Xr, Yr, Zr, W, m, s, gx, gy, gz) || (slabs && (zs == nullptr || zout == nullptr))) return -1;
-  Args a;
+void fill_args(Args& a, void* const* raw, void* const* out, const int* origins, int Xr, int Yr, int Zr, int W,
+               int s, int gx, int gy, int gz) {
   for (int q = 0; q < STP_NF; ++q) {
     a.raw[q] = static_cast<const float*>(raw[q]);
     a.out[q] = static_cast<float*>(out[q]);
-    a.zs[q] = slabs ? static_cast<const float*>(zs[q]) : nullptr;
-    a.zout[q] = slabs ? static_cast<float*>(zout[q]) : nullptr;
+    a.zs[q] = nullptr;
+    a.zout[q] = nullptr;
   }
   a.origins = origins;
   a.Xr = Xr;
@@ -539,6 +587,34 @@ int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, vo
   a.gy = gy;
   a.gz = gz;
   a.xchunk = a.nchunks = 0;
+}
+
+int plan_info(const Plan& pl, int* info) {
+  const int v[10] = {pl.queue, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks, pl.smem,
+                     pl.threads, pl.tiles_z, pl.tiles_y};
+  for (int j = 0; j < 10; ++j) info[j] = v[j];
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+#ifndef STP_FUSED
+
+// raw/out (and zs/zout with slabs = 1): host arrays of STP_NF device
+// pointers; origins: (n, 3) int32 on the device.  Returns a CUDA error code,
+// or -1 for arguments the kernel does not take.
+int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, void* const* zout,
+                         const int* origins, int n, int Xr, int Yr, int Zr, int W, int m, int s,
+                         int gx, int gy, int gz, int slabs, void* stream) {
+  if (bad_args(n, Xr, Yr, Zr, W, m, s, gx, gy, gz) || (slabs && (zs == nullptr || zout == nullptr))) return -1;
+  Args a;
+  fill_args(a, raw, out, origins, Xr, Yr, Zr, W, s, gx, gy, gz);
+  for (int q = 0; q < STP_NF && slabs; ++q) {
+    a.zs[q] = static_cast<const float*>(zs[q]);
+    a.zout[q] = static_cast<float*>(zout[q]);
+  }
   cudaStream_t st = (cudaStream_t)stream;
   return slabs ? launch<STP_M, true>(a, n, st) : launch<STP_M, false>(a, n, st);
 }
@@ -550,14 +626,40 @@ int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, vo
 int stp_stream_wavefront_plan(int n, int Xr, int Yr, int Zr, int W, int m, int s, int slabs, int* info) {
   if (bad_args(n, Xr, Yr, Zr, W, m, s, 1, 1, 1)) return -1;
   Plan pl;
-  const int rc =
-      slabs ? plan_launch<STP_M, true>(n, Xr, Yr, W, s, &pl) : plan_launch<STP_M, false>(n, Xr, Yr, W, s, &pl);
-  if (rc != 0) return rc;
-  const int v[10] = {pl.queue, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks, pl.smem,
-                     pl.threads, pl.tiles_z, pl.tiles_y};
-  for (int j = 0; j < 10; ++j) info[j] = v[j];
-  return 0;
+  const int rc = slabs ? plan_launch<STP_M, true, Args>(n, Xr, Yr, W, s, &pl)
+                       : plan_launch<STP_M, false, Args>(n, Xr, Yr, W, s, &pl);
+  return rc != 0 ? rc : plan_info(pl, info);
 }
+
+#else
+
+// The fused form: raw/out as stp_stream_wavefront's plain form (W = Zr);
+// xb/yb/zb host arrays of STP_NF device pointers to the shell buffers
+// (layouts above).
+int stp_stream_wavefront_fused(void* const* raw, void* const* xb, void* const* yb, void* const* zb,
+                               void* const* out, const int* origins, int n, int Xr, int Yr, int Zr, int m, int s,
+                               int gx, int gy, int gz, void* stream) {
+  if (bad_args(n, Xr, Yr, Zr, Zr, m, s, gx, gy, gz)) return -1;
+  FusedArgs a;
+  fill_args(a, raw, out, origins, Xr, Yr, Zr, Zr, s, gx, gy, gz);
+  for (int q = 0; q < STP_NF; ++q) {
+    a.xb[q] = static_cast<const float*>(xb[q]);
+    a.yb[q] = static_cast<const float*>(yb[q]);
+    a.zb[q] = static_cast<const float*>(zb[q]);
+  }
+  return launch<STP_M, false>(a, n, (cudaStream_t)stream);
+}
+
+// The launch stp_stream_wavefront_fused makes, as stp_stream_wavefront_plan
+// (W = Zr; slabs must be 0).
+int stp_stream_wavefront_plan(int n, int Xr, int Yr, int Zr, int W, int m, int s, int slabs, int* info) {
+  if (bad_args(n, Xr, Yr, Zr, W, m, s, 1, 1, 1) || W != Zr || slabs) return -1;
+  Plan pl;
+  const int rc = plan_launch<STP_M, false, FusedArgs>(n, Xr, Yr, W, s, &pl);
+  return rc != 0 ? rc : plan_info(pl, info);
+}
+
+#endif  // STP_FUSED
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -29,10 +29,12 @@ import numpy as np
 import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3, Rect3
-from stencil_tpu_torch.core.geometry import LocalSpec, shrink_by_radius
+from stencil_tpu_torch.core.geometry import LocalSpec, exterior_of, shrink_by_radius
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
-from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES, ValidLast, halo_exchange_multi, route_supported
+from stencil_tpu_torch.ops.exchange import (
+    EXCHANGE_ROUTES, ValidLast, halo_exchange_multi, overlapped, route_supported, side_stream,
+)
 from stencil_tpu_torch.ops.stream_trace import StreamKernel
 from stencil_tpu_torch.parallel.mesh import SubdomainGrid, make_grid
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
@@ -439,9 +441,14 @@ class DistributedDomain:
         With a halo multiplier ``k`` each step is a MACRO step: one exchange
         of the ``k*r``-wide shells, then ``k`` sub-steps over regions that
         shrink by the user radius from the whole shell down to the interior,
-        so ``step(curr, s)`` advances ``s*k`` iterations.  ``overlap`` is
-        accepted and computes the same cells: the two-stream
-        interior/exterior split is ROADMAP.md queue 1 item 8.
+        so ``step(curr, s)`` advances ``s*k`` iterations.  ``overlap=True``
+        (the JAX package's ``domain.py:1585-1627``) evaluates the interior,
+        the cells whose reads stay inside the valid interior (on padded
+        axes short of the earliest halo too), from the PRE-exchange stacks
+        on the current stream while the exchange runs on a second CUDA
+        stream, then the exterior slabs of the first sub-step's region
+        (``exterior_of``) from the exchanged stacks, and writes them all; it
+        computes the same cells as ``overlap=False``, bit for bit.
 
         ``engine="stream"``: the plane-streaming engine
         (``ops/stream.make_stream_step``) with the hand-written CUDA stream
@@ -465,36 +472,70 @@ class DistributedDomain:
             )
         if engine != "torch":
             raise ValueError(f"unknown engine {engine!r}")
-        del overlap
         n = self._spec.sz
         shell = self._shell_radius
         lo = shell.lo()
         names = [h.name for h in self._handles]
         route = self._exchange_route
+
+        def region_of(rect: Rect3):
+            """(info, traced kernel) of one region in interior-local coords."""
+            region = tuple(slice(rect.lo[ax], rect.hi[ax]) for ax in range(3))
+            info = BlockInfo(self._origin_views(), n, self._size, self._radius, region)
+            static = {"interior": info.interior, "radius": info.radius, "region": info.region}
+            return info, StreamKernel(kernel, names, None, self._size, static)
+
         # sub-step regions in interior-local coords: the whole shell is valid
         # after the exchange and each sub-step shrinks it by the user radius,
         # landing on the interior after the last one (domain.py:1553-1569 of
         # the JAX package); multiplier 1 gives the interior alone
         rect = Rect3(Dim3(0, 0, 0) - lo, n + shell.hi())
-        subs = []
+        rects = []
         for _ in range(self._halo_mult):
             rect = shrink_by_radius(rect, self._radius)
-            region = tuple(slice(rect.lo[ax], rect.hi[ax]) for ax in range(3))
-            info = BlockInfo(self._origin_views(), n, self._size, self._radius, region)
-            static = {"interior": info.interior, "radius": info.radius, "region": info.region}
-            subs.append((info, StreamKernel(kernel, names, None, self._size, static)))
+            rects.append(rect)
+        subs = [region_of(r) for r in rects]
+        if overlap:
+            # the cells computable before the exchange: their user-radius
+            # reads stay inside the valid interior; a padded axis also stops
+            # short of its earliest halo (JAX domain.py:1530-1550)
+            inner = shrink_by_radius(Rect3(Dim3(0, 0, 0), n), self._radius)
+            vl = self._valid_last or (None, None, None)
+            pad = [n[ax] - vl[ax] if vl[ax] is not None else 0 for ax in range(3)]
+            inner = Rect3(inner.lo, Dim3(*[max(inner.hi[ax] - pad[ax], inner.lo[ax]) for ax in range(3)]))
+            interior = region_of(inner)
+            exterior = [region_of(r) for r in exterior_of(rects[0], inner)]
+        side = side_stream(self.device) if overlap else None
+
+        def evaluate(stacks, info, sk):
+            views = [ShardView(b, lo, info.region) for b in stacks]
+            return views, sk.evaluate(lambda q, dx, dy, dz: views[q].sh(dx, dy, dz), info.coords, self.device)
+
+        def write(views, vals, sk):
+            for view, v, written in zip(views, vals, sk.updates()):
+                if written:
+                    view.center().copy_(v)
 
         def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
             for _ in range(steps):
-                stacks = halo_exchange_multi([curr[k] for k in names], shell, self._valid_last, route=route)
-                for info, sk in subs:
-                    views = [ShardView(b, lo, info.region) for b in stacks]
+                stacks = [curr[k] for k in names]
+                first = 0
+                if overlap:
+                    inside = overlapped(side, lambda: evaluate(stacks, *interior),
+                                        lambda: halo_exchange_multi(stacks, shell, self._valid_last, route=route))
+                    outside = [evaluate(stacks, *r) for r in exterior]
+                    # every value computed before any write; a value that is
+                    # a view of the stacks (a pass-through) is copied first
+                    done = [(views, [v.clone() if v._is_view() else v for v in vals], sk)
+                            for (views, vals), (_, sk) in zip([inside] + outside, [interior] + exterior)]
+                    for views, vals, sk in done:
+                        write(views, vals, sk)
+                    first = 1
+                else:
+                    halo_exchange_multi(stacks, shell, self._valid_last, route=route)
+                for info, sk in subs[first:]:
                     # all values computed before any write
-                    vals = sk.evaluate(lambda q, dx, dy, dz: views[q].sh(dx, dy, dz), info.coords,
-                                       self.device)
-                    for view, v, written in zip(views, vals, sk.updates()):
-                        if written:
-                            view.center().copy_(v)
+                    write(*evaluate(stacks, info, sk), sk)
             return curr
 
         return step

@@ -88,7 +88,19 @@ TEMPLATE_SIGNATURES: Dict[str, Dict[str, list]] = {
         "stp_stream_wavefront": [_PP] * 4 + [_P] + [_I] * 11 + [_P],
         "stp_stream_wavefront_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
     },
+    # the fused forms: the same sources built with STP_FUSED defined
+    "stream_plane_fused": {
+        "stp_stream_plane_fused": [_PP] * 5 + [_P] + [_I] * 14 + [_P],
+    },
+    "stream_wavefront_fused": {
+        "stp_stream_wavefront_fused": [_PP] * 5 + [_P] + [_I] * 9 + [_P],
+        "stp_stream_wavefront_plan": [_I] * 8 + [ctypes.POINTER(ctypes.c_int)],
+    },
 }
+
+#: templates built from another template's source (with a define that the
+#: generated part carries)
+TEMPLATE_FILES = {"stream_plane_fused": "stream_plane", "stream_wavefront_fused": "stream_wavefront"}
 
 #: the line of a template that its generated part replaces
 GENERATED_HOOK = "// @STP_GENERATED@\n"
@@ -179,7 +191,7 @@ def generated_source(template: str, generated: str) -> str:
     defines and ``stp_body`` of one traced kernel) in place of its hook."""
     if template not in TEMPLATE_SIGNATURES:
         raise KeyError(f"unknown kernel template {template!r} (one of {tuple(TEMPLATE_SIGNATURES)})")
-    with open(source_path(template)) as f:
+    with open(source_path(TEMPLATE_FILES.get(template, template))) as f:
         text = f.read()
     if text.count(GENERATED_HOOK) != 1:
         raise KernelBuildError(f"{source_path(template)} has no single {GENERATED_HOOK.strip()!r} line")

@@ -4,7 +4,9 @@ Keyed by the JAX package's ``(file, function)`` pairs, the same set as
 ``PALLAS_KERNELS`` in ``stencil_tpu/analysis/registry.py``.  A ported entry
 names the port's wrapper (which launches the hand-written kernel on CUDA
 tensors), its plain PyTorch version, the CUDA source and the line of the TPU
-kernel it replaces.  Every entry is ported.
+kernel it replaces.  Every entry is ported.  ``FORMS`` lists the forms of a
+ported kernel that count their launches apart (the fused forms of the stream
+plane and wavefront kernels), by the wrapper's counter that counts them.
 """
 
 from __future__ import annotations
@@ -117,6 +119,14 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
 }
 
 
+#: forms of a ported kernel whose launches its wrapper counts apart:
+#: name -> (the ported entry's key, the wrapper's counter)
+FORMS: Dict[str, Tuple[Tuple[str, str], str]] = {
+    "stream_plane_pass_fused": ((_ST, "stream_plane_pass"), "fused_launches"),
+    "stream_wavefront_pass_fused": ((_ST, "stream_wavefront_pass"), "fused_launches"),
+}
+
+
 def resolve(dotted: str):
     """``"pkg.module:function"`` -> the function."""
     mod, fn = dotted.split(":")
@@ -131,11 +141,25 @@ def wrapper_name(entry: dict) -> str:
     return entry["kernel"].split(":")[1]
 
 
+def form_entry(name: str) -> dict:
+    """The ported entry of a ``FORMS`` form (its kernel's, with its counter)."""
+    key, counter = FORMS[name]
+    return dict(PORTED_KERNELS[key], counter=counter)
+
+
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per ported wrapper since the last reset."""
-    return {wrapper_name(e): resolve(e["kernel"]).launches for e in ported().values()}
+    """Kernel launches per ported wrapper, and per ``FORMS`` form, since the
+    last reset."""
+    counts = {wrapper_name(e): resolve(e["kernel"]).launches for e in ported().values()}
+    for name in FORMS:
+        e = form_entry(name)
+        counts[name] = getattr(resolve(e["kernel"]), e["counter"])
+    return counts
 
 
 def reset_launch_counts() -> None:
     for e in ported().values():
         resolve(e["kernel"]).launches = 0
+    for name in FORMS:
+        e = form_entry(name)
+        setattr(resolve(e["kernel"]), e["counter"], 0)

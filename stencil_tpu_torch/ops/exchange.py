@@ -27,6 +27,12 @@ package leaves this to an XLA collective, not to Pallas, so plain torch does
 it here.  The halo WRITES go through ``blend_slab``, the kernel the TPU path
 uses for them.
 
+``fused_shell_exchange`` (``stencil_tpu/ops/exchange.py:610-741``) runs
+the three sweeps of a ``yzpack_*`` route WITHOUT the unpack: it returns the
+received shell as small buffers, corner-patched in the sweep order, for the
+stream engine's fused passes (``halo="fused"``), and writes nothing into the
+stacks.
+
 Routes (``EXCHANGE_ROUTES``, ``stencil_tpu/ops/exchange.py:62-92``): ``direct``
 sends the slabs as sliced.  The packed routes send a thin shell as a buffer
 whose thin extent leads (``ops/pack.py``): the z sweep on every packed route,
@@ -244,3 +250,136 @@ def halo_exchange_shard(
 ) -> torch.Tensor:
     """Single-quantity convenience wrapper over ``halo_exchange_multi``."""
     return halo_exchange_multi([stack], radius, valid_last, axes=axes, route=route)[0]
+
+
+def fused_shell_exchange(
+    stacks: Sequence[torch.Tensor], radius: Radius, route: str = "yzpack_xla"
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """The exchange without the unpack (``fused_shell_exchange``,
+    ``stencil_tpu/ops/exchange.py:610-741``): run the three sweeps and return
+    the received shell buffers instead of writing them into the stacks.
+
+    Each stack is ``(px, py, pz, X, Y, Z)`` (even shards, every shell width >
+    0); for each quantity, over the ``n = px * py * pz`` blocks in stack
+    order, it returns
+
+    * ``xbufs`` ``(n, lo_x + hi_x, Y, Z)``: the whole-plane x slabs, ``[low |
+      high]`` halo planes;
+    * ``ybufs`` ``(n, lo_y + hi_y, X, Z)``: the y shell in the packs' wire
+      layout (``buf[k, x, z]``; the JAX buffer is its ``(1, 0, 2)``
+      transpose);
+    * ``zbufs`` ``(n, lo_z + hi_z, Y, X)``: the z shell in the packs' wire
+      layout (``buf[k, y, x]``, no lane pad; the JAX buffer is its
+      ``(2, 0, 1)`` transpose).
+
+    Sends: x slabs by ``shift_from_low``/``shift_from_high`` on the grid
+    axis; y and z through ``pack_yshell_*``/``pack_zshell_*`` of ``route``
+    (the ``*_pallas`` routes launch the shell pack kernels), each pack
+    reading the blocks with their stale shell.  The corners are patched on
+    the small buffers in the exchange's sweep order: the y messages' x-shell
+    planes from the received x slabs, the z messages' x columns from the
+    received x slabs and then their y rows from the received y buffers.  So
+    every buffer cell equals the stacks' cell after ``halo_exchange_multi``
+    on the same route, bit for bit."""
+    if route not in Y_PACK_ROUTES:
+        raise ValueError(f"fused_shell_exchange needs a y+z packed route ({Y_PACK_ROUTES}); got {route!r}")
+    stacks = list(stacks)
+    shape = stacks[0].shape
+    if any(s.dim() != 6 or s.shape != shape for s in stacks):
+        raise ValueError(
+            "every quantity must be a (px, py, pz, X, Y, Z) stack of one shape; got "
+            f"{[tuple(s.shape) for s in stacks]}"
+        )
+    grid, (X, Y, Z) = tuple(shape[:3]), tuple(shape[3:])
+    lo = [radius.axis(a, -1) for a in range(3)]
+    hi = [radius.axis(a, +1) for a in range(3)]
+    if min(lo + hi) < 1:
+        raise ValueError(f"fused_shell_exchange needs every shell width > 0, got {lo}/{hi}")
+    n = [shape[3 + a] - lo[a] - hi[a] for a in range(3)]
+    pallas = route.endswith("pallas")
+    pack_y = pack.pack_yshell_pallas if pallas else pack.pack_yshell_xla
+    pack_z = pack.pack_zshell_pallas if pallas else pack.pack_zshell_xla
+    count = stacks[0].numel() // (X * Y * Z)
+
+    def recv(dst: torch.Tensor, msg: torch.Tensor, axis: int, step: int) -> None:
+        """Write into ``dst`` (a ``(px, py, pz, d, ...)`` slot of a buffer) the
+        message each block receives along grid ``axis``: its -1 neighbour's
+        (``step`` +1, ``shift_from_low``) or its +1 neighbour's (-1,
+        ``shift_from_high``), two copies and no intermediate."""
+        msg = msg.reshape(*grid, *msg.shape[1:]) if msg.dim() == 4 else msg
+        g = grid[axis]
+        if step > 0:
+            dst.narrow(axis, 1, g - 1).copy_(msg.narrow(axis, 0, g - 1))
+            dst.narrow(axis, 0, 1).copy_(msg.narrow(axis, g - 1, 1))
+        else:
+            dst.narrow(axis, 0, g - 1).copy_(msg.narrow(axis, 1, g - 1))
+            dst.narrow(axis, g - 1, 1).copy_(msg.narrow(axis, 0, 1))
+
+    def buffer(d: int, a: int, b: int, like: torch.Tensor) -> torch.Tensor:
+        return torch.empty((count, d, a, b), dtype=like.dtype, device=like.device)
+
+    xbufs, ybufs, zbufs = [], [], []
+    for s in stacks:
+        blocks = s.view(count, X, Y, Z)
+        # x sweep: whole planes, [low | high]
+        xb = buffer(lo[0] + hi[0], Y, Z, s)
+        xg = xb.view(*grid, *xb.shape[1:])
+        recv(xg[:, :, :, : lo[0]], s[:, :, :, n[0] : n[0] + lo[0]], 0, 1)
+        recv(xg[:, :, :, lo[0] :], s[:, :, :, lo[0] : lo[0] + hi[0]], 0, -1)
+        xlo, xhi = xb[:, : lo[0]], xb[:, lo[0] :]
+
+        # y sweep: (n, d, X, Z) messages whose x-shell planes come from the
+        # received x slabs (the in-array y sweep spans the x halos)
+        yb = buffer(lo[1] + hi[1], X, Z, s)
+        yg = yb.view(*grid, *yb.shape[1:])
+        for y0, depth, at, step in ((n[1], lo[1], 0, 1), (lo[1], hi[1], lo[1], -1)):
+            buf = pack_y(blocks, y0, depth)
+            buf[:, :, 0 : lo[0]] = xlo[:, :, y0 : y0 + depth].transpose(1, 2)
+            buf[:, :, X - hi[0] : X] = xhi[:, :, y0 : y0 + depth].transpose(1, 2)
+            recv(yg[:, :, :, at : at + depth], buf, 1, step)
+        ylo, yhi = yb[:, : lo[1]], yb[:, lo[1] :]
+
+        # z sweep: (n, d, Y, X) messages, x columns from the x slabs, then y
+        # rows from the y buffers (the x-y-z corners take two hops)
+        zb = buffer(lo[2] + hi[2], Y, X, s)
+        zg = zb.view(*grid, *zb.shape[1:])
+        for z0, depth, at, step in ((n[2], lo[2], 0, 1), (lo[2], hi[2], lo[2], -1)):
+            buf = pack_z(blocks, z0, depth)
+            buf[..., 0 : lo[0]] = xlo[..., z0 : z0 + depth].permute(0, 3, 2, 1)
+            buf[..., X - hi[0] : X] = xhi[..., z0 : z0 + depth].permute(0, 3, 2, 1)
+            buf[:, :, 0 : lo[1]] = ylo[..., z0 : z0 + depth].permute(0, 3, 1, 2)
+            buf[:, :, Y - hi[1] : Y] = yhi[..., z0 : z0 + depth].permute(0, 3, 1, 2)
+            recv(zg[:, :, :, at : at + depth], buf, 2, step)
+        xbufs.append(xb)
+        ybufs.append(yb)
+        zbufs.append(zb)
+    return xbufs, ybufs, zbufs
+
+
+def side_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:
+    """A second CUDA stream on ``device`` for an exchange that runs beside
+    compute (None on the CPU)."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def overlapped(side, interior, exchange):
+    """``interior()`` on the current stream beside ``exchange()`` on
+    ``side`` (``side_stream``); returns what ``interior`` returns, the
+    current stream ordered after both.  The side stream first waits for the
+    work issued so far (the stacks both read), and the interior is issued
+    first, so the card runs it while the host issues the exchange's many
+    small launches.  Every tensor the exchange makes is made and freed on
+    the side stream; the stacks it writes outlive the wait.  Every wrapper
+    reads the current stream when it launches, so the exchange's kernels
+    land on ``side``.  On the CPU (``side`` None) the two run in turn."""
+    if side is None:
+        out = interior()
+        exchange()
+        return out
+    main = torch.cuda.current_stream(side.device)
+    side.wait_stream(main)
+    out = interior()
+    with torch.cuda.stream(side):
+        exchange()
+    main.wait_stream(side)
+    return out

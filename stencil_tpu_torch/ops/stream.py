@@ -25,10 +25,36 @@ a group); on a CPU tensor it runs the plain version.
 ``plan_stream`` and ``make_stream_step`` pick and build the routes as the
 JAX package does, with a Hopper shared-memory model (``stream_smem_fits``)
 in place of the VMEM model: a constant of tile, depth and field count, so
-the CPU and the card plan the same depth.  Not ported here: the split
-overlap schedule and the fused halo (ROADMAP.md queue 1 item 8), the MXU
-units, bf16 inputs and bf16 storage (item 9), the tune cache, telemetry
-events and the resilience ladder (items 10/11).
+the CPU and the card plan the same depth.  Not ported here: the MXU units,
+bf16 inputs and bf16 storage (ROADMAP.md queue 1 item 9), the env and tune
+sources of the overlap and halo axes, the tune cache, telemetry events and
+the resilience ladder (items 10/11).
+
+**The fused halo** (``halo="fused"``, ``stencil_tpu/ops/stream.py:71-94``):
+under a ``yzpack_*`` exchange route each step calls
+``ops/exchange.fused_shell_exchange``, which returns the received shell as
+small buffers per field (x planes, y rows, z columns, corner-patched in the
+sweep order), and the plane and plain-wavefront passes take them as
+``fused_shell``: each level-0 cell at a shell position is read from them, z
+column over y row over x plane (the fused forms of ``csrc/stream_plane.cu``
+and ``csrc/stream_wavefront.cu``).  The stacks never see a halo write: no
+unpack, no blend.  Every output cell, shell included, equals the array
+form's bit for bit (the wavefront's shell is unwritten on the card in both
+forms).  It needs even shards and every shell width > 0.
+
+**The split schedule** (``overlap="split"``, ``stream.py:32-69``): the
+interior pass runs on PyTorch's current stream over the PRE-exchange stacks
+while ``halo_exchange_multi`` runs on a second CUDA stream; an event orders
+after both six narrow passes over ``3w``-wide face sub-blocks (``w = m * r``)
+of the exchanged stacks, whose width-``w`` bands are written into the
+outputs (x: plane copies; y/z: ``blend_slab``, or ``blend_slab_dynamic`` at
+the padded shards' per-block offsets).  A cell at distance ``>= w`` from the
+shell never reads the shell, so the interiors are bitwise those of
+``overlap="off"``.  The port's exchange writes in place, so the side stream
+writes the shell of the stacks the interior pass reads: a value read there
+reaches only band cells, which the narrow passes rewrite, and the output's
+pass-through shell, which is stale by contract (the step marks it so).  On
+the CPU the schedule runs serially and computes the same values.
 
 The z-slab helpers (``stream.py:1080-1135``): the wavefront keeps the z halo
 out of the big array.  Each subdomain's z shell lives in a z-major
@@ -44,13 +70,18 @@ from __future__ import annotations
 
 import ctypes
 import operator
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.kernels import build, check_tensor, same_device, stream_handle
-from stencil_tpu_torch.ops.exchange import halo_exchange_multi, shift_from_high, shift_from_low
+from stencil_tpu_torch.ops.exchange import (
+    Y_PACK_ROUTES, fused_shell_exchange, halo_exchange_multi, overlapped, shift_from_high, shift_from_low,
+    side_stream,
+)
+from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
 from stencil_tpu_torch.ops.jacobi_kernels import _WRAP_MAX_K, SMEM_PER_BLOCK, _emit
 from stencil_tpu_torch.ops.stream_trace import PlaneInfo, PlaneView, StreamKernel
 
@@ -69,11 +100,17 @@ STREAM_TILE_W = 64
 
 #: what the JAX package plans for its axes, and what the port accepts of them
 _PORTED_AXES = {
-    "overlap": ("off", ("split",), "queue 1 item 8"),
-    "halo": ("array", ("fused",), "queue 1 item 8"),
     "compute_unit": ("vpu", ("mxu", "mxu_band"), "queue 1 item 9"),
     "mxu_input": ("f32", ("bf16",), "queue 1 item 9"),
 }
+
+#: the overlap schedules and halo consumption modes (``STREAM_OVERLAP``,
+#: ``STREAM_HALO`` of the JAX package)
+STREAM_OVERLAP = ("off", "split")
+STREAM_HALO = ("array", "fused")
+
+#: the define that builds a template's fused form
+_FUSED = "#define STP_FUSED 1\n"
 
 Kernel = Union[Callable, StreamKernel]
 
@@ -215,6 +252,47 @@ def _wrapped(origin_col: torch.Tensor, start: int, count: int, g: int, shape) ->
     return ((origin_col.long() + g + start + i) % g).to(torch.int32).view(shape)
 
 
+def _check_fused(fused_shell, raws, lo, hi) -> None:
+    """The fused shell buffers of ``raws`` (``(X, Y, Z)`` or ``(n, X, Y, Z)``
+    blocks per field): ``(xbufs, ybufs, zbufs)``, one tensor per field each,
+    ``(.., lo.x + hi.x, Y, Z)``, ``(.., lo.y + hi.y, X, Z)`` and ``(.., lo.z
+    + hi.z, Y, X)`` float32 on the blocks' device (``fused_shell_exchange``'s
+    layouts).  The passes' own checks hold every shell width >= 1."""
+    if not (isinstance(fused_shell, (tuple, list)) and len(fused_shell) == 3):
+        raise ValueError("fused_shell must be (xbufs, ybufs, zbufs)")
+    *lead, X, Y, Z = raws[0].shape
+    wants = ((lo.x + hi.x, Y, Z), (lo.y + hi.y, X, Z), (lo.z + hi.z, Y, X))
+    for what, bufs, want in zip(("xbufs", "ybufs", "zbufs"), fused_shell, wants):
+        if len(bufs) != len(raws):
+            raise ValueError(f"fused_shell {what}: {len(bufs)} buffers for {len(raws)} fields")
+        shape, _ = _check_fields(bufs, f"fused_shell {what}", (len(lead) + 3,))
+        if tuple(shape) != (*lead, *want):
+            raise ValueError(f"fused_shell {what}: shape {tuple(shape)}, want {(*lead, *want)}")
+        same_device(raws[0], bufs[0])
+
+
+def _fused_level0(b: torch.Tensor, xb, yb, zb, lo, hi) -> torch.Tensor:
+    """Block(s) ``b`` ``(n, X, Y, Z)`` with the fused shell in place, as the
+    exchange would have left them (``_fused_plane_patch``,
+    ``stencil_tpu/ops/stream.py:239-259``): the x planes, then the y rows,
+    then the z columns.  Returns a new tensor."""
+    X, Y, Z = b.shape[-3:]
+    w = b.clone()
+    w[:, : lo.x] = xb[:, : lo.x]
+    w[:, X - hi.x :] = xb[:, lo.x :]
+    w[:, :, : lo.y] = yb[:, : lo.y].transpose(1, 2)
+    w[:, :, Y - hi.y :] = yb[:, lo.y :].transpose(1, 2)
+    w[..., : lo.z] = zb[:, : lo.z].permute(0, 3, 2, 1)
+    w[..., Z - hi.z :] = zb[:, lo.z :].permute(0, 3, 2, 1)
+    return w
+
+
+def _fused_blocks(bs, fused_shell, lo, hi, single: bool) -> List[torch.Tensor]:
+    """The ``(n, X, Y, Z)`` level-0 blocks of a fused pass's plain version."""
+    lead = (lambda t: t[None]) if single else (lambda t: t)
+    return [_fused_level0(b, lead(xb), lead(yb), lead(zb), lo, hi) for b, xb, yb, zb in zip(bs, *fused_shell)]
+
+
 # --- stream_wrap_pass ---------------------------------------------------------------
 
 
@@ -279,7 +357,7 @@ stream_wrap_pass.launches = 0
 # --- stream_plane_pass --------------------------------------------------------------
 
 
-def _check_plane(names, raws, lo, hi, x_radius, origin, out):
+def _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell=None):
     shape, dev = _check_fields(raws, "raws", (3, 4))
     if len(names) != len(raws):
         raise ValueError(f"{len(names)} names for {len(raws)} blocks")
@@ -300,18 +378,25 @@ def _check_plane(names, raws, lo, hi, x_radius, origin, out):
         if {o.data_ptr() for o in out} & {r_.data_ptr() for r_ in raws}:
             raise ValueError("out must not alias the input blocks")
         same_device(raws[0], *out)
+    if fused_shell is not None:
+        _check_fused(fused_shell, raws, lo, hi)
     return n, X, Y, Z, dev
 
 
 def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius: int, origin,
-                            global_size, out=None) -> List[torch.Tensor]:
+                            global_size, out=None, fused_shell=None) -> List[torch.Tensor]:
     """One level of ``kernel`` over shell-carrying block(s) ``(X, Y, Z)`` or
     ``(n, X, Y, Z)`` per field, with slices; shell cells pass through.
-    ``origin`` holds each block's interior start."""
-    n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out)
+    ``origin`` holds each block's interior start.  ``fused_shell``
+    ``(xbufs, ybufs, zbufs)`` (``_check_fused``) is patched into a copy of
+    the blocks first, x planes, y rows, z columns, and the shell passes
+    through with those values."""
+    n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell)
     sk = _as_kernel(kernel, names, x_radius, global_size)
     single = raws[0].dim() == 3
     bs = [r[None] if single else r for r in raws]
+    if fused_shell is not None:
+        bs = _fused_blocks(bs, fused_shell, lo, hi, single)
     org = (origin[None] if single else origin).cpu()
     gx, gy, gz = sk.global_size
     ex = (X - lo.x - hi.x, Y - lo.y - hi.y, Z - lo.z - hi.z)
@@ -335,33 +420,47 @@ def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_r
 
 
 def stream_plane_pass(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius: int, origin,
-                      global_size, out=None) -> List[torch.Tensor]:
+                      global_size, out=None, fused_shell=None) -> List[torch.Tensor]:
     """ONE level of ``kernel`` over shell-carrying block(s) per field (lo/hi
     the shell widths, every shift within ``x_radius`` <= them); shell cells
     pass through.  Returns ``out`` (fresh tensors when None).  One CUDA
-    launch serves all ``n`` blocks and all fields."""
-    n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out)
+    launch serves all ``n`` blocks and all fields.  With ``fused_shell``
+    the blocks' shell is stale and every shell-position cell is read from
+    the buffers (the fused form; ``stream_plane_pass_plain``)."""
+    n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell)
     if dev.type == "cpu":
-        return stream_plane_pass_plain(kernel, names, raws, lo, hi, x_radius, origin, global_size, out)
+        return stream_plane_pass_plain(kernel, names, raws, lo, hi, x_radius, origin, global_size, out,
+                                       fused_shell)
     sk = _as_kernel(kernel, names, x_radius, global_size)
-    lib = _library(sk, "stream_plane", [1])
     res = [torch.empty_like(r) for r in raws] if out is None else list(out)
     gx, gy, gz = sk.global_size
-    rc = lib.stp_stream_plane_level(_ptrs(raws), _ptrs(res), origin.data_ptr(), n, X, Y, Z,
-                                    lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, gx, gy, gz, stream_handle(dev))
-    build.check(lib, rc, "stream_plane_pass")
-    stream_plane_pass.launches += 1
+    geometry = (n, X, Y, Z, lo.x, lo.y, lo.z, hi.x, hi.y, hi.z)
+    if fused_shell is None:
+        lib = _library(sk, "stream_plane", [1])
+        rc = lib.stp_stream_plane_level(_ptrs(raws), _ptrs(res), origin.data_ptr(), *geometry, gx, gy, gz,
+                                        stream_handle(dev))
+        build.check(lib, rc, "stream_plane_pass")
+        stream_plane_pass.launches += 1
+        return res
+    lib = _library(sk, "stream_plane_fused", [1], _FUSED)
+    xb, yb, zb = fused_shell
+    rc = lib.stp_stream_plane_fused(_ptrs(raws), _ptrs(xb), _ptrs(yb), _ptrs(zb), _ptrs(res), origin.data_ptr(),
+                                    *geometry, int(x_radius), gx, gy, gz, stream_handle(dev))
+    build.check(lib, rc, "stream_plane_pass (fused)")
+    stream_plane_pass.fused_launches += 1
     return res
 
 
-#: kernel launches made by ``stream_plane_pass``
+#: kernel launches made by ``stream_plane_pass``: its array form, and its
+#: fused form (``fused_shell``; one a call, its far and band kernels)
 stream_plane_pass.launches = 0
+stream_plane_pass.fused_launches = 0
 
 
 # --- stream_wavefront_pass -----------------------------------------------------------
 
 
-def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_valid, alias):
+def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_valid, alias, fused_shell=None):
     if alias:
         raise NotImplementedError(
             "alias=True (an in-place wavefront) is refused: blocks march along x "
@@ -395,23 +494,35 @@ def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_vali
             raise ValueError(f"z_slabs: one {want} tensor per field, got {tuple(zshape)}")
         tensors.append(z_slabs[0])
     same_device(*tensors)
+    if fused_shell is not None:
+        if z_slabs is not None or zv != Zr:
+            raise ValueError("fused_shell takes the plain form: no z_slabs, z_valid = Zr")
+        s3 = Dim3(s_off, s_off, s_off)
+        _check_fused(fused_shell, raws, s3, s3)
     return n, Xr, Yr, Zr, zv, dev
 
 
 def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int, origin, global_size,
-                                z_slabs=None, z_valid=None, alias=False):
+                                z_slabs=None, z_valid=None, alias=False, fused_shell=None):
     """``m`` levels of ``kernel`` over s-shelled block(s) ``(Xr, Yr, Zr)`` or
     ``(n, Xr, Yr, Zr)`` per field, with rolls: every axis wraps, and the
     wrapped cells are the ones the shell was sized to sacrifice.  ``z_slabs``
     ``(.., Xr, 2s, Yr)`` per field replace the z-shell columns ``[0, s)`` and
-    ``[z_valid - s, z_valid)`` (columns ``[z_valid, Zr)`` are dead).  Returns
-    ``(outs, zouts)`` (``zouts`` None without slabs); the interior
-    ``[s, ext - s)`` of every axis is exact, shell cells are unspecified."""
+    ``[z_valid - s, z_valid)`` (columns ``[z_valid, Zr)`` are dead).
+    ``fused_shell`` ``(xbufs, ybufs, zbufs)`` (``_check_fused``, every width
+    s; the plain form only) is patched into the level-0 blocks, x planes, y
+    rows, z columns.  Returns ``(outs, zouts)`` (``zouts`` None without
+    slabs); the interior ``[s, ext - s)`` of every axis is exact, shell
+    cells are unspecified."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
-                                              z_valid, alias)
+                                              z_valid, alias, fused_shell)
     sk = _as_kernel(kernel, names, 1, global_size)
     single = raws[0].dim() == 3
-    w = [(r[None] if single else r).clone() for r in raws]
+    if fused_shell is not None:
+        s3 = Dim3(s_off, s_off, s_off)
+        w = _fused_blocks([r[None] if single else r for r in raws], fused_shell, s3, s3, single)
+    else:
+        w = [(r[None] if single else r).clone() for r in raws]
     if z_slabs is not None:
         for q, zs in enumerate(z_slabs):
             zst = (zs[None] if single else zs).transpose(-1, -2)  # (n, Xr, Yr, 2s)
@@ -438,22 +549,33 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
 
 
 def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origin, global_size,
-                          z_slabs=None, z_valid=None, alias=False):
+                          z_slabs=None, z_valid=None, alias=False, fused_shell=None):
     """``m`` levels of ``kernel`` (read radius 1) in ONE pass over s-shelled
     block(s) per field: the compute half of the temporally blocked route.
     Arguments and result as ``stream_wavefront_pass_plain``; ``alias=True``
     is refused.  One CUDA launch serves all ``n`` blocks and all fields; the
-    outputs are fresh buffers, written on the valid region only."""
+    outputs are fresh buffers, written on the valid region only.  With
+    ``fused_shell`` the blocks' shell is stale and every level-0 cell at a
+    shell position is read from the buffers (the fused form)."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
-                                              z_valid, alias)
+                                              z_valid, alias, fused_shell)
     if dev.type == "cpu":
         return stream_wavefront_pass_plain(kernel, names, raws, m, s_off, origin, global_size,
-                                           z_slabs, z_valid, alias)
+                                           z_slabs, z_valid, alias, fused_shell)
     sk = _as_kernel(kernel, names, 1, global_size)
-    lib = _library(sk, *_wavefront_variant(m))
     outs = [torch.empty_like(r) for r in raws]
-    zouts = None if z_slabs is None else [torch.empty_like(z) for z in z_slabs]
     gx, gy, gz = sk.global_size
+    if fused_shell is not None:
+        lib = _library(sk, *_wavefront_variant(m, fused=True))
+        xb, yb, zb = fused_shell
+        rc = lib.stp_stream_wavefront_fused(_ptrs(raws), _ptrs(xb), _ptrs(yb), _ptrs(zb), _ptrs(outs),
+                                            origin.data_ptr(), n, Xr, Yr, Zr, m, s_off, gx, gy, gz,
+                                            stream_handle(dev))
+        build.check(lib, rc, "stream_wavefront_pass (fused)")
+        stream_wavefront_pass.fused_launches += 1
+        return outs, None
+    lib = _library(sk, *_wavefront_variant(m))
+    zouts = None if z_slabs is None else [torch.empty_like(z) for z in z_slabs]
     slabs = z_slabs is not None
     rc = lib.stp_stream_wavefront(
         _ptrs(raws), _ptrs(outs), _ptrs(z_slabs) if slabs else None, _ptrs(zouts) if slabs else None,
@@ -470,19 +592,20 @@ WAVEFRONT_PLAN_FIELDS = ("queue", "blocks_per_sm", "sms", "blocks", "xchunk", "n
 
 
 def stream_wavefront_launch(kernel: Kernel, names, raws, m: int, s_off: int, global_size, z_slabs=None,
-                            z_valid=None) -> dict:
+                            z_valid=None, fused: bool = False) -> dict:
     """The launch ``stream_wavefront_pass`` makes for these arguments on the
     card, without making it: ``form`` ("queue", the register-queue form, or
     "general"), the blocks an SM the occupancy calculator allows, the grid's
     blocks and its ``waves`` (blocks over the blocks resident at once), the
     x chunking, the shared memory and threads a block asks and the tiles
-    along z and y (fields as ``WAVEFRONT_PLAN_FIELDS``)."""
+    along z and y (fields as ``WAVEFRONT_PLAN_FIELDS``); ``fused`` plans the
+    fused form's launch."""
     shape = raws[0].shape
     n = 1 if len(shape) == 3 else shape[0]
     Xr, Yr, Zr = shape[-3:]
     zv = Zr if z_valid is None else int(z_valid)
     sk = _as_kernel(kernel, names, 1, global_size)
-    lib = _library(sk, *_wavefront_variant(m))
+    lib = _library(sk, *_wavefront_variant(m, fused))
     info = (ctypes.c_int * len(WAVEFRONT_PLAN_FIELDS))()
     rc = lib.stp_stream_wavefront_plan(n, Xr, Yr, Zr, zv, m, s_off, int(z_slabs is not None), info)
     build.check(lib, rc, "stream_wavefront_launch")
@@ -492,9 +615,12 @@ def stream_wavefront_launch(kernel: Kernel, names, raws, m: int, s_off: int, glo
     return plan
 
 
-def _wavefront_variant(m: int):
-    """(template, levels, defines) of the wavefront library for depth m: one
-    library per depth, so a remainder pass never compiles inside a loop."""
+def _wavefront_variant(m: int, fused: bool = False):
+    """(template, levels, defines) of the wavefront library for depth m, or
+    of its fused form: one library per depth, so a remainder pass never
+    compiles inside a loop."""
+    if fused:
+        return "stream_wavefront_fused", range(1, m + 1), f"#define STP_M {m}\n" + _FUSED
     return "stream_wavefront", range(1, m + 1), f"#define STP_M {m}\n"
 
 
@@ -504,8 +630,10 @@ def _wavefront_variant(m: int):
 _WRAP_LEVELS = range(1, _WRAP_MAX_K + 1)
 
 
-#: kernel launches made by ``stream_wavefront_pass``
+#: kernel launches made by ``stream_wavefront_pass``: its z-slab and plain
+#: forms, and its fused form (``fused_shell``)
 stream_wavefront_pass.launches = 0
+stream_wavefront_pass.fused_launches = 0
 
 
 # --- planning -------------------------------------------------------------------------
@@ -590,6 +718,72 @@ def _check_axes(**requests) -> None:
             )
 
 
+def _warn(msg: str) -> None:
+    warnings.warn(msg, RuntimeWarning, stacklevel=4)
+
+
+def _resolve_stream_overlap(plan: dict) -> Tuple[str, str]:
+    """``(value, source)`` of a plan's overlap schedule
+    (``stencil_tpu/ops/stream.py:1156-1218`` without the env and tune
+    sources): an explicit request (``overlap_forced``) or the static
+    ``off``.  A ``split`` the plan cannot serve (the wrap route has no
+    exchange to hide; the z-slab wavefront interleaves its slab permutes
+    with the pass) degrades to ``off`` with a ``RuntimeWarning``, source
+    tagged ``/degraded``."""
+    val, source = (plan["overlap"], "explicit") if plan.get("overlap_forced") else ("off", "static")
+    if val == "split" and (plan.get("route") not in ("plane", "wavefront") or plan.get("z_slabs")):
+        why = ("the z-slab wavefront interleaves its slab permutes with the pass" if plan.get("z_slabs")
+               else f"the {plan.get('route')!r} route has no exchange to hide")
+        _warn(f"overlap=split ({source}) cannot engage here ({why}); degrading to overlap=off")
+        val, source = "off", source + "/degraded"
+    return val, source
+
+
+def fused_halo_ineligible(dd, plan: dict, exch_route: str) -> Optional[str]:
+    """Why ``halo="fused"`` cannot engage for this plan, domain and exchange
+    route, or None when it can (``stencil_tpu/ops/stream.py:1221-1251``)."""
+    if plan.get("route") not in ("plane", "wavefront"):
+        return f"the {plan.get('route')!r} route has no exchange to fuse"
+    if plan.get("z_slabs"):
+        return "the z-slab wavefront already keeps z halos out of the big array"
+    if plan.get("overlap") == "split":
+        return "the split schedule's exterior band passes read exchanged blocks"
+    if exch_route not in Y_PACK_ROUTES:
+        return (f"the {exch_route!r} exchange route does not pack the y shell "
+                f"(fused needs one of {Y_PACK_ROUTES})")
+    if dd.padded():
+        return "padded (uneven) shards: the fused pack cuts at static offsets"
+    if not all(supports(h.dtype) for h in dd._handles):
+        return "a field dtype the pack kernels do not take"
+    return None
+
+
+def _resolve_stream_halo(dd, plan: dict, exch_route: str) -> Tuple[str, str]:
+    """``(value, source)`` of a plan's halo consumption mode
+    (``stencil_tpu/ops/stream.py:1254-1311`` without the env and tune
+    sources): an explicit request (``halo_forced``) or the static
+    ``array``; a ``fused`` the plan cannot serve (``fused_halo_ineligible``)
+    degrades to ``array`` with a ``RuntimeWarning``."""
+    val, source = (plan["halo"], "explicit") if plan.get("halo_forced") else ("array", "static")
+    if val == "fused":
+        why = fused_halo_ineligible(dd, plan, exch_route)
+        if why is not None:
+            _warn(f"halo=fused ({source}) cannot engage here ({why}); degrading to halo=array")
+            val, source = "array", source + "/degraded"
+    return val, source
+
+
+def plain_wavefront_plan(plan: dict) -> Optional[dict]:
+    """The plain-form twin of a z-slab wavefront plan, or None
+    (``stencil_tpu/ops/stream.py:1314-1342``): split and fused need every
+    axis's halo on the blocks' side of the pass.  The port's shared-memory
+    model (``stream_smem_fits``) does not depend on the z form, so the twin
+    keeps the plan's depth."""
+    if plan.get("route") != "wavefront" or not plan.get("z_slabs"):
+        return None
+    return dict(plan, z_slabs=False)
+
+
 def _check_depth(max_depth):
     if max_depth is None:
         return None
@@ -620,13 +814,20 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     every shift within ``x_radius``, elementwise arithmetic.
     ``separable=True`` declares the kernel correct on any subset of the
     views, so many fields may stream per field.  ``max_depth`` caps the
-    temporal depth (wrap k / wavefront m).  ``overlap``, ``halo``,
-    ``compute_unit`` and ``mxu_input`` take ``"auto"`` or the static value
-    the port runs (off, array, vpu, f32); ``mxu_kernel`` is accepted and
-    unused.  ``z_slabs=False`` runs a wavefront plan in its plain form
-    (every axis exchanged in the array; the JAX package reaches that form
-    through its split and fused paths, not ported yet, and on uneven sizes,
-    where the plan takes it and ``z_slabs=True`` raises).
+    temporal depth (wrap k / wavefront m).  ``compute_unit`` and
+    ``mxu_input`` take ``"auto"`` or the static value the port runs (vpu,
+    f32); ``mxu_kernel`` is accepted and unused.  ``z_slabs=False`` runs a
+    wavefront plan in its plain form (every axis exchanged in the array, as
+    on uneven sizes, where the plan takes it and ``z_slabs=True`` raises).
+
+    ``overlap`` (``"auto"`` = ``"off"``, or ``"split"``) and ``halo``
+    (``"auto"`` = ``"array"``, or ``"fused"``) select the split schedule and
+    the fused halo (module docstring).  A ``split`` or ``fused`` request
+    re-plans a z-slab wavefront to the plain form (``plain_wavefront_plan``;
+    not when ``z_slabs`` is given); a request the plan cannot serve degrades
+    with a ``RuntimeWarning`` where the JAX package degrades it: split on
+    the wrap route or a z-slab plan; fused on the wrap route, a z-slab plan,
+    under split, off the ``yzpack_*`` exchange routes or on uneven shards.
 
     Per call, on the plan's route: ``wrap`` slices each subdomain interior
     out, runs ``steps // k`` passes of k levels and one of ``steps % k``,
@@ -639,8 +840,13 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     as in the JAX package.  Fields stream jointly or per field as the plan
     groups them.  On CUDA every kernel variant the plan can launch is built
     when the step is built, all nvcc runs at once.  The shell goes stale
-    (``step._marks_shell_stale``); ``step._stream_plan`` is the plan."""
-    _check_axes(overlap=overlap, halo=halo, compute_unit=compute_unit, mxu_input=mxu_input)
+    (``step._marks_shell_stale``); ``step._stream_plan`` is the plan, with
+    the resolved ``overlap`` and ``halo``."""
+    _check_axes(compute_unit=compute_unit, mxu_input=mxu_input)
+    if overlap not in ("auto",) + STREAM_OVERLAP:
+        raise ValueError(f"unknown stream overlap {overlap!r} (one of {('auto',) + STREAM_OVERLAP})")
+    if halo not in ("auto",) + STREAM_HALO:
+        raise ValueError(f"unknown stream halo mode {halo!r} (one of {('auto',) + STREAM_HALO})")
     del mxu_kernel
     max_depth = _check_depth(max_depth)
     plan = dict(plan_stream(dd, x_radius, path, separable, max_m=max_depth))
@@ -648,7 +854,17 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
         if z_slabs and dd.padded():
             raise ValueError("z_slabs=True: the z-slab wavefront form needs even (unpadded) subdomains")
         plan["z_slabs"] = bool(z_slabs)
-    plan.update(overlap="off", halo="array", compute_unit="vpu", mxu_input="f32")
+    if overlap != "auto":
+        plan.update(overlap=overlap, overlap_forced=True)
+    if halo != "auto":
+        plan.update(halo=halo, halo_forced=True)
+    if z_slabs is None and (overlap == "split" or halo == "fused"):
+        plan = plain_wavefront_plan(plan) or plan
+    plan["overlap"] = _resolve_stream_overlap(plan)[0]
+    plan["halo"] = _resolve_stream_halo(dd, plan, dd.exchange_route())[0]
+    for key in ("overlap_forced", "halo_forced"):
+        plan.pop(key, None)
+    plan.update(compute_unit="vpu", mxu_input="f32")
     names = [h.name for h in dd._handles]
     if dd.device.type == "cuda" and any(h.dtype != torch.float32 for h in dd._handles):
         raise NotImplementedError(
@@ -670,15 +886,93 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
 def _prebuild(programs: Sequence[StreamKernel], plan: dict) -> None:
     """Build every library the plan's route can launch, one nvcc each, all
     started together (the same body is built once)."""
-    route = plan["route"]
+    route, fused = plan["route"], plan["halo"] == "fused"
     if route == "wrap":
         variants = [("stream_wrap", _WRAP_LEVELS, "")]
     elif route == "plane":
-        variants = [("stream_plane", [1], "")]
-    else:  # the plan's depth and every remainder depth
-        variants = [_wavefront_variant(d) for d in range(1, plan["m"] + 1)]
+        variants = [("stream_plane_fused", [1], _FUSED) if fused else ("stream_plane", [1], "")]
+    else:  # the plan's depth and every remainder depth (the split bands' too)
+        variants = [_wavefront_variant(d, fused) for d in range(1, plan["m"] + 1)]
     want = [(v[0], _source(p, *v)) for p in programs for v in variants]
     build.build_generated(dict.fromkeys(want))
+
+
+# --- the split schedule (stencil_tpu/ops/stream.py:1453-1549) -----------------------
+
+
+def _window(t: torch.Tensor, ax: int, starts: Sequence[int], width: int) -> torch.Tensor:
+    """``[start, start + width)`` along spatial ``ax`` of each block of the
+    ``(n, X, Y, Z)`` batch ``t``, contiguous (one start per block)."""
+    if len(set(starts)) == 1:
+        return t.narrow(1 + ax, starts[0], width).contiguous()
+    return torch.stack([t[b].narrow(ax, p, width) for b, p in enumerate(starts)])
+
+
+def _exterior_fix(dd, narrow: Callable) -> Callable:
+    """``fix(outs, ex, w, shift_all)``: recompute the six width-``w`` boundary
+    bands of the ``(n, X, Y, Z)`` outputs ``outs`` from the exchanged blocks
+    ``ex`` and write them in (``_exterior_fix``,
+    ``stencil_tpu/ops/stream.py:1516-1538``).  Each band's support window is
+    exactly ``3w`` wide (``_band_window`` rounds it up to the TPU's tile
+    granule, a Mosaic constraint the card does not have; the band values are
+    the same either way), slid down, never past 0, to stay inside the raw
+    extent.  ``narrow(subs, ax, w, origin_sub)`` runs the pass over the
+    window sub-blocks, the origin shifted so that wrapped coordinates match
+    the full pass: along ``ax`` by ``start - lo + w``, and along the other
+    axes by ``w - lo`` when ``shift_all`` (the wavefront's pseudo shell of
+    ``w`` on every axis).  The high face sits right after each block's valid
+    cells: per-block offsets on padded axes, written by
+    ``blend_slab_dynamic``; x bands on even axes are plane copies, y and z
+    bands go through ``blend_slab``.  Band overlaps at edges and corners
+    write identical values twice."""
+    lo, hi = dd.shell_radius().lo(), dd.shell_radius().hi()
+    raw = dd.local_spec().raw_size()
+    n = dd.local_spec().sz
+    grid = dd.grid_dim().tuple()
+    count = dd.num_subdomains()
+    valid_last = dd.valid_last() or (None, None, None)
+    index = [[(b // (grid[1] * grid[2]), b // grid[2] % grid[1], b % grid[2])[ax] for b in range(count)]
+             for ax in range(3)]
+    origins = dd.origins()
+    cache: Dict[tuple, list] = {}
+
+    def bands(w: int, shift_all: bool) -> list:
+        key = (w, shift_all)
+        if key in cache:
+            return cache[key]
+        out = []
+        for ax in range(3):
+            nvs = [valid_last[ax] if valid_last[ax] is not None and i == grid[ax] - 1 else n[ax]
+                   for i in index[ax]]
+            width = min(3 * w, raw[ax])
+            for starts, poss in (([lo[ax] - w] * count, [lo[ax]] * count),
+                                 ([lo[ax] + v - 2 * w for v in nvs], [lo[ax] + v - w for v in nvs])):
+                starts = [max(min(p, raw[ax] - width), 0) for p in starts]
+                delta = torch.tensor([[p - lo[ax] + w if b == ax else (w - lo[b] if shift_all else 0)
+                                       for b in range(3)] for p in starts], dtype=torch.int32)
+                origin_sub = (origins + delta.to(origins.device)).contiguous()
+                pos = torch.tensor(poss, dtype=torch.int32, device=origins.device)
+                offs = [p - q for p, q in zip(poss, starts)]
+                out.append((ax, starts, width, offs, poss, pos, origin_sub))
+        cache[key] = out
+        return out
+
+    def fix(outs: List[torch.Tensor], ex: List[torch.Tensor], w: int, shift_all: bool) -> None:
+        for ax, starts, width, offs, poss, pos, origin_sub in bands(w, shift_all):
+            subs = narrow([_window(e, ax, starts, width) for e in ex], ax, w, origin_sub)
+            for o, sub in zip(outs, subs):
+                band = _window(sub, ax, offs, w)
+                if len(set(poss)) > 1:
+                    blend_slab_dynamic(o, band, ax, pos)
+                elif ax == 0:
+                    o.narrow(1, poss[0], w).copy_(band)
+                else:
+                    blend_slab(o, band, ax, poss[0])
+
+    return fix
+
+
+# --- the routes -------------------------------------------------------------------------
 
 
 def _wrap_route(dd, names, groups, programs, plan, x_radius):
@@ -704,6 +998,17 @@ def _wrap_route(dd, names, groups, programs, plan, x_radius):
     return step
 
 
+def _grouped(groups, bs, fused_bufs, run) -> List[torch.Tensor]:
+    """``run(sk_index, blocks, fused_shell)`` for each group over its fields'
+    blocks (and fused buffers); the outputs per field."""
+    out = list(bs)
+    for j, g in enumerate(groups):
+        fs = None if fused_bufs is None else tuple([b[q] for q in g] for b in fused_bufs)
+        for q, o in zip(g, run(j, [bs[q] for q in g], fs)):
+            out[q] = o
+    return out
+
+
 def _plane_route(dd, names, groups, programs, plan, x_radius):
     shell = dd.shell_radius()
     lo, hi = shell.lo(), shell.hi()
@@ -712,19 +1017,40 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
     gsize = dd.size()
     valid_last = dd.valid_last()
     route = dd.exchange_route()
+    split, fused = plan["overlap"] == "split", plan["halo"] == "fused"
+
+    def passes(bs, fused_bufs=None):
+        return _grouped(groups, bs, fused_bufs, lambda j, b, fs: stream_plane_pass(
+            programs[j], programs[j].names, b, lo, hi, x_radius, origins, gsize, fused_shell=fs))
+
+    def narrow_plane(subs, ax, w, origin_sub):
+        """One level over ``3w``-wide face sub-blocks (``w == x_radius``):
+        the sliced axis carries a ``w``-deep pseudo shell, the others keep
+        the true shell widths (``narrow_plane``, JAX ``:1634-1656``)."""
+        lo2 = Dim3(*[w if b == ax else lo[b] for b in range(3)])
+        hi2 = Dim3(*[w if b == ax else hi[b] for b in range(3)])
+        return _grouped(groups, subs, None, lambda j, b, fs: stream_plane_pass(
+            programs[j], programs[j].names, b, lo2, hi2, x_radius, origin_sub, gsize))
+
+    side = side_stream(dd.device) if split else None
+    fix = _exterior_fix(dd, narrow_plane) if split else None
 
     def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
         stacks = [curr[name] for name in names]
         shape = stacks[0].shape
         for _ in range(steps):
-            halo_exchange_multi(stacks, shell, valid_last, route=route)
             blocks = [s.view(count, *shape[3:]) for s in stacks]
-            new = list(stacks)
-            for g, sk in zip(groups, programs):
-                outs = stream_plane_pass(sk, sk.names, [blocks[q] for q in g], lo, hi, x_radius, origins, gsize)
-                for q, o in zip(g, outs):
-                    new[q] = o.view(shape)
-            stacks = new
+            if fused:
+                # the received shell rides into the pass: no halo write
+                new = passes(blocks, fused_shell_exchange(stacks, shell, route))
+            elif split:
+                new = overlapped(side, lambda: passes(blocks),
+                                  lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
+                fix(new, blocks, x_radius, False)
+            else:
+                halo_exchange_multi(stacks, shell, valid_last, route=route)
+                new = passes(blocks)
+            stacks = [o.view(shape) for o in new]
         for name, s in zip(names, stacks):
             curr[name] = s
         return curr
@@ -735,6 +1061,7 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
 def _wavefront_route(dd, names, groups, programs, plan, x_radius):
     m = plan["m"]
     z_slab_mode = plan["z_slabs"]
+    split, fused = plan["overlap"] == "split", plan["halo"] == "fused"
     shell = dd.shell_radius()
     s = shell.lo().x
     Xr, Yr, Zr = dd.local_spec().raw_size().tuple()
@@ -755,22 +1082,49 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
         return stream_wavefront_pass(sk, sk.names, bs, depth, s, origins, gsize, z_slabs=zs,
                                      z_valid=Zr if zs is not None else None)
 
+    def passes(bs, depth, fused_bufs=None):
+        return _grouped(groups, bs, fused_bufs, lambda j, b, fs: stream_wavefront_pass(
+            programs[j], programs[j].names, b, depth, s, origins, gsize, fused_shell=fs)[0])
+
+    def narrow_wavefront(subs, ax, w, origin_sub):
+        """``w`` levels over ``3w``-wide face sub-blocks (``w`` is this
+        macro's depth) with a pseudo shell of ``w`` on every axis
+        (``narrow_wavefront``, JAX ``:1732-1757``)."""
+        return _grouped(groups, subs, None, lambda j, b, fs: stream_wavefront_pass(
+            programs[j], programs[j].names, b, w, w, origin_sub, gsize)[0])
+
+    side = side_stream(dd.device) if split else None
+    fix = _exterior_fix(dd, narrow_wavefront) if split else None
+
+    def plain_macro(stacks, depth):
+        blocks = [batch(t) for t in stacks]
+        if fused:
+            return passes(blocks, depth, fused_shell_exchange(stacks, shell, route))
+        if split:
+            new = overlapped(side, lambda: passes(blocks, depth),
+                              lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
+            fix(new, blocks, depth, True)
+            return new
+        halo_exchange_multi(stacks, shell, valid_last, route=route)
+        return passes(blocks, depth)
+
     def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
         stacks = [curr[name] for name in names]
         shape = stacks[0].shape
         macros, rem = divmod(steps, m)
         zouts = [prime_z_slabs(b, Zr, s) for b in stacks] if z_slab_mode else None
         for depth in [m] * macros + ([rem] if rem else []):
+            if not z_slab_mode:
+                stacks = [o.view(shape) for o in plain_macro(stacks, depth)]
+                continue
             halo_exchange_multi(stacks, shell, valid_last, axes=axes, route=route)
-            zs = [permute_and_extend_z_slabs(z, s, yext, xext) for z in zouts] if z_slab_mode else None
-            new, new_z = list(stacks), list(zouts) if z_slab_mode else None
+            zs = [permute_and_extend_z_slabs(z, s, yext, xext) for z in zouts]
+            new, new_z = list(stacks), list(zouts)
             for g, sk in zip(groups, programs):
-                outs, zo = run_pass(sk, [batch(stacks[q]) for q in g], depth,
-                                    [batch(zs[q]) for q in g] if z_slab_mode else None)
+                outs, zo = run_pass(sk, [batch(stacks[q]) for q in g], depth, [batch(zs[q]) for q in g])
                 for j, q in enumerate(g):
                     new[q] = outs[j].view(shape)
-                    if z_slab_mode:
-                        new_z[q] = zo[j].view(zouts[q].shape)
+                    new_z[q] = zo[j].view(zouts[q].shape)
             stacks, zouts = new, new_z
         for name, b in zip(names, stacks):
             curr[name] = b

@@ -833,6 +833,18 @@ STREAM_KERNELS = {"mean6": (_mean6, ["a", "b"]), "k27": (_k27, ["u"]), "forced":
                   "vc": (_vc, ["u", "c"]), "xdiag": (_xdiag, ["u", "c"])}
 
 
+#: the global size of the fused wavefront cases (any: a library does not
+#: depend on it)
+_FUSED_GS = (2 * 61 - 3, 100, 2 * 77 - 9)
+
+
+def _fused_bufs(n, X, Y, Z, lo, hi, nf, seed, dev):
+    """Random fused shell buffers (``fused_shell_exchange``'s layouts)."""
+    return ([_rand((n, lo.x + hi.x, Y, Z), seed + q, dev) for q in range(nf)],
+            [_rand((n, lo.y + hi.y, X, Z), seed + 10 + q, dev) for q in range(nf)],
+            [_rand((n, lo.z + hi.z, Y, X), seed + 20 + q, dev) for q in range(nf)])
+
+
 def _wavefront_gs(s, slabs):
     return (2 * (90 - 2 * s) + 3, 2 * (70 - 2 * s), 2 * ((127 if slabs else 130) - 2 * s))
 
@@ -858,6 +870,15 @@ def stream_libs():
                 sk = StreamKernel(kern, names, 1, _wavefront_gs(s, slabs))
                 want.append(("stream_wavefront", st._source(sk, *st._wavefront_variant(m))))
     want.append(("stream_plane", st._source(StreamKernel(_r2, ["u"], 2, (30, 40, 140)), "stream_plane", [1])))
+    # the fused forms (STP_FUSED) of the plane and the plain wavefront
+    for kern, names in list(STREAM_KERNELS.values()) + [(_r2, ["u"])]:
+        r = 2 if kern is _r2 else 1
+        want.append(("stream_plane_fused", st._source(StreamKernel(kern, names, r, (30, 40, 140)),
+                                                       "stream_plane_fused", [1], st._FUSED)))
+    for kern, names in STREAM_KERNELS.values():
+        for m in (1, 2, 3):
+            sk = StreamKernel(kern, names, 1, _FUSED_GS)
+            want.append(("stream_wavefront_fused", st._source(sk, *st._wavefront_variant(m, True))))
     build.build_generated(dict.fromkeys(want))
     return torch.device("cuda")
 
@@ -957,6 +978,141 @@ def test_stream_wavefront_forms_equal_plain(stream_libs, name, m, s, slabs):
         assert torch.equal(g[:, S, S, s:zv - s], w[:, S, S, s:zv - s])
     for g, w in zip(got_z or [], want_z or []):
         assert torch.equal(g[:, S, :, S], w[:, S, :, S])
+
+
+@pytest.mark.parametrize("name,r", [("mean6", 1), ("k27", 1), ("forced", 1), ("vc", 1), ("r2", 2)])
+@pytest.mark.parametrize("n,X,Y,Z", [(1, 17, 19, 70), (2, 17, 19, 70), (2, 7, 40, 9)])
+def test_stream_plane_fused_kernel_equals_plain(stream_libs, name, r, n, X, Y, Z):
+    """The fused form of #7 (the far launch and the band launch) on ragged
+    blocks with a stale shell and random buffers, one field and joint
+    fields, uneven shell widths, and short axes where the band is the whole
+    axis: bitwise on every cell, shell included; the array form's counter
+    is left alone."""
+    dev = stream_libs
+    kern, names = STREAM_KERNELS[name] if name in STREAM_KERNELS else (_r2, ["u"])
+    lo, hi = Dim3(r, r + 1, r), Dim3(r + 1, r, r + 2)
+    gs = (30, 40, 140)
+    raws = [_rand((n, X, Y, Z), 121 + q, dev) for q in range(len(names))]
+    fs = _fused_bufs(n, X, Y, Z, lo, hi, len(names), 131, dev)
+    org = torch.tensor([[0, 0, 0], [13, 17, 60]][:n], dtype=torch.int32, device=dev)
+    before = (st.stream_plane_pass.launches, st.stream_plane_pass.fused_launches)
+    got = st.stream_plane_pass(kern, names, raws, lo, hi, r, org, gs, fused_shell=fs)
+    torch.cuda.synchronize()
+    assert (st.stream_plane_pass.launches, st.stream_plane_pass.fused_launches) == (before[0], before[1] + 1)
+    for g, w in zip(got, st.stream_plane_pass_plain(kern, names, raws, lo, hi, r, org, gs, fused_shell=fs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,s", [(1, 1), (2, 3), (3, 3)])
+@pytest.mark.parametrize("name", sorted(STREAM_KERNELS))
+def test_stream_wavefront_fused_kernel_equals_plain(stream_libs, name, m, s):
+    """The fused form of #8 in either form (the register queue where x+-1
+    is read at the centre, else the general form), two ragged blocks with
+    several tiles a side and x chunks: bitwise on the valid region."""
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel, x_reads_centred
+
+    dev = stream_libs
+    kern, names = STREAM_KERNELS[name]
+    sk = StreamKernel(kern, names, 1, _FUSED_GS)
+    n, Xr, Yr, Zr = 2, 61 + s, 100, 77
+    s3 = Dim3(s, s, s)
+    raws = [_rand((n, Xr, Yr, Zr), 151 + q, dev) for q in range(len(names))]
+    fs = _fused_bufs(n, Xr, Yr, Zr, s3, s3, len(names), 161, dev)
+    org = torch.tensor([[_FUSED_GS[0] - 2, 7, 3], [4, 90, 40]], dtype=torch.int32, device=dev)
+    plan = st.stream_wavefront_launch(sk, names, raws, m, s, _FUSED_GS, fused=True)
+    assert plan["form"] == ("queue" if x_reads_centred([sk.trace(lv) for lv in range(1, m + 1)]) else "general")
+    assert plan["blocks"] == plan["tiles_z"] * plan["tiles_y"] * plan["nchunks"] * n and plan["tiles_y"] >= 2
+    before = (st.stream_wavefront_pass.launches, st.stream_wavefront_pass.fused_launches)
+    got, got_z = st.stream_wavefront_pass(sk, names, raws, m, s, org, _FUSED_GS, fused_shell=fs)
+    torch.cuda.synchronize()
+    assert got_z is None
+    assert (st.stream_wavefront_pass.launches, st.stream_wavefront_pass.fused_launches) == (before[0], before[1] + 1)
+    want, _ = st.stream_wavefront_pass_plain(sk, names, raws, m, s, org, _FUSED_GS, fused_shell=fs)
+    S = slice(s, -s)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:, S, S, S], w[:, S, S, S])
+
+
+def _stream_domain(size, route, mult, nf=2, seed=5):
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
+
+    dd = DistributedDomain(*size)
+    dd.set_radius(Radius.constant(1))
+    dd.set_partition(2, 2, 2)
+    dd.set_exchange_route(route)
+    if mult > 1:
+        dd.set_halo_multiplier(mult)
+    hs = [dd.add_data(f"q{i}") for i in range(nf)]
+    dd.realize()
+    rng = np.random.default_rng(seed)
+    for h in hs:
+        dd.set_quantity(h, rng.random(size).astype(np.float32))
+    return dd, hs
+
+
+@pytest.mark.parametrize("path,mult,steps", [("plane", 1, 3), ("plane", 2, 3), ("auto", 3, 7)])
+@pytest.mark.parametrize("route", ["yzpack_xla", "yzpack_pallas"])
+def test_fused_steps_equal_array_on_card(dev, path, mult, steps, route):
+    """halo="fused" against halo="array" on 2x2x2, the plane route (shell 1
+    and 2) and the plain wavefront (m = 3, two macros and a remainder): the
+    plane route's raw blocks bitwise, shell included, the wavefront's
+    interiors (its shell is unwritten on the card in both forms); no unpack
+    and no blend launch under fused, only the fused forms."""
+    from stencil_tpu_torch.kernels import ledger
+
+    runs = []
+    for halo in ("array", "fused"):
+        dd, hs = _stream_domain((36, 36, 36), route, mult)
+        step = dd.make_step(_mean6, engine="stream", stream_path=path, stream_halo=halo, stream_z_slabs=False)
+        assert step._stream_plan["halo"] == halo
+        ledger.reset_launch_counts()
+        dd.run_step(step, steps)
+        torch.cuda.synchronize()
+        runs.append((dd, hs, step, ledger.launch_counts()))
+    (da, ha, sa, ca), (db, hb_, sb, cb) = runs
+    kernel = f"stream_{sa._stream_plan['route']}_pass"
+    assert ca[kernel] > 0 and ca[kernel + "_fused"] == 0
+    assert cb[kernel + "_fused"] == ca[kernel] and cb[kernel] == 0
+    assert not any(cb[k] for k in ("unpack_zshell_pallas", "unpack_yshell_pallas", "blend_slab", "blend_slab_dynamic"))
+    if route == "yzpack_pallas":
+        assert cb["pack_zshell_pallas"] == cb["pack_yshell_pallas"] == 2 * 2 * ca[kernel]
+    for x, y in zip(ha, hb_):
+        if sa._stream_plan["route"] == "plane":
+            assert torch.equal(da.get_curr(x), db.get_curr(y))
+        assert np.array_equal(da.quantity_to_host(x), db.quantity_to_host(y))
+
+
+@pytest.mark.parametrize("size", [(36, 36, 36), (35, 33, 31)])
+@pytest.mark.parametrize("path,mult,steps", [("plane", 1, 3), ("plane", 2, 3), ("auto", 3, 7)])
+@pytest.mark.parametrize("route", ["direct", "yzpack_pallas"])
+def test_split_steps_equal_off_on_card(dev, path, mult, steps, route, size):
+    """overlap="split" (the exchange on a second stream, six narrow band
+    passes over 3w-wide sub-blocks) against overlap="off" on 2x2x2, even
+    and uneven sizes: the interiors bitwise."""
+    outs = []
+    for overlap in ("off", "split"):
+        dd, hs = _stream_domain(size, route, mult)
+        step = dd.make_step(_mean6, engine="stream", stream_path=path, stream_overlap=overlap,
+                            stream_z_slabs=False)
+        assert step._stream_plan["overlap"] == overlap
+        dd.run_step(step, steps)
+        outs.append([dd.quantity_to_host(h) for h in hs])
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("size", [(36, 36, 36), (35, 33, 31)])
+def test_torch_engine_overlap_equals_off_on_card(dev, size):
+    """make_step(overlap=True): the interior beside the exchange on a second
+    stream, then the exterior slabs; bitwise equal to overlap=False."""
+    outs = []
+    for overlap in (False, True):
+        dd, hs = _stream_domain(size, "direct", 1)
+        dd.run_step(dd.make_step(_mean6, overlap=overlap), 4)
+        outs.append([dd.quantity_to_host(h) for h in hs])
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", SWEEP_DTYPES)

@@ -424,11 +424,17 @@ def test_level_dependent_kernel_gets_a_body_per_level():
 
 def test_unported_axes_and_alias_name_the_roadmap():
     td, _ = _tdomain((12, 12, 12), 1, ["u"], 8, 2, [np.zeros((12, 12, 12), np.float32)])
-    for kw in ({"stream_overlap": "split"}, {"stream_halo": "fused"}, {"compute_unit": "mxu"},
-               {"compute_unit": "mxu_band"}, {"mxu_input": "bf16"}):
+    for kw in ({"compute_unit": "mxu"}, {"compute_unit": "mxu_band"}, {"mxu_input": "bf16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             td.make_step(mean6, engine="stream", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # split and fused are ported: split engages on the re-planned plain
+    # wavefront, fused degrades with its warning off the yzpack_* routes
+    plan = td.make_step(mean6, engine="stream", stream_overlap="split")._stream_plan
+    assert (plan["route"], plan["z_slabs"], plan["overlap"]) == ("wavefront", False, "split")
+    with pytest.warns(RuntimeWarning, match="does not pack the y shell"):
+        plan = td.make_step(mean6, engine="stream", stream_halo="fused")._stream_plan
+    assert plan["halo"] == "array"
+    with pytest.raises(ValueError, match="unknown stream overlap"):
         td.make_step(mean6, engine="stream", stream_overlap="sideways")
     for depth in (0, True, 1.5):
         with pytest.raises(ValueError, match="stream_depth"):
