@@ -157,7 +157,23 @@ non-zero before the result line:
     warning; then each fused form held bitwise against its plain version at
     (8, 262^3) (the plane form over 8 fields, the wavefront at m = 3) and
     timed beside its bound, its plain version and (device ms a call) its
-    array form.
+    array form;
+17. the one-dispatch step loop (``ops/captured.py``): each route run with
+    ``capture=True`` (the step's loop replayed as CUDA graphs) beside the
+    same route uncaptured, two calls each with the counters reset before
+    and read after (equal), the valid interiors bitwise equal after them
+    and at the end: Jacobi3D 512^3 ``wrap`` (one subdomain) and the z-ring
+    ``wavefront`` on 2x2x2, 511^3 ``auto`` (the plain wavefront) and
+    ``shell`` on 2x2x2, 200 steps a call; AstarothSim 8 x 512^3
+    ``wavefront`` 1x1x1, ``auto`` and ``per-step`` on 2x2x2 under
+    ``direct`` and ``yzpack_pallas``, both schedules fused
+    (``yzpack_pallas``) and split (``direct``), 24 iterations a call; per
+    run its ms/iter and Mcells/s (the better of two calls), the host µs of
+    the call, a torch.profiler breakdown (idle share, device ms a step),
+    and the captured loop's graphs, capture seconds and replays; then
+    ``dd.exchange_many(24)`` against 24 ``dd.exchange()`` calls on the
+    8-field 2x2x2 domain, stacks bitwise and launches equal, ms and host µs
+    and the breakdown; every graph freed before the phase ends.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -1912,6 +1928,190 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_end()
 
+    # --- 17. the one-dispatch step loop: captured against uncaptured -------------------
+    phase_start(17)
+    cap17 = {}
+
+    def valid_interiors(dd, handles, size) -> torch.Tensor:
+        """Every quantity's valid interior on the card, (q, X, Y, Z) in global order."""
+        lo, n = dd.shell_radius().lo(), dd.local_spec().sz
+        dim = dd.grid_dim()
+        return torch.stack([
+            dd.get_curr(h)[..., lo.x:lo.x + n.x, lo.y:lo.y + n.y, lo.z:lo.z + n.z]
+            .permute(0, 3, 1, 4, 2, 5).reshape(dim.x * n.x, dim.y * n.y, dim.z * n.z)[:size, :size, :size]
+            for h in handles])
+
+    def capture_pair(key, make, steps, size, handles, want_route):
+        """``make(capture)`` built twice, uncaptured and captured: two calls of
+        ``steps`` each with the counters reset before and read after (equal),
+        the valid interiors bitwise; then per model two timed calls (ms/iter,
+        host µs of the call), a torch.profiler breakdown of one more, and the
+        interiors bitwise again; the captured loop's graphs and capture
+        seconds; its graphs freed."""
+        models, out = {}, {}
+        for captured in (False, True):
+            model = make(captured)
+            route = getattr(model, "_pallas_path", None) or model._step._stream_plan["route"]
+            if route != want_route or model.dd.capture() != captured:
+                raise AssertionError(f"{key}: route {route}, capture {model.dd.capture()}")
+            ledger.reset_launch_counts()
+            sync()
+            model.step(steps)
+            model.step(steps)
+            sync()
+            out[captured] = {"launches": ledger.launch_counts()}
+            models[captured] = model
+        plain, cap = models[False], models[True]
+        if out[False]["launches"] != out[True]["launches"]:
+            raise AssertionError(f"{key}: captured launches {out[True]['launches']} != uncaptured "
+                                 f"{out[False]['launches']}")
+        if not cap._step.captured:
+            raise AssertionError(f"{key}: the captured run holds no CUDA graph")
+
+        def same(when):
+            if not torch.equal(valid_interiors(plain.dd, handles(plain), size),
+                               valid_interiors(cap.dd, handles(cap), size)):
+                raise AssertionError(f"{key}: captured != uncaptured {when}")
+
+        same(f"after 2 x {steps}")
+        for captured, model in models.items():
+            dts, host = [], []
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                model.step(steps)
+                t1 = time.perf_counter()
+                sync()
+                dts.append((time.perf_counter() - t0) / steps)
+                host.append((t1 - t0) * 1e6)
+            out[captured].update(ms_per_iter=min(dts) * 1e3, ms_per_iter_runs=[t * 1e3 for t in dts],
+                                 mcells_per_s=size ** 3 * len(handles(model)) / min(dts) / 1e6,
+                                 host_us_per_call=min(host), host_us_runs=host,
+                                 profile=device_breakdown(model, steps))
+        same("at the end")
+        loop = cap._step._loop
+        out[True].update(graphs=len(loop.graphs), max_graphs=loop.max_graphs, captures=loop.captures,
+                         capture_s=loop.capture_seconds, replays=loop.replays)
+        loop.release()
+        cap17[key] = out
+        u, c = out[False], out[True]
+        pu, pc = u["profile"], c["profile"]
+        log(f"captured {key}, {steps} a call (uncaptured -> captured): {u['ms_per_iter']:.4f} -> "
+            f"{c['ms_per_iter']:.4f} ms/iter ({u['mcells_per_s']:.1f} -> {c['mcells_per_s']:.1f} Mcells/s); "
+            f"idle share {ms4(pu['idle_share'])} -> {ms4(pc['idle_share'])}, device ms/iter "
+            f"{ms4(pu['device_ms_per_step'])} -> {ms4(pc['device_ms_per_step'])}; host µs a call "
+            f"{u['host_us_per_call']:.1f} -> {c['host_us_per_call']:.1f}; {c['graphs']} graphs "
+            f"(at most {c['max_graphs']}), captured in {c['capture_s']:.3f} s, {c['replays']} replays; "
+            f"launches equal {dict((k, v) for k, v in c['launches'].items() if v)}; bitwise equal on {card}")
+        del models, plain, cap, model
+        torch.cuda.empty_cache()
+
+    def jacobi17(size, part=None, **kw):
+        def make(captured):
+            model = Jacobi3D(size, size, size, kernel_impl="cuda", capture=captured, **kw)
+            if part is not None:
+                model.dd.set_partition(*part)
+            model.realize()
+            return model
+        return make
+
+    def astaroth17(part=None, **kw):
+        def make(captured):
+            sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", capture=captured, **kw)
+            if part is not None:
+                sim.dd.set_partition(*part)
+            sim.realize()
+            return sim
+        return make
+
+    jac_handles = lambda m: [m.h]  # noqa: E731
+    ast_handles = lambda m: m.handles  # noqa: E731
+    for key, make, size, route in (
+            (f"jacobi wrap {N}^3 1x1x1", jacobi17(N), N, "wrap"),
+            (f"jacobi wavefront z-ring {N}^3 2x2x2", jacobi17(N, (2, 2, 2)), N, "wavefront"),
+            (f"jacobi auto {NU}^3 2x2x2", jacobi17(NU, (2, 2, 2)), NU, "wavefront"),
+            (f"jacobi shell {NU}^3 2x2x2", jacobi17(NU, (2, 2, 2), pallas_path="shell"), NU, "shell")):
+        capture_pair(key, make, STEPS, size, jac_handles, route)
+    for key, make, route in (
+            ("astaroth wavefront 1x1x1", astaroth17(schedule="wavefront"), "wavefront"),
+            ("astaroth auto 2x2x2 direct", astaroth17((2, 2, 2)), "wavefront"),
+            ("astaroth per-step 2x2x2 direct", astaroth17((2, 2, 2), schedule="per-step"), "plane"),
+            ("astaroth auto 2x2x2 yzpack_pallas", astaroth17((2, 2, 2), exchange_route="yzpack_pallas"),
+             "wavefront"),
+            ("astaroth per-step 2x2x2 yzpack_pallas",
+             astaroth17((2, 2, 2), schedule="per-step", exchange_route="yzpack_pallas"), "plane"),
+            ("astaroth per-step 2x2x2 yzpack_pallas fused",
+             astaroth17((2, 2, 2), schedule="per-step", exchange_route="yzpack_pallas", stream_halo="fused"),
+             "plane"),
+            ("astaroth auto 2x2x2 yzpack_pallas fused",
+             astaroth17((2, 2, 2), exchange_route="yzpack_pallas", stream_halo="fused"), "wavefront"),
+            ("astaroth per-step 2x2x2 direct split",
+             astaroth17((2, 2, 2), schedule="per-step", stream_overlap="split"), "plane"),
+            ("astaroth auto 2x2x2 direct split", astaroth17((2, 2, 2), stream_overlap="split"), "wavefront")):
+        capture_pair(key, make, AST_ITERS, N, ast_handles, route)
+
+    # exchange_many(24) against 24 exchange() calls on the 8-field 2x2x2 domain
+    class Exchanges:
+        """``step(n)``: n exchanges of ``dd``, one call each or ``exchange_many``."""
+
+        def __init__(self, dd, many):
+            self.dd, self.many = dd, many
+
+        def step(self, n):
+            if self.many:
+                self.dd.exchange_many(n)
+            else:
+                for _ in range(n):
+                    self.dd.exchange()
+
+    ex17 = {}
+    sims = {}
+    for many in (False, True):
+        sim = AstarothSim(N, N, N, num_quantities=AST_Q)
+        sim.dd.set_partition(2, 2, 2)
+        sim.realize()
+        ledger.reset_launch_counts()
+        sync()
+        Exchanges(sim.dd, many).step(AST_ITERS)
+        sync()
+        ex17[many] = {"launches": ledger.launch_counts()}
+        sims[many] = sim
+    if ex17[False]["launches"] != ex17[True]["launches"]:
+        raise AssertionError(f"exchange_many launches {ex17[True]['launches']} != exchange() "
+                             f"{ex17[False]['launches']}")
+    for h, g in zip(sims[False].handles, sims[True].handles):
+        if not torch.equal(sims[False].dd.get_curr(h), sims[True].dd.get_curr(g)):
+            raise AssertionError(f"exchange_many({AST_ITERS}) != {AST_ITERS} exchange() calls")
+    for many, sim in sims.items():
+        ex = Exchanges(sim.dd, many)
+        dts, host = [], []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            ex.step(AST_ITERS)
+            t1 = time.perf_counter()
+            sync()
+            dts.append((time.perf_counter() - t0) / AST_ITERS)
+            host.append((t1 - t0) * 1e6)
+        ex17[many].update(ms_per_exchange=min(dts) * 1e3, ms_runs=[t * 1e3 for t in dts],
+                          host_us_per_call=min(host), profile=device_breakdown(ex, AST_ITERS))
+    loop = sims[True].dd._exchange_loop
+    ex17[True].update(graphs=len(loop.graphs), captures=loop.captures, capture_s=loop.capture_seconds,
+                      replays=loop.replays)
+    loop.release()
+    u, c = ex17[False], ex17[True]
+    log(f"exchange_many({AST_ITERS}) against {AST_ITERS} exchange() calls, {AST_Q} fields {N}^3 2x2x2 direct: "
+        f"{u['ms_per_exchange']:.4f} -> {c['ms_per_exchange']:.4f} ms an exchange; idle share "
+        f"{ms4(u['profile']['idle_share'])} -> {ms4(c['profile']['idle_share'])}, device ms an exchange "
+        f"{ms4(u['profile']['device_ms_per_step'])} -> {ms4(c['profile']['device_ms_per_step'])}; host µs a "
+        f"call {u['host_us_per_call']:.1f} -> {c['host_us_per_call']:.1f}; captured in {c['capture_s']:.3f} s; "
+        f"launches equal, stacks bitwise equal on {card}")
+    cap17["exchange_many"] = ex17
+    del sims, sim, ex, loop
+    torch.cuda.empty_cache()
+    log(f"phase 17 done: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after its graphs were freed")
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -2055,7 +2255,7 @@ def main() -> int:
             "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
                          "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
                          "wavefront_m3_launch": m6w_launch},
-            "fused_split": f16,
+            "fused_split": f16, "captured": cap17,
             "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                    "array_device": fpl_array_dev_ms},
                          "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

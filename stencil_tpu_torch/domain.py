@@ -32,6 +32,7 @@ from stencil_tpu_torch.core.dim3 import Dim3, Rect3
 from stencil_tpu_torch.core.geometry import LocalSpec, exterior_of, shrink_by_radius
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
+from stencil_tpu_torch.ops.captured import Loop, as_step
 from stencil_tpu_torch.ops.exchange import (
     EXCHANGE_ROUTES, ValidLast, halo_exchange_multi, overlapped, route_supported, side_stream,
 )
@@ -129,6 +130,8 @@ class DistributedDomain:
         self._valid_last: ValidLast = (None, None, None)
         self._curr: Dict[str, torch.Tensor] = {}
         self._next: Dict[str, torch.Tensor] = {}
+        self._capture = False
+        self._exchange_loop = None
 
     # --- configuration (stencil.hpp:276-306) ---------------------------------
     def set_radius(self, radius) -> None:
@@ -397,6 +400,25 @@ class DistributedDomain:
                             self._valid_last, route=self._exchange_route)
         self._shell_stale = False
 
+    def exchange_many(self, steps: int) -> None:
+        """Run ``steps`` exchanges in one dispatch (``exchange_many``,
+        ``stencil_tpu/domain.py:1264-1282``): on the card one captured
+        exchange replayed ``steps`` times, in place on the stacks (exchanging
+        is idempotent on a filled domain, so this measures the steady-state
+        exchange); on the CPU the same loop, called.  The shell is fresh
+        after it, as after ``exchange()``."""
+        assert self._realized
+        if self._exchange_loop is None:
+            names = [h.name for h in self._handles]
+            shell, valid_last, route = self._shell_radius, self._valid_last, self._exchange_route
+
+            def body(cur, nxt, depth):
+                halo_exchange_multi(cur.fields, shell, valid_last, route=route)
+
+            self._exchange_loop = Loop(names, 1, body, in_place=True)
+        self._curr = self._exchange_loop.run(self._curr, steps, capture=True)
+        self._shell_stale = False
+
     def swap(self) -> None:
         """Swap curr/next slots (src/stencil.cu:541-561)."""
         self._curr, self._next = self._next, self._curr
@@ -516,32 +538,56 @@ class DistributedDomain:
                 if written:
                     view.center().copy_(v)
 
-        def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
-            for _ in range(steps):
-                stacks = [curr[k] for k in names]
-                first = 0
-                if overlap:
-                    inside = overlapped(side, lambda: evaluate(stacks, *interior),
-                                        lambda: halo_exchange_multi(stacks, shell, self._valid_last, route=route))
-                    outside = [evaluate(stacks, *r) for r in exterior]
-                    # every value computed before any write; a value that is
-                    # a view of the stacks (a pass-through) is copied first
-                    done = [(views, [v.clone() if v._is_view() else v for v in vals], sk)
-                            for (views, vals), (_, sk) in zip([inside] + outside, [interior] + exterior)]
-                    for views, vals, sk in done:
-                        write(views, vals, sk)
-                    first = 1
-                else:
-                    halo_exchange_multi(stacks, shell, self._valid_last, route=route)
-                for info, sk in subs[first:]:
-                    # all values computed before any write
-                    write(*evaluate(stacks, info, sk), sk)
-            return curr
+        # one macro step a body, in place on the stacks
+        def body(cur, nxt, depth):
+            del nxt, depth
+            stacks = cur.fields
+            first = 0
+            if overlap:
+                inside = overlapped(side, lambda: evaluate(stacks, *interior),
+                                    lambda: halo_exchange_multi(stacks, shell, self._valid_last, route=route))
+                outside = [evaluate(stacks, *r) for r in exterior]
+                # every value computed before any write; a value that is
+                # a view of the stacks (a pass-through) is copied first
+                done = [(views, [v.clone() if v._is_view() else v for v in vals], sk)
+                        for (views, vals), (_, sk) in zip([inside] + outside, [interior] + exterior)]
+                for views, vals, sk in done:
+                    write(views, vals, sk)
+                first = 1
+            else:
+                halo_exchange_multi(stacks, shell, self._valid_last, route=route)
+            for info, sk in subs[first:]:
+                # all values computed before any write
+                write(*evaluate(stacks, info, sk), sk)
 
-        return step
+        return as_step(Loop(names, 1, body, in_place=True))
+
+    def set_capture(self, on: bool) -> None:
+        """Run ``run_step`` as captured CUDA graphs (``ops/captured.py``),
+        the counterpart of the JAX step's one-dispatch ``fori_loop``: each
+        phase of the step's loop is captured at its first occurrence and
+        replayed after.  Default off.  On a CPU domain the same binding and
+        bookkeeping run and each phase is called where the card would
+        replay it."""
+        self._capture = bool(on)
+
+    def capture(self) -> bool:
+        return self._capture
 
     def run_step(self, step_fn, steps: int = 1) -> None:
-        """Apply a built step to curr and make its output the new curr."""
-        self._curr = step_fn(self._curr, steps)
+        """Apply a built step to curr and make its output the new curr.
+        Under ``set_capture(True)`` the step's loop (``step_fn._loop``) runs
+        captured; a step without one is refused, a capture or replay that
+        fails raises."""
+        if self._capture:
+            loop = getattr(step_fn, "_loop", None)
+            if loop is None:
+                raise ValueError(
+                    "set_capture(True) runs a step's loop: build the step with make_step or a model"
+                )
+            self._curr = loop.run(self._curr, steps, capture=True)
+            step_fn.captured = loop.captured
+        else:
+            self._curr = step_fn(self._curr, steps)
         if getattr(step_fn, "_marks_shell_stale", False):
             self.mark_shell_stale()

@@ -26,6 +26,18 @@ def check_tensor(t: torch.Tensor, what: str, ndims=None, dtype=None) -> None:
         raise ValueError(f"{what} must be C-contiguous")
 
 
+def check_out(out: torch.Tensor, like: torch.Tensor, what: str = "out") -> torch.Tensor:
+    """Raise unless ``out`` can take a result shaped like ``like``: a
+    contiguous tensor of its shape, dtype and device that is not ``like``
+    itself (the kernels write ``out`` while they read ``like``)."""
+    check_tensor(out, what, ndims=(like.dim(),), dtype=like.dtype)
+    if out.shape != like.shape or out.device != like.device:
+        raise ValueError(f"{what} {tuple(out.shape)} on {out.device} must match {tuple(like.shape)} on {like.device}")
+    if out.data_ptr() == like.data_ptr():
+        raise ValueError(f"{what} must not alias its input")
+    return out
+
+
 def same_device(*ts: torch.Tensor) -> torch.device:
     dev = ts[0].device
     for t in ts[1:]:

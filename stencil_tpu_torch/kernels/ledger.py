@@ -147,19 +147,33 @@ def form_entry(name: str) -> dict:
     return dict(PORTED_KERNELS[key], counter=counter)
 
 
+def _counters() -> Dict[str, Tuple[object, str]]:
+    """Each launch counter: name -> (the wrapper that holds it, its attribute)."""
+    out = {wrapper_name(e): (resolve(e["kernel"]), "launches") for e in ported().values()}
+    for name in FORMS:
+        e = form_entry(name)
+        out[name] = (resolve(e["kernel"]), e["counter"])
+    return out
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per ported wrapper, and per ``FORMS`` form, since the
     last reset."""
-    counts = {wrapper_name(e): resolve(e["kernel"]).launches for e in ported().values()}
-    for name in FORMS:
-        e = form_entry(name)
-        counts[name] = getattr(resolve(e["kernel"]), e["counter"])
-    return counts
+    return {name: getattr(obj, attr) for name, (obj, attr) in _counters().items()}
+
+
+def counter(name: str) -> Tuple[object, str]:
+    """``(wrapper, attribute)`` of the counter ``launch_counts`` reports as ``name``."""
+    return _counters()[name]
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the named counters (``launch_counts``' names) to the given values."""
+    found = _counters()
+    for name, value in counts.items():
+        obj, attr = found[name]
+        setattr(obj, attr, value)
 
 
 def reset_launch_counts() -> None:
-    for e in ported().values():
-        resolve(e["kernel"]).launches = 0
-    for name in FORMS:
-        e = form_entry(name)
-        setattr(resolve(e["kernel"]), e["counter"], 0)
+    set_launch_counts(dict.fromkeys(_counters(), 0))

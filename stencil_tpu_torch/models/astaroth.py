@@ -81,6 +81,7 @@ class AstarothSim:
         mxu_input: str = "auto",
         storage_dtype: str = None,
         device="cuda",
+        capture: bool = False,  # run steps as captured CUDA graphs (dd.set_capture)
     ):
         if kernel_impl not in ("torch", "cuda"):
             raise ValueError(f"unknown kernel_impl {kernel_impl!r} (torch | cuda)")
@@ -100,6 +101,7 @@ class AstarothSim:
                 "(ROADMAP.md queue 1 item 9)"
             )
         self.dd = DistributedDomain(x, y, z, device=device)
+        self.dd.set_capture(capture)
         self.dd.set_radius(Radius.constant(3))  # astaroth_sim.cu:184
         self.dd.set_placement(strategy)
         self.dd.set_subdomains(subdomains)
@@ -159,7 +161,8 @@ class AstarothSim:
             return plan["m"]
         return 0
 
-    def _kernel(self, views, info):
+    @staticmethod
+    def _kernel(views, info):
         # iterate the views HANDED IN (not self.handles): each field updates
         # from itself only, so the kernel is correct on any subset
         out = {}

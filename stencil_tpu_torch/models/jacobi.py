@@ -47,6 +47,7 @@ import torch
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
+from stencil_tpu_torch.ops.captured import Loop, as_step, window_loop
 from stencil_tpu_torch.ops.exchange import halo_exchange_shard, shift_from_high, shift_from_low
 from stencil_tpu_torch.ops.jacobi_kernels import (
     _ZRING_OFF,
@@ -94,8 +95,10 @@ class Jacobi3D:
         compute_unit: str = None,  # only the vpu form is ported
         storage_dtype: str = None,  # only native storage is ported
         device="cuda",
+        capture: bool = False,  # run steps as captured CUDA graphs (dd.set_capture)
     ):
         self.dd = DistributedDomain(x, y, z, device=device)
+        self.dd.set_capture(capture)
         # radius 1 on faces only (jacobi3d.cu:205-214)
         radius = Radius.constant(0)
         radius.set_face(1)
@@ -193,22 +196,17 @@ class Jacobi3D:
         if want == "wrap" or (want == "auto" and single):
             self._pallas_path = "wrap"
             k = choose_temporal_k(n.tuple(), self.temporal_k)
+            inner = (0, 0, 0, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
 
-            def wrap_step(curr, steps: int = 1):
-                interior = curr[name][0, 0, 0, lo.x : lo.x + n.x, lo.y : lo.y + n.y, lo.z : lo.z + n.z]
-                block = interior.contiguous()
-                # each level's arithmetic is the same whatever the split into
-                # calls, so (blocked, remainder) is bitwise equal to k=1 calls
-                blocked, rem = divmod(steps, k)
-                for _ in range(blocked):
-                    block = jacobi_wrap_step(block, k)
-                if rem:
-                    block = jacobi_wrap_step(block, rem)
-                interior.copy_(block)
-                return curr
+            # the interior is worked on in two (X, Y, Z) buffers, k levels a
+            # body; each level's arithmetic is the same whatever the split
+            # into calls, so (blocked, remainder) is bitwise equal to k=1 calls
+            def wrap_body(cur, nxt, depth):
+                jacobi_wrap_step(cur.fields[0], depth, out=nxt.fields[0])
 
-            wrap_step._marks_shell_stale = True
-            return wrap_step
+            step = as_step(window_loop([name], k, wrap_body, inner))
+            step._marks_shell_stale = True
+            return step
 
         gsize = dd.size().tuple()
         origins = dd.origins()
@@ -221,23 +219,16 @@ class Jacobi3D:
         self._pallas_path = "shell"
         shell = dd.shell_radius()
         valid_last = dd.valid_last()
-        spare = {}
 
-        def shell_step(curr, steps: int = 1):
-            stack = curr[name]
-            out = spare.pop(name, None)
-            if out is None:
-                out = torch.empty_like(stack)
-            for _ in range(steps):
-                halo_exchange_shard(stack, shell, valid_last)
-                blocks = stack.view(-1, *stack.shape[3:])
-                jacobi_plane_step(blocks, origins, yz_d2, gsize, out=out.view(blocks.shape))
-                stack, out = out, stack
-            spare[name] = out
-            curr[name] = stack
-            return curr
+        # the stack and a spare, ping-ponged: exchange in place, then one
+        # level into the other
+        def shell_body(cur, nxt, depth):
+            stack = cur.fields[0]
+            halo_exchange_shard(stack, shell, valid_last)
+            blocks = stack.view(-1, *stack.shape[3:])
+            jacobi_plane_step(blocks, origins, yz_d2, gsize, out=nxt.fields[0].view(blocks.shape))
 
-        return shell_step
+        return as_step(Loop([name], 1, shell_body))
 
     def _make_slab_step(self, origins, yz_d2):
         """The one-level multi-subdomain route without halo writes (the JAX
@@ -259,24 +250,20 @@ class Jacobi3D:
         def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
             return t.contiguous().view(count, *t.shape[3:])
 
-        def slab_step(curr, steps: int = 1):
-            interior = curr[name][inner]
-            b = interior.contiguous()
-            out = torch.empty_like(b)
-            for _ in range(steps):
-                faces = (
-                    shift_from_low(b[..., n.x - 1, :, :], 0), shift_from_high(b[..., 0, :, :], 0),
-                    shift_from_low(b[..., :, n.y - 1, :], 1), shift_from_high(b[..., :, 0, :], 1),
-                    shift_from_low(b[..., n.z - 1], 2), shift_from_high(b[..., 0], 2),
-                )
-                jacobi_slab_step(batch(b), *(batch(f) for f in faces), origins, yz_d2, gsize,
-                                 out=batch(out))
-                b, out = out, b
-            interior.copy_(b)
-            return curr
+        # the interiors are worked on in two buffers, one level a body
+        def slab_body(cur, nxt, depth):
+            b = cur.fields[0]
+            faces = (
+                shift_from_low(b[..., n.x - 1, :, :], 0), shift_from_high(b[..., 0, :, :], 0),
+                shift_from_low(b[..., :, n.y - 1, :], 1), shift_from_high(b[..., :, 0, :], 1),
+                shift_from_low(b[..., n.z - 1], 2), shift_from_high(b[..., 0], 2),
+            )
+            jacobi_slab_step(batch(b), *(batch(f) for f in faces), origins, yz_d2, gsize,
+                             out=batch(nxt.fields[0]))
 
-        slab_step._marks_shell_stale = True
-        return slab_step
+        step = as_step(window_loop([name], 1, slab_body, inner))
+        step._marks_shell_stale = True
+        return step
 
     def _plan_wavefront(self) -> int:
         """The wavefront depth m (>= 1), chosen before ``dd.realize()`` as
@@ -360,32 +347,16 @@ class Jacobi3D:
         self._wavefront_z_ring = z_ring_mode
         yext, xext = make_slab_extenders(Xr, Yr, m)
 
-        def depths(steps):
-            macros, rem = divmod(steps, m)
-            return [m] * macros + ([rem] if rem else [])
-
         def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
             return t.view(count, *t.shape[3:])
 
-        def stacked(t):
-            return t.view(*grid, *t.shape[1:])
+        def zslabs(stacks):  # one set's z-slab buffer
+            return [torch.empty((*grid, Xr, 2 * m, Yr), dtype=stacks[0].dtype, device=stacks[0].device)]
 
-        # what the last call left: its working array and outgoing z slabs,
-        # taken up again while nothing has written the quantity since (its
-        # version counter), so a caller stepping one iteration at a time
-        # pays neither the z-interior copy out nor the slab priming again
-        kept = {}
-
-        def resume(t):
-            if kept.get("t") is t and kept["version"] == t._version:
-                return kept["work"], kept["zout"]
-            return None
-
-        def keep(t, work, zout):
-            kept.clear()
-            if not t.is_inference():  # inference tensors have no version counter
-                kept.update(t=t, version=t._version, work=work, zout=zout)
-
+        # a call takes up the working array and z slabs the last one left
+        # while nothing has written the quantity since (``resume``), so a
+        # caller stepping one iteration at a time pays neither the
+        # z-interior copy out nor the slab priming again
         if z_ring_mode:
             Zi = n.z
             d2 = torch.stack([
@@ -393,61 +364,56 @@ class Jacobi3D:
                 for o in org
             ])
 
-            def ring_step(curr, steps: int = 1):
-                stack = curr[name]
-                last = resume(stack)
-                if last is not None:
-                    b, zout = last
-                else:
-                    b = stack[..., m : m + Zi].contiguous()  # no z shell in the array
-                    zout = prime_z_slabs(stack, Zr, m)
-                for depth in depths(steps):
-                    halo_exchange_shard(b, shell, axes=(0, 1))
-                    zs = permute_and_extend_z_slabs(zout, m, yext, xext)
-                    b, zout = jacobi_zring_wavefront_step(
-                        batch(b), depth, origins, d2, gsize, z_slabs=batch(zs), interior_offset=m
-                    )
-                    b, zout = stacked(b), stacked(zout)
-                stack[..., m : m + Zi] = b
-                keep(stack, b, zout)
-                return curr
+            def ring_enter(stacks, cur):
+                cur.fields[0].copy_(stacks[0][..., m : m + Zi])  # no z shell in the array
+                prime_z_slabs(stacks[0], Zr, m, out=cur.extra[0])
 
-            step = ring_step
+            def ring_body(cur, nxt, depth):
+                b = cur.fields[0]
+                halo_exchange_shard(b, shell, axes=(0, 1))
+                zs = permute_and_extend_z_slabs(cur.extra[0], m, yext, xext)
+                jacobi_zring_wavefront_step(batch(b), depth, origins, d2, gsize, z_slabs=batch(zs),
+                                            interior_offset=m, out=batch(nxt.fields[0]),
+                                            z_out=batch(nxt.extra[0]))
+
+            loop = Loop(
+                [name], m, ring_body, resume=True, extra=zslabs, enter=ring_enter,
+                work=lambda stacks: [torch.empty_like(stacks[0][..., m : m + Zi],
+                                                      memory_format=torch.contiguous_format)],
+                leave=lambda stacks, cur: stacks[0][..., m : m + Zi].copy_(cur.fields[0]),
+            )
         else:
             d2 = torch.stack([
                 pack_d2(yz_dist2_plane(o[1] - m, o[2] - m, (Yr, Zr), gsize, dd.device), gsize)
                 for o in org
             ])
 
-            def slab_step(curr, steps: int = 1):
-                b = curr[name]
-                zout = None
+            def shell_body(cur, nxt, depth):
+                b = cur.fields[0]
                 if z_slab_mode:
-                    last = resume(b)
-                    zout = prime_z_slabs(b, Zr, m) if last is None else last[1]
-                for depth in depths(steps):
-                    if z_slab_mode:
-                        halo_exchange_shard(b, shell, axes=(0, 1))
-                        zs = permute_and_extend_z_slabs(zout, m, yext, xext)
-                        b, zout = jacobi_shell_wavefront_step(
-                            batch(b), depth, origins, d2, gsize, interior_offset=m,
-                            z_slabs=batch(zs), z_valid=Zr,
-                        )
-                        zout = stacked(zout)
-                    else:
-                        halo_exchange_shard(b, shell, valid_last)
-                        b = jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize,
-                                                        interior_offset=m)
-                    b = stacked(b)
-                curr[name] = b
-                keep(b, None, zout)
-                return curr
+                    halo_exchange_shard(b, shell, axes=(0, 1))
+                    zs = permute_and_extend_z_slabs(cur.extra[0], m, yext, xext)
+                    jacobi_shell_wavefront_step(
+                        batch(b), depth, origins, d2, gsize, interior_offset=m, z_slabs=batch(zs),
+                        z_valid=Zr, out=batch(nxt.fields[0]), z_out=batch(nxt.extra[0]),
+                    )
+                else:
+                    halo_exchange_shard(b, shell, valid_last)
+                    jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize, interior_offset=m,
+                                                out=batch(nxt.fields[0]))
 
-            step = slab_step
+            # the stack and a spare, ping-ponged
+            loop = Loop(
+                [name], m, shell_body, resume=z_slab_mode, extra=zslabs if z_slab_mode else None,
+                enter=(lambda stacks, cur: prime_z_slabs(stacks[0], Zr, m, out=cur.extra[0]))
+                if z_slab_mode else None,
+            )
+        step = as_step(loop)
         step._marks_shell_stale = True
         return step
 
-    def _kernel(self, views, info):
+    @staticmethod
+    def _kernel(views, info):
         size = info.global_size
         hot_c = Dim3(size.x // 3, size.y // 2, size.z // 2)
         cold_c = Dim3(size.x * 2 // 3, size.y // 2, size.z // 2)

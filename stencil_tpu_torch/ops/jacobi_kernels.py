@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from stencil_tpu_torch.kernels import check_tensor, current_raw_stream, same_device
+from stencil_tpu_torch.kernels import check_out, check_tensor, current_raw_stream, same_device
 
 HOT_TEMP = 1.0
 COLD_TEMP = 0.0
@@ -134,21 +134,24 @@ def wrap_march_depths(k: int) -> list:
     return [k // q + (1 if j < k % q else 0) for j in range(q)]
 
 
-def jacobi_wrap_step(block: torch.Tensor, k: int = 1) -> torch.Tensor:
+def jacobi_wrap_step(block: torch.Tensor, k: int = 1, out: torch.Tensor = None) -> torch.Tensor:
     """``k`` Jacobi levels over the WHOLE periodic domain (the single-
-    subdomain route) from one read of ``block``; returns a new tensor,
-    ``block`` is left as it was.
+    subdomain route) from one read of ``block``; returns ``out`` (a new
+    tensor when None), ``block`` is left as it was.
 
     On CUDA: one call of the wavefront kernel's wrap form, its k levels as
     ``wrap_march_depths(k)`` marches; more than one pass through an (X, Y,
     Z) scratch from torch's caching allocator, the last march writing the
     returned tensor."""
     _check_k(block, k)
+    if out is not None:
+        check_out(out, block)
     if block.device.type == "cpu":
-        return jacobi_wrap_step_plain(block, k)
+        res = jacobi_wrap_step_plain(block, k)
+        return res if out is None else out.copy_(res)
     X, Y, Z = block.shape
     hot_x, cold_x, in_r2 = sphere_params(X)
-    out = torch.empty_like(block)
+    out = torch.empty_like(block) if out is None else out
     scratch = torch.empty_like(block) if k > WAVEFRONT_SUB_DEPTH else None
     entry, lib = _c_entry("stp_jacobi_wrap")
     rc = entry(block.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
@@ -505,20 +508,42 @@ def jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_
     return out, (z_out[0] if single else z_out)
 
 
+def _outs(raw, z_slabs, out, z_out):
+    """The output buffers a wavefront call writes: ``out`` and ``z_out`` as
+    given (checked), else fresh ones."""
+    out = torch.empty_like(raw) if out is None else check_out(out, raw)
+    if z_slabs is None:
+        if z_out is not None:
+            raise ValueError("z_out needs z_slabs")
+        return out, None
+    return out, torch.empty_like(z_slabs) if z_out is None else check_out(z_out, z_slabs, "z_out")
+
+
+def _plain_into(res, out, z_out):
+    """A plain version's result, copied into ``out`` / ``z_out`` where given."""
+    if out is None and z_out is None:
+        return res
+    o, z = res if isinstance(res, tuple) else (res, None)
+    o = o if out is None else out.copy_(o)
+    z = z if z_out is None else z_out.copy_(z)
+    return (o, z) if isinstance(res, tuple) else o
+
+
 def jacobi_shell_wavefront_step(raw, m, origin, d2, global_size, interior_offset=None,
-                                alias=False, z_slabs=None, z_valid=None):
+                                alias=False, z_slabs=None, z_valid=None, out=None, z_out=None):
     """``m`` Jacobi levels over s-shelled block(s) in ONE pass: the compute
     half of the temporally blocked multi-subdomain route.  Arguments and
     result as ``jacobi_shell_wavefront_step_plain``; ``alias=True`` is
     refused (see ``_check_wavefront``).  One CUDA launch serves all ``n``
-    blocks; the output is a fresh buffer."""
+    blocks; the output is ``out`` (and ``z_out``), fresh buffers when None,
+    written on the valid region only."""
     s_off = m if interior_offset is None else interior_offset
     n, Xr, Yr, Zr, zv = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid)
     if raw.device.type == "cpu":
-        return jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_offset,
-                                                 alias, z_slabs, z_valid)
-    out = torch.empty_like(raw)
-    z_out = None if z_slabs is None else torch.empty_like(z_slabs)
+        _outs(raw, z_slabs, out, z_out)  # checks the buffers
+        return _plain_into(jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_offset,
+                                                             alias, z_slabs, z_valid), out, z_out)
+    out, z_out = _outs(raw, z_slabs, out, z_out)
     _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zr, zv, m, s_off,
                       Zr, global_size, ring=False)
     jacobi_shell_wavefront_step.launches += 1
@@ -555,18 +580,19 @@ def jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
 
 
 def jacobi_zring_wavefront_step(raw, m, origin, d2, global_size, z_slabs,
-                                interior_offset=None, alias=False):
+                                interior_offset=None, alias=False, out=None, z_out=None):
     """``m`` Jacobi levels in ONE pass over z-interior-only block(s), the z
     halo taken from ``z_slabs`` and the next slabs emitted; arguments and
     result as ``jacobi_zring_wavefront_step_plain``.  One CUDA launch serves
-    all ``n`` blocks; the outputs are fresh buffers."""
+    all ``n`` blocks; the outputs are ``out`` and ``z_out``, fresh buffers
+    when None."""
     s_off = m if interior_offset is None else interior_offset
     n, Xr, Yr, Zi, _ = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True)
     if raw.device.type == "cpu":
-        return jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
-                                                 interior_offset, alias)
-    out = torch.empty_like(raw)
-    z_out = torch.empty_like(z_slabs)
+        _outs(raw, z_slabs, out, z_out)
+        return _plain_into(jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
+                                                             interior_offset, alias), out, z_out)
+    out, z_out = _outs(raw, z_slabs, out, z_out)
     _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zi, Zi + 2 * s_off, m,
                       s_off, _ZRING_OFF + Zi, global_size, ring=True)
     jacobi_zring_wavefront_step.launches += 1

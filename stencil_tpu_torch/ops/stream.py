@@ -71,12 +71,13 @@ from __future__ import annotations
 import ctypes
 import operator
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
-from stencil_tpu_torch.kernels import build, check_tensor, same_device, stream_handle
+from stencil_tpu_torch.kernels import build, check_out, check_tensor, same_device, stream_handle
+from stencil_tpu_torch.ops.captured import Loop, as_step, window_loop
 from stencil_tpu_torch.ops.exchange import (
     Y_PACK_ROUTES, fused_shell_exchange, halo_exchange_multi, overlapped, shift_from_high, shift_from_low,
     side_stream,
@@ -122,15 +123,15 @@ def lane_pad_width(z: int) -> int:
     return -(-z // 128) * 128
 
 
-def prime_z_slabs(block: torch.Tensor, Zr: int, s: int) -> torch.Tensor:
+def prime_z_slabs(block: torch.Tensor, Zr: int, s: int, out: torch.Tensor = None) -> torch.Tensor:
     """The first outgoing z-slab buffer of a macro chain: the blocks'
     interior z-boundary columns, packed ``[(-z)-bound | (+z)-bound]`` and
-    transposed z-major, ``(..., Xr, Yr, Zr) -> (..., Xr, 2s, Yr)``.  Every
-    later slab buffer is kernel-emitted."""
-    return torch.cat(
-        [block[..., Zr - 2 * s : Zr - s].transpose(-1, -2), block[..., s : 2 * s].transpose(-1, -2)],
-        dim=-2,
-    ).contiguous()
+    transposed z-major, ``(..., Xr, Yr, Zr) -> (..., Xr, 2s, Yr)``, into
+    ``out`` when given.  Every later slab buffer is kernel-emitted."""
+    parts = [block[..., Zr - 2 * s : Zr - s].transpose(-1, -2), block[..., s : 2 * s].transpose(-1, -2)]
+    if out is not None:
+        return torch.cat(parts, dim=-2, out=out)
+    return torch.cat(parts, dim=-2).contiguous()
 
 
 def make_slab_extenders(Xr: int, Yr: int, s: int):
@@ -324,20 +325,37 @@ def stream_wrap_pass_plain(kernel: Kernel, names, blocks, k: int, origin, global
     return cur
 
 
-def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size) -> List[torch.Tensor]:
+def _check_outs(out, ins) -> List[torch.Tensor]:
+    """``out``: one buffer per input, each of its input's shape, none of them
+    an input."""
+    if len(out) != len(ins):
+        raise ValueError(f"out holds {len(out)} tensors for {len(ins)} fields")
+    for o in out:
+        check_out(o, ins[0])
+    if {o.data_ptr() for o in out} & {t.data_ptr() for t in ins}:
+        raise ValueError("out must not alias the inputs")
+    return list(out)
+
+
+def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size, out=None) -> List[torch.Tensor]:
     """``k`` levels of ``kernel`` over the WHOLE periodic domain (the single-
     subdomain route), one ``(X, Y, Z)`` float32 tensor per field; ``origin``
-    the (3,) int32 global start.  Returns new tensors; ``blocks`` are left as
-    they were.  On CUDA: ``k`` launches of the one-level kernel over all
-    fields, ping-ponging between two sets of fresh buffers."""
+    the (3,) int32 global start.  Returns ``out`` (new tensors when None);
+    ``blocks`` are left as they were.  On CUDA: ``k`` launches of the
+    one-level kernel over all fields, ping-ponging between the outputs and a
+    second set of fresh buffers."""
     shape, dev = _check_wrap(names, blocks, k, origin)
+    if out is not None:
+        out = _check_outs(out, blocks)
     if dev.type == "cpu":
-        return stream_wrap_pass_plain(kernel, names, blocks, k, origin, global_size)
+        res = stream_wrap_pass_plain(kernel, names, blocks, k, origin, global_size)
+        return res if out is None else [o.copy_(r) for o, r in zip(out, res)]
     sk = _as_kernel(kernel, names, 1, global_size)
     lib = _library(sk, "stream_wrap", _WRAP_LEVELS if k <= _WRAP_MAX_K else range(1, k + 1))
     X, Y, Z = shape
     gx, gy, gz = sk.global_size
-    bufs = [[torch.empty_like(b) for b in blocks], [torch.empty_like(b) for b in blocks] if k > 1 else None]
+    bufs = [[torch.empty_like(b) for b in blocks] if out is None else out,
+            [torch.empty_like(b) for b in blocks] if k > 1 else None]
     stream = stream_handle(dev)
     src = list(blocks)
     for level in range(1, k + 1):
@@ -549,21 +567,33 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
 
 
 def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origin, global_size,
-                          z_slabs=None, z_valid=None, alias=False, fused_shell=None):
+                          z_slabs=None, z_valid=None, alias=False, fused_shell=None, out=None, z_out=None):
     """``m`` levels of ``kernel`` (read radius 1) in ONE pass over s-shelled
     block(s) per field: the compute half of the temporally blocked route.
     Arguments and result as ``stream_wavefront_pass_plain``; ``alias=True``
     is refused.  One CUDA launch serves all ``n`` blocks and all fields; the
-    outputs are fresh buffers, written on the valid region only.  With
-    ``fused_shell`` the blocks' shell is stale and every level-0 cell at a
-    shell position is read from the buffers (the fused form)."""
+    outputs are ``out`` (and ``z_out`` with ``z_slabs``), fresh buffers when
+    None, written on the valid region only.  With ``fused_shell`` the
+    blocks' shell is stale and every level-0 cell at a shell position is
+    read from the buffers (the fused form)."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
                                               z_valid, alias, fused_shell)
+    if out is not None:
+        out = _check_outs(out, raws)
+    if z_out is not None:
+        if z_slabs is None:
+            raise ValueError("z_out needs z_slabs")
+        z_out = _check_outs(z_out, z_slabs)
     if dev.type == "cpu":
-        return stream_wavefront_pass_plain(kernel, names, raws, m, s_off, origin, global_size,
-                                           z_slabs, z_valid, alias, fused_shell)
+        outs, zouts = stream_wavefront_pass_plain(kernel, names, raws, m, s_off, origin, global_size,
+                                                  z_slabs, z_valid, alias, fused_shell)
+        if out is not None:
+            outs = [o.copy_(r) for o, r in zip(out, outs)]
+        if z_out is not None:
+            zouts = [o.copy_(r) for o, r in zip(z_out, zouts)]
+        return outs, zouts
     sk = _as_kernel(kernel, names, 1, global_size)
-    outs = [torch.empty_like(r) for r in raws]
+    outs = [torch.empty_like(r) for r in raws] if out is None else out
     gx, gy, gz = sk.global_size
     if fused_shell is not None:
         lib = _library(sk, *_wavefront_variant(m, fused=True))
@@ -575,7 +605,7 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
         stream_wavefront_pass.fused_launches += 1
         return outs, None
     lib = _library(sk, *_wavefront_variant(m))
-    zouts = None if z_slabs is None else [torch.empty_like(z) for z in z_slabs]
+    zouts = None if z_slabs is None else [torch.empty_like(z) for z in z_slabs] if z_out is None else z_out
     slabs = z_slabs is not None
     rc = lib.stp_stream_wavefront(
         _ptrs(raws), _ptrs(outs), _ptrs(z_slabs) if slabs else None, _ptrs(zouts) if slabs else None,
@@ -908,7 +938,7 @@ def _window(t: torch.Tensor, ax: int, starts: Sequence[int], width: int) -> torc
     return torch.stack([t[b].narrow(ax, p, width) for b, p in enumerate(starts)])
 
 
-def _exterior_fix(dd, narrow: Callable) -> Callable:
+def _exterior_fix(dd, narrow: Callable, keys: Sequence[Tuple[int, bool]]) -> Callable:
     """``fix(outs, ex, w, shift_all)``: recompute the six width-``w`` boundary
     bands of the ``(n, X, Y, Z)`` outputs ``outs`` from the exchanged blocks
     ``ex`` and write them in (``_exterior_fix``,
@@ -924,7 +954,9 @@ def _exterior_fix(dd, narrow: Callable) -> Callable:
     cells: per-block offsets on padded axes, written by
     ``blend_slab_dynamic``; x bands on even axes are plane copies, y and z
     bands go through ``blend_slab``.  Band overlaps at edges and corners
-    write identical values twice."""
+    write identical values twice.  The band table of every ``(w, shift_all)`` in ``keys``
+    (its int32 offsets and origins on the device) is built here, with the
+    step, so a call makes no host-to-device copy."""
     lo, hi = dd.shell_radius().lo(), dd.shell_radius().hi()
     raw = dd.local_spec().raw_size()
     n = dd.local_spec().sz
@@ -934,12 +966,8 @@ def _exterior_fix(dd, narrow: Callable) -> Callable:
     index = [[(b // (grid[1] * grid[2]), b // grid[2] % grid[1], b % grid[2])[ax] for b in range(count)]
              for ax in range(3)]
     origins = dd.origins()
-    cache: Dict[tuple, list] = {}
 
     def bands(w: int, shift_all: bool) -> list:
-        key = (w, shift_all)
-        if key in cache:
-            return cache[key]
         out = []
         for ax in range(3):
             nvs = [valid_last[ax] if valid_last[ax] is not None and i == grid[ax] - 1 else n[ax]
@@ -954,11 +982,12 @@ def _exterior_fix(dd, narrow: Callable) -> Callable:
                 pos = torch.tensor(poss, dtype=torch.int32, device=origins.device)
                 offs = [p - q for p, q in zip(poss, starts)]
                 out.append((ax, starts, width, offs, poss, pos, origin_sub))
-        cache[key] = out
         return out
 
+    table = {key: bands(*key) for key in keys}
+
     def fix(outs: List[torch.Tensor], ex: List[torch.Tensor], w: int, shift_all: bool) -> None:
-        for ax, starts, width, offs, poss, pos, origin_sub in bands(w, shift_all):
+        for ax, starts, width, offs, poss, pos, origin_sub in table[(w, shift_all)]:
             subs = narrow([_window(e, ax, starts, width) for e in ex], ax, w, origin_sub)
             for o, sub in zip(outs, subs):
                 band = _window(sub, ax, offs, w)
@@ -973,6 +1002,15 @@ def _exterior_fix(dd, narrow: Callable) -> Callable:
 
 
 # --- the routes -------------------------------------------------------------------------
+#
+# Each route is a ``captured.Loop`` (``ops/captured.py``): the same phases run
+# uncaptured from ``step(curr, steps)`` and as CUDA graphs under
+# ``DistributedDomain.set_capture``.
+
+
+def _blocks(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``(px, py, pz, ...) -> (n, ...)`` views: one launch serves all."""
+    return [t.view(-1, *t.shape[3:]) for t in ts]
 
 
 def _wrap_route(dd, names, groups, programs, plan, x_radius):
@@ -983,45 +1021,35 @@ def _wrap_route(dd, names, groups, programs, plan, x_radius):
     gsize = dd.size()
     inner = (0, 0, 0, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
 
-    def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
-        bs = [curr[name][inner].contiguous() for name in names]
-        blocked, rem = divmod(steps, k)
-        for depth in [k] * blocked + ([rem] if rem else []):
-            for g, sk in zip(groups, programs):
-                outs = stream_wrap_pass(sk, sk.names, [bs[q] for q in g], depth, origin, gsize)
-                for q, o in zip(g, outs):
-                    bs[q] = o
-        for name, b in zip(names, bs):
-            curr[name][inner].copy_(b)
-        return curr
+    # each field's interior is worked on in two (X, Y, Z) buffers, k levels a body
+    def body(cur, nxt, depth):
+        for g, sk in zip(groups, programs):
+            stream_wrap_pass(sk, sk.names, [cur.fields[q] for q in g], depth, origin, gsize,
+                             out=[nxt.fields[q] for q in g])
 
-    return step
+    return as_step(window_loop(names, k, body, inner))
 
 
-def _grouped(groups, bs, fused_bufs, run) -> List[torch.Tensor]:
-    """``run(sk_index, blocks, fused_shell)`` for each group over its fields'
-    blocks (and fused buffers); the outputs per field."""
-    out = list(bs)
+def _grouped(groups, bs, fused_bufs, run, outs) -> None:
+    """``run(sk_index, blocks, fused_shell, out)`` for each group over its
+    fields' blocks (fused buffers and outputs)."""
     for j, g in enumerate(groups):
         fs = None if fused_bufs is None else tuple([b[q] for q in g] for b in fused_bufs)
-        for q, o in zip(g, run(j, [bs[q] for q in g], fs)):
-            out[q] = o
-    return out
+        run(j, [bs[q] for q in g], fs, [outs[q] for q in g])
 
 
 def _plane_route(dd, names, groups, programs, plan, x_radius):
     shell = dd.shell_radius()
     lo, hi = shell.lo(), shell.hi()
     origins = dd.origins()
-    count = dd.num_subdomains()
     gsize = dd.size()
     valid_last = dd.valid_last()
     route = dd.exchange_route()
     split, fused = plan["overlap"] == "split", plan["halo"] == "fused"
 
-    def passes(bs, fused_bufs=None):
-        return _grouped(groups, bs, fused_bufs, lambda j, b, fs: stream_plane_pass(
-            programs[j], programs[j].names, b, lo, hi, x_radius, origins, gsize, fused_shell=fs))
+    def passes(bs, outs, fused_bufs=None):
+        _grouped(groups, bs, fused_bufs, lambda j, b, fs, o: stream_plane_pass(
+            programs[j], programs[j].names, b, lo, hi, x_radius, origins, gsize, out=o, fused_shell=fs), outs)
 
     def narrow_plane(subs, ax, w, origin_sub):
         """One level over ``3w``-wide face sub-blocks (``w == x_radius``):
@@ -1029,33 +1057,32 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
         the true shell widths (``narrow_plane``, JAX ``:1634-1656``)."""
         lo2 = Dim3(*[w if b == ax else lo[b] for b in range(3)])
         hi2 = Dim3(*[w if b == ax else hi[b] for b in range(3)])
-        return _grouped(groups, subs, None, lambda j, b, fs: stream_plane_pass(
-            programs[j], programs[j].names, b, lo2, hi2, x_radius, origin_sub, gsize))
+        out = list(subs)
+        for j, g in enumerate(groups):
+            for q, o in zip(g, stream_plane_pass(programs[j], programs[j].names, [subs[q] for q in g], lo2, hi2,
+                                                 x_radius, origin_sub, gsize)):
+                out[q] = o
+        return out
 
     side = side_stream(dd.device) if split else None
-    fix = _exterior_fix(dd, narrow_plane) if split else None
+    fix = _exterior_fix(dd, narrow_plane, [(x_radius, False)]) if split else None
 
-    def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
-        stacks = [curr[name] for name in names]
-        shape = stacks[0].shape
-        for _ in range(steps):
-            blocks = [s.view(count, *shape[3:]) for s in stacks]
-            if fused:
-                # the received shell rides into the pass: no halo write
-                new = passes(blocks, fused_shell_exchange(stacks, shell, route))
-            elif split:
-                new = overlapped(side, lambda: passes(blocks),
-                                  lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
-                fix(new, blocks, x_radius, False)
-            else:
-                halo_exchange_multi(stacks, shell, valid_last, route=route)
-                new = passes(blocks)
-            stacks = [o.view(shape) for o in new]
-        for name, s in zip(names, stacks):
-            curr[name] = s
-        return curr
+    # the stacks and a spare set, ping-ponged: one level a body
+    def body(cur, nxt, depth):
+        stacks = cur.fields
+        blocks, outs = _blocks(stacks), _blocks(nxt.fields)
+        if fused:
+            # the received shell rides into the pass: no halo write
+            passes(blocks, outs, fused_shell_exchange(stacks, shell, route))
+        elif split:
+            overlapped(side, lambda: passes(blocks, outs),
+                       lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
+            fix(outs, blocks, x_radius, False)
+        else:
+            halo_exchange_multi(stacks, shell, valid_last, route=route)
+            passes(blocks, outs)
 
-    return step
+    return as_step(Loop(names, 1, body))
 
 
 def _wavefront_route(dd, names, groups, programs, plan, x_radius):
@@ -1066,7 +1093,6 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
     s = shell.lo().x
     Xr, Yr, Zr = dd.local_spec().raw_size().tuple()
     origins = dd.origins()
-    count = dd.num_subdomains()
     gsize = dd.size()
     valid_last = dd.valid_last()
     yext, xext = make_slab_extenders(Xr, Yr, s)
@@ -1075,59 +1101,60 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
     # domain's
     axes, route = ((0, 1), "direct") if z_slab_mode else ((0, 1, 2), dd.exchange_route())
 
-    def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
-        return t.view(count, *t.shape[3:])
-
-    def run_pass(sk, bs, depth, zs):
-        return stream_wavefront_pass(sk, sk.names, bs, depth, s, origins, gsize, z_slabs=zs,
-                                     z_valid=Zr if zs is not None else None)
-
-    def passes(bs, depth, fused_bufs=None):
-        return _grouped(groups, bs, fused_bufs, lambda j, b, fs: stream_wavefront_pass(
-            programs[j], programs[j].names, b, depth, s, origins, gsize, fused_shell=fs)[0])
+    def passes(bs, depth, outs, fused_bufs=None):
+        _grouped(groups, bs, fused_bufs, lambda j, b, fs, o: stream_wavefront_pass(
+            programs[j], programs[j].names, b, depth, s, origins, gsize, fused_shell=fs, out=o), outs)
 
     def narrow_wavefront(subs, ax, w, origin_sub):
         """``w`` levels over ``3w``-wide face sub-blocks (``w`` is this
         macro's depth) with a pseudo shell of ``w`` on every axis
         (``narrow_wavefront``, JAX ``:1732-1757``)."""
-        return _grouped(groups, subs, None, lambda j, b, fs: stream_wavefront_pass(
-            programs[j], programs[j].names, b, w, w, origin_sub, gsize)[0])
+        out = list(subs)
+        for j, g in enumerate(groups):
+            res = stream_wavefront_pass(programs[j], programs[j].names, [subs[q] for q in g], w, w,
+                                        origin_sub, gsize)[0]
+            for q, o in zip(g, res):
+                out[q] = o
+        return out
 
     side = side_stream(dd.device) if split else None
-    fix = _exterior_fix(dd, narrow_wavefront) if split else None
+    # every macro's depth: the plan's and each remainder's
+    fix = _exterior_fix(dd, narrow_wavefront, [(d, True) for d in range(1, m + 1)]) if split else None
 
-    def plain_macro(stacks, depth):
-        blocks = [batch(t) for t in stacks]
+    def plain_macro(stacks, depth, outs):
+        blocks = _blocks(stacks)
         if fused:
-            return passes(blocks, depth, fused_shell_exchange(stacks, shell, route))
-        if split:
-            new = overlapped(side, lambda: passes(blocks, depth),
-                              lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
-            fix(new, blocks, depth, True)
-            return new
-        halo_exchange_multi(stacks, shell, valid_last, route=route)
-        return passes(blocks, depth)
+            passes(blocks, depth, outs, fused_shell_exchange(stacks, shell, route))
+        elif split:
+            overlapped(side, lambda: passes(blocks, depth, outs),
+                       lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
+            fix(outs, blocks, depth, True)
+        else:
+            halo_exchange_multi(stacks, shell, valid_last, route=route)
+            passes(blocks, depth, outs)
 
-    def step(curr: Dict[str, torch.Tensor], steps: int = 1) -> Dict[str, torch.Tensor]:
-        stacks = [curr[name] for name in names]
-        shape = stacks[0].shape
-        macros, rem = divmod(steps, m)
-        zouts = [prime_z_slabs(b, Zr, s) for b in stacks] if z_slab_mode else None
-        for depth in [m] * macros + ([rem] if rem else []):
-            if not z_slab_mode:
-                stacks = [o.view(shape) for o in plain_macro(stacks, depth)]
-                continue
-            halo_exchange_multi(stacks, shell, valid_last, axes=axes, route=route)
-            zs = [permute_and_extend_z_slabs(z, s, yext, xext) for z in zouts]
-            new, new_z = list(stacks), list(zouts)
-            for g, sk in zip(groups, programs):
-                outs, zo = run_pass(sk, [batch(stacks[q]) for q in g], depth, [batch(zs[q]) for q in g])
-                for j, q in enumerate(g):
-                    new[q] = outs[j].view(shape)
-                    new_z[q] = zo[j].view(zouts[q].shape)
-            stacks, zouts = new, new_z
-        for name, b in zip(names, stacks):
-            curr[name] = b
-        return curr
+    # the stacks and a spare set, ping-ponged: one macro a body; the z-slab
+    # form carries each field's z slabs in the sets too, primed per call
+    def body(cur, nxt, depth):
+        stacks = cur.fields
+        if not z_slab_mode:
+            plain_macro(stacks, depth, _blocks(nxt.fields))
+            return
+        halo_exchange_multi(stacks, shell, valid_last, axes=axes, route=route)
+        zs = _blocks([permute_and_extend_z_slabs(z, s, yext, xext) for z in cur.extra])
+        bs, outs, zouts = _blocks(stacks), _blocks(nxt.fields), _blocks(nxt.extra)
+        for g, sk in zip(groups, programs):
+            stream_wavefront_pass(sk, sk.names, [bs[q] for q in g], depth, s, origins, gsize,
+                                  z_slabs=[zs[q] for q in g], z_valid=Zr, out=[outs[q] for q in g],
+                                  z_out=[zouts[q] for q in g])
 
-    return step
+    def zslabs(stacks):
+        return [t.new_empty((*t.shape[:3], Xr, 2 * s, Yr)) for t in stacks]
+
+    def prime(stacks, cur):
+        for t, z in zip(stacks, cur.extra):
+            prime_z_slabs(t, Zr, s, out=z)
+
+    if z_slab_mode:
+        return as_step(Loop(names, m, body, extra=zslabs, enter=prime))
+    return as_step(Loop(names, m, body))

@@ -537,7 +537,9 @@ class StreamKernel:
                     xyz = tuple(c.to(torch.int32) for c in coords())
                 v = xyz[n.args[0]]
             elif n.op == "const":
-                v = torch.tensor(n.args[0], dtype=_TORCH_DTYPE[n.kind], device=device)
+                # a fill on the device, not a host-to-device copy (a captured
+                # step may hold no copy from the host)
+                v = torch.full((), n.args[0], dtype=_TORCH_DTYPE[n.kind], device=device)
             else:
                 v = _TORCH_OPS[n.op](*(vals[a.idx] for a in n.args), n)
             vals[n.idx] = v

@@ -1173,3 +1173,177 @@ def test_astaroth_uneven_routes_agree_on_card(dev):
         assert m.dd.padded()
         for i in range(2):
             assert np.array_equal(m.field(i), runs[0].field(i))
+
+
+# --- the one-dispatch step loop: captured CUDA graphs ---------------------------------
+
+
+def _jacobi_cap(size, part, captured, **kw):
+    m = Jacobi3D(*size, kernel_impl="cuda", capture=captured, **kw)
+    if part is not None:
+        m.dd.set_partition(*part)
+    m.realize()
+    return m
+
+
+def _astaroth_cap(size, part, captured, **kw):
+    m = AstarothSim(*size, num_quantities=2, kernel_impl="cuda", capture=captured, **kw)
+    if part is not None:
+        m.dd.set_partition(*part)
+    m.realize()
+    return m
+
+
+#: calls whose steps are and are not multiples of the unit, so that every
+#: phase is captured and then replayed from either set of the ping-pong
+_CAP_CALLS = (5, 7, 3, 8, 5)
+
+_CAP_ROUTES = {
+    "jacobi wrap": (_jacobi_cap, (32, 30, 28), None, dict(temporal_k=3)),
+    "jacobi slab": (_jacobi_cap, (32, 32, 32), (2, 2, 2), dict(pallas_path="slab")),
+    "jacobi shell": (_jacobi_cap, (32, 32, 32), (2, 2, 2), dict(pallas_path="shell")),
+    "jacobi shell uneven": (_jacobi_cap, (33, 31, 32), (2, 2, 2), dict(pallas_path="shell")),
+    "jacobi wavefront z-slab": (_jacobi_cap, (32, 32, 32), (2, 2, 2),
+                                dict(pallas_path="wavefront", temporal_k=2, z_ring=False)),
+    "jacobi wavefront z-ring": (_jacobi_cap, (32, 32, 256), (1, 1, 2), dict(pallas_path="wavefront", temporal_k=3)),
+    "jacobi wavefront plain": (_jacobi_cap, (33, 31, 32), (2, 2, 2), dict(pallas_path="wavefront", temporal_k=2)),
+    "astaroth wrap": (_astaroth_cap, (32, 32, 32), None, dict()),
+    "astaroth wavefront 1x1x1": (_astaroth_cap, (32, 32, 32), None, dict(schedule="wavefront")),
+    "astaroth wavefront": (_astaroth_cap, (32, 32, 32), (2, 2, 2), dict()),
+    "astaroth wavefront uneven": (_astaroth_cap, (31, 31, 31), (2, 2, 2), dict()),
+    "astaroth plane": (_astaroth_cap, (32, 32, 32), (2, 2, 2), dict(schedule="per-step")),
+    **{f"astaroth plane {r}": (_astaroth_cap, (32, 32, 32), (2, 2, 2), dict(schedule="per-step", exchange_route=r))
+       for r in ("zpack_xla", "zpack_pallas", "yzpack_xla", "yzpack_pallas")},
+    "astaroth plane fused": (_astaroth_cap, (32, 32, 32), (2, 2, 2),
+                             dict(schedule="per-step", exchange_route="yzpack_pallas", stream_halo="fused")),
+    "astaroth wavefront fused": (_astaroth_cap, (32, 32, 32), (2, 2, 2),
+                                 dict(exchange_route="yzpack_pallas", stream_halo="fused")),
+    "astaroth plane split": (_astaroth_cap, (32, 32, 32), (2, 2, 2), dict(schedule="per-step", stream_overlap="split")),
+    "astaroth wavefront split": (_astaroth_cap, (33, 31, 32), (2, 2, 2), dict(stream_overlap="split")),
+    "astaroth torch engine": (lambda size, part, captured, **kw: _torch_engine_cap(size, part, captured),
+                              (32, 32, 32), (2, 2, 2), dict()),
+}
+
+
+def _torch_engine_cap(size, part, captured):
+    m = AstarothSim(*size, num_quantities=2, capture=captured)
+    m.dd.set_partition(*part)
+    m.realize()
+    return m
+
+
+def _fields_of(m):
+    hs = [m.h] if hasattr(m, "h") else m.handles
+    return [m.dd.quantity_to_host(h) for h in hs]
+
+
+@pytest.mark.parametrize("name", sorted(_CAP_ROUTES))
+def test_captured_route_equals_uncaptured_on_card(dev, name):
+    """Each route with capture on against capture off, call by call: the
+    valid interiors bitwise (the split output's shell is racy by contract,
+    so interiors everywhere) and the launch counts equal; the captured step
+    holds CUDA graphs, within its bound."""
+    from stencil_tpu_torch.kernels import ledger
+
+    make, size, part, kw = _CAP_ROUTES[name]
+    cap, ref = make(size, part, True, **kw), make(size, part, False, **kw)
+    for n in _CAP_CALLS:
+        counts = []
+        for m in (ref, cap):
+            ledger.reset_launch_counts()
+            m.step(n)
+            torch.cuda.synchronize()
+            counts.append(ledger.launch_counts())
+        assert counts[0] == counts[1]
+        for a, b in zip(_fields_of(ref), _fields_of(cap)):
+            assert np.array_equal(a, b)
+    loop = cap._step._loop
+    assert cap._step.captured and loop.replays > 0
+    assert len(loop.graphs) <= loop.max_graphs
+    assert all(isinstance(g.impl, __import__("stencil_tpu_torch.ops.captured", fromlist=["x"]).CudaGraph)
+               for g in loop.graphs.values())
+
+
+@pytest.mark.parametrize("route", ["direct", "yzpack_pallas"])
+@pytest.mark.parametrize("size", [(32, 32, 32), (33, 31, 32)])
+def test_exchange_many_equals_exchanges_on_card(dev, route, size):
+    """exchange_many(n): one captured exchange replayed n times, against n
+    exchange() calls: the raw stacks bitwise, the launch counts equal."""
+    from stencil_tpu_torch.kernels import ledger
+
+    runs = []
+    for many in (False, True):
+        dd, hs = _stream_domain(size, route, 1)
+        ledger.reset_launch_counts()
+        if many:
+            dd.exchange_many(5)
+            dd.exchange_many(4)
+        else:
+            for _ in range(9):
+                dd.exchange()
+        torch.cuda.synchronize()
+        runs.append((dd, hs, ledger.launch_counts()))
+    (da, ha, ca), (db, hb_, cb) = runs
+    assert ca == cb and sum(ca.values()) > 0
+    for x, y in zip(ha, hb_):
+        assert torch.equal(da.get_curr(x), db.get_curr(y))
+    loop = db._exchange_loop
+    assert loop.captured and loop.captures == 1 and loop.replays == 8  # 9 = the warm-up + 8 replays
+
+
+def test_failed_capture_raises_without_fallback(dev):
+    """A body that reads a value back to the host cannot be captured: the
+    capture raises, no graph is kept, and a later call raises again rather
+    than running the body uncaptured."""
+    from stencil_tpu_torch.ops import captured
+
+    calls = []
+
+    def body(cur, nxt, depth):
+        calls.append(depth)
+        nxt.fields[0].copy_(cur.fields[0] + 1)
+        if nxt.fields[0].sum().item() < 0:  # a host read: illegal while capturing
+            raise AssertionError
+
+    loop = captured.Loop(["q"], 1, body)
+    curr = {"q": torch.zeros(8, device="cuda")}
+    with pytest.raises(RuntimeError):
+        loop.run(curr, 2, capture=True)
+    assert not loop.graphs and calls == [1, 1]  # the warm-up, then the failed capture
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        loop.run(curr, 1, capture=True)
+    assert calls == [1, 1]
+    torch.cuda.synchronize()
+    # a model whose step cannot be captured raises from step() too
+    m = _jacobi_cap((32, 32, 32), (2, 2, 2), True, pallas_path="shell")
+    m._step._loop.body = body
+    with pytest.raises(RuntimeError):
+        m.step(2)
+    torch.cuda.synchronize()
+
+
+def test_graphs_freed_with_the_model(dev):
+    """The graphs and their memory pool belong to the step: once the model is
+    gone, the device memory is back where it was."""
+    import gc
+    import weakref
+
+    def run():
+        m = _astaroth_cap((32, 32, 32), (2, 2, 2), True, schedule="per-step", exchange_route="yzpack_pallas")
+        m.step(3)
+        m.step(3)
+        torch.cuda.synchronize()
+        return m
+
+    del_and_collect = lambda: (gc.collect(), torch.cuda.synchronize(), torch.cuda.empty_cache())  # noqa: E731
+    first = run()  # fills what outlives a model (built libraries, cached offsets)
+    del first
+    del_and_collect()
+    base = torch.cuda.memory_reserved()
+    m = run()
+    graphs = [weakref.ref(g.impl) for g in m._step._loop.graphs.values()]
+    assert graphs and torch.cuda.memory_reserved() > base
+    del m
+    del_and_collect()
+    assert all(g() is None for g in graphs)
+    assert torch.cuda.memory_reserved() <= base
