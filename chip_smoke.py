@@ -174,6 +174,28 @@ non-zero before the result line:
     ``dd.exchange_many(24)`` against 24 ``dd.exchange()`` calls on the
     8-field 2x2x2 domain, stacks bitwise and launches equal, ms and host µs
     and the breakdown; every graph freed before the phase ends.
+18. component (N-D) quantities and the debug oracles, 2x2x2: a (3,) f32
+    vector beside a scalar (radius 3, faces, edges and corners; seeded
+    with ``set_quantity``) and the same data as four scalar quantities, at
+    512^3 on each of the five exchange routes and at 511^3 on ``direct``
+    and ``yzpack_pallas`` (which degrades there, every axis padded, with
+    its warning): 24 ``exchange()`` calls and ``exchange_many(24)``, each
+    from the loaded stacks with the counters reset before and read after,
+    the launches equal and as the route's sweeps predict, every stack
+    bitwise equal to ``direct``'s vector domain; the ms an exchange of each
+    domain, uncaptured and under ``exchange_many`` (CUDA events, the better
+    of two runs of 24); kernels #9-#14 (#10 at 511^3) held against their
+    plain versions on the vector's 24 blocks; the torch engine over the
+    vector at 512^3 (radius 1, 4 steps): the mean-of-6 kernel with overlap
+    on and off, captured and not, each bitwise equal to three scalar
+    domains, and a component-mixing kernel (indexing and ``torch.stack``)
+    equal across the four, at 512^3 to ``curl_roll18`` (the same operations
+    with ``torch.roll`` on the logical fields, on the card) and, at 64^3, to
+    its CPU run; the AllGather and
+    RollCompare oracles on two scalars at 512^3 (the vector's first two
+    components), bitwise equal to
+    ``direct``, ``exchange()`` and ``exchange_many`` alike, with their ms
+    an exchange; every domain freed before the phase ends.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -254,6 +276,37 @@ def seeded(shape, seed: int, dev) -> torch.Tensor:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def logical18(t: torch.Tensor, shell: int = 1) -> torch.Tensor:
+    """A quantity's ``(*components, px, py, pz, Xr, Yr, Zr)`` stack with a
+    ``shell``-wide halo on every side as its logical ``(*components, X, Y,
+    Z)`` field: each block's interior placed at its grid position (an even
+    split, so every block holds the same cells)."""
+    t = t[..., shell:-shell, shell:-shell, shell:-shell]
+    c = t.dim() - 6
+    p, n = t.shape[c:c + 3], t.shape[c + 3:]
+    perm = [*range(c), c, c + 3, c + 1, c + 4, c + 2, c + 5]
+    return t.permute(perm).reshape(*t.shape[:c], *(a * b for a, b in zip(p, n)))
+
+
+def curl_roll18(v: torch.Tensor, s: torch.Tensor, steps: int):
+    """Phase 18's component-mixing kernel on the logical periodic fields
+    ``v`` (3, X, Y, Z) and ``s`` (X, Y, Z) with ``torch.roll``, one
+    elementwise op at a time in the kernel's own order (``sh(dx, dy, dz)``
+    reads the cell at +d, a roll by -d): a reference that shares nothing
+    with the domain, its exchange or the traced engine."""
+    half_, quarter = (torch.full((), c, dtype=v.dtype, device=v.device) for c in (0.5, 0.25))
+
+    def sh(c, dx, dy, dz):
+        return torch.roll(v[c], shifts=(-dx, -dy, -dz), dims=(0, 1, 2))
+
+    for _ in range(steps):
+        w0 = sh(2, 0, 1, 0) - sh(2, 0, -1, 0) - sh(1, 0, 0, 1) + sh(1, 0, 0, -1)
+        w1 = sh(0, 0, 0, 1) - sh(0, 0, 0, -1) - sh(2, 1, 0, 0) + sh(2, -1, 0, 0)
+        w2 = sh(1, 1, 0, 0) - sh(1, -1, 0, 0) - sh(0, 0, 1, 0) + sh(0, 0, -1, 0)
+        v, s = v + half_ * torch.stack([w0, w1, w2], dim=0), s - w0 * quarter
+    return v, s
 
 
 def k27_kernel(views, info):
@@ -387,6 +440,310 @@ def log_breakdown(route: str, b: dict) -> None:
     log(f"profile {route}: wall {b['wall_ms_per_step']:.4f} ms/step (profiler on), device busy "
         f"{b['device_ms_per_step']:.4f} ms/step, idle share {b['idle_share']:.3f}; "
         + "; ".join(f"{k} {v:.4f}" for k, v in top))
+
+
+def phase18(card: str, dev: torch.device, nu: int) -> dict:
+    """Phase 18 (see the module's docstring): components on every exchange
+    route, the torch engine over a vector, the debug oracles; returns the
+    phase's record.  Every domain it makes is freed before it returns."""
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.ops import halo_blend as hb
+    from stencil_tpu_torch.ops import pack as pk
+    from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
+    from stencil_tpu_torch.utils.config import MethodFlags
+
+    t18 = time.perf_counter()
+
+    def log18(msg: str) -> None:
+        log(f"[phase 18 +{time.perf_counter() - t18:.1f} s] {msg}")
+
+    nd18 = {"card": card, "exchange": {}, "kernels_vs_plain": {}, "torch_engine": {}, "oracles": {}}
+    vec18, sca18 = ("v", (3,)), ("s", ())
+    comps18 = (("v0", ()), ("v1", ()), ("v2", ()), sca18)  # the vector's components as scalars, and s
+
+    def domain18(size, quantities, route="direct", radius=3, methods=None):
+        """A 2x2x2 domain of ``size``^3 and its handles; the RuntimeWarnings
+        that realize() gave (a packed route degrading)."""
+        dd = DistributedDomain(size, size, size)
+        dd.set_radius(Radius.face_edge_corner(radius, radius, radius))
+        dd.set_partition(2, 2, 2)
+        dd.set_exchange_route(route)
+        if methods is not None:
+            dd.set_methods(methods)
+        hs = [dd.add_data(n, components=c) for n, c in quantities]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            dd.realize()
+        return dd, hs, [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+
+    def load18(dd, hs, stacks):
+        for h, t in zip(hs, stacks):
+            dd.get_curr(h).copy_(t)
+
+    def exchanges18(dd, many, n=AST_ITERS):
+        if many:
+            dd.exchange_many(n)
+        else:
+            for _ in range(n):
+                dd.exchange()
+
+    def exchange_ms18(dd, many):
+        """ms an exchange: CUDA events, the better of two runs of 24."""
+        runs = []
+        for _ in range(2):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            sync()
+            start.record()
+            exchanges18(dd, many)
+            stop.record()
+            stop.synchronize()
+            runs.append(start.elapsed_time(stop) / AST_ITERS)
+        return min(runs), runs
+
+    def seeded18(size):
+        """The phase's seeded vector and scalar, (3, size^3) and (size^3) f32 on the host."""
+        rng = np.random.default_rng(18)
+        return rng.random((3, size, size, size), dtype=np.float32), rng.random((size,) * 3, dtype=np.float32)
+
+    def same18(a, b, what):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"phase 18: {what}")
+
+    # every route's exchange of a (3,) vector beside a scalar, and of the same
+    # data as four scalars: 24 exchange() calls and exchange_many(24), each
+    # from the loaded (un-exchanged) stacks with the counters reset before
+    # and read after; every result bitwise equal to direct's vector domain
+    #: per route, the launches one exchange of one quantity makes at an even size
+    per_q18 = {
+        "direct": {"blend_slab": 6}, "zpack_xla": {"blend_slab": 6}, "yzpack_xla": {"blend_slab": 6},
+        "zpack_pallas": {"blend_slab": 4, "pack_zshell_pallas": 2, "unpack_zshell_pallas": 2},
+        "yzpack_pallas": {"blend_slab": 2, "pack_zshell_pallas": 2, "unpack_zshell_pallas": 2,
+                          "pack_yshell_pallas": 2, "unpack_yshell_pallas": 2},
+    }
+    for size, routes in ((N, EXCHANGE_ROUTES), (nu, ("direct", "yzpack_pallas"))):
+        vec_h, sca_h = seeded18(size)
+        base, bh, _ = domain18(size, (vec18, sca18))
+        base.set_quantity(bh[0], vec_h)
+        base.set_quantity(bh[1], sca_h)
+        ref = [base.get_curr(h).clone() for h in bh]  # loaded, not exchanged
+        del base, bh, vec_h, sca_h
+        torch.cuda.empty_cache()
+        want = None
+        for route in routes:
+            vd, vh, warned = domain18(size, (vec18, sca18), route)
+            sd, sh, _ = domain18(size, comps18, route)
+            if size == nu and route != "direct" and not (warned and vd.exchange_route() == "direct"):
+                raise AssertionError(f"{route} at {size}^3 (every axis padded) did not degrade to direct")
+            res = {"resolved": vd.exchange_route(), "warnings": warned}
+            for dd, hs, stacks, key in ((vd, vh, ref, "vector"),
+                                        (sd, sh, [ref[0][0], ref[0][1], ref[0][2], ref[1]], "scalars")):
+                launches = {}
+                for many in (False, True):
+                    load18(dd, hs, stacks)
+                    ledger.reset_launch_counts()
+                    sync()
+                    exchanges18(dd, many)
+                    sync()
+                    launches[many] = ledger.launch_counts()
+                    got = [dd.get_curr(h) for h in hs]
+                    if want is None:
+                        want = [g.clone() for g in got]
+                    elif key == "vector":
+                        same18(got, want, f"{route} {size}^3 vector exchange{'_many' if many else ''} != direct")
+                    else:
+                        same18(got, [want[0][0], want[0][1], want[0][2], want[1]],
+                               f"{route} {size}^3 scalar domain{'_many' if many else ''} != the vector's components")
+                if launches[False] != launches[True]:
+                    raise AssertionError(f"{route} {size}^3 {key}: exchange_many launches {launches[True]} != "
+                                         f"exchange() {launches[False]}")
+                used = {k: v for k, v in launches[False].items() if v}
+                if size == N:
+                    expect = {k: v * AST_ITERS * len(hs) for k, v in per_q18[route].items()}
+                else:  # every axis padded: low halos by blend_slab, high halos by blend_slab_dynamic
+                    expect = {"blend_slab": 3 * AST_ITERS * len(hs), "blend_slab_dynamic": 3 * AST_ITERS * len(hs)}
+                if used != expect:
+                    raise AssertionError(f"{route} {size}^3 {key}: launches {used}, want {expect}")
+                res[key] = {"launches": used}
+            for dd, key in ((vd, "vector"), (sd, "scalars")):
+                ms, runs = exchange_ms18(dd, False)
+                ms_many, runs_many = exchange_ms18(dd, True)
+                loop = dd._exchange_loop
+                res[key].update(ms_per_exchange=ms, ms_runs=runs, many_ms_per_exchange=ms_many,
+                                many_ms_runs=runs_many, graphs=len(loop.graphs), replays=loop.replays)
+                loop.release()
+            v, s = res["vector"], res["scalars"]
+            log18(f"components {size}^3 2x2x2 r=3 {route} (resolved {res['resolved']}): ms an exchange, (3,) + scalar "
+                f"-> four scalars: {v['ms_per_exchange']:.4f} -> {s['ms_per_exchange']:.4f} uncaptured, "
+                f"{v['many_ms_per_exchange']:.4f} -> {s['many_ms_per_exchange']:.4f} exchange_many; launches "
+                f"{v['launches']} / {s['launches']}; bitwise equal to direct and to the scalars on {card}")
+            nd18["exchange"][f"{size} {route}"] = res
+            del vd, sd, vh, sh, dd, hs, stacks, got, loop
+            torch.cuda.empty_cache()
+
+        # kernels #9-#14 on the vector's 24 blocks, against their plain versions
+        blocks = want[0].view(-1, *want[0].shape[-3:])
+        nb, X = blocks.shape[0], blocks.shape[1]
+        errs18 = {}
+
+        def held(name, kernel, plain):
+            got, exp = kernel(), plain()
+            sync()
+            errs18[name] = max_err(got, exp)
+            if errs18[name] != 0.0:
+                raise AssertionError(f"phase 18: {name} on the vector's {nb} blocks != its plain version")
+
+        if size == N:
+            zbuf, ybuf = seeded((nb, 3, X, X), 181, dev), seeded((nb, 3, X, X), 182, dev)
+            held("pack_zshell_pallas", lambda: pk.pack_zshell_pallas(blocks, 3, 3),
+                 lambda: pk.pack_zshell_pallas_plain(blocks, 3, 3))
+            held("pack_yshell_pallas", lambda: pk.pack_yshell_pallas(blocks, 3, 3),
+                 lambda: pk.pack_yshell_pallas_plain(blocks, 3, 3))
+            held("unpack_zshell_pallas", lambda: pk.unpack_zshell_pallas(blocks.clone(), zbuf, X - 3, 3),
+                 lambda: pk.unpack_zshell_pallas_plain(blocks.clone(), zbuf, X - 3, 3))
+            held("unpack_yshell_pallas", lambda: pk.unpack_yshell_pallas(blocks.clone(), ybuf, X - 3, 3),
+                 lambda: pk.unpack_yshell_pallas_plain(blocks.clone(), ybuf, X - 3, 3))
+            held("blend_slab", lambda: hb.blend_slab(blocks.clone(), zbuf.transpose(1, 3).contiguous(), 2, 0),
+                 lambda: hb.blend_slab_plain(blocks.clone(), zbuf.transpose(1, 3).contiguous(), 2, 0))
+            del zbuf, ybuf
+        else:
+            slab = seeded((nb, 3, X, X), 183, dev)
+            half = -(-size // 2)  # each subdomain's padded width; the last holds size - half
+            pos = torch.tensor([3 + (size - half if ix == 1 else half) for _ in range(3) for ix in range(2)
+                                for _ in range(4)], dtype=torch.int32, device=dev)
+            held("blend_slab_dynamic", lambda: hb.blend_slab_dynamic(blocks.clone(), slab, 0, pos),
+                 lambda: hb.blend_slab_dynamic_plain(blocks.clone(), slab, 0, pos))
+            del slab, pos
+        nd18["kernels_vs_plain"][str(size)] = errs18
+        if size == N:
+            ref512 = ref  # the torch engine and the oracles start from it
+        log18(f"kernels on the (3,) vector's {nb} blocks of {X}^3 ({size}^3 2x2x2): {sorted(errs18)} bitwise equal "
+            f"to their plain versions on {card}")
+        del ref, want, blocks
+        torch.cuda.empty_cache()
+
+    # the torch engine over the vector: mean-of-6, 4 steps, overlap on and
+    # off, captured and not, each bitwise equal to three scalar domains; the
+    # component-mixing kernel equal across the four and, at 512^3, to
+    # curl_roll18 on the card (torch.roll over the logical fields), and at
+    # 64^3 to its CPU run
+    def mean6_v(views, info):
+        src = views["v"]
+        return {"v": (src.sh(1, 0, 0) + src.sh(-1, 0, 0) + src.sh(0, 1, 0)
+                      + src.sh(0, -1, 0) + src.sh(0, 0, 1) + src.sh(0, 0, -1)) / 6.0}
+
+    def curl_v(views, info):
+        v = views["v"]
+        w0 = v.sh(0, 1, 0)[2] - v.sh(0, -1, 0)[2] - v.sh(0, 0, 1)[1] + v.sh(0, 0, -1)[1]
+        w1 = v.sh(0, 0, 1)[0] - v.sh(0, 0, -1)[0] - v.sh(1, 0, 0)[2] + v.sh(-1, 0, 0)[2]
+        w2 = v.sh(1, 0, 0)[1] - v.sh(-1, 0, 0)[1] - v.sh(0, 1, 0)[0] + v.sh(0, -1, 0)[0]
+        return {"v": v.center() + 0.5 * torch.stack([w0, w1, w2], dim=0), "s": views["s"].center() - w0 * 0.25}
+
+    STEPS18 = 4
+    ref = [torch.zeros((*r.shape[:-3], *(e - 4 for e in r.shape[-3:])), device=dev) for r in ref512]
+    for r1, r3 in zip(ref, ref512):  # the same seeded interior in a radius-1 shell
+        r1[..., 1:-1, 1:-1, 1:-1] = r3[..., 3:-3, 3:-3, 3:-3]
+    del r1, r3
+    scalars = []
+    for c in range(3):
+        sd, sh, _ = domain18(N, (("v", ()),), radius=1)
+        load18(sd, sh, [ref[0][c]])
+        sd.run_step(sd.make_step(mean6_v), STEPS18)
+        scalars.append(sd.get_curr(sh[0]).clone())
+        del sd, sh
+    torch.cuda.empty_cache()
+    eng = {}
+    for kernel_name, kernel in (("mean6", mean6_v), ("mixing", curl_v)):
+        first = None
+        for overlap in (True, False):
+            for capture in (False, True):
+                dd, hs, _ = domain18(N, (vec18, sca18), radius=1)
+                load18(dd, hs, ref)
+                dd.set_capture(capture)
+                step = dd.make_step(kernel, overlap=overlap)
+                ledger.reset_launch_counts()
+                sync()
+                t0 = time.perf_counter()
+                dd.run_step(step, STEPS18 // 2)
+                dd.run_step(step, STEPS18 - STEPS18 // 2)
+                sync()
+                dt = time.perf_counter() - t0
+                got = [dd.get_curr(h).clone() for h in hs]
+                if capture and not step.captured:
+                    raise AssertionError(f"phase 18: the captured {kernel_name} step holds no CUDA graph")
+                if kernel_name == "mean6":
+                    same18(got[0], scalars, f"vector mean6 (overlap {overlap}, capture {capture}) != three scalar domains")
+                if first is None:
+                    first = got
+                    if not all(bool(torch.isfinite(g).all()) for g in got):
+                        raise AssertionError(f"phase 18: {kernel_name} gave non-finite values")
+                    if kernel_name == "mixing":
+                        want_v, want_s = curl_roll18(logical18(ref[0]), logical18(ref[1]), STEPS18)
+                        same18([logical18(got[0]), logical18(got[1])], [want_v, want_s],
+                               f"the mixing kernel at {N}^3 != torch.roll over the logical fields")
+                        del want_v, want_s
+                else:
+                    same18(got, first, f"{kernel_name} (overlap {overlap}, capture {capture}) != overlap, uncaptured")
+                eng[f"{kernel_name} overlap={overlap} capture={capture}"] = {
+                    "s_for_steps": dt, "steps": STEPS18, "launches": {k: v for k, v in ledger.launch_counts().items() if v}}
+                step._loop.release()
+                del dd, hs, step, got
+                torch.cuda.empty_cache()
+        del first
+    del ref, scalars
+    torch.cuda.empty_cache()
+    # the mixing kernel on the card against its CPU run, 64^3 on 2x2x2
+    small = {}
+    for device in ("cpu", "cuda"):
+        dd = DistributedDomain(64, 64, 64, device=device)
+        dd.set_radius(1)
+        dd.set_partition(2, 2, 2)
+        hs = [dd.add_data(n, components=c) for n, c in (vec18, sca18)]
+        dd.realize()
+        rng = np.random.default_rng(184)
+        dd.set_quantity(hs[0], rng.random((3, 64, 64, 64), dtype=np.float32))
+        dd.set_quantity(hs[1], rng.random((64, 64, 64), dtype=np.float32))
+        dd.run_step(dd.make_step(curl_v), STEPS18)
+        small[device] = [dd.quantity_to_host(h) for h in hs]
+    if not all(np.array_equal(a, b) for a, b in zip(small["cpu"], small["cuda"])):
+        raise AssertionError("phase 18: the mixing kernel at 64^3 on the card != its CPU run")
+    del small
+    nd18["torch_engine"] = eng
+    log18(f"torch engine, (3,) vector {N}^3 2x2x2 r=1, {STEPS18} steps: mean6 bitwise equal to three scalar domains, "
+        f"overlap on/off and captured/uncaptured alike; the mixing kernel (index + torch.stack) equal across the "
+        f"four, to torch.roll over the logical {N}^3 fields, and to its CPU run at 64^3 on {card}")
+
+    # the debug oracles: two scalars at 512^3 on 2x2x2, radius 3, against
+    # direct, loaded with the seeded vector's first two components
+    ref = [ref512[0][0], ref512[0][1]]
+    want = None
+    for name, method in (("direct", None), ("AllGather", MethodFlags.AllGather),
+                         ("RollCompare", MethodFlags.RollCompare)):
+        dd, hs, _ = domain18(N, (("a", ()), ("b", ())), methods=method)
+        out = {}
+        for many in (False, True):
+            load18(dd, hs, ref)
+            exchanges18(dd, many, 2)
+            sync()
+            got = [dd.get_curr(h) for h in hs]
+            if want is None:
+                want = [g.clone() for g in got]
+            else:
+                same18(got, want, f"{name} exchange{'_many' if many else ''} != direct")
+        ms, runs = exchange_ms18(dd, False)
+        ms_many, runs_many = exchange_ms18(dd, True)
+        dd._exchange_loop.release()
+        nd18["oracles"][name] = {"ms_per_exchange": ms, "ms_runs": runs, "many_ms_per_exchange": ms_many,
+                                 "many_ms_runs": runs_many}
+        log18(f"exchange method {name}, two scalars {N}^3 2x2x2 r=3: {ms:.4f} ms an exchange, {ms_many:.4f} under "
+            f"exchange_many; bitwise equal to direct on {card}")
+        del dd, hs, got
+        torch.cuda.empty_cache()
+    del ref, ref512, want
+    torch.cuda.empty_cache()
+    log18(f"phase 18 done: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return nd18
 
 
 def main() -> int:
@@ -2112,6 +2469,11 @@ def main() -> int:
     log(f"phase 17 done: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after its graphs were freed")
     phase_end()
 
+    # --- 18. component (N-D) quantities and the debug oracles ------------------------------
+    phase_start(18)
+    nd18 = phase18(card, dev, NU)
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -2224,45 +2586,45 @@ def main() -> int:
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
 
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({
-            "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-            "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
-            "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
-            "blend_per_step_shape": blend_step, "blend_direct_route_device_ms_per_iter": blend_route_ms,
-            "stream_wavefront_launch": swf_launch, "jacobi_wavefront": jacobi_wf, "jacobi_wrap": jacobi_wrap, "profiler_misses": PROFILER_MISSES,
-            "step1_ms_min_median": step1, "astaroth": ast,
-            "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
-            "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,
-            "shell_pack_ms": {k: dict(zip(("kernel", "plain", "library"), v), device_in_route=pack_dev_ms[k],
-                                      device_back_to_back=pack_hot_ms[k], library_device=pack_lib_dev_ms[k])
-                              for k, v in pack_ms.items()},
-            "pack_yshell_copy_": {"ms": ycopy_ms, "device_ms": ycopy_dev_ms, "host_us": ypack_host_us},
-            "unpack_yshell_host_us": yunpack_host_us,
-            "blend_slab_dynamic_ms": {"kernel": dyn_ms, "device": dyn_dev_ms, "plain": dyn_plain_ms,
-                                      "scatter_": dyn_lib_ms, "descriptor": dyn_desc},
-            "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
-                       "wavefront_zring_mcells_per_s": wave_mcells,
-                       "wavefront_zslab_mcells_per_s": slab_mcells, "wavefront_m": mw,
-                       "torch_engine_mcells_per_s": torch_mcells,
-                       "wrap_launches": wrap_counts, "shell_launches": shell_counts,
-                       "wavefront_zring_launches": wave_counts, "wavefront_zslab_launches": slab_counts},
-            "profile": {"wrap": wrap_profile, "shell": shell_profile,
-                        "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
-            "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
-            "bench_pack": bench_pack_runs, "slab_faces_ms": slab_face, "mean6_runs": mean6_runs,
-            "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
-                         "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
-                         "wavefront_m3_launch": m6w_launch},
-            "fused_split": f16, "captured": cap17,
-            "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
-                                   "array_device": fpl_array_dev_ms},
-                         "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,
-                                       "array_device": fwf_array_dev_ms, "launch": fwf_launch}},
-            "phase_start_s": phase_s, "total_s": time.perf_counter() - t_start,
-            "phase_peak_gb": phase_peak_gb, "peak_device_gb": max(phase_peak_gb.values()),
-        }, f, indent=1)
+    from stencil_tpu_torch.utils.artifact import atomic_write_json
+
+    atomic_write_json(os.path.join(OUT_DIR, "chip_smoke.json"), {
+        "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "kernels": rows, "copy_ms": copy_ms, "copy_gb_per_s": copy_bw / 1e9,
+        "blend_per_axis_ms": per_axis, "shell_exchange_ms": exchange_ms,
+        "blend_per_step_shape": blend_step, "blend_direct_route_device_ms_per_iter": blend_route_ms,
+        "stream_wavefront_launch": swf_launch, "jacobi_wavefront": jacobi_wf, "jacobi_wrap": jacobi_wrap, "profiler_misses": PROFILER_MISSES,
+        "step1_ms_min_median": step1, "astaroth": ast,
+        "slab_route": {"mcells_per_s": slabr_mcells, "launches": slabr_counts, "profile": slabr_profile},
+        "uneven_jacobi": uneven, "uneven_astaroth": ast_u, "packed_routes": routes_13,
+        "shell_pack_ms": {k: dict(zip(("kernel", "plain", "library"), v), device_in_route=pack_dev_ms[k],
+                                  device_back_to_back=pack_hot_ms[k], library_device=pack_lib_dev_ms[k])
+                          for k, v in pack_ms.items()},
+        "pack_yshell_copy_": {"ms": ycopy_ms, "device_ms": ycopy_dev_ms, "host_us": ypack_host_us},
+        "unpack_yshell_host_us": yunpack_host_us,
+        "blend_slab_dynamic_ms": {"kernel": dyn_ms, "device": dyn_dev_ms, "plain": dyn_plain_ms,
+                                  "scatter_": dyn_lib_ms, "descriptor": dyn_desc},
+        "routes": {"wrap_mcells_per_s": wrap_mcells, "shell_mcells_per_s": shell_mcells,
+                   "wavefront_zring_mcells_per_s": wave_mcells,
+                   "wavefront_zslab_mcells_per_s": slab_mcells, "wavefront_m": mw,
+                   "torch_engine_mcells_per_s": torch_mcells,
+                   "wrap_launches": wrap_counts, "shell_launches": shell_counts,
+                   "wavefront_zring_launches": wave_counts, "wavefront_zslab_launches": slab_counts},
+        "profile": {"wrap": wrap_profile, "shell": shell_profile,
+                    "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
+        "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
+        "bench_pack": bench_pack_runs, "slab_faces_ms": slab_face, "mean6_runs": mean6_runs,
+        "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
+                     "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
+                     "wavefront_m3_launch": m6w_launch},
+        "fused_split": f16, "captured": cap17, "components_and_oracles": nd18,
+        "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
+                               "array_device": fpl_array_dev_ms},
+                     "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,
+                                   "array_device": fwf_array_dev_ms, "launch": fwf_launch}},
+        "phase_start_s": phase_s, "total_s": time.perf_counter() - t_start,
+        "phase_peak_gb": phase_peak_gb, "peak_device_gb": max(phase_peak_gb.values()),
+    }, indent=1, sort_keys=False)
 
     top = max(phase_peak_gb, key=phase_peak_gb.get)
     log(f"peak device memory allocated: {phase_peak_gb[top]:.2f} GB (phase {top}); per phase "

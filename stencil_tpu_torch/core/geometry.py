@@ -143,6 +143,48 @@ def exterior_of(com: Rect3, int_reg: Rect3) -> List[Rect3]:
     return out
 
 
+def exchange_bytes(spec: LocalSpec, itemsizes) -> int:
+    """Bytes one subdomain receives per exchange, all quantities, all 26
+    directions: the reference's 26-message model behind its per-method byte
+    counters (src/stencil.cu:260-361).  A direction counts when the radius in
+    the opposite direction is nonzero (src/stencil.cu:149)."""
+    total = 0
+    for d in DIRECTIONS_26:
+        if spec.radius.dir(-d) == 0:
+            continue
+        total += sum(int(s) for s in itemsizes) * spec.halo_extent(-d).flatten()
+    return total
+
+
+def sweep_bytes(spec: LocalSpec, itemsizes) -> int:
+    """Bytes one subdomain receives per exchange of the three axis sweeps
+    (``ops/exchange.py``): each axis's slabs span the full raw extent of the
+    other two, halos included, so edge and corner data travel once per axis
+    they touch.  Above ``exchange_bytes`` whenever more than one axis has a
+    radius."""
+    return sum(sweep_hop_bytes(spec, itemsizes).values())
+
+
+#: receive side per sign of an axis: ``low`` receives the -1 neighbour's slab
+#: (``shift_from_low``), ``high`` the +1 neighbour's
+HOP_SIDES = ((-1, "low"), (+1, "high"))
+
+
+def sweep_hop_bytes(spec: LocalSpec, itemsizes) -> dict:
+    """``sweep_bytes`` per message: the bytes one subdomain receives over
+    each ``(axis, side)`` of the three sweeps, side ``low`` or ``high``; the
+    values sum to ``sweep_bytes``."""
+    raw = spec.raw_size()
+    itemsize_sum = sum(int(s) for s in itemsizes)
+    out = {}
+    for axis in range(3):
+        plane = raw.flatten() // raw[axis]
+        for sign, side in HOP_SIDES:
+            # the slab received on ``side`` has that side's halo width
+            out[(axis, side)] = itemsize_sum * plane * spec.radius.axis(axis, sign)
+    return out
+
+
 def ripple_value(p: Dim3) -> float:
     """The analytic test field of the reference's exchange tests
     (test_exchange.cu:14-38): ``x + ripple[x%4] + y + ripple[y%4] + z +

@@ -6,11 +6,16 @@ global size, configure (``set_radius`` / ``add_data`` / ``set_partition`` /
 ``set_placement`` / ``set_methods``), ``realize()``, then iterate
 ``exchange()`` / compute / ``swap()`` or ``make_step`` + ``run_step``.
 
-Storage: each quantity is ONE tensor of shape ``(px, py, pz, Xr, Yr, Zr)``: the
-``px*py*pz`` subdomains of the grid, each the reference's shell-carrying
-``LocalDomain`` allocation (``raw_size``), all on the one device.  The JAX
-package's global raw array ``(px*Xr, py*Yr, pz*Zr)`` is the same data in
-another order; ``set_raw`` / ``raw_to_host`` convert.
+Storage: each quantity is ONE tensor of shape ``(*components, px, py, pz, Xr,
+Yr, Zr)``: the ``px*py*pz`` subdomains of the grid, each the reference's
+shell-carrying ``LocalDomain`` allocation (``raw_size``), all on the one
+device.  ``components`` are a quantity's leading per-cell dims (N-D data, the
+reference's future-work item, README.md:157-176): none for a scalar, ``(3,)``
+for a vector.  They lead, as in the JAX array ``(*components, gX, gY, gZ)``,
+so every grid and cell dim is addressed from the right and the 6-D
+coordinate tensors of ``BlockInfo.coords`` broadcast over them.  The JAX
+package's global raw array ``(*components, px*Xr, py*Yr, pz*Zr)`` is the same
+data in another order; ``set_raw`` / ``raw_to_host`` convert.
 
 Uneven sizes are padded and masked as in the JAX package
 (``stencil_tpu/domain.py:478-510``, the reference's partition.hpp:83-114):
@@ -22,6 +27,7 @@ cells; the exchange writes each +axis halo right after the valid cells.
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -29,16 +35,28 @@ import numpy as np
 import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3, Rect3
-from stencil_tpu_torch.core.geometry import LocalSpec, exterior_of, shrink_by_radius
+from stencil_tpu_torch.core.geometry import (
+    LocalSpec, exterior_of, shrink_by_radius, sweep_hop_bytes, exchange_bytes,
+)
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.device import resolve_device
 from stencil_tpu_torch.ops.captured import Loop, as_step
 from stencil_tpu_torch.ops.exchange import (
-    EXCHANGE_ROUTES, ValidLast, halo_exchange_multi, overlapped, route_supported, side_stream,
+    EXCHANGE_ROUTES, ValidLast, halo_exchange_multi, make_exchange_fn_allgather,
+    make_exchange_fn_rollcompare, overlapped, route_supported, side_stream,
 )
 from stencil_tpu_torch.ops.stream_trace import StreamKernel
 from stencil_tpu_torch.parallel.mesh import SubdomainGrid, make_grid
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
+from stencil_tpu_torch.utils.logging import log_info
+
+#: the grid axes' names, as the JAX package names its mesh axes
+GRID_AXES = ("x", "y", "z")
+#: the debug oracles' makers (``MethodFlags`` debug set, stencil.hpp:29-41)
+_ORACLES = {
+    MethodFlags.AllGather: make_exchange_fn_allgather,
+    MethodFlags.RollCompare: make_exchange_fn_rollcompare,
+}
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -50,11 +68,17 @@ def torch_dtype(dtype) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class DataHandle:
-    """Typed handle to a named quantity (reference local_domain.cuh:17-25)."""
+    """Typed handle to a named quantity (reference local_domain.cuh:17-25).
+    ``components`` are the leading per-cell dims: a ``(3,)`` quantity holds
+    a vector per cell."""
 
     name: str
     dtype: torch.dtype
     components: tuple = ()
+
+    def cell_count(self) -> int:
+        """Values per cell: the product of the components."""
+        return math.prod(self.components)
 
 
 class ShardView:
@@ -62,7 +86,7 @@ class ShardView:
 
     ``sh(dx, dy, dz)`` returns the region's cells shifted by the offset (the
     reference's ``src[o + Dim3(dx,dy,dz)]`` accessor, accessor.hpp:27-40) as a
-    ``(px, py, pz, nx, ny, nz)`` view of the stack."""
+    ``(*components, px, py, pz, nx, ny, nz)`` view of the stack."""
 
     def __init__(self, stack: torch.Tensor, r_lo: Dim3, region: Tuple[slice, slice, slice]):
         self._stack = stack
@@ -132,6 +156,7 @@ class DistributedDomain:
         self._next: Dict[str, torch.Tensor] = {}
         self._capture = False
         self._exchange_loop = None
+        self._exchange_fn = None
 
     # --- configuration (stencil.hpp:276-306) ---------------------------------
     def set_radius(self, radius) -> None:
@@ -141,15 +166,20 @@ class DistributedDomain:
         return self._radius
 
     def add_data(self, name: str, dtype=torch.float32, components=()) -> DataHandle:
-        if tuple(components):
-            raise NotImplementedError(
-                "component (N-D) quantities are not ported yet (ROADMAP.md queue 1 item 3)"
-            )
-        h = DataHandle(name, torch_dtype(dtype))
+        """A quantity of ``dtype``, one value per cell, or a
+        ``components``-shaped array per cell (``(3,)``: a vector)."""
+        components = tuple(int(c) for c in components)
+        if any(c < 1 for c in components):
+            raise ValueError(f"components must be positive, got {components}")
+        h = DataHandle(name, torch_dtype(dtype), components)
         self._handles.append(h)
         return h
 
     def set_methods(self, methods: MethodFlags) -> None:
+        """The exchange method: the default transport, or one of the debug
+        oracles ``MethodFlags.AllGather`` / ``RollCompare``, which
+        ``exchange()`` and ``exchange_many()`` then run (even sizes and
+        scalar quantities only; ``make_step`` keeps the sweeps)."""
         self._methods = methods
 
     def set_placement(self, strategy: PlacementStrategy) -> None:
@@ -236,10 +266,6 @@ class DistributedDomain:
 
     def realize(self) -> None:
         self._radius.validate()
-        if self._methods in (MethodFlags.AllGather, MethodFlags.RollCompare):
-            raise NotImplementedError(
-                f"exchange method {self._methods} is not ported yet (ROADMAP.md queue 1 item 3)"
-            )
         self.grid = self.planned_grid()
         dim = self.grid.dim()
         # uneven sizes: pad each axis to ceil(size/dim); the LAST subdomain
@@ -261,18 +287,46 @@ class DistributedDomain:
         if min(n) < max_r or min(vlast) < max_r:
             raise ValueError(f"subdomain {n} (last-subdomain valid {valid_last}) smaller than radius shell")
         self._valid_last = valid_last
-        self._exchange_route = self._resolve_exchange_route()
         self._shell_radius = r
         self._spec = LocalSpec.make(n, Dim3(0, 0, 0), r)
-        shape = dim.tuple() + self._spec.raw_size().tuple()
+        oracle = _ORACLES.get(self._methods)
+        if oracle is not None:
+            # the debug oracles (stencil_tpu/domain.py:563-583): even sizes
+            # and scalar quantities only; they have no packed route
+            if self.padded():
+                raise ValueError("debug exchange methods require even sizes")
+            if any(h.components for h in self._handles):
+                raise ValueError("debug exchange methods support scalar quantities only")
+            self._exchange_route = "direct"
+            self._exchange_fn = oracle(r, self._spec, dim)
+        else:
+            route = self._exchange_route = self._resolve_exchange_route()
+            self._exchange_fn = lambda stacks: halo_exchange_multi(stacks, r, valid_last, route=route)
+        raw = self._spec.raw_size()
         for h in self._handles:
+            shape = h.components + dim.tuple() + raw.tuple()
             self._curr[h.name] = torch.zeros(shape, dtype=h.dtype, device=self.device)
             self._next[h.name] = torch.zeros(shape, dtype=h.dtype, device=self.device)
         self._realized = True
+        log_info(f"realized {self._size} over grid {dim} (raw subdomain {raw}, shell lo {r.lo()} hi {r.hi()}, "
+                 f"route {self._exchange_route}{'' if oracle is None else f', method {self._methods}'})")
 
     # --- geometry accessors ---------------------------------------------------
     def local_spec(self) -> LocalSpec:
         return self._spec
+
+    def subdomain_size(self) -> Dim3:
+        return self._spec.sz
+
+    def get_interior(self) -> Rect3:
+        """The interior region in interior-local coordinates: the cells no
+        stencil read takes outside the subdomain (src/stencil.cu:567-610)."""
+        return self._spec.interior()
+
+    def get_exterior(self) -> List[Rect3]:
+        """The face slabs that cover the subdomain minus its interior
+        (src/stencil.cu:616-666)."""
+        return self._spec.exterior()
 
     def shell_radius(self) -> Radius:
         """The allocated shell: the radius scaled by the halo multiplier."""
@@ -325,31 +379,93 @@ class DistributedDomain:
         lo, n = self._shell_radius.lo(), self._spec.sz
         return stack[..., lo.x : lo.x + n.x, lo.y : lo.y + n.y, lo.z : lo.z + n.z]
 
-    def set_quantity(self, h: DataHandle, interior: np.ndarray) -> None:
-        """Load a full (X, Y, Z) user-domain array into a quantity's valid
-        interior cells; the shell and the pad cells of uneven sizes are zeroed,
-        as the JAX package's ``_to_raw_global`` leaves them."""
-        if tuple(interior.shape) != self._size.tuple():
-            raise ValueError(f"interior shape {interior.shape}, want {self._size.tuple()}")
-        dim, n = self.grid.dim(), self._spec.sz
-        padded = torch.zeros((dim * n).tuple(), dtype=h.dtype)
-        X, Y, Z = self._size.tuple()
-        padded[:X, :Y, :Z] = torch.tensor(np.asarray(interior)).to(h.dtype)
-        blocks = padded.reshape(dim.x, n.x, dim.y, n.y, dim.z, n.z).permute(0, 2, 4, 1, 3, 5)
-        stack = self._curr[h.name]
-        stack.zero_()
-        self._interior_view(stack).copy_(blocks.to(self.device))
+    def _slot(self, slot: str) -> Dict[str, torch.Tensor]:
+        if slot not in ("curr", "next"):
+            raise ValueError(f"slot must be 'curr' or 'next', got {slot!r}")
+        return self._curr if slot == "curr" else self._next
 
-    def quantity_to_host(self, h: DataHandle) -> np.ndarray:
-        """Gather a quantity's valid interior cells to a (X, Y, Z) host array
-        (reference quantity_to_host, local_domain.cuh:329-346)."""
-        inner = self._interior_view(self._curr[h.name])
+    @staticmethod
+    def _to_global(t: torch.Tensor) -> torch.Tensor:
+        """``(*components, px, py, pz, a, b, c)`` blocks as the global
+        ``(*components, px*a, py*b, pz*c)`` array."""
+        k = t.dim() - 6
+        px, py, pz, a, b, c = t.shape[k:]
+        lead = tuple(range(k))
+        return t.permute(*lead, k, k + 3, k + 1, k + 4, k + 2, k + 5).reshape(
+            *t.shape[:k], px * a, py * b, pz * c)
+
+    @staticmethod
+    def _to_blocks(t: torch.Tensor, dim: Dim3, ext: Dim3) -> torch.Tensor:
+        """The inverse of ``_to_global``: a global ``(*components, dim.x *
+        ext.x, ...)`` array as ``(*components, *dim, *ext)`` blocks."""
+        k = t.dim() - 3
+        lead = tuple(range(k))
+        return t.reshape(*t.shape[:k], dim.x, ext.x, dim.y, ext.y, dim.z, ext.z).permute(
+            *lead, k, k + 2, k + 4, k + 1, k + 3, k + 5)
+
+    def set_quantity(self, h: DataHandle, interior: np.ndarray, slot: str = "curr") -> None:
+        """Load a full ``(*components, X, Y, Z)`` user-domain array into a
+        quantity's valid interior cells; the shell and the pad cells of
+        uneven sizes are zeroed, as the JAX package's ``_to_raw_global``
+        leaves them."""
+        want = h.components + self._size.tuple()
+        if tuple(interior.shape) != want:
+            raise ValueError(f"interior shape {interior.shape}, want {want}")
         dim, n = self.grid.dim(), self._spec.sz
-        out = inner.permute(0, 3, 1, 4, 2, 5).reshape((dim * n).tuple())
+        # one contiguous copy to the device; the padding and the reorder
+        # into blocks run there
+        padded = torch.zeros(h.components + (dim * n).tuple(), dtype=h.dtype, device=self.device)
+        X, Y, Z = self._size.tuple()
+        padded[..., :X, :Y, :Z] = torch.tensor(np.asarray(interior)).to(h.dtype).to(self.device)
+        stack = self._slot(slot)[h.name]
+        stack.zero_()
+        self._interior_view(stack).copy_(self._to_blocks(padded, dim, n))
+
+    def quantity_to_host(self, h: DataHandle, slot: str = "curr") -> np.ndarray:
+        """Gather a quantity's valid interior cells to a ``(*components, X,
+        Y, Z)`` host array (reference quantity_to_host,
+        local_domain.cuh:329-346)."""
+        out = self._to_global(self._interior_view(self._slot(slot)[h.name]))
         X, Y, Z = self._size.tuple()
         # a copy even on the CPU, where reshape may return a view of the
         # live storage that the next step overwrites
-        return out[:X, :Y, :Z].to("cpu", copy=True).numpy()
+        return out[..., :X, :Y, :Z].to("cpu", copy=True).numpy()
+
+    def interior_to_host(self, h: DataHandle, slot: str = "curr") -> np.ndarray:
+        """The whole interior (reference ``interior_to_host``,
+        local_domain.cuh:329-346): ``quantity_to_host``."""
+        return self.quantity_to_host(h, slot)
+
+    def region_to_host(self, h: DataHandle, region: Rect3, slot: str = "curr") -> np.ndarray:
+        """The cells of a region in user-domain (global) coordinates, as a
+        ``(*components, *region.extent())`` host array: the reference's
+        ``LocalDomain::region_to_host`` (src/local_domain.cu:97) over the
+        whole domain.  Copies only the subdomains the region touches."""
+        assert self._realized
+        r = Rect3(Dim3.of(region.lo), Dim3.of(region.hi))
+        if r.lo.any_lt(0) or (self._size - r.hi).any_lt(0):
+            raise ValueError(f"region {r} leaves the domain {self._size}")
+        dim, n, lo = self.grid.dim(), self._spec.sz, self._shell_radius.lo()
+        stack = self._slot(slot)[h.name]
+        ext = r.extent()
+        out = np.zeros(h.components + ext.tuple(), dtype=torch.empty(0, dtype=h.dtype).numpy().dtype)
+        first = [r.lo[a] // n[a] for a in range(3)]
+        last = [min((r.hi[a] - 1) // n[a] if r.hi[a] > r.lo[a] else first[a], dim[a] - 1) for a in range(3)]
+        for ix in range(first[0], last[0] + 1):
+            for iy in range(first[1], last[1] + 1):
+                for iz in range(first[2], last[2] + 1):
+                    idx = Dim3(ix, iy, iz)
+                    v = self.shard_valid(idx)
+                    # the request's overlap with this subdomain's valid interior
+                    olo = Dim3(*(max(r.lo[a], idx[a] * n[a]) for a in range(3)))
+                    ohi = Dim3(*(min(r.hi[a], idx[a] * n[a] + v[a]) for a in range(3)))
+                    if (ohi - olo).any_lt(1):
+                        continue
+                    src = tuple(slice(lo[a] + olo[a] - idx[a] * n[a], lo[a] + ohi[a] - idx[a] * n[a])
+                                for a in range(3))
+                    dst = tuple(slice(olo[a] - r.lo[a], ohi[a] - r.lo[a]) for a in range(3))
+                    out[(Ellipsis,) + dst] = stack[(Ellipsis, ix, iy, iz) + src].cpu().numpy()
+        return out
 
     def mark_shell_stale(self) -> None:
         """Steps that skip the shell (the single-subdomain wrap route) leave
@@ -357,32 +473,32 @@ class DistributedDomain:
         re-exchanges first (``quantity_to_host`` reads interiors only)."""
         self._shell_stale = True
 
-    def raw_to_host(self, h: DataHandle) -> np.ndarray:
+    def raw_to_host(self, h: DataHandle, slot: str = "curr") -> np.ndarray:
         """The JAX package's raw shell-carrying global array
-        ``(px*Xr, py*Yr, pz*Zr)``, halos visible.  A stale shell is refreshed
-        with one exchange first."""
-        if self._shell_stale:
+        ``(*components, px*Xr, py*Yr, pz*Zr)``, halos visible.  A stale
+        shell of the current slot is refreshed with one exchange first."""
+        if self._shell_stale and slot == "curr":
             self.exchange()
-        stack = self._curr[h.name]
-        px, py, pz, X, Y, Z = stack.shape
-        return stack.permute(0, 3, 1, 4, 2, 5).reshape(px * X, py * Y, pz * Z).to("cpu", copy=True).numpy()
+        return self._to_global(self._slot(slot)[h.name]).to("cpu", copy=True).numpy()
 
     def set_raw(self, h: DataHandle, raw: np.ndarray) -> None:
-        """Load the JAX package's raw global array ``(px*Xr, py*Yr, pz*Zr)``
-        (halos included) into a quantity's stack."""
+        """Load the JAX package's raw global array ``(*components, px*Xr,
+        py*Yr, pz*Zr)`` (halos included) into a quantity's stack."""
         stack = self._curr[h.name]
-        px, py, pz, X, Y, Z = stack.shape
-        if tuple(raw.shape) != (px * X, py * Y, pz * Z):
-            raise ValueError(f"raw shape {raw.shape}, want {(px * X, py * Y, pz * Z)}")
-        src = torch.tensor(np.asarray(raw)).to(h.dtype)
-        stack.copy_(src.reshape(px, X, py, Y, pz, Z).permute(0, 2, 4, 1, 3, 5).to(self.device))
+        dim, ext = self.grid.dim(), self._spec.raw_size()
+        want = h.components + (dim * ext).tuple()
+        if tuple(raw.shape) != want:
+            raise ValueError(f"raw shape {raw.shape}, want {want}")
+        src = torch.tensor(np.asarray(raw)).to(h.dtype).to(self.device)
+        stack.copy_(self._to_blocks(src, dim, ext))
         self._shell_stale = False
 
     def init_by_coords(self, h: DataHandle, fn) -> None:
         """Fill the interior with ``fn(cx, cy, cz)``, which maps broadcastable
         global coordinate tensors (``(px,1,1,nx,1,1)``-shaped and so on) to
-        values.  Pad cells of uneven sizes get ``fn`` of their unwrapped
-        coordinates (``>= size``), as in the JAX package."""
+        values, broadcast over the components.  Pad cells of uneven sizes
+        get ``fn`` of their unwrapped coordinates (``>= size``), as in the
+        JAX package."""
         coords = []
         for ax, origin in enumerate(self._origin_views()):
             shape = [1] * 6
@@ -394,10 +510,11 @@ class DistributedDomain:
 
     # --- the hot path ---------------------------------------------------------
     def exchange(self) -> None:
-        """Fill every quantity's halo shell (src/stencil.cu:670-864)."""
+        """Fill every quantity's halo shell (src/stencil.cu:670-864): the
+        sweeps of ``exchange_route()``, or the debug oracle of
+        ``set_methods``."""
         assert self._realized
-        halo_exchange_multi([self._curr[h.name] for h in self._handles], self._shell_radius,
-                            self._valid_last, route=self._exchange_route)
+        self._exchange_fn([self._curr[h.name] for h in self._handles])
         self._shell_stale = False
 
     def exchange_many(self, steps: int) -> None:
@@ -409,15 +526,39 @@ class DistributedDomain:
         after it, as after ``exchange()``."""
         assert self._realized
         if self._exchange_loop is None:
-            names = [h.name for h in self._handles]
-            shell, valid_last, route = self._shell_radius, self._valid_last, self._exchange_route
+            exchange_fn = self._exchange_fn
 
             def body(cur, nxt, depth):
-                halo_exchange_multi(cur.fields, shell, valid_last, route=route)
+                exchange_fn(cur.fields)
 
-            self._exchange_loop = Loop(names, 1, body, in_place=True)
+            self._exchange_loop = Loop([h.name for h in self._handles], 1, body, in_place=True)
         self._curr = self._exchange_loop.run(self._curr, steps, capture=True)
         self._shell_stale = False
+
+    def exchange_bytes_total(self) -> int:
+        """Bytes one exchange moves over all subdomains by the reference's
+        26-message model (``exchange_bytes``; src/stencil.cu:6-25)."""
+        return exchange_bytes(self._spec, self._itemsizes()) * self.num_subdomains()
+
+    def exchange_hop_bytes(self) -> Dict[Tuple[str, str], int]:
+        """Bytes one exchange of the sweeps moves over each hop, summed over
+        the subdomains, keyed ``(grid axis name, side)`` with side ``low``
+        or ``high`` (``sweep_hop_bytes``).  A size-1 grid axis reports 0:
+        its subdomain wraps onto itself."""
+        per_sub = sweep_hop_bytes(self._spec, self._itemsizes())
+        dim, count = self.grid.dim(), self.num_subdomains()
+        return {(GRID_AXES[axis], side): nb * count if dim[axis] > 1 else 0
+                for (axis, side), nb in per_sub.items()}
+
+    def exchange_bytes_for_method(self, method: MethodFlags) -> int:
+        """Bytes by method (src/stencil.cu:6-25): every exchange rides the
+        default transport, so ``Ppermute`` (the reference's All) gets them
+        all and the debug methods 0."""
+        return self.exchange_bytes_total() if method & MethodFlags.Ppermute else 0
+
+    def _itemsizes(self) -> List[int]:
+        """Bytes a cell per quantity."""
+        return [self.field_dtype(h).itemsize * h.cell_count() for h in self._handles]
 
     def swap(self) -> None:
         """Swap curr/next slots (src/stencil.cu:541-561)."""
@@ -428,7 +569,8 @@ class DistributedDomain:
             torch.cuda.synchronize(self.device)
 
     def get_curr(self, h: DataHandle) -> torch.Tensor:
-        """The ``(px, py, pz, Xr, Yr, Zr)`` storage of ``h``'s current slot."""
+        """The ``(*components, px, py, pz, Xr, Yr, Zr)`` storage of ``h``'s
+        current slot."""
         return self._curr[h.name]
 
     def get_next(self, h: DataHandle) -> torch.Tensor:
@@ -459,7 +601,9 @@ class DistributedDomain:
         The kernel is traced once (``ops/stream_trace.py``) and evaluated
         with torch on the shifted slices, so its arithmetic is the stream
         engine's and XLA's: a division by a Python number is a multiply by
-        its float32 reciprocal.
+        its float32 reciprocal.  A component quantity's values carry its
+        components, so a kernel steps a vector whole, and may take one
+        (``v.sh(1, 0, 0)[0]``) or build one (``torch.stack(..., dim=0)``).
         With a halo multiplier ``k`` each step is a MACRO step: one exchange
         of the ``k*r``-wide shells, then ``k`` sub-steps over regions that
         shrink by the user radius from the whole shell down to the interior,
@@ -479,7 +623,8 @@ class DistributedDomain:
         otherwise; ``x_radius`` (default the largest user radius) bounds the
         kernel's shifts, ``stream_path``/``separable``/``stream_depth`` and
         the axis arguments as in ``make_stream_step`` (``stream_z_slabs``
-        is its ``z_slabs``).  A stream step counts RAW iterations."""
+        is its ``z_slabs``).  A stream step counts RAW iterations; the stream
+        engine refuses component quantities."""
         assert self._realized
         if engine == "stream":
             from stencil_tpu_torch.ops.stream import make_stream_step
@@ -498,6 +643,7 @@ class DistributedDomain:
         shell = self._shell_radius
         lo = shell.lo()
         names = [h.name for h in self._handles]
+        components = [h.components for h in self._handles]
         route = self._exchange_route
 
         def region_of(rect: Rect3):
@@ -505,7 +651,7 @@ class DistributedDomain:
             region = tuple(slice(rect.lo[ax], rect.hi[ax]) for ax in range(3))
             info = BlockInfo(self._origin_views(), n, self._size, self._radius, region)
             static = {"interior": info.interior, "radius": info.radius, "region": info.region}
-            return info, StreamKernel(kernel, names, None, self._size, static)
+            return info, StreamKernel(kernel, names, None, self._size, static, components)
 
         # sub-step regions in interior-local coords: the whole shell is valid
         # after the exchange and each sub-step shrinks it by the user radius,

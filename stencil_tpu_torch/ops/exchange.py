@@ -2,7 +2,9 @@
 
 Counterpart of ``halo_exchange_multi`` / ``halo_exchange_shard``
 (``stencil_tpu/ops/exchange.py:428-607``) with its routes.  A quantity is a
-``(px, py, pz, Xr, Yr, Zr)`` stack of shell-carrying blocks.  The exchange runs
+``(*components, px, py, pz, Xr, Yr, Zr)`` stack of shell-carrying blocks: a
+scalar has no component dims, a ``(3,)`` vector one of 3, and every grid and
+cell dim is addressed from the right.  The exchange runs
 up to three sweeps, x then y then z (``axes`` picks which); each sweep sends
 slabs spanning the full raw extent of the other axes, so edges and corners
 ride along.  Slab positions follow the JAX package exactly: the low halo
@@ -32,6 +34,13 @@ the three sweeps of a ``yzpack_*`` route WITHOUT the unpack: it returns the
 received shell as small buffers, corner-patched in the sweep order, for the
 stream engine's fused passes (``halo="fused"``), and writes nothing into the
 stacks.
+
+``make_exchange_fn_allgather`` and ``make_exchange_fn_rollcompare``
+(``stencil_tpu/ops/exchange.py:758-840``) are the two debug oracles of
+``MethodFlags.AllGather`` / ``RollCompare``: each rebuilds every raw block
+from the logical field (a wrapped-window gather; a wrap-pad and static
+slices), structurally apart from the sweeps and from each other.  The JAX
+package computes them with XLA, so plain torch does here.
 
 Routes (``EXCHANGE_ROUTES``, ``stencil_tpu/ops/exchange.py:62-92``): ``direct``
 sends the slabs as sliced.  The packed routes send a thin shell as a buffer
@@ -98,8 +107,8 @@ def route_supported(route: str, dtypes, valid_last: ValidLast = None) -> bool:
 
 def shift_from_low(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Each subdomain receives the value held by its -1 neighbour along grid
-    axis ``axis`` (data moves +): ``x`` is a ``(px, py, pz, ...)`` stack
-    (``_shift_from_low``, stencil_tpu/ops/exchange.py:181)."""
+    dim ``axis`` of ``x`` (data moves +) (``_shift_from_low``,
+    stencil_tpu/ops/exchange.py:181)."""
     return torch.roll(x, 1, axis)
 
 
@@ -109,18 +118,31 @@ def shift_from_high(x: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.roll(x, -1, axis)
 
 
+def grid_dim(axis: int) -> int:
+    """The dim of grid axis ``axis`` in a ``(*components, px, py, pz, ·, ·,
+    ·)`` tensor, counted from the right (components lead)."""
+    return axis - 6
+
+
+def cell_dim(axis: int) -> int:
+    """The dim of cell axis ``axis`` in a ``(..., X, Y, Z)`` tensor."""
+    return axis - 3
+
+
 _POS_CACHE: Dict[tuple, torch.Tensor] = {}
 
 
-def _hi_positions(grid, axis: int, base: int, n_pad: int, v_last: int, device) -> torch.Tensor:
+def _hi_positions(grid, axis: int, base: int, n_pad: int, v_last: int, copies: int, device) -> torch.Tensor:
     """Each block's +axis halo offset ``base + n_valid``, int32 on ``device``,
-    in stack order (built once per geometry)."""
-    key = (tuple(grid), axis, base, n_pad, v_last, str(device))
+    in block order: the grid's offsets repeated once per component, as a
+    ``(*components, px, py, pz, ...)`` stack flattens (built once per
+    geometry)."""
+    key = (tuple(grid), axis, base, n_pad, v_last, copies, str(device))
     pos = _POS_CACHE.get(key)
     if pos is None:
         nv = torch.full(tuple(grid), base + n_pad, dtype=torch.int32)
         nv.select(axis, grid[axis] - 1).fill_(base + v_last)
-        pos = _POS_CACHE[key] = nv.reshape(-1).to(device)
+        pos = _POS_CACHE[key] = nv.reshape(-1).repeat(copies).to(device)
     return pos
 
 
@@ -128,8 +150,10 @@ def _packed_sweep(stacks: List[torch.Tensor], axis: int, r_lo: int, r_hi: int, n
     """One y (axis 1) or z (axis 2) sweep through shell buffers, in place:
     the counterpart of ``_ypack_sweep`` / ``_zpack_sweep``
     (``stencil_tpu/ops/exchange.py:257-425``).  Per quantity and direction
-    one pack over all subdomains, a neighbour roll of the ``(px, py, pz,
-    depth, ·, ·)`` buffer stack and one unpack."""
+    one pack over all its blocks (components times subdomains, as the JAX
+    package flattens components into its packs), a neighbour roll of the
+    ``(*components, px, py, pz, depth, ·, ·)`` buffer stack and one
+    unpack."""
     pallas = route.endswith("pallas")
     if axis == 2:
         pack_fn = pack.pack_zshell_pallas if pallas else pack.pack_zshell_xla
@@ -139,14 +163,14 @@ def _packed_sweep(stacks: List[torch.Tensor], axis: int, r_lo: int, r_hi: int, n
         pack_fn = pack.pack_yshell_pallas if pallas else pack.pack_yshell_xla
         unpack_fn = pack.unpack_yshell_pallas
         to_slab = pack.yshell_to_slab
-    grid = stacks[0].shape[:3]
-    blocks = [s.view(-1, *s.shape[3:]) for s in stacks]
+    blocks = [s.view(-1, *s.shape[-3:]) for s in stacks]
+    lead = [s.shape[:-3] for s in stacks]
 
     def send(start: int, depth: int, shift) -> List[torch.Tensor]:
         out = []
-        for b in blocks:
+        for b, stack_lead in zip(blocks, lead):
             buf = pack_fn(b, start, depth)
-            out.append(shift(buf.view(*grid, *buf.shape[1:]), axis).view(buf.shape))
+            out.append(shift(buf.view(*stack_lead, *buf.shape[1:]), grid_dim(axis)).view(buf.shape))
         return out
 
     # gather every received buffer before any halo write of this sweep: the
@@ -173,31 +197,32 @@ def halo_exchange_multi(
     route: str = "direct",
 ) -> List[torch.Tensor]:
     """Fill the halo shells of several quantities' stacks, in place, and
-    return them.  Each stack is ``(px, py, pz, Xr, Yr, Zr)`` and all share one
-    shape.  ``axes`` lists the sweeps to run (the wavefront route exchanges
-    x and y in the array and carries z on separate slabs).  ``valid_last``
-    holds the valid cells of the last subdomain per axis (None where the
-    axis divides evenly); ``route`` is one of ``EXCHANGE_ROUTES``: see the
-    module docstring."""
+    return them.  Each stack is ``(*components, px, py, pz, Xr, Yr, Zr)``:
+    scalar and vector quantities mix, and all share the trailing six dims.
+    Every grid and cell dim is addressed from the right, and a vector's
+    components travel as further blocks of the same sweeps.  ``axes`` lists
+    the sweeps to run (the wavefront route exchanges x and y in the array
+    and carries z on separate slabs).  ``valid_last`` holds the valid cells
+    of the last subdomain per axis (None where the axis divides evenly);
+    ``route`` is one of ``EXCHANGE_ROUTES``: see the module docstring."""
     if route not in EXCHANGE_ROUTES:
         raise ValueError(f"unknown exchange route {route!r} (one of {EXCHANGE_ROUTES})")
     stacks = list(stacks)
     if not stacks:
         return stacks
-    shape = stacks[0].shape
-    if any(s.dim() != 6 or s.shape != shape for s in stacks):
+    shape = stacks[0].shape[-6:]  # components may differ
+    if any(s.dim() < 6 or s.shape[-6:] != shape for s in stacks):
         raise ValueError(
-            "every quantity must be a (px, py, pz, Xr, Yr, Zr) stack of one shape; got "
-            f"{[tuple(s.shape) for s in stacks]}"
+            "every quantity must be a (*components, px, py, pz, Xr, Yr, Zr) stack, all with the same "
+            f"trailing six dims; got {[tuple(s.shape) for s in stacks]}"
         )
-    spatial = shape[3:]
-    grid = shape[:3]
+    grid, spatial = shape[:3], shape[3:]
     for axis in axes:
         r_lo = radius.axis(axis, -1)  # my low-side halo width
         r_hi = radius.axis(axis, +1)  # my high-side halo width
         if r_lo == 0 and r_hi == 0:
             continue
-        dim = 3 + axis
+        gdim, cdim = grid_dim(axis), cell_dim(axis)
         n = spatial[axis] - r_lo - r_hi  # (padded) interior width on this axis
         v_last = valid_last[axis] if valid_last is not None else None
         uneven = v_last is not None and v_last != n
@@ -211,12 +236,12 @@ def halo_exchange_multi(
             """Each subdomain's top valid slab of width r_lo: [n, n + r_lo),
             and [v_last, v_last + r_lo) on the last subdomain of a padded
             axis."""
-            slab = s.narrow(dim, n, r_lo)
+            slab = s.narrow(cdim, n, r_lo)
             if not uneven:
                 return slab
             slab = slab.clone()
-            slab.select(axis, grid[axis] - 1).copy_(
-                s.select(axis, grid[axis] - 1).narrow(dim - 1, v_last, r_lo))
+            slab.select(gdim, grid[axis] - 1).copy_(
+                s.select(gdim, grid[axis] - 1).narrow(cdim, v_last, r_lo))
             return slab
 
         # gather every received slab before any halo write of this sweep
@@ -224,20 +249,20 @@ def halo_exchange_multi(
         if r_lo > 0:
             # data moves +axis: each subdomain receives its -1 neighbour's
             # top slab of valid interior, width r_lo
-            lo_recv = [shift_from_low(top_valid(s), axis).contiguous() for s in stacks]
+            lo_recv = [shift_from_low(top_valid(s), gdim).contiguous() for s in stacks]
         if r_hi > 0:
             # data moves -axis: the +1 neighbour's bottom interior slab
-            hi_recv = [shift_from_high(s.narrow(dim, r_lo, r_hi), axis).contiguous() for s in stacks]
-        if uneven and hi_recv is not None:
-            pos = _hi_positions(grid, axis, r_lo, n, v_last, stacks[0].device)
+            hi_recv = [shift_from_high(s.narrow(cdim, r_lo, r_hi), gdim).contiguous() for s in stacks]
         for j, s in enumerate(stacks):
             blocks = s.view(-1, *spatial)
             if lo_recv is not None:
-                blend_slab(blocks, lo_recv[j].view(blocks.shape[0], *lo_recv[j].shape[3:]), axis, 0)
+                blend_slab(blocks, lo_recv[j].view(blocks.shape[0], *lo_recv[j].shape[-3:]), axis, 0)
             if hi_recv is not None:
-                slab = hi_recv[j].view(blocks.shape[0], *hi_recv[j].shape[3:])
+                slab = hi_recv[j].view(blocks.shape[0], *hi_recv[j].shape[-3:])
                 if uneven:
                     # right after each subdomain's valid cells
+                    pos = _hi_positions(grid, axis, r_lo, n, v_last, blocks.shape[0] // grid.numel(),
+                                        s.device)
                     blend_slab_dynamic(blocks, slab, axis, pos)
                 else:
                     blend_slab(blocks, slab, axis, r_lo + n)
@@ -354,6 +379,73 @@ def fused_shell_exchange(
         ybufs.append(yb)
         zbufs.append(zb)
     return xbufs, ybufs, zbufs
+
+
+def _logical(stack: torch.Tensor, spec, dim, lo) -> torch.Tensor:
+    """The logical field ``(px*nx, py*ny, pz*nz)`` of a scalar stack: every
+    subdomain's interior, in global order."""
+    n = spec.sz
+    inner = stack[..., lo.x : lo.x + n.x, lo.y : lo.y + n.y, lo.z : lo.z + n.z]
+    return inner.permute(0, 3, 1, 4, 2, 5).reshape(dim.x * n.x, dim.y * n.y, dim.z * n.z)
+
+
+def make_exchange_fn_allgather(radius: Radius, spec, dim):
+    """The AllGather debug exchange (``make_exchange_fn_allgather``,
+    ``stencil_tpu/ops/exchange.py:758-795``): every raw cell of every block
+    is a read of the logical field at its wrapped global coordinate, one
+    index gather per axis.  Returns ``exchange(stacks)``, which fills the
+    scalar stacks in place.  Even sizes only."""
+    raw, n, lo = spec.raw_size(), spec.sz, radius.lo()
+    index = {}
+
+    def axis_indices(ax: int, device) -> torch.Tensor:
+        key = (ax, str(device))
+        if key not in index:
+            size = dim[ax] * n[ax]
+            index[key] = torch.cat([(i * n[ax] - lo[ax] + torch.arange(raw[ax])) % size
+                                    for i in range(dim[ax])]).to(device)
+        return index[key]
+
+    def exchange(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        for s in stacks:
+            g = _logical(s, spec, dim, lo)
+            for ax in range(3):
+                g = g.index_select(ax, axis_indices(ax, s.device))
+            s.copy_(g.view(dim.x, raw.x, dim.y, raw.y, dim.z, raw.z).permute(0, 2, 4, 1, 3, 5))
+        return list(stacks)
+
+    return exchange
+
+
+def _wrap_pad(g: torch.Tensor, ax: int, lo: int, hi: int) -> torch.Tensor:
+    """``g`` with ``lo`` wrapped cells before and ``hi`` after along ``ax``
+    (``jnp.pad(mode="wrap")``)."""
+    size = g.shape[ax]
+    return torch.cat([g.narrow(ax, size - lo, lo), g, g.narrow(ax, 0, hi)], dim=ax)
+
+
+def make_exchange_fn_rollcompare(radius: Radius, spec, dim):
+    """The RollCompare debug exchange (``make_exchange_fn_rollcompare``,
+    ``stencil_tpu/ops/exchange.py:797-840``): wrap-pad the logical field by
+    the shell and cut every raw block out of it by static slicing.  Returns
+    ``exchange(stacks)``, which fills the scalar stacks in place.  Even
+    sizes only."""
+    raw, n, lo, hi = spec.raw_size(), spec.sz, radius.lo(), radius.hi()
+
+    def exchange(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        for s in stacks:
+            padded = _logical(s, spec, dim, lo)
+            for ax in range(3):
+                padded = _wrap_pad(padded, ax, lo[ax], hi[ax])
+            for ix in range(dim.x):
+                for iy in range(dim.y):
+                    for iz in range(dim.z):
+                        s[ix, iy, iz].copy_(padded[ix * n.x : ix * n.x + raw.x,
+                                                   iy * n.y : iy * n.y + raw.y,
+                                                   iz * n.z : iz * n.z + raw.z])
+        return list(stacks)
+
+    return exchange
 
 
 def side_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:

@@ -871,7 +871,11 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     groups them.  On CUDA every kernel variant the plan can launch is built
     when the step is built, all nvcc runs at once.  The shell goes stale
     (``step._marks_shell_stale``); ``step._stream_plan`` is the plan, with
-    the resolved ``overlap`` and ``halo``."""
+    the resolved ``overlap`` and ``halo``.  Component (N-D) quantities
+    are refused, as the JAX engine refuses them
+    (``stencil_tpu/ops/stream.py:953-954``): the torch engine takes them."""
+    if any(h.components for h in dd._handles):
+        raise ValueError("the streaming engine does not support N-D component data")
     _check_axes(compute_unit=compute_unit, mxu_input=mxu_input)
     if overlap not in ("auto",) + STREAM_OVERLAP:
         raise ValueError(f"unknown stream overlap {overlap!r} (one of {('auto',) + STREAM_OVERLAP})")

@@ -23,6 +23,15 @@ with an integer exponent, comparisons, ``& | ~`` on masks, ``abs``,
 ``.to(dtype)``/``.astype(dtype)`` and ``torch.where``.  Anything else raises
 ``TypeError`` at trace time and names the op: there is no eager fallback.
 
+Component (N-D) quantities, on the torch engine only: a traced value carries
+the shape of its leading component dims (``comps``; a ``(3,)`` vector's reads
+are ``(3,)``, scalars and numbers ``()``), which broadcast as the tensors'
+leading dims do.  Such a kernel may take a component with an integer index
+(``v.sh(1, 0, 0)[0]``) and build a vector with ``torch.stack(values,
+dim=0)``, as a JAX kernel does with ``jnp``; each output must broadcast to its
+field's components.  The stream engine's kernels take neither (its traces
+have no components, and ``emit_cuda`` refuses both ops, naming them).
+
 The arithmetic contract, chosen so the port matches XLA's compiled JAX:
 
 * evaluation follows Python's order, with no reassociation;
@@ -87,10 +96,21 @@ def _number(v):
     return None
 
 
-class Graph:
-    """The nodes of one trace, in creation order (a topological order)."""
+def _broadcast_comps(*shapes: tuple) -> tuple:
+    """The component shape of values of these component shapes combined."""
+    try:
+        return tuple(np.broadcast_shapes(*shapes))
+    except ValueError:
+        raise ValueError(f"component shapes {shapes} do not broadcast") from None
 
-    def __init__(self):
+
+class Graph:
+    """The nodes of one trace, in creation order (a topological order).
+    ``components`` holds each field's component shape (None: a stream
+    kernel's trace, which takes no component ops)."""
+
+    def __init__(self, components: Optional[Sequence[tuple]] = None):
+        self.components = None if components is None else [tuple(c) for c in components]
         self.nodes: List[Node] = []
         self._consts: Dict[tuple, Node] = {}
         self._loads: Dict[tuple, Node] = {}
@@ -101,8 +121,15 @@ class Graph:
         key = (q,) + tuple(d)
         node = self._loads.get(key)
         if node is None:
-            node = self._loads[key] = Node(self, "load", key, F32)
+            comps = self.components[q] if self.components is not None else ()
+            node = self._loads[key] = Node(self, "load", key, F32, comps)
         return node
+
+    def takes_components(self, op: str) -> None:
+        """Refuse a component op in a stream kernel's trace."""
+        if self.components is None:
+            raise TypeError(f"{op} is not supported in traced stream kernels (the torch engine "
+                            "takes it on component quantities)")
 
     def const(self, value, kind: str) -> "Node":
         if kind == F32:
@@ -121,14 +148,18 @@ class Graph:
 
 
 class Node:
-    """One traced value.  Operators build new nodes; nothing is computed."""
+    """One traced value.  Operators build new nodes; nothing is computed.
+    ``comps`` is the shape of its leading component dims (by default the
+    broadcast of its operands')."""
 
-    __slots__ = ("graph", "op", "args", "kind", "idx")
+    __slots__ = ("graph", "op", "args", "kind", "idx", "comps")
     __hash__ = object.__hash__
     __array_ufunc__ = None  # numpy scalars defer to the reflected operators
 
-    def __init__(self, graph: Graph, op: str, args: tuple, kind: str):
+    def __init__(self, graph: Graph, op: str, args: tuple, kind: str, comps: Optional[tuple] = None):
         self.graph, self.op, self.args, self.kind = graph, op, args, kind
+        self.comps = comps if comps is not None else _broadcast_comps(
+            *(a.comps for a in args if isinstance(a, Node)))
         self.idx = len(graph.nodes)
         graph.nodes.append(self)
 
@@ -222,6 +253,19 @@ class Node:
             raise TypeError("~ applies to masks only in traced kernels")
         return Node(self.graph, "not", (self,), BOOL)
 
+    # --- components -----------------------------------------------------------
+    def __getitem__(self, i):
+        """Component ``i`` of the leading component dim (an integer index)."""
+        self.graph.takes_components("indexing")
+        if isinstance(i, (bool, np.bool_)) or not isinstance(i, (int, np.integer)):
+            raise TypeError(f"a traced value takes an integer component index only, got {i!r}")
+        if not self.comps:
+            raise TypeError("indexing a traced value that has no component dims")
+        c = self.comps[0]
+        if not -c <= int(i) < c:
+            raise IndexError(f"component {i} of {c}")
+        return Node(self.graph, "index", (self, int(i) % c), self.kind, self.comps[1:])
+
     # --- refused ------------------------------------------------------------
     def __bool__(self):
         raise TypeError(
@@ -237,7 +281,6 @@ class Node:
     __floordiv__ = __rfloordiv__ = _refuse("//")
     __mod__ = __rmod__ = _refuse("%")
     __matmul__ = __rmatmul__ = _refuse("@")
-    __getitem__ = _refuse("indexing")
     __float__ = _refuse("float()")
     __int__ = _refuse("int()")
     __index__ = _refuse("index")
@@ -262,9 +305,13 @@ class Node:
             return where(*args)
         if func in (torch.abs, torch.Tensor.abs) and len(args) == 1 and not kwargs:
             return abs(args[0])
+        if func is torch.stack and len(args) + len(kwargs) <= 2 and set(kwargs) <= {"dim"}:
+            dim = args[1] if len(args) == 2 else kwargs.get("dim", 0)
+            return stack(args[0], dim)
         raise TypeError(
             f"torch.{name} is not supported in traced stream kernels (supported: + - * / "
-            "unary -, ** int, comparisons, & | ~, abs, .to(dtype), torch.where)"
+            "unary -, ** int, comparisons, & | ~, abs, .to(dtype), torch.where; on components "
+            "[i] and torch.stack(..., dim=0))"
         )
 
     def __repr__(self):
@@ -400,6 +447,25 @@ def where(cond, a, b) -> Node:
     return Node(g, "where", (cond, a, b), a.kind)
 
 
+def stack(values, dim: int = 0) -> Node:
+    """``torch.stack(values, dim=0)`` / ``jnp.stack`` on traced values: a new
+    leading component dim of ``len(values)``."""
+    values = list(values)
+    if not values:
+        raise ValueError("torch.stack of no values")
+    g = _graph_of(*values)
+    g.takes_components("torch.stack")
+    if dim != 0:
+        raise TypeError(f"traced kernels stack along a new leading component dim (dim=0), not dim={dim}")
+    nodes = [v for v in values if isinstance(v, Node)]
+    kind = F32 if any(_number(v) is not None and isinstance(_number(v), float) for v in values) else None
+    for v in nodes:
+        kind = v.kind if kind is None else _wider(kind, v.kind)
+    args = tuple(_cast(v, kind) if isinstance(v, Node) else g.const(_operand(v), kind) for v in values)
+    inner = _broadcast_comps(*(a.comps for a in args))
+    return Node(g, "stack", args, kind, (len(args),) + inner)
+
+
 # --- the symbolic views ---------------------------------------------------------
 
 
@@ -480,9 +546,13 @@ class StreamKernel:
     ``info.level``."""
 
     def __init__(self, kernel: Callable, names: Sequence[str], x_radius: Optional[int],
-                 global_size, info_extra: Optional[dict] = None):
+                 global_size, info_extra: Optional[dict] = None,
+                 components: Optional[Sequence[tuple]] = None):
         self.kernel = kernel
         self.names = list(names)
+        #: each field's component shape; None for a stream kernel (no
+        #: component ops), else the torch engine's quantities
+        self.components = None if components is None else [tuple(c) for c in components]
         self.x_radius = x_radius
         self.global_size = global_size if isinstance(global_size, Dim3) else Dim3(*global_size)
         self._extra = info_extra
@@ -496,18 +566,22 @@ class StreamKernel:
             return self._level_free
         t = self._traces.get(level)
         if t is None:
-            g = Graph()
+            g = Graph(self.components)
             views = {n: PlaneView(g, q, self.x_radius) for q, n in enumerate(self.names)}
             out = self.kernel(views, PlaneInfo(g, self.global_size, level, self._extra))
             if not isinstance(out, dict):
                 raise TypeError(f"a stream kernel returns {{name: values}}, got {type(out).__name__}")
             outputs = []
-            for n in self.names:
+            for q, n in enumerate(self.names):
                 v = out.get(n)
                 if v is None:
                     outputs.append(None)
                     continue
                 v = v if isinstance(v, Node) else g.const(_operand(v), F32)
+                want = g.components[q] if g.components is not None else ()
+                if _broadcast_comps(v.comps, want) != want:
+                    raise ValueError(f"the kernel's value for {n!r} has components {v.comps}, "
+                                     f"which do not broadcast to the field's {want}")
                 outputs.append(_cast(v, F32))
             t = self._traces[level] = Trace(g, outputs)
             if not g.reads_level:
@@ -541,7 +615,7 @@ class StreamKernel:
                 # step may hold no copy from the host)
                 v = torch.full((), n.args[0], dtype=_TORCH_DTYPE[n.kind], device=device)
             else:
-                v = _TORCH_OPS[n.op](*(vals[a.idx] for a in n.args), n)
+                v = _TORCH_OPS[n.op](*(vals[a.idx] for a in n.args if isinstance(a, Node)), n)
             vals[n.idx] = v
             for a in n.args:  # free what no later node reads (the card's memory)
                 if isinstance(a, Node) and last[a.idx] == i and a.idx not in keep:
@@ -575,7 +649,20 @@ _TORCH_OPS = {
     "not": lambda a, n: ~a,
     "where": lambda c, a, b, n: torch.where(c, a, b),
     "cast": lambda a, n: a.to(_TORCH_DTYPE[n.kind]),
+    "index": lambda a, n: a[n.args[1]],
 }
+
+
+def _stacked(n: Node, *vals: torch.Tensor) -> torch.Tensor:
+    """The torch engine's ``stack``: each value as a ``(*comps, px, py, pz,
+    nx, ny, nz)``-ranked tensor (a number or a coordinate gains leading
+    ones, as it broadcasts), broadcast together and stacked."""
+    rank = 6 + len(n.comps) - 1
+    vals = [v.reshape((1,) * (rank - v.dim()) + tuple(v.shape)) for v in vals]
+    return torch.stack(torch.broadcast_tensors(*vals), dim=0)
+
+
+_TORCH_OPS["stack"] = lambda *a: _stacked(a[-1], *a[:-1])
 
 
 # --- the CUDA emitter ---------------------------------------------------------
@@ -601,6 +688,9 @@ def _c_const(n: Node) -> str:
 def _c_expr(n: Node) -> str:
     a = [f"t{x.idx}" for x in n.args if isinstance(x, Node)]
     op, k = n.op, n.kind
+    if op in ("index", "stack"):
+        raise TypeError(f"the CUDA stream kernels take no component ops; {op!r} is the torch "
+                        "engine's (make_step(engine='torch'))")
     if op == "load":
         q, dx, dy, dz = n.args
         return f"ld({q}, {dx}, {dy}, {dz})"

@@ -1347,3 +1347,141 @@ def test_graphs_freed_with_the_model(dev):
     del_and_collect()
     assert all(g() is None for g in graphs)
     assert torch.cuda.memory_reserved() <= base
+
+
+# --- component (N-D) quantities and the debug oracles --------------------------------------
+
+
+def _nd_domain(size, device, route="direct", quantities=(("v", (3,)), ("s", ())), radius=2, methods=None,
+               grid=(2, 1, 4)):
+    """A domain of ``quantities`` loaded with seeded fields (the same on
+    every device for one size)."""
+    import warnings
+
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
+
+    dd = DistributedDomain(*size, device=device)
+    dd.set_radius(Radius.face_edge_corner(radius, radius, radius))
+    dd.set_partition(*grid)
+    dd.set_exchange_route(route)
+    if methods is not None:
+        dd.set_methods(methods)
+    hs = [dd.add_data(n, components=c) for n, c in quantities]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a packed route on padded axes degrades
+        dd.realize()
+    for i, h in enumerate(hs):
+        dd.set_quantity(h, np.random.default_rng(180 + i).random(h.components + size).astype(np.float32))
+    return dd, hs
+
+
+ND_ROUTES = ["direct", "zpack_xla", "zpack_pallas", "yzpack_xla", "yzpack_pallas"]
+
+
+@pytest.mark.parametrize("size", [(32, 32, 32), (33, 31, 32)])
+@pytest.mark.parametrize("route", ND_ROUTES)
+def test_vector_exchange_every_route_on_card(dev, route, size):
+    """A (3,) vector beside a scalar: the card's exchange (kernels #9-#14
+    on the route's sweeps) equals the CPU's (their plain versions), each
+    component equals a scalar domain's, and exchange_many equals repeated
+    exchange() with equal launches."""
+    from stencil_tpu_torch.kernels import ledger
+
+    cpu, ch = _nd_domain(size, "cpu", route)
+    cpu.exchange()
+    runs = []
+    for many in (False, True):
+        dd, hs = _nd_domain(size, dev, route)
+        ledger.reset_launch_counts()
+        if many:
+            dd.exchange_many(3)
+        else:
+            for _ in range(3):
+                dd.exchange()
+        torch.cuda.synchronize()
+        runs.append((dd, hs, ledger.launch_counts()))
+    (da, ha, ca), (db, hb_, cb) = runs
+    assert ca == cb and sum(ca.values()) > 0
+    if route.endswith("pallas") and size == (32, 32, 32):
+        assert ca["pack_zshell_pallas"] > 0 and ca["unpack_zshell_pallas"] > 0
+    if route == "yzpack_pallas" and size == (32, 32, 32):
+        assert ca["pack_yshell_pallas"] > 0 and ca["unpack_yshell_pallas"] > 0
+    if size != (32, 32, 32):
+        assert ca["blend_slab_dynamic"] > 0
+    for x, y, c in zip(ha, hb_, ch):
+        assert torch.equal(da.get_curr(x), db.get_curr(y))
+        assert torch.equal(da.get_curr(x).cpu(), cpu.get_curr(c))
+    field = np.random.default_rng(180).random((3,) + size).astype(np.float32)  # _nd_domain's vector
+    for c in range(3):
+        sd, sh = _nd_domain(size, dev, route, quantities=(("q", ()),))
+        sd.set_quantity(sh[0], field[c])
+        sd.exchange()
+        assert torch.equal(sd.get_curr(sh[0]), da.get_curr(ha[0])[c])
+
+
+def _mean6_v(views, info):
+    src = views["v"]
+    return {"v": (src.sh(1, 0, 0) + src.sh(-1, 0, 0) + src.sh(0, 1, 0)
+                  + src.sh(0, -1, 0) + src.sh(0, 0, 1) + src.sh(0, 0, -1)) / 6.0}
+
+
+def _curl_v(views, info):
+    v = views["v"]
+    w0 = v.sh(0, 1, 0)[2] - v.sh(0, -1, 0)[2] - v.sh(0, 0, 1)[1] + v.sh(0, 0, -1)[1]
+    w1 = v.sh(0, 0, 1)[0] - v.sh(0, 0, -1)[0] - v.sh(1, 0, 0)[2] + v.sh(-1, 0, 0)[2]
+    w2 = v.sh(1, 0, 0)[1] - v.sh(-1, 0, 0)[1] - v.sh(0, 1, 0)[0] + v.sh(0, -1, 0)[0]
+    s = views["s"].center()
+    return {"v": v.center() + 0.5 * torch.stack([w0, w1, w2], dim=0), "s": s + v.center()[0] * 0.25}
+
+
+@pytest.mark.parametrize("capture", [False, True])
+@pytest.mark.parametrize("overlap", [True, False])
+def test_vector_torch_engine_on_card(dev, overlap, capture):
+    """The torch engine over a vector: the mean-of-6 step equals three
+    scalar domains and the CPU run, and the component-mixing step equals
+    the CPU run, captured or not, bitwise."""
+    size = (32, 32, 32)
+    outs = []
+    for device in ("cpu", dev):
+        dd, hs = _nd_domain(size, device, radius=1)
+        dd.set_capture(capture and device != "cpu")
+        step = dd.make_step(_mean6_v, overlap=overlap)
+        dd.run_step(step, 2)
+        dd.run_step(step, 2)
+        mix = dd.make_step(_curl_v, overlap=overlap)
+        dd.run_step(mix, 3)
+        outs.append([dd.quantity_to_host(h) for h in hs])
+        if device != "cpu" and capture:
+            assert step.captured and mix.captured
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    dd, hs = _nd_domain(size, dev, radius=1)
+    vec = dd.quantity_to_host(hs[0])
+    dd.run_step(dd.make_step(_mean6_v, overlap=overlap), 4)
+    got = dd.quantity_to_host(hs[0])
+    for c in range(3):
+        sd, sh = _nd_domain(size, dev, radius=1, quantities=(("v", ()),))
+        sd.set_quantity(sh[0], vec[c])
+        sd.run_step(sd.make_step(_mean6_v, overlap=overlap), 4)
+        np.testing.assert_array_equal(sd.quantity_to_host(sh[0]), got[c])
+
+
+@pytest.mark.parametrize("oracle", ["AllGather", "RollCompare"])
+def test_oracles_on_card(dev, oracle):
+    """Each debug oracle on the card equals the default exchange (on the
+    card and on the CPU) and the other oracle, exchange() and
+    exchange_many alike."""
+    from stencil_tpu_torch.utils.config import MethodFlags
+
+    quantities = (("a", ()), ("b", ()))
+    size = (32, 32, 32)
+    ref, rh = _nd_domain(size, "cpu", quantities=quantities)
+    ref.exchange()
+    for name in (oracle, "AllGather" if oracle == "RollCompare" else "RollCompare"):
+        for many in (False, True):
+            dd, hs = _nd_domain(size, dev, quantities=quantities, methods=getattr(MethodFlags, name))
+            assert dd.exchange_route() == "direct"
+            dd.exchange_many(2) if many else dd.exchange()
+            for h, r in zip(hs, rh):
+                assert torch.equal(dd.get_curr(h).cpu(), ref.get_curr(r))

@@ -140,8 +140,9 @@ def test_unported_options_name_the_roadmap():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Jacobi3D(8, 8, 8, device="cpu", **kw)
     m = Jacobi3D(8, 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.dd.add_data("v", components=(3,))
+    # component quantities are ported: the model's domain accepts one
+    h = m.dd.add_data("v", components=(3,))
+    assert h.components == (3,) and h.cell_count() == 3
     wrap8 = Jacobi3D(16, 16, 16, subdomains=8, kernel_impl="cuda", pallas_path="wrap", device="cpu")
     with pytest.raises(ValueError, match="single subdomain"):
         wrap8.realize()
