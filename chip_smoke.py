@@ -196,6 +196,28 @@ non-zero before the result line:
     components), bitwise equal to
     ``direct``, ``exchange()`` and ``exchange_many`` alike, with their ms
     an exchange; every domain freed before the phase ends.
+19. the Jacobi kernel axes (``ops/jacobi_kernels.py``): every new form of
+    rows 1-5 held against its plain version on the card, on ragged blocks
+    that both spheres cross at k/m = 1, 4 and 8 (the wrap kernel; the z-ring,
+    shell-with-slabs and plain shell wavefronts, two marches at m = 8) and
+    on the plane and slab kernels, then at the main path's shapes: bf16
+    storage (``f32_accumulate``) on ``vpu`` bitwise; the tensor-core
+    contraction (``mxu`` / ``mxu_band``) within 4 ulps a level on f32
+    operands and ``tests/ulp.py``'s ``mxu_bf16_input_atol`` on bf16 ones,
+    on bf16 storage within one bf16 ulp; the largest ulps measured printed;
+    each form's times beside its plain version's and its bound (bytes at the
+    storage itemsize, or tensor-core FLOPs over 495 TFLOP/s TF32 or 989
+    bf16, whichever is larger; ``bench_kernels.jacobi_bound``).  Then the
+    routes at full width, 200 steps each with the counters reset before
+    and read after: ``Jacobi3D(512^3)`` ``wrap``, the z-ring and z-slab
+    wavefronts and forced ``shell`` and ``slab`` on 2x2x2, each in f32 vpu
+    and under bf16 storage, and ``wrap`` and both wavefronts under
+    ``mxu_band`` on f32 and on bf16 operands: each held against the f32 vpu
+    run of its route (``bf16_storage_atol`` of its kernel calls, 4 ulps a
+    step, ``mxu_bf16_input_atol``), finite and inside [COLD, HOT], its
+    Mcells/s beside the f32 vpu run's (and the same three axis runs of the
+    plain wavefront at 511^3, uneven); then ``bench.py``'s ``mxu_vs_vpu``
+    A/B on the wrap kernel (``bench_kernels.mxu_vs_vpu_times``).
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -379,7 +401,7 @@ def device_breakdown(model, steps: int = 20) -> dict:
 PROFILER_MISSES = []  # readings that CUDA events took because no trace held a launch
 
 
-def device_ms_per_call(fn, calls: int = 7) -> float:
+def device_ms_per_call(fn, calls: int = 7, per_call: int = None) -> float:
     """Device ms per call of ``fn`` under torch.profiler (the host's issue
     time, which CUDA events between calls would count, left out): each CUDA
     kernel's mean time over the launches the trace holds, times its launches
@@ -387,7 +409,10 @@ def device_ms_per_call(fn, calls: int = 7) -> float:
     held none, and others read 0.8x: PERF.md), so the self time is not
     divided by ``calls``; a trace that holds no launch is taken again, and
     after five such traces the reading is the CUDA-event ms of ``calls``
-    back-to-back calls, logged and kept in ``PROFILER_MISSES``."""
+    back-to-back calls, logged and kept in ``PROFILER_MISSES``.  Where the
+    caller knows a call's kernel launches (``per_call``) the reading is the
+    mean over all launches held times that (whole traces held one of a wrap
+    call's two same-named marches: PERF.md)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -400,6 +425,8 @@ def device_ms_per_call(fn, calls: int = 7) -> float:
             sync()
         kept = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
         if kept:
+            if per_call:
+                return sum(e.self_device_time_total for e in kept) / sum(e.count for e in kept) * per_call / 1e3
             return sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in kept) / 1e3
     ms = cuda_ms(fn, reps=3, inner=calls)
     where = f"{getattr(fn, '__qualname__', repr(fn))} ({calls} calls)"
@@ -744,6 +771,324 @@ def phase18(card: str, dev: torch.device, nu: int) -> dict:
     torch.cuda.empty_cache()
     log18(f"phase 18 done: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     return nd18
+
+
+def ulp_dist(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two float32
+    or bfloat16 tensors of one dtype (their bits on a line where adjacent
+    values differ by 1, -0 on +0: ``tests/ulp.py``'s ``ulp_diff``)."""
+    it, fold = (torch.int32, -(2 ** 31)) if a.dtype == torch.float32 else (torch.int16, -(2 ** 15))
+    ai, bi = (t.contiguous().view(it).long() for t in (a, b))
+    ai = torch.where(ai < 0, fold - ai, ai)
+    bi = torch.where(bi < 0, fold - bi, bi)
+    return int((ai - bi).abs().max()) if a.numel() else 0
+
+
+def mxu_bf16_input_atol(levels: int, scale: float, taps: int = 4) -> float:
+    """``tests/ulp.py``'s bound for bf16 contraction operands against f32
+    ones: one rounding of each of the four in-plane operands a level."""
+    return levels * taps * 2.0 ** -9 * scale
+
+
+def bf16_storage_atol(passes: int, scale: float = 1.0) -> float:
+    """``tests/ulp.py``'s bound for bf16 storage against f32: one rounding a
+    pass (a store) and one of the input."""
+    return (passes + 1) * 2.0 ** -9 * scale
+
+
+#: phase 19's forms of the Jacobi kernels: the ledger's name suffix ->
+#: (compute unit, operand precision, storage) of the run that stands for it
+AXIS_FORMS = {"bf16": ("vpu", "f32", "bf16"), "mxu": ("mxu_band", "f32", "native"),
+              "mxu_bf16in": ("mxu_band", "bf16", "native")}
+
+
+def phase19(card: str, dev: torch.device) -> dict:
+    """Phase 19 (see the module's docstring): the Jacobi kernel axes, bf16
+    storage and the tensor-core contraction, on rows 1-5; returns the
+    phase's record with, under ``forms``, each new form's kernels-line
+    numbers."""
+    from stencil_tpu_torch.bin import bench_kernels as bk
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' contractions at full f32
+    rec = {"checks": [], "routes": {}, "forms": {}, "max_ulps": {}}
+    errs = {}
+
+    def hold(form: str, got, want, unit: str, mi: str, storage: str, levels: int, what: str) -> None:
+        """Hold a form against its plain version: bf16 storage on vpu
+        bitwise; a contraction within 4 ulps a level (f32 operands) or
+        ``mxu_bf16_input_atol`` (bf16 operands); under bf16 storage a
+        contraction within one bf16 ulp (its f32 levels within those bounds,
+        rounded once)."""
+        sync()
+        err = max_err(got, want)
+        ulps = ulp_dist(got, want)
+        errs[form] = max(errs.get(form, 0.0), err)
+        rec["max_ulps"][form] = max(rec["max_ulps"].get(form, 0), ulps)
+        if unit == "vpu":
+            ok, limit = torch.equal(got, want), "bitwise"
+        elif storage == "bf16":
+            ok, limit = ulps <= 1, "1 bf16 ulp"
+        elif mi == "f32":
+            ok, limit = ulps <= 4 * levels, f"{4 * levels} ulps"
+        else:
+            atol = mxu_bf16_input_atol(levels, float(want.abs().max()))
+            ok, limit = err <= atol, f"atol {atol:.3e}"
+        rec["checks"].append({"form": form, "what": what, "unit": unit, "mxu_input": mi, "storage": storage,
+                              "levels": levels, "max_abs_err": err, "ulps": ulps, "limit": limit, "ok": ok})
+        if not (ok and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{form} {what}: kernel against plain version: max abs err {err}, {ulps} ulps, "
+                                 f"limit {limit}")
+
+    def combos(storages=("native", "bf16")):
+        """(form, unit, operands, storage) of every axis value but f32 vpu;
+        a contraction on bf16 storage counts under its unit's form."""
+        for storage in storages:
+            for unit, mi in (("vpu", "f32"), ("mxu_band", "f32"), ("mxu", "bf16")):
+                if unit == "vpu" and storage == "native":
+                    continue
+                form = "bf16" if unit == "vpu" else ("mxu" if mi == "f32" else "mxu_bf16in")
+                yield form, unit, mi, storage
+
+    def as_storage(t, storage):
+        return t.to(torch.bfloat16) if storage == "bf16" else t
+
+    # -- each new form against its plain version: ragged blocks that both
+    # spheres cross at k/m = 1, 4, 8, then the main path's shapes
+    t0 = time.perf_counter()
+    for k in (1, 4, 8):
+        block = seeded((40, 36, 70), 190 + k, dev)
+        for form, unit, mi, storage in combos():
+            b = as_storage(block, storage)
+            kw = dict(compute_unit=unit, mxu_input=mi, f32_accumulate=storage == "bf16")
+            hold(f"jacobi_wrap_step_{form}", jk.jacobi_wrap_step(b, k, **kw), jk.jacobi_wrap_step_plain(b, k, **kw),
+                 unit, mi, storage, k, f"(40,36,70) k={k}")
+        for ring, slabs in ((True, True), (False, True), (False, False)):
+            s = k
+            n, Xr, Yr = 2, 2 * s + 21, 2 * s + 33
+            Z = 128 if ring else 2 * s + 70
+            zv = Z - 1 if slabs and not ring else Z
+            gs = (2 * s + 30, Yr - 2 * s + 3, (Z if ring else zv - 2 * s) + 5)
+            raw = seeded((n, Xr, Yr, Z), 200 + k, dev)
+            org = torch.tensor([[3, 1, 2], [9, 4, 0]], dtype=torch.int32, device=dev)
+            if ring:
+                d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - s, int(o[2]), s, Yr, Z, gs, dev) for o in org])
+            else:
+                d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - s, int(o[2]) - s, (Yr, Z), gs, dev) for o in org])
+            zs = seeded((n, Xr, 2 * s, Yr), 201 + k, dev) if slabs else None
+            name = "jacobi_zring_wavefront_step" if ring else "jacobi_shell_wavefront_step"
+            S, zsl = slice(s, -s), (slice(None) if ring else slice(s, zv - s))
+            for form, unit, mi, storage in combos():
+                r_, z_ = as_storage(raw, storage), None if zs is None else as_storage(zs, storage)
+                kw = dict(compute_unit=unit, mxu_input=mi, f32_accumulate=storage == "bf16")
+                if ring:
+                    got = jk.jacobi_zring_wavefront_step(r_, k, org, d2, gs, z_, **kw)
+                    want = jk.jacobi_zring_wavefront_step_plain(r_, k, org, d2, gs, z_, **kw)
+                else:
+                    kw.update(z_slabs=z_, z_valid=zv)
+                    got = jk.jacobi_shell_wavefront_step(r_, k, org, d2, gs, **kw)
+                    want = jk.jacobi_shell_wavefront_step_plain(r_, k, org, d2, gs, **kw)
+                if not slabs:
+                    got, want = (got,), (want,)
+                what = f"({n},{Xr},{Yr},{Z}) m={k} {'ring' if ring else 'slabs' if slabs else 'plain'}"
+                hold(f"{name}_{form}", got[0][:, S, S, zsl], want[0][:, S, S, zsl], unit, mi, storage, k, what)
+                if slabs:
+                    hold(f"{name}_{form}", got[1][:, S, :, S], want[1][:, S, :, S], unit, mi, storage, k,
+                         what + " z_out")
+    for which, shape in (("plane", (3, 20, 37, 70)), ("slab", (3, 18, 36, 70))):
+        n, X, Y, Z = shape
+        gs = (X + 11, Y + 3, Z + 5)
+        org = torch.tensor([[1, 2, 3], [7, 0, 1], [4, 5, 6]], dtype=torch.int32, device=dev)
+        inner = (Y - 2, Z - 2) if which == "plane" else (Y, Z)
+        d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), inner, gs, dev) for o in org])
+        b = seeded(shape, 210, dev).to(torch.bfloat16)
+        if which == "plane":
+            got = jk.jacobi_plane_step(b, org, d2, gs, f32_accumulate=True)
+            want = jk.jacobi_plane_step_plain(b, org, d2, gs, f32_accumulate=True)
+        else:
+            faces = [seeded(f, 211 + j, dev).to(torch.bfloat16)
+                     for j, f in enumerate([(n, Y, Z)] * 2 + [(n, X, Z)] * 2 + [(n, X, Y)] * 2)]
+            got = jk.jacobi_slab_step(b, *faces, org, d2, gs, f32_accumulate=True)
+            want = jk.jacobi_slab_step_plain(b, *faces, org, d2, gs, f32_accumulate=True)
+        hold(f"jacobi_{which}_step_bf16", got, want, "vpu", "f32", "bf16", 1, str(shape))
+    log(f"phase 19: every form against its plain version on ragged blocks, {len(rec['checks'])} checks, "
+        f"{time.perf_counter() - t0:.1f} s; max ulps " + ", ".join(f"{k} {v}" for k, v in rec["max_ulps"].items()))
+
+    # the main path's shapes: 512^3 (wrap, k = 8), and on 2x2x2 the z-ring
+    # (8, 272, 272, 256) and shell (8, 272^3) wavefronts at m = 8 with z
+    # slabs, the plane (8, 258^3) and slab (8, 256^3) kernels; each form's
+    # times (CUDA events and device ms a call) beside its plain version's
+    # and its bound (bench_kernels.jacobi_bound), at its storage itemsize
+    half, m, gs = N // 2, 8, (N, N, N)
+    r = half + 2 * m
+    borg = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
+                        dtype=torch.int32, device=dev)
+    cases = {}
+    block = seeded((N, N, N), 220, dev)
+    cases["jacobi_wrap_step"] = (
+        block, lambda b, **kw: jk.jacobi_wrap_step(b, 8, **kw), lambda b, **kw: jk.jacobi_wrap_step_plain(b, 8, **kw),
+        lambda item, unit, mi: bk.jacobi_bound(2 * N ** 3 * item, N ** 3 * 8, unit, mi), f"({N},{N},{N}) k=8", 8,
+        lambda t: t)
+    ring_raw = seeded((8, r, r, half), 221, dev)
+    ring_zs = seeded((8, r, 2 * m, r), 222, dev)
+    ring_d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - m, int(o[2]), m, r, half, gs, dev) for o in borg])
+    cases["jacobi_zring_wavefront_step"] = (
+        (ring_raw, ring_zs), lambda t, **kw: jk.jacobi_zring_wavefront_step(t[0], m, borg, ring_d2, gs, t[1], **kw),
+        lambda t, **kw: jk.jacobi_zring_wavefront_step_plain(t[0], m, borg, ring_d2, gs, t[1], **kw),
+        lambda item, unit, mi: bk.jacobi_bound(bk.wavefront_bytes(8, r, r, half + 2 * m, m, m, True, item),
+                                               8 * half ** 3 * m, unit, mi),
+        f"(8,{r},{r},{half}) m={m}, z slabs (8,{r},{2 * m},{r})", m,
+        lambda o: (o[0][:, m:-m, m:-m], o[1][:, m:-m, :, m:-m]))
+    sh_raw = seeded((8, r, r, r), 223, dev)
+    sh_d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - m, int(o[2]) - m, (r, r), gs, dev) for o in borg])
+    cases["jacobi_shell_wavefront_step"] = (
+        (sh_raw, ring_zs),
+        lambda t, **kw: jk.jacobi_shell_wavefront_step(t[0], m, borg, sh_d2, gs, z_slabs=t[1], z_valid=r, **kw),
+        lambda t, **kw: jk.jacobi_shell_wavefront_step_plain(t[0], m, borg, sh_d2, gs, z_slabs=t[1], z_valid=r, **kw),
+        lambda item, unit, mi: bk.jacobi_bound(bk.wavefront_bytes(8, r, r, r, m, m, True, item), 8 * half ** 3 * m,
+                                               unit, mi),
+        f"(8,{r},{r},{r}) m={m}, z slabs (8,{r},{2 * m},{r}), z_valid={r}", m,
+        lambda o: (o[0][:, m:-m, m:-m, m:-m], o[1][:, m:-m, :, m:-m]))
+    pl_blocks = seeded((8, half + 2, half + 2, half + 2), 224, dev)
+    pl_d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in borg])
+    cases["jacobi_plane_step"] = (
+        pl_blocks, lambda b, **kw: jk.jacobi_plane_step(b, borg, pl_d2, gs, f32_accumulate=True),
+        lambda b, **kw: jk.jacobi_plane_step_plain(b, borg, pl_d2, gs, f32_accumulate=True),
+        lambda item, unit, mi: bk.jacobi_bound((2 * pl_blocks.numel()) * item + (pl_d2.numel() + 24) * 4,
+                                               8 * half ** 3),
+        f"(8,{half + 2},{half + 2},{half + 2})", 1, lambda t: t)
+    sl_block = seeded((8, half, half, half), 225, dev)
+    sl_faces = [seeded((8, half, half), 226 + j, dev) for j in range(6)]
+    sl_d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in borg])
+    cases["jacobi_slab_step"] = (
+        (sl_block, *sl_faces),
+        lambda t, **kw: jk.jacobi_slab_step(t[0], *t[1:], borg, sl_d2, gs, f32_accumulate=True),
+        lambda t, **kw: jk.jacobi_slab_step_plain(t[0], *t[1:], borg, sl_d2, gs, f32_accumulate=True),
+        lambda item, unit, mi: bk.jacobi_bound((2 * sl_block.numel() + 6 * half * half * 8) * item
+                                               + (sl_d2.numel() + 24) * 4, 8 * half ** 3),
+        f"(8,{half},{half},{half}), six face slabs (8,{half},{half})", 1, lambda t: t)
+
+    for name, (inputs, call, plain, bound_of, shape, levels, valid) in cases.items():
+        forms = ("bf16",) if name in ("jacobi_plane_step", "jacobi_slab_step") else tuple(AXIS_FORMS)
+        for form in forms:
+            unit, mi, storage = AXIS_FORMS[form]
+            kw = {"f32_accumulate": True} if storage == "bf16" else {"compute_unit": unit, "mxu_input": mi}
+            ins = (tuple(as_storage(t, storage) for t in inputs) if isinstance(inputs, tuple)
+                   else as_storage(inputs, storage))
+            got, want = valid(call(ins, **kw)), valid(plain(ins, **kw))
+            for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+                hold(f"{name}_{form}", g, w, unit, mi, storage, levels, shape)
+            del got, want
+            fn = (lambda ins=ins, kw=kw: call(ins, **kw))
+            item = 2 if storage == "bf16" else 4
+            b = bound_of(item, unit, mi)
+            rec["forms"][f"{name}_{form}"] = {
+                "ms": cuda_ms(fn, inner=2),
+                "device_ms": device_ms_per_call(fn, per_call=levels // jk.WAVEFRONT_SUB_DEPTH or 1),
+                "plain_ms": cuda_ms(lambda ins=ins, kw=kw: plain(ins, **kw), reps=3, inner=1),
+                "bound": (b["bound_ms"], b["bound_by"]), "bound_of": b["bound_of"],
+                "tensor_core_flops": b["tensor_core_flops"], "shape": f"{shape} "
+                + ("bf16 storage" if storage == "bf16" else f"{unit}, {mi} operands"),
+                "launch": (jk.jacobi_wrap_launch((N, N, N), 8, unit, mi, storage) if name == "jacobi_wrap_step"
+                           else jk.jacobi_wavefront_launch(tuple(ins[0].shape), m, ring="zring" in name, slabs=True,
+                                                           compute_unit=unit, mxu_input=mi, storage=storage)
+                           if "wavefront" in name else None)}
+            f = rec["forms"][f"{name}_{form}"]
+            log(f"{name}_{form} {f['shape']}: CUDA events {f['ms']:.4f} ms a call, device {f['device_ms']:.4f} "
+                f"(plain {f['plain_ms']:.4f}), bound {f['bound'][0]:.4f} ms ({f['bound_of']}); max ulps against "
+                f"the plain version {rec['max_ulps'][f'{name}_{form}']} on {card}")
+            del ins
+    del cases, block, ring_raw, ring_zs, sh_raw, pl_blocks, sl_block, sl_faces
+    torch.cuda.empty_cache()
+
+    # -- the routes at full width: 200 steps each, the counters reset before
+    # and read after, held against the f32 vpu run of the same route
+    def run(label: str, grid: bool, size: int = N, **kw) -> dict:
+        model = Jacobi3D(size, size, size, kernel_impl="cuda", **kw)
+        if grid:
+            model.dd.set_partition(2, 2, 2)
+        model.realize()
+        ledger.reset_launch_counts()
+        sync()
+        model.step(CHECK_AT)
+        sync()
+        t0 = time.perf_counter()
+        model.step(STEPS - CHECK_AT)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in ledger.launch_counts().items() if v}
+        final = torch.from_numpy(model.temperature())
+        kernel = {"wrap": "jacobi_wrap_step", "shell": "jacobi_plane_step", "slab": "jacobi_slab_step",
+                  "wavefront": "jacobi_zring_wavefront_step" if model._wavefront_z_ring
+                  else "jacobi_shell_wavefront_step"}[model._pallas_path]
+        res = {"path": model._pallas_path, "compute_unit": model._compute_unit, "mxu_input": model._mxu_input,
+               "storage": model.dd.storage_dtype(), "m": model._wavefront_m, "kernel": kernel, "launches": counts,
+               "mcells_per_s": size ** 3 * (STEPS - CHECK_AT) / seconds / 1e6, "final": final}
+        if not (torch.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+            raise AssertionError(f"phase 19 {label}: field not finite or outside [COLD, HOT] after {STEPS} steps")
+        del model
+        torch.cuda.empty_cache()
+        return res
+
+    routes = {"wrap": (False, {}), "wavefront z-ring": (True, {}),
+              "wavefront z-slab": (True, {"pallas_path": "wavefront", "z_ring": False}),
+              f"wavefront plain {N - 1}^3": (True, {"size": N - 1}),
+              "shell": (True, {"pallas_path": "shell"}), "slab": (True, {"pallas_path": "slab"})}
+    axis_runs = {"bf16": {"storage_dtype": "bf16"}, "mxu": {"compute_unit": "mxu_band"},
+                 "mxu_bf16in": {"compute_unit": "mxu_band", "mxu_input": "bf16"}}
+    for route, (grid, kw) in routes.items():
+        ref = run(f"{route} f32 vpu", grid, **kw)
+        rec["routes"][route] = {"f32 vpu": {k: v for k, v in ref.items() if k != "final"}}
+        for form, axes in axis_runs.items():
+            if route in ("shell", "slab") and form != "bf16":
+                continue
+            got = run(f"{route} {form}", grid, **kw, **axes)
+            name = f"{ref['kernel']}_{form}"
+            calls = got["launches"].get(name, 0)
+            want_calls = ref["launches"][ref["kernel"]]
+            if got["kernel"] != ref["kernel"] or calls != want_calls or got["m"] != ref["m"]:
+                raise AssertionError(f"phase 19 {route} {form}: kernel {got['kernel']} m={got['m']}, "
+                                     f"{calls} launches of {name} against {want_calls} of the f32 vpu run")
+            err = float((got["final"].double() - ref["final"].double()).abs().max())
+            if form == "bf16":
+                limit = bf16_storage_atol(calls)
+                ok = err <= limit
+            elif form == "mxu":
+                limit = 4 * STEPS
+                ok = ulp_dist(got["final"], ref["final"]) <= limit
+            else:
+                limit = mxu_bf16_input_atol(STEPS, 1.0)
+                ok = err <= limit
+            entry = {k: v for k, v in got.items() if k != "final"}
+            entry.update(max_abs_err_vs_f32_vpu=err, ulps_vs_f32_vpu=ulp_dist(got["final"], ref["final"]),
+                         limit=limit, launches_of_form=calls)
+            rec["routes"][route][form] = entry
+            log(f"phase 19 {route} {form}: {got['mcells_per_s']:.1f} Mcells/s against {ref['mcells_per_s']:.1f} "
+                f"(f32 vpu, same call); {calls} launches of {name}; max abs err against f32 vpu {err:.3e} "
+                f"({entry['ulps_vs_f32_vpu']} ulps, limit {limit}) on {card}")
+            if not ok:
+                raise AssertionError(f"phase 19 {route} {form}: {err} against the f32 vpu run exceeds {limit}")
+            if name in rec["forms"] and "counts" not in rec["forms"][name]:  # its first route's run
+                rec["forms"][name]["counts"] = got["launches"]
+                rec["forms"][name]["want"] = want_calls
+            del got
+        del ref
+        torch.cuda.empty_cache()
+
+    missing = [name for name, f in rec["forms"].items() if "counts" not in f]
+    if missing:
+        raise AssertionError(f"phase 19: no route run launched {missing}")
+
+    # -- item 7's A/B: bench.py's mxu_vs_vpu on the wrap kernel, 512^3, k = 8
+    rec["mxu_vs_vpu"] = bk.mxu_vs_vpu_times(dev)
+    log(f"phase 19 mxu_vs_vpu ({bk.N}^3, k=8, ms a dispatch): "
+        + ", ".join(f"{k} {u['ms_per_dispatch']:.4f} (device {u['device_ms']:.4f}, bound {u['bound_ms']:.4f})"
+                    for k, u in rec["mxu_vs_vpu"]["units"].items())
+        + f"; speed-ups against vpu {rec['mxu_vs_vpu']['speedups_vs_vpu']} on {card}")
+    rec["errs"] = errs
+    return rec
 
 
 def main() -> int:
@@ -2474,6 +2819,12 @@ def main() -> int:
     nd18 = phase18(card, dev, NU)
     phase_end()
 
+    # --- 19. the Jacobi kernel axes: bf16 storage, the tensor-core contraction --------------
+    phase_start(19)
+    ax19 = phase19(card, dev)
+    errs.update(ax19["errs"])
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -2530,13 +2881,18 @@ def main() -> int:
         ("stream_wavefront_pass_fused", f16["auto fused"]["launches"], AST_ITERS,
          AST_Q * -(-AST_ITERS // f16["auto fused"]["m"]), fwf_ms, fwf_plain_ms, None, fwf_bytes, fwf_flops,
          f"1 field x (8,{ps},{ps},{ps}) f32 m=3 s=3, buffers (8,6,{ps},{ps}) x 3, Astaroth kernel"),
+    ] + [
+        # phase 19's forms: the bound is the phase's (bytes at the storage
+        # itemsize, f32 or tensor-core operations), given after the shape
+        (name, f["counts"], STEPS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
+        for name, f in ax19["forms"].items()
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     entries.update({name: ledger.form_entry(name) for name in ledger.FORMS})
-    for name, counts, steps, want, ms, plain_ms, lib_ms, nbytes, flops, shape in specs:
-        if counts[name] != want:
-            raise AssertionError(f"{name}: {counts[name]} launches in its {steps}-step run, want {want}")
-        b_ms, b_by = bound(nbytes, flops)
+    for name, counts, steps, want, ms, plain_ms, lib_ms, nbytes, flops, shape, *given in specs:
+        if counts.get(name, 0) != want:
+            raise AssertionError(f"{name}: {counts.get(name, 0)} launches in its {steps}-step run, want {want}")
+        b_ms, b_by = given[0] if given else bound(nbytes, flops)
         e = entries[name]
         rows.append({
             "name": name, "route": e["route"], "source": e["source"], "replaces": e["replaces"],
@@ -2582,6 +2938,11 @@ def main() -> int:
         if name == "blend_slab_dynamic":
             rows[-1].update(device_ms=dyn_dev_ms[0], ms_per_axis=dyn_ms, device_ms_per_axis=dyn_dev_ms,
                             plain_ms_per_axis=dyn_plain_ms, library_ms_per_axis=dyn_lib_ms, descriptor=dyn_desc)
+        if name in ax19["forms"]:
+            f = ax19["forms"][name]
+            rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
+                            tensor_core_flops=f["tensor_core_flops"], launch=f["launch"],
+                            copy_bound_ms=None)
     missing = set(entries) - {r["name"] for r in rows}
     if missing:
         raise AssertionError(f"ported kernels without a row: {missing}")
@@ -2618,6 +2979,7 @@ def main() -> int:
                      "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
                      "wavefront_m3_launch": m6w_launch},
         "fused_split": f16, "captured": cap17, "components_and_oracles": nd18,
+        "kernel_axes": {k: v for k, v in ax19.items() if k != "errs"},
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

@@ -87,7 +87,24 @@ and (``--only`` keeps the sections named):
   exchange_route="direct")`` on 2x2x2: ms/iter (the better of two runs of 24
   iterations), and from 24 iterations under torch.profiler the device ms an
   iteration of each kernel, of ``blend_slab``'s kernels together, and the
-  device's idle share.
+  device's idle share;
+* ``jacobi_bf16``: the bf16-storage twin of every Jacobi row above (the
+  wrap kernel at k = 8 and 1, the three wavefront forms, the plane and slab
+  kernels), bfloat16 blocks and slabs under ``f32_accumulate``, timed the
+  same way, each beside its bound at 2 bytes a cell (d2 and the origins at
+  4);
+* ``jacobi_mxu``: the tensor-core forms (``compute_unit="mxu_band"``) of
+  the wrap kernel (k = 8) and the three wavefront forms, on f32 and on bf16
+  operands, timed the same way, each beside its bound: the larger of its
+  bytes over 3.35 TB/s and its tensor-core FLOPs
+  (``tensor_core_flops_per_cell`` a cell and level) over the dense peak,
+  495 TFLOP/s TF32 or 989 bf16;
+* ``mxu_vs_vpu``: ``bench.py``'s ``mxu_vs_vpu_ab`` on the card: the wrap
+  kernel over one 512^3 domain at 0.5, k = 8, under ``vpu``, ``mxu``,
+  ``mxu_band`` and ``mxu_band`` on bf16 operands (``mxu_band+bf16in``),
+  the legs alternating over 5 reps of 10 calls (CUDA events; rep 0 dropped,
+  the median kept): ms a dispatch, Mcells/s, device ms a call, the bound and
+  the speed-ups against ``vpu``, under ``bench.py``'s keys.
 
 A CUDA card is required; it exits 1 without one.
 """
@@ -107,6 +124,9 @@ import torch
 N = 512
 ITERS = 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+#: H100 SXM dense tensor-core peaks, by operand type
+TENSOR_FLOPS_PER_S = {"f32": 495e12, "bf16": 989e12}  # TF32 and bf16
 #: the kernels that blend_slab launches, by name: the slab unpack of
 #: csrc/pack.cu (or, in a tree before it, a one-thread-a-cell scatter)
 BLEND_KERNEL_NAMES = ("blend_slab_kernel<", "slab_rows_kernel<", "slab_cells_kernel<")
@@ -120,13 +140,17 @@ def _seeded(shape, seed: int, dev) -> torch.Tensor:
     return torch.from_numpy(np.random.default_rng(seed).random(shape).astype(np.float32)).to(dev)
 
 
-def _profile(fn, calls: int):
+def _profile(fn, calls: int, per_call: int = None):
     """``fn`` called ``calls`` times under torch.profiler after one warm-up
     call: (device ms a call by CUDA kernel name, wall ms a call).  A
     kernel's ms a call is its mean time over the launches the trace holds
-    times its launches a call: the trace can drop launches, so the self time
-    is not divided by ``calls``.  A trace that holds no launch is taken
-    again, twice at most."""
+    times its launches a call (the launches held over ``calls``); where the
+    caller knows a call's kernel launches (``per_call``), the mean over all
+    launches held times that, spread over the kernels by their time.  The
+    trace can drop launches, so the self time is not divided by ``calls``
+    (whole traces held one of a wrap call's two same-named marches,
+    PERF.md).  A trace that holds no launch is taken again, twice at
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,7 +165,9 @@ def _profile(fn, calls: int):
             wall = (time.perf_counter() - t0) * 1e3 / calls
         kept = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
         if kept:
-            return {e.key[:96]: e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / calls))
+            held = sum(e.count for e in kept)
+            return {e.key[:96]: e.self_device_time_total / 1e3 * (per_call / held if per_call else
+                                                                  max(1, round(e.count / calls)) / e.count)
                     for e in kept}, wall
     raise RuntimeError("torch.profiler held no kernel launch in three traces")
 
@@ -186,84 +212,130 @@ def blend_ms(kernels_ms: dict) -> dict:
     return {k: v for k, v in kernels_ms.items() if any(n in k for n in BLEND_KERNEL_NAMES)}
 
 
-def wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs) -> int:
+def wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs, itemsize: int = 4) -> int:
     """Bytes one Jacobi wavefront call over n blocks must move (as
     ``chip_smoke.py``): each cell its m levels reach read once, with d2 over
     those rows and columns and the origins, the valid region written once;
     W is the logical plane width, whose s outer columns a side come from the
-    slabs when they are given."""
+    slabs when they are given.  Cells at ``itemsize`` bytes (2 under bf16
+    storage), d2 and the origins at 4."""
     e = s_off - m
     Xa, Ya, Wa = Xr - 2 * e, Yr - 2 * e, W - 2 * e
     Xi, Yi, Wi = Xr - 2 * s_off, Yr - 2 * s_off, W - 2 * s_off
-    reads = Xa * Ya * (Wa - 2 * m if slabs else Wa) + Ya * Wa + 3
+    reads = Xa * Ya * (Wa - 2 * m if slabs else Wa)
     writes = Xi * Yi * Wi
     if slabs:
         reads += Xa * 2 * m * Ya
         writes += Xi * 2 * s_off * Yi
-    return n * (reads + writes) * 4
+    return n * ((reads + writes) * itemsize + (Ya * Wa + 3) * 4)
 
 
-def jacobi_wrap_times(dev) -> dict:
+def jacobi_bound(nbytes: int, cell_levels: int, compute_unit: str = "vpu", mxu_input: str = "f32") -> dict:
+    """The least time a Jacobi call could take: the larger of its bytes over
+    3.35 TB/s, its f32 operations over 67 TFLOP/s (seven a cell-level: six
+    adds and a multiply; four beside a contraction) and, for a contraction
+    unit, its tensor-core FLOPs (``tensor_core_flops_per_cell`` of each
+    cell-level) over the dense peak of its operands' type."""
+    mxu = compute_unit != "vpu"
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "f32 operations": cell_levels * (4 if mxu else 7) / F32_FLOPS_PER_S * 1e3}
+    tc = 0
+    if mxu:  # (a tree before the axes times its vpu rows through here too)
+        from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+        tc = cell_levels * jk.tensor_core_flops_per_cell(mxu_input)
+        times["tensor-core operations"] = tc / TENSOR_FLOPS_PER_S[mxu_input] * 1e3
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": "bytes" if by == "bytes" else "operations", "bound_of": by,
+            "tensor_core_flops": tc}
+
+
+def _axes_kw(storage: str, unit: str, mxu_input: str) -> dict:
+    """The kernel-axis keywords of a call, none for the f32 vpu form (so that
+    a tree from before the axes runs it)."""
+    kw = {}
+    if storage == "bf16":
+        kw["f32_accumulate"] = True
+    if unit != "vpu":
+        kw.update(compute_unit=unit, mxu_input=mxu_input)
+    return kw
+
+
+def jacobi_wrap_times(dev, storage: str = "native", unit: str = "vpu", mxu_input: str = "f32",
+                      ks=(8, 1)) -> dict:
+    """The wrap kernel over one 512^3 domain at each k of ``ks``, in one
+    form of the kernel axes (bf16 blocks under ``storage="bf16"``)."""
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
-    block = _seeded((N, N, N), 40, dev)
+    kw = _axes_kw(storage, unit, mxu_input)
+    item = 2 if storage == "bf16" else 4
+    block = _seeded((N, N, N), 40, dev).to(torch.bfloat16 if storage == "bf16" else torch.float32)
     plan = getattr(jk, "jacobi_wrap_launch", None)
     out = {}
-    for k in (8, 1):
+    for k in ks:
         def call(k=k):
-            return jk.jacobi_wrap_step(block, k)
+            return jk.jacobi_wrap_step(block, k, **kw)
 
-        prof, _ = _profile(call, 10)
+        prof, _ = _profile(call, 10, per_call=len(jk.wrap_march_depths(k)))
         out[f"k={k}"] = {"device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call, inner=2),
-                         "bound_ms": 2 * N ** 3 * 4 / HBM_BYTES_PER_S * 1e3,
-                         "launch": None if plan is None else plan((N, N, N), k)}
+                         **jacobi_bound(2 * N ** 3 * item, N ** 3 * k, unit, mxu_input),
+                         "launch": None if plan is None else plan((N, N, N), k, **({} if not kw else {
+                             "compute_unit": unit, "mxu_input": mxu_input, "storage": storage}))}
     del block
     torch.cuda.empty_cache()
     return out
 
 
-def jacobi_wavefront_times(dev) -> dict:
+def jacobi_wavefront_times(dev, storage: str = "native", unit: str = "vpu", mxu_input: str = "f32") -> dict:
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
+    kw = _axes_kw(storage, unit, mxu_input)
+    item = 2 if storage == "bf16" else 4
+    dt = torch.bfloat16 if storage == "bf16" else torch.float32
     half, m = N // 2, 8
     r = half + 2 * m
     out = {}
     for label, n_glob, Z, ring, slabs in (("zring", N, half, True, True), ("zslab", N, r, False, True),
                                           ("plain_511", N - 1, r, False, False)):
         gs = (n_glob,) * 3
-        raw = _seeded((8, r, r, Z), 30, dev)
+        raw = _seeded((8, r, r, Z), 30, dev).to(dt)
         org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
                            dtype=torch.int32, device=dev)
-        zs = _seeded((8, r, 2 * m, r), 31, dev) if slabs else None
+        zs = _seeded((8, r, 2 * m, r), 31, dev).to(dt) if slabs else None
         if ring:
             d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - m, int(o[2]), m, r, Z, gs, dev) for o in org])
 
             def call():
-                return jk.jacobi_zring_wavefront_step(raw, m, org, d2, gs, zs)
+                return jk.jacobi_zring_wavefront_step(raw, m, org, d2, gs, zs, **kw)
         else:
             d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - m, int(o[2]) - m, (r, Z), gs, dev) for o in org])
 
             def call():
-                return jk.jacobi_shell_wavefront_step(raw, m, org, d2, gs, z_slabs=zs, z_valid=Z if slabs else None)
+                return jk.jacobi_shell_wavefront_step(raw, m, org, d2, gs, z_slabs=zs, z_valid=Z if slabs else None,
+                                                      **kw)
 
         prof, _ = _profile(call, 10)
         W = Z + 2 * m if ring else Z
         out[label] = {"shape": [8, r, r, Z], "m": m, "device_ms": sum(prof.values()), "kernels": prof,
                       "ms": _cuda_ms(call, inner=2),
-                      "bound_ms": wavefront_bytes(8, r, r, W, m, m, slabs) / HBM_BYTES_PER_S * 1e3}
+                      **jacobi_bound(wavefront_bytes(8, r, r, W, m, m, slabs, item), 8 * half ** 3 * m, unit,
+                                     mxu_input)}
         del raw, zs, d2
         torch.cuda.empty_cache()
     return out
 
 
-def _onelevel_case(dev, which: str) -> dict:
+def _onelevel_case(dev, which: str, storage: str = "native") -> dict:
     """The shell route's ``jacobi_plane_step`` call or the slab route's
     ``jacobi_slab_step`` call on 2x2x2 at 512^3, timed as ``jacobi_wrap``."""
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
+    kw = _axes_kw(storage, "vpu", "f32")
+    item = 2 if storage == "bf16" else 4
+    dt = torch.bfloat16 if storage == "bf16" else torch.float32
     half, gs = N // 2, (N, N, N)
     ext = half + 2 if which == "plane" else half
-    block = _seeded((8, ext, ext, ext), 50, dev)
+    block = _seeded((8, ext, ext, ext), 50, dev).to(dt)
     org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)],
                        dtype=torch.int32, device=dev)
     d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in org])
@@ -272,21 +344,93 @@ def _onelevel_case(dev, which: str) -> dict:
         slabs = []
 
         def call():
-            return jk.jacobi_plane_step(block, org, d2, gs, out=out)
+            return jk.jacobi_plane_step(block, org, d2, gs, out=out, **kw)
     else:
-        slabs = [_seeded((8, half, half), 51 + i, dev) for i in range(6)]
+        slabs = [_seeded((8, half, half), 51 + i, dev).to(dt) for i in range(6)]
 
         def call():
-            return jk.jacobi_slab_step(block, *slabs, org, d2, gs, out=out)
+            return jk.jacobi_slab_step(block, *slabs, org, d2, gs, out=out, **kw)
 
     prof, _ = _profile(call, 10)
-    nbytes = (2 * block.numel() + sum(s.numel() for s in slabs) + d2.numel() + org.numel()) * 4
+    nbytes = (2 * block.numel() + sum(s.numel() for s in slabs)) * item + (d2.numel() + org.numel()) * 4
     plan = getattr(jk, f"jacobi_{which}_launch", None)
     res = {"shape": list(block.shape), "device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call),
-           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "launch": None if plan is None else plan(tuple(block.shape))}
+           **jacobi_bound(nbytes, 8 * half ** 3),
+           "launch": None if plan is None else plan(tuple(block.shape), **({"storage": storage} if kw else {}))}
     del block, slabs, out
     torch.cuda.empty_cache()
     return res
+
+
+def jacobi_bf16_times(dev) -> dict:
+    """The bf16-storage twin of every Jacobi row (section ``jacobi_bf16``)."""
+    return {"wrap": jacobi_wrap_times(dev, "bf16"), "wavefront": jacobi_wavefront_times(dev, "bf16"),
+            "plane": _onelevel_case(dev, "plane", "bf16"), "slab": _onelevel_case(dev, "slab", "bf16")}
+
+
+def jacobi_mxu_times(dev) -> dict:
+    """The tensor-core forms of the wrap (k = 8) and wavefront kernels on f32
+    and bf16 operands (section ``jacobi_mxu``)."""
+    return {mi: {"wrap": jacobi_wrap_times(dev, unit="mxu_band", mxu_input=mi, ks=(8,)),
+                 "wavefront": jacobi_wavefront_times(dev, unit="mxu_band", mxu_input=mi)}
+            for mi in ("f32", "bf16")}
+
+
+def mxu_vs_vpu_times(dev, k: int = 8, reps: int = 5, inner: int = 10) -> dict:
+    """``bench.py``'s ``mxu_vs_vpu_ab`` (bench.py:100-188) on the card: the
+    same k-level wrap call over a 512^3 domain at 0.5 under each compute
+    unit, the legs alternating rep by rep (CUDA events, ``inner`` calls a
+    rep; rep 0 dropped, the median kept); under its keys, with each leg's
+    device ms a call, bound and tensor-core FLOPs beside."""
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+    cells = N ** 3
+    band_ok = jk.band_tile_plan(N, N) is not None
+    legs = [("vpu", "vpu", "f32"), ("mxu", "mxu", "f32")]
+    if band_ok:
+        legs += [("mxu_band", "mxu_band", "f32"), ("mxu_band+bf16in", "mxu_band", "bf16")]
+    block = torch.full((N, N, N), 0.5, device=dev)
+    out = torch.empty_like(block)
+
+    def leg(unit, mi):
+        def call():
+            return jk.jacobi_wrap_step(block, k, out=out, compute_unit=unit, mxu_input=mi)
+        return call
+
+    calls = [leg(unit, mi) for _, unit, mi in legs]
+    for call in calls:
+        call()  # build and warm
+    _sync()
+    per_rep = [[] for _ in legs]
+    for _ in range(reps):
+        for j, call in enumerate(calls):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                call()
+            stop.record()
+            stop.synchronize()
+            per_rep[j].append(start.elapsed_time(stop) / inner)
+    section = {"eligible": True, "band_eligible": band_ok, "k": k,
+               "measurement_protocol": {"alternating": True, "drop_rep0": True, "stat": "median",
+                                        "reps": reps, "inner": inner, "timer": "cuda events"},
+               "units": {}, "speedup_vs_vpu": None, "speedups_vs_vpu": {}}
+    for (key, unit, mi), times, call in zip(legs, per_rep, calls):
+        ms = statistics.median(times[1:])
+        prof, _ = _profile(call, 10, per_call=len(jk.wrap_march_depths(k)))
+        section["units"][key] = {"ms_per_dispatch": ms, "mcells_per_s": cells * k / (ms * 1e-3) / 1e6,
+                                 "device_ms": sum(prof.values()), "reps_ms": times,
+                                 **jacobi_bound(2 * cells * 4, cells * k, unit, mi),
+                                 "model_flops": (jk.mxu_flops_per_plane(N, N, unit) * N * k
+                                                 if jk.unit_uses_mxu(unit) else 0)}
+    vpu_ms = section["units"]["vpu"]["ms_per_dispatch"]
+    for key, u in section["units"].items():
+        if key != "vpu":
+            section["speedups_vs_vpu"][key] = vpu_ms / u["ms_per_dispatch"]
+    section["speedup_vs_vpu"] = section["speedups_vs_vpu"].get("mxu")
+    del block, out
+    torch.cuda.empty_cache()
+    return section
 
 
 def wavefront_times(dev) -> dict:
@@ -513,7 +657,8 @@ def main(argv=None) -> int:
                 "jacobi_plane": lambda dev: _onelevel_case(dev, "plane"),
                 "jacobi_slab": lambda dev: _onelevel_case(dev, "slab"), "wavefront": wavefront_times,
                 "blend": blend_times, "zshell": zshell_times, "mean6": mean6_times,
-                "blend_dynamic": blend_dynamic_times, "fused": fused_times, "direct": direct_route}
+                "blend_dynamic": blend_dynamic_times, "fused": fused_times, "direct": direct_route,
+                "jacobi_bf16": jacobi_bf16_times, "jacobi_mxu": jacobi_mxu_times, "mxu_vs_vpu": mxu_vs_vpu_times}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

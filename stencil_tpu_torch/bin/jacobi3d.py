@@ -9,7 +9,8 @@ flags) and the same CSV row
 
 (jacobi3d.cu:378-379), plus ``--partition px,py,pz`` (subdomains on the one
 device), ``--device``, and the JAX driver's ``--pallas-path``,
-``--halo-multiplier``, ``--temporal-k`` and ``--exchange-route``.  Each timed
+``--halo-multiplier``, ``--temporal-k``, ``--exchange-route`` and the kernel
+axes ``--compute-unit``, ``--mxu-input`` and ``--storage-dtype``.  Each timed
 sample is one macro step (``halo multiplier`` iterations: k on the torch
 engine under ``--halo-multiplier k``, the depth m on the wavefront route,
 else 1) and a device synchronize; the CSV reports it per iteration, as the
@@ -23,6 +24,10 @@ compare.
         --partition 2,2,2 --pallas-path slab --iters 200
     python -m stencil_tpu_torch.bin.jacobi3d 511 511 511 --no-weak-scale \
         --partition 2,2,2 --iters 200
+    python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
+        --compute-unit mxu_band --mxu-input bf16 --iters 200
+    python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
+        --storage-dtype bf16 --iters 200
 
 An uneven size (one the grid does not divide, given with --no-weak-scale)
 pads every subdomain to ceil(size / grid) cells per axis, as the domain does.
@@ -36,6 +41,7 @@ import time
 
 from stencil_tpu_torch.models.jacobi import Jacobi3D, weak_scaled_size
 from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
+from stencil_tpu_torch.ops.jacobi_kernels import COMPUTE_UNITS, MXU_INPUTS, STORAGE_DTYPES
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
 from stencil_tpu_torch.utils.statistics import Statistics
 
@@ -56,6 +62,23 @@ def _add_exchange_route_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--exchange-route", default="auto", choices=("auto",) + EXCHANGE_ROUTES,
                    help="y/z-sweep exchange route: direct slabs, or the z shell (zpack_*) or y and "
                         "z shells (yzpack_*) as packed buffers; *_pallas packs with the CUDA kernels")
+
+
+def _add_kernel_axis_flags(p: argparse.ArgumentParser) -> None:
+    """``--compute-unit`` / ``--mxu-input`` / ``--storage-dtype``
+    (``stencil_tpu/bin/_common.py:196-230``): the Jacobi kernels' axes;
+    ``auto`` (default) resolves the static ``vpu`` / ``f32`` / ``native``,
+    and a structural guard (a route or engine without the form) degrades
+    with a warning."""
+    p.add_argument("--compute-unit", default="auto", choices=("auto",) + COMPUTE_UNITS,
+                   help="vpu: the six-neighbour fold; mxu / mxu_band: the in-plane sums as a "
+                        "band contraction on the tensor cores (wrap and wavefront routes)")
+    p.add_argument("--mxu-input", default="auto", choices=("auto",) + MXU_INPUTS,
+                   help="the contraction's operands: f32 (three exact TF32 pieces) or bf16 "
+                        "(rounded once a read); inert under vpu")
+    p.add_argument("--storage-dtype", default="auto", choices=("auto",) + STORAGE_DTYPES,
+                   help="native, or bf16: the field stored as bfloat16, the kernels "
+                        "accumulating at f32 and rounding once a pass")
 
 
 def _parse_partition(text: str):
@@ -91,6 +114,7 @@ def main(argv=None) -> int:
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
     _add_exchange_route_flag(p)
+    _add_kernel_axis_flags(p)
     p.add_argument("x", type=int, nargs="?", default=512)
     p.add_argument("y", type=int, nargs="?", default=512)
     p.add_argument("z", type=int, nargs="?", default=512)
@@ -118,6 +142,9 @@ def main(argv=None) -> int:
         kernel_impl=args.kernel_impl,
         pallas_path=args.pallas_path,
         temporal_k=args.temporal_k if args.temporal_k == "auto" else int(args.temporal_k),
+        compute_unit=args.compute_unit,
+        mxu_input=args.mxu_input,
+        storage_dtype=args.storage_dtype,
         device=args.device,
     )
     if args.partition is not None:

@@ -154,9 +154,62 @@
 // same order (plane_stencil.py:188-195): m <= 4 is one march, m in 5..8 two
 // through the scratch, as the shell form; so kMaxM = 8 is two marches of
 // kSubDepth, not a shared-memory limit.
+//
+// The kernel axes (jacobi_pallas.py:39-250) are builds of this file, each a
+// library of its own (kernels/build.py VARIANTS, ops/jacobi_kernels.py
+// library_name):
+//
+//   STP_JW_STORAGE=1 (bf16 storage, `f32_accumulate`): the block, the
+//     output, the z slabs and the slab form's faces are bfloat16; a load
+//     upcasts, every level and the scratch between marches are f32, and the
+//     last march stores with __float2bfloat16_rn, one rounding a call as the
+//     JAX kernel's final `astype` (jacobi_pallas.py:960-966).  The wrap
+//     form's marches between the first and the last read and write f32
+//     scratch buffers (two from three marches on), never the output.
+//   STP_JW_UNIT=1 / 2 (compute_unit mxu or mxu_band; mxu_input f32 / bf16):
+//     a level's in-plane sums run on the tensor cores.  A warp owns a 16 x
+//     16 quarter of the tile in mma.sync's accumulator layout (rows r0 + g,
+//     r0 + g + 8, columns c0 + 8q + 2t, + 1; g = lane / 4, t = lane % 4) and
+//     contracts the level below, read from shared memory, against the band's
+//     nonzeros: over y (A the band, B the plane) against the row chunks that
+//     hold rows r0 - 1 .. r0 + 16, over z (A the plane, B the band) against
+//     the column chunks that hold c0 - 1 .. c0 + 16, chunks inside the tile
+//     only (the tile's edge is apron, whose values are garbage anyway).  The
+//     level is then (x-1 + x+1) + (ysum + zsum), as _make_level_sum sums it
+//     (jacobi_pallas.py:498-526).  f32 operands: m16n8k8 TF32 on the plane
+//     split exactly into three TF32 pieces with cvt.rna (hi, mid, and the
+//     rest of at most 3 bits), lowest first, so that a sum of two cells is
+//     the f32 sum up to the tensor core's rounding of its accumulation
+//     (within tests/ulp.py's 4 ulps a level); bf16 operands: m16n8k16, the
+//     plane rounded to nearest once a read.  The band's 0/1 entries are
+//     exact either way; mxu and mxu_band share this contraction.  The
+//     planes' rows are pitched at kMxuPitch = 72 cells so that the fragment
+//     loads and stores meet each bank once; a zero band entry times a cell
+//     outside a stencil is 0 only for a finite cell, and shells and scratch
+//     cells no valid cell reads may hold anything, NaN or a finite value
+//     whose sums overflow a level later, so these builds take a level-0
+//     cell whose magnitude is not below FLT_MAX / 8 as 0 (kMxuLimit: every
+//     sum of a level then stays finite).  No shared memory and no barrier
+//     more than the vpu form.
+//
+// The default build (both 0) is the f32 vpu form above, unchanged, with the
+// mean-of-6 form; the plane and slab forms are in the vpu builds only, the
+// mean-of-6 form in the default one only.
+
+#ifndef STP_JW_STORAGE
+#define STP_JW_STORAGE 0
+#endif
+#ifndef STP_JW_UNIT
+#define STP_JW_UNIT 0
+#endif
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#if STP_JW_STORAGE || STP_JW_UNIT == 2
+#include <cuda_bf16.h>
+#endif
 
 namespace {
 
@@ -175,6 +228,73 @@ __device__ __forceinline__ int pmod(int a, int n) {
   int r = a % n;
   return r < 0 ? r + n : r;
 }
+
+// --- the storage type: the fields' cells in memory, upcast at load ---------------
+
+#if STP_JW_STORAGE
+using Store = __nv_bfloat16;
+__device__ __forceinline__ float up(Store v) { return __bfloat162float(v); }
+__device__ __forceinline__ Store down(float v) { return __float2bfloat16_rn(v); }
+#endif
+__device__ __forceinline__ float up(float v) { return v; }
+#if !STP_JW_STORAGE
+using Store = float;
+__device__ __forceinline__ float down(float v) { return v; }
+#endif
+// a field pointer of the arguments (declared float) as the storage type
+__device__ __forceinline__ const Store* sp(const float* p) { return reinterpret_cast<const Store*>(p); }
+__device__ __forceinline__ Store* sp(float* p) { return reinterpret_cast<Store*>(p); }
+
+// --- the tensor-core contraction -------------------------------------------------
+
+constexpr int kUnit = STP_JW_UNIT;  // 0 vpu, 1 tensor cores on TF32 pieces, 2 on bf16
+constexpr bool kMxu = kUnit != 0;
+constexpr int kMxuPitch = 72;  // == MXU_PITCH: the shared planes' row pitch in these builds
+// the largest level-0 magnitude these builds take (FLT_MAX / 8): six such
+// values and their means never overflow, so no level is inf or NaN
+constexpr float kMxuLimit = 0x1.fffffep+124f;
+
+#if STP_JW_UNIT == 1
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = p[2] + p[1] + p[0] exactly, each a TF32 value: hi, mid and the rest
+// (x has 24 significant bits, hi and mid 11 each, the rest at most 3)
+__device__ __forceinline__ void split3(float x, uint32_t (&p)[3]) {
+  const uint32_t hi = tf32_rna(x);
+  const float r = __fsub_rn(x, __uint_as_float(hi));
+  const uint32_t mid = tf32_rna(r);
+  p[0] = __float_as_uint(__fsub_rn(r, __uint_as_float(mid)));
+  p[1] = mid;
+  p[2] = hi;
+}
+// a band entry as a TF32 operand: 1 at distance 1, else 0
+__device__ __forceinline__ uint32_t band32(int d) { return d == 1 || d == -1 ? 0x3f800000u : 0u; }
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#elif STP_JW_UNIT == 2
+// two cells rounded to bfloat16 (to nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// two band entries as a bf16 pair, d0's in the low half
+__device__ __forceinline__ uint32_t band16(int d0, int d1) {
+  return (d0 == 1 || d0 == -1 ? 0x3f80u : 0u) | (d1 == 1 || d1 == -1 ? 0x3f800000u : 0u);
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
 
 // --- the Jacobi wavefront: register-queue marches ------------------------------
 
@@ -229,26 +349,40 @@ struct FormArgs<kSlabForm> {
   using type = SlabArgs;
 };
 
+// the row pitch of the shared planes, in cells
+constexpr int kPitch = kMxu ? kMxuPitch : kQCols;
+
 template <int D>
 constexpr size_t queue_smem() {
-  return ((size_t)2 * D * kQRows * kQCols + 2 * kQPad) * 4;
+  return ((size_t)2 * D * kQRows * kPitch + 2 * kQPad) * 4;
 }
 
-// the plan's model of a block's shared memory (wavefront_smem_bytes)
+// the plan's model of a block's shared memory (wavefront_smem_bytes), and
+// what the tensor-core builds add to it (mxu_smem_extra_bytes): a march of
+// depth d's 2d planes pitched at kMxuPitch
 constexpr size_t plan_smem(int m) { return (size_t)(2 * m + 2) * (kTileY + 2 * m) * kTileW * 4; }
+constexpr size_t mxu_extra_smem(int d) { return (size_t)2 * d * kQRows * (kMxuPitch - kQCols) * 4; }
+
+// A march's level-0 cells as loaded: the storage type from the block and
+// the slabs, f32 from an earlier march's scratch.  The prefetch keeps them
+// so and converts where the next plane uses them: a conversion at the load
+// would wait on it and undo the prefetch (a bf16 build so lost 1.7-2.7x,
+// PERF.md)
+template <bool kFromScratch>
+using Cell = std::conditional_t<kFromScratch, float, Store>;
 
 // Level-0 cell (y, c) of plane i of block b: the scratch of an earlier
 // march, else the slab buffer for the z shell columns in the slab forms and
 // the block for the rest; 0 past the plane's edge.  (The wrap form reads
 // its planes in the kernel's fetch, every index modulo its axis.)
 template <int kForm, bool kFromScratch>
-__device__ __forceinline__ float load0(const QArgs& a, int64_t bi, int y, int c) {
-  if (y >= a.Yr || c >= a.W) return 0.0f;
+__device__ __forceinline__ Cell<kFromScratch> load0(const QArgs& a, int64_t bi, int y, int c) {
+  if (y >= a.Yr || c >= a.W) return Cell<kFromScratch>(0.0f);
   if (kFromScratch) return a.src[(bi * a.Yr + y) * a.W + c];
   const int s = a.s;
-  if (has_slabs(kForm) && c < s) return a.zs[(bi * 2 * s + c) * a.Yr + y];
-  if (has_slabs(kForm) && c >= a.W - s) return a.zs[(bi * 2 * s + s + c - (a.W - s)) * a.Yr + y];
-  return a.raw[(bi * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)];
+  if (has_slabs(kForm) && c < s) return sp(a.zs)[(bi * 2 * s + c) * a.Yr + y];
+  if (has_slabs(kForm) && c >= a.W - s) return sp(a.zs)[(bi * 2 * s + s + c - (a.W - s)) * a.Yr + y];
+  return sp(a.raw)[(bi * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)];
 }
 
 // The last level's value of cell (y, c) of plane p (bp = b * Xr + p): to the
@@ -262,11 +396,11 @@ __device__ __forceinline__ void store_last(const QArgs& a, int64_t bp, int y, in
     return;
   }
   const int s = a.s;
-  a.out[(bp * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)] = v;
+  sp(a.out)[(bp * a.Yr + y) * a.Zraw + (kForm == kRingForm ? c - s : c)] = down(v);
   if (has_slabs(kForm)) {
     const int64_t zo = bp * 2 * s * a.Yr + y;
-    if (c >= a.W - 2 * s) a.zout[zo + (int64_t)(c - (a.W - 2 * s)) * a.Yr] = v;
-    if (c < 2 * s) a.zout[zo + (int64_t)c * a.Yr] = v;
+    if (c >= a.W - 2 * s) sp(a.zout)[zo + (int64_t)(c - (a.W - 2 * s)) * a.Yr] = down(v);
+    if (c < 2 * s) sp(a.zout)[zo + (int64_t)c * a.Yr] = down(v);
   }
 }
 
@@ -288,19 +422,117 @@ __device__ __forceinline__ int load_d2(const QArgs& a, const int* d2, int y, int
   return d2[(int64_t)y * a.d2_w + col];
 }
 
-// The slab form's level-0 cell (y, c) of plane i (-1 <= i <= X) of block b:
-// the block inside, a face slab one cell outside it, 0 elsewhere (apron
-// corners and edges, which one level never reads, and cells past the face)
-__device__ __forceinline__ float load_slab(const SlabArgs& a, int b, int i, int y, int c) {
+// The slab form's level-0 cell (y, c) of plane i (-1 <= i <= X) of block b,
+// as loaded: the block inside, a face slab one cell outside it, 0 elsewhere
+// (apron corners and edges, which one level never reads, and cells past the
+// face)
+__device__ __forceinline__ Store load_slab(const SlabArgs& a, int b, int i, int y, int c) {
   const int X = a.Xr, Y = a.Yr, Z = a.W;
   const bool in_y = y >= 0 && y < Y, in_z = c >= 0 && c < Z;
-  if (i < 0 || i >= X) return in_y && in_z ? (i < 0 ? a.xlo : a.xhi)[((int64_t)b * Y + y) * Z + c] : 0.0f;
+  if (i < 0 || i >= X) return in_y && in_z ? sp(i < 0 ? a.xlo : a.xhi)[((int64_t)b * Y + y) * Z + c] : Store(0.0f);
   const int64_t bx = (int64_t)b * X + i;
-  if (in_y && in_z) return a.raw[(bx * Y + y) * Z + c];
-  if (in_z && (y == -1 || y == Y)) return (y < 0 ? a.ylo : a.yhi)[bx * Z + c];
-  if (in_y && (c == -1 || c == Z)) return (c < 0 ? a.zlo : a.zhi)[bx * Y + y];
-  return 0.0f;
+  if (in_y && in_z) return sp(a.raw)[(bx * Y + y) * Z + c];
+  if (in_z && (y == -1 || y == Y)) return sp(y < 0 ? a.ylo : a.yhi)[bx * Z + c];
+  if (in_y && (c == -1 || c == Z)) return sp(c < 0 ? a.zlo : a.zhi)[bx * Y + y];
+  return Store(0.0f);
 }
+
+#if STP_JW_UNIT
+// The in-plane sums (ysum + zsum) of a warp's 16 x 16 quarter of the tile,
+// rows r0.., columns c0.., of the level plane `p` (pitch kMxuPitch), into
+// nb[r][q], this thread's cells in the accumulator layout: rows r0 + g +
+// 8 (r / 2), columns c0 + 8q + 2t + r % 2.  Chunks of rows or columns
+// outside the tile are skipped (the tile's edge is apron).  A z chunk's
+// columns are taken in the order c, c + 1 for k = t, t + 4 (TF32) so that a
+// thread reads them as one float2; the band operand follows the same order.
+__device__ __forceinline__ void tile_sums(const float* p, int r0, int c0, int g, int t, float (&nb)[4][2]) {
+  constexpr int SW = kMxuPitch;
+  float ys[2][4] = {}, zs[2][4] = {};
+#if STP_JW_UNIT == 1
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // y: rows k0 .. k0 + 7, k0 = r0 - 8 + 8j
+    const int dl = 8 * j - 8, k0 = r0 + dl;
+    if (k0 < 0 || k0 >= kQRows) continue;
+    // A[m][k] = 1 where |(r0 + m) - (k0 + k)| = 1: m = g, g + 8; k = t, t + 4
+    const uint32_t a[4] = {band32(g - t - dl), band32(g + 8 - t - dl), band32(g - t - 4 - dl),
+                           band32(g + 4 - t - dl)};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = c0 + 8 * q + g;
+      uint32_t b0[3], b1[3];
+      split3(p[(k0 + t) * SW + col], b0);
+      split3(p[(k0 + t + 4) * SW + col], b1);
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const uint32_t b[2] = {b0[e], b1[e]};
+        mma(ys[q], a, b);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // z: columns k0 .. k0 + 7, k0 = c0 - 8 + 8j
+    const int k0 = c0 - 8 + 8 * j;
+    if (k0 < 0 || k0 >= kQCols) continue;
+    const float2 u = *reinterpret_cast<const float2*>(&p[(r0 + g) * SW + k0 + 2 * t]);
+    const float2 w = *reinterpret_cast<const float2*>(&p[(r0 + g + 8) * SW + k0 + 2 * t]);
+    uint32_t u0[3], u1[3], w0[3], w1[3];
+    split3(u.x, u0);
+    split3(u.y, u1);
+    split3(w.x, w0);
+    split3(w.y, w1);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int dl = 8 * (j - 1 - q);  // k0 - (c0 + 8q)
+      if (dl < -8 || dl > 8) continue;
+      // B[k][n] = 1 where |(k0 + column of k) - (c0 + 8q + n)| = 1: n = g;
+      // k = t at column 2t, k = t + 4 at column 2t + 1
+      const uint32_t b[2] = {band32(2 * t - g + dl), band32(2 * t + 1 - g + dl)};
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const uint32_t a[4] = {u0[e], w0[e], u1[e], w1[e]};
+        mma(zs[q], a, b);
+      }
+    }
+  }
+#else
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {  // y: rows k0 .. k0 + 15, k0 = 16j; row k of the
+    // chunk at k0 + t, + 4, + 8, + 12 for k = 2t, 2t + 1, 2t + 8, 2t + 9
+    const int k0 = 16 * j, dl = k0 - r0;
+    const uint32_t a[4] = {band16(g - t - dl, g - t - 4 - dl), band16(g + 8 - t - dl, g + 4 - t - dl),
+                           band16(g - t - 8 - dl, g - t - 12 - dl), band16(g - t - dl, g - t - 4 - dl)};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = c0 + 8 * q + g;
+      const uint32_t b[2] = {pack_bf16(p[(k0 + t) * SW + col], p[(k0 + t + 4) * SW + col]),
+                             pack_bf16(p[(k0 + t + 8) * SW + col], p[(k0 + t + 12) * SW + col])};
+      mma(ys[q], a, b);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {  // z: columns k0 .. k0 + 15, k0 = c0 - 16 + 16j
+    const int k0 = c0 - 16 + 16 * j;
+    if (k0 < 0 || k0 >= kQCols) continue;
+    const float2 u = *reinterpret_cast<const float2*>(&p[(r0 + g) * SW + k0 + 2 * t]);
+    const float2 w = *reinterpret_cast<const float2*>(&p[(r0 + g + 8) * SW + k0 + 2 * t]);
+    const float2 u8 = *reinterpret_cast<const float2*>(&p[(r0 + g) * SW + k0 + 2 * t + 8]);
+    const float2 w8 = *reinterpret_cast<const float2*>(&p[(r0 + g + 8) * SW + k0 + 2 * t + 8]);
+    const uint32_t a[4] = {pack_bf16(u.x, u.y), pack_bf16(w.x, w.y), pack_bf16(u8.x, u8.y), pack_bf16(w8.x, w8.y)};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int dl = 16 * (j - 1) - 8 * q;  // k0 - (c0 + 8q)
+      if (dl < -16 || dl > 8) continue;
+      const uint32_t b[2] = {band16(2 * t - g + dl, 2 * t + 1 - g + dl), band16(2 * t + 8 - g + dl, 2 * t + 9 - g + dl)};
+      mma(zs[q], a, b);
+    }
+  }
+#endif
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) nb[r][q] = ys[q][r] + zs[q][r];
+}
+#endif
 
 // One march of D levels.  At D <= 4 the registers are cut so that two
 // blocks fit an SM (128 a thread).
@@ -312,10 +544,12 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   constexpr int H = kQRows;
   constexpr int TW = kQCols;
   constexpr int TZ = TW - 2 * D;        // output columns per tile
-  constexpr int P = H * TW;
+  constexpr int P = H * kPitch;
   constexpr int RI = H / kQWarps;       // consecutive rows a thread owns
   constexpr int CI = TW / kThreadsZ;    // columns a thread owns, 32 apart
   constexpr bool kClamp = kForm != kMean6Form;  // the mean-of-6 form reads no d2 and no origins
+  static_assert(!kMxu || (kForm != kPlaneForm && kForm != kSlabForm && kForm != kMean6Form),
+                "the tensor-core builds have the wavefront and wrap forms only");
   // plane of level L (< D) at march parity `par`
   auto plane = [&](int L, int par) -> float* { return smem + (L * 2 + par) * P; };
   const int s = a.s, o = a.o;
@@ -334,6 +568,17 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   const int64_t bx = (int64_t)b * a.Xr;
   const int origin_x = kForm == kWrapForm || !kClamp ? 0 : a.origins[3 * b];
   const int tz0 = threadIdx.x, ty0 = threadIdx.y * RI;
+  // the tensor-core builds: this warp's quarter of the tile (rows r0.., and
+  // columns c0t..) and the lane's place in mma.sync's accumulator layout; a
+  // thread's cell (r, q) is at row r0 + g + 8 (r / 2), column c0t + 8q + 2t
+  // + r % 2 (tile_sums), where the vpu form's is at ty0 + r, tz0 + 32q
+  const int r0 = 16 * (threadIdx.y >> 2), c0t = 16 * (threadIdx.y & 3), g = threadIdx.x >> 2, t = threadIdx.x & 3;
+  auto cell_y = [&](int r) { return kMxu ? r0 + g + 8 * (r >> 1) : ty0 + r; };
+  auto cell_z = [&](int r, int q) { return kMxu ? c0t + 8 * q + 2 * t + (r & 1) : tz0 + q * kThreadsZ; };
+  // the same cell's row and logical column in the plane (the vpu form's
+  // sums in the parent's order)
+  auto row_of = [&](int r) { return kMxu ? y0 + (r0 + g + 8 * (r >> 1)) : y0 + ty0 + r; };
+  auto col_of = [&](int r, int q) { return kMxu ? c0 + (c0t + 8 * q + 2 * t + (r & 1)) : c0 + tz0 + q * kThreadsZ; };
   // the cells whose last level this thread writes: inside the tile's
   // level-D region and the march's output region (bit r * CI + q); and
   // their d2, in registers for the whole march.  The plane form also
@@ -346,7 +591,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   for (int r = 0; r < RI; ++r)
 #pragma unroll
     for (int q = 0; q < CI; ++q) {
-      const int ty = ty0 + r, tz = tz0 + q * kThreadsZ;
+      const int ty = cell_y(r), tz = cell_z(r, q);
       if constexpr (kForm == kPlaneForm) {
         const int y = y0 + ty, c = c0 + tz;
         const bool in_row = ty >= D && ty < H - D && y < Yr - o, in_col = tz >= D && tz < TW - D && c < W - o;
@@ -360,40 +605,57 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
     }
 
   // the wrap form's in-plane offsets of this thread's cells, row and column
-  // modulo Y and Z (Y * Z < 2^31: the entry checks it)
-  int wrow[RI], wcol[CI];
+  // modulo Y and Z (Y * Z < 2^31: the entry checks it); a column a cell in
+  // the tensor-core builds
+  constexpr int WC = kMxu ? RI * CI : CI;
+  int wrow[RI], wcol[WC];
   if constexpr (kForm == kWrapForm) {
 #pragma unroll
-    for (int r = 0; r < RI; ++r) wrow[r] = pmod(y0 + ty0 + r, Yr) * W;
+    for (int r = 0; r < RI; ++r) wrow[r] = pmod(row_of(r), Yr) * W;
 #pragma unroll
-    for (int q = 0; q < CI; ++q) wcol[q] = pmod(c0 + tz0 + q * kThreadsZ, W);
+    for (int j = 0; j < WC; ++j) wcol[j] = pmod(col_of(kMxu ? j / CI : 0, kMxu ? j % CI : j), W);
   }
 
   // output plane p = i - D needs level-0 planes p-D .. p+D (modulo X in the
   // wrap form)
   const int i0 = p_lo - D;
   const int i_end = p_hi + D;
-  // level-0 plane i of this thread's cells, fetched one plane ahead
-  float pre[RI][CI];
+  // level-0 plane i of this thread's cells, fetched one plane ahead as
+  // loaded (``Cell``)
+  Cell<kFromScratch> pre[RI][CI];
   auto fetch = [&](int i) {
     if constexpr (kForm == kWrapForm) {
-      const float* pl = a.raw + (int64_t)pmod(i, a.Xr) * Yr * W;
+      const Cell<kFromScratch>* pl;
+      if constexpr (kFromScratch) {
+        pl = a.src + (int64_t)pmod(i, a.Xr) * Yr * W;
+      } else {
+        pl = sp(a.raw) + (int64_t)pmod(i, a.Xr) * Yr * W;
+      }
 #pragma unroll
       for (int r = 0; r < RI; ++r)
 #pragma unroll
-        for (int q = 0; q < CI; ++q) pre[r][q] = pl[wrow[r] + wcol[q]];
+        for (int q = 0; q < CI; ++q) pre[r][q] = pl[wrow[r] + wcol[kMxu ? r * CI + q : q]];
     } else if constexpr (kForm == kSlabForm) {
 #pragma unroll
       for (int r = 0; r < RI; ++r)
 #pragma unroll
-        for (int q = 0; q < CI; ++q) pre[r][q] = load_slab(a, b, i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ);
+        for (int q = 0; q < CI; ++q) pre[r][q] = load_slab(a, b, i, row_of(r), col_of(r, q));
     } else {
 #pragma unroll
       for (int r = 0; r < RI; ++r)
 #pragma unroll
         for (int q = 0; q < CI; ++q)
-          pre[r][q] = load0<kForm, kFromScratch>(a, bx + i, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ);
+          pre[r][q] = load0<kForm, kFromScratch>(a, bx + i, row_of(r), col_of(r, q));
     }
+  };
+  // a level's plane of this thread's cells into shared memory, two
+  // neighbouring columns at a time (the tensor-core builds)
+  auto put = [&](float* pl, const float (&v)[RI][CI]) {
+#pragma unroll
+    for (int r = 0; r < RI; r += 2)
+#pragma unroll
+      for (int q = 0; q < CI; ++q)
+        *reinterpret_cast<float2*>(&pl[cell_y(r) * kPitch + cell_z(r, q)]) = make_float2(v[r][q], v[r + 1][q]);
   };
 
   // the queue of level L < D at this thread's cells: old (plane j-1) and mid
@@ -410,13 +672,17 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   fetch(i0);
   for (int i = i0; i < i_end; ++i) {
     const int wp = i & 1, rp = wp ^ 1;  // this plane's buffers; the previous plane's
+    // level 0 of plane i at f32; the tensor-core builds take a cell whose
+    // magnitude is not below kMxuLimit (inf and NaN too) as 0 (the header)
 #pragma unroll
     for (int r = 0; r < RI; ++r)
 #pragma unroll
       for (int q = 0; q < CI; ++q) {
-        nw[r][q] = pre[r][q];
-        plane(0, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = pre[r][q];
+        nw[r][q] = up(pre[r][q]);
+        if (kMxu && !(fabsf(nw[r][q]) < kMxuLimit)) nw[r][q] = 0.0f;
+        if (!kMxu) plane(0, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = up(pre[r][q]);
       }
+    if (kMxu) put(plane(0, wp), nw);
     if (kForm == kPlaneForm && (i == 0 || i == a.Xr - 1)) {  // the shell planes pass through
 #pragma unroll
       for (int r = 0; r < RI; ++r)
@@ -438,16 +704,25 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
       const bool spheres = kClamp && (hot_lim > 0 || cold_lim > 0);
       const float* below = plane(l - 1, rp);  // level l-1, plane i-l
       float res[RI][CI];
+#if STP_JW_UNIT
+      float nb[RI][CI];  // (y-1 + y+1) + (z-1 + z+1) of this thread's cells
+      tile_sums(below, r0, c0t, g, t, nb);
+#endif
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
 #pragma unroll
         for (int q = 0; q < CI; ++q) {
+#if STP_JW_UNIT
+          float sum = old_[l - 1][r][q] + nw[r][q];  // x-1, x+1
+          sum = sum + nb[r][q];
+#else
           const int k = (ty0 + r) * TW + tz0 + q * kThreadsZ;
           float sum = old_[l - 1][r][q] + nw[r][q];                        // x-1, x+1
           sum = sum + (r > 0 ? mid[l - 1][r - 1][q] : below[k - TW]);       // y-1
           sum = sum + (r + 1 < RI ? mid[l - 1][r + 1][q] : below[k + TW]);  // y+1
           sum = sum + below[k - 1];                                         // z-1
           sum = sum + below[k + 1];                                         // z+1
+#endif
           float v = sum * kSixth;
           if (spheres) {  // d2 >= 0: no clamp can fire on this plane otherwise
             if (d2r[r][q] < hot_lim) v = kHot;
@@ -456,7 +731,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
           if (l == D && p >= p_lo && (own >> (r * CI + q) & 1u)) {
             // the plane form (D = 1) stores a ring cell's level 0 unchanged
             const bool keep = kForm == kPlaneForm && (ring >> (r * CI + q) & 1u);
-            store_last<kForm, kToScratch>(a, bx + p, y0 + ty0 + r, c0 + tz0 + q * kThreadsZ,
+            store_last<kForm, kToScratch>(a, bx + p, row_of(r), col_of(r, q),
                                           keep ? mid[0][r][q] : v);
           }
           res[r][q] = v;
@@ -470,8 +745,9 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
           old_[l - 1][r][q] = mid[l - 1][r][q];
           mid[l - 1][r][q] = nw[r][q];
           nw[r][q] = res[r][q];
-          if (l < D) plane(l, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = res[r][q];
+          if (!kMxu && l < D) plane(l, wp)[(ty0 + r) * TW + tz0 + q * kThreadsZ] = res[r][q];
         }
+      if (kMxu && l < D) put(plane(l, wp), res);
     }
     // this plane's writes before the next plane's reads of them, and this
     // plane's reads of the other parity before the next plane overwrites it
@@ -488,7 +764,8 @@ template <int D, int kForm, bool kFrom, bool kTo>
 int march(typename FormArgs<kForm>::type a, int n, cudaStream_t stream, Plan* plan_only) {
   constexpr int TZ = kQCols - 2 * D, TY = kQRows - 2 * D;
   constexpr size_t smem = queue_smem<D>();
-  static_assert(smem <= plan_smem(D), "a march asks more shared memory than the plan's model");
+  static_assert(smem <= plan_smem(D) + (kMxu ? mxu_extra_smem(D) : 0),
+                "a march asks more shared memory than the plan's model");
   static_assert((kForm != kPlaneForm && kForm != kSlabForm) || D == 1, "the one-level forms march depth 1");
   cudaError_t err = cudaFuncSetAttribute(jacobi_queue<D, kForm, kFrom, kTo>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -558,10 +835,19 @@ int march_io(const QArgs& a, int n, bool from, bool to, cudaStream_t st, Plan* p
 
 template <int D>
 int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t st, Plan* pl) {
+#if STP_JW_STORAGE
+  // bf16 storage: the wrap form's marches read and write f32 scratch between
+  // the first and the last
+  if (form == kWrapForm && from && to) return march<D, kWrapForm, true, true>(a, n, st, pl);
+  if (form == kWrapForm) return march_io<D, kWrapForm>(a, n, from, to, st, pl);
+#else
   if (form == kWrapForm) return march<D, kWrapForm, false, false>(a, n, st, pl);  // buffer to buffer
+#endif
   if (form == kRingForm) return march_io<D, kRingForm>(a, n, from, to, st, pl);
   if (form == kShellSlabs) return march_io<D, kShellSlabs>(a, n, from, to, st, pl);
+#if !STP_JW_STORAGE && !STP_JW_UNIT
   if (form == kMean6Form) return march_io<D, kMean6Form>(a, n, from, to, st, pl);
+#endif
   return march_io<D, kShell>(a, n, from, to, st, pl);
 }
 
@@ -610,6 +896,7 @@ QArgs wrap_args(const float* src, float* dst, int X, int Y, int Z, int hot_x, in
   return a;
 }
 
+#if !STP_JW_UNIT
 // The one-level forms' arguments: the plane form (s = o = 1, d2 over the
 // (Y - 2, Z - 2) interior) takes X, Y, Z >= 3, the slab form (s = o = 0,
 // d2 over (Y, Z)) X >= 2, the JAX kernels' contracts
@@ -646,6 +933,7 @@ int onelevel_plan(int form, int n, int X, int Y, int Z, int* info) {
   for (int j = 0; j < 9; ++j) info[j] = w[j];
   return 0;
 }
+#endif
 
 bool bad_jacobi_args(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int gx, bool ring, bool slabs) {
   return m < 1 || m > kMaxM || m > s || n < 1 || n > 65535 || 2 * s >= Xr || 2 * s >= Yr || 2 * s >= W ||
@@ -684,6 +972,7 @@ int levels_plan(QArgs a, int n, int m, int form, int* info) {
   return 0;
 }
 
+#if !STP_JW_STORAGE && !STP_JW_UNIT
 // The mean-of-6 form's arguments: the shell form's layout (W = Zr, o = s),
 // no d2, origins or slabs
 QArgs mean6_args(const float* raw, float* out, int Xr, int Yr, int Zr, int s) {
@@ -696,6 +985,7 @@ QArgs mean6_args(const float* raw, float* out, int Xr, int Yr, int Zr, int s) {
   a.s = a.o = s;
   return a;
 }
+#endif
 
 }  // namespace
 
@@ -737,6 +1027,7 @@ int stp_jacobi_wavefront_plan(int n, int Xr, int Yr, int Zraw, int W, int m, int
   return levels_plan(a, n, m, info[0], info + 1);
 }
 
+#if !STP_JW_STORAGE && !STP_JW_UNIT
 // m <= s mean-of-6 levels over n s-shelled blocks (n, Xr, Yr, Zr), `raw` to
 // `out` (apart): only the interior [s, ext - s) of `out` is written.
 // scratch: an (n, Xr, Yr, Zr) f32 buffer, required where m needs two marches
@@ -757,18 +1048,33 @@ int stp_mean6_march_plan(int n, int Xr, int Yr, int Zr, int m, int s, int* info)
   if (bad_jacobi_args(n, Xr, Yr, Zr, Zr, m, s, 1, false, false)) return -1;
   return levels_plan(mean6_args(nullptr, nullptr, Xr, Yr, Zr, s), n, m, kMean6Form, info);
 }
+#endif
 
 // k periodic Jacobi levels over the whole (X, Y, Z) domain, `in` to `out`
 // (in untouched): ceil(k/4) marches, ping-ponging through `scratch`, an (X,
 // Y, Z) f32 buffer required where k needs more than one march
-// (stp_jacobi_wrap_plan's launches), else ignored.  Returns a CUDA error
-// code, or -1 for arguments the kernel does not take.
+// (stp_jacobi_wrap_plan's launches), else ignored.  Under bf16 storage the
+// levels between marches stay f32: march j > 0 reads scratch buffer (j - 1)
+// % 2 and march j < q - 1 writes buffer j % 2, so `scratch` holds two (X, Y,
+// Z) f32 buffers from three marches on.  Returns a CUDA error code, or -1
+// for arguments the kernel does not take.
 int stp_jacobi_wrap(const float* in, float* out, float* scratch, int X, int Y, int Z, int k, int hot_x,
                     int cold_x, int in_r2, void* stream) {
   if (bad_wrap_args(X, Y, Z, k)) return -1;
   const int q = wrap_marches(k);
   if (q > 1 && (scratch == nullptr || scratch == in || scratch == out)) return -1;
   if (in == out) return -1;
+#if STP_JW_STORAGE
+  const int64_t cells = (int64_t)X * Y * Z;
+  for (int j = 0; j < q; ++j) {
+    QArgs a = wrap_args(in, out, X, Y, Z, hot_x, cold_x, in_r2);
+    a.src = j > 0 ? scratch + (j - 1) % 2 * cells : nullptr;
+    a.dst = j < q - 1 ? scratch + j % 2 * cells : nullptr;
+    const int rc = run_march(a, 1, wrap_depth(k, j), kWrapForm, j > 0, j < q - 1, (cudaStream_t)stream, nullptr);
+    if (rc != 0) return rc;
+  }
+  return 0;
+#else
   const float* src = in;
   for (int j = 0; j < q; ++j) {
     // the last march writes `out`, the one before it the scratch, and so on
@@ -779,6 +1085,7 @@ int stp_jacobi_wrap(const float* in, float* out, float* scratch, int X, int Y, i
     src = dst;
   }
   return 0;
+#endif
 }
 
 // The launches stp_jacobi_wrap makes for these arguments, into info[11]:
@@ -789,7 +1096,9 @@ int stp_jacobi_wrap_plan(int X, int Y, int Z, int k, int* info) {
   if (bad_wrap_args(X, Y, Z, k)) return -1;
   Plan pl;
   const int d1 = wrap_depth(k, 0);
-  const int rc = run_march(wrap_args(nullptr, nullptr, X, Y, Z, 0, 0, 0), 1, d1, kWrapForm, false, false, nullptr, &pl);
+  // the first march (under bf16 storage: to the scratch where more follow)
+  const bool to = STP_JW_STORAGE && wrap_marches(k) > 1;
+  const int rc = run_march(wrap_args(nullptr, nullptr, X, Y, Z, 0, 0, 0), 1, d1, kWrapForm, false, to, nullptr, &pl);
   if (rc != 0) return rc;
   const int w[11] = {wrap_marches(k), d1, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks,
                      pl.smem, pl.threads, pl.tiles_z, pl.tiles_y};
@@ -797,6 +1106,7 @@ int stp_jacobi_wrap_plan(int X, int Y, int Z, int k, int* info) {
   return 0;
 }
 
+#if !STP_JW_UNIT
 // One Jacobi level over n radius-1 shell-carrying blocks (n, X, Y, Z), `in`
 // to `out` (apart), every cell of `out` written: the interior computed, the
 // shell copied.  origins (n, 3), d2 (n, Y - 2, Z - 2).  Returns a CUDA error
@@ -840,6 +1150,7 @@ int stp_jacobi_slab(const float* in, float* out, const float* xlo, const float* 
 // along z and y.  Returns what the launch would.
 int stp_jacobi_plane_plan(int n, int X, int Y, int Z, int* info) { return onelevel_plan(kPlaneForm, n, X, Y, Z, info); }
 int stp_jacobi_slab_plan(int n, int X, int Y, int Z, int* info) { return onelevel_plan(kSlabForm, n, X, Y, Z, info); }
+#endif
 
 const char* stp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -146,6 +146,7 @@ class DistributedDomain:
         self._halo_mult = 1
         self._exchange_route_req: Optional[str] = None
         self._exchange_route = "direct"
+        self._storage = "native"
         self._realized = False
         self._shell_stale = False
         self.grid: Optional[SubdomainGrid] = None
@@ -245,17 +246,35 @@ class DistributedDomain:
         return route
 
     def set_storage(self, storage: str) -> None:
-        if storage != "native":
-            raise NotImplementedError(
-                f"storage dtype {storage!r} is not ported yet (ROADMAP.md queue 1 item 9)"
-            )
+        """Pin the fields' STORAGE dtype axis (``"native"`` | ``"bf16"``,
+        ``ops/jacobi_kernels.py`` ``STORAGE_DTYPES``; ``stencil_tpu/domain.py:
+        384-404``) before ``realize()``.  The models resolve the axis
+        (``resolve_storage_dtype``) and hand the result here.  Under ``bf16``
+        every f32 field is allocated as bfloat16, so every exchange route
+        moves 2-byte cells; the Jacobi kernels accumulate at f32 and round
+        once a pass (``f32_accumulate``), and readback upcasts to the native
+        dtype.  The stream engine does not run on a bf16 domain yet
+        (ROADMAP.md queue 1 item 9)."""
+        from stencil_tpu_torch.ops.jacobi_kernels import STORAGE_DTYPES
+
+        if storage not in STORAGE_DTYPES:
+            raise ValueError(f"unknown storage dtype {storage!r} (one of {STORAGE_DTYPES})")
+        assert not self._realized, "set_storage must precede realize()"
+        self._storage = storage
+
+    def storage_dtype(self) -> str:
+        """The storage axis: ``"native"`` or ``"bf16"``."""
+        return self._storage
 
     def size(self) -> Dim3:
         return self._size
 
     def field_dtype(self, h: DataHandle) -> torch.dtype:
-        """The storage dtype of ``h``'s buffers: its own dtype (only native
-        storage is ported, ROADMAP.md queue 1 item 9)."""
+        """The dtype ``h``'s buffers store: bfloat16 for an f32 field under
+        the bf16 storage axis, the field's own dtype otherwise
+        (``stencil_tpu/domain.py:410-416``)."""
+        if self._storage == "bf16" and h.dtype == torch.float32:
+            return torch.bfloat16
         return h.dtype
 
     # --- realize (src/stencil.cu:27-539) -------------------------------------
@@ -266,6 +285,20 @@ class DistributedDomain:
 
     def realize(self) -> None:
         self._radius.validate()
+        if self._storage == "bf16":
+            # the JAX package's gate (stencil_tpu/domain.py:519-534): the
+            # f32-accumulate passes upcast every quantity alike, so a domain
+            # with any non-f32 field keeps native storage whole
+            from stencil_tpu_torch.ops.jacobi_kernels import bf16_supported
+
+            if not bf16_supported([h.dtype for h in self._handles]):
+                warnings.warn(
+                    f"storage bf16 cannot engage: fields are {[str(h.dtype) for h in self._handles]}, "
+                    "not all float32; degrading to native storage",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+                self._storage = "native"
         self.grid = self.planned_grid()
         dim = self.grid.dim()
         # uneven sizes: pad each axis to ceil(size/dim); the LAST subdomain
@@ -305,11 +338,12 @@ class DistributedDomain:
         raw = self._spec.raw_size()
         for h in self._handles:
             shape = h.components + dim.tuple() + raw.tuple()
-            self._curr[h.name] = torch.zeros(shape, dtype=h.dtype, device=self.device)
-            self._next[h.name] = torch.zeros(shape, dtype=h.dtype, device=self.device)
+            self._curr[h.name] = torch.zeros(shape, dtype=self.field_dtype(h), device=self.device)
+            self._next[h.name] = torch.zeros(shape, dtype=self.field_dtype(h), device=self.device)
         self._realized = True
         log_info(f"realized {self._size} over grid {dim} (raw subdomain {raw}, shell lo {r.lo()} hi {r.hi()}, "
-                 f"route {self._exchange_route}{'' if oracle is None else f', method {self._methods}'})")
+                 f"route {self._exchange_route}{'' if oracle is None else f', method {self._methods}'}"
+                 f"{', storage bf16' if self._storage == 'bf16' else ''})")
 
     # --- geometry accessors ---------------------------------------------------
     def local_spec(self) -> LocalSpec:
@@ -414,8 +448,10 @@ class DistributedDomain:
         dim, n = self.grid.dim(), self._spec.sz
         # one contiguous copy to the device; the padding and the reorder
         # into blocks run there
-        padded = torch.zeros(h.components + (dim * n).tuple(), dtype=h.dtype, device=self.device)
+        padded = torch.zeros(h.components + (dim * n).tuple(), dtype=self.field_dtype(h), device=self.device)
         X, Y, Z = self._size.tuple()
+        # through the native dtype first, as the JAX package's _to_raw_global
+        # casts the user's array: one rounding to the storage dtype
         padded[..., :X, :Y, :Z] = torch.tensor(np.asarray(interior)).to(h.dtype).to(self.device)
         stack = self._slot(slot)[h.name]
         stack.zero_()
@@ -428,8 +464,9 @@ class DistributedDomain:
         out = self._to_global(self._interior_view(self._slot(slot)[h.name]))
         X, Y, Z = self._size.tuple()
         # a copy even on the CPU, where reshape may return a view of the
-        # live storage that the next step overwrites
-        return out[..., :X, :Y, :Z].to("cpu", copy=True).numpy()
+        # live storage that the next step overwrites; bf16 storage upcast to
+        # the native dtype (exact)
+        return out[..., :X, :Y, :Z].to("cpu", copy=True).to(h.dtype).numpy()
 
     def interior_to_host(self, h: DataHandle, slot: str = "curr") -> np.ndarray:
         """The whole interior (reference ``interior_to_host``,
@@ -464,7 +501,7 @@ class DistributedDomain:
                     src = tuple(slice(lo[a] + olo[a] - idx[a] * n[a], lo[a] + ohi[a] - idx[a] * n[a])
                                 for a in range(3))
                     dst = tuple(slice(olo[a] - r.lo[a], ohi[a] - r.lo[a]) for a in range(3))
-                    out[(Ellipsis,) + dst] = stack[(Ellipsis, ix, iy, iz) + src].cpu().numpy()
+                    out[(Ellipsis,) + dst] = stack[(Ellipsis, ix, iy, iz) + src].cpu().to(h.dtype).numpy()
         return out
 
     def mark_shell_stale(self) -> None:
@@ -479,7 +516,7 @@ class DistributedDomain:
         shell of the current slot is refreshed with one exchange first."""
         if self._shell_stale and slot == "curr":
             self.exchange()
-        return self._to_global(self._slot(slot)[h.name]).to("cpu", copy=True).numpy()
+        return self._to_global(self._slot(slot)[h.name]).to("cpu", copy=True).to(h.dtype).numpy()
 
     def set_raw(self, h: DataHandle, raw: np.ndarray) -> None:
         """Load the JAX package's raw global array ``(*components, px*Xr,
@@ -490,7 +527,7 @@ class DistributedDomain:
         if tuple(raw.shape) != want:
             raise ValueError(f"raw shape {raw.shape}, want {want}")
         src = torch.tensor(np.asarray(raw)).to(h.dtype).to(self.device)
-        stack.copy_(self._to_blocks(src, dim, ext))
+        stack.copy_(self._to_blocks(src, dim, ext))  # rounded to the storage dtype
         self._shell_stale = False
 
     def init_by_coords(self, h: DataHandle, fn) -> None:
@@ -506,6 +543,8 @@ class DistributedDomain:
             coords.append(origin + torch.arange(self._spec.sz[ax], device=self.device).view(shape))
         target = self._interior_view(self._curr[h.name])
         vals = torch.as_tensor(fn(*coords), device=self.device)
+        # the native dtype, then the storage dtype (one rounding, as the JAX
+        # package's init stores at field_dtype)
         target.copy_(vals.to(h.dtype).expand(target.shape))
 
     # --- the hot path ---------------------------------------------------------

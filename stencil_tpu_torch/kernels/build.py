@@ -6,7 +6,9 @@ library, built at first use into ``_build/`` inside the package (listed in
 kernels) is a ``csrc/<name>.cu`` whose line ``// @STP_GENERATED@`` takes a
 generated part, the traced user kernel's body that ``ops/stream_trace.py``
 emits; each (template, generated part) pair is written to ``_build/`` and
-becomes a library of its own.  Every build runs
+becomes a library of its own.  A VARIANT (``VARIANTS``: the kernel axes of
+``csrc/jacobi_wavefront.cu``) is a source built once more with defines, a
+library of its own beside the plain one.  Every build runs
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC --fmad=false -Xptxas -v
@@ -43,21 +45,45 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+#: the entries of every build of ``csrc/jacobi_wavefront.cu``, and of its
+#: vpu builds (the plane and slab forms)
+_JACOBI_MARCHES = {
+    "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
+    "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
+    "stp_jacobi_wrap": [_P] * 3 + [_I] * 7 + [_P],
+    "stp_jacobi_wrap_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+}
+_JACOBI_ONELEVEL = {
+    "stp_jacobi_plane": [_P] * 4 + [_I] * 8 + [_P],
+    "stp_jacobi_plane_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    "stp_jacobi_slab": [_P] * 10 + [_I] * 8 + [_P],
+    "stp_jacobi_slab_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+}
+
+#: builds of a source with defines, each a library of its own: name ->
+#: (source, defines).  ``csrc/jacobi_wavefront.cu``'s kernel axes
+#: (ops/jacobi_kernels.py ``library_name``): bf16 storage, and the
+#: tensor-core contraction on f32 (TF32 pieces) or bf16 operands, either
+#: storage
+VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "jacobi_wavefront_bf16": ("jacobi_wavefront", ("-DSTP_JW_STORAGE=1",)),
+    "jacobi_wavefront_mxu": ("jacobi_wavefront", ("-DSTP_JW_UNIT=1",)),
+    "jacobi_wavefront_mxu_bf16": ("jacobi_wavefront", ("-DSTP_JW_UNIT=1", "-DSTP_JW_STORAGE=1")),
+    "jacobi_wavefront_mxu16": ("jacobi_wavefront", ("-DSTP_JW_UNIT=2",)),
+    "jacobi_wavefront_mxu16_bf16": ("jacobi_wavefront", ("-DSTP_JW_UNIT=2", "-DSTP_JW_STORAGE=1")),
+}
+
 #: exported C functions per source, with their argument types (every pointer
 #: and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "jacobi_wavefront": {
-        "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
-        "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
-        "stp_jacobi_wrap": [_P] * 3 + [_I] * 7 + [_P],
-        "stp_jacobi_wrap_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
-        "stp_jacobi_plane": [_P] * 4 + [_I] * 8 + [_P],
-        "stp_jacobi_plane_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
-        "stp_jacobi_slab": [_P] * 10 + [_I] * 8 + [_P],
-        "stp_jacobi_slab_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+        **_JACOBI_MARCHES,
+        **_JACOBI_ONELEVEL,
         "stp_mean6_march": [_P] * 3 + [_I] * 6 + [_P],
         "stp_mean6_march_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     },
+    "jacobi_wavefront_bf16": {**_JACOBI_MARCHES, **_JACOBI_ONELEVEL},
+    **{name: dict(_JACOBI_MARCHES) for name in VARIANTS if "mxu" in name},
     "pack": {
         # descriptor entries: the address of a cached int64 descriptor, two
         # data pointers, the stream (ops/pack.py, ops/halo_blend.py)
@@ -130,31 +156,37 @@ def find_nvcc() -> str:
 
 
 def source_path(name: str) -> str:
-    return os.path.join(CSRC_DIR, f"{name}.cu")
+    return os.path.join(CSRC_DIR, f"{VARIANTS.get(name, (name,))[0]}.cu")
 
 
-def _digest(text: bytes) -> str:
-    return hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def variant_flags(name: str) -> Tuple[str, ...]:
+    """The defines a build adds to ``NVCC_FLAGS`` (none but for ``VARIANTS``)."""
+    return VARIANTS.get(name, (name, ()))[1]
+
+
+def _digest(text: bytes, extra: Sequence[str] = ()) -> str:
+    return hashlib.sha256(text + " ".join((*NVCC_FLAGS, *extra)).encode()).hexdigest()[:16]
 
 
 def library_path(name: str) -> str:
     with open(source_path(name), "rb") as f:
-        return os.path.join(BUILD_DIR, f"lib{name}-{_digest(f.read())}.so")
+        return os.path.join(BUILD_DIR, f"lib{name}-{_digest(f.read(), variant_flags(name))}.so")
 
 
-def _compile(jobs: Sequence[Tuple[str, str, str]]) -> None:
-    """Run one nvcc per ``(label, source, library)`` job whose library is not
-    built yet, all started together, and wait for all of them."""
+def _compile(jobs: Sequence[Tuple]) -> None:
+    """Run one nvcc per ``(label, source, library[, defines])`` job whose
+    library is not built yet, all started together, and wait for all of
+    them."""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = {}
-    for label, src, so in jobs:
+    for label, src, so, *extra in jobs:
         if os.path.exists(so):
             # keep the record of the build that made it, if this process did
             BUILD_LOG.setdefault(label, {"seconds": 0.0, "cached": True, "output": ""})
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc, *NVCC_FLAGS, *(extra[0] if extra else ()), "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[label] = (proc, time.perf_counter(), tmp, so, src)
     errors = []
@@ -182,7 +214,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if name not in SIGNATURES:
             raise KeyError(f"unknown kernel source {name!r} (one of {SOURCES})")
     paths = {name: library_path(name) for name in names}
-    _compile([(name, source_path(name), paths[name]) for name in names])
+    _compile([(name, source_path(name), paths[name], variant_flags(name)) for name in names])
     return paths
 
 

@@ -6,7 +6,9 @@ names the port's wrapper (which launches the hand-written kernel on CUDA
 tensors), its plain PyTorch version, the CUDA source and the line of the TPU
 kernel it replaces.  Every entry is ported.  ``FORMS`` lists the forms of a
 ported kernel that count their launches apart (the fused forms of the stream
-plane and wavefront kernels), by the wrapper's counter that counts them.
+plane and wavefront kernels; the Jacobi kernels' bf16-storage and
+tensor-core forms, ``ops/jacobi_kernels.py`` ``form_counter``), by the
+wrapper's counter that counts them.
 """
 
 from __future__ import annotations
@@ -124,6 +126,12 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
 FORMS: Dict[str, Tuple[Tuple[str, str], str]] = {
     "stream_plane_pass_fused": ((_ST, "stream_plane_pass"), "fused_launches"),
     "stream_wavefront_pass_fused": ((_ST, "stream_wavefront_pass"), "fused_launches"),
+    # the Jacobi kernels' axes: bf16 storage (vpu), and the tensor-core
+    # contraction on f32 / bf16 operands (either storage)
+    **{f"{fn}_{form}": ((_JP, fn), f"{form}_launches")
+       for fn in ("jacobi_wrap_step", "jacobi_zring_wavefront_step", "jacobi_shell_wavefront_step")
+       for form in ("bf16", "mxu", "mxu_bf16in")},
+    **{f"{fn}_bf16": ((_JP, fn), "bf16_launches") for fn in ("jacobi_plane_step", "jacobi_slab_step")},
 }
 
 

@@ -27,6 +27,16 @@ Engines (``kernel_impl``):
   gathered from the neighbours and ONE ``jacobi_slab_step`` launch per step,
   with no halo written.
 
+The kernel axes (``stencil_tpu/models/jacobi.py:57-103``): ``compute_unit``
+(``vpu``, or ``mxu`` / ``mxu_band``, the in-plane sums on the tensor cores)
+with ``mxu_input`` (``f32`` | ``bf16`` operands), and ``storage_dtype``
+(``native`` | ``bf16``: the field stored as bfloat16, the kernels
+accumulating at f32 and rounding once a pass).  Each resolves explicit >
+static (``ops/jacobi_kernels.py``); the storage axis before allocation.  The
+``wrap`` and ``wavefront`` routes take both; ``shell`` and ``slab`` have no
+contraction kernel, so they degrade ``mxu`` to ``vpu`` with a warning and
+take bf16 storage; the torch engine degrades both axes with a warning.
+
 Uneven sizes (padded subdomains, ``DistributedDomain``) run on the torch
 engine, on ``shell`` and on the wavefront in its plain form (every axis
 exchanged in the array), as in the JAX package: each exchange writes the +axis
@@ -51,13 +61,19 @@ from stencil_tpu_torch.ops.captured import Loop, as_step, window_loop
 from stencil_tpu_torch.ops.exchange import halo_exchange_shard, shift_from_high, shift_from_low
 from stencil_tpu_torch.ops.jacobi_kernels import (
     _ZRING_OFF,
+    COMPUTE_UNITS,
     choose_temporal_k,
     jacobi_plane_step,
     jacobi_shell_wavefront_step,
     jacobi_slab_step,
     jacobi_wrap_step,
     jacobi_zring_wavefront_step,
+    mxu_flops_per_plane,
     pack_d2,
+    resolve_compute_unit,
+    resolve_mxu_input,
+    resolve_storage_dtype,
+    unit_uses_mxu,
     wavefront_auto_depth,
     wavefront_smem_bytes,
     wavefront_smem_fits,
@@ -92,8 +108,9 @@ class Jacobi3D:
         z_ring: bool = None,  # wavefront: z-ring layout where it applies
         # (None = yes); False keeps the z shell columns in the array
         wavefront_alias: bool = None,  # in-place wavefront: refused
-        compute_unit: str = None,  # only the vpu form is ported
-        storage_dtype: str = None,  # only native storage is ported
+        compute_unit: str = None,  # "vpu" | "mxu" | "mxu_band" | None/"auto" (vpu)
+        mxu_input: str = None,  # the contraction's operands: "f32" | "bf16" | None/"auto" (f32)
+        storage_dtype: str = None,  # "native" | "bf16" | None/"auto" (native)
         device="cuda",
         capture: bool = False,  # run steps as captured CUDA graphs (dd.set_capture)
     ):
@@ -117,14 +134,6 @@ class Jacobi3D:
                 "independently, so an in-place write can land before a neighbouring "
                 "tile reads it (ROADMAP.md, deliberate differences)"
             )
-        if compute_unit not in (None, "auto", "vpu"):
-            raise NotImplementedError(
-                f"compute_unit={compute_unit!r} is not ported yet (ROADMAP.md queue 1 item 9)"
-            )
-        if storage_dtype not in (None, "auto", "native"):
-            raise NotImplementedError(
-                f"storage_dtype={storage_dtype!r} is not ported yet (ROADMAP.md queue 1 item 9)"
-            )
         if kernel_impl == "cuda" and self.h.dtype != torch.float32:
             raise NotImplementedError(
                 f"the CUDA kernels take float32 fields, got {self.h.dtype} (ROADMAP.md queue 1 item 9)"
@@ -134,6 +143,14 @@ class Jacobi3D:
         self.temporal_k = temporal_k
         self.pallas_path_request = pallas_path
         self.z_ring_request = z_ring
+        self.compute_unit_request = compute_unit
+        self.mxu_input_request = mxu_input
+        self.storage_dtype_request = storage_dtype
+        # the resolved axes (realize() and the step builders fill them in)
+        self._compute_unit = "vpu"
+        self._mxu_input = "f32"
+        self._storage_dtype = "native"
+        self._mxu_flops_iter = 0  # the JAX package's FLOP model of the contraction, a raw iteration
         self._step = None
         # which route realize() picked: "wrap" | "slab" | "shell" | "wavefront" (None on
         # the torch engine); the wavefront's depth and form
@@ -144,6 +161,14 @@ class Jacobi3D:
 
     def realize(self) -> None:
         self._wavefront_m = 0
+        # the storage axis first: it shapes the allocation
+        self._resolve_storage()
+        if self.kernel_impl == "torch":
+            # the torch engine has no contraction kernel (the storage axis
+            # degraded above)
+            self._compute_unit = resolve_compute_unit(
+                self.compute_unit_request, [self.h.dtype], where="jacobi:torch", engine_ok=False,
+                engine_why="the torch engine has no contraction kernels")[0]
         if self.kernel_impl == "cuda" and self.pallas_path_request in ("auto", "wavefront"):
             # decided BEFORE dd.realize(): the wavefront rides the halo
             # multiplier (m-wide shells), which shapes the allocation
@@ -176,6 +201,39 @@ class Jacobi3D:
         else:
             self._step = self.dd.make_step(self._kernel, overlap=self.overlap)
 
+    def _resolve_storage(self) -> None:
+        """The storage axis (the JAX package's ``_resolve_storage``,
+        models/jacobi.py:200-228), pinned on the domain before allocation:
+        the explicit request, else native; the torch engine has no
+        f32-accumulate kernels and degrades bf16 to native."""
+        sd, _ = resolve_storage_dtype(
+            self.storage_dtype_request, [self.h.dtype], where=f"jacobi:{self.kernel_impl}",
+            engine_ok=self.kernel_impl == "cuda", engine_why="the torch engine has no f32-accumulate kernels")
+        self._storage_dtype = sd
+        if sd != "native":
+            self.dd.set_storage(sd)
+
+    def _resolve_unit(self, where: str) -> dict:
+        """The compute unit and operand precision of a route with a
+        contraction kernel (``wrap``, ``wavefront``), and the kernels'
+        keywords for them and the storage axis."""
+        unit, _ = resolve_compute_unit(self.compute_unit_request, [self.h.dtype], where=where)
+        mi, _ = resolve_mxu_input(self.mxu_input_request, unit, where=where)
+        self._compute_unit, self._mxu_input = unit, mi
+        return {"compute_unit": unit, "mxu_input": mi, "f32_accumulate": self._f32_accumulate()}
+
+    def _resolve_unit_no_contraction(self, where: str) -> None:
+        """The routes without a contraction kernel (``shell``, ``slab``;
+        models/jacobi.py:909-925): any mxu request degrades to vpu with a
+        warning."""
+        self._compute_unit = resolve_compute_unit(
+            self.compute_unit_request, [self.h.dtype], where=where, engine_ok=False,
+            engine_why="the slab/shell routes have no contraction kernels")[0]
+        self._mxu_flops_iter = 0
+
+    def _f32_accumulate(self) -> bool:
+        return self.dd.field_dtype(self.h) != self.h.dtype
+
     def _make_cuda_step(self):
         dd = self.dd
         want = self.pallas_path_request
@@ -196,13 +254,17 @@ class Jacobi3D:
         if want == "wrap" or (want == "auto" and single):
             self._pallas_path = "wrap"
             k = choose_temporal_k(n.tuple(), self.temporal_k)
+            kw = self._resolve_unit("jacobi-wrap")
+            if unit_uses_mxu(kw["compute_unit"]):
+                self._mxu_flops_iter = mxu_flops_per_plane(n.y, n.z, kw["compute_unit"]) * n.x
             inner = (0, 0, 0, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
 
             # the interior is worked on in two (X, Y, Z) buffers, k levels a
             # body; each level's arithmetic is the same whatever the split
             # into calls, so (blocked, remainder) is bitwise equal to k=1 calls
+            # (under bf16 storage, a call rounds once: k levels a rounding)
             def wrap_body(cur, nxt, depth):
-                jacobi_wrap_step(cur.fields[0], depth, out=nxt.fields[0])
+                jacobi_wrap_step(cur.fields[0], depth, out=nxt.fields[0], **kw)
 
             step = as_step(window_loop([name], k, wrap_body, inner))
             step._marks_shell_stale = True
@@ -217,6 +279,8 @@ class Jacobi3D:
             return self._make_slab_step(origins, yz_d2)
 
         self._pallas_path = "shell"
+        self._resolve_unit_no_contraction("jacobi-shell")
+        f32_acc = self._f32_accumulate()
         shell = dd.shell_radius()
         valid_last = dd.valid_last()
 
@@ -226,7 +290,8 @@ class Jacobi3D:
             stack = cur.fields[0]
             halo_exchange_shard(stack, shell, valid_last)
             blocks = stack.view(-1, *stack.shape[3:])
-            jacobi_plane_step(blocks, origins, yz_d2, gsize, out=nxt.fields[0].view(blocks.shape))
+            jacobi_plane_step(blocks, origins, yz_d2, gsize, out=nxt.fields[0].view(blocks.shape),
+                              f32_accumulate=f32_acc)
 
         return as_step(Loop([name], 1, shell_body))
 
@@ -245,6 +310,8 @@ class Jacobi3D:
         count = dd.num_subdomains()
         gsize = dd.size().tuple()
         self._pallas_path = "slab"
+        self._resolve_unit_no_contraction("jacobi-slab")
+        f32_acc = self._f32_accumulate()
         inner = (Ellipsis, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
 
         def batch(t):  # (px, py, pz, ...) -> (n, ...): one launch serves all
@@ -259,7 +326,7 @@ class Jacobi3D:
                 shift_from_low(b[..., n.z - 1], 2), shift_from_high(b[..., 0], 2),
             )
             jacobi_slab_step(batch(b), *(batch(f) for f in faces), origins, yz_d2, gsize,
-                             out=batch(nxt.fields[0]))
+                             out=batch(nxt.fields[0]), f32_accumulate=f32_acc)
 
         step = as_step(window_loop([name], 1, slab_body, inner))
         step._marks_shell_stale = True
@@ -275,8 +342,10 @@ class Jacobi3D:
         counterpart of the VMEM model).  m >= 2 plans the z-slab forms, m = 1
         the plain form, as in the JAX package; padded (uneven) subdomains plan
         the plain form at any depth, capped by the smallest valid extent
-        (models/jacobi.py:234-241).  (Its tune cache and its MXU and bf16 axes
-        are not ported: ROADMAP.md queue 1 items 9 and 11.)"""
+        (models/jacobi.py:234-241).  The depth model prices the requested
+        contraction unit (``wavefront_smem_bytes``), as the JAX package
+        prices its prospective unit; its tune cache is ROADMAP.md queue 1
+        item 11."""
         dd = self.dd
         if dd.halo_multiplier() != 1:
             raise ValueError("pallas_path='wavefront' manages the halo multiplier itself")
@@ -291,22 +360,25 @@ class Jacobi3D:
                 f"pallas_path='wavefront': empty last shard for {tuple(size)} over {tuple(dim)}"
             )
         n_min = min(min(n), min(v))
+        # the prospective unit (the build resolves it, with its warnings)
+        req = self.compute_unit_request
+        unit = req if req in COMPUTE_UNITS else "vpu"
         if self.temporal_k != "auto":
             m = int(self.temporal_k)
             if not 1 <= m <= n_min:
                 raise ValueError(
                     f"wavefront temporal_k={m} needs 1 <= m <= min(shard/valid)={n_min}"
                 )
-            if not wavefront_smem_fits(m):
+            if not wavefront_smem_fits(m, unit):
                 raise ValueError(
-                    f"wavefront temporal_k={m} needs {wavefront_smem_bytes(m)} bytes of shared "
+                    f"wavefront temporal_k={m} needs {wavefront_smem_bytes(m, unit)} bytes of shared "
                     "memory per block, more than the H100 grants one block"
                 )
             # the z-slab forms' emit slices sit at the interior z boundary,
             # so padded subdomains take the plain form
             self._wavefront_z_planned = not padded
             return m
-        m = wavefront_auto_depth(n_min)
+        m = wavefront_auto_depth(n_min, unit)
         self._wavefront_z_planned = m >= 2 and not padded
         return m
 
@@ -342,6 +414,10 @@ class Jacobi3D:
         z_slab_mode = self._wavefront_z_planned
         ring_pref = True if self.z_ring_request is None else bool(self.z_ring_request)
         z_ring_mode = z_slab_mode and n.z % 128 == 0 and 2 * m <= _ZRING_OFF and ring_pref
+        kw = self._resolve_unit("jacobi-wavefront")
+        if unit_uses_mxu(kw["compute_unit"]):
+            plane_z = _ZRING_OFF + n.z if z_ring_mode else Zr
+            self._mxu_flops_iter = mxu_flops_per_plane(Yr, plane_z, kw["compute_unit"]) * Xr * count
         self._pallas_path = "wavefront"
         self._wavefront_z_slabs = z_slab_mode
         self._wavefront_z_ring = z_ring_mode
@@ -374,7 +450,7 @@ class Jacobi3D:
                 zs = permute_and_extend_z_slabs(cur.extra[0], m, yext, xext)
                 jacobi_zring_wavefront_step(batch(b), depth, origins, d2, gsize, z_slabs=batch(zs),
                                             interior_offset=m, out=batch(nxt.fields[0]),
-                                            z_out=batch(nxt.extra[0]))
+                                            z_out=batch(nxt.extra[0]), **kw)
 
             loop = Loop(
                 [name], m, ring_body, resume=True, extra=zslabs, enter=ring_enter,
@@ -395,12 +471,12 @@ class Jacobi3D:
                     zs = permute_and_extend_z_slabs(cur.extra[0], m, yext, xext)
                     jacobi_shell_wavefront_step(
                         batch(b), depth, origins, d2, gsize, interior_offset=m, z_slabs=batch(zs),
-                        z_valid=Zr, out=batch(nxt.fields[0]), z_out=batch(nxt.extra[0]),
+                        z_valid=Zr, out=batch(nxt.fields[0]), z_out=batch(nxt.extra[0]), **kw,
                     )
                 else:
                     halo_exchange_shard(b, shell, valid_last)
                     jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize, interior_offset=m,
-                                                out=batch(nxt.fields[0]))
+                                                out=batch(nxt.fields[0]), **kw)
 
             # the stack and a spare, ping-ponged
             loop = Loop(

@@ -1,11 +1,12 @@
 """Jacobi level kernels: ``jacobi_wrap_step``, ``jacobi_plane_step``,
 ``jacobi_slab_step``, ``jacobi_shell_wavefront_step``,
-``jacobi_zring_wavefront_step`` and their plain versions.
+``jacobi_zring_wavefront_step`` and their plain versions, with the kernel
+axes of ``stencil_tpu/ops/jacobi_pallas.py``.
 
-Counterpart of ``stencil_tpu/ops/jacobi_pallas.py`` in its ``vpu``/native f32
-form.  On a CUDA tensor each wrapper launches its hand-written kernel, a
-form of the register-queue march of ``csrc/jacobi_wavefront.cu``; on a CPU
-tensor it runs the plain PyTorch version.
+Counterpart of ``stencil_tpu/ops/jacobi_pallas.py``.  On a CUDA tensor each
+wrapper launches its hand-written kernel, a form of the register-queue
+march of ``csrc/jacobi_wavefront.cu``; on a CPU tensor it runs the plain
+PyTorch version.
 
 Semantics, per level, match ``Jacobi3D._kernel`` of the JAX package: mean of
 the six face neighbours, then the hot and cold sphere clamps.  Two details
@@ -16,11 +17,33 @@ make the port bitwise equal to the TPU kernels:
 * the mean is ``sum * SIXTH`` with ``SIXTH = float32(1/6)``: XLA compiles
   the JAX source's ``sum / 6.0`` as that multiply, and a true divide differs
   by 1 ulp on some cells.
+
+The kernel axes (jacobi_pallas.py:39-250):
+
+* ``compute_unit``: ``vpu``, the left fold above; ``mxu`` and ``mxu_band``
+  sum a level as ``(x-1 + x+1) + (ysum + zsum)``, the in-plane pairs
+  contracted against the ``(2r+1)``-band (``_make_level_sum``,
+  jacobi_pallas.py:498-526).  On the card both run one tensor-core
+  contraction of a tile and its apron against the band's nonzeros
+  (``mma.sync``, f32 accumulation); ``plane_band_unit`` still decides which
+  of the two names a build reports.  With ``mxu_input="f32"`` each operand
+  runs as three exact TF32 pieces, with ``"bf16"`` it is rounded to
+  bfloat16 once a read.  The wrap, wavefront and z-ring kernels take it;
+  the plane and slab kernels have no contraction form.
+* ``f32_accumulate``: a bfloat16 block (``storage_dtype="bf16"``) is
+  upcast at load, every level runs at f32, and the last store rounds once
+  to bfloat16 (round to nearest even), as ``astype(bfloat16)`` does
+  (jacobi_pallas.py:960-966).  Every form takes it.
+
+Precedence of the axes is explicit > static (the JAX package's env knobs and
+tune cache are ROADMAP.md queue 1 items 10-11); a structural degrade warns
+with a ``RuntimeWarning``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -62,6 +85,266 @@ SMEM_PER_BLOCK = 232_448
 #: (``kSubDepth``): deeper calls run as two marches through a scratch buffer
 WAVEFRONT_SUB_DEPTH = 4
 
+#: the row pitch, in cells, of a tensor-core build's shared planes
+#: (``kMxuPitch``): 8 more than the tile's 64 columns, so that the fragment
+#: loads and stores hit every bank once
+MXU_PITCH = 72
+
+
+# --- the kernel axes (jacobi_pallas.py:39-250) ---------------------------------
+
+#: the compute-unit axis: ``vpu`` the left fold of six neighbours (the
+#: default, bitwise-pinned); ``mxu`` and ``mxu_band`` the in-plane pairs
+#: contracted against the band on the tensor cores
+COMPUTE_UNITS = ("vpu", "mxu", "mxu_band")
+
+#: the units that contract: every gate goes through ``unit_uses_mxu``
+MXU_UNITS = ("mxu", "mxu_band")
+
+#: the contraction operands' precision: ``f32`` (three exact TF32 pieces on
+#: the card) or ``bf16`` (one round to nearest a read); the band's 0/1/2
+#: entries are exact either way and the accumulator is f32
+MXU_INPUTS = ("f32", "bf16")
+
+#: the storage axis: ``native`` keeps the field's dtype, ``bf16`` stores
+#: f32 fields as bfloat16 while the kernels accumulate at f32
+STORAGE_DTYPES = ("native", "bf16")
+
+
+def unit_uses_mxu(compute_unit: str) -> bool:
+    """True for the units that contract on the tensor cores."""
+    return compute_unit in MXU_UNITS
+
+
+def _dtype(dt) -> torch.dtype:
+    if isinstance(dt, torch.dtype):
+        return dt
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dt))).dtype
+
+
+def mxu_supported(compute_dtypes) -> bool:
+    """The contraction forms need every field to compute at f32: the
+    tensor cores accumulate at f32, so an f64 field would lose precision
+    and an integer field has no contraction form.  A bf16 STORAGE field
+    computes at f32 and qualifies."""
+    return all(_dtype(dt) == torch.float32 for dt in compute_dtypes)
+
+
+def bf16_supported(native_dtypes) -> bool:
+    """bf16 storage narrows f32 fields only (one round to nearest of at
+    most 2^-9 relative a store); f64 and integer fields stay native."""
+    return all(_dtype(dt) == torch.float32 for dt in native_dtypes)
+
+
+def _resolve_axis_value(request, choices, static: str):
+    """Explicit > static: ``(value, source)`` before the structural gates."""
+    if request not in (None, "auto"):
+        if request not in choices:
+            raise ValueError(f"unknown value {request!r} (one of {choices})")
+        return request, "explicit"
+    return static, "static"
+
+
+def _degrade(msg: str) -> None:
+    warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def resolve_compute_unit(request, compute_dtypes, where: str = "kernel", engine_ok: bool = True,
+                         engine_why: str = "this engine has no contraction kernel"):
+    """The compute unit of one kernel build: the explicit request, else
+    ``vpu``; a contraction the kernels cannot serve (non-f32 compute dtypes,
+    an engine without a contraction kernel) degrades to ``vpu`` with a
+    warning.  Returns ``(unit, source)``."""
+    val, source = _resolve_axis_value(request, COMPUTE_UNITS, "vpu")
+    if unit_uses_mxu(val) and not (engine_ok and mxu_supported(compute_dtypes)):
+        why = engine_why if not engine_ok else (
+            f"fields compute at {[str(_dtype(d)).replace('torch.', '') for d in compute_dtypes]}, not f32")
+        _degrade(f"compute_unit={val} ({source}) cannot engage for {where} ({why}); degrading to vpu")
+        val, source = "vpu", source + "/degraded"
+    return val, source
+
+
+def resolve_storage_dtype(request, native_dtypes, where: str = "kernel", engine_ok: bool = True,
+                          engine_why: str = "this engine accumulates at the storage dtype"):
+    """The storage axis of one model build: the explicit request, else
+    ``native``; ``bf16`` on non-f32 fields or on an engine without
+    f32-accumulate kernels degrades to ``native`` with a warning.  Returns
+    ``(storage, source)``."""
+    val, source = _resolve_axis_value(request, STORAGE_DTYPES, "native")
+    if val == "bf16" and not (engine_ok and bf16_supported(native_dtypes)):
+        why = engine_why if not engine_ok else (
+            f"fields are {[str(_dtype(d)).replace('torch.', '') for d in native_dtypes]}, not f32")
+        _degrade(f"storage_dtype=bf16 ({source}) cannot engage for {where} ({why}); degrading to native")
+        val, source = "native", source + "/degraded"
+    return val, source
+
+
+def resolve_mxu_input(request, compute_unit: str, where: str = "kernel"):
+    """The contraction operands' precision: the explicit request, else
+    ``f32``; ``bf16`` under a unit that does not contract has nothing to
+    feed and degrades to ``f32`` with a warning.  Returns ``(value,
+    source)``."""
+    val, source = _resolve_axis_value(request, MXU_INPUTS, "f32")
+    if val == "bf16" and not unit_uses_mxu(compute_unit):
+        _degrade(f"mxu_input=bf16 ({source}) has no effect for {where}: the resolved compute unit is "
+                 f"{compute_unit!r} (no contraction to feed); using f32")
+        val, source = "f32", source + "/degraded"
+    return val, source
+
+
+def band_matrix(n: int, dtype=torch.float32, r: int = 1) -> torch.Tensor:
+    """The ``(n, n)`` circulant ``(2r+1)``-band: ``(B @ v)[i] = sum over d
+    = 1..r of v[(i-d) % n] + v[(i+d) % n]``, the roll pair as one matmul.
+    Built as a sum of shift matrices, so a short axis keeps the double
+    count of the rolls (n = 2, r = 1: entries 2)."""
+    i = torch.arange(n)
+    d = (i[:, None] - i[None, :]) % n
+    out = torch.zeros((n, n), dtype=dtype)
+    for off in range(1, r + 1):
+        out = out + (d == off % n).to(dtype) + (d == (n - off) % n).to(dtype)
+    return out
+
+
+def band_tile_size(n: int, r: int = 1):
+    """The band-tile granule of an axis of extent ``n`` under ``mxu_band``,
+    or None: a divisor ``g`` of ``n`` with ``g >= 2r+1`` and ``3g < n``,
+    the smallest multiple of 8 among them, else the smallest."""
+    divs = [d for d in range(max(2 * r + 1, 2), n) if n % d == 0 and 3 * d < n]
+    for d in divs:
+        if d % 8 == 0:
+            return d
+    return divs[0] if divs else None
+
+
+def band_tile_plan(plane_y: int, plane_z: int, r: int = 1):
+    """``(gy, gz)`` granules of a (Y, Z) plane, or None when either axis
+    admits none: the band form engages on the whole plane or not at all."""
+    gy = band_tile_size(plane_y, r)
+    gz = band_tile_size(plane_z, r)
+    if gy is None or gz is None:
+        return None
+    return gy, gz
+
+
+def band_wide_tile(g: int, r: int = 1, dtype=torch.float32) -> torch.Tensor:
+    """The ``(g, 3g)`` wide tile ``[L | D | U]`` of the blocked band matmul:
+    ``W[p, j] = 1`` iff ``1 <= |p + g - j| <= r``, column ``j`` addressing
+    position ``j - g`` from the output block's start."""
+    p = torch.arange(g)[:, None]
+    j = torch.arange(3 * g)[None, :]
+    d = (p + g - j).abs()
+    return ((d >= 1) & (d <= r)).to(dtype)
+
+
+def plane_band_unit(compute_unit: str, plane_y: int, plane_z: int, r: int = 1, where: str = "kernel") -> str:
+    """The variant a build of one plane geometry reports: ``mxu_band`` on a
+    plane that admits no band tile degrades to ``mxu`` with a warning.  On
+    the card both run the same tile contraction over the band's nonzeros."""
+    if compute_unit == "mxu_band" and band_tile_plan(plane_y, plane_z, r) is None:
+        _degrade(f"compute_unit=mxu_band cannot tile a ({plane_y}, {plane_z}) plane at r={r} for {where} "
+                 "(no admissible granule divides both extents); running the dense mxu form")
+        return "mxu"
+    return compute_unit
+
+
+def _operand(c: torch.Tensor, mxu_input: str) -> torch.Tensor:
+    """The contraction operand: ``c`` at f32, or rounded to bfloat16 once
+    (to nearest even) and held at f32, which a product with the exact band
+    entries leaves as it is."""
+    return c.to(torch.bfloat16).float() if mxu_input == "bf16" else c
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An f32 matmul at full f32 on the card too: TF32 is switched off (it
+    is off by default) before the first product on a CUDA tensor."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.matmul(a, b)
+
+
+def _nbr_sum(c: torch.Tensor, mxu_input: str, r: int = 1) -> torch.Tensor:
+    """``ysum + zsum`` of every ``(Y, Z)`` plane of ``c`` (the last two
+    axes): the ``(2r+1)``-band contracted over y and over z, periodic, f32
+    products and f32 accumulation (the dense circulants; at r = 1 the band
+    form sums the same two values an axis, zeros adding exactly)."""
+    Y, Z = c.shape[-2:]
+    cc = _operand(c, mxu_input)
+    by = band_matrix(Y, c.dtype, r).to(c.device)
+    bz = band_matrix(Z, c.dtype, r).to(c.device)
+    return _matmul(by, cc) + _matmul(cc, bz)
+
+
+def plane_nbr_sum_host(c: torch.Tensor, compute_unit: str, r: int = 1, mxu_input: str = "f32") -> torch.Tensor:
+    """The in-plane ``(2r+1)``-band neighbour sum of a ``(Y, Z)`` plane
+    under one compute unit (jacobi_pallas.py:475): ``vpu`` the roll chain,
+    ``mxu`` the dense circulants ``B_Y @ c + c @ B_Z``, ``mxu_band`` the
+    blocked form, each output granule block against the wide tile over its
+    three neighbour blocks."""
+    Y, Z = c.shape
+    if compute_unit == "vpu":
+        out = torch.zeros_like(c)
+        for off in range(1, r + 1):
+            out = out + torch.roll(c, off, 0) + torch.roll(c, -off, 0) + torch.roll(c, off, 1) + torch.roll(c, -off, 1)
+        return out
+    unit = plane_band_unit(compute_unit, Y, Z, r, where="host")
+    if unit == "mxu":
+        return _nbr_sum(c, mxu_input, r)
+    cc = _operand(c, mxu_input)
+    gy, gz = band_tile_plan(Y, Z, r)
+    wy = band_wide_tile(gy, r, c.dtype).to(c.device)
+    wz = band_wide_tile(gz, r, c.dtype).to(c.device).T
+    c3 = cc.reshape(Y // gy, gy, Z)
+    ext = torch.cat([torch.roll(c3, 1, 0), c3, torch.roll(c3, -1, 0)], dim=1)  # (nby, 3gy, Z)
+    ysum = _matmul(wy, ext).reshape(Y, Z)
+    c3z = cc.reshape(Y, Z // gz, gz)
+    extz = torch.cat([torch.roll(c3z, 1, 1), c3z, torch.roll(c3z, -1, 1)], dim=2)  # (Y, nbz, 3gz)
+    zsum = _matmul(extz, wz).reshape(Y, Z)
+    return ysum + zsum
+
+
+def _check_compute_unit(compute_unit: str, acc_dtype) -> None:
+    """A kernel reached with a contraction on a non-f32 accumulator is a
+    wiring fault (the resolvers degrade such requests before a build)."""
+    if compute_unit not in COMPUTE_UNITS:
+        raise ValueError(f"unknown compute unit {compute_unit!r} (one of {COMPUTE_UNITS})")
+    if unit_uses_mxu(compute_unit) and _dtype(acc_dtype) != torch.float32:
+        raise AssertionError(
+            "mxu contraction requires an f32 accumulator; the resolver should have degraded this "
+            f"build (got {acc_dtype})"
+        )
+
+
+def mxu_flops_per_plane(plane_y: int, plane_z: int, compute_unit: str = "mxu", r: int = 1) -> int:
+    """The JAX package's FLOP model of one level over one (Y, Z) plane
+    (jacobi_pallas.py:541): dense ``2Y^2 Z + 2Y Z^2``; band ``6 gy Y Z + 6 gz
+    Y Z``.  The card's contraction issues ``tensor_core_flops_per_cell``
+    a tile cell instead."""
+    if compute_unit == "mxu_band":
+        plan = band_tile_plan(plane_y, plane_z, r)
+        if plan is not None:
+            gy, gz = plan
+            return 6 * gy * plane_y * plane_z + 6 * gz * plane_y * plane_z
+    return 2 * plane_y * plane_y * plane_z + 2 * plane_y * plane_z * plane_z
+
+
+def tensor_core_flops_per_cell(mxu_input: str = "f32") -> int:
+    """Tensor-core FLOPs the card's contraction issues a tile cell and level
+    (apron cells included, the tile's average), each ``mma.sync`` counted at
+    2 m n k.  A warp contracts a 16 x 16 quarter of the 32 x 64 tile as two
+    16 x 8 outputs a sum: over y against the row chunks that hold rows
+    r0 - 1 .. r0 + 16, over z against the column chunks that hold columns
+    z0 - 1 .. z0 + 8, chunks inside the tile only.  f32 inputs: chunks of 8
+    in m16n8k8 TF32 products, three pieces each; bf16 inputs: chunks of 16
+    in m16n8k16 products (``csrc/jacobi_wavefront.cu``)."""
+    rows, cols = WAVEFRONT_TILE_Y, WAVEFRONT_TILE_W
+    kc, pieces = (8, 3) if mxu_input == "f32" else (16, 1)
+    n = 0
+    for r0 in range(0, rows, 16):
+        for z0 in range(0, cols, 8):
+            n += sum(1 for k0 in range(0, rows, kc) if k0 <= r0 + 16 and k0 + kc > r0 - 1)
+            n += sum(1 for k0 in range(0, cols, kc) if k0 <= z0 + 8 and k0 + kc > z0 - 1)
+    return n * pieces * 2 * 16 * 8 * kc // (rows * cols)
+
 
 def sphere_params(gx: int):
     """Hot/cold sphere x-centres and the integer membership bound
@@ -98,32 +381,112 @@ def _clamp_spheres(val, d2, x_g, hot_x, cold_x, in_r2):
     return torch.where(d2 < in_r2 - (x_g - cold_x) ** 2, COLD_TEMP, val)
 
 
+# --- the axes of one call ----------------------------------------------------------
+
+#: the build of ``csrc/jacobi_wavefront.cu`` that the f32 ``vpu`` forms run
+#: (and the mean-of-6 form); the others are ``library_name``'s
+BASE_LIBRARY = "jacobi_wavefront"
+
+
+def _axes(t: torch.Tensor, compute_unit: str, f32_accumulate: bool, mxu_input: str, plane_yz, where: str):
+    """Validate one call's axes (jacobi_pallas.py:888-893): a float32 block,
+    or a bfloat16 one under ``f32_accumulate``; a contraction only on the
+    f32 accumulator.  Returns the unit the build reports
+    (``plane_band_unit``), the effective operand precision (``f32`` under
+    ``vpu``) and whether the block is stored as bfloat16."""
+    if mxu_input not in MXU_INPUTS:
+        raise ValueError(f"unknown mxu input {mxu_input!r} (one of {MXU_INPUTS})")
+    if t.dtype == torch.bfloat16:
+        if not f32_accumulate:
+            raise TypeError(f"{where}: a bfloat16 block needs f32_accumulate=True (bf16 storage)")
+    elif t.dtype != torch.float32:
+        raise TypeError(f"{where}: the block must be torch.float32, or torch.bfloat16 under "
+                        f"f32_accumulate, got {t.dtype}")
+    _check_compute_unit(compute_unit, torch.float32 if f32_accumulate else t.dtype)
+    if not unit_uses_mxu(compute_unit):
+        return compute_unit, "f32", t.dtype == torch.bfloat16
+    return plane_band_unit(compute_unit, *plane_yz, where=where), mxu_input, t.dtype == torch.bfloat16
+
+
+def library_name(compute_unit: str = "vpu", mxu_input: str = "f32", bf16: bool = False) -> str:
+    """The build of ``csrc/jacobi_wavefront.cu`` a launch takes: the f32
+    vpu one, ``_bf16`` for bf16 storage, ``_mxu`` / ``_mxu16`` for the
+    tensor-core contraction on f32 / bf16 operands (``kernels/build.py``
+    ``VARIANTS``)."""
+    name = BASE_LIBRARY
+    if unit_uses_mxu(compute_unit):
+        name += "_mxu" if mxu_input == "f32" else "_mxu16"
+    return name + ("_bf16" if bf16 else "")
+
+
+def form_counter(compute_unit: str = "vpu", mxu_input: str = "f32", bf16: bool = False) -> str:
+    """The wrapper attribute that counts a launch: ``launches`` (f32, vpu),
+    ``bf16_launches`` (bf16 storage, vpu), ``mxu_launches`` /
+    ``mxu_bf16in_launches`` (the contraction on f32 / bf16 operands, either
+    storage).  A launch counts once, under its unit's form when it
+    contracts (``kernels/ledger.py`` ``FORMS``)."""
+    if unit_uses_mxu(compute_unit):
+        return "mxu_launches" if mxu_input == "f32" else "mxu_bf16in_launches"
+    return "bf16_launches" if bf16 else "launches"
+
+
+def _count(wrapper, counter: str) -> None:
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def _zero_counters(wrapper, forms) -> None:
+    for counter in forms:
+        setattr(wrapper, counter, 0)
+
+
+#: the counters of the wrappers with a contraction form, and of those without
+CONTRACTION_COUNTERS = ("launches", "bf16_launches", "mxu_launches", "mxu_bf16in_launches")
+STORAGE_COUNTERS = ("launches", "bf16_launches")
+
+
+def _lift(t: torch.Tensor) -> torch.Tensor:
+    """A block at the f32 accumulator: bfloat16 upcast, f32 as it is."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _level(c: torch.Tensor, x_axis: int, compute_unit: str, mxu_input: str) -> torch.Tensor:
+    """One level's six-neighbour numerator over working planes with rolls:
+    the left fold x-1, x+1, y-1, y+1, z-1, z+1 (``vpu``), or ``(x-1 + x+1)
+    + (ysum + zsum)`` (``mxu``, ``mxu_band``); y and z are the last two
+    axes."""
+    s = torch.roll(c, 1, x_axis) + torch.roll(c, -1, x_axis)  # x-1, x+1
+    if unit_uses_mxu(compute_unit):
+        return s + _nbr_sum(c, mxu_input)
+    s = s + torch.roll(c, 1, -2)  # y-1
+    s = s + torch.roll(c, -1, -2)  # y+1
+    s = s + torch.roll(c, 1, -1)  # z-1
+    return s + torch.roll(c, -1, -1)  # z+1
+
+
 # --- jacobi_wrap_step ---------------------------------------------------------
 
 
 def _check_k(block: torch.Tensor, k: int) -> None:
-    check_tensor(block, "block", ndims=(3,), dtype=torch.float32)
+    check_tensor(block, "block", ndims=(3,))
     if not 1 <= k <= max(1, block.shape[0] // 2):
         raise ValueError(f"k={k} needs 1 <= k <= X//2 = {block.shape[0] // 2}")
 
 
-def jacobi_wrap_step_plain(block: torch.Tensor, k: int = 1) -> torch.Tensor:
+def jacobi_wrap_step_plain(block: torch.Tensor, k: int = 1, compute_unit: str = "vpu",
+                           f32_accumulate: bool = False, mxu_input: str = "f32") -> torch.Tensor:
     """``k`` periodic Jacobi levels over the whole (X, Y, Z) domain, with
-    rolls; returns a new tensor."""
+    rolls; returns a new tensor of the block's dtype (a bfloat16 block is
+    upcast once, run at f32 and rounded once at the end)."""
     _check_k(block, k)
+    unit, mxu_input, _ = _axes(block, compute_unit, f32_accumulate, mxu_input, block.shape[1:], "wrap")
     X, Y, Z = block.shape
     hot_x, cold_x, in_r2 = sphere_params(X)
     d2 = yz_dist2_plane(0, 0, (Y, Z), block.shape, block.device)[None]
     x_g = torch.arange(X, device=block.device)[:, None, None]
-    c = block
+    c = _lift(block)
     for _ in range(k):
-        s = torch.roll(c, 1, 0) + torch.roll(c, -1, 0)  # x-1, x+1
-        s = s + torch.roll(c, 1, 1)  # y-1
-        s = s + torch.roll(c, -1, 1)  # y+1
-        s = s + torch.roll(c, 1, 2)  # z-1
-        s = s + torch.roll(c, -1, 2)  # z+1
-        c = _clamp_spheres(s * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
-    return c
+        c = _clamp_spheres(_level(c, 0, unit, mxu_input) * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
+    return c.to(block.dtype)
 
 
 def wrap_march_depths(k: int) -> list:
@@ -134,46 +497,63 @@ def wrap_march_depths(k: int) -> list:
     return [k // q + (1 if j < k % q else 0) for j in range(q)]
 
 
-def jacobi_wrap_step(block: torch.Tensor, k: int = 1, out: torch.Tensor = None) -> torch.Tensor:
+def wrap_scratch_shape(shape, k: int, bf16: bool = False):
+    """The f32 scratch a ``jacobi_wrap_step`` call on the card takes, or
+    None for one march: an (X, Y, Z) buffer that the marches ping-pong
+    through with the output; under bf16 storage the levels between marches
+    stay f32, so every march but the last writes a scratch: one buffer for
+    two marches, two (2, X, Y, Z) for more."""
+    marches = len(wrap_march_depths(k))
+    if marches == 1:
+        return None
+    return tuple(shape) if not bf16 else (min(marches - 1, 2),) + tuple(shape)
+
+
+def jacobi_wrap_step(block: torch.Tensor, k: int = 1, out: torch.Tensor = None, *, compute_unit: str = "vpu",
+                     f32_accumulate: bool = False, mxu_input: str = "f32") -> torch.Tensor:
     """``k`` Jacobi levels over the WHOLE periodic domain (the single-
     subdomain route) from one read of ``block``; returns ``out`` (a new
-    tensor when None), ``block`` is left as it was.
+    tensor when None), ``block`` is left as it was.  The axes as
+    ``jacobi_wrap_step_plain`` (jacobi_pallas.py:869-885).
 
     On CUDA: one call of the wavefront kernel's wrap form, its k levels as
-    ``wrap_march_depths(k)`` marches; more than one pass through an (X, Y,
-    Z) scratch from torch's caching allocator, the last march writing the
-    returned tensor."""
+    ``wrap_march_depths(k)`` marches; more than one pass through an f32
+    scratch from torch's caching allocator (``wrap_scratch_shape``), the
+    last march writing the returned tensor."""
     _check_k(block, k)
     if out is not None:
         check_out(out, block)
     if block.device.type == "cpu":
-        res = jacobi_wrap_step_plain(block, k)
+        res = jacobi_wrap_step_plain(block, k, compute_unit, f32_accumulate, mxu_input)
         return res if out is None else out.copy_(res)
+    unit, mi, bf16 = _axes(block, compute_unit, f32_accumulate, mxu_input, block.shape[1:], "wrap")
     X, Y, Z = block.shape
     hot_x, cold_x, in_r2 = sphere_params(X)
     out = torch.empty_like(block) if out is None else out
-    scratch = torch.empty_like(block) if k > WAVEFRONT_SUB_DEPTH else None
-    entry, lib = _c_entry("stp_jacobi_wrap")
+    shape = wrap_scratch_shape(block.shape, k, bf16)
+    scratch = None if shape is None else block.new_empty(shape, dtype=torch.float32)
+    entry, lib = _c_entry("stp_jacobi_wrap", library_name(unit, mi, bf16))
     rc = entry(block.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
                X, Y, Z, k, hot_x, cold_x, in_r2, current_raw_stream(block.device.index))
     if rc:
         from stencil_tpu_torch.kernels import build
 
         build.check(lib, rc, "jacobi_wrap_step")
-    jacobi_wrap_step.launches += 1
+    _count(jacobi_wrap_step, form_counter(unit, mi, bf16))
     return out
 
 
-#: calls of ``jacobi_wrap_step`` on CUDA, one a call whatever its marches
-#: (plain-version calls do not count)
-jacobi_wrap_step.launches = 0
+#: calls of ``jacobi_wrap_step`` on CUDA, one a call whatever its marches,
+#: counted by form (``form_counter``; plain-version calls do not count)
+_zero_counters(jacobi_wrap_step, CONTRACTION_COUNTERS)
 
 
 # --- jacobi_plane_step --------------------------------------------------------
 
 
-def _check_plane(blocks, origins, yz_d2, out):
-    check_tensor(blocks, "blocks", ndims=(3, 4), dtype=torch.float32)
+def _check_plane(blocks, origins, yz_d2, out, f32_accumulate=False):
+    check_tensor(blocks, "blocks", ndims=(3, 4))
+    _axes(blocks, "vpu", f32_accumulate, "f32", (), "jacobi_plane_step")
     single = blocks.dim() == 3
     check_tensor(origins, "origins", ndims=(1,) if single else (2,), dtype=torch.int32)
     check_tensor(yz_d2, "yz_d2", ndims=(2,) if single else (3,), dtype=torch.int32)
@@ -188,7 +568,7 @@ def _check_plane(blocks, origins, yz_d2, out):
     if tuple(yz_d2.shape) != want:
         raise ValueError(f"yz_d2 shape {tuple(yz_d2.shape)}, want {want}")
     if out is not None:
-        check_tensor(out, "out", ndims=(blocks.dim(),), dtype=torch.float32)
+        check_tensor(out, "out", ndims=(blocks.dim(),), dtype=blocks.dtype)
         if out.shape != blocks.shape or out.data_ptr() == blocks.data_ptr():
             raise ValueError("out must be a separate tensor of the blocks' shape")
         tensors.append(out)
@@ -196,12 +576,14 @@ def _check_plane(blocks, origins, yz_d2, out):
     return n, X, Y, Z
 
 
-def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None) -> torch.Tensor:
+def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None, f32_accumulate=False) -> torch.Tensor:
     """One Jacobi level over radius-1 shell-carrying block(s) ``(X, Y, Z)`` or
     ``(n, X, Y, Z)``; shell cells pass through.  ``origins`` are the global
     coordinates of each block's interior start, ``yz_d2`` each block's
-    ``yz_dist2_plane`` over its interior."""
-    _check_plane(blocks, origins, yz_d2, out)
+    ``yz_dist2_plane`` over its interior.  Bfloat16 blocks under
+    ``f32_accumulate``: the mean at f32, one rounding at the interior's
+    store (jacobi_pallas.py:1492)."""
+    _check_plane(blocks, origins, yz_d2, out, f32_accumulate)
     single = blocks.dim() == 3
     c = blocks[None] if single else blocks
     org = origins[None] if single else origins
@@ -210,11 +592,12 @@ def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None) -> to
     gx = global_size[0]
     hot_x, cold_x, in_r2 = sphere_params(gx)
     core = (slice(None), slice(1, -1), slice(1, -1), slice(1, -1))
-    s = c[:, :-2, 1:-1, 1:-1] + c[:, 2:, 1:-1, 1:-1]  # x-1, x+1
-    s = s + c[:, 1:-1, :-2, 1:-1]  # y-1
-    s = s + c[:, 1:-1, 2:, 1:-1]  # y+1
-    s = s + c[:, 1:-1, 1:-1, :-2]  # z-1
-    s = s + c[:, 1:-1, 1:-1, 2:]  # z+1
+    a = _lift(c)
+    s = a[:, :-2, 1:-1, 1:-1] + a[:, 2:, 1:-1, 1:-1]  # x-1, x+1
+    s = s + a[:, 1:-1, :-2, 1:-1]  # y-1
+    s = s + a[:, 1:-1, 2:, 1:-1]  # y+1
+    s = s + a[:, 1:-1, 1:-1, :-2]  # z-1
+    s = s + a[:, 1:-1, 1:-1, 2:]  # z+1
     # raw plane p holds interior x = p - 1; torch's % is non-negative here
     x_g = (org[:, 0:1].long() + torch.arange(X - 2, device=c.device)) % gx
     val = _clamp_spheres(s * SIXTH, d2, x_g[:, :, None, None], hot_x, cold_x, in_r2)
@@ -224,37 +607,41 @@ def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None) -> to
     return res[0] if single else res
 
 
-def jacobi_plane_step(blocks, origins, yz_d2, global_size, out=None) -> torch.Tensor:
+def jacobi_plane_step(blocks, origins, yz_d2, global_size, out=None, *, f32_accumulate=False) -> torch.Tensor:
     """One Jacobi level over radius-1 shell-carrying block(s); returns
     ``out`` (a fresh tensor when None).  One CUDA launch serves all ``n``
     blocks, the port's counterpart of running the TPU kernel per shard: the
     plane form of ``csrc/jacobi_wavefront.cu``, a march of depth 1 that
-    writes every cell of ``out`` (the shell copied through)."""
-    n, X, Y, Z = _check_plane(blocks, origins, yz_d2, out)
+    writes every cell of ``out`` (the shell copied through); its bf16 build
+    for bfloat16 blocks."""
+    n, X, Y, Z = _check_plane(blocks, origins, yz_d2, out, f32_accumulate)
     if blocks.device.type == "cpu":
-        return jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out)
+        return jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out, f32_accumulate)
+    bf16 = blocks.dtype == torch.bfloat16
     gx = int(global_size[0])
     res = torch.empty_like(blocks) if out is None else out
-    entry, lib = _c_entry("stp_jacobi_plane")
+    entry, lib = _c_entry("stp_jacobi_plane", library_name(bf16=bf16))
     rc = entry(blocks.data_ptr(), res.data_ptr(), origins.data_ptr(), yz_d2.data_ptr(),
                n, X, Y, Z, gx, *sphere_params(gx), current_raw_stream(blocks.device.index))
     if rc:
         from stencil_tpu_torch.kernels import build
 
         build.check(lib, rc, "jacobi_plane_step")
-    jacobi_plane_step.launches += 1
+    _count(jacobi_plane_step, form_counter(bf16=bf16))
     return res
 
 
-#: kernel launches made by ``jacobi_plane_step`` (plain-version calls do not count)
-jacobi_plane_step.launches = 0
+#: kernel launches made by ``jacobi_plane_step``, by form (plain-version
+#: calls do not count)
+_zero_counters(jacobi_plane_step, STORAGE_COUNTERS)
 
 
 # --- jacobi_slab_step ---------------------------------------------------------
 
 
-def _check_slab(block, slabs, origins, yz_d2, out):
-    check_tensor(block, "block", ndims=(3, 4), dtype=torch.float32)
+def _check_slab(block, slabs, origins, yz_d2, out, f32_accumulate=False):
+    check_tensor(block, "block", ndims=(3, 4))
+    _axes(block, "vpu", f32_accumulate, "f32", (), "jacobi_slab_step")
     single = block.dim() == 3
     n = 1 if single else block.shape[0]
     X, Y, Z = block.shape[-3:]
@@ -265,7 +652,7 @@ def _check_slab(block, slabs, origins, yz_d2, out):
     lead = () if single else (n,)
     faces = {"xlo": (Y, Z), "xhi": (Y, Z), "ylo": (X, Z), "yhi": (X, Z), "zlo": (X, Y), "zhi": (X, Y)}
     for (what, want), t in zip(faces.items(), slabs):
-        check_tensor(t, what, ndims=(block.dim() - 1,), dtype=torch.float32)
+        check_tensor(t, what, ndims=(block.dim() - 1,), dtype=block.dtype)
         if tuple(t.shape) != lead + want:
             raise ValueError(f"{what} shape {tuple(t.shape)}, want {lead + want}")
     check_tensor(origins, "origins", ndims=(1,) if single else (2,), dtype=torch.int32)
@@ -276,7 +663,7 @@ def _check_slab(block, slabs, origins, yz_d2, out):
         raise ValueError(f"yz_d2 shape {tuple(yz_d2.shape)}, want {lead + (Y, Z)}")
     tensors = [block, *slabs, origins, yz_d2]
     if out is not None:
-        check_tensor(out, "out", ndims=(block.dim(),), dtype=torch.float32)
+        check_tensor(out, "out", ndims=(block.dim(),), dtype=block.dtype)
         if out.shape != block.shape or out.data_ptr() == block.data_ptr():
             raise ValueError("out must be a separate tensor of the block's shape")
         tensors.append(out)
@@ -285,25 +672,26 @@ def _check_slab(block, slabs, origins, yz_d2, out):
 
 
 def jacobi_slab_step_plain(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, global_size,
-                           out=None) -> torch.Tensor:
+                           out=None, f32_accumulate=False) -> torch.Tensor:
     """One Jacobi level over bare interior(s) ``(X, Y, Z)`` or ``(n, X, Y,
     Z)`` (no shell), the boundary neighbours taken from the six received face
     slabs: ``xlo``/``xhi`` ``(.., Y, Z)`` (the -x / +x neighbour's outermost
     plane), ``ylo``/``yhi`` ``(.., X, Z)`` and ``zlo``/``zhi`` ``(.., X, Y)``.
     ``origins`` are each block's global start, ``yz_d2`` its
     ``yz_dist2_plane`` over the (Y, Z) interior.  Returns ``out`` (a fresh
-    tensor when None).
+    tensor when None).  Bfloat16 block and slabs under ``f32_accumulate``:
+    the mean at f32, one rounding at the store (jacobi_pallas.py:1360).
 
     The JAX kernel takes the z slabs transposed, ``(Y, X)``; the port keeps
     them ``(X, Y)`` (a GPU has no lane axis to put x on)."""
     slabs = (xlo, xhi, ylo, yhi, zlo, zhi)
-    _check_slab(block, slabs, origins, yz_d2, out)
+    _check_slab(block, slabs, origins, yz_d2, out, f32_accumulate)
     single = block.dim() == 3
     if single:
         block, origins, yz_d2, out = _batched(block, origins, yz_d2, out)
         slabs = _batched(*slabs)
-    xlo, xhi, ylo, yhi, zlo, zhi = slabs
-    c = block
+    xlo, xhi, ylo, yhi, zlo, zhi = (_lift(t) for t in slabs)
+    c = _lift(block)
     X = c.shape[1]
     gx = global_size[0]
     hot_x, cold_x, in_r2 = sphere_params(gx)
@@ -314,36 +702,39 @@ def jacobi_slab_step_plain(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, 
     s = s + torch.cat([c[..., 1:], zhi[..., None]], 3)  # z+1
     x_g = (origins[:, 0:1].long() + torch.arange(X, device=c.device)) % gx
     val = _clamp_spheres(s * SIXTH, yz_d2[:, None], x_g[:, :, None, None], hot_x, cold_x, in_r2)
-    res = val if out is None else out.copy_(val)
+    res = val.to(block.dtype) if out is None else out.copy_(val)
     return res[0] if single else res
 
 
 def jacobi_slab_step(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, global_size,
-                     out=None) -> torch.Tensor:
+                     out=None, *, f32_accumulate=False) -> torch.Tensor:
     """One Jacobi level over bare interior(s) from six received face slabs
     (the ``slab`` route's kernel); arguments and result as
     ``jacobi_slab_step_plain``.  One CUDA launch serves all ``n`` blocks:
     the slab form of ``csrc/jacobi_wavefront.cu``, a march of depth 1 whose
-    level-0 fetch reads a face slab one cell outside the block."""
+    level-0 fetch reads a face slab one cell outside the block; its bf16
+    build for bfloat16 blocks."""
     slabs = (xlo, xhi, ylo, yhi, zlo, zhi)
-    n, X, Y, Z = _check_slab(block, slabs, origins, yz_d2, out)
+    n, X, Y, Z = _check_slab(block, slabs, origins, yz_d2, out, f32_accumulate)
     if block.device.type == "cpu":
-        return jacobi_slab_step_plain(block, *slabs, origins, yz_d2, global_size, out)
+        return jacobi_slab_step_plain(block, *slabs, origins, yz_d2, global_size, out, f32_accumulate)
+    bf16 = block.dtype == torch.bfloat16
     gx = int(global_size[0])
     res = torch.empty_like(block) if out is None else out
-    entry, lib = _c_entry("stp_jacobi_slab")
+    entry, lib = _c_entry("stp_jacobi_slab", library_name(bf16=bf16))
     rc = entry(block.data_ptr(), res.data_ptr(), *(t.data_ptr() for t in slabs), origins.data_ptr(),
                yz_d2.data_ptr(), n, X, Y, Z, gx, *sphere_params(gx), current_raw_stream(block.device.index))
     if rc:
         from stencil_tpu_torch.kernels import build
 
         build.check(lib, rc, "jacobi_slab_step")
-    jacobi_slab_step.launches += 1
+    _count(jacobi_slab_step, form_counter(bf16=bf16))
     return res
 
 
-#: kernel launches made by ``jacobi_slab_step`` (plain-version calls do not count)
-jacobi_slab_step.launches = 0
+#: kernel launches made by ``jacobi_slab_step``, by form (plain-version
+#: calls do not count)
+_zero_counters(jacobi_slab_step, STORAGE_COUNTERS)
 
 
 # --- the wavefront kernels ----------------------------------------------------
@@ -368,41 +759,60 @@ def pack_d2(yz_d2: torch.Tensor, global_size) -> torch.Tensor:
     return yz_d2.to(torch.int32)
 
 
-def wavefront_smem_bytes(m: int) -> int:
+def first_march_depth(m: int) -> int:
+    """The depth of a wavefront call's first march: all m levels, or the
+    deeper half of two (``first_depth`` in csrc/jacobi_wavefront.cu)."""
+    return m if m <= WAVEFRONT_SUB_DEPTH else (m + 1) // 2
+
+
+def mxu_smem_extra_bytes(m: int) -> int:
+    """What the tensor-core contraction adds to a block's shared memory:
+    its planes' rows pitched at ``MXU_PITCH`` cells instead of 64, over the
+    first march's 2d planes of 32 rows (the counterpart of
+    ``mxu_vmem_extra_bytes``, jacobi_pallas.py:650)."""
+    return 2 * first_march_depth(m) * WAVEFRONT_TILE_Y * (MXU_PITCH - WAVEFRONT_TILE_W) * 4
+
+
+def wavefront_smem_bytes(m: int, compute_unit: str = "vpu") -> int:
     """Shared memory of one block of the m-level wavefront kernel: 2m+1
     working planes (two per level below m, one incoming) and the d2 tile,
-    each a (32 + 2m) x 64 tile of 4-byte cells.  A constant of m, so the CPU
-    and the card plan the same depth."""
-    return (2 * m + 2) * (WAVEFRONT_TILE_Y + 2 * m) * WAVEFRONT_TILE_W * 4
+    each a (32 + 2m) x 64 tile of 4-byte cells, and under a contraction
+    unit ``mxu_smem_extra_bytes``.  A constant of m and the unit, so the CPU
+    and the card plan the same depth.  The planes hold the f32 levels
+    whatever the storage dtype."""
+    extra = mxu_smem_extra_bytes(m) if unit_uses_mxu(compute_unit) else 0
+    return (2 * m + 2) * (WAVEFRONT_TILE_Y + 2 * m) * WAVEFRONT_TILE_W * 4 + extra
 
 
-def wavefront_smem_fits(m: int) -> bool:
-    return wavefront_smem_bytes(m) <= SMEM_PER_BLOCK
+def wavefront_smem_fits(m: int, compute_unit: str = "vpu") -> bool:
+    return wavefront_smem_bytes(m, compute_unit) <= SMEM_PER_BLOCK
 
 
-def wavefront_auto_depth(n_min: int) -> int:
+def wavefront_auto_depth(n_min: int, compute_unit: str = "vpu") -> int:
     """The wavefront depth ``temporal_k="auto"`` plans for a smallest shard
     extent ``n_min`` (the JAX package's static plan, models/jacobi.py:336-347):
     the deepest m in ``[2, min(_WRAP_MAX_K, n_min // 4, n_min)]`` whose kernel
-    fits, else 1.  The n_min // 4 cap keeps the redundant shell traffic a
-    small fraction of the shard."""
+    fits under ``compute_unit``, else 1.  The n_min // 4 cap keeps the
+    redundant shell traffic a small fraction of the shard."""
     depth_cap = min(_WRAP_MAX_K, max(1, n_min // 4), n_min)
     m = 1
     for cand in range(2, depth_cap + 1):
-        if wavefront_smem_fits(cand):
+        if wavefront_smem_fits(cand, compute_unit):
             m = cand
     return m
 
 
-def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, ring, z_valid=None):
-    """Validate one wavefront call; returns (n, Xr, Yr, Zraw, zv)."""
+def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, ring, z_valid=None,
+                     compute_unit="vpu"):
+    """Validate one wavefront call (its axes apart); returns (n, Xr, Yr,
+    Zraw, zv)."""
     if alias:
         raise NotImplementedError(
             "alias=True (an in-place wavefront) is refused: blocks march along x "
             "independently, so a write can land before a neighbouring tile reads "
             "it; see ROADMAP.md (deliberate differences)"
         )
-    check_tensor(raw, "raw", ndims=(3, 4), dtype=torch.float32)
+    check_tensor(raw, "raw", ndims=(3, 4))
     single = raw.dim() == 3
     n = 1 if single else raw.shape[0]
     Xr, Yr, Zraw = raw.shape[-3:]
@@ -429,14 +839,14 @@ def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, rin
             f"the z-ring layout needs 2*interior_offset <= {_ZRING_OFF} and "
             f"interior_offset <= Zi = {Zraw}"
         )
-    if not wavefront_smem_fits(m):
+    if not wavefront_smem_fits(m, compute_unit):
         raise ValueError(
-            f"m={m} needs {wavefront_smem_bytes(m)} bytes of shared memory per block, "
+            f"m={m} needs {wavefront_smem_bytes(m, compute_unit)} bytes of shared memory per block, "
             f"over the H100's {SMEM_PER_BLOCK}"
         )
     tensors = [raw, origin, d2]
     if z_slabs is not None:
-        check_tensor(z_slabs, "z_slabs", ndims=(raw.dim(),), dtype=torch.float32)
+        check_tensor(z_slabs, "z_slabs", ndims=(raw.dim(),), dtype=raw.dtype)
         want = (Xr, 2 * s_off, Yr) if single else (n, Xr, 2 * s_off, Yr)
         if tuple(z_slabs.shape) != want:
             raise ValueError(f"z_slabs shape {tuple(z_slabs.shape)}, want {want}")
@@ -445,12 +855,13 @@ def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, rin
     return n, Xr, Yr, Zraw, zv
 
 
-def _wavefront_levels(w, m, origin, d2, global_size, s_off):
-    """``m`` Jacobi levels over the working planes ``w`` (n, Xr, Yr, W) with
-    rolls: every axis wraps, and the wrapped cells are the ones the shell was
-    sized to sacrifice.  Raw plane p sits at global x ``origin_x + p - s_off``;
-    the sphere test follows it on shell planes too, since their intermediate
-    levels feed valid cells."""
+def _wavefront_levels(w, m, origin, d2, global_size, s_off, compute_unit="vpu", mxu_input="f32"):
+    """``m`` Jacobi levels over the f32 working planes ``w`` (n, Xr, Yr, W)
+    with rolls (or the band contraction, ``_level``): every axis wraps, and
+    the wrapped cells are the ones the shell was sized to sacrifice.  Raw
+    plane p sits at global x ``origin_x + p - s_off``; the sphere test
+    follows it on shell planes too, since their intermediate levels feed
+    valid cells."""
     gx = global_size[0]
     hot_x, cold_x, in_r2 = sphere_params(gx)
     Xr = w.shape[1]
@@ -458,12 +869,7 @@ def _wavefront_levels(w, m, origin, d2, global_size, s_off):
     x_g = x_g[:, :, None, None]
     d2 = d2[:, None]
     for _ in range(m):
-        s = torch.roll(w, 1, 1) + torch.roll(w, -1, 1)  # x-1, x+1
-        s = s + torch.roll(w, 1, 2)  # y-1
-        s = s + torch.roll(w, -1, 2)  # y+1
-        s = s + torch.roll(w, 1, 3)  # z-1
-        s = s + torch.roll(w, -1, 3)  # z+1
-        w = _clamp_spheres(s * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
+        w = _clamp_spheres(_level(w, 1, compute_unit, mxu_input) * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
     return w
 
 
@@ -481,30 +887,34 @@ def _batched(*ts):
 
 
 def jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_offset=None,
-                                      alias=False, z_slabs=None, z_valid=None):
+                                      alias=False, z_slabs=None, z_valid=None, compute_unit="vpu",
+                                      f32_accumulate=False, mxu_input="f32"):
     """``m`` Jacobi levels over s-shelled block(s) ``(Xr, Yr, Zr)`` or
     ``(n, Xr, Yr, Zr)`` (jacobi_pallas.py:983).  ``d2`` is
     ``yz_dist2_plane`` over each raw plane; ``z_slabs`` ``(.., Xr, 2s, Yr)``
     replace the z-shell columns ``[0, s)`` and ``[z_valid - s, z_valid)``
     (columns ``[z_valid, Zr)`` are dead).  Returns the new block(s), and with
-    ``z_slabs`` also the outgoing slabs.  The interior ``[s, ext - s)`` of
-    every axis is exact; shell cells are unspecified."""
+    ``z_slabs`` also the outgoing slabs, at the block's dtype (the axes as
+    ``jacobi_wrap_step_plain``; the contraction over the ``(Yr, Zr)``
+    plane).  The interior ``[s, ext - s)`` of every axis is exact; shell
+    cells are unspecified."""
     s_off = m if interior_offset is None else interior_offset
-    _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid)
+    _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid, compute_unit)
+    unit, mxu_input, _ = _axes(raw, compute_unit, f32_accumulate, mxu_input, raw.shape[-2:], "wavefront")
     single = raw.dim() == 3
     if single:
         raw, origin, d2, z_slabs = _batched(raw, origin, d2, z_slabs)
     zv = raw.shape[-1] if z_valid is None else z_valid
-    w = raw.clone()
+    w = raw.to(torch.float32, copy=True)
     if z_slabs is not None:
         zst = z_slabs.transpose(-1, -2)  # (n, Xr, Yr, 2s)
         w[..., 0:s_off] = zst[..., 0:s_off]
         w[..., zv - s_off : zv] = zst[..., s_off:]
-    w = _wavefront_levels(w, m, origin, d2, global_size, s_off)
-    out = w[0] if single else w
+    w = _wavefront_levels(w, m, origin, d2, global_size, s_off, unit, mxu_input)
+    out = (w[0] if single else w).to(raw.dtype)
     if z_slabs is None:
         return out
-    z_out = _emit(w, s_off, zv - 2 * s_off, s_off)
+    z_out = _emit(w, s_off, zv - 2 * s_off, s_off).to(raw.dtype)
     return out, (z_out[0] if single else z_out)
 
 
@@ -530,7 +940,8 @@ def _plain_into(res, out, z_out):
 
 
 def jacobi_shell_wavefront_step(raw, m, origin, d2, global_size, interior_offset=None,
-                                alias=False, z_slabs=None, z_valid=None, out=None, z_out=None):
+                                alias=False, z_slabs=None, z_valid=None, out=None, z_out=None, *,
+                                compute_unit="vpu", f32_accumulate=False, mxu_input="f32"):
     """``m`` Jacobi levels over s-shelled block(s) in ONE pass: the compute
     half of the temporally blocked multi-subdomain route.  Arguments and
     result as ``jacobi_shell_wavefront_step_plain``; ``alias=True`` is
@@ -538,69 +949,81 @@ def jacobi_shell_wavefront_step(raw, m, origin, d2, global_size, interior_offset
     blocks; the output is ``out`` (and ``z_out``), fresh buffers when None,
     written on the valid region only."""
     s_off = m if interior_offset is None else interior_offset
-    n, Xr, Yr, Zr, zv = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid)
+    n, Xr, Yr, Zr, zv = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False,
+                                         z_valid, compute_unit)
     if raw.device.type == "cpu":
         _outs(raw, z_slabs, out, z_out)  # checks the buffers
-        return _plain_into(jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_offset,
-                                                             alias, z_slabs, z_valid), out, z_out)
+        return _plain_into(jacobi_shell_wavefront_step_plain(
+            raw, m, origin, d2, global_size, interior_offset, alias, z_slabs, z_valid, compute_unit,
+            f32_accumulate, mxu_input), out, z_out)
+    unit, mi, bf16 = _axes(raw, compute_unit, f32_accumulate, mxu_input, raw.shape[-2:], "wavefront")
     out, z_out = _outs(raw, z_slabs, out, z_out)
     _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zr, zv, m, s_off,
-                      Zr, global_size, ring=False)
-    jacobi_shell_wavefront_step.launches += 1
+                      Zr, global_size, False, library_name(unit, mi, bf16))
+    _count(jacobi_shell_wavefront_step, form_counter(unit, mi, bf16))
     return out if z_out is None else (out, z_out)
 
 
-#: kernel launches made by ``jacobi_shell_wavefront_step``
-jacobi_shell_wavefront_step.launches = 0
+#: kernel launches made by ``jacobi_shell_wavefront_step``, by form
+_zero_counters(jacobi_shell_wavefront_step, CONTRACTION_COUNTERS)
 
 
 def jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
-                                      interior_offset=None, alias=False):
+                                      interior_offset=None, alias=False, compute_unit="vpu",
+                                      f32_accumulate=False, mxu_input="f32"):
     """``m`` Jacobi levels over block(s) ``(Xr, Yr, Zi)`` that carry their
     x/y shell in the array and no z shell (jacobi_pallas.py:1204): each plane
     is staged into the z-ring working plane ``(Yr, 128 + Zi)`` (interior at
     column 128, low halo just below, high halo wrapped to column 0, from
-    ``z_slabs``), ``d2`` is ``zring_dist2_plane``.  Returns ``(out, z_out)``;
+    ``z_slabs``), ``d2`` is ``zring_dist2_plane``.  Returns ``(out, z_out)``
+    at the block's dtype (the axes as ``jacobi_wrap_step_plain``; the
+    contraction over the working plane, whose wrap is the ring's seam);
     exact on the x/y interior and every z column."""
     s_off = m if interior_offset is None else interior_offset
-    _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True)
+    _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True, None, compute_unit)
+    unit, mxu_input, _ = _axes(raw, compute_unit, f32_accumulate, mxu_input,
+                               (raw.shape[-2], _ZRING_OFF + raw.shape[-1]), "zring")
     single = raw.dim() == 3
     if single:
         raw, origin, d2, z_slabs = _batched(raw, origin, d2, z_slabs)
     Zi = raw.shape[-1]
-    w = torch.zeros(raw.shape[:-1] + (_ZRING_OFF + Zi,), dtype=raw.dtype, device=raw.device)
+    w = torch.zeros(raw.shape[:-1] + (_ZRING_OFF + Zi,), dtype=torch.float32, device=raw.device)
     w[..., _ZRING_OFF:] = raw
     zst = z_slabs.transpose(-1, -2)  # (n, Xr, Yr, 2s)
     w[..., _ZRING_OFF - s_off : _ZRING_OFF] = zst[..., 0:s_off]
     w[..., 0:s_off] = zst[..., s_off:]
-    w = _wavefront_levels(w, m, origin, d2, global_size, s_off)
-    out = w[..., _ZRING_OFF:].contiguous()
-    z_out = _emit(w, _ZRING_OFF, _ZRING_OFF + Zi - s_off, s_off)
+    w = _wavefront_levels(w, m, origin, d2, global_size, s_off, unit, mxu_input)
+    out = w[..., _ZRING_OFF:].to(raw.dtype).contiguous()
+    z_out = _emit(w, _ZRING_OFF, _ZRING_OFF + Zi - s_off, s_off).to(raw.dtype)
     return (out[0], z_out[0]) if single else (out, z_out)
 
 
 def jacobi_zring_wavefront_step(raw, m, origin, d2, global_size, z_slabs,
-                                interior_offset=None, alias=False, out=None, z_out=None):
+                                interior_offset=None, alias=False, out=None, z_out=None, *,
+                                compute_unit="vpu", f32_accumulate=False, mxu_input="f32"):
     """``m`` Jacobi levels in ONE pass over z-interior-only block(s), the z
     halo taken from ``z_slabs`` and the next slabs emitted; arguments and
     result as ``jacobi_zring_wavefront_step_plain``.  One CUDA launch serves
     all ``n`` blocks; the outputs are ``out`` and ``z_out``, fresh buffers
     when None."""
     s_off = m if interior_offset is None else interior_offset
-    n, Xr, Yr, Zi, _ = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True)
+    n, Xr, Yr, Zi, _ = _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True, None,
+                                        compute_unit)
     if raw.device.type == "cpu":
         _outs(raw, z_slabs, out, z_out)
-        return _plain_into(jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
-                                                             interior_offset, alias), out, z_out)
+        return _plain_into(jacobi_zring_wavefront_step_plain(
+            raw, m, origin, d2, global_size, z_slabs, interior_offset, alias, compute_unit, f32_accumulate,
+            mxu_input), out, z_out)
+    unit, mi, bf16 = _axes(raw, compute_unit, f32_accumulate, mxu_input, (Yr, _ZRING_OFF + Zi), "zring")
     out, z_out = _outs(raw, z_slabs, out, z_out)
     _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zi, Zi + 2 * s_off, m,
-                      s_off, _ZRING_OFF + Zi, global_size, ring=True)
-    jacobi_zring_wavefront_step.launches += 1
+                      s_off, _ZRING_OFF + Zi, global_size, True, library_name(unit, mi, bf16))
+    _count(jacobi_zring_wavefront_step, form_counter(unit, mi, bf16))
     return out, z_out
 
 
-#: kernel launches made by ``jacobi_zring_wavefront_step``
-jacobi_zring_wavefront_step.launches = 0
+#: kernel launches made by ``jacobi_zring_wavefront_step``, by form
+_zero_counters(jacobi_zring_wavefront_step, CONTRACTION_COUNTERS)
 
 
 def wavefront_marches(m: int) -> int:
@@ -611,43 +1034,58 @@ def wavefront_marches(m: int) -> int:
 
 _ENTRY = None
 _ENTRIES = {}
+#: the other builds of the source (``library_name``), loaded at first use
+_VARIANTS = {}
 
 
 def _entry():
-    """``(C entry, library)`` of ``stp_jacobi_wavefront``, built and loaded
-    at the first launch."""
+    """``(C entry, library)`` of ``stp_jacobi_wavefront`` in the f32 vpu
+    build, built and loaded at the first launch."""
     global _ENTRY
     if _ENTRY is None:
         from stencil_tpu_torch.kernels import build
 
-        lib = build.load("jacobi_wavefront")
+        lib = build.load(BASE_LIBRARY)
         _ENTRY = (lib.stp_jacobi_wavefront, lib)
     return _ENTRY
 
 
-def _c_entry(name: str):
+def _library(name: str):
+    """The loaded build ``name`` of ``csrc/jacobi_wavefront.cu``
+    (``library_name``), built at first use."""
+    if name == BASE_LIBRARY:
+        return _entry()[1]
+    lib = _VARIANTS.get(name)
+    if lib is None:
+        from stencil_tpu_torch.kernels import build
+
+        lib = _VARIANTS[name] = build.load(name)
+    return lib
+
+
+def _c_entry(name: str, library: str = BASE_LIBRARY):
     """``(C entry, library)`` of ``stp_jacobi_wrap``, ``stp_jacobi_plane``,
-    ``stp_jacobi_slab`` or ``stp_mean6_march``, from the same library, looked
-    up at the first launch."""
-    found = _ENTRIES.get(name)
+    ``stp_jacobi_slab``, ``stp_jacobi_wavefront`` or ``stp_mean6_march``
+    in build ``library``, looked up at the first launch."""
+    found = _ENTRIES.get((library, name))
     if found is None:
-        lib = _entry()[1]
-        found = _ENTRIES[name] = (getattr(lib, name), lib)
+        lib = _library(library)
+        found = _ENTRIES[(library, name)] = (getattr(lib, name), lib)
     return found
 
 
 def _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zraw, width, m, s_off,
-                      d2_w, global_size, ring):
-    """One call of ``csrc/jacobi_wavefront.cu`` over all ``n`` blocks;
-    ``width`` is the logical plane width (z_valid, or Zi + 2s on the ring).
-    Two marches pass their intermediate level through an ``(n, Xr, Yr,
-    width)`` scratch from torch's caching allocator."""
+                      d2_w, global_size, ring, library=BASE_LIBRARY):
+    """One call of ``csrc/jacobi_wavefront.cu`` (build ``library``) over all
+    ``n`` blocks; ``width`` is the logical plane width (z_valid, or Zi + 2s
+    on the ring).  Two marches pass their intermediate level through an f32
+    ``(n, Xr, Yr, width)`` scratch from torch's caching allocator."""
     gx = int(global_size[0])
     hot_x, cold_x, in_r2 = sphere_params(gx)
     scratch = None
     if wavefront_marches(m) > 1:
-        scratch = raw.new_empty((n, Xr, Yr, width))
-    entry, lib = _entry()
+        scratch = raw.new_empty((n, Xr, Yr, width), dtype=torch.float32)
+    entry, lib = _entry() if library == BASE_LIBRARY else _c_entry("stp_jacobi_wavefront", library)
     rc = entry(
         raw.data_ptr(), out.data_ptr(), origin.data_ptr(), d2.data_ptr(),
         None if z_slabs is None else z_slabs.data_ptr(),
@@ -669,8 +1107,23 @@ WAVEFRONT_PLAN_FIELDS = ("form", "launches", "depth", "blocks_per_sm", "sms", "b
 _WAVEFRONT_FORMS = ("z-ring", "shell z-slab", "shell")
 
 
+def _plan_axes(plane_yz, compute_unit, mxu_input, storage, where):
+    """The build a plan reports: ``(library, {compute_unit, mxu_input,
+    storage})`` with the unit ``plane_band_unit`` names and the operand
+    precision in effect."""
+    for value, choices, what in ((compute_unit, COMPUTE_UNITS, "compute unit"), (mxu_input, MXU_INPUTS, "mxu input"),
+                                 (storage, STORAGE_DTYPES, "storage dtype")):
+        if value not in choices:
+            raise ValueError(f"unknown {what} {value!r} (one of {choices})")
+    mxu = unit_uses_mxu(compute_unit)
+    unit = plane_band_unit(compute_unit, *plane_yz, where=where) if mxu else compute_unit
+    mi = mxu_input if mxu else "f32"
+    return library_name(unit, mi, storage == "bf16"), {"compute_unit": unit, "mxu_input": mi, "storage": storage}
+
+
 def jacobi_wavefront_launch(shape, m: int, interior_offset=None, ring: bool = False, slabs: bool = False,
-                            z_valid=None) -> dict:
+                            z_valid=None, compute_unit: str = "vpu", mxu_input: str = "f32",
+                            storage: str = "native") -> dict:
     """The launches a wavefront call over blocks of ``shape`` (``(Xr, Yr,
     Z)`` or ``(n, Xr, Yr, Z)``) makes on the card, without making them:
     ``form`` ("z-ring", "shell z-slab" or "shell"), kernel ``launches`` a call
@@ -678,12 +1131,15 @@ def jacobi_wavefront_launch(shape, m: int, interior_offset=None, ring: bool = Fa
     calculator allows, the grid's blocks and its ``waves`` (blocks over the
     blocks resident at once), the x chunking, the shared memory and threads a
     block asks and the tiles along z and y (fields as
-    ``WAVEFRONT_PLAN_FIELDS``)."""
+    ``WAVEFRONT_PLAN_FIELDS``); and the build's ``compute_unit``,
+    ``mxu_input`` and ``storage``."""
     n = 1 if len(shape) == 3 else shape[0]
     Xr, Yr, Z = shape[-3:]
     s_off = m if interior_offset is None else interior_offset
     width = Z + 2 * s_off if ring else (Z if z_valid is None else int(z_valid))
-    lib = _entry()[1]
+    plane = (Yr, _ZRING_OFF + Z) if ring else (Yr, Z)
+    name, axes = _plan_axes(plane, compute_unit, mxu_input, storage, "zring" if ring else "wavefront")
+    lib = _library(name)
     info = (ctypes.c_int * len(WAVEFRONT_PLAN_FIELDS))()
     rc = lib.stp_jacobi_wavefront_plan(n, Xr, Yr, Z, width, m, s_off, int(ring), int(ring or slabs), info)
     if rc:
@@ -693,6 +1149,7 @@ def jacobi_wavefront_launch(shape, m: int, interior_offset=None, ring: bool = Fa
     plan = dict(zip(WAVEFRONT_PLAN_FIELDS, info))
     plan["form"] = _WAVEFRONT_FORMS[plan["form"]]
     plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    plan.update(axes)
     return plan
 
 
@@ -702,16 +1159,19 @@ WRAP_PLAN_FIELDS = ("launches", "depth", "blocks_per_sm", "sms", "blocks", "xchu
                     "threads", "tiles_z", "tiles_y")
 
 
-def jacobi_wrap_launch(shape, k: int) -> dict:
+def jacobi_wrap_launch(shape, k: int, compute_unit: str = "vpu", mxu_input: str = "f32",
+                       storage: str = "native") -> dict:
     """The launches a ``jacobi_wrap_step`` call of ``k`` levels over an
     ``(X, Y, Z)`` domain makes on the card, without making them: kernel
     ``launches`` a call (marches) and their ``depths``, and of the first
     march its ``depth``, blocks an SM the occupancy calculator allows, SMs,
     the grid's blocks and its ``waves``, the x chunking, the shared memory
     and threads a block asks and the tiles along z and y (fields as
-    ``WRAP_PLAN_FIELDS``)."""
+    ``WRAP_PLAN_FIELDS``); and the build's ``compute_unit``, ``mxu_input``
+    and ``storage``."""
     X, Y, Z = shape
-    lib = _entry()[1]
+    name, axes = _plan_axes((Y, Z), compute_unit, mxu_input, storage, "wrap")
+    lib = _library(name)
     info = (ctypes.c_int * len(WRAP_PLAN_FIELDS))()
     rc = lib.stp_jacobi_wrap_plan(X, Y, Z, k, info)
     if rc:
@@ -723,6 +1183,7 @@ def jacobi_wrap_launch(shape, k: int) -> dict:
     if (plan["launches"], plan["depth"]) != (len(plan["depths"]), plan["depths"][0]):
         raise RuntimeError(f"stp_jacobi_wrap_plan splits k={k} otherwise than wrap_march_depths: {plan}")
     plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    plan.update(axes)
     return plan
 
 
@@ -733,10 +1194,11 @@ ONELEVEL_PLAN_FIELDS = ("blocks_per_sm", "sms", "blocks", "xchunk", "nchunks", "
                         "tiles_z", "tiles_y")
 
 
-def _onelevel_launch(plan_entry: str, shape) -> dict:
+def _onelevel_launch(plan_entry: str, shape, storage: str) -> dict:
     n = 1 if len(shape) == 3 else shape[0]
     X, Y, Z = shape[-3:]
-    lib = _entry()[1]
+    name, axes = _plan_axes((Y, Z), "vpu", "f32", storage, plan_entry)
+    lib = _library(name)
     info = (ctypes.c_int * len(ONELEVEL_PLAN_FIELDS))()
     rc = getattr(lib, plan_entry)(n, X, Y, Z, info)
     if rc:
@@ -745,20 +1207,22 @@ def _onelevel_launch(plan_entry: str, shape) -> dict:
         build.check(lib, rc, plan_entry)
     plan = dict(zip(ONELEVEL_PLAN_FIELDS, info))
     plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    plan["storage"] = axes["storage"]
     return plan
 
 
-def jacobi_plane_launch(shape) -> dict:
+def jacobi_plane_launch(shape, storage: str = "native") -> dict:
     """The launch a ``jacobi_plane_step`` call over shell-carrying blocks of
     ``shape`` (``(X, Y, Z)`` or ``(n, X, Y, Z)``) makes on the card, without
     making it: one kernel, a march of depth 1; blocks an SM the occupancy
     calculator allows, SMs, the grid's blocks and its ``waves``, the x
     chunking, the shared memory and threads a block asks and the tiles along
-    z and y (fields as ``ONELEVEL_PLAN_FIELDS``)."""
-    return _onelevel_launch("stp_jacobi_plane_plan", shape)
+    z and y (fields as ``ONELEVEL_PLAN_FIELDS``), and the build's
+    ``storage``."""
+    return _onelevel_launch("stp_jacobi_plane_plan", shape, storage)
 
 
-def jacobi_slab_launch(shape) -> dict:
+def jacobi_slab_launch(shape, storage: str = "native") -> dict:
     """The launch a ``jacobi_slab_step`` call over bare interiors of
     ``shape`` makes on the card, as ``jacobi_plane_launch``."""
-    return _onelevel_launch("stp_jacobi_slab_plan", shape)
+    return _onelevel_launch("stp_jacobi_slab_plan", shape, storage)

@@ -900,6 +900,10 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
         plan.pop(key, None)
     plan.update(compute_unit="vpu", mxu_input="f32")
     names = [h.name for h in dd._handles]
+    if dd.storage_dtype() != "native":
+        raise NotImplementedError(
+            "the stream engine on a bf16-storage domain is not ported yet (ROADMAP.md queue 1 item 9)"
+        )
     if dd.device.type == "cuda" and any(h.dtype != torch.float32 for h in dd._handles):
         raise NotImplementedError(
             "the CUDA stream kernels take float32 fields (ROADMAP.md queue 1 item 9)"

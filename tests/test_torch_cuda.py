@@ -12,13 +12,15 @@ The comparison is bitwise: each kernel repeats its plain version's
 arithmetic in the same order, built without fast-math or FMA contraction.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.models.astaroth import AstarothSim
-from stencil_tpu_torch.models.jacobi import Jacobi3D
+from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
 from stencil_tpu_torch.ops import halo_blend as hb
 from stencil_tpu_torch.ops import jacobi_kernels as jk
 from stencil_tpu_torch.ops import pack as pk
@@ -1485,3 +1487,239 @@ def test_oracles_on_card(dev, oracle):
             dd.exchange_many(2) if many else dd.exchange()
             for h, r in zip(hs, rh):
                 assert torch.equal(dd.get_curr(h).cpu(), ref.get_curr(r))
+
+
+# --- the kernel axes: bf16 storage and the tensor-core contraction (rows 1-5) ----------
+
+#: the axis values other than f32 vpu: (compute unit, operands, bf16 storage)
+AXIS_COMBOS = [("vpu", "f32", True), ("mxu", "f32", False), ("mxu_band", "f32", False), ("mxu", "bf16", False),
+               ("mxu_band", "bf16", False), ("mxu", "f32", True), ("mxu_band", "bf16", True)]
+#: the counter a launch of each combination moves
+AXIS_COUNTER = {("vpu", "f32"): "bf16_launches", ("mxu", "f32"): "mxu_launches", ("mxu_band", "f32"): "mxu_launches",
+                ("mxu", "bf16"): "mxu_bf16in_launches", ("mxu_band", "bf16"): "mxu_bf16in_launches"}
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest ulp distance of two float32 or bfloat16 tensors."""
+    it, fold = (torch.int32, -(2 ** 31)) if a.dtype == torch.float32 else (torch.int16, -(2 ** 15))
+    ai, bi = (t.contiguous().view(it).long() for t in (a, b))
+    ai, bi = (torch.where(t < 0, fold - t, t) for t in (ai, bi))
+    return int((ai - bi).abs().max())
+
+
+def _hold_axis(got, want, unit, mi, bf16, levels):
+    """bf16 storage on vpu bitwise; the contraction within 4 ulps a level
+    (f32 operands) or tests/ulp.py's ``mxu_bf16_input_atol`` (bf16); on bf16
+    storage the contraction within one bf16 ulp."""
+    assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
+    if unit == "vpu":
+        assert torch.equal(got, want)
+    elif bf16:
+        assert _ulps(got, want) <= 1
+    elif mi == "f32":
+        assert _ulps(got, want) <= 4 * levels
+    else:
+        atol = levels * 4 * 2.0 ** -9 * float(want.abs().max())
+        assert float((got.double() - want.double()).abs().max()) <= atol
+
+
+def _axis_kw(unit, mi, bf16):
+    return dict(compute_unit=unit, mxu_input=mi, f32_accumulate=bf16)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", AXIS_COMBOS)
+@pytest.mark.parametrize("shape,k", [((66, 70, 130), k) for k in (1, 4, 5, 8, 12)]
+                         + [((16, 5, 7), 4), ((9, 2, 1), 4)])
+def test_axis_wrap_forms_hold_their_plain_versions(dev, shape, k, unit, mi, bf16):
+    block = _rand(shape, 90 + k, dev).to(torch.bfloat16 if bf16 else torch.float32)
+    keep = block.clone()
+    counter = AXIS_COUNTER[unit, mi]
+    before = getattr(jk.jacobi_wrap_step, counter)
+    got = jk.jacobi_wrap_step(block, k, **_axis_kw(unit, mi, bf16))
+    torch.cuda.synchronize()
+    assert getattr(jk.jacobi_wrap_step, counter) == before + 1 and torch.equal(block, keep)
+    _hold_axis(got, jk.jacobi_wrap_step_plain(block, k, **_axis_kw(unit, mi, bf16)), unit, mi, bf16, k)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", AXIS_COMBOS)
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("form", ["ring", "slabs", "shell"])
+def test_axis_wavefront_forms_hold_their_plain_versions(dev, form, m, unit, mi, bf16):
+    """The deep cases' ragged blocks (both spheres cross them), one march
+    (m <= 4) and two (m = 8, the scratch between them at f32)."""
+    raw, org, d2, zs, gs, zv = _deep_args(dev, 3, m, m, form)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    raw, zs = raw.to(dt), None if zs is None else zs.to(dt)
+    S = slice(m, -m)
+    kw = _axis_kw(unit, mi, bf16)
+    if form == "ring":
+        fn, plain, zsl = jk.jacobi_zring_wavefront_step, jk.jacobi_zring_wavefront_step_plain, slice(None)
+        args, kw = (raw, m, org, d2, gs, zs), dict(kw, interior_offset=m)
+    else:
+        fn, plain, zsl = jk.jacobi_shell_wavefront_step, jk.jacobi_shell_wavefront_step_plain, slice(m, zv - m)
+        args, kw = (raw, m, org, d2, gs), dict(kw, interior_offset=m, z_slabs=zs, z_valid=zv)
+    counter = AXIS_COUNTER[unit, mi]
+    before = getattr(fn, counter)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a band on an untilable plane names the dense form
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        want = plain(*args, **kw)
+    assert getattr(fn, counter) == before + 1
+    if zs is None:
+        got, want = (got,), (want,)
+    _hold_axis(got[0][..., S, S, zsl], want[0][..., S, S, zsl], unit, mi, bf16, m)
+    if zs is not None:
+        _hold_axis(got[1][..., S, :, S], want[1][..., S, :, S], unit, mi, bf16, m)
+
+
+@pytest.mark.parametrize("n,X,Y,Z", PLANE_CASES)
+def test_bf16_plane_kernel_equals_plain(dev, n, X, Y, Z):
+    gs = (60, Y + 1, Z + 2)
+    blocks = _rand((n, X, Y, Z), 95, dev).to(torch.bfloat16)
+    org = _crossing_origins(n, X, gs, dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y - 2, Z - 2), gs, dev) for o in org])
+    before = jk.jacobi_plane_step.bf16_launches
+    got = jk.jacobi_plane_step(blocks, org, d2, gs, f32_accumulate=True)
+    torch.cuda.synchronize()
+    assert jk.jacobi_plane_step.bf16_launches == before + 1
+    assert torch.equal(got, jk.jacobi_plane_step_plain(blocks, org, d2, gs, f32_accumulate=True))
+
+
+@pytest.mark.parametrize("n,X,Y,Z", SLAB_CASES)
+def test_bf16_slab_kernel_equals_plain(dev, n, X, Y, Z):
+    gs = (60, Y + 1, Z + 2)
+    block = _rand((n, X, Y, Z), 96, dev).to(torch.bfloat16)
+    slabs = [_rand((n,) + s, 97 + i, dev).to(torch.bfloat16)
+             for i, s in enumerate(((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
+    org = _crossing_origins(n, X, gs, dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y, Z), gs, dev) for o in org])
+    before = jk.jacobi_slab_step.bf16_launches
+    got = jk.jacobi_slab_step(block, *slabs, org, d2, gs, f32_accumulate=True)
+    torch.cuda.synchronize()
+    assert jk.jacobi_slab_step.bf16_launches == before + 1
+    assert torch.equal(got, jk.jacobi_slab_step_plain(block, *slabs, org, d2, gs, f32_accumulate=True))
+
+
+@pytest.mark.parametrize("unit,mi,bf16", AXIS_COMBOS)
+def test_axis_forms_at_the_main_path_shapes(dev, unit, mi, bf16):
+    """512^3 wrap at k = 8, the z-ring (8, 272, 272, 256) and shell (8,
+    272^3) wavefronts at m = 8 with z slabs, as the routes call them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = torch.bfloat16 if bf16 else torch.float32
+    kw = _axis_kw(unit, mi, bf16)
+    block = _rand((512, 512, 512), 98, dev).to(dt)
+    _hold_axis(jk.jacobi_wrap_step(block, 8, **kw), jk.jacobi_wrap_step_plain(block, 8, **kw), unit, mi, bf16, 8)
+    del block
+    half, m, gs = 256, 8, (512, 512, 512)
+    r = half + 2 * m
+    org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)], dtype=torch.int32,
+                       device=dev)
+    zs = _rand((8, r, 2 * m, r), 99, dev).to(dt)
+    raw = _rand((8, r, r, half), 100, dev).to(dt)
+    d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - m, int(o[2]), m, r, half, gs, dev) for o in org])
+    got = jk.jacobi_zring_wavefront_step(raw, m, org, d2, gs, zs, **kw)
+    want = jk.jacobi_zring_wavefront_step_plain(raw, m, org, d2, gs, zs, **kw)
+    _hold_axis(got[0][:, m:-m, m:-m], want[0][:, m:-m, m:-m], unit, mi, bf16, m)
+    _hold_axis(got[1][:, m:-m, :, m:-m], want[1][:, m:-m, :, m:-m], unit, mi, bf16, m)
+    raw = _rand((8, r, r, r), 101, dev).to(dt)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - m, int(o[2]) - m, (r, r), gs, dev) for o in org])
+    got = jk.jacobi_shell_wavefront_step(raw, m, org, d2, gs, z_slabs=zs, z_valid=r, **kw)
+    want = jk.jacobi_shell_wavefront_step_plain(raw, m, org, d2, gs, z_slabs=zs, z_valid=r, **kw)
+    S = slice(m, -m)
+    _hold_axis(got[0][:, S, S, S], want[0][:, S, S, S], unit, mi, bf16, m)
+    _hold_axis(got[1][:, S, :, S], want[1][:, S, :, S], unit, mi, bf16, m)
+
+
+@pytest.mark.parametrize("mi", ["f32", "bf16"])
+def test_mxu_forms_keep_non_finite_cells_outside_the_stencils(dev, mi):
+    """A non-finite or huge value in a cell no valid cell reads (the dead
+    columns past z_valid, the shell's outer planes and rows beyond the
+    levels' reach) leaves the valid region finite and as the plain version
+    has it with those cells at 0: the tile contraction multiplies them by
+    exact zeros, so its loads take them as 0 (the plain version's dense band
+    product, as the JAX package's, would spread them along their rows; a
+    huge one would overflow a level later)."""
+    m, s = 2, 4
+    raw, org, d2, zs, gs, zv = _deep_args(dev, 2, m, s, "shell")
+    clean = raw.clone()
+    raw[..., zv:] = float("nan")
+    raw[:, 1, :s - m] = float("inf")
+    raw[:, 0, :s - m] = 3e38
+    raw[:, :, -(s - m):] = float("nan")
+    clean[..., zv:] = 0.0
+    clean[:, :2, :s - m] = 0.0
+    clean[:, :, -(s - m):] = 0.0
+    kw = dict(interior_offset=s, z_valid=zv, compute_unit="mxu", mxu_input=mi)
+    got = jk.jacobi_shell_wavefront_step(raw, m, org, d2, gs, **kw)
+    want = jk.jacobi_shell_wavefront_step_plain(clean, m, org, d2, gs, **kw)
+    S, zsl = slice(s, -s), slice(s, zv - s)
+    assert torch.isfinite(want[:, S, S, zsl]).all()
+    _hold_axis(got[:, S, S, zsl], want[:, S, S, zsl], "mxu", mi, False, m)
+
+
+def _axis_model(size, grid, **kw):
+    model = Jacobi3D(size, size, size, kernel_impl="cuda", **kw)
+    if grid:
+        model.dd.set_partition(2, 2, 2)
+    model.realize()
+    return model
+
+
+@pytest.mark.parametrize("path,grid", [("wrap", False), ("wavefront", True), ("shell", True), ("slab", True)])
+def test_axis_routes_on_card(dev, path, grid):
+    """Each route under bf16 storage and (wrap, wavefront) the contraction
+    against its f32 vpu run: tests/ulp.py's bounds, the launches in the
+    form's counter, the field inside [COLD, HOT]."""
+    from stencil_tpu_torch.kernels import ledger
+
+    ref = _axis_model(64, grid, pallas_path=path)
+    ref.step(16)
+    want = torch.from_numpy(ref.temperature())
+    kernel = {"wrap": "jacobi_wrap_step", "wavefront": "jacobi_zring_wavefront_step",
+              "shell": "jacobi_plane_step", "slab": "jacobi_slab_step"}[path]
+    if grid and path == "wavefront" and not ref._wavefront_z_ring:
+        kernel = "jacobi_shell_wavefront_step"
+    runs = [("bf16", {"storage_dtype": "bf16"})]
+    if path in ("wrap", "wavefront"):
+        runs += [("mxu", {"compute_unit": "mxu_band"}), ("mxu_bf16in", {"compute_unit": "mxu", "mxu_input": "bf16"})]
+    for form, kw in runs:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            model = _axis_model(64, grid, pallas_path=path, **kw)
+        ledger.reset_launch_counts()
+        model.step(16)
+        counts = ledger.launch_counts()
+        got = torch.from_numpy(model.temperature())
+        assert counts[f"{kernel}_{form}"] > 0 and counts[kernel] == 0, counts
+        assert COLD_TEMP <= float(got.min()) and float(got.max()) <= HOT_TEMP
+        if form == "bf16":
+            calls = counts[f"{kernel}_{form}"]
+            assert float((got - want).abs().max()) <= (calls + 1) * 2.0 ** -9
+        elif form == "mxu":
+            assert _ulps(got, want) <= 4 * 16
+        else:
+            assert float((got - want).abs().max()) <= 16 * 4 * 2.0 ** -9
+
+
+def test_default_build_is_the_explicit_vpu_native_build_on_card(dev):
+    a = _axis_model(64, True)
+    b = _axis_model(64, True, compute_unit="vpu", mxu_input="f32", storage_dtype="native")
+    a.step(12)
+    b.step(12)
+    assert np.array_equal(a.temperature(), b.temperature())
+
+
+@pytest.mark.parametrize("kw", [{"storage_dtype": "bf16"}, {"compute_unit": "mxu_band", "mxu_input": "bf16"}])
+@pytest.mark.parametrize("grid", [False, True])
+def test_axis_capture_on_card(dev, kw, grid):
+    """Captured against uncaptured under the axes: bitwise, launches equal."""
+    from stencil_tpu_torch.kernels import ledger
+
+    out = []
+    for capture in (False, True):
+        model = _axis_model(64, grid, capture=capture, **kw)
+        ledger.reset_launch_counts()
+        model.step(20)
+        out.append((model.temperature(), ledger.launch_counts()))
+    assert np.array_equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]

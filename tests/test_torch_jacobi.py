@@ -133,12 +133,13 @@ def test_wrap_marks_shell_stale_and_readback_reexchanges():
 def test_unported_options_name_the_roadmap():
     for kw in (
         {"wavefront_alias": True},
-        {"compute_unit": "mxu"},
-        {"storage_dtype": "bf16"},
         {"kernel_impl": "cuda", "dtype": torch.float64},
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Jacobi3D(8, 8, 8, device="cpu", **kw)
+    # the kernel axes are ported (tests/test_torch_kernel_axes.py)
+    for kw in ({"compute_unit": "mxu"}, {"storage_dtype": "bf16"}, {"mxu_input": "bf16"}):
+        Jacobi3D(8, 8, 8, device="cpu", **kw)
     m = Jacobi3D(8, 8, 8, device="cpu")
     # component quantities are ported: the model's domain accepts one
     h = m.dd.add_data("v", components=(3,))

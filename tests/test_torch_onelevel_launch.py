@@ -116,6 +116,7 @@ def on_card(monkeypatch):
 
     monkeypatch.setattr(build, "load", load)
     monkeypatch.setattr(jk, "_ENTRY", None)
+    monkeypatch.setattr(jk, "_VARIANTS", {})  # the other builds' cache
     monkeypatch.setattr(jk, "_ENTRIES", {})
     monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
     return card
@@ -291,3 +292,86 @@ def test_slab_wrapper_on_cpu_equals_pallas_interpret(shape, origin):
     if X == 10:
         assert (got == jk.HOT_TEMP).any() and (got == jk.COLD_TEMP).any()
     np.testing.assert_array_equal(got, want)
+
+
+# --- bf16 storage: the plane and slab forms' bf16 build ------------------------------
+
+
+def _tview(ptr: int, shape, dtype) -> torch.Tensor:
+    """A writable tensor of ``dtype`` over ``shape`` at host address ``ptr``."""
+    nbytes = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_char * nbytes).from_address(ptr), dtype=dtype).view(shape)
+
+
+@pytest.fixture
+def bf16_card(monkeypatch):
+    """Stand-in plane and slab entries in every build: each records the
+    build it was looked up in and writes the bf16 plain version."""
+    card = types.SimpleNamespace(calls=[], loads=[])
+
+    def load(name):
+        card.loads.append(name)
+        bf = torch.bfloat16
+
+        def plane(in_p, out_p, org_p, d2_p, n, X, Y, Z, gx, hot_x, cold_x, in_r2, stream):
+            card.calls.append((name, "plane", stream))
+            want = jk.jacobi_plane_step_plain(_tview(in_p, (n, X, Y, Z), bf).clone(),
+                                              _tview(org_p, (n, 3), torch.int32).clone(),
+                                              _tview(d2_p, (n, Y - 2, Z - 2), torch.int32).clone(), (gx, 1, 1),
+                                              f32_accumulate=True)
+            _tview(out_p, (n, X, Y, Z), bf).copy_(want)
+            return 0
+
+        def slab(in_p, out_p, xlo, xhi, ylo, yhi, zlo, zhi, org_p, d2_p, n, X, Y, Z, gx, hot_x, cold_x, in_r2,
+                 stream):
+            card.calls.append((name, "slab", stream))
+            faces = [_tview(p, (n,) + s, bf).clone() for p, s in zip(
+                (xlo, xhi, ylo, yhi, zlo, zhi), ((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
+            want = jk.jacobi_slab_step_plain(_tview(in_p, (n, X, Y, Z), bf).clone(), *faces,
+                                             _tview(org_p, (n, 3), torch.int32).clone(),
+                                             _tview(d2_p, (n, Y, Z), torch.int32).clone(), (gx, 1, 1),
+                                             f32_accumulate=True)
+            _tview(out_p, (n, X, Y, Z), bf).copy_(want)
+            return 0
+
+        return types.SimpleNamespace(stp_jacobi_plane=plane, stp_jacobi_slab=slab, stp_jacobi_wavefront=None,
+                                     stp_error_string=lambda code: b"stand-in error")
+
+    monkeypatch.setattr(build, "load", load)
+    for cache, value in (("_ENTRY", None), ("_ENTRIES", {}), ("_VARIANTS", {})):
+        monkeypatch.setattr(jk, cache, value)
+    monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
+    return card
+
+
+@pytest.mark.parametrize("which", ["plane", "slab"])
+def test_bf16_blocks_launch_the_bf16_build(bf16_card, which):
+    """A bfloat16 block under ``f32_accumulate`` takes the bf16 build, counts
+    under ``bf16_launches`` alone and returns the bf16 plain result; the
+    f32 build is never looked up."""
+    c = lambda t: t.clone().as_subclass(_OnCard)  # noqa: E731
+    wrapper = jk.jacobi_plane_step if which == "plane" else jk.jacobi_slab_step
+    before = {k: getattr(wrapper, k) for k in jk.STORAGE_COUNTERS}
+    if which == "plane":
+        blocks, org, d2, gs = _plane_args(2, 6, 9, 11, 5)
+        blocks = blocks.to(torch.bfloat16)
+        got = wrapper(c(blocks), c(org), c(d2), gs, f32_accumulate=True)
+        want = jk.jacobi_plane_step_plain(blocks, org, d2, gs, f32_accumulate=True)
+    else:
+        block, faces, org, d2, gs = _slab_args(2, 6, 9, 11, 5)
+        block, faces = block.to(torch.bfloat16), [f.to(torch.bfloat16) for f in faces]
+        got = wrapper(c(block), *map(c, faces), c(org), c(d2), gs, f32_accumulate=True)
+        want = jk.jacobi_slab_step_plain(block, *faces, org, d2, gs, f32_accumulate=True)
+    assert bf16_card.loads == ["jacobi_wavefront_bf16"] and bf16_card.calls == [("jacobi_wavefront_bf16", which,
+                                                                                   7000)]
+    after = {k: getattr(wrapper, k) for k in jk.STORAGE_COUNTERS}
+    assert after["bf16_launches"] == before["bf16_launches"] + 1 and after["launches"] == before["launches"]
+    assert got.dtype == torch.bfloat16 and torch.equal(got.as_subclass(torch.Tensor), want)
+    with pytest.raises(TypeError, match="f32_accumulate"):
+        jk.jacobi_plane_step(c(torch.zeros(2, 5, 5, 5, dtype=torch.bfloat16)), c(org), c(d2[:, :3, :3]), gs)
+
+
+def test_onelevel_plans_report_the_storage(on_card):
+    plan = jk.jacobi_plane_launch((8, 258, 258, 258), storage="bf16")
+    assert on_card.loads == ["jacobi_wavefront_bf16"] and plan["storage"] == "bf16"
+    assert jk.jacobi_slab_launch((8, 256, 256, 256))["storage"] == "native"

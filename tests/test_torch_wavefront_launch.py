@@ -20,6 +20,7 @@ itself runs only on the card (tests/test_torch_cuda.py).
 """
 
 import ctypes
+import warnings
 import types
 
 import jax.numpy as jnp
@@ -107,6 +108,7 @@ def on_card(monkeypatch):
 
     monkeypatch.setattr(build, "load", load)
     monkeypatch.setattr(jk, "_ENTRY", None)
+    monkeypatch.setattr(jk, "_VARIANTS", {})  # the other builds' cache
     monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
     return card
 
@@ -280,3 +282,97 @@ def test_zring_wrapper_on_cpu_equals_pallas_interpret(m, s_off):
     assert (got[0][S, S] == jk.HOT_TEMP).any() and (got[0][S, S] == jk.COLD_TEMP).any()
     np.testing.assert_array_equal(got[0].numpy()[S, S], np.asarray(want[0])[S, S])
     np.testing.assert_array_equal(got[1].numpy()[S, :, S], np.asarray(want[1])[S, :, S])
+
+
+# --- the kernel axes: each form launches its own build -------------------------------
+
+
+def _tview(ptr: int, shape, dtype) -> torch.Tensor:
+    """A writable tensor of ``dtype`` over ``shape`` at host address ``ptr``."""
+    nbytes = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_char * nbytes).from_address(ptr), dtype=dtype).view(shape)
+
+
+@pytest.fixture
+def axis_card(monkeypatch):
+    """A stand-in ``stp_jacobi_wavefront`` in every build: it records its
+    arguments and the build it was looked up in, and writes the plain
+    version of the form at the outputs' addresses."""
+    card = types.SimpleNamespace(calls=[], loads=[], form=None)
+
+    def load(name):
+        card.loads.append(name)
+
+        def entry(raw_p, out_p, org_p, d2_p, zs_p, zout_p, scratch_p, n, Xr, Yr, Zraw, W, m, s, d2_w, gx,
+                  hot_x, cold_x, in_r2, ring, stream):
+            unit, mi, bf16 = card.form
+            card.calls.append((name, scratch_p is not None, n, Xr, Yr, Zraw, W, m, s, ring, stream))
+            dt = torch.bfloat16 if bf16 else torch.float32
+            raw = _tview(raw_p, (n, Xr, Yr, Zraw), dt).clone()
+            org = _tview(org_p, (n, 3), torch.int32).clone()
+            d2 = _tview(d2_p, (n, Yr, d2_w), torch.int32).clone()
+            zs = _tview(zs_p, (n, Xr, 2 * s, Yr), dt).clone()
+            kw = dict(compute_unit=unit, mxu_input=mi, f32_accumulate=bf16, interior_offset=s)
+            if ring:
+                out, zout = jk.jacobi_zring_wavefront_step_plain(raw, m, org, d2, (gx, 1, 1), zs, **kw)
+            else:
+                out, zout = jk.jacobi_shell_wavefront_step_plain(raw, m, org, d2, (gx, 1, 1), z_slabs=zs, z_valid=W,
+                                                                 **kw)
+            _tview(out_p, (n, Xr, Yr, Zraw), dt).copy_(out)
+            _tview(zout_p, (n, Xr, 2 * s, Yr), dt).copy_(zout)
+            return 0
+
+        return types.SimpleNamespace(stp_jacobi_wavefront=entry, stp_error_string=lambda code: b"stand-in error")
+
+    monkeypatch.setattr(build, "load", load)
+    for cache, value in (("_ENTRY", None), ("_ENTRIES", {}), ("_VARIANTS", {})):
+        monkeypatch.setattr(jk, cache, value)
+    monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
+    return card
+
+
+@pytest.mark.parametrize("unit,mi,bf16,lib,counter", [
+    ("vpu", "f32", True, "jacobi_wavefront_bf16", "bf16_launches"),
+    ("mxu_band", "f32", False, "jacobi_wavefront_mxu", "mxu_launches"),
+    ("mxu", "bf16", True, "jacobi_wavefront_mxu16_bf16", "mxu_bf16in_launches")])
+@pytest.mark.parametrize("m", [2, 6])
+@pytest.mark.parametrize("form", ["ring", "slabs"])
+def test_axis_form_launches_its_build(axis_card, form, m, unit, mi, bf16, lib, counter):
+    """One lookup of the form's build, its counter alone moves, a scratch
+    where m needs two marches, the form's plain result at its dtype."""
+    axis_card.form = (unit, mi, bf16)
+    raw, org, d2, zs, gs = _case(2, m, m, form, seed=m)
+    if bf16:
+        raw, zs = raw.to(torch.bfloat16), zs.to(torch.bfloat16)
+    c = lambda t: t.clone().as_subclass(_OnCard)  # noqa: E731
+    wrapper = jk.jacobi_zring_wavefront_step if form == "ring" else jk.jacobi_shell_wavefront_step
+    before = {k: getattr(wrapper, k) for k in jk.CONTRACTION_COUNTERS}
+    kw = dict(compute_unit=unit, mxu_input=mi, f32_accumulate=bf16, interior_offset=m)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a band on an untilable plane names the dense form
+        if form == "ring":
+            got = wrapper(c(raw), m, c(org), c(d2), gs, c(zs), **kw)
+            want = jk.jacobi_zring_wavefront_step_plain(raw, m, org, d2, gs, zs, **kw)
+        else:
+            got = wrapper(c(raw), m, c(org), c(d2), gs, z_slabs=c(zs), **kw)
+            want = jk.jacobi_shell_wavefront_step_plain(raw, m, org, d2, gs, z_slabs=zs, **kw)
+    assert axis_card.loads == [lib] and len(axis_card.calls) == 1
+    assert axis_card.calls[0][1] == (m > 4) and axis_card.calls[0][-1] == 7000
+    after = {k: getattr(wrapper, k) for k in jk.CONTRACTION_COUNTERS}
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == counter) for k in after}
+    S = slice(m, -m)
+    for g, w in zip(got, want):
+        assert g.dtype == raw.dtype
+        assert torch.equal(g.as_subclass(torch.Tensor)[:, S], w[:, S])
+
+
+def test_wavefront_plan_reports_the_build(on_card):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        plan = jk.jacobi_wavefront_launch((8, 272, 272, 256), 8, ring=True, compute_unit="mxu_band",
+                                          mxu_input="bf16", storage="bf16")
+    assert on_card.loads == ["jacobi_wavefront_mxu16_bf16"]
+    assert (plan["compute_unit"], plan["mxu_input"], plan["storage"]) == ("mxu_band", "bf16", "bf16")
+    plan = jk.jacobi_wavefront_launch((8, 272, 272, 272), 8, slabs=True, storage="bf16")
+    assert on_card.loads[-1] == "jacobi_wavefront_bf16" and plan["form"] == "shell z-slab"
+    assert (plan["compute_unit"], plan["mxu_input"]) == ("vpu", "f32")

@@ -96,6 +96,7 @@ def on_card(monkeypatch):
 
     monkeypatch.setattr(build, "load", load)
     monkeypatch.setattr(jk, "_ENTRY", None)
+    monkeypatch.setattr(jk, "_VARIANTS", {})  # the other builds' cache
     monkeypatch.setattr(jk, "_ENTRIES", {})
     monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
     return card
@@ -198,3 +199,90 @@ def test_wrapper_on_cpu_equals_pallas_interpret(shape, k):
     assert jk.jacobi_wrap_step.launches == before
     assert (got == jk.HOT_TEMP).any() and (got == jk.COLD_TEMP).any()
     np.testing.assert_array_equal(got, want)
+
+
+# --- the kernel axes: each form launches its own build -------------------------------
+
+
+def _tview(ptr: int, shape, dtype) -> torch.Tensor:
+    """A writable tensor of ``dtype`` over ``shape`` at host address ``ptr``."""
+    nbytes = int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+    return torch.frombuffer((ctypes.c_char * nbytes).from_address(ptr), dtype=dtype).view(shape)
+
+
+@pytest.fixture
+def axis_card(monkeypatch):
+    """A stand-in ``stp_jacobi_wrap`` in every build: it records its
+    arguments and the build it was looked up in, and writes the plain
+    version of the form at the output's address."""
+    card = types.SimpleNamespace(calls=[], loads=[], form=None)
+
+    def load(name):
+        card.loads.append(name)
+
+        def entry(in_p, out_p, scratch_p, X, Y, Z, k, hot_x, cold_x, in_r2, stream):
+            unit, mi, bf16 = card.form
+            card.calls.append((name, scratch_p, X, Y, Z, k, stream))
+            dt = torch.bfloat16 if bf16 else torch.float32
+            src = _tview(in_p, (X, Y, Z), dt).clone()
+            want = jk.jacobi_wrap_step_plain(src, k, compute_unit=unit, mxu_input=mi, f32_accumulate=bf16)
+            _tview(out_p, (X, Y, Z), dt).copy_(want)
+            return 0
+
+        return types.SimpleNamespace(stp_jacobi_wrap=entry, stp_jacobi_wavefront=None,
+                                     stp_error_string=lambda code: b"stand-in error")
+
+    monkeypatch.setattr(build, "load", load)
+    for cache, value in (("_ENTRY", None), ("_ENTRIES", {}), ("_VARIANTS", {})):
+        monkeypatch.setattr(jk, cache, value)
+    monkeypatch.setattr(jk, "current_raw_stream", lambda index: 7000 + index)
+    return card
+
+
+@pytest.mark.parametrize("unit,mi,bf16,lib,counter", [
+    ("vpu", "f32", True, "jacobi_wavefront_bf16", "bf16_launches"),
+    ("mxu", "f32", False, "jacobi_wavefront_mxu", "mxu_launches"),
+    ("mxu_band", "bf16", False, "jacobi_wavefront_mxu16", "mxu_bf16in_launches"),
+    ("mxu_band", "f32", True, "jacobi_wavefront_mxu_bf16", "mxu_launches"),
+    ("mxu", "bf16", True, "jacobi_wavefront_mxu16_bf16", "mxu_bf16in_launches")])
+@pytest.mark.parametrize("k", [1, 8, 12])
+def test_axis_form_launches_its_build(axis_card, unit, mi, bf16, lib, counter, k):
+    """One lookup of the form's build, its counter alone moves, a scratch
+    where k needs more than one march, the form's plain result."""
+    axis_card.form = (unit, mi, bf16)
+    block = torch.from_numpy(_rand((24, 16, 32), k))
+    if bf16:
+        block = block.to(torch.bfloat16)
+    before = {c: getattr(jk.jacobi_wrap_step, c) for c in jk.CONTRACTION_COUNTERS}
+    got = jk.jacobi_wrap_step(block.clone().as_subclass(_OnCard), k, compute_unit=unit, mxu_input=mi,
+                              f32_accumulate=bf16)
+    assert axis_card.loads == [lib] and len(axis_card.calls) == 1
+    name, scratch_p, *rest = axis_card.calls[0]
+    assert rest == [24, 16, 32, k, 7000] and (scratch_p is not None) == (k > 4)
+    after = {c: getattr(jk.jacobi_wrap_step, c) for c in jk.CONTRACTION_COUNTERS}
+    assert {c: after[c] - before[c] for c in after} == {c: int(c == counter) for c in after}
+    want = jk.jacobi_wrap_step_plain(block, k, compute_unit=unit, mxu_input=mi, f32_accumulate=bf16)
+    assert got.dtype == block.dtype and torch.equal(got.as_subclass(torch.Tensor), want)
+
+
+def test_bf16_wrap_scratch_keeps_the_levels_at_f32():
+    """Under bf16 storage every march but the last writes f32 scratch: one
+    buffer for two marches, two from three on; f32 storage ping-pongs
+    through the output as before."""
+    assert jk.wrap_scratch_shape((8, 9, 10), 4, True) is None
+    assert jk.wrap_scratch_shape((8, 9, 10), 8, True) == (1, 8, 9, 10)
+    assert jk.wrap_scratch_shape((8, 9, 10), 12, True) == (2, 8, 9, 10)
+    assert jk.wrap_scratch_shape((8, 9, 10), 12, False) == (8, 9, 10)
+
+
+def test_wrap_plan_reports_the_build(on_card):
+    plan = jk.jacobi_wrap_launch((512, 512, 512), 8, compute_unit="mxu_band", mxu_input="bf16", storage="bf16")
+    assert on_card.loads == ["jacobi_wavefront_mxu16_bf16"]
+    assert (plan["compute_unit"], plan["mxu_input"], plan["storage"]) == ("mxu_band", "bf16", "bf16")
+    with pytest.warns(RuntimeWarning, match="running the dense mxu form"):
+        plan = jk.jacobi_wrap_launch((16, 13, 13), 8, compute_unit="mxu_band")
+    assert plan["compute_unit"] == "mxu" and plan["mxu_input"] == "f32"
+    plan = jk.jacobi_wrap_launch((512, 512, 512), 8, mxu_input="bf16")
+    assert (plan["compute_unit"], plan["mxu_input"], plan["storage"]) == ("vpu", "f32", "native")
+    with pytest.raises(ValueError, match="unknown storage dtype"):
+        jk.jacobi_wrap_launch((512, 512, 512), 8, storage="fp8")
