@@ -218,6 +218,28 @@ non-zero before the result line:
     Mcells/s beside the f32 vpu run's (and the same three axis runs of the
     plain wavefront at 511^3, uneven); then ``bench.py``'s ``mxu_vs_vpu``
     A/B on the wrap kernel (``bench_kernels.mxu_vs_vpu_times``).
+20. the stream kernels' field dtypes (rows 6-8): every bf16-storage and
+    float64 form held bitwise against its plain version on ragged blocks
+    (the Astaroth kernel's wrap at k = 1 and 3, the plane kernel in both
+    forms, its wavefront and the 27-point kernel's at m = 1 and 3, z-slab
+    and fused) and at the main path's shapes (8 fields of 512^3, k = 1; 8
+    fields of (8, 262^3) array and fused; one field of (1, 518^3) m = 3
+    with z slabs, and of (8, 262^3) fused), each form's CUDA-event ms and
+    device ms beside its float32 form's, its plain version's and its bound,
+    with the ptxas registers and spills of its library
+    (``bench_kernels.stream_dtype_times``); then ``AstarothSim(512^3, 8
+    fields)`` under ``storage_dtype="bf16"`` (``wavefront`` and ``auto`` on
+    1x1x1; on 2x2x2 ``per-step`` under ``direct`` and ``yzpack_pallas``,
+    ``per-step`` fused, ``auto``, ``auto`` fused, ``auto`` split, and
+    ``auto`` at 511^3) and under ``dtype=torch.float64`` (``wavefront`` and
+    ``auto`` on 1x1x1, ``per-step``, ``auto``, and both fused runs on
+    2x2x2), 24 iterations each with the counters reset before and read
+    after: every launch under the dtype's form and none under the float32
+    one, finite, held against the float32 run of its route (phases 8, 11,
+    13 and 16: ``bf16_storage_atol`` of its passes; float64 within the
+    float32 run's own rounding, ``f32_rounding_atol``), its ms/iter (the
+    better of two runs of 24) beside the float32 run's; and the bf16
+    ``wavefront`` run captured against uncaptured, bitwise.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -1091,6 +1113,312 @@ def phase19(card: str, dev: torch.device) -> dict:
     return rec
 
 
+def f32_rounding_atol(levels: int, scale: float = 6.0) -> float:
+    """How far a float32 mean-of-6 run may lie from the float64 one after
+    ``levels`` levels: seven roundings a level (six adds and the multiply)
+    of at most half an ulp at the six-sum's magnitude ``scale``, carried
+    unamplified by the mean, and the input's one rounding."""
+    return (7 * levels + 1) * 2.0 ** -24 * scale
+
+
+#: phase 20's Astaroth runs: key -> (schedule, grid, exchange route, stream
+#: halo, stream overlap, size less than N), and the phase-8/11/13/16 float32
+#: run of the same route (the record, its key) it is held against
+AST20 = {
+    "wavefront 1x1x1": ("wavefront", None, None, "auto", "auto", 0, ("ast", "wavefront 1x1x1")),
+    "auto 1x1x1": ("auto", None, None, "auto", "auto", 0, ("ast", "auto 1x1x1")),
+    "per-step 2x2x2 direct": ("per-step", (2, 2, 2), "direct", "auto", "auto", 0, ("routes_13", "direct")),
+    "per-step 2x2x2 yzpack_pallas": ("per-step", (2, 2, 2), "yzpack_pallas", "auto", "auto", 0,
+                                     ("routes_13", "yzpack_pallas")),
+    "per-step fused": ("per-step", (2, 2, 2), "yzpack_pallas", "fused", "auto", 0, ("f16", "per-step fused")),
+    "auto 2x2x2": ("auto", (2, 2, 2), None, "auto", "auto", 0, ("ast", "auto 2x2x2")),
+    "auto fused": ("auto", (2, 2, 2), "yzpack_pallas", "fused", "auto", 0, ("f16", "auto fused")),
+    "auto split": ("auto", (2, 2, 2), "direct", "auto", "split", 0, ("f16", "auto split")),
+    "auto uneven 2x2x2": ("auto", (2, 2, 2), None, "auto", "auto", 1, ("ast_u", "auto")),
+}
+#: the runs of each dtype: bf16 on every route above, f64 on the main ones
+#: and on the fused runs that launch its fused forms
+AST20_RUNS = {"bf16": list(AST20),
+              "f64": ["wavefront 1x1x1", "auto 1x1x1", "per-step 2x2x2 direct", "auto 2x2x2", "per-step fused",
+                      "auto fused"]}
+
+
+def phase20(card: str, dev: torch.device, refs: dict, f32_runs: dict) -> dict:
+    """Phase 20 (see the module's docstring): the stream kernels' field
+    dtypes, bf16 storage and float64, on rows 6-8.  ``refs``: the float32
+    interiors after ``AST_ITERS`` iterations at 512^3 and 511^3 (host
+    tensors, every float32 route's); ``f32_runs``: the float32 route
+    records by ``AST20``'s keys.  Returns the phase's record with, under
+    ``forms``, each new form's kernels-line numbers."""
+    from stencil_tpu_torch.bin import bench_kernels as bk
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    rec = {"checks": [], "forms": {}, "routes": {}, "times": {}}
+    errs = {}
+    dtypes = {"bf16": torch.bfloat16, "f64": torch.float64}
+    ast_kernel = AstarothSim(8, 8, 8, device=dev)._kernel
+
+    def hold(form: str, got, want, what: str) -> None:
+        """A kernel against its plain version: bitwise."""
+        sync()
+        got, want = (list(got), list(want)) if isinstance(got, (list, tuple)) else ([got], [want])
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                err = max_err(g, w) if g.dtype == w.dtype else float("nan")
+                raise AssertionError(f"phase 20 {form} {what}: kernel against plain version: max abs err {err}, "
+                                     f"dtypes {g.dtype} / {w.dtype}")
+        errs[form] = 0.0
+        rec["checks"].append({"form": form, "what": what, "bitwise": True})
+
+    def rand(shape, seed, dt):
+        return bk.device_rand(shape, seed, dev, dt)
+
+    # -- every form against its plain version on ragged blocks: the
+    # Astaroth kernel (the wavefront's queue form; its libraries are the main
+    # path's) and the 27-point kernel (the general form), k/m = 1 and 3; two
+    # joint fields and float32 with float64 are the card tests'
+    t0 = time.perf_counter()
+    gs_r = (30, 40, 140)
+    for dname, dt in dtypes.items():
+        for kname, fn, names in (("astaroth", ast_kernel, ["d0"]), ("k27", k27_kernel, ["u"])):
+            sk = StreamKernel(fn, names, 1, gs_r, dtypes=[dt] * len(names))
+            blocks = [rand((19, 21, 70), 400 + q, dt) for q in range(len(names))]
+            org1 = torch.tensor([3, 1, 2], dtype=torch.int32, device=dev)
+            for k in (1, 3) if kname == "astaroth" else ():
+                hold(f"stream_wrap_pass_{dname}", st.stream_wrap_pass(sk, names, blocks, k, org1, gs_r),
+                     st.stream_wrap_pass_plain(sk, names, blocks, k, org1, gs_r), f"{kname} (19,21,70) k={k}")
+            lo, hi = Dim3(1, 2, 1), Dim3(2, 1, 3)
+            n, X, Y, Z = 2, 17, 19, 70
+            raws = [rand((n, X, Y, Z), 410 + q, dt) for q in range(len(names))]
+            org2 = torch.tensor([[0, 0, 0], [13, 17, 60]], dtype=torch.int32, device=dev)
+            fs = tuple([rand((n, w, a, b), seed + q, dt) for q in range(len(names))]
+                       for seed, (w, a, b) in ((420, (lo.x + hi.x, Y, Z)), (430, (lo.y + hi.y, X, Z)),
+                                               (440, (lo.z + hi.z, Y, X))))
+            for fused in (None, fs) if kname == "astaroth" else ():
+                form = f"stream_plane_pass_{'fused_' if fused else ''}{dname}"
+                hold(form, st.stream_plane_pass(sk, names, raws, lo, hi, 1, org2, gs_r, fused_shell=fused),
+                     st.stream_plane_pass_plain(sk, names, raws, lo, hi, 1, org2, gs_r, fused_shell=fused),
+                     f"{kname} {(n, X, Y, Z)}")
+            s, n, Xr, Yr, Zr = 3, 2, 64, 100, 77
+            S = slice(s, -s)
+            raws = [rand((n, Xr, Yr, Zr), 450 + q, dt) for q in range(len(names))]
+            zs = [rand((n, Xr, 2 * s, Yr), 460 + q, dt) for q in range(len(names))]
+            fs = tuple([rand((n, 2 * s, a, b), seed + q, dt) for q in range(len(names))]
+                       for seed, (a, b) in ((470, (Yr, Zr)), (480, (Xr, Zr)), (490, (Yr, Xr))))
+            org2 = torch.tensor([[gs_r[0] - 2, 7, 3], [4, 30, 40]], dtype=torch.int32, device=dev)
+            for m in (1, 3):
+                zv = Zr - 2
+                got, gz = st.stream_wavefront_pass(sk, names, raws, m, s, org2, gs_r, z_slabs=zs, z_valid=zv)
+                want, wz = st.stream_wavefront_pass_plain(sk, names, raws, m, s, org2, gs_r, z_slabs=zs, z_valid=zv)
+                hold(f"stream_wavefront_pass_{dname}", [g[:, S, S, s:zv - s] for g in got] + [g[:, S, :, S] for g in gz],
+                     [w[:, S, S, s:zv - s] for w in want] + [w[:, S, :, S] for w in wz],
+                     f"{kname} {(n, Xr, Yr, Zr)} m={m} z slabs")
+                got, _ = st.stream_wavefront_pass(sk, names, raws, m, s, org2, gs_r, fused_shell=fs)
+                want, _ = st.stream_wavefront_pass_plain(sk, names, raws, m, s, org2, gs_r, fused_shell=fs)
+                hold(f"stream_wavefront_pass_fused_{dname}", [g[:, S, S, S] for g in got],
+                     [w[:, S, S, S] for w in want], f"{kname} {(n, Xr, Yr, Zr)} m={m} fused")
+            del raws, zs, fs, blocks
+    log(f"phase 20: every dtype form against its plain version on ragged blocks, bitwise, {len(rec['checks'])} "
+        f"checks, {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path's shapes: each form bitwise against its plain version,
+    # then its times beside the float32 form's and its bound
+    # (bench_kernels.stream_dtype_times: CUDA events, device ms, the plan,
+    # ptxas registers and spills)
+    t0 = time.perf_counter()
+    half, s, m = N // 2, 3, 3
+    ext, ws = half + 2 * s, N + 2 * s
+    shell = Dim3(s, s, s)
+    gs = (N, N, N)
+    org8 = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)], dtype=torch.int32,
+                        device=dev)
+    names8 = [f"d{q}" for q in range(AST_Q)]
+    for dname, dt in dtypes.items():
+        sk8 = StreamKernel(ast_kernel, names8, 1, gs, dtypes=[dt] * AST_Q)
+        sk1 = StreamKernel(ast_kernel, names8[:1], 1, gs, dtypes=[dt])
+        plain_ms = {}
+        blocks = [rand(gs, 500 + q, dt) for q in range(AST_Q)]
+        org0 = torch.zeros(3, dtype=torch.int32, device=dev)
+        hold(f"stream_wrap_pass_{dname}", st.stream_wrap_pass(sk8, names8, blocks, 1, org0, gs),
+             st.stream_wrap_pass_plain(sk8, names8, blocks, 1, org0, gs), f"{AST_Q} x {gs} k=1")
+        plain_ms["wrap"] = cuda_ms(lambda: st.stream_wrap_pass_plain(sk8, names8, blocks, 1, org0, gs), reps=3,
+                                   inner=1)
+        del blocks
+        torch.cuda.empty_cache()
+        raws = [rand((8, ext, ext, ext), 510 + q, dt) for q in range(AST_Q)]
+        fs = tuple([rand((8, 2 * s, ext, ext), 520 + 3 * q + j, dt) for q in range(AST_Q)] for j in range(3))
+        for key, fused in (("plane", None), ("plane fused", fs)):
+            form = f"stream_plane_pass_{'fused_' if fused else ''}{dname}"
+            hold(form, st.stream_plane_pass(sk8, names8, raws, shell, shell, 1, org8, gs, fused_shell=fused),
+                 st.stream_plane_pass_plain(sk8, names8, raws, shell, shell, 1, org8, gs, fused_shell=fused),
+                 f"{AST_Q} x (8,{ext},{ext},{ext})")
+            plain_ms[key] = cuda_ms(lambda fused=fused: st.stream_plane_pass_plain(
+                sk8, names8, raws, shell, shell, 1, org8, gs, fused_shell=fused), reps=3, inner=1)
+        del raws, fs
+        torch.cuda.empty_cache()
+        raw = [rand((1, ws, ws, ws), 530, dt)]
+        zs = [rand((1, ws, 2 * s, ws), 531, dt)]
+        orgw = torch.zeros(1, 3, dtype=torch.int32, device=dev)
+        S = slice(s, -s)
+        got, gz = st.stream_wavefront_pass(sk1, names8[:1], raw, m, s, orgw, gs, z_slabs=zs, z_valid=ws)
+        want, wz = st.stream_wavefront_pass_plain(sk1, names8[:1], raw, m, s, orgw, gs, z_slabs=zs, z_valid=ws)
+        hold(f"stream_wavefront_pass_{dname}", [got[0][:, S, S, S], gz[0][:, S, :, S]],
+             [want[0][:, S, S, S], wz[0][:, S, :, S]], f"(1,{ws},{ws},{ws}) m=3 z slabs")
+        del got, gz, want, wz
+        plain_ms["wavefront"] = cuda_ms(lambda: st.stream_wavefront_pass_plain(
+            sk1, names8[:1], raw, m, s, orgw, gs, z_slabs=zs, z_valid=ws), reps=3, inner=1)
+        del raw, zs
+        torch.cuda.empty_cache()
+        raws = [rand((8, ext, ext, ext), 540, dt)]
+        fs = tuple([rand((8, 2 * s, ext, ext), 541 + j, dt)] for j in range(3))
+        got, _ = st.stream_wavefront_pass(sk1, names8[:1], raws, m, s, org8, gs, fused_shell=fs)
+        want, _ = st.stream_wavefront_pass_plain(sk1, names8[:1], raws, m, s, org8, gs, fused_shell=fs)
+        hold(f"stream_wavefront_pass_fused_{dname}", got[0][:, S, S, S], want[0][:, S, S, S],
+             f"(8,{ext},{ext},{ext}) m=3 fused")
+        del got, want
+        plain_ms["wavefront fused"] = cuda_ms(lambda: st.stream_wavefront_pass_plain(
+            sk1, names8[:1], raws, m, s, org8, gs, fused_shell=fs), reps=3, inner=1)
+        del raws, fs
+        torch.cuda.empty_cache()
+        # the float32 forms timed once, beside the bf16 ones
+        times = bk.stream_dtype_times(dev, dname, device_ms=lambda call, n: device_ms_per_call(call, per_call=n),
+                                      f32=dname == "bf16")
+        rec["times"][dname] = times
+        times = dict(rec["times"]["bf16"], **times)
+        for key, form, shape in (("wrap", "stream_wrap_pass", f"{AST_Q} fields x ({N},{N},{N}), k=1"),
+                                 ("plane", "stream_plane_pass", f"{AST_Q} fields x (8,{ext},{ext},{ext}), shell 3"),
+                                 ("plane fused", "stream_plane_pass_fused",
+                                  f"{AST_Q} fields x (8,{ext},{ext},{ext}), buffers (8,6,{ext},{ext}) x 3"),
+                                 ("wavefront", "stream_wavefront_pass",
+                                  f"1 field x (1,{ws},{ws},{ws}) m=3 s=3, z slabs (1,{ws},6,{ws})"),
+                                 ("wavefront fused", "stream_wavefront_pass_fused",
+                                  f"1 field x (8,{ext},{ext},{ext}) m=3 s=3, buffers x 3")):
+            tkey = f"{key} {dname}" if key != "wrap" else f"wrap {dname} k=1"
+            fkey = f"{key} f32" if key != "wrap" else "wrap f32 k=1"
+            t, f = times[tkey], times[fkey]
+            rec["forms"][f"{form}_{dname}"] = {
+                "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": plain_ms[key],
+                "bound": (t["bound_ms"], t["bound_by"]), "f32_ms": f["ms"], "f32_device_ms": f["device_ms"],
+                "shape": f"{shape}, {dname}", "launch": t.get("launch"), "ptxas": t["ptxas"]}
+            r = rec["forms"][f"{form}_{dname}"]
+            log(f"{form}_{dname} {r['shape']}: CUDA events {r['ms']:.4f} ms a call, device {r['device_ms']:.4f} "
+                f"(f32 form {f['ms']:.4f}, device {f['device_ms']:.4f}; plain {r['plain_ms']:.4f}), bound "
+                f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); ptxas "
+                + ", ".join(f"{e.get('registers')} regs {e.get('spill_stores', 0)}/{e.get('spill_loads', 0)} B spill"
+                            for e in r["ptxas"]) + f" on {card}")
+        torch.cuda.empty_cache()
+    log(f"phase 20: main-path shapes held and timed in {time.perf_counter() - t0:.1f} s")
+
+    # -- Astaroth at full width under each dtype: 24 iterations with the
+    # counters reset before and read after, held against the float32 run of
+    # its route; the better of two timed runs of 24
+    def interiors_of(sim, size) -> list:
+        lo, n = sim.dd.shell_radius().lo(), sim.dd.local_spec().sz
+        dim = sim.dd.grid_dim()
+        return [sim.dd.get_curr(h)[..., lo.x:lo.x + n.x, lo.y:lo.y + n.y, lo.z:lo.z + n.z]
+                .permute(0, 3, 1, 4, 2, 5).reshape(dim.x * n.x, dim.y * n.y, dim.z * n.z)[:size, :size, :size]
+                for h in sim.handles]
+
+    def build_sim(key, dname, capture=False):
+        schedule, part, route, halo, overlap, less, _ = AST20[key]
+        size = N - less
+        kw = {"storage_dtype": "bf16"} if dname == "bf16" else {"dtype": torch.float64}
+        sim = AstarothSim(size, size, size, num_quantities=AST_Q, kernel_impl="cuda", schedule=schedule,
+                          exchange_route=route, stream_halo=halo, stream_overlap=overlap, capture=capture, **kw)
+        if part is not None:
+            sim.dd.set_partition(*part)
+        sim.realize()
+        return sim
+
+    for dname, keys in AST20_RUNS.items():
+        for key in keys:
+            size = N - AST20[key][5]
+            rec_name, rkey = AST20[key][6]
+            f32 = f32_runs[rec_name][rkey]
+            sim = build_sim(key, dname)
+            plan = sim._step._stream_plan
+            ledger.reset_launch_counts()
+            sync()
+            sim.step(AST_ITERS)
+            sync()
+            counts = {k: v for k, v in ledger.launch_counts().items() if v}
+            route = plan["route"]
+            fused = plan["halo"] == "fused"
+            kernel = f"stream_{route}_pass{'_fused' if fused else ''}"
+            form = f"{kernel}_{dname}"
+            # a launch a level (wrap), a step (plane) or a macro (wavefront),
+            # per group, and six band passes beside each under split
+            groups = AST_Q if plan["grouping"] == "per-field" else 1
+            want = groups * (AST_ITERS if route != "wavefront" else -(-AST_ITERS // plan["m"])) \
+                * (7 if plan["overlap"] == "split" else 1)
+            if counts.get(form, 0) != want or counts.get(kernel, 0) or route != f32.get("route", route):
+                raise AssertionError(f"phase 20 astaroth {key} {dname}: plan {plan}, launches {counts}, want {want} "
+                                     f"of {form} and none of {kernel} (the f32 run: {f32['launches'][kernel]})")
+            # roundings a field: one a pass (a wrap call of k levels, a macro of m)
+            passes = AST_ITERS if route == "plane" else -(-AST_ITERS // plan["m"])
+            ref = refs[size]
+            err = 0.0
+            finite = True
+            for q, got in enumerate(interiors_of(sim, size)):
+                finite = finite and bool(torch.isfinite(got).all())
+                err = max(err, float((got.double() - ref[q].to(dev).double()).abs().max()))
+            limit = bf16_storage_atol(passes) if dname == "bf16" else f32_rounding_atol(AST_ITERS)
+            dts = []
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                sim.step(AST_ITERS)
+                sync()
+                dts.append((time.perf_counter() - t0) / AST_ITERS)
+            dt = min(dts)
+            entry = {"route": route, "m": plan["m"], "f32_m": f32.get("m"), "grouping": plan["grouping"],
+                     "f32_launches": f32["launches"][kernel], "halo": plan["halo"],
+                     "overlap": plan["overlap"], "z_slabs": plan["z_slabs"], "launches": counts,
+                     "launches_of_form": counts[form], "max_abs_err_vs_f32": err, "limit": limit, "passes": passes,
+                     "ms_per_iter": dt * 1e3, "ms_per_iter_runs": [t * 1e3 for t in dts],
+                     "f32_ms_per_iter": f32["ms_per_iter"], "mupdates_per_s": AST_Q * size ** 3 / dt / 1e6}
+            rec["routes"][f"{key} {dname}"] = entry
+            log(f"phase 20 astaroth {AST_Q}q {size}^3 {key} {dname} ({route}, m={plan['m']}, {plan['grouping']}): "
+                f"{dt * 1e3:.4f} ms/iter against {f32['ms_per_iter']:.4f} (f32, phase {rec_name}); {counts[form]} "
+                f"launches of {form}; max abs err against f32 {err:.3e} (limit {limit:.3e}) on {card}")
+            if not finite or err > limit:
+                raise AssertionError(f"phase 20 astaroth {key} {dname}: finite {finite}, {err} against the f32 run "
+                                     f"exceeds {limit}")
+            fe = rec["forms"].get(form)
+            if fe is not None and "counts" not in fe:
+                fe["counts"], fe["want"] = counts, want
+            del sim
+            torch.cuda.empty_cache()
+
+    # -- capture: one bf16 route captured against uncaptured, bitwise
+    outs = []
+    for capture in (False, True):
+        sim = build_sim("wavefront 1x1x1", "bf16", capture=capture)
+        ledger.reset_launch_counts()
+        sim.step(AST_ITERS)
+        sync()
+        outs.append((ledger.launch_counts()["stream_wavefront_pass_bf16"], interiors_of(sim, N)))
+        if capture and not getattr(sim._step, "captured", None):
+            raise AssertionError("phase 20: the captured bf16 run holds no CUDA graph")
+        del sim
+    (ca, a), (cb, b) = outs
+    if ca != cb or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"phase 20: captured bf16 wavefront != uncaptured ({ca}, {cb} launches)")
+    rec["captured_bf16_wavefront"] = {"bitwise": True, "launches": ca}
+    log(f"phase 20: bf16 wavefront 1x1x1 captured bitwise equal to uncaptured, {ca} launches each")
+    del outs, a, b
+    torch.cuda.empty_cache()
+    missing = [name for name, f in rec["forms"].items() if "counts" not in f]
+    if missing:
+        raise AssertionError(f"phase 20: no route run launched {missing}")
+    rec["errs"] = errs
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -1163,6 +1491,23 @@ def main() -> int:
     # as "mean6x2": field names do not reach the emitted code)
     ak2 = StreamKernel(ast_kernel, ast_names[:2], 1, (32, 32, 32))
     stream_sources += [("stream_wavefront", st._source(ak2, *st._wavefront_variant(m))) for m in (1, 3)]
+    # phase 20's dtype builds: Astaroth's kernel over 8 fields (wrap and
+    # plane, both forms) and over one (every wavefront depth, both forms, and
+    # the ragged wrap and plane checks), the 27-point kernel's wavefront
+    for dt in (torch.bfloat16, torch.float64):
+        sk8 = StreamKernel(ast_kernel, ast_names, 1, gs_main, dtypes=[dt] * AST_Q)
+        sk1 = StreamKernel(ast_kernel, ast_names[:1], 1, gs_main, dtypes=[dt])
+        k27d = StreamKernel(k27_kernel, ["u"], 1, gs_r, dtypes=[dt])
+        for sk in (sk8, sk1):
+            stream_sources += [("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS)),
+                               ("stream_plane", st._source(sk, "stream_plane", [1])),
+                               ("stream_plane_fused", st._source(sk, "stream_plane_fused", [1], st._FUSED))]
+        for m in (1, 2, 3):
+            stream_sources += [("stream_wavefront", st._source(sk1, *st._wavefront_variant(m))),
+                               ("stream_wavefront_fused", st._source(sk1, *st._wavefront_variant(m, True)))]
+        for m in (1, 3):
+            stream_sources += [("stream_wavefront", st._source(k27d, *st._wavefront_variant(m))),
+                               ("stream_wavefront_fused", st._source(k27d, *st._wavefront_variant(m, True)))]
     # phase 15's reference: the plane route of a mean6 user kernel
     stream_sources.append(("stream_plane", st._source(StreamKernel(mean6_kernel, ["u"], 1, gs_main),
                                                       "stream_plane", [1])))
@@ -1875,6 +2220,7 @@ def main() -> int:
         del sim
         torch.cuda.empty_cache()
     ast_ref = ast_first.cpu()  # phases 13 and 16's reference, off the card until then
+    ast_ref_host = ast_ref  # and phase 20's
     del ast_first
     torch.cuda.empty_cache()
 
@@ -1884,19 +2230,7 @@ def main() -> int:
         """Arithmetic operations per cell of one field's update."""
         return sum(n.op not in ("load", "coord", "const") for n in sk.trace().live()) // len(sk.names)
 
-    def stream_wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs, fields):
-        """Bytes one stream wavefront call must move (as wavefront_bytes,
-        without the d2 plane): per field and block, the cells its m levels
-        reach read once, the valid region written once; the origins."""
-        e = s_off - m
-        Xa, Ya, Wa = Xr - 2 * e, Yr - 2 * e, W - 2 * e
-        Xi, Yi, Wi = Xr - 2 * s_off, Yr - 2 * s_off, W - 2 * s_off
-        reads = Xa * Ya * (Wa - 2 * m if slabs else Wa)
-        writes = Xi * Yi * Wi
-        if slabs:
-            reads += Xa * 2 * m * Ya
-            writes += Xi * 2 * s_off * Yi
-        return fields * n * (reads + writes) * 4 + n * 12
+    stream_wavefront_bytes = bk.stream_wavefront_bytes
 
     ops = trace_ops(ak1)
     wf_raw = [seeded((1, ws, ws, ws), 110, dev)]
@@ -2082,6 +2416,7 @@ def main() -> int:
         del sim
         torch.cuda.empty_cache()
     ast_u_ref = ast_u_ref.cpu()  # phase 16's reference, off the card until then
+    ast_u_ref_host = ast_u_ref  # and phase 20's
     torch.cuda.empty_cache()
 
     # --- 12. times of the slab and dynamic blend kernels ----------------------------
@@ -2825,6 +3160,14 @@ def main() -> int:
     errs.update(ax19["errs"])
     phase_end()
 
+    # --- 20. the stream kernels' field dtypes: bf16 storage, float64 ------------------------
+    phase_start(20)
+    dt20 = phase20(card, dev, {N: ast_ref_host, NU: ast_u_ref_host},
+                   {"ast": ast, "routes_13": routes_13, "f16": f16, "ast_u": ast_u})
+    errs.update(dt20["errs"])
+    del ast_ref_host, ast_u_ref_host
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -2886,6 +3229,12 @@ def main() -> int:
         # itemsize, f32 or tensor-core operations), given after the shape
         (name, f["counts"], STEPS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
         for name, f in ax19["forms"].items()
+    ] + [
+        # phase 20's forms: launches over 24 Astaroth iterations of the
+        # route that runs them; the bound is bench_kernels.stream_dtype_times'
+        # (bytes at the storage itemsize, or f32 / f64 operations)
+        (name, f["counts"], AST_ITERS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
+        for name, f in dt20["forms"].items()
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     entries.update({name: ledger.form_entry(name) for name in ledger.FORMS})
@@ -2938,6 +3287,10 @@ def main() -> int:
         if name == "blend_slab_dynamic":
             rows[-1].update(device_ms=dyn_dev_ms[0], ms_per_axis=dyn_ms, device_ms_per_axis=dyn_dev_ms,
                             plain_ms_per_axis=dyn_plain_ms, library_ms_per_axis=dyn_lib_ms, descriptor=dyn_desc)
+        if name in dt20["forms"]:
+            f = dt20["forms"][name]
+            rows[-1].update(device_ms=f["device_ms"], f32_ms=f["f32_ms"], f32_device_ms=f["f32_device_ms"],
+                            launch=f["launch"], ptxas=f["ptxas"], copy_bound_ms=None)
         if name in ax19["forms"]:
             f = ax19["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
@@ -2980,6 +3333,7 @@ def main() -> int:
                      "wavefront_m3_launch": m6w_launch},
         "fused_split": f16, "captured": cap17, "components_and_oracles": nd18,
         "kernel_axes": {k: v for k, v in ax19.items() if k != "errs"},
+        "stream_dtypes": {k: v for k, v in dt20.items() if k != "errs"},
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

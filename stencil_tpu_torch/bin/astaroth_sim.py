@@ -12,6 +12,9 @@ with ``--quantities``, ``--kernel-impl`` (cuda | torch), ``--schedule``
 zpack_xla | zpack_pallas | yzpack_xla | yzpack_pallas), ``--stream-overlap``
 (auto | off | split) and ``--stream-halo`` (auto | array | fused), the stream
 engine's split schedule and fused halo (``stencil_tpu/bin/_common.py:247-277``),
+the kernel axes ``--compute-unit``, ``--mxu-input`` (vpu / f32 only: the
+contraction is not ported) and ``--storage-dtype`` (native | bf16: the fields
+stored as bfloat16, the CUDA kernels accumulating at f32),
 the reference's method flags, ``--no-overlap`` and ``--trivial``, plus
 ``--partition px,py,pz``
 (subdomains on the one device) and ``--device``.  Each timed sample is one
@@ -25,6 +28,8 @@ iteration and a device synchronize, after one untimed warm-up step
         --schedule per-step --exchange-route yzpack_pallas --stream-halo fused --iters 24
     python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --partition 2,2,2 \
         --stream-overlap split --iters 24
+    python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --schedule wavefront \
+        --storage-dtype bf16 --iters 24
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import argparse
 import sys
 import time
 
-from stencil_tpu_torch.bin.jacobi3d import _METHOD_FLAGS, _add_exchange_route_flag, _parse_partition
+from stencil_tpu_torch.bin.jacobi3d import (
+    _METHOD_FLAGS, _add_exchange_route_flag, _add_kernel_axis_flags, _parse_partition,
+)
 from stencil_tpu_torch.models.astaroth import AstarothSim
 from stencil_tpu_torch.utils.config import PlacementStrategy
 from stencil_tpu_torch.utils.statistics import Statistics
@@ -63,6 +70,7 @@ def main(argv=None) -> int:
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
     _add_exchange_route_flag(p)
+    _add_kernel_axis_flags(p)
     p.add_argument("--stream-overlap", default="auto", choices=("auto", "off", "split"),
                    help="stream-engine overlap schedule: off = exchange, then the pass; split = the "
                         "interior pass beside the exchange on a second CUDA stream, then six narrow "
@@ -94,6 +102,9 @@ def main(argv=None) -> int:
         exchange_route=args.exchange_route,
         stream_overlap=args.stream_overlap,
         stream_halo=args.stream_halo,
+        compute_unit=args.compute_unit,
+        mxu_input=args.mxu_input,
+        storage_dtype=args.storage_dtype,
         device=args.device,
     )
     if args.partition is not None:

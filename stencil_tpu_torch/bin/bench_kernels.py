@@ -104,7 +104,20 @@ and (``--only`` keeps the sections named):
   ``mxu_band`` and ``mxu_band`` on bf16 operands (``mxu_band+bf16in``),
   the legs alternating over 5 reps of 10 calls (CUDA events; rep 0 dropped,
   the median kept): ms a dispatch, Mcells/s, device ms a call, the bound and
-  the speed-ups against ``vpu``, under ``bench.py``'s keys.
+  the speed-ups against ``vpu``, under ``bench.py``'s keys;
+* ``stream_bf16`` / ``stream_f64``: the stream kernels' bf16-storage and
+  float64 builds beside their float32 build on the same seeded data, at the
+  main path's shapes: #6 ``stream_wrap_pass`` over 8 Astaroth fields of
+  512^3 at k = 1 (one launch; bf16 to bf16) and k = 8 (the first launch
+  into a float32 set and the last out of one, under bf16); #7
+  ``stream_plane_pass`` over 8 fields of (8, 262^3), shell 3, in the array
+  and fused forms; #8 ``stream_wavefront_pass`` of one field at m = 3 with
+  z slabs at (1, 518^3), and in the fused form at (8, 262^3): per form its
+  device ms a call (torch.profiler over 10 calls), CUDA-event ms a call,
+  the plan (#8), the bound (the larger of the bytes a call must move at the
+  storage itemsize over 3.35 TB/s and its operations over 67 TFLOP/s at
+  float32 or 34 at float64, H100 SXM outside the tensor cores) and the
+  ptxas registers and spill bytes of each kernel the library holds.
 
 A CUDA card is required; it exits 1 without one.
 """
@@ -125,6 +138,7 @@ N = 512
 ITERS = 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+F64_FLOPS_PER_S = 34e12  # H100 SXM, f64 outside the tensor cores
 #: H100 SXM dense tensor-core peaks, by operand type
 TENSOR_FLOPS_PER_S = {"f32": 495e12, "bf16": 989e12}  # TF32 and bf16
 #: the kernels that blend_slab launches, by name: the slab unpack of
@@ -228,6 +242,22 @@ def wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs, itemsize: int = 4) -> int:
         reads += Xa * 2 * m * Ya
         writes += Xi * 2 * s_off * Yi
     return n * ((reads + writes) * itemsize + (Ya * Wa + 3) * 4)
+
+
+def stream_wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs, fields, itemsize: int = 4) -> int:
+    """Bytes one stream wavefront call must move (``wavefront_bytes``
+    without the d2 plane): per field and block, the cells its m levels reach
+    read once, the valid region written once, at ``itemsize``; the
+    origins."""
+    e = s_off - m
+    Xa, Ya, Wa = Xr - 2 * e, Yr - 2 * e, W - 2 * e
+    Xi, Yi, Wi = Xr - 2 * s_off, Yr - 2 * s_off, W - 2 * s_off
+    reads = Xa * Ya * (Wa - 2 * m if slabs else Wa)
+    writes = Xi * Yi * Wi
+    if slabs:
+        reads += Xa * 2 * m * Ya
+        writes += Xi * 2 * s_off * Yi
+    return fields * n * (reads + writes) * itemsize + n * 12
 
 
 def jacobi_bound(nbytes: int, cell_levels: int, compute_unit: str = "vpu", mxu_input: str = "f32") -> dict:
@@ -629,6 +659,164 @@ def fused_times(dev) -> dict:
     return out
 
 
+def ptxas_report(text: str) -> list:
+    """Each kernel's registers and spill bytes from nvcc's ``-Xptxas -v``
+    output: ``[{"entry", "registers", "spill_stores", "spill_loads"}]``."""
+    import re
+
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def _library_report(template: str, text: str) -> list:
+    """``ptxas_report`` of a built stream library (its ``.so.log``)."""
+    import os
+
+    from stencil_tpu_torch.kernels import build
+
+    log = build._generated_paths(template, text)[2] + ".log"
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return ptxas_report(f.read())
+
+
+def device_rand(shape, seed: int, dev, dtype) -> torch.Tensor:
+    """Seeded values in [0, 1) made on the device at float64 and rounded to
+    ``dtype`` (the main path's shapes take seconds to fill on the host)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64).to(dtype)
+
+
+def stream_dtype_times(dev, dtype: str, device_ms=None, f32: bool = True) -> dict:
+    """The ``stream_bf16`` / ``stream_f64`` section: each stream kernel's
+    ``dtype`` build beside its float32 build (module docstring; ``f32``
+    False leaves the float32 build out).  ``device_ms(call, per_call)``
+    reads a call's device ms in place of ``_profile`` (``chip_smoke.py``
+    passes its own, which falls back to CUDA events where the profiler
+    holds no launch)."""
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.kernels import build
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    kern = AstarothSim(8, 8, 8, device=dev)._kernel
+    gs = (N, N, N)
+    storage = {"bf16": torch.bfloat16, "f64": torch.float64}[dtype]
+    n, ext, s, m = 8, N // 2 + 6, 3, 3
+    shell = Dim3(s, s, s)
+    org8 = torch.tensor([[(N // 2) * (b >> 2), (N // 2) * (b >> 1 & 1), (N // 2) * (b & 1)] for b in range(n)],
+                        dtype=torch.int32, device=dev)
+    ws = N + 2 * s
+    org1 = torch.zeros(1, 3, dtype=torch.int32, device=dev)
+
+    def ops_per_cell(sk) -> int:
+        return sum(x.op not in ("load", "coord", "const") for x in sk.trace().live()) // len(sk.names)
+
+    def case(dt, fields):
+        names = [f"d{q}" for q in range(fields)]
+        return StreamKernel(kern, names, 1, gs, dtypes=[dt] * fields), names
+
+    # every library first, one nvcc each, all at once
+    dts = (torch.float32, storage) if f32 else (storage,)
+    want = []
+    for dt in dts:
+        sk8, _ = case(dt, 8)
+        sk1, _ = case(dt, 1)
+        want += [("stream_wrap", st._source(sk8, "stream_wrap", st._WRAP_LEVELS)),
+                 ("stream_plane", st._source(sk8, "stream_plane", [1])),
+                 ("stream_plane_fused", st._source(sk8, "stream_plane_fused", [1], st._FUSED)),
+                 ("stream_wavefront", st._source(sk1, *st._wavefront_variant(m))),
+                 ("stream_wavefront_fused", st._source(sk1, *st._wavefront_variant(m, True)))]
+    build.build_generated(dict.fromkeys(want))
+    libs = {t: _library_report(t, text) for t, text in want}
+
+    out = {}
+    for dt in dts:
+        label = "f32" if dt == torch.float32 else dtype
+        item = dt.itemsize
+        flops = F64_FLOPS_PER_S if dt == torch.float64 else F32_FLOPS_PER_S
+
+        def timed(call, nbytes, cell_levels, sk, template, extra=None, launches=None):
+            if device_ms is None:
+                prof = _profile(call, 10, per_call=launches)[0]
+                dev_ms = sum(prof.values())
+            else:
+                prof, dev_ms = None, device_ms(call, launches)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops_per_cell(sk) * cell_levels / flops * 1e3
+            row = {"device_ms": dev_ms, "kernels": prof, "ms": _cuda_ms(call, inner=2),
+                   "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": nbytes, "ptxas": _library_report(template, st._source(sk, *extra))}
+            return row
+
+        # #6: 8 fields x 512^3, k = 1 and 8 (launches of one level each)
+        sk8, names8 = case(dt, 8)
+        blocks = [device_rand(gs, 10 + q, dev, dt) for q in range(8)]
+        org0 = torch.zeros(3, dtype=torch.int32, device=dev)
+        for k in (1, 8):
+            call = (lambda k=k: st.stream_wrap_pass(sk8, names8, blocks, k, org0, gs))
+            # the fields read and written once a launch; under bf16 the
+            # launches between go through float32 sets
+            per_launch = [(item if lv == 1 else 4 if dt == torch.bfloat16 else item)
+                          + (item if lv == k else 4 if dt == torch.bfloat16 else item) for lv in range(1, k + 1)]
+            out[f"wrap {label} k={k}"] = timed(call, 8 * N ** 3 * sum(per_launch), 8 * N ** 3 * k, sk8,
+                                               "stream_wrap", ("stream_wrap", st._WRAP_LEVELS), launches=k)
+        del blocks
+        torch.cuda.empty_cache()
+        # #7: 8 fields x (8, 262^3), array and fused
+        raws = [device_rand((n, ext, ext, ext), 20 + q, dev, dt) for q in range(8)]
+        fs = tuple([device_rand((n, 2 * s, ext, ext), 30 + 3 * q + j, dev, dt) for q in range(8)] for j in range(3))
+        outs = [torch.empty_like(r) for r in raws]
+        nbytes = 8 * 2 * n * ext ** 3 * item
+        out[f"plane {label}"] = timed(lambda: st.stream_plane_pass(sk8, names8, raws, shell, shell, 1, org8, gs,
+                                                                   out=outs),
+                                      nbytes, 8 * n * (ext - 2 * s) ** 3, sk8, "stream_plane",
+                                      ("stream_plane", [1]))
+        out[f"plane fused {label}"] = timed(lambda: st.stream_plane_pass(sk8, names8, raws, shell, shell, 1, org8,
+                                                                         gs, out=outs, fused_shell=fs),
+                                            nbytes, 8 * n * (ext - 2 * s) ** 3, sk8, "stream_plane_fused",
+                                            ("stream_plane_fused", [1], st._FUSED))
+        del raws, fs, outs
+        torch.cuda.empty_cache()
+        # #8: one field, m = 3: z slabs at (1, 518^3); fused at (8, 262^3)
+        sk1, names1 = case(dt, 1)
+        raw = [device_rand((1, ws, ws, ws), 40, dev, dt)]
+        zs = [device_rand((1, ws, 2 * s, ws), 41, dev, dt)]
+        nbytes = stream_wavefront_bytes(1, ws, ws, ws, m, s, True, 1, item)
+        row = timed(lambda: st.stream_wavefront_pass(sk1, names1, raw, m, s, org1, gs, z_slabs=zs, z_valid=ws),
+                    nbytes, N ** 3 * m, sk1, "stream_wavefront", st._wavefront_variant(m))
+        row["launch"] = st.stream_wavefront_launch(sk1, names1, raw, m, s, gs, z_slabs=zs, z_valid=ws)
+        out[f"wavefront {label}"] = row
+        del raw, zs
+        torch.cuda.empty_cache()
+        raws = [device_rand((n, ext, ext, ext), 50, dev, dt)]
+        fs = tuple([device_rand((n, 2 * s, ext, ext), 51 + j, dev, dt)] for j in range(3))
+        nbytes = (n * ext ** 3 + n * (ext - 2 * s) ** 3) * item
+        row = timed(lambda: st.stream_wavefront_pass(sk1, names1, raws, m, s, org8, gs, fused_shell=fs),
+                    nbytes, n * (ext - 2 * s) ** 3 * m, sk1, "stream_wavefront_fused",
+                    st._wavefront_variant(m, True))
+        row["launch"] = st.stream_wavefront_launch(sk1, names1, raws, m, s, gs, fused=True)
+        out[f"wavefront fused {label}"] = row
+        del raws, fs
+        torch.cuda.empty_cache()
+    out["libraries"] = libs
+    return out
+
+
 def direct_route(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
 
@@ -658,7 +846,9 @@ def main(argv=None) -> int:
                 "jacobi_slab": lambda dev: _onelevel_case(dev, "slab"), "wavefront": wavefront_times,
                 "blend": blend_times, "zshell": zshell_times, "mean6": mean6_times,
                 "blend_dynamic": blend_dynamic_times, "fused": fused_times, "direct": direct_route,
-                "jacobi_bf16": jacobi_bf16_times, "jacobi_mxu": jacobi_mxu_times, "mxu_vs_vpu": mxu_vs_vpu_times}
+                "jacobi_bf16": jacobi_bf16_times, "jacobi_mxu": jacobi_mxu_times, "mxu_vs_vpu": mxu_vs_vpu_times,
+                "stream_bf16": lambda dev: stream_dtype_times(dev, "bf16"),
+                "stream_f64": lambda dev: stream_dtype_times(dev, "f64")}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

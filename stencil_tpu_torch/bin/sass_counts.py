@@ -1,0 +1,122 @@
+"""SASS instruction counts of the stream kernels' float32 builds, per kernel.
+
+    python -m stencil_tpu_torch.bin.sass_counts [--out FILE]
+    PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's builds
+
+Builds the float32 libraries of the stream kernel templates (#6-#8,
+``csrc/stream_*.cu``) for the traced kernels ``chip_smoke.py`` builds
+(Astaroth's over 8 fields and one, the 27-point, coordinate-forced,
+two-field mean-of-6 and off-centre two-field kernels), each template and
+depth, disassembles each with ``cuobjdump -sass`` and counts the
+instruction lines of every ``Function :`` (the anonymous namespace's hash
+taken out of the name, so that two trees' names match).  It prints, and
+writes to ``--out``, one JSON object: ``{"card", "counts": {library key:
+{function: instructions}}, "total"}``, the key naming the kernel, template
+and depth, not the source's hash.  It calls only what the port has had since
+the fused forms landed, so two trees compare like with like.  Needs nvcc
+and ``cuobjdump`` (``$CUDA_HOME/bin``), not a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+
+def _kernels():
+    import torch
+
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+
+    ast = AstarothSim(8, 8, 8, device="cpu")._kernel
+
+    def k27(views, info):
+        src, acc = views["u"], 0.0
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    acc = acc + src.sh(dx, dy, dz) / (2.0 ** (abs(dx) + abs(dy) + abs(dz)))
+        return {"u": acc / 8.0}
+
+    def forced(views, info):
+        src = views["u"]
+        cx, cy, cz = info.coords()
+        g = info.global_size
+        val = (src.sh(1, 0, 0) + src.sh(-1, 0, 0) + src.sh(0, 1, 0) + src.sh(0, -1, 0)) / 4.0
+        d2 = (cx - g.x // 2) ** 2 + (cy - g.y // 2) ** 2 + (cz - g.z // 2) ** 2
+        return {"u": torch.where(d2 < 9, 1.0, val * info.level)}
+
+    def xdiag(views, info):
+        u, c = views["u"], views["c"]
+        return {"u": (u.sh(1, 1, 0) + c.sh(-1, 0, 1) + u.sh(0, -1, -1)) / 3.0, "c": c.sh(-1, 0, 0) * 0.5 + u.center()}
+
+    return {"astaroth8": (ast, [f"d{q}" for q in range(8)]), "astaroth1": (ast, ["d0"]), "k27": (k27, ["u"]),
+            "forced": (forced, ["u"]), "mean6x2": (ast, ["a", "b"]), "xdiag": (xdiag, ["u", "c"])}
+
+
+def count_sass(text: str) -> dict:
+    """Instructions per function of ``cuobjdump -sass`` output."""
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\w*?_cu_[0-9a-f]+", "_GLOBAL__N_", m.group(1))
+            counts[cur] = 0
+        elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[cur] += 1
+    return counts
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser("sass-counts")
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    from stencil_tpu_torch.kernels import build
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    cuobjdump = shutil.which("cuobjdump", path=os.pathsep.join(
+        [os.environ.get("PATH", ""), os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")]))
+    if cuobjdump is None:
+        print("sass-counts: cuobjdump not found", file=sys.stderr)
+        return 1
+    gs = (30, 40, 140)
+    jobs = {}
+    for name, (fn, names) in _kernels().items():
+        sk = StreamKernel(fn, names, 1, gs)
+        jobs[f"{name} stream_wrap"] = ("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS))
+        jobs[f"{name} stream_plane"] = ("stream_plane", st._source(sk, "stream_plane", [1]))
+        jobs[f"{name} stream_plane_fused"] = ("stream_plane_fused",
+                                              st._source(sk, "stream_plane_fused", [1], st._FUSED))
+        for m in (1, 2, 3):
+            if not st.stream_smem_fits(m, len(names)):
+                continue
+            jobs[f"{name} stream_wavefront m={m}"] = ("stream_wavefront", st._source(sk, *st._wavefront_variant(m)))
+            jobs[f"{name} stream_wavefront_fused m={m}"] = ("stream_wavefront_fused",
+                                                            st._source(sk, *st._wavefront_variant(m, True)))
+    paths = build.build_generated(list(jobs.values()))
+    counts = {}
+    for key, path in zip(jobs, paths):
+        out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
+        counts[key] = count_sass(out)
+    card = ""
+    if shutil.which("nvidia-smi"):
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True).stdout.strip()
+    result = {"card": card, "counts": counts,
+              "total": sum(sum(c.values()) for c in counts.values())}
+    text = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

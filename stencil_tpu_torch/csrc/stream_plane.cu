@@ -41,6 +41,12 @@
 // L1/L2): the shell is at least r wide, so no read leaves the block.  A
 // shared-memory plane ring is later work.
 //
+// Field dtypes (the generated part's STP_S, STP_C and access macros,
+// ops/stream_trace.py): a launch reads each field at its compute type STP_C
+// and stores STP_S, one rounding a pass as each JAX pallas_call makes under
+// f32_accumulate (bf16 storage, float levels); the shell passes through as
+// its stored bits.
+//
 // Bitwise contract: stp_body uses __fadd_rn/__fmul_rn/... (no contraction);
 // the global coordinates are (origin + index - lo) mod global size, as
 // _yz_coord_planes computes them in the JAX package.
@@ -59,8 +65,8 @@ constexpr int kTileY = 8;
 constexpr int kMaxGridZ = 65535;
 
 struct Fields {
-  const float* in[STP_NF];
-  float* out[STP_NF];
+  const STP_S* in[STP_NF];
+  STP_S* out[STP_NF];
 };
 
 // the fused form's far-interior launch: the array body over the cells more
@@ -71,9 +77,9 @@ struct FarFields : Fields {
 
 // the fused form's band launch: the shell buffers per field, and the read radius
 struct FusedFields : Fields {
-  const float* xb[STP_NF];  // (n, lox + hix, Y, Z)
-  const float* yb[STP_NF];  // (n, loy + hiy, X, Z)
-  const float* zb[STP_NF];  // (n, loz + hiz, Y, X)
+  const STP_S* xb[STP_NF];  // (n, lox + hix, Y, Z)
+  const STP_S* yb[STP_NF];  // (n, loy + hiy, X, Z)
+  const STP_S* zb[STP_NF];  // (n, loz + hiz, Y, X)
   int r;
 };
 
@@ -112,19 +118,19 @@ __global__ void plane_level(F f, const int* __restrict__ origins, Geometry g) {
     const int64_t idx = p * plane + (int64_t)y * g.Z + z;
     if (ring || x < g.lox || x >= g.X - g.hix) {
 #pragma unroll
-      for (int q = 0; q < STP_NF; ++q) f.out[q][idx] = f.in[q][idx];  // shell passes through
+      for (int q = 0; q < STP_NF; ++q) STP_PUT(f.out[q], q, idx, STP_GET(f.in[q], q, idx));  // shell passes through
       continue;
     }
     const int xg = pmod(origins[3 * b] + x - g.lox, g.gx);
     const int yg = pmod(origins[3 * b + 1] + y - g.loy, g.gy);
     const int zg = pmod(origins[3 * b + 2] + z - g.loz, g.gz);
-    auto ld = [&](int q, int dx, int dy, int dz) -> float {
-      return f.in[q][idx + dx * plane + (int64_t)dy * g.Z + dz];
+    auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
+      return STP_LD(f.in[q], q, idx + dx * plane + (int64_t)dy * g.Z + dz);
     };
-    float out[STP_NF];
+    STP_C out[STP_NF];
     stp_body(ld, 1, xg, yg, zg, out);
 #pragma unroll
-    for (int q = 0; q < STP_NF; ++q) f.out[q][idx] = out[q];
+    for (int q = 0; q < STP_NF; ++q) STP_ST(f.out[q], q, idx, out[q]);
   }
 }
 
@@ -141,24 +147,24 @@ int launch(const F& f, const int* origins, const Geometry& g, void* stream) {
 
 // Cell (x, y, z) of block b and field q after the exchange, in the fused
 // form: the z-column buffer over the y-row buffer over the x-plane buffer at
-// shell positions, the block elsewhere.
+// shell positions, the block elsewhere, as stored (STP_P).
 // kAxes: the shells (bit 0 x, 1 y, 2 z) the cell may lie in.
 template <int kAxes = 7>
-__device__ __forceinline__ float fused_cell(const FusedFields& f, const Geometry& g, int q, int64_t b, int x,
+__device__ __forceinline__ STP_P fused_cell(const FusedFields& f, const Geometry& g, int q, int64_t b, int x,
                                             int y, int z) {
   if ((kAxes & 4) && (z < g.loz || z >= g.Z - g.hiz)) {
     const int k = z < g.loz ? z : g.loz + z - (g.Z - g.hiz);
-    return f.zb[q][((b * (g.loz + g.hiz) + k) * g.Y + y) * g.X + x];
+    return STP_GET(f.zb[q], q, ((b * (g.loz + g.hiz) + k) * g.Y + y) * g.X + x);
   }
   if ((kAxes & 2) && (y < g.loy || y >= g.Y - g.hiy)) {
     const int k = y < g.loy ? y : g.loy + y - (g.Y - g.hiy);
-    return f.yb[q][((b * (g.loy + g.hiy) + k) * g.X + x) * g.Z + z];
+    return STP_GET(f.yb[q], q, ((b * (g.loy + g.hiy) + k) * g.X + x) * g.Z + z);
   }
   if ((kAxes & 1) && (x < g.lox || x >= g.X - g.hix)) {
     const int k = x < g.lox ? x : g.lox + x - (g.X - g.hix);
-    return f.xb[q][((b * (g.lox + g.hix) + k) * g.Y + y) * g.Z + z];
+    return STP_GET(f.xb[q], q, ((b * (g.lox + g.hix) + k) * g.Y + y) * g.Z + z);
   }
-  return f.in[q][((b * g.X + x) * g.Y + y) * g.Z + z];
+  return STP_GET(f.in[q], q, ((b * g.X + x) * g.Y + y) * g.Z + z);
 }
 
 // The band on one axis of extent ext: lo + r cells at the low side and hi +
@@ -220,7 +226,7 @@ __global__ void plane_band(FusedFields f, const int* __restrict__ origins, Geome
     const int64_t idx = ((b * g.X + x) * g.Y + y) * g.Z + z;
     if (x < g.lox || x >= g.X - g.hix || y < g.loy || y >= g.Y - g.hiy || z < g.loz || z >= g.Z - g.hiz) {
 #pragma unroll
-      for (int q = 0; q < STP_NF; ++q) f.out[q][idx] = fused_cell(f, g, q, b, x, y, z);  // shell passes through
+      for (int q = 0; q < STP_NF; ++q) STP_PUT(f.out[q], q, idx, fused_cell(f, g, q, b, x, y, z));  // shell passes through
       continue;
     }
     const int xg = pmod(origins[3 * b] + x - g.lox, g.gx);
@@ -228,23 +234,25 @@ __global__ void plane_band(FusedFields f, const int* __restrict__ origins, Geome
     const int zg = pmod(origins[3 * b + 2] + z - g.loz, g.gz);
     // a read from region B's cells may reach the y and z shells only, from
     // region C's the z shell only (the regions leave out the x and y bands)
-    float out[STP_NF];
+    STP_C out[STP_NF];
     if (region == 2) {
-      auto ld = [&](int q, int dx, int dy, int dz) -> float {
-        return fused_cell<4>(f, g, q, b, x + dx, y + dy, z + dz);
+      auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
+        return STP_UP(q, fused_cell<4>(f, g, q, b, x + dx, y + dy, z + dz));
       };
       stp_body(ld, 1, xg, yg, zg, out);
     } else if (region == 1) {
-      auto ld = [&](int q, int dx, int dy, int dz) -> float {
-        return fused_cell<6>(f, g, q, b, x + dx, y + dy, z + dz);
+      auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
+        return STP_UP(q, fused_cell<6>(f, g, q, b, x + dx, y + dy, z + dz));
       };
       stp_body(ld, 1, xg, yg, zg, out);
     } else {
-      auto ld = [&](int q, int dx, int dy, int dz) -> float { return fused_cell(f, g, q, b, x + dx, y + dy, z + dz); };
+      auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
+        return STP_UP(q, fused_cell(f, g, q, b, x + dx, y + dy, z + dz));
+      };
       stp_body(ld, 1, xg, yg, zg, out);
     }
 #pragma unroll
-    for (int q = 0; q < STP_NF; ++q) f.out[q][idx] = out[q];
+    for (int q = 0; q < STP_NF; ++q) STP_ST(f.out[q], q, idx, out[q]);
   }
 }
 
@@ -269,8 +277,8 @@ extern "C" {
 
 #ifndef STP_FUSED
 
-// in/out: host arrays of STP_NF device pointers, each n (X, Y, Z) float32
-// blocks; origins: (n, 3) int32 on the device.  Returns a CUDA error code, or
+// in/out: host arrays of STP_NF device pointers, each n (X, Y, Z) blocks
+// of the field's storage type; origins: (n, 3) int32 on the device.  Returns a CUDA error code, or
 // -1 for arguments the kernel does not take.
 int stp_stream_plane_level(void* const* in, void* const* out, const int* origins, int n, int X,
                            int Y, int Z, int lox, int loy, int loz, int hix, int hiy, int hiz,
@@ -278,8 +286,8 @@ int stp_stream_plane_level(void* const* in, void* const* out, const int* origins
   if (bad_args(n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz)) return -1;
   Fields f;
   for (int q = 0; q < STP_NF; ++q) {
-    f.in[q] = static_cast<const float*>(in[q]);
-    f.out[q] = static_cast<float*>(out[q]);
+    f.in[q] = static_cast<const STP_S*>(in[q]);
+    f.out[q] = static_cast<STP_S*>(out[q]);
   }
   return launch(f, origins, Geometry{n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz}, stream);
 }
@@ -297,11 +305,11 @@ int stp_stream_plane_fused(void* const* in, void* const* xb, void* const* yb, vo
     return -1;
   FusedFields f;
   for (int q = 0; q < STP_NF; ++q) {
-    f.in[q] = static_cast<const float*>(in[q]);
-    f.out[q] = static_cast<float*>(out[q]);
-    f.xb[q] = static_cast<const float*>(xb[q]);
-    f.yb[q] = static_cast<const float*>(yb[q]);
-    f.zb[q] = static_cast<const float*>(zb[q]);
+    f.in[q] = static_cast<const STP_S*>(in[q]);
+    f.out[q] = static_cast<STP_S*>(out[q]);
+    f.xb[q] = static_cast<const STP_S*>(xb[q]);
+    f.yb[q] = static_cast<const STP_S*>(yb[q]);
+    f.zb[q] = static_cast<const STP_S*>(zb[q]);
   }
   f.r = r;
   const Geometry geo{n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz};

@@ -47,7 +47,7 @@
 //   neighbours.  Those planes are double-buffered by the parity of the
 //   march, so a plane costs ONE block barrier:
 //
-//     STP_NF x 2m planes of kQueueRows(m) x kTileW 4-byte cells
+//     STP_NF x 2m planes of kQueueRows(m) x kTileW 4-byte cells (8 at double)
 //
 //   (m = 3, one field: 49,152 B and 544 B of padding).  A thread owns
 //   kQueueRows / kQueueWarps = 2 consecutive rows of two columns; a y
@@ -65,7 +65,7 @@
 //   level-0 plane and one spare plane that each level's result goes to, all
 //   in shared memory:
 //
-//     STP_NF x (2m + 2) planes of (kTileY + 2m) x kTileW 4-byte cells
+//     STP_NF x (2m + 2) planes of (kTileY + 2m) x kTileW 4-byte cells (8 at double)
 //
 //   (m = 3, one field: 77,824 B) and m + 1 block barriers a plane.  A level
 //   may not overwrite the plane it reads: a neighbouring thread may still
@@ -95,6 +95,19 @@
 // [s, ext-s) of `out` and the interior x planes / y rows of `zout` are
 // written.
 //
+// Field dtypes (the generated part's STP_S, STP_C, STP_P and access macros,
+// ops/stream_trace.py): the planes in shared memory, the register queues and
+// the levels are STP_C (float for float and bf16 storage, double for double
+// fields and for groups that mix float with double), and the one rounding to
+// STP_S is the store of level m and of the emitted z slabs, as the JAX pass
+// keeps f32 level rings under f32_accumulate and downcasts once
+// (stencil_tpu/ops/stream.py:612-620).  The prefetch registers hold the
+// cells as loaded (STP_P, bf16 under bf16 storage) and STP_UP widens them
+// where they are used, a plane later: a widening right after the load would
+// make the SM wait on it.  Cells are sizeof(STP_C) bytes in the shared-memory
+// sizes below, so a double queue of m = 3 and one field asks 98,304 B, and
+// the double register-queue form is cut for one block an SM, not two.
+//
 // Bitwise contract: stp_body uses __fadd_rn/__fmul_rn/... (no contraction);
 // the global coordinates are (origin + index - s) mod global size, as
 // _yz_coord_planes computes them in the JAX package.  Both forms evaluate the
@@ -113,10 +126,10 @@ constexpr int kTileW = 64;  // == STREAM_TILE_W in ops/stream.py: tile columns w
 constexpr int kThreadsZ = 32;
 
 struct Args {
-  const float* raw[STP_NF];  // (n, Xr, Yr, Zr) each
-  float* out[STP_NF];
-  const float* zs[STP_NF];   // (n, Xr, 2s, Yr) each, or null
-  float* zout[STP_NF];
+  const STP_S* raw[STP_NF];  // (n, Xr, Yr, Zr) each
+  STP_S* out[STP_NF];
+  const STP_S* zs[STP_NF];   // (n, Xr, 2s, Yr) each, or null
+  STP_S* zout[STP_NF];
   const int* origins;        // (n, 3)
   int Xr, Yr, Zr;
   int W;                     // logical plane width (z_valid)
@@ -127,9 +140,9 @@ struct Args {
 
 // the fused form's arguments: the shell buffers per field (zs/zout unused)
 struct FusedArgs : Args {
-  const float* xb[STP_NF];   // (n, 2s, Yr, Zr) each
-  const float* yb[STP_NF];   // (n, 2s, Xr, Zr) each
-  const float* zb[STP_NF];   // (n, 2s, Yr, Xr) each
+  const STP_S* xb[STP_NF];   // (n, 2s, Yr, Zr) each
+  const STP_S* yb[STP_NF];   // (n, 2s, Xr, Zr) each
+  const STP_S* zb[STP_NF];   // (n, 2s, Yr, Xr) each
 };
 
 template <class A>
@@ -141,41 +154,42 @@ __device__ __forceinline__ int pmod(int a, int n) {
 }
 
 // Level-0 cell (i, y, col) of field q: the slab buffer for the z shell
-// columns in the slab form, else the block; 0 past the plane's edge.
+// columns in the slab form, else the block; 0 past the plane's edge.  As
+// stored (STP_P).
 template <bool kSlabs>
-__device__ __forceinline__ float load_cell(const Args& a, int q, int64_t xo, int64_t zxo, int y, int col) {
-  if (y >= a.Yr || col >= a.W) return 0.0f;
+__device__ __forceinline__ STP_P load_cell(const Args& a, int q, int64_t xo, int64_t zxo, int y, int col) {
+  if (y >= a.Yr || col >= a.W) return STP_P(0.0f);
   const int s = a.s;
-  if (kSlabs && col < s) return a.zs[q][zxo + (int64_t)col * a.Yr + y];
-  if (kSlabs && col >= a.W - s) return a.zs[q][zxo + (int64_t)(s + col - (a.W - s)) * a.Yr + y];
-  return a.raw[q][xo + (int64_t)y * a.Zr + col];
+  if (kSlabs && col < s) return STP_GET(a.zs[q], q, zxo + (int64_t)col * a.Yr + y);
+  if (kSlabs && col >= a.W - s) return STP_GET(a.zs[q], q, zxo + (int64_t)(s + col - (a.W - s)) * a.Yr + y);
+  return STP_GET(a.raw[q], q, xo + (int64_t)y * a.Zr + col);
 }
 
 // The fused form's level-0 cell (i, y, col) of block b and field q: the
 // z-column buffer over the y-row buffer over the x-plane buffer at shell
 // positions, the block elsewhere (xo its plane's offset); 0 past the edge.
-__device__ __forceinline__ float load_cell(const FusedArgs& a, int q, int64_t b, int i, int64_t xo, int y,
+__device__ __forceinline__ STP_P load_cell(const FusedArgs& a, int q, int64_t b, int i, int64_t xo, int y,
                                            int col) {
-  if (y >= a.Yr || col >= a.W) return 0.0f;
+  if (y >= a.Yr || col >= a.W) return STP_P(0.0f);
   const int s = a.s, Xr = a.Xr, Yr = a.Yr, Zr = a.Zr;
   if (col < s || col >= Zr - s) {
     const int k = col < s ? col : s + col - (Zr - s);
-    return a.zb[q][((b * 2 * s + k) * Yr + y) * Xr + i];
+    return STP_GET(a.zb[q], q, ((b * 2 * s + k) * Yr + y) * Xr + i);
   }
   if (y < s || y >= Yr - s) {
     const int k = y < s ? y : s + y - (Yr - s);
-    return a.yb[q][((b * 2 * s + k) * Xr + i) * Zr + col];
+    return STP_GET(a.yb[q], q, ((b * 2 * s + k) * Xr + i) * Zr + col);
   }
   if (i < s || i >= Xr - s) {
     const int k = i < s ? i : s + i - (Xr - s);
-    return a.xb[q][((b * 2 * s + k) * Yr + y) * Zr + col];
+    return STP_GET(a.xb[q], q, ((b * 2 * s + k) * Yr + y) * Zr + col);
   }
-  return a.raw[q][xo + (int64_t)y * Zr + col];
+  return STP_GET(a.raw[q], q, xo + (int64_t)y * Zr + col);
 }
 
 // Level-0 cell (i, y, col) of form A (Args: kSlabs picks the z-slab form).
 template <bool kSlabs, class A>
-__device__ __forceinline__ float level0(const A& a, int q, int64_t b, int i, int64_t xo, int64_t zxo, int y,
+__device__ __forceinline__ STP_P level0(const A& a, int q, int64_t b, int i, int64_t xo, int64_t zxo, int y,
                                         int col) {
   if constexpr (kFusedArgs<A>) {
     return load_cell(a, q, b, i, xo, y, col);
@@ -185,21 +199,21 @@ __device__ __forceinline__ float level0(const A& a, int q, int64_t b, int i, int
 }
 
 // Level m's value of cell (p, y, col) to the output and, in the slab form,
-// to the emitted slabs.
+// to the emitted slabs, rounded to the storage type.
 template <bool kSlabs>
 __device__ __forceinline__ void store_out(const Args& a, int64_t bo, int64_t zbo, int p, int y, int col,
-                                          const float (&v)[STP_NF]) {
+                                          const STP_C (&v)[STP_NF]) {
   const int s = a.s, Yr = a.Yr, W = a.W;
   const int64_t o = bo + (int64_t)p * Yr * a.Zr + (int64_t)y * a.Zr + col;
 #pragma unroll
   for (int q = 0; q < STP_NF; ++q) {
-    a.out[q][o] = v[q];
+    STP_ST(a.out[q], q, o, v[q]);
     if (kSlabs) {
       // rows [0, s): top interior columns (the -z-bound message);
       // rows [s, 2s): bottom interior columns (+z-bound)
       const int64_t zo = zbo + (int64_t)p * 2 * s * Yr + y;
-      if (col >= W - 2 * s) a.zout[q][zo + (int64_t)(col - (W - 2 * s)) * Yr] = v[q];
-      if (col < 2 * s) a.zout[q][zo + (int64_t)col * Yr] = v[q];
+      if (col >= W - 2 * s) STP_ST(a.zout[q], q, zo + (int64_t)(col - (W - 2 * s)) * Yr, v[q]);
+      if (col < 2 * s) STP_ST(a.zout[q], q, zo + (int64_t)col * Yr, v[q]);
     }
   }
 }
@@ -208,7 +222,7 @@ __device__ __forceinline__ void store_out(const Args& a, int64_t bo, int64_t zbo
 
 constexpr int kQueueWarps = 16;      // thread rows
 constexpr int kQueueTileRows = 32;   // tile rows with the apron, a multiple of the thread rows
-constexpr int kQueueMinBlocks = 2;   // blocks an SM the register budget is cut for (m <= 4)
+constexpr int kQueueMinBlocks = sizeof(STP_C) == 4 ? 2 : 1;  // blocks an SM the registers are cut for (m <= 4)
 
 // The queue form's tile rows, its apron included: kQueueTileRows, or more
 // thread rows where 2m would leave fewer than 8 output rows.
@@ -228,7 +242,7 @@ constexpr int kPad = kTileW + 4;
 // per field: two planes of each level 0..m-1
 template <int M>
 constexpr size_t smem_bytes() {
-  return ((size_t)STP_NF * 2 * M * kQueueRows(M) * kTileW + 2 * kPad) * 4;
+  return ((size_t)STP_NF * 2 * M * kQueueRows(M) * kTileW + 2 * kPad) * sizeof(STP_C);
 }
 
 template <int M>
@@ -236,11 +250,12 @@ constexpr int tile_rows() {
   return kQueueRows(M) - 2 * M;
 }
 
-// At m <= 4 the registers are cut so that two blocks fit an SM (64 a thread).
+// At m <= 4 the registers are cut so that two blocks fit an SM (64 a thread;
+// at double, one block and 128).
 template <int M, bool kSlabs, class A>
 __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefront(A a) {
-  extern __shared__ float smem_all[];
-  float* const smem = smem_all + kPad;
+  extern __shared__ STP_C smem_all[];
+  STP_C* const smem = smem_all + kPad;
   constexpr int m = M;
   constexpr int H = kQueueRows(M);
   constexpr int TW = kTileW;
@@ -249,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
   constexpr int RI = H / kQueueWarps;  // consecutive rows a thread owns
   constexpr int CI = TW / kThreadsZ;   // columns a thread owns, 32 apart
   // plane of level L (< m) of field q at march parity `par`
-  auto plane = [&](int q, int L, int par) -> float* { return smem + ((q * m + L) * 2 + par) * P; };
+  auto plane = [&](int q, int L, int par) -> STP_C* { return smem + ((q * m + L) * 2 + par) * P; };
   const int s = a.s;
   const int b = blockIdx.z / a.nchunks;
   const int chunk = blockIdx.z - b * a.nchunks;
@@ -280,8 +295,8 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
   // output plane p = i - m needs level-0 planes p-m .. p+m
   const int i0 = p_lo - m;
   const int i_end = p_hi + m;
-  // level-0 plane i of this thread's cells, fetched one plane ahead
-  float pre[STP_NF][RI][CI];
+  // level-0 plane i of this thread's cells, fetched one plane ahead, as loaded
+  STP_P pre[STP_NF][RI][CI];
   auto fetch = [&](int i) {
     const int64_t xo = bo + (int64_t)i * plane_cells, zxo = zbo + (int64_t)i * zplane;
 #pragma unroll
@@ -296,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
   // the queue of level L < m at this thread's cells: old (plane j-1) and mid
   // (plane j, also in shared memory), j = i - L - 1 while plane i marches in;
   // nw holds the newest plane of the level below the one being computed
-  float old_[STP_NF][m][RI][CI], mid[STP_NF][m][RI][CI], nw[STP_NF][RI][CI];
+  STP_C old_[STP_NF][m][RI][CI], mid[STP_NF][m][RI][CI], nw[STP_NF][RI][CI];
 #pragma unroll
   for (int q = 0; q < STP_NF; ++q)
 #pragma unroll
@@ -315,15 +330,15 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
       for (int r = 0; r < RI; ++r)
 #pragma unroll
         for (int c = 0; c < CI; ++c) {
-          nw[q][r][c] = pre[q][r][c];
-          plane(q, 0, wp)[(ty0 + r) * TW + tz0 + c * kThreadsZ] = pre[q][r][c];
+          nw[q][r][c] = STP_UP(q, pre[q][r][c]);
+          plane(q, 0, wp)[(ty0 + r) * TW + tz0 + c * kThreadsZ] = STP_UP(q, pre[q][r][c]);
         }
     if (i + 1 < i_end) fetch(i + 1);
 #pragma unroll
     for (int l = 1; l <= m; ++l) {
       const int p = i - l;  // raw plane of this level's result
       const int xg = pmod(ox + p - s, a.gx);
-      float res[STP_NF][RI][CI];
+      STP_C res[STP_NF][RI][CI];
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
 #pragma unroll
@@ -333,13 +348,13 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
           // the reads of the tile's edge in bounds
           const int ty = ty0 + r, tz = tz0 + c * kThreadsZ;
           const int k = ty * TW + tz;
-          auto ld = [&](int q, int dx, int dy, int dz) -> float {
+          auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
             if (dx < 0) return old_[q][l - 1][r][c];
             if (dx > 0) return nw[q][r][c];
             if (dz == 0 && r + dy >= 0 && r + dy < RI) return mid[q][l - 1][r + dy][c];
             return plane(q, l - 1, rp)[k + dy * TW + dz];
           };
-          float v[STP_NF];
+          STP_C v[STP_NF];
           stp_body(ld, l, xg, pmod(oy + y0 + ty - s, a.gy), pmod(oz + c0 + tz - s, a.gz), v);
           if (l == m && p >= p_lo && (own >> (r * CI + c) & 1u))
             store_out<kSlabs>(a, bo, zbo, p, y0 + ty, c0 + tz, v);
@@ -376,7 +391,7 @@ constexpr int kQueueForm = 0;
 
 template <int M>
 constexpr size_t smem_bytes() {
-  return (size_t)STP_NF * (2 * M + 2) * (kTileY + 2 * M) * kTileW * 4;
+  return (size_t)STP_NF * (2 * M + 2) * (kTileY + 2 * M) * kTileW * sizeof(STP_C);
 }
 
 template <int M>
@@ -386,7 +401,7 @@ constexpr int tile_rows() {
 
 template <int M, bool kSlabs, class A>
 __global__ void __launch_bounds__(kThreads) wavefront(A a) {
-  extern __shared__ float smem[];
+  extern __shared__ STP_C smem[];
   constexpr int m = M;
   constexpr int H = kTileY + 2 * m;
   constexpr int TW = kTileW;
@@ -411,9 +426,10 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
   const int ox = a.origins[3 * b], oy = a.origins[3 * b + 1], oz = a.origins[3 * b + 2];
   const int tz0 = threadIdx.x, ty0 = threadIdx.y;
 
-  // level-0 plane i of this thread's tile cells, into registers: issued one
-  // plane ahead, so the loads fly while the levels of the plane before run
-  float pre[STP_NF][kRowIters][kColIters];
+  // level-0 plane i of this thread's tile cells, into registers as loaded:
+  // issued one plane ahead, so the loads fly while the levels of the plane
+  // before run
+  STP_P pre[STP_NF][kRowIters][kColIters];
   auto fetch = [&](int i) {
     const int64_t xo = bo + (int64_t)i * plane_cells, zxo = zbo + (int64_t)i * zplane;
 #pragma unroll
@@ -423,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
         const int ty = ty0 + r * kThreadsY, tz = tz0 + c * kThreadsZ;
 #pragma unroll
         for (int q = 0; q < STP_NF; ++q)
-          pre[q][r][c] = ty < H && tz < TW ? level0<kSlabs>(a, q, b, i, xo, zxo, y0 + ty, c0 + tz) : 0.0f;
+          pre[q][r][c] = ty < H && tz < TW ? level0<kSlabs>(a, q, b, i, xo, zxo, y0 + ty, c0 + tz) : STP_P(0.0f);
       }
     }
   };
@@ -446,13 +462,13 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
   for (int i = i0; i < i_end; ++i) {
 #pragma unroll
     for (int q = 0; q < STP_NF; ++q) {
-      float* dst = smem + (q * NS + in_slot) * P;
+      STP_C* dst = smem + (q * NS + in_slot) * P;
 #pragma unroll
       for (int r = 0; r < kRowIters; ++r) {
 #pragma unroll
         for (int c = 0; c < kColIters; ++c) {
           const int ty = ty0 + r * kThreadsY, tz = tz0 + c * kThreadsZ;
-          if (ty < H && tz < TW) dst[ty * TW + tz] = pre[q][r][c];
+          if (ty < H && tz < TW) dst[ty * TW + tz] = STP_UP(q, pre[q][r][c]);
         }
       }
     }
@@ -473,11 +489,11 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
           if (ty >= H - l || tz >= TW - l) continue;
           const int k = ty * TW + tz;
           const int y = y0 + ty, col = c0 + tz;
-          auto ld = [&](int q, int dx, int dy, int dz) -> float {
+          auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
             const int slot = dx < 0 ? s_old : (dx == 0 ? s_new : cur);
             return smem[(q * NS + slot) * P + k + dy * TW + dz];
           };
-          float v[STP_NF];
+          STP_C v[STP_NF];
           stp_body(ld, l, xg, pmod(oy + y - s, a.gy), pmod(oz + col - s, a.gz), v);
           if (!last) {
 #pragma unroll
@@ -572,8 +588,8 @@ bool bad_args(int n, int Xr, int Yr, int Zr, int W, int m, int s, int gx, int gy
 void fill_args(Args& a, void* const* raw, void* const* out, const int* origins, int Xr, int Yr, int Zr, int W,
                int s, int gx, int gy, int gz) {
   for (int q = 0; q < STP_NF; ++q) {
-    a.raw[q] = static_cast<const float*>(raw[q]);
-    a.out[q] = static_cast<float*>(out[q]);
+    a.raw[q] = static_cast<const STP_S*>(raw[q]);
+    a.out[q] = static_cast<STP_S*>(out[q]);
     a.zs[q] = nullptr;
     a.zout[q] = nullptr;
   }
@@ -612,8 +628,8 @@ int stp_stream_wavefront(void* const* raw, void* const* out, void* const* zs, vo
   Args a;
   fill_args(a, raw, out, origins, Xr, Yr, Zr, W, s, gx, gy, gz);
   for (int q = 0; q < STP_NF && slabs; ++q) {
-    a.zs[q] = static_cast<const float*>(zs[q]);
-    a.zout[q] = static_cast<float*>(zout[q]);
+    a.zs[q] = static_cast<const STP_S*>(zs[q]);
+    a.zout[q] = static_cast<STP_S*>(zout[q]);
   }
   cudaStream_t st = (cudaStream_t)stream;
   return slabs ? launch<STP_M, true>(a, n, st) : launch<STP_M, false>(a, n, st);
@@ -643,9 +659,9 @@ int stp_stream_wavefront_fused(void* const* raw, void* const* xb, void* const* y
   FusedArgs a;
   fill_args(a, raw, out, origins, Xr, Yr, Zr, Zr, s, gx, gy, gz);
   for (int q = 0; q < STP_NF; ++q) {
-    a.xb[q] = static_cast<const float*>(xb[q]);
-    a.yb[q] = static_cast<const float*>(yb[q]);
-    a.zb[q] = static_cast<const float*>(zb[q]);
+    a.xb[q] = static_cast<const STP_S*>(xb[q]);
+    a.yb[q] = static_cast<const STP_S*>(yb[q]);
+    a.zb[q] = static_cast<const STP_S*>(zb[q]);
   }
   return launch<STP_M, false>(a, n, (cudaStream_t)stream);
 }

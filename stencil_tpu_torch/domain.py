@@ -683,6 +683,7 @@ class DistributedDomain:
         lo = shell.lo()
         names = [h.name for h in self._handles]
         components = [h.components for h in self._handles]
+        dtypes = [self.field_dtype(h) for h in self._handles]
         route = self._exchange_route
 
         def region_of(rect: Rect3):
@@ -690,7 +691,7 @@ class DistributedDomain:
             region = tuple(slice(rect.lo[ax], rect.hi[ax]) for ax in range(3))
             info = BlockInfo(self._origin_views(), n, self._size, self._radius, region)
             static = {"interior": info.interior, "radius": info.radius, "region": info.region}
-            return info, StreamKernel(kernel, names, None, self._size, static, components)
+            return info, StreamKernel(kernel, names, None, self._size, static, components, dtypes)
 
         # sub-step regions in interior-local coords: the whole shell is valid
         # after the exchange and each sub-step shrinks it by the user radius,

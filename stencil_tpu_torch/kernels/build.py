@@ -105,7 +105,8 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers, one pe
 #: from them
 TEMPLATE_SIGNATURES: Dict[str, Dict[str, list]] = {
     "stream_wrap": {
-        "stp_stream_wrap_level": [_PP, _PP, _P] + [_I] * 7 + [_P],
+        # in, out, origin; X, Y, Z, gx, gy, gz, level, in_acc, out_acc; stream
+        "stp_stream_wrap_level": [_PP, _PP, _P] + [_I] * 9 + [_P],
     },
     "stream_plane": {
         "stp_stream_plane_level": [_PP, _PP, _P] + [_I] * 13 + [_P],

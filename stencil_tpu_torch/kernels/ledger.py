@@ -6,7 +6,8 @@ names the port's wrapper (which launches the hand-written kernel on CUDA
 tensors), its plain PyTorch version, the CUDA source and the line of the TPU
 kernel it replaces.  Every entry is ported.  ``FORMS`` lists the forms of a
 ported kernel that count their launches apart (the fused forms of the stream
-plane and wavefront kernels; the Jacobi kernels' bf16-storage and
+plane and wavefront kernels; the stream kernels' bf16-storage and float64
+builds, ``ops/stream.py`` ``_count``; the Jacobi kernels' bf16-storage and
 tensor-core forms, ``ops/jacobi_kernels.py`` ``form_counter``), by the
 wrapper's counter that counts them.
 """
@@ -126,6 +127,12 @@ PORTED_KERNELS: Dict[Tuple[str, str], dict] = {
 FORMS: Dict[str, Tuple[Tuple[str, str], str]] = {
     "stream_plane_pass_fused": ((_ST, "stream_plane_pass"), "fused_launches"),
     "stream_wavefront_pass_fused": ((_ST, "stream_wavefront_pass"), "fused_launches"),
+    # the stream kernels' field dtypes: bf16 storage (float levels) and
+    # float64 fields (a group with one), each in the array and fused forms
+    **{f"stream_{fn}_pass_{dt}": ((_ST, f"stream_{fn}_pass"), f"{dt}_launches")
+       for fn in ("wrap", "plane", "wavefront") for dt in ("bf16", "f64")},
+    **{f"stream_{fn}_pass_fused_{dt}": ((_ST, f"stream_{fn}_pass"), f"fused_{dt}_launches")
+       for fn in ("plane", "wavefront") for dt in ("bf16", "f64")},
     # the Jacobi kernels' axes: bf16 storage (vpu), and the tensor-core
     # contraction on f32 / bf16 operands (either storage)
     **{f"{fn}_{form}": ((_JP, fn), f"{form}_launches")

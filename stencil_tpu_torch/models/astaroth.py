@@ -39,11 +39,22 @@ and the plain wavefront form, and the packed ``*_pallas`` routes run the
 hand-written shell pack kernels.  The z-slab wavefront's x/y exchange stays
 ``direct``, as in the JAX package.
 
+Field dtypes: ``dtype=torch.float64`` runs every route at float64 (the CUDA
+kernels' float64 builds); ``storage_dtype="bf16"`` stores every field as
+bfloat16 and runs the CUDA kernels' bf16 builds, which read at float32, keep
+their levels at float32 and round once a pass (the JAX package's
+``f32_accumulate``).  The storage axis resolves as the JAX package's
+``realize`` resolves it, without its env and tune sources: the explicit
+request, else ``native``; the torch engine has no such kernels and degrades
+a bf16 request to native with a ``RuntimeWarning``, and so do non-f32 fields.
+The initial field is rounded from float64 to float32 and then to bfloat16,
+where the JAX package rounds once: the tests hand its fields across.
+
 Not ported: the MXU form (``_kernel_mxu``, ``compute_unit="mxu"``; ROADMAP.md
-queue 1 item 9), bf16 storage (item 9), the numerics guardband and
-divergence sentinel (items 10/11), ``rebuild_after_reshard`` and the tune
-cache (items 11/13).  Each raises ``NotImplementedError`` naming its item
-where the JAX package takes an argument for it.
+queue 1 item 9), the numerics guardband and divergence sentinel (items
+10/11), ``rebuild_after_reshard`` and the tune cache (items 11/13).  Each
+raises ``NotImplementedError`` naming its item where the JAX package takes an
+argument for it.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
+from stencil_tpu_torch.ops.jacobi_kernels import resolve_storage_dtype
 from stencil_tpu_torch.utils.config import PlacementStrategy
 
 
@@ -91,10 +103,6 @@ class AstarothSim:
             raise NotImplementedError(
                 "the divergence sentinel is not ported yet (ROADMAP.md queue 1 items 10/11)"
             )
-        if storage_dtype not in (None, "auto", "native"):
-            raise NotImplementedError(
-                f"storage_dtype={storage_dtype!r} is not ported yet (ROADMAP.md queue 1 item 9)"
-            )
         if compute_unit not in ("auto", "vpu") or mxu_input not in ("auto", "f32"):
             raise NotImplementedError(
                 f"compute_unit={compute_unit!r}, mxu_input={mxu_input!r}: only vpu/f32 is ported "
@@ -114,9 +122,20 @@ class AstarothSim:
         self.schedule = schedule
         self.stream_overlap = stream_overlap
         self.stream_halo = stream_halo
+        self.storage_dtype_request = storage_dtype
+        self._storage_dtype = "native"
         self._step = None
 
     def realize(self) -> None:
+        # the storage axis resolves before allocation (the JAX package's
+        # realize, without its env and tune sources); only the CUDA engine
+        # has f32-accumulate kernels
+        sd, _ = resolve_storage_dtype(
+            self.storage_dtype_request, [h.dtype for h in self.handles], where=f"astaroth:{self.kernel_impl}",
+            engine_ok=self.kernel_impl == "cuda", engine_why="the torch engine has no f32-accumulate kernels")
+        self._storage_dtype = sd
+        if sd != "native":
+            self.dd.set_storage(sd)
         self.dd.realize()
         w = 2 * math.pi / self.period
         for h in self.handles:

@@ -25,8 +25,19 @@ a group); on a CPU tensor it runs the plain version.
 ``plan_stream`` and ``make_stream_step`` pick and build the routes as the
 JAX package does, with a Hopper shared-memory model (``stream_smem_fits``)
 in place of the VMEM model: a constant of tile, depth and field count, so
-the CPU and the card plan the same depth.  Not ported here: the MXU units,
-bf16 inputs and bf16 storage (ROADMAP.md queue 1 item 9), the env and tune
+the CPU and the card plan the same depth.
+
+**Field dtypes** (``stencil_tpu/ops/stream.py``'s ``f32_accumulate`` and its
+float64 fields): each pass takes float32, float64 or bf16-storage fields
+(float32 and float64 may share a joint group).  A float64 field computes at
+float64; a bfloat16 field is read at float32, keeps its levels at float32 and
+is rounded once to bfloat16 at the pass's store, as each JAX ``pallas_call``
+rounds once; the wrap pass's k launches keep the levels between them in
+float32 buffers for that.  Each dtype combination is a build of its own (the
+emitted body names its types), and its launches count apart
+(``bf16_launches``, ``f64_launches`` and their fused twins).
+
+Not ported here: the MXU units and bf16 inputs (ROADMAP.md queue 1 item 9), the env and tune
 sources of the overlap and halo axes, the tune cache, telemetry events and
 the resilience ladder (items 10/11).
 
@@ -84,7 +95,7 @@ from stencil_tpu_torch.ops.exchange import (
 )
 from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
 from stencil_tpu_torch.ops.jacobi_kernels import _WRAP_MAX_K, SMEM_PER_BLOCK, _emit
-from stencil_tpu_torch.ops.stream_trace import PlaneInfo, PlaneView, StreamKernel
+from stencil_tpu_torch.ops.stream_trace import STORAGE, PlaneInfo, PlaneView, StreamKernel, compute_kind
 
 __all__ = [
     "PlaneInfo", "PlaneView", "StreamKernel", "make_stream_step", "plan_stream",
@@ -173,36 +184,77 @@ def permute_and_extend_z_slabs(zout: torch.Tensor, s: int, yext, xext) -> torch.
 # --- shared pieces of the three kernels ---------------------------------------------
 
 
-def stream_smem_bytes(m: int, n_fields: int) -> int:
+def stream_smem_bytes(m: int, n_fields: int, itemsize: int = 4) -> int:
     """The plan's model of one block of the m-level stream wavefront kernel:
     per field, 2m + 2 planes (two per level below m, the incoming one and a
-    spare for each level's result) of (32 + 2m) x 64 4-byte cells, what the
-    kernel's general form asks; its register-queue form asks less
-    (``csrc/stream_wavefront.cu``), and each launch computes its own.  A
-    constant of depth and field count, so the CPU and the card plan the same
-    depth."""
-    return n_fields * (2 * m + 2) * (STREAM_TILE_Y + 2 * m) * STREAM_TILE_W * 4
+    spare for each level's result) of (32 + 2m) x 64 cells of ``itemsize``
+    bytes, the compute type the levels are kept at (``ring_itemsize``: 4
+    for float32 and bf16 storage, whose rings are float32, 8 when a field is
+    float64), what the kernel's general form asks; its register-queue form
+    asks less (``csrc/stream_wavefront.cu``), and each launch computes its
+    own.  A constant of depth, field count and dtypes, so the CPU and the
+    card plan the same depth."""
+    return n_fields * (2 * m + 2) * (STREAM_TILE_Y + 2 * m) * STREAM_TILE_W * itemsize
 
 
-def stream_smem_fits(m: int, n_fields: int) -> bool:
-    return stream_smem_bytes(m, n_fields) <= SMEM_PER_BLOCK
+def stream_smem_fits(m: int, n_fields: int, itemsize: int = 4) -> bool:
+    return stream_smem_bytes(m, n_fields, itemsize) <= SMEM_PER_BLOCK
 
 
-def _as_kernel(kernel: Kernel, names: Sequence[str], x_radius: int, global_size) -> StreamKernel:
-    """A traced kernel for ``names``: ``kernel`` itself when it is one (the
-    engine traces once per step build), else a new trace of the callable."""
+def ring_itemsize(dtypes: Sequence[torch.dtype]) -> int:
+    """The bytes of a cell of the wavefront kernel's planes for fields of
+    these storage dtypes: 8 when one is float64 (a group that mixes float32
+    with float64 keeps every plane at double), else 4 (the JAX package's
+    ``ring_itemsizes`` rule, ``stencil_tpu/ops/stream.py:802-816``: bf16
+    storage keeps float32 rings)."""
+    return 8 if torch.float64 in set(dtypes) else 4
+
+
+def _form(ts: Sequence[torch.Tensor]) -> str:
+    """The form a launch over these fields counts under: ``"bf16"`` (bf16
+    storage, float levels), ``"f64"`` (a float64 field among them) or ``""``
+    (float32)."""
+    kinds = {STORAGE[t.dtype] for t in ts}
+    return "bf16" if "bf16" in kinds else "f64" if "f64" in kinds else ""
+
+
+def _count(wrapper, form: str, fused: bool = False) -> None:
+    """One launch of ``wrapper`` in ``form`` (``_form``), in its fused form
+    when ``fused``: ``[fused_][form_]launches``."""
+    counter = ("fused_" if fused else "") + (f"{form}_" if form else "") + "launches"
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def _as_kernel(kernel: Kernel, names: Sequence[str], x_radius: int, global_size,
+               fields: Sequence[torch.Tensor]) -> StreamKernel:
+    """A traced kernel for ``names`` over ``fields`` (their storage dtypes):
+    ``kernel`` itself when it is one (the engine traces once per step
+    build), else a new trace of the callable."""
+    dtypes = [t.dtype for t in fields]
     if isinstance(kernel, StreamKernel):
         if kernel.names != list(names):
             raise ValueError(f"traced kernel fields {kernel.names} != {list(names)}")
+        if kernel.dtypes != dtypes:
+            raise TypeError(f"traced kernel dtypes {kernel.dtypes} != the fields' {dtypes}")
         return kernel
-    return StreamKernel(kernel, names, x_radius, global_size)
+    return StreamKernel(kernel, names, x_radius, global_size, dtypes=dtypes)
 
 
-def _check_fields(ts: Sequence[torch.Tensor], what: str, ndims) -> Tuple[torch.Size, torch.device]:
+def _check_fields(ts: Sequence[torch.Tensor], what: str, ndims, like=None) -> Tuple[torch.Size, torch.device]:
+    """One shape for all, each of the storage dtypes the kernels take
+    (float32, bfloat16, float64; bfloat16 with no other); ``like``: the
+    fields these buffers belong to, one each, whose dtypes they must have."""
     if not ts:
         raise ValueError(f"{what}: no fields")
-    for t in ts:
-        check_tensor(t, what, ndims=ndims, dtype=torch.float32)
+    for j, t in enumerate(ts):
+        check_tensor(t, what, ndims=ndims)
+        if like is not None and t.dtype != like[j].dtype:
+            raise TypeError(f"{what} must be {like[j].dtype} (its field's dtype), got {t.dtype}")
+        if t.dtype not in STORAGE:
+            raise TypeError(f"{what} must be torch.float32, torch.bfloat16 or torch.float64, got {t.dtype}")
+    kinds = {STORAGE[t.dtype] for t in ts}
+    if "bf16" in kinds and len(kinds) > 1:
+        raise TypeError(f"{what}: bfloat16 fields stream only with bfloat16 fields, got {[t.dtype for t in ts]}")
     if any(t.shape != ts[0].shape for t in ts):
         raise ValueError(f"{what}: every field must have one shape, got {[tuple(t.shape) for t in ts]}")
     return ts[0].shape, same_device(*ts)
@@ -232,10 +284,18 @@ def _source(sk: StreamKernel, template: str, levels: Sequence[int], defines: str
     return text
 
 
-def _full(vals: Sequence[torch.Tensor], shape) -> List[torch.Tensor]:
+def _full(vals: Sequence[torch.Tensor], shape, dtypes: Sequence[torch.dtype]) -> List[torch.Tensor]:
     """Each value broadcast to ``shape`` as a tensor of its own (a constant
-    or a pass-through output may be a view)."""
-    return [v.expand(shape).contiguous() if v.shape != shape else v for v in vals]
+    or a pass-through output may be a view), at its field's compute dtype
+    (a pass-through of a bf16 level-0 block upcast, as the JAX ring keeps
+    it)."""
+    return [(v.expand(shape).contiguous() if v.shape != shape else v).to(d) for v, d in zip(vals, dtypes)]
+
+
+def _compute_dtypes(ts: Sequence[torch.Tensor]) -> List[torch.dtype]:
+    """Each field's compute dtype (``stream_trace.compute_kind``): float64
+    for float64, float32 for float32 and bfloat16 storage."""
+    return [torch.float64 if compute_kind(t.dtype) == "f64" else torch.float32 for t in ts]
 
 
 def _roll(t: torch.Tensor, dx: int, dy: int, dz: int) -> torch.Tensor:
@@ -257,7 +317,7 @@ def _check_fused(fused_shell, raws, lo, hi) -> None:
     """The fused shell buffers of ``raws`` (``(X, Y, Z)`` or ``(n, X, Y, Z)``
     blocks per field): ``(xbufs, ybufs, zbufs)``, one tensor per field each,
     ``(.., lo.x + hi.x, Y, Z)``, ``(.., lo.y + hi.y, X, Z)`` and ``(.., lo.z
-    + hi.z, Y, X)`` float32 on the blocks' device (``fused_shell_exchange``'s
+    + hi.z, Y, X)`` of the field's dtype on the blocks' device (``fused_shell_exchange``'s
     layouts).  The passes' own checks hold every shell width >= 1."""
     if not (isinstance(fused_shell, (tuple, list)) and len(fused_shell) == 3):
         raise ValueError("fused_shell must be (xbufs, ybufs, zbufs)")
@@ -266,7 +326,7 @@ def _check_fused(fused_shell, raws, lo, hi) -> None:
     for what, bufs, want in zip(("xbufs", "ybufs", "zbufs"), fused_shell, wants):
         if len(bufs) != len(raws):
             raise ValueError(f"fused_shell {what}: {len(bufs)} buffers for {len(raws)} fields")
-        shape, _ = _check_fields(bufs, f"fused_shell {what}", (len(lead) + 3,))
+        shape, _ = _check_fields(bufs, f"fused_shell {what}", (len(lead) + 3,), like=raws)
         if tuple(shape) != (*lead, *want):
             raise ValueError(f"fused_shell {what}: shape {tuple(shape)}, want {(*lead, *want)}")
         same_device(raws[0], bufs[0])
@@ -310,9 +370,13 @@ def _check_wrap(names, blocks, k, origin):
 
 def stream_wrap_pass_plain(kernel: Kernel, names, blocks, k: int, origin, global_size) -> List[torch.Tensor]:
     """``k`` levels of ``kernel`` over the whole periodic domain, one
-    ``(X, Y, Z)`` tensor per field, with rolls; returns new tensors."""
+    ``(X, Y, Z)`` tensor per field, with rolls; returns new tensors.  Each
+    field's levels run at its compute dtype and the result is rounded once
+    to its storage dtype (bfloat16 blocks: the JAX package's
+    ``f32_accumulate``; float64 blocks compute at float64)."""
     shape, dev = _check_wrap(names, blocks, k, origin)
-    sk = _as_kernel(kernel, names, 1, global_size)
+    sk = _as_kernel(kernel, names, 1, global_size, blocks)
+    cdt = _compute_dtypes(blocks)
     X, Y, Z = shape
     gx, gy, gz = sk.global_size
     org = origin.cpu()
@@ -321,8 +385,9 @@ def stream_wrap_pass_plain(kernel: Kernel, names, blocks, k: int, origin, global
     cur = list(blocks)
     for level in range(1, k + 1):
         src = cur
-        cur = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level), shape)
-    return cur
+        cur = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level), shape,
+                    cdt)
+    return [c.to(b.dtype) for c, b in zip(cur, blocks)]
 
 
 def _check_outs(out, ins) -> List[torch.Tensor]:
@@ -330,8 +395,8 @@ def _check_outs(out, ins) -> List[torch.Tensor]:
     an input."""
     if len(out) != len(ins):
         raise ValueError(f"out holds {len(out)} tensors for {len(ins)} fields")
-    for o in out:
-        check_out(o, ins[0])
+    for o, t in zip(out, ins):
+        check_out(o, t)
     if {o.data_ptr() for o in out} & {t.data_ptr() for t in ins}:
         raise ValueError("out must not alias the inputs")
     return list(out)
@@ -339,37 +404,49 @@ def _check_outs(out, ins) -> List[torch.Tensor]:
 
 def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size, out=None) -> List[torch.Tensor]:
     """``k`` levels of ``kernel`` over the WHOLE periodic domain (the single-
-    subdomain route), one ``(X, Y, Z)`` float32 tensor per field; ``origin``
-    the (3,) int32 global start.  Returns ``out`` (new tensors when None);
-    ``blocks`` are left as they were.  On CUDA: ``k`` launches of the
-    one-level kernel over all fields, ping-ponging between the outputs and a
-    second set of fresh buffers."""
+    subdomain route), one ``(X, Y, Z)`` tensor per field (float32, bfloat16
+    storage with float32 levels, float64; ``stream_wrap_pass_plain``);
+    ``origin`` the (3,) int32 global start.  Returns ``out`` (new tensors
+    when None); ``blocks`` are left as they were.  On CUDA: ``k`` launches
+    of the one-level kernel over all fields, ping-ponging between the
+    outputs and a second set of fresh buffers; under bf16 storage the
+    levels between the first launch and the last go through two float32
+    sets instead, so that the call rounds once, as the JAX pass does."""
     shape, dev = _check_wrap(names, blocks, k, origin)
     if out is not None:
         out = _check_outs(out, blocks)
     if dev.type == "cpu":
         res = stream_wrap_pass_plain(kernel, names, blocks, k, origin, global_size)
         return res if out is None else [o.copy_(r) for o, r in zip(out, res)]
-    sk = _as_kernel(kernel, names, 1, global_size)
+    sk = _as_kernel(kernel, names, 1, global_size, blocks)
     lib = _library(sk, "stream_wrap", _WRAP_LEVELS if k <= _WRAP_MAX_K else range(1, k + 1))
     X, Y, Z = shape
     gx, gy, gz = sk.global_size
-    bufs = [[torch.empty_like(b) for b in blocks] if out is None else out,
-            [torch.empty_like(b) for b in blocks] if k > 1 else None]
+    form = _form(blocks)
+    outs = [torch.empty_like(b) for b in blocks] if out is None else out
+    if form == "bf16":  # float32 sets between the first launch and the last
+        sets = [[b.new_empty(shape, dtype=torch.float32) for b in blocks] for _ in range(min(2, k - 1))]
+        dst_of = lambda level: outs if level == k else sets[(level - 1) % 2]  # noqa: E731
+    else:
+        spare = [torch.empty_like(b) for b in blocks] if k > 1 else None
+        dst_of = lambda level: (outs, spare)[(k - level) % 2]  # noqa: E731
     stream = stream_handle(dev)
     src = list(blocks)
     for level in range(1, k + 1):
-        dst = bufs[(k - level) % 2]
+        dst = dst_of(level)
         rc = lib.stp_stream_wrap_level(_ptrs(src), _ptrs(dst), origin.data_ptr(), X, Y, Z,
-                                       gx, gy, gz, level, stream)
+                                       gx, gy, gz, level, int(level > 1), int(level < k), stream)
         build.check(lib, rc, "stream_wrap_pass")
-        stream_wrap_pass.launches += 1
+        _count(stream_wrap_pass, form)
         src = dst
-    return bufs[0]
+    return outs
 
 
-#: kernel launches made by ``stream_wrap_pass`` (plain-version calls do not count)
+#: kernel launches made by ``stream_wrap_pass`` (plain-version calls do not
+#: count): float32 fields, bf16 storage, and groups with a float64 field
 stream_wrap_pass.launches = 0
+stream_wrap_pass.bf16_launches = 0
+stream_wrap_pass.f64_launches = 0
 
 
 # --- stream_plane_pass --------------------------------------------------------------
@@ -390,8 +467,10 @@ def _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell=None):
     _check_origin(origin, n, single)
     same_device(raws[0], origin)
     if out is not None:
-        _check_fields(out, "out", (len(shape),))
-        if out[0].shape != shape or len(out) != len(raws):
+        if len(out) != len(raws):
+            raise ValueError("out must hold one tensor of the blocks' shape per field")
+        _check_fields(out, "out", (len(shape),), like=raws)
+        if out[0].shape != shape:
             raise ValueError("out must hold one tensor of the blocks' shape per field")
         if {o.data_ptr() for o in out} & {r_.data_ptr() for r_ in raws}:
             raise ValueError("out must not alias the input blocks")
@@ -408,9 +487,11 @@ def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_r
     ``origin`` holds each block's interior start.  ``fused_shell``
     ``(xbufs, ybufs, zbufs)`` (``_check_fused``) is patched into a copy of
     the blocks first, x planes, y rows, z columns, and the shell passes
-    through with those values."""
+    through with those values.  The level runs at each field's compute
+    dtype and is rounded once to its storage dtype (bfloat16: the JAX
+    package's ``f32_accumulate``); the shell keeps its stored bits."""
     n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell)
-    sk = _as_kernel(kernel, names, x_radius, global_size)
+    sk = _as_kernel(kernel, names, x_radius, global_size, raws)
     single = raws[0].dim() == 3
     bs = [r[None] if single else r for r in raws]
     if fused_shell is not None:
@@ -449,30 +530,36 @@ def stream_plane_pass(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius:
     if dev.type == "cpu":
         return stream_plane_pass_plain(kernel, names, raws, lo, hi, x_radius, origin, global_size, out,
                                        fused_shell)
-    sk = _as_kernel(kernel, names, x_radius, global_size)
+    sk = _as_kernel(kernel, names, x_radius, global_size, raws)
     res = [torch.empty_like(r) for r in raws] if out is None else list(out)
     gx, gy, gz = sk.global_size
     geometry = (n, X, Y, Z, lo.x, lo.y, lo.z, hi.x, hi.y, hi.z)
+    form = _form(raws)
     if fused_shell is None:
         lib = _library(sk, "stream_plane", [1])
         rc = lib.stp_stream_plane_level(_ptrs(raws), _ptrs(res), origin.data_ptr(), *geometry, gx, gy, gz,
                                         stream_handle(dev))
         build.check(lib, rc, "stream_plane_pass")
-        stream_plane_pass.launches += 1
+        _count(stream_plane_pass, form)
         return res
     lib = _library(sk, "stream_plane_fused", [1], _FUSED)
     xb, yb, zb = fused_shell
     rc = lib.stp_stream_plane_fused(_ptrs(raws), _ptrs(xb), _ptrs(yb), _ptrs(zb), _ptrs(res), origin.data_ptr(),
                                     *geometry, int(x_radius), gx, gy, gz, stream_handle(dev))
     build.check(lib, rc, "stream_plane_pass (fused)")
-    stream_plane_pass.fused_launches += 1
+    _count(stream_plane_pass, form, fused=True)
     return res
 
 
 #: kernel launches made by ``stream_plane_pass``: its array form, and its
-#: fused form (``fused_shell``; one a call, its far and band kernels)
+#: fused form (``fused_shell``; one a call, its far and band kernels), each
+#: on float32 fields, under bf16 storage and with a float64 field
 stream_plane_pass.launches = 0
 stream_plane_pass.fused_launches = 0
+stream_plane_pass.bf16_launches = 0
+stream_plane_pass.fused_bf16_launches = 0
+stream_plane_pass.f64_launches = 0
+stream_plane_pass.fused_f64_launches = 0
 
 
 # --- stream_wavefront_pass -----------------------------------------------------------
@@ -498,17 +585,20 @@ def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_vali
         raise ValueError(f"raws {tuple(shape)} (z_valid {zv}) need > 2*{s_off} cells per axis")
     if zv > Zr:
         raise ValueError(f"z_valid={zv} exceeds the plane width {Zr}")
-    if not stream_smem_fits(m, len(raws)):
+    item = ring_itemsize([r.dtype for r in raws])
+    if not stream_smem_fits(m, len(raws), item):
         raise ValueError(
-            f"m={m} over {len(raws)} field(s) needs {stream_smem_bytes(m, len(raws))} bytes of "
-            f"shared memory per block, over the H100's {SMEM_PER_BLOCK}; pass fewer fields per call"
+            f"m={m} over {len(raws)} field(s) of {item}-byte levels needs {stream_smem_bytes(m, len(raws), item)} "
+            f"bytes of shared memory per block, over the H100's {SMEM_PER_BLOCK}; pass fewer fields per call"
         )
     _check_origin(origin, n, single)
     tensors = [raws[0], origin]
     if z_slabs is not None:
         want = (Xr, 2 * s_off, Yr) if single else (n, Xr, 2 * s_off, Yr)
-        zshape, _ = _check_fields(z_slabs, "z_slabs", (len(shape),))
-        if tuple(zshape) != want or len(z_slabs) != len(raws):
+        if len(z_slabs) != len(raws):
+            raise ValueError(f"z_slabs: one {want} tensor per field, got {len(z_slabs)}")
+        zshape, _ = _check_fields(z_slabs, "z_slabs", (len(shape),), like=raws)
+        if tuple(zshape) != want:
             raise ValueError(f"z_slabs: one {want} tensor per field, got {tuple(zshape)}")
         tensors.append(z_slabs[0])
     same_device(*tensors)
@@ -531,16 +621,21 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
     s; the plain form only) is patched into the level-0 blocks, x planes, y
     rows, z columns.  Returns ``(outs, zouts)`` (``zouts`` None without
     slabs); the interior ``[s, ext - s)`` of every axis is exact, shell
-    cells are unspecified."""
+    cells are unspecified.  The levels run at each field's compute dtype
+    and the outputs (and emitted slabs) are rounded once to its storage
+    dtype (bfloat16: the JAX package's ``f32_accumulate``, float32 level
+    rings)."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
                                               z_valid, alias, fused_shell)
-    sk = _as_kernel(kernel, names, 1, global_size)
+    sk = _as_kernel(kernel, names, 1, global_size, raws)
+    cdt = _compute_dtypes(raws)
     single = raws[0].dim() == 3
     if fused_shell is not None:
         s3 = Dim3(s_off, s_off, s_off)
         w = _fused_blocks([r[None] if single else r for r in raws], fused_shell, s3, s3, single)
+        w = [t.to(d) for t, d in zip(w, cdt)]
     else:
-        w = [(r[None] if single else r).clone() for r in raws]
+        w = [(r[None] if single else r).to(d, copy=True) for r, d in zip(raws, cdt)]
     if z_slabs is not None:
         for q, zs in enumerate(z_slabs):
             zst = (zs[None] if single else zs).transpose(-1, -2)  # (n, Xr, Yr, 2s)
@@ -558,11 +653,12 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
     for level in range(1, m + 1):
         src = w
         w = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level),
-                  shape)
-    outs = [o[0] if single else o for o in w]
+                  shape, cdt)
+    outs = [o.to(r.dtype) for o, r in zip(w, raws)]
+    outs = [o[0] if single else o for o in outs]
     if z_slabs is None:
         return outs, None
-    zouts = [_emit(o, s_off, zv - 2 * s_off, s_off) for o in w]
+    zouts = [_emit(o, s_off, zv - 2 * s_off, s_off).to(r.dtype) for o, r in zip(w, raws)]
     return outs, [z[0] if single else z for z in zouts]
 
 
@@ -592,9 +688,10 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
         if z_out is not None:
             zouts = [o.copy_(r) for o, r in zip(z_out, zouts)]
         return outs, zouts
-    sk = _as_kernel(kernel, names, 1, global_size)
+    sk = _as_kernel(kernel, names, 1, global_size, raws)
     outs = [torch.empty_like(r) for r in raws] if out is None else out
     gx, gy, gz = sk.global_size
+    form = _form(raws)
     if fused_shell is not None:
         lib = _library(sk, *_wavefront_variant(m, fused=True))
         xb, yb, zb = fused_shell
@@ -602,7 +699,7 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
                                             origin.data_ptr(), n, Xr, Yr, Zr, m, s_off, gx, gy, gz,
                                             stream_handle(dev))
         build.check(lib, rc, "stream_wavefront_pass (fused)")
-        stream_wavefront_pass.fused_launches += 1
+        _count(stream_wavefront_pass, form, fused=True)
         return outs, None
     lib = _library(sk, *_wavefront_variant(m))
     zouts = None if z_slabs is None else [torch.empty_like(z) for z in z_slabs] if z_out is None else z_out
@@ -612,7 +709,7 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
         origin.data_ptr(), n, Xr, Yr, Zr, zv, m, s_off, gx, gy, gz, int(slabs), stream_handle(raws[0].device),
     )
     build.check(lib, rc, "stream_wavefront_pass")
-    stream_wavefront_pass.launches += 1
+    _count(stream_wavefront_pass, form)
     return outs, zouts
 
 
@@ -634,7 +731,7 @@ def stream_wavefront_launch(kernel: Kernel, names, raws, m: int, s_off: int, glo
     n = 1 if len(shape) == 3 else shape[0]
     Xr, Yr, Zr = shape[-3:]
     zv = Zr if z_valid is None else int(z_valid)
-    sk = _as_kernel(kernel, names, 1, global_size)
+    sk = _as_kernel(kernel, names, 1, global_size, raws)
     lib = _library(sk, *_wavefront_variant(m, fused))
     info = (ctypes.c_int * len(WAVEFRONT_PLAN_FIELDS))()
     rc = lib.stp_stream_wavefront_plan(n, Xr, Yr, Zr, zv, m, s_off, int(z_slabs is not None), info)
@@ -661,9 +758,14 @@ _WRAP_LEVELS = range(1, _WRAP_MAX_K + 1)
 
 
 #: kernel launches made by ``stream_wavefront_pass``: its z-slab and plain
-#: forms, and its fused form (``fused_shell``)
+#: forms, and its fused form (``fused_shell``), each on float32 fields,
+#: under bf16 storage and with a float64 field
 stream_wavefront_pass.launches = 0
 stream_wavefront_pass.fused_launches = 0
+stream_wavefront_pass.bf16_launches = 0
+stream_wavefront_pass.fused_bf16_launches = 0
+stream_wavefront_pass.f64_launches = 0
+stream_wavefront_pass.fused_f64_launches = 0
 
 
 # --- planning -------------------------------------------------------------------------
@@ -679,7 +781,8 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
     call (the CUDA kernel runs one level per launch, so no shared memory
     caps k).  Otherwise ``x_radius`` 1 and a uniform face shell s >= 2 take
     the z-slab ``wavefront`` at the deepest m in [2, min(s, 16)] whose
-    kernel fits (``stream_smem_fits``): jointly, or per field when the
+    kernel fits (``stream_smem_fits`` at ``ring_itemsize`` of the fields'
+    dtypes: a float64 field doubles the planes): jointly, or per field when the
     kernel is ``separable`` and that goes deeper (joint wins ties).  The
     ``plane`` route covers the rest, jointly (its kernel keeps no planes in
     shared memory).  ``path`` forces a route ("wavefront"/"wrap" raise when
@@ -689,7 +792,9 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
     the wrap depth is never capped by memory; the wavefront's joint depth
     falls with the field count (3 fields at s = 3 plan per-field m = 3, or
     joint m = 2 when not separable, where the JAX package keeps joint m = 3
-    at small sizes); the plane route never groups per field; the z-slab
+    at small sizes; float64 fields, priced at 8 bytes a cell, plan shallower
+    still: two float64 fields at s = 3 plan joint m = 2); the plane route
+    never groups per field; the z-slab
     form needs no lane padding, so on even subdomains the plain form is
     reached only with ``make_stream_step(z_slabs=False)``.
 
@@ -708,6 +813,7 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
     if not all(lo[ax] >= x_radius and hi[ax] >= x_radius for ax in range(3)):
         raise ValueError(f"shell {lo}/{hi} narrower than the kernel x_radius {x_radius}")
     nf = len(dd._handles)
+    item = ring_itemsize([dd.field_dtype(h) for h in dd._handles])
     groupings = [("joint", nf)] + ([("per-field", 1)] if separable and nf > 1 else [])
     if path in ("auto", "wrap") and dd.num_subdomains() == 1 and x_radius == 1:
         cap = min(_WRAP_MAX_K, n.x // 2)
@@ -725,7 +831,7 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
             cap = min(cap, max_m)
         best = None
         for grouping, fields in groupings:
-            m = max([c for c in range(2, cap + 1) if stream_smem_fits(c, fields)], default=0)
+            m = max([c for c in range(2, cap + 1) if stream_smem_fits(c, fields, item)], default=0)
             if m >= 2 and (best is None or m > best["m"]):
                 best = {"route": "wavefront", "m": m, "z_slabs": not dd.padded(), "grouping": grouping}
         if best is not None:
@@ -846,7 +952,11 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     views, so many fields may stream per field.  ``max_depth`` caps the
     temporal depth (wrap k / wavefront m).  ``compute_unit`` and
     ``mxu_input`` take ``"auto"`` or the static value the port runs (vpu,
-    f32); ``mxu_kernel`` is accepted and unused.  ``z_slabs=False`` runs a
+    f32); ``mxu_kernel`` is accepted and unused.  The fields may be float32,
+    float64 (each computes at its own dtype; float32 and float64 fields
+    stream jointly at double) or bf16 storage (``dd.set_storage("bf16")``:
+    every pass computes at float32 and rounds once, the JAX package's
+    ``f32_accumulate``, recorded in ``step._stream_plan``).  ``z_slabs=False`` runs a
     wavefront plan in its plain form (every axis exchanged in the array, as
     on uneven sizes, where the plan takes it and ``z_slabs=True`` raises).
 
@@ -898,19 +1008,13 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     plan["halo"] = _resolve_stream_halo(dd, plan, dd.exchange_route())[0]
     for key in ("overlap_forced", "halo_forced"):
         plan.pop(key, None)
-    plan.update(compute_unit="vpu", mxu_input="f32")
+    dtypes = [dd.field_dtype(h) for h in dd._handles]
+    plan.update(compute_unit="vpu", mxu_input="f32", f32_accumulate=torch.bfloat16 in dtypes)
     names = [h.name for h in dd._handles]
-    if dd.storage_dtype() != "native":
-        raise NotImplementedError(
-            "the stream engine on a bf16-storage domain is not ported yet (ROADMAP.md queue 1 item 9)"
-        )
-    if dd.device.type == "cuda" and any(h.dtype != torch.float32 for h in dd._handles):
-        raise NotImplementedError(
-            "the CUDA stream kernels take float32 fields (ROADMAP.md queue 1 item 9)"
-        )
     groups = [[q] for q in range(len(names))] if plan["grouping"] == "per-field" else [list(range(len(names)))]
     gsize = dd.size()
-    programs = [StreamKernel(kernel, [names[q] for q in g], x_radius, gsize) for g in groups]
+    programs = [StreamKernel(kernel, [names[q] for q in g], x_radius, gsize, dtypes=[dtypes[q] for q in g])
+                for g in groups]
     route = plan["route"]
     if dd.device.type == "cuda":
         _prebuild(programs, plan)

@@ -35,15 +35,31 @@ have no components, and ``emit_cuda`` refuses both ops, naming them).
 The arithmetic contract, chosen so the port matches XLA's compiled JAX:
 
 * evaluation follows Python's order, with no reassociation;
-* Python numbers are weakly typed: float32 beside a float32 value, int32
-  beside an int32 value;
-* ``x / c`` with ``c`` a Python number is ``x * float32(1 / c)``, as XLA
-  compiles a division by a constant; a division by a traced value stays an
-  IEEE divide; integer true division is refused;
+* Python numbers are weakly typed: float32 beside a float32 value, float64
+  beside a float64 value, int32 beside an int32 value;
+* a field's reads come in at its compute dtype: float32 for a float32 field
+  and for a bfloat16-stored one (the JAX package's ``f32_accumulate``: the
+  upcast at load), float64 for a float64 field; each output is cast to its
+  field's compute dtype, and float32 and float64 values combine at float64;
+* ``x / c`` with ``c`` a Python number is ``x * (1 / c)``, the reciprocal
+  rounded to ``x``'s float dtype, as XLA compiles a division by a constant
+  at float32 and at float64 alike (``tests/test_torch_stream_dtypes.py``
+  pins both); a division by a traced value stays an IEEE divide; integer
+  true division is refused;
 * ``x ** n`` is the square-and-multiply chain of ``lax.integer_pow``;
 * the CUDA body calls ``__fadd_rn``/``__fmul_rn``/``__fsub_rn``/``__fdiv_rn``
-  so nvcc cannot contract a multiply and an add, and the torch evaluator runs
-  one op per node: kernel and plain version are bitwise equal on the card.
+  (``__dadd_rn``/... at float64) so nvcc cannot contract a multiply and an
+  add, and the torch evaluator runs one op per node: kernel and plain
+  version are bitwise equal on the card.
+
+``emit_cuda`` also writes each field's types into the generated part: the
+storage type of its buffers (``STP_S``), the type the kernels compute and
+keep levels in (``STP_C``) and the one their prefetch registers hold
+(``STP_P``), and the macros the templates read and write buffers through
+(``STP_LD``/``STP_GET``/``STP_UP``/``STP_ST``/``STP_PUT``).  For float32
+fields these expand to the plain ``float`` accesses the templates had before
+the dtypes came in; a group that mixes float32 and float64 fields keeps every
+level at double and casts each float64 field's pointer (``STP_WIDE``).
 
 XLA on the CPU also contracts ``a * b + c`` into one fused multiply-add.  The
 port does NOT reproduce that: a kernel with a multiply feeding an add (the
@@ -64,9 +80,13 @@ import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
 
-F32, I32, BOOL = "f32", "i32", "bool"
-_TORCH_DTYPE = {F32: torch.float32, I32: torch.int32, BOOL: torch.bool}
-_C_TYPE = {F32: "float", I32: "int", BOOL: "bool"}
+F32, F64, I32, BOOL = "f32", "f64", "i32", "bool"
+_FLOAT = (F32, F64)
+_TORCH_DTYPE = {F32: torch.float32, F64: torch.float64, I32: torch.int32, BOOL: torch.bool}
+_C_TYPE = {F32: "float", F64: "double", I32: "int", BOOL: "bool"}
+
+#: the field storage dtypes the stream kernels take, by name
+STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float64: "f64"}
 _ARITH = ("add", "sub", "mul", "div")
 _COMPARE = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==", "ne": "!="}
 
@@ -76,13 +96,21 @@ def _kind_of_dtype(dtype) -> str:
     if isinstance(dtype, str):
         dtype = np.dtype(dtype)
     if isinstance(dtype, torch.dtype):
-        table = {torch.float32: F32, torch.int32: I32, torch.bool: BOOL}
+        table = {torch.float32: F32, torch.float64: F64, torch.int32: I32, torch.bool: BOOL}
     else:
         dtype = np.dtype(dtype)
-        table = {np.dtype(np.float32): F32, np.dtype(np.int32): I32, np.dtype(np.bool_): BOOL}
+        table = {np.dtype(np.float32): F32, np.dtype(np.float64): F64, np.dtype(np.int32): I32,
+                 np.dtype(np.bool_): BOOL}
     if dtype not in table:
-        raise TypeError(f"traced kernels compute in float32, int32 and bool; got dtype {dtype}")
+        raise TypeError(f"traced kernels compute in float32, float64, int32 and bool; got dtype {dtype}")
     return table[dtype]
+
+
+def compute_kind(dtype: torch.dtype) -> str:
+    """The kind a field of storage ``dtype`` is read and computed at:
+    float64 for float64, float32 otherwise (a bfloat16 field accumulates at
+    float32)."""
+    return F64 if dtype == torch.float64 else F32
 
 
 def _number(v):
@@ -109,8 +137,10 @@ class Graph:
     ``components`` holds each field's component shape (None: a stream
     kernel's trace, which takes no component ops)."""
 
-    def __init__(self, components: Optional[Sequence[tuple]] = None):
+    def __init__(self, components: Optional[Sequence[tuple]] = None, kinds: Optional[Sequence[str]] = None):
         self.components = None if components is None else [tuple(c) for c in components]
+        #: each field's compute kind (None: every field float32)
+        self.kinds = None if kinds is None else list(kinds)
         self.nodes: List[Node] = []
         self._consts: Dict[tuple, Node] = {}
         self._loads: Dict[tuple, Node] = {}
@@ -122,7 +152,8 @@ class Graph:
         node = self._loads.get(key)
         if node is None:
             comps = self.components[q] if self.components is not None else ()
-            node = self._loads[key] = Node(self, "load", key, F32, comps)
+            kind = self.kinds[q] if self.kinds is not None else F32
+            node = self._loads[key] = Node(self, "load", key, kind, comps)
         return node
 
     def takes_components(self, op: str) -> None:
@@ -135,6 +166,9 @@ class Graph:
         if kind == F32:
             value = float(np.float32(value))
             key = (kind, np.float32(value).tobytes())
+        elif kind == F64:
+            value = float(value)
+            key = (kind, np.float64(value).tobytes())
         elif kind == I32:
             value = int(np.int32(value))
             key = (kind, value)
@@ -348,8 +382,8 @@ def _const_kind(c, other: str) -> str:
     if isinstance(c, bool):
         return BOOL if other == BOOL else I32
     if isinstance(c, int):
-        return F32 if other == F32 else I32
-    return F32
+        return other if other in _FLOAT else I32
+    return other if other in _FLOAT else F32
 
 
 def _promote(a, b):
@@ -371,7 +405,7 @@ def _promote(a, b):
 
 
 def _wider(a: str, b: str) -> str:
-    order = {BOOL: 0, I32: 1, F32: 2}
+    order = {BOOL: 0, I32: 1, F32: 2, F64: 3}
     return a if order[a] >= order[b] else b
 
 
@@ -380,20 +414,22 @@ def _binary(op: str, a, b) -> Node:
     if op == "div":
         if isinstance(b, Node) or _number(b) is None:
             a, b = _promote(a, b)
-            if a.kind != F32:
+            if a.kind not in _FLOAT:
                 raise TypeError("integer true division is not supported in traced kernels")
-            return Node(g, "div", (a, b), F32)
-        # XLA compiles a division by a constant as a multiply by the float32
-        # reciprocal; so does the port
+            return Node(g, "div", (a, b), a.kind)
+        # XLA compiles a division by a constant as a multiply by the
+        # reciprocal at the operand's float dtype (float32 and float64
+        # alike); so does the port
         a, c = _operand(a), _number(b)
-        if a.kind != F32:
+        if a.kind not in _FLOAT:
             if not isinstance(c, float):
                 raise TypeError("integer true division is not supported in traced kernels")
             a = _cast(a, F32)
         if c == 0:
-            return Node(g, "div", (a, g.const(c, F32)), F32)
-        recip = np.float32(1.0) / np.float32(c)
-        return Node(g, "mul", (a, g.const(float(recip), F32)), F32)
+            return Node(g, "div", (a, g.const(c, a.kind)), a.kind)
+        np_t = np.float64 if a.kind == F64 else np.float32
+        recip = np_t(1.0) / np_t(c)
+        return Node(g, "mul", (a, g.const(float(recip), a.kind)), a.kind)
     a, b = _promote(a, b)
     if op in _ARITH:
         if a.kind == BOOL:
@@ -419,7 +455,7 @@ def _integer_pow(x: Node, e) -> Node:
     if e == 0:
         return x.graph.const(1, x.kind)
     recip = e < 0
-    if recip and x.kind != F32:
+    if recip and x.kind not in _FLOAT:
         raise TypeError("a negative integer power of an int value is not supported")
     e = abs(e)
     acc = None
@@ -429,7 +465,7 @@ def _integer_pow(x: Node, e) -> Node:
         e >>= 1
         if e > 0:
             x = x * x
-    return Node(acc.graph, "div", (acc.graph.const(1.0, F32), acc), F32) if recip else acc
+    return Node(acc.graph, "div", (acc.graph.const(1.0, acc.kind), acc), acc.kind) if recip else acc
 
 
 def where(cond, a, b) -> Node:
@@ -543,13 +579,19 @@ class StreamKernel:
     shell-carrying views check their own extent); ``info_extra`` adds static
     attributes to the traced ``info``.  Traces are made per level on first
     use, and shared by all levels when the kernel never reads
-    ``info.level``."""
+    ``info.level``.  ``dtypes`` are the fields' storage dtypes (None: all
+    float32): each field is read and its output kept at ``compute_kind`` of
+    its dtype, and the CUDA body carries the storage types."""
 
     def __init__(self, kernel: Callable, names: Sequence[str], x_radius: Optional[int],
                  global_size, info_extra: Optional[dict] = None,
-                 components: Optional[Sequence[tuple]] = None):
+                 components: Optional[Sequence[tuple]] = None, dtypes: Optional[Sequence[torch.dtype]] = None):
         self.kernel = kernel
         self.names = list(names)
+        self.dtypes = [torch.float32] * len(self.names) if dtypes is None else list(dtypes)
+        if len(self.dtypes) != len(self.names):
+            raise ValueError(f"{len(self.dtypes)} dtypes for fields {self.names}")
+        self.kinds = [compute_kind(d) for d in self.dtypes]
         #: each field's component shape; None for a stream kernel (no
         #: component ops), else the torch engine's quantities
         self.components = None if components is None else [tuple(c) for c in components]
@@ -566,7 +608,7 @@ class StreamKernel:
             return self._level_free
         t = self._traces.get(level)
         if t is None:
-            g = Graph(self.components)
+            g = Graph(self.components, self.kinds)
             views = {n: PlaneView(g, q, self.x_radius) for q, n in enumerate(self.names)}
             out = self.kernel(views, PlaneInfo(g, self.global_size, level, self._extra))
             if not isinstance(out, dict):
@@ -577,12 +619,12 @@ class StreamKernel:
                 if v is None:
                     outputs.append(None)
                     continue
-                v = v if isinstance(v, Node) else g.const(_operand(v), F32)
+                v = v if isinstance(v, Node) else g.const(_operand(v), self.kinds[q])
                 want = g.components[q] if g.components is not None else ()
                 if _broadcast_comps(v.comps, want) != want:
                     raise ValueError(f"the kernel's value for {n!r} has components {v.comps}, "
                                      f"which do not broadcast to the field's {want}")
-                outputs.append(_cast(v, F32))
+                outputs.append(_cast(v, self.kinds[q]))
             t = self._traces[level] = Trace(g, outputs)
             if not g.reads_level:
                 self._level_free = t
@@ -594,9 +636,10 @@ class StreamKernel:
 
     def evaluate(self, load: Callable, coords: Callable, device, level: int = 1) -> List[torch.Tensor]:
         """Run one level with torch: ``load(q, dx, dy, dz)`` returns field
-        ``q`` shifted by the offset, ``coords()`` the broadcastable int32
+        ``q`` shifted by the offset (a float read is cast to its compute
+        dtype, the bfloat16 upcast), ``coords()`` the broadcastable int32
         global x, y, z.  Returns one tensor per field; a pass-through field
-        gives ``load(q, 0, 0, 0)``."""
+        gives ``load(q, 0, 0, 0)`` as it is."""
         t = self.trace(level)
         live = t.live()
         last = {a.idx: i for i, n in enumerate(live) for a in n.args if isinstance(a, Node)}
@@ -606,6 +649,8 @@ class StreamKernel:
         for i, n in enumerate(live):
             if n.op == "load":
                 v = load(*n.args)
+                if v.is_floating_point() and v.dtype != _TORCH_DTYPE[n.kind]:
+                    v = v.to(_TORCH_DTYPE[n.kind])
             elif n.op == "coord":
                 if xyz is None:
                     xyz = tuple(c.to(torch.int32) for c in coords())
@@ -626,9 +671,10 @@ class StreamKernel:
         """The ``stp_body`` device function for the kernel templates, for the
         given levels (one body when the kernel never reads its level)."""
         first = self.trace(levels[0])
+        storage = [STORAGE[d] for d in self.dtypes]
         if self._level_free is first:
-            return emit_cuda({None: first}, len(self.names))
-        return emit_cuda({lv: self.trace(lv) for lv in levels}, len(self.names))
+            return emit_cuda({None: first}, len(self.names), storage)
+        return emit_cuda({lv: self.trace(lv) for lv in levels}, len(self.names), storage)
 
 
 _TORCH_OPS = {
@@ -676,10 +722,20 @@ def _c_float(v: float) -> str:
     return float.hex(float(np.float32(v))) + "f"
 
 
+def _c_double(v: float) -> str:
+    if math.isnan(v):
+        return "__longlong_as_double(0x7ff8000000000000LL)"
+    if math.isinf(v):
+        return f"__longlong_as_double({'0x7ff0000000000000LL' if v > 0 else '(long long)0xfff0000000000000ULL'})"
+    return float.hex(float(v))
+
+
 def _c_const(n: Node) -> str:
     v = n.args[0]
     if n.kind == F32:
         return _c_float(v)
+    if n.kind == F64:
+        return _c_double(v)
     if n.kind == I32:
         return f"({v})" if v > -(2 ** 31) else "(-2147483647 - 1)"
     return "true" if v else "false"
@@ -699,14 +755,14 @@ def _c_expr(n: Node) -> str:
     if op == "const":
         return _c_const(n)
     if op in _ARITH:
-        if k == F32:
-            return f"__f{op}_rn({a[0]}, {a[1]})"
+        if k in _FLOAT:
+            return f"__{'f' if k == F32 else 'd'}{op}_rn({a[0]}, {a[1]})"
         sym = {"add": "+", "sub": "-", "mul": "*"}[op]
         return f"(int)((unsigned){a[0]} {sym} (unsigned){a[1]})"  # int32 wraps, as XLA's
     if op == "neg":
-        return f"(-{a[0]})" if k == F32 else f"(int)(0u - (unsigned){a[0]})"
+        return f"(-{a[0]})" if k in _FLOAT else f"(int)(0u - (unsigned){a[0]})"
     if op == "abs":
-        return f"fabsf({a[0]})" if k == F32 else f"abs({a[0]})"
+        return {F32: "fabsf", F64: "fabs"}.get(k, "abs") + f"({a[0]})"
     if op in _COMPARE:
         return f"({a[0]} {_COMPARE[op]} {a[1]})"
     if op == "and":
@@ -719,12 +775,17 @@ def _c_expr(n: Node) -> str:
         return f"({a[0]} ? {a[1]} : {a[2]})"
     if op == "cast":
         src = n.args[0].kind
-        if k == F32:
-            return f"__int2float_rn({a[0]})" if src == I32 else f"({a[0]} ? 1.0f : 0.0f)"
-        if k == I32:
-            return f"__float2int_rz({a[0]})" if src == F32 else f"({a[0]} ? 1 : 0)"
-        return f"({a[0]} != 0.0f)" if src == F32 else f"({a[0]} != 0)"
+        return _CASTS[(src, k)].format(a[0])
     raise AssertionError(op)
+
+
+#: (from kind, to kind) -> the C expression of a cast of ``{}``
+_CASTS = {
+    (I32, F32): "__int2float_rn({})", (BOOL, F32): "({} ? 1.0f : 0.0f)", (F64, F32): "__double2float_rn({})",
+    (I32, F64): "__int2double_rn({})", (BOOL, F64): "({} ? 1.0 : 0.0)", (F32, F64): "((double){})",
+    (F32, I32): "__float2int_rz({})", (F64, I32): "__double2int_rz({})", (BOOL, I32): "({} ? 1 : 0)",
+    (F32, BOOL): "({} != 0.0f)", (F64, BOOL): "({} != 0.0)", (I32, BOOL): "({} != 0)",
+}
 
 
 def _emit_level(t: Trace, indent: str) -> List[str]:
@@ -745,20 +806,93 @@ def x_reads_centred(traces: Iterable[Trace]) -> bool:
                for t in traces for n in t.live() if n.op == "load")
 
 
-def emit_cuda(traces: Dict[Optional[int], Trace], n_fields: int) -> str:
+#: the type macros of a group whose fields all store one dtype: (storage,
+#: compute, prefetch) types and the access macros; float32 and float64 read
+#: and write their buffers as they are, bfloat16 widens at the read and
+#: rounds (to nearest even) at the store (``__float2bfloat16_rn``)
+_UNIFORM = {
+    "f32": ("float", "float", "float"),
+    "f64": ("double", "double", "double"),
+    "bf16": ("__nv_bfloat16", "float", "__nv_bfloat16"),
+}
+_PLAIN_ACCESS = [
+    "#define STP_LD(p, q, i) p[i]",
+    "#define STP_GET(p, q, i) p[i]",
+    "#define STP_UP(q, v) v",
+    "#define STP_ST(p, q, i, v) p[i] = v",
+    "#define STP_PUT(p, q, i, v) p[i] = v",
+]
+_BF16_ACCESS = [
+    "#include <cuda_bf16.h>",
+    "#define STP_SCRATCH 1  // levels between launches of the wrap pass stay float",
+    "// a buffer of either type at float: the fields' bf16 storage, or a float scratch",
+    "__device__ __forceinline__ float stp_up(float v) { return v; }",
+    "__device__ __forceinline__ float stp_up(__nv_bfloat16 v) { return __bfloat162float(v); }",
+    "__device__ __forceinline__ void stp_store(float* p, int64_t i, float v) { p[i] = v; }",
+    "__device__ __forceinline__ void stp_store(__nv_bfloat16* p, int64_t i, float v) {",
+    "  p[i] = __float2bfloat16_rn(v);",
+    "}",
+    "#define STP_LD(p, q, i) stp_up(p[i])",
+    "#define STP_GET(p, q, i) p[i]",
+    "#define STP_UP(q, v) stp_up(v)",
+    "#define STP_ST(p, q, i, v) stp_store(p, i, v)",
+    "#define STP_PUT(p, q, i, v) p[i] = v",
+]
+_MIXED_ACCESS = [
+    "// field q's buffer holds double where bit q of STP_WIDE is set, float elsewhere",
+    "__device__ __forceinline__ double stp_get(const float* p, int q, int64_t i) {",
+    "  return (STP_WIDE >> q & 1) ? reinterpret_cast<const double*>(p)[i] : (double)p[i];",
+    "}",
+    "__device__ __forceinline__ void stp_put(float* p, int q, int64_t i, double v) {",
+    "  if (STP_WIDE >> q & 1) {",
+    "    reinterpret_cast<double*>(p)[i] = v;",
+    "  } else {",
+    "    p[i] = (float)v;  // exact: a float field's levels are rounded to float",
+    "  }",
+    "}",
+    "#define STP_LD(p, q, i) stp_get(p, q, i)",
+    "#define STP_GET(p, q, i) stp_get(p, q, i)",
+    "#define STP_UP(q, v) v",
+    "#define STP_ST(p, q, i, v) stp_put(p, q, i, v)",
+    "#define STP_PUT(p, q, i, v) stp_put(p, q, i, v)",
+]
+
+
+def _type_lines(storage: Sequence[str]) -> List[str]:
+    """The type and access macros of fields stored as ``storage`` (one of
+    ``f32``, ``bf16``, ``f64`` each): one dtype for all, or float32 with
+    float64 (kept at double, each float64 field's pointer cast).  bfloat16
+    mixes with nothing (a bf16-storage domain stores every field so)."""
+    kinds = set(storage)
+    if len(kinds) == 1:
+        s, c, p = _UNIFORM[storage[0]]
+        access = _BF16_ACCESS if storage[0] == "bf16" else _PLAIN_ACCESS
+    elif kinds == {"f32", "f64"}:
+        s, c, p = "float", "double", "double"
+        wide = sum(1 << q for q, k in enumerate(storage) if k == "f64")
+        access = [f"#define STP_WIDE {wide:#x}"] + _MIXED_ACCESS
+    else:
+        raise TypeError(f"a stream kernel's fields store one dtype, or float32 with float64; got {list(storage)}")
+    return [f"#define STP_S {s}", f"#define STP_C {c}", f"#define STP_P {p}"] + access
+
+
+def emit_cuda(traces: Dict[Optional[int], Trace], n_fields: int, storage: Optional[Sequence[str]] = None) -> str:
     """The generated part of a kernel template: the field count,
-    ``STP_X_QUEUE`` where ``x_reads_centred`` holds, and ``stp_body(ld,
-    level, xg, yg, zg, out)``, which reads field ``q`` at an offset through
-    ``ld(q, dx, dy, dz)`` and writes every field's new value (a pass-through
-    field its centre) to ``out``.  ``traces`` maps a level to its trace, or
-    ``None`` to the one trace of a level-free kernel."""
+    ``STP_X_QUEUE`` where ``x_reads_centred`` holds, the types and access
+    macros of the fields' ``storage`` (``_type_lines``; None: all float32),
+    and ``stp_body(ld, level, xg, yg, zg, out)``, which reads field ``q`` at
+    an offset through ``ld(q, dx, dy, dz)`` (an ``STP_C``) and writes every
+    field's new value (a pass-through field its centre) to ``out``.
+    ``traces`` maps a level to its trace, or ``None`` to the one trace of a
+    level-free kernel."""
     lines = [f"#define STP_NF {n_fields}"]
     if x_reads_centred(traces.values()):
         lines.append("#define STP_X_QUEUE 1")
+    lines += _type_lines(["f32"] * n_fields if storage is None else storage)
     lines += [
         "template <class Ld>",
         "__device__ __forceinline__ void stp_body(const Ld& ld, int level, int xg, int yg, int zg,",
-        "                                         float (&out)[STP_NF]) {",
+        "                                         STP_C (&out)[STP_NF]) {",
         "  (void)level; (void)xg; (void)yg; (void)zg;",
     ]
     if None in traces:
@@ -783,14 +917,15 @@ def run_kernel(kernel: Callable, views: Dict[str, object], info=None) -> Dict[st
     names = list(views)
     gsize = info.global_size if info is not None else Dim3(0, 0, 0)
     static = {k: getattr(info, k) for k in ("interior", "radius", "region") if hasattr(info, k)}
-    sk = StreamKernel(kernel, names, None, gsize, static)
-    device = views[names[0]].sh(0, 0, 0).device
+    centres = [views[n].sh(0, 0, 0) for n in names]
+    sk = StreamKernel(kernel, names, None, gsize, static, dtypes=[c.dtype for c in centres])
+    device = centres[0].device
     vals = sk.evaluate(lambda q, dx, dy, dz: views[names[q]].sh(dx, dy, dz),
                        info.coords if info is not None else None, device)
     return {n: v for n, v, w in zip(names, vals, sk.updates()) if w}
 
 
 __all__ = [
-    "Graph", "Node", "PlaneInfo", "PlaneView", "StreamKernel", "Trace", "emit_cuda",
+    "Graph", "Node", "PlaneInfo", "PlaneView", "STORAGE", "StreamKernel", "Trace", "compute_kind", "emit_cuda",
     "run_kernel", "where", "x_reads_centred",
 ]

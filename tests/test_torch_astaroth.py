@@ -152,10 +152,15 @@ def test_state_round_trips_between_packages():
 
 
 def test_unported_options_name_the_roadmap():
-    for kw in ({"check_divergence_every": 5}, {"storage_dtype": "bf16"}, {"compute_unit": "mxu"},
-               {"mxu_input": "bf16"}):
+    for kw in ({"check_divergence_every": 5}, {"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AstarothSim(8, 8, 8, device="cpu", **kw)
+    # bf16 storage is ported: the CUDA engine stores bfloat16 (its steps
+    # against the JAX package's in tests/test_torch_stream_dtypes.py)
+    m = AstarothSim(8, 8, 8, kernel_impl="cuda", device="cpu", storage_dtype="bf16")
+    m.realize()
+    assert m.dd.storage_dtype() == "bf16" and m.dd.get_curr(m.handles[0]).dtype == torch.bfloat16
+    assert m._step._stream_plan["f32_accumulate"]
     # the exchange routes are ported: an unknown one is refused as in the JAX package
     with pytest.raises(ValueError, match="unknown exchange route"):
         AstarothSim(8, 8, 8, device="cpu", exchange_route="yzpack_all")

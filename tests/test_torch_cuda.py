@@ -1035,6 +1035,192 @@ def test_stream_wavefront_fused_kernel_equals_plain(stream_libs, name, m, s):
         assert torch.equal(g[:, S, S, S], w[:, S, S, S])
 
 
+# --- the stream kernels' field dtypes: bf16 storage, float64, float32 with float64 ----------
+
+#: the fields' storage dtypes of each dtype build (one field takes the last)
+STREAM_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16), "f64": (torch.float64, torch.float64),
+                 "mixed": (torch.float32, torch.float64)}
+#: (dtype build, kernel): the 27-point and the coordinate-forced kernel, two
+#: joint fields, and two joint fields read off the centre at x+-1; float32
+#: with float64 takes the two-field kernels
+DTYPE_CASES = [(dt, name) for dt in STREAM_DTYPES for name in ("k27", "forced", "mean6", "xdiag")
+               if not (dt == "mixed" and len(STREAM_KERNELS[name][1]) == 1)]
+_DTYPE_GS = (30, 40, 140)
+
+
+def _dtypes(dt, names):
+    return STREAM_DTYPES[dt][-len(names):]
+
+
+def _rand_as(shape, seed, dev, dtype):
+    """Seeded float64 values rounded to ``dtype`` (bf16 to nearest even)."""
+    return torch.from_numpy(np.random.default_rng(seed).random(shape)).to(dtype).to(dev)
+
+
+def _dtype_depths(dt, names):
+    """The wavefront depths the shared-memory model lets these fields run."""
+    item = st.ring_itemsize(_dtypes(dt, names))
+    return [m for m in (1, 2, 3) if st.stream_smem_fits(m, len(names), item)]
+
+
+def _counter(dt, fused=False):
+    return ("fused_" if fused else "") + ("bf16" if dt == "bf16" else "f64") + "_launches"
+
+
+@pytest.fixture(scope="module")
+def dtype_libs():
+    """The card, with every dtype build the tests below launch built up
+    front, one nvcc each, all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from stencil_tpu_torch.kernels import build
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    want = []
+    for dt, name in DTYPE_CASES:
+        kern, names = STREAM_KERNELS[name]
+        sk = StreamKernel(kern, names, 1, _DTYPE_GS, dtypes=_dtypes(dt, names))
+        want += [("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS)),
+                 ("stream_plane", st._source(sk, "stream_plane", [1])),
+                 ("stream_plane_fused", st._source(sk, "stream_plane_fused", [1], st._FUSED))]
+        for m in _dtype_depths(dt, names):
+            want += [("stream_wavefront", st._source(sk, *st._wavefront_variant(m))),
+                     ("stream_wavefront_fused", st._source(sk, *st._wavefront_variant(m, True)))]
+    build.build_generated(dict.fromkeys(want))
+    return torch.device("cuda")
+
+
+def _dtype_kernel(dt, name):
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    kern, names = STREAM_KERNELS[name]
+    return StreamKernel(kern, names, 1, _DTYPE_GS, dtypes=_dtypes(dt, names)), names
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("dt,name", DTYPE_CASES)
+def test_stream_dtype_wrap_kernel_equals_plain(dtype_libs, dt, name, k):
+    """#6 under each dtype on a ragged periodic block: bitwise, one launch a
+    level counted under its form (bf16: float32 sets between the first
+    launch and the last), none under the float32 form."""
+    dev = dtype_libs
+    sk, names = _dtype_kernel(dt, name)
+    blocks = [_rand_as((19, 21, 70), 211 + q, dev, d) for q, d in enumerate(sk.dtypes)]
+    org = torch.tensor([3, 1, 2], dtype=torch.int32, device=dev)
+    before = (st.stream_wrap_pass.launches, getattr(st.stream_wrap_pass, _counter(dt)))
+    got = st.stream_wrap_pass(sk, names, blocks, k, org, _DTYPE_GS)
+    torch.cuda.synchronize()
+    assert (st.stream_wrap_pass.launches, getattr(st.stream_wrap_pass, _counter(dt))) == (before[0], before[1] + k)
+    for g, w, b in zip(got, st.stream_wrap_pass_plain(sk, names, blocks, k, org, _DTYPE_GS), blocks):
+        assert g.dtype == b.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n,X,Y,Z", [(2, 17, 19, 70), (2, 7, 40, 9)])
+@pytest.mark.parametrize("dt,name", DTYPE_CASES)
+def test_stream_dtype_plane_kernel_equals_plain(dtype_libs, dt, name, n, X, Y, Z, fused):
+    """#7 under each dtype, array and fused forms, ragged blocks and uneven
+    shells: bitwise on every cell, the shell's stored bits included."""
+    dev = dtype_libs
+    sk, names = _dtype_kernel(dt, name)
+    lo, hi = Dim3(1, 2, 1), Dim3(2, 1, 3)
+    raws = [_rand_as((n, X, Y, Z), 221 + q, dev, d) for q, d in enumerate(sk.dtypes)]
+    org = torch.tensor([[0, 0, 0], [13, 17, 60]][:n], dtype=torch.int32, device=dev)
+    fs = None
+    if fused:
+        fs = tuple([_rand_as((n, w, a, b), seed + q, dev, d) for q, d in enumerate(sk.dtypes)]
+                   for seed, (w, a, b) in ((231, (lo.x + hi.x, Y, Z)), (241, (lo.y + hi.y, X, Z)),
+                                           (251, (lo.z + hi.z, Y, X))))
+    counter = _counter(dt, fused)
+    before = getattr(st.stream_plane_pass, counter)
+    got = st.stream_plane_pass(sk, names, raws, lo, hi, 1, org, _DTYPE_GS, fused_shell=fs)
+    torch.cuda.synchronize()
+    assert getattr(st.stream_plane_pass, counter) == before + 1
+    for g, w in zip(got, st.stream_plane_pass_plain(sk, names, raws, lo, hi, 1, org, _DTYPE_GS, fused_shell=fs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["plain", "slabs", "fused"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("dt,name", DTYPE_CASES)
+def test_stream_dtype_wavefront_kernel_equals_plain(dtype_libs, dt, name, m, form):
+    """#8 under each dtype in its queue or general form (by the kernel),
+    plain, z-slab (a dead column past z_valid) and fused, on two ragged
+    blocks with several tiles a side and x chunks: bitwise on the valid
+    region and the emitted slabs, at the storage dtype."""
+    from stencil_tpu_torch.ops.stream_trace import x_reads_centred
+
+    dev = dtype_libs
+    sk, names = _dtype_kernel(dt, name)
+    if m not in _dtype_depths(dt, names):
+        m = max(_dtype_depths(dt, names))  # two float64 fields at m = 3 do not fit: their deepest
+    s = 3
+    n, Xr, Yr, Zr = 2, 61 + s, 100, 77
+    zv = Zr - 2 if form == "slabs" else Zr
+    raws = [_rand_as((n, Xr, Yr, Zr), 261 + q, dev, d) for q, d in enumerate(sk.dtypes)]
+    org = torch.tensor([[_DTYPE_GS[0] - 2, 7, 3], [4, 30, 40]], dtype=torch.int32, device=dev)
+    kw = {}
+    if form == "slabs":
+        kw = dict(z_slabs=[_rand_as((n, Xr, 2 * s, Yr), 271 + q, dev, d) for q, d in enumerate(sk.dtypes)],
+                  z_valid=zv)
+    if form == "fused":
+        kw = dict(fused_shell=tuple([_rand_as((n, 2 * s, a, b), seed + q, dev, d) for q, d in enumerate(sk.dtypes)]
+                                    for seed, (a, b) in ((281, (Yr, Zr)), (291, (Xr, Zr)), (301, (Yr, Xr)))))
+    plan = st.stream_wavefront_launch(sk, names, raws, m, s, _DTYPE_GS, z_slabs=kw.get("z_slabs"),
+                                      z_valid=kw.get("z_valid"), fused=form == "fused")
+    assert plan["form"] == ("queue" if x_reads_centred([sk.trace(lv) for lv in range(1, m + 1)]) else "general")
+    counter = _counter(dt, form == "fused")
+    before = getattr(st.stream_wavefront_pass, counter)
+    got, got_z = st.stream_wavefront_pass(sk, names, raws, m, s, org, _DTYPE_GS, **kw)
+    torch.cuda.synchronize()
+    assert getattr(st.stream_wavefront_pass, counter) == before + 1
+    want, want_z = st.stream_wavefront_pass_plain(sk, names, raws, m, s, org, _DTYPE_GS, **kw)
+    S = slice(s, -s)
+    for g, w, r in zip(got, want, raws):
+        assert g.dtype == r.dtype and torch.equal(g[:, S, S, s:zv - s], w[:, S, S, s:zv - s])
+    for g, w in zip(got_z or [], want_z or []):
+        assert torch.equal(g[:, S, :, S], w[:, S, :, S])
+
+
+@pytest.mark.parametrize("dt", sorted(STREAM_DTYPES))
+@pytest.mark.parametrize("schedule,part", [("auto", None), ("per-step", (2, 2, 2)), ("wavefront", (2, 2, 2))])
+def test_stream_dtype_routes_captured_on_card(dev, dt, schedule, part):
+    """A bf16, float64 and mixed domain through the stream engine's routes,
+    captured against uncaptured: bitwise, the launches under the dtype's
+    form counters and none under the float32 ones."""
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
+    from stencil_tpu_torch.kernels import ledger
+
+    outs = []
+    for capture in (False, True):
+        dd = DistributedDomain(36, 36, 36)
+        dd.set_radius(Radius.constant(3))
+        if part is not None:
+            dd.set_partition(*part)
+        hs = [dd.add_data(f"q{q}", dtype=torch.float32 if dt == "bf16" else d)
+              for q, d in enumerate(STREAM_DTYPES[dt])]
+        if dt == "bf16":
+            dd.set_storage("bf16")
+        dd.realize()
+        rng = np.random.default_rng(7)
+        for h in hs:
+            dd.set_quantity(h, rng.random((36, 36, 36)))
+        dd.set_capture(capture)
+        path = {"auto": "auto", "per-step": "plane", "wavefront": "wavefront"}[schedule]
+        step = dd.make_step(_mean6, engine="stream", x_radius=1, stream_path=path)
+        ledger.reset_launch_counts()
+        dd.run_step(step, 5)
+        dd.run_step(step, 4)
+        torch.cuda.synchronize()
+        counts = ledger.launch_counts()
+        kernel = f"stream_{step._stream_plan['route']}_pass"
+        assert counts[kernel] == 0 and counts[f"{kernel}_{'bf16' if dt == 'bf16' else 'f64'}"] > 0
+        outs.append([dd.quantity_to_host(h) for h in hs])
+    for a, b in zip(*outs):
+        assert np.array_equal(a, b)
+
+
 def _stream_domain(size, route, mult, nf=2, seed=5):
     from stencil_tpu_torch.core.radius import Radius
     from stencil_tpu_torch.domain import DistributedDomain

@@ -510,13 +510,31 @@ def test_set_storage_bf16_degrades_on_mixed_dtype_domain():
 
 
 def test_stream_engine_refuses_a_bf16_domain():
-    dd, _ = _bf16_domain("direct")
+    """The stream engine takes a bf16-storage domain (float32 levels, one
+    rounding a pass), bitwise equal to the JAX package's on the plane route;
+    on it, as on any domain, it still refuses the contraction (the other
+    half of ROADMAP.md queue 1 item 9)."""
+    dd, h = _bf16_domain("direct")
+    jd = JDomain(16, 16, 16)
+    jd.set_radius(JRadius.constant(2))
+    jd.set_devices(EIGHT)
+    jh = jd.add_data("q0")
+    jd.set_storage("bf16")
+    jd.realize()
+    jd.set_quantity(jh, dd.quantity_to_host(h))
 
     def kernel(views, info):
-        return {"q0": views["q0"].center() * 0.5}
+        return {"q0": (views["q0"].center() + views["q0"].sh(1, 0, 0)) / 3.0}
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dd.make_step(kernel, engine="stream")
+    for kw in ({"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            dd.make_step(kernel, engine="stream", **kw)
+    step = dd.make_step(kernel, engine="stream", stream_path="plane")
+    assert step._stream_plan["f32_accumulate"] and step._stream_plan["route"] == "plane"
+    dd.run_step(step, 3)
+    jd.run_step(jd.make_step(kernel, engine="stream", interpret=True, stream_path="plane"), 3)
+    assert dd.get_curr(h).dtype == torch.bfloat16
+    np.testing.assert_array_equal(dd.quantity_to_host(h), np.asarray(jd.quantity_to_host(jh)))
 
 
 # --- the shared-memory model -------------------------------------------------------------
