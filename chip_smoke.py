@@ -240,6 +240,31 @@ non-zero before the result line:
     float32 run's own rounding, ``f32_rounding_atol``), its ms/iter (the
     better of two runs of 24) beside the float32 run's; and the bf16
     ``wavefront`` run captured against uncaptured, bitwise.
+21. float64 on the Jacobi kernels (rows 1-5) and bf16 storage and float64
+    on the mean-of-6 kernels (rows 17-18): every new form held bitwise
+    against its plain version on ragged blocks that both spheres cross (the
+    wrap kernel at k = 1, 4 and 8; the z-ring, z-slab and plain shell
+    wavefronts at m = 4 and 8, one march and two; the plane and slab
+    kernels; #17 at m = 3 and 8 and #18 under both dtypes), then at the main
+    path's shapes (512^3 wrap at k = 8; on 2x2x2 the z-ring (8, 264, 264,
+    256) and z-slab (8, 264^3) wavefronts at the f64 plan's m = 4, the plane
+    (8, 258^3) and slab (8, 256^3) kernels; #17 m = 3 and #18 at 518^3),
+    each form's CUDA-event and device ms beside its float32 form's on the
+    same data, its plain version's and its bound (bytes at the storage
+    itemsize, or f64 operations over 34 TFLOP/s), its launch plan and the
+    float64 library's ptxas registers and spills; then ``Jacobi3D(512^3,
+    dtype=torch.float64, kernel_impl="cuda")`` on ``wrap`` (1x1x1), the
+    z-ring and z-slab wavefronts, ``shell`` and ``slab`` (2x2x2) and
+    ``auto`` at 511^3, 200 steps each with the counters reset before and
+    read after: every launch under the f64 form and none under the f32
+    one, bitwise equal to the f64 plain path (k = 1 wrap calls) at step 10
+    and within rtol 1e-14 of the f64 torch engine, finite and inside [COLD,
+    HOT] at step 200, its Mcells/s beside phase 19's f32 run of the route;
+    the f64 ``wrap`` run captured against uncaptured, bitwise; and 24
+    levels of exchange + #18 and of exchange + #17 (m = 3) on a periodic
+    512^3 domain with a radius-3 shell under bf16 storage and at f64 (f64
+    plane and wavefront bitwise equal, bf16 within ``bf16_storage_atol`` of
+    its roundings of the f64 run).
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -1416,6 +1441,375 @@ def phase20(card: str, dev: torch.device, refs: dict, f32_runs: dict) -> dict:
     if missing:
         raise AssertionError(f"phase 20: no route run launched {missing}")
     rec["errs"] = errs
+    return rec
+
+
+#: phase 21's float64 Jacobi routes: key -> (2x2x2 grid, size, model
+#: keywords); each stands beside phase 19's f32 vpu run of the same key
+J21 = {
+    "wrap": (False, N, {}),
+    "wavefront z-ring": (True, N, {}),
+    "wavefront z-slab": (True, N, {"pallas_path": "wavefront", "z_ring": False}),
+    "shell": (True, N, {"pallas_path": "shell"}),
+    "slab": (True, N, {"pallas_path": "slab"}),
+    f"wavefront plain {N - 1}^3": (True, N - 1, {}),
+}
+#: the float64 run's bound against the float64 torch engine at step 10: the
+#: two sum in other orders, about one ulp a level apart (the f32 phases'
+#: rtol 1e-6 is ~8 f32 ulps; this is ~45 f64 ulps)
+F64_ENGINE_RTOL = 1e-14
+
+
+def phase21(card: str, dev: torch.device, f32_routes: dict) -> dict:
+    """Phase 21 (see the module's docstring): float64 fields on the Jacobi
+    kernels (rows 1-5), bf16 storage and float64 on the mean-of-6 kernels
+    (rows 17-18).  ``f32_routes``: phase 19's route records (their f32 vpu
+    runs).  Returns the phase's record with, under ``forms``, each new
+    form's kernels-line numbers."""
+    from stencil_tpu_torch.bin import bench_kernels as bk
+    from stencil_tpu_torch.domain import DistributedDomain
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.models.jacobi import COLD_TEMP, HOT_TEMP, Jacobi3D
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.ops import plane_stencil as m6
+
+    rec = {"checks": [], "forms": {}, "routes": {}, "mean6_runs": {}}
+    f64, f32 = torch.float64, torch.float32
+    m6_dts = {"bf16": torch.bfloat16, "f64": f64}
+
+    def hold(form: str, got, want, what: str) -> None:
+        """A kernel against its plain version: bitwise."""
+        sync()
+        got, want = (list(got), list(want)) if isinstance(got, (list, tuple)) else ([got], [want])
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                err = max_err(g, w) if g.dtype == w.dtype else float("nan")
+                raise AssertionError(f"phase 21 {form} {what}: kernel against plain version: max abs err {err}, "
+                                     f"dtypes {g.dtype} / {w.dtype}")
+        rec["checks"].append({"form": form, "what": what, "bitwise": True})
+
+    def rand(shape, seed, dt=f64):
+        return bk.device_rand(shape, seed, dev, dt)
+
+    # -- every new form against its plain version on ragged blocks that both
+    # spheres cross: the wrap kernel at k = 1, 4, 8; the z-ring, shell with z
+    # slabs and plain shell wavefronts at m = 4 (one march) and 8 (two); the
+    # plane and slab kernels; the mean-of-6 kernels under bf16 storage and
+    # at f64, the wavefront at m = 3 and 8
+    t0 = time.perf_counter()
+    for k in (1, 4, 8):
+        b = rand((40, 36, 70), 300 + k)
+        hold("jacobi_wrap_step_f64", jk.jacobi_wrap_step(b, k), jk.jacobi_wrap_step_plain(b, k), f"(40,36,70) k={k}")
+    org2 = torch.tensor([[3, 1, 2], [9, 4, 0]], dtype=torch.int32, device=dev)
+    for m in (4, 8):
+        for ring, slabs in ((True, True), (False, True), (False, False)):
+            s, n = m, 2
+            Xr, Yr = 2 * s + 21, 2 * s + 33
+            Z = 128 if ring else 2 * s + 70
+            zv = Z - 1 if slabs and not ring else Z
+            gs = (2 * s + 30, Yr - 2 * s + 3, (Z if ring else zv - 2 * s) + 5)
+            raw = rand((n, Xr, Yr, Z), 310 + m)
+            zs = rand((n, Xr, 2 * s, Yr), 311 + m) if slabs else None
+            S, zsl = slice(s, -s), (slice(None) if ring else slice(s, zv - s))
+            if ring:
+                d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - s, int(o[2]), s, Yr, Z, gs, dev) for o in org2])
+                got = jk.jacobi_zring_wavefront_step(raw, m, org2, d2, gs, zs)
+                want = jk.jacobi_zring_wavefront_step_plain(raw, m, org2, d2, gs, zs)
+            else:
+                d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - s, int(o[2]) - s, (Yr, Z), gs, dev) for o in org2])
+                got = jk.jacobi_shell_wavefront_step(raw, m, org2, d2, gs, z_slabs=zs, z_valid=zv)
+                want = jk.jacobi_shell_wavefront_step_plain(raw, m, org2, d2, gs, z_slabs=zs, z_valid=zv)
+            if not slabs:
+                got, want = (got,), (want,)
+            name = "jacobi_zring_wavefront_step" if ring else "jacobi_shell_wavefront_step"
+            what = f"({n},{Xr},{Yr},{Z}) m={m} {'ring' if ring else 'slabs' if slabs else 'plain'}"
+            hold(f"{name}_f64", [got[0][:, S, S, zsl]] + ([got[1][:, S, :, S]] if slabs else []),
+                 [want[0][:, S, S, zsl]] + ([want[1][:, S, :, S]] if slabs else []), what)
+    for which, shape in (("plane", (3, 20, 37, 70)), ("slab", (3, 18, 36, 70))):
+        n, X, Y, Z = shape
+        gs = (X + 11, Y + 3, Z + 5)
+        org = torch.tensor([[1, 2, 3], [7, 0, 1], [4, 5, 6]], dtype=torch.int32, device=dev)
+        inner = (Y - 2, Z - 2) if which == "plane" else (Y, Z)
+        d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), inner, gs, dev) for o in org])
+        b = rand(shape, 320)
+        if which == "plane":
+            got, want = jk.jacobi_plane_step(b, org, d2, gs), jk.jacobi_plane_step_plain(b, org, d2, gs)
+        else:
+            faces = [rand(f, 321 + j) for j, f in enumerate([(n, Y, Z)] * 2 + [(n, X, Z)] * 2 + [(n, X, Y)] * 2)]
+            got, want = jk.jacobi_slab_step(b, *faces, org, d2, gs), jk.jacobi_slab_step_plain(b, *faces, org, d2, gs)
+        hold(f"jacobi_{which}_step_f64", got, want, str(shape))
+    for dname, dt in m6_dts.items():
+        acc = dname == "bf16"
+        for m in (3, 8):
+            raw = rand((2 * m + 41, 2 * m + 29, 2 * m + 75), 330 + m, dt)
+            S = slice(m, -m)
+            hold(f"mean6_shell_wavefront_step_{dname}", m6.mean6_shell_wavefront_step(raw, m, m, f32_accumulate=acc)[S, S, S],
+                 m6.mean6_shell_wavefront_step_plain(raw, m, m, f32_accumulate=acc)[S, S, S], f"{tuple(raw.shape)} m={m}")
+        b = rand((37, 41, 70), 340, dt)
+        hold(f"mean6_plane_step_{dname}", m6.mean6_plane_step(b, (1, 2, 3), (3, 1, 2), f32_accumulate=acc),
+             m6.mean6_plane_step_plain(b, (1, 2, 3), (3, 1, 2), f32_accumulate=acc), "(37,41,70) lo (1,2,3) hi (3,1,2)")
+    log(f"phase 21: every new form against its plain version on ragged blocks, bitwise, {len(rec['checks'])} checks, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the main path's shapes: each form held bitwise, then its CUDA-event
+    # and device ms beside the f32 form's on the same data, its plain
+    # version's and its bound (bytes at the storage itemsize; seven f64
+    # operations a cell-level over 34 TFLOP/s, six for the mean of 6)
+    t0 = time.perf_counter()
+    half, gs = N // 2, (N, N, N)
+    m4 = jk.wavefront_auto_depth(half, itemsize=8)  # the f64 routes' depth on 2x2x2
+    r = half + 2 * m4
+    ws = N + 6
+    borg = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)], dtype=torch.int32,
+                        device=dev)
+    ring_d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - m4, int(o[2]), m4, r, half, gs, dev) for o in borg])
+    sh_d2 = torch.stack([jk.yz_dist2_plane(int(o[1]) - m4, int(o[2]) - m4, (r, r), gs, dev) for o in borg])
+    one_d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (half, half), gs, dev) for o in borg])
+
+    def jbound(nbytes, cell_levels):
+        b = bk.jacobi_bound(nbytes, cell_levels, f64=True)
+        return b["bound_ms"], b["bound_by"]
+
+    def m6bound(nbytes, cell_levels, dname):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 6 * cell_levels / (bk.F64_FLOPS_PER_S if dname == "f64" else F32_FLOPS_PER_S) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    # name: (inputs at a dtype, the call, the plain call, valid region,
+    # kernel launches a call, the bound at the form's dtype, shape, plan)
+    cases = {
+        "jacobi_wrap_step_f64": (
+            lambda dt: rand((N, N, N), 350, dt), lambda b: jk.jacobi_wrap_step(b, 8),
+            lambda b: jk.jacobi_wrap_step_plain(b, 8), lambda o: o, 2,
+            jbound(2 * N ** 3 * 8, N ** 3 * 8), f"({N},{N},{N}) k=8",
+            lambda: jk.jacobi_wrap_launch((N, N, N), 8, storage="f64")),
+        "jacobi_zring_wavefront_step_f64": (
+            lambda dt: (rand((8, r, r, half), 351, dt), rand((8, r, 2 * m4, r), 352, dt)),
+            lambda t: jk.jacobi_zring_wavefront_step(t[0], m4, borg, ring_d2, gs, t[1]),
+            lambda t: jk.jacobi_zring_wavefront_step_plain(t[0], m4, borg, ring_d2, gs, t[1]),
+            lambda o: (o[0][:, m4:-m4, m4:-m4], o[1][:, m4:-m4, :, m4:-m4]), 1,
+            jbound(bk.wavefront_bytes(8, r, r, half + 2 * m4, m4, m4, True, 8), 8 * half ** 3 * m4),
+            f"(8,{r},{r},{half}) m={m4}, z slabs (8,{r},{2 * m4},{r})",
+            lambda: jk.jacobi_wavefront_launch((8, r, r, half), m4, ring=True, slabs=True, storage="f64")),
+        "jacobi_shell_wavefront_step_f64": (
+            lambda dt: (rand((8, r, r, r), 353, dt), rand((8, r, 2 * m4, r), 354, dt)),
+            lambda t: jk.jacobi_shell_wavefront_step(t[0], m4, borg, sh_d2, gs, z_slabs=t[1], z_valid=r),
+            lambda t: jk.jacobi_shell_wavefront_step_plain(t[0], m4, borg, sh_d2, gs, z_slabs=t[1], z_valid=r),
+            lambda o: (o[0][:, m4:-m4, m4:-m4, m4:-m4], o[1][:, m4:-m4, :, m4:-m4]), 1,
+            jbound(bk.wavefront_bytes(8, r, r, r, m4, m4, True, 8), 8 * half ** 3 * m4),
+            f"(8,{r},{r},{r}) m={m4}, z slabs (8,{r},{2 * m4},{r}), z_valid={r}",
+            lambda: jk.jacobi_wavefront_launch((8, r, r, r), m4, slabs=True, storage="f64")),
+        "jacobi_plane_step_f64": (
+            lambda dt: rand((8, half + 2, half + 2, half + 2), 355, dt),
+            lambda b: jk.jacobi_plane_step(b, borg, one_d2, gs), lambda b: jk.jacobi_plane_step_plain(b, borg, one_d2, gs),
+            lambda o: o, 1, jbound(2 * 8 * (half + 2) ** 3 * 8 + (one_d2.numel() + 24) * 4, 8 * half ** 3),
+            f"(8,{half + 2},{half + 2},{half + 2})", lambda: jk.jacobi_plane_launch((8, half + 2, half + 2, half + 2),
+                                                                                     storage="f64")),
+        "jacobi_slab_step_f64": (
+            lambda dt: tuple(rand(sh, 356 + j, dt) for j, sh in enumerate([(8, half, half, half)] + [(8, half, half)] * 6)),
+            lambda t: jk.jacobi_slab_step(t[0], *t[1:], borg, one_d2, gs),
+            lambda t: jk.jacobi_slab_step_plain(t[0], *t[1:], borg, one_d2, gs), lambda o: o, 1,
+            jbound((2 * 8 * half ** 3 + 6 * 8 * half * half) * 8 + (one_d2.numel() + 24) * 4, 8 * half ** 3),
+            f"(8,{half},{half},{half}), six face slabs (8,{half},{half})",
+            lambda: jk.jacobi_slab_launch((8, half, half, half), storage="f64")),
+    }
+    for dname, dt in m6_dts.items():
+        item = dt.itemsize
+        cases[f"mean6_shell_wavefront_step_{dname}"] = (
+            lambda dt, dname=dname: rand((ws, ws, ws), 360, dt),
+            lambda b: m6.mean6_shell_wavefront_step(b, 3, 3, f32_accumulate=b.dtype == torch.bfloat16),
+            lambda b: m6.mean6_shell_wavefront_step_plain(b, 3, 3, f32_accumulate=b.dtype == torch.bfloat16),
+            lambda o: o[3:-3, 3:-3, 3:-3], 1, m6bound((ws ** 3 + N ** 3) * item, 3 * N ** 3, dname),
+            f"({ws},{ws},{ws}) m=3 s=3", lambda dname=dname: m6.mean6_wavefront_launch((ws, ws, ws), 3, 3, dname))
+        cases[f"mean6_plane_step_{dname}"] = (
+            lambda dt, dname=dname: rand((ws, ws, ws), 361, dt),
+            lambda b: m6.mean6_plane_step(b, (3, 3, 3), (3, 3, 3), f32_accumulate=b.dtype == torch.bfloat16),
+            lambda b: m6.mean6_plane_step_plain(b, (3, 3, 3), (3, 3, 3), f32_accumulate=b.dtype == torch.bfloat16),
+            lambda o: o, 1, m6bound(2 * ws ** 3 * item, N ** 3, dname), f"({ws},{ws},{ws}) lo = hi = 3", lambda: None)
+    for name, (make, call, plain, valid, per_call, bnd, shape, plan) in cases.items():
+        dt = m6_dts["bf16"] if name.endswith("_bf16") else f64
+        ins = make(dt)
+        hold(name, valid(call(ins)), valid(plain(ins)), shape)
+        entry = {"ms": cuda_ms(lambda: call(ins), inner=2), "device_ms": device_ms_per_call(lambda: call(ins),
+                                                                                         per_call=per_call),
+                 "plain_ms": cuda_ms(lambda: plain(ins), reps=3, inner=1), "bound": bnd,
+                 "shape": f"{shape}, {'bf16 storage' if dt == torch.bfloat16 else 'float64'}", "launch": plan()}
+        del ins
+        ins = make(f32)  # the f32 form on the same seeded data
+        entry["f32_ms"] = cuda_ms(lambda: call(ins), inner=2)
+        entry["f32_device_ms"] = device_ms_per_call(lambda: call(ins), per_call=per_call)
+        del ins
+        torch.cuda.empty_cache()
+        rec["forms"][name] = entry
+        log(f"{name} {entry['shape']}: CUDA events {entry['ms']:.4f} ms a call, device {entry['device_ms']:.4f} (f32 "
+            f"form {entry['f32_ms']:.4f}, device {entry['f32_device_ms']:.4f}; plain {entry['plain_ms']:.4f}), bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})" + (f"; launch {plan_str(entry['launch'])}" if entry["launch"] else "")
+            + f" on {card}")
+    del cases
+    torch.cuda.empty_cache()
+    # each f64 form's registers, spills and blocks an SM (its launch plan
+    # above), from the float64 library's ptxas report
+    rec["ptxas"] = {"jacobi_wavefront_f64": bk.library_ptxas("jacobi_wavefront_f64"),
+                    "jacobi_wavefront_bf16 mean6": [e for e in bk.library_ptxas("jacobi_wavefront_bf16")
+                                                    if "Li6E" in e["entry"]],
+                    "plane_stencil": bk.library_ptxas("plane_stencil")}
+    regs = [(e.get("registers"), e.get("spill_stores", 0)) for e in rec["ptxas"]["jacobi_wavefront_f64"]]
+    log(f"phase 21: f64 library, {len(regs)} kernels: registers {min(r for r, _ in regs)}-{max(r for r, _ in regs)}, "
+        f"most spill-store bytes {max(s for _, s in regs)}; main-path shapes held and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the routes at full width at f64: 200 steps each with the counters
+    # reset before and read after; bitwise against the f64 plain path at
+    # step 10 and within F64_ENGINE_RTOL of the f64 torch engine; finite and
+    # inside [COLD, HOT] at step 200; Mcells/s beside the f32 vpu run's
+    refs = {}
+    for size in (N, N - 1):
+        plain = torch.full((size,) * 3, (HOT_TEMP + COLD_TEMP) / 2, dtype=f64, device=dev)
+        for _ in range(CHECK_AT):
+            plain = jk.jacobi_wrap_step_plain(plain, 1)
+        eng = Jacobi3D(size, size, size, kernel_impl="torch", dtype=f64)
+        eng.realize()
+        eng.step(CHECK_AT)
+        refs[size] = (plain.cpu(), torch.from_numpy(eng.temperature()))
+        del plain, eng
+        torch.cuda.empty_cache()
+        np.testing.assert_allclose(refs[size][0].numpy(), refs[size][1].numpy(), rtol=F64_ENGINE_RTOL, atol=0)
+
+    def run(key: str, capture: bool = False) -> dict:
+        grid, size, kw = J21[key]
+        model = Jacobi3D(size, size, size, kernel_impl="cuda", dtype=f64, capture=capture, **kw)
+        if grid:
+            model.dd.set_partition(2, 2, 2)
+        model.realize()
+        ledger.reset_launch_counts()
+        sync()
+        model.step(CHECK_AT)
+        sync()
+        at_check = torch.from_numpy(model.temperature())
+        t0 = time.perf_counter()
+        model.step(STEPS - CHECK_AT)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in ledger.launch_counts().items() if v}
+        final = torch.from_numpy(model.temperature())
+        kernel = {"wrap": "jacobi_wrap_step", "shell": "jacobi_plane_step", "slab": "jacobi_slab_step",
+                  "wavefront": "jacobi_zring_wavefront_step" if model._wavefront_z_ring
+                  else "jacobi_shell_wavefront_step"}[model._pallas_path]
+        unit = {"wrap": jk.choose_temporal_k((size,) * 3), "wavefront": model._wavefront_m}.get(model._pallas_path, 1)
+        want = sum(-(-k // unit) for k in (CHECK_AT, STEPS - CHECK_AT))
+        res = {"path": model._pallas_path, "m": model._wavefront_m, "kernel": kernel, "launches": counts,
+               "want": want, "mcells_per_s": size ** 3 * (STEPS - CHECK_AT) / seconds / 1e6,
+               "dtype": str(model.dd.get_curr(model.h).dtype), "final": final}
+        del model
+        torch.cuda.empty_cache()
+        plain, eng = refs[size]
+        if counts.get(f"{kernel}_f64") != want or counts.get(kernel, 0):
+            raise AssertionError(f"phase 21 {key}: launches {counts}, want {want} of {kernel}_f64 and none of {kernel}")
+        if res["dtype"] != "torch.float64" or final.dtype != f64:
+            raise AssertionError(f"phase 21 {key}: the field is {res['dtype']}, not float64")
+        if not torch.equal(at_check, plain):
+            raise AssertionError(f"phase 21 {key}: != the f64 plain path at step {CHECK_AT} "
+                                 f"(max abs err {max_err(at_check, plain)})")
+        np.testing.assert_allclose(at_check.numpy(), eng.numpy(), rtol=F64_ENGINE_RTOL, atol=0)
+        if not (torch.isfinite(final).all() and final.min() >= COLD_TEMP and final.max() <= HOT_TEMP):
+            raise AssertionError(f"phase 21 {key}: field not finite or outside [COLD, HOT] after {STEPS} steps")
+        return res
+
+    for key in J21:
+        res = run(key)
+        ref32 = f32_routes[key]["f32 vpu"]
+        entry = {k: v for k, v in res.items() if k != "final"}
+        entry.update(f32_mcells_per_s=ref32["mcells_per_s"], f32_m=ref32["m"], f32_launches=ref32["launches"])
+        rec["routes"][key] = entry
+        name = f"{res['kernel']}_f64"
+        log(f"phase 21 {key} f64: {res['mcells_per_s']:.1f} Mcells/s against {ref32['mcells_per_s']:.1f} (f32, phase "
+            f"19), m={res['m']} (f32 {ref32['m']}); {res['launches'][name]} launches of {name}; bitwise equal to the "
+            f"f64 plain path and within rtol {F64_ENGINE_RTOL} of the f64 torch engine at step {CHECK_AT} on {card}")
+        fe = rec["forms"].get(name)
+        if fe is not None and "counts" not in fe:
+            fe["counts"], fe["want"] = res["launches"], res["want"]
+        if key == "wrap":
+            # one f64 route captured against uncaptured: bitwise, launches equal
+            cap = run(key, capture=True)
+            if cap["launches"] != res["launches"] or not torch.equal(cap["final"], res["final"]):
+                raise AssertionError(f"phase 21: captured f64 wrap != uncaptured ({cap['launches']}, "
+                                     f"{res['launches']})")
+            rec["captured_f64_wrap"] = {"bitwise": True, "launches": cap["launches"]}
+            log("phase 21: f64 wrap route captured bitwise equal to uncaptured, launches equal")
+            del cap
+        del res
+    del refs
+
+    # -- the mean-of-6 kernels at full width under bf16 storage and at f64:
+    # one periodic 512^3 subdomain with a radius-3 shell (phase 15's
+    # geometry), AST_ITERS levels of exchange + mean6_plane_step and of one
+    # exchange + one mean6_shell_wavefront_step a pass (m = 3); the counters
+    # reset before and read after; f64 plane and wavefront bitwise equal,
+    # bf16 within bf16_storage_atol of its roundings of the f64 run
+    init = np.random.default_rng(210).random((N, N, N)).astype(np.float32)
+    shell3 = (3, 3, 3)
+    runs = {}
+    for dname, dt in m6_dts.items():
+        acc = dname == "bf16"
+        for kernel in ("mean6_plane_step", "mean6_shell_wavefront_step"):
+            dd = DistributedDomain(N, N, N, device=dev)
+            dd.set_radius(3)
+            if acc:
+                dd.set_storage("bf16")
+            h = dd.add_data("u", dtype=f32 if acc else f64)
+            dd.realize()
+            dd.set_quantity(h, init)
+            ledger.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            levels, calls = AST_ITERS, 0
+            while levels:
+                m = 1 if kernel == "mean6_plane_step" else min(3, levels)
+                dd.exchange()
+                cur, nxt = dd.get_curr(h)[0, 0, 0], dd.get_next(h)[0, 0, 0]
+                if kernel == "mean6_plane_step":
+                    m6.mean6_plane_step(cur, shell3, shell3, f32_accumulate=acc, out=nxt)
+                else:
+                    m6.mean6_shell_wavefront_step(cur, m, 3, f32_accumulate=acc, out=nxt)
+                dd.swap()
+                levels -= m
+                calls += 1
+            sync()
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in ledger.launch_counts().items() if v}
+            got = dd.get_curr(h)[0, 0, 0, 3:-3, 3:-3, 3:-3].clone()
+            del dd
+            torch.cuda.empty_cache()
+            form = f"{kernel}_{dname}"
+            if counts != {form: calls, "blend_slab": 6 * calls}:
+                raise AssertionError(f"phase 21 {form} run: launches {counts}, want {calls} of {form} and "
+                                     f"{6 * calls} blend_slab")
+            if got.dtype != dt or not (torch.isfinite(got.float()).all() and 0 <= float(got.min())
+                                       and float(got.max()) <= 1):
+                raise AssertionError(f"phase 21 {form} run: {got.dtype}, not finite or outside [0, 1]")
+            runs[form] = got
+            rec["mean6_runs"][form] = {"launches": calls, "ms_per_level": seconds * 1e3 / AST_ITERS}
+            fe = rec["forms"][form]
+            fe["counts"], fe["want"] = counts, calls
+    ref = runs["mean6_plane_step_f64"]
+    if not torch.equal(runs["mean6_shell_wavefront_step_f64"], ref):
+        raise AssertionError("phase 21: the f64 mean6 wavefront run != the f64 plane run")
+    for form, passes in (("mean6_plane_step_bf16", AST_ITERS), ("mean6_shell_wavefront_step_bf16", AST_ITERS // 3)):
+        err = float((runs[form].double() - ref).abs().max())
+        limit = bf16_storage_atol(passes)
+        rec["mean6_runs"][form].update(max_abs_err_vs_f64=err, limit=limit)
+        if err > limit:
+            raise AssertionError(f"phase 21 {form} run: {err} against the f64 run exceeds {limit}")
+    log(f"phase 21 mean6 runs ({AST_ITERS} levels, {N}^3, shell 3): f64 plane and wavefront bitwise equal; "
+        + ", ".join(f"{k} {v['ms_per_level']:.4f} ms a level"
+                    + (f", {v['max_abs_err_vs_f64']:.3e} from f64 (limit {v['limit']:.3e})" if "limit" in v else "")
+                    for k, v in rec["mean6_runs"].items()) + f" on {card}")
+    del runs, ref
+    torch.cuda.empty_cache()
+    missing = [name for name, f in rec["forms"].items() if "counts" not in f]
+    if missing:
+        raise AssertionError(f"phase 21: no run launched {missing}")
+    rec["errs"] = dict.fromkeys(rec["forms"], 0.0)
     return rec
 
 
@@ -3168,6 +3562,12 @@ def main() -> int:
     del ast_ref_host, ast_u_ref_host
     phase_end()
 
+    # --- 21. float64 on the Jacobi kernels; bf16 storage and float64 on the mean-of-6 kernels
+    phase_start(21)
+    f21 = phase21(card, dev, ax19["routes"])
+    errs.update(f21["errs"])
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -3235,6 +3635,13 @@ def main() -> int:
         # (bytes at the storage itemsize, or f32 / f64 operations)
         (name, f["counts"], AST_ITERS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
         for name, f in dt20["forms"].items()
+    ] + [
+        # phase 21's forms: launches over the f64 Jacobi route's 200 steps, or
+        # the mean-of-6 run's 24 levels; the bound is the phase's (bytes at the
+        # storage itemsize, or f32 / f64 operations)
+        (name, f["counts"], AST_ITERS if name.startswith("mean6") else STEPS, f["want"], f["ms"], f["plain_ms"], None,
+         0, 0, f["shape"], f["bound"])
+        for name, f in f21["forms"].items()
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     entries.update({name: ledger.form_entry(name) for name in ledger.FORMS})
@@ -3291,6 +3698,10 @@ def main() -> int:
             f = dt20["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], f32_ms=f["f32_ms"], f32_device_ms=f["f32_device_ms"],
                             launch=f["launch"], ptxas=f["ptxas"], copy_bound_ms=None)
+        if name in f21["forms"]:
+            f = f21["forms"][name]
+            rows[-1].update(device_ms=f["device_ms"], f32_ms=f["f32_ms"], f32_device_ms=f["f32_device_ms"],
+                            launch=f["launch"], copy_bound_ms=None)
         if name in ax19["forms"]:
             f = ax19["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
@@ -3334,6 +3745,7 @@ def main() -> int:
         "fused_split": f16, "captured": cap17, "components_and_oracles": nd18,
         "kernel_axes": {k: v for k, v in ax19.items() if k != "errs"},
         "stream_dtypes": {k: v for k, v in dt20.items() if k != "errs"},
+        "jacobi_f64_mean6_dtypes": {k: v for k, v in f21.items() if k != "errs"},
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

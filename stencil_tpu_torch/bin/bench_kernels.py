@@ -117,7 +117,26 @@ and (``--only`` keeps the sections named):
   the plan (#8), the bound (the larger of the bytes a call must move at the
   storage itemsize over 3.35 TB/s and its operations over 67 TFLOP/s at
   float32 or 34 at float64, H100 SXM outside the tensor cores) and the
-  ptxas registers and spill bytes of each kernel the library holds.
+  ptxas registers and spill bytes of each kernel the library holds;
+* ``jacobi_f64``: the float64 build of every Jacobi row (#1-#5) beside the
+  f32 form on the same seeded data, in one process: the wrap kernel at k =
+  8 and 1, the three wavefront forms at m = 8 (the f32 rows' shapes, two
+  marches) and at the float64 route's m = 4 (8, 264, 264, 256) / (8,
+  264^3) (one march), the plane and slab kernels: device ms a call, CUDA-event
+  ms a call, the plan and the bound (the larger of the bytes at 8 bytes a
+  cell, d2 and the origins at 4, over 3.35 TB/s and seven operations a
+  cell-level over 34 TFLOP/s f64, H100 SXM outside the tensor cores; the
+  f32 rows at 4 bytes and 67 TFLOP/s), and the registers, spill bytes and
+  shared memory of each kernel of the float64 library (``-Xptxas -v``);
+* ``mean6_dtypes``: the mean-of-6 kernels #17 and #18 under bf16 storage
+  (``f32_accumulate``) and at float64 beside float32, over one 518^3 block
+  (the Astaroth proxy's 512^3 subdomain, shell 3): the wavefront at m = 3
+  (s = 3) and m = 8 (s = 8) and one plane level (lo = hi = 3), into
+  ``out=``: device ms a call, CUDA-event ms a call, the plan (#17) and the
+  bound (the larger of the bytes at the storage itemsize over 3.35 TB/s and
+  six operations a cell-level over 67 TFLOP/s f32 or 34 f64), and the
+  registers and spill bytes of the bf16 and float64 libraries' mean-of-6
+  kernels.
 
 A CUDA card is required; it exits 1 without one.
 """
@@ -260,15 +279,20 @@ def stream_wavefront_bytes(n, Xr, Yr, W, m, s_off, slabs, fields, itemsize: int 
     return fields * n * (reads + writes) * itemsize + n * 12
 
 
-def jacobi_bound(nbytes: int, cell_levels: int, compute_unit: str = "vpu", mxu_input: str = "f32") -> dict:
+def jacobi_bound(nbytes: int, cell_levels: int, compute_unit: str = "vpu", mxu_input: str = "f32",
+                 f64: bool = False) -> dict:
     """The least time a Jacobi call could take: the larger of its bytes over
     3.35 TB/s, its f32 operations over 67 TFLOP/s (seven a cell-level: six
-    adds and a multiply; four beside a contraction) and, for a contraction
-    unit, its tensor-core FLOPs (``tensor_core_flops_per_cell`` of each
-    cell-level) over the dense peak of its operands' type."""
+    adds and a multiply; four beside a contraction; at float64 seven over
+    34 TFLOP/s) and, for a contraction unit, its tensor-core FLOPs
+    (``tensor_core_flops_per_cell`` of each cell-level) over the dense peak
+    of its operands' type."""
     mxu = compute_unit != "vpu"
-    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "f32 operations": cell_levels * (4 if mxu else 7) / F32_FLOPS_PER_S * 1e3}
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    if f64:
+        times["f64 operations"] = cell_levels * 7 / F64_FLOPS_PER_S * 1e3
+    else:
+        times["f32 operations"] = cell_levels * (4 if mxu else 7) / F32_FLOPS_PER_S * 1e3
     tc = 0
     if mxu:  # (a tree before the axes times its vpu rows through here too)
         from stencil_tpu_torch.ops import jacobi_kernels as jk
@@ -280,9 +304,13 @@ def jacobi_bound(nbytes: int, cell_levels: int, compute_unit: str = "vpu", mxu_i
             "tensor_core_flops": tc}
 
 
+#: a storage value's block dtype and itemsize (``f64``: float64 fields)
+_STORAGE = {"native": (torch.float32, 4), "bf16": (torch.bfloat16, 2), "f64": (torch.float64, 8)}
+
+
 def _axes_kw(storage: str, unit: str, mxu_input: str) -> dict:
     """The kernel-axis keywords of a call, none for the f32 vpu form (so that
-    a tree from before the axes runs it)."""
+    a tree from before the axes runs it) nor for float64 blocks."""
     kw = {}
     if storage == "bf16":
         kw["f32_accumulate"] = True
@@ -298,9 +326,11 @@ def jacobi_wrap_times(dev, storage: str = "native", unit: str = "vpu", mxu_input
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
     kw = _axes_kw(storage, unit, mxu_input)
-    item = 2 if storage == "bf16" else 4
-    block = _seeded((N, N, N), 40, dev).to(torch.bfloat16 if storage == "bf16" else torch.float32)
+    dt, item = _STORAGE[storage]
+    block = _seeded((N, N, N), 40, dev).to(dt)
     plan = getattr(jk, "jacobi_wrap_launch", None)
+    axes = {} if storage == "native" and unit == "vpu" else {"compute_unit": unit, "mxu_input": mxu_input,
+                                                             "storage": storage}
     out = {}
     for k in ks:
         def call(k=k):
@@ -308,21 +338,20 @@ def jacobi_wrap_times(dev, storage: str = "native", unit: str = "vpu", mxu_input
 
         prof, _ = _profile(call, 10, per_call=len(jk.wrap_march_depths(k)))
         out[f"k={k}"] = {"device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call, inner=2),
-                         **jacobi_bound(2 * N ** 3 * item, N ** 3 * k, unit, mxu_input),
-                         "launch": None if plan is None else plan((N, N, N), k, **({} if not kw else {
-                             "compute_unit": unit, "mxu_input": mxu_input, "storage": storage}))}
+                         **jacobi_bound(2 * N ** 3 * item, N ** 3 * k, unit, mxu_input, storage == "f64"),
+                         "launch": None if plan is None else plan((N, N, N), k, **axes)}
     del block
     torch.cuda.empty_cache()
     return out
 
 
-def jacobi_wavefront_times(dev, storage: str = "native", unit: str = "vpu", mxu_input: str = "f32") -> dict:
+def jacobi_wavefront_times(dev, storage: str = "native", unit: str = "vpu", mxu_input: str = "f32",
+                           m: int = 8) -> dict:
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
     kw = _axes_kw(storage, unit, mxu_input)
-    item = 2 if storage == "bf16" else 4
-    dt = torch.bfloat16 if storage == "bf16" else torch.float32
-    half, m = N // 2, 8
+    dt, item = _STORAGE[storage]
+    half = N // 2
     r = half + 2 * m
     out = {}
     for label, n_glob, Z, ring, slabs in (("zring", N, half, True, True), ("zslab", N, r, False, True),
@@ -349,7 +378,10 @@ def jacobi_wavefront_times(dev, storage: str = "native", unit: str = "vpu", mxu_
         out[label] = {"shape": [8, r, r, Z], "m": m, "device_ms": sum(prof.values()), "kernels": prof,
                       "ms": _cuda_ms(call, inner=2),
                       **jacobi_bound(wavefront_bytes(8, r, r, W, m, m, slabs, item), 8 * half ** 3 * m, unit,
-                                     mxu_input)}
+                                     mxu_input, storage == "f64")}
+        if storage == "f64":
+            out[label]["launch"] = jk.jacobi_wavefront_launch((8, r, r, Z), m, ring=ring, slabs=slabs,
+                                                              storage=storage)
         del raw, zs, d2
         torch.cuda.empty_cache()
     return out
@@ -361,8 +393,7 @@ def _onelevel_case(dev, which: str, storage: str = "native") -> dict:
     from stencil_tpu_torch.ops import jacobi_kernels as jk
 
     kw = _axes_kw(storage, "vpu", "f32")
-    item = 2 if storage == "bf16" else 4
-    dt = torch.bfloat16 if storage == "bf16" else torch.float32
+    dt, item = _STORAGE[storage]
     half, gs = N // 2, (N, N, N)
     ext = half + 2 if which == "plane" else half
     block = _seeded((8, ext, ext, ext), 50, dev).to(dt)
@@ -385,8 +416,9 @@ def _onelevel_case(dev, which: str, storage: str = "native") -> dict:
     nbytes = (2 * block.numel() + sum(s.numel() for s in slabs)) * item + (d2.numel() + org.numel()) * 4
     plan = getattr(jk, f"jacobi_{which}_launch", None)
     res = {"shape": list(block.shape), "device_ms": sum(prof.values()), "kernels": prof, "ms": _cuda_ms(call),
-           **jacobi_bound(nbytes, 8 * half ** 3),
-           "launch": None if plan is None else plan(tuple(block.shape), **({"storage": storage} if kw else {}))}
+           **jacobi_bound(nbytes, 8 * half ** 3, f64=storage == "f64"),
+           "launch": None if plan is None else plan(tuple(block.shape),
+                                                    **({} if storage == "native" else {"storage": storage}))}
     del block, slabs, out
     torch.cuda.empty_cache()
     return res
@@ -396,6 +428,78 @@ def jacobi_bf16_times(dev) -> dict:
     """The bf16-storage twin of every Jacobi row (section ``jacobi_bf16``)."""
     return {"wrap": jacobi_wrap_times(dev, "bf16"), "wavefront": jacobi_wavefront_times(dev, "bf16"),
             "plane": _onelevel_case(dev, "plane", "bf16"), "slab": _onelevel_case(dev, "slab", "bf16")}
+
+
+def library_ptxas(name: str) -> list:
+    """``ptxas_report`` of a built plain source or variant (its ``.so.log``),
+    with each kernel's shared memory where ptxas reports it."""
+    import os
+
+    from stencil_tpu_torch.kernels import build
+
+    log = build.library_path(name) + ".log"
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return ptxas_report(f.read())
+
+
+def jacobi_f64_times(dev) -> dict:
+    """The float64 build of every Jacobi row beside its f32 form (section
+    ``jacobi_f64``)."""
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+
+    m4 = jk.wavefront_auto_depth(N // 2, itemsize=8)  # the f64 route's depth on 2x2x2 (4)
+    out = {}
+    for storage in ("f64", "native"):
+        out[storage] = {"wrap": jacobi_wrap_times(dev, storage), "wavefront": jacobi_wavefront_times(dev, storage),
+                        f"wavefront_m{m4}": jacobi_wavefront_times(dev, storage, m=m4),
+                        "plane": _onelevel_case(dev, "plane", storage), "slab": _onelevel_case(dev, "slab", storage)}
+    out["ptxas"] = library_ptxas("jacobi_wavefront_f64")
+    return out
+
+
+def mean6_dtype_times(dev) -> dict:
+    """The mean-of-6 kernels under each field dtype (section
+    ``mean6_dtypes``)."""
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    ws, s3 = N + 6, 3
+    res = {}
+    for storage in ("native", "bf16", "f64"):
+        dt, item = _STORAGE[storage]
+        flops = F64_FLOPS_PER_S if storage == "f64" else F32_FLOPS_PER_S
+        acc = storage == "bf16"
+        block = _seeded((ws, ws, ws), 60, dev).to(dt)
+        out = torch.empty_like(block)
+        row = {}
+        for m, s in ((3, 3), (8, 8)):
+            def call(m=m, s=s):
+                return ps.mean6_shell_wavefront_step(block, m, s, f32_accumulate=acc, out=out)
+
+            prof, _ = _profile(call, 10, per_call=jk.wavefront_marches(m))
+            times = {"bytes": (ws ** 3 + (ws - 2 * s) ** 3) * item / HBM_BYTES_PER_S * 1e3,
+                     "operations": 6 * m * (ws - 2 * s) ** 3 / flops * 1e3}
+            by = max(times, key=times.get)
+            row[f"wavefront m={m}"] = {"shape": [ws] * 3, "s": s, "device_ms": sum(prof.values()), "kernels": prof,
+                                       "ms": _cuda_ms(call, inner=2), "bound_ms": times[by], "bound_by": by,
+                                       "launch": ps.mean6_wavefront_launch((ws, ws, ws), m, s, storage)}
+
+        def plane():
+            return ps.mean6_plane_step(block, (s3,) * 3, (s3,) * 3, f32_accumulate=acc, out=out)
+
+        prof, _ = _profile(plane, 10)
+        times = {"bytes": 2 * ws ** 3 * item / HBM_BYTES_PER_S * 1e3, "operations": 6 * N ** 3 / flops * 1e3}
+        by = max(times, key=times.get)
+        row["plane"] = {"shape": [ws] * 3, "lo_hi": s3, "device_ms": sum(prof.values()), "kernels": prof,
+                        "ms": _cuda_ms(plane), "bound_ms": times[by], "bound_by": by}
+        res[storage] = row
+        del block, out
+        torch.cuda.empty_cache()
+    res["ptxas"] = {name: [e for e in library_ptxas(name) if "Li6E" in e["entry"] or "mean6" in e["entry"]]
+                    for name in ("jacobi_wavefront_bf16", "jacobi_wavefront_f64", "plane_stencil")}
+    return res
 
 
 def jacobi_mxu_times(dev) -> dict:
@@ -848,7 +952,8 @@ def main(argv=None) -> int:
                 "blend_dynamic": blend_dynamic_times, "fused": fused_times, "direct": direct_route,
                 "jacobi_bf16": jacobi_bf16_times, "jacobi_mxu": jacobi_mxu_times, "mxu_vs_vpu": mxu_vs_vpu_times,
                 "stream_bf16": lambda dev: stream_dtype_times(dev, "bf16"),
-                "stream_f64": lambda dev: stream_dtype_times(dev, "f64")}
+                "stream_f64": lambda dev: stream_dtype_times(dev, "f64"),
+                "jacobi_f64": jacobi_f64_times, "mean6_dtypes": mean6_dtype_times}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

@@ -1,4 +1,4 @@
-"""SASS instruction counts of the stream kernels' float32 builds, per kernel.
+"""SASS instruction counts of the port's kernel builds, per kernel.
 
     python -m stencil_tpu_torch.bin.sass_counts [--out FILE]
     PYTHONPATH=<other tree> python <this file> --out FILE   # that tree's builds
@@ -7,14 +7,19 @@ Builds the float32 libraries of the stream kernel templates (#6-#8,
 ``csrc/stream_*.cu``) for the traced kernels ``chip_smoke.py`` builds
 (Astaroth's over 8 fields and one, the 27-point, coordinate-forced,
 two-field mean-of-6 and off-centre two-field kernels), each template and
-depth, disassembles each with ``cuobjdump -sass`` and counts the
-instruction lines of every ``Function :`` (the anonymous namespace's hash
-taken out of the name, so that two trees' names match).  It prints, and
-writes to ``--out``, one JSON object: ``{"card", "counts": {library key:
-{function: instructions}}, "total"}``, the key naming the kernel, template
-and depth, not the source's hash.  It calls only what the port has had since
-the fused forms landed, so two trees compare like with like.  Needs nvcc
-and ``cuobjdump`` (``$CUDA_HOME/bin``), not a card.
+depth; and every build of ``csrc/jacobi_wavefront.cu`` the tree has (#1-#5
+and #17: the f32 vpu build and the ``VARIANTS`` of ``kernels/build.py``,
+bf16 storage, float64 and the tensor-core builds) and
+``csrc/plane_stencil.cu`` (#18).  It disassembles each with ``cuobjdump
+-sass`` and counts the instruction lines of every ``Function :`` (the
+anonymous namespace's hash taken out of the name, so that two trees' names
+match).  It prints, and writes to ``--out``, one JSON object: ``{"card",
+"counts": {library key: {function: instructions}}, "total",
+"totals": {library key: instructions}}``, the key naming the kernel,
+template and depth (or the plain source's build, as ``library_name``), not
+the source's hash.  It calls only what the port has had since the fused
+forms landed, so two trees compare like with like.  Needs nvcc and
+``cuobjdump`` (``$CUDA_HOME/bin``), not a card.
 """
 
 from __future__ import annotations
@@ -99,9 +104,12 @@ def main(argv=None) -> int:
             jobs[f"{name} stream_wavefront m={m}"] = ("stream_wavefront", st._source(sk, *st._wavefront_variant(m)))
             jobs[f"{name} stream_wavefront_fused m={m}"] = ("stream_wavefront_fused",
                                                             st._source(sk, *st._wavefront_variant(m, True)))
-    paths = build.build_generated(list(jobs.values()))
+    paths = dict(zip(jobs, build.build_generated(list(jobs.values()))))
+    # the plain sources' builds of rows 1-5, 17 and 18 that this tree has
+    plain = [name for name in build.SOURCES if name.startswith("jacobi_wavefront") or name == "plane_stencil"]
+    paths.update(build.build(plain))
     counts = {}
-    for key, path in zip(jobs, paths):
+    for key, path in paths.items():
         out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
         counts[key] = count_sass(out)
     card = ""
@@ -109,7 +117,8 @@ def main(argv=None) -> int:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True).stdout.strip()
     result = {"card": card, "counts": counts,
-              "total": sum(sum(c.values()) for c in counts.values())}
+              "total": sum(sum(c.values()) for c in counts.values()),
+              "totals": {key: sum(c.values()) for key, c in counts.items()}}
     text = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -192,9 +192,20 @@
 //     sum of a level then stays finite).  No shared memory and no barrier
 //     more than the vpu form.
 //
-// The default build (both 0) is the f32 vpu form above, unchanged, with the
-// mean-of-6 form; the plane and slab forms are in the vpu builds only, the
-// mean-of-6 form in the default one only.
+//   STP_JW_STORAGE=2 (float64 fields, as the JAX kernels compute at the
+//     block's dtype, jacobi_pallas.py:920, :1068, :1267): the block, the
+//     output, the slabs, the faces, the scratch between marches, the shared
+//     planes and every level of the register queue are double (`Work`), the
+//     mean a multiply by the double reciprocal 0x1.5555555555555p-3, as XLA
+//     compiles `sum / 6.0` at float64.  A double queue holds twice the
+//     registers, so this build's marches are cut for one block an SM
+//     (kQMinBlocks, 255 registers a thread) and ask twice the shared memory
+//     (the plan's model prices 8-byte cells: wavefront_smem_bytes).  The
+//     wrap form ping-pongs through a double scratch as the f32 build does.
+//
+// The default build (all 0) is the f32 vpu form above, unchanged.  The
+// plane, slab and mean-of-6 forms are in the vpu builds only (f32, bf16
+// storage, float64); the tensor-core builds take f32 accumulators only.
 
 #ifndef STP_JW_STORAGE
 #define STP_JW_STORAGE 0
@@ -207,15 +218,45 @@
 #include <stdint.h>
 
 #include <type_traits>
-#if STP_JW_STORAGE || STP_JW_UNIT == 2
+#if STP_JW_STORAGE == 1 || STP_JW_UNIT == 2
 #include <cuda_bf16.h>
 #endif
 
+static_assert(STP_JW_STORAGE != 2 || STP_JW_UNIT == 0, "the tensor-core contraction takes f32 accumulators only");
+
 namespace {
 
+// --- the storage type: the fields' cells in memory, upcast at load; and the
+// working type of the levels, the shared planes and the scratch ---------------
+
+#if STP_JW_STORAGE == 1
+using Store = __nv_bfloat16;
+using Work = float;
+__device__ __forceinline__ float up(Store v) { return __bfloat162float(v); }
+__device__ __forceinline__ Store down(float v) { return __float2bfloat16_rn(v); }
+#elif STP_JW_STORAGE == 2
+using Store = double;
+using Work = double;
+__device__ __forceinline__ double up(double v) { return v; }
+__device__ __forceinline__ double down(double v) { return v; }
+#endif
+__device__ __forceinline__ float up(float v) { return v; }
+#if !STP_JW_STORAGE
+using Store = float;
+using Work = float;
+__device__ __forceinline__ float down(float v) { return v; }
+#endif
+// a field pointer of the arguments (declared float) as the storage type
+__device__ __forceinline__ const Store* sp(const float* p) { return reinterpret_cast<const Store*>(p); }
+__device__ __forceinline__ Store* sp(float* p) { return reinterpret_cast<Store*>(p); }
+
+#if STP_JW_STORAGE == 2
+constexpr double kSixth = 0x1.5555555555555p-3;  // == np.float64(1) / 6
+#else
 constexpr float kSixth = 0x1.555556p-3f;  // == np.float32(1 / 6)
-constexpr float kHot = 1.0f;
-constexpr float kCold = 0.0f;
+#endif
+constexpr Work kHot = 1.0f;
+constexpr Work kCold = 0.0f;
 constexpr int kTileY = 32;  // == WAVEFRONT_TILE_Y in ops/jacobi_kernels.py
 constexpr int kTileW = 64;  // == WAVEFRONT_TILE_W: tile columns with the apron
 constexpr int kThreadsZ = 32;
@@ -228,22 +269,6 @@ __device__ __forceinline__ int pmod(int a, int n) {
   int r = a % n;
   return r < 0 ? r + n : r;
 }
-
-// --- the storage type: the fields' cells in memory, upcast at load ---------------
-
-#if STP_JW_STORAGE
-using Store = __nv_bfloat16;
-__device__ __forceinline__ float up(Store v) { return __bfloat162float(v); }
-__device__ __forceinline__ Store down(float v) { return __float2bfloat16_rn(v); }
-#endif
-__device__ __forceinline__ float up(float v) { return v; }
-#if !STP_JW_STORAGE
-using Store = float;
-__device__ __forceinline__ float down(float v) { return v; }
-#endif
-// a field pointer of the arguments (declared float) as the storage type
-__device__ __forceinline__ const Store* sp(const float* p) { return reinterpret_cast<const Store*>(p); }
-__device__ __forceinline__ Store* sp(float* p) { return reinterpret_cast<Store*>(p); }
 
 // --- the tensor-core contraction -------------------------------------------------
 
@@ -303,7 +328,9 @@ constexpr int kQRows = 32;     // tile rows with the apron: four a thread
 constexpr int kQCols = 64;     // tile columns with the apron: two a lane, 32 apart
 constexpr int kSubDepth = 4;   // the deepest march; == WAVEFRONT_SUB_DEPTH
 constexpr int kQThreads = kThreadsZ * kQWarps;
-constexpr int kQMinBlocks = 2;  // blocks an SM the registers are cut for (128 a thread)
+// blocks an SM the registers are cut for: 128 a thread; the float64
+// build's double queue takes one block an SM and up to 255 a thread
+constexpr int kQMinBlocks = STP_JW_STORAGE == 2 ? 1 : 2;
 constexpr int kMinWaves = 4;    // waves of blocks the x chunking asks for where it can
 // cells before the first plane and after the last, so that a read at an
 // in-plane offset from any tile cell stays inside the allocation
@@ -320,8 +347,8 @@ struct QArgs {
   const int* d2;        // (n, Yr, d2_w)
   const float* zs;      // (n, Xr, 2s, Yr) or null
   float* zout;          // (n, Xr, 2s, Yr) or null
-  const float* src;     // a later march's input: the scratch (n, Xr, Yr, W)
-  float* dst;           // an earlier march's output: the scratch
+  const Work* src;      // a later march's input: the scratch (n, Xr, Yr, W)
+  Work* dst;            // an earlier march's output: the scratch
   int Xr, Yr, Zraw;
   int W;                // logical plane width
   int s;                // interior offset (shell width)
@@ -354,22 +381,22 @@ constexpr int kPitch = kMxu ? kMxuPitch : kQCols;
 
 template <int D>
 constexpr size_t queue_smem() {
-  return ((size_t)2 * D * kQRows * kPitch + 2 * kQPad) * 4;
+  return ((size_t)2 * D * kQRows * kPitch + 2 * kQPad) * sizeof(Work);
 }
 
-// the plan's model of a block's shared memory (wavefront_smem_bytes), and
-// what the tensor-core builds add to it (mxu_smem_extra_bytes): a march of
-// depth d's 2d planes pitched at kMxuPitch
-constexpr size_t plan_smem(int m) { return (size_t)(2 * m + 2) * (kTileY + 2 * m) * kTileW * 4; }
+// the plan's model of a block's shared memory (wavefront_smem_bytes, cells
+// of the working type), and what the tensor-core builds add to it
+// (mxu_smem_extra_bytes): a march of depth d's 2d planes pitched at kMxuPitch
+constexpr size_t plan_smem(int m) { return (size_t)(2 * m + 2) * (kTileY + 2 * m) * kTileW * sizeof(Work); }
 constexpr size_t mxu_extra_smem(int d) { return (size_t)2 * d * kQRows * (kMxuPitch - kQCols) * 4; }
 
 // A march's level-0 cells as loaded: the storage type from the block and
-// the slabs, f32 from an earlier march's scratch.  The prefetch keeps them
+// the slabs, the working type from an earlier march's scratch.  The prefetch keeps them
 // so and converts where the next plane uses them: a conversion at the load
 // would wait on it and undo the prefetch (a bf16 build so lost 1.7-2.7x,
 // PERF.md)
 template <bool kFromScratch>
-using Cell = std::conditional_t<kFromScratch, float, Store>;
+using Cell = std::conditional_t<kFromScratch, Work, Store>;
 
 // Level-0 cell (y, c) of plane i of block b: the scratch of an earlier
 // march, else the slab buffer for the z shell columns in the slab forms and
@@ -390,7 +417,7 @@ __device__ __forceinline__ Cell<kFromScratch> load0(const QArgs& a, int64_t bi, 
 // (rows [0, s): top interior columns, the -z-bound message; rows [s, 2s):
 // bottom interior columns, +z-bound).
 template <int kForm, bool kToScratch>
-__device__ __forceinline__ void store_last(const QArgs& a, int64_t bp, int y, int c, float v) {
+__device__ __forceinline__ void store_last(const QArgs& a, int64_t bp, int y, int c, Work v) {
   if (kToScratch) {
     a.dst[(bp * a.Yr + y) * a.W + c] = v;
     return;
@@ -539,8 +566,8 @@ __device__ __forceinline__ void tile_sums(const float* p, int r0, int c0, int g,
 template <int D, int kForm, bool kFromScratch, bool kToScratch>
 __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
     jacobi_queue(typename FormArgs<kForm>::type a) {
-  extern __shared__ float smem_all[];
-  float* const smem = smem_all + kQPad;
+  extern __shared__ Work smem_all[];
+  Work* const smem = smem_all + kQPad;
   constexpr int H = kQRows;
   constexpr int TW = kQCols;
   constexpr int TZ = TW - 2 * D;        // output columns per tile
@@ -551,7 +578,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   static_assert(!kMxu || (kForm != kPlaneForm && kForm != kSlabForm && kForm != kMean6Form),
                 "the tensor-core builds have the wavefront and wrap forms only");
   // plane of level L (< D) at march parity `par`
-  auto plane = [&](int L, int par) -> float* { return smem + (L * 2 + par) * P; };
+  auto plane = [&](int L, int par) -> Work* { return smem + (L * 2 + par) * P; };
   const int s = a.s, o = a.o;
   const int b = blockIdx.z / a.nchunks;
   const int chunk = blockIdx.z - b * a.nchunks;
@@ -650,7 +677,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   };
   // a level's plane of this thread's cells into shared memory, two
   // neighbouring columns at a time (the tensor-core builds)
-  auto put = [&](float* pl, const float (&v)[RI][CI]) {
+  auto put = [&](Work* pl, const Work (&v)[RI][CI]) {
 #pragma unroll
     for (int r = 0; r < RI; r += 2)
 #pragma unroll
@@ -661,7 +688,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   // the queue of level L < D at this thread's cells: old (plane j-1) and mid
   // (plane j, also in shared memory), j = i - L - 1 while plane i marches in;
   // nw holds the newest plane of the level below the one being computed
-  float old_[D][RI][CI], mid[D][RI][CI], nw[RI][CI];
+  Work old_[D][RI][CI], mid[D][RI][CI], nw[RI][CI];
 #pragma unroll
   for (int L = 0; L < D; ++L)
 #pragma unroll
@@ -672,7 +699,7 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   fetch(i0);
   for (int i = i0; i < i_end; ++i) {
     const int wp = i & 1, rp = wp ^ 1;  // this plane's buffers; the previous plane's
-    // level 0 of plane i at f32; the tensor-core builds take a cell whose
+    // level 0 of plane i at the working type; the tensor-core builds take a cell whose
     // magnitude is not below kMxuLimit (inf and NaN too) as 0 (the header)
 #pragma unroll
     for (int r = 0; r < RI; ++r)
@@ -702,8 +729,8 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
         cold_lim = a.in_r2 - (x_g - a.cold_x) * (x_g - a.cold_x);
       }
       const bool spheres = kClamp && (hot_lim > 0 || cold_lim > 0);
-      const float* below = plane(l - 1, rp);  // level l-1, plane i-l
-      float res[RI][CI];
+      const Work* below = plane(l - 1, rp);  // level l-1, plane i-l
+      Work res[RI][CI];
 #if STP_JW_UNIT
       float nb[RI][CI];  // (y-1 + y+1) + (z-1 + z+1) of this thread's cells
       tile_sums(below, r0, c0t, g, t, nb);
@@ -717,13 +744,13 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
           sum = sum + nb[r][q];
 #else
           const int k = (ty0 + r) * TW + tz0 + q * kThreadsZ;
-          float sum = old_[l - 1][r][q] + nw[r][q];                        // x-1, x+1
+          Work sum = old_[l - 1][r][q] + nw[r][q];                         // x-1, x+1
           sum = sum + (r > 0 ? mid[l - 1][r - 1][q] : below[k - TW]);       // y-1
           sum = sum + (r + 1 < RI ? mid[l - 1][r + 1][q] : below[k + TW]);  // y+1
           sum = sum + below[k - 1];                                         // z-1
           sum = sum + below[k + 1];                                         // z+1
 #endif
-          float v = sum * kSixth;
+          Work v = sum * kSixth;
           if (spheres) {  // d2 >= 0: no clamp can fire on this plane otherwise
             if (d2r[r][q] < hot_lim) v = kHot;
             if (d2r[r][q] < cold_lim) v = kCold;
@@ -835,7 +862,7 @@ int march_io(const QArgs& a, int n, bool from, bool to, cudaStream_t st, Plan* p
 
 template <int D>
 int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t st, Plan* pl) {
-#if STP_JW_STORAGE
+#if STP_JW_STORAGE == 1
   // bf16 storage: the wrap form's marches read and write f32 scratch between
   // the first and the last
   if (form == kWrapForm && from && to) return march<D, kWrapForm, true, true>(a, n, st, pl);
@@ -845,7 +872,7 @@ int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t
 #endif
   if (form == kRingForm) return march_io<D, kRingForm>(a, n, from, to, st, pl);
   if (form == kShellSlabs) return march_io<D, kShellSlabs>(a, n, from, to, st, pl);
-#if !STP_JW_STORAGE && !STP_JW_UNIT
+#if !STP_JW_UNIT
   if (form == kMean6Form) return march_io<D, kMean6Form>(a, n, from, to, st, pl);
 #endif
   return march_io<D, kShell>(a, n, from, to, st, pl);
@@ -943,7 +970,7 @@ bool bad_jacobi_args(int n, int Xr, int Yr, int Zraw, int W, int m, int s, int g
 // m levels in one form (a.o == a.s): one march, or two through the scratch
 // (n, Xr, Yr, W), the first writing the region the second reads: [s - d2,
 // ext - s + d2), d2 the second march's depth
-int run_levels(QArgs a, int n, int m, int form, float* scratch, cudaStream_t st) {
+int run_levels(QArgs a, int n, int m, int form, Work* scratch, cudaStream_t st) {
   const int d1 = first_depth(m), d2_depth = m - d1;
   if (d2_depth == 0) return run_march(a, n, m, form, false, false, st, nullptr);
   if (scratch == nullptr) return -1;
@@ -972,7 +999,7 @@ int levels_plan(QArgs a, int n, int m, int form, int* info) {
   return 0;
 }
 
-#if !STP_JW_STORAGE && !STP_JW_UNIT
+#if !STP_JW_UNIT
 // The mean-of-6 form's arguments: the shell form's layout (W = Zr, o = s),
 // no d2, origins or slabs
 QArgs mean6_args(const float* raw, float* out, int Xr, int Yr, int Zr, int s) {
@@ -993,11 +1020,12 @@ extern "C" {
 
 // ring: 1 = jacobi_zring_wavefront_step (slabs required), 0 = the shell form
 // (slabs optional: zs and zout both null or both set).  scratch: an
-// (n, Xr, Yr, W) f32 buffer, required where m needs two marches
+// (n, Xr, Yr, W) buffer of the working type (float; double in the float64
+// build), required where m needs two marches
 // (stp_jacobi_wavefront_plan's launches), else ignored.  Returns a CUDA
 // error code, or -1 for arguments the kernel does not take.
 int stp_jacobi_wavefront(const float* raw, float* out, const int* origins, const int* d2,
-                         const float* zs, float* zout, float* scratch, int n, int Xr, int Yr, int Zraw,
+                         const float* zs, float* zout, Work* scratch, int n, int Xr, int Yr, int Zraw,
                          int W, int m, int s, int d2_w, int gx, int hot_x, int cold_x, int in_r2,
                          int ring, void* stream) {
   if ((zs == nullptr) != (zout == nullptr) ||
@@ -1027,16 +1055,17 @@ int stp_jacobi_wavefront_plan(int n, int Xr, int Yr, int Zraw, int W, int m, int
   return levels_plan(a, n, m, info[0], info + 1);
 }
 
-#if !STP_JW_STORAGE && !STP_JW_UNIT
+#if !STP_JW_UNIT
 // m <= s mean-of-6 levels over n s-shelled blocks (n, Xr, Yr, Zr), `raw` to
-// `out` (apart): only the interior [s, ext - s) of `out` is written.
-// scratch: an (n, Xr, Yr, Zr) f32 buffer, required where m needs two marches
+// `out` (apart): only the interior [s, ext - s) of `out` is written; under
+// bf16 storage the levels run at f32 and the last rounds once.  scratch: an
+// (n, Xr, Yr, Zr) buffer of the working type, required where m needs two marches
 // (stp_mean6_march_plan's launches), else ignored.  Returns a CUDA error
 // code, or -1 for arguments the kernel does not take.
-int stp_mean6_march(const float* raw, float* out, float* scratch, int n, int Xr, int Yr, int Zr, int m, int s,
+int stp_mean6_march(const float* raw, float* out, Work* scratch, int n, int Xr, int Yr, int Zr, int m, int s,
                     void* stream) {
   if (bad_jacobi_args(n, Xr, Yr, Zr, Zr, m, s, 1, false, false) || raw == out) return -1;
-  if (scratch != nullptr && (scratch == raw || scratch == out)) return -1;
+  if (scratch != nullptr && ((const void*)scratch == raw || (void*)scratch == out)) return -1;
   return run_levels(mean6_args(raw, out, Xr, Yr, Zr, s), n, m, kMean6Form, scratch, (cudaStream_t)stream);
 }
 
@@ -1052,7 +1081,7 @@ int stp_mean6_march_plan(int n, int Xr, int Yr, int Zr, int m, int s, int* info)
 
 // k periodic Jacobi levels over the whole (X, Y, Z) domain, `in` to `out`
 // (in untouched): ceil(k/4) marches, ping-ponging through `scratch`, an (X,
-// Y, Z) f32 buffer required where k needs more than one march
+// Y, Z) buffer of the block's type required where k needs more than one march
 // (stp_jacobi_wrap_plan's launches), else ignored.  Under bf16 storage the
 // levels between marches stay f32: march j > 0 reads scratch buffer (j - 1)
 // % 2 and march j < q - 1 writes buffer j % 2, so `scratch` holds two (X, Y,
@@ -1064,7 +1093,7 @@ int stp_jacobi_wrap(const float* in, float* out, float* scratch, int X, int Y, i
   const int q = wrap_marches(k);
   if (q > 1 && (scratch == nullptr || scratch == in || scratch == out)) return -1;
   if (in == out) return -1;
-#if STP_JW_STORAGE
+#if STP_JW_STORAGE == 1
   const int64_t cells = (int64_t)X * Y * Z;
   for (int j = 0; j < q; ++j) {
     QArgs a = wrap_args(in, out, X, Y, Z, hot_x, cold_x, in_r2);
@@ -1097,7 +1126,7 @@ int stp_jacobi_wrap_plan(int X, int Y, int Z, int k, int* info) {
   Plan pl;
   const int d1 = wrap_depth(k, 0);
   // the first march (under bf16 storage: to the scratch where more follow)
-  const bool to = STP_JW_STORAGE && wrap_marches(k) > 1;
+  const bool to = STP_JW_STORAGE == 1 && wrap_marches(k) > 1;
   const int rc = run_march(wrap_args(nullptr, nullptr, X, Y, Z, 0, 0, 0), 1, d1, kWrapForm, false, to, nullptr, &pl);
   if (rc != 0) return rc;
   const int w[11] = {wrap_marches(k), d1, pl.blocks_per_sm, pl.sms, pl.blocks, pl.xchunk, pl.nchunks,

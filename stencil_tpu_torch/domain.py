@@ -252,9 +252,9 @@ class DistributedDomain:
         (``resolve_storage_dtype``) and hand the result here.  Under ``bf16``
         every f32 field is allocated as bfloat16, so every exchange route
         moves 2-byte cells; the Jacobi kernels accumulate at f32 and round
-        once a pass (``f32_accumulate``), and readback upcasts to the native
-        dtype.  The stream engine does not run on a bf16 domain yet
-        (ROADMAP.md queue 1 item 9)."""
+        once a pass (``f32_accumulate``), as do the stream kernels' bf16
+        builds (levels at f32, one rounding a pass), and readback upcasts to
+        the native dtype."""
         from stencil_tpu_torch.ops.jacobi_kernels import STORAGE_DTYPES
 
         if storage not in STORAGE_DTYPES:

@@ -46,27 +46,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 #: the entries of every build of ``csrc/jacobi_wavefront.cu``, and of its
-#: vpu builds (the plane and slab forms)
+#: vpu builds (the plane, slab and mean-of-6 forms)
 _JACOBI_MARCHES = {
     "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
     "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
     "stp_jacobi_wrap": [_P] * 3 + [_I] * 7 + [_P],
     "stp_jacobi_wrap_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
 }
-_JACOBI_ONELEVEL = {
+_JACOBI_VPU = {
     "stp_jacobi_plane": [_P] * 4 + [_I] * 8 + [_P],
     "stp_jacobi_plane_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     "stp_jacobi_slab": [_P] * 10 + [_I] * 8 + [_P],
     "stp_jacobi_slab_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    # the mean-of-6 form (ops/plane_stencil.py)
+    "stp_mean6_march": [_P] * 3 + [_I] * 6 + [_P],
+    "stp_mean6_march_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 #: builds of a source with defines, each a library of its own: name ->
 #: (source, defines).  ``csrc/jacobi_wavefront.cu``'s kernel axes
-#: (ops/jacobi_kernels.py ``library_name``): bf16 storage, and the
-#: tensor-core contraction on f32 (TF32 pieces) or bf16 operands, either
-#: storage
+#: (ops/jacobi_kernels.py ``library_name``): bf16 storage, float64 fields,
+#: and the tensor-core contraction on f32 (TF32 pieces) or bf16 operands,
+#: either storage
 VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "jacobi_wavefront_bf16": ("jacobi_wavefront", ("-DSTP_JW_STORAGE=1",)),
+    "jacobi_wavefront_f64": ("jacobi_wavefront", ("-DSTP_JW_STORAGE=2",)),
     "jacobi_wavefront_mxu": ("jacobi_wavefront", ("-DSTP_JW_UNIT=1",)),
     "jacobi_wavefront_mxu_bf16": ("jacobi_wavefront", ("-DSTP_JW_UNIT=1", "-DSTP_JW_STORAGE=1")),
     "jacobi_wavefront_mxu16": ("jacobi_wavefront", ("-DSTP_JW_UNIT=2",)),
@@ -76,13 +80,8 @@ VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 #: exported C functions per source, with their argument types (every pointer
 #: and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "jacobi_wavefront": {
-        **_JACOBI_MARCHES,
-        **_JACOBI_ONELEVEL,
-        "stp_mean6_march": [_P] * 3 + [_I] * 6 + [_P],
-        "stp_mean6_march_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
-    },
-    "jacobi_wavefront_bf16": {**_JACOBI_MARCHES, **_JACOBI_ONELEVEL},
+    **{name: {**_JACOBI_MARCHES, **_JACOBI_VPU}
+       for name in ("jacobi_wavefront", "jacobi_wavefront_bf16", "jacobi_wavefront_f64")},
     **{name: dict(_JACOBI_MARCHES) for name in VARIANTS if "mxu" in name},
     "pack": {
         # descriptor entries: the address of a cached int64 descriptor, two
@@ -93,9 +92,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # and the dynamic write's offsets (n int32 on the device) before the stream
         "stp_blend_slab_dynamic_desc": [_P] * 5,
     },
-    "plane_stencil": {
-        "stp_mean6_plane_level": [_P, _P] + [_I] * 9 + [_P],
-    },
+    # one entry a field dtype: float32, bf16 storage, float64
+    "plane_stencil": {f"stp_mean6_plane_level{sfx}": [_P, _P] + [_I] * 9 + [_P] for sfx in ("", "_bf16", "_f64")},
 }
 SOURCES = tuple(SIGNATURES)
 

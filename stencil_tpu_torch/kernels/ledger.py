@@ -7,9 +7,10 @@ tensors), its plain PyTorch version, the CUDA source and the line of the TPU
 kernel it replaces.  Every entry is ported.  ``FORMS`` lists the forms of a
 ported kernel that count their launches apart (the fused forms of the stream
 plane and wavefront kernels; the stream kernels' bf16-storage and float64
-builds, ``ops/stream.py`` ``_count``; the Jacobi kernels' bf16-storage and
-tensor-core forms, ``ops/jacobi_kernels.py`` ``form_counter``), by the
-wrapper's counter that counts them.
+builds, ``ops/stream.py`` ``_count``; the Jacobi kernels' bf16-storage,
+float64 and tensor-core forms, ``ops/jacobi_kernels.py`` ``form_counter``;
+the mean-of-6 kernels' bf16-storage and float64 forms), by the wrapper's
+counter that counts them.
 """
 
 from __future__ import annotations
@@ -139,6 +140,13 @@ FORMS: Dict[str, Tuple[Tuple[str, str], str]] = {
        for fn in ("jacobi_wrap_step", "jacobi_zring_wavefront_step", "jacobi_shell_wavefront_step")
        for form in ("bf16", "mxu", "mxu_bf16in")},
     **{f"{fn}_bf16": ((_JP, fn), "bf16_launches") for fn in ("jacobi_plane_step", "jacobi_slab_step")},
+    # float64 fields on the five Jacobi kernels (their float64 build)
+    **{f"{fn}_f64": ((_JP, fn), "f64_launches")
+       for fn in ("jacobi_wrap_step", "jacobi_zring_wavefront_step", "jacobi_shell_wavefront_step",
+                  "jacobi_plane_step", "jacobi_slab_step")},
+    # the mean-of-6 kernels' bf16 storage and float64 fields
+    **{f"{fn}_{dt}": ((_PS, fn), f"{dt}_launches")
+       for fn in ("mean6_shell_wavefront_step", "mean6_plane_step") for dt in ("bf16", "f64")},
 }
 
 

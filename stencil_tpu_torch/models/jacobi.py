@@ -37,6 +37,13 @@ static (``ops/jacobi_kernels.py``); the storage axis before allocation.  The
 contraction kernel, so they degrade ``mxu`` to ``vpu`` with a warning and
 take bf16 storage; the torch engine degrades both axes with a warning.
 
+Field dtypes: ``dtype=torch.float32`` (the default) or ``torch.float64`` on
+either engine.  A float64 field runs every ``cuda`` route through the
+kernels' float64 build (levels at f64); ``compute_unit="mxu"`` and
+``storage_dtype="bf16"`` degrade on it with a warning, as in the JAX package.
+The wavefront plan prices its shared memory at the working itemsize (8 bytes
+at f64), so a float64 field plans shallower depths (ROADMAP.md queue 3).
+
 Uneven sizes (padded subdomains, ``DistributedDomain``) run on the torch
 engine, on ``shell`` and on the wavefront in its plain form (every axis
 exchanged in the array), as in the JAX package: each exchange writes the +axis
@@ -133,10 +140,6 @@ class Jacobi3D:
                 "wavefront_alias=True is refused: the CUDA wavefront's blocks march x "
                 "independently, so an in-place write can land before a neighbouring "
                 "tile reads it (ROADMAP.md, deliberate differences)"
-            )
-        if kernel_impl == "cuda" and self.h.dtype != torch.float32:
-            raise NotImplementedError(
-                f"the CUDA kernels take float32 fields, got {self.h.dtype} (ROADMAP.md queue 1 item 9)"
             )
         self.overlap = overlap
         self.kernel_impl = kernel_impl
@@ -360,25 +363,28 @@ class Jacobi3D:
                 f"pallas_path='wavefront': empty last shard for {tuple(size)} over {tuple(dim)}"
             )
         n_min = min(min(n), min(v))
-        # the prospective unit (the build resolves it, with its warnings)
+        # the prospective unit (the build resolves it, with its warnings),
+        # and the levels' itemsize (the JAX package's ring_itemsize: the
+        # native dtype's, 4 under bf16 storage of f32 fields, 8 at f64)
         req = self.compute_unit_request
         unit = req if req in COMPUTE_UNITS else "vpu"
+        item = self.h.dtype.itemsize
         if self.temporal_k != "auto":
             m = int(self.temporal_k)
             if not 1 <= m <= n_min:
                 raise ValueError(
                     f"wavefront temporal_k={m} needs 1 <= m <= min(shard/valid)={n_min}"
                 )
-            if not wavefront_smem_fits(m, unit):
+            if not wavefront_smem_fits(m, unit, item):
                 raise ValueError(
-                    f"wavefront temporal_k={m} needs {wavefront_smem_bytes(m, unit)} bytes of shared "
+                    f"wavefront temporal_k={m} needs {wavefront_smem_bytes(m, unit, item)} bytes of shared "
                     "memory per block, more than the H100 grants one block"
                 )
             # the z-slab forms' emit slices sit at the interior z boundary,
             # so padded subdomains take the plain form
             self._wavefront_z_planned = not padded
             return m
-        m = wavefront_auto_depth(n_min, unit)
+        m = wavefront_auto_depth(n_min, unit, item)
         self._wavefront_z_planned = m >= 2 and not padded
         return m
 

@@ -35,6 +35,17 @@ The kernel axes (jacobi_pallas.py:39-250):
   to bfloat16 (round to nearest even), as ``astype(bfloat16)`` does
   (jacobi_pallas.py:960-966).  Every form takes it.
 
+Field dtypes: a float32 block computes at f32, a bfloat16 one under
+``f32_accumulate`` at f32, and a float64 one at f64 (the JAX kernels'
+``acc_dtype = block.dtype``, jacobi_pallas.py:920, :1068, :1267), every form
+on the card through the float64 build of ``csrc/jacobi_wavefront.cu``.  At
+f64 the mean multiplies by the float64 reciprocal of 6 (``SIXTH_F64``): XLA
+compiles ``sum / 6.0`` at float64 into that multiply as well.  The
+contraction needs an f32 accumulator, and bf16 storage narrows f32 fields
+only, so both degrade to ``vpu`` / ``native`` on f64 fields with a warning
+(the resolvers below).  A bfloat16 block without ``f32_accumulate`` (the
+JAX kernels compute at bf16 then) is refused: ROADMAP.md queue 2.
+
 Precedence of the axes is explicit > static (the JAX package's env knobs and
 tune cache are ROADMAP.md queue 1 items 10-11); a structural degrade warns
 with a ``RuntimeWarning``.
@@ -57,6 +68,21 @@ COLD_TEMP = 0.0
 #: float32(1/6) as an exact Python float, so multiplying an f32 tensor by it
 #: multiplies by 0x1.555556p-3 (the constant XLA substitutes for `/ 6.0`)
 SIXTH = float(np.float32(1.0 / 6.0))
+
+#: the float64 reciprocal of 6, 0x1.5555555555555p-3: XLA's constant for
+#: `/ 6.0` at float64
+SIXTH_F64 = 1.0 / 6.0
+
+
+def sixth(dtype: torch.dtype) -> float:
+    """The constant the mean multiplies by at a compute dtype."""
+    return SIXTH_F64 if dtype == torch.float64 else SIXTH
+
+
+def work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a block of ``dtype`` computes at on the kernels' forms (and
+    their scratch holds): f32 for bfloat16 storage, else its own."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 #: the wrap route's depth for ``temporal_k="auto"``: one call runs its k
 #: levels as ``wrap_march_depths(k)`` marches of the wavefront kernel's wrap
@@ -389,45 +415,51 @@ BASE_LIBRARY = "jacobi_wavefront"
 
 
 def _axes(t: torch.Tensor, compute_unit: str, f32_accumulate: bool, mxu_input: str, plane_yz, where: str):
-    """Validate one call's axes (jacobi_pallas.py:888-893): a float32 block,
-    or a bfloat16 one under ``f32_accumulate``; a contraction only on the
-    f32 accumulator.  Returns the unit the build reports
-    (``plane_band_unit``), the effective operand precision (``f32`` under
-    ``vpu``) and whether the block is stored as bfloat16."""
+    """Validate one call's axes (jacobi_pallas.py:888-893): a float32 or
+    float64 block, or a bfloat16 one under ``f32_accumulate``; a
+    contraction only on the f32 accumulator.  Returns the unit the build
+    reports (``plane_band_unit``), the effective operand precision (``f32``
+    under ``vpu``), whether the block is stored as bfloat16 and whether it
+    is float64."""
     if mxu_input not in MXU_INPUTS:
         raise ValueError(f"unknown mxu input {mxu_input!r} (one of {MXU_INPUTS})")
     if t.dtype == torch.bfloat16:
         if not f32_accumulate:
-            raise TypeError(f"{where}: a bfloat16 block needs f32_accumulate=True (bf16 storage)")
+            raise TypeError(f"{where}: a bfloat16 block needs f32_accumulate=True (bf16 storage; the native "
+                            "bf16 form is ROADMAP.md queue 2)")
+    elif t.dtype == torch.float64:
+        if f32_accumulate:
+            raise TypeError(f"{where}: f32_accumulate takes bfloat16 blocks; a float64 block computes at f64")
     elif t.dtype != torch.float32:
-        raise TypeError(f"{where}: the block must be torch.float32, or torch.bfloat16 under "
+        raise TypeError(f"{where}: the block must be torch.float32 or torch.float64, or torch.bfloat16 under "
                         f"f32_accumulate, got {t.dtype}")
     _check_compute_unit(compute_unit, torch.float32 if f32_accumulate else t.dtype)
+    bf16, f64 = t.dtype == torch.bfloat16, t.dtype == torch.float64
     if not unit_uses_mxu(compute_unit):
-        return compute_unit, "f32", t.dtype == torch.bfloat16
-    return plane_band_unit(compute_unit, *plane_yz, where=where), mxu_input, t.dtype == torch.bfloat16
+        return compute_unit, "f32", bf16, f64
+    return plane_band_unit(compute_unit, *plane_yz, where=where), mxu_input, bf16, f64
 
 
-def library_name(compute_unit: str = "vpu", mxu_input: str = "f32", bf16: bool = False) -> str:
+def library_name(compute_unit: str = "vpu", mxu_input: str = "f32", bf16: bool = False, f64: bool = False) -> str:
     """The build of ``csrc/jacobi_wavefront.cu`` a launch takes: the f32
-    vpu one, ``_bf16`` for bf16 storage, ``_mxu`` / ``_mxu16`` for the
-    tensor-core contraction on f32 / bf16 operands (``kernels/build.py``
-    ``VARIANTS``)."""
+    vpu one, ``_bf16`` for bf16 storage, ``_f64`` for float64 fields,
+    ``_mxu`` / ``_mxu16`` for the tensor-core contraction on f32 / bf16
+    operands (``kernels/build.py`` ``VARIANTS``)."""
     name = BASE_LIBRARY
     if unit_uses_mxu(compute_unit):
         name += "_mxu" if mxu_input == "f32" else "_mxu16"
-    return name + ("_bf16" if bf16 else "")
+    return name + ("_bf16" if bf16 else "_f64" if f64 else "")
 
 
-def form_counter(compute_unit: str = "vpu", mxu_input: str = "f32", bf16: bool = False) -> str:
+def form_counter(compute_unit: str = "vpu", mxu_input: str = "f32", bf16: bool = False, f64: bool = False) -> str:
     """The wrapper attribute that counts a launch: ``launches`` (f32, vpu),
-    ``bf16_launches`` (bf16 storage, vpu), ``mxu_launches`` /
-    ``mxu_bf16in_launches`` (the contraction on f32 / bf16 operands, either
-    storage).  A launch counts once, under its unit's form when it
-    contracts (``kernels/ledger.py`` ``FORMS``)."""
+    ``bf16_launches`` (bf16 storage, vpu), ``f64_launches`` (float64
+    fields), ``mxu_launches`` / ``mxu_bf16in_launches`` (the contraction on
+    f32 / bf16 operands, either storage).  A launch counts once, under its
+    unit's form when it contracts (``kernels/ledger.py`` ``FORMS``)."""
     if unit_uses_mxu(compute_unit):
         return "mxu_launches" if mxu_input == "f32" else "mxu_bf16in_launches"
-    return "bf16_launches" if bf16 else "launches"
+    return "bf16_launches" if bf16 else "f64_launches" if f64 else "launches"
 
 
 def _count(wrapper, counter: str) -> None:
@@ -440,13 +472,14 @@ def _zero_counters(wrapper, forms) -> None:
 
 
 #: the counters of the wrappers with a contraction form, and of those without
-CONTRACTION_COUNTERS = ("launches", "bf16_launches", "mxu_launches", "mxu_bf16in_launches")
-STORAGE_COUNTERS = ("launches", "bf16_launches")
+CONTRACTION_COUNTERS = ("launches", "bf16_launches", "f64_launches", "mxu_launches", "mxu_bf16in_launches")
+STORAGE_COUNTERS = ("launches", "bf16_launches", "f64_launches")
 
 
 def _lift(t: torch.Tensor) -> torch.Tensor:
-    """A block at the f32 accumulator: bfloat16 upcast, f32 as it is."""
-    return t if t.dtype == torch.float32 else t.float()
+    """A block at its compute dtype (``work_dtype``): bfloat16 upcast to
+    f32, f32 and f64 as they are."""
+    return t.to(work_dtype(t.dtype))
 
 
 def _level(c: torch.Tensor, x_axis: int, compute_unit: str, mxu_input: str) -> torch.Tensor:
@@ -478,14 +511,14 @@ def jacobi_wrap_step_plain(block: torch.Tensor, k: int = 1, compute_unit: str = 
     rolls; returns a new tensor of the block's dtype (a bfloat16 block is
     upcast once, run at f32 and rounded once at the end)."""
     _check_k(block, k)
-    unit, mxu_input, _ = _axes(block, compute_unit, f32_accumulate, mxu_input, block.shape[1:], "wrap")
+    unit, mxu_input, _, _ = _axes(block, compute_unit, f32_accumulate, mxu_input, block.shape[1:], "wrap")
     X, Y, Z = block.shape
     hot_x, cold_x, in_r2 = sphere_params(X)
     d2 = yz_dist2_plane(0, 0, (Y, Z), block.shape, block.device)[None]
     x_g = torch.arange(X, device=block.device)[:, None, None]
     c = _lift(block)
     for _ in range(k):
-        c = _clamp_spheres(_level(c, 0, unit, mxu_input) * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
+        c = _clamp_spheres(_level(c, 0, unit, mxu_input) * sixth(c.dtype), d2, x_g, hot_x, cold_x, in_r2)
     return c.to(block.dtype)
 
 
@@ -498,11 +531,12 @@ def wrap_march_depths(k: int) -> list:
 
 
 def wrap_scratch_shape(shape, k: int, bf16: bool = False):
-    """The f32 scratch a ``jacobi_wrap_step`` call on the card takes, or
-    None for one march: an (X, Y, Z) buffer that the marches ping-pong
-    through with the output; under bf16 storage the levels between marches
-    stay f32, so every march but the last writes a scratch: one buffer for
-    two marches, two (2, X, Y, Z) for more."""
+    """The scratch a ``jacobi_wrap_step`` call on the card takes (at the
+    block's ``work_dtype``), or None for one march: an (X, Y, Z) buffer
+    that the marches ping-pong through with the output; under bf16 storage
+    the levels between marches stay f32, so every march but the last
+    writes a scratch: one buffer for two marches, two (2, X, Y, Z) for
+    more."""
     marches = len(wrap_march_depths(k))
     if marches == 1:
         return None
@@ -517,29 +551,30 @@ def jacobi_wrap_step(block: torch.Tensor, k: int = 1, out: torch.Tensor = None, 
     ``jacobi_wrap_step_plain`` (jacobi_pallas.py:869-885).
 
     On CUDA: one call of the wavefront kernel's wrap form, its k levels as
-    ``wrap_march_depths(k)`` marches; more than one pass through an f32
-    scratch from torch's caching allocator (``wrap_scratch_shape``), the
-    last march writing the returned tensor."""
+    ``wrap_march_depths(k)`` marches; more than one pass through a scratch
+    from torch's caching allocator (``wrap_scratch_shape``, f32 under bf16
+    storage, else the block's dtype), the last march writing the returned
+    tensor."""
     _check_k(block, k)
     if out is not None:
         check_out(out, block)
     if block.device.type == "cpu":
         res = jacobi_wrap_step_plain(block, k, compute_unit, f32_accumulate, mxu_input)
         return res if out is None else out.copy_(res)
-    unit, mi, bf16 = _axes(block, compute_unit, f32_accumulate, mxu_input, block.shape[1:], "wrap")
+    unit, mi, bf16, f64 = _axes(block, compute_unit, f32_accumulate, mxu_input, block.shape[1:], "wrap")
     X, Y, Z = block.shape
     hot_x, cold_x, in_r2 = sphere_params(X)
     out = torch.empty_like(block) if out is None else out
     shape = wrap_scratch_shape(block.shape, k, bf16)
-    scratch = None if shape is None else block.new_empty(shape, dtype=torch.float32)
-    entry, lib = _c_entry("stp_jacobi_wrap", library_name(unit, mi, bf16))
+    scratch = None if shape is None else block.new_empty(shape, dtype=work_dtype(block.dtype))
+    entry, lib = _c_entry("stp_jacobi_wrap", library_name(unit, mi, bf16, f64))
     rc = entry(block.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
                X, Y, Z, k, hot_x, cold_x, in_r2, current_raw_stream(block.device.index))
     if rc:
         from stencil_tpu_torch.kernels import build
 
         build.check(lib, rc, "jacobi_wrap_step")
-    _count(jacobi_wrap_step, form_counter(unit, mi, bf16))
+    _count(jacobi_wrap_step, form_counter(unit, mi, bf16, f64))
     return out
 
 
@@ -582,7 +617,7 @@ def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None, f32_a
     coordinates of each block's interior start, ``yz_d2`` each block's
     ``yz_dist2_plane`` over its interior.  Bfloat16 blocks under
     ``f32_accumulate``: the mean at f32, one rounding at the interior's
-    store (jacobi_pallas.py:1492)."""
+    store (jacobi_pallas.py:1492); float64 blocks at f64."""
     _check_plane(blocks, origins, yz_d2, out, f32_accumulate)
     single = blocks.dim() == 3
     c = blocks[None] if single else blocks
@@ -600,7 +635,7 @@ def jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out=None, f32_a
     s = s + a[:, 1:-1, 1:-1, 2:]  # z+1
     # raw plane p holds interior x = p - 1; torch's % is non-negative here
     x_g = (org[:, 0:1].long() + torch.arange(X - 2, device=c.device)) % gx
-    val = _clamp_spheres(s * SIXTH, d2, x_g[:, :, None, None], hot_x, cold_x, in_r2)
+    val = _clamp_spheres(s * sixth(a.dtype), d2, x_g[:, :, None, None], hot_x, cold_x, in_r2)
     res = torch.empty_like(c) if out is None else (out[None] if single else out)
     res.copy_(c)
     res[core] = val
@@ -613,21 +648,21 @@ def jacobi_plane_step(blocks, origins, yz_d2, global_size, out=None, *, f32_accu
     blocks, the port's counterpart of running the TPU kernel per shard: the
     plane form of ``csrc/jacobi_wavefront.cu``, a march of depth 1 that
     writes every cell of ``out`` (the shell copied through); its bf16 build
-    for bfloat16 blocks."""
+    for bfloat16 blocks, its float64 build for float64 ones."""
     n, X, Y, Z = _check_plane(blocks, origins, yz_d2, out, f32_accumulate)
     if blocks.device.type == "cpu":
         return jacobi_plane_step_plain(blocks, origins, yz_d2, global_size, out, f32_accumulate)
-    bf16 = blocks.dtype == torch.bfloat16
+    bf16, f64 = blocks.dtype == torch.bfloat16, blocks.dtype == torch.float64
     gx = int(global_size[0])
     res = torch.empty_like(blocks) if out is None else out
-    entry, lib = _c_entry("stp_jacobi_plane", library_name(bf16=bf16))
+    entry, lib = _c_entry("stp_jacobi_plane", library_name(bf16=bf16, f64=f64))
     rc = entry(blocks.data_ptr(), res.data_ptr(), origins.data_ptr(), yz_d2.data_ptr(),
                n, X, Y, Z, gx, *sphere_params(gx), current_raw_stream(blocks.device.index))
     if rc:
         from stencil_tpu_torch.kernels import build
 
         build.check(lib, rc, "jacobi_plane_step")
-    _count(jacobi_plane_step, form_counter(bf16=bf16))
+    _count(jacobi_plane_step, form_counter(bf16=bf16, f64=f64))
     return res
 
 
@@ -680,7 +715,8 @@ def jacobi_slab_step_plain(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, 
     ``origins`` are each block's global start, ``yz_d2`` its
     ``yz_dist2_plane`` over the (Y, Z) interior.  Returns ``out`` (a fresh
     tensor when None).  Bfloat16 block and slabs under ``f32_accumulate``:
-    the mean at f32, one rounding at the store (jacobi_pallas.py:1360).
+    the mean at f32, one rounding at the store (jacobi_pallas.py:1360);
+    float64 ones at f64.
 
     The JAX kernel takes the z slabs transposed, ``(Y, X)``; the port keeps
     them ``(X, Y)`` (a GPU has no lane axis to put x on)."""
@@ -701,7 +737,7 @@ def jacobi_slab_step_plain(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, 
     s = s + torch.cat([zlo[..., None], c[..., :-1]], 3)  # z-1
     s = s + torch.cat([c[..., 1:], zhi[..., None]], 3)  # z+1
     x_g = (origins[:, 0:1].long() + torch.arange(X, device=c.device)) % gx
-    val = _clamp_spheres(s * SIXTH, yz_d2[:, None], x_g[:, :, None, None], hot_x, cold_x, in_r2)
+    val = _clamp_spheres(s * sixth(c.dtype), yz_d2[:, None], x_g[:, :, None, None], hot_x, cold_x, in_r2)
     res = val.to(block.dtype) if out is None else out.copy_(val)
     return res[0] if single else res
 
@@ -713,22 +749,22 @@ def jacobi_slab_step(block, xlo, xhi, ylo, yhi, zlo, zhi, origins, yz_d2, global
     ``jacobi_slab_step_plain``.  One CUDA launch serves all ``n`` blocks:
     the slab form of ``csrc/jacobi_wavefront.cu``, a march of depth 1 whose
     level-0 fetch reads a face slab one cell outside the block; its bf16
-    build for bfloat16 blocks."""
+    build for bfloat16 blocks, its float64 build for float64 ones."""
     slabs = (xlo, xhi, ylo, yhi, zlo, zhi)
     n, X, Y, Z = _check_slab(block, slabs, origins, yz_d2, out, f32_accumulate)
     if block.device.type == "cpu":
         return jacobi_slab_step_plain(block, *slabs, origins, yz_d2, global_size, out, f32_accumulate)
-    bf16 = block.dtype == torch.bfloat16
+    bf16, f64 = block.dtype == torch.bfloat16, block.dtype == torch.float64
     gx = int(global_size[0])
     res = torch.empty_like(block) if out is None else out
-    entry, lib = _c_entry("stp_jacobi_slab", library_name(bf16=bf16))
+    entry, lib = _c_entry("stp_jacobi_slab", library_name(bf16=bf16, f64=f64))
     rc = entry(block.data_ptr(), res.data_ptr(), *(t.data_ptr() for t in slabs), origins.data_ptr(),
                yz_d2.data_ptr(), n, X, Y, Z, gx, *sphere_params(gx), current_raw_stream(block.device.index))
     if rc:
         from stencil_tpu_torch.kernels import build
 
         build.check(lib, rc, "jacobi_slab_step")
-    _count(jacobi_slab_step, form_counter(bf16=bf16))
+    _count(jacobi_slab_step, form_counter(bf16=bf16, f64=f64))
     return res
 
 
@@ -773,33 +809,45 @@ def mxu_smem_extra_bytes(m: int) -> int:
     return 2 * first_march_depth(m) * WAVEFRONT_TILE_Y * (MXU_PITCH - WAVEFRONT_TILE_W) * 4
 
 
-def wavefront_smem_bytes(m: int, compute_unit: str = "vpu") -> int:
+def wavefront_smem_bytes(m: int, compute_unit: str = "vpu", itemsize: int = 4) -> int:
     """Shared memory of one block of the m-level wavefront kernel: 2m+1
     working planes (two per level below m, one incoming) and the d2 tile,
-    each a (32 + 2m) x 64 tile of 4-byte cells, and under a contraction
-    unit ``mxu_smem_extra_bytes``.  A constant of m and the unit, so the CPU
-    and the card plan the same depth.  The planes hold the f32 levels
-    whatever the storage dtype."""
+    each a (32 + 2m) x 64 tile of ``itemsize``-byte cells, and under a
+    contraction unit ``mxu_smem_extra_bytes``.  A constant of m, the unit
+    and the itemsize, so the CPU and the card plan the same depth.  The
+    planes hold the levels at the working dtype: 4 bytes for f32 and bf16
+    storage, 8 for f64 fields (the JAX package's ``ring_itemsize``)."""
     extra = mxu_smem_extra_bytes(m) if unit_uses_mxu(compute_unit) else 0
-    return (2 * m + 2) * (WAVEFRONT_TILE_Y + 2 * m) * WAVEFRONT_TILE_W * 4 + extra
+    return (2 * m + 2) * (WAVEFRONT_TILE_Y + 2 * m) * WAVEFRONT_TILE_W * itemsize + extra
 
 
-def wavefront_smem_fits(m: int, compute_unit: str = "vpu") -> bool:
-    return wavefront_smem_bytes(m, compute_unit) <= SMEM_PER_BLOCK
+def wavefront_smem_fits(m: int, compute_unit: str = "vpu", itemsize: int = 4) -> bool:
+    return wavefront_smem_bytes(m, compute_unit, itemsize) <= SMEM_PER_BLOCK
 
 
-def wavefront_auto_depth(n_min: int, compute_unit: str = "vpu") -> int:
+def wavefront_auto_depth(n_min: int, compute_unit: str = "vpu", itemsize: int = 4) -> int:
     """The wavefront depth ``temporal_k="auto"`` plans for a smallest shard
     extent ``n_min`` (the JAX package's static plan, models/jacobi.py:336-347):
     the deepest m in ``[2, min(_WRAP_MAX_K, n_min // 4, n_min)]`` whose kernel
-    fits under ``compute_unit``, else 1.  The n_min // 4 cap keeps the
-    redundant shell traffic a small fraction of the shard."""
+    fits under ``compute_unit`` at the working ``itemsize``, else 1 (at f64
+    m <= 4: ROADMAP.md queue 3).  The n_min // 4 cap keeps the redundant
+    shell traffic a small fraction of the shard."""
     depth_cap = min(_WRAP_MAX_K, max(1, n_min // 4), n_min)
     m = 1
     for cand in range(2, depth_cap + 1):
-        if wavefront_smem_fits(cand, compute_unit):
+        if wavefront_smem_fits(cand, compute_unit, itemsize):
             m = cand
     return m
+
+
+def march_smem_bytes(m: int, itemsize: int = 4) -> int:
+    """Shared memory one block of an m-level call's first (the deeper)
+    march asks on the card (``queue_smem`` in csrc/jacobi_wavefront.cu): 2d
+    planes of the 32 x 64 tile and two rows of padding, d =
+    ``first_march_depth(m)``, cells of the working ``itemsize`` (at f64, m =
+    8: 132,160 bytes)."""
+    d = first_march_depth(m)
+    return (2 * d * WAVEFRONT_TILE_Y * WAVEFRONT_TILE_W + 2 * (WAVEFRONT_TILE_W + 4)) * itemsize
 
 
 def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, ring, z_valid=None,
@@ -839,6 +887,9 @@ def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, rin
             f"the z-ring layout needs 2*interior_offset <= {_ZRING_OFF} and "
             f"interior_offset <= Zi = {Zraw}"
         )
+    # the kernels' depth limit is the f32 model's (m <= 8, two marches of 4
+    # levels): a float64 call's first march asks march_smem_bytes(m, 8) <=
+    # 132,160 bytes; only the depth plan prices f64 cells at 8 bytes
     if not wavefront_smem_fits(m, compute_unit):
         raise ValueError(
             f"m={m} needs {wavefront_smem_bytes(m, compute_unit)} bytes of shared memory per block, "
@@ -856,7 +907,7 @@ def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, rin
 
 
 def _wavefront_levels(w, m, origin, d2, global_size, s_off, compute_unit="vpu", mxu_input="f32"):
-    """``m`` Jacobi levels over the f32 working planes ``w`` (n, Xr, Yr, W)
+    """``m`` Jacobi levels over the working planes ``w`` (n, Xr, Yr, W; f32 or f64)
     with rolls (or the band contraction, ``_level``): every axis wraps, and
     the wrapped cells are the ones the shell was sized to sacrifice.  Raw
     plane p sits at global x ``origin_x + p - s_off``; the sphere test
@@ -869,7 +920,7 @@ def _wavefront_levels(w, m, origin, d2, global_size, s_off, compute_unit="vpu", 
     x_g = x_g[:, :, None, None]
     d2 = d2[:, None]
     for _ in range(m):
-        w = _clamp_spheres(_level(w, 1, compute_unit, mxu_input) * SIXTH, d2, x_g, hot_x, cold_x, in_r2)
+        w = _clamp_spheres(_level(w, 1, compute_unit, mxu_input) * sixth(w.dtype), d2, x_g, hot_x, cold_x, in_r2)
     return w
 
 
@@ -900,12 +951,12 @@ def jacobi_shell_wavefront_step_plain(raw, m, origin, d2, global_size, interior_
     cells are unspecified."""
     s_off = m if interior_offset is None else interior_offset
     _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, False, z_valid, compute_unit)
-    unit, mxu_input, _ = _axes(raw, compute_unit, f32_accumulate, mxu_input, raw.shape[-2:], "wavefront")
+    unit, mxu_input, _, _ = _axes(raw, compute_unit, f32_accumulate, mxu_input, raw.shape[-2:], "wavefront")
     single = raw.dim() == 3
     if single:
         raw, origin, d2, z_slabs = _batched(raw, origin, d2, z_slabs)
     zv = raw.shape[-1] if z_valid is None else z_valid
-    w = raw.to(torch.float32, copy=True)
+    w = raw.to(work_dtype(raw.dtype), copy=True)
     if z_slabs is not None:
         zst = z_slabs.transpose(-1, -2)  # (n, Xr, Yr, 2s)
         w[..., 0:s_off] = zst[..., 0:s_off]
@@ -956,11 +1007,11 @@ def jacobi_shell_wavefront_step(raw, m, origin, d2, global_size, interior_offset
         return _plain_into(jacobi_shell_wavefront_step_plain(
             raw, m, origin, d2, global_size, interior_offset, alias, z_slabs, z_valid, compute_unit,
             f32_accumulate, mxu_input), out, z_out)
-    unit, mi, bf16 = _axes(raw, compute_unit, f32_accumulate, mxu_input, raw.shape[-2:], "wavefront")
+    unit, mi, bf16, f64 = _axes(raw, compute_unit, f32_accumulate, mxu_input, raw.shape[-2:], "wavefront")
     out, z_out = _outs(raw, z_slabs, out, z_out)
     _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zr, zv, m, s_off,
-                      Zr, global_size, False, library_name(unit, mi, bf16))
-    _count(jacobi_shell_wavefront_step, form_counter(unit, mi, bf16))
+                      Zr, global_size, False, library_name(unit, mi, bf16, f64))
+    _count(jacobi_shell_wavefront_step, form_counter(unit, mi, bf16, f64))
     return out if z_out is None else (out, z_out)
 
 
@@ -981,13 +1032,13 @@ def jacobi_zring_wavefront_step_plain(raw, m, origin, d2, global_size, z_slabs,
     exact on the x/y interior and every z column."""
     s_off = m if interior_offset is None else interior_offset
     _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, True, None, compute_unit)
-    unit, mxu_input, _ = _axes(raw, compute_unit, f32_accumulate, mxu_input,
-                               (raw.shape[-2], _ZRING_OFF + raw.shape[-1]), "zring")
+    unit, mxu_input, _, _ = _axes(raw, compute_unit, f32_accumulate, mxu_input,
+                                  (raw.shape[-2], _ZRING_OFF + raw.shape[-1]), "zring")
     single = raw.dim() == 3
     if single:
         raw, origin, d2, z_slabs = _batched(raw, origin, d2, z_slabs)
     Zi = raw.shape[-1]
-    w = torch.zeros(raw.shape[:-1] + (_ZRING_OFF + Zi,), dtype=torch.float32, device=raw.device)
+    w = torch.zeros(raw.shape[:-1] + (_ZRING_OFF + Zi,), dtype=work_dtype(raw.dtype), device=raw.device)
     w[..., _ZRING_OFF:] = raw
     zst = z_slabs.transpose(-1, -2)  # (n, Xr, Yr, 2s)
     w[..., _ZRING_OFF - s_off : _ZRING_OFF] = zst[..., 0:s_off]
@@ -1014,11 +1065,11 @@ def jacobi_zring_wavefront_step(raw, m, origin, d2, global_size, z_slabs,
         return _plain_into(jacobi_zring_wavefront_step_plain(
             raw, m, origin, d2, global_size, z_slabs, interior_offset, alias, compute_unit, f32_accumulate,
             mxu_input), out, z_out)
-    unit, mi, bf16 = _axes(raw, compute_unit, f32_accumulate, mxu_input, (Yr, _ZRING_OFF + Zi), "zring")
+    unit, mi, bf16, f64 = _axes(raw, compute_unit, f32_accumulate, mxu_input, (Yr, _ZRING_OFF + Zi), "zring")
     out, z_out = _outs(raw, z_slabs, out, z_out)
     _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zi, Zi + 2 * s_off, m,
-                      s_off, _ZRING_OFF + Zi, global_size, True, library_name(unit, mi, bf16))
-    _count(jacobi_zring_wavefront_step, form_counter(unit, mi, bf16))
+                      s_off, _ZRING_OFF + Zi, global_size, True, library_name(unit, mi, bf16, f64))
+    _count(jacobi_zring_wavefront_step, form_counter(unit, mi, bf16, f64))
     return out, z_out
 
 
@@ -1078,13 +1129,14 @@ def _launch_wavefront(raw, out, origin, d2, z_slabs, z_out, n, Xr, Yr, Zraw, wid
                       d2_w, global_size, ring, library=BASE_LIBRARY):
     """One call of ``csrc/jacobi_wavefront.cu`` (build ``library``) over all
     ``n`` blocks; ``width`` is the logical plane width (z_valid, or Zi + 2s
-    on the ring).  Two marches pass their intermediate level through an f32
-    ``(n, Xr, Yr, width)`` scratch from torch's caching allocator."""
+    on the ring).  Two marches pass their intermediate level through an
+    ``(n, Xr, Yr, width)`` scratch at the block's ``work_dtype`` from
+    torch's caching allocator."""
     gx = int(global_size[0])
     hot_x, cold_x, in_r2 = sphere_params(gx)
     scratch = None
     if wavefront_marches(m) > 1:
-        scratch = raw.new_empty((n, Xr, Yr, width), dtype=torch.float32)
+        scratch = raw.new_empty((n, Xr, Yr, width), dtype=work_dtype(raw.dtype))
     entry, lib = _entry() if library == BASE_LIBRARY else _c_entry("stp_jacobi_wavefront", library)
     rc = entry(
         raw.data_ptr(), out.data_ptr(), origin.data_ptr(), d2.data_ptr(),
@@ -1107,18 +1159,24 @@ WAVEFRONT_PLAN_FIELDS = ("form", "launches", "depth", "blocks_per_sm", "sms", "b
 _WAVEFRONT_FORMS = ("z-ring", "shell z-slab", "shell")
 
 
+#: the storage values a plan takes: the axis's, and ``f64`` for float64 fields
+PLAN_STORAGES = STORAGE_DTYPES + ("f64",)
+
+
 def _plan_axes(plane_yz, compute_unit, mxu_input, storage, where):
     """The build a plan reports: ``(library, {compute_unit, mxu_input,
     storage})`` with the unit ``plane_band_unit`` names and the operand
-    precision in effect."""
+    precision in effect; ``storage="f64"`` plans the float64 build (vpu)."""
     for value, choices, what in ((compute_unit, COMPUTE_UNITS, "compute unit"), (mxu_input, MXU_INPUTS, "mxu input"),
-                                 (storage, STORAGE_DTYPES, "storage dtype")):
+                                 (storage, PLAN_STORAGES, "storage dtype")):
         if value not in choices:
             raise ValueError(f"unknown {what} {value!r} (one of {choices})")
     mxu = unit_uses_mxu(compute_unit)
+    _check_compute_unit(compute_unit, torch.float64 if storage == "f64" else torch.float32)
     unit = plane_band_unit(compute_unit, *plane_yz, where=where) if mxu else compute_unit
     mi = mxu_input if mxu else "f32"
-    return library_name(unit, mi, storage == "bf16"), {"compute_unit": unit, "mxu_input": mi, "storage": storage}
+    return (library_name(unit, mi, storage == "bf16", storage == "f64"),
+            {"compute_unit": unit, "mxu_input": mi, "storage": storage})
 
 
 def jacobi_wavefront_launch(shape, m: int, interior_offset=None, ring: bool = False, slabs: bool = False,

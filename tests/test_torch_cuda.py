@@ -708,12 +708,12 @@ def test_mean6_plane_kernel_equals_plain(dev, lo, hi):
     assert torch.equal(got, ps.mean6_plane_step_plain(block, lo, hi))
 
 
-def _mean6_shape(m: int, s: int, late: bool) -> tuple:
+def _mean6_shape(m: int, s: int, late: bool, storage: str = "native") -> tuple:
     """A block on which the first march's tiles (32 x 64 with an apron of its
     depth d a side) and its x chunks end one cell late (``late``: one more
     row, column and plane than whole tiles and chunks) or one early.  The
-    x chunking is the card's (``mean6_wavefront_launch``), so the x extent is
-    found by asking for the plan."""
+    x chunking is the card's (``mean6_wavefront_launch`` of the build of
+    ``storage``), so the x extent is found by asking for the plan."""
     from stencil_tpu_torch.ops import plane_stencil as ps
 
     d = m if m <= 4 else -(-m // 2)
@@ -721,7 +721,7 @@ def _mean6_shape(m: int, s: int, late: bool) -> tuple:
     dl = 1 if late else -1
     Y, Z = 2 * o + 3 * (32 - 2 * d) + dl, 2 * o + 2 * (64 - 2 * d) + dl
     for X in range(2 * s + 3, 2 * s + 400):
-        plan = ps.mean6_wavefront_launch((X, Y, Z), m, s)
+        plan = ps.mean6_wavefront_launch((X, Y, Z), m, s, storage)
         last = (X - 2 * o) - (plan["nchunks"] - 1) * plan["xchunk"]
         if plan["xchunk"] >= 3 and last == (1 if late else plan["xchunk"] - 1):
             return X, Y, Z
@@ -1905,6 +1905,182 @@ def test_axis_capture_on_card(dev, kw, grid):
     out = []
     for capture in (False, True):
         model = _axis_model(64, grid, capture=capture, **kw)
+        ledger.reset_launch_counts()
+        model.step(20)
+        out.append((model.temperature(), ledger.launch_counts()))
+    assert np.array_equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+
+
+# --- float64 fields on the Jacobi kernels; bf16 storage and float64 on the mean-of-6 kernels
+
+
+def _f64(t):
+    return None if t is None else t.double()
+
+
+@pytest.mark.parametrize("shape,k", [((66, 70, 130), k) for k in (1, 2, 3, 4, 5, 6, 7, 8, 12)]
+                         + [((16, 5, 7), 4), ((9, 2, 1), 4)])
+def test_f64_wrap_kernel_equals_plain(dev, shape, k):
+    block = _rand(shape, 110 + k, dev).double()
+    keep = block.clone()
+    before = (jk.jacobi_wrap_step.f64_launches, jk.jacobi_wrap_step.launches)
+    got = jk.jacobi_wrap_step(block, k)
+    torch.cuda.synchronize()
+    assert (jk.jacobi_wrap_step.f64_launches, jk.jacobi_wrap_step.launches) == (before[0] + 1, before[1])
+    assert torch.equal(block, keep) and got.dtype == torch.float64
+    assert torch.equal(got, jk.jacobi_wrap_step_plain(block, k))
+
+
+@pytest.mark.parametrize("m", [1, 4, 6, 8])
+@pytest.mark.parametrize("form", ["ring", "slabs", "shell"])
+def test_f64_wavefront_kernels_equal_plain(dev, form, m):
+    """The deep cases' ragged blocks (both spheres cross them), one march
+    (m <= 4) and two (m = 6, 8: the scratch between them at f64)."""
+    raw, org, d2, zs, gs, zv = _deep_args(dev, 3, m, m, form)
+    raw, zs = raw.double(), _f64(zs)
+    S = slice(m, -m)
+    if form == "ring":
+        fn, plain, zsl = jk.jacobi_zring_wavefront_step, jk.jacobi_zring_wavefront_step_plain, slice(None)
+        args, kw = (raw, m, org, d2, gs, zs), dict(interior_offset=m)
+    else:
+        fn, plain, zsl = jk.jacobi_shell_wavefront_step, jk.jacobi_shell_wavefront_step_plain, slice(m, zv - m)
+        args, kw = (raw, m, org, d2, gs), dict(interior_offset=m, z_slabs=zs, z_valid=zv)
+    before = (fn.f64_launches, fn.launches)
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.f64_launches, fn.launches) == (before[0] + 1, before[1])
+    want = plain(*args, **kw)
+    if zs is None:
+        got, want = (got,), (want,)
+    assert got[0].dtype == torch.float64
+    assert torch.equal(got[0][..., S, S, zsl], want[0][..., S, S, zsl])
+    if zs is not None:
+        assert torch.equal(got[1][..., S, :, S], want[1][..., S, :, S])
+    plan = jk.jacobi_wavefront_launch(tuple(raw.shape), m, ring=form == "ring", slabs=zs is not None,
+                                      z_valid=None if form == "ring" else zv, storage="f64")
+    assert plan["launches"] == jk.wavefront_marches(m) and plan["smem_bytes"] == jk.march_smem_bytes(m, 8)
+
+
+@pytest.mark.parametrize("n,X,Y,Z", PLANE_CASES)
+def test_f64_plane_kernel_equals_plain(dev, n, X, Y, Z):
+    gs = (60, Y + 1, Z + 2)
+    blocks = _rand((n, X, Y, Z), 115, dev).double()
+    org = _crossing_origins(n, X, gs, dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y - 2, Z - 2), gs, dev) for o in org])
+    before = jk.jacobi_plane_step.f64_launches
+    got = jk.jacobi_plane_step(blocks, org, d2, gs)
+    torch.cuda.synchronize()
+    assert jk.jacobi_plane_step.f64_launches == before + 1
+    assert torch.equal(got, jk.jacobi_plane_step_plain(blocks, org, d2, gs))
+
+
+@pytest.mark.parametrize("n,X,Y,Z", SLAB_CASES)
+def test_f64_slab_kernel_equals_plain(dev, n, X, Y, Z):
+    gs = (60, Y + 1, Z + 2)
+    block = _rand((n, X, Y, Z), 116, dev).double()
+    slabs = [_rand((n,) + s, 117 + i, dev).double()
+             for i, s in enumerate(((Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y), (X, Y)))]
+    org = _crossing_origins(n, X, gs, dev)
+    d2 = torch.stack([jk.yz_dist2_plane(int(o[1]), int(o[2]), (Y, Z), gs, dev) for o in org])
+    before = jk.jacobi_slab_step.f64_launches
+    got = jk.jacobi_slab_step(block, *slabs, org, d2, gs)
+    torch.cuda.synchronize()
+    assert jk.jacobi_slab_step.f64_launches == before + 1
+    assert torch.equal(got, jk.jacobi_slab_step_plain(block, *slabs, org, d2, gs))
+
+
+_M6_DT = {"bf16": torch.bfloat16, "f64": torch.float64}
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f64"])
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_mean6_dtype_wavefront_kernel_equals_plain(dev, dt, m, late):
+    """Every m = 1..8 under bf16 storage and at f64, on blocks whose tiles
+    and x chunks (the build's own plan) end one cell early or late."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    shape = _mean6_shape(m, m, late, dt)
+    raw = _rand(shape, 120 + m, dev).to(_M6_DT[dt])
+    acc = dt == "bf16"
+    before = getattr(ps.mean6_shell_wavefront_step, f"{dt}_launches")
+    got = ps.mean6_shell_wavefront_step(raw, m, m, f32_accumulate=acc)
+    torch.cuda.synchronize()
+    assert getattr(ps.mean6_shell_wavefront_step, f"{dt}_launches") == before + 1
+    S = slice(m, -m)
+    want = ps.mean6_shell_wavefront_step_plain(raw, m, m, f32_accumulate=acc)
+    assert got.dtype == raw.dtype and torch.equal(got[S, S, S], want[S, S, S]), shape
+    plan = ps.mean6_wavefront_launch(shape, m, m, dt)
+    assert plan["smem_bytes"] == ps.mean6_wavefront_smem_bytes(m, 8 if dt == "f64" else 4)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f64"])
+@pytest.mark.parametrize("lo,hi", [((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2)), ((3, 3, 3), (3, 3, 3))])
+def test_mean6_dtype_plane_kernel_equals_plain(dev, dt, lo, hi):
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    block = _rand((37, 41, 70), 130, dev).to(_M6_DT[dt])
+    acc = dt == "bf16"
+    before = getattr(ps.mean6_plane_step, f"{dt}_launches")
+    got = ps.mean6_plane_step(block, lo, hi, f32_accumulate=acc)
+    torch.cuda.synchronize()
+    assert getattr(ps.mean6_plane_step, f"{dt}_launches") == before + 1
+    assert got.dtype == block.dtype and torch.equal(got, ps.mean6_plane_step_plain(block, lo, hi, f32_accumulate=acc))
+
+
+def test_f64_forms_at_the_main_path_shapes(dev):
+    """512^3 wrap at k = 8; on 2x2x2 the z-ring (8, 264, 264, 256) and
+    shell (8, 264^3) wavefronts at the f64 plan's m = 4 with z slabs."""
+    block = _rand((512, 512, 512), 131, dev).double()
+    assert torch.equal(jk.jacobi_wrap_step(block, 8), jk.jacobi_wrap_step_plain(block, 8))
+    del block
+    half, m, gs = 256, jk.wavefront_auto_depth(256, itemsize=8), (512, 512, 512)
+    assert m == 4
+    r = half + 2 * m
+    org = torch.tensor([[x, y, z] for x in (0, half) for y in (0, half) for z in (0, half)], dtype=torch.int32,
+                       device=dev)
+    zs = _rand((8, r, 2 * m, r), 132, dev).double()
+    raw = _rand((8, r, r, half), 133, dev).double()
+    d2 = torch.stack([jk.zring_dist2_plane(int(o[1]) - m, int(o[2]), m, r, half, gs, dev) for o in org])
+    got = jk.jacobi_zring_wavefront_step(raw, m, org, d2, gs, zs)
+    want = jk.jacobi_zring_wavefront_step_plain(raw, m, org, d2, gs, zs)
+    assert torch.equal(got[0][:, m:-m, m:-m], want[0][:, m:-m, m:-m])
+    assert torch.equal(got[1][:, m:-m, :, m:-m], want[1][:, m:-m, :, m:-m])
+    del got, want, raw
+    plan = jk.jacobi_wrap_launch((512, 512, 512), 8, storage="f64")
+    assert plan["blocks_per_sm"] >= 1 and plan["smem_bytes"] == jk.march_smem_bytes(4, 8) == 132_160
+
+
+@pytest.mark.parametrize("path,grid,size", [("wrap", False, 64), ("wavefront", True, 64), ("shell", True, 64),
+                                            ("slab", True, 64), ("auto", True, 63)])
+def test_f64_routes_on_card(dev, path, grid, size):
+    """Each route at f64 launches its f64 form only and equals the plain
+    path (k = 1 wrap calls at f64) bitwise; the field inside [COLD, HOT]."""
+    from stencil_tpu_torch.kernels import ledger
+
+    ledger.reset_launch_counts()
+    model = _axis_model(size, grid, pallas_path=path, dtype=torch.float64)
+    model.step(10)
+    counts = {k: v for k, v in ledger.launch_counts().items() if v}
+    kernel = {"wrap": "jacobi_wrap_step", "shell": "jacobi_plane_step", "slab": "jacobi_slab_step",
+              "wavefront": "jacobi_zring_wavefront_step" if model._wavefront_z_ring
+              else "jacobi_shell_wavefront_step"}[model._pallas_path]
+    assert counts.get(f"{kernel}_f64", 0) > 0 and kernel not in counts, counts
+    got = model.temperature()
+    ref = torch.full((size,) * 3, 0.5, dtype=torch.float64, device=dev)
+    for _ in range(10):
+        ref = jk.jacobi_wrap_step_plain(ref, 1)
+    assert got.dtype == np.float64 and np.array_equal(got, ref.cpu().numpy())
+    assert COLD_TEMP <= got.min() and got.max() <= HOT_TEMP
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_f64_capture_on_card(dev, grid):
+    from stencil_tpu_torch.kernels import ledger
+
+    out = []
+    for capture in (False, True):
+        model = _axis_model(64, grid, capture=capture, dtype=torch.float64)
         ledger.reset_launch_counts()
         model.step(20)
         out.append((model.temperature(), ledger.launch_counts()))

@@ -131,12 +131,18 @@ def test_wrap_marks_shell_stale_and_readback_reexchanges():
 
 
 def test_unported_options_name_the_roadmap():
-    for kw in (
-        {"wavefront_alias": True},
-        {"kernel_impl": "cuda", "dtype": torch.float64},
-    ):
+    for kw in ({"wavefront_alias": True},):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Jacobi3D(8, 8, 8, device="cpu", **kw)
+    # float64 fields on the CUDA kernels are ported: the wrap route engages
+    # at f64 and equals the JAX pallas model (every route:
+    # tests/test_torch_jacobi_dtypes.py)
+    t = _port((8, 8, 8), kernel_impl="cuda", dtype=torch.float64)
+    j = _jax((8, 8, 8), ONE, kernel_impl="pallas", interpret=True, dtype=jax.numpy.float64)
+    assert t._pallas_path == j._pallas_path == "wrap" and t.dd.get_curr(t.h).dtype == torch.float64
+    t.step(3)
+    j.step(3)
+    np.testing.assert_array_equal(t.temperature(), j.temperature())
     # the kernel axes are ported (tests/test_torch_kernel_axes.py)
     for kw in ({"compute_unit": "mxu"}, {"storage_dtype": "bf16"}, {"mxu_input": "bf16"}):
         Jacobi3D(8, 8, 8, device="cpu", **kw)

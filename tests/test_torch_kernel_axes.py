@@ -257,8 +257,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         jk.jacobi_wrap_step(b, 1, compute_unit="mxu", mxu_input="fp8")
     with pytest.raises(TypeError, match="f32_accumulate"):
         jk.jacobi_wrap_step(b.to(torch.bfloat16), 1)
-    with pytest.raises(TypeError, match="float32"):
-        jk.jacobi_wrap_step(b.double(), 1)
+    with pytest.raises(TypeError, match="float32"):  # float64 is ported: tests/test_torch_jacobi_dtypes.py
+        jk.jacobi_wrap_step(b.half(), 1)
     with pytest.raises(AssertionError, match="f32 accumulator"):
         jk._check_compute_unit("mxu", torch.float64)
     with pytest.raises(TypeError, match="f32_accumulate"):

@@ -147,7 +147,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
     elif bad == "strided":
         block = torch.zeros(8, 6, 20)[:, :, ::2]
     else:
-        block = block.double()
+        block = block.half()  # float64 is a ported dtype (tests/test_torch_jacobi_dtypes.py)
     with pytest.raises((ValueError, TypeError)):
         tjk.jacobi_wrap_step(block, 1)
     with pytest.raises((ValueError, TypeError)):

@@ -8,7 +8,9 @@ runs them).
   m = 2 and 3 on the valid interior ``[s, N - s)``: XLA on the CPU contracts a
   level's multiply into the next level's adds (ROADMAP.md queue 3, "FMA
   contraction"), which the port does not;
-* the unported axes raise ``NotImplementedError`` naming queue 1 item 9;
+* the unported axes (the contraction) raise ``NotImplementedError`` naming
+  queue 1 item 9; bf16 storage and float64 blocks engage (and equal the JAX
+  kernels: tests/test_torch_jacobi_dtypes.py);
 * ``mean6_shell_wavefront_step``'s launch path, on tensors that report a
   CUDA device with a Python stand-in for the C entry ``stp_mean6_march``:
   its arguments in order, the raw stream, a scratch exactly where m needs two
@@ -89,13 +91,26 @@ def test_mean6_wavefront_levels_equal_plane_steps():
 def test_mean6_unported_axes_and_limits_raise():
     block = torch.zeros(N, N, N)
     one = Dim3(1, 1, 1)
-    for kw in ({"compute_unit": "mxu"}, {"f32_accumulate": True}, {"mxu_input": "bf16"}):
+    for kw in ({"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             ps.mean6_plane_step(block, one, one, **kw)
         with pytest.raises(NotImplementedError, match="queue 1 item 9"):
             ps.mean6_shell_wavefront_step(block, 2, 3, **kw)
-    with pytest.raises(NotImplementedError, match="float32"):
-        ps.mean6_plane_step(block.double(), one, one)
+    # bf16 storage (f32_accumulate) and float64 blocks are ported: each
+    # engages and equals the JAX kernel (tests/test_torch_jacobi_dtypes.py
+    # holds them at more shapes and depths)
+    src = _src()
+    bf = torch.from_numpy(src).to(torch.bfloat16)
+    want = jps.mean6_plane_step(jnp.asarray(src).astype(jnp.bfloat16), JDim3(1, 1, 1), JDim3(1, 1, 1),
+                                interpret=True, f32_accumulate=True)
+    got = ps.mean6_plane_step(bf, one, one, f32_accumulate=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want).astype(np.float32))
+    want = jps.mean6_shell_wavefront_step(jnp.asarray(src.astype(np.float64)), m=1, shell_width=3, interpret=True)
+    got = ps.mean6_shell_wavefront_step(torch.from_numpy(src).double(), 1, 3)
+    assert got.dtype == torch.float64
+    core = (slice(3, N - 3),) * 3
+    np.testing.assert_array_equal(got.numpy()[core], np.asarray(want)[core])
     with pytest.raises(ValueError, match=">= 1"):
         ps.mean6_plane_step(block, Dim3(0, 1, 1), one)
     with pytest.raises(ValueError, match="shell_width"):

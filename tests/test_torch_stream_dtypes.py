@@ -589,20 +589,24 @@ def test_captured_equals_uncaptured(dt, schedule, subdomains):
 
 
 def test_c_entries_match_their_ctypes_signatures():
-    """Each stream template's C entries take as many arguments as
-    ``kernels/build.py`` binds (ctypes passes surplus arguments through
-    unchecked, so a parameter added to a C entry and not to its binding
-    shifts the stream handle)."""
+    """Each stream template's C entries, and each plain source's and build
+    variant's (the Jacobi builds' mean-of-6 entries, the mean-of-6 plane
+    kernel's dtype entries), take as many arguments as ``kernels/build.py``
+    binds (ctypes passes surplus arguments through unchecked, so a parameter
+    added to a C entry and not to its binding shifts the stream handle)."""
     import os
     import re
 
     from stencil_tpu_torch.kernels import build
 
-    for template, entries in build.TEMPLATE_SIGNATURES.items():
-        with open(build.source_path(build.TEMPLATE_FILES.get(template, template))) as f:
+    tables = [(build.TEMPLATE_FILES.get(t, t), e) for t, e in build.TEMPLATE_SIGNATURES.items()]
+    tables += list(build.SIGNATURES.items())
+    for source, entries in tables:
+        with open(build.source_path(source)) as f:
             text = f.read()
         params = {name: len([p for p in args.split(",") if p.strip()])
                   for name, args in re.findall(r"^int (stp_\w+)\(([^)]*)\)", text, flags=re.M | re.S)}
         for fn, argtypes in entries.items():
-            assert params[fn] == len(argtypes), (template, fn, params[fn], len(argtypes))
+            assert params[fn] == len(argtypes), (source, fn, params[fn], len(argtypes))
     assert os.path.basename(build.source_path("stream_wrap")) == "stream_wrap.cu"
+    assert os.path.basename(build.source_path("jacobi_wavefront_f64")) == "jacobi_wavefront.cu"
