@@ -265,6 +265,32 @@ non-zero before the result line:
     512^3 domain with a radius-3 shell under bf16 storage and at f64 (f64
     plane and wavefront bitwise equal, bf16 within ``bf16_storage_atol`` of
     its roundings of the f64 run).
+22. the tensor-core contraction form (``compute_unit`` ``mxu`` /
+    ``mxu_band``, ``mxu_input`` ``f32`` / ``bf16``) of the stream kernels
+    (rows 6-8) and the mean-of-6 kernels (rows 17-18): every form held
+    against its plain version on ragged blocks (#6 at k = 3 and over a
+    2 x 1 plane, #7 over two blocks, #8 in the register-queue form with z
+    slabs and in the general form, #17 at m = 3 and 8, #18; f32 storage and
+    bf16 storage) within the card's bound (4 ulps a level on f32 operands,
+    ``mxu_bf16_input_atol`` on bf16 ones, a bf16 ulp under bf16 storage),
+    then at the main path's shapes (``bench_kernels.stream_mxu_times``: #6
+    over 8 Astaroth fields of 512^3 at k = 1, #7 over 8 fields of (8,
+    262^3), #8 of one field at m = 3 with z slabs at (1, 518^3), #17 at m =
+    3 and #18 over 518^3), each form's CUDA-event and device ms beside its
+    vpu form's, its plain version's and its bound (``jacobi_bound``: bytes,
+    f32 or tensor-core operations); then ``AstarothSim(512^3, 8 fields,
+    kernel_impl="cuda")`` under ``compute_unit="mxu"`` and under
+    ``"mxu_band"`` with ``mxu_input="bf16"`` on ``auto`` (1x1x1, wrap),
+    ``wavefront`` (1x1x1) and ``per-step`` (2x2x2, plane), 24 iterations
+    each with the counters reset before and read after: every launch under
+    the contraction form and none under the vpu one, finite, held against
+    the phase-8 f32 vpu run within ``mxu_vs_vpu_atol`` (the reassociation
+    bound of ``tests/test_kernel_axes.py``'s ``test_stream_mxu_matches_vpu``,
+    4 roundings a level at the six-sum's magnitude, plus the card's 4 ulps a
+    level, plus the bf16-input bound on bf16 operands), its ms/iter beside
+    the vpu run's; and 24 levels of exchange + #18 and of exchange + #17 (m
+    = 3) on a periodic 512^3 domain with a radius-3 shell under each unit,
+    held against the same run under ``vpu`` within that bound.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -1813,6 +1839,296 @@ def phase21(card: str, dev: torch.device, f32_routes: dict) -> dict:
     return rec
 
 
+#: phase 22's contraction forms: the ledger's name suffix -> (compute unit,
+#: operand precision) of the runs that stand for it
+MXU22 = {"mxu": ("mxu", "f32"), "mxu_bf16in": ("mxu_band", "bf16")}
+#: phase 22's Astaroth runs: key -> (schedule, 2x2x2 grid), and the route each takes
+AST22 = {"auto 1x1x1": ("auto", False, "wrap"), "wavefront 1x1x1": ("wavefront", False, "wavefront"),
+         "per-step 2x2x2": ("per-step", True, "plane")}
+
+
+def off_mxu_kernel(views, info):
+    """A contraction-form kernel that reads x-1 off the centre: the general
+    form of the stream wavefront kernel."""
+    u = views["u"]
+    return {"u": u.sh(-1, 1, 0) * 0.25 + u.sh(1, 0, 0) * 0.25 + u.plane_nbr_sum() * 0.125}
+
+
+def mxu_vs_vpu_atol(levels: int, top: float, mxu_input: str) -> float:
+    """How far a contraction-form mean-of-6 run may lie from its vpu run
+    after ``levels`` levels, fields at most ``top`` in magnitude: the
+    reassociation bound of ``tests/test_kernel_axes.py``'s
+    ``test_stream_mxu_matches_vpu`` (4 roundings a level, half an ulp each
+    at the six-sum's magnitude), the card's contraction within 4 ulps a
+    level of its plain version at that magnitude, and on bf16 operands
+    ``mxu_bf16_input_atol``."""
+    six = 6.0 * top
+    atol = levels * (4 * 2.0 ** -24 + 4 * 2.0 ** -23) * six
+    return atol + (mxu_bf16_input_atol(levels, top) if mxu_input == "bf16" else 0.0)
+
+
+def phase22(card: str, dev: torch.device, ref: torch.Tensor) -> dict:
+    """Phase 22 (see the module's docstring): the tensor-core contraction
+    form of rows 6-8, 17 and 18.  ``ref``: the f32 vpu Astaroth interiors
+    after ``AST_ITERS`` iterations at 512^3 (host, ``(AST_Q, N, N, N)``).
+    Returns the phase's record with, under ``forms``, each new form's
+    kernels-line numbers."""
+    from stencil_tpu_torch.bin import bench_kernels as bk
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.domain import DistributedDomain
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import plane_stencil as m6
+    from stencil_tpu_torch.ops import stream as st
+
+    rec = {"checks": [], "forms": {}, "routes": {}, "mean6_runs": {}}
+    errs = {}
+
+    def hold(form: str, got, want, levels: int, bf16: bool = False, what: str = "") -> None:
+        """A contraction form against its plain version: finite, within 4
+        ulps a level (f32 operands), ``mxu_bf16_input_atol`` (bf16 operands)
+        or a bf16 ulp (bf16 storage)."""
+        sync()
+        mi = "bf16" if form.endswith("_bf16in") else "f32"
+        got, want = (list(got), list(want)) if isinstance(got, (list, tuple)) else ([got], [want])
+        err = 0.0
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not bool(torch.isfinite(g.float()).all()):
+                raise AssertionError(f"phase 22 {form} {what}: dtypes {g.dtype} / {w.dtype}, or not finite")
+            e = max_err(g, w)
+            if bf16:
+                ok, limit = ulp_dist(g, w) <= 1, "1 bf16 ulp"
+            elif mi == "f32":
+                ok, limit = ulp_dist(g, w) <= 4 * levels, f"{4 * levels} ulps"
+            else:
+                atol = mxu_bf16_input_atol(levels, float(w.abs().max()))
+                ok, limit = e <= atol, f"{atol:.3e}"
+            if not ok:
+                raise AssertionError(f"phase 22 {form} {what}: kernel against plain version: max abs err {e}, "
+                                     f"{ulp_dist(g, w)} ulps, over {limit}")
+            err = max(err, e)
+        errs[form] = max(errs.get(form, 0.0), err)
+        rec["checks"].append({"form": form, "what": what, "max_abs_err": err})
+
+    def rand(shape, seed, dt=torch.float32):
+        return bk.device_rand(shape, seed, dev, dt)
+
+    # -- every form against its plain version on ragged blocks, f32 and bf16
+    # operands, f32 and (f32 operands) bf16 storage
+    t0 = time.perf_counter()
+    ak = AstarothSim._kernel_mxu
+    names8 = [f"d{q}" for q in range(AST_Q)]
+    gs_r = (30, 40, 140)
+    for suffix, (unit, mi) in MXU22.items():
+        for bf16 in (False, True) if mi == "f32" else (False,):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            kw = {"compute_unit": unit, "mxu_input": mi}
+            tag = f"{'bf16 storage' if bf16 else 'f32'}, {unit}"
+            org0 = torch.zeros(3, dtype=torch.int32, device=dev)
+            for shape, k in (((18, 20, 70), 3), ((9, 2, 1), 1)):
+                b = [rand(shape, 600 + q, dt) for q in range(AST_Q)]
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", RuntimeWarning)  # no band tile: the dense form
+                    hold(f"stream_wrap_pass_{suffix}", st.stream_wrap_pass(ak, names8, b, k, org0, shape, **kw),
+                         st.stream_wrap_pass_plain(ak, names8, b, k, org0, shape, **kw), k, bf16,
+                         f"{AST_Q} x {shape} k={k}, {tag}")
+            lo, hi = Dim3(1, 2, 1), Dim3(2, 1, 3)
+            raws = [rand((2, 17, 19, 70), 610 + q, dt) for q in range(AST_Q)]
+            org2 = torch.tensor([[0, 0, 0], [13, 17, 60]], dtype=torch.int32, device=dev)
+            inner = (slice(None), slice(1, -2), slice(2, -1), slice(1, -3))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                got = st.stream_plane_pass(ak, names8, raws, lo, hi, 1, org2, gs_r, **kw)
+                want = st.stream_plane_pass_plain(ak, names8, raws, lo, hi, 1, org2, gs_r, **kw)
+            hold(f"stream_plane_pass_{suffix}", [g[inner] for g in got], [w[inner] for w in want], 1, bf16,
+                 f"{AST_Q} x (2,17,19,70), {tag}")
+            for g, w in zip(got, want):
+                g[inner] = w[inner]
+                if not torch.equal(g, w):
+                    raise AssertionError(f"phase 22 stream_plane_pass_{suffix}: the shell did not pass through")
+            s, zv = 3, 127
+            gs_w = (2 * (40 - 2 * s) + 3, 2 * (70 - 2 * s), 2 * (127 - 2 * s))
+            orgw = torch.tensor([[5, 0, 7], [gs_w[0] - 3, 70 - 2 * s, 0]], dtype=torch.int32, device=dev)
+            raw = [rand((2, 40, 70, 130), 620, dt)]
+            zs = [rand((2, 40, 2 * s, 70), 621, dt)]
+            S = slice(s, -s)
+            got, gz = st.stream_wavefront_pass(ak, names8[:1], raw, 3, s, orgw, gs_w, z_slabs=zs, z_valid=zv, **kw)
+            want, wz = st.stream_wavefront_pass_plain(ak, names8[:1], raw, 3, s, orgw, gs_w, z_slabs=zs, z_valid=zv,
+                                                      **kw)
+            hold(f"stream_wavefront_pass_{suffix}", [got[0][:, S, S, s:zv - s], gz[0][:, S, :, S]],
+                 [want[0][:, S, S, s:zv - s], wz[0][:, S, :, S]], 3, bf16, f"(2,40,70,130) m=3 queue, z slabs, {tag}")
+            if not bf16:
+                got, _ = st.stream_wavefront_pass(off_mxu_kernel, ["u"], raw, 2, s, orgw, gs_w, **kw)
+                want, _ = st.stream_wavefront_pass_plain(off_mxu_kernel, ["u"], raw, 2, s, orgw, gs_w, **kw)
+                hold(f"stream_wavefront_pass_{suffix}", got[0][:, S, S, S], want[0][:, S, S, S], 2, bf16,
+                     f"(2,40,70,130) m=2 general, {tag}")
+            kw6 = dict(kw, f32_accumulate=bf16)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                for m in (3, 8):
+                    r6 = rand((2 * m + 41, 2 * m + 29, 2 * m + 75), 630 + m, dt)
+                    S6 = slice(m, -m)
+                    hold(f"mean6_shell_wavefront_step_{suffix}",
+                         m6.mean6_shell_wavefront_step(r6, m, m, **kw6)[S6, S6, S6],
+                         m6.mean6_shell_wavefront_step_plain(r6, m, m, **kw6)[S6, S6, S6], m, bf16,
+                         f"{tuple(r6.shape)} m={m}, {tag}")
+                b6 = rand((37, 41, 70), 640, dt)
+                got = m6.mean6_plane_step(b6, (1, 2, 3), (3, 1, 2), **kw6)
+                want = m6.mean6_plane_step_plain(b6, (1, 2, 3), (3, 1, 2), **kw6)
+            win = (slice(1, -3), slice(2, -1), slice(3, -2))
+            hold(f"mean6_plane_step_{suffix}", got[win], want[win], 1, bf16, f"(37,41,70) lo (1,2,3) hi (3,1,2), {tag}")
+            got[win] = want[win]
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase 22 mean6_plane_step_{suffix}: the shell did not pass through")
+            del raws, raw, zs, got, want
+    torch.cuda.empty_cache()
+    log(f"phase 22: every contraction form against its plain version on ragged blocks, {len(rec['checks'])} checks, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the main path's shapes: held, then timed beside the vpu form
+    t0 = time.perf_counter()
+    times = bk.stream_mxu_times(dev, device_ms=lambda call, n: device_ms_per_call(call, per_call=n), plain=True,
+                                check=lambda form, got, want, levels: hold(form, got, want, levels,
+                                                                           what="the main path's shape"))
+    shapes = {"stream_wrap_pass": f"{AST_Q} fields x ({N},{N},{N}) f32, k=1, Astaroth _kernel_mxu",
+              "stream_plane_pass": f"{AST_Q} fields x (8,{N // 2 + 6},{N // 2 + 6},{N // 2 + 6}) f32, shell 3",
+              "stream_wavefront_pass": f"1 field x (1,{N + 6},{N + 6},{N + 6}) f32 m=3 s=3, z slabs",
+              "mean6_shell_wavefront_step": f"({N + 6},{N + 6},{N + 6}) f32, m = 3, s = 3",
+              "mean6_plane_step": f"({N + 6},{N + 6},{N + 6}) f32, lo = hi = 3"}
+    for name, t in times.items():
+        base = name.rsplit("_mxu", 1)[0]
+        rec["forms"][name] = {"ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                              "bound": (t["bound_ms"], t["bound_by"]), "bound_of": t["bound_of"],
+                              "tensor_core_flops": t["tensor_core_flops"], "vpu_ms": t["vpu_ms"],
+                              "vpu_device_ms": t["vpu_device_ms"], "launch": t.get("launch"),
+                              "shape": f"{shapes[base]}, {t['compute_unit']} on {t['mxu_input']} operands"}
+        f = rec["forms"][name]
+        log(f"{name} {f['shape']}: CUDA events {f['ms']:.4f} ms a call, device {f['device_ms']:.4f} (vpu form "
+            f"{f['vpu_ms']:.4f}, device {f['vpu_device_ms']:.4f}, x{f['device_ms'] / f['vpu_device_ms']:.2f}; plain "
+            f"{f['plain_ms']:.4f}), bound {f['bound'][0]:.4f} ms ({f['bound_of']})"
+            + (f"; launch {plan_str(f['launch'])}" if f["launch"] else "") + f" on {card}")
+    torch.cuda.empty_cache()
+    log(f"phase 22: main-path shapes held and timed in {time.perf_counter() - t0:.1f} s")
+
+    # -- Astaroth at full width under each unit: 24 iterations with the
+    # counters reset before and read after, held against the f32 vpu run
+    top = float(ref.abs().max())
+
+    def interiors_of(sim) -> list:
+        lo, n = sim.dd.shell_radius().lo(), sim.dd.local_spec().sz
+        dim = sim.dd.grid_dim()
+        return [sim.dd.get_curr(h)[..., lo.x:lo.x + n.x, lo.y:lo.y + n.y, lo.z:lo.z + n.z]
+                .permute(0, 3, 1, 4, 2, 5).reshape(dim.x * n.x, dim.y * n.y, dim.z * n.z) for h in sim.handles]
+
+    t0 = time.perf_counter()
+    for suffix, (unit, mi) in MXU22.items():
+        for key, (schedule, grid, route) in AST22.items():
+            sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", schedule=schedule,
+                              compute_unit=unit, mxu_input=mi)
+            if grid:
+                sim.dd.set_partition(2, 2, 2)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # a plane without a band tile runs the dense form
+                sim.realize()
+            plan = sim._step._stream_plan
+            ledger.reset_launch_counts()
+            sync()
+            t1 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dt = (time.perf_counter() - t1) / AST_ITERS
+            counts = {k: v for k, v in ledger.launch_counts().items() if v}
+            kernel = f"stream_{plan['route']}_pass"
+            form = f"{kernel}_{suffix}"
+            groups = AST_Q if plan["grouping"] == "per-field" else 1
+            want = groups * (AST_ITERS if plan["route"] != "wavefront" else -(-AST_ITERS // plan["m"]))
+            if (plan["route"], plan["compute_unit"], plan["mxu_input"]) != (route, unit, mi) or \
+                    counts.get(form, 0) != want or counts.get(kernel, 0):
+                raise AssertionError(f"phase 22 astaroth {key} {unit}/{mi}: plan {plan}, launches {counts}, want "
+                                     f"{want} of {form} and none of {kernel}")
+            err, finite = 0.0, True
+            for q, got in enumerate(interiors_of(sim)):
+                finite = finite and bool(torch.isfinite(got).all())
+                err = max(err, float((got.double() - ref[q].to(dev).double()).abs().max()))
+            limit = mxu_vs_vpu_atol(AST_ITERS, top, mi)
+            rec["routes"][f"{key} {suffix}"] = {
+                "route": plan["route"], "m": plan["m"], "grouping": plan["grouping"], "z_slabs": plan["z_slabs"],
+                "compute_unit": unit, "mxu_input": mi, "launches": counts, "max_abs_err_vs_vpu": err,
+                "limit": limit, "ms_per_iter": dt * 1e3, "mupdates_per_s": AST_Q * N ** 3 / dt / 1e6}
+            log(f"phase 22 astaroth {AST_Q}q {N}^3 {key} {unit}/{mi} ({plan['route']}, m={plan['m']}, "
+                f"{plan['grouping']}): {dt * 1e3:.4f} ms/iter; {counts[form]} launches of {form}; max abs err "
+                f"against the vpu run {err:.3e} (limit {limit:.3e}) on {card}")
+            if not finite or err > limit:
+                raise AssertionError(f"phase 22 astaroth {key} {unit}/{mi}: finite {finite}, {err} against the vpu "
+                                     f"run exceeds {limit}")
+            fe = rec["forms"][form]
+            if "counts" not in fe:
+                fe["counts"], fe["want"] = counts, want
+            del sim
+            torch.cuda.empty_cache()
+    log(f"phase 22: Astaroth runs in {time.perf_counter() - t0:.1f} s")
+
+    # -- the mean-of-6 kernels at full width under each unit: one periodic
+    # 512^3 subdomain with a radius-3 shell, 24 levels of exchange + #18 and
+    # of exchange + #17 (m = 3) a pass, held against the vpu run
+    init = np.random.default_rng(220).random((N, N, N)).astype(np.float32)
+    shell3 = (3, 3, 3)
+    runs = {}
+    for suffix, (unit, mi) in [(None, ("vpu", "f32"))] + list(MXU22.items()):
+        kw = {} if suffix is None else {"compute_unit": unit, "mxu_input": mi}
+        for kernel in ("mean6_plane_step", "mean6_shell_wavefront_step"):
+            dd = DistributedDomain(N, N, N, device=dev)
+            dd.set_radius(3)
+            h = dd.add_data("u", dtype=torch.float32)
+            dd.realize()
+            dd.set_quantity(h, init)
+            ledger.reset_launch_counts()
+            sync()
+            t1 = time.perf_counter()
+            levels, calls = AST_ITERS, 0
+            while levels:
+                m = 1 if kernel == "mean6_plane_step" else min(3, levels)
+                dd.exchange()
+                cur, nxt = dd.get_curr(h)[0, 0, 0], dd.get_next(h)[0, 0, 0]
+                if kernel == "mean6_plane_step":
+                    m6.mean6_plane_step(cur, shell3, shell3, out=nxt, **kw)
+                else:
+                    m6.mean6_shell_wavefront_step(cur, m, 3, out=nxt, **kw)
+                dd.swap()
+                levels -= m
+                calls += 1
+            sync()
+            seconds = time.perf_counter() - t1
+            counts = {k: v for k, v in ledger.launch_counts().items() if v}
+            runs[(kernel, suffix)] = dd.get_curr(h)[0, 0, 0, 3:-3, 3:-3, 3:-3].clone()
+            del dd
+            torch.cuda.empty_cache()
+            if suffix is None:
+                continue
+            form = f"{kernel}_{suffix}"
+            if counts.get(form, 0) != calls or counts.get(kernel, 0):
+                raise AssertionError(f"phase 22 {form} run: launches {counts}, want {calls} of {form}")
+            got, vpu = runs[(kernel, suffix)], runs[(kernel, None)]
+            err = max_err(got, vpu)
+            limit = mxu_vs_vpu_atol(AST_ITERS, float(vpu.abs().max()), mi)
+            rec["mean6_runs"][form] = {"launches": calls, "ms_per_level": seconds * 1e3 / AST_ITERS,
+                                       "max_abs_err_vs_vpu": err, "limit": limit}
+            if not bool(torch.isfinite(got).all()) or err > limit:
+                raise AssertionError(f"phase 22 {form} run: {err} against the vpu run exceeds {limit}")
+            fe = rec["forms"][form]
+            fe["counts"], fe["want"] = counts, calls
+    log(f"phase 22 mean6 runs ({AST_ITERS} levels, {N}^3, shell 3): "
+        + ", ".join(f"{k} {v['ms_per_level']:.4f} ms a level, {v['max_abs_err_vs_vpu']:.3e} from vpu (limit "
+                    f"{v['limit']:.3e})" for k, v in rec["mean6_runs"].items()) + f" on {card}")
+    del runs
+    torch.cuda.empty_cache()
+    missing = [name for name, f in rec["forms"].items() if "counts" not in f]
+    if missing:
+        raise AssertionError(f"phase 22: no run launched {missing}")
+    rec["errs"] = errs
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -1902,6 +2218,21 @@ def main() -> int:
         for m in (1, 3):
             stream_sources += [("stream_wavefront", st._source(k27d, *st._wavefront_variant(m))),
                                ("stream_wavefront_fused", st._source(k27d, *st._wavefront_variant(m, True)))]
+    # phase 22's contraction forms (Astaroth's _kernel_mxu): over 8 fields
+    # (wrap, plane) and one (every wavefront depth), on f32 and bf16
+    # operands, and under bf16 storage on f32 ones; and the general form's
+    # kernel at m = 2
+    ast_mxu = AstarothSim._kernel_mxu
+    for mi in ("f32", "bf16"):
+        for dt in (torch.float32, torch.bfloat16) if mi == "f32" else (torch.float32,):
+            sk8 = StreamKernel(ast_mxu, ast_names, 1, gs_main, dtypes=[dt] * AST_Q, compute_unit="mxu", mxu_input=mi)
+            sk1 = StreamKernel(ast_mxu, ast_names[:1], 1, gs_main, dtypes=[dt], compute_unit="mxu", mxu_input=mi)
+            stream_sources += [("stream_wrap", st._source(sk8, "stream_wrap", st._WRAP_LEVELS)),
+                               ("stream_plane", st._source(sk8, "stream_plane", [1]))]
+            stream_sources += [("stream_wavefront", st._source(sk1, *st._wavefront_variant(m)))
+                               for m in ((1, 2, 3) if dt == torch.float32 else (3,))]
+        sko = StreamKernel(off_mxu_kernel, ["u"], 1, gs_r, compute_unit="mxu", mxu_input=mi)
+        stream_sources.append(("stream_wavefront", st._source(sko, *st._wavefront_variant(2))))
     # phase 15's reference: the plane route of a mean6 user kernel
     stream_sources.append(("stream_plane", st._source(StreamKernel(mean6_kernel, ["u"], 1, gs_main),
                                                       "stream_plane", [1])))
@@ -3559,13 +3890,20 @@ def main() -> int:
     dt20 = phase20(card, dev, {N: ast_ref_host, NU: ast_u_ref_host},
                    {"ast": ast, "routes_13": routes_13, "f16": f16, "ast_u": ast_u})
     errs.update(dt20["errs"])
-    del ast_ref_host, ast_u_ref_host
+    del ast_u_ref_host
     phase_end()
 
     # --- 21. float64 on the Jacobi kernels; bf16 storage and float64 on the mean-of-6 kernels
     phase_start(21)
     f21 = phase21(card, dev, ax19["routes"])
     errs.update(f21["errs"])
+    phase_end()
+
+    # --- 22. the tensor-core contraction form of rows 6-8, 17 and 18 ----------------------
+    phase_start(22)
+    mx22 = phase22(card, dev, ast_ref_host)
+    errs.update(mx22["errs"])
+    del ast_ref_host
     phase_end()
 
     rows = []
@@ -3642,6 +3980,12 @@ def main() -> int:
         (name, f["counts"], AST_ITERS if name.startswith("mean6") else STEPS, f["want"], f["ms"], f["plain_ms"], None,
          0, 0, f["shape"], f["bound"])
         for name, f in f21["forms"].items()
+    ] + [
+        # phase 22's forms: launches over 24 Astaroth iterations of the
+        # route that runs them, or the mean-of-6 run's 24 levels; the bound
+        # is jacobi_bound's (bytes, f32 or tensor-core operations)
+        (name, f["counts"], AST_ITERS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
+        for name, f in mx22["forms"].items()
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     entries.update({name: ledger.form_entry(name) for name in ledger.FORMS})
@@ -3702,6 +4046,11 @@ def main() -> int:
             f = f21["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], f32_ms=f["f32_ms"], f32_device_ms=f["f32_device_ms"],
                             launch=f["launch"], copy_bound_ms=None)
+        if name in mx22["forms"]:
+            f = mx22["forms"][name]
+            rows[-1].update(device_ms=f["device_ms"], vpu_ms=f["vpu_ms"], vpu_device_ms=f["vpu_device_ms"],
+                            bound_of=f["bound_of"], tensor_core_flops=f["tensor_core_flops"], launch=f["launch"],
+                            copy_bound_ms=None)
         if name in ax19["forms"]:
             f = ax19["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
@@ -3746,6 +4095,7 @@ def main() -> int:
         "kernel_axes": {k: v for k, v in ax19.items() if k != "errs"},
         "stream_dtypes": {k: v for k, v in dt20.items() if k != "errs"},
         "jacobi_f64_mean6_dtypes": {k: v for k, v in f21.items() if k != "errs"},
+        "contraction_forms": {k: v for k, v in mx22.items() if k != "errs"},
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

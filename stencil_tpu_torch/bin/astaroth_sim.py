@@ -12,9 +12,11 @@ with ``--quantities``, ``--kernel-impl`` (cuda | torch), ``--schedule``
 zpack_xla | zpack_pallas | yzpack_xla | yzpack_pallas), ``--stream-overlap``
 (auto | off | split) and ``--stream-halo`` (auto | array | fused), the stream
 engine's split schedule and fused halo (``stencil_tpu/bin/_common.py:247-277``),
-the kernel axes ``--compute-unit``, ``--mxu-input`` (vpu / f32 only: the
-contraction is not ported) and ``--storage-dtype`` (native | bf16: the fields
-stored as bfloat16, the CUDA kernels accumulating at f32),
+the kernel axes ``--compute-unit`` (auto | vpu | mxu | mxu_band: the
+in-plane taps contracted on the tensor cores, ``_kernel_mxu``),
+``--mxu-input`` (auto | f32 | bf16: the contraction's operands) and
+``--storage-dtype`` (native | bf16: the fields stored as bfloat16, the CUDA
+kernels accumulating at f32),
 the reference's method flags, ``--no-overlap`` and ``--trivial``, plus
 ``--partition px,py,pz``
 (subdomains on the one device) and ``--device``.  Each timed sample is one
@@ -30,6 +32,8 @@ iteration and a device synchronize, after one untimed warm-up step
         --stream-overlap split --iters 24
     python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --schedule wavefront \
         --storage-dtype bf16 --iters 24
+    python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --schedule wavefront \
+        --compute-unit mxu_band --mxu-input bf16 --iters 24
 """
 
 from __future__ import annotations

@@ -136,7 +136,19 @@ and (``--only`` keeps the sections named):
   bound (the larger of the bytes at the storage itemsize over 3.35 TB/s and
   six operations a cell-level over 67 TFLOP/s f32 or 34 f64), and the
   registers and spill bytes of the bf16 and float64 libraries' mean-of-6
-  kernels.
+  kernels;
+* ``stream_mxu``: the tensor-core contraction form of #6-#8, #17 and #18
+  beside its ``vpu`` form on the same seeded data, f32 operands under
+  ``compute_unit="mxu"`` and bf16 operands under ``"mxu_band"`` (the two
+  runs of ``AstarothSim`` it serves), at the main path's shapes: #6 over 8
+  Astaroth fields (``_kernel_mxu``) of 512^3 at k = 1, #7 over 8 fields of
+  (8, 262^3), #8 of one field at m = 3 with z slabs at (1, 518^3), #17 at m
+  = 3 and #18 over one 518^3 block: device ms a call (torch.profiler over 10
+  calls), CUDA-event ms a call, the vpu form's two, the plan (#8, #17) and
+  the bound (``jacobi_bound``: the larger of the bytes over 3.35 TB/s, the
+  f32 operations over 67 TFLOP/s and the tile contraction's tensor-core
+  FLOPs over 495 TFLOP/s TF32 or 989 bf16).  It calls ``compute_unit=``
+  on #6-#8, #17 and #18, so it times a tree from this one on.
 
 A CUDA card is required; it exits 1 without one.
 """
@@ -921,6 +933,118 @@ def stream_dtype_times(dev, dtype: str, device_ms=None, f32: bool = True) -> dic
     return out
 
 
+#: the contraction forms ``stream_mxu`` times: ledger suffix -> (unit, operands)
+MXU_FORMS = {"mxu": ("mxu", "f32"), "mxu_bf16in": ("mxu_band", "bf16")}
+
+
+def stream_mxu_times(dev, device_ms=None, plain: bool = False, check=None) -> dict:
+    """The ``stream_mxu`` section (module docstring), keyed by the ledger's
+    form names (``stream_wrap_pass_mxu``, ...).  ``device_ms(call,
+    per_call)`` reads a call's device ms in place of ``_profile``
+    (``chip_smoke.py`` passes its own); ``plain`` also times each form's
+    plain version (CUDA events, 3 reps of one call); ``check(form, got,
+    want, levels)`` is handed each form's valid region and its plain
+    version's on these inputs before the timing."""
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.kernels import build
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import plane_stencil as ps
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    gs = (N, N, N)
+    n, ext, s, m = 8, N // 2 + 6, 3, 3
+    shell = Dim3(s, s, s)
+    ws = N + 2 * s
+    org8 = torch.tensor([[(N // 2) * (b >> 2), (N // 2) * (b >> 1 & 1), (N // 2) * (b & 1)] for b in range(n)],
+                        dtype=torch.int32, device=dev)
+    org0, org1 = torch.zeros(3, dtype=torch.int32, device=dev), torch.zeros(1, 3, dtype=torch.int32, device=dev)
+    names8 = [f"d{q}" for q in range(8)]
+
+    def kernel(unit, mi, fields):
+        fn = AstarothSim._kernel_mxu if unit != "vpu" else AstarothSim._kernel
+        return StreamKernel(fn, names8[:fields], 1, gs, compute_unit=unit, mxu_input=mi)
+
+    # every library first, one nvcc each, all at once
+    want = []
+    for unit, mi in [("vpu", "f32")] + list(MXU_FORMS.values()):
+        sk8, sk1 = kernel(unit, mi, 8), kernel(unit, mi, 1)
+        want += [("stream_wrap", st._source(sk8, "stream_wrap", st._WRAP_LEVELS)),
+                 ("stream_plane", st._source(sk8, "stream_plane", [1])),
+                 ("stream_wavefront", st._source(sk1, *st._wavefront_variant(m)))]
+    build.build_generated(dict.fromkeys(want))
+
+    def timed(call, nbytes, cell_levels, unit, mi, launches=1):
+        dev_ms = sum(_profile(call, 10, per_call=launches)[0].values()) if device_ms is None else device_ms(
+            call, launches)
+        return dict({"device_ms": dev_ms, "ms": _cuda_ms(call, inner=2), "bytes": nbytes},
+                    **jacobi_bound(nbytes, cell_levels, unit, mi))
+
+    out = {}
+    blocks = [device_rand(gs, 70 + q, dev, torch.float32) for q in range(8)]
+    raws = [device_rand((n, ext, ext, ext), 80 + q, dev, torch.float32) for q in range(8)]
+    raw1 = [device_rand((1, ws, ws, ws), 90, dev, torch.float32)]
+    zs1 = [device_rand((1, ws, 2 * s, ws), 91, dev, torch.float32)]
+    S = slice(s, -s)
+    for suffix, (unit, mi) in MXU_FORMS.items():
+        kw = {"compute_unit": unit, "mxu_input": mi}
+        sk8, sk1 = kernel(unit, mi, 8), kernel(unit, mi, 1)
+        vk8, vk1 = kernel("vpu", "f32", 8), kernel("vpu", "f32", 1)
+        # name: (the form's call, the vpu form's, the plain version's, the
+        # valid region of an output, its levels, bytes, cell-levels, kernel
+        # launches a call, the plan)
+        cases = {
+            "stream_wrap_pass": (
+                lambda: st.stream_wrap_pass(sk8, names8, blocks, 1, org0, gs, **kw),
+                lambda: st.stream_wrap_pass(vk8, names8, blocks, 1, org0, gs),
+                lambda: st.stream_wrap_pass_plain(sk8, names8, blocks, 1, org0, gs, **kw),
+                lambda o: o, 1, 8 * N ** 3 * 8, 8 * N ** 3, 1, None),
+            "stream_plane_pass": (
+                lambda: st.stream_plane_pass(sk8, names8, raws, shell, shell, 1, org8, gs, **kw),
+                lambda: st.stream_plane_pass(vk8, names8, raws, shell, shell, 1, org8, gs),
+                lambda: st.stream_plane_pass_plain(sk8, names8, raws, shell, shell, 1, org8, gs, **kw),
+                lambda o: o[:, S, S, S], 1, 8 * 2 * n * ext ** 3 * 4, 8 * n * (ext - 2 * s) ** 3, 1, None),
+            "stream_wavefront_pass": (
+                lambda: st.stream_wavefront_pass(sk1, names8[:1], raw1, m, s, org1, gs, z_slabs=zs1, z_valid=ws,
+                                                 **kw)[0],
+                lambda: st.stream_wavefront_pass(vk1, names8[:1], raw1, m, s, org1, gs, z_slabs=zs1, z_valid=ws)[0],
+                lambda: st.stream_wavefront_pass_plain(sk1, names8[:1], raw1, m, s, org1, gs, z_slabs=zs1,
+                                                       z_valid=ws, **kw)[0],
+                lambda o: o[:, S, S, S], m, stream_wavefront_bytes(1, ws, ws, ws, m, s, True, 1), N ** 3 * m, 1,
+                lambda: st.stream_wavefront_launch(sk1, names8[:1], raw1, m, s, gs, z_slabs=zs1, z_valid=ws, **kw)),
+            "mean6_shell_wavefront_step": (
+                lambda: [ps.mean6_shell_wavefront_step(raw1[0][0], m, s, **kw)],
+                lambda: [ps.mean6_shell_wavefront_step(raw1[0][0], m, s)],
+                lambda: [ps.mean6_shell_wavefront_step_plain(raw1[0][0], m, s, **kw)],
+                lambda o: o[S, S, S], m, (ws ** 3 + N ** 3) * 4, m * N ** 3, 1,
+                lambda: ps.mean6_wavefront_launch((ws, ws, ws), m, s, "native", unit, mi)),
+            "mean6_plane_step": (
+                lambda: [ps.mean6_plane_step(raw1[0][0], shell, shell, **kw)],
+                lambda: [ps.mean6_plane_step(raw1[0][0], shell, shell)],
+                lambda: [ps.mean6_plane_step_plain(raw1[0][0], shell, shell, **kw)],
+                lambda o: o, 1, 2 * ws ** 3 * 4, N ** 3, 1, None),
+        }
+        for name, (call, vcall, pcall, valid, levels, nbytes, cell_levels, launches, plan) in cases.items():
+            if check is not None:
+                got = [valid(o) for o in call()]
+                _sync()
+                check(f"{name}_{suffix}", got, [valid(o) for o in pcall()], levels)
+                del got
+            row = timed(call, nbytes, cell_levels, unit, mi, launches)
+            row.update(vpu_ms=_cuda_ms(vcall, inner=2), vpu_device_ms=(
+                sum(_profile(vcall, 10, per_call=launches)[0].values()) if device_ms is None
+                else device_ms(vcall, launches)), compute_unit=unit, mxu_input=mi)
+            if plain:
+                row["plain_ms"] = _cuda_ms(pcall, reps=3, inner=1)
+            if plan is not None:
+                row["launch"] = plan()
+            out[f"{name}_{suffix}"] = row
+            torch.cuda.empty_cache()
+    del blocks, raws, raw1, zs1
+    torch.cuda.empty_cache()
+    return out
+
+
 def direct_route(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
 
@@ -953,7 +1077,7 @@ def main(argv=None) -> int:
                 "jacobi_bf16": jacobi_bf16_times, "jacobi_mxu": jacobi_mxu_times, "mxu_vs_vpu": mxu_vs_vpu_times,
                 "stream_bf16": lambda dev: stream_dtype_times(dev, "bf16"),
                 "stream_f64": lambda dev: stream_dtype_times(dev, "f64"),
-                "jacobi_f64": jacobi_f64_times, "mean6_dtypes": mean6_dtype_times}
+                "jacobi_f64": jacobi_f64_times, "mean6_dtypes": mean6_dtype_times, "stream_mxu": stream_mxu_times}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

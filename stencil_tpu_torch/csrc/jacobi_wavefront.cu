@@ -153,7 +153,10 @@
 // The mean-of-6 form is the Jacobi level without the clamp, summed in the
 // same order (plane_stencil.py:188-195): m <= 4 is one march, m in 5..8 two
 // through the scratch, as the shell form; so kMaxM = 8 is two marches of
-// kSubDepth, not a shared-memory limit.
+// kSubDepth, not a shared-memory limit.  In the tensor-core builds its
+// level is (x-1 + x+1) + (ysum + zsum), the JAX kernel's level_sum under an
+// MXU unit (jacobi_pallas.py:498-510), the Jacobi contraction without the
+// clamp.
 //
 // The kernel axes (jacobi_pallas.py:39-250) are builds of this file, each a
 // library of its own (kernels/build.py VARIANTS, ops/jacobi_kernels.py
@@ -174,7 +177,9 @@
 //     nonzeros: over y (A the band, B the plane) against the row chunks that
 //     hold rows r0 - 1 .. r0 + 16, over z (A the plane, B the band) against
 //     the column chunks that hold c0 - 1 .. c0 + 16, chunks inside the tile
-//     only (the tile's edge is apron, whose values are garbage anyway).  The
+//     only (the tile's edge is apron, whose values are garbage anyway;
+//     csrc/band_mma.cuh holds the contraction, shared with the mean-of-6
+//     plane kernel and the stream kernels' contraction form).  The
 //     level is then (x-1 + x+1) + (ysum + zsum), as _make_level_sum sums it
 //     (jacobi_pallas.py:498-526).  f32 operands: m16n8k8 TF32 on the plane
 //     split exactly into three TF32 pieces with cvt.rna (hi, mid, and the
@@ -204,8 +209,9 @@
 //     wrap form ping-pongs through a double scratch as the f32 build does.
 //
 // The default build (all 0) is the f32 vpu form above, unchanged.  The
-// plane, slab and mean-of-6 forms are in the vpu builds only (f32, bf16
-// storage, float64); the tensor-core builds take f32 accumulators only.
+// plane and slab forms are in the vpu builds only (f32, bf16 storage,
+// float64); the mean-of-6 form is in every build; the tensor-core builds
+// take f32 accumulators only.
 
 #ifndef STP_JW_STORAGE
 #define STP_JW_STORAGE 0
@@ -220,6 +226,9 @@
 #include <type_traits>
 #if STP_JW_STORAGE == 1 || STP_JW_UNIT == 2
 #include <cuda_bf16.h>
+#endif
+#if STP_JW_UNIT
+#include "band_mma.cuh"
 #endif
 
 static_assert(STP_JW_STORAGE != 2 || STP_JW_UNIT == 0, "the tensor-core contraction takes f32 accumulators only");
@@ -275,50 +284,12 @@ __device__ __forceinline__ int pmod(int a, int n) {
 constexpr int kUnit = STP_JW_UNIT;  // 0 vpu, 1 tensor cores on TF32 pieces, 2 on bf16
 constexpr bool kMxu = kUnit != 0;
 constexpr int kMxuPitch = 72;  // == MXU_PITCH: the shared planes' row pitch in these builds
+#if STP_JW_UNIT
 // the largest level-0 magnitude these builds take (FLT_MAX / 8): six such
 // values and their means never overflow, so no level is inf or NaN
+constexpr float kMxuLimit = band_mma::kMxuLimit;
+#else
 constexpr float kMxuLimit = 0x1.fffffep+124f;
-
-#if STP_JW_UNIT == 1
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = p[2] + p[1] + p[0] exactly, each a TF32 value: hi, mid and the rest
-// (x has 24 significant bits, hi and mid 11 each, the rest at most 3)
-__device__ __forceinline__ void split3(float x, uint32_t (&p)[3]) {
-  const uint32_t hi = tf32_rna(x);
-  const float r = __fsub_rn(x, __uint_as_float(hi));
-  const uint32_t mid = tf32_rna(r);
-  p[0] = __float_as_uint(__fsub_rn(r, __uint_as_float(mid)));
-  p[1] = mid;
-  p[2] = hi;
-}
-// a band entry as a TF32 operand: 1 at distance 1, else 0
-__device__ __forceinline__ uint32_t band32(int d) { return d == 1 || d == -1 ? 0x3f800000u : 0u; }
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-#elif STP_JW_UNIT == 2
-// two cells rounded to bfloat16 (to nearest even), `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// two band entries as a bf16 pair, d0's in the low half
-__device__ __forceinline__ uint32_t band16(int d0, int d1) {
-  return (d0 == 1 || d0 == -1 ? 0x3f80u : 0u) | (d1 == 1 || d1 == -1 ? 0x3f800000u : 0u);
-}
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 #endif
 
 // --- the Jacobi wavefront: register-queue marches ------------------------------
@@ -468,96 +439,11 @@ __device__ __forceinline__ Store load_slab(const SlabArgs& a, int b, int i, int 
 // The in-plane sums (ysum + zsum) of a warp's 16 x 16 quarter of the tile,
 // rows r0.., columns c0.., of the level plane `p` (pitch kMxuPitch), into
 // nb[r][q], this thread's cells in the accumulator layout: rows r0 + g +
-// 8 (r / 2), columns c0 + 8q + 2t + r % 2.  Chunks of rows or columns
-// outside the tile are skipped (the tile's edge is apron).  A z chunk's
-// columns are taken in the order c, c + 1 for k = t, t + 4 (TF32) so that a
-// thread reads them as one float2; the band operand follows the same order.
+// 8 (r / 2), columns c0 + 8q + 2t + r % 2 (csrc/band_mma.cuh).  Chunks of
+// rows or columns outside the tile are skipped (the tile's edge is apron);
+// the level-0 cells were cleaned at the load.
 __device__ __forceinline__ void tile_sums(const float* p, int r0, int c0, int g, int t, float (&nb)[4][2]) {
-  constexpr int SW = kMxuPitch;
-  float ys[2][4] = {}, zs[2][4] = {};
-#if STP_JW_UNIT == 1
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {  // y: rows k0 .. k0 + 7, k0 = r0 - 8 + 8j
-    const int dl = 8 * j - 8, k0 = r0 + dl;
-    if (k0 < 0 || k0 >= kQRows) continue;
-    // A[m][k] = 1 where |(r0 + m) - (k0 + k)| = 1: m = g, g + 8; k = t, t + 4
-    const uint32_t a[4] = {band32(g - t - dl), band32(g + 8 - t - dl), band32(g - t - 4 - dl),
-                           band32(g + 4 - t - dl)};
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = c0 + 8 * q + g;
-      uint32_t b0[3], b1[3];
-      split3(p[(k0 + t) * SW + col], b0);
-      split3(p[(k0 + t + 4) * SW + col], b1);
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const uint32_t b[2] = {b0[e], b1[e]};
-        mma(ys[q], a, b);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {  // z: columns k0 .. k0 + 7, k0 = c0 - 8 + 8j
-    const int k0 = c0 - 8 + 8 * j;
-    if (k0 < 0 || k0 >= kQCols) continue;
-    const float2 u = *reinterpret_cast<const float2*>(&p[(r0 + g) * SW + k0 + 2 * t]);
-    const float2 w = *reinterpret_cast<const float2*>(&p[(r0 + g + 8) * SW + k0 + 2 * t]);
-    uint32_t u0[3], u1[3], w0[3], w1[3];
-    split3(u.x, u0);
-    split3(u.y, u1);
-    split3(w.x, w0);
-    split3(w.y, w1);
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int dl = 8 * (j - 1 - q);  // k0 - (c0 + 8q)
-      if (dl < -8 || dl > 8) continue;
-      // B[k][n] = 1 where |(k0 + column of k) - (c0 + 8q + n)| = 1: n = g;
-      // k = t at column 2t, k = t + 4 at column 2t + 1
-      const uint32_t b[2] = {band32(2 * t - g + dl), band32(2 * t + 1 - g + dl)};
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const uint32_t a[4] = {u0[e], w0[e], u1[e], w1[e]};
-        mma(zs[q], a, b);
-      }
-    }
-  }
-#else
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {  // y: rows k0 .. k0 + 15, k0 = 16j; row k of the
-    // chunk at k0 + t, + 4, + 8, + 12 for k = 2t, 2t + 1, 2t + 8, 2t + 9
-    const int k0 = 16 * j, dl = k0 - r0;
-    const uint32_t a[4] = {band16(g - t - dl, g - t - 4 - dl), band16(g + 8 - t - dl, g + 4 - t - dl),
-                           band16(g - t - 8 - dl, g - t - 12 - dl), band16(g - t - dl, g - t - 4 - dl)};
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = c0 + 8 * q + g;
-      const uint32_t b[2] = {pack_bf16(p[(k0 + t) * SW + col], p[(k0 + t + 4) * SW + col]),
-                             pack_bf16(p[(k0 + t + 8) * SW + col], p[(k0 + t + 12) * SW + col])};
-      mma(ys[q], a, b);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {  // z: columns k0 .. k0 + 15, k0 = c0 - 16 + 16j
-    const int k0 = c0 - 16 + 16 * j;
-    if (k0 < 0 || k0 >= kQCols) continue;
-    const float2 u = *reinterpret_cast<const float2*>(&p[(r0 + g) * SW + k0 + 2 * t]);
-    const float2 w = *reinterpret_cast<const float2*>(&p[(r0 + g + 8) * SW + k0 + 2 * t]);
-    const float2 u8 = *reinterpret_cast<const float2*>(&p[(r0 + g) * SW + k0 + 2 * t + 8]);
-    const float2 w8 = *reinterpret_cast<const float2*>(&p[(r0 + g + 8) * SW + k0 + 2 * t + 8]);
-    const uint32_t a[4] = {pack_bf16(u.x, u.y), pack_bf16(w.x, w.y), pack_bf16(u8.x, u8.y), pack_bf16(w8.x, w8.y)};
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int dl = 16 * (j - 1) - 8 * q;  // k0 - (c0 + 8q)
-      if (dl < -16 || dl > 8) continue;
-      const uint32_t b[2] = {band16(2 * t - g + dl, 2 * t + 1 - g + dl), band16(2 * t + 8 - g + dl, 2 * t + 9 - g + dl)};
-      mma(zs[q], a, b);
-    }
-  }
-#endif
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) nb[r][q] = ys[q][r] + zs[q][r];
+  band_mma::piece_sums<kUnit, kQRows, kQCols, kMxuPitch, false>(p, r0, c0, g, t, nb);
 }
 #endif
 
@@ -575,8 +461,8 @@ __global__ void __launch_bounds__(kQThreads, D <= 4 ? kQMinBlocks : 1)
   constexpr int RI = H / kQWarps;       // consecutive rows a thread owns
   constexpr int CI = TW / kThreadsZ;    // columns a thread owns, 32 apart
   constexpr bool kClamp = kForm != kMean6Form;  // the mean-of-6 form reads no d2 and no origins
-  static_assert(!kMxu || (kForm != kPlaneForm && kForm != kSlabForm && kForm != kMean6Form),
-                "the tensor-core builds have the wavefront and wrap forms only");
+  static_assert(!kMxu || (kForm != kPlaneForm && kForm != kSlabForm),
+                "the tensor-core builds have the wavefront, wrap and mean-of-6 forms only");
   // plane of level L (< D) at march parity `par`
   auto plane = [&](int L, int par) -> Work* { return smem + (L * 2 + par) * P; };
   const int s = a.s, o = a.o;
@@ -872,9 +758,7 @@ int march_form(const QArgs& a, int n, int form, bool from, bool to, cudaStream_t
 #endif
   if (form == kRingForm) return march_io<D, kRingForm>(a, n, from, to, st, pl);
   if (form == kShellSlabs) return march_io<D, kShellSlabs>(a, n, from, to, st, pl);
-#if !STP_JW_UNIT
   if (form == kMean6Form) return march_io<D, kMean6Form>(a, n, from, to, st, pl);
-#endif
   return march_io<D, kShell>(a, n, from, to, st, pl);
 }
 
@@ -999,7 +883,6 @@ int levels_plan(QArgs a, int n, int m, int form, int* info) {
   return 0;
 }
 
-#if !STP_JW_UNIT
 // The mean-of-6 form's arguments: the shell form's layout (W = Zr, o = s),
 // no d2, origins or slabs
 QArgs mean6_args(const float* raw, float* out, int Xr, int Yr, int Zr, int s) {
@@ -1012,7 +895,6 @@ QArgs mean6_args(const float* raw, float* out, int Xr, int Yr, int Zr, int s) {
   a.s = a.o = s;
   return a;
 }
-#endif
 
 }  // namespace
 
@@ -1055,7 +937,6 @@ int stp_jacobi_wavefront_plan(int n, int Xr, int Yr, int Zraw, int W, int m, int
   return levels_plan(a, n, m, info[0], info + 1);
 }
 
-#if !STP_JW_UNIT
 // m <= s mean-of-6 levels over n s-shelled blocks (n, Xr, Yr, Zr), `raw` to
 // `out` (apart): only the interior [s, ext - s) of `out` is written; under
 // bf16 storage the levels run at f32 and the last rounds once.  scratch: an
@@ -1077,7 +958,6 @@ int stp_mean6_march_plan(int n, int Xr, int Yr, int Zr, int m, int s, int* info)
   if (bad_jacobi_args(n, Xr, Yr, Zr, Zr, m, s, 1, false, false)) return -1;
   return levels_plan(mean6_args(nullptr, nullptr, Xr, Yr, Zr, s), n, m, kMean6Form, info);
 }
-#endif
 
 // k periodic Jacobi levels over the whole (X, Y, Z) domain, `in` to `out`
 // (in untouched): ceil(k/4) marches, ping-ponging through `scratch`, an (X,

@@ -47,9 +47,27 @@
 // f32_accumulate (bf16 storage, float levels); the shell passes through as
 // its stored bits.
 //
+// The contraction form (compute_unit "mxu" / "mxu_band": the generated
+// part defines STP_NBR_MASK, the fields whose centre plane the level
+// contracts, and STP_MXU, 1 for f32 operands as three TF32 pieces, 2 for
+// bf16 operands; its stp_body reads a field's in-plane neighbour sum
+// (y-1 + y+1) + (z-1 + z+1) through nb(q), the PlaneView.plane_nbr_sum
+// seam of stencil_tpu/ops/stream.py:189-200): plane_level_mxu, array form
+// only (the fused halo under a unit is ROADMAP.md queue 1 item 9.3).  A
+// block of 8 warps owns a 30 x 62 tile of (y, z) and walks the planes of
+// all blocks; per interior plane it stages each such field's 32 x 64 tile
+// with a one-cell apron (0 past the plane's edge: the JAX pass contracts
+// the whole raw plane, and an interior cell's neighbours lie inside it) in
+// shared memory at the compute type, contracts it on the tensor cores, one
+// 16 x 16 piece a warp (csrc/band_mma.cuh), into a shared plane of sums per
+// field, and then runs the per-cell body, its plane reads from global
+// memory as above.  Shell planes and cells pass through.
+//
 // Bitwise contract: stp_body uses __fadd_rn/__fmul_rn/... (no contraction);
 // the global coordinates are (origin + index - lo) mod global size, as
-// _yz_coord_planes computes them in the JAX package.
+// _yz_coord_planes computes them in the JAX package.  The contraction form
+// holds within tests/ulp.py's 4 ulps of its plain version (the tensor core's
+// accumulation of the in-plane sums).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +75,13 @@
 #include <type_traits>
 
 // @STP_GENERATED@
+
+#ifdef STP_NBR_MASK
+#ifdef STP_FUSED
+#error "the fused form has no contraction form (ROADMAP.md queue 1 item 9.3)"
+#endif
+#include "band_mma.cuh"
+#endif
 
 namespace {
 
@@ -134,12 +159,87 @@ __global__ void plane_level(F f, const int* __restrict__ origins, Geometry g) {
   }
 }
 
+#ifdef STP_NBR_MASK
+
+constexpr int kSR = 32, kSC = 64;            // the staged tile, its one-cell apron included
+constexpr int kOR = kSR - 2, kOC = kSC - 2;  // the cells a block computes
+constexpr int kTile = kSR * kSC;
+// a staging plane and one plane of sums a field
+constexpr size_t kMxuSmem = (size_t)(1 + STP_NF) * kTile * sizeof(float);
+
+// grid: (ceil(Z/62), ceil(Y/30), min(n*X, 65535)), blocks of 32 x 8
+// threads; p = block*X + x strides by gridDim.z
+__global__ void __launch_bounds__(256) plane_level_mxu(Fields f, const int* __restrict__ origins, Geometry g) {
+  extern __shared__ __align__(16) float smem_mxu[];
+  float* const stage = smem_mxu;
+  float* const sums = smem_mxu + kTile;  // field q's plane at q * kTile
+  const int y0 = blockIdx.y * kOR - 1, z0 = blockIdx.x * kOC - 1;  // tile cell (0, 0)
+  const int64_t plane = (int64_t)g.Y * g.Z;
+  const int64_t total = (int64_t)g.n * g.X;
+  for (int64_t p = blockIdx.z; p < total; p += gridDim.z) {
+    const int64_t b = p / g.X;
+    const int x = (int)(p - b * g.X);
+    const bool in_x = x >= g.lox && x < g.X - g.hix;
+    const int64_t po = p * plane;
+    if (in_x) {
+#pragma unroll
+      for (int q = 0; q < STP_NF; ++q) {
+        if (!(STP_NBR_MASK >> q & 1)) continue;
+        for (int r = threadIdx.y; r < kSR; r += kTileY)
+          for (int c = threadIdx.x; c < kSC; c += kTileZ) {
+            const int y = y0 + r, z = z0 + c;
+            stage[r * kSC + c] =
+                y >= 0 && y < g.Y && z >= 0 && z < g.Z ? STP_LD(f.in[q], q, po + (int64_t)y * g.Z + z) : 0.0f;
+          }
+        __syncthreads();
+        band_mma::piece_to_plane<STP_MXU, kSR, kSC, kSC, kSC>(stage, sums + q * kTile, threadIdx.y, threadIdx.x);
+        __syncthreads();
+      }
+    }
+    for (int r = 1 + threadIdx.y; r <= kOR && y0 + r < g.Y; r += kTileY) {
+      const int y = y0 + r;
+      for (int c = 1 + threadIdx.x; c <= kOC && z0 + c < g.Z; c += kTileZ) {
+        const int z = z0 + c;
+        const int64_t idx = po + (int64_t)y * g.Z + z;
+        if (!in_x || y < g.loy || y >= g.Y - g.hiy || z < g.loz || z >= g.Z - g.hiz) {
+#pragma unroll
+          for (int q = 0; q < STP_NF; ++q) STP_PUT(f.out[q], q, idx, STP_GET(f.in[q], q, idx));  // shell passes through
+          continue;
+        }
+        const int xg = pmod(origins[3 * b] + x - g.lox, g.gx);
+        const int yg = pmod(origins[3 * b + 1] + y - g.loy, g.gy);
+        const int zg = pmod(origins[3 * b + 2] + z - g.loz, g.gz);
+        auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
+          return STP_LD(f.in[q], q, idx + dx * plane + (int64_t)dy * g.Z + dz);
+        };
+        auto nb = [&](int q) -> STP_C { return sums[q * kTile + r * kSC + c]; };
+        STP_C out[STP_NF];
+        stp_body(ld, nb, 1, xg, yg, zg, out);
+#pragma unroll
+        for (int q = 0; q < STP_NF; ++q) STP_ST(f.out[q], q, idx, out[q]);
+      }
+    }
+    __syncthreads();  // this plane's reads of the sums before the next plane's contraction
+  }
+}
+
+#endif  // STP_NBR_MASK
+
 template <class F>
 int launch(const F& f, const int* origins, const Geometry& g, void* stream) {
   const int64_t planes = (int64_t)g.n * g.X;
+#ifdef STP_NBR_MASK
+  static_assert(std::is_same<F, Fields>::value, "the contraction form is the array form's");
+  const cudaError_t err =
+      cudaFuncSetAttribute(plane_level_mxu, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMxuSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((g.Z + kOC - 1) / kOC, (g.Y + kOR - 1) / kOR, (unsigned)(planes < kMaxGridZ ? planes : kMaxGridZ));
+  plane_level_mxu<<<grid, dim3(kTileZ, kTileY), kMxuSmem, (cudaStream_t)stream>>>(f, origins, g);
+#else
   dim3 grid((g.Z + kTileZ - 1) / kTileZ, (g.Y + kTileY - 1) / kTileY,
             (unsigned)(planes < kMaxGridZ ? planes : kMaxGridZ));
   plane_level<F><<<grid, dim3(kTileZ, kTileY), 0, (cudaStream_t)stream>>>(f, origins, g);
+#endif
   return (int)cudaGetLastError();
 }
 

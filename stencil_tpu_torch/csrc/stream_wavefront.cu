@@ -108,10 +108,33 @@
 // sizes below, so a double queue of m = 3 and one field asks 98,304 B, and
 // the double register-queue form is cut for one block an SM, not two.
 //
+// The contraction form (compute_unit "mxu" / "mxu_band": the generated
+// part defines STP_NBR_MASK, the fields whose centre plane a level
+// contracts, and STP_MXU, 1 for f32 operands as three TF32 pieces, 2 for
+// bf16 operands; its stp_body reads a field's in-plane neighbour sum
+// (y-1 + y+1) + (z-1 + z+1) through nb(q), the PlaneView.plane_nbr_sum
+// seam of stencil_tpu/ops/stream.py:189-200), in both forms and both
+// layouts (plain and z-slab; the fused halo under a unit is ROADMAP.md
+// queue 1 item 9.3).  The level planes of a tile already sit in shared
+// memory: the block's warps contract them on the tensor cores, one 16 x 16
+// piece at a time (csrc/band_mma.cuh; a plane of 32 + 2m rows takes a last
+// row of pieces that overlaps the one before), into shared planes of sums
+// at the tile's layout, which the per-cell body reads, its cell mapping
+// unchanged.  The queue form contracts, once a march step, the centre
+// planes of every level (plane p of level l-1 for l = 1..m, all written the
+// step before) into m planes of sums a field, one barrier more a plane; the
+// general form contracts each level's centre plane into one plane of sums a
+// field before the level, one barrier more a level.  The JAX pass contracts
+// the whole wavefront plane, periodic; a valid cell's neighbours lie in the
+// tile, so the sums it reads are the same.  Shared memory a block, cells of
+// 4 bytes: the queue form adds STP_NF x m planes, the general form STP_NF
+// planes (stream_smem_bytes prices the general form's).
+//
 // Bitwise contract: stp_body uses __fadd_rn/__fmul_rn/... (no contraction);
 // the global coordinates are (origin + index - s) mod global size, as
 // _yz_coord_planes computes them in the JAX package.  Both forms evaluate the
-// same body on the same values.  Offsets are 64-bit.
+// same body on the same values.  Offsets are 64-bit.  The contraction form
+// holds within tests/ulp.py's 4 ulps a level of its plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,6 +142,18 @@
 #include <type_traits>
 
 // @STP_GENERATED@
+
+#ifdef STP_NBR_MASK
+#ifdef STP_FUSED
+#error "the fused form has no contraction form (ROADMAP.md queue 1 item 9.3)"
+#endif
+#include "band_mma.cuh"
+constexpr int kNbrPlanes = 1;  // planes of sums a field and level
+#define STP_NB_ARG nb,  // stp_body's reads of the sums, nb(q)
+#else
+constexpr int kNbrPlanes = 0;
+#define STP_NB_ARG
+#endif
 
 namespace {
 
@@ -239,10 +274,11 @@ constexpr int kQueueForm = 1;
 // in-plane offset from any tile cell stays inside the allocation
 constexpr int kPad = kTileW + 4;
 
-// per field: two planes of each level 0..m-1
+// per field: two planes of each level 0..m-1 (and, in the contraction form,
+// a plane of sums of each)
 template <int M>
 constexpr size_t smem_bytes() {
-  return ((size_t)STP_NF * 2 * M * kQueueRows(M) * kTileW + 2 * kPad) * sizeof(STP_C);
+  return ((size_t)STP_NF * (2 + kNbrPlanes) * M * kQueueRows(M) * kTileW + 2 * kPad) * sizeof(STP_C);
 }
 
 template <int M>
@@ -265,6 +301,10 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
   constexpr int CI = TW / kThreadsZ;   // columns a thread owns, 32 apart
   // plane of level L (< m) of field q at march parity `par`
   auto plane = [&](int q, int L, int par) -> STP_C* { return smem + ((q * m + L) * 2 + par) * P; };
+#ifdef STP_NBR_MASK
+  // the sums of field q's level-L centre plane, after the level planes and the padding
+  float* const sums = smem + STP_NF * 2 * m * P + kPad;
+#endif
   const int s = a.s;
   const int b = blockIdx.z / a.nchunks;
   const int chunk = blockIdx.z - b * a.nchunks;
@@ -334,6 +374,18 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
           plane(q, 0, wp)[(ty0 + r) * TW + tz0 + c * kThreadsZ] = STP_UP(q, pre[q][r][c]);
         }
     if (i + 1 < i_end) fetch(i + 1);
+#ifdef STP_NBR_MASK
+    {  // level l's centre, level l-1 at plane i-l, is at the other parity
+      constexpr int kPc = band_mma::kPieces<H, TW>;
+      for (int job = threadIdx.y; job < STP_NF * m * kPc; job += kQueueWarps) {
+        const int q = job / (m * kPc), L = job / kPc % m;
+        if (STP_NBR_MASK >> q & 1)
+          band_mma::piece_to_plane<STP_MXU, H, TW, TW, TW>(plane(q, L, rp), sums + (q * m + L) * P, job % kPc,
+                                                          threadIdx.x);
+      }
+      __syncthreads();
+    }
+#endif
 #pragma unroll
     for (int l = 1; l <= m; ++l) {
       const int p = i - l;  // raw plane of this level's result
@@ -355,7 +407,10 @@ __global__ void __launch_bounds__(kThreads, M <= 4 ? kQueueMinBlocks : 1) wavefr
             return plane(q, l - 1, rp)[k + dy * TW + dz];
           };
           STP_C v[STP_NF];
-          stp_body(ld, l, xg, pmod(oy + y0 + ty - s, a.gy), pmod(oz + c0 + tz - s, a.gz), v);
+#ifdef STP_NBR_MASK
+          auto nb = [&](int q) -> STP_C { return sums[(q * m + l - 1) * P + k]; };
+#endif
+          stp_body(ld, STP_NB_ARG l, xg, pmod(oy + y0 + ty - s, a.gy), pmod(oz + c0 + tz - s, a.gz), v);
           if (l == m && p >= p_lo && (own >> (r * CI + c) & 1u))
             store_out<kSlabs>(a, bo, zbo, p, y0 + ty, c0 + tz, v);
 #pragma unroll
@@ -391,7 +446,7 @@ constexpr int kQueueForm = 0;
 
 template <int M>
 constexpr size_t smem_bytes() {
-  return (size_t)STP_NF * (2 * M + 2) * (kTileY + 2 * M) * kTileW * sizeof(STP_C);
+  return (size_t)STP_NF * (2 * M + 2 + kNbrPlanes) * (kTileY + 2 * M) * kTileW * sizeof(STP_C);
 }
 
 template <int M>
@@ -425,6 +480,9 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
   const int64_t zbo = (int64_t)b * a.Xr * zplane;
   const int ox = a.origins[3 * b], oy = a.origins[3 * b + 1], oz = a.origins[3 * b + 2];
   const int tz0 = threadIdx.x, ty0 = threadIdx.y;
+#ifdef STP_NBR_MASK
+  float* const sums = smem + STP_NF * NS * P;  // the sums of field q's centre plane
+#endif
 
   // level-0 plane i of this thread's tile cells, into registers as loaded:
   // issued one plane ahead, so the loads fly while the levels of the plane
@@ -481,6 +539,18 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
       const int xg = pmod(ox + p - s, a.gx);
       const bool last = l == m;
       const int s_old = older[l - 1], s_new = newer[l - 1];
+#ifdef STP_NBR_MASK
+      {  // the centre, level l-1 at plane i-l, into the planes of sums
+        constexpr int kPc = band_mma::kPieces<H, TW>;
+        for (int job = threadIdx.y; job < STP_NF * kPc; job += kThreadsY) {
+          const int q = job / kPc;
+          if (STP_NBR_MASK >> q & 1)
+            band_mma::piece_to_plane<STP_MXU, H, TW, TW, TW>(smem + (q * NS + s_new) * P, sums + q * P, job % kPc,
+                                                            threadIdx.x);
+        }
+        __syncthreads();
+      }
+#endif
 #pragma unroll
       for (int r = 0; r < kRowIters; ++r) {
 #pragma unroll
@@ -494,7 +564,10 @@ __global__ void __launch_bounds__(kThreads) wavefront(A a) {
             return smem[(q * NS + slot) * P + k + dy * TW + dz];
           };
           STP_C v[STP_NF];
-          stp_body(ld, l, xg, pmod(oy + y - s, a.gy), pmod(oz + col - s, a.gz), v);
+#ifdef STP_NBR_MASK
+          auto nb = [&](int q) -> STP_C { return sums[q * P + k]; };
+#endif
+          stp_body(ld, STP_NB_ARG l, xg, pmod(oy + y - s, a.gy), pmod(oz + col - s, a.gz), v);
           if (!last) {
 #pragma unroll
             for (int q = 0; q < STP_NF; ++q) smem[(q * NS + spare) * P + k] = v[q];

@@ -16,8 +16,10 @@ library of its own beside the plain one.  Every build runs
 No ``--use_fast_math``, and ``--fmad=false`` so no add/multiply contracts: the
 kernels are held bitwise against their plain versions.  ``build()`` and
 ``build_generated()`` start one nvcc per source at once and wait for all of
-them.  A library is named by a hash of its source text and flags, so an
-edited source or a new kernel body rebuilds.  If nvcc is missing or a build
+them.  A source may include the headers of ``csrc/`` (``#include
+"<name>.cuh"``; nvcc runs with ``-I csrc``).  A library is named by a hash of
+its source text, the text of the headers it includes and its flags, so an
+edited source or header or a new kernel body rebuilds.  If nvcc is missing or a build
 fails this raises ``KernelBuildError`` with the compiler's output; there is no
 fallback to the plain versions.
 """
@@ -25,8 +27,10 @@ fallback to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,22 +49,23 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-#: the entries of every build of ``csrc/jacobi_wavefront.cu``, and of its
-#: vpu builds (the plane, slab and mean-of-6 forms)
+#: the entries of every build of ``csrc/jacobi_wavefront.cu`` (the
+#: wavefront, wrap and mean-of-6 forms), and of its vpu builds (the plane and
+#: slab forms)
 _JACOBI_MARCHES = {
     "stp_jacobi_wavefront": [_P] * 7 + [_I] * 13 + [_P],
     "stp_jacobi_wavefront_plan": [_I] * 9 + [ctypes.POINTER(ctypes.c_int)],
     "stp_jacobi_wrap": [_P] * 3 + [_I] * 7 + [_P],
     "stp_jacobi_wrap_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    # the mean-of-6 form (ops/plane_stencil.py)
+    "stp_mean6_march": [_P] * 3 + [_I] * 6 + [_P],
+    "stp_mean6_march_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
 }
 _JACOBI_VPU = {
     "stp_jacobi_plane": [_P] * 4 + [_I] * 8 + [_P],
     "stp_jacobi_plane_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
     "stp_jacobi_slab": [_P] * 10 + [_I] * 8 + [_P],
     "stp_jacobi_slab_plan": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)],
-    # the mean-of-6 form (ops/plane_stencil.py)
-    "stp_mean6_march": [_P] * 3 + [_I] * 6 + [_P],
-    "stp_mean6_march_plan": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 #: builds of a source with defines, each a library of its own: name ->
@@ -92,8 +97,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # and the dynamic write's offsets (n int32 on the device) before the stream
         "stp_blend_slab_dynamic_desc": [_P] * 5,
     },
-    # one entry a field dtype: float32, bf16 storage, float64
-    "plane_stencil": {f"stp_mean6_plane_level{sfx}": [_P, _P] + [_I] * 9 + [_P] for sfx in ("", "_bf16", "_f64")},
+    # one entry a field dtype: float32, bf16 storage, float64; and the
+    # contraction form's for float32 and bf16 storage (mxu_input 1 / 2 before
+    # the stream)
+    "plane_stencil": {
+        **{f"stp_mean6_plane_level{sfx}": [_P, _P] + [_I] * 9 + [_P] for sfx in ("", "_bf16", "_f64")},
+        **{f"stp_mean6_plane_level_mxu{sfx}": [_P, _P] + [_I] * 10 + [_P] for sfx in ("", "_bf16")},
+    },
 }
 SOURCES = tuple(SIGNATURES)
 
@@ -163,8 +173,20 @@ def variant_flags(name: str) -> Tuple[str, ...]:
     return VARIANTS.get(name, (name, ()))[1]
 
 
+@functools.lru_cache(maxsize=None)
+def _header(name: str) -> bytes:
+    with open(os.path.join(CSRC_DIR, name), "rb") as f:
+        return f.read()
+
+
+def _headers(text: bytes) -> bytes:
+    """The text of the ``csrc/`` headers a source includes (``#include
+    "<name>.cuh"``), in the order it includes them."""
+    return b"".join(_header(name.decode()) for name in re.findall(rb'^#include "(\w+\.cuh)"', text, flags=re.M))
+
+
 def _digest(text: bytes, extra: Sequence[str] = ()) -> str:
-    return hashlib.sha256(text + " ".join((*NVCC_FLAGS, *extra)).encode()).hexdigest()[:16]
+    return hashlib.sha256(text + _headers(text) + " ".join((*NVCC_FLAGS, *extra)).encode()).hexdigest()[:16]
 
 
 def library_path(name: str) -> str:
@@ -185,7 +207,7 @@ def _compile(jobs: Sequence[Tuple]) -> None:
             BUILD_LOG.setdefault(label, {"seconds": 0.0, "cached": True, "output": ""})
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *(extra[0] if extra else ()), "-o", tmp, src]
+        cmd = [nvcc, *NVCC_FLAGS, *(extra[0] if extra else ()), "-I", CSRC_DIR, "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[label] = (proc, time.perf_counter(), tmp, so, src)
     errors = []
@@ -229,8 +251,15 @@ def generated_source(template: str, generated: str) -> str:
     return text.replace(GENERATED_HOOK, generated)
 
 
+@functools.lru_cache(maxsize=None)
+def _generated_tag(template: str, text: str) -> str:
+    """``<template>-<digest>`` of one full template source, worked out once
+    a process: a step looks its libraries up at every launch."""
+    return f"{template}-{_digest(text.encode())}"
+
+
 def _generated_paths(template: str, text: str) -> Tuple[str, str, str]:
-    tag = f"{template}-{_digest(text.encode())}"
+    tag = _generated_tag(template, text)
     return tag, os.path.join(BUILD_DIR, f"{tag}.cu"), os.path.join(BUILD_DIR, f"lib{tag}.so")
 
 

@@ -9,7 +9,8 @@ ported kernel that count their launches apart (the fused forms of the stream
 plane and wavefront kernels; the stream kernels' bf16-storage and float64
 builds, ``ops/stream.py`` ``_count``; the Jacobi kernels' bf16-storage,
 float64 and tensor-core forms, ``ops/jacobi_kernels.py`` ``form_counter``;
-the mean-of-6 kernels' bf16-storage and float64 forms), by the wrapper's
+the mean-of-6 kernels' bf16-storage and float64 forms; the tensor-core
+contraction forms of the stream and mean-of-6 kernels), by the wrapper's
 counter that counts them.
 """
 
@@ -147,6 +148,12 @@ FORMS: Dict[str, Tuple[Tuple[str, str], str]] = {
     # the mean-of-6 kernels' bf16 storage and float64 fields
     **{f"{fn}_{dt}": ((_PS, fn), f"{dt}_launches")
        for fn in ("mean6_shell_wavefront_step", "mean6_plane_step") for dt in ("bf16", "f64")},
+    # the tensor-core contraction on f32 / bf16 operands (either storage) of
+    # the stream kernels and the mean-of-6 kernels
+    **{f"stream_{fn}_pass_{form}": ((_ST, f"stream_{fn}_pass"), f"{form}_launches")
+       for fn in ("wrap", "plane", "wavefront") for form in ("mxu", "mxu_bf16in")},
+    **{f"{fn}_{form}": ((_PS, fn), f"{form}_launches")
+       for fn in ("mean6_shell_wavefront_step", "mean6_plane_step") for form in ("mxu", "mxu_bf16in")},
 }
 
 

@@ -50,10 +50,21 @@ a bf16 request to native with a ``RuntimeWarning``, and so do non-f32 fields.
 The initial field is rounded from float64 to float32 and then to bfloat16,
 where the JAX package rounds once: the tests hand its fields across.
 
-Not ported: the MXU form (``_kernel_mxu``, ``compute_unit="mxu"``; ROADMAP.md
-queue 1 item 9), the numerics guardband and divergence sentinel (items
-10/11), ``rebuild_after_reshard`` and the tune cache (items 11/13).  Each
-raises ``NotImplementedError`` naming its item where the JAX package takes an
+The compute-unit axis: ``compute_unit="mxu"`` / ``"mxu_band"`` (and
+``mxu_input="bf16"``) hands the stream engine ``_kernel_mxu``, the same mean
+with its four in-plane taps written through ``PlaneView.plane_nbr_sum``,
+which the CUDA kernels contract on the tensor cores (within 4 ulps a level
+of the ``vpu`` route; the plain versions equal the JAX package's passes).
+The axes resolve as ``make_stream_step`` resolves them (explicit, else
+``vpu`` / ``f32``, recorded in ``_compute_unit`` / ``_mxu_input``); the
+torch engine has no contraction kernels and degrades both with a
+``RuntimeWarning``, as does a float64 field.  The split schedule and the
+fused halo under a contracting unit raise ``NotImplementedError``
+(ROADMAP.md queue 1 item 9.3).
+
+Not ported: the numerics guardband and divergence sentinel (items 10/11),
+``rebuild_after_reshard`` and the tune cache (items 11/13).  Each raises
+``NotImplementedError`` naming its item where the JAX package takes an
 argument for it.
 """
 
@@ -67,7 +78,7 @@ import torch
 
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
-from stencil_tpu_torch.ops.jacobi_kernels import resolve_storage_dtype
+from stencil_tpu_torch.ops.jacobi_kernels import resolve_compute_unit, resolve_mxu_input, resolve_storage_dtype
 from stencil_tpu_torch.utils.config import PlacementStrategy
 
 
@@ -103,11 +114,6 @@ class AstarothSim:
             raise NotImplementedError(
                 "the divergence sentinel is not ported yet (ROADMAP.md queue 1 items 10/11)"
             )
-        if compute_unit not in ("auto", "vpu") or mxu_input not in ("auto", "f32"):
-            raise NotImplementedError(
-                f"compute_unit={compute_unit!r}, mxu_input={mxu_input!r}: only vpu/f32 is ported "
-                "(ROADMAP.md queue 1 item 9)"
-            )
         self.dd = DistributedDomain(x, y, z, device=device)
         self.dd.set_capture(capture)
         self.dd.set_radius(Radius.constant(3))  # astaroth_sim.cu:184
@@ -124,6 +130,9 @@ class AstarothSim:
         self.stream_halo = stream_halo
         self.storage_dtype_request = storage_dtype
         self._storage_dtype = "native"
+        self.compute_unit = compute_unit
+        self.mxu_input = mxu_input
+        self._compute_unit, self._mxu_input = "vpu", "f32"
         self._step = None
 
     def realize(self) -> None:
@@ -159,7 +168,7 @@ class AstarothSim:
     def _build_step(self):
         if self.kernel_impl == "cuda":
             path = {"auto": "auto", "wavefront": "wavefront", "per-step": "plane"}[self.schedule]
-            return self.dd.make_step(
+            step = self.dd.make_step(
                 self._kernel,
                 engine="stream",
                 x_radius=1,
@@ -169,7 +178,22 @@ class AstarothSim:
                 separable=True,
                 stream_overlap=self.stream_overlap,
                 stream_halo=self.stream_halo,
+                compute_unit=self.compute_unit,
+                mxu_input=self.mxu_input,
+                # the declared axis-separable contraction form: what lets
+                # compute_unit=mxu engage on this kernel
+                mxu_kernel=self._kernel_mxu,
             )
+            self._compute_unit = step._stream_plan["compute_unit"]
+            self._mxu_input = step._stream_plan["mxu_input"]
+            return step
+        # the torch engine has no contraction kernels: an explicit request
+        # degrades with a warning (the JAX package's XLA engine's resolver)
+        where = "astaroth:torch"
+        self._compute_unit, _ = resolve_compute_unit(
+            self.compute_unit, [h.dtype for h in self.handles], where=where, engine_ok=False,
+            engine_why="the torch engine has no contraction kernels")
+        self._mxu_input, _ = resolve_mxu_input(self.mxu_input, self._compute_unit, where=where)
         return self.dd.make_step(self._kernel, overlap=self.overlap)
 
     @property
@@ -194,6 +218,17 @@ class AstarothSim:
                 + src.sh(0, 1, 0)
                 + src.sh(0, 0, 1)
             ) / 6.0
+        return out
+
+    @staticmethod
+    def _kernel_mxu(views, info):
+        # the SAME mean-of-6 with its four in-plane taps written through the
+        # contraction seam (PlaneView.plane_nbr_sum): contracted on the
+        # tensor cores under compute_unit=mxu / mxu_band, the load chain
+        # y+1, y-1, z+1, z-1 under vpu; the x taps stay plane reads
+        out = {}
+        for name, src in views.items():
+            out[name] = (src.sh(-1, 0, 0) + src.sh(1, 0, 0) + src.plane_nbr_sum()) / 6.0
         return out
 
     def step(self, steps: int = 1) -> None:

@@ -301,16 +301,20 @@ def _nbr_sum(c: torch.Tensor, mxu_input: str, r: int = 1) -> torch.Tensor:
 
 
 def plane_nbr_sum_host(c: torch.Tensor, compute_unit: str, r: int = 1, mxu_input: str = "f32") -> torch.Tensor:
-    """The in-plane ``(2r+1)``-band neighbour sum of a ``(Y, Z)`` plane
-    under one compute unit (jacobi_pallas.py:475): ``vpu`` the roll chain,
-    ``mxu`` the dense circulants ``B_Y @ c + c @ B_Z``, ``mxu_band`` the
-    blocked form, each output granule block against the wide tile over its
-    three neighbour blocks."""
-    Y, Z = c.shape
+    """The in-plane ``(2r+1)``-band neighbour sum of every ``(Y, Z)`` plane
+    of ``c`` (its last two axes), periodic, under one compute unit
+    (jacobi_pallas.py:475): ``vpu`` the roll chain, ``mxu`` the dense
+    circulants ``B_Y @ c + c @ B_Z``, ``mxu_band`` the blocked form, each
+    output granule block against the wide tile over its three neighbour
+    blocks (a plane without a band tile takes the dense form, with
+    ``plane_band_unit``'s warning).  The stream and mean-of-6 kernels'
+    plain versions take their ``plane_nbr_sum`` from it."""
+    *lead, Y, Z = c.shape
     if compute_unit == "vpu":
         out = torch.zeros_like(c)
         for off in range(1, r + 1):
-            out = out + torch.roll(c, off, 0) + torch.roll(c, -off, 0) + torch.roll(c, off, 1) + torch.roll(c, -off, 1)
+            out = (out + torch.roll(c, off, -2) + torch.roll(c, -off, -2) + torch.roll(c, off, -1)
+                   + torch.roll(c, -off, -1))
         return out
     unit = plane_band_unit(compute_unit, Y, Z, r, where="host")
     if unit == "mxu":
@@ -319,12 +323,12 @@ def plane_nbr_sum_host(c: torch.Tensor, compute_unit: str, r: int = 1, mxu_input
     gy, gz = band_tile_plan(Y, Z, r)
     wy = band_wide_tile(gy, r, c.dtype).to(c.device)
     wz = band_wide_tile(gz, r, c.dtype).to(c.device).T
-    c3 = cc.reshape(Y // gy, gy, Z)
-    ext = torch.cat([torch.roll(c3, 1, 0), c3, torch.roll(c3, -1, 0)], dim=1)  # (nby, 3gy, Z)
-    ysum = _matmul(wy, ext).reshape(Y, Z)
-    c3z = cc.reshape(Y, Z // gz, gz)
-    extz = torch.cat([torch.roll(c3z, 1, 1), c3z, torch.roll(c3z, -1, 1)], dim=2)  # (Y, nbz, 3gz)
-    zsum = _matmul(extz, wz).reshape(Y, Z)
+    c3 = cc.reshape(*lead, Y // gy, gy, Z)
+    ext = torch.cat([torch.roll(c3, 1, -3), c3, torch.roll(c3, -1, -3)], dim=-2)  # (..., nby, 3gy, Z)
+    ysum = _matmul(wy, ext).reshape(*lead, Y, Z)
+    c3z = cc.reshape(*lead, Y, Z // gz, gz)
+    extz = torch.cat([torch.roll(c3z, 1, -2), c3z, torch.roll(c3z, -1, -2)], dim=-1)  # (..., Y, nbz, 3gz)
+    zsum = _matmul(extz, wz).reshape(*lead, Y, Z)
     return ysum + zsum
 
 

@@ -37,9 +37,27 @@ float32 buffers for that.  Each dtype combination is a build of its own (the
 emitted body names its types), and its launches count apart
 (``bf16_launches``, ``f64_launches`` and their fused twins).
 
-Not ported here: the MXU units and bf16 inputs (ROADMAP.md queue 1 item 9), the env and tune
-sources of the overlap and halo axes, the tune cache, telemetry events and
-the resilience ladder (items 10/11).
+**The contraction form** (``compute_unit`` ``mxu`` / ``mxu_band``,
+``mxu_input`` ``f32`` / ``bf16``; ``stencil_tpu/ops/stream.py:145-277``):
+a kernel's axis-separable form (``make_stream_step(mxu_kernel=...)``)
+writes its four in-plane taps as ``PlaneView.plane_nbr_sum()``, which the
+trace keeps as one node (``ops/stream_trace.py``).  Each pass takes
+``compute_unit`` and ``mxu_input``: its plain version computes that node
+as ``jacobi_kernels.plane_nbr_sum_host`` does, the band contracted over the
+whole plane of the pass, periodic (the wrap plane, the raw block plane,
+the wavefront plane), the operand rounded to bfloat16 under
+``mxu_input="bf16"`` (``jacobi_kernels.plane_nbr_sum_host``); its CUDA kernel contracts the plane's tile on the
+tensor cores (``csrc/band_mma.cuh``; ``mma.sync`` on three exact TF32
+pieces, or on bf16 operands) within 4 ulps a level of that.  ``mxu_band``
+on a plane that admits no band tile degrades to ``mxu`` per pass, with a
+warning (``plane_band_unit``); on the card both run one contraction.  The
+launches count under ``mxu_launches`` / ``mxu_bf16in_launches``, either
+storage.  The fused halo and the split schedule under a contracting unit
+are ROADMAP.md queue 1 item 9.3: ``make_stream_step`` raises
+``NotImplementedError`` where the JAX package would run them.
+
+Not ported here: the env and tune sources of the axes, the tune cache,
+telemetry events and the resilience ladder (items 10/11).
 
 **The fused halo** (``halo="fused"``, ``stencil_tpu/ops/stream.py:71-94``):
 under a ``yzpack_*`` exchange route each step calls
@@ -94,7 +112,10 @@ from stencil_tpu_torch.ops.exchange import (
     side_stream,
 )
 from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
-from stencil_tpu_torch.ops.jacobi_kernels import _WRAP_MAX_K, SMEM_PER_BLOCK, _emit
+from stencil_tpu_torch.ops.jacobi_kernels import (
+    _WRAP_MAX_K, SMEM_PER_BLOCK, _emit, plane_band_unit, plane_nbr_sum_host, resolve_compute_unit, resolve_mxu_input,
+    unit_uses_mxu,
+)
 from stencil_tpu_torch.ops.stream_trace import STORAGE, PlaneInfo, PlaneView, StreamKernel, compute_kind
 
 __all__ = [
@@ -109,12 +130,6 @@ __all__ = [
 #: apron on each side (``csrc/stream_wavefront.cu``)
 STREAM_TILE_Y = 32
 STREAM_TILE_W = 64
-
-#: what the JAX package plans for its axes, and what the port accepts of them
-_PORTED_AXES = {
-    "compute_unit": ("vpu", ("mxu", "mxu_band"), "queue 1 item 9"),
-    "mxu_input": ("f32", ("bf16",), "queue 1 item 9"),
-}
 
 #: the overlap schedules and halo consumption modes (``STREAM_OVERLAP``,
 #: ``STREAM_HALO`` of the JAX package)
@@ -184,7 +199,7 @@ def permute_and_extend_z_slabs(zout: torch.Tensor, s: int, yext, xext) -> torch.
 # --- shared pieces of the three kernels ---------------------------------------------
 
 
-def stream_smem_bytes(m: int, n_fields: int, itemsize: int = 4) -> int:
+def stream_smem_bytes(m: int, n_fields: int, itemsize: int = 4, compute_unit: str = "vpu") -> int:
     """The plan's model of one block of the m-level stream wavefront kernel:
     per field, 2m + 2 planes (two per level below m, the incoming one and a
     spare for each level's result) of (32 + 2m) x 64 cells of ``itemsize``
@@ -192,13 +207,16 @@ def stream_smem_bytes(m: int, n_fields: int, itemsize: int = 4) -> int:
     for float32 and bf16 storage, whose rings are float32, 8 when a field is
     float64), what the kernel's general form asks; its register-queue form
     asks less (``csrc/stream_wavefront.cu``), and each launch computes its
-    own.  A constant of depth, field count and dtypes, so the CPU and the
-    card plan the same depth."""
-    return n_fields * (2 * m + 2) * (STREAM_TILE_Y + 2 * m) * STREAM_TILE_W * itemsize
+    own.  Under a contracting ``compute_unit`` the general form keeps one
+    plane of sums more a field (the queue form's m planes of sums still ask
+    less).  A constant of depth, field count, dtypes and unit, so the CPU
+    and the card plan the same depth."""
+    planes = 2 * m + 2 + (1 if unit_uses_mxu(compute_unit) else 0)
+    return n_fields * planes * (STREAM_TILE_Y + 2 * m) * STREAM_TILE_W * itemsize
 
 
-def stream_smem_fits(m: int, n_fields: int, itemsize: int = 4) -> bool:
-    return stream_smem_bytes(m, n_fields, itemsize) <= SMEM_PER_BLOCK
+def stream_smem_fits(m: int, n_fields: int, itemsize: int = 4, compute_unit: str = "vpu") -> bool:
+    return stream_smem_bytes(m, n_fields, itemsize, compute_unit) <= SMEM_PER_BLOCK
 
 
 def ring_itemsize(dtypes: Sequence[torch.dtype]) -> int:
@@ -210,10 +228,13 @@ def ring_itemsize(dtypes: Sequence[torch.dtype]) -> int:
     return 8 if torch.float64 in set(dtypes) else 4
 
 
-def _form(ts: Sequence[torch.Tensor]) -> str:
-    """The form a launch over these fields counts under: ``"bf16"`` (bf16
-    storage, float levels), ``"f64"`` (a float64 field among them) or ``""``
-    (float32)."""
+def _form(ts: Sequence[torch.Tensor], sk: StreamKernel = None) -> str:
+    """The form a launch over these fields counts under: ``"mxu"`` /
+    ``"mxu_bf16in"`` (a kernel ``sk`` that contracts, on f32 / bf16
+    operands, either storage), ``"bf16"`` (bf16 storage, float levels),
+    ``"f64"`` (a float64 field among them) or ``""`` (float32)."""
+    if sk is not None and sk.uses_nbr():
+        return "mxu" if sk.mxu_input == "f32" else "mxu_bf16in"
     kinds = {STORAGE[t.dtype] for t in ts}
     return "bf16" if "bf16" in kinds else "f64" if "f64" in kinds else ""
 
@@ -226,18 +247,42 @@ def _count(wrapper, form: str, fused: bool = False) -> None:
 
 
 def _as_kernel(kernel: Kernel, names: Sequence[str], x_radius: int, global_size,
-               fields: Sequence[torch.Tensor]) -> StreamKernel:
-    """A traced kernel for ``names`` over ``fields`` (their storage dtypes):
-    ``kernel`` itself when it is one (the engine traces once per step
-    build), else a new trace of the callable."""
+               fields: Sequence[torch.Tensor], compute_unit: str = "vpu", mxu_input: str = "f32") -> StreamKernel:
+    """A traced kernel for ``names`` over ``fields`` (their storage dtypes)
+    under one unit: ``kernel`` itself when it is one (the engine traces once
+    per step build), else a new trace of the callable."""
     dtypes = [t.dtype for t in fields]
     if isinstance(kernel, StreamKernel):
         if kernel.names != list(names):
             raise ValueError(f"traced kernel fields {kernel.names} != {list(names)}")
         if kernel.dtypes != dtypes:
             raise TypeError(f"traced kernel dtypes {kernel.dtypes} != the fields' {dtypes}")
+        if unit_uses_mxu(kernel.compute_unit) != unit_uses_mxu(compute_unit) or (
+                unit_uses_mxu(compute_unit) and kernel.mxu_input != mxu_input):
+            raise ValueError(f"traced kernel unit {kernel.compute_unit}/{kernel.mxu_input} != the pass's "
+                             f"{compute_unit}/{mxu_input}")
         return kernel
-    return StreamKernel(kernel, names, x_radius, global_size, dtypes=dtypes)
+    return StreamKernel(kernel, names, x_radius, global_size, dtypes=dtypes, compute_unit=compute_unit,
+                        mxu_input=mxu_input)
+
+
+def _pass_unit(compute_unit: str, mxu_input: str, fields: Sequence[torch.Tensor], plane_y: int, plane_z: int,
+               where: str) -> Tuple[str, str]:
+    """One pass's ``(unit, mxu_input)`` (``_pass_band_setup``,
+    ``stencil_tpu/ops/stream.py:262-277``): validated, ``mxu_band`` on a
+    plane without a band tile degraded to ``mxu`` with a warning, the
+    operands ``f32`` under ``vpu``.  A contraction needs every field to
+    compute at float32 (bf16 storage does)."""
+    if compute_unit not in ("vpu", "mxu", "mxu_band"):
+        raise ValueError(f"unknown compute unit {compute_unit!r} (one of ('vpu', 'mxu', 'mxu_band'))")
+    if mxu_input not in ("f32", "bf16"):
+        raise ValueError(f"unknown mxu input {mxu_input!r} (one of ('f32', 'bf16'))")
+    if not unit_uses_mxu(compute_unit):
+        return compute_unit, "f32"
+    if any(compute_kind(t.dtype) != "f32" for t in fields):
+        raise TypeError(f"{where}: compute_unit={compute_unit!r} needs fields that compute at float32, got "
+                        f"{[t.dtype for t in fields]} (the engine degrades such a request to vpu)")
+    return plane_band_unit(compute_unit, plane_y, plane_z, where=where), mxu_input
 
 
 def _check_fields(ts: Sequence[torch.Tensor], what: str, ndims, like=None) -> Tuple[torch.Size, torch.device]:
@@ -368,14 +413,18 @@ def _check_wrap(names, blocks, k, origin):
     return shape, dev
 
 
-def stream_wrap_pass_plain(kernel: Kernel, names, blocks, k: int, origin, global_size) -> List[torch.Tensor]:
+def stream_wrap_pass_plain(kernel: Kernel, names, blocks, k: int, origin, global_size,
+                           compute_unit: str = "vpu", mxu_input: str = "f32") -> List[torch.Tensor]:
     """``k`` levels of ``kernel`` over the whole periodic domain, one
     ``(X, Y, Z)`` tensor per field, with rolls; returns new tensors.  Each
     field's levels run at its compute dtype and the result is rounded once
     to its storage dtype (bfloat16 blocks: the JAX package's
-    ``f32_accumulate``; float64 blocks compute at float64)."""
+    ``f32_accumulate``; float64 blocks compute at float64).  Under a
+    contracting ``compute_unit`` a level's ``plane_nbr_sum`` is
+    ``plane_nbr_sum_host`` of the field's whole (Y, Z) planes."""
     shape, dev = _check_wrap(names, blocks, k, origin)
-    sk = _as_kernel(kernel, names, 1, global_size, blocks)
+    unit, mi = _pass_unit(compute_unit, mxu_input, blocks, shape[1], shape[2], "stream-wrap")
+    sk = _as_kernel(kernel, names, 1, global_size, blocks, unit, mi)
     cdt = _compute_dtypes(blocks)
     X, Y, Z = shape
     gx, gy, gz = sk.global_size
@@ -385,8 +434,8 @@ def stream_wrap_pass_plain(kernel: Kernel, names, blocks, k: int, origin, global
     cur = list(blocks)
     for level in range(1, k + 1):
         src = cur
-        cur = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level), shape,
-                    cdt)
+        cur = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level,
+                                lambda q: plane_nbr_sum_host(src[q].to(cdt[q]), unit, mxu_input=mi)), shape, cdt)
     return [c.to(b.dtype) for c, b in zip(cur, blocks)]
 
 
@@ -402,7 +451,8 @@ def _check_outs(out, ins) -> List[torch.Tensor]:
     return list(out)
 
 
-def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size, out=None) -> List[torch.Tensor]:
+def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size, out=None,
+                     compute_unit: str = "vpu", mxu_input: str = "f32") -> List[torch.Tensor]:
     """``k`` levels of ``kernel`` over the WHOLE periodic domain (the single-
     subdomain route), one ``(X, Y, Z)`` tensor per field (float32, bfloat16
     storage with float32 levels, float64; ``stream_wrap_pass_plain``);
@@ -411,20 +461,23 @@ def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size,
     of the one-level kernel over all fields, ping-ponging between the
     outputs and a second set of fresh buffers; under bf16 storage the
     levels between the first launch and the last go through two float32
-    sets instead, so that the call rounds once, as the JAX pass does."""
+    sets instead, so that the call rounds once, as the JAX pass does.
+    ``compute_unit`` / ``mxu_input``: the contraction form
+    (``stream_wrap_pass_plain``; the module docstring)."""
     shape, dev = _check_wrap(names, blocks, k, origin)
     if out is not None:
         out = _check_outs(out, blocks)
     if dev.type == "cpu":
-        res = stream_wrap_pass_plain(kernel, names, blocks, k, origin, global_size)
+        res = stream_wrap_pass_plain(kernel, names, blocks, k, origin, global_size, compute_unit, mxu_input)
         return res if out is None else [o.copy_(r) for o, r in zip(out, res)]
-    sk = _as_kernel(kernel, names, 1, global_size, blocks)
+    unit, mi = _pass_unit(compute_unit, mxu_input, blocks, shape[1], shape[2], "stream-wrap")
+    sk = _as_kernel(kernel, names, 1, global_size, blocks, unit, mi)
     lib = _library(sk, "stream_wrap", _WRAP_LEVELS if k <= _WRAP_MAX_K else range(1, k + 1))
     X, Y, Z = shape
     gx, gy, gz = sk.global_size
-    form = _form(blocks)
+    form = _form(blocks, sk)
     outs = [torch.empty_like(b) for b in blocks] if out is None else out
-    if form == "bf16":  # float32 sets between the first launch and the last
+    if any(b.dtype == torch.bfloat16 for b in blocks):  # float32 sets between the first launch and the last
         sets = [[b.new_empty(shape, dtype=torch.float32) for b in blocks] for _ in range(min(2, k - 1))]
         dst_of = lambda level: outs if level == k else sets[(level - 1) % 2]  # noqa: E731
     else:
@@ -443,10 +496,13 @@ def stream_wrap_pass(kernel: Kernel, names, blocks, k: int, origin, global_size,
 
 
 #: kernel launches made by ``stream_wrap_pass`` (plain-version calls do not
-#: count): float32 fields, bf16 storage, and groups with a float64 field
+#: count): float32 fields, bf16 storage, groups with a float64 field, and
+#: the contraction form on f32 / bf16 operands (either storage)
 stream_wrap_pass.launches = 0
 stream_wrap_pass.bf16_launches = 0
 stream_wrap_pass.f64_launches = 0
+stream_wrap_pass.mxu_launches = 0
+stream_wrap_pass.mxu_bf16in_launches = 0
 
 
 # --- stream_plane_pass --------------------------------------------------------------
@@ -481,7 +537,8 @@ def _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell=None):
 
 
 def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius: int, origin,
-                            global_size, out=None, fused_shell=None) -> List[torch.Tensor]:
+                            global_size, out=None, fused_shell=None, compute_unit: str = "vpu",
+                            mxu_input: str = "f32") -> List[torch.Tensor]:
     """One level of ``kernel`` over shell-carrying block(s) ``(X, Y, Z)`` or
     ``(n, X, Y, Z)`` per field, with slices; shell cells pass through.
     ``origin`` holds each block's interior start.  ``fused_shell``
@@ -489,9 +546,13 @@ def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_r
     the blocks first, x planes, y rows, z columns, and the shell passes
     through with those values.  The level runs at each field's compute
     dtype and is rounded once to its storage dtype (bfloat16: the JAX
-    package's ``f32_accumulate``); the shell keeps its stored bits."""
+    package's ``f32_accumulate``); the shell keeps its stored bits.  Under a
+    contracting ``compute_unit`` the level's ``plane_nbr_sum`` is
+    ``plane_nbr_sum_host`` of each block's whole raw (Y, Z) planes, sliced
+    to the interior."""
     n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell)
-    sk = _as_kernel(kernel, names, x_radius, global_size, raws)
+    unit, mi = _pass_unit(compute_unit, mxu_input, raws, Y, Z, "stream-plane")
+    sk = _as_kernel(kernel, names, x_radius, global_size, raws, unit, mi)
     single = raws[0].dim() == 3
     bs = [r[None] if single else r for r in raws]
     if fused_shell is not None:
@@ -508,7 +569,11 @@ def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_r
     def load(q, dx, dy, dz):
         return bs[q][:, lo.x + dx : X - hi.x + dx, lo.y + dy : Y - hi.y + dy, lo.z + dz : Z - hi.z + dz]
 
-    vals = sk.evaluate(load, lambda: xyz, dev)
+    def nbr(q):
+        c = bs[q][:, lo.x : X - hi.x].to(_compute_dtypes(raws)[q])
+        return plane_nbr_sum_host(c, unit, mxu_input=mi)[..., lo.y : Y - hi.y, lo.z : Z - hi.z]
+
+    vals = sk.evaluate(load, lambda: xyz, dev, nbr=nbr)
     res = []
     for q, b in enumerate(bs):
         o = torch.empty_like(b) if out is None else (out[q][None] if single else out[q])
@@ -519,22 +584,28 @@ def stream_plane_pass_plain(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_r
 
 
 def stream_plane_pass(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius: int, origin,
-                      global_size, out=None, fused_shell=None) -> List[torch.Tensor]:
+                      global_size, out=None, fused_shell=None, compute_unit: str = "vpu",
+                      mxu_input: str = "f32") -> List[torch.Tensor]:
     """ONE level of ``kernel`` over shell-carrying block(s) per field (lo/hi
     the shell widths, every shift within ``x_radius`` <= them); shell cells
     pass through.  Returns ``out`` (fresh tensors when None).  One CUDA
     launch serves all ``n`` blocks and all fields.  With ``fused_shell``
     the blocks' shell is stale and every shell-position cell is read from
-    the buffers (the fused form; ``stream_plane_pass_plain``)."""
+    the buffers (the fused form; ``stream_plane_pass_plain``).
+    ``compute_unit`` / ``mxu_input``: the contraction form (array form
+    only; the module docstring)."""
     n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell)
     if dev.type == "cpu":
         return stream_plane_pass_plain(kernel, names, raws, lo, hi, x_radius, origin, global_size, out,
-                                       fused_shell)
-    sk = _as_kernel(kernel, names, x_radius, global_size, raws)
+                                       fused_shell, compute_unit, mxu_input)
+    unit, mi = _pass_unit(compute_unit, mxu_input, raws, Y, Z, "stream-plane")
+    sk = _as_kernel(kernel, names, x_radius, global_size, raws, unit, mi)
+    if fused_shell is not None and sk.uses_nbr():
+        raise NotImplementedError("the fused form under a contracting compute unit is ROADMAP.md queue 1 item 9.3")
     res = [torch.empty_like(r) for r in raws] if out is None else list(out)
     gx, gy, gz = sk.global_size
     geometry = (n, X, Y, Z, lo.x, lo.y, lo.z, hi.x, hi.y, hi.z)
-    form = _form(raws)
+    form = _form(raws, sk)
     if fused_shell is None:
         lib = _library(sk, "stream_plane", [1])
         rc = lib.stp_stream_plane_level(_ptrs(raws), _ptrs(res), origin.data_ptr(), *geometry, gx, gy, gz,
@@ -553,19 +624,23 @@ def stream_plane_pass(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius:
 
 #: kernel launches made by ``stream_plane_pass``: its array form, and its
 #: fused form (``fused_shell``; one a call, its far and band kernels), each
-#: on float32 fields, under bf16 storage and with a float64 field
+#: on float32 fields, under bf16 storage and with a float64 field; and its
+#: contraction form on f32 / bf16 operands (either storage)
 stream_plane_pass.launches = 0
 stream_plane_pass.fused_launches = 0
 stream_plane_pass.bf16_launches = 0
 stream_plane_pass.fused_bf16_launches = 0
 stream_plane_pass.f64_launches = 0
 stream_plane_pass.fused_f64_launches = 0
+stream_plane_pass.mxu_launches = 0
+stream_plane_pass.mxu_bf16in_launches = 0
 
 
 # --- stream_wavefront_pass -----------------------------------------------------------
 
 
-def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_valid, alias, fused_shell=None):
+def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_valid, alias, fused_shell=None,
+                     compute_unit="vpu"):
     if alias:
         raise NotImplementedError(
             "alias=True (an in-place wavefront) is refused: blocks march along x "
@@ -586,10 +661,11 @@ def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_vali
     if zv > Zr:
         raise ValueError(f"z_valid={zv} exceeds the plane width {Zr}")
     item = ring_itemsize([r.dtype for r in raws])
-    if not stream_smem_fits(m, len(raws), item):
+    if not stream_smem_fits(m, len(raws), item, compute_unit):
         raise ValueError(
-            f"m={m} over {len(raws)} field(s) of {item}-byte levels needs {stream_smem_bytes(m, len(raws), item)} "
-            f"bytes of shared memory per block, over the H100's {SMEM_PER_BLOCK}; pass fewer fields per call"
+            f"m={m} over {len(raws)} field(s) of {item}-byte levels needs "
+            f"{stream_smem_bytes(m, len(raws), item, compute_unit)} bytes of shared memory per block "
+            f"({compute_unit}), over the H100's {SMEM_PER_BLOCK}; pass fewer fields per call"
         )
     _check_origin(origin, n, single)
     tensors = [raws[0], origin]
@@ -611,7 +687,8 @@ def _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs, z_vali
 
 
 def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int, origin, global_size,
-                                z_slabs=None, z_valid=None, alias=False, fused_shell=None):
+                                z_slabs=None, z_valid=None, alias=False, fused_shell=None,
+                                compute_unit: str = "vpu", mxu_input: str = "f32"):
     """``m`` levels of ``kernel`` over s-shelled block(s) ``(Xr, Yr, Zr)`` or
     ``(n, Xr, Yr, Zr)`` per field, with rolls: every axis wraps, and the
     wrapped cells are the ones the shell was sized to sacrifice.  ``z_slabs``
@@ -624,10 +701,13 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
     cells are unspecified.  The levels run at each field's compute dtype
     and the outputs (and emitted slabs) are rounded once to its storage
     dtype (bfloat16: the JAX package's ``f32_accumulate``, float32 level
-    rings)."""
+    rings).  Under a contracting ``compute_unit`` a level's
+    ``plane_nbr_sum`` is ``plane_nbr_sum_host`` of the whole (Yr, Zr)
+    planes of the level below, periodic as the rolls."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
-                                              z_valid, alias, fused_shell)
-    sk = _as_kernel(kernel, names, 1, global_size, raws)
+                                              z_valid, alias, fused_shell, compute_unit)
+    unit, mi = _pass_unit(compute_unit, mxu_input, raws, Yr, Zr, "stream-wavefront")
+    sk = _as_kernel(kernel, names, 1, global_size, raws, unit, mi)
     cdt = _compute_dtypes(raws)
     single = raws[0].dim() == 3
     if fused_shell is not None:
@@ -652,8 +732,8 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
     shape = w[0].shape
     for level in range(1, m + 1):
         src = w
-        w = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level),
-                  shape, cdt)
+        w = _full(sk.evaluate(lambda q, dx, dy, dz: _roll(src[q], dx, dy, dz), lambda: xyz, dev, level,
+                              lambda q: plane_nbr_sum_host(src[q], unit, mxu_input=mi)), shape, cdt)
     outs = [o.to(r.dtype) for o, r in zip(w, raws)]
     outs = [o[0] if single else o for o in outs]
     if z_slabs is None:
@@ -663,7 +743,8 @@ def stream_wavefront_pass_plain(kernel: Kernel, names, raws, m: int, s_off: int,
 
 
 def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origin, global_size,
-                          z_slabs=None, z_valid=None, alias=False, fused_shell=None, out=None, z_out=None):
+                          z_slabs=None, z_valid=None, alias=False, fused_shell=None, out=None, z_out=None,
+                          compute_unit: str = "vpu", mxu_input: str = "f32"):
     """``m`` levels of ``kernel`` (read radius 1) in ONE pass over s-shelled
     block(s) per field: the compute half of the temporally blocked route.
     Arguments and result as ``stream_wavefront_pass_plain``; ``alias=True``
@@ -671,9 +752,11 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
     outputs are ``out`` (and ``z_out`` with ``z_slabs``), fresh buffers when
     None, written on the valid region only.  With ``fused_shell`` the
     blocks' shell is stale and every level-0 cell at a shell position is
-    read from the buffers (the fused form)."""
+    read from the buffers (the fused form).  ``compute_unit`` /
+    ``mxu_input``: the contraction form (plain and z-slab layouts; the
+    module docstring)."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
-                                              z_valid, alias, fused_shell)
+                                              z_valid, alias, fused_shell, compute_unit)
     if out is not None:
         out = _check_outs(out, raws)
     if z_out is not None:
@@ -682,17 +765,21 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
         z_out = _check_outs(z_out, z_slabs)
     if dev.type == "cpu":
         outs, zouts = stream_wavefront_pass_plain(kernel, names, raws, m, s_off, origin, global_size,
-                                                  z_slabs, z_valid, alias, fused_shell)
+                                                  z_slabs, z_valid, alias, fused_shell, compute_unit, mxu_input)
         if out is not None:
             outs = [o.copy_(r) for o, r in zip(out, outs)]
         if z_out is not None:
             zouts = [o.copy_(r) for o, r in zip(z_out, zouts)]
         return outs, zouts
-    sk = _as_kernel(kernel, names, 1, global_size, raws)
+    unit, mi = _pass_unit(compute_unit, mxu_input, raws, Yr, Zr, "stream-wavefront")
+    sk = _as_kernel(kernel, names, 1, global_size, raws, unit, mi)
     outs = [torch.empty_like(r) for r in raws] if out is None else out
     gx, gy, gz = sk.global_size
-    form = _form(raws)
+    form = _form(raws, sk)
     if fused_shell is not None:
+        if sk.uses_nbr():
+            raise NotImplementedError(
+                "the fused form under a contracting compute unit is ROADMAP.md queue 1 item 9.3")
         lib = _library(sk, *_wavefront_variant(m, fused=True))
         xb, yb, zb = fused_shell
         rc = lib.stp_stream_wavefront_fused(_ptrs(raws), _ptrs(xb), _ptrs(yb), _ptrs(zb), _ptrs(outs),
@@ -719,19 +806,22 @@ WAVEFRONT_PLAN_FIELDS = ("queue", "blocks_per_sm", "sms", "blocks", "xchunk", "n
 
 
 def stream_wavefront_launch(kernel: Kernel, names, raws, m: int, s_off: int, global_size, z_slabs=None,
-                            z_valid=None, fused: bool = False) -> dict:
+                            z_valid=None, fused: bool = False, compute_unit: str = "vpu",
+                            mxu_input: str = "f32") -> dict:
     """The launch ``stream_wavefront_pass`` makes for these arguments on the
     card, without making it: ``form`` ("queue", the register-queue form, or
     "general"), the blocks an SM the occupancy calculator allows, the grid's
     blocks and its ``waves`` (blocks over the blocks resident at once), the
     x chunking, the shared memory and threads a block asks and the tiles
     along z and y (fields as ``WAVEFRONT_PLAN_FIELDS``); ``fused`` plans the
-    fused form's launch."""
+    fused form's launch, ``compute_unit`` / ``mxu_input`` the contraction
+    form's."""
     shape = raws[0].shape
     n = 1 if len(shape) == 3 else shape[0]
     Xr, Yr, Zr = shape[-3:]
     zv = Zr if z_valid is None else int(z_valid)
-    sk = _as_kernel(kernel, names, 1, global_size, raws)
+    unit, mi = _pass_unit(compute_unit, mxu_input, raws, Yr, Zr, "stream-wavefront")
+    sk = _as_kernel(kernel, names, 1, global_size, raws, unit, mi)
     lib = _library(sk, *_wavefront_variant(m, fused))
     info = (ctypes.c_int * len(WAVEFRONT_PLAN_FIELDS))()
     rc = lib.stp_stream_wavefront_plan(n, Xr, Yr, Zr, zv, m, s_off, int(z_slabs is not None), info)
@@ -759,19 +849,23 @@ _WRAP_LEVELS = range(1, _WRAP_MAX_K + 1)
 
 #: kernel launches made by ``stream_wavefront_pass``: its z-slab and plain
 #: forms, and its fused form (``fused_shell``), each on float32 fields,
-#: under bf16 storage and with a float64 field
+#: under bf16 storage and with a float64 field; and its contraction form on
+#: f32 / bf16 operands (either storage and layout)
 stream_wavefront_pass.launches = 0
 stream_wavefront_pass.fused_launches = 0
 stream_wavefront_pass.bf16_launches = 0
 stream_wavefront_pass.fused_bf16_launches = 0
 stream_wavefront_pass.f64_launches = 0
 stream_wavefront_pass.fused_f64_launches = 0
+stream_wavefront_pass.mxu_launches = 0
+stream_wavefront_pass.mxu_bf16in_launches = 0
 
 
 # --- planning -------------------------------------------------------------------------
 
 
-def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, max_m: int = None) -> dict:
+def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, max_m: int = None,
+                compute_unit: str = "vpu") -> dict:
     """Route planning for ``make_stream_step`` on a realized domain
     (``stencil_tpu/ops/stream.py:913``).
 
@@ -782,7 +876,8 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
     caps k).  Otherwise ``x_radius`` 1 and a uniform face shell s >= 2 take
     the z-slab ``wavefront`` at the deepest m in [2, min(s, 16)] whose
     kernel fits (``stream_smem_fits`` at ``ring_itemsize`` of the fields'
-    dtypes: a float64 field doubles the planes): jointly, or per field when the
+    dtypes: a float64 field doubles the planes; under a contracting
+    ``compute_unit`` a plane of sums more a field): jointly, or per field when the
     kernel is ``separable`` and that goes deeper (joint wins ties).  The
     ``plane`` route covers the rest, jointly (its kernel keeps no planes in
     shared memory).  ``path`` forces a route ("wavefront"/"wrap" raise when
@@ -831,7 +926,7 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
             cap = min(cap, max_m)
         best = None
         for grouping, fields in groupings:
-            m = max([c for c in range(2, cap + 1) if stream_smem_fits(c, fields, item)], default=0)
+            m = max([c for c in range(2, cap + 1) if stream_smem_fits(c, fields, item, compute_unit)], default=0)
             if m >= 2 and (best is None or m > best["m"]):
                 best = {"route": "wavefront", "m": m, "z_slabs": not dd.padded(), "grouping": grouping}
         if best is not None:
@@ -842,16 +937,6 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
             f"for m >= 2; got shell {lo}/{hi}"
         )
     return {"route": "plane", "m": 1, "z_slabs": False, "grouping": "joint"}
-
-
-def _check_axes(**requests) -> None:
-    for axis, value in requests.items():
-        static, later, item = _PORTED_AXES[axis]
-        if value not in ("auto", static):
-            raise NotImplementedError(
-                f"{axis}={value!r}: the port runs 'auto' or {static!r} only (ROADMAP.md {item} "
-                f"ports the JAX package's {later})"
-            )
 
 
 def _warn(msg: str) -> None:
@@ -950,15 +1035,30 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     every shift within ``x_radius``, elementwise arithmetic.
     ``separable=True`` declares the kernel correct on any subset of the
     views, so many fields may stream per field.  ``max_depth`` caps the
-    temporal depth (wrap k / wavefront m).  ``compute_unit`` and
-    ``mxu_input`` take ``"auto"`` or the static value the port runs (vpu,
-    f32); ``mxu_kernel`` is accepted and unused.  The fields may be float32,
+    temporal depth (wrap k / wavefront m).  The fields may be float32,
     float64 (each computes at its own dtype; float32 and float64 fields
     stream jointly at double) or bf16 storage (``dd.set_storage("bf16")``:
     every pass computes at float32 and rounds once, the JAX package's
     ``f32_accumulate``, recorded in ``step._stream_plan``).  ``z_slabs=False`` runs a
     wavefront plan in its plain form (every axis exchanged in the array, as
     on uneven sizes, where the plan takes it and ``z_slabs=True`` raises).
+
+    ``compute_unit`` (``"auto"`` = ``"vpu"``, ``"mxu"``, ``"mxu_band"``) and
+    ``mxu_input`` (``"auto"`` = ``"f32"``, ``"bf16"``) resolve as
+    ``stencil_tpu/ops/stream.py:1405-1446`` resolves them, without the env
+    and tune sources: the explicit request, else the static value.  A
+    contracting unit engages only on a kernel that declares its
+    axis-separable form (``mxu_kernel``, the same stencil with its in-plane
+    taps written through ``PlaneView.plane_nbr_sum``), which every pass then
+    traces in place of ``kernel``, and only where every field computes at
+    float32 (bf16 storage does); otherwise it degrades to ``vpu`` with a
+    ``RuntimeWarning``, as does ``mxu_input="bf16"`` under ``vpu``.  The
+    plan records the resolved ``compute_unit`` and ``mxu_input``; a pass
+    whose plane admits no band tile runs ``mxu_band`` as ``mxu``, with a
+    warning when the step is built.  Under an engaged unit the wavefront's
+    depth is planned with the contraction's shared memory
+    (``stream_smem_bytes``), and the split schedule and the fused halo raise
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 9.3).
 
     ``overlap`` (``"auto"`` = ``"off"``, or ``"split"``) and ``halo``
     (``"auto"`` = ``"array"``, or ``"fused"``) select the split schedule and
@@ -986,14 +1086,27 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     (``stencil_tpu/ops/stream.py:953-954``): the torch engine takes them."""
     if any(h.components for h in dd._handles):
         raise ValueError("the streaming engine does not support N-D component data")
-    _check_axes(compute_unit=compute_unit, mxu_input=mxu_input)
     if overlap not in ("auto",) + STREAM_OVERLAP:
         raise ValueError(f"unknown stream overlap {overlap!r} (one of {('auto',) + STREAM_OVERLAP})")
     if halo not in ("auto",) + STREAM_HALO:
         raise ValueError(f"unknown stream halo mode {halo!r} (one of {('auto',) + STREAM_HALO})")
-    del mxu_kernel
+    if compute_unit not in ("auto", "vpu", "mxu", "mxu_band"):
+        raise ValueError(f"unknown compute unit {compute_unit!r} (one of ('auto', 'vpu', 'mxu', 'mxu_band'))")
+    if mxu_input not in ("auto", "f32", "bf16"):
+        raise ValueError(f"unknown mxu input {mxu_input!r} (one of ('auto', 'f32', 'bf16'))")
     max_depth = _check_depth(max_depth)
     plan = dict(plan_stream(dd, x_radius, path, separable, max_m=max_depth))
+    # the compute-unit axis: explicit > static vpu, degraded where the kernel
+    # declares no contraction form or a field computes off f32; then the
+    # operands (bf16 only under a contracting unit)
+    where = f"stream:{plan['route']}"
+    unit, _ = resolve_compute_unit(
+        compute_unit, [h.dtype for h in dd._handles], where=where, engine_ok=mxu_kernel is not None,
+        engine_why="the kernel declares no axis-separable contraction form (make_stream_step mxu_kernel=...)")
+    mi, _ = resolve_mxu_input(mxu_input, unit, where=where)
+    if unit_uses_mxu(unit):
+        kernel = mxu_kernel  # the same stencil through the plane_nbr_sum seam
+        plan = dict(plan_stream(dd, x_radius, path, separable, max_m=max_depth, compute_unit=unit))
     if z_slabs is not None and plan["route"] == "wavefront":
         if z_slabs and dd.padded():
             raise ValueError("z_slabs=True: the z-slab wavefront form needs even (unpadded) subdomains")
@@ -1008,18 +1121,30 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     plan["halo"] = _resolve_stream_halo(dd, plan, dd.exchange_route())[0]
     for key in ("overlap_forced", "halo_forced"):
         plan.pop(key, None)
+    if unit_uses_mxu(unit) and (plan["overlap"] == "split" or plan["halo"] == "fused"):
+        raise NotImplementedError(
+            f"{'overlap=split' if plan['overlap'] == 'split' else 'halo=fused'} under compute_unit={unit!r}: the "
+            "contraction form of the split schedule's band passes and of the fused halo is ROADMAP.md queue 1 "
+            "item 9.3")
     dtypes = [dd.field_dtype(h) for h in dd._handles]
-    plan.update(compute_unit="vpu", mxu_input="f32", f32_accumulate=torch.bfloat16 in dtypes)
+    plan.update(compute_unit=unit, mxu_input=mi, f32_accumulate=torch.bfloat16 in dtypes)
     names = [h.name for h in dd._handles]
     groups = [[q] for q in range(len(names))] if plan["grouping"] == "per-field" else [list(range(len(names)))]
     gsize = dd.size()
-    programs = [StreamKernel(kernel, [names[q] for q in g], x_radius, gsize, dtypes=[dtypes[q] for q in g])
-                for g in groups]
     route = plan["route"]
+    # each pass's unit: mxu_band on a plane that admits no band tile runs as
+    # mxu (stencil_tpu/ops/stream.py:262-277), warned here, once
+    if unit_uses_mxu(unit):
+        n, raw = dd.local_spec().sz, dd.local_spec().raw_size()
+        plane = (n.y, n.z) if route == "wrap" else (raw.y, raw.z)
+        unit = plane_band_unit(unit, *plane, where=f"stream-{route}")
+    ukw = {"compute_unit": unit, "mxu_input": mi}
+    programs = [StreamKernel(kernel, [names[q] for q in g], x_radius, gsize, dtypes=[dtypes[q] for q in g], **ukw)
+                for g in groups]
     if dd.device.type == "cuda":
         _prebuild(programs, plan)
     build = {"wrap": _wrap_route, "plane": _plane_route, "wavefront": _wavefront_route}[route]
-    step = build(dd, names, groups, programs, plan, x_radius)
+    step = build(dd, names, groups, programs, plan, x_radius, ukw)
     step._stream_plan = plan
     step._marks_shell_stale = True
     return step
@@ -1125,7 +1250,7 @@ def _blocks(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [t.view(-1, *t.shape[3:]) for t in ts]
 
 
-def _wrap_route(dd, names, groups, programs, plan, x_radius):
+def _wrap_route(dd, names, groups, programs, plan, x_radius, ukw):
     k = plan["m"]
     n = dd.local_spec().sz
     lo = dd.shell_radius().lo()
@@ -1137,7 +1262,7 @@ def _wrap_route(dd, names, groups, programs, plan, x_radius):
     def body(cur, nxt, depth):
         for g, sk in zip(groups, programs):
             stream_wrap_pass(sk, sk.names, [cur.fields[q] for q in g], depth, origin, gsize,
-                             out=[nxt.fields[q] for q in g])
+                             out=[nxt.fields[q] for q in g], **ukw)
 
     return as_step(window_loop(names, k, body, inner))
 
@@ -1150,7 +1275,7 @@ def _grouped(groups, bs, fused_bufs, run, outs) -> None:
         run(j, [bs[q] for q in g], fs, [outs[q] for q in g])
 
 
-def _plane_route(dd, names, groups, programs, plan, x_radius):
+def _plane_route(dd, names, groups, programs, plan, x_radius, ukw):
     shell = dd.shell_radius()
     lo, hi = shell.lo(), shell.hi()
     origins = dd.origins()
@@ -1161,7 +1286,8 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
 
     def passes(bs, outs, fused_bufs=None):
         _grouped(groups, bs, fused_bufs, lambda j, b, fs, o: stream_plane_pass(
-            programs[j], programs[j].names, b, lo, hi, x_radius, origins, gsize, out=o, fused_shell=fs), outs)
+            programs[j], programs[j].names, b, lo, hi, x_radius, origins, gsize, out=o, fused_shell=fs, **ukw),
+            outs)
 
     def narrow_plane(subs, ax, w, origin_sub):
         """One level over ``3w``-wide face sub-blocks (``w == x_radius``):
@@ -1197,7 +1323,7 @@ def _plane_route(dd, names, groups, programs, plan, x_radius):
     return as_step(Loop(names, 1, body))
 
 
-def _wavefront_route(dd, names, groups, programs, plan, x_radius):
+def _wavefront_route(dd, names, groups, programs, plan, x_radius, ukw):
     m = plan["m"]
     z_slab_mode = plan["z_slabs"]
     split, fused = plan["overlap"] == "split", plan["halo"] == "fused"
@@ -1215,7 +1341,7 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
 
     def passes(bs, depth, outs, fused_bufs=None):
         _grouped(groups, bs, fused_bufs, lambda j, b, fs, o: stream_wavefront_pass(
-            programs[j], programs[j].names, b, depth, s, origins, gsize, fused_shell=fs, out=o), outs)
+            programs[j], programs[j].names, b, depth, s, origins, gsize, fused_shell=fs, out=o, **ukw), outs)
 
     def narrow_wavefront(subs, ax, w, origin_sub):
         """``w`` levels over ``3w``-wide face sub-blocks (``w`` is this
@@ -1258,7 +1384,7 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius):
         for g, sk in zip(groups, programs):
             stream_wavefront_pass(sk, sk.names, [bs[q] for q in g], depth, s, origins, gsize,
                                   z_slabs=[zs[q] for q in g], z_valid=Zr, out=[outs[q] for q in g],
-                                  z_out=[zouts[q] for q in g])
+                                  z_out=[zouts[q] for q in g], **ukw)
 
     def zslabs(stacks):
         return [t.new_empty((*t.shape[:3], Xr, 2 * s, Yr)) for t in stacks]

@@ -16,8 +16,8 @@ views into a graph of ``Node``s and has two back ends for it:
   centre (``x_reads_centred``).
 
 What a traced kernel may do: ``views[name].sh(dx, dy, dz)`` (every offset
-within the declared ``x_radius``, as ``stream.py:179-181`` asserts) and
-``center()``; ``info.coords()`` (the wrapped global x, y, z as int32),
+within the declared ``x_radius``, as ``stream.py:179-181`` asserts),
+``center()`` and ``plane_nbr_sum()``; ``info.coords()`` (the wrapped global x, y, z as int32),
 ``info.global_size`` and ``info.level``; ``+ - * /``, unary minus, ``**``
 with an integer exponent, comparisons, ``& | ~`` on masks, ``abs``,
 ``.to(dtype)``/``.astype(dtype)`` and ``torch.where``.  Anything else raises
@@ -60,6 +60,20 @@ keep levels in (``STP_C``) and the one their prefetch registers hold
 fields these expand to the plain ``float`` accesses the templates had before
 the dtypes came in; a group that mixes float32 and float64 fields keeps every
 level at double and casts each float64 field's pointer (``STP_WIDE``).
+
+The compute-unit seam (``PlaneView.plane_nbr_sum``, ``stream.py:145-204``):
+a kernel's ``mxu`` form (``make_stream_step(mxu_kernel=...)``) writes the
+four in-plane taps of a field as ``plane_nbr_sum()``.  A trace under ``vpu``
+expands it to the loads ``sh(0, 1, 0) + sh(0, -1, 0) + sh(0, 0, 1) + sh(0, 0,
+-1)``, in that order; under ``mxu`` / ``mxu_band`` it is one ``nbr`` node over
+the field's centre plane, carrying the unit and ``mxu_input``.  ``evaluate``
+takes it from the pass's ``nbr(q)``, the band contraction over the whole
+plane of the pass (``ops/stream.py``); ``emit_cuda`` reads it as ``nb(q)``,
+which the kernel templates supply from their tensor-core contraction, and
+writes ``STP_NBR_MASK`` (the fields whose centre plane a level contracts)
+and ``STP_MXU`` (1: f32 operands, 2: bf16) into the generated part.  A
+trace without such a node emits what it emitted before the seam, byte for
+byte.
 
 XLA on the CPU also contracts ``a * b + c`` into one fused multiply-add.  The
 port does NOT reproduce that: a kernel with a multiply feeding an add (the
@@ -137,13 +151,18 @@ class Graph:
     ``components`` holds each field's component shape (None: a stream
     kernel's trace, which takes no component ops)."""
 
-    def __init__(self, components: Optional[Sequence[tuple]] = None, kinds: Optional[Sequence[str]] = None):
+    def __init__(self, components: Optional[Sequence[tuple]] = None, kinds: Optional[Sequence[str]] = None,
+                 compute_unit: str = "vpu", mxu_input: str = "f32"):
         self.components = None if components is None else [tuple(c) for c in components]
         #: each field's compute kind (None: every field float32)
         self.kinds = None if kinds is None else list(kinds)
+        #: what ``plane_nbr_sum`` traces to: the load chain under ``vpu``, an
+        #: ``nbr`` node under ``mxu`` / ``mxu_band``
+        self.compute_unit, self.mxu_input = compute_unit, mxu_input
         self.nodes: List[Node] = []
         self._consts: Dict[tuple, Node] = {}
         self._loads: Dict[tuple, Node] = {}
+        self._nbrs: Dict[int, Node] = {}
         self.reads_level = False
 
     def load(self, q: int, d: Tuple[int, int, int]) -> "Node":
@@ -154,6 +173,18 @@ class Graph:
             comps = self.components[q] if self.components is not None else ()
             kind = self.kinds[q] if self.kinds is not None else F32
             node = self._loads[key] = Node(self, "load", key, kind, comps)
+        return node
+
+    def nbr(self, q: int) -> "Node":
+        """The in-plane neighbour sum of field ``q``'s centre plane, contracted
+        under the graph's unit: one node per field."""
+        node = self._nbrs.get(q)
+        if node is None:
+            kind = self.kinds[q] if self.kinds is not None else F32
+            if kind != F32:
+                raise TypeError(f"plane_nbr_sum under compute_unit={self.compute_unit!r} needs a field that "
+                                f"computes at float32, got {_TORCH_DTYPE[kind]}")
+            node = self._nbrs[q] = Node(self, "nbr", (q, self.compute_unit, self.mxu_input), kind, ())
         return node
 
     def takes_components(self, op: str) -> None:
@@ -524,6 +555,14 @@ class PlaneView:
     def center(self) -> Node:
         return self.sh(0, 0, 0)
 
+    def plane_nbr_sum(self) -> Node:
+        """``sh(0, 1, 0) + sh(0, -1, 0) + sh(0, 0, 1) + sh(0, 0, -1)``: that
+        load chain under ``vpu``, one contraction node under the MXU units
+        (``stream.py:189-200``)."""
+        if self._graph.compute_unit == "vpu":
+            return self.sh(0, 1, 0) + self.sh(0, -1, 0) + self.sh(0, 0, 1) + self.sh(0, 0, -1)
+        return self._graph.nbr(self._q)
+
 
 class PlaneInfo:
     """Per-level context of a traced stream kernel: ``coords()`` gives the
@@ -581,11 +620,20 @@ class StreamKernel:
     use, and shared by all levels when the kernel never reads
     ``info.level``.  ``dtypes`` are the fields' storage dtypes (None: all
     float32): each field is read and its output kept at ``compute_kind`` of
-    its dtype, and the CUDA body carries the storage types."""
+    its dtype, and the CUDA body carries the storage types.
+    ``compute_unit`` and ``mxu_input`` are what ``plane_nbr_sum`` traces to
+    (the module docstring); a kernel is traced for one unit."""
 
     def __init__(self, kernel: Callable, names: Sequence[str], x_radius: Optional[int],
                  global_size, info_extra: Optional[dict] = None,
-                 components: Optional[Sequence[tuple]] = None, dtypes: Optional[Sequence[torch.dtype]] = None):
+                 components: Optional[Sequence[tuple]] = None, dtypes: Optional[Sequence[torch.dtype]] = None,
+                 compute_unit: str = "vpu", mxu_input: str = "f32"):
+        if compute_unit not in ("vpu", "mxu", "mxu_band"):
+            raise ValueError(f"unknown compute unit {compute_unit!r} (one of ('vpu', 'mxu', 'mxu_band'))")
+        if mxu_input not in ("f32", "bf16"):
+            raise ValueError(f"unknown mxu input {mxu_input!r} (one of ('f32', 'bf16'))")
+        self.compute_unit = compute_unit
+        self.mxu_input = mxu_input if compute_unit != "vpu" else "f32"
         self.kernel = kernel
         self.names = list(names)
         self.dtypes = [torch.float32] * len(self.names) if dtypes is None else list(dtypes)
@@ -600,6 +648,7 @@ class StreamKernel:
         self._extra = info_extra
         self._traces: Dict[int, Trace] = {}
         self._level_free: Optional[Trace] = None
+        self._uses_nbr: Optional[bool] = None
         #: memo of the back ends (the generated CUDA sources), keyed by them
         self.cache: dict = {}
 
@@ -608,7 +657,7 @@ class StreamKernel:
             return self._level_free
         t = self._traces.get(level)
         if t is None:
-            g = Graph(self.components, self.kinds)
+            g = Graph(self.components, self.kinds, self.compute_unit, self.mxu_input)
             views = {n: PlaneView(g, q, self.x_radius) for q, n in enumerate(self.names)}
             out = self.kernel(views, PlaneInfo(g, self.global_size, level, self._extra))
             if not isinstance(out, dict):
@@ -634,11 +683,21 @@ class StreamKernel:
         """Which fields the kernel writes (the others pass through)."""
         return [o is not None for o in self.trace(1).outputs]
 
-    def evaluate(self, load: Callable, coords: Callable, device, level: int = 1) -> List[torch.Tensor]:
+    def uses_nbr(self) -> bool:
+        """Does a level of this kernel contract (an ``nbr`` node)?  Asked at
+        every launch, worked out once."""
+        if self._uses_nbr is None:
+            self._uses_nbr = any(n.op == "nbr" for n in self.trace(1).live())
+        return self._uses_nbr
+
+    def evaluate(self, load: Callable, coords: Callable, device, level: int = 1,
+                 nbr: Optional[Callable] = None) -> List[torch.Tensor]:
         """Run one level with torch: ``load(q, dx, dy, dz)`` returns field
         ``q`` shifted by the offset (a float read is cast to its compute
         dtype, the bfloat16 upcast), ``coords()`` the broadcastable int32
-        global x, y, z.  Returns one tensor per field; a pass-through field
+        global x, y, z, ``nbr(q)`` field ``q``'s contracted in-plane
+        neighbour sum at the cells ``load`` reads (a trace with ``nbr``
+        nodes only).  Returns one tensor per field; a pass-through field
         gives ``load(q, 0, 0, 0)`` as it is."""
         t = self.trace(level)
         live = t.live()
@@ -655,6 +714,11 @@ class StreamKernel:
                 if xyz is None:
                     xyz = tuple(c.to(torch.int32) for c in coords())
                 v = xyz[n.args[0]]
+            elif n.op == "nbr":
+                if nbr is None:
+                    raise TypeError("this pass has no plane to contract: plane_nbr_sum under "
+                                    f"compute_unit={self.compute_unit!r} needs the stream kernels' passes")
+                v = nbr(n.args[0])
             elif n.op == "const":
                 # a fill on the device, not a host-to-device copy (a captured
                 # step may hold no copy from the host)
@@ -672,9 +736,10 @@ class StreamKernel:
         given levels (one body when the kernel never reads its level)."""
         first = self.trace(levels[0])
         storage = [STORAGE[d] for d in self.dtypes]
+        mxu = 1 if self.mxu_input == "f32" else 2
         if self._level_free is first:
-            return emit_cuda({None: first}, len(self.names), storage)
-        return emit_cuda({lv: self.trace(lv) for lv in levels}, len(self.names), storage)
+            return emit_cuda({None: first}, len(self.names), storage, mxu)
+        return emit_cuda({lv: self.trace(lv) for lv in levels}, len(self.names), storage, mxu)
 
 
 _TORCH_OPS = {
@@ -752,6 +817,8 @@ def _c_expr(n: Node) -> str:
         return f"ld({q}, {dx}, {dy}, {dz})"
     if op == "coord":
         return ("xg", "yg", "zg")[n.args[0]]
+    if op == "nbr":
+        return f"nb({n.args[0]})"
     if op == "const":
         return _c_const(n)
     if op in _ARITH:
@@ -876,7 +943,14 @@ def _type_lines(storage: Sequence[str]) -> List[str]:
     return [f"#define STP_S {s}", f"#define STP_C {c}", f"#define STP_P {p}"] + access
 
 
-def emit_cuda(traces: Dict[Optional[int], Trace], n_fields: int, storage: Optional[Sequence[str]] = None) -> str:
+def nbr_mask(traces: Iterable[Trace]) -> int:
+    """The fields whose centre plane these traces contract (bit q: an
+    ``nbr`` node of field q)."""
+    return sum(1 << q for q in {n.args[0] for t in traces for n in t.live() if n.op == "nbr"})
+
+
+def emit_cuda(traces: Dict[Optional[int], Trace], n_fields: int, storage: Optional[Sequence[str]] = None,
+              mxu: int = 1) -> str:
     """The generated part of a kernel template: the field count,
     ``STP_X_QUEUE`` where ``x_reads_centred`` holds, the types and access
     macros of the fields' ``storage`` (``_type_lines``; None: all float32),
@@ -884,17 +958,30 @@ def emit_cuda(traces: Dict[Optional[int], Trace], n_fields: int, storage: Option
     an offset through ``ld(q, dx, dy, dz)`` (an ``STP_C``) and writes every
     field's new value (a pass-through field its centre) to ``out``.
     ``traces`` maps a level to its trace, or ``None`` to the one trace of a
-    level-free kernel."""
+    level-free kernel.  Traces with ``nbr`` nodes also get ``STP_NBR_MASK``
+    (``nbr_mask``) and ``STP_MXU`` (``mxu``: 1 f32 operands, 2 bf16), and
+    their body ``stp_body(ld, nb, level, xg, yg, zg, out)`` reads field q's
+    contracted in-plane sum as ``nb(q)``."""
     lines = [f"#define STP_NF {n_fields}"]
     if x_reads_centred(traces.values()):
         lines.append("#define STP_X_QUEUE 1")
+    mask = nbr_mask(traces.values())
+    if mask:
+        lines += [f"#define STP_NBR_MASK {mask:#x}", f"#define STP_MXU {mxu}"]
     lines += _type_lines(["f32"] * n_fields if storage is None else storage)
-    lines += [
-        "template <class Ld>",
-        "__device__ __forceinline__ void stp_body(const Ld& ld, int level, int xg, int yg, int zg,",
-        "                                         STP_C (&out)[STP_NF]) {",
-        "  (void)level; (void)xg; (void)yg; (void)zg;",
-    ]
+    if mask:
+        lines += [
+            "template <class Ld, class Nb>",
+            "__device__ __forceinline__ void stp_body(const Ld& ld, const Nb& nb, int level, int xg, int yg, int zg,",
+            "                                         STP_C (&out)[STP_NF]) {",
+        ]
+    else:
+        lines += [
+            "template <class Ld>",
+            "__device__ __forceinline__ void stp_body(const Ld& ld, int level, int xg, int yg, int zg,",
+            "                                         STP_C (&out)[STP_NF]) {",
+        ]
+    lines.append("  (void)level; (void)xg; (void)yg; (void)zg;")
     if None in traces:
         lines += _emit_level(traces[None], "  ")
     else:
@@ -927,5 +1014,5 @@ def run_kernel(kernel: Callable, views: Dict[str, object], info=None) -> Dict[st
 
 __all__ = [
     "Graph", "Node", "PlaneInfo", "PlaneView", "STORAGE", "StreamKernel", "Trace", "compute_kind", "emit_cuda",
-    "run_kernel", "where", "x_reads_centred",
+    "nbr_mask", "run_kernel", "where", "x_reads_centred",
 ]

@@ -2085,3 +2085,277 @@ def test_f64_capture_on_card(dev, grid):
         model.step(20)
         out.append((model.temperature(), ledger.launch_counts()))
     assert np.array_equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+
+
+# --- the contraction form of the stream and mean-of-6 kernels (rows 6-8, 17, 18) --------
+
+
+def _m6_mxu(views, info):
+    """Astaroth's ``_kernel_mxu``: the register-queue form of #8."""
+    return {n: (v.sh(-1, 0, 0) + v.sh(1, 0, 0) + v.plane_nbr_sum()) / 6.0 for n, v in views.items()}
+
+
+def _off_mxu(views, info):
+    """x-1 read off the centre (the general form of #8) beside the sums."""
+    u = views["u"]
+    return {"u": u.sh(-1, 1, 0) * 0.25 + u.sh(1, 0, 0) * 0.25 + u.plane_nbr_sum() * 0.125}
+
+
+def _one_mxu(views, info):
+    """Two joint fields, only ``u`` contracted (STP_NBR_MASK 0x1)."""
+    u, c = views["u"], views["c"]
+    return {"u": (u.sh(-1, 0, 0) + u.sh(1, 0, 0) + u.plane_nbr_sum()) / 6.0, "c": c.center() * 0.5 + u.center() * 0.5}
+
+
+MXU_KERNELS = {"m6": (_m6_mxu, ["a", "b"]), "off": (_off_mxu, ["u"]), "one": (_one_mxu, ["u", "c"])}
+#: the contraction's axis values: (compute unit, operands, bf16 storage)
+MXU_COMBOS = [combo for combo in AXIS_COMBOS if combo[0] != "vpu"]
+
+
+def _mxu_sk(name, gs, mi, bf16):
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    kern, names = MXU_KERNELS[name]
+    dts = [torch.bfloat16 if bf16 else torch.float32] * len(names)
+    return StreamKernel(kern, names, 1, gs, dtypes=dts, compute_unit="mxu", mxu_input=mi)
+
+
+_MXU_WRAP_SHAPES = [(18, 20, 70), (16, 5, 7), (9, 2, 1)]
+_MXU_PLANE_CASES = [((2, 17, 19, 70), (1, 2, 1), (2, 1, 3)), ((1, 12, 70, 130), (1, 1, 1), (1, 1, 1)),
+                    ((3, 7, 31, 63), (3, 3, 3), (3, 3, 3))]
+_MXU_WF_CASES = [(1, 1), (2, 3), (3, 3)]
+
+
+@pytest.fixture(scope="module")
+def mxu_libs():
+    """The card, with every contraction-form library the tests below launch
+    built up front, one nvcc each, all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from stencil_tpu_torch.kernels import build
+
+    want = []
+    for name in MXU_KERNELS:
+        for mi in ("f32", "bf16"):
+            for bf16 in (False, True):
+                sk = _mxu_sk(name, (18, 20, 70), mi, bf16)
+                want.append(("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS)))
+                want.append(("stream_plane", st._source(sk, "stream_plane", [1])))
+                want += [("stream_wavefront", st._source(sk, *st._wavefront_variant(m))) for m in (1, 2, 3)]
+    build.build_generated(dict.fromkeys(want))
+    build.build([n for n in build.SOURCES if n.startswith("jacobi_wavefront_mxu")] + ["plane_stencil"])
+    return torch.device("cuda")
+
+
+def _mxu_counter(mi):
+    return "mxu_launches" if mi == "f32" else "mxu_bf16in_launches"
+
+
+def _mxu_data(shape, seed, dev, bf16):
+    return _rand(shape, seed, dev).to(torch.bfloat16 if bf16 else torch.float32)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("name", sorted(MXU_KERNELS))
+@pytest.mark.parametrize("shape", _MXU_WRAP_SHAPES)
+@pytest.mark.parametrize("k", [1, 3])
+def test_mxu_stream_wrap_forms_hold_their_plain_versions(mxu_libs, name, shape, k, unit, mi, bf16):
+    """#6's contraction form, ragged planes (a 2 x 1 plane wraps every
+    neighbour onto one cell) and joint fields: within 4 ulps a level (f32
+    operands), tests/ulp.py's bf16-input bound, or a bf16 ulp (bf16 storage)."""
+    dev = mxu_libs
+    kern, names = MXU_KERNELS[name]
+    blocks = [_mxu_data(shape, 140 + q, dev, bf16) for q in range(len(names))]
+    org = torch.zeros(3, dtype=torch.int32, device=dev)
+    kw = dict(compute_unit=unit, mxu_input=mi)
+    before = getattr(st.stream_wrap_pass, _mxu_counter(mi))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a band on an untilable plane names the dense form
+        got = st.stream_wrap_pass(kern, names, blocks, k, org, shape, **kw)
+        torch.cuda.synchronize()
+        want = st.stream_wrap_pass_plain(kern, names, blocks, k, org, shape, **kw)
+    assert getattr(st.stream_wrap_pass, _mxu_counter(mi)) == before + k
+    for g, w in zip(got, want):
+        _hold_axis(g, w, unit, mi, bf16, k)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("name", sorted(MXU_KERNELS))
+@pytest.mark.parametrize("shape,lo,hi", _MXU_PLANE_CASES)
+def test_mxu_stream_plane_forms_hold_their_plain_versions(mxu_libs, name, shape, lo, hi, unit, mi, bf16):
+    """#7's contraction form over several blocks, tiles a side and uneven
+    shells; the shell passes through bitwise."""
+    dev = mxu_libs
+    kern, names = MXU_KERNELS[name]
+    lo, hi = Dim3(*lo), Dim3(*hi)
+    gs = (30, 80, 140)
+    raws = [_mxu_data(shape, 150 + q, dev, bf16) for q in range(len(names))]
+    org = torch.tensor([[0, 0, 0], [13, 17, 60], [5, 9, 3]][:shape[0]], dtype=torch.int32, device=dev)
+    kw = dict(compute_unit=unit, mxu_input=mi)
+    before = getattr(st.stream_plane_pass, _mxu_counter(mi))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = st.stream_plane_pass(kern, names, raws, lo, hi, 1, org, gs, **kw)
+        torch.cuda.synchronize()
+        want = st.stream_plane_pass_plain(kern, names, raws, lo, hi, 1, org, gs, **kw)
+    assert getattr(st.stream_plane_pass, _mxu_counter(mi)) == before + 1
+    X, Y, Z = shape[1:]
+    inner = (slice(None), slice(lo.x, X - hi.x), slice(lo.y, Y - hi.y), slice(lo.z, Z - hi.z))
+    for g, w in zip(got, want):
+        _hold_axis(g[inner], w[inner], unit, mi, bf16, 1)
+        g[inner] = w[inner]
+        assert torch.equal(g, w)  # the shell passes through
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("name", sorted(MXU_KERNELS))
+@pytest.mark.parametrize("m,s", _MXU_WF_CASES)
+@pytest.mark.parametrize("slabs", [False, True])
+def test_mxu_stream_wavefront_forms_hold_their_plain_versions(mxu_libs, name, m, s, slabs, unit, mi, bf16):
+    """#8's contraction form in the register-queue form (``m6``, ``one``) and
+    the general form (``off``), plain and z-slab layouts, ragged blocks of
+    several tiles and x chunks; compared on the valid region."""
+    dev = mxu_libs
+    kern, names = MXU_KERNELS[name]
+    Xr, Yr, Zr = 90, 70, 130
+    zv = 127 if slabs else Zr
+    gs = _wavefront_gs(s, slabs)
+    raws = [_mxu_data((2, Xr, Yr, Zr), 160 + q, dev, bf16) for q in range(len(names))]
+    zs = [_mxu_data((2, Xr, 2 * s, Yr), 170 + q, dev, bf16) for q in range(len(names))] if slabs else None
+    org = torch.tensor([[5, 0, 7], [gs[0] - 3, Yr - 2 * s, 0]], dtype=torch.int32, device=dev)
+    kw = dict(z_slabs=zs, z_valid=zv if slabs else None, compute_unit=unit, mxu_input=mi)
+    plan = st.stream_wavefront_launch(kern, names, raws, m, s, gs, z_slabs=zs, z_valid=kw["z_valid"],
+                                      compute_unit=unit, mxu_input=mi)
+    assert plan["form"] == ("general" if name == "off" else "queue")
+    before = getattr(st.stream_wavefront_pass, _mxu_counter(mi))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got, got_z = st.stream_wavefront_pass(kern, names, raws, m, s, org, gs, **kw)
+        torch.cuda.synchronize()
+        want, want_z = st.stream_wavefront_pass_plain(kern, names, raws, m, s, org, gs, **kw)
+    assert getattr(st.stream_wavefront_pass, _mxu_counter(mi)) == before + 1
+    S = slice(s, -s)
+    for g, w in zip(got, want):
+        _hold_axis(g[:, S, S, s:zv - s], w[:, S, S, s:zv - s], unit, mi, bf16, m)
+    for g, w in zip(got_z or [], want_z or []):
+        _hold_axis(g[:, S, :, S], w[:, S, :, S], unit, mi, bf16, m)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_mxu_mean6_wavefront_forms_hold_their_plain_versions(mxu_libs, m, late, unit, mi, bf16):
+    """#17's contraction form (the mean-of-6 form of the tensor-core builds),
+    one march and two through the scratch, tiles and x chunks ending early
+    or late."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    shape = _mean6_shape(m, m, late)
+    raw = _mxu_data(shape, 180 + m, mxu_libs, bf16)
+    kw = dict(compute_unit=unit, mxu_input=mi, f32_accumulate=bf16)
+    before = getattr(ps.mean6_shell_wavefront_step, _mxu_counter(mi))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = ps.mean6_shell_wavefront_step(raw, m, m, **kw)
+        torch.cuda.synchronize()
+        want = ps.mean6_shell_wavefront_step_plain(raw, m, m, **kw)
+    assert getattr(ps.mean6_shell_wavefront_step, _mxu_counter(mi)) == before + 1
+    S = slice(m, -m)
+    _hold_axis(got[S, S, S], want[S, S, S], unit, mi, bf16, m)
+    plan = ps.mean6_wavefront_launch(shape, m, m, "bf16" if bf16 else "native", unit, mi)
+    assert plan["launches"] == jk.wavefront_marches(m) and plan["compute_unit"] == unit
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("lo,hi", [((1, 1, 1), (1, 1, 1)), ((1, 2, 3), (3, 1, 2)), ((3, 3, 3), (3, 3, 3))])
+def test_mxu_mean6_plane_forms_hold_their_plain_versions(mxu_libs, lo, hi, unit, mi, bf16):
+    """#18's contraction entries, on a ragged block; the shell bitwise."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    block = _mxu_data((37, 41, 70), 190, mxu_libs, bf16)
+    kw = dict(compute_unit=unit, mxu_input=mi, f32_accumulate=bf16)
+    before = getattr(ps.mean6_plane_step, _mxu_counter(mi))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = ps.mean6_plane_step(block, lo, hi, **kw)
+        torch.cuda.synchronize()
+        want = ps.mean6_plane_step_plain(block, lo, hi, **kw)
+    assert getattr(ps.mean6_plane_step, _mxu_counter(mi)) == before + 1
+    win = tuple(slice(lo[a], block.shape[a] - hi[a]) for a in range(3))
+    _hold_axis(got[win], want[win], unit, mi, bf16, 1)
+    got[win] = want[win]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", [("mxu", "f32", False), ("mxu_band", "bf16", False), ("mxu", "f32", True)])
+def test_mxu_forms_at_the_main_path_shapes(mxu_libs, unit, mi, bf16):
+    """The calls Astaroth's routes make at 8 fields x 512^3, one field each:
+    the wrap pass over 512^3 at k = 16, the plane pass over (8, 262^3), the
+    wavefront over 518^3 at m = 3; and the mean-of-6 kernels at 518^3."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, names = AstarothSim._kernel_mxu, ["d0"]
+    kw = dict(compute_unit=unit, mxu_input=mi)
+    gs = (512, 512, 512)
+    block = _mxu_data(gs, 200, mxu_libs, bf16)
+    org = torch.zeros(3, dtype=torch.int32, device=mxu_libs)
+    _hold_axis(st.stream_wrap_pass(kern, names, [block], 16, org, gs, **kw)[0],
+               st.stream_wrap_pass_plain(kern, names, [block], 16, org, gs, **kw)[0], unit, mi, bf16, 16)
+    del block
+    s3 = Dim3(3, 3, 3)
+    raws = [_mxu_data((8, 262, 262, 262), 201, mxu_libs, bf16)]
+    org8 = torch.tensor([[x, y, z] for x in (0, 256) for y in (0, 256) for z in (0, 256)], dtype=torch.int32,
+                        device=mxu_libs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = st.stream_plane_pass(kern, names, raws, s3, s3, 1, org8, gs, **kw)[0]
+        want = st.stream_plane_pass_plain(kern, names, raws, s3, s3, 1, org8, gs, **kw)[0]
+    S = slice(3, -3)
+    _hold_axis(got[:, S, S, S], want[:, S, S, S], unit, mi, bf16, 1)
+    del raws, got, want
+    raw = _mxu_data((518, 518, 518), 202, mxu_libs, bf16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = st.stream_wavefront_pass(kern, names, [raw], 3, 3, org, gs, **kw)[0][0]
+        want = st.stream_wavefront_pass_plain(kern, names, [raw], 3, 3, org, gs, **kw)[0][0]
+        _hold_axis(got[S, S, S], want[S, S, S], unit, mi, bf16, 3)
+        kw6 = dict(kw, f32_accumulate=bf16)
+        got = ps.mean6_shell_wavefront_step(raw, 3, 3, **kw6)
+        want = ps.mean6_shell_wavefront_step_plain(raw, 3, 3, **kw6)
+        _hold_axis(got[S, S, S], want[S, S, S], unit, mi, bf16, 3)
+        got = ps.mean6_plane_step(raw, s3, s3, **kw6)
+        want = ps.mean6_plane_step_plain(raw, s3, s3, **kw6)
+    _hold_axis(got[S, S, S], want[S, S, S], unit, mi, bf16, 1)
+
+
+@pytest.mark.parametrize("unit,mi,bf16", [("mxu", "f32", False), ("mxu_band", "bf16", False), ("mxu", "bf16", True)])
+@pytest.mark.parametrize("schedule,grid", [("auto", False), ("wavefront", False), ("wavefront", True),
+                                           ("per-step", True)])
+def test_astaroth_mxu_routes_on_card(dev, schedule, grid, unit, mi, bf16):
+    """``AstarothSim(compute_unit=...)`` on each route against its vpu run at
+    the same storage: the reassociation bound of ``tests/test_kernel_axes.py``'s
+    ``test_stream_mxu_matches_vpu`` (4 roundings a level at the six-sum's
+    magnitude; with bf16 operands tests/ulp.py's bf16-input bound on top, and
+    a bf16 ulp a pass under bf16 storage); the launches in the form's
+    counter, none in the vpu ones."""
+    from stencil_tpu_torch.kernels import ledger
+
+    steps, runs, counts = 6, [], None
+    for u in ("vpu", unit):
+        m = AstarothSim(64, 64, 64, num_quantities=2, kernel_impl="cuda", schedule=schedule, compute_unit=u,
+                        mxu_input=mi if u != "vpu" else "auto", storage_dtype="bf16" if bf16 else None,
+                        subdomains=8 if grid else 1)
+        m.realize()
+        ledger.reset_launch_counts()
+        m.step(steps)
+        counts = {k: v for k, v in ledger.launch_counts().items() if v}
+        runs.append(np.stack([m.field(q) for q in range(2)]).astype(np.float64))
+    route = m._step._stream_plan["route"]
+    kernel = {"wrap": "stream_wrap_pass", "plane": "stream_plane_pass", "wavefront": "stream_wavefront_pass"}[route]
+    assert counts.get(f"{kernel}_{_mxu_counter(mi)[:-9]}", 0) > 0 and kernel not in counts, counts
+    top = float(np.abs(runs[0]).max())
+    bound = 4 * steps * 6.0 * top * 2.0 ** -24  # 4 reordered roundings a level at the six-sum's magnitude
+    bound += steps * 4 * 2.0 ** -9 * top if mi == "bf16" else 0.0  # a bf16 rounding an operand read
+    bound += steps * 2.0 ** -7 * top if bf16 else 0.0  # a bf16 storage ulp a pass
+    assert np.isfinite(runs[1]).all() and np.abs(runs[1] - runs[0]).max() <= bound

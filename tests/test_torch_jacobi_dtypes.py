@@ -283,7 +283,10 @@ def test_mean6_wavefront_levels_equal_plane_steps(dt):
 
 
 def test_mean6_axes_and_dtypes_checked():
-    """Contraction axes still name item 9.2; a bfloat16 block needs
+    """The contraction axes are ported (tests/test_torch_stream_mxu.py): f32
+    and bf16-storage blocks take them, a float64 block under a contracting
+    unit is refused as the JAX kernels assert an f32 accumulator, and bf16
+    operands under vpu change nothing; a bfloat16 block needs
     ``f32_accumulate``; f32 blocks take it as the JAX kernels do (it changes
     nothing); a float64 block refuses it; ``out`` matches the block's dtype."""
     one = (1, 1, 1)
@@ -291,10 +294,14 @@ def test_mean6_axes_and_dtypes_checked():
         block = torch.zeros(10, 10, 10, dtype=dt)
         acc = dt == torch.bfloat16
         for kw in ({"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
-            with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-                ps.mean6_plane_step(block, one, one, f32_accumulate=acc, **kw)
-            with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-                ps.mean6_shell_wavefront_step(block, 2, 3, f32_accumulate=acc, **kw)
+            if dt == torch.float64 and "compute_unit" in kw:
+                with pytest.raises(AssertionError, match="f32 accumulator"):
+                    ps.mean6_plane_step(block, one, one, f32_accumulate=acc, **kw)
+                with pytest.raises(AssertionError, match="f32 accumulator"):
+                    ps.mean6_shell_wavefront_step(block, 2, 3, f32_accumulate=acc, **kw)
+                continue
+            assert ps.mean6_plane_step(block, one, one, f32_accumulate=acc, **kw).dtype == dt
+            assert ps.mean6_shell_wavefront_step(block, 2, 3, f32_accumulate=acc, **kw).dtype == dt
     with pytest.raises(TypeError, match="f32_accumulate"):
         ps.mean6_plane_step(torch.zeros(8, 8, 8, dtype=torch.bfloat16), one, one)
     with pytest.raises(TypeError, match="f32_accumulate"):
@@ -521,7 +528,8 @@ def test_new_forms_in_the_ledger_and_the_builds():
         assert {"stp_mean6_march", "stp_mean6_march_plan", "stp_jacobi_plane", "stp_jacobi_slab"} <= set(
             build.SIGNATURES[name])
     assert set(build.SIGNATURES["plane_stencil"]) == {"stp_mean6_plane_level", "stp_mean6_plane_level_bf16",
-                                                      "stp_mean6_plane_level_f64"}
+                                                      "stp_mean6_plane_level_f64", "stp_mean6_plane_level_mxu",
+                                                      "stp_mean6_plane_level_mxu_bf16"}
     with pytest.raises(AssertionError, match="f32 accumulator"):
         jk.jacobi_wrap_launch((8, 8, 8), 2, compute_unit="mxu", storage="f64")
 

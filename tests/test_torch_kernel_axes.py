@@ -512,8 +512,9 @@ def test_set_storage_bf16_degrades_on_mixed_dtype_domain():
 def test_stream_engine_refuses_a_bf16_domain():
     """The stream engine takes a bf16-storage domain (float32 levels, one
     rounding a pass), bitwise equal to the JAX package's on the plane route;
-    on it, as on any domain, it still refuses the contraction (the other
-    half of ROADMAP.md queue 1 item 9)."""
+    on it, as on any domain, a kernel that declares no contraction form
+    degrades the contraction to vpu with a warning (the contraction itself:
+    tests/test_torch_stream_mxu.py)."""
     dd, h = _bf16_domain("direct")
     jd = JDomain(16, 16, 16)
     jd.set_radius(JRadius.constant(2))
@@ -527,8 +528,9 @@ def test_stream_engine_refuses_a_bf16_domain():
         return {"q0": (views["q0"].center() + views["q0"].sh(1, 0, 0)) / 3.0}
 
     for kw in ({"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            dd.make_step(kernel, engine="stream", **kw)
+        with pytest.warns(RuntimeWarning, match="cannot engage|has no effect"):
+            plan = dd.make_step(kernel, engine="stream", **kw)._stream_plan
+        assert (plan["compute_unit"], plan["mxu_input"], plan["f32_accumulate"]) == ("vpu", "f32", True)
     step = dd.make_step(kernel, engine="stream", stream_path="plane")
     assert step._stream_plan["f32_accumulate"] and step._stream_plan["route"] == "plane"
     dd.run_step(step, 3)

@@ -91,11 +91,16 @@ def test_mean6_wavefront_levels_equal_plane_steps():
 def test_mean6_unported_axes_and_limits_raise():
     block = torch.zeros(N, N, N)
     one = Dim3(1, 1, 1)
-    for kw in ({"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    # the contraction form is ported (tests/test_torch_stream_mxu.py): an
+    # unknown unit or operand precision is refused, and a float64 block under
+    # a contracting unit, where the JAX kernel asserts an f32 accumulator
+    for kw in ({"compute_unit": "gpu"}, {"mxu_input": "fp8"}):
+        with pytest.raises(ValueError, match="unknown"):
             ps.mean6_plane_step(block, one, one, **kw)
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        with pytest.raises(ValueError, match="unknown"):
             ps.mean6_shell_wavefront_step(block, 2, 3, **kw)
+    with pytest.raises(AssertionError, match="f32 accumulator"):
+        ps.mean6_plane_step(block.double(), one, one, compute_unit="mxu")
     # bf16 storage (f32_accumulate) and float64 blocks are ported: each
     # engages and equals the JAX kernel (tests/test_torch_jacobi_dtypes.py
     # holds them at more shapes and depths)

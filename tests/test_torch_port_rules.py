@@ -74,6 +74,19 @@ def test_ledger_covers_every_tpu_kernel():
             "pallas_pack_slab", "pallas_unpack_slab", "mean6_shell_wavefront_step", "mean6_plane_step"} <= set(counts)
 
 
+def test_ledger_lists_the_contraction_forms():
+    """The tensor-core contraction forms of rows 6-8, 17 and 18 count apart,
+    on f32 and bf16 operands, each under its wrapper's counter."""
+    want = {f"{fn}_{form}" for fn in ("stream_wrap_pass", "stream_plane_pass", "stream_wavefront_pass",
+                                      "mean6_shell_wavefront_step", "mean6_plane_step")
+            for form in ("mxu", "mxu_bf16in")}
+    assert want <= set(ledger.FORMS)
+    for name in want:
+        wrapper, attr = ledger.counter(name)
+        assert attr == ("mxu_bf16in_launches" if name.endswith("bf16in") else "mxu_launches")
+        assert getattr(wrapper, attr) == 0 or ledger.launch_counts()[name] == getattr(wrapper, attr)
+
+
 def test_default_device_without_gpu_raises(monkeypatch):
     from stencil_tpu_torch.domain import DistributedDomain
     from stencil_tpu_torch.models.jacobi import Jacobi3D

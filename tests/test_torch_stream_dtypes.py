@@ -564,12 +564,17 @@ def test_torch_engine_degrades_bf16_storage():
         warnings.simplefilter("error")
         t = _port_model(1, kernel_impl="cuda", storage_dtype="bf16")
     assert t._storage_dtype == "bf16" and t.dd.storage_dtype() == "bf16"
-    # the contraction half of item 9 is still refused
-    for kw in ({"compute_unit": "mxu"}, {"mxu_input": "bf16"}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            AstarothSim(8, 8, 8, device="cpu", storage_dtype="bf16", **kw)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t.dd.make_step(mean6, engine="stream", **kw)
+    # the contraction half of item 9 is ported (tests/test_torch_stream_mxu.py):
+    # the torch engine has no contraction kernels and degrades it with a
+    # warning, and bf16 storage qualifies for it on the CUDA engine
+    with pytest.warns(RuntimeWarning, match="compute_unit=mxu .* cannot engage for astaroth:torch"):
+        m = AstarothSim(8, 8, 8, device="cpu", storage_dtype="bf16", compute_unit="mxu")
+        m.realize()
+    assert m._compute_unit == "vpu"
+    m = AstarothSim(8, 8, 8, kernel_impl="cuda", device="cpu", storage_dtype="bf16", compute_unit="mxu",
+                    mxu_input="bf16")
+    m.realize()
+    assert (m._compute_unit, m._mxu_input, m._step._stream_plan["f32_accumulate"]) == ("mxu", "bf16", True)
 
 
 @pytest.mark.parametrize("dt", DTYPES)
