@@ -231,9 +231,8 @@ non-zero before the result line:
     fields)`` under ``storage_dtype="bf16"`` (``wavefront`` and ``auto`` on
     1x1x1; on 2x2x2 ``per-step`` under ``direct`` and ``yzpack_pallas``,
     ``per-step`` fused, ``auto``, ``auto`` fused, ``auto`` split, and
-    ``auto`` at 511^3) and under ``dtype=torch.float64`` (``wavefront`` and
-    ``auto`` on 1x1x1, ``per-step``, ``auto``, and both fused runs on
-    2x2x2), 24 iterations each with the counters reset before and read
+    ``auto`` at 511^3) and under ``dtype=torch.float64`` on the same
+    routes, 24 iterations each with the counters reset before and read
     after: every launch under the dtype's form and none under the float32
     one, finite, held against the float32 run of its route (phases 8, 11,
     13 and 16: ``bf16_storage_atol`` of its passes; float64 within the
@@ -291,6 +290,26 @@ non-zero before the result line:
     the vpu run's; and 24 levels of exchange + #18 and of exchange + #17 (m
     = 3) on a periodic 512^3 domain with a radius-3 shell under each unit,
     held against the same run under ``vpu`` within that bound.
+23. the tensor-core contraction under the fused halo and the split
+    schedule: the fused forms of #7 and #8 under ``mxu`` (f32 operands) and
+    ``mxu_band`` (bf16 operands) held against their plain versions on
+    ragged blocks with random shell buffers (#7 over two blocks with uneven
+    shells, the shell passed through bitwise; #8 in the register-queue form
+    at m = 3 and the general form at m = 2; f32 and bf16 storage), then at
+    the main path's shapes (``bench_kernels.stream_fused_mxu_times``: #7
+    over 8 Astaroth fields of (8, 262^3), #8 of one field at m = 3, (8, 6,
+    262, 262) buffers a field), each form's CUDA-event and device ms beside
+    the vpu fused form's and the array contraction form's, its plain
+    version's and its bound; then ``AstarothSim(512^3, 8 fields)`` on
+    2x2x2 under each unit, ``per-step`` fused and ``auto`` fused on
+    ``yzpack_pallas``, ``auto`` split and ``per-step`` split on ``direct``,
+    24 iterations each with the counters reset before and read after: every
+    pass under the fused contraction form (fused) or the array contraction
+    form (split: the interior pass and six band passes a group), none under
+    the vpu ones, finite, held against the phase-8 f32 vpu run within
+    ``mxu_vs_vpu_atol``, its ms/iter (the better of two runs of 24) beside
+    phase 16's vpu run of the same schedule and, on the plane route, phase
+    22's array contraction run.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -1187,11 +1206,6 @@ AST20 = {
     "auto split": ("auto", (2, 2, 2), "direct", "auto", "split", 0, ("f16", "auto split")),
     "auto uneven 2x2x2": ("auto", (2, 2, 2), None, "auto", "auto", 1, ("ast_u", "auto")),
 }
-#: the runs of each dtype: bf16 on every route above, f64 on the main ones
-#: and on the fused runs that launch its fused forms
-AST20_RUNS = {"bf16": list(AST20),
-              "f64": ["wavefront 1x1x1", "auto 1x1x1", "per-step 2x2x2 direct", "auto 2x2x2", "per-step fused",
-                      "auto fused"]}
 
 
 def phase20(card: str, dev: torch.device, refs: dict, f32_runs: dict) -> dict:
@@ -1385,8 +1399,8 @@ def phase20(card: str, dev: torch.device, refs: dict, f32_runs: dict) -> dict:
         sim.realize()
         return sim
 
-    for dname, keys in AST20_RUNS.items():
-        for key in keys:
+    for dname in ("bf16", "f64"):  # every route above under each
+        for key in AST20:
             size = N - AST20[key][5]
             rec_name, rkey = AST20[key][6]
             f32 = f32_runs[rec_name][rkey]
@@ -1867,6 +1881,35 @@ def mxu_vs_vpu_atol(levels: int, top: float, mxu_input: str) -> float:
     return atol + (mxu_bf16_input_atol(levels, top) if mxu_input == "bf16" else 0.0)
 
 
+def hold_contraction(phase: int, rec: dict, errs: dict, form: str, got, want, levels: int, bf16: bool = False,
+                     what: str = "") -> None:
+    """A contraction form against its plain version: finite, within 4 ulps
+    a level (f32 operands), ``mxu_bf16_input_atol`` (bf16 operands) or a
+    bf16 ulp (bf16 storage); the largest error is kept in ``errs[form]``
+    and the check in ``rec["checks"]``."""
+    sync()
+    mi = "bf16" if form.endswith("_bf16in") else "f32"
+    got, want = (list(got), list(want)) if isinstance(got, (list, tuple)) else ([got], [want])
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"phase {phase} {form} {what}: dtypes {g.dtype} / {w.dtype}, or not finite")
+        e = max_err(g, w)
+        if bf16:
+            ok, limit = ulp_dist(g, w) <= 1, "1 bf16 ulp"
+        elif mi == "f32":
+            ok, limit = ulp_dist(g, w) <= 4 * levels, f"{4 * levels} ulps"
+        else:
+            atol = mxu_bf16_input_atol(levels, float(w.abs().max()))
+            ok, limit = e <= atol, f"{atol:.3e}"
+        if not ok:
+            raise AssertionError(f"phase {phase} {form} {what}: kernel against plain version: max abs err {e}, "
+                                 f"{ulp_dist(g, w)} ulps, over {limit}")
+        err = max(err, e)
+    errs[form] = max(errs.get(form, 0.0), err)
+    rec["checks"].append({"form": form, "what": what, "max_abs_err": err})
+
+
 def phase22(card: str, dev: torch.device, ref: torch.Tensor) -> dict:
     """Phase 22 (see the module's docstring): the tensor-core contraction
     form of rows 6-8, 17 and 18.  ``ref``: the f32 vpu Astaroth interiors
@@ -1885,30 +1928,7 @@ def phase22(card: str, dev: torch.device, ref: torch.Tensor) -> dict:
     errs = {}
 
     def hold(form: str, got, want, levels: int, bf16: bool = False, what: str = "") -> None:
-        """A contraction form against its plain version: finite, within 4
-        ulps a level (f32 operands), ``mxu_bf16_input_atol`` (bf16 operands)
-        or a bf16 ulp (bf16 storage)."""
-        sync()
-        mi = "bf16" if form.endswith("_bf16in") else "f32"
-        got, want = (list(got), list(want)) if isinstance(got, (list, tuple)) else ([got], [want])
-        err = 0.0
-        for g, w in zip(got, want):
-            if g.dtype != w.dtype or not bool(torch.isfinite(g.float()).all()):
-                raise AssertionError(f"phase 22 {form} {what}: dtypes {g.dtype} / {w.dtype}, or not finite")
-            e = max_err(g, w)
-            if bf16:
-                ok, limit = ulp_dist(g, w) <= 1, "1 bf16 ulp"
-            elif mi == "f32":
-                ok, limit = ulp_dist(g, w) <= 4 * levels, f"{4 * levels} ulps"
-            else:
-                atol = mxu_bf16_input_atol(levels, float(w.abs().max()))
-                ok, limit = e <= atol, f"{atol:.3e}"
-            if not ok:
-                raise AssertionError(f"phase 22 {form} {what}: kernel against plain version: max abs err {e}, "
-                                     f"{ulp_dist(g, w)} ulps, over {limit}")
-            err = max(err, e)
-        errs[form] = max(errs.get(form, 0.0), err)
-        rec["checks"].append({"form": form, "what": what, "max_abs_err": err})
+        hold_contraction(22, rec, errs, form, got, want, levels, bf16, what)
 
     def rand(shape, seed, dt=torch.float32):
         return bk.device_rand(shape, seed, dev, dt)
@@ -2129,6 +2149,207 @@ def phase22(card: str, dev: torch.device, ref: torch.Tensor) -> dict:
     return rec
 
 
+#: phase 23's Astaroth runs at 512^3 on 2x2x2: key -> (schedule, exchange
+#: route, stream halo, stream overlap, the route each takes); each stands
+#: beside phase 16's vpu run of the same key and, on the plane route, phase
+#: 22's array-form contraction run ("per-step 2x2x2")
+AST23 = {"per-step fused": ("per-step", "yzpack_pallas", "fused", "auto", "plane"),
+         "auto fused": ("auto", "yzpack_pallas", "fused", "auto", "wavefront"),
+         "auto split": ("auto", "direct", "auto", "split", "wavefront"),
+         "per-step split": ("per-step", "direct", "auto", "split", "plane")}
+
+
+def phase23(card: str, dev: torch.device, ref: torch.Tensor, f16: dict, mx22: dict) -> dict:
+    """Phase 23 (see the module's docstring): the tensor-core contraction
+    under the fused halo and the split schedule.  ``ref``: the f32 vpu
+    Astaroth interiors after ``AST_ITERS`` iterations at 512^3 (host);
+    ``f16`` / ``mx22``: phases 16's and 22's records, whose runs stand
+    beside this phase's.  Returns the phase's record with, under
+    ``forms``, each new form's kernels-line numbers."""
+    from stencil_tpu_torch.bin import bench_kernels as bk
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import stream as st
+
+    rec = {"checks": [], "forms": {}, "routes": {}}
+    errs = {}
+
+    def hold(form: str, got, want, levels: int, bf16: bool = False, what: str = "") -> None:
+        hold_contraction(23, rec, errs, form, got, want, levels, bf16, what)
+
+    def rand(shape, seed, dt=torch.float32):
+        return bk.device_rand(shape, seed, dev, dt)
+
+    def bufs(n, X, Y, Z, lo, hi, nf, seed, dt):
+        """Random fused shell buffers (``fused_shell_exchange``'s layouts)."""
+        shapes = ((lo.x + hi.x, Y, Z), (lo.y + hi.y, X, Z), (lo.z + hi.z, Y, X))
+        return tuple([rand((n, *sh), seed + 10 * j + q, dt) for q in range(nf)] for j, sh in enumerate(shapes))
+
+    # -- each fused form against its plain version on ragged blocks, f32 and
+    # bf16 operands, f32 and (f32 operands) bf16 storage
+    t0 = time.perf_counter()
+    ak = AstarothSim._kernel_mxu
+    names8 = [f"d{q}" for q in range(AST_Q)]
+    gs_r = (30, 40, 140)
+    for suffix, (unit, mi) in MXU22.items():
+        for bf16 in (False, True) if mi == "f32" else (False,):
+            dt = torch.bfloat16 if bf16 else torch.float32
+            kw = {"compute_unit": unit, "mxu_input": mi}
+            tag = f"{'bf16 storage' if bf16 else 'f32'}, {unit}"
+            lo, hi = Dim3(1, 2, 1), Dim3(2, 1, 3)
+            raws = [rand((2, 17, 19, 70), 710 + q, dt) for q in range(AST_Q)]
+            fs = bufs(2, 17, 19, 70, lo, hi, AST_Q, 720, dt)
+            org2 = torch.tensor([[0, 0, 0], [13, 17, 60]], dtype=torch.int32, device=dev)
+            inner = (slice(None), slice(1, -2), slice(2, -1), slice(1, -3))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # no band tile: the dense form
+                got = st.stream_plane_pass(ak, names8, raws, lo, hi, 1, org2, gs_r, fused_shell=fs, **kw)
+                want = st.stream_plane_pass_plain(ak, names8, raws, lo, hi, 1, org2, gs_r, fused_shell=fs, **kw)
+            hold(f"stream_plane_pass_fused_{suffix}", [g[inner] for g in got], [w[inner] for w in want], 1, bf16,
+                 f"{AST_Q} x (2,17,19,70) fused, {tag}")
+            for g, w in zip(got, want):
+                g[inner] = w[inner]
+                if not torch.equal(g, w):
+                    raise AssertionError(f"phase 23 stream_plane_pass_fused_{suffix}: the shell did not pass through "
+                                         "from the buffers")
+            s = 3
+            s3 = Dim3(s, s, s)
+            gs_w = (2 * (40 - 2 * s) + 3, 2 * (70 - 2 * s), 2 * (130 - 2 * s))
+            orgw = torch.tensor([[5, 0, 7], [gs_w[0] - 3, 70 - 2 * s, 0]], dtype=torch.int32, device=dev)
+            raw = [rand((2, 40, 70, 130), 730, dt)]
+            fs1 = bufs(2, 40, 70, 130, s3, s3, 1, 740, dt)
+            S = slice(s, -s)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                got = st.stream_wavefront_pass(ak, names8[:1], raw, 3, s, orgw, gs_w, fused_shell=fs1, **kw)[0]
+                want = st.stream_wavefront_pass_plain(ak, names8[:1], raw, 3, s, orgw, gs_w, fused_shell=fs1, **kw)[0]
+                hold(f"stream_wavefront_pass_fused_{suffix}", got[0][:, S, S, S], want[0][:, S, S, S], 3, bf16,
+                     f"(2,40,70,130) m=3 queue, fused, {tag}")
+                if not bf16:
+                    got = st.stream_wavefront_pass(off_mxu_kernel, ["u"], raw, 2, s, orgw, gs_w, fused_shell=fs1,
+                                                   **kw)[0]
+                    want = st.stream_wavefront_pass_plain(off_mxu_kernel, ["u"], raw, 2, s, orgw, gs_w,
+                                                          fused_shell=fs1, **kw)[0]
+                    hold(f"stream_wavefront_pass_fused_{suffix}", got[0][:, S, S, S], want[0][:, S, S, S], 2, bf16,
+                         f"(2,40,70,130) m=2 general, fused, {tag}")
+            del raws, fs, raw, fs1, got, want
+    torch.cuda.empty_cache()
+    log(f"phase 23: every fused contraction form against its plain version on ragged blocks, "
+        f"{len(rec['checks'])} checks, {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path's shapes: held, then timed beside the vpu fused form
+    # and the array contraction form
+    t0 = time.perf_counter()
+    times = bk.stream_fused_mxu_times(dev, device_ms=lambda call, n: device_ms_per_call(call, per_call=n), plain=True,
+                                      check=lambda form, got, want, levels: hold(form, got, want, levels,
+                                                                                 what="the main path's shape"))
+    ps = N // 2 + 6
+    shapes = {"stream_plane_pass": f"{AST_Q} fields x (8,{ps},{ps},{ps}) f32, shell 3, buffers (8,6,{ps},{ps}) x 3 "
+                                   "a field",
+              "stream_wavefront_pass": f"1 field x (8,{ps},{ps},{ps}) f32 m=3 s=3, buffers (8,6,{ps},{ps}) x 3"}
+    for name, t in times.items():
+        base = name.split("_fused")[0]
+        rec["forms"][name] = {"ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                              "bound": (t["bound_ms"], t["bound_by"]), "bound_of": t["bound_of"],
+                              "tensor_core_flops": t["tensor_core_flops"], "vpu_fused_ms": t["vpu_fused_ms"],
+                              "vpu_fused_device_ms": t["vpu_fused_device_ms"], "mxu_array_ms": t["mxu_array_ms"],
+                              "mxu_array_device_ms": t["mxu_array_device_ms"], "launch": t.get("launch"),
+                              "ptxas": t["ptxas"], "mxu_array_ptxas": t["mxu_array_ptxas"],
+                              "shape": f"{shapes[base]}, {t['compute_unit']} on {t['mxu_input']} operands"}
+        f = rec["forms"][name]
+        log(f"{name} {f['shape']}: CUDA events {f['ms']:.4f} ms a call, device {f['device_ms']:.4f} (vpu fused form "
+            f"{f['vpu_fused_ms']:.4f}, device {f['vpu_fused_device_ms']:.4f}; array contraction form "
+            f"{f['mxu_array_ms']:.4f}, device {f['mxu_array_device_ms']:.4f}; plain {f['plain_ms']:.4f}), bound "
+            f"{f['bound'][0]:.4f} ms ({f['bound_of']})" + (f"; launch {plan_str(f['launch'])}" if f["launch"] else "")
+            + f" on {card}")
+    torch.cuda.empty_cache()
+    log(f"phase 23: main-path shapes held and timed in {time.perf_counter() - t0:.1f} s")
+
+    # -- Astaroth at full width on 2x2x2 under each unit, fused and split:
+    # 24 iterations with the counters reset before and read after, held
+    # against the f32 vpu run
+    top = float(ref.abs().max())
+
+    def interiors_of(sim) -> list:
+        lo, n = sim.dd.shell_radius().lo(), sim.dd.local_spec().sz
+        dim = sim.dd.grid_dim()
+        return [sim.dd.get_curr(h)[..., lo.x:lo.x + n.x, lo.y:lo.y + n.y, lo.z:lo.z + n.z]
+                .permute(0, 3, 1, 4, 2, 5).reshape(dim.x * n.x, dim.y * n.y, dim.z * n.z) for h in sim.handles]
+
+    t0 = time.perf_counter()
+    for suffix, (unit, mi) in MXU22.items():
+        for key, (schedule, route, halo, overlap, want_route) in AST23.items():
+            sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", schedule=schedule,
+                              exchange_route=route, stream_halo=halo, stream_overlap=overlap, compute_unit=unit,
+                              mxu_input=mi)
+            sim.dd.set_partition(2, 2, 2)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # a plane without a band tile runs the dense form
+                sim.realize()
+            plan = sim._step._stream_plan
+            fused = halo == "fused"
+            if (plan["route"], plan["halo"], plan["overlap"], plan["compute_unit"], plan["mxu_input"],
+                    plan["z_slabs"]) != (want_route, "fused" if fused else "array", "off" if fused else "split", unit,
+                                         mi, False):
+                raise AssertionError(f"phase 23 astaroth {key} {unit}/{mi}: plan {plan}")
+            ledger.reset_launch_counts()
+            sync()
+            t1 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dts = [(time.perf_counter() - t1) / AST_ITERS]
+            counts = {k: v for k, v in ledger.launch_counts().items() if v}
+            kernel = f"stream_{want_route}_pass"
+            form = f"{kernel}_fused_{suffix}" if fused else f"{kernel}_{suffix}"
+            groups = AST_Q if plan["grouping"] == "per-field" else 1
+            # a pass a step (plane) or a macro (wavefront) a group; under
+            # split the interior pass and six band passes
+            want = groups * (AST_ITERS if want_route == "plane" else -(-AST_ITERS // plan["m"])) * (1 if fused else 7)
+            others = sorted(k for k in counts if k.startswith(kernel) and k != form)
+            if counts.get(form, 0) != want or others:
+                raise AssertionError(f"phase 23 astaroth {key} {unit}/{mi}: launches {counts}, want {want} of {form} "
+                                     f"and none of {others}")
+            err, finite = 0.0, True
+            for q, got in enumerate(interiors_of(sim)):
+                finite = finite and bool(torch.isfinite(got).all())
+                err = max(err, float((got.double() - ref[q].to(dev).double()).abs().max()))
+            limit = mxu_vs_vpu_atol(AST_ITERS, top, mi)
+            if not finite or err > limit:
+                raise AssertionError(f"phase 23 astaroth {key} {unit}/{mi}: finite {finite}, {err} against the vpu "
+                                     f"run exceeds {limit}")
+            sync()
+            t1 = time.perf_counter()
+            sim.step(AST_ITERS)
+            sync()
+            dts.append((time.perf_counter() - t1) / AST_ITERS)
+            dt = min(dts)
+            twin22 = mx22["routes"].get(f"per-step 2x2x2 {suffix}") if want_route == "plane" else None
+            entry = {"route": plan["route"], "m": plan["m"], "grouping": plan["grouping"], "exchange_route": route,
+                     "halo": plan["halo"], "overlap": plan["overlap"], "compute_unit": unit, "mxu_input": mi,
+                     "launches": counts, "max_abs_err_vs_vpu": err, "limit": limit, "ms_per_iter": dt * 1e3,
+                     "ms_per_iter_runs": [t * 1e3 for t in dts], "mupdates_per_s": AST_Q * N ** 3 / dt / 1e6,
+                     "vpu_ms_per_iter": f16[key]["ms_per_iter"],
+                     "array_mxu_ms_per_iter": twin22["ms_per_iter"] if twin22 else None}
+            rec["routes"][f"{key} {suffix}"] = entry
+            log(f"phase 23 astaroth {AST_Q}q {N}^3 {key} 2x2x2 {unit}/{mi} ({plan['route']}, m={plan['m']}, "
+                f"{plan['grouping']}, {route}): {dt * 1e3:.4f} ms/iter against {f16[key]['ms_per_iter']:.4f} (vpu, "
+                "phase 16)" + (f" and {twin22['ms_per_iter']:.4f} (array halo, phase 22)" if twin22 else "")
+                + f"; {counts[form]} launches of {form}; max abs err against the vpu run {err:.3e} (limit "
+                f"{limit:.3e}) on {card}")
+            fe = rec["forms"].get(form)
+            if fe is not None and "counts" not in fe:
+                fe["counts"], fe["want"] = counts, want
+            del sim
+            torch.cuda.empty_cache()
+    log(f"phase 23: Astaroth runs in {time.perf_counter() - t0:.1f} s")
+    missing = [name for name, f in rec["forms"].items() if "counts" not in f]
+    if missing:
+        raise AssertionError(f"phase 23: no run launched {missing}")
+    rec["errs"] = errs
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -2233,6 +2454,15 @@ def main() -> int:
                                for m in ((1, 2, 3) if dt == torch.float32 else (3,))]
         sko = StreamKernel(off_mxu_kernel, ["u"], 1, gs_r, compute_unit="mxu", mxu_input=mi)
         stream_sources.append(("stream_wavefront", st._source(sko, *st._wavefront_variant(2))))
+        # phase 23's fused contraction forms: the plane's over 8 fields,
+        # every depth of the wavefront's over one, and the general form's
+        for dt in (torch.float32, torch.bfloat16) if mi == "f32" else (torch.float32,):
+            sk8 = StreamKernel(ast_mxu, ast_names, 1, gs_main, dtypes=[dt] * AST_Q, compute_unit="mxu", mxu_input=mi)
+            sk1 = StreamKernel(ast_mxu, ast_names[:1], 1, gs_main, dtypes=[dt], compute_unit="mxu", mxu_input=mi)
+            stream_sources.append(("stream_plane_fused", st._source(sk8, "stream_plane_fused", [1], st._FUSED)))
+            stream_sources += [("stream_wavefront_fused", st._source(sk1, *st._wavefront_variant(m, True)))
+                               for m in ((1, 2, 3) if dt == torch.float32 else (3,))]
+        stream_sources.append(("stream_wavefront_fused", st._source(sko, *st._wavefront_variant(2, True))))
     # phase 15's reference: the plane route of a mean6 user kernel
     stream_sources.append(("stream_plane", st._source(StreamKernel(mean6_kernel, ["u"], 1, gs_main),
                                                       "stream_plane", [1])))
@@ -3903,6 +4133,12 @@ def main() -> int:
     phase_start(22)
     mx22 = phase22(card, dev, ast_ref_host)
     errs.update(mx22["errs"])
+    phase_end()
+
+    # --- 23. the contraction under the fused halo and the split schedule ---------------------
+    phase_start(23)
+    mx23 = phase23(card, dev, ast_ref_host, f16, mx22)
+    errs.update(mx23["errs"])
     del ast_ref_host
     phase_end()
 
@@ -3986,6 +4222,12 @@ def main() -> int:
         # is jacobi_bound's (bytes, f32 or tensor-core operations)
         (name, f["counts"], AST_ITERS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
         for name, f in mx22["forms"].items()
+    ] + [
+        # phase 23's forms: launches over 24 Astaroth iterations of the fused
+        # route that runs them; the bound is jacobi_bound's at the fused
+        # rows' bytes
+        (name, f["counts"], AST_ITERS, f["want"], f["ms"], f["plain_ms"], None, 0, 0, f["shape"], f["bound"])
+        for name, f in mx23["forms"].items()
     ]
     entries = {ledger.wrapper_name(e): e for e in ledger.ported().values()}
     entries.update({name: ledger.form_entry(name) for name in ledger.FORMS})
@@ -4046,6 +4288,12 @@ def main() -> int:
             f = f21["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], f32_ms=f["f32_ms"], f32_device_ms=f["f32_device_ms"],
                             launch=f["launch"], copy_bound_ms=None)
+        if name in mx23["forms"]:
+            f = mx23["forms"][name]
+            rows[-1].update(device_ms=f["device_ms"], vpu_fused_ms=f["vpu_fused_ms"],
+                            vpu_fused_device_ms=f["vpu_fused_device_ms"], mxu_array_ms=f["mxu_array_ms"],
+                            mxu_array_device_ms=f["mxu_array_device_ms"], bound_of=f["bound_of"],
+                            tensor_core_flops=f["tensor_core_flops"], launch=f["launch"], copy_bound_ms=None)
         if name in mx22["forms"]:
             f = mx22["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], vpu_ms=f["vpu_ms"], vpu_device_ms=f["vpu_device_ms"],
@@ -4096,6 +4344,7 @@ def main() -> int:
         "stream_dtypes": {k: v for k, v in dt20.items() if k != "errs"},
         "jacobi_f64_mean6_dtypes": {k: v for k, v in f21.items() if k != "errs"},
         "contraction_forms": {k: v for k, v in mx22.items() if k != "errs"},
+        "fused_split_contraction": {k: v for k, v in mx23.items() if k != "errs"},
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

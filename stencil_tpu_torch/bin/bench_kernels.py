@@ -148,7 +148,17 @@ and (``--only`` keeps the sections named):
   the bound (``jacobi_bound``: the larger of the bytes over 3.35 TB/s, the
   f32 operations over 67 TFLOP/s and the tile contraction's tensor-core
   FLOPs over 495 TFLOP/s TF32 or 989 bf16).  It calls ``compute_unit=``
-  on #6-#8, #17 and #18, so it times a tree from this one on.
+  on #6-#8, #17 and #18, so it times a tree from this one on;
+* ``stream_fused_mxu``: the fused forms of #7 and #8 under the contraction
+  (f32 operands under ``mxu``, bf16 under ``mxu_band``) at the main path's
+  shapes of the 2x2x2 fused routes, #7 over 8 Astaroth fields of (8,
+  262^3) and #8 of one field at m = 3, each with random (8, 6, 262, 262)
+  shell buffers a field: device ms a call (torch.profiler over 10 calls),
+  CUDA-event ms a call, the vpu fused form's and the array contraction
+  form's two on the same blocks, the plan (#8) and the bound
+  (``jacobi_bound`` at the fused rows' bytes: each cell read once, from the
+  block or a buffer, and the output written once).  It calls the fused
+  forms under a unit, so it times a tree from this one on.
 
 A CUDA card is required; it exits 1 without one.
 """
@@ -1045,6 +1055,102 @@ def stream_mxu_times(dev, device_ms=None, plain: bool = False, check=None) -> di
     return out
 
 
+def stream_fused_mxu_times(dev, device_ms=None, plain: bool = False, check=None) -> dict:
+    """The ``stream_fused_mxu`` section (module docstring), keyed by the
+    ledger's form names (``stream_plane_pass_fused_mxu``, ...); the
+    arguments as ``stream_mxu_times``'."""
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.kernels import build
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.ops import stream as st
+    from stencil_tpu_torch.ops.stream_trace import StreamKernel
+
+    gs = (N, N, N)
+    n, ext, s, m = 8, N // 2 + 6, 3, 3
+    shell = Dim3(s, s, s)
+    org8 = torch.tensor([[(N // 2) * (b >> 2), (N // 2) * (b >> 1 & 1), (N // 2) * (b & 1)] for b in range(n)],
+                        dtype=torch.int32, device=dev)
+    names8 = [f"d{q}" for q in range(8)]
+
+    def kernel(unit, mi, fields):
+        fn = AstarothSim._kernel_mxu if unit != "vpu" else AstarothSim._kernel
+        return StreamKernel(fn, names8[:fields], 1, gs, compute_unit=unit, mxu_input=mi)
+
+    # every library first, one nvcc each, all at once
+    want = []
+    for unit, mi in [("vpu", "f32")] + list(MXU_FORMS.values()):
+        sk8, sk1 = kernel(unit, mi, 8), kernel(unit, mi, 1)
+        want += [("stream_plane_fused", st._source(sk8, "stream_plane_fused", [1], st._FUSED)),
+                 ("stream_wavefront_fused", st._source(sk1, *st._wavefront_variant(m, True)))]
+        if unit != "vpu":
+            want += [("stream_plane", st._source(sk8, "stream_plane", [1])),
+                     ("stream_wavefront", st._source(sk1, *st._wavefront_variant(m)))]
+    build.build_generated(dict.fromkeys(want))
+
+    def dev_ms(call, launches=1):
+        return (sum(_profile(call, 10, per_call=launches)[0].values()) if device_ms is None
+                else device_ms(call, launches))
+
+    # each pass's fused and array libraries: (template, levels, defines)
+    libs = {"stream_plane_pass": (("stream_plane_fused", [1], st._FUSED), ("stream_plane", [1])),
+            "stream_wavefront_pass": (st._wavefront_variant(m, True), st._wavefront_variant(m))}
+    raws = [device_rand((n, ext, ext, ext), 110 + q, dev, torch.float32) for q in range(8)]
+    fs8 = tuple([device_rand((n, 2 * s, ext, ext), 120 + 3 * q + j, dev, torch.float32) for q in range(8)]
+                for j in range(3))
+    fs1 = tuple([b[0]] for b in fs8)
+    block = n * ext ** 3 * 4
+    S = slice(s, -s)
+    out = {}
+    for suffix, (unit, mi) in MXU_FORMS.items():
+        kw = {"compute_unit": unit, "mxu_input": mi}
+        sk8, sk1 = kernel(unit, mi, 8), kernel(unit, mi, 1)
+        vk8, vk1 = kernel("vpu", "f32", 8), kernel("vpu", "f32", 1)
+        # name: (the form's call, the vpu fused form's and its kernel
+        # launches, the array contraction form's, the plain version's, the
+        # valid region, levels, bytes, cell-levels, the plan)
+        cases = {
+            "stream_plane_pass": (
+                lambda: st.stream_plane_pass(sk8, names8, raws, shell, shell, 1, org8, gs, fused_shell=fs8, **kw),
+                lambda: st.stream_plane_pass(vk8, names8, raws, shell, shell, 1, org8, gs, fused_shell=fs8), 2,
+                lambda: st.stream_plane_pass(sk8, names8, raws, shell, shell, 1, org8, gs, **kw),
+                lambda: st.stream_plane_pass_plain(sk8, names8, raws, shell, shell, 1, org8, gs, fused_shell=fs8,
+                                                   **kw),
+                lambda o: o, 1, 8 * 2 * block, 8 * n * (ext - 2 * s) ** 3, None),
+            "stream_wavefront_pass": (
+                lambda: st.stream_wavefront_pass(sk1, names8[:1], raws[:1], m, s, org8, gs, fused_shell=fs1, **kw)[0],
+                lambda: st.stream_wavefront_pass(vk1, names8[:1], raws[:1], m, s, org8, gs, fused_shell=fs1)[0], 1,
+                lambda: st.stream_wavefront_pass(sk1, names8[:1], raws[:1], m, s, org8, gs, **kw)[0],
+                lambda: st.stream_wavefront_pass_plain(sk1, names8[:1], raws[:1], m, s, org8, gs, fused_shell=fs1,
+                                                       **kw)[0],
+                lambda o: o[:, S, S, S], m, block + n * (ext - 2 * s) ** 3 * 4, n * (ext - 2 * s) ** 3 * m,
+                lambda: st.stream_wavefront_launch(sk1, names8[:1], raws[:1], m, s, gs, fused=True, **kw)),
+        }
+        for name, (call, vcall, vlaunches, acall, pcall, valid, levels, nbytes, cell_levels, plan) in cases.items():
+            if check is not None:
+                got = [valid(o) for o in call()]
+                _sync()
+                check(f"{name}_fused_{suffix}", got, [valid(o) for o in pcall()], levels)
+                del got
+            row = dict({"device_ms": dev_ms(call), "ms": _cuda_ms(call, inner=2), "bytes": nbytes},
+                       **jacobi_bound(nbytes, cell_levels, unit, mi))
+            row.update(vpu_fused_ms=_cuda_ms(vcall, inner=2), vpu_fused_device_ms=dev_ms(vcall, vlaunches),
+                       mxu_array_ms=_cuda_ms(acall, inner=2), mxu_array_device_ms=dev_ms(acall), compute_unit=unit,
+                       mxu_input=mi)
+            if plain:
+                row["plain_ms"] = _cuda_ms(pcall, reps=3, inner=1)
+            if plan is not None:
+                row["launch"] = plan()
+            # the registers and spills of the fused and array contraction libraries
+            sk = sk8 if name == "stream_plane_pass" else sk1
+            for key, v in zip(("ptxas", "mxu_array_ptxas"), libs[name]):
+                row[key] = _library_report(v[0], st._source(sk, *v))
+            out[f"{name}_fused_{suffix}"] = row
+            torch.cuda.empty_cache()
+    del raws, fs8, fs1
+    torch.cuda.empty_cache()
+    return out
+
+
 def direct_route(dev) -> dict:
     from stencil_tpu_torch.models.astaroth import AstarothSim
 
@@ -1077,7 +1183,8 @@ def main(argv=None) -> int:
                 "jacobi_bf16": jacobi_bf16_times, "jacobi_mxu": jacobi_mxu_times, "mxu_vs_vpu": mxu_vs_vpu_times,
                 "stream_bf16": lambda dev: stream_dtype_times(dev, "bf16"),
                 "stream_f64": lambda dev: stream_dtype_times(dev, "f64"),
-                "jacobi_f64": jacobi_f64_times, "mean6_dtypes": mean6_dtype_times, "stream_mxu": stream_mxu_times}
+                "jacobi_f64": jacobi_f64_times, "mean6_dtypes": mean6_dtype_times, "stream_mxu": stream_mxu_times,
+                "stream_fused_mxu": stream_fused_mxu_times}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     p.add_argument("--only", nargs="+", choices=sorted(sections), default=None, help="time only these sections")

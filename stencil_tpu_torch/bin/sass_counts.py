@@ -7,7 +7,11 @@ Builds the float32 libraries of the stream kernel templates (#6-#8,
 ``csrc/stream_*.cu``) for the traced kernels ``chip_smoke.py`` builds
 (Astaroth's over 8 fields and one, the 27-point, coordinate-forced,
 two-field mean-of-6 and off-centre two-field kernels), each template and
-depth; and every build of ``csrc/jacobi_wavefront.cu`` the tree has (#1-#5
+depth; Astaroth's bf16-storage and float64 builds (keys
+``astaroth8/astaroth1 bf16|f64 ...``) and its contraction builds
+(``_kernel_mxu`` on f32 and bf16 operands, f32 and bf16 storage: keys
+``mxu8/mxu1 <operands>[ bf16] ...``), the fused ones where the tree has
+the fused contraction forms; and every build of ``csrc/jacobi_wavefront.cu`` the tree has (#1-#5
 and #17: the f32 vpu build and the ``VARIANTS`` of ``kernels/build.py``,
 bf16 storage, float64 and the tensor-core builds) and
 ``csrc/plane_stencil.cu`` (#18).  It disassembles each with ``cuobjdump
@@ -77,6 +81,43 @@ def count_sass(text: str) -> dict:
     return counts
 
 
+def _axis_jobs(st, StreamKernel, gs) -> dict:
+    """Astaroth's bf16-storage and float64 builds of every template and
+    depth, and its contraction builds (the fused ones where the wrappers
+    count a fused contraction form)."""
+    import torch
+
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+
+    names = [f"d{q}" for q in range(8)]
+    fused_mxu = hasattr(st.stream_plane_pass, "fused_mxu_launches")
+    jobs = {}
+
+    def add(key, sk8, sk1, fused=True):
+        jobs[f"{key[0]} stream_wrap"] = ("stream_wrap", st._source(sk8, "stream_wrap", st._WRAP_LEVELS))
+        jobs[f"{key[0]} stream_plane"] = ("stream_plane", st._source(sk8, "stream_plane", [1]))
+        if fused:
+            jobs[f"{key[0]} stream_plane_fused"] = ("stream_plane_fused",
+                                                    st._source(sk8, "stream_plane_fused", [1], st._FUSED))
+        for m in (1, 2, 3):
+            jobs[f"{key[1]} stream_wavefront m={m}"] = ("stream_wavefront", st._source(sk1, *st._wavefront_variant(m)))
+            if fused:
+                jobs[f"{key[1]} stream_wavefront_fused m={m}"] = (
+                    "stream_wavefront_fused", st._source(sk1, *st._wavefront_variant(m, True)))
+
+    for label, dt in (("bf16", torch.bfloat16), ("f64", torch.float64)):
+        add((f"astaroth8 {label}", f"astaroth1 {label}"),
+            StreamKernel(AstarothSim._kernel, names, 1, gs, dtypes=[dt] * 8),
+            StreamKernel(AstarothSim._kernel, names[:1], 1, gs, dtypes=[dt]))
+    for mi in ("f32", "bf16"):
+        for label, dt in (("", torch.float32), (" bf16", torch.bfloat16)):
+            kw = dict(compute_unit="mxu", mxu_input=mi)
+            add((f"mxu8 {mi}{label}", f"mxu1 {mi}{label}"),
+                StreamKernel(AstarothSim._kernel_mxu, names, 1, gs, dtypes=[dt] * 8, **kw),
+                StreamKernel(AstarothSim._kernel_mxu, names[:1], 1, gs, dtypes=[dt], **kw), fused_mxu)
+    return jobs
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("sass-counts")
     p.add_argument("--out", default=None)
@@ -104,6 +145,7 @@ def main(argv=None) -> int:
             jobs[f"{name} stream_wavefront m={m}"] = ("stream_wavefront", st._source(sk, *st._wavefront_variant(m)))
             jobs[f"{name} stream_wavefront_fused m={m}"] = ("stream_wavefront_fused",
                                                             st._source(sk, *st._wavefront_variant(m, True)))
+    jobs.update(_axis_jobs(st, StreamKernel, gs))
     paths = dict(zip(jobs, build.build_generated(list(jobs.values()))))
     # the plain sources' builds of rows 1-5, 17 and 18 that this tree has
     plain = [name for name in build.SOURCES if name.startswith("jacobi_wavefront") or name == "plane_stencil"]

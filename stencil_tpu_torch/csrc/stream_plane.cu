@@ -25,9 +25,10 @@
 //   x plane (the exchange's sweep order x -> y -> z: the later sweep's write
 //   wins), so the pass computes what the array form computes after the
 //   exchange, bit for bit, shell included, and the blocks see no halo write.
-//   Two launches: the cells farther than the read radius r from the shell
-//   read the block alone, and take the array form's body (plane_level over
-//   FarFields, 32 registers like the array form); the band of the shell and
+//   Two launches (one under a contracting unit, below): the cells farther
+//   than the read radius r from the shell read the block alone, and take
+//   the array form's body (plane_level over FarFields, 32 registers like
+//   the array form); the band of the shell and
 //   the cells within r of it (9% of a 262^3 block at shell 3, r = 1) takes
 //   plane_band, which walks it as a flat index in three regions, each z
 //   minor: the x planes, the y rows of the other planes, the z columns of
@@ -52,8 +53,7 @@
 // contracts, and STP_MXU, 1 for f32 operands as three TF32 pieces, 2 for
 // bf16 operands; its stp_body reads a field's in-plane neighbour sum
 // (y-1 + y+1) + (z-1 + z+1) through nb(q), the PlaneView.plane_nbr_sum
-// seam of stencil_tpu/ops/stream.py:189-200): plane_level_mxu, array form
-// only (the fused halo under a unit is ROADMAP.md queue 1 item 9.3).  A
+// seam of stencil_tpu/ops/stream.py:189-200): plane_level_mxu.  A
 // block of 8 warps owns a 30 x 62 tile of (y, z) and walks the planes of
 // all blocks; per interior plane it stages each such field's 32 x 64 tile
 // with a one-cell apron (0 past the plane's edge: the JAX pass contracts
@@ -61,7 +61,20 @@
 // shared memory at the compute type, contracts it on the tensor cores, one
 // 16 x 16 piece a warp (csrc/band_mma.cuh), into a shared plane of sums per
 // field, and then runs the per-cell body, its plane reads from global
-// memory as above.  Shell planes and cells pass through.
+// memory as above.  Shell planes and cells pass through.  Built with
+// STP_FUSED, the same kernel is the fused form's one launch (MxuFields is
+// FusedFields): the staging of the tile, the body's reads and the
+// pass-through go through fused_cell, so the tile holds the plane the
+// exchange would have left (the patched level-0 plane that the JAX pass
+// contracts, _fused_plane_patch at stencil_tpu/ops/stream.py:239-259).  A
+// band cell's in-plane neighbours are shell cells in the buffers, so the
+// vpu form's split into a far launch and a per-cell band launch has no
+// tile to contract; the one launch tests every read against the shells.
+// Over 8 fields it holds 128 registers (the array form 61), two blocks an
+// SM where the array form fits three, and runs 1.6x its time on the H100;
+// reading interior cells at the array form's offsets, or picking each
+// read's buffer before one load, moved it less than 4%, and bounding it
+// to three blocks an SM spilled and ran slower (PERF.md).
 //
 // Bitwise contract: stp_body uses __fadd_rn/__fmul_rn/... (no contraction);
 // the global coordinates are (origin + index - lo) mod global size, as
@@ -77,9 +90,6 @@
 // @STP_GENERATED@
 
 #ifdef STP_NBR_MASK
-#ifdef STP_FUSED
-#error "the fused form has no contraction form (ROADMAP.md queue 1 item 9.3)"
-#endif
 #include "band_mma.cuh"
 #endif
 
@@ -118,6 +128,32 @@ __device__ __forceinline__ int pmod(int a, int n) {
   const int r = a % n;
   return r < 0 ? r + n : r;
 }
+
+#ifdef STP_FUSED
+
+// Cell (x, y, z) of block b and field q after the exchange, in the fused
+// form: the z-column buffer over the y-row buffer over the x-plane buffer at
+// shell positions, the block elsewhere, as stored (STP_P).
+// kAxes: the shells (bit 0 x, 1 y, 2 z) the cell may lie in.
+template <int kAxes = 7>
+__device__ __forceinline__ STP_P fused_cell(const FusedFields& f, const Geometry& g, int q, int64_t b, int x,
+                                            int y, int z) {
+  if ((kAxes & 4) && (z < g.loz || z >= g.Z - g.hiz)) {
+    const int k = z < g.loz ? z : g.loz + z - (g.Z - g.hiz);
+    return STP_GET(f.zb[q], q, ((b * (g.loz + g.hiz) + k) * g.Y + y) * g.X + x);
+  }
+  if ((kAxes & 2) && (y < g.loy || y >= g.Y - g.hiy)) {
+    const int k = y < g.loy ? y : g.loy + y - (g.Y - g.hiy);
+    return STP_GET(f.yb[q], q, ((b * (g.loy + g.hiy) + k) * g.X + x) * g.Z + z);
+  }
+  if ((kAxes & 1) && (x < g.lox || x >= g.X - g.hix)) {
+    const int k = x < g.lox ? x : g.lox + x - (g.X - g.hix);
+    return STP_GET(f.xb[q], q, ((b * (g.lox + g.hix) + k) * g.Y + y) * g.Z + z);
+  }
+  return STP_GET(f.in[q], q, ((b * g.X + x) * g.Y + y) * g.Z + z);
+}
+
+#endif  // STP_FUSED
 
 // grid: (ceil(Z/32), ceil(Y/8), min(n*X, 65535)); p = block*X + x strides by
 // gridDim.z.  origins: (n, 3) int32, each block's interior start.  F is
@@ -167,9 +203,15 @@ constexpr int kTile = kSR * kSC;
 // a staging plane and one plane of sums a field
 constexpr size_t kMxuSmem = (size_t)(1 + STP_NF) * kTile * sizeof(float);
 
+#ifdef STP_FUSED
+using MxuFields = FusedFields;  // the fused form: every shell-position read goes to the buffers
+#else
+using MxuFields = Fields;
+#endif
+
 // grid: (ceil(Z/62), ceil(Y/30), min(n*X, 65535)), blocks of 32 x 8
 // threads; p = block*X + x strides by gridDim.z
-__global__ void __launch_bounds__(256) plane_level_mxu(Fields f, const int* __restrict__ origins, Geometry g) {
+__global__ void __launch_bounds__(256) plane_level_mxu(MxuFields f, const int* __restrict__ origins, Geometry g) {
   extern __shared__ __align__(16) float smem_mxu[];
   float* const stage = smem_mxu;
   float* const sums = smem_mxu + kTile;  // field q's plane at q * kTile
@@ -188,8 +230,13 @@ __global__ void __launch_bounds__(256) plane_level_mxu(Fields f, const int* __re
         for (int r = threadIdx.y; r < kSR; r += kTileY)
           for (int c = threadIdx.x; c < kSC; c += kTileZ) {
             const int y = y0 + r, z = z0 + c;
+#ifdef STP_FUSED  // an interior x plane: its y rows and z columns may be shell cells
+            stage[r * kSC + c] =
+                y >= 0 && y < g.Y && z >= 0 && z < g.Z ? STP_UP(q, fused_cell<6>(f, g, q, b, x, y, z)) : 0.0f;
+#else
             stage[r * kSC + c] =
                 y >= 0 && y < g.Y && z >= 0 && z < g.Z ? STP_LD(f.in[q], q, po + (int64_t)y * g.Z + z) : 0.0f;
+#endif
           }
         __syncthreads();
         band_mma::piece_to_plane<STP_MXU, kSR, kSC, kSC, kSC>(stage, sums + q * kTile, threadIdx.y, threadIdx.x);
@@ -203,15 +250,26 @@ __global__ void __launch_bounds__(256) plane_level_mxu(Fields f, const int* __re
         const int64_t idx = po + (int64_t)y * g.Z + z;
         if (!in_x || y < g.loy || y >= g.Y - g.hiy || z < g.loz || z >= g.Z - g.hiz) {
 #pragma unroll
-          for (int q = 0; q < STP_NF; ++q) STP_PUT(f.out[q], q, idx, STP_GET(f.in[q], q, idx));  // shell passes through
+          for (int q = 0; q < STP_NF; ++q)  // shell passes through
+#ifdef STP_FUSED
+            STP_PUT(f.out[q], q, idx, fused_cell(f, g, q, b, x, y, z));
+#else
+            STP_PUT(f.out[q], q, idx, STP_GET(f.in[q], q, idx));
+#endif
           continue;
         }
         const int xg = pmod(origins[3 * b] + x - g.lox, g.gx);
         const int yg = pmod(origins[3 * b + 1] + y - g.loy, g.gy);
         const int zg = pmod(origins[3 * b + 2] + z - g.loz, g.gz);
+#ifdef STP_FUSED  // a read within the read radius of the shell lands in it
+        auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
+          return STP_UP(q, fused_cell(f, g, q, b, x + dx, y + dy, z + dz));
+        };
+#else
         auto ld = [&](int q, int dx, int dy, int dz) -> STP_C {
           return STP_LD(f.in[q], q, idx + dx * plane + (int64_t)dy * g.Z + dz);
         };
+#endif
         auto nb = [&](int q) -> STP_C { return sums[q * kTile + r * kSC + c]; };
         STP_C out[STP_NF];
         stp_body(ld, nb, 1, xg, yg, zg, out);
@@ -229,7 +287,7 @@ template <class F>
 int launch(const F& f, const int* origins, const Geometry& g, void* stream) {
   const int64_t planes = (int64_t)g.n * g.X;
 #ifdef STP_NBR_MASK
-  static_assert(std::is_same<F, Fields>::value, "the contraction form is the array form's");
+  static_assert(std::is_same<F, MxuFields>::value, "the contraction form's one kernel takes MxuFields");
   const cudaError_t err =
       cudaFuncSetAttribute(plane_level_mxu, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMxuSmem);
   if (err != cudaSuccess) return (int)err;
@@ -243,29 +301,7 @@ int launch(const F& f, const int* origins, const Geometry& g, void* stream) {
   return (int)cudaGetLastError();
 }
 
-#ifdef STP_FUSED
-
-// Cell (x, y, z) of block b and field q after the exchange, in the fused
-// form: the z-column buffer over the y-row buffer over the x-plane buffer at
-// shell positions, the block elsewhere, as stored (STP_P).
-// kAxes: the shells (bit 0 x, 1 y, 2 z) the cell may lie in.
-template <int kAxes = 7>
-__device__ __forceinline__ STP_P fused_cell(const FusedFields& f, const Geometry& g, int q, int64_t b, int x,
-                                            int y, int z) {
-  if ((kAxes & 4) && (z < g.loz || z >= g.Z - g.hiz)) {
-    const int k = z < g.loz ? z : g.loz + z - (g.Z - g.hiz);
-    return STP_GET(f.zb[q], q, ((b * (g.loz + g.hiz) + k) * g.Y + y) * g.X + x);
-  }
-  if ((kAxes & 2) && (y < g.loy || y >= g.Y - g.hiy)) {
-    const int k = y < g.loy ? y : g.loy + y - (g.Y - g.hiy);
-    return STP_GET(f.yb[q], q, ((b * (g.loy + g.hiy) + k) * g.X + x) * g.Z + z);
-  }
-  if ((kAxes & 1) && (x < g.lox || x >= g.X - g.hix)) {
-    const int k = x < g.lox ? x : g.lox + x - (g.X - g.hix);
-    return STP_GET(f.xb[q], q, ((b * (g.lox + g.hix) + k) * g.Y + y) * g.Z + z);
-  }
-  return STP_GET(f.in[q], q, ((b * g.X + x) * g.Y + y) * g.Z + z);
-}
+#if defined(STP_FUSED) && !defined(STP_NBR_MASK)
 
 // The band on one axis of extent ext: lo + r cells at the low side and hi +
 // r at the high side, cut so that the two sides never overlap (a short axis
@@ -364,7 +400,7 @@ int launch_band(const FusedFields& f, const int* origins, const Geometry& g, voi
   return (int)cudaGetLastError();
 }
 
-#endif  // STP_FUSED
+#endif  // STP_FUSED && !STP_NBR_MASK
 
 bool bad_args(int n, int X, int Y, int Z, int lox, int loy, int loz, int hix, int hiy, int hiz, int gx, int gy,
               int gz) {
@@ -413,6 +449,9 @@ int stp_stream_plane_fused(void* const* in, void* const* xb, void* const* yb, vo
   }
   f.r = r;
   const Geometry geo{n, X, Y, Z, lox, loy, loz, hix, hiy, hiz, gx, gy, gz};
+#ifdef STP_NBR_MASK
+  return launch(f, origins, geo, stream);  // the contraction's one launch, reads through fused_cell
+#else
   FarFields far;
   for (int q = 0; q < STP_NF; ++q) {
     far.in[q] = f.in[q];
@@ -421,6 +460,7 @@ int stp_stream_plane_fused(void* const* in, void* const* xb, void* const* yb, vo
   far.r = r;
   const int rc = launch(far, origins, geo, stream);
   return rc != 0 ? rc : launch_band(f, origins, geo, stream);
+#endif
 }
 
 #endif  // STP_FUSED

@@ -113,14 +113,16 @@
 // contracts, and STP_MXU, 1 for f32 operands as three TF32 pieces, 2 for
 // bf16 operands; its stp_body reads a field's in-plane neighbour sum
 // (y-1 + y+1) + (z-1 + z+1) through nb(q), the PlaneView.plane_nbr_sum
-// seam of stencil_tpu/ops/stream.py:189-200), in both forms and both
-// layouts (plain and z-slab; the fused halo under a unit is ROADMAP.md
-// queue 1 item 9.3).  The level planes of a tile already sit in shared
-// memory: the block's warps contract them on the tensor cores, one 16 x 16
-// piece at a time (csrc/band_mma.cuh; a plane of 32 + 2m rows takes a last
-// row of pieces that overlaps the one before), into shared planes of sums
-// at the tile's layout, which the per-cell body reads, its cell mapping
-// unchanged.  The queue form contracts, once a march step, the centre
+// seam of stencil_tpu/ops/stream.py:189-200), in both forms and all three
+// layouts (plain, z-slab and fused: the fused form's level-0 cells enter
+// through load_cell as above, so the planes it contracts are the patched
+// ones the JAX pass contracts, _fused_plane_patch at
+// stencil_tpu/ops/stream.py:239-259).  The level planes of a tile already
+// sit in shared memory: the block's warps contract them on the tensor
+// cores, one 16 x 16 piece at a time (csrc/band_mma.cuh; a plane of 32 + 2m
+// rows takes a last row of pieces that overlaps the one before), into
+// shared planes of sums at the tile's layout, which the per-cell body
+// reads, its cell mapping unchanged.  The queue form contracts, once a march step, the centre
 // planes of every level (plane p of level l-1 for l = 1..m, all written the
 // step before) into m planes of sums a field, one barrier more a plane; the
 // general form contracts each level's centre plane into one plane of sums a
@@ -144,9 +146,6 @@
 // @STP_GENERATED@
 
 #ifdef STP_NBR_MASK
-#ifdef STP_FUSED
-#error "the fused form has no contraction form (ROADMAP.md queue 1 item 9.3)"
-#endif
 #include "band_mma.cuh"
 constexpr int kNbrPlanes = 1;  // planes of sums a field and level
 #define STP_NB_ARG nb,  // stp_body's reads of the sums, nb(q)

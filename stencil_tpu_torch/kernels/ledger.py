@@ -10,8 +10,9 @@ plane and wavefront kernels; the stream kernels' bf16-storage and float64
 builds, ``ops/stream.py`` ``_count``; the Jacobi kernels' bf16-storage,
 float64 and tensor-core forms, ``ops/jacobi_kernels.py`` ``form_counter``;
 the mean-of-6 kernels' bf16-storage and float64 forms; the tensor-core
-contraction forms of the stream and mean-of-6 kernels), by the wrapper's
-counter that counts them.
+contraction forms of the stream and mean-of-6 kernels, and of the stream
+plane and wavefront kernels' fused forms), by the wrapper's counter that
+counts them.
 """
 
 from __future__ import annotations
@@ -154,6 +155,10 @@ FORMS: Dict[str, Tuple[Tuple[str, str], str]] = {
        for fn in ("wrap", "plane", "wavefront") for form in ("mxu", "mxu_bf16in")},
     **{f"{fn}_{form}": ((_PS, fn), f"{form}_launches")
        for fn in ("mean6_shell_wavefront_step", "mean6_plane_step") for form in ("mxu", "mxu_bf16in")},
+    # the fused forms of the stream plane and wavefront kernels under the
+    # contraction, on f32 / bf16 operands (either storage)
+    **{f"stream_{fn}_pass_fused_{form}": ((_ST, f"stream_{fn}_pass"), f"fused_{form}_launches")
+       for fn in ("plane", "wavefront") for form in ("mxu", "mxu_bf16in")},
 }
 
 

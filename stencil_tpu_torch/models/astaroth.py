@@ -58,9 +58,11 @@ of the ``vpu`` route; the plain versions equal the JAX package's passes).
 The axes resolve as ``make_stream_step`` resolves them (explicit, else
 ``vpu`` / ``f32``, recorded in ``_compute_unit`` / ``_mxu_input``); the
 torch engine has no contraction kernels and degrades both with a
-``RuntimeWarning``, as does a float64 field.  The split schedule and the
-fused halo under a contracting unit raise ``NotImplementedError``
-(ROADMAP.md queue 1 item 9.3).
+``RuntimeWarning``, as does a float64 field.  A unit combines with
+``stream_halo="fused"`` and ``stream_overlap="split"`` on every schedule
+that plans them: the fused passes contract the level-0 planes patched from
+the shell buffers, and the split schedule's band passes contract their
+sub-blocks' planes, each resolving ``mxu_band`` on its own plane.
 
 Not ported: the numerics guardband and divergence sentinel (items 10/11),
 ``rebuild_after_reshard`` and the tune cache (items 11/13).  Each raises

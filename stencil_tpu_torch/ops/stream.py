@@ -52,9 +52,11 @@ pieces, or on bf16 operands) within 4 ulps a level of that.  ``mxu_band``
 on a plane that admits no band tile degrades to ``mxu`` per pass, with a
 warning (``plane_band_unit``); on the card both run one contraction.  The
 launches count under ``mxu_launches`` / ``mxu_bf16in_launches``, either
-storage.  The fused halo and the split schedule under a contracting unit
-are ROADMAP.md queue 1 item 9.3: ``make_stream_step`` raises
-``NotImplementedError`` where the JAX package would run them.
+storage, and the fused forms' under ``fused_mxu_launches`` /
+``fused_mxu_bf16in_launches``.  The fused halo contracts the patched
+level-0 plane (the plane and wavefront passes with ``fused_shell``), and
+the split schedule's band passes contract their sub-blocks' planes, each
+pass resolving the unit on its own plane (``make_stream_step``).
 
 Not ported here: the env and tune sources of the axes, the tune cache,
 telemetry events and the resilience ladder (items 10/11).
@@ -113,8 +115,8 @@ from stencil_tpu_torch.ops.exchange import (
 )
 from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
 from stencil_tpu_torch.ops.jacobi_kernels import (
-    _WRAP_MAX_K, SMEM_PER_BLOCK, _emit, plane_band_unit, plane_nbr_sum_host, resolve_compute_unit, resolve_mxu_input,
-    unit_uses_mxu,
+    _WRAP_MAX_K, SMEM_PER_BLOCK, _emit, band_tile_plan, plane_band_unit, plane_nbr_sum_host, resolve_compute_unit,
+    resolve_mxu_input, unit_uses_mxu,
 )
 from stencil_tpu_torch.ops.stream_trace import STORAGE, PlaneInfo, PlaneView, StreamKernel, compute_kind
 
@@ -592,16 +594,14 @@ def stream_plane_pass(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius:
     launch serves all ``n`` blocks and all fields.  With ``fused_shell``
     the blocks' shell is stale and every shell-position cell is read from
     the buffers (the fused form; ``stream_plane_pass_plain``).
-    ``compute_unit`` / ``mxu_input``: the contraction form (array form
-    only; the module docstring)."""
+    ``compute_unit`` / ``mxu_input``: the contraction form, array or fused
+    (the module docstring)."""
     n, X, Y, Z, dev = _check_plane(names, raws, lo, hi, x_radius, origin, out, fused_shell)
     if dev.type == "cpu":
         return stream_plane_pass_plain(kernel, names, raws, lo, hi, x_radius, origin, global_size, out,
                                        fused_shell, compute_unit, mxu_input)
     unit, mi = _pass_unit(compute_unit, mxu_input, raws, Y, Z, "stream-plane")
     sk = _as_kernel(kernel, names, x_radius, global_size, raws, unit, mi)
-    if fused_shell is not None and sk.uses_nbr():
-        raise NotImplementedError("the fused form under a contracting compute unit is ROADMAP.md queue 1 item 9.3")
     res = [torch.empty_like(r) for r in raws] if out is None else list(out)
     gx, gy, gz = sk.global_size
     geometry = (n, X, Y, Z, lo.x, lo.y, lo.z, hi.x, hi.y, hi.z)
@@ -623,9 +623,10 @@ def stream_plane_pass(kernel: Kernel, names, raws, lo: Dim3, hi: Dim3, x_radius:
 
 
 #: kernel launches made by ``stream_plane_pass``: its array form, and its
-#: fused form (``fused_shell``; one a call, its far and band kernels), each
-#: on float32 fields, under bf16 storage and with a float64 field; and its
-#: contraction form on f32 / bf16 operands (either storage)
+#: fused form (``fused_shell``; one a call, its far and band kernels, or the
+#: contraction's one kernel), each on float32 fields, under bf16 storage and
+#: with a float64 field, and under the contraction on f32 / bf16 operands
+#: (either storage)
 stream_plane_pass.launches = 0
 stream_plane_pass.fused_launches = 0
 stream_plane_pass.bf16_launches = 0
@@ -634,6 +635,8 @@ stream_plane_pass.f64_launches = 0
 stream_plane_pass.fused_f64_launches = 0
 stream_plane_pass.mxu_launches = 0
 stream_plane_pass.mxu_bf16in_launches = 0
+stream_plane_pass.fused_mxu_launches = 0
+stream_plane_pass.fused_mxu_bf16in_launches = 0
 
 
 # --- stream_wavefront_pass -----------------------------------------------------------
@@ -753,8 +756,8 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
     None, written on the valid region only.  With ``fused_shell`` the
     blocks' shell is stale and every level-0 cell at a shell position is
     read from the buffers (the fused form).  ``compute_unit`` /
-    ``mxu_input``: the contraction form (plain and z-slab layouts; the
-    module docstring)."""
+    ``mxu_input``: the contraction form (every layout; the module
+    docstring)."""
     n, Xr, Yr, Zr, zv, dev = _check_wavefront(names, raws, m, s_off, origin, global_size, z_slabs,
                                               z_valid, alias, fused_shell, compute_unit)
     if out is not None:
@@ -777,9 +780,6 @@ def stream_wavefront_pass(kernel: Kernel, names, raws, m: int, s_off: int, origi
     gx, gy, gz = sk.global_size
     form = _form(raws, sk)
     if fused_shell is not None:
-        if sk.uses_nbr():
-            raise NotImplementedError(
-                "the fused form under a contracting compute unit is ROADMAP.md queue 1 item 9.3")
         lib = _library(sk, *_wavefront_variant(m, fused=True))
         xb, yb, zb = fused_shell
         rc = lib.stp_stream_wavefront_fused(_ptrs(raws), _ptrs(xb), _ptrs(yb), _ptrs(zb), _ptrs(outs),
@@ -849,8 +849,8 @@ _WRAP_LEVELS = range(1, _WRAP_MAX_K + 1)
 
 #: kernel launches made by ``stream_wavefront_pass``: its z-slab and plain
 #: forms, and its fused form (``fused_shell``), each on float32 fields,
-#: under bf16 storage and with a float64 field; and its contraction form on
-#: f32 / bf16 operands (either storage and layout)
+#: under bf16 storage and with a float64 field, and under the contraction
+#: on f32 / bf16 operands (either storage)
 stream_wavefront_pass.launches = 0
 stream_wavefront_pass.fused_launches = 0
 stream_wavefront_pass.bf16_launches = 0
@@ -859,6 +859,8 @@ stream_wavefront_pass.f64_launches = 0
 stream_wavefront_pass.fused_f64_launches = 0
 stream_wavefront_pass.mxu_launches = 0
 stream_wavefront_pass.mxu_bf16in_launches = 0
+stream_wavefront_pass.fused_mxu_launches = 0
+stream_wavefront_pass.fused_mxu_bf16in_launches = 0
 
 
 # --- planning -------------------------------------------------------------------------
@@ -1057,8 +1059,12 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     whose plane admits no band tile runs ``mxu_band`` as ``mxu``, with a
     warning when the step is built.  Under an engaged unit the wavefront's
     depth is planned with the contraction's shared memory
-    (``stream_smem_bytes``), and the split schedule and the fused halo raise
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 9.3).
+    (``stream_smem_bytes``), and the split schedule and the fused halo
+    resolve as under ``vpu``.  Each of the split schedule's band passes
+    resolves the unit on its own sub-block's plane, ``(3w, Z)`` or ``(Y,
+    3w)`` (``_band_units``): ``mxu_band`` there may run as ``mxu`` where
+    the JAX package, which rounds each band window up to its tile granule,
+    keeps ``mxu_band``; the values are the same.
 
     ``overlap`` (``"auto"`` = ``"off"``, or ``"split"``) and ``halo``
     (``"auto"`` = ``"array"``, or ``"fused"``) select the split schedule and
@@ -1121,17 +1127,18 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     plan["halo"] = _resolve_stream_halo(dd, plan, dd.exchange_route())[0]
     for key in ("overlap_forced", "halo_forced"):
         plan.pop(key, None)
-    if unit_uses_mxu(unit) and (plan["overlap"] == "split" or plan["halo"] == "fused"):
-        raise NotImplementedError(
-            f"{'overlap=split' if plan['overlap'] == 'split' else 'halo=fused'} under compute_unit={unit!r}: the "
-            "contraction form of the split schedule's band passes and of the fused halo is ROADMAP.md queue 1 "
-            "item 9.3")
     dtypes = [dd.field_dtype(h) for h in dd._handles]
     plan.update(compute_unit=unit, mxu_input=mi, f32_accumulate=torch.bfloat16 in dtypes)
     names = [h.name for h in dd._handles]
     groups = [[q] for q in range(len(names))] if plan["grouping"] == "per-field" else [list(range(len(names)))]
     gsize = dd.size()
     route = plan["route"]
+
+    def trace(u: str) -> List[StreamKernel]:
+        return [StreamKernel(kernel, [names[q] for q in g], x_radius, gsize, dtypes=[dtypes[q] for q in g],
+                             compute_unit=u, mxu_input=mi) for g in groups]
+
+    band_units = _band_units(dd, plan, unit, x_radius) if plan["overlap"] == "split" else {}
     # each pass's unit: mxu_band on a plane that admits no band tile runs as
     # mxu (stencil_tpu/ops/stream.py:262-277), warned here, once
     if unit_uses_mxu(unit):
@@ -1139,15 +1146,46 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
         plane = (n.y, n.z) if route == "wrap" else (raw.y, raw.z)
         unit = plane_band_unit(unit, *plane, where=f"stream-{route}")
     ukw = {"compute_unit": unit, "mxu_input": mi}
-    programs = [StreamKernel(kernel, [names[q] for q in g], x_radius, gsize, dtypes=[dtypes[q] for q in g], **ukw)
-                for g in groups]
+    programs = trace(unit)
+    # the band passes' traced kernels and keywords, by (axis, width)
+    traced = {unit: programs}
+    for u in set(band_units.values()) - {unit}:
+        traced[u] = trace(u)
+    band = {key: (traced[u], {"compute_unit": u, "mxu_input": mi}) for key, u in band_units.items()}
     if dd.device.type == "cuda":
-        _prebuild(programs, plan)
+        _prebuild([p for ps in traced.values() for p in ps], plan)
     build = {"wrap": _wrap_route, "plane": _plane_route, "wavefront": _wavefront_route}[route]
-    step = build(dd, names, groups, programs, plan, x_radius, ukw)
+    step = build(dd, names, groups, programs, plan, x_radius, ukw, band)
     step._stream_plan = plan
     step._marks_shell_stale = True
     return step
+
+
+def _band_units(dd, plan: dict, unit: str, x_radius: int) -> dict:
+    """``{(axis, w): unit}`` of the split schedule's band passes (``w``:
+    ``x_radius`` on the plane route, each macro depth 1..m on the
+    wavefront): each pass resolves ``unit`` on its own sub-block's plane, as
+    ``_pass_band_setup`` does per pass (``stencil_tpu/ops/stream.py:262-277``).
+    An x band's plane is the block's; a y or z band's is ``min(3w, Yr)`` or
+    ``min(3w, Zr)`` wide on that axis (``_exterior_fix``'s window, which the
+    JAX package rounds up to its tile granule).  ``mxu_band`` on a plane
+    that admits no band tile runs as ``mxu``, with one warning for the y
+    and z bands (the block's own plane warns for the passes over it)."""
+    raw = dd.local_spec().raw_size()
+    widths = [x_radius] if plan["route"] == "plane" else range(1, plan["m"] + 1)
+    units, dense = {}, set()
+    for w in widths:
+        for ax in range(3):
+            plane = [min(3 * w, raw[b]) if b == ax else raw[b] for b in (1, 2)]
+            units[(ax, w)] = unit
+            if unit == "mxu_band" and band_tile_plan(*plane) is None:
+                units[(ax, w)] = "mxu"
+                if ax:
+                    dense.add(tuple(plane))
+    if dense:
+        _warn(f"compute_unit=mxu_band cannot tile the split schedule's band planes {sorted(dense)} "
+              "(no admissible granule divides both extents); those band passes run the dense mxu form")
+    return units
 
 
 def _prebuild(programs: Sequence[StreamKernel], plan: dict) -> None:
@@ -1250,7 +1288,7 @@ def _blocks(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return [t.view(-1, *t.shape[3:]) for t in ts]
 
 
-def _wrap_route(dd, names, groups, programs, plan, x_radius, ukw):
+def _wrap_route(dd, names, groups, programs, plan, x_radius, ukw, band):
     k = plan["m"]
     n = dd.local_spec().sz
     lo = dd.shell_radius().lo()
@@ -1275,7 +1313,7 @@ def _grouped(groups, bs, fused_bufs, run, outs) -> None:
         run(j, [bs[q] for q in g], fs, [outs[q] for q in g])
 
 
-def _plane_route(dd, names, groups, programs, plan, x_radius, ukw):
+def _plane_route(dd, names, groups, programs, plan, x_radius, ukw, band):
     shell = dd.shell_radius()
     lo, hi = shell.lo(), shell.hi()
     origins = dd.origins()
@@ -1292,13 +1330,15 @@ def _plane_route(dd, names, groups, programs, plan, x_radius, ukw):
     def narrow_plane(subs, ax, w, origin_sub):
         """One level over ``3w``-wide face sub-blocks (``w == x_radius``):
         the sliced axis carries a ``w``-deep pseudo shell, the others keep
-        the true shell widths (``narrow_plane``, JAX ``:1634-1656``)."""
+        the true shell widths (``narrow_plane``, JAX ``:1634-1656``); the
+        pass's unit is its plane's (``_band_units``)."""
         lo2 = Dim3(*[w if b == ax else lo[b] for b in range(3)])
         hi2 = Dim3(*[w if b == ax else hi[b] for b in range(3)])
+        progs, bkw = band[(ax, w)]
         out = list(subs)
-        for j, g in enumerate(groups):
-            for q, o in zip(g, stream_plane_pass(programs[j], programs[j].names, [subs[q] for q in g], lo2, hi2,
-                                                 x_radius, origin_sub, gsize)):
+        for sk, g in zip(progs, groups):
+            for q, o in zip(g, stream_plane_pass(sk, sk.names, [subs[q] for q in g], lo2, hi2, x_radius, origin_sub,
+                                                 gsize, **bkw)):
                 out[q] = o
         return out
 
@@ -1323,7 +1363,7 @@ def _plane_route(dd, names, groups, programs, plan, x_radius, ukw):
     return as_step(Loop(names, 1, body))
 
 
-def _wavefront_route(dd, names, groups, programs, plan, x_radius, ukw):
+def _wavefront_route(dd, names, groups, programs, plan, x_radius, ukw, band):
     m = plan["m"]
     z_slab_mode = plan["z_slabs"]
     split, fused = plan["overlap"] == "split", plan["halo"] == "fused"
@@ -1346,12 +1386,13 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius, ukw):
     def narrow_wavefront(subs, ax, w, origin_sub):
         """``w`` levels over ``3w``-wide face sub-blocks (``w`` is this
         macro's depth) with a pseudo shell of ``w`` on every axis
-        (``narrow_wavefront``, JAX ``:1732-1757``)."""
+        (``narrow_wavefront``, JAX ``:1732-1757``); the pass's unit is its
+        plane's (``_band_units``)."""
+        progs, bkw = band[(ax, w)]
         out = list(subs)
-        for j, g in enumerate(groups):
-            res = stream_wavefront_pass(programs[j], programs[j].names, [subs[q] for q in g], w, w,
-                                        origin_sub, gsize)[0]
-            for q, o in zip(g, res):
+        for sk, g in zip(progs, groups):
+            for q, o in zip(g, stream_wavefront_pass(sk, sk.names, [subs[q] for q in g], w, w, origin_sub, gsize,
+                                                     **bkw)[0]):
                 out[q] = o
         return out
 

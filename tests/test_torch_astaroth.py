@@ -154,12 +154,13 @@ def test_state_round_trips_between_packages():
 def test_unported_options_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AstarothSim(8, 8, 8, device="cpu", check_divergence_every=5)
-    # the compute-unit axis is ported (tests/test_torch_stream_mxu.py); the
-    # split schedule under a unit names its ROADMAP item
+    # the compute-unit axis is ported (tests/test_torch_stream_mxu.py), the
+    # split schedule under a unit too (tests/test_torch_stream_mxu_fused.py)
     m = AstarothSim(8, 8, 8, kernel_impl="cuda", device="cpu", subdomains=8, compute_unit="mxu",
                     stream_overlap="split")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9.3"):
-        m.realize()
+    m.realize()
+    plan = m._step._stream_plan
+    assert (plan["overlap"], plan["compute_unit"], m._compute_unit) == ("split", "mxu", "mxu")
     # bf16 storage is ported: the CUDA engine stores bfloat16 (its steps
     # against the JAX package's in tests/test_torch_stream_dtypes.py)
     m = AstarothSim(8, 8, 8, kernel_impl="cuda", device="cpu", storage_dtype="bf16")

@@ -2359,3 +2359,177 @@ def test_astaroth_mxu_routes_on_card(dev, schedule, grid, unit, mi, bf16):
     bound += steps * 4 * 2.0 ** -9 * top if mi == "bf16" else 0.0  # a bf16 rounding an operand read
     bound += steps * 2.0 ** -7 * top if bf16 else 0.0  # a bf16 storage ulp a pass
     assert np.isfinite(runs[1]).all() and np.abs(runs[1] - runs[0]).max() <= bound
+
+
+# --- the contraction under the fused halo and the split schedule (rows 7 and 8) --------
+
+
+@pytest.fixture(scope="module")
+def mxu_fused_libs():
+    """The card, with the fused contraction libraries of ``MXU_KERNELS``
+    (the plane's and every depth of the wavefront's), each operand type and
+    storage, built up front, one nvcc each, all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    from stencil_tpu_torch.kernels import build
+
+    want = []
+    for name in MXU_KERNELS:
+        for mi in ("f32", "bf16"):
+            for bf16 in (False, True):
+                sk = _mxu_sk(name, (18, 20, 70), mi, bf16)
+                want.append(("stream_plane_fused", st._source(sk, "stream_plane_fused", [1], st._FUSED)))
+                want += [("stream_wavefront_fused", st._source(sk, *st._wavefront_variant(m, True)))
+                         for m in (1, 2, 3)]
+    build.build_generated(dict.fromkeys(want))
+    return torch.device("cuda")
+
+
+def _mxu_fused_bufs(n, X, Y, Z, lo, hi, nf, seed, dev, bf16):
+    return tuple([t.to(torch.bfloat16 if bf16 else torch.float32) for t in b]
+                 for b in _fused_bufs(n, X, Y, Z, lo, hi, nf, seed, dev))
+
+
+def _fused_counters(wrapper):
+    return {c: getattr(wrapper, c) for c in ("launches", "fused_launches", "mxu_launches", "mxu_bf16in_launches",
+                                             "fused_mxu_launches", "fused_mxu_bf16in_launches")}
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("name", sorted(MXU_KERNELS))
+@pytest.mark.parametrize("shape,lo,hi", _MXU_PLANE_CASES + [((2, 9, 40, 70), (1, 2, 1), (2, 1, 2))])
+def test_mxu_stream_plane_fused_forms_hold_their_plain_versions(mxu_fused_libs, name, shape, lo, hi, unit, mi,
+                                                                bf16):
+    """#7's fused form under the contraction (one launch: the tile staged
+    through the shell buffers) on ragged blocks with a stale shell and
+    random buffers: the interior within 4 ulps a level (f32 operands),
+    tests/ulp.py's bf16-input bound or a bf16 ulp; the shell, passed
+    through from the buffers, bitwise; only the fused contraction counter
+    moves."""
+    dev = mxu_fused_libs
+    kern, names = MXU_KERNELS[name]
+    lo, hi = Dim3(*lo), Dim3(*hi)
+    n, X, Y, Z = shape
+    gs = (30, 80, 140)
+    raws = [_mxu_data(shape, 250 + q, dev, bf16) for q in range(len(names))]
+    fs = _mxu_fused_bufs(n, X, Y, Z, lo, hi, len(names), 260, dev, bf16)
+    org = torch.tensor([[0, 0, 0], [13, 17, 60], [5, 9, 3]][:n], dtype=torch.int32, device=dev)
+    kw = dict(compute_unit=unit, mxu_input=mi, fused_shell=fs)
+    before = _fused_counters(st.stream_plane_pass)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a band on an untilable plane names the dense form
+        got = st.stream_plane_pass(kern, names, raws, lo, hi, 1, org, gs, **kw)
+        torch.cuda.synchronize()
+        want = st.stream_plane_pass_plain(kern, names, raws, lo, hi, 1, org, gs, **kw)
+    form = "fused_" + _mxu_counter(mi)
+    assert _fused_counters(st.stream_plane_pass) == dict(before, **{form: before[form] + 1})
+    inner = (slice(None), slice(lo.x, X - hi.x), slice(lo.y, Y - hi.y), slice(lo.z, Z - hi.z))
+    for g, w in zip(got, want):
+        _hold_axis(g[inner], w[inner], unit, mi, bf16, 1)
+        g[inner] = w[inner]
+        assert torch.equal(g, w)  # the shell passes through from the buffers
+
+
+@pytest.mark.parametrize("unit,mi,bf16", MXU_COMBOS)
+@pytest.mark.parametrize("name", sorted(MXU_KERNELS))
+@pytest.mark.parametrize("m,s", _MXU_WF_CASES)
+def test_mxu_stream_wavefront_fused_forms_hold_their_plain_versions(mxu_fused_libs, name, m, s, unit, mi, bf16):
+    """#8's fused form under the contraction, the register-queue form
+    (``m6``, ``one``) and the general form (``off``), two ragged blocks with
+    several tiles a side and x chunks, a stale shell and random buffers:
+    the valid region within the bounds above; only the fused contraction
+    counter moves."""
+    dev = mxu_fused_libs
+    kern, names = MXU_KERNELS[name]
+    n, Xr, Yr, Zr = 2, 61 + s, 100, 77
+    s3 = Dim3(s, s, s)
+    raws = [_mxu_data((n, Xr, Yr, Zr), 270 + q, dev, bf16) for q in range(len(names))]
+    fs = _mxu_fused_bufs(n, Xr, Yr, Zr, s3, s3, len(names), 280, dev, bf16)
+    org = torch.tensor([[_FUSED_GS[0] - 2, 7, 3], [4, 90, 40]], dtype=torch.int32, device=dev)
+    kw = dict(compute_unit=unit, mxu_input=mi)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        plan = st.stream_wavefront_launch(kern, names, raws, m, s, _FUSED_GS, fused=True, **kw)
+        assert plan["form"] == ("general" if name == "off" else "queue") and plan["tiles_y"] >= 2
+        before = _fused_counters(st.stream_wavefront_pass)
+        got, got_z = st.stream_wavefront_pass(kern, names, raws, m, s, org, _FUSED_GS, fused_shell=fs, **kw)
+        torch.cuda.synchronize()
+        want, _ = st.stream_wavefront_pass_plain(kern, names, raws, m, s, org, _FUSED_GS, fused_shell=fs, **kw)
+    form = "fused_" + _mxu_counter(mi)
+    assert got_z is None
+    assert _fused_counters(st.stream_wavefront_pass) == dict(before, **{form: before[form] + 1})
+    S = slice(s, -s)
+    for g, w in zip(got, want):
+        _hold_axis(g[:, S, S, S], w[:, S, S, S], unit, mi, bf16, m)
+
+
+@pytest.mark.parametrize("unit,mi", [("mxu", "f32"), ("mxu_band", "bf16")])
+def test_mxu_fused_forms_at_the_main_path_shapes(dev, unit, mi):
+    """The fused calls Astaroth's 2x2x2 routes make at 512^3: #7 over 8
+    fields x (8, 262^3) and #8 over one field at m = 3, with (8, 6, 262,
+    262) buffers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, names = AstarothSim._kernel_mxu, [f"d{q}" for q in range(8)]
+    s3, ext, gs = Dim3(3, 3, 3), 262, (512, 512, 512)
+    org8 = torch.tensor([[x, y, z] for x in (0, 256) for y in (0, 256) for z in (0, 256)], dtype=torch.int32,
+                        device=dev)
+    raws = [_rand((8, ext, ext, ext), 290 + q, dev) for q in range(8)]
+    fs = _fused_bufs(8, ext, ext, ext, s3, s3, 8, 300, dev)
+    kw = dict(compute_unit=unit, mxu_input=mi)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = st.stream_plane_pass(kern, names, raws, s3, s3, 1, org8, gs, fused_shell=fs, **kw)
+        want = st.stream_plane_pass_plain(kern, names, raws, s3, s3, 1, org8, gs, fused_shell=fs, **kw)
+        for g, w in zip(got, want):
+            _hold_axis(g, w, unit, mi, False, 1)
+        del got, want
+        f1 = tuple([b[0]] for b in fs)
+        got = st.stream_wavefront_pass(kern, names[:1], raws[:1], 3, 3, org8, gs, fused_shell=f1, **kw)[0][0]
+        want = st.stream_wavefront_pass_plain(kern, names[:1], raws[:1], 3, 3, org8, gs, fused_shell=f1,
+                                              **kw)[0][0]
+    S = slice(3, -3)
+    _hold_axis(got[:, S, S, S], want[:, S, S, S], unit, mi, False, 3)
+
+
+#: Astaroth's fused and split runs under a unit: key -> (schedule, exchange route, halo, overlap)
+_AST_MXU_FS = {"per-step fused": ("per-step", "yzpack_pallas", "fused", "auto"),
+               "auto fused": ("auto", "yzpack_pallas", "fused", "auto"),
+               "auto split": ("auto", "direct", "auto", "split"),
+               "per-step split": ("per-step", "direct", "auto", "split")}
+
+
+@pytest.mark.parametrize("unit,mi,bf16", [("mxu", "f32", False), ("mxu_band", "bf16", False), ("mxu", "f32", True)])
+@pytest.mark.parametrize("key", sorted(_AST_MXU_FS))
+def test_astaroth_mxu_fused_and_split_on_card(dev, key, unit, mi, bf16):
+    """``AstarothSim(compute_unit=..., stream_halo="fused" / stream_overlap=
+    "split")`` on 2x2x2 against its vpu run of the same schedule and
+    storage, within ``test_astaroth_mxu_routes_on_card``'s bound; the fused
+    runs launch the fused contraction form alone, the split runs the
+    array contraction form (interior and band passes)."""
+    from stencil_tpu_torch.kernels import ledger
+
+    schedule, route, halo, overlap = _AST_MXU_FS[key]
+    steps, runs, counts = 6, [], None
+    for u in ("vpu", unit):
+        m = AstarothSim(64, 64, 64, num_quantities=2, kernel_impl="cuda", schedule=schedule, exchange_route=route,
+                        stream_halo=halo, stream_overlap=overlap, compute_unit=u,
+                        mxu_input=mi if u != "vpu" else "auto", storage_dtype="bf16" if bf16 else None,
+                        subdomains=8)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            m.realize()
+        plan = m._step._stream_plan
+        assert (plan["halo"], plan["overlap"]) == (("fused", "off") if halo == "fused" else ("array", "split"))
+        ledger.reset_launch_counts()
+        m.step(steps)
+        counts = {k: v for k, v in ledger.launch_counts().items() if v}
+        runs.append(np.stack([m.field(q) for q in range(2)]).astype(np.float64))
+    kernel = f"stream_{plan['route']}_pass"
+    form = f"{kernel}{'_fused' if halo == 'fused' else ''}_{_mxu_counter(mi)[:-9]}"
+    others = [k for k in counts if k.startswith(kernel) and k != form]
+    assert counts.get(form, 0) > 0 and not others, counts
+    top = float(np.abs(runs[0]).max())
+    bound = 4 * steps * 6.0 * top * 2.0 ** -24
+    bound += steps * 4 * 2.0 ** -9 * top if mi == "bf16" else 0.0
+    bound += steps * 2.0 ** -7 * top if bf16 else 0.0
+    assert np.isfinite(runs[1]).all() and np.abs(runs[1] - runs[0]).max() <= bound

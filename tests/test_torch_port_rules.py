@@ -87,6 +87,20 @@ def test_ledger_lists_the_contraction_forms():
         assert getattr(wrapper, attr) == 0 or ledger.launch_counts()[name] == getattr(wrapper, attr)
 
 
+def test_ledger_lists_the_fused_contraction_forms():
+    """The fused forms of rows 7 and 8 under the contraction count apart,
+    on f32 and bf16 operands, each under its wrapper's fused counter; they
+    are the only fused contraction forms."""
+    want = {f"stream_{fn}_pass_fused_{form}" for fn in ("plane", "wavefront") for form in ("mxu", "mxu_bf16in")}
+    assert {name for name in ledger.FORMS if "_fused_mxu" in name} == want
+    for name in want:
+        wrapper, attr = ledger.counter(name)
+        assert wrapper.__name__ == name.split("_fused")[0]
+        assert attr == ("fused_mxu_bf16in_launches" if name.endswith("bf16in") else "fused_mxu_launches")
+    ledger.reset_launch_counts()
+    assert all(ledger.launch_counts()[name] == 0 for name in want)
+
+
 def test_default_device_without_gpu_raises(monkeypatch):
     from stencil_tpu_torch.domain import DistributedDomain
     from stencil_tpu_torch.models.jacobi import Jacobi3D

@@ -18,6 +18,8 @@ both packages' ``make_step``.  Tolerances, and why:
   fused multiply-add even within a level.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -426,13 +428,18 @@ def test_unported_axes_and_alias_name_the_roadmap():
     td, _ = _tdomain((12, 12, 12), 1, ["u"], 8, 2, [np.zeros((12, 12, 12), np.float32)])
     # the kernel axes are ported (tests/test_torch_stream_mxu.py): with no
     # declared contraction form a unit degrades to vpu, and the split
-    # schedule and fused halo under an engaged unit name their ROADMAP item
+    # schedule under an engaged unit plans on the re-planned plain wavefront
+    # (tests/test_torch_stream_mxu_fused.py)
     for kw in ({"compute_unit": "mxu"}, {"compute_unit": "mxu_band"}, {"mxu_input": "bf16"}):
         with pytest.warns(RuntimeWarning, match="cannot engage|has no effect"):
             assert td.make_step(mean6, engine="stream", **kw)._stream_plan["compute_unit"] == "vpu"
         if "compute_unit" in kw:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9.3"):
-                td.make_step(mean6, engine="stream", stream_overlap="split", mxu_kernel=mean6, **kw)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)  # mxu_band on planes without a band tile
+                plan = td.make_step(mean6, engine="stream", stream_overlap="split", mxu_kernel=mean6,
+                                    **kw)._stream_plan
+            assert (plan["route"], plan["z_slabs"], plan["overlap"], plan["compute_unit"]) == (
+                "wavefront", False, "split", kw["compute_unit"])
     # split and fused are ported: split engages on the re-planned plain
     # wavefront, fused degrades with its warning off the yzpack_* routes
     plan = td.make_step(mean6, engine="stream", stream_overlap="split")._stream_plan

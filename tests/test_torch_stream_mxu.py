@@ -23,8 +23,9 @@ Also pinned: the vpu source the seam emits is byte for byte the parent's;
 ``make_stream_step`` plans as the JAX package's on 1 and 8 subdomains;
 ``AstarothSim(compute_unit=...)`` on every schedule; every degrade warns and
 lands where the JAX package lands; unknown values raise ``ValueError``; the
-fused halo and the split schedule under a unit raise ``NotImplementedError``
-(ROADMAP.md queue 1 item 9.3).
+fused halo and the split schedule under a unit plan and run
+(``tests/test_torch_stream_mxu_fused.py`` holds their values against the JAX
+package).
 """
 
 import hashlib
@@ -433,11 +434,17 @@ def test_unknown_values_raise():
 
 
 def test_fused_and_split_under_a_unit_name_item_9_3():
+    """The fused halo and the split schedule under a contracting unit plan
+    and run (their values against the JAX package are in
+    ``tests/test_torch_stream_mxu_fused.py``)."""
     td, _, _, _ = _domains(8, route="yzpack_xla")
     kw = dict(engine="stream", compute_unit="mxu", mxu_kernel=mean6_kernel_mxu)
-    for extra in ({"stream_overlap": "split"}, {"stream_halo": "fused"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9.3"):
-            td.make_step(mean6_kernel, **extra, **kw)
+    for extra, want in (({"stream_overlap": "split"}, ("split", "array")), ({"stream_halo": "fused"},
+                                                                            ("off", "fused"))):
+        step = td.make_step(mean6_kernel, **extra, **kw)
+        plan = step._stream_plan
+        assert (plan["overlap"], plan["halo"], plan["compute_unit"], plan["z_slabs"]) == (*want, "mxu", False)
+        td.run_step(step, 2)
     # a split that degrades first (the wrap route has nothing to hide) runs the unit
     t1, _, _, _ = _domains(1)
     with pytest.warns(RuntimeWarning, match="overlap=split"):
