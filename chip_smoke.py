@@ -359,7 +359,26 @@ non-zero before the result line:
     --no-weak-scale --checkpoint-dir D --checkpoint-every 24 --iters 48`` in
     subprocesses, a SIGKILL, a SIGTERM (exit 75), ``--resume`` to the end,
     the final ring entry's digest equal to the uninterrupted run's; (f)
-    ``python -m stencil_tpu_torch.status D`` rendering that directory.
+    ``python -m stencil_tpu_torch.status D`` rendering that directory;
+26. the autotuner (``tune/``) at full width in a temporary cache, the
+    process's tune overrides restored after it: (a)
+    ``autotune_jacobi_wrap(512, 512, 512)`` cold, every candidate's
+    steady-state ms per iteration, the winner, the static pick and the
+    vpu / mxu / mxu_band / mxu_band + bf16 input / bf16-storage twins side
+    by side; (b) ``autotune_jacobi_wavefront(512, 512, 512)`` on 2x2x2,
+    cold; (c) ``autotune_exchange`` and ``autotune_stream`` on
+    ``AstarothSim(512^3, 8 fields)`` on 2x2x2; after each Jacobi search a
+    ``Jacobi3D(temporal_k="auto")`` that resolves the tuned depth, unit and
+    layout and equals, bitwise after 200 steps, the model given them
+    explicitly, and resolves the static pick under ``STENCIL_TUNE=0``;
+    after the Astaroth searches an ``AstarothSim`` on the tuned exchange
+    route and plan, bitwise equal after 24 iterations to the same plan
+    given explicitly; (d) every search again, warm: source ``cache``, zero
+    trials, a ``tune.cache.hit`` each and no launch; (e) one in-process
+    ``bin/jacobi3d.main([... "--tune", "--tune-cache", D])`` on that warm
+    cache.  Each search's launches are counted (``tune_launches`` in the
+    kernels' line), and every dispatch of a search runs whole calls of
+    each candidate's depth.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -3020,6 +3039,274 @@ def phase25(card: str, dev: torch.device) -> dict:
     return rec
 
 
+TUNE_KS = None  # phase 26's wrap depths: None, the tuner's grid (4, 8, ..., 24) and the static k
+TUNE_MS = None  # its wavefront depths (the shared memory keeps m <= 8)
+TUNE_STEPS = STEPS  # the tuned and explicit Jacobi3D runs
+TUNE_DRIVER_ITERS = 20  # the in-process driver run
+
+
+def phase26(card: str, dev: torch.device) -> dict:
+    """Phase 26 (see the module's docstring): the autotuner at full width in
+    a temporary cache, through the runners a user calls and the drivers'
+    ``--tune``."""
+    import shutil
+    import tempfile
+
+    from stencil_tpu_torch import telemetry, tune
+    from stencil_tpu_torch.bin import jacobi3d as jacobi3d_driver
+    from stencil_tpu_torch.kernels import build, ledger
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.telemetry import names as tm
+    from stencil_tpu_torch.tune import runners
+    from stencil_tpu_torch.tune.space import candidate_label
+
+    rec = {"launches": {}, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="stencil_tune_")
+    saved = tune.overrides()
+    env_tune = os.environ.pop("STENCIL_TUNE", None)
+    built_before = set(build.BUILD_LOG)
+
+    def counter(name):
+        return telemetry.snapshot()["counters"][name]
+
+    def counted(what, fn):
+        """``fn()`` with the launch counts zeroed before and read after."""
+        ledger.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        rec["seconds"][what] = time.perf_counter() - t0
+        rec["launches"][what] = {k: v for k, v in ledger.launch_counts().items() if v}
+        return out
+
+    def table(what, report):
+        rows = {candidate_label(r.config): (None if r.seconds_per_iter is None else r.seconds_per_iter * 1e3)
+                for r in report.results}
+        for r in report.results:
+            if r.pruned:
+                rows[candidate_label(r.config)] = f"pruned ({r.failure_class})"
+        rec[what] = dict(report.to_json(), ms_per_iter=rows, static=report.static_config, key=report.key.label())
+        log(f"phase 26 {what} search ({report.key.label()}): source {report.source}, {report.trials} trials, "
+            f"{report.pruned} pruned, {report.inner} iterations a dispatch; winner {report.config}, static pick "
+            f"{report.static_config}; ms per iteration, steady-state median: "
+            + "; ".join(f"{k} {ms4(v) if isinstance(v, float) else v}" for k, v in rows.items()) + f"; on {card}")
+        if report.source != "search" or report.config is None or report.trials < 1:
+            raise AssertionError(f"phase 26 {what}: a cold search ended {report.source} with {report.config}")
+        depth = {"wrap": "k", "wavefront": "m", "stream": "m"}.get(what)
+        if depth and not all(report.inner % r.config[depth] == 0 for r in report.results):
+            raise AssertionError(f"phase 26 {what}: {report.inner} iterations a dispatch is not whole calls of "
+                                 f"every depth {[r.config[depth] for r in report.results]}")
+
+    def must_launch(what, names):
+        missing = [n for n in names if not rec["launches"][what].get(n)]
+        if missing:
+            raise AssertionError(f"phase 26 {what}: no launch of {missing} in {rec['launches'][what]}")
+
+    def interior(m):
+        dd = m.dd
+        return dd._to_global(dd._interior_view(dd.get_curr(m.h)))[:N, :N, :N].clone()
+
+    def jacobi_pair(cfg, part, **explicit):
+        """The model built after the search (``temporal_k="auto"``) and one
+        given the tuned choices explicitly, TUNE_STEPS steps each."""
+        def build_model(**kw):
+            m = Jacobi3D(N, N, N, kernel_impl="cuda", device=dev, **kw)
+            if part:
+                m.dd.set_partition(*part)
+            m.realize()
+            return m
+
+        tuned_m = build_model()
+        seen = {"k": tuned_m._wrap_k, "m": tuned_m._wavefront_m, "unit": tuned_m._compute_unit,
+                "mxu_input": tuned_m._mxu_input, "storage": tuned_m.dd.storage_dtype(),
+                "z_ring": tuned_m._wavefront_z_ring, "route": tuned_m._pallas_path}
+        units = [e for e in telemetry.recent_events() if e["event"] == tm.EVENT_KERNEL_COMPUTE_UNIT]
+        seen["unit_source"] = units[-1]["source"]
+        tuned_m.step(TUNE_STEPS)
+        got = interior(tuned_m)
+        del tuned_m
+        ref = build_model(compute_unit=cfg["compute_unit"], mxu_input=cfg.get("mxu_input", "f32"),
+                          storage_dtype=cfg["storage_dtype"], **explicit)
+        ref.step(TUNE_STEPS)
+        seen["bitwise"] = torch.equal(got, interior(ref))
+        del ref, got
+        torch.cuda.empty_cache()
+        # STENCIL_TUNE=0 as a user sets it: the process override cleared for
+        # the build, the environment read
+        state = tune.overrides()
+        tune.set_enabled(None)
+        os.environ["STENCIL_TUNE"] = "0"
+        try:
+            static_m = build_model()
+        finally:
+            del os.environ["STENCIL_TUNE"]
+            tune.restore(state)
+        seen["static"] = {"k": static_m._wrap_k, "m": static_m._wavefront_m, "unit": static_m._compute_unit,
+                          "z_ring": static_m._wavefront_z_ring}
+        del static_m
+        torch.cuda.empty_cache()
+        return seen
+
+    try:
+        tune.set_cache_dir(os.path.join(tmp, "cache"))
+        tune.set_enabled(True)
+        telemetry.reset()
+        # (a) the wrap route's search, cold, and the twins side by side
+        wrap = counted("wrap", lambda: runners.autotune_jacobi_wrap(N, N, N, device=dev, ks=TUNE_KS))
+        table("wrap", wrap)
+        static_k = wrap.static_config["k"]
+        twins = {name: wrap.result_for(dict({"k": static_k, "compute_unit": unit, "storage_dtype": sd}, **extra))
+                 for name, unit, sd, extra in (("vpu", "vpu", "native", {}), ("mxu", "mxu", "native", {}),
+                                               ("mxu_band", "mxu_band", "native", {}),
+                                               ("mxu_band+bf16 input", "mxu_band", "native", {"mxu_input": "bf16"}),
+                                               ("bf16 storage", "vpu", "bf16", {}))}
+        rec["wrap_twins_ms"] = {k: (None if r is None or r.seconds_per_iter is None else r.seconds_per_iter * 1e3)
+                                for k, r in twins.items()}
+        log(f"phase 26 wrap twins at k = {static_k}, {N}^3, ms per iteration: "
+            + ", ".join(f"{k} {ms4(v)}" for k, v in rec["wrap_twins_ms"].items()) + f"; on {card}")
+        must_launch("wrap", ["jacobi_wrap_step"] + [f"jacobi_wrap_step_{f}" for f, t in (
+            ("mxu", "mxu"), ("mxu_bf16in", "mxu_band+bf16 input"), ("bf16", "bf16 storage"))
+            if rec["wrap_twins_ms"][t] is not None])
+        seen = counted("wrap_model", lambda: jacobi_pair(wrap.config, None, temporal_k=wrap.config["k"]))
+        rec["wrap_model"] = seen
+        cfg = wrap.config
+        if (seen["route"], seen["k"], seen["unit"], seen["storage"], seen["unit_source"]) != (
+                "wrap", cfg["k"], cfg["compute_unit"], cfg["storage_dtype"], "tuned") or not seen["bitwise"]:
+            raise AssertionError(f"phase 26 wrap model: {seen} against the tuned {cfg}")
+        if (seen["static"]["k"], seen["static"]["unit"]) != (static_k, "vpu"):
+            raise AssertionError(f"phase 26 wrap model under STENCIL_TUNE=0: {seen['static']}, want k={static_k} vpu")
+
+        # (b) the wavefront's search on 2x2x2, cold
+        wave = counted("wavefront", lambda: runners.autotune_jacobi_wavefront(N, N, N, device=dev, partition=(2, 2, 2),
+                                                                              ms=TUNE_MS))
+        table("wavefront", wave)
+        rings = {r.config["z_ring"] for r in wave.results if not r.pruned}
+        must_launch("wavefront", ["blend_slab"] + ["jacobi_zring_wavefront_step"] * (True in rings)
+                    + ["jacobi_shell_wavefront_step"] * (False in rings))
+        cfg = wave.config
+        seen = counted("wavefront_model", lambda: jacobi_pair(cfg, (2, 2, 2), temporal_k=cfg["m"],
+                                                              pallas_path="wavefront", z_ring=cfg["z_ring"]))
+        rec["wavefront_model"] = seen
+        if (seen["route"], seen["m"], seen["z_ring"], seen["unit"], seen["storage"]) != (
+                "wavefront", cfg["m"], cfg["z_ring"], cfg["compute_unit"], cfg["storage_dtype"]) or not seen["bitwise"]:
+            raise AssertionError(f"phase 26 wavefront model: {seen} against the tuned {cfg}")
+        want_static = wave.static_config
+        if (seen["static"]["m"], seen["static"]["z_ring"], seen["static"]["unit"]) != (
+                want_static["m"], want_static["z_ring"], "vpu"):
+            raise AssertionError(f"phase 26 wavefront model under STENCIL_TUNE=0: {seen['static']}, want {want_static}")
+
+        # (c) the exchange route's and the stream plan's searches on Astaroth,
+        # 8 fields, 2x2x2
+        def astaroth(**kw):
+            sim = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", subdomains=8, device=dev, **kw)
+            sim.dd.set_partition(2, 2, 2)
+            sim.realize()
+            return sim
+
+        probe = astaroth()
+        exch = counted("exchange", lambda: runners.autotune_exchange(probe.dd))
+        table("exchange", exch)
+        must_launch("exchange", ["pack_zshell_pallas", "unpack_zshell_pallas", "pack_yshell_pallas",
+                                 "unpack_yshell_pallas", "blend_slab"])
+        stream = counted("stream", lambda: runners.autotune_stream(probe.dd, probe._kernel, x_radius=1,
+                                                                  separable=True, mxu_kernel=probe._kernel_mxu))
+        table("stream", stream)
+        must_launch("stream", ["stream_wavefront_pass", "stream_plane_pass"])
+        del probe
+        torch.cuda.empty_cache()
+        sim = astaroth()
+        plan, scfg = sim._step._stream_plan, stream.config
+        if sim.dd.exchange_route() != exch.config["exchange_route"] or any(
+                plan[k] != scfg[k] for k in ("route", "m", "grouping", "overlap", "halo", "compute_unit")):
+            raise AssertionError(f"phase 26 Astaroth after the searches: route {sim.dd.exchange_route()}, plan "
+                                 f"{plan}; tuned {exch.config}, {scfg}")
+        for _ in range(AST_ITERS):
+            sim.step()
+        got = [sim.dd.quantity_to_host(h) for h in sim.handles]
+        del sim
+        with tune.disabled():
+            ref = astaroth(exchange_route=exch.config["exchange_route"])
+        ref._step = ref.dd.make_step(
+            ref._kernel, engine="stream", x_radius=1, stream_path=scfg["route"], separable=True,
+            stream_depth=scfg["m"], stream_overlap=scfg["overlap"], stream_halo=scfg["halo"],
+            compute_unit=scfg["compute_unit"], mxu_input=scfg.get("mxu_input", "f32"), mxu_kernel=ref._kernel_mxu,
+            stream_z_slabs=scfg["z_slabs"] if scfg["route"] == "wavefront" else None)
+        for _ in range(AST_ITERS):
+            ref.step()
+        if ref._step._stream_plan["grouping"] != scfg["grouping"] or not all(
+                np.array_equal(a, ref.dd.quantity_to_host(h)) for a, h in zip(got, ref.handles)):
+            raise AssertionError("phase 26: the tuned Astaroth != the same plan given explicitly")
+        rec["astaroth_model"] = {"exchange_route": exch.config["exchange_route"],
+                                 "plan": {k: plan[k] for k in ("route", "m", "grouping", "overlap", "halo",
+                                                               "compute_unit")}, "bitwise_iters": AST_ITERS}
+        del ref, got
+        torch.cuda.empty_cache()
+        log(f"phase 26 models after the searches: Jacobi3D wrap k={rec['wrap_model']['k']} "
+            f"({rec['wrap_model']['unit']}), wavefront m={rec['wavefront_model']['m']} z-ring "
+            f"{rec['wavefront_model']['z_ring']} ({rec['wavefront_model']['unit']}), each bitwise equal to its "
+            f"choices given explicitly after {TUNE_STEPS} steps, the static picks under STENCIL_TUNE=0 "
+            f"({rec['wrap_model']['static']}, {rec['wavefront_model']['static']}); Astaroth route "
+            f"{rec['astaroth_model']['exchange_route']}, plan {rec['astaroth_model']['plan']}, bitwise after "
+            f"{AST_ITERS} iterations; on {card}")
+
+        # (d) every search again, warm: zero trials, a cache hit, no launch
+        hits = counter(tm.TUNE_CACHE_HIT)
+        probe = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", subdomains=8, device=dev)
+        probe.dd.set_partition(2, 2, 2)
+        probe.realize()
+        t0 = time.perf_counter()
+        ledger.reset_launch_counts()
+        warm = {"wrap": runners.autotune_jacobi_wrap(N, N, N, device=dev, ks=TUNE_KS),
+                "wavefront": runners.autotune_jacobi_wavefront(N, N, N, device=dev, partition=(2, 2, 2), ms=TUNE_MS),
+                "exchange": runners.autotune_exchange(probe.dd),
+                "stream": runners.autotune_stream(probe.dd, probe._kernel, x_radius=1, separable=True,
+                                                  mxu_kernel=probe._kernel_mxu)}
+        sync()
+        rec["seconds"]["warm"] = time.perf_counter() - t0
+        launched = {k: v for k, v in ledger.launch_counts().items() if v}
+        del probe
+        cold = {"wrap": wrap, "wavefront": wave, "exchange": exch, "stream": stream}
+        for what, r in warm.items():
+            if r.source != "cache" or r.trials != 0 or r.config != cold[what].config:
+                raise AssertionError(f"phase 26 warm {what}: {r.source}, {r.trials} trials, {r.config}")
+        if counter(tm.TUNE_CACHE_HIT) < hits + len(warm) or launched:
+            raise AssertionError(f"phase 26 warm: tune.cache.hit +{counter(tm.TUNE_CACHE_HIT) - hits}, "
+                                 f"launches {launched}")
+        rec["warm"] = {k: {"source": r.source, "trials": r.trials} for k, r in warm.items()}
+
+        # (e) the driver in-process: --tune on a warm cache, then the run
+        out, err = io.StringIO(), io.StringIO()
+        argv = [str(N), str(N), str(N), "--no-weak-scale", "--iters", str(TUNE_DRIVER_ITERS), "--tune",
+                "--tune-cache", os.path.join(tmp, "cache")]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = counted("driver", lambda: jacobi3d_driver.main(argv))
+        rec["seconds"]["driver"] = time.perf_counter() - t0
+        row = [ln for ln in out.getvalue().splitlines() if ln.startswith("jacobi3d,")]
+        if rc != 0 or len(row) != 1 or "tune[jacobi-wrap]: source=cache" not in err.getvalue() or not any(
+                k.startswith("jacobi_wrap_step") for k in rec["launches"]["driver"]):
+            raise AssertionError(f"phase 26 driver: rc {rc}, rows {row}, launches {rec['launches']['driver']}, "
+                                 f"stderr:\n{err.getvalue()[-2000:]}")
+        if tune.overrides() != (True, os.path.join(tmp, "cache")):
+            raise AssertionError(f"phase 26 driver: the tune overrides were not restored: {tune.overrides()}")
+        rec["driver"] = {"argv": argv, "row": row[0], "seconds": rec["seconds"]["driver"]}
+        log(f"phase 26 jacobi3d.main({' '.join(argv[:-1])} <tmp>) in-process: {row[0]}; "
+            f"{rec['seconds']['driver']:.2f} s; on {card}")
+        rec["builds"] = sorted(set(build.BUILD_LOG) - built_before)
+        rec["counters"] = {k: counter(k) for k in (tm.TUNE_CACHE_HIT, tm.TUNE_CACHE_MISS, tm.TUNE_TRIALS,
+                                                   tm.TUNE_PRUNED, tm.TUNE_SELECTED)}
+        log(f"phase 26 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in rec["seconds"].items())
+            + f"; {len(rec['builds'])} nvcc builds in the phase; tune counters {rec['counters']}; on {card}")
+    finally:
+        tune.restore(saved)
+        if env_tune is not None:
+            os.environ["STENCIL_TUNE"] = env_tune
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3042,12 +3329,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    from stencil_tpu_torch.kernels import toolchain
+
+    tools = toolchain()
+    card = tools["card"]
+    if card is None:
+        raise RuntimeError("nvidia-smi did not report the card's name and power limit")
     log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    log(f"torch {tools['torch']} cuda {tools['cuda']} python {sys.version.split()[0]}; nvcc {tools['nvcc']}, "
+        f"triton {'present' if tools['triton'] else 'absent'}")
     dev = torch.device("cuda")
 
     from concurrent.futures import ThreadPoolExecutor
@@ -4822,6 +5112,11 @@ def main() -> int:
     rs25 = phase25(card, dev)
     phase_end()
 
+    # --- 26. the autotuner: cold and warm searches, tuned models, the driver's --tune ---
+    phase_start(26)
+    tn26 = phase26(card, dev)
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -4979,6 +5274,7 @@ def main() -> int:
             rows[-1].update(device_ms=f["device_ms"], vpu_ms=f["vpu_ms"], vpu_device_ms=f["vpu_device_ms"],
                             bound_of=f["bound_of"], tensor_core_flops=f["tensor_core_flops"], launch=f["launch"],
                             copy_bound_ms=None)
+        rows[-1]["tune_launches"] = sum(c.get(name, 0) for c in tn26["launches"].values())
         if name in ax19["forms"]:
             f = ax19["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
@@ -5027,6 +5323,7 @@ def main() -> int:
         "fused_split_contraction": {k: v for k, v in mx23.items() if k != "errs"},
         "dispatch_boundary": rs24,
         "supervisor": rs25,
+        "autotuner": tn26,
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

@@ -1,10 +1,14 @@
-"""Flags the ported drivers share (counterpart of parts of
-``stencil_tpu/bin/_common.py``): ``--metrics-out``, ``--numerics-every``
-and the checkpoint flags of the run supervisor."""
+"""Flags and helpers the ported drivers share (counterpart of parts of
+``stencil_tpu/bin/_common.py``): ``--metrics-out``, ``--numerics-every``,
+the checkpoint flags of the run supervisor, the autotuner's ``--tune`` /
+``--no-tune`` / ``--tune-cache``, and the timing helpers of the tuner's
+trial protocol (``host_round_trip_s``, ``timed_inner_loop``)."""
 
 from __future__ import annotations
 
 import argparse
+import sys
+import time
 
 
 def add_telemetry_flags(p: argparse.ArgumentParser) -> None:
@@ -118,3 +122,98 @@ def supervisor_for(args, dd, label: str, run_state=None, on_mesh_change=None):
     if cfg is None:
         return None
     return RunSupervisor(dd, cfg, label=label, run_state=run_state, on_mesh_change=on_mesh_change)
+
+
+def add_tune_flags(p: argparse.ArgumentParser) -> None:
+    """The autotuner's flags (``stencil_tpu/bin/_common.py:145-170``):
+    ``--tune`` runs the search for this driver's workload on the card
+    before the model builds (zero trials when the cache is warm),
+    ``--no-tune`` pins the static picks, ``--tune-cache`` redirects the
+    config cache for the run."""
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--tune", action="store_true",
+                   help="autotune this workload on the card first (cached: a second run makes no trial)")
+    g.add_argument("--no-tune", action="store_true", help="ignore tuned configs; use the static picks")
+    p.add_argument("--tune-cache", default=None, metavar="DIR",
+                   help="tuned-config cache directory (default: STENCIL_TUNE_CACHE or "
+                        "~/.cache/stencil_tpu_torch/tune)")
+
+
+def tune_begin(args) -> None:
+    """Apply ``add_tune_flags``'s choices to the tune package; call right
+    after ``parse_args``, before any model is built, and pair it with
+    ``tune_end``: the overrides are process-global, and an in-process run
+    must not inherit the last one's ``--no-tune`` / ``--tune-cache``."""
+    from stencil_tpu_torch import tune
+
+    args._tune_restore = tune.overrides()
+    if getattr(args, "tune_cache", None):
+        tune.set_cache_dir(args.tune_cache)
+    if getattr(args, "no_tune", False):
+        tune.set_enabled(False)
+    elif getattr(args, "tune", False):
+        tune.set_enabled(True)
+
+
+def tune_end(args) -> None:
+    from stencil_tpu_torch import tune
+
+    state = getattr(args, "_tune_restore", None)
+    if state is not None:
+        tune.restore(state)
+        args._tune_restore = None
+
+
+def tune_report_stderr(report) -> None:
+    """One stderr line of a driver's autotune outcome."""
+    print(f"tune[{report.key.route}]: source={report.source} config={report.config} trials={report.trials} "
+          f"pruned={report.pruned}", file=sys.stderr)
+
+
+def host_round_trip_s(device=None) -> float:
+    """The time of one ``.item()`` of a tiny tensor on ``device`` (the
+    default CUDA device; 0.0 on the CPU): the host round trip a timed
+    dispatch subtracts (``stencil_tpu/bin/_common.py:468``)."""
+    import torch
+
+    if device is None:
+        device = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    if torch.device(device).type != "cuda":
+        return 0.0
+    x = torch.zeros(8, device=device)
+    x.sum().item()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        x.sum().item()
+    return (time.perf_counter() - t0) / 5
+
+
+def timed_inner_loop(run, inner: int, rt: float, n_iters: int, min_ratio: float = 5.0,
+                     max_inner: int = 1 << 14):
+    """Per-iteration seconds of a dispatch of ``inner`` iterations with the
+    host round trip ``rt`` subtracted (``stencil_tpu/bin/_common.py:481-510``).
+    ``run(k)`` runs one synchronized dispatch of ``k`` iterations.  ``inner``
+    grows until a dispatch takes ``min_ratio * rt``; when it cannot, the raw
+    time is reported with a warning rather than a clamped sample.  Returns
+    ``(samples, inner_used)``."""
+    run(inner)  # warm at this count
+    while True:
+        t0 = time.perf_counter()
+        run(inner)
+        t = time.perf_counter() - t0
+        if t >= min_ratio * rt or inner >= max_inner:
+            break
+        grow = max(2 * inner, int(inner * min_ratio * rt / max(t, 1e-9)))
+        inner = min(grow, max_inner)
+        run(inner)  # warm at the new count before measuring again
+    samples = []
+    subtract = t >= min_ratio * rt
+    if not subtract:
+        print(f"warning: dispatch ({t:.3g}s at inner={inner}) not >> host rt ({rt:.3g}s); reporting raw "
+              "per-iter time (rt not subtracted)", file=sys.stderr)
+    for _ in range(n_iters):
+        t0 = time.perf_counter()
+        run(inner)
+        t = time.perf_counter() - t0
+        samples.append(((t - rt) if subtract else t) / inner)
+    return samples, inner

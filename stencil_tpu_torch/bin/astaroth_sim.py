@@ -21,7 +21,11 @@ the reference's method flags, ``--no-overlap`` and ``--trivial``, plus
 ``--partition px,py,pz``
 (subdomains on the one device), ``--device``, ``--numerics-every`` and
 ``--metrics-out``, and the run supervisor's ``--checkpoint-dir``,
-``--checkpoint-every``, ``--checkpoint-keep`` and ``--resume``.  Each timed
+``--checkpoint-every``, ``--checkpoint-keep`` and ``--resume``, and the
+autotuner's ``--tune`` / ``--no-tune`` / ``--tune-cache`` (``tune/``; the
+JAX driver's gating, ``stencil_tpu/bin/astaroth_sim.py:100-115``: ``--tune``
+on the cuda engine with ``--schedule auto`` searches the stream plan on a
+throwaway model first, zero trials when the cache is warm).  Each timed
 sample is one iteration and a device synchronize, after one untimed warm-up
 step (``realize()`` builds the kernels); a supervised run makes no warm-up
 step, so that killed and resumed runs stay bitwise comparable, and exits 75
@@ -38,6 +42,7 @@ when preempted.
         --storage-dtype bf16 --iters 24
     python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --schedule wavefront \
         --compute-unit mxu_band --mxu-input bf16 --iters 24
+    python -m stencil_tpu_torch.bin.astaroth_sim --quantities 8 --partition 2,2,2 --tune --iters 24
 """
 
 from __future__ import annotations
@@ -91,7 +96,18 @@ def main(argv=None) -> int:
     _common.add_numerics_flag(p)
     _common.add_telemetry_flags(p)
     _common.add_checkpoint_flags(p)
+    _common.add_tune_flags(p)
     args = p.parse_args(argv)
+    _common.tune_begin(args)
+    try:
+        return _run(args)
+    finally:
+        # the tune overrides are process-global: an in-process caller's next
+        # run must not inherit this one's --no-tune / --tune-cache
+        _common.tune_end(args)
+
+
+def _run(args) -> int:
     _common.telemetry_begin(args)
 
     kernel_impl = args.kernel_impl
@@ -104,11 +120,36 @@ def main(argv=None) -> int:
     # weak-scaled runs comparable; the domain itself takes uneven sizes)
     x, y, z = (max(round(v / d), 3) * d for v, d in zip((args.x, args.y, args.z), part))
     print(f"domain: {x},{y},{z} over {part[0]}x{part[1]}x{part[2]} subdomains", file=sys.stderr)
+    strategy = PlacementStrategy.Trivial if args.trivial else PlacementStrategy.NodeAware
+    if args.tune and kernel_impl == "cuda" and args.schedule != "auto":
+        # the stream plan consults the tuned config on the unconstrained
+        # auto path only (a forced route is an explicit request)
+        print(f"--tune has no effect with --schedule {args.schedule} (forced route; tuned plans apply to "
+              "schedule=auto only)", file=sys.stderr)
+    if args.tune and kernel_impl == "cuda" and args.schedule == "auto":
+        # tune the stream plan on a throwaway model whose trials do not
+        # advance its state; the cache is checked before it realizes (tune_key
+        # works before realize), so a warm --tune run does no device work
+        from stencil_tpu_torch import tune
+        from stencil_tpu_torch.tune import runners
+
+        tuner = AstarothSim(x, y, z, num_quantities=args.quantities, strategy=strategy,
+                            subdomains=part[0] * part[1] * part[2], kernel_impl="cuda", schedule="auto",
+                            exchange_route=args.exchange_route, device=args.device)
+        if args.partition is not None:
+            tuner.dd.set_partition(*args.partition)
+        if tune.best_config(tuner.dd.tune_key("stream")) is not None:
+            print("tune[stream]: source=cache (warm; zero trials)", file=sys.stderr)
+        else:
+            tuner.realize()
+            _common.tune_report_stderr(runners.autotune_stream(
+                tuner.dd, tuner._kernel, x_radius=1, separable=True, mxu_kernel=tuner._kernel_mxu))
+        del tuner
     sim = AstarothSim(
         x, y, z,
         num_quantities=args.quantities,
         overlap=not args.no_overlap,
-        strategy=PlacementStrategy.Trivial if args.trivial else PlacementStrategy.NodeAware,
+        strategy=strategy,
         subdomains=part[0] * part[1] * part[2],
         kernel_impl=kernel_impl,
         schedule=args.schedule,

@@ -35,11 +35,12 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
+
+from stencil_tpu_torch.kernels import toolchain
 
 N, NU, STEPS, AST_Q, AST_ITERS = 512, 511, 200, 8, 24
 
@@ -163,8 +164,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench-dispatch: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = toolchain()["card"]
+    if card is None:
+        raise RuntimeError("bench-dispatch: nvidia-smi did not report the card's name and power limit")
     import stencil_tpu_torch
 
     res = {"tag": args.tag, "card": card, "package": os.path.dirname(stencil_tpu_torch.__file__),

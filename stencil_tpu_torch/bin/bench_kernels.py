@@ -168,12 +168,13 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from stencil_tpu_torch.kernels import toolchain
 
 N = 512
 ITERS = 24
@@ -1192,8 +1193,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench-kernels: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = toolchain()["card"]
+    if card is None:
+        raise RuntimeError("bench-kernels: nvidia-smi did not report the card's name and power limit")
     dev = torch.device("cuda")
     result = {"card": card}
     for name, fn in sections.items():

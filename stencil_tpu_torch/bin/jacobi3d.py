@@ -16,7 +16,12 @@ axes ``--compute-unit``, ``--mxu-input`` and ``--storage-dtype``,
 default a tenth of ``--iters``, and ``<prefix>jacobi3d_final``; the dumps are
 outside the timed samples), and the run supervisor's ``--checkpoint-dir``,
 ``--checkpoint-every``, ``--checkpoint-keep`` and ``--resume``
-(``resilience/supervisor.py``).  Each timed
+(``resilience/supervisor.py``), and the autotuner's ``--tune``,
+``--no-tune`` and ``--tune-cache`` (``tune/``; the JAX driver's gating,
+``stencil_tpu/bin/jacobi3d.py:106-166``): ``--tune`` on the cuda engine
+searches the route the model will take (``wrap`` on one subdomain, else the
+wavefront) before the model is built, and on the torch engine the exchange
+route, each a warm cache's zero trials; the model then consults the cache.  Each timed
 sample is one macro step (``halo multiplier`` iterations: k on the torch
 engine under ``--halo-multiplier k``, the depth m on the wavefront route,
 else 1) and a device synchronize; the CSV reports it per iteration, as the
@@ -34,6 +39,8 @@ compare.
         --compute-unit mxu_band --mxu-input bf16 --iters 200
     python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
         --storage-dtype bf16 --iters 200
+    python -m stencil_tpu_torch.bin.jacobi3d 512 512 512 --no-weak-scale \
+        --partition 2,2,2 --tune --tune-cache tune_cache --iters 200
 
 An uneven size (one the grid does not divide, given with --no-weak-scale)
 pads every subdomain to ceil(size / grid) cells per axis, as the domain does.
@@ -143,10 +150,65 @@ def main(argv=None) -> int:
     _common.add_numerics_flag(p)
     _common.add_telemetry_flags(p)
     _common.add_checkpoint_flags(p)
+    _common.add_tune_flags(p)
     p.add_argument("x", type=int, nargs="?", default=512)
     p.add_argument("y", type=int, nargs="?", default=512)
     p.add_argument("z", type=int, nargs="?", default=512)
     args = p.parse_args(argv)
+    _common.tune_begin(args)
+    try:
+        return _run(args)
+    finally:
+        # the tune overrides are process-global: an in-process caller's next
+        # run must not inherit this one's --no-tune / --tune-cache
+        _common.tune_end(args)
+
+
+def _tune(args, x, y, z, n_sub, strategy) -> None:
+    """``--tune``: search this workload before the model is built (the JAX
+    driver's gating): the route the model will take on the cuda engine
+    (``wrap`` needs one subdomain), the exchange route on the torch engine
+    (checked before the probe domain allocates, so a warm cache does no
+    device work); the slab and shell routes have no tunable axis."""
+    from stencil_tpu_torch import tune
+    from stencil_tpu_torch.tune import runners
+
+    single = n_sub == 1
+    if args.kernel_impl == "cuda" and args.pallas_path in ("auto", "wrap", "wavefront"):
+        if args.pallas_path == "wrap" or (args.pallas_path == "auto" and single):
+            if not single:
+                print("--tune skipped: pallas_path='wrap' needs a single subdomain (the model build will "
+                      "reject it too)", file=sys.stderr)
+                return
+            report = runners.autotune_jacobi_wrap(x, y, z, device=args.device)
+        else:
+            report = runners.autotune_jacobi_wavefront(x, y, z, device=args.device, subdomains=n_sub,
+                                                       partition=args.partition, strategy=strategy)
+        _common.tune_report_stderr(report)
+    elif args.kernel_impl == "torch":
+        from stencil_tpu_torch.core.radius import Radius
+        from stencil_tpu_torch.domain import DistributedDomain
+
+        probe = DistributedDomain(x, y, z, device=args.device)
+        r = Radius.constant(0)
+        r.set_face(1)  # the Jacobi radius (jacobi3d.cu:205-214)
+        probe.set_radius(r)
+        probe.set_placement(strategy)
+        probe.set_subdomains(n_sub)
+        if args.partition is not None:
+            probe.set_partition(*args.partition)
+        probe.add_data("temp")
+        if args.halo_multiplier != 1:
+            probe.set_halo_multiplier(args.halo_multiplier)
+        if tune.best_config(probe.tune_key("exchange")) is not None:
+            print("tune[exchange]: source=cache (warm; zero trials)", file=sys.stderr)
+        else:
+            probe.realize()
+            _common.tune_report_stderr(runners.autotune_exchange(probe))
+        del probe
+
+
+def _run(args) -> int:
     _common.telemetry_begin(args)
     period = args.period if args.period > 0 else max(args.iters // 10, 1)
 
@@ -163,10 +225,13 @@ def main(argv=None) -> int:
             methods |= member
     if methods == MethodFlags.Non:
         methods = MethodFlags.All
+    strategy = PlacementStrategy.Trivial if args.trivial else PlacementStrategy.NodeAware
+    if args.tune:
+        _tune(args, x, y, z, n_sub, strategy)
     model = Jacobi3D(
         x, y, z,
         overlap=not args.no_overlap,
-        strategy=PlacementStrategy.Trivial if args.trivial else PlacementStrategy.NodeAware,
+        strategy=strategy,
         methods=methods,
         subdomains=n_sub,
         kernel_impl=args.kernel_impl,

@@ -36,6 +36,8 @@ import shutil
 import subprocess
 import sys
 
+from stencil_tpu_torch.kernels import toolchain
+
 
 def _kernels():
     import torch
@@ -154,10 +156,7 @@ def main(argv=None) -> int:
     for key, path in paths.items():
         out = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, check=True).stdout
         counts[key] = count_sass(out)
-    card = ""
-    if shutil.which("nvidia-smi"):
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                              capture_output=True, text=True).stdout.strip()
+    card = toolchain()["card"] or ""
     result = {"card": card, "counts": counts,
               "total": sum(sum(c.values()) for c in counts.values()),
               "totals": {key: sum(c.values()) for key, c in counts.items()}}

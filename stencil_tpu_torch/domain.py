@@ -333,7 +333,8 @@ class DistributedDomain:
     def set_exchange_route(self, route: Optional[str]) -> None:
         """Pin the y/z-sweep exchange route (``ops/exchange.py``
         ``EXCHANGE_ROUTES``); ``None``/"auto" clears the request, and
-        ``realize()`` then resolves ``direct``.  A pinned route degrades to
+        ``realize()`` then resolves ``STENCIL_EXCHANGE_ROUTE`` > the tuned
+        config > ``direct``.  A pinned route degrades to
         ``direct`` at ``realize()`` when none of its packed sweeps can engage
         (``route_supported``)."""
         if route in (None, "auto"):
@@ -349,21 +350,74 @@ class DistributedDomain:
         return self._exchange_route
 
     def _resolve_exchange_route(self) -> str:
-        """The explicit request, else the static ``direct``
-        (``stencil_tpu/domain.py:809-863`` without its environment variable
-        and tune cache); a route none of whose packed sweeps can engage here
-        (uneven packed axes, a dtype the kernels do not take) degrades to
-        ``direct`` with a warning."""
-        route = self._exchange_route_req or "direct"
+        """The y/z-sweep route of this realize (``stencil_tpu/domain.py:
+        809-863``): explicit ``set_exchange_route`` > ``STENCIL_EXCHANGE_ROUTE``
+        (a validated read) > the tuned config's ``exchange_route`` on the
+        ``"exchange"`` key (a value outside ``EXCHANGE_ROUTES`` warns and
+        falls through) > the static ``direct``.  A route none of whose packed
+        sweeps can engage here (uneven packed axes, a dtype the kernels do
+        not take) degrades to ``direct`` with a warning.  Every resolution
+        emits ``exchange.route`` with its source."""
+        from stencil_tpu_torch.utils.config import env_choice
+
+        route: Optional[str] = None
+        source = "static"
+        if self._exchange_route_req is not None:
+            route, source = self._exchange_route_req, "explicit"
+        else:
+            env = env_choice("STENCIL_EXCHANGE_ROUTE", "auto", ("auto",) + EXCHANGE_ROUTES)
+            if env != "auto":
+                route, source = env, "env"
+        if route is None:
+            from stencil_tpu_torch import tune
+
+            tuned = (tune.best_config(self.tune_key("exchange")) or {}).get("exchange_route")
+            if tuned is not None:
+                if tuned in EXCHANGE_ROUTES:
+                    route, source = str(tuned), "tuned"
+                else:
+                    warnings.warn(f"tuned exchange_route {tuned!r} is not one of {EXCHANGE_ROUTES}; using the "
+                                  "static 'direct' fallback", RuntimeWarning, stacklevel=3)
+        if route is None:
+            route = "direct"
         if not route_supported(route, [self.field_dtype(h) for h in self._handles], self._valid_last):
             warnings.warn(
-                f"exchange route {route!r} cannot engage here (uneven packed axes or unsupported "
+                f"exchange route {route!r} ({source}) cannot engage here (uneven packed axes or unsupported "
                 "dtype); degrading to 'direct'",
                 RuntimeWarning,
                 stacklevel=3,
             )
-            route = "direct"
+            route, source = "direct", source + "/degraded"
+        telemetry.emit_event(tm.EVENT_EXCHANGE_ROUTE, route=route, source=source)
         return route
+
+    def tune_key(self, route: str):
+        """The autotuner's ``WorkloadKey`` of this domain under ``route``
+        (``stencil_tpu/domain.py:419-458``): the one place the (card kind,
+        size, dtypes, field count, subdomain grid, radius, route) tuple is
+        made, so every planner consults the same entry.  Works before
+        ``realize()`` from ``planned_grid()``.  The ``"exchange"`` key's
+        radius is the shell's (the user radius times the halo multiplier):
+        the exchange's message depth is what its winner was measured at; the
+        temporally blocked routes key by the user radius, since there the
+        multiplier is the tuned axis."""
+        from stencil_tpu_torch.tune.key import WorkloadKey, chip_kind
+
+        dim = (self.grid if self._realized and self.grid is not None else self.planned_grid()).dim()
+        r = self._radius
+        rmax = max(*r.lo(), *r.hi())
+        if route == "exchange":
+            rmax *= max(self._halo_mult, 1)
+        dtypes = ",".join(sorted({str(h.dtype).replace("torch.", "") for h in self._handles}))
+        return WorkloadKey(
+            chip=chip_kind(self.device),
+            domain=(self._size.x, self._size.y, self._size.z),
+            dtype=dtypes or "float32",
+            n_fields=max(len(self._handles), 1),
+            mesh=(dim.x, dim.y, dim.z),
+            radius=rmax,
+            route=route,
+        )
 
     def set_storage(self, storage: str) -> None:
         """Pin the fields' STORAGE dtype axis (``"native"`` | ``"bf16"``,

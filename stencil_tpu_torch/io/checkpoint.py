@@ -13,6 +13,9 @@ its ``MANIFEST.json`` at SCHEMA 1 and its retention ring:
   dtype (bf16 storage upcast exactly to f32, as the JAX package digests
   it), so a checkpoint of either package verifies in the other.  Restores
   verify the loaded data before installing any of it.
+  ``STENCIL_CHECKPOINT_DIGESTS=0`` drops them from ``raw`` saves (they
+  cost a host copy's sha256), as it does from the JAX package's orbax
+  saves; ``npz`` always digests.
 * **Retention ring**: ``save_to_ring`` keeps the newest N checkpoints under
   ``ckpt-<step:012d>``; ``latest_valid`` / ``restore_latest`` walk it
   newest first, skipping (and counting) corrupt or partial entries.
@@ -204,12 +207,17 @@ def save_checkpoint(
     record (model knobs), merged under the axes the domain records itself
     (``storage_dtype``, ``halo_multiplier``, ``exchange_route``).
     ``digests=False`` records null digests (restores then skip the byte
-    check).  ``backend``: ``"npz"`` (None) or ``"raw"`` (module
+    check); None digests on ``npz`` always and, on ``raw``, as
+    ``STENCIL_CHECKPOINT_DIGESTS`` says (default on;
+    ``stencil_tpu/io/checkpoint.py:156-162``, orbax's rule).  ``backend``: ``"npz"`` (None) or ``"raw"`` (module
     docstring)."""
     t0 = time.perf_counter()
     backend = backend or "npz"
     _check_backend(backend, f"save_checkpoint(backend={backend!r})")
-    digests = True if digests is None else digests
+    if digests is None:
+        from stencil_tpu_torch.utils.config import env_bool
+
+        digests = True if backend == "npz" else env_bool("STENCIL_CHECKPOINT_DIGESTS", True)
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     dim = dd.grid_dim()

@@ -57,3 +57,45 @@ def current_raw_stream(index: int) -> int:
     read without building a ``torch.cuda.Stream`` as ``stream_handle`` does
     (the call Triton's launcher makes).  The descriptor launches use it."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+#: the query whose line every record of a card's numbers carries: the name
+#: and the power limit, as ``nvidia-smi`` prints them
+NVIDIA_SMI_QUERY = ("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
+
+
+def toolchain() -> dict:
+    """What the kernels are built and run with: ``torch`` and ``cuda``
+    (``torch.__version__``, ``torch.version.cuda``; None on a CPU build),
+    ``device`` (``torch.cuda.get_device_name(0)``, or None), ``card`` (the
+    first line of ``NVIDIA_SMI_QUERY``'s output, ``name, power limit``, or
+    None), ``power_limit`` (its second field, or None), ``nvcc`` (its path,
+    or None) and ``triton`` (whether the package imports).  Never raises:
+    on a machine without a card every card field is None.  The tune cache
+    stamps its files with ``torch`` and ``cuda``."""
+    import importlib.util
+    import subprocess
+
+    out = {"torch": torch.__version__, "cuda": torch.version.cuda, "device": None, "card": None,
+           "power_limit": None, "nvcc": None, "triton": importlib.util.find_spec("triton") is not None}
+    try:
+        if torch.cuda.is_available():
+            out["device"] = torch.cuda.get_device_name(0)
+    except Exception:  # noqa: BLE001 - a driver that fails to answer is no card
+        pass
+    try:
+        lines = subprocess.run(NVIDIA_SMI_QUERY, capture_output=True, text=True, timeout=30,
+                               check=True).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        lines = []
+    if lines:
+        out["card"] = lines[0].strip()
+        parts = [p.strip() for p in out["card"].split(",")]
+        out["power_limit"] = parts[1] if len(parts) > 1 else None
+    from stencil_tpu_torch.kernels import build
+
+    try:
+        out["nvcc"] = build.find_nvcc()
+    except build.KernelBuildError:
+        pass
+    return out

@@ -67,8 +67,9 @@ sub-blocks' planes, each resolving ``mxu_band`` on its own plane.
 Every step goes through ``DistributedDomain.run_step`` with the label
 ``astaroth``; ``check_divergence_every`` turns on the divergence sentinel,
 and ``realize()`` registers the JAX package's magnitude-envelope guardband.
-Not ported: ``rebuild_after_reshard`` and the tune cache (ROADMAP.md queue 1
-items 11/13).
+The storage axis and, through ``make_stream_step``, the stream plan and its
+axes consult the autotuner's ``stream`` config (``tune/``) behind their
+environment knobs, as the JAX package's ``AstarothSim`` does.
 """
 
 from __future__ import annotations
@@ -139,10 +140,16 @@ class AstarothSim:
 
     def realize(self) -> None:
         # the storage axis resolves before allocation (the JAX package's
-        # realize, without its env and tune sources); only the CUDA engine
-        # has f32-accumulate kernels
+        # realize, models/astaroth.py:127-129): explicit >
+        # STENCIL_STORAGE_DTYPE > the tuned "stream" config > native; only
+        # the CUDA engine has f32-accumulate kernels
+        tuned = None
+        if self.storage_dtype_request in (None, "auto") and self.kernel_impl == "cuda":
+            from stencil_tpu_torch import tune
+
+            tuned = (tune.best_config(self.dd.tune_key("stream")) or {}).get("storage_dtype")
         sd, _ = resolve_storage_dtype(
-            self.storage_dtype_request, [h.dtype for h in self.handles], where=f"astaroth:{self.kernel_impl}",
+            self.storage_dtype_request, tuned, [h.dtype for h in self.handles], where=f"astaroth:{self.kernel_impl}",
             engine_ok=self.kernel_impl == "cuda", engine_why="the torch engine has no f32-accumulate kernels")
         self._storage_dtype = sd
         if sd != "native":
@@ -198,9 +205,9 @@ class AstarothSim:
         # degrades with a warning (the JAX package's XLA engine's resolver)
         where = "astaroth:torch"
         self._compute_unit, _ = resolve_compute_unit(
-            self.compute_unit, [h.dtype for h in self.handles], where=where, engine_ok=False,
+            self.compute_unit, None, [h.dtype for h in self.handles], where=where, engine_ok=False,
             engine_why="the torch engine has no contraction kernels")
-        self._mxu_input, _ = resolve_mxu_input(self.mxu_input, self._compute_unit, where=where)
+        self._mxu_input, _ = resolve_mxu_input(self.mxu_input, None, self._compute_unit, where=where)
         return self.dd.make_step(self._kernel, overlap=self.overlap)
 
     def rebuild_after_reshard(self) -> None:

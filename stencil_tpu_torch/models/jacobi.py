@@ -32,7 +32,16 @@ The kernel axes (``stencil_tpu/models/jacobi.py:57-103``): ``compute_unit``
 with ``mxu_input`` (``f32`` | ``bf16`` operands), and ``storage_dtype``
 (``native`` | ``bf16``: the field stored as bfloat16, the kernels
 accumulating at f32 and rounding once a pass).  Each resolves explicit >
-static (``ops/jacobi_kernels.py``); the storage axis before allocation.  The
+``STENCIL_COMPUTE_UNIT`` / ``STENCIL_MXU_INPUT`` / ``STENCIL_STORAGE_DTYPE`` >
+the tuned config of the route the build takes (``tune/``: the
+``jacobi-wrap`` or ``jacobi-wavefront`` key) > static
+(``ops/jacobi_kernels.py``); the storage axis before allocation.  The
+tuned config also gives the wrap depth k (``choose_temporal_k``), the
+wavefront depth m (re-checked against the shard extents and the shared
+memory, a warning and the static plan when it does not fit) and, with it,
+the wavefront's unit and layout; ``z_ring`` resolves explicit >
+``STENCIL_Z_RING`` > tuned > the ring, and ``STENCIL_Z_SLABS=0`` keeps the z
+halos in the array (``stencil_tpu/models/jacobi.py:200-485, 705-730``).  The
 ``wrap`` and ``wavefront`` routes take both; ``shell`` and ``slab`` have no
 contraction kernel, so they degrade ``mxu`` to ``vpu`` with a warning and
 take bf16 storage; the torch engine degrades both axes with a warning.
@@ -91,7 +100,6 @@ from stencil_tpu_torch.ops.captured import Loop, as_step, window_loop
 from stencil_tpu_torch.ops.exchange import halo_exchange_shard, shift_from_high, shift_from_low
 from stencil_tpu_torch.ops.jacobi_kernels import (
     _ZRING_OFF,
-    COMPUTE_UNITS,
     choose_temporal_k,
     jacobi_plane_step,
     jacobi_shell_wavefront_step,
@@ -119,7 +127,7 @@ from stencil_tpu_torch.ops.stream import (
 from stencil_tpu_torch.resilience.ladder import DegradationLadder, Rung
 from stencil_tpu_torch.telemetry.numerics import max_principle
 from stencil_tpu_torch.utils.logging import log_warn
-from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
+from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy, env_bool
 
 COLD_TEMP = 0.0
 HOT_TEMP = 1.0
@@ -180,6 +188,7 @@ class Jacobi3D:
         self.mxu_input_request = mxu_input
         self.storage_dtype_request = storage_dtype
         # the resolved axes (realize() and the step builders fill them in)
+        self._tuned_wavefront = None  # the tuned config _plan_wavefront applied
         self._compute_unit = "vpu"
         self._mxu_input = "f32"
         self._storage_dtype = "native"
@@ -196,13 +205,14 @@ class Jacobi3D:
 
     def realize(self) -> None:
         self._wavefront_m = 0
+        self._tuned_wavefront = None
         # the storage axis first: it shapes the allocation
         self._resolve_storage()
         if self.kernel_impl == "torch":
             # the torch engine has no contraction kernel (the storage axis
             # degraded above)
             self._compute_unit = resolve_compute_unit(
-                self.compute_unit_request, [self.h.dtype], where="jacobi:torch", engine_ok=False,
+                self.compute_unit_request, None, [self.h.dtype], where="jacobi:torch", engine_ok=False,
                 engine_why="the torch engine has no contraction kernels")[0]
         if self.kernel_impl == "cuda" and self.pallas_path_request in ("auto", "wavefront"):
             # decided BEFORE dd.realize(): the wavefront rides the halo
@@ -245,24 +255,48 @@ class Jacobi3D:
             self._step = self.dd.make_step(self._kernel, overlap=self.overlap)
         self._ladder = self._make_ladder()
 
+    def _prospective_tune_route(self):
+        """The workload key's route the build will consult (the route
+        choice, mirrored before ``realize()``; ``stencil_tpu/models/
+        jacobi.py:183-197``), or None where no tunable kernel route is
+        reached (the torch engine, a forced slab or shell)."""
+        if self.kernel_impl != "cuda":
+            return None
+        req = self.pallas_path_request
+        single = self.dd.planned_grid().count() == 1
+        if req == "wrap" or (req == "auto" and single):
+            return "jacobi-wrap"
+        if req in ("auto", "wavefront") and not single:
+            return "jacobi-wavefront"
+        return None
+
     def _resolve_storage(self) -> None:
         """The storage axis (the JAX package's ``_resolve_storage``,
-        models/jacobi.py:200-228), pinned on the domain before allocation:
-        the explicit request, else native; the torch engine has no
-        f32-accumulate kernels and degrades bf16 to native."""
+        models/jacobi.py:200-225), pinned on the domain before allocation:
+        explicit > ``STENCIL_STORAGE_DTYPE`` > the tuned config of the
+        prospective route > native; the torch engine has no f32-accumulate
+        kernels and degrades bf16 to native."""
+        route = self._prospective_tune_route()
+        tuned = None
+        if self.storage_dtype_request in (None, "auto") and route is not None:
+            from stencil_tpu_torch import tune
+
+            tuned = (tune.best_config(self.dd.tune_key(route)) or {}).get("storage_dtype")
         sd, _ = resolve_storage_dtype(
-            self.storage_dtype_request, [self.h.dtype], where=f"jacobi:{self.kernel_impl}",
+            self.storage_dtype_request, tuned, [self.h.dtype], where=f"jacobi:{route or self.kernel_impl}",
             engine_ok=self.kernel_impl == "cuda", engine_why="the torch engine has no f32-accumulate kernels")
         self._storage_dtype = sd
         if sd != "native":
             self.dd.set_storage(sd)
 
-    def _resolve_unit(self, where: str) -> dict:
+    def _resolve_unit(self, where: str, tuned: dict) -> dict:
         """The compute unit and operand precision of a route with a
-        contraction kernel (``wrap``, ``wavefront``), and the kernels'
-        keywords for them and the storage axis."""
-        unit, _ = resolve_compute_unit(self.compute_unit_request, [self.h.dtype], where=where)
-        mi, _ = resolve_mxu_input(self.mxu_input_request, unit, where=where)
+        contraction kernel (``wrap``, ``wavefront``): explicit > env > the
+        route's ``tuned`` config > static; and the kernels' keywords for
+        them and the storage axis."""
+        unit, _ = resolve_compute_unit(self.compute_unit_request, tuned.get("compute_unit"), [self.h.dtype],
+                                       where=where)
+        mi, _ = resolve_mxu_input(self.mxu_input_request, tuned.get("mxu_input"), unit, where=where)
         self._compute_unit, self._mxu_input = unit, mi
         return {"compute_unit": unit, "mxu_input": mi, "f32_accumulate": self._f32_accumulate()}
 
@@ -271,7 +305,7 @@ class Jacobi3D:
         models/jacobi.py:909-925): any mxu request degrades to vpu with a
         warning."""
         self._compute_unit = resolve_compute_unit(
-            self.compute_unit_request, [self.h.dtype], where=where, engine_ok=False,
+            self.compute_unit_request, None, [self.h.dtype], where=where, engine_ok=False,
             engine_why="the slab/shell routes have no contraction kernels")[0]
         self._mxu_flops_iter = 0
 
@@ -297,8 +331,13 @@ class Jacobi3D:
         name = self.h.name
         if want == "wrap" or (want == "auto" and single):
             self._pallas_path = "wrap"
-            k = self._wrap_k = choose_temporal_k(n.tuple(), self.temporal_k)
-            kw = self._resolve_unit("jacobi-wrap")
+            # the unit first, then the depth, each consulting the tuned
+            # config (stencil_tpu/models/jacobi.py:705-730)
+            from stencil_tpu_torch import tune
+
+            key = dd.tune_key("jacobi-wrap")
+            kw = self._resolve_unit("jacobi-wrap", tune.best_config(key) or {})
+            k = self._wrap_k = choose_temporal_k(n.tuple(), self.temporal_k, tune_key=key)
             if unit_uses_mxu(kw["compute_unit"]):
                 self._mxu_flops_iter = mxu_flops_per_plane(n.y, n.z, kw["compute_unit"]) * n.x
             inner = (0, 0, 0, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
@@ -386,10 +425,14 @@ class Jacobi3D:
         counterpart of the VMEM model).  m >= 2 plans the z-slab forms, m = 1
         the plain form, as in the JAX package; padded (uneven) subdomains plan
         the plain form at any depth, capped by the smallest valid extent
-        (models/jacobi.py:234-241).  The depth model prices the requested
-        contraction unit (``wavefront_smem_bytes``), as the JAX package
-        prices its prospective unit; its tune cache is ROADMAP.md queue 1
-        item 11."""
+        (models/jacobi.py:234-241).  The depth model prices the prospective
+        contraction unit (``wavefront_smem_bytes``; explicit > env > tuned >
+        static, resolved without its event), as the JAX package prices its
+        own.  Under "auto" the tuned config's m comes first
+        (models/jacobi.py:321-335): re-checked against the shard extents
+        and the shared memory, it is kept with its config
+        (``_tuned_wavefront``, which the build's unit and layout read), or
+        warned about and replaced by the static plan."""
         dd = self.dd
         if dd.halo_multiplier() != 1:
             raise ValueError("pallas_path='wavefront' manages the halo multiplier itself")
@@ -404,12 +447,22 @@ class Jacobi3D:
                 f"pallas_path='wavefront': empty last shard for {tuple(size)} over {tuple(dim)}"
             )
         n_min = min(min(n), min(v))
-        # the prospective unit (the build resolves it, with its warnings),
-        # and the levels' itemsize (the JAX package's ring_itemsize: the
-        # native dtype's, 4 under bf16 storage of f32 fields, 8 at f64)
-        req = self.compute_unit_request
-        unit = req if req in COMPUTE_UNITS else "vpu"
+        # the prospective unit (the build resolves it, with its event and
+        # warnings; models/jacobi.py:278-290), and the levels' itemsize (the
+        # JAX package's ring_itemsize: the native dtype's, 4 under bf16
+        # storage of f32 fields, 8 at f64)
+        from stencil_tpu_torch import tune
+        from stencil_tpu_torch.ops.jacobi_kernels import mxu_supported
+
+        key = dd.tune_key("jacobi-wavefront")
+        unit = "vpu"
+        if mxu_supported([self.h.dtype]):  # else the build warns once
+            cfg0 = tune.best_config(key) or {}
+            unit, _ = resolve_compute_unit(self.compute_unit_request, cfg0.get("compute_unit"), [self.h.dtype],
+                                           where="jacobi-wavefront", emit=False)
         item = self.h.dtype.itemsize
+        # the planning record the autotuner's wavefront space reads
+        self._wavefront_plan_info = {"n": tuple(n), "valid": tuple(v), "padded": padded, "n_min": n_min}
         if self.temporal_k != "auto":
             m = int(self.temporal_k)
             if not 1 <= m <= n_min:
@@ -425,9 +478,34 @@ class Jacobi3D:
             # so padded subdomains take the plain form
             self._wavefront_z_planned = not padded
             return m
+        # the tuned depth beats the static model; only what the card and the
+        # shards need is re-checked (a tuned m may pass the n_min // 4 cap)
+        cfg = tune.best_config(key)
+        if cfg is not None:
+            m = cfg.get("m")
+            if (isinstance(m, int) and not isinstance(m, bool) and 1 <= m <= n_min
+                    and wavefront_smem_fits(m, unit, item)):
+                self._tuned_wavefront = cfg
+                self._wavefront_z_planned = not padded
+                return m
+            log_warn(f"tuned config {cfg} for jacobi-wavefront is structurally invalid here (need 1 <= m <= "
+                     f"{n_min} and a kernel that fits the shared memory); using the static plan")
         m = wavefront_auto_depth(n_min, unit, item)
         self._wavefront_z_planned = m >= 2 and not padded
         return m
+
+    def _z_ring_pref(self, tuned: dict):
+        """``(preference, source)`` of the z-ring layout (models/jacobi.py:
+        469-485): explicit ``z_ring`` > ``STENCIL_Z_RING`` > the tuned
+        config's ``z_ring`` > the ring."""
+        if self.z_ring_request is not None:
+            return bool(self.z_ring_request), "explicit"
+        env = env_bool("STENCIL_Z_RING", None)
+        if env is not None:
+            return env, "env"
+        if tuned.get("z_ring") is not None:
+            return bool(tuned["z_ring"]), "tuned"
+        return True, "static"
 
     def _make_wavefront_step(self):
         """The temporally blocked multi-subdomain step (the JAX package's
@@ -464,10 +542,10 @@ class Jacobi3D:
         org = origins.cpu().tolist()
         name = self.h.name
         valid_last = dd.valid_last()
-        z_slab_mode = self._wavefront_z_planned
-        ring_pref = True if self.z_ring_request is None else bool(self.z_ring_request)
-        z_ring_mode = z_slab_mode and n.z % 128 == 0 and 2 * m <= _ZRING_OFF and ring_pref
-        kw = self._resolve_unit("jacobi-wavefront")
+        tuned = self._tuned_wavefront or {}
+        z_slab_mode = self._wavefront_z_planned and env_bool("STENCIL_Z_SLABS", True)
+        z_ring_mode = z_slab_mode and n.z % 128 == 0 and 2 * m <= _ZRING_OFF and self._z_ring_pref(tuned)[0]
+        kw = self._resolve_unit("jacobi-wavefront", tuned)
         if unit_uses_mxu(kw["compute_unit"]):
             plane_z = _ZRING_OFF + n.z if z_ring_mode else Zr
             self._mxu_flops_iter = mxu_flops_per_plane(Yr, plane_z, kw["compute_unit"]) * Xr * count

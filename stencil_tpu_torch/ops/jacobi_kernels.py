@@ -46,9 +46,11 @@ only, so both degrade to ``vpu`` / ``native`` on f64 fields with a warning
 (the resolvers below).  A bfloat16 block without ``f32_accumulate`` (the
 JAX kernels compute at bf16 then) is refused: ROADMAP.md queue 2.
 
-Precedence of the axes is explicit > static (the JAX package's env knobs and
-tune cache are ROADMAP.md queue 1 items 10-11); a structural degrade warns
-with a ``RuntimeWarning``.
+Precedence of the axes is the JAX package's: explicit >
+``STENCIL_COMPUTE_UNIT`` / ``STENCIL_STORAGE_DTYPE`` / ``STENCIL_MXU_INPUT``
+> the tuned config (``tune/``) > static; a structural degrade, and a tuned
+value outside the vocabulary, warns with a ``RuntimeWarning``, and each
+resolution emits its ``kernel.*`` event.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from stencil_tpu_torch import telemetry
 from stencil_tpu_torch.kernels import check_out, check_tensor, current_raw_stream, same_device
+from stencil_tpu_torch.telemetry import names as tm
 
 HOT_TEMP = 1.0
 COLD_TEMP = 0.0
@@ -162,12 +166,27 @@ def bf16_supported(native_dtypes) -> bool:
     return all(_dtype(dt) == torch.float32 for dt in native_dtypes)
 
 
-def _resolve_axis_value(request, choices, static: str):
-    """Explicit > static: ``(value, source)`` before the structural gates."""
+def _resolve_axis_value(request, tuned, env_name: str, choices, static: str):
+    """The precedence chain of the compute-unit, storage and operand axes
+    (``stencil_tpu/ops/jacobi_pallas.py:108-133``): an explicit request wins
+    and consults nothing further; then the validated env knob
+    (``env_choice``); then the tuned config's field (a value outside
+    ``choices`` warns and falls through); then the static value.  Returns
+    ``(value, source)`` before the structural gates."""
+    from stencil_tpu_torch.utils.config import env_choice
+
     if request not in (None, "auto"):
         if request not in choices:
             raise ValueError(f"unknown value {request!r} (one of {choices})")
         return request, "explicit"
+    env = env_choice(env_name, "auto", ("auto",) + tuple(choices))
+    if env != "auto":
+        return env, "env"
+    if tuned is not None:
+        if tuned in choices:
+            return str(tuned), "tuned"
+        _degrade(f"tuned {env_name.lower()} value {tuned!r} is not one of {choices}; using the static "
+                 f"{static!r} fallback")
     return static, "static"
 
 
@@ -175,46 +194,58 @@ def _degrade(msg: str) -> None:
     warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
-def resolve_compute_unit(request, compute_dtypes, where: str = "kernel", engine_ok: bool = True,
-                         engine_why: str = "this engine has no contraction kernel"):
-    """The compute unit of one kernel build: the explicit request, else
+def resolve_compute_unit(request, tuned, compute_dtypes, where: str = "kernel", engine_ok: bool = True,
+                         engine_why: str = "this engine has no contraction kernel", emit: bool = True):
+    """The compute unit of one kernel build (``stencil_tpu/ops/jacobi_pallas.py:
+    136-178``): explicit > ``STENCIL_COMPUTE_UNIT`` > ``tuned`` > static
     ``vpu``; a contraction the kernels cannot serve (non-f32 compute dtypes,
     an engine without a contraction kernel) degrades to ``vpu`` with a
-    warning.  Returns ``(unit, source)``."""
-    val, source = _resolve_axis_value(request, COMPUTE_UNITS, "vpu")
+    warning.  Each resolution emits ``kernel.compute_unit`` (``emit=False``
+    for a planner's prospective look).  Returns ``(unit, source)``."""
+    val, source = _resolve_axis_value(request, tuned, "STENCIL_COMPUTE_UNIT", COMPUTE_UNITS, "vpu")
     if unit_uses_mxu(val) and not (engine_ok and mxu_supported(compute_dtypes)):
         why = engine_why if not engine_ok else (
             f"fields compute at {[str(_dtype(d)).replace('torch.', '') for d in compute_dtypes]}, not f32")
         _degrade(f"compute_unit={val} ({source}) cannot engage for {where} ({why}); degrading to vpu")
         val, source = "vpu", source + "/degraded"
+    if emit:
+        telemetry.emit_event(tm.EVENT_KERNEL_COMPUTE_UNIT, unit=val, source=source, where=where)
     return val, source
 
 
-def resolve_storage_dtype(request, native_dtypes, where: str = "kernel", engine_ok: bool = True,
+def resolve_storage_dtype(request, tuned, native_dtypes, where: str = "kernel", engine_ok: bool = True,
                           engine_why: str = "this engine accumulates at the storage dtype"):
-    """The storage axis of one model build: the explicit request, else
+    """The storage axis of one model build (``stencil_tpu/ops/jacobi_pallas.py:
+    181-215``): explicit > ``STENCIL_STORAGE_DTYPE`` > ``tuned`` > static
     ``native``; ``bf16`` on non-f32 fields or on an engine without
-    f32-accumulate kernels degrades to ``native`` with a warning.  Returns
-    ``(storage, source)``."""
-    val, source = _resolve_axis_value(request, STORAGE_DTYPES, "native")
+    f32-accumulate kernels degrades to ``native`` with a warning.  Each
+    resolution emits ``kernel.storage_dtype``.  Returns ``(storage,
+    source)``."""
+    val, source = _resolve_axis_value(request, tuned, "STENCIL_STORAGE_DTYPE", STORAGE_DTYPES, "native")
     if val == "bf16" and not (engine_ok and bf16_supported(native_dtypes)):
         why = engine_why if not engine_ok else (
             f"fields are {[str(_dtype(d)).replace('torch.', '') for d in native_dtypes]}, not f32")
         _degrade(f"storage_dtype=bf16 ({source}) cannot engage for {where} ({why}); degrading to native")
         val, source = "native", source + "/degraded"
+    telemetry.emit_event(tm.EVENT_KERNEL_STORAGE_DTYPE, storage=val, source=source, where=where)
     return val, source
 
 
-def resolve_mxu_input(request, compute_unit: str, where: str = "kernel"):
-    """The contraction operands' precision: the explicit request, else
+def resolve_mxu_input(request, tuned, compute_unit: str, where: str = "kernel", emit: bool = True):
+    """The contraction operands' precision (``stencil_tpu/ops/jacobi_pallas.py:
+    218-255``): explicit > ``STENCIL_MXU_INPUT`` > ``tuned`` > static
     ``f32``; ``bf16`` under a unit that does not contract has nothing to
-    feed and degrades to ``f32`` with a warning.  Returns ``(value,
-    source)``."""
-    val, source = _resolve_axis_value(request, MXU_INPUTS, "f32")
+    feed and degrades to ``f32``, with a warning for an explicit or env
+    request (a tuned ``bf16`` read by a vpu build is routine).  Each
+    resolution emits ``kernel.mxu_input``.  Returns ``(value, source)``."""
+    val, source = _resolve_axis_value(request, tuned, "STENCIL_MXU_INPUT", MXU_INPUTS, "f32")
     if val == "bf16" and not unit_uses_mxu(compute_unit):
-        _degrade(f"mxu_input=bf16 ({source}) has no effect for {where}: the resolved compute unit is "
-                 f"{compute_unit!r} (no contraction to feed); using f32")
+        if source in ("explicit", "env"):
+            _degrade(f"mxu_input=bf16 ({source}) has no effect for {where}: the resolved compute unit is "
+                     f"{compute_unit!r} (no contraction to feed); using f32")
         val, source = "f32", source + "/degraded"
+    if emit:
+        telemetry.emit_event(tm.EVENT_KERNEL_MXU_INPUT, input=val, source=source, unit=compute_unit, where=where)
     return val, source
 
 
@@ -392,9 +423,14 @@ def yz_dist2_plane(origin_y: int, origin_z: int, shape_yz: Tuple[int, int], glob
     return (((y - gy // 2) ** 2)[:, None] + ((z - gz // 2) ** 2)[None, :]).to(torch.int32)
 
 
-def choose_temporal_k(shape: Tuple[int, int, int], requested="auto") -> int:
+def choose_temporal_k(shape: Tuple[int, int, int], requested="auto", tune_key=None) -> int:
     """The wrap route's levels per call: a validated explicit int
-    (1 <= k <= X//2, as in the JAX package) or ``WRAP_AUTO_K`` clipped to it."""
+    (1 <= k <= X//2, as in the JAX package); else, with ``tune_key`` (a
+    ``tune.WorkloadKey``), the tuned config's ``k`` when it is a valid depth
+    here (an invalid one warns and falls back; ``stencil_tpu/ops/
+    jacobi_pallas.py:796-805``); else ``WRAP_AUTO_K`` clipped to X//2.  A
+    tuned k may exceed ``WRAP_AUTO_K``: the wrap kernel takes any depth as
+    marches of at most ``WAVEFRONT_SUB_DEPTH`` levels."""
     X = shape[0]
     top = max(1, X // 2)
     if requested != "auto":
@@ -402,6 +438,18 @@ def choose_temporal_k(shape: Tuple[int, int, int], requested="auto") -> int:
         if not 1 <= k <= top:
             raise ValueError(f"temporal_k={k} needs 1 <= k <= X//2 = {X // 2}")
         return k
+    if tune_key is not None:
+        from stencil_tpu_torch import tune
+
+        cfg = tune.best_config(tune_key)
+        if cfg is not None:
+            k = cfg.get("k")
+            if isinstance(k, int) and not isinstance(k, bool) and 1 <= k <= top:
+                return k
+            from stencil_tpu_torch.utils.logging import log_warn
+
+            log_warn(f"tuned config {cfg} for {tune_key.label()} is structurally invalid here (need 1 <= k <= "
+                     f"{top}); using the static pick")
     return min(WRAP_AUTO_K, top)
 
 
@@ -852,6 +900,23 @@ def march_smem_bytes(m: int, itemsize: int = 4) -> int:
     8: 132,160 bytes)."""
     d = first_march_depth(m)
     return (2 * d * WAVEFRONT_TILE_Y * WAVEFRONT_TILE_W + 2 * (WAVEFRONT_TILE_W + 4)) * itemsize
+
+
+def wrap_smem_bytes(k: int, compute_unit: str = "vpu", itemsize: int = 4) -> int:
+    """Shared memory one block of a k-level ``jacobi_wrap_step`` call asks
+    on the card: its deepest march's (``march_smem_bytes`` of
+    ``wrap_march_depths(k)[0]`` levels, cells of the working ``itemsize``)
+    and, under a contracting unit, ``mxu_smem_extra_bytes`` of it.  The
+    marches are at most ``WAVEFRONT_SUB_DEPTH`` deep, so every k fits at f32
+    and f64: the autotuner's wrap space prices its depths with it (the
+    counterpart of the JAX package's VMEM model, ``wavefront_vmem_fits``)."""
+    d = wrap_march_depths(k)[0]
+    extra = mxu_smem_extra_bytes(d) if unit_uses_mxu(compute_unit) else 0
+    return march_smem_bytes(d, itemsize) + extra
+
+
+def wrap_smem_fits(k: int, compute_unit: str = "vpu", itemsize: int = 4) -> bool:
+    return wrap_smem_bytes(k, compute_unit, itemsize) <= SMEM_PER_BLOCK
 
 
 def _check_wavefront(raw, m, origin, d2, global_size, z_slabs, s_off, alias, ring, z_valid=None,

@@ -71,8 +71,16 @@ at once; the prefilter is the plan's shared-memory model
 (``stream_smem_fits``).  ``step._stream_plan`` is the current rung's plan,
 ``step._resilience`` the ladder.
 
-Not ported here: the env and tune sources of the axes, the tune cache and
-the axes' telemetry events (item 11).
+**The axes' sources** (``stencil_tpu/ops/stream.py:824-870, 1162-1311,
+1896-1935``): ``plan_stream``'s unconstrained auto path consults the tuned
+config (``tune/``, the ``stream`` key; ``_tuned_stream_plan`` re-checks it
+and falls back to the static plan with a warning), and each axis of
+``make_stream_step`` resolves explicit > env (``STENCIL_STREAM_OVERLAP``,
+``STENCIL_STREAM_HALO``, ``STENCIL_COMPUTE_UNIT``, ``STENCIL_MXU_INPUT``) >
+the tuned plan's field > static, emitting ``step.overlap``, ``step.halo``
+and the ``kernel.*`` events.  The ladder sits above the chain: its rungs
+take resolved plans.  The port never aliases a pass (a fresh output every
+pass), so a tuned ``alias`` is not read.
 
 **The fused halo** (``halo="fused"``, ``stencil_tpu/ops/stream.py:71-94``):
 under a ``yzpack_*`` exchange route each step calls
@@ -119,6 +127,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from stencil_tpu_torch import telemetry
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.kernels import build, check_out, check_tensor, same_device, stream_handle
 from stencil_tpu_torch.ops.captured import Loop, as_step, window_loop
@@ -128,10 +137,11 @@ from stencil_tpu_torch.ops.exchange import (
 )
 from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
 from stencil_tpu_torch.ops.jacobi_kernels import (
-    _WRAP_MAX_K, SMEM_PER_BLOCK, _emit, band_tile_plan, plane_band_unit, plane_nbr_sum_host, resolve_compute_unit,
-    resolve_mxu_input, unit_uses_mxu,
+    _WRAP_MAX_K, COMPUTE_UNITS, MXU_INPUTS, SMEM_PER_BLOCK, _emit, band_tile_plan, plane_band_unit,
+    plane_nbr_sum_host, resolve_compute_unit, resolve_mxu_input, unit_uses_mxu,
 )
 from stencil_tpu_torch.ops.stream_trace import STORAGE, PlaneInfo, PlaneView, StreamKernel, compute_kind
+from stencil_tpu_torch.telemetry import names as tm
 
 __all__ = [
     "PlaneInfo", "PlaneView", "StreamKernel", "make_stream_step", "plan_stream",
@@ -879,10 +889,64 @@ stream_wavefront_pass.fused_mxu_bf16in_launches = 0
 # --- planning -------------------------------------------------------------------------
 
 
+def _tuned_stream_plan(dd, x_radius: int, separable: bool) -> Optional[dict]:
+    """A structurally valid stored plan for this domain from the autotuner,
+    or None (``stencil_tpu/ops/stream.py:824-870``).  Its validity is
+    checked here, not trusted from the file: a hand-edited or stale entry
+    falls back to the static plan with a warning, never an error.  The axes'
+    fields (``overlap``, ``halo``, ``compute_unit``, ``mxu_input``) ride
+    along when present and must be in their vocabularies; ``alias`` is not
+    read (the port's passes never alias)."""
+    from stencil_tpu_torch import tune
+
+    cfg = tune.best_config(dd.tune_key("stream"))
+    if cfg is None:
+        return None
+    route, m = cfg.get("route"), cfg.get("m")
+    plan = {"route": route, "m": m, "z_slabs": bool(cfg.get("z_slabs", False)),
+            "grouping": cfg.get("grouping", "joint")}
+    for axis in ("overlap", "compute_unit", "mxu_input", "halo"):
+        if cfg.get(axis) is not None:
+            plan[axis] = cfg[axis]
+    n = dd.local_spec().sz
+    shell = dd.shell_radius()
+    lo, hi = shell.lo(), shell.hi()
+    ok = isinstance(m, int) and not isinstance(m, bool) and m >= 1
+    for axis, vocab in (("overlap", STREAM_OVERLAP), ("halo", STREAM_HALO), ("compute_unit", COMPUTE_UNITS),
+                        ("mxu_input", MXU_INPUTS)):
+        if ok and plan.get(axis) is not None:
+            ok = plan[axis] in vocab
+    if ok and plan["grouping"] == "per-field":
+        ok = separable and len(dd._handles) > 1
+    elif ok and plan["grouping"] != "joint":
+        ok = False
+    if ok and route == "wrap":
+        ok = dd.num_subdomains() == 1 and x_radius == 1 and m <= n.x // 2
+    elif ok and route == "wavefront":
+        uniform = len({lo.x, lo.y, lo.z, hi.x, hi.y, hi.z}) == 1
+        v_min = min(dd.valid_last()[ax] if dd.valid_last()[ax] is not None else n[ax] for ax in range(3))
+        ok = (x_radius == 1 and uniform and lo.x >= 2 and 2 <= m <= min(lo.x, v_min)
+              and not (plan["z_slabs"] and dd.padded()))
+    elif ok and route == "plane":
+        ok = m == 1 and not plan["z_slabs"]
+    elif ok:
+        ok = False
+    if not ok:
+        from stencil_tpu_torch.utils.logging import log_warn
+
+        log_warn(f"tuned stream config {cfg} is structurally invalid for this domain (shell/shards changed "
+                 "since it was measured?); using the static plan")
+        return None
+    return plan
+
+
 def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, max_m: int = None,
                 compute_unit: str = "vpu") -> dict:
     """Route planning for ``make_stream_step`` on a realized domain
-    (``stencil_tpu/ops/stream.py:913``).
+    (``stencil_tpu/ops/stream.py:913``).  On the unconstrained auto path
+    (``path="auto"``, no ``max_m``) the tuned plan comes first
+    (``_tuned_stream_plan``); a forced route or a depth cap plans statically
+    (the ladder's step-down must not re-apply the depth that failed).
 
     Returns ``{"route": "wrap"|"wavefront"|"plane", "m": int, "z_slabs": bool,
     "grouping": "joint"|"per-field"}``.  One subdomain and ``x_radius`` 1
@@ -917,6 +981,15 @@ def plan_stream(dd, x_radius: int, path: str = "auto", separable: bool = False, 
     wavefront."""
     if path not in ("auto", "plane", "wavefront", "wrap"):
         raise ValueError(f"unknown stream path {path!r}")
+    if path == "auto" and max_m is None:
+        tuned = _tuned_stream_plan(dd, x_radius, separable)
+        if tuned is not None:
+            return tuned
+    return _static_plan(dd, x_radius, path, separable, max_m, compute_unit)
+
+
+def _static_plan(dd, x_radius: int, path: str, separable: bool, max_m: Optional[int], compute_unit: str) -> dict:
+    """``plan_stream``'s static model (its docstring)."""
     shell = dd.shell_radius()
     lo, hi = shell.lo(), shell.hi()
     n = dd.local_spec().sz
@@ -958,15 +1031,45 @@ def _warn(msg: str) -> None:
     warnings.warn(msg, RuntimeWarning, stacklevel=4)
 
 
+def _axis_request(plan: dict, axis: str, env_name: str, vocab, static: str) -> Tuple[str, str]:
+    """Before the structural gate: ``(value, source)`` of a plan's
+    ``overlap`` or ``halo`` (``stencil_tpu/ops/stream.py:1156-1192,
+    1254-1286``): a forced value (``<axis>_forced``: an explicit request, an
+    autotuner candidate) > the env knob > the plan's tuned value (outside
+    the vocabulary: a warning, then the static value) > static."""
+    from stencil_tpu_torch.utils.config import env_choice
+
+    if plan.get(f"{axis}_forced") and plan.get(axis) is not None:
+        if plan[axis] not in vocab:
+            raise ValueError(f"unknown stream {axis} {plan[axis]!r} (one of {vocab})")
+        return plan[axis], "explicit"
+    env = env_choice(env_name, "auto", ("auto",) + tuple(vocab))
+    if env != "auto":
+        return env, "env"
+    tuned = plan.get(axis)
+    if tuned is not None:
+        if tuned in vocab:
+            return str(tuned), "tuned"
+        _warn(f"tuned stream {axis} {tuned!r} is not one of {vocab}; using the static {static!r} fallback")
+    return static, "static"
+
+
+def _overlap_request(plan: dict) -> Tuple[str, str]:
+    return _axis_request(plan, "overlap", "STENCIL_STREAM_OVERLAP", STREAM_OVERLAP, "off")
+
+
+def _halo_request(plan: dict) -> Tuple[str, str]:
+    return _axis_request(plan, "halo", "STENCIL_STREAM_HALO", STREAM_HALO, "array")
+
+
 def _resolve_stream_overlap(plan: dict) -> Tuple[str, str]:
     """``(value, source)`` of a plan's overlap schedule
-    (``stencil_tpu/ops/stream.py:1156-1218`` without the env and tune
-    sources): an explicit request (``overlap_forced``) or the static
-    ``off``.  A ``split`` the plan cannot serve (the wrap route has no
-    exchange to hide; the z-slab wavefront interleaves its slab permutes
-    with the pass) degrades to ``off`` with a ``RuntimeWarning``, source
-    tagged ``/degraded``."""
-    val, source = (plan["overlap"], "explicit") if plan.get("overlap_forced") else ("off", "static")
+    (``stencil_tpu/ops/stream.py:1156-1218``): ``_overlap_request``, then
+    the structural gate: a ``split`` the plan cannot serve (the wrap route
+    has no exchange to hide; the z-slab wavefront interleaves its slab
+    permutes with the pass) degrades to ``off`` with a ``RuntimeWarning``,
+    source tagged ``/degraded``."""
+    val, source = _overlap_request(plan)
     if val == "split" and (plan.get("route") not in ("plane", "wavefront") or plan.get("z_slabs")):
         why = ("the z-slab wavefront interleaves its slab permutes with the pass" if plan.get("z_slabs")
                else f"the {plan.get('route')!r} route has no exchange to hide")
@@ -996,11 +1099,11 @@ def fused_halo_ineligible(dd, plan: dict, exch_route: str) -> Optional[str]:
 
 def _resolve_stream_halo(dd, plan: dict, exch_route: str) -> Tuple[str, str]:
     """``(value, source)`` of a plan's halo consumption mode
-    (``stencil_tpu/ops/stream.py:1254-1311`` without the env and tune
-    sources): an explicit request (``halo_forced``) or the static
-    ``array``; a ``fused`` the plan cannot serve (``fused_halo_ineligible``)
-    degrades to ``array`` with a ``RuntimeWarning``."""
-    val, source = (plan["halo"], "explicit") if plan.get("halo_forced") else ("array", "static")
+    (``stencil_tpu/ops/stream.py:1254-1311``): ``_halo_request``, then the
+    structural gate: a ``fused`` the plan cannot serve
+    (``fused_halo_ineligible``) degrades to ``array`` with a
+    ``RuntimeWarning``."""
+    val, source = _halo_request(plan)
     if val == "fused":
         why = fused_halo_ineligible(dd, plan, exch_route)
         if why is not None:
@@ -1058,10 +1161,11 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     wavefront plan in its plain form (every axis exchanged in the array, as
     on uneven sizes, where the plan takes it and ``z_slabs=True`` raises).
 
-    ``compute_unit`` (``"auto"`` = ``"vpu"``, ``"mxu"``, ``"mxu_band"``) and
-    ``mxu_input`` (``"auto"`` = ``"f32"``, ``"bf16"``) resolve as
-    ``stencil_tpu/ops/stream.py:1405-1446`` resolves them, without the env
-    and tune sources: the explicit request, else the static value.  A
+    ``compute_unit`` (``"vpu"``, ``"mxu"``, ``"mxu_band"``) and
+    ``mxu_input`` (``"f32"``, ``"bf16"``) resolve as
+    ``stencil_tpu/ops/stream.py:1405-1446`` resolves them: the explicit
+    request, else ``STENCIL_COMPUTE_UNIT`` / ``STENCIL_MXU_INPUT``, else the
+    tuned plan's field, else ``vpu`` / ``f32``.  A
     contracting unit engages only on a kernel that declares its
     axis-separable form (``mxu_kernel``, the same stencil with its in-plane
     taps written through ``PlaneView.plane_nbr_sum``), which every pass then
@@ -1079,9 +1183,11 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     the JAX package, which rounds each band window up to its tile granule,
     keeps ``mxu_band``; the values are the same.
 
-    ``overlap`` (``"auto"`` = ``"off"``, or ``"split"``) and ``halo``
-    (``"auto"`` = ``"array"``, or ``"fused"``) select the split schedule and
-    the fused halo (module docstring).  A ``split`` or ``fused`` request
+    ``overlap`` (``"off"`` or ``"split"``) and ``halo`` (``"array"`` or
+    ``"fused"``) select the split schedule and the fused halo (module
+    docstring); ``"auto"`` resolves ``STENCIL_STREAM_OVERLAP`` /
+    ``STENCIL_STREAM_HALO``, else the tuned plan's field, else ``off`` /
+    ``array``.  A ``split`` or ``fused`` request
     re-plans a z-slab wavefront to the plain form (``plain_wavefront_plan``;
     not when ``z_slabs`` is given); a request the plan cannot serve degrades
     with a ``RuntimeWarning`` where the JAX package degrades it: split on
@@ -1115,18 +1221,42 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
     if mxu_input not in ("auto", "f32", "bf16"):
         raise ValueError(f"unknown mxu input {mxu_input!r} (one of ('auto', 'f32', 'bf16'))")
     max_depth = _check_depth(max_depth)
-    plan = dict(plan_stream(dd, x_radius, path, separable, max_m=max_depth))
-    # the compute-unit axis: explicit > static vpu, degraded where the kernel
-    # declares no contraction form or a field computes off f32; then the
-    # operands (bf16 only under a contracting unit)
+    # the tuned plan on the unconstrained auto path (plan_stream's consult,
+    # made once here), else the static one
+    tuned = _tuned_stream_plan(dd, x_radius, separable) if path == "auto" and max_depth is None else None
+    plan = dict(tuned) if tuned is not None else _static_plan(dd, x_radius, path, separable, max_depth, "vpu")
+    plan = resolve_plan(dd, plan, x_radius, separable, overlap=overlap, halo=halo, compute_unit=compute_unit,
+                        mxu_input=mxu_input, mxu_kernel=mxu_kernel, z_slabs=z_slabs,
+                        replan=None if tuned is not None else (path, max_depth))
+    return _ladder_step(dd, plan, kernel, mxu_kernel, x_radius, path, separable, z_slabs)
+
+
+def resolve_plan(dd, plan: dict, x_radius: int, separable: bool, *, overlap: str = "auto", halo: str = "auto",
+                 compute_unit: str = "auto", mxu_input: str = "auto", mxu_kernel: Callable = None,
+                 z_slabs: Optional[bool] = None, replan=None) -> dict:
+    """Resolve a plan's axes, each explicit > env > the plan's tuned field >
+    static, through the structural gates (``make_stream_step``'s docstring),
+    emitting ``kernel.compute_unit``, ``kernel.mxu_input``, ``step.overlap``
+    and ``step.halo``.  A request other than ``"auto"`` is explicit.
+    ``replan=(path, max_depth)`` re-plans a static plan's depth under an
+    engaged contraction unit; a tuned or a candidate plan (None) keeps its
+    measured depth.  Returns the resolved plan the ladder's rungs take (the
+    autotuner's stream trials build theirs through it too)."""
+    plan = {k: v for k, v in plan.items() if k not in ("alias", "halo_multiplier")}
+    # the compute-unit axis, degraded where the kernel declares no
+    # contraction form or a field computes off f32; then the operands (bf16
+    # only under a contracting unit)
     where = f"stream:{plan['route']}"
+    unit_req = None if compute_unit == "auto" else compute_unit
     unit, _ = resolve_compute_unit(
-        compute_unit, [h.dtype for h in dd._handles], where=where, engine_ok=mxu_kernel is not None,
+        unit_req, None if unit_req else plan.get("compute_unit"), [h.dtype for h in dd._handles], where=where,
+        engine_ok=mxu_kernel is not None,
         engine_why="the kernel declares no axis-separable contraction form (make_stream_step mxu_kernel=...)")
-    mi, _ = resolve_mxu_input(mxu_input, unit, where=where)
-    if unit_uses_mxu(unit):
+    mi_req = None if mxu_input == "auto" else mxu_input
+    mi, _ = resolve_mxu_input(mi_req, None if mi_req else plan.get("mxu_input"), unit, where=where)
+    if unit_uses_mxu(unit) and replan is not None:
         # the depth planned with the contraction's shared memory
-        plan = dict(plan_stream(dd, x_radius, path, separable, max_m=max_depth, compute_unit=unit))
+        plan = dict(_static_plan(dd, x_radius, replan[0], separable, replan[1], unit))
     if z_slabs is not None and plan["route"] == "wavefront":
         if z_slabs and dd.padded():
             raise ValueError("z_slabs=True: the z-slab wavefront form needs even (unpadded) subdomains")
@@ -1135,15 +1265,22 @@ def make_stream_step(dd, kernel: Callable, x_radius: int = 1, path: str = "auto"
         plan.update(overlap=overlap, overlap_forced=True)
     if halo != "auto":
         plan.update(halo=halo, halo_forced=True)
-    if z_slabs is None and (overlap == "split" or halo == "fused"):
+    # a split or fused request (explicit, env or tuned) re-plans a z-slab
+    # wavefront to its plain form first
+    if z_slabs is None and (_overlap_request(plan)[0] == "split" or _halo_request(plan)[0] == "fused"):
         plan = plain_wavefront_plan(plan) or plan
-    plan["overlap"] = _resolve_stream_overlap(plan)[0]
-    plan["halo"] = _resolve_stream_halo(dd, plan, dd.exchange_route())[0]
+    plan["overlap"], source = _resolve_stream_overlap(plan)
+    telemetry.emit_event(tm.EVENT_STEP_OVERLAP, overlap=plan["overlap"], source=source, route=plan["route"],
+                         m=plan["m"])
+    exch_route = dd.exchange_route()
+    plan["halo"], source = _resolve_stream_halo(dd, plan, exch_route)
+    telemetry.emit_event(tm.EVENT_STEP_HALO, halo=plan["halo"], source=source, route=plan["route"], m=plan["m"],
+                         exchange_route=exch_route)
     for key in ("overlap_forced", "halo_forced"):
         plan.pop(key, None)
     dtypes = [dd.field_dtype(h) for h in dd._handles]
     plan.update(compute_unit=unit, mxu_input=mi, f32_accumulate=torch.bfloat16 in dtypes)
-    return _ladder_step(dd, plan, kernel, mxu_kernel, x_radius, path, separable, z_slabs)
+    return plan
 
 
 def _rung_name(plan: dict) -> str:

@@ -29,7 +29,7 @@ still counts its retries; the in-memory event ring records always.  Call sites n
 The flight recorder (``flight.py``: a supervised run's ``status.json`` and
 ``crash_report.json``) is here too, rendered by ``python -m
 stencil_tpu_torch.status``.  The JAX facade's device profiler, roofline,
-ledger and fabric parts are not ported yet (ROADMAP.md queue 1 item 11).
+ledger and fabric parts are not ported yet (ROADMAP.md queue 1 item 11b).
 """
 
 from __future__ import annotations

@@ -58,6 +58,18 @@ WATCHDOG_STALLS = "watchdog.stalls"
 NUMERICS_SNAPSHOTS = "numerics.snapshots"
 #: guardband violations over those snapshots; also the event's name
 NUMERICS_DRIFT = "numerics.drift"
+#: tuned-config cache consultations that found a persisted config (tune/)
+TUNE_CACHE_HIT = "tune.cache.hit"
+#: consultations that found nothing (cold cache, stale toolchain, corrupt file)
+TUNE_CACHE_MISS = "tune.cache.miss"
+#: candidate configs actually measured by the autotuner's trial protocol
+TUNE_TRIALS = "tune.trials"
+#: candidates pruned without a steady-state measurement (the shared-memory
+#: model's prefilter, or a VMEM_OOM / COMPILE_REJECT on the card pruning the
+#: candidate and its deeper neighbours)
+TUNE_PRUNED = "tune.pruned"
+#: winning configs selected (and persisted) by a completed search
+TUNE_SELECTED = "tune.selected"
 #: analytic bytes an exchange moves over one grid hop, one counter per
 #: (axis, receive side); 0 on axes the grid does not split
 EXCHANGE_HOP_X_LOW_BYTES = "exchange.hop.x.low.bytes"
@@ -97,6 +109,11 @@ ALL_COUNTERS = frozenset({
     WATCHDOG_STALLS,
     NUMERICS_SNAPSHOTS,
     NUMERICS_DRIFT,
+    TUNE_CACHE_HIT,
+    TUNE_CACHE_MISS,
+    TUNE_TRIALS,
+    TUNE_PRUNED,
+    TUNE_SELECTED,
     *EXCHANGE_HOP_BYTES.values(),
 })
 
@@ -147,10 +164,34 @@ ALL_SPANS = frozenset({SPAN_STEP, SPAN_EXCHANGE})
 EVENT_COMPILE = "domain.compile"
 #: a ladder descent (fields: label, from_rung, to_rung, failure_class)
 EVENT_DESCENT = "resilience.descent"
-#: the exchange's y/z-sweep route changed after its resolution: a packed
-#: route's build was refused and the ladder took ``direct`` (fields: route,
-#: source=ladder)
+#: a tuning decision (fields: key, source=cache|search|static, config,
+#: trials, pruned)
+EVENT_TUNE_DECISION = "tune.decision"
+#: one autotuner trial finished (fields: key, candidate, seconds_per_iter,
+#: or failure_class/error when the candidate was pruned)
+EVENT_TUNE_TRIAL = "tune.trial"
+#: the exchange planner resolved its y/z-sweep route (fields: route,
+#: source=explicit|env|tuned|static, or "<orig>/degraded" when a packed pick
+#: structurally could not engage), or a packed route's build was refused
+#: and the ladder took ``direct`` (source=ladder)
 EVENT_EXCHANGE_ROUTE = "exchange.route"
+#: a stream-engine step build resolved its overlap schedule (fields:
+#: overlap=off|split, source=explicit|env|tuned|static or "<orig>/degraded",
+#: route, m)
+EVENT_STEP_OVERLAP = "step.overlap"
+#: a stream-engine step build resolved its halo consumption mode (fields:
+#: halo=array|fused, source as step.overlap, route, m, exchange_route)
+EVENT_STEP_HALO = "step.halo"
+#: a kernel build resolved its compute-unit axis (fields:
+#: unit=vpu|mxu|mxu_band, source=explicit|env|tuned|static or
+#: "<orig>/degraded", where)
+EVENT_KERNEL_COMPUTE_UNIT = "kernel.compute_unit"
+#: a kernel build resolved its contraction operands' precision (fields:
+#: input=f32|bf16, source, unit, where)
+EVENT_KERNEL_MXU_INPUT = "kernel.mxu_input"
+#: a model build resolved its storage-dtype axis (fields:
+#: storage=native|bf16, source, where)
+EVENT_KERNEL_STORAGE_DTYPE = "kernel.storage_dtype"
 #: the supervisor restarted from the last valid checkpoint (fields: label,
 #: step, restart, budget, failure_class, error)
 EVENT_SUPERVISOR_RESTART = "supervisor.restart"
@@ -186,7 +227,14 @@ EVENT_WATCHDOG_STALL = "watchdog.stall"
 ALL_EVENTS = frozenset({
     EVENT_COMPILE,
     EVENT_DESCENT,
+    EVENT_TUNE_DECISION,
+    EVENT_TUNE_TRIAL,
     EVENT_EXCHANGE_ROUTE,
+    EVENT_STEP_OVERLAP,
+    EVENT_STEP_HALO,
+    EVENT_KERNEL_COMPUTE_UNIT,
+    EVENT_KERNEL_MXU_INPUT,
+    EVENT_KERNEL_STORAGE_DTYPE,
     EVENT_SUPERVISOR_RESTART,
     EVENT_RESHARD_FALLBACK,
     EVENT_SUPERVISOR_REPLENISH,

@@ -2793,3 +2793,50 @@ def test_supervised_restart_and_sticky_error_on_card(dev, tmp_path):
     with pytest.raises(RuntimeError, match="illegal memory access"):
         RunSupervisor(m.dd, SupervisorConfig(dir=str(tmp_path / "b"), max_restarts=3), label="jacobi").run(
             4, poisoned)
+
+
+# --- the autotuner and the toolchain report (PR 26) --------------------------------------
+
+
+def test_toolchain_names_the_card(dev):
+    from stencil_tpu_torch.kernels import toolchain
+
+    tools = toolchain()
+    assert tools["device"] == torch.cuda.get_device_name(0)
+    assert tools["card"] is not None and tools["card"].startswith(tools["device"])
+    assert tools["power_limit"] and tools["nvcc"] and tools["cuda"] == torch.version.cuda
+
+
+def test_tune_search_on_card_cold_then_warm(dev, tmp_path, monkeypatch):
+    """A wrap search on the card, cold: every trial launches the kernel at
+    whole calls of its depth and the winner is stored; warm: zero trials and
+    no launch.  A model built after it runs the tuned depth, bitwise equal
+    to the same depth given explicitly."""
+    from stencil_tpu_torch import tune
+    from stencil_tpu_torch.tune.runners import autotune_jacobi_wrap
+
+    monkeypatch.setenv("STENCIL_TUNE_CACHE", str(tmp_path))
+    monkeypatch.delenv("STENCIL_TUNE", raising=False)
+    tune.reset_memo()
+    before = jk.jacobi_wrap_step.launches
+    cold = autotune_jacobi_wrap(64, 64, 64, device=dev, reps=1, ks=[2, 4])
+    assert cold.source == "search" and cold.trials >= 3 and cold.config is not None
+    assert all(cold.inner % r.config["k"] == 0 for r in cold.results)
+    assert all(r.seconds_per_iter > 0 for r in cold.results if not r.pruned)
+    assert jk.jacobi_wrap_step.launches > before
+    tune.reset_memo()
+    launched = sum(getattr(jk.jacobi_wrap_step, c) for c in jk.CONTRACTION_COUNTERS)
+    warm = autotune_jacobi_wrap(64, 64, 64, device=dev, reps=1, ks=[2, 4])
+    assert warm.cache_hit and warm.trials == 0 and warm.config == cold.config
+    assert sum(getattr(jk.jacobi_wrap_step, c) for c in jk.CONTRACTION_COUNTERS) == launched
+    cfg = cold.config
+    tuned = Jacobi3D(64, 64, 64, kernel_impl="cuda", device=dev)
+    tuned.realize()
+    assert (tuned._wrap_k, tuned._compute_unit) == (cfg["k"], cfg["compute_unit"])
+    explicit = Jacobi3D(64, 64, 64, kernel_impl="cuda", device=dev, temporal_k=cfg["k"],
+                        compute_unit=cfg["compute_unit"], mxu_input=cfg.get("mxu_input", "f32"),
+                        storage_dtype=cfg["storage_dtype"])
+    explicit.realize()
+    tuned.step(40)
+    explicit.step(40)
+    assert np.array_equal(tuned.temperature(), explicit.temperature())

@@ -289,22 +289,22 @@ def test_forms_are_in_the_ledger():
 
 
 def test_resolvers_precedence_and_degrades():
-    assert jk.resolve_compute_unit(None, [torch.float32]) == ("vpu", "static")
-    assert jk.resolve_compute_unit("mxu_band", [torch.float32]) == ("mxu_band", "explicit")
-    assert jk.resolve_storage_dtype("auto", [torch.float32]) == ("native", "static")
-    assert jk.resolve_mxu_input("bf16", "mxu") == ("bf16", "explicit")
+    assert jk.resolve_compute_unit(None, None, [torch.float32]) == ("vpu", "static")
+    assert jk.resolve_compute_unit("mxu_band", None, [torch.float32]) == ("mxu_band", "explicit")
+    assert jk.resolve_storage_dtype("auto", None, [torch.float32]) == ("native", "static")
+    assert jk.resolve_mxu_input("bf16", None, "mxu") == ("bf16", "explicit")
     with pytest.warns(RuntimeWarning, match="float64"):
-        assert jk.resolve_compute_unit("mxu", [torch.float64]) == ("vpu", "explicit/degraded")
+        assert jk.resolve_compute_unit("mxu", None, [torch.float64]) == ("vpu", "explicit/degraded")
     with pytest.warns(RuntimeWarning, match="float64"):
-        assert jk.resolve_storage_dtype("bf16", [np.float64]) == ("native", "explicit/degraded")
+        assert jk.resolve_storage_dtype("bf16", None, [np.float64]) == ("native", "explicit/degraded")
     with pytest.warns(RuntimeWarning, match="no contraction to feed"):
-        assert jk.resolve_mxu_input("bf16", "vpu") == ("f32", "explicit/degraded")
+        assert jk.resolve_mxu_input("bf16", None, "vpu") == ("f32", "explicit/degraded")
     assert not jk.mxu_supported([torch.float64]) and not jk.bf16_supported([torch.float64])
     for fn, bad in ((jk.resolve_compute_unit, "tpu"), (jk.resolve_storage_dtype, "fp4")):
         with pytest.raises(ValueError, match="unknown value"):
-            fn(bad, [torch.float32])
+            fn(bad, None, [torch.float32])
     with pytest.raises(ValueError, match="unknown value"):
-        jk.resolve_mxu_input("fp8", "mxu")
+        jk.resolve_mxu_input("fp8", None, "mxu")
 
 
 # --- the model --------------------------------------------------------------------------

@@ -325,9 +325,10 @@ def test_stream_step_exposes_the_current_rung_loop():
 
 def test_exchange_route_descends_to_direct():
     """A refused build of a packed route descends to ``direct`` at
-    ``realize()``: counted, the route event emitted with source ``ladder``,
-    and ``direct`` recorded as the route taken; the exchange then fills
-    the same halos."""
+    ``realize()``: counted, the route event emitted with source ``ladder``
+    after the resolution's own (``explicit``, as the JAX package emits
+    both), and ``direct`` recorded as the route taken; the exchange then
+    fills the same halos."""
     inject.set_plan("compile:compile_reject:exchange:yzpack_pallas")
     dd = DistributedDomain(16, 16, 16, device="cpu")
     dd.set_radius(Radius.constant(1))
@@ -337,7 +338,8 @@ def test_exchange_route_descends_to_direct():
     dd.realize()
     assert dd.exchange_route() == "direct"
     events = [e for e in telemetry.recent_events() if e["event"] == tm.EVENT_EXCHANGE_ROUTE]
-    assert events == [dict(events[0], route="direct", source="ladder")]
+    assert events == [dict(events[0], route="yzpack_pallas", source="explicit"),
+                      dict(events[1], route="direct", source="ladder")]
     assert telemetry.snapshot()["counters"][tm.LADDER_DESCENTS] == 1
     dd.init_by_coords(h, lambda x, y, z: _init(x, y, z, torch))
     dd.exchange()
