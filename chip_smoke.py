@@ -379,6 +379,28 @@ non-zero before the result line:
     cache.  Each search's launches are counted (``tune_launches`` in the
     kernels' line), and every dispatch of a search runs whole calls of
     each candidate's depth.
+27. device-time attribution and the roofline (``telemetry/device.py``,
+    ``telemetry/roofline.py``, the drivers' ``--profile-dir``): (a)
+    ``bin/jacobi3d.main`` in-process at 512^3 on 2x2x2, 3 samples with
+    ``--profile-dir`` (one capture, one macro step), on the z-ring
+    wavefront (kernels #2 and #9) and on the torch engine over
+    ``yzpack_pallas`` (#9, #11-#14): ``roofline.json`` has ``"source":
+    "device"``, ``exchange`` and ``pack`` hold device time, and every
+    kernel family the window counted has its launches held against its
+    count (a short reading is logged as short); the wavefront capture,
+    trimmed to its device, scope and launch rows, goes to
+    ``chiprun_out/phase27/torch_trace_h100.json.gz``; (b) ``AstarothSim(512^3,
+    8 fields)`` on 2x2x2 under ``stream_overlap="split"`` (the plain
+    wavefront, #8), one macro step captured: the interior and exterior
+    scopes hold device time on two streams, and the time both ran at once
+    is printed; (c) one ``compute_unit="mxu"`` call of #1 (the wrap route,
+    k levels) uncaptured and captured: ``kernel.mxu.flops`` of the window
+    above 0, and uncaptured its roofline fraction at or below 1.05 of the
+    f32 peak (495 TF32 TFLOP/s over three pieces); captured, the family's
+    launches still attributed.  A capture that holds no device row, or fewer
+    rows of a family than its wrappers launched in the window, is logged,
+    counted and taken again, five at most, then the phase fails.  The
+    phase's seconds are printed.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -3307,6 +3329,230 @@ def phase26(card: str, dev: torch.device) -> dict:
     return rec
 
 
+def trim_trace(events: list) -> list:
+    """A Kineto trace's device rows, scope rows, launches and metadata (the
+    rows ``telemetry/device.py`` reads), the host's op rows dropped."""
+    from stencil_tpu_torch.telemetry import device as dv
+
+    keep = dv.DEVICE_CATS | dv.LAUNCH_CATS | {dv.GPU_ANNOTATION_CAT, dv.CPU_ANNOTATION_CAT}
+    return [e for e in events if e.get("ph") == "M" or e.get("cat") in keep]
+
+
+def phase27(card: str, dev: torch.device) -> dict:
+    """Phase 27 (see the module's docstring): device-time attribution, the
+    roofline and the drivers' ``--profile-dir`` at full width."""
+    import gzip
+    import shutil
+    import tempfile
+
+    from stencil_tpu_torch import telemetry
+    from stencil_tpu_torch.bin import _common
+    from stencil_tpu_torch.bin import jacobi3d as jacobi3d_driver
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.telemetry import device as dv
+    from stencil_tpu_torch.telemetry import names as tm
+    from stencil_tpu_torch.telemetry import roofline as rf
+    from stencil_tpu_torch.tune.key import chip_kind
+
+    t_phase = time.perf_counter()
+    rec = {"card": card, "seconds": {}}
+    tmp = tempfile.mkdtemp(prefix="stencil_prof_")
+    out = os.path.join(OUT_DIR, "phase27")
+    os.makedirs(out, exist_ok=True)
+    chip = chip_kind(dev)
+    hbm = _common.copy_gbps(dev)
+    rec["copy_gbps"] = hbm
+
+    def keep(what, events):
+        """The capture's trimmed trace beside the phase's record."""
+        with gzip.open(os.path.join(out, what.replace(" ", "_") + ".trace.json.gz"), "wt", encoding="utf-8") as f:
+            json.dump({"traceEvents": trim_trace(events or [])}, f)
+
+    def held(what, launches):
+        """Every family the window counted has its launches held against
+        its count; a short reading is logged as short."""
+        fams = {k: v for k, v in (launches or {}).items() if v["counted"]}
+        if not fams:
+            raise AssertionError(f"phase 27 {what}: no kernel family counted a launch: {launches}")
+        for fam, v in fams.items():
+            log(f"phase 27 {what}: {os.path.basename(fam)} {v['held']} launches held / {v['counted']} counted"
+                + (" (SHORT: the trace dropped launches)" if v["short"] else ""))
+        return fams
+
+    def rec_launch(report, family):
+        """The launches the window counted of the family whose source
+        holds ``family`` (the z-ring wavefront run counts one wrapper each)."""
+        return sum(v["counted"] for k, v in report["launches"].items() if family in os.path.basename(k))
+
+    rec["short_captures"] = {}
+
+    def short(what, launches) -> bool:
+        """Did the capture hold fewer rows of a family than its wrappers
+        launched in the window; counted and logged, the capture taken again."""
+        fams = sorted(os.path.basename(k) for k, v in (launches or {}).items() if v["short"])
+        if fams:
+            rec["short_captures"][what] = rec["short_captures"].get(what, 0) + 1
+            log(f"phase 27 {what}: a capture short of its launches ({fams}: {launches}); taken again")
+        return bool(fams)
+
+    def driver(what, argv):
+        """``jacobi3d.main`` with ``--profile-dir``; a run whose capture held no
+        device row, or fewer rows than the window launched, is run again,
+        five runs at most."""
+        for attempt in range(5):
+            d = os.path.join(tmp, f"{what}_{attempt}")
+            t0 = time.perf_counter()
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = jacobi3d_driver.main(argv + ["--profile-dir", d])
+            rec["seconds"][what] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"phase 27 {what}: rc {rc}:\n{err.getvalue()[-2000:]}")
+            keep(what, dv.ProfileCapture(d).newest_events())
+            path = os.path.join(d, "roofline.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    report = json.load(f)
+                if not short(what, report["launches"]):
+                    return d, report, attempt + 1
+                continue
+            log(f"phase 27 {what}: capture {attempt + 1} held no device row: {err.getvalue()[-400:]}")
+        raise AssertionError(f"phase 27 {what}: five captures held no device row or were short")
+
+    def table(what, report):
+        ph = report["phases"]
+        log(f"phase 27 {what} roofline ({report['source']}, counters {report['counters_scope']}, HBM "
+            f"{report['peaks']['hbm_gbps']:.1f} GB/s {report['peaks']['hbm_source']}): total "
+            f"{report['total_device_ms']} ms, unattributed {report['unattributed_device_ms']} ms; "
+            + "; ".join(f"{k} {v['device_ms']} ms {v['events']} rows"
+                        + (f" {v['gbps']} GB/s" if v["gbps"] else "") + (f" {v['gflops']} GFLOP/s" if v["gflops"] else "")
+                        + (f" {100 * v['frac_of_roofline']:.1f}% of roofline" if v["frac_of_roofline"] else "")
+                        for k, v in ph.items()) + f"; rows via {report.get('via')}; on {card}")
+
+    try:
+        # (a) Jacobi3D 512^3 on 2x2x2 through the driver: the z-ring wavefront
+        # (kernels #2 and #9), then the torch engine on yzpack_pallas (#9, #11-#14)
+        base = [str(N), str(N), str(N), "--no-weak-scale", "--partition", "2,2,2", "--iters", "3"]
+        for what, argv in (("jacobi wavefront", base + ["--pallas-path", "wavefront"]),
+                           ("jacobi torch yzpack_pallas", base + ["--kernel-impl", "torch", "--exchange-route",
+                                                                   "yzpack_pallas"])):
+            d, report, tries = driver(what, argv)
+            table(what, report)
+            if report["source"] != "device":
+                raise AssertionError(f"phase 27 {what}: roofline source {report['source']}")
+            for phase in ("exchange", "pack"):
+                if not report["phases"][phase]["device_ms"] > 0:
+                    raise AssertionError(f"phase 27 {what}: no {phase} device time: {report['phases'][phase]}")
+            fams = held(what, report["launches"])
+            rec[what] = {"roofline": report, "captures": tries, "families": fams}
+            shutil.copy(os.path.join(d, "roofline.json"), os.path.join(out, what.replace(" ", "_") + ".json"))
+            if what == "jacobi wavefront":
+                # the capture the CPU tests pin attribution on
+                # (tests/data/torch_trace_h100.json.gz), with the window's
+                # launch counts and counter deltas beside it
+                trimmed = trim_trace(dv.ProfileCapture(d).newest_events())
+                deltas = {tm.EXCHANGE_BYTES: report["phases"]["exchange"]["bytes"],
+                          tm.EXCHANGE_PACKED_BYTES: report["phases"]["pack"]["bytes"] or 0,
+                          tm.KERNEL_MXU_FLOPS: report["phases"]["mxu"]["flops"] or 0}
+                deltas.update({tm.EXCHANGE_HOP_BYTES[(h["axis"], h["direction"])]: h["bytes"] or 0
+                               for h in report["comms"]["hops"].values()})
+                path = os.path.join(out, "torch_trace_h100.json.gz")
+                with gzip.open(path, "wt", encoding="utf-8") as f:
+                    json.dump({"traceEvents": trimmed, "device": torch.cuda.get_device_name(0), "card": card,
+                               "launch_counts": {"jacobi_zring_wavefront_step": rec_launch(report, "jacobi"),
+                                                 "blend_slab": rec_launch(report, "pack")},
+                               "counter_deltas": deltas}, f)
+                rec["trace_kb"] = os.path.getsize(path) / 1024
+                rec["trace_rows"] = len(trimmed)
+                log(f"phase 27 trace: {len(trimmed)} rows kept, {rec['trace_kb']:.1f} KB gzipped")
+
+        def captured(what, model, steps):
+            """One ``model.step(steps)`` under a ProfileCapture, taken again
+            while the trace holds no device row (five captures at most)."""
+            for attempt in range(5):
+                cap = dv.ProfileCapture(os.path.join(tmp, f"{what}_{attempt}".replace(" ", "_")))
+                with cap.maybe(0):
+                    model.step(steps)
+                    sync()
+                events = cap.newest_events()
+                keep(what, events)
+                att = cap.attribution()
+                if att is not None and att["_total"]["events"]:
+                    if not short(what, cap.launches()):
+                        return cap, events, att, attempt + 1
+                else:
+                    log(f"phase 27 {what}: capture {attempt + 1} held no device row")
+            raise AssertionError(f"phase 27 {what}: five captures held no device row or were short")
+
+        # (b) AstarothSim, 8 fields of 512^3 on 2x2x2 under the split
+        # schedule (the plain wavefront, kernel #8; the exchange on a side stream)
+        t0 = time.perf_counter()
+        ast = AstarothSim(N, N, N, num_quantities=AST_Q, kernel_impl="cuda", stream_overlap="split", device=dev)
+        ast.dd.set_partition(2, 2, 2)
+        ast.realize()
+        m_ast = ast._step._stream_plan["m"]
+        ast.step(m_ast)
+        sync()
+        cap, events, att, tries = captured("astaroth split", ast, m_ast)
+        ov = dv.overlap_report(events)
+        report = rf.capture_report(cap, chip=chip, measured_hbm_gbps=hbm)
+        table("astaroth split", report)
+        it, ex = ov[tm.SPAN_OVERLAP_INTERIOR], ov[tm.SPAN_OVERLAP_EXTERIOR]
+        streams = set(it["streams"]) | set(ex["streams"])
+        log(f"phase 27 astaroth split (m = {m_ast}, one macro step): interior {it['device_us']:.1f} us "
+            f"({it['events']} rows, streams {it['streams']}), exterior {ex['device_us']:.1f} us ({ex['events']} "
+            f"rows, streams {ex['streams']}), both at once {ov['overlap_us']:.1f} us (share of the lesser "
+            f"{ov['overlap_share']}); on {card}")
+        if not (it["device_us"] > 0 and ex["device_us"] > 0 and len(streams) >= 2):
+            raise AssertionError(f"phase 27 astaroth split: interior/exterior device time on two streams: {ov}")
+        fams = held("astaroth split", cap.launches())
+        rec["astaroth split"] = {"overlap": ov, "roofline": report, "captures": tries, "families": fams, "m": m_ast,
+                                 "counter_deltas": cap.last_counter_deltas}
+        del ast
+        torch.cuda.empty_cache()
+        rec["seconds"]["astaroth split"] = time.perf_counter() - t0
+
+        # (c) one compute_unit="mxu" call of #1 (the wrap route, 1x1x1)
+        # uncaptured and captured (ops/captured.py): what each attributes
+        for capture in (False, True):
+            what = f"jacobi wrap mxu{' captured' if capture else ''}"
+            t0 = time.perf_counter()
+            jm = Jacobi3D(N, N, N, kernel_impl="cuda", compute_unit="mxu", capture=capture, device=dev)
+            jm.realize()
+            k = jm._wrap_k
+            jm.step(k)
+            sync()
+            cap, events, att, tries = captured(what, jm, k)
+            report = rf.capture_report(cap, chip=chip, measured_hbm_gbps=hbm)
+            table(what, report)
+            mx = report["phases"]["mxu"]
+            flops = cap.last_counter_deltas[tm.KERNEL_MXU_FLOPS]
+            log(f"phase 27 {what} (k = {k}): kernel.mxu.flops {flops} in the window, mxu {mx['device_ms']} ms, "
+                f"{mx['gflops']} GFLOP/s, {mx['frac_of_roofline']} of the {report['peaks']['mxu_gflops_f32']} "
+                f"GFLOP/s f32 peak; on {card}")
+            if not flops > 0:
+                raise AssertionError(f"phase 27 {what}: kernel.mxu.flops {flops}")
+            # a replayed graph holds no scope of its own (only domain.step's,
+            # around the replay): captured, the family's launches attribute
+            if not capture and (mx["frac_of_roofline"] is None or not mx["frac_of_roofline"] <= 1.05):
+                raise AssertionError(f"phase 27 {what}: mxu roofline fraction {mx['frac_of_roofline']}")
+            fams = held(what, cap.launches())
+            rec[what] = {"roofline": report, "captures": tries, "families": fams, "flops": flops, "k": k}
+            loop = getattr(jm._step, "_loop", None)
+            if loop is not None and hasattr(loop, "release"):
+                loop.release()
+            del jm
+            torch.cuda.empty_cache()
+            rec["seconds"][what] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 27 short captures, taken again: {rec['short_captures'] or 'none'}; on {card}")
+    log(f"phase 27 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in rec["seconds"].items()) + f"; on {card}")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -5117,6 +5363,11 @@ def main() -> int:
     tn26 = phase26(card, dev)
     phase_end()
 
+    # --- 27. device-time attribution, the roofline, the drivers' --profile-dir ---
+    phase_start(27)
+    pr27 = phase27(card, dev)
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -5324,6 +5575,7 @@ def main() -> int:
         "dispatch_boundary": rs24,
         "supervisor": rs25,
         "autotuner": tn26,
+        "device_time": pr27,
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

@@ -1,5 +1,6 @@
 """Flags and helpers the ported drivers share (counterpart of parts of
-``stencil_tpu/bin/_common.py``): ``--metrics-out``, ``--numerics-every``,
+``stencil_tpu/bin/_common.py``): ``--metrics-out``, ``--profile-dir`` (the
+cadence device-profile capture and its roofline report), ``--numerics-every``,
 the checkpoint flags of the run supervisor, the autotuner's ``--tune`` /
 ``--no-tune`` / ``--tune-cache``, and the timing helpers of the tuner's
 trial protocol (``host_round_trip_s``, ``timed_inner_loop``)."""
@@ -7,6 +8,7 @@ trial protocol (``host_round_trip_s``, ``timed_inner_loop``)."""
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -18,6 +20,96 @@ def add_telemetry_flags(p: argparse.ArgumentParser) -> None:
     run leaves its JSONL event log and Chrome trace there too."""
     p.add_argument("--metrics-out", default=None, metavar="PATH",
                    help="write a telemetry snapshot JSON to PATH at exit (turns telemetry on)")
+
+
+def add_profile_flags(p: argparse.ArgumentParser) -> None:
+    """``--profile-dir DIR``: cadence-gated ``torch.profiler`` captures around
+    the driver's dispatches (``STENCIL_PROFILE_EVERY`` sets the cadence;
+    unset, one capture).  At exit the device rows are merged into the host
+    Chrome trace and a per-phase roofline report lands beside the captures
+    (``stencil_tpu/bin/_common.py:81-96``).  A profiler that will not start
+    warns and the run goes on."""
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="capture torch.profiler traces here on the STENCIL_PROFILE_EVERY cadence; at exit the "
+                        "device rows are merged into the Chrome trace and roofline.json/.md are written")
+
+
+def profile_capture_for(args):
+    """A ``ProfileCapture`` from ``add_profile_flags``'s choice (the
+    environment fills an unset flag), or None: profiling is opt-in."""
+    from stencil_tpu_torch.telemetry.device import ProfileCapture
+
+    return ProfileCapture.from_env(dir=getattr(args, "profile_dir", None))
+
+
+def copy_gbps(device) -> float:
+    """GB/s of a ``Tensor.copy_`` of 256 MiB on the card (bytes read and
+    written, the best of 5 timed with CUDA events): the HBM ceiling the
+    roofline uses in place of the data sheet's."""
+    import torch
+
+    src = torch.empty(1 << 26, dtype=torch.float32, device=device)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    best = None
+    for _ in range(5):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        dst.copy_(src)
+        t1.record()
+        t1.synchronize()
+        ms = t0.elapsed_time(t1)
+        best = ms if best is None else min(best, ms)
+    return 2 * src.numel() * src.element_size() / (best / 1e3) / 1e9
+
+
+def profile_finalize(args, capture, chrome_path: str = None, device=None) -> None:
+    """The device-time artifacts at the end of a run
+    (``stencil_tpu/bin/_common.py:99-142``): merge the newest capture's
+    device rows into the host Chrome trace at ``chrome_path``, and write
+    ``roofline.json`` / ``roofline.md`` into the profile directory: the
+    per-phase roofline of the capture's window (``roofline.capture_report``,
+    the card's peaks with a measured ``copy_`` bandwidth for HBM), with
+    ``launches`` (each kernel family's launches the trace held against those
+    its wrappers counted), ``overlap`` (the split schedule's interior and
+    exterior per stream), ``comms`` (the per-hop view) and ``card`` (name
+    and power limit).  Runs after the last host-trace dump.  A capture with
+    no device row (a CPU run) writes nothing and says so; a failure here is
+    printed, never raised on the driver's exit path."""
+    if capture is None or capture.captures == 0:
+        return
+    from stencil_tpu_torch.telemetry.device import (
+        attribute_device_time, attribute_exchange_directions, launches_held, merge_into_chrome_trace, overlap_report,
+    )
+    from stencil_tpu_torch.telemetry.roofline import capture_report, comms_roofline, render_markdown
+    from stencil_tpu_torch.tune.key import chip_kind
+    from stencil_tpu_torch.utils.artifact import atomic_write_json, atomic_write_text
+
+    try:
+        if chrome_path is not None:
+            merge_into_chrome_trace(chrome_path, capture.dir)
+        chip = chip_kind(device)
+        on_card = chip != "cpu"
+        report = capture_report(capture, chip=chip, measured_hbm_gbps=copy_gbps(device) if on_card else None)
+        if report is None:
+            print(f"profile: no device rows under {capture.dir} (no device profiler on this run) - no roofline "
+                  "report; python -m stencil_tpu_torch.bin.perf_report can build a host-span fallback",
+                  file=sys.stderr)
+            return
+        events = capture.newest_events()
+        report["launches"] = launches_held(events, capture.last_launch_deltas)
+        report["overlap"] = overlap_report(events)
+        report["comms"] = comms_roofline(attribute_exchange_directions(events), capture.counters_snapshot())
+        report["via"] = attribute_device_time(events).get("_via")
+        if on_card:
+            from stencil_tpu_torch.kernels import toolchain
+
+            report["card"] = toolchain()["card"]
+        atomic_write_json(os.path.join(capture.dir, "roofline.json"), report)
+        atomic_write_text(os.path.join(capture.dir, "roofline.md"), render_markdown(report))
+        print(f"profile: roofline report in {capture.dir}", file=sys.stderr)
+    except Exception as e:  # noqa: BLE001 - observability must not fail the run
+        print(f"profile finalize failed: {e!r}", file=sys.stderr)
 
 
 def add_numerics_flag(p: argparse.ArgumentParser) -> None:
@@ -64,14 +156,19 @@ def telemetry_begin(args) -> None:
         atexit.register(args._telemetry_atexit)
 
 
-def telemetry_end(args) -> None:
+def telemetry_end(args, profile_capture=None, device=None) -> None:
     """Flush the telemetry files and write the ``--metrics-out`` snapshot
     on ``main``'s clean exit, and leave the process's telemetry as
-    ``telemetry_begin`` found it."""
+    ``telemetry_begin`` found it.  ``profile_capture`` (the driver's
+    ``ProfileCapture``) is finalized after the Chrome-trace dump, so the
+    device rows are merged into the final host trace."""
     from stencil_tpu_torch import telemetry
 
+    arts = {}
     if telemetry.enabled():
-        telemetry.write_artifacts()
+        arts = telemetry.write_artifacts()
+    if profile_capture is not None:
+        profile_finalize(args, profile_capture, chrome_path=arts.get("trace"), device=device)
     path = getattr(args, "metrics_out", None)
     if path:
         _write_snapshot(path)

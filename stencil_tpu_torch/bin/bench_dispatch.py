@@ -17,7 +17,11 @@ every knob at its default, it measures:
 
 Before the routes, ``boundary_us``: the host µs of ``run_step`` itself, on
 a 64^3 card domain with a step that returns its input at once (the median
-of 7 runs of 20,000 calls): what the dispatch boundary costs a call.
+of 7 runs of 20,000 calls): what the dispatch boundary costs a call; and
+``exchange_us``: the host µs of ``exchange()`` on the same domain, one
+quantity with a radius-1 shell on 2x2x2 (the median of 7 runs of 2,000
+calls, a synchronize after each run): the exchange's issue cost, which the
+card's work at this size does not hide.
 
 It uses only the models' constructors, ``dd.set_partition`` and ``step``,
 so the same file measures any tree of the port: run it with that tree
@@ -115,6 +119,28 @@ def boundary_us() -> dict:
     return {"median": statistics.median(runs), "runs": runs}
 
 
+def exchange_us() -> dict:
+    """``exchange()``'s host µs a call (module docstring)."""
+    from stencil_tpu_torch.domain import DistributedDomain
+
+    dd = DistributedDomain(64, 64, 64)
+    dd.set_radius(1)
+    dd.add_data("q")
+    dd.set_partition(2, 2, 2)
+    dd.realize()
+    for _ in range(200):
+        dd.exchange()
+    _sync()
+    runs = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            dd.exchange()
+        runs.append((time.perf_counter() - t0) / 2000 * 1e6)
+        _sync()
+    return {"median": statistics.median(runs), "runs": runs}
+
+
 def measure(make, cells, steps: int) -> dict:
     """Both captures of one route (module docstring)."""
     out = {}
@@ -170,8 +196,9 @@ def main(argv=None) -> int:
     import stencil_tpu_torch
 
     res = {"tag": args.tag, "card": card, "package": os.path.dirname(stencil_tpu_torch.__file__),
-           "torch": torch.__version__, "boundary_us": boundary_us(), "routes": {}}
-    print(json.dumps({"tag": args.tag, "boundary_us": res["boundary_us"]}), flush=True)
+           "torch": torch.__version__, "boundary_us": boundary_us(), "exchange_us": exchange_us(), "routes": {}}
+    print(json.dumps({"tag": args.tag, "boundary_us": res["boundary_us"], "exchange_us": res["exchange_us"]}),
+          flush=True)
     for key, make, cells, steps in _routes():
         if args.only and not any(w in key for w in args.only):
             continue

@@ -11,7 +11,11 @@ flags) and the same CSV row
 device), ``--device``, and the JAX driver's ``--pallas-path``,
 ``--halo-multiplier``, ``--temporal-k``, ``--exchange-route``, the kernel
 axes ``--compute-unit``, ``--mxu-input`` and ``--storage-dtype``,
-``--numerics-every``, ``--metrics-out``, the reference's ``--paraview``
+``--numerics-every``, ``--metrics-out``, ``--trace DIR`` (a
+``torch.profiler`` trace of the timed loop) and ``--profile-dir DIR`` (a
+cadence capture around the timed samples, ``STENCIL_PROFILE_EVERY``, and
+``roofline.json`` / ``roofline.md`` written there at exit:
+``bin/_common.profile_finalize``), the reference's ``--paraview``
 (a ``<prefix>jacobi3d_<it>_<id>.txt`` dump every ``--period`` iterations,
 default a tenth of ``--iters``, and ``<prefix>jacobi3d_final``; the dumps are
 outside the timed samples), and the run supervisor's ``--checkpoint-dir``,
@@ -63,9 +67,11 @@ checkpoint, and ``--resume`` continues from the ring:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
+from stencil_tpu_torch import telemetry
 from stencil_tpu_torch.bin import _common
 from stencil_tpu_torch.io.paraview import write_paraview
 from stencil_tpu_torch.models.jacobi import Jacobi3D, weak_scaled_size
@@ -145,10 +151,13 @@ def main(argv=None) -> int:
     p.add_argument("--partition", type=_parse_partition, default=None,
                    help="subdomain grid px,py,pz on the one device (default 1,1,1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the timed loop to DIR (the nsys analog)")
     _add_exchange_route_flag(p)
     _add_kernel_axis_flags(p)
     _common.add_numerics_flag(p)
     _common.add_telemetry_flags(p)
+    _common.add_profile_flags(p)
     _common.add_checkpoint_flags(p)
     _common.add_tune_flags(p)
     p.add_argument("x", type=int, nargs="?", default=512)
@@ -257,12 +266,19 @@ def _run(args) -> int:
     macro = model.dd.halo_multiplier()
 
     iter_time = Statistics()
+    prof = _common.profile_capture_for(args)
+    dispatch_index = [0]
 
     def timed_iter():
-        t0 = time.perf_counter()
-        model.step(macro)
-        model.block_until_ready()
-        iter_time.insert((time.perf_counter() - t0) / macro)
+        # the cadence capture around the sample (a captured sample carries
+        # the profiler's cost; the trimean absorbs it)
+        idx = dispatch_index[0]
+        dispatch_index[0] += 1
+        with prof.maybe(idx) if prof is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            model.step(macro)
+            model.block_until_ready()
+            iter_time.insert((time.perf_counter() - t0) / macro)
 
     sup = _common.supervisor_for(
         args, model.dd, label="jacobi",
@@ -281,15 +297,17 @@ def _run(args) -> int:
             if args.paraview and it % period == 0:
                 write_paraview(model.dd, f"{args.prefix}jacobi3d_{it}")
 
-        out = sup.run(args.iters, advance, start_step=None if args.resume else 0, chunk=1, on_chunk=on_chunk)
+        with telemetry.trace(args.trace):
+            out = sup.run(args.iters, advance, start_step=None if args.resume else 0, chunk=1, on_chunk=on_chunk)
         rc = out.exit_code
     else:
         model.step(macro)  # first call builds the kernels; untimed
         model.block_until_ready()
-        for it in range(args.iters):
-            timed_iter()
-            if args.paraview and it % period == 0:
-                write_paraview(model.dd, f"{args.prefix}jacobi3d_{it}")
+        with telemetry.trace(args.trace):
+            for it in range(args.iters):
+                timed_iter()
+                if args.paraview and it % period == 0:
+                    write_paraview(model.dd, f"{args.prefix}jacobi3d_{it}")
     if args.paraview:
         write_paraview(model.dd, f"{args.prefix}jacobi3d_final")
 
@@ -299,7 +317,7 @@ def _run(args) -> int:
             f"jacobi3d,{'/'.join(names)},1,1,"
             f"{x},{y},{z},{iter_time.min()},{iter_time.trimean()}"
         )
-    _common.telemetry_end(args)
+    _common.telemetry_end(args, profile_capture=prof, device=model.dd.device)
     return rc
 
 

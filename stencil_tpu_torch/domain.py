@@ -28,6 +28,13 @@ cells; the exchange writes each +axis halo right after the valid cells.
 dispatch watchdog, classified retry, the ``domain.step.*`` and exchange-byte
 counters, the divergence sentinel and the numerics cadence
 (``resilience/``, ``telemetry/``).
+
+``stats`` (``DomainStats``) is the reference's STENCIL_SETUP_STATS /
+STENCIL_EXCHANGE_STATS accounting (``stencil_tpu/domain.py:86-101``):
+``realize()`` times its phases, and ``exchange()`` / ``swap()`` add their
+wall seconds while ``STENCIL_EXCHANGE_STATS=1`` (or
+``enable_exchange_stats()``) or telemetry is on, ``exchange()`` with a
+device synchronize; otherwise they time nothing.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from stencil_tpu_torch.resilience import inject
 from stencil_tpu_torch.resilience.retry import CONSUMED, RetryPolicy, execute_with_retry
 from stencil_tpu_torch.resilience.sentinel import DivergenceSentinel
 from stencil_tpu_torch.telemetry import names as tm
-from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy, env_int
+from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy, env_bool, env_int
 from stencil_tpu_torch.utils.logging import log_info
 
 #: the grid axes' names, as the JAX package names its mesh axes
@@ -76,6 +83,58 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+@dataclasses.dataclass
+class DomainStats:
+    """Setup and exchange wall seconds (the reference's STENCIL_SETUP_STATS /
+    STENCIL_EXCHANGE_STATS, stencil.hpp:106-131; ``stencil_tpu/domain.py:
+    86-101``).  ``realize()`` fills the setup phases: ``time_topo`` the
+    device's resolution, ``time_placement`` the subdomain grid and the
+    padded geometry, ``time_plan`` the exchange route's resolution,
+    ``time_realize`` the allocation, ``time_create`` the exchange's build
+    through the route ladder (the kernel library's build and load included:
+    the analog of sender/recver creation and CUDA-Graph capture,
+    src/stencil.cu:385-529).  ``time_exchange`` and ``time_swap`` accumulate
+    the hot path's calls while timed."""
+
+    time_topo: float = 0.0
+    time_placement: float = 0.0
+    time_realize: float = 0.0
+    time_plan: float = 0.0
+    time_create: float = 0.0
+    time_exchange: float = 0.0
+    time_swap: float = 0.0
+
+
+class _PhaseTimer:
+    """One timed hot-path phase (``DistributedDomain._phase_timer``)."""
+
+    __slots__ = ("dd", "attr", "histogram", "span_name", "sync", "t0", "scope")
+
+    def __init__(self, dd, attr, histogram, span_name, sync):
+        self.dd, self.attr, self.histogram, self.span_name, self.sync = dd, attr, histogram, span_name, sync
+        self.scope = None
+
+    def __enter__(self):
+        if self.span_name is not None and telemetry.scoping():
+            self.scope = telemetry.profiler_scope(self.span_name)
+            self.scope.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None and self.sync:
+            self.dd.block_until_ready()
+        dt = time.perf_counter() - self.t0
+        if self.scope is not None:
+            self.scope.__exit__(*exc)
+        stats = self.dd.stats
+        setattr(stats, self.attr, getattr(stats, self.attr) + dt)
+        telemetry.observe(self.histogram, dt)
+        if self.span_name is not None:
+            telemetry.record_span(self.span_name, self.t0, dt)
+        return False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +253,11 @@ class DistributedDomain:
         # the counters an exchange adds to, with the bytes per exchange of
         # each, made once a realize()
         self._exchange_counters: Optional[List[Tuple[object, int]]] = None
+        self.stats = DomainStats()
+        # per-call exchange and swap timing costs a device synchronize a
+        # call, as the reference's barrier-per-call EXCHANGE_STATS (default
+        # off, CMakeLists.txt:20): opt in here or by enable_exchange_stats()
+        self._exchange_stats = env_bool("STENCIL_EXCHANGE_STATS", False)
         telemetry.add_source(self)
 
     # --- the dispatch boundary's settings (stencil_tpu/domain.py:227-305) -------
@@ -452,12 +516,21 @@ class DistributedDomain:
         return h.dtype
 
     # --- realize (src/stencil.cu:27-539) -------------------------------------
+    def enable_exchange_stats(self, on: bool = True) -> None:
+        """Time every ``exchange()`` (synchronized) and ``swap()`` into
+        ``stats``, as ``STENCIL_EXCHANGE_STATS=1`` does."""
+        self._exchange_stats = on
+
     def planned_grid(self) -> SubdomainGrid:
         """The subdomain grid ``realize()`` builds from the configuration so
         far; callers that size things before ``realize()`` ask here."""
         return make_grid(self._size, self._radius, self._subdomains, self._strategy, self._force_dim)
 
     def realize(self) -> None:
+        t0 = time.perf_counter()
+        self.device = resolve_device(self.device)
+        self.stats.time_topo = time.perf_counter() - t0
+        t0 = time.perf_counter()
         self._radius.validate()
         if self._storage == "bf16":
             # the JAX package's gate (stencil_tpu/domain.py:519-534): the
@@ -496,6 +569,8 @@ class DistributedDomain:
         self._valid_last = valid_last
         self._shell_radius = r
         self._spec = LocalSpec.make(n, Dim3(0, 0, 0), r)
+        self.stats.time_placement = time.perf_counter() - t0
+        t0 = time.perf_counter()
         oracle = _ORACLES.get(self._methods)
         if oracle is not None:
             # the debug oracles (stencil_tpu/domain.py:563-583): even sizes
@@ -508,19 +583,33 @@ class DistributedDomain:
             self._exchange_fn = oracle(r, self._spec, dim)
         else:
             self._exchange_route = self._resolve_exchange_route()
+        self.stats.time_plan = time.perf_counter() - t0
+        t0 = time.perf_counter()
         raw = self._spec.raw_size()
         for h in self._handles:
             shape = h.components + dim.tuple() + raw.tuple()
             self._curr[h.name] = torch.zeros(shape, dtype=self.field_dtype(h), device=self.device)
             self._next[h.name] = torch.zeros(shape, dtype=self.field_dtype(h), device=self.device)
+        self.stats.time_realize = time.perf_counter() - t0
         if oracle is None:
+            t0 = time.perf_counter()
             self._exchange_fn = self._build_exchange_with_ladder()
+            if self._handles:
+                self._record_exchange_compile(t0, f"realize:{self._exchange_route}")
         self._realized = True
         self.flush_telemetry()  # exchanges so far at the old geometry's bytes
         self._exchange_counters = None
         log_info(f"realized {self._size} over grid {dim} (raw subdomain {raw}, shell lo {r.lo()} hi {r.hi()}, "
                  f"route {self._exchange_route}{'' if oracle is None else f', method {self._methods}'}"
                  f"{', storage bf16' if self._storage == 'bf16' else ''})")
+
+    def _record_exchange_compile(self, t0: float, label: str) -> None:
+        """``time_create`` since ``t0``, observed into ``domain.compile.seconds``
+        with a ``domain.compile`` event (``stencil_tpu/domain.py:608-616``)."""
+        self.stats.time_create = time.perf_counter() - t0
+        telemetry.observe(tm.COMPILE_SECONDS, self.stats.time_create)
+        telemetry.emit_event(tm.EVENT_COMPILE, phase="exchange", label=label,
+                             seconds=round(self.stats.time_create, 6))
 
     def _make_exchange_route_fn(self, route: str):
         """The exchange over this domain's quantities on ``route``, its
@@ -799,13 +888,9 @@ class DistributedDomain:
         sweeps of ``exchange_route()``, or the debug oracle of
         ``set_methods``."""
         assert self._realized
-        timed = telemetry.enabled()
-        t0 = time.perf_counter() if timed else 0.0
-        self._watched_call("exchange", lambda: self._exchange_fn([self._curr[h.name] for h in self._handles]))
-        self._shell_stale = False
-        if timed:
-            self.block_until_ready()
-            telemetry.record_span(tm.SPAN_EXCHANGE, t0, time.perf_counter() - t0, histogram=tm.EXCHANGE_SECONDS)
+        with self._phase_timer("time_exchange", tm.EXCHANGE_SECONDS, tm.SPAN_EXCHANGE, sync=True):
+            self._watched_call("exchange", lambda: self._exchange_fn([self._curr[h.name] for h in self._handles]))
+            self._shell_stale = False
         self._tally[2] += 1
 
     def exchange_many(self, steps: int) -> None:
@@ -827,11 +912,47 @@ class DistributedDomain:
         self._shell_stale = False
         self._tally[2] += steps
 
+    def _phase_timer(self, attr: str, histogram: str, span_name: str = None, sync: bool = False):
+        """The timing path of the hot loop's phases (``stencil_tpu/domain.py:
+        1154-1175``): one ``perf_counter`` pair feeds the ``DomainStats`` field
+        ``attr``, the histogram and the span ``span_name`` (also a profiler
+        scope while ``telemetry.scoping()``).  Active while exchange stats or
+        telemetry are on; otherwise the span's profiler scope alone when a
+        capture is open, else a shared null context.  ``sync=True``
+        synchronizes the device before the clock stops."""
+        if not (self._exchange_stats or telemetry.enabled()):
+            return telemetry.scope(span_name) if span_name is not None else telemetry.NULL_SCOPE
+        return _PhaseTimer(self, attr, histogram, span_name, sync)
+
+    def _packed_message_stats(self) -> Tuple[int, int]:
+        """Analytic (bytes, kernels) one exchange moves through packed shell
+        buffers over all subdomains (``stencil_tpu/domain.py:1197-1245``):
+        each packed sweep counts where it can engage, ``(0, 0)`` on
+        ``direct``."""
+        if not self._handles or self._exchange_route == "direct":
+            return 0, 0
+        from stencil_tpu_torch.ops.exchange import (
+            Y_PACK_ROUTES, ypack_message_stats, ypack_supported, zpack_message_stats, zpack_supported,
+        )
+
+        raw, shell = self._spec.raw_size(), self._shell_radius
+        itemsizes = [self.field_dtype(h).itemsize for h in self._handles for _ in range(h.cell_count())]
+        dtypes = [self.field_dtype(h) for h in self._handles]
+        nbytes = kernels = 0
+        if zpack_supported(dtypes, self._valid_last):
+            nb, nk = zpack_message_stats(raw.tuple(), shell.axis(2, -1), shell.axis(2, +1), itemsizes)
+            nbytes, kernels = nbytes + nb, kernels + nk
+        if self._exchange_route in Y_PACK_ROUTES and ypack_supported(dtypes, self._valid_last):
+            nb, nk = ypack_message_stats(raw.tuple(), shell.axis(1, -1), shell.axis(1, +1), itemsizes)
+            nbytes, kernels = nbytes + nb, kernels + nk
+        return nbytes * self.num_subdomains(), kernels * self.num_subdomains()
+
     def flush_telemetry(self) -> None:
         """Add the hot path's pending counts to the telemetry counters:
         ``domain.step.*``, and the exchanges with their analytic bytes
-        (``exchange_bytes_total`` and the per-hop ``exchange_hop_bytes``,
-        modelled once a realize()).  ``telemetry.snapshot()`` calls it."""
+        (``exchange_bytes_total``, the per-hop ``exchange_hop_bytes`` and, on
+        a packed route, ``exchange.packed.*``; modelled once a realize()).
+        ``telemetry.snapshot()`` calls it."""
         dispatches, iterations, exchanges = self._tally
         if not (dispatches or iterations or exchanges):
             return
@@ -842,9 +963,12 @@ class DistributedDomain:
             nbytes = self.exchange_bytes_total() if self._handles else 0
             telemetry.set_gauge(tm.EXCHANGE_BYTES_PER_EXCHANGE, nbytes)
             hops = sorted(self.exchange_hop_bytes().items()) if self._handles else []
+            packed = self._packed_message_stats()
             self._exchange_counters = [(telemetry.counter(name), nb) for name, nb in (
                 (tm.EXCHANGE_COUNT, 1), (tm.EXCHANGE_BYTES, nbytes),
-                *((tm.EXCHANGE_HOP_BYTES[key], nb) for key, nb in hops if nb))]
+                *((tm.EXCHANGE_HOP_BYTES[key], nb) for key, nb in hops if nb),
+                *(((tm.EXCHANGE_PACKED_BYTES, packed[0]), (tm.EXCHANGE_PACKED_KERNELS, packed[1]))
+                  if packed[1] else ()))]
         for counter, nb in self._exchange_counters:
             counter.value += exchanges * nb
 
@@ -874,8 +998,11 @@ class DistributedDomain:
         return [self.field_dtype(h).itemsize * h.cell_count() for h in self._handles]
 
     def swap(self) -> None:
-        """Swap curr/next slots (src/stencil.cu:541-561)."""
-        self._curr, self._next = self._next, self._curr
+        """Swap curr/next slots (src/stencil.cu:541-561), timed into
+        ``stats.time_swap`` and ``domain.swap.seconds`` while exchange stats
+        or telemetry are on."""
+        with self._phase_timer("time_swap", tm.SWAP_SECONDS, tm.SPAN_SWAP):
+            self._curr, self._next = self._next, self._curr
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":
@@ -1060,7 +1187,8 @@ class DistributedDomain:
           always (three list adds; ``telemetry.snapshot()`` adds them in,
           ``flush_telemetry``); with telemetry enabled the call is also
           synchronized and timed (a span and a ``domain.step.seconds``
-          sample a raw step);
+          sample a raw step), and while telemetry is on or a device-profile
+          capture is open it runs inside the ``domain.step`` profiler scope;
         * after the dispatch returns, when a cadence is on: the divergence
           sentinel and the numerics cadence, on raw steps
           (``_raw_steps_per_call`` a step call), between captured phases,
@@ -1087,7 +1215,15 @@ class DistributedDomain:
         else:
             call = lambda: step_fn(self._curr, steps)  # noqa: E731
         raw = steps * getattr(step_fn, "_raw_steps_per_call", 1)
-        timed = telemetry.enabled()
+        t = telemetry._cfg()
+        timed = t.enabled
+        if timed or t.captures_open:
+            # the dispatch labelled in a profiler trace (telemetry.scoping)
+            unscoped = call
+
+            def call():
+                with telemetry.profiler_scope(tm.SPAN_STEP):
+                    return unscoped()
         t0 = time.perf_counter() if timed else 0.0
         wd = self._watchdog if self._watchdog_resolved else self._get_watchdog()
         writes = getattr(step_fn, "_writes_in_place", False)

@@ -93,6 +93,7 @@ import weakref
 import numpy as np
 import torch
 
+from stencil_tpu_torch import telemetry
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.domain import DistributedDomain
@@ -125,12 +126,21 @@ from stencil_tpu_torch.ops.stream import (
     prime_z_slabs,
 )
 from stencil_tpu_torch.resilience.ladder import DegradationLadder, Rung
+from stencil_tpu_torch.telemetry import names as tm
 from stencil_tpu_torch.telemetry.numerics import max_principle
 from stencil_tpu_torch.utils.logging import log_warn
 from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy, env_bool
 
 COLD_TEMP = 0.0
 HOT_TEMP = 1.0
+
+
+def _contraction_scope(on: bool):
+    """The profiler scope of a tensor-core contraction kernel's launch: its
+    symbol is its vpu form's (the unit is a build macro), so a trace tells
+    the two apart by the scope, named after the counter of the work
+    (``kernel.mxu.flops``; ``telemetry/device.py`` ``PHASE_PATTERNS``)."""
+    return telemetry.scope(tm.KERNEL_MXU_FLOPS) if on else telemetry.NULL_SCOPE
 
 
 class Jacobi3D:
@@ -338,7 +348,8 @@ class Jacobi3D:
             key = dd.tune_key("jacobi-wrap")
             kw = self._resolve_unit("jacobi-wrap", tune.best_config(key) or {})
             k = self._wrap_k = choose_temporal_k(n.tuple(), self.temporal_k, tune_key=key)
-            if unit_uses_mxu(kw["compute_unit"]):
+            mxu = unit_uses_mxu(kw["compute_unit"])
+            if mxu:
                 self._mxu_flops_iter = mxu_flops_per_plane(n.y, n.z, kw["compute_unit"]) * n.x
             inner = (0, 0, 0, slice(lo.x, lo.x + n.x), slice(lo.y, lo.y + n.y), slice(lo.z, lo.z + n.z))
 
@@ -347,7 +358,8 @@ class Jacobi3D:
             # into calls, so (blocked, remainder) is bitwise equal to k=1 calls
             # (under bf16 storage, a call rounds once: k levels a rounding)
             def wrap_body(cur, nxt, depth):
-                jacobi_wrap_step(cur.fields[0], depth, out=nxt.fields[0], **kw)
+                with _contraction_scope(mxu):
+                    jacobi_wrap_step(cur.fields[0], depth, out=nxt.fields[0], **kw)
 
             step = as_step(window_loop([name], k, wrap_body, inner))
             step._marks_shell_stale = True
@@ -546,7 +558,8 @@ class Jacobi3D:
         z_slab_mode = self._wavefront_z_planned and env_bool("STENCIL_Z_SLABS", True)
         z_ring_mode = z_slab_mode and n.z % 128 == 0 and 2 * m <= _ZRING_OFF and self._z_ring_pref(tuned)[0]
         kw = self._resolve_unit("jacobi-wavefront", tuned)
-        if unit_uses_mxu(kw["compute_unit"]):
+        mxu = unit_uses_mxu(kw["compute_unit"])
+        if mxu:
             plane_z = _ZRING_OFF + n.z if z_ring_mode else Zr
             self._mxu_flops_iter = mxu_flops_per_plane(Yr, plane_z, kw["compute_unit"]) * Xr * count
         self._pallas_path = "wavefront"
@@ -579,9 +592,10 @@ class Jacobi3D:
                 b = cur.fields[0]
                 halo_exchange_shard(b, shell, axes=(0, 1))
                 zs = permute_and_extend_z_slabs(cur.extra[0], m, yext, xext)
-                jacobi_zring_wavefront_step(batch(b), depth, origins, d2, gsize, z_slabs=batch(zs),
-                                            interior_offset=m, out=batch(nxt.fields[0]),
-                                            z_out=batch(nxt.extra[0]), **kw)
+                with _contraction_scope(mxu):
+                    jacobi_zring_wavefront_step(batch(b), depth, origins, d2, gsize, z_slabs=batch(zs),
+                                                interior_offset=m, out=batch(nxt.fields[0]),
+                                                z_out=batch(nxt.extra[0]), **kw)
 
             loop = Loop(
                 [name], depth_run, ring_body, resume=True, extra=zslabs, enter=ring_enter,
@@ -600,14 +614,16 @@ class Jacobi3D:
                 if z_slab_mode:
                     halo_exchange_shard(b, shell, axes=(0, 1))
                     zs = permute_and_extend_z_slabs(cur.extra[0], m, yext, xext)
-                    jacobi_shell_wavefront_step(
-                        batch(b), depth, origins, d2, gsize, interior_offset=m, z_slabs=batch(zs),
-                        z_valid=Zr, out=batch(nxt.fields[0]), z_out=batch(nxt.extra[0]), **kw,
-                    )
+                    with _contraction_scope(mxu):
+                        jacobi_shell_wavefront_step(
+                            batch(b), depth, origins, d2, gsize, interior_offset=m, z_slabs=batch(zs),
+                            z_valid=Zr, out=batch(nxt.fields[0]), z_out=batch(nxt.extra[0]), **kw,
+                        )
                 else:
                     halo_exchange_shard(b, shell, valid_last)
-                    jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize, interior_offset=m,
-                                                out=batch(nxt.fields[0]), **kw)
+                    with _contraction_scope(mxu):
+                        jacobi_shell_wavefront_step(batch(b), depth, origins, d2, gsize, interior_offset=m,
+                                                    out=batch(nxt.fields[0]), **kw)
 
             # the stack and a spare, ping-ponged
             loop = Loop(
@@ -663,7 +679,12 @@ class Jacobi3D:
                     "on the torch engine (macro steps)"
                 )
             steps //= mult
+        # the JAX package's FLOP model of the plan the call starts on
+        # (stencil_tpu/models/jacobi.py:990-1000)
+        mxu_flops = steps * self._mxu_flops_iter
         self._ladder.step(steps)
+        if mxu_flops:
+            telemetry.inc(tm.KERNEL_MXU_FLOPS, mxu_flops)
 
     # --- the degradation ladder (models/jacobi.py:960-1140 of the JAX package) ----
 

@@ -52,6 +52,16 @@ the hand-written shell kernels.  A packed sweep engages only on an evenly
 divided axis whose dtypes the kernels take (``halo_blend.supports``);
 otherwise that sweep runs ``direct``.  Every route fills the same halos, bit
 for bit.
+
+Profiler scopes (``telemetry.scope``): while telemetry is on or a device
+profile capture is open, each send of a sweep and the halo write of what it
+received run inside the direction scope ``exchange.<axis>.<side>``
+(``names.exchange_direction_span``; ``low`` receives from the -1
+neighbour), as the JAX package enters them around each ``lax.ppermute``
+(``stencil_tpu/ops/exchange.py:181-200``); a trace then attributes the
+exchange's device time per hop (``telemetry/device.py``).  Otherwise no
+scope is entered.  ``zpack_message_stats`` / ``ypack_message_stats`` model
+the packed routes' buffer traffic for ``exchange.packed.*``.
 """
 
 from __future__ import annotations
@@ -60,9 +70,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from stencil_tpu_torch import telemetry
 from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.ops import pack
 from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
+from stencil_tpu_torch.telemetry import names as tm
 
 #: valid cells of the last subdomain per axis (None: the axis divides evenly)
 ValidLast = Optional[Tuple[Optional[int], Optional[int], Optional[int]]]
@@ -103,6 +115,47 @@ def route_supported(route: str, dtypes, valid_last: ValidLast = None) -> bool:
     if route in Y_PACK_ROUTES:
         return z_ok or ypack_supported(dtypes, valid_last)
     return z_ok
+
+
+def zpack_message_stats(raw_spatial, r_lo: int, r_hi: int, itemsizes) -> Tuple[int, int]:
+    """Analytic (bytes, kernels) per subdomain per exchange through a packed
+    z sweep (``zpack_message_stats``, ``stencil_tpu/ops/exchange.py:146-164``):
+    one ``(depth, Y, X)`` buffer per quantity slice per direction, one pack
+    and one unpack kernel each.  The port's buffers carry no lane padding,
+    so the bytes are the JAX package's where X is a multiple of 128 and the
+    buffers' ``nbytes`` elsewhere."""
+    X, Y, _ = raw_spatial
+    nbytes = kernels = 0
+    for depth in (r_lo, r_hi):
+        if depth == 0:
+            continue
+        for isz in itemsizes:
+            nbytes += depth * Y * X * isz
+            kernels += 2  # pack + unpack
+    return nbytes, kernels
+
+
+def ypack_message_stats(raw_spatial, r_lo: int, r_hi: int, itemsizes) -> Tuple[int, int]:
+    """The y twin of ``zpack_message_stats``: one ``(depth, X, Z)`` buffer
+    per quantity slice per direction, one pack and one unpack kernel each."""
+    X, _, Z = raw_spatial
+    nbytes = kernels = 0
+    for depth in (r_lo, r_hi):
+        if depth == 0:
+            continue
+        for isz in itemsizes:
+            nbytes += depth * X * Z * isz
+            kernels += 2  # pack + unpack
+    return nbytes, kernels
+
+
+_AXES = ("x", "y", "z")
+
+
+def _hop(scoped: bool, axis: int, side: str):
+    """The direction scope of grid ``axis``'s ``side`` (``low`` receives from
+    the -1 neighbour) when ``scoped``, else a shared null context."""
+    return telemetry.profiler_scope(tm.exchange_direction_span(_AXES[axis], side)) if scoped else telemetry.NULL_SCOPE
 
 
 def shift_from_low(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -165,12 +218,14 @@ def _packed_sweep(stacks: List[torch.Tensor], axis: int, r_lo: int, r_hi: int, n
         to_slab = pack.yshell_to_slab
     blocks = [s.view(-1, *s.shape[-3:]) for s in stacks]
     lead = [s.shape[:-3] for s in stacks]
+    scoped = telemetry.scoping()
 
-    def send(start: int, depth: int, shift) -> List[torch.Tensor]:
+    def send(start: int, depth: int, shift, side: str) -> List[torch.Tensor]:
         out = []
-        for b, stack_lead in zip(blocks, lead):
-            buf = pack_fn(b, start, depth)
-            out.append(shift(buf.view(*stack_lead, *buf.shape[1:]), grid_dim(axis)).view(buf.shape))
+        with _hop(scoped, axis, side):
+            for b, stack_lead in zip(blocks, lead):
+                buf = pack_fn(b, start, depth)
+                out.append(shift(buf.view(*stack_lead, *buf.shape[1:]), grid_dim(axis)).view(buf.shape))
         return out
 
     # gather every received buffer before any halo write of this sweep: the
@@ -178,15 +233,16 @@ def _packed_sweep(stacks: List[torch.Tensor], axis: int, r_lo: int, r_hi: int, n
     # the high halo [r_lo + n, ...) the +1 neighbour's bottom [r_lo, r_lo + r_hi)
     recv = []
     if r_lo > 0:
-        recv.append((0, r_lo, send(n, r_lo, shift_from_low)))
+        recv.append((0, r_lo, "low", send(n, r_lo, shift_from_low, "low")))
     if r_hi > 0:
-        recv.append((r_lo + n, r_hi, send(r_lo, r_hi, shift_from_high)))
-    for pos, depth, bufs in recv:
-        for b, buf in zip(blocks, bufs):
-            if pallas:
-                unpack_fn(b, buf, pos, depth)
-            else:
-                blend_slab(b, to_slab(buf), axis, pos)
+        recv.append((r_lo + n, r_hi, "high", send(r_lo, r_hi, shift_from_high, "high")))
+    for pos, depth, side, bufs in recv:
+        with _hop(scoped, axis, side):
+            for b, buf in zip(blocks, bufs):
+                if pallas:
+                    unpack_fn(b, buf, pos, depth)
+                else:
+                    blend_slab(b, to_slab(buf), axis, pos)
 
 
 def halo_exchange_multi(
@@ -217,6 +273,7 @@ def halo_exchange_multi(
             f"trailing six dims; got {[tuple(s.shape) for s in stacks]}"
         )
     grid, spatial = shape[:3], shape[3:]
+    scoped = telemetry.scoping()
     for axis in axes:
         r_lo = radius.axis(axis, -1)  # my low-side halo width
         r_hi = radius.axis(axis, +1)  # my high-side halo width
@@ -249,23 +306,29 @@ def halo_exchange_multi(
         if r_lo > 0:
             # data moves +axis: each subdomain receives its -1 neighbour's
             # top slab of valid interior, width r_lo
-            lo_recv = [shift_from_low(top_valid(s), gdim).contiguous() for s in stacks]
+            with _hop(scoped, axis, "low"):
+                lo_recv = [shift_from_low(top_valid(s), gdim).contiguous() for s in stacks]
         if r_hi > 0:
             # data moves -axis: the +1 neighbour's bottom interior slab
-            hi_recv = [shift_from_high(s.narrow(cdim, r_lo, r_hi), gdim).contiguous() for s in stacks]
-        for j, s in enumerate(stacks):
-            blocks = s.view(-1, *spatial)
-            if lo_recv is not None:
-                blend_slab(blocks, lo_recv[j].view(blocks.shape[0], *lo_recv[j].shape[-3:]), axis, 0)
-            if hi_recv is not None:
-                slab = hi_recv[j].view(blocks.shape[0], *hi_recv[j].shape[-3:])
-                if uneven:
-                    # right after each subdomain's valid cells
-                    pos = _hi_positions(grid, axis, r_lo, n, v_last, blocks.shape[0] // grid.numel(),
-                                        s.device)
-                    blend_slab_dynamic(blocks, slab, axis, pos)
-                else:
-                    blend_slab(blocks, slab, axis, r_lo + n)
+            with _hop(scoped, axis, "high"):
+                hi_recv = [shift_from_high(s.narrow(cdim, r_lo, r_hi), gdim).contiguous() for s in stacks]
+        if lo_recv is not None:
+            with _hop(scoped, axis, "low"):
+                for s, recv in zip(stacks, lo_recv):
+                    blocks = s.view(-1, *spatial)
+                    blend_slab(blocks, recv.view(blocks.shape[0], *recv.shape[-3:]), axis, 0)
+        if hi_recv is not None:
+            with _hop(scoped, axis, "high"):
+                for s, recv in zip(stacks, hi_recv):
+                    blocks = s.view(-1, *spatial)
+                    slab = recv.view(blocks.shape[0], *recv.shape[-3:])
+                    if uneven:
+                        # right after each subdomain's valid cells
+                        pos = _hi_positions(grid, axis, r_lo, n, v_last, blocks.shape[0] // grid.numel(),
+                                            s.device)
+                        blend_slab_dynamic(blocks, slab, axis, pos)
+                    else:
+                        blend_slab(blocks, slab, axis, r_lo + n)
     return stacks
 
 
@@ -325,6 +388,7 @@ def fused_shell_exchange(
     pack_y = pack.pack_yshell_pallas if pallas else pack.pack_yshell_xla
     pack_z = pack.pack_zshell_pallas if pallas else pack.pack_zshell_xla
     count = stacks[0].numel() // (X * Y * Z)
+    scoped = telemetry.scoping()
 
     def recv(dst: torch.Tensor, msg: torch.Tensor, axis: int, step: int) -> None:
         """Write into ``dst`` (a ``(px, py, pz, d, ...)`` slot of a buffer) the
@@ -349,32 +413,36 @@ def fused_shell_exchange(
         # x sweep: whole planes, [low | high]
         xb = buffer(lo[0] + hi[0], Y, Z, s)
         xg = xb.view(*grid, *xb.shape[1:])
-        recv(xg[:, :, :, : lo[0]], s[:, :, :, n[0] : n[0] + lo[0]], 0, 1)
-        recv(xg[:, :, :, lo[0] :], s[:, :, :, lo[0] : lo[0] + hi[0]], 0, -1)
+        with _hop(scoped, 0, "low"):
+            recv(xg[:, :, :, : lo[0]], s[:, :, :, n[0] : n[0] + lo[0]], 0, 1)
+        with _hop(scoped, 0, "high"):
+            recv(xg[:, :, :, lo[0] :], s[:, :, :, lo[0] : lo[0] + hi[0]], 0, -1)
         xlo, xhi = xb[:, : lo[0]], xb[:, lo[0] :]
 
         # y sweep: (n, d, X, Z) messages whose x-shell planes come from the
         # received x slabs (the in-array y sweep spans the x halos)
         yb = buffer(lo[1] + hi[1], X, Z, s)
         yg = yb.view(*grid, *yb.shape[1:])
-        for y0, depth, at, step in ((n[1], lo[1], 0, 1), (lo[1], hi[1], lo[1], -1)):
-            buf = pack_y(blocks, y0, depth)
-            buf[:, :, 0 : lo[0]] = xlo[:, :, y0 : y0 + depth].transpose(1, 2)
-            buf[:, :, X - hi[0] : X] = xhi[:, :, y0 : y0 + depth].transpose(1, 2)
-            recv(yg[:, :, :, at : at + depth], buf, 1, step)
+        for y0, depth, at, step, side in ((n[1], lo[1], 0, 1, "low"), (lo[1], hi[1], lo[1], -1, "high")):
+            with _hop(scoped, 1, side):
+                buf = pack_y(blocks, y0, depth)
+                buf[:, :, 0 : lo[0]] = xlo[:, :, y0 : y0 + depth].transpose(1, 2)
+                buf[:, :, X - hi[0] : X] = xhi[:, :, y0 : y0 + depth].transpose(1, 2)
+                recv(yg[:, :, :, at : at + depth], buf, 1, step)
         ylo, yhi = yb[:, : lo[1]], yb[:, lo[1] :]
 
         # z sweep: (n, d, Y, X) messages, x columns from the x slabs, then y
         # rows from the y buffers (the x-y-z corners take two hops)
         zb = buffer(lo[2] + hi[2], Y, X, s)
         zg = zb.view(*grid, *zb.shape[1:])
-        for z0, depth, at, step in ((n[2], lo[2], 0, 1), (lo[2], hi[2], lo[2], -1)):
-            buf = pack_z(blocks, z0, depth)
-            buf[..., 0 : lo[0]] = xlo[..., z0 : z0 + depth].permute(0, 3, 2, 1)
-            buf[..., X - hi[0] : X] = xhi[..., z0 : z0 + depth].permute(0, 3, 2, 1)
-            buf[:, :, 0 : lo[1]] = ylo[..., z0 : z0 + depth].permute(0, 3, 1, 2)
-            buf[:, :, Y - hi[1] : Y] = yhi[..., z0 : z0 + depth].permute(0, 3, 1, 2)
-            recv(zg[:, :, :, at : at + depth], buf, 2, step)
+        for z0, depth, at, step, side in ((n[2], lo[2], 0, 1, "low"), (lo[2], hi[2], lo[2], -1, "high")):
+            with _hop(scoped, 2, side):
+                buf = pack_z(blocks, z0, depth)
+                buf[..., 0 : lo[0]] = xlo[..., z0 : z0 + depth].permute(0, 3, 2, 1)
+                buf[..., X - hi[0] : X] = xhi[..., z0 : z0 + depth].permute(0, 3, 2, 1)
+                buf[:, :, 0 : lo[1]] = ylo[..., z0 : z0 + depth].permute(0, 3, 1, 2)
+                buf[:, :, Y - hi[1] : Y] = yhi[..., z0 : z0 + depth].permute(0, 3, 1, 2)
+                recv(zg[:, :, :, at : at + depth], buf, 2, step)
         xbufs.append(xb)
         ybufs.append(yb)
         zbufs.append(zb)

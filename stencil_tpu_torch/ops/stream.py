@@ -116,6 +116,16 @@ next macro step.  Here every buffer is a ``(px, py, pz, Xr, 2s, Yr)`` stack
 over the subdomain grid, and the JAX package's ``ppermute`` is
 ``shift_from_low`` / ``shift_from_high`` along the grid axis.  The JAX
 package leaves these to XLA, not to Pallas, so they are plain torch.
+
+Accounting (``stencil_tpu/ops/stream.py:2180-2229``): each call of a built
+step counts ``step.overlap.exterior_cells`` under split (the band cells the
+exterior passes recompute) and ``kernel.mxu.flops`` under a contracting
+unit (the JAX package's FLOP model of the contraction on the plane each
+pass contracts), both from the plan the call ends on.  While telemetry is on
+or a device-profile capture is open, the split schedule's interior pass runs
+inside the ``step.overlap.interior`` profiler scope and its exterior (the
+exchange on the side stream, then the band passes) inside
+``step.overlap.exterior``.
 """
 
 from __future__ import annotations
@@ -137,8 +147,8 @@ from stencil_tpu_torch.ops.exchange import (
 )
 from stencil_tpu_torch.ops.halo_blend import blend_slab, blend_slab_dynamic, supports
 from stencil_tpu_torch.ops.jacobi_kernels import (
-    _WRAP_MAX_K, COMPUTE_UNITS, MXU_INPUTS, SMEM_PER_BLOCK, _emit, band_tile_plan, plane_band_unit,
-    plane_nbr_sum_host, resolve_compute_unit, resolve_mxu_input, unit_uses_mxu,
+    _WRAP_MAX_K, COMPUTE_UNITS, MXU_INPUTS, SMEM_PER_BLOCK, _emit, band_tile_plan, mxu_flops_per_plane,
+    plane_band_unit, plane_nbr_sum_host, resolve_compute_unit, resolve_mxu_input, unit_uses_mxu,
 )
 from stencil_tpu_torch.ops.stream_trace import STORAGE, PlaneInfo, PlaneView, StreamKernel, compute_kind
 from stencil_tpu_torch.telemetry import names as tm
@@ -1317,7 +1327,39 @@ class _LadderStep:
         return self._resilience.built()._loop
 
     def __call__(self, curr, steps: int = 1, capture: bool = False):
-        return self._resilience.step(curr, steps, capture=capture)
+        out = self._resilience.step(curr, steps, capture=capture)
+        cells, flops = self._resilience.rung.state["count"]
+        if cells:
+            telemetry.inc(tm.STEP_OVERLAP_EXTERIOR_CELLS, steps * cells)
+        if flops:
+            telemetry.inc(tm.KERNEL_MXU_FLOPS, steps * flops)
+        return out
+
+
+def _step_counts(dd, plan: dict, x_radius: int) -> Tuple[int, int]:
+    """``(exterior cells, tensor-core FLOPs)`` a raw iteration of ``plan``
+    counts over all subdomains and fields (``stencil_tpu/ops/stream.py:
+    2180-2214``): the split schedule's six bands of width ``x_radius`` on the
+    plane route, of the macro's depth a level on the wavefront (one band
+    width a level either way), 0 off split; the contraction's FLOPs on the
+    plane each pass contracts (the wrap route's bare interior, the z-slab
+    wavefront's lane-padded plane, else the raw block), 0 under vpu."""
+    raw, n_int = dd.local_spec().raw_size(), dd.local_spec().sz
+    per = len(dd._handles) * dd.num_subdomains()
+    cells = 0
+    if plan.get("overlap") == "split":
+        band = 2 * (raw.y * raw.z + raw.x * raw.z + raw.x * raw.y) * per
+        cells = band if plan["route"] == "wavefront" else band * x_radius
+    flops = 0
+    unit = plan.get("compute_unit", "vpu")
+    if unit_uses_mxu(unit):
+        if plan.get("route") == "wrap":
+            py, pz, px = n_int.y, n_int.z, n_int.x
+        else:
+            py, px = raw.y, raw.x
+            pz = lane_pad_width(raw.z) if plan.get("z_slabs") else raw.z
+        flops = mxu_flops_per_plane(py, pz, unit) * px * per
+    return cells, flops
 
 
 def _ladder_step(dd, plan: dict, kernel, mxu_kernel, x_radius: int, path: str, separable: bool,
@@ -1330,7 +1372,8 @@ def _ladder_step(dd, plan: dict, kernel, mxu_kernel, x_radius: int, path: str, s
 
     def rung_for(p: dict) -> Rung:
         return Rung(name=_rung_name(p), build=lambda: _build_plan(
-            dd, p, mxu_kernel if unit_uses_mxu(p["compute_unit"]) else kernel, x_radius), state={"plan": p})
+            dd, p, mxu_kernel if unit_uses_mxu(p["compute_unit"]) else kernel, x_radius),
+            state={"plan": p, "count": _step_counts(dd, p, x_radius)})
 
     def lower(rung, cls, exc):
         p = rung.state["plan"]
@@ -1532,6 +1575,18 @@ def _exterior_fix(dd, narrow: Callable, keys: Sequence[Tuple[int, bool]]) -> Cal
 # ``DistributedDomain.set_capture``.
 
 
+def _scoped(scoped: bool, name: str, fn: Callable) -> Callable:
+    """``fn`` run inside the profiler scope ``name`` when ``scoped``."""
+    if not scoped:
+        return fn
+
+    def run():
+        with telemetry.profiler_scope(name):
+            return fn()
+
+    return run
+
+
 def _blocks(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """``(px, py, pz, ...) -> (n, ...)`` views: one launch serves all."""
     return [t.view(-1, *t.shape[3:]) for t in ts]
@@ -1602,9 +1657,12 @@ def _plane_route(dd, names, groups, programs, plan, x_radius, ukw, band):
             # the received shell rides into the pass: no halo write
             passes(blocks, outs, fused_shell_exchange(stacks, shell, route))
         elif split:
-            overlapped(side, lambda: passes(blocks, outs),
-                       lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
-            fix(outs, blocks, x_radius, False)
+            scoped = telemetry.scoping()
+            overlapped(side, _scoped(scoped, tm.SPAN_OVERLAP_INTERIOR, lambda: passes(blocks, outs)),
+                       _scoped(scoped, tm.SPAN_OVERLAP_EXTERIOR,
+                               lambda: halo_exchange_multi(stacks, shell, valid_last, route=route)))
+            with telemetry.scope(tm.SPAN_OVERLAP_EXTERIOR):
+                fix(outs, blocks, x_radius, False)
         else:
             halo_exchange_multi(stacks, shell, valid_last, route=route)
             passes(blocks, outs)
@@ -1654,9 +1712,12 @@ def _wavefront_route(dd, names, groups, programs, plan, x_radius, ukw, band):
         if fused:
             passes(blocks, depth, outs, fused_shell_exchange(stacks, shell, route))
         elif split:
-            overlapped(side, lambda: passes(blocks, depth, outs),
-                       lambda: halo_exchange_multi(stacks, shell, valid_last, route=route))
-            fix(outs, blocks, depth, True)
+            scoped = telemetry.scoping()
+            overlapped(side, _scoped(scoped, tm.SPAN_OVERLAP_INTERIOR, lambda: passes(blocks, depth, outs)),
+                       _scoped(scoped, tm.SPAN_OVERLAP_EXTERIOR,
+                               lambda: halo_exchange_multi(stacks, shell, valid_last, route=route)))
+            with telemetry.scope(tm.SPAN_OVERLAP_EXTERIOR):
+                fix(outs, blocks, depth, True)
         else:
             halo_exchange_multi(stacks, shell, valid_last, route=route)
             passes(blocks, depth, outs)

@@ -10,7 +10,18 @@ Counterpart of ``stencil_tpu/telemetry/__init__.py``, the facade's core:
 * **events** (``events.py``): the JSONL event log of the signals a program
   consumes (retries, divergence trips, checkpoints, watchdog stalls);
 * **numerics** (``numerics.py``): the field-health engine the divergence
-  sentinel and the ``--numerics-every`` cadence read.
+  sentinel and the ``--numerics-every`` cadence read;
+* **the profiler** (``spans.py``): ``annotate(name)`` labels a region in a
+  ``torch.profiler`` trace and ``trace(log_dir)`` captures one; ``scope(name)``
+  labels it only while telemetry is on or a capture is open (the hot path's
+  form: the exchange's direction scopes, the split schedule's halves);
+* **device time** (``device.py``): the cadence capture ``ProfileCapture``
+  and the offline parse of its Chrome traces, device time attributed to the
+  scopes and the kernel families, the launches a trace held against those
+  the wrappers counted; **roofline** (``roofline.py``): that time joined
+  with the analytic counters into GB/s and FLOP/s beside the card's peaks;
+  **ledger** (``ledger.py``): the append-only perf ledger and its
+  regression gate.
 
 Knobs (validated reads, ``utils/config.py``):
 
@@ -28,8 +39,8 @@ still counts its retries; the in-memory event ring records always.  Call sites n
 
 The flight recorder (``flight.py``: a supervised run's ``status.json`` and
 ``crash_report.json``) is here too, rendered by ``python -m
-stencil_tpu_torch.status``.  The JAX facade's device profiler, roofline,
-ledger and fabric parts are not ported yet (ROADMAP.md queue 1 item 11b).
+stencil_tpu_torch.status``.  The JAX facade's fabric probe waits for the
+multi-card port (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -45,7 +56,12 @@ from typing import List, Optional
 from stencil_tpu_torch.telemetry import names
 from stencil_tpu_torch.telemetry.events import EventSink
 from stencil_tpu_torch.telemetry.metrics import MetricsRegistry
-from stencil_tpu_torch.telemetry.spans import SpanRecorder, profiler_scope
+from stencil_tpu_torch.telemetry.spans import (  # noqa: F401  (annotate/trace re-export)
+    SpanRecorder,
+    annotate,
+    profiler_scope,
+    trace,
+)
 from stencil_tpu_torch.utils.logging import _rank
 
 #: events kept in the in-memory ring (the tail a crash report reads)
@@ -72,6 +88,9 @@ class _Telemetry:
         self.ring = collections.deque(maxlen=RING_SIZE)
         #: objects that keep counts on their hot path (``add_source``)
         self.sources = weakref.WeakSet()
+        #: device-profile captures open now (``device.ProfileCapture``): the
+        #: hot path's scopes label their regions while one is
+        self.captures_open = 0
 
     def configure_from_env(self) -> None:
         from stencil_tpu_torch.utils.config import env_bool, env_str
@@ -175,6 +194,12 @@ def _flush(t: _Telemetry) -> None:
         src.flush_telemetry()
 
 
+def flush() -> None:
+    """Add every source's pending counts to the counters now (a capture
+    window's edges read the counters directly)."""
+    _flush(_cfg())
+
+
 def set_gauge(name: str, value: float) -> None:
     _cfg().registry.gauge(name).set(value)
 
@@ -196,6 +221,23 @@ def snapshot() -> dict:
 
 
 # --- spans -------------------------------------------------------------------
+
+#: the shared null context the hot path enters while nothing observes it
+NULL_SCOPE = contextlib.nullcontext()
+
+
+def scoping() -> bool:
+    """Do the hot path's profiler scopes label their regions now: while
+    telemetry is enabled or a device-profile capture is open.  Otherwise a
+    call site enters nothing (a ``record_function`` costs microseconds)."""
+    t = _cfg()
+    return t.enabled or t.captures_open > 0
+
+
+def scope(name: str):
+    """``annotate(name)`` while ``scoping()``, else a shared null context."""
+    return profiler_scope(name) if scoping() else NULL_SCOPE
+
 
 
 @contextlib.contextmanager

@@ -58,6 +58,23 @@ WATCHDOG_STALLS = "watchdog.stalls"
 NUMERICS_SNAPSHOTS = "numerics.snapshots"
 #: guardband violations over those snapshots; also the event's name
 NUMERICS_DRIFT = "numerics.drift"
+#: analytic bytes moved through packed shell message buffers (the
+#: ``zpack_*`` / ``yzpack_*`` exchange routes; 0 under ``direct`` —
+#: ops/exchange.py ``zpack_message_stats``)
+EXCHANGE_PACKED_BYTES = "exchange.packed.bytes"
+#: analytic pack+unpack kernel launches of those packed exchanges
+EXCHANGE_PACKED_KERNELS = "exchange.packed.kernels"
+#: analytic boundary-band cells recomputed by the split schedule's exterior
+#: passes (``overlap=split`` on the stream engine); 0 under ``overlap=off``
+STEP_OVERLAP_EXTERIOR_CELLS = "step.overlap.exterior_cells"
+#: analytic tensor-core FLOPs of the banded-contraction kernels
+#: (``compute_unit=mxu|mxu_band``, ``mxu_flops_per_plane`` for the resolved
+#: variant), modelled once per build like the exchange bytes; 0 under vpu
+KERNEL_MXU_FLOPS = "kernel.mxu.flops"
+#: device-profile captures taken by the cadence profiler
+#: (telemetry/device.py ``ProfileCapture``: STENCIL_PROFILE_EVERY /
+#: ``--profile-dir``); a capture whose profiler would not start still counts
+PROFILE_CAPTURES = "profile.captures"
 #: tuned-config cache consultations that found a persisted config (tune/)
 TUNE_CACHE_HIT = "tune.cache.hit"
 #: consultations that found nothing (cold cache, stale toolchain, corrupt file)
@@ -92,6 +109,11 @@ EXCHANGE_HOP_BYTES = {
 ALL_COUNTERS = frozenset({
     EXCHANGE_COUNT,
     EXCHANGE_BYTES,
+    EXCHANGE_PACKED_BYTES,
+    EXCHANGE_PACKED_KERNELS,
+    STEP_OVERLAP_EXTERIOR_CELLS,
+    KERNEL_MXU_FLOPS,
+    PROFILE_CAPTURES,
     STEP_DISPATCHES,
     STEP_ITERATIONS,
     RETRY_ATTEMPTS,
@@ -133,6 +155,11 @@ ALL_GAUGES = frozenset({EXCHANGE_BYTES_PER_EXCHANGE, CHECKPOINT_RETAINED})
 STEP_SECONDS = "domain.step.seconds"
 #: wall seconds per direct ``exchange()`` call (synchronized)
 EXCHANGE_SECONDS = "domain.exchange.seconds"
+#: wall seconds per ``swap()`` call
+SWAP_SECONDS = "domain.swap.seconds"
+#: seconds of the exchange's build at ``realize()`` through the route ladder,
+#: the kernel library's build and load included (``DomainStats.time_create``)
+COMPILE_SECONDS = "domain.compile.seconds"
 #: degradation-ladder rung build seconds (the kernels' nvcc builds included)
 LADDER_BUILD_SECONDS = "resilience.ladder.build_seconds"
 #: wall seconds per checkpoint commit (gather, digest, write, fsync, rename)
@@ -145,6 +172,8 @@ NUMERICS_SNAPSHOT_SECONDS = "numerics.snapshot.seconds"
 ALL_HISTOGRAMS = frozenset({
     STEP_SECONDS,
     EXCHANGE_SECONDS,
+    SWAP_SECONDS,
+    COMPILE_SECONDS,
     LADDER_BUILD_SECONDS,
     CHECKPOINT_SAVE_SECONDS,
     CHECKPOINT_RESTORE_SECONDS,
@@ -155,8 +184,51 @@ ALL_HISTOGRAMS = frozenset({
 
 SPAN_STEP = "domain.step"
 SPAN_EXCHANGE = "domain.exchange"
+SPAN_SWAP = "domain.swap"
+#: the split schedule's two halves (ops/stream.py ``overlap=split``):
+#: profiler scopes (``telemetry.annotate``) around the interior pass and
+#: around the exterior (the exchange on the side stream and the band passes)
+SPAN_OVERLAP_INTERIOR = "step.overlap.interior"
+SPAN_OVERLAP_EXTERIOR = "step.overlap.exterior"
+#: the halo exchange's sends, one profiler scope per (grid axis, receive
+#: side): ops/exchange.py enters these around every send of a sweep, so a
+#: trace attributes the exchange's device time per hop (``exchange.z.low``
+#: receives the -1 z-neighbour's shell)
+SPAN_EXCHANGE_X_LOW = "exchange.x.low"
+SPAN_EXCHANGE_X_HIGH = "exchange.x.high"
+SPAN_EXCHANGE_Y_LOW = "exchange.y.low"
+SPAN_EXCHANGE_Y_HIGH = "exchange.y.high"
+SPAN_EXCHANGE_Z_LOW = "exchange.z.low"
+SPAN_EXCHANGE_Z_HIGH = "exchange.z.high"
 
-ALL_SPANS = frozenset({SPAN_STEP, SPAN_EXCHANGE})
+#: the direction span for one (grid axis, receive side)
+EXCHANGE_DIRECTION_SPANS = {
+    ("x", "low"): SPAN_EXCHANGE_X_LOW,
+    ("x", "high"): SPAN_EXCHANGE_X_HIGH,
+    ("y", "low"): SPAN_EXCHANGE_Y_LOW,
+    ("y", "high"): SPAN_EXCHANGE_Y_HIGH,
+    ("z", "low"): SPAN_EXCHANGE_Z_LOW,
+    ("z", "high"): SPAN_EXCHANGE_Z_HIGH,
+}
+
+
+def exchange_direction_span(axis: str, side: str) -> str:
+    """The registered span name for one exchange hop (axis in x/y/z, side in
+    low/high)."""
+    try:
+        return EXCHANGE_DIRECTION_SPANS[(axis, side)]
+    except KeyError:
+        raise ValueError(f"no exchange direction span for {axis!r}/{side!r}") from None
+
+
+ALL_SPANS = frozenset({
+    SPAN_STEP,
+    SPAN_EXCHANGE,
+    SPAN_SWAP,
+    SPAN_OVERLAP_INTERIOR,
+    SPAN_OVERLAP_EXTERIOR,
+    *EXCHANGE_DIRECTION_SPANS.values(),
+})
 
 # --- structured events (JSONL sink) ------------------------------------------
 
@@ -223,6 +295,9 @@ EVENT_CHECKPOINT_FALLBACK = "checkpoint.fallback"
 #: the watchdog saw a dispatch pass its deadline (fields: phase,
 #: deadline_s, abort)
 EVENT_WATCHDOG_STALL = "watchdog.stall"
+#: a cadence device-profile capture finished (fields: dir, index, seconds;
+#: telemetry/device.py)
+EVENT_PROFILE_CAPTURE = "profile.capture"
 
 ALL_EVENTS = frozenset({
     EVENT_COMPILE,
@@ -247,6 +322,7 @@ ALL_EVENTS = frozenset({
     EVENT_CHECKPOINT_RESTORE,
     EVENT_CHECKPOINT_FALLBACK,
     EVENT_WATCHDOG_STALL,
+    EVENT_PROFILE_CAPTURE,
     NUMERICS_DRIFT,
 })
 

@@ -1,6 +1,11 @@
-"""Nestable wall-clock span recorder and its Chrome trace-event dump.
+"""Nestable wall-clock span recorder, its Chrome trace-event dump, and the
+profiler's two entry points, ``annotate`` and ``trace``.
 
-Counterpart of the recorder in ``stencil_tpu/telemetry/spans.py``.  Spans
+Counterpart of ``stencil_tpu/telemetry/spans.py``.  ``annotate(name)`` labels
+a region in a ``torch.profiler`` trace (``torch.profiler.record_function``,
+the NVTX-range analog, where the JAX package enters ``jax.named_scope``), and
+``trace(log_dir)`` captures one (a ``torch.profiler.profile`` written as a
+Chrome trace, ``*.pt.trace.json``).  Spans
 record (name, start, duration, thread, parent, args) tuples that
 ``chrome_trace_events`` renders as Chrome trace-event JSON (complete
 ``"ph":"X"`` events with microsecond timestamps) for ``chrome://tracing`` or
@@ -15,9 +20,19 @@ while telemetry is enabled.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
 from typing import List, Optional
+
+#: warn once per process when the profiler will not start: a profiled command
+#: line must run unchanged, just without traces
+_trace_unavailable_warned = False
+#: what a capture's profiler collects on a card before its window opens
+#: (``trace``): kernel launches and seconds
+WARMUP_LAUNCHES = 64
+WARMUP_S = 0.02
 
 
 def profiler_scope(name: str):
@@ -26,6 +41,79 @@ def profiler_scope(name: str):
     import torch
 
     return torch.profiler.record_function(name)
+
+
+#: the JAX facade's name for the region label
+annotate = profiler_scope
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str], cuda: Optional[bool] = None):
+    """Capture a ``torch.profiler`` trace of the body into ``log_dir`` (a no-op
+    when None): CPU activity, and CUDA activity when ``cuda`` (default: a card
+    is present), written at the end as ``<host>_<pid>.<ns>.pt.trace.json``
+    (Chrome trace events; Perfetto or ``chrome://tracing`` show it).
+
+    The contract of ``stencil_tpu/telemetry/spans.py``'s ``trace``: the
+    directory is made up front (a capture that dies mid-run still leaves the
+    directory its tooling expects), and a profiler that will not start (one
+    already running in the process, a build without Kineto) warns once and
+    runs the body unprofiled; a failed export warns and leaves the result
+    alone."""
+    if not log_dir:
+        yield
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    global _trace_unavailable_warned
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = None
+    try:
+        if torch.autograd.profiler._is_profiler_enabled:
+            # torch.profiler sessions do not nest: stopping an inner one
+            # would end the outer
+            raise RuntimeError("a torch.profiler session is already running in this process")
+        # one warm-up step, its rows discarded, before the recorded one: a
+        # session opened late in a long process on the H100 lost its first
+        # ~26 device rows (~3 ms) when it recorded at once (chip_smoke.py
+        # phase 27), so CUPTI first collects WARMUP_LAUNCHES tiny kernels
+        # and WARMUP_S of time, outside the window
+        prof = profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+        prof.__enter__()
+        if cuda:
+            warm = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_LAUNCHES):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(WARMUP_S)
+        prof.step()
+    except Exception as e:  # noqa: BLE001 — degrade, never crash the run
+        prof = None
+        if not _trace_unavailable_warned:
+            _trace_unavailable_warned = True
+            from stencil_tpu_torch.utils.logging import log_warn
+
+            log_warn(f"torch.profiler would not start ({e!r}); running unprofiled — {log_dir} will hold no trace")
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                if cuda:
+                    torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                import socket
+
+                prof.export_chrome_trace(os.path.join(
+                    log_dir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+            except Exception as e:  # noqa: BLE001 — a failed finalize must not eat the run's result
+                from stencil_tpu_torch.utils.logging import log_warn
+
+                log_warn(f"torch.profiler trace finalize failed: {e!r}")
 
 
 class SpanRecorder:

@@ -216,3 +216,234 @@ def test_driver_metrics_out(tmp_path):
     assert snap["counters"][tm.STEP_DISPATCHES] == 3  # the untimed first step, then 2
     assert snap["histograms"][tm.STEP_SECONDS]["count"] == 3
     assert not telemetry.enabled()  # the driver left telemetry as it found it
+
+
+# --- DomainStats, the phase timer and the accounting of the exchange's and the
+# stream engine's work (stencil_tpu/domain.py:86-101, :535-615, :1154-1249;
+# stencil_tpu/ops/stream.py:2180-2229) --------------------------------------------
+
+
+def _domains(route=None, size=32, radius=1, nf=1, seed=5, mult=1):
+    """The same 2x2x2 domain in both packages, seeded alike."""
+    from stencil_tpu.core.radius import Radius as JRadius
+    from stencil_tpu.domain import DistributedDomain as JDomain
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
+
+    t = DistributedDomain(size, size, size, device="cpu")
+    t.set_radius(Radius.constant(radius))
+    t.set_subdomains(8)
+    j = JDomain(size, size, size)
+    j.set_radius(JRadius.constant(radius))
+    j.set_devices(jax.devices()[:8])
+    if route is not None:
+        t.set_exchange_route(route)
+        j.set_exchange_route(route)
+    if mult > 1:
+        t.set_halo_multiplier(mult)
+        j.set_halo_multiplier(mult)
+    th = [t.add_data(f"q{i}") for i in range(nf)]
+    jh = [j.add_data(f"q{i}") for i in range(nf)]
+    t.realize()
+    j.realize()
+    rng = np.random.default_rng(seed)
+    for a, b in zip(th, jh):
+        v = rng.random((size,) * 3).astype(np.float32)
+        t.set_quantity(a, v)
+        j.set_quantity(b, v)
+    return t, th, j, jh
+
+
+def _counters(snap, keys):
+    return {k: snap["counters"][k] for k in keys}
+
+
+def test_domain_stats_fields_equal_jax():
+    import dataclasses
+
+    from stencil_tpu.domain import DomainStats as JStats
+    from stencil_tpu_torch.domain import DomainStats
+
+    assert [(f.name, f.default) for f in dataclasses.fields(DomainStats)] == \
+        [(f.name, f.default) for f in dataclasses.fields(JStats)]
+
+
+@pytest.mark.parametrize("route", ["direct", "yzpack_pallas"])
+def test_realize_times_its_phases_and_the_exchange_build(route):
+    """A realize fills the setup phases and observes the exchange's build
+    into ``domain.compile.seconds`` with a ``domain.compile`` event shaped as
+    the JAX package's (``phase``, ``label`` ``realize:<route>``, ``seconds``)."""
+    from stencil_tpu import telemetry as jtelemetry
+
+    telemetry.enable()
+    jtelemetry.enable()
+    try:
+        t, _, j, _ = _domains(route)
+        for stats in (t.stats, j.stats):
+            assert stats.time_create > 0 and stats.time_exchange == stats.time_swap == 0.0
+            assert all(getattr(stats, f) >= 0 for f in ("time_topo", "time_placement", "time_realize",
+                                                        "time_plan"))
+        # (the packed route's ladder emits its rung build as well, phase "ladder")
+        mine = [e for e in telemetry.recent_events() if e["event"] == tm.EVENT_COMPILE and e["phase"] == "exchange"]
+        theirs = [e for e in jtelemetry.recent_events()
+                  if e["event"] == tm.EVENT_COMPILE and e["phase"] == "exchange"]
+        assert [(e["phase"], e["label"]) for e in mine] == [(e["phase"], e["label"]) for e in theirs[-1:]] == \
+            [("exchange", f"realize:{route}")]
+        assert mine[0]["seconds"] == round(t.stats.time_create, 6)
+        assert telemetry.snapshot()["histograms"][tm.COMPILE_SECONDS]["count"] == 1
+    finally:
+        jtelemetry.disable()
+        jtelemetry.reset()
+
+
+def test_exchange_stats_time_exchange_and_swap(monkeypatch):
+    """``STENCIL_EXCHANGE_STATS=1`` (or ``enable_exchange_stats``) times every
+    ``exchange()`` and ``swap()`` into ``stats``, as in the JAX package;
+    without it, and with telemetry off, nothing is timed."""
+    t, _, j, _ = _domains()
+    for dd in (t, j):
+        dd.exchange()
+        dd.swap()
+        assert dd.stats.time_exchange == dd.stats.time_swap == 0.0
+        dd.enable_exchange_stats()
+        dd.exchange()
+        dd.swap()
+        dd.swap()
+        assert dd.stats.time_exchange > 0 and dd.stats.time_swap > 0
+    assert telemetry.snapshot()["histograms"][tm.EXCHANGE_SECONDS]["count"] == 0  # telemetry off
+    monkeypatch.setenv("STENCIL_EXCHANGE_STATS", "1")
+    t2, _, _, _ = _domains()
+    t2.exchange()
+    assert t2.stats.time_exchange > 0
+    monkeypatch.setenv("STENCIL_EXCHANGE_STATS", "sometimes")
+    from stencil_tpu_torch.domain import DistributedDomain
+
+    with pytest.raises(ValueError, match="STENCIL_EXCHANGE_STATS"):
+        DistributedDomain(8, 8, 8, device="cpu")
+
+
+def test_telemetry_on_times_exchange_and_swap_into_histograms():
+    telemetry.enable()
+    t, _, _, _ = _domains()
+    t.exchange()
+    t.swap()
+    snap = telemetry.snapshot()
+    assert snap["histograms"][tm.EXCHANGE_SECONDS]["count"] == 1
+    assert snap["histograms"][tm.SWAP_SECONDS]["count"] == 1
+    names_seen = {e["name"] for e in telemetry._t.spans.events()}
+    assert {tm.SPAN_EXCHANGE, tm.SPAN_SWAP} <= names_seen
+    assert t.stats.time_exchange > 0
+
+
+@pytest.mark.parametrize("route", ["direct", "zpack_xla", "yzpack_pallas"])
+def test_exchange_counters_equal_jax(route):
+    """``exchange()`` and ``exchange_many`` on 2x2x2 32^3: the same exchange
+    count, bytes, per-hop bytes and packed kernels as the JAX domain; the
+    packed bytes are the port's buffers' (no lane pad at X = 34)."""
+    from stencil_tpu import telemetry as jtelemetry
+    from stencil_tpu_torch.ops import pack
+
+    jtelemetry.reset()
+    t, th, j, jh = _domains(route, nf=2)
+    for dd in (t, j):
+        dd.exchange()
+        dd.exchange()
+        dd.exchange_many(3)
+    keys = [tm.EXCHANGE_COUNT, tm.EXCHANGE_BYTES, tm.EXCHANGE_PACKED_KERNELS, *tm.EXCHANGE_HOP_BYTES.values()]
+    mine, theirs = telemetry.snapshot(), jtelemetry.snapshot()
+    assert mine["counters"][tm.EXCHANGE_COUNT] == 5
+    assert _counters(mine, keys) == _counters(theirs, keys)
+    if route == "direct":
+        assert mine["counters"][tm.EXCHANGE_PACKED_BYTES] == theirs["counters"][tm.EXCHANGE_PACKED_BYTES] == 0
+        return
+    # the port's model is the bytes of the buffers its packs make
+    block = t.get_curr(th[0]).view(8, *t.local_spec().raw_size().tuple())
+    bufs = [pack.pack_zshell_xla(block, 16, 1), pack.pack_zshell_xla(block, 1, 1)]
+    if route.startswith("yz"):
+        bufs += [pack.pack_yshell_xla(block, 16, 1), pack.pack_yshell_xla(block, 1, 1)]
+    assert mine["counters"][tm.EXCHANGE_PACKED_BYTES] == 5 * 2 * sum(b.numel() * b.element_size() for b in bufs)
+    assert mine["counters"][tm.EXCHANGE_PACKED_BYTES] < theirs["counters"][tm.EXCHANGE_PACKED_BYTES]
+
+
+@pytest.mark.parametrize("raw", [(128, 40, 24), (256, 7, 9), (34, 34, 34), (100, 20, 130)])
+@pytest.mark.parametrize("lo,hi", [(1, 1), (3, 0), (2, 4)])
+def test_packed_message_model(raw, lo, hi):
+    """``zpack_message_stats`` equals the JAX model where X is a multiple of
+    128 (no lane pad either way) and the port's ``(d, Y, X)`` buffers'
+    bytes elsewhere; ``ypack_message_stats`` equals it always."""
+    from stencil_tpu.ops import exchange as jex
+    from stencil_tpu_torch.ops import exchange as tex
+
+    itemsizes = [4, 2, 8]
+    assert tex.ypack_message_stats(raw, lo, hi, itemsizes) == jex.ypack_message_stats(raw, lo, hi, itemsizes)
+    mine = tex.zpack_message_stats(raw, lo, hi, itemsizes)
+    theirs = jex.zpack_message_stats(raw, lo, hi, itemsizes)
+    assert mine[1] == theirs[1]
+    if raw[0] % 128 == 0:
+        assert mine == theirs
+    X, Y, _ = raw
+    assert mine[0] == sum(d * Y * X * i for d in (lo, hi) if d for i in itemsizes)
+
+
+@pytest.mark.parametrize("path", ["plane", "wavefront"])
+def test_split_exterior_cells_equal_jax(path):
+    """The split schedule's recomputed band cells on 2x2x2 32^3, plane and
+    wavefront routes, against the JAX stream engine (interpret mode): the
+    same ``step.overlap.exterior_cells`` and exchange counts; 0 under off."""
+    from stencil_tpu import telemetry as jtelemetry
+
+    def mean6(views, info):
+        return {n: (s.sh(-1, 0, 0) + s.sh(0, -1, 0) + s.sh(0, 0, -1) + s.sh(1, 0, 0) + s.sh(0, 1, 0)
+                    + s.sh(0, 0, 1)) / 6.0 for n, s in views.items()}
+
+    jtelemetry.reset()
+    # the wavefront route as tests/test_torch_overlap_split.py takes it: a
+    # shell of 3 from the halo multiplier, the plan from "auto"
+    t, _, j, _ = _domains(nf=2, mult=1 if path == "plane" else 3)
+    sp = "plane" if path == "plane" else "auto"
+    tstep = t.make_step(mean6, engine="stream", stream_path=sp, stream_overlap="split")
+    jstep = j.make_step(mean6, engine="stream", stream_path=sp, interpret=True, stream_overlap="split")
+    assert tstep._stream_plan["route"] == jstep._stream_plan["route"] == path
+    assert tstep._stream_plan["m"] == jstep._stream_plan["m"]
+    for dd, step in ((t, tstep), (j, jstep)):
+        dd.run_step(step, 3)
+        dd.run_step(step, 1)
+    keys = [tm.STEP_OVERLAP_EXTERIOR_CELLS, tm.EXCHANGE_COUNT, tm.EXCHANGE_BYTES, tm.STEP_ITERATIONS]
+    mine = _counters(telemetry.snapshot(), keys)
+    assert mine == _counters(jtelemetry.snapshot(), keys)
+    assert mine[tm.STEP_OVERLAP_EXTERIOR_CELLS] > 0
+    off = t.make_step(mean6, engine="stream", stream_path=sp, stream_overlap="off")
+    t.run_step(off, 2)
+    assert telemetry.snapshot()["counters"][tm.STEP_OVERLAP_EXTERIOR_CELLS] == mine[tm.STEP_OVERLAP_EXTERIOR_CELLS]
+
+
+def test_mxu_flops_equal_jax():
+    """``kernel.mxu.flops``: Astaroth's plane route on 2x2x2 32^3 under
+    ``mxu`` (the stream engine's count a step), and the Jacobi wrap route
+    under ``mxu_band`` (the model's count a call), against the JAX package's
+    after the same calls; 0 under vpu."""
+    from stencil_tpu import telemetry as jtelemetry
+    from stencil_tpu.models.astaroth import AstarothSim as JAstaroth
+    from stencil_tpu_torch.models.astaroth import AstarothSim
+
+    jtelemetry.reset()
+    j = JAstaroth(32, 32, 32, num_quantities=2, devices=jax.devices()[:8], kernel_impl="pallas", interpret=True,
+                  schedule="per-step", compute_unit="mxu")
+    t = AstarothSim(32, 32, 32, num_quantities=2, subdomains=8, device="cpu", kernel_impl="cuda",
+                    schedule="per-step", compute_unit="mxu")
+    wj = JJacobi3D(20, 16, 18, devices=jax.devices()[:1], kernel_impl="pallas", interpret=True,
+                   compute_unit="mxu_band", temporal_k=3)
+    wt = Jacobi3D(20, 16, 18, subdomains=1, device="cpu", kernel_impl="cuda", compute_unit="mxu_band",
+                  temporal_k=3)
+    for m in (j, t, wj, wt):
+        m.realize()
+    for m in (j, t):
+        m.step(2)
+    for m in (wj, wt):
+        m.step(5)
+    mine = telemetry.snapshot()["counters"][tm.KERNEL_MXU_FLOPS]
+    assert mine > 0 and mine == jtelemetry.snapshot()["counters"][tm.KERNEL_MXU_FLOPS]
+    vpu = Jacobi3D(20, 16, 18, subdomains=1, device="cpu", kernel_impl="cuda", temporal_k=3)
+    vpu.realize()
+    vpu.step(3)
+    assert telemetry.snapshot()["counters"][tm.KERNEL_MXU_FLOPS] == mine
