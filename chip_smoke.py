@@ -401,6 +401,30 @@ non-zero before the result line:
     rows of a family than its wrappers launched in the window, is logged,
     counted and taken again, five at most, then the phase fails.  The
     phase's seconds are printed.
+28. the scaling and exchange drivers (``bin/weak.py``, ``weak_exchange.py``,
+    ``bench_exchange.py``, ``pingpong.py``, ``bench_alltoallv.py``,
+    ``measure_buf_exchange.py``) in process, their outputs under
+    ``chiprun_out/phase28/``: (a) first one ``stream_overlap="off"`` and one
+    ``"split"`` step of ``weak._mean6_kernel`` on 2x2x2 (halo multiplier 2:
+    the wavefront, m = 2, kernels #8 and #9), at 64^3 a subdomain and on
+    (b)'s own domain (256^3 a subdomain), interiors bitwise equal to each
+    other and to the same steps on the stream engine's plain versions on
+    the card; (b) ``weak --overlap --mesh 2,2,2 256 256 256 --ab-reps 40``
+    (a 512^3 global), twice: Mcells/s of off and split, ``split_speedup``,
+    ms an exchange, and the two readings' spread; (c) ``weak`` and ``weak_exchange``
+    ``--partition 2,2,2 256 256 256 5``: their CSV rows; (d)
+    ``bench_exchange --partition 2,2,2 --x 512 --y 512 --z 512``: the five
+    radius shapes' rows and every route's ms an exchange and a sweep,
+    ``speedup_vs_direct`` (#9, #11-#14); (e) ``pingpong`` on the card
+    paired with itself (GB/s at 2^27 bytes), ``bench_alltoallv --scale
+    0.1`` on ``[dev, dev]`` (every total a positive time but block-local
+    1 GiB, which has no pair on two endpoints and prints ``n/a``), and
+    ``measure_buf_exchange --iters 5`` (``y_concurrent`` a positive time
+    each iteration).  Each run
+    has the launch counts set to 0 just before it and read just after, and
+    fails if a kernel of its path launched no time; the kernels' line
+    carries their sum as ``driver_launches``.  The phase's seconds are
+    printed.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -3553,6 +3577,209 @@ def phase27(card: str, dev: torch.device) -> dict:
     return rec
 
 
+P28_N = 64  # phase 28's check: 64^3 a subdomain on 2x2x2
+P28_SUB = 256  # its drivers' base size a subdomain: 512^3 on 2x2x2, the flagship's global size
+P28_MIB = 0.1  # bench_alltoallv's --scale on [dev, dev]
+P28_AB_REPS = 40  # the overlap A/B's --ab-reps
+
+
+@contextlib.contextmanager
+def plain_stream_passes():
+    """The stream engine's plain versions in place of its plane and
+    wavefront kernels, on whatever device the tensors are (the CPU branch
+    of each wrapper, taken on the card)."""
+    from stencil_tpu_torch.ops import stream as st
+
+    saved = st.stream_plane_pass, st.stream_wavefront_pass
+
+    def wavefront(kernel, names, raws, m, s_off, origin, global_size, z_slabs=None, z_valid=None, alias=False,
+                  fused_shell=None, out=None, z_out=None, compute_unit="vpu", mxu_input="f32"):
+        outs, zouts = st.stream_wavefront_pass_plain(kernel, names, raws, m, s_off, origin, global_size, z_slabs,
+                                                     z_valid, alias, fused_shell, compute_unit, mxu_input)
+        if out is not None:
+            outs = [o.copy_(r) for o, r in zip(out, outs)]
+        if z_out is not None:
+            zouts = [o.copy_(r) for o, r in zip(z_out, zouts)]
+        return outs, zouts
+
+    st.stream_plane_pass, st.stream_wavefront_pass = st.stream_plane_pass_plain, wavefront
+    try:
+        yield
+    finally:
+        st.stream_plane_pass, st.stream_wavefront_pass = saved
+
+
+def phase28(card: str, dev: torch.device) -> dict:
+    """Phase 28 (see the module's docstring): the scaling and exchange
+    drivers at full width, in process."""
+    import argparse
+
+    from stencil_tpu_torch.bin import bench_alltoallv as ba
+    from stencil_tpu_torch.bin import bench_exchange as be
+    from stencil_tpu_torch.bin import measure_buf_exchange as mbe
+    from stencil_tpu_torch.bin import pingpong as pp
+    from stencil_tpu_torch.bin import weak, weak_exchange
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
+
+    t_phase = time.perf_counter()
+    rec = {"card": card, "seconds": {}, "launches": {}}
+    out_dir = os.path.join(OUT_DIR, "phase28")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # (a) one off and one split step of weak's _mean6_kernel on 2x2x2 (halo
+    # multiplier 2: the wavefront, m = 2), against each other and against the
+    # same steps on the stream engine's plain versions, on the card: at 64^3 a
+    # subdomain, then on the overlap A/B's own domain (256^3 a subdomain)
+    def one_step(dd, h, start, steps):
+        res, plans = {}, {}
+        for ov, step in steps.items():
+            curr = step({h.name: start.clone()}, 2)
+            sync()
+            res[ov] = dd._interior_view(curr[h.name]).clone()
+            plans[ov] = {k: step._stream_plan.get(k) for k in ("route", "m", "z_slabs", "overlap")}
+        return res, plans
+
+    rec["check"] = {}
+    for n in (P28_N, P28_SUB):
+        t0 = time.perf_counter()
+        # the driver's own flags, so the domain is the one (b) times
+        args = weak.build_parser("weak").parse_args([str(n)] * 3 + ["1", "--overlap", "--mesh", "2,2,2"])
+        args.trivial = args.naive
+        with contextlib.redirect_stderr(io.StringIO()):
+            dd = weak.overlap_domain(args)
+        h = dd._handles[0]
+        dd.set_quantity(h, np.random.default_rng(28).random(dd.size().tuple(), dtype=np.float32))
+        start = dd._curr[h.name].clone()
+        got, plans = one_step(dd, h, start, weak.overlap_steps(dd))
+        with plain_stream_passes():
+            want, _ = one_step(dd, h, start, weak.overlap_steps(dd))
+        errs = {f"{ov} vs plain": max_err(got[ov], want[ov]) for ov in got}
+        errs["split vs off"] = max_err(got["split"], got["off"])
+        errs["plain split vs plain off"] = max_err(want["split"], want["off"])
+        log(f"phase 28 check, mean6 off / split at 2x2x2 x {n}^3 ({dd.size().tuple()}), halo multiplier "
+            f"{args.halo_mult}, plans {plans}: max abs errors {errs} (bitwise expected); on {card}")
+        if plans["off"]["route"] != "wavefront" or plans["split"]["overlap"] != "split":
+            raise AssertionError(f"phase 28 check at {n}^3: plans {plans}")
+        if not (all(torch.equal(got[ov], want[ov]) for ov in got) and torch.equal(got["split"], got["off"])
+                and torch.equal(want["split"], want["off"])):
+            raise AssertionError(f"phase 28 check at {n}^3: off / split / plain versions differ: {errs}")
+        rec["check"][f"{n}^3"] = {"errs": errs, "plans": plans}
+        del dd, start, got, want
+        torch.cuda.empty_cache()
+        rec["seconds"][f"check {n}^3"] = time.perf_counter() - t0
+
+    def driver(what, main, argv, need=()):
+        """``main(argv)`` in process, the launch counts set to 0 just before
+        and read just after; its output kept beside the phase's record."""
+        ledger.reset_launch_counts()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        sync()
+        rec["seconds"][what] = time.perf_counter() - t0
+        counts = {k: v for k, v in ledger.launch_counts().items() if v}
+        rec["launches"][what] = counts
+        with open(os.path.join(out_dir, what.replace(" ", "_") + ".txt"), "w") as f:
+            f.write(out.getvalue())
+        if rc not in (0, None):
+            raise AssertionError(f"phase 28 {what}: rc {rc}:\n{err.getvalue()[-2000:]}")
+        for k in need:
+            if not counts.get(k):
+                raise AssertionError(f"phase 28 {what}: {k} launched no time: {counts}")
+        return out.getvalue().strip().splitlines()
+
+    base = [str(P28_SUB)] * 3
+    # (b) the overlap A/B at 512^3 on 2x2x2, twice, P28_AB_REPS reps each:
+    # the two readings' spread says how well one resolves split_speedup
+    reads = []
+    for k, what in enumerate(("weak overlap", "weak overlap again")):
+        lines = driver(what, weak.main, base + ["1", "--overlap", "--mesh", "2,2,2", "--ab-reps", str(P28_AB_REPS),
+                                                "--json", os.path.join(out_dir, f"weak_222_{k}.json")],
+                       need=("stream_wavefront_pass", "blend_slab"))
+        doc = json.loads(lines[-1])
+        ov = doc["overlap"]
+        if not (doc["global"] == [2 * P28_SUB] * 3 and doc["chips"] == 8 and doc["dryrun"] is False
+                and doc["card"] == card and ov["off"]["mcells_per_s"] > 0 and ov["split"]["mcells_per_s"] > 0
+                and doc["exchange"]["ms_per_exchange"] > 0
+                and doc["measurement_protocol"]["reps"] == P28_AB_REPS):
+            raise AssertionError(f"phase 28 {what}: {doc}")
+        reads.append(doc)
+        log(f"phase 28 {what}: weak --overlap --mesh 2,2,2 {P28_SUB}^3 a subdomain ({doc['global']}) --ab-reps "
+            f"{P28_AB_REPS}: off {ov['off']['mcells_per_s']:.1f} Mcells/s, split {ov['split']['mcells_per_s']:.1f} "
+            f"Mcells/s, split_speedup {doc['split_speedup']:.4f}, {doc['exchange']['ms_per_exchange']:.4f} ms an "
+            f"exchange ({doc['exchange']['bytes_per_exchange']} B), plans {doc['plans']}, inner "
+            f"{doc['measurement_protocol']['inner']}, launches {rec['launches'][what]}; on {card}")
+    figures = {
+        "off Mcells/s": [d["overlap"]["off"]["mcells_per_s"] for d in reads],
+        "split Mcells/s": [d["overlap"]["split"]["mcells_per_s"] for d in reads],
+        "split_speedup": [d["split_speedup"] for d in reads],
+        "ms an exchange": [d["exchange"]["ms_per_exchange"] for d in reads],
+    }
+    spread = {k: abs(a - b) / ((a + b) / 2) for k, (a, b) in figures.items()}
+    rec["weak_overlap"] = {"reads": reads, "spread": spread}
+    log("phase 28 weak overlap, the two readings' spread |a - b| / mean: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in spread.items()) + f"; on {card}")
+
+    # (c) the CSV drivers at 512^3 on 2x2x2, 5 iterations
+    for what, main in (("weak", weak.main), ("weak_exchange", weak_exchange.main)):
+        row = driver(what, main, base + ["5", "--partition", "2,2,2"], need=("blend_slab",))[-1]
+        cols = row.split(",")
+        if cols[0] != "weak" or cols[2:5] != [str(2 * P28_SUB)] * 3 or not int(cols[6]) > 0:
+            raise AssertionError(f"phase 28 {what}: {row}")
+        rec[what] = row
+        log(f"phase 28 {what} --partition 2,2,2 {P28_SUB}^3 5: {row}; launches {rec['launches'][what]}; on {card}")
+
+    # (d) bench-exchange at 512^3 on 2x2x2: five radius shapes and every route
+    lines = driver("bench_exchange", be.main, ["--partition", "2,2,2"] + [f"--{a}={2 * P28_SUB}" for a in "xyz"],
+                   need=("blend_slab", "pack_zshell_pallas", "unpack_zshell_pallas", "pack_yshell_pallas",
+                         "unpack_yshell_pallas"))
+    doc = json.loads(lines[-1])
+    ab = doc["route_ab"]
+    if len(lines) != 7 or set(ab["routes"]) != set(EXCHANGE_ROUTES) or doc["card"] != card:
+        raise AssertionError(f"phase 28 bench_exchange: {lines}")
+    rec["bench_exchange"] = {"rows": lines[1:6], "doc": doc}
+    for line in lines[1:6]:
+        log(f"phase 28 bench_exchange {line}")
+    log("phase 28 bench_exchange route A/B, ms an exchange [x, y, z]: " + "; ".join(
+        f"{r} {e['ms_per_exchange']:.4f} [{e['per_axis_ms']['x']:.4f}, {e['per_axis_ms']['y']:.4f}, "
+        f"{e['per_axis_ms']['z']:.4f}]" for r, e in ab["routes"].items())
+        + f"; speedup_vs_direct {ab['speedup_vs_direct']}; inner {ab['measurement_protocol']['inner']}; launches "
+        f"{rec['launches']['bench_exchange']}; on {card}")
+
+    # (e) the transfer drivers: pingpong and measure-buf-exchange on the card
+    # (paired with itself), bench-alltoallv on [dev, dev]
+    lines = driver("pingpong", pp.main, [])
+    times = [float(t) for t in lines[0].split()[1:]]
+    if len(times) != 28 or not all(t > 0 for t in times):
+        raise AssertionError(f"phase 28 pingpong: {lines}")
+    rec["pingpong"] = {"row": lines[0], "gb_per_s_2_27": 2 * (1 << 27) / times[-1] / 1e9}
+    log(f"phase 28 pingpong {lines[0].split()[0]}: 2^27 B round trip {times[-1] * 1e3:.4f} ms, "
+        f"{rec['pingpong']['gb_per_s_2_27']:.1f} GB/s (two copies of 2^27 B); 2^0 B {times[0] * 1e6:.2f} us; on {card}")
+    lines = driver("bench_alltoallv", lambda argv: ba.run([dev, dev], 5, P28_MIB), [])
+    totals = {lines[i]: None if lines[i + 1] == "n/a" else float(lines[i + 1]) for i in range(len(lines) - 1)
+              if lines[i] in ("stencil", "stencil concurrent") or lines[i].startswith(("All-to-all", "Local"))}
+    # on two endpoints each half is one endpoint: block-local 1 GiB has no pair
+    empty = {"Local 1GiB", "Local 1GiB concurrent"}
+    if len(totals) != 10 or not all((v is None) if k in empty else v > 0 for k, v in totals.items()):
+        raise AssertionError(f"phase 28 bench_alltoallv: {lines}")
+    rec["bench_alltoallv"] = totals
+    log(f"phase 28 bench_alltoallv --scale {P28_MIB} on [dev, dev], s: {totals}; on {card}")
+    lines = driver("measure_buf_exchange", mbe.main, ["--iters", "5"])
+    final = lines[lines.index("final x (MiB)") + 1]
+    last_y = lines[len(lines) - 1 - lines[::-1].index("y") + 1]
+    conc = [float(line.split()[1]) for line in lines if line.startswith("y_concurrent")]
+    if not (conc and all(v > 0 for v in conc)):
+        raise AssertionError(f"phase 28 measure_buf_exchange: {lines}")
+    rec["measure_buf_exchange"] = {"final_mib": final, "last_y": last_y, "y_concurrent": conc}
+    log(f"phase 28 measure_buf_exchange --iters 5: final x {final} MiB, last y {last_y} s, y_concurrent {conc}; "
+        f"on {card}")
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log("phase 28 seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in rec["seconds"].items()) + f"; on {card}")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3669,9 +3896,11 @@ def main() -> int:
             stream_sources += [("stream_wavefront_fused", st._source(sk1, *st._wavefront_variant(m, True)))
                                for m in ((1, 2, 3) if dt == torch.float32 else (3,))]
         stream_sources.append(("stream_wavefront_fused", st._source(sko, *st._wavefront_variant(2, True))))
-    # phase 15's reference: the plane route of a mean6 user kernel
-    stream_sources.append(("stream_plane", st._source(StreamKernel(mean6_kernel, ["u"], 1, gs_main),
-                                                      "stream_plane", [1])))
+    # phase 15's reference: the plane route of a mean6 user kernel; phase
+    # 28's overlap A/B: its wavefront at m = 2 and the remainder depth
+    m6k = StreamKernel(mean6_kernel, ["u"], 1, gs_main)
+    stream_sources.append(("stream_plane", st._source(m6k, "stream_plane", [1])))
+    stream_sources += [("stream_wavefront", st._source(m6k, *st._wavefront_variant(m))) for m in (1, 2)]
     for sk in ragged_k.values():
         stream_sources += [("stream_wrap", st._source(sk, "stream_wrap", st._WRAP_LEVELS)),
                            ("stream_plane", st._source(sk, "stream_plane", [1])),
@@ -5368,6 +5597,11 @@ def main() -> int:
     pr27 = phase27(card, dev)
     phase_end()
 
+    # --- 28. the scaling and exchange drivers: weak, strong's A/B, bench-exchange, transfers ---
+    phase_start(28)
+    dr28 = phase28(card, dev)
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -5526,6 +5760,7 @@ def main() -> int:
                             bound_of=f["bound_of"], tensor_core_flops=f["tensor_core_flops"], launch=f["launch"],
                             copy_bound_ms=None)
         rows[-1]["tune_launches"] = sum(c.get(name, 0) for c in tn26["launches"].values())
+        rows[-1]["driver_launches"] = sum(c.get(name, 0) for c in dr28["launches"].values())
         if name in ax19["forms"]:
             f = ax19["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
@@ -5576,6 +5811,7 @@ def main() -> int:
         "supervisor": rs25,
         "autotuner": tn26,
         "device_time": pr27,
+        "drivers": dr28,
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

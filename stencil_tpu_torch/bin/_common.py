@@ -1,9 +1,16 @@
-"""Flags and helpers the ported drivers share (counterpart of parts of
-``stencil_tpu/bin/_common.py``): ``--metrics-out``, ``--profile-dir`` (the
-cadence device-profile capture and its roofline report), ``--numerics-every``,
-the checkpoint flags of the run supervisor, the autotuner's ``--tune`` /
-``--no-tune`` / ``--tune-cache``, and the timing helpers of the tuner's
-trial protocol (``host_round_trip_s``, ``timed_inner_loop``)."""
+"""Flags and helpers the ported drivers share (counterpart of
+``stencil_tpu/bin/_common.py``): the reference's transport flags
+(``add_method_flags``, ``parse_methods``, ``method_str``, ``parse_strategy``),
+``--exchange-route``, the kernel axes, ``--partition`` / ``--device``, the
+subdomain-grid helpers (``ranks_and_devcount``, ``fit_to_mesh``), the
+transfer primitives of the pingpong / bench-alltoallv / measure-buf-exchange
+drivers (``endpoints``, ``make_edge_transfer``, ``make_matrix_transfer``,
+``measure_edge``, ``measure_matrix_concurrent``, ``WallTimer``),
+``--metrics-out``, ``--profile-dir`` (the cadence device-profile capture and
+its roofline report), ``--numerics-every``, the checkpoint flags of the run
+supervisor, the autotuner's ``--tune`` / ``--no-tune`` / ``--tune-cache``, and
+the timing helpers of the tuner's trial protocol (``host_round_trip_s``,
+``timed_inner_loop``)."""
 
 from __future__ import annotations
 
@@ -314,3 +321,291 @@ def timed_inner_loop(run, inner: int, rt: float, n_iters: int, min_ratio: float 
         t = time.perf_counter() - t0
         samples.append(((t - rt) if subtract else t) / inner)
     return samples, inner
+
+
+# --- the reference's transport flags (stencil_tpu/bin/_common.py:16-63) ----------------
+
+#: (flag, MethodFlags member name, CSV name): the reference's transport
+#: flags (jacobi3d.cu:111-120); all map onto the one on-device exchange
+METHOD_FLAGS = (
+    ("staged", "CudaMpi", "staged"),
+    ("cuda_aware_mpi", "CudaAwareMpi", "cuda-aware"),
+    ("colo", "CudaMpiColocated", "colo"),
+    ("peer", "CudaMemcpyPeer", "peer"),
+    ("kernel", "CudaKernel", "kernel"),
+)
+
+
+def add_method_flags(p: argparse.ArgumentParser) -> None:
+    """The reference's transport flags and ``--trivial``: accepted and
+    echoed in the CSV's method string, so reference run scripts keep
+    working; every one maps onto the one exchange."""
+    p.add_argument("--staged", action="store_true", help="Enable RemoteSender/Recver")
+    p.add_argument("--cuda-aware-mpi", action="store_true", help="Enable CudaAwareMpiSender/Recver")
+    p.add_argument("--colo", action="store_true", help="Enable ColocatedHaloSender/Recver")
+    p.add_argument("--peer", action="store_true", help="Enable PeerAccessSender")
+    p.add_argument("--kernel", action="store_true", help="Enable PeerCopySender")
+    p.add_argument("--trivial", action="store_true", help="Skip node-aware placement")
+
+
+def parse_methods(args):
+    """The ``MethodFlags`` the flags select, ``All`` when none is set."""
+    from stencil_tpu_torch.utils.config import MethodFlags
+
+    m = MethodFlags.Non
+    for flag, member, _ in METHOD_FLAGS:
+        if getattr(args, flag, False):
+            m |= getattr(MethodFlags, member)
+    return MethodFlags.All if m == MethodFlags.Non else m
+
+
+def method_str(args) -> str:
+    """The CSV's method string (jacobi3d.cu:355-374): the flags' names
+    joined by ``/``, ``ppermute`` (the default transport) when none is set."""
+    return "/".join(name for flag, _, name in METHOD_FLAGS if getattr(args, flag, False)) or "ppermute"
+
+
+def parse_strategy(args):
+    from stencil_tpu_torch.utils.config import PlacementStrategy
+
+    return PlacementStrategy.Trivial if getattr(args, "trivial", False) else PlacementStrategy.NodeAware
+
+
+def add_exchange_route_flag(p: argparse.ArgumentParser) -> None:
+    """``--exchange-route`` (``stencil_tpu/bin/_common.py:172-193``): pin the
+    halo exchange's y/z-sweep route; ``auto`` (default) keeps the planner's
+    resolution (``STENCIL_EXCHANGE_ROUTE`` > tuned config > ``direct``)."""
+    from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
+
+    p.add_argument("--exchange-route", default="auto", choices=("auto",) + EXCHANGE_ROUTES,
+                   help="y/z-sweep exchange route: direct slabs, or the z shell (zpack_*) or y and "
+                        "z shells (yzpack_*) as packed buffers; *_pallas packs with the CUDA kernels")
+
+
+def apply_exchange_route(args, dd) -> None:
+    """Apply ``--exchange-route`` to a domain before ``realize()``."""
+    route = getattr(args, "exchange_route", "auto")
+    if route != "auto":
+        dd.set_exchange_route(route)
+
+
+def add_kernel_axis_flags(p: argparse.ArgumentParser) -> None:
+    """``--compute-unit`` / ``--mxu-input`` / ``--storage-dtype``
+    (``stencil_tpu/bin/_common.py:196-230``): the level kernels' axes;
+    ``auto`` (default) resolves the static ``vpu`` / ``f32`` / ``native``,
+    and a structural guard (a route or engine without the form) degrades
+    with a warning."""
+    from stencil_tpu_torch.ops.jacobi_kernels import COMPUTE_UNITS, MXU_INPUTS, STORAGE_DTYPES
+
+    p.add_argument("--compute-unit", default="auto", choices=("auto",) + COMPUTE_UNITS,
+                   help="vpu: the six-neighbour fold; mxu / mxu_band: the in-plane sums as a "
+                        "band contraction on the tensor cores (wrap and wavefront routes)")
+    p.add_argument("--mxu-input", default="auto", choices=("auto",) + MXU_INPUTS,
+                   help="the contraction's operands: f32 (three exact TF32 pieces) or bf16 "
+                        "(rounded once a read); inert under vpu")
+    p.add_argument("--storage-dtype", default="auto", choices=("auto",) + STORAGE_DTYPES,
+                   help="native, or bf16: the field stored as bfloat16, the kernels "
+                        "accumulating at f32 and rounding once a pass")
+
+
+def kernel_axis_kwargs(args) -> dict:
+    """Model keyword arguments from ``add_kernel_axis_flags``' choices
+    (``auto`` is left out: the model resolves it)."""
+    out = {}
+    for key in ("compute_unit", "mxu_input", "storage_dtype"):
+        value = getattr(args, key, "auto")
+        if value != "auto":
+            out[key] = value
+    return out
+
+
+def parse_partition(text: str):
+    """``--partition px,py,pz`` as a tuple of three positive ints."""
+    try:
+        parts = [int(v) for v in text.split(",")]
+    except ValueError:
+        parts = []
+    if len(parts) != 3 or min(parts) < 1:
+        raise argparse.ArgumentTypeError(f"--partition wants px,py,pz, got {text!r}")
+    return tuple(parts)
+
+
+def add_device_flags(p: argparse.ArgumentParser, partition: bool = True) -> None:
+    """``--partition px,py,pz`` (the subdomain grid on the one card, where
+    the JAX drivers spread the domain over devices) and ``--device``."""
+    if partition:
+        p.add_argument("--partition", type=parse_partition, default=None,
+                       help="subdomain grid px,py,pz on the one device (default 1,1,1)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
+
+
+def card_line(device):
+    """``nvidia-smi``'s name and power limit when ``device`` is a card, None
+    on the CPU: the ``card`` key of the drivers' JSON documents."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    from stencil_tpu_torch.kernels import toolchain
+
+    return toolchain()["card"]
+
+
+def subdomain_count(args) -> int:
+    part = getattr(args, "partition", None) or (1, 1, 1)
+    return part[0] * part[1] * part[2]
+
+
+# --- the subdomain grid (stencil_tpu/bin/_common.py:513-536) ----------------------------
+
+
+def ranks_and_devcount():
+    """(processes, cards in use): the reference's (MPI size, devices per
+    rank).  The port runs one process on one card."""
+    return 1, 1
+
+
+def fit_to_mesh(x: int, y: int, z: int, radius, subdomains: int = 1, partition=None):
+    """Each axis rounded to the NEAREST multiple of the subdomain grid the
+    domain itself would choose for it (``parallel/mesh.make_grid``: the
+    forced ``partition``, else the min-interface split of ``subdomains``),
+    each subdomain clamped up to the radius shell so ``realize()`` cannot
+    reject it: the JAX package's ``fit_to_mesh``, subdomains in place of
+    devices."""
+    from stencil_tpu_torch.core.dim3 import Dim3
+    from stencil_tpu_torch.parallel.mesh import make_grid
+
+    force = Dim3(*partition) if partition is not None else None
+    dim = make_grid((x, y, z), radius, subdomains, force_dim=force).dim()
+    lo, hi = radius.lo(), radius.hi()
+    min_shard = max(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, 1)
+    return tuple(max(round(v / d), min_shard) * d for v, d in zip((x, y, z), dim))
+
+
+# --- transfers (stencil_tpu/bin/_common.py:539-674) -------------------------------------
+
+
+def endpoints(device="cuda"):
+    """The transfer drivers' endpoints: every visible card under ``cuda``
+    (none visible raises), the CPU under ``cpu``.  A list of one endpoint
+    pairs it with itself, as the JAX package wraps on one device; the
+    functions below take any list, so ``[dev, dev]`` is a pair of two
+    buffers on one card."""
+    import torch
+
+    from stencil_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev]
+    if dev.index is not None:
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def sync_endpoints(eps) -> None:
+    from stencil_tpu_torch.device import sync
+
+    for dev in set(eps):
+        sync(dev)
+
+
+def make_edge_transfer(eps, src: int, dst: int, n_elems: int):
+    """One transfer of ``n_elems`` f32 from endpoint ``src`` to ``dst``
+    (``dst.copy_(src)``: a peer copy between cards, a device-to-device copy
+    on one), with its two buffers: ``(go, (a, b))``, ``go()`` enqueues it.
+    The primitive under pingpong, bench-alltoallv and measure-buf-exchange."""
+    import torch
+
+    a = torch.ones(n_elems, dtype=torch.float32, device=eps[src])
+    b = torch.empty(n_elems, dtype=torch.float32, device=eps[dst])
+
+    def go():
+        b.copy_(a, non_blocking=True)
+
+    return go, (a, b)
+
+
+def matrix_pairs(comm):
+    """The pairs ``(i, j, nbytes)`` of a bytes matrix that move bytes: every
+    ``i != j`` with ``comm[i, j] > 0``, and with one endpoint the endpoint
+    with itself (``comm[0, 0] > 0``), as ``measure_edge`` pairs it."""
+    n = comm.shape[0]
+    return [(i, j, int(comm[i, j])) for i in range(n) for j in range(n) if (i != j or n == 1) and comm[i, j] > 0]
+
+
+def make_matrix_transfer(eps, comm):
+    """The CONTENDED traversal of a bytes matrix: every pair of
+    ``matrix_pairs(comm)`` copies its payload on a CUDA stream of its own, all
+    enqueued before one synchronize, so the copies run at once, as the
+    reference batch-starts them (bench_alltoallv.cu:139-168,
+    measure_buf_exchange.cu:120-159).  Streams, unlike ``ppermute``, take
+    repeated destinations, so there are no unique-destination rounds.
+    Returns ``(go, bufs)``; ``go()`` enqueues one traversal (on the CPU the
+    copies run in turn); ``(None, ())`` when no pair moves bytes."""
+    import torch
+
+    pairs = matrix_pairs(comm)
+    if not pairs:
+        return None, ()
+    bufs = []
+    for i, j, nbytes in pairs:
+        k = max(nbytes // 4, 1)
+        bufs.append((torch.ones(k, dtype=torch.float32, device=eps[i]),
+                     torch.empty(k, dtype=torch.float32, device=eps[j])))
+    on_card = eps[0].type == "cuda"
+    streams = [torch.cuda.Stream(device=eps[i]) for i, _, _ in pairs] if on_card else None
+
+    def go():
+        if not on_card:
+            for a, b in bufs:
+                b.copy_(a)
+            return
+        for (i, _, _), (a, b), s in zip(pairs, bufs, streams):
+            # each side stream starts after the work already on its card's
+            # current stream, then all copies run at once
+            s.wait_stream(torch.cuda.current_stream(eps[i]))
+            with torch.cuda.stream(s):
+                b.copy_(a, non_blocking=True)
+        for (i, _, _), s in zip(pairs, streams):
+            torch.cuda.current_stream(eps[i]).wait_stream(s)
+
+    return go, bufs
+
+
+def measure_matrix_concurrent(eps, comm, n_iters: int) -> float:
+    """Seconds for one CONTENDED traversal of the bytes matrix (all pairs at
+    once; ``make_matrix_transfer``), after one untimed traversal; None when
+    no pair moves bytes."""
+    go, _ = make_matrix_transfer(eps, comm)
+    if go is None:
+        return None
+    go()
+    sync_endpoints(eps)
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        go()
+    sync_endpoints(eps)
+    return (time.perf_counter() - t0) / n_iters
+
+
+def measure_edge(eps, src: int, dst: int, nbytes: int, n_iters: int) -> float:
+    """Seconds a single transfer of ``nbytes`` from ``src`` to ``dst``,
+    after one untimed transfer."""
+    go, _ = make_edge_transfer(eps, src, dst, max(int(nbytes) // 4, 1))
+    go()
+    sync_endpoints(eps)
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        go()
+    sync_endpoints(eps)
+    return (time.perf_counter() - t0) / n_iters
+
+
+class WallTimer:
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *a):
+        self.elapsed = time.perf_counter() - self.t0

@@ -52,11 +52,8 @@ import sys
 import time
 
 from stencil_tpu_torch.bin import _common
-from stencil_tpu_torch.bin.jacobi3d import (
-    _METHOD_FLAGS, _add_exchange_route_flag, _add_kernel_axis_flags, _parse_partition,
-)
+from stencil_tpu_torch.core.radius import Radius
 from stencil_tpu_torch.models.astaroth import AstarothSim
-from stencil_tpu_torch.utils.config import PlacementStrategy
 from stencil_tpu_torch.utils.statistics import Statistics
 
 
@@ -80,11 +77,9 @@ def main(argv=None) -> int:
     p.add_argument("--schedule", choices=["auto", "per-step", "wavefront"], default="auto",
                    help="auto: wrap on one subdomain, else the m <= 3-level wavefront; per-step: "
                         "one exchange per iteration; wavefront: force the temporal schedule")
-    p.add_argument("--partition", type=_parse_partition, default=None,
-                   help="subdomain grid px,py,pz on the one device (default 1,1,1)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
-    _add_exchange_route_flag(p)
-    _add_kernel_axis_flags(p)
+    _common.add_device_flags(p)
+    _common.add_exchange_route_flag(p)
+    _common.add_kernel_axis_flags(p)
     p.add_argument("--stream-overlap", default="auto", choices=("auto", "off", "split"),
                    help="stream-engine overlap schedule: off = exchange, then the pass; split = the "
                         "interior pass beside the exchange on a second CUDA stream, then six narrow "
@@ -116,11 +111,11 @@ def _run(args) -> int:
         kernel_impl = "torch"
     part = args.partition or (1, 1, 1)
     # the nearest size each grid axis divides, at least the radius-3 shell
-    # per subdomain, as the JAX driver's fit_to_mesh does (it keeps
-    # weak-scaled runs comparable; the domain itself takes uneven sizes)
-    x, y, z = (max(round(v / d), 3) * d for v, d in zip((args.x, args.y, args.z), part))
+    # per subdomain (it keeps weak-scaled runs comparable; the domain itself
+    # takes uneven sizes)
+    x, y, z = _common.fit_to_mesh(args.x, args.y, args.z, Radius.constant(3), partition=part)
     print(f"domain: {x},{y},{z} over {part[0]}x{part[1]}x{part[2]} subdomains", file=sys.stderr)
-    strategy = PlacementStrategy.Trivial if args.trivial else PlacementStrategy.NodeAware
+    strategy = _common.parse_strategy(args)
     if args.tune and kernel_impl == "cuda" and args.schedule != "auto":
         # the stream plan consults the tuned config on the unconstrained
         # auto path only (a forced route is an explicit request)
@@ -193,9 +188,8 @@ def _run(args) -> int:
 
     # the reference's method string (jacobi3d.cu:355-374); the flags share
     # the jacobi3d driver's destinations
-    names = [name for flag, _, name in _METHOD_FLAGS if getattr(args, flag)] or ["ppermute"]
     if iter_time.count() > 0:
-        print(f"astaroth,{'/'.join(names)},1,1,{x},{y},{z},{iter_time.min()},{iter_time.trimean()}")
+        print(f"astaroth,{_common.method_str(args)},1,1,{x},{y},{z},{iter_time.min()},{iter_time.trimean()}")
     _common.telemetry_end(args)
     return rc
 

@@ -38,15 +38,10 @@ from stencil_tpu_torch.bin import _common
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.geometry import LocalSpec
 from stencil_tpu_torch.core.radius import Radius
-from stencil_tpu_torch.device import resolve_device
+from stencil_tpu_torch.device import resolve_device, sync
 from stencil_tpu_torch.ops.pack import make_pack_fn, make_pack_fn_pallas, make_unpack_fn, make_unpack_fn_pallas
 
 FACES = (Dim3(1, 0, 0), Dim3(0, 1, 0), Dim3(0, 0, 1))
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _setup(sz: Dim3, direction: Dim3, backend: str, device: torch.device):
@@ -81,11 +76,11 @@ def bench(sz: Dim3, direction: Dim3, n_iters: int, backend: str, device: torch.d
 
     def timed(fn) -> float:
         fn()  # warm-up
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         for _ in range(n_iters):
             fn()
-            _sync(device)
+            sync(device)
         return (time.perf_counter() - t0) / n_iters
 
     pack_t = timed(lambda: pack(block))
@@ -103,7 +98,7 @@ def bench_roundtrip(sz: Dim3, direction: Dim3, n_samples: int, inner: int, backe
             unpack(block, pack(block))
 
     run()
-    _sync(device)
+    sync(device)
     samples = []
     for _ in range(n_samples):
         if device.type == "cuda":

@@ -75,62 +75,11 @@ from stencil_tpu_torch import telemetry
 from stencil_tpu_torch.bin import _common
 from stencil_tpu_torch.io.paraview import write_paraview
 from stencil_tpu_torch.models.jacobi import Jacobi3D, weak_scaled_size
-from stencil_tpu_torch.ops.exchange import EXCHANGE_ROUTES
-from stencil_tpu_torch.ops.jacobi_kernels import COMPUTE_UNITS, MXU_INPUTS, STORAGE_DTYPES
-from stencil_tpu_torch.utils.config import MethodFlags, PlacementStrategy
 from stencil_tpu_torch.utils.statistics import Statistics
-
-#: (flag, MethodFlags member, CSV name) — the reference's transport flags
-#: (jacobi3d.cu:111-120); all map onto the one on-device exchange
-_METHOD_FLAGS = (
-    ("staged", MethodFlags.CudaMpi, "staged"),
-    ("cuda_aware_mpi", MethodFlags.CudaAwareMpi, "cuda-aware"),
-    ("colo", MethodFlags.CudaMpiColocated, "colo"),
-    ("peer", MethodFlags.CudaMemcpyPeer, "peer"),
-    ("kernel", MethodFlags.CudaKernel, "kernel"),
-)
-
-
-def _add_exchange_route_flag(p: argparse.ArgumentParser) -> None:
-    """``--exchange-route`` (``stencil_tpu/bin/_common.py:172-193``): pin the
-    halo exchange's y/z-sweep route; ``auto`` (default) resolves ``direct``."""
-    p.add_argument("--exchange-route", default="auto", choices=("auto",) + EXCHANGE_ROUTES,
-                   help="y/z-sweep exchange route: direct slabs, or the z shell (zpack_*) or y and "
-                        "z shells (yzpack_*) as packed buffers; *_pallas packs with the CUDA kernels")
-
-
-def _add_kernel_axis_flags(p: argparse.ArgumentParser) -> None:
-    """``--compute-unit`` / ``--mxu-input`` / ``--storage-dtype``
-    (``stencil_tpu/bin/_common.py:196-230``): the Jacobi kernels' axes;
-    ``auto`` (default) resolves the static ``vpu`` / ``f32`` / ``native``,
-    and a structural guard (a route or engine without the form) degrades
-    with a warning."""
-    p.add_argument("--compute-unit", default="auto", choices=("auto",) + COMPUTE_UNITS,
-                   help="vpu: the six-neighbour fold; mxu / mxu_band: the in-plane sums as a "
-                        "band contraction on the tensor cores (wrap and wavefront routes)")
-    p.add_argument("--mxu-input", default="auto", choices=("auto",) + MXU_INPUTS,
-                   help="the contraction's operands: f32 (three exact TF32 pieces) or bf16 "
-                        "(rounded once a read); inert under vpu")
-    p.add_argument("--storage-dtype", default="auto", choices=("auto",) + STORAGE_DTYPES,
-                   help="native, or bf16: the field stored as bfloat16, the kernels "
-                        "accumulating at f32 and rounding once a pass")
-
-
-def _parse_partition(text: str):
-    parts = [int(v) for v in text.split(",")]
-    if len(parts) != 3 or min(parts) < 1:
-        raise argparse.ArgumentTypeError(f"--partition wants px,py,pz, got {text!r}")
-    return tuple(parts)
-
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("jacobi3d")
-    p.add_argument("--staged", action="store_true", help="Enable RemoteSender/Recver")
-    p.add_argument("--cuda-aware-mpi", action="store_true", help="Enable CudaAwareMpiSender/Recver")
-    p.add_argument("--colo", action="store_true", help="Enable ColocatedHaloSender/Recver")
-    p.add_argument("--peer", action="store_true", help="Enable PeerAccessSender")
-    p.add_argument("--kernel", action="store_true", help="Enable PeerCopySender")
-    p.add_argument("--trivial", action="store_true", help="Skip node-aware placement")
+    _common.add_method_flags(p)
     p.add_argument("--no-overlap", action="store_true", help="Don't overlap communication and computation")
     p.add_argument("--prefix", default="", help="prefix for paraview files")
     p.add_argument("--paraview", action="store_true", help="dump paraview files")
@@ -148,13 +97,11 @@ def main(argv=None) -> int:
                         "wavefront route sets its own)")
     p.add_argument("--temporal-k", default="auto",
                    help="levels per kernel pass on the wrap/wavefront routes (int or auto)")
-    p.add_argument("--partition", type=_parse_partition, default=None,
-                   help="subdomain grid px,py,pz on the one device (default 1,1,1)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu (plain versions)")
+    _common.add_device_flags(p)
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed loop to DIR (the nsys analog)")
-    _add_exchange_route_flag(p)
-    _add_kernel_axis_flags(p)
+    _common.add_exchange_route_flag(p)
+    _common.add_kernel_axis_flags(p)
     _common.add_numerics_flag(p)
     _common.add_telemetry_flags(p)
     _common.add_profile_flags(p)
@@ -228,13 +175,8 @@ def _run(args) -> int:
     else:
         x, y, z = (weak_scaled_size(v, n_sub) for v in (args.x, args.y, args.z))
 
-    methods = MethodFlags.Non
-    for flag, member, _ in _METHOD_FLAGS:
-        if getattr(args, flag):
-            methods |= member
-    if methods == MethodFlags.Non:
-        methods = MethodFlags.All
-    strategy = PlacementStrategy.Trivial if args.trivial else PlacementStrategy.NodeAware
+    methods = _common.parse_methods(args)
+    strategy = _common.parse_strategy(args)
     if args.tune:
         _tune(args, x, y, z, n_sub, strategy)
     model = Jacobi3D(
@@ -311,10 +253,9 @@ def _run(args) -> int:
     if args.paraview:
         write_paraview(model.dd, f"{args.prefix}jacobi3d_final")
 
-    names = [name for flag, _, name in _METHOD_FLAGS if getattr(args, flag)] or ["ppermute"]
     if iter_time.count() > 0:
         print(
-            f"jacobi3d,{'/'.join(names)},1,1,"
+            f"jacobi3d,{_common.method_str(args)},1,1,"
             f"{x},{y},{z},{iter_time.min()},{iter_time.trimean()}"
         )
     _common.telemetry_end(args, profile_capture=prof, device=model.dd.device)

@@ -20,3 +20,9 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def sync(device) -> None:
+    """Wait for every launch on the card; nothing to wait for on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

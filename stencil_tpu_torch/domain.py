@@ -611,15 +611,18 @@ class DistributedDomain:
         telemetry.emit_event(tm.EVENT_COMPILE, phase="exchange", label=label,
                              seconds=round(self.stats.time_create, 6))
 
-    def _make_exchange_route_fn(self, route: str):
-        """The exchange over this domain's quantities on ``route``, its
-        kernels built first: on the card the shell and blend kernels'
-        library (``csrc/pack.cu``, which every route's halo writes launch).
-        The build rides the transient retry with the ``compile`` fault hook
-        inside it (``compile:exchange:<route>``), as the JAX package's
-        ``make_exchange_route_fn`` compiles (``stencil_tpu/domain.py:
-        865-898``)."""
-        r, valid_last = self._shell_radius, self._valid_last
+    def make_exchange_route_fn(self, route: str, axes: Tuple[int, ...] = (0, 1, 2)):
+        """The exchange over this domain's quantities on ``route``, the
+        sweeps of ``axes`` only (``stencil_tpu/domain.py:865-899``):
+        ``fn(stacks)`` fills the shells of the stacks in place and returns
+        them.  Its kernels are built first: on the card the shell and blend
+        kernels' library (``csrc/pack.cu``, which every route's halo writes
+        launch).  The build rides the transient retry with the ``compile``
+        fault hook inside it (``compile:exchange:<route>``).  The port never
+        donates: an in-place exchange of a filled domain is idempotent, so
+        the autotuner's trials and the drivers' A/Bs call it on the
+        domain's own stacks."""
+        r, valid_last, axes = self._shell_radius, self._valid_last, tuple(axes)
         if self._handles:
             label = f"compile:exchange:{route}"
 
@@ -631,7 +634,7 @@ class DistributedDomain:
                     build.load("pack")
 
             execute_with_retry(compile_unit, label=label)
-        return lambda stacks: halo_exchange_multi(stacks, r, valid_last, route=route)
+        return lambda stacks: halo_exchange_multi(stacks, r, valid_last, axes=axes, route=route)
 
     def _build_exchange_with_ladder(self):
         """The exchange for the resolved route (``stencil_tpu/domain.py:
@@ -641,11 +644,11 @@ class DistributedDomain:
         ``source="ladder"`` and records ``direct`` as the route taken."""
         route = self._exchange_route
         if route == "direct":
-            return self._make_exchange_route_fn("direct")
+            return self.make_exchange_route_fn("direct")
         from stencil_tpu_torch.resilience.ladder import DegradationLadder, Rung
 
         def rung_for(rt: str) -> Rung:
-            return Rung(rt, build=lambda: self._make_exchange_route_fn(rt))
+            return Rung(rt, build=lambda: self.make_exchange_route_fn(rt))
 
         def lower(rung, cls, exc):
             return rung_for("direct") if rung.name != "direct" else None

@@ -22,15 +22,10 @@ from typing import Optional
 import torch
 
 from stencil_tpu_torch import tune
+from stencil_tpu_torch.device import sync
 from stencil_tpu_torch.tune import space
 from stencil_tpu_torch.tune.key import WorkloadKey, chip_kind
 from stencil_tpu_torch.tune.trial import TuneReport
-
-
-def _sync(device: torch.device) -> None:
-    """A dispatch's completion: every launch on the card done."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class LadderDescended(RuntimeError):
@@ -85,7 +80,7 @@ def autotune_jacobi_wrap(x: int, y: int, z: int, dtype=None, device="cuda", reps
                 jacobi_wrap_step(a, depth, out=b, **kw)
                 a, b = b, a
             bufs[0], bufs[1] = a, b
-            _sync(dev)
+            sync(dev)
 
         return run
 
@@ -189,14 +184,14 @@ def autotune_exchange(dd, reps: int = 3, rt: Optional[float] = None) -> TuneRepo
 
     def build_run(cand):
         route = cand["exchange_route"]
-        fn = dd._make_exchange_route_fn(route)
+        fn = dd.make_exchange_route_fn(route)
         fns[route] = fn
 
         def run(n):
             stacks = [dd._curr[h.name] for h in dd._handles]
             for _ in range(n):
                 fn(stacks)
-            _sync(dd.device)
+            sync(dd.device)
 
         return run
 
@@ -246,7 +241,7 @@ def autotune_stream(dd, kernel, x_radius: int = 1, separable: bool = False, reps
 
         def run(n):
             step(curr, n)
-            _sync(dd.device)
+            sync(dd.device)
 
         return run
 

@@ -114,7 +114,8 @@ class MethodFlags(enum.Flag):
     # Ppermute names the default transport: in this package, a neighbour
     # gather over the subdomain-grid axis on the one device
     Ppermute = enum.auto()
-    # debug oracles of the JAX package; not ported yet (realize() raises)
+    # the debug oracles (domain.py _ORACLES): an all-gather of the global
+    # array, and rolls compared against the default transport
     AllGather = enum.auto()
     RollCompare = enum.auto()
     # Reference-compat aliases (stencil.hpp:29-41): all map onto the default

@@ -2840,3 +2840,67 @@ def test_tune_search_on_card_cold_then_warm(dev, tmp_path, monkeypatch):
     tuned.step(40)
     explicit.step(40)
     assert np.array_equal(tuned.temperature(), explicit.temperature())
+
+
+# --- the drivers' route functions and transfers ----------------------------------------
+
+
+def _route_pair(route, dev, size=(64, 48, 40), radius=2, nq=2):
+    """The same seeded 2x2x2 domain on the card and on the CPU."""
+    from stencil_tpu_torch.core.radius import Radius
+    from stencil_tpu_torch.domain import DistributedDomain
+
+    out = []
+    for d in (dev, "cpu"):
+        dd = DistributedDomain(*size, device=d)
+        dd.set_radius(Radius.constant(radius))
+        dd.set_partition(2, 2, 2)
+        dd.set_exchange_route(route)
+        hs = [dd.add_data(f"q{i}") for i in range(nq)]
+        dd.realize()
+        rng = np.random.default_rng(28)
+        for h in hs:
+            dd.set_quantity(h, rng.standard_normal(size).astype(np.float32))
+        out.append((dd, hs))
+    return out
+
+
+@pytest.mark.parametrize("axes", [(0,), (1,), (2,), (0, 1, 2)])
+@pytest.mark.parametrize("route", ["direct", "zpack_xla", "zpack_pallas", "yzpack_xla", "yzpack_pallas"])
+def test_route_fn_per_axis_on_card_equals_cpu(dev, route, axes):
+    """``make_exchange_route_fn(route, axes)`` on the card (the blend and
+    shell kernels) bitwise equal to the CPU's (their plain versions)."""
+    (cd, ch), (pd, ph) = _route_pair(route, dev)
+    before = pk.pack_zshell_pallas.launches + pk.pack_yshell_pallas.launches + hb.blend_slab.launches
+    cd.make_exchange_route_fn(route, axes=axes)([cd.get_curr(h) for h in ch])
+    pd.make_exchange_route_fn(route, axes=axes)([pd.get_curr(h) for h in ph])
+    torch.cuda.synchronize()
+    assert pk.pack_zshell_pallas.launches + pk.pack_yshell_pallas.launches + hb.blend_slab.launches > before
+    for a, b in zip(ch, ph):
+        np.testing.assert_array_equal(cd.raw_to_host(a), pd.raw_to_host(b))
+
+
+def test_transfers_between_two_buffers_on_the_card(dev):
+    """``[dev, dev]``: two buffers on one card; an edge and a matrix
+    traversal (each pair on a stream of its own) move every byte."""
+    from stencil_tpu_torch.bin import _common
+
+    eps = [dev, dev]
+    go, (a, b) = _common.make_edge_transfer(eps, 0, 1, 1 << 20)
+    a.copy_(torch.arange(1 << 20, dtype=torch.float32, device=dev))
+    go()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    comm = np.array([[0, 4 << 20], [3 << 20, 0]], dtype=np.int64)
+    go, bufs = _common.make_matrix_transfer(eps, comm)
+    for k, (src, _) in enumerate(bufs):
+        src.copy_(torch.rand(src.numel(), device=dev) + k)
+    go()
+    torch.cuda.synchronize()
+    assert [s.numel() for s, _ in bufs] == [1 << 20, 3 << 18]
+    assert all(torch.equal(s, d) for s, d in bufs)
+    assert _common.measure_edge(eps, 0, 1, 1 << 24, 3) > 0
+    assert _common.measure_matrix_concurrent(eps, comm, 3) > 0
+    # one endpoint: the card with itself, as measure_edge pairs it
+    assert _common.measure_matrix_concurrent([dev], np.full((1, 1), 1 << 24), 3) > 0
+    assert _common.endpoints("cuda") == [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
