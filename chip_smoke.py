@@ -140,7 +140,10 @@ non-zero before the result line:
     engine's ``plane`` route running a mean6 user kernel written in the
     kernels' order; each kernel held bitwise against its plain version and
     timed beside its bound (the wavefront kernel's device ms a call as well,
-    and its launch plan at (518^3, m = 3), ``mean6_wavefront_launch``);
+    and its launch plan at (518^3, m = 3), ``mean6_wavefront_launch``), and
+    mean6_plane_step beside its library call, ``F.conv3d`` of the block
+    with the fixed six-tap 1/6 weight (cuDNN's TF32 off), held within
+    ``bench_kernels.MEAN6_LIBRARY_ULPS`` of the plain version;
 16. the fused halo and the split schedule: ``AstarothSim(512, 512, 512,
     num_quantities=8, kernel_impl="cuda")`` on 2x2x2, 24 iterations each
     with the counters reset before and read after: ``per-step`` on
@@ -459,6 +462,31 @@ non-zero before the result line:
     at 64^3 the rates are launch-bound).  The phase's seconds are
     printed; the kernels' line carries (a)-(c)'s launches as
     ``reshard_launches``.
+30. the serving layer (``serve/``, ``bin/stencil_serve.py``): in process,
+    ``stencil_serve.main`` once a leg, each leg three ``Jacobi3D`` 512^3 f32
+    tenants on the cuda engine over a fleet of 8 subdomain slots, 8 steps a
+    request (one z-ring wavefront macro at m = 8), 12 load cycles peaking at
+    3 requests, launch counters and the ``serve.*`` counters reset before
+    each leg and read after, the leg's tenants freed before the next: the
+    reference (fixed grid); ``execute:poison_request:serve:tenant-b@1``
+    (tenant-b evicted, a and c bitwise equal to the reference);
+    ``execute:vmem_oom:serve:tenant-c@1`` (answered inside c's envelope, a
+    and b bitwise equal); ``dispatch:overload:serve:*@2*3`` (shed > 0, no
+    eviction); elastic 4 <-> 8 subdomains (one grow and one shrink, bitwise
+    equal to its fixed-grid twin on 4); ``--batch 3`` (batched dispatches,
+    no fallback, bitwise equal to the reference); ``--subslice`` (a cycle of
+    three disjoint slices of 2 subdomains, bitwise equal to the reference);
+    the reference again, warm (the first leg pays the process's first
+    allocations), bitwise equal to it.  Every leg must launch the wavefront kernel (row 2 or 3) and blend_slab
+    (row 9).  Then the reference leg's tenant-a held bitwise against
+    ``jacobi_wrap_step_plain`` from the same initial field over the same
+    levels; the reference leg's requests through a bare ``model.step(8)``
+    loop (the kernels' own rate beside the warm served one, tenant-a
+    bitwise equal); and one ``python -m stencil_tpu_torch.bin.stencil_serve --size
+    512 --subdomains 8 --batch 3`` process.  Each leg's requests/s, p99,
+    served Mcells/s, shed rate, reshard seconds and launches by kernel
+    form are printed beside the card line; the kernels' line carries the
+    legs' launches as ``serve_launches``.
 
 ``torch.cuda.reset_peak_memory_stats()`` runs as each phase starts, and each
 phase's peak device memory goes to ``phase_peak_gb``.
@@ -4154,6 +4182,263 @@ def phase29(card: str, dev: torch.device) -> dict:
     return rec
 
 
+P30_SUB = 8  # the serving fleet: subdomain slots on the card (elastic legs start on 4)
+P30_STEPS = 8  # raw steps a request (one macro of the z-ring wavefront at m = 8)
+P30_CYCLES = 12  # load-generator cycles a leg
+P30_PEAK = 3  # requests a cycle at the ramp's peak
+P30_CLI_CYCLES = 6  # the CLI process's cycles
+
+
+def phase30(card: str, dev: torch.device) -> dict:
+    """Phase 30 (see the module's docstring): the serving layer on the card,
+    three ``Jacobi3D`` 512^3 f32 tenants on the cuda engine through
+    ``bin/stencil_serve.main``, one call a leg."""
+    import gc
+    import tempfile
+
+    from stencil_tpu_torch import telemetry
+    from stencil_tpu_torch.bin import stencil_serve
+    from stencil_tpu_torch.domain import DistributedDomain
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.models.jacobi import Jacobi3D
+    from stencil_tpu_torch.ops import jacobi_kernels as jk
+    from stencil_tpu_torch.resilience import inject
+    from stencil_tpu_torch.serve import pack
+
+    t_phase = time.perf_counter()
+    rec = {"card": card, "seconds": {}, "launches": {}, "legs": {},
+           "allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    out_dir = os.path.join(OUT_DIR, "phase30")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stencil_serve_")
+    base = ["--size", str(N), "--subdomains", str(P30_SUB), "--steps", str(P30_STEPS), "--cycles", str(P30_CYCLES),
+            "--peak", str(P30_PEAK)]
+    elastic = ["--elastic", "--elastic-high", "4", "--elastic-low", "0", "--elastic-consecutive", "3"]
+    legs = [
+        ("reference", [], None),
+        ("poison", [], "execute:poison_request:serve:tenant-b@1"),
+        ("vmem", [], "execute:vmem_oom:serve:tenant-c@1"),
+        ("overload", [], "dispatch:overload:serve:*@2*3"),
+        ("elastic", elastic, None),
+        ("elastic_fixed", elastic + ["--fixed-mesh"], None),
+        ("batched", ["--batch", "3"], None),
+        ("subslice", ["--subslice"], None),
+        # the reference again, warm: the first leg pays the process's first
+        # allocations and launches (the bare loop below is set beside this one)
+        ("reference_warm", [], None),
+    ]
+    # every grid move's seconds, the elastic legs' and the sub-slice placements'
+    moves = []
+    real_reshard = DistributedDomain.reshard
+
+    def reshard(self, *a, **kw):
+        stats = real_reshard(self, *a, **kw)
+        moves.append(stats["seconds"])
+        return stats
+
+    # the sub-slice cycles' slices: (tenant, slot ids) of each placement
+    packs = []
+    real_place = pack.place_subslices
+
+    def place(assignments):
+        packs.append([(r.tenant, [sl.id for sl in slots]) for r, _m, slots in assignments])
+        return real_place(assignments)
+
+    docs = {}
+    DistributedDomain.reshard = reshard
+    pack.place_subslices = place
+    try:
+        for name, extra, plan in legs:
+            t0 = time.perf_counter()
+            del moves[:]
+            leg_dir = os.path.join(tmp, name)
+            inject.set_plan(plan)
+            telemetry.reset()  # each leg's summary counts its own serve.* counters
+            ledger.reset_launch_counts()
+            try:
+                rc = stencil_serve.main(base + extra + ["--out", leg_dir])
+            finally:
+                inject.set_plan(None)
+            sync()
+            counts = {k: v for k, v in ledger.launch_counts().items() if v}
+            if rc != 0:
+                raise AssertionError(f"phase 30 leg {name}: stencil_serve returned {rc}")
+            doc = json.load(open(os.path.join(leg_dir, "serve_summary.json")))
+            if doc["launches"] != counts:
+                raise AssertionError(f"phase 30 leg {name}: the summary's launches {doc['launches']} != the "
+                                     f"counters' {counts}")
+            doc["reshard_seconds"] = list(moves)
+            doc["leg_seconds"] = time.perf_counter() - t0
+            doc["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            docs[name] = doc
+            rec["launches"][name] = counts
+            tp = doc["throughput"]
+            rec["legs"][name] = {
+                "plan": plan, "requests": doc["requests"], "completed": doc["completed"],
+                "requests_per_s": tp["requests_per_s"], "p99_ms": doc["p99_ms"], "mcells_per_s": tp["mcells_per_s"],
+                "wall_s": tp["wall_s"], "shed_rate": doc["shed_rate"], "reshard_seconds": list(moves),
+                "launches": counts, "decisions": doc["elasticity"]["decisions"], "digests": doc["digests"],
+                "tenants": doc["tenants"], "counters": {k: v for k, v in doc["counters"].items() if v},
+                "subdomains": doc["subdomains"], "placement": doc["placement"], "leg_seconds": doc["leg_seconds"],
+                "peak_gb_so_far": doc["peak_gb"]}
+            log(f"phase 30 leg {name} (plan {plan!r}, {' '.join(extra) or 'serial'}): {doc['completed']} of "
+                f"{doc['requests']} requests, {tp['requests_per_s']:.2f} requests/s, p99 {doc['p99_ms']:.3f} ms, "
+                f"{tp['mcells_per_s']:.1f} served Mcells/s (completed x {P30_STEPS} x {N}^3 / {tp['wall_s']:.3f} s), "
+                f"shed rate {doc['shed_rate']:.4f}, reshards {[round(v, 4) for v in moves]} s, launches {counts}, "
+                f"decisions {doc['elasticity']['decisions']}, states "
+                f"{ {t['tenant']: (t['state'], t['rung'], t['completed']) for t in doc['tenants']} }; on {card}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        DistributedDomain.reshard = real_reshard
+        pack.place_subslices = real_place
+        inject.set_plan(None)
+    ref = docs["reference"]
+    rec["subslice_packs"] = packs
+
+    def states(doc):
+        return {t["tenant"]: t["state"] for t in doc["tenants"]}
+
+    def same(doc, tenants):
+        return all(doc["digests"][t] == ref["digests"][t] for t in tenants)
+
+    vmem_c = {t["tenant"]: t for t in docs["vmem"]["tenants"]}["tenant-c"]
+    checks = {
+        "poison": states(docs["poison"])["tenant-b"] != "active" and same(docs["poison"], ("tenant-a", "tenant-c"))
+        and docs["poison"]["counters"]["serve.evicted"] == 1,
+        # answered inside c's envelope: c one depth down (rung 1), still
+        # active, its one faulted request answered as failed, every other
+        # one completed, nothing shed or evicted; its field is held against
+        # the plain path below
+        "vmem": vmem_c["state"] == "active" and vmem_c["rung"] == 1 and vmem_c["shed"] == 0
+        and vmem_c["completed"] == vmem_c["admitted"] - 1 and docs["vmem"]["counters"]["serve.evicted"] == 0
+        and docs["vmem"]["rejected"] == 0 and same(docs["vmem"], ("tenant-a", "tenant-b")),
+        "overload": docs["overload"]["shed"] > 0 and all(v == "active" for v in states(docs["overload"]).values())
+        and docs["overload"]["counters"]["serve.evicted"] == 0,
+        "elastic": docs["elastic"]["elasticity"]["decisions"] == ["grow", "shrink"]
+        and sorted({t["kind"] for t in docs["elastic"]["elasticity"]["transitions"]}) == ["grow", "shrink"]
+        and docs["elastic"]["digests"] == docs["elastic_fixed"]["digests"]
+        and docs["elastic_fixed"]["subdomains"]["end"] == P30_SUB // 2,
+        "batched": docs["batched"]["counters"]["serve.batch.dispatches"] > 0
+        and docs["batched"]["counters"]["serve.batch.fallbacks"] == 0
+        and docs["batched"]["digests"] == ref["digests"],
+        # a cycle of three disjoint slices of 2 subdomains of the 8-slot
+        # fleet, every cycle's slices disjoint
+        "subslice": docs["subslice"]["counters"]["serve.subslice.dispatches"] == len(packs) > 0
+        and any(sorted(len(ids) for _t, ids in p) == [2, 2, 2] for p in packs)
+        and all(len({i for _t, ids in p for i in ids}) == sum(len(ids) for _t, ids in p) for p in packs)
+        and docs["subslice"]["digests"] == ref["digests"],
+        "reference": ref["completed"] == ref["requests"] and ref["isolation_ok"] is True
+        and docs["reference_warm"]["digests"] == ref["digests"],
+    }
+    # the served route: the z-ring wavefront kernel (row 2) or its z-slab
+    # form (row 3), and blend_slab (row 9) in the exchange
+    for name, counts in rec["launches"].items():
+        wave = counts.get("jacobi_zring_wavefront_step", 0) + counts.get("jacobi_shell_wavefront_step", 0)
+        if not (wave and counts.get("blend_slab")):
+            raise AssertionError(f"phase 30 leg {name}: rows 2/3 and 9 must launch, got {counts}")
+    if docs["subslice"]["subdomains"]["fleet"] != P30_SUB:
+        raise AssertionError(f"phase 30 subslice: {docs['subslice']['subdomains']}")
+    rec["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"phase 30 checks failed: {[k for k, v in checks.items() if not v]}; {rec['legs']}")
+
+    # the reference leg's tenant-a, and the vmem leg's tenant-c (its last
+    # requests one depth down), against the plain path from the same
+    # initial field (every tenant starts from it) for the same number of
+    # levels, bitwise (as phase 29)
+    t0 = time.perf_counter()
+    levels = P30_STEPS * [t["completed"] for t in ref["tenants"] if t["tenant"] == "tenant-a"][0]
+    want = {levels: ("reference", "tenant-a"), P30_STEPS * vmem_c["completed"]: ("vmem", "tenant-c")}
+    if len(want) != 2:
+        raise AssertionError(f"phase 30: tenant-a and the vmem leg's tenant-c ran the same {levels} levels")
+    init = Jacobi3D(N, N, N, kernel_impl="cuda", subdomains=P30_SUB, device=dev)
+    init.realize()
+    t = torch.from_numpy(init.temperature()).to(dev)
+    del init
+    plain = {}
+    for level in range(1, max(want) + 1):
+        t = jk.jacobi_wrap_step_plain(t, 1)
+        if level in want:
+            leg, tid = want[level]
+            plain[f"{leg}:{tid}"] = stencil_serve._digest(t.cpu().numpy())
+            if plain[f"{leg}:{tid}"] != docs[leg]["digests"][tid]:
+                raise AssertionError(f"phase 30: the {leg} leg's {tid} ({level} levels) != jacobi_wrap_step_plain")
+    del t
+    rec["plain"] = {"levels": {f"{leg}:{tid}": lv for lv, (leg, tid) in want.items()}, "digests": plain,
+                    "seconds": time.perf_counter() - t0}
+    log(f"phase 30 reference tenant-a after {levels} levels and the vmem leg's tenant-c after "
+        f"{P30_STEPS * vmem_c['completed']} (rung 1 from its fault on) bitwise equal to jacobi_wrap_step_plain "
+        f"from the same initial field ({plain}); on {card}")
+
+    # the same requests through a bare model.step(8) loop: the kernels' own
+    # rate beside the serving layer's
+    t0 = time.perf_counter()
+    per = {t["tenant"]: t["completed"] for t in ref["tenants"]}
+    models = {}
+    for tid in sorted(per):
+        models[tid] = Jacobi3D(N, N, N, kernel_impl="cuda", subdomains=P30_SUB, device=dev)
+        models[tid].realize()
+    order = [tid for r in range(max(per.values())) for tid in sorted(per) if r < per[tid]]
+    ledger.reset_launch_counts()
+    sync()
+    t1 = time.perf_counter()
+    for tid in order:
+        models[tid].step(P30_STEPS)
+    sync()
+    wall = time.perf_counter() - t1
+    bare_counts = {k: v for k, v in ledger.launch_counts().items() if v}
+    bare = {"requests": len(order), "wall_s": wall, "requests_per_s": len(order) / wall,
+            "mcells_per_s": len(order) * P30_STEPS * N ** 3 / wall / 1e6, "launches": bare_counts}
+    bare_a = stencil_serve._digest(models["tenant-a"].temperature())
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bare_a != ref["digests"]["tenant-a"]:
+        raise AssertionError("phase 30: the bare step loop's tenant-a != the served tenant-a")
+    rec["bare_loop"] = bare
+    served = rec["legs"]["reference_warm"]
+    log(f"phase 30 bare model.step({P30_STEPS}) loop over the reference leg's {len(order)} requests: "
+        f"{bare['requests_per_s']:.2f} requests/s, {bare['mcells_per_s']:.1f} Mcells/s in {wall:.3f} s (launches "
+        f"{bare_counts}) beside the served {served['requests_per_s']:.2f} requests/s, {served['mcells_per_s']:.1f} "
+        f"Mcells/s (the warm reference leg: admission, the queue, the envelopes and the load ramp's cycles "
+        f"around the same steps); tenant-a bitwise equal to the served one; a smoke-size window (rates and tails: "
+        f"bin/bench_serve.py); on {card}")
+    rec["seconds"]["bare"] = time.perf_counter() - t0
+
+    # the command line, one process
+    t0 = time.perf_counter()
+    cli_dir = os.path.join(tmp, "cli")
+    cmd = [sys.executable, "-m", "stencil_tpu_torch.bin.stencil_serve", "--size", str(N), "--subdomains",
+           str(P30_SUB), "--steps", str(P30_STEPS), "--cycles", str(P30_CLI_CYCLES), "--peak", str(P30_PEAK),
+           "--batch", "3", "--out", cli_dir]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 30 CLI {cmd}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    cli = json.load(open(os.path.join(cli_dir, "serve_summary.json")))
+    if not (cli["completed"] > 0 and cli["isolation_ok"] is True and cli["device"].startswith("cuda")
+            and cli["kernel_impl"] == "cuda" and cli["launches"].get("jacobi_zring_wavefront_step", 0)
+            + cli["launches"].get("jacobi_shell_wavefront_step", 0) > 0):
+        raise AssertionError(f"phase 30 CLI summary: {cli}")
+    rec["cli"] = {"cmd": cmd[1:], "seconds": time.perf_counter() - t0, "completed": cli["completed"],
+                  "requests_per_s": cli["throughput"]["requests_per_s"], "launches": cli["launches"]}
+    log(f"phase 30 CLI `{' '.join(cmd[1:])}`: rc 0 in {rec['cli']['seconds']:.1f} s, {cli['completed']} requests "
+        f"completed, {cli['throughput']['requests_per_s']:.2f} requests/s, launches {cli['launches']}; on {card}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    from stencil_tpu_torch.utils.artifact import atomic_write_json
+
+    atomic_write_json(os.path.join(out_dir, "legs.json"), rec["legs"])
+    rec["seconds"]["legs"] = {k: v["leg_seconds"] for k, v in rec["legs"].items()}
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 30 checks {checks}; seconds: legs {rec['seconds']['legs']}, bare {rec['seconds']['bare']:.2f}, "
+        f"plain {rec['plain']['seconds']:.2f}, CLI {rec['cli']['seconds']:.2f}, phase {rec['seconds']['phase']:.2f}; "
+        f"{rec['allocated_at_start_gb']:.2f} GB allocated as it began, the peak after each leg "
+        f"{ {k: round(v['peak_gb_so_far'], 2) for k, v in rec['legs'].items()} } GB; on {card}")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_s = {}
@@ -5571,6 +5856,10 @@ def main() -> int:
     hold("mean6_shell_wavefront_step", m6.mean6_shell_wavefront_step(m6_blk, 3, 3)[S3, S3, S3],
          m6.mean6_shell_wavefront_step_plain(m6_blk, 3, 3)[S3, S3, S3], f"{ws}^3 m=3 s=3")
     m6p_ms = cuda_ms(lambda: m6.mean6_plane_step(m6_blk, m6_shell, m6_shell, out=m6_out))
+    # row 18's library column: F.conv3d of the block with the six-tap weight
+    # (TF32 off), held within bk.MEAN6_LIBRARY_ULPS of the plain version
+    m6_lib = bk.mean6_library(m6_blk, m6_out)
+    m6p_lib_ms = m6_lib["conv3d_ms"]
     m6p_plain_ms = cuda_ms(lambda: m6.mean6_plane_step_plain(m6_blk, m6_shell, m6_shell, out=m6_out), inner=2)
     m6w_ms = cuda_ms(lambda: m6.mean6_shell_wavefront_step(m6_blk, 3, 3, out=m6_out), inner=2)
     m6w_plain_ms = cuda_ms(lambda: m6.mean6_shell_wavefront_step_plain(m6_blk, 3, 3, out=m6_out), reps=3, inner=1)
@@ -5580,7 +5869,9 @@ def main() -> int:
     m6w_bytes = (ws ** 3 + N ** 3) * 4  # every cell read once, the interior written once
     log(f"mean6 kernels at {ws}^3 f32 (ms, CUDA events): mean6_plane_step {m6p_ms:.4f} (plain {m6p_plain_ms:.4f}), "
         f"mean6_shell_wavefront_step m=3 {m6w_ms:.4f} (plain {m6w_plain_ms:.4f}; device {m6w_dev_ms:.4f} a call, "
-        f"bound {bound(m6w_bytes, 0)[0]:.4f}); wavefront launch {plan_str(m6w_launch)} on {card}")
+        f"bound {bound(m6w_bytes, 0)[0]:.4f}); wavefront launch {plan_str(m6w_launch)}; F.conv3d of the block with "
+        f"the six-tap weight (TF32 off) {m6p_lib_ms:.4f} ms a call, {m6_lib['max_ulps']} ulps from the plain "
+        f"version (bound {m6_lib['ulp_bound']}), the kernel {m6_lib['kernel_ms']:.4f} beside it; on {card}")
     del m6_blk, m6_out
     torch.cuda.empty_cache()
 
@@ -5981,6 +6272,11 @@ def main() -> int:
     rs29 = phase29(card, dev)
     phase_end()
 
+    # --- 30. the serving layer: admission, isolation, elasticity, batching, sub-slices ---
+    phase_start(30)
+    sv30 = phase30(card, dev)
+    phase_end()
+
     rows = []
     # launches of a Jacobi run of STEPS steps with one launch a macro of m levels
     macros = {m: sum(-(-k // m) for k in (CHECK_AT, STEPS - CHECK_AT)) for m in (mw, mu)}
@@ -6027,7 +6323,7 @@ def main() -> int:
         for kind in ("pack", "unpack")
     ] + [
         ("mean6_plane_step", {k: v["launches"] for k, v in mean6_runs.items()}, STEPS, STEPS, m6p_ms, m6p_plain_ms,
-         None, m6p_bytes, 6 * N ** 3, f"({ws},{ws},{ws}) f32, lo = hi = 3"),
+         m6p_lib_ms, m6p_bytes, 6 * N ** 3, f"({ws},{ws},{ws}) f32, lo = hi = 3"),
         ("mean6_shell_wavefront_step", {k: v["launches"] for k, v in mean6_runs.items()}, STEPS,
          sum(-(-k // 3) for k in (CHECK_AT, STEPS - CHECK_AT)), m6w_ms, m6w_plain_ms, None, m6w_bytes,
          6 * N ** 3 * 3, f"({ws},{ws},{ws}) f32, m = 3, s = 3"),
@@ -6141,6 +6437,7 @@ def main() -> int:
         rows[-1]["tune_launches"] = sum(c.get(name, 0) for c in tn26["launches"].values())
         rows[-1]["driver_launches"] = sum(c.get(name, 0) for c in dr28["launches"].values())
         rows[-1]["reshard_launches"] = sum(c.get(name, 0) for c in rs29["launches"].values())
+        rows[-1]["serve_launches"] = sum(c.get(name, 0) for c in sv30["launches"].values())
         if name in ax19["forms"]:
             f = ax19["forms"][name]
             rows[-1].update(device_ms=f["device_ms"], max_ulps=ax19["max_ulps"][name], bound_of=f["bound_of"],
@@ -6178,7 +6475,7 @@ def main() -> int:
                     "wavefront_zring": wave_profile, "wavefront_zslab": slab_profile},
         "build": {k: v["seconds"] for k, v in build.BUILD_LOG.items()},
         "bench_pack": bench_pack_runs, "slab_faces_ms": slab_face, "mean6_runs": mean6_runs,
-        "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "wavefront_m3": m6w_ms,
+        "mean6_ms": {"plane": m6p_ms, "plane_plain": m6p_plain_ms, "plane_library": m6_lib, "wavefront_m3": m6w_ms,
                      "wavefront_m3_device": m6w_dev_ms, "wavefront_m3_plain": m6w_plain_ms,
                      "wavefront_m3_launch": m6w_launch},
         "fused_split": f16, "captured": cap17, "components_and_oracles": nd18,
@@ -6193,6 +6490,7 @@ def main() -> int:
         "device_time": pr27,
         "drivers": dr28,
         "reshard": rs29,
+        "serve": sv30,
         "fused_ms": {"plane": {"kernel": fpl_ms, "plain": fpl_plain_ms, "device": fpl_dev_ms,
                                "array_device": fpl_array_dev_ms},
                      "wavefront": {"kernel": fwf_ms, "plain": fwf_plain_ms, "device": fwf_dev_ms,

@@ -439,7 +439,8 @@ def fit_to_mesh(x: int, y: int, z: int, radius, subdomains: int = 1, partition=N
     from stencil_tpu_torch.parallel.mesh import make_grid
 
     force = Dim3(*partition) if partition is not None else None
-    dim = make_grid((x, y, z), radius, subdomains, force_dim=force).dim()
+    # sizing only: the grid's dim, never its slots, so any device serves
+    dim = make_grid((x, y, z), radius, subdomains, force_dim=force, device="cpu").dim()
     lo, hi = radius.lo(), radius.hi()
     min_shard = max(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, 1)
     return tuple(max(round(v / d), min_shard) * d for v, d in zip((x, y, z), dim))

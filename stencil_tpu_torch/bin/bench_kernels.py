@@ -128,6 +128,13 @@ and (``--only`` keeps the sections named):
   cell-level over 34 TFLOP/s f64, H100 SXM outside the tensor cores; the
   f32 rows at 4 bytes and 67 TFLOP/s), and the registers, spill bytes and
   shared memory of each kernel of the float64 library (``-Xptxas -v``);
+* ``mean6_library``: row 18's library column: ``F.conv3d`` of one 518^3 f32
+  block with the fixed six-tap 1/6 weight (cuDNN's TF32 off), one PyTorch
+  call computing ``mean6_plane_step``'s function, beside the kernel (lo =
+  hi = 3) into ``out=``: CUDA-event ms a call of each, the bound (every
+  cell read once and written once over 3.35 TB/s), and the call held
+  against the plain version within ``MEAN6_LIBRARY_ULPS`` (another
+  summation order, not bitwise);
 * ``mean6_dtypes``: the mean-of-6 kernels #17 and #18 under bf16 storage
   (``f32_accumulate``) and at float64 beside float32, over one 518^3 block
   (the Astaroth proxy's 512^3 subdomain, shell 3): the wavefront at m = 3
@@ -713,6 +720,84 @@ def mean6_times(dev) -> dict:
     return res
 
 
+#: the six face taps of the mean of 6 as a 3x3x3 convolution weight
+MEAN6_TAPS = ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2))
+#: the bound ``mean6_library`` holds F.conv3d to: each of the six products
+#: and five adds rounds once (1/2 ulp of a value below 1 each) against the
+#: plain version's five adds and one multiply, 11 ulps between them at most
+#: when the library sums directly; 16 leaves room for its order
+MEAN6_LIBRARY_ULPS = 16
+
+
+def mean6_conv3d_weight(dev, dtype=torch.float32) -> torch.Tensor:
+    """The fixed six-tap weight (1/6 at the face neighbours) of the mean of
+    6 as ``F.conv3d`` takes it: (out=1, in=1, 3, 3, 3)."""
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=dtype, device=dev)
+    for tap in MEAN6_TAPS:
+        w[(0, 0) + tap] = 1.0 / 6.0
+    return w
+
+
+def mean6_conv3d(block: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """One PyTorch call computing ``mean6_plane_step``'s function: the mean
+    of 6 at every cell one away from the faces of an (X, Y, Z) block, as an
+    (X-2, Y-2, Z-2) tensor; ``[s-1:-(s-1)]`` of it on every axis is the
+    kernel's interior for a shell of ``s``."""
+    return torch.nn.functional.conv3d(block[None, None], weight)[0, 0]
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two float32
+    tensors (their bits on a line where adjacent values differ by 1)."""
+    ai, bi = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    ai = torch.where(ai < 0, -(2 ** 31) - ai, ai)
+    bi = torch.where(bi < 0, -(2 ** 31) - bi, bi)
+    return int((ai - bi).abs().max()) if a.numel() else 0
+
+
+def mean6_library(block: torch.Tensor, out: torch.Tensor, shell: int = 3, reps: int = 7, inner: int = 5) -> dict:
+    """Row 18's library column: ``F.conv3d`` of ``block`` with the six-tap
+    weight (``mean6_conv3d``, cuDNN's TF32 off) beside ``mean6_plane_step``
+    into ``out``, both timed by CUDA events (ms a call), and held against
+    the plain version on the kernel's interior within
+    ``MEAN6_LIBRARY_ULPS`` (the call sums in another order; raises beyond
+    it)."""
+    from stencil_tpu_torch.ops import plane_stencil as ps
+
+    s3 = (shell,) * 3
+    c = shell - 1
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        w = mean6_conv3d_weight(block.device, block.dtype)
+        want = ps.mean6_plane_step_plain(block, s3, s3)[shell:-shell, shell:-shell, shell:-shell]
+        got = mean6_conv3d(block, w)[c:-c, c:-c, c:-c]
+        ulps = ulp_distance(got, want)
+        err = float((got.double() - want.double()).abs().max())
+        del got, want
+        if ulps > MEAN6_LIBRARY_ULPS:
+            raise AssertionError(f"F.conv3d mean of 6: {ulps} ulps from the plain version, over "
+                                 f"{MEAN6_LIBRARY_ULPS}")
+        conv_ms = _cuda_ms(lambda: mean6_conv3d(block, w), reps=reps, inner=inner)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    kernel_ms = _cuda_ms(lambda: ps.mean6_plane_step(block, s3, s3, out=out), reps=reps, inner=inner)
+    return {"shape": list(block.shape), "shell": shell, "conv3d_ms": conv_ms, "kernel_ms": kernel_ms,
+            "max_ulps": ulps, "max_abs_err": err, "ulp_bound": MEAN6_LIBRARY_ULPS, "tf32": False,
+            "bound_ms": 2 * block.numel() * block.element_size() / HBM_BYTES_PER_S * 1e3}
+
+
+def mean6_library_times(dev) -> dict:
+    """``mean6_library`` at the Astaroth proxy's 518^3 f32 block, shell 3."""
+    ws = N + 6
+    block = _seeded((ws, ws, ws), 61, dev)
+    out = torch.empty_like(block)
+    res = mean6_library(block, out)
+    del block, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def blend_dynamic_times(dev) -> dict:
     from stencil_tpu_torch.ops.halo_blend import blend_slab_dynamic
 
@@ -1185,6 +1270,7 @@ def main(argv=None) -> int:
                 "stream_bf16": lambda dev: stream_dtype_times(dev, "bf16"),
                 "stream_f64": lambda dev: stream_dtype_times(dev, "f64"),
                 "jacobi_f64": jacobi_f64_times, "mean6_dtypes": mean6_dtype_times, "stream_mxu": stream_mxu_times,
+                "mean6_library": mean6_library_times,
                 "stream_fused_mxu": stream_fused_mxu_times}
     p = argparse.ArgumentParser("bench-kernels")
     p.add_argument("--out", default=None, help="also write the JSON object here")

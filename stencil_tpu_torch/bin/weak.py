@@ -37,7 +37,7 @@ runs the exchange-route search (and, with ``--overlap``, the stream-plan
 search) first.  ``--fabric-probe`` (with ``--overlap``) probes the grid's
 links after the A/B (``telemetry/fabric.ensure``: a warm cache does no device
 work; 64 KiB a hop on the CPU) and embeds the summary as ``fabric``.
-``--verify`` (the program-contract verifier, ROADMAP.md queue 1 item 14) is
+``--verify`` (the program-contract verifier, ROADMAP.md queue 1 item 14c) is
 not ported: it exits non-zero before anything is measured.
 
     python -m stencil_tpu_torch.bin.weak 256 256 256 30 --partition 2,2,2
@@ -63,7 +63,7 @@ from stencil_tpu_torch.utils.config import MethodFlags
 #: the flags the port refuses, with the ROADMAP item each waits for
 REFUSED = {
     "verify": "--verify needs the program-contract verifier (stencil_tpu.analysis), not ported: "
-              "ROADMAP.md queue 1 item 14",
+              "ROADMAP.md queue 1 item 14c",
 }
 
 
@@ -391,7 +391,7 @@ def build_parser(name: str, overlap_flags: bool = True) -> argparse.ArgumentPars
                    help="with --overlap: probe (or load from STENCIL_FABRIC_CACHE) the grid's link matrix after the "
                         "A/B and embed its summary in the document (telemetry/fabric.py)")
     p.add_argument("--verify", action="store_true",
-                   help="not ported (the program-contract verifier, ROADMAP.md queue 1 item 14): refused")
+                   help="not ported (the program-contract verifier, ROADMAP.md queue 1 item 14c): refused")
     p.add_argument("--halo-mult", type=int, default=2, metavar="K",
                    help="halo multiplier of the overlap A/B's domain (K*radius shells; K >= 2 makes the "
                         "wavefront route eligible)")

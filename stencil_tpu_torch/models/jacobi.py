@@ -719,13 +719,27 @@ class Jacobi3D:
         COMPILE_REJECT and descends before anything runs); the impl is the
         dispatch itself, ``self._step`` read at call time (a descent swaps
         it), the model held weakly (the ladder lives on it)."""
-        if self.kernel_impl == "cuda" and self.dd.device.type == "cuda":
-            contracts = self._pallas_path in ("wrap", "wavefront")
-            jk._library(jk.library_name(
-                self._compute_unit if contracts else "vpu", self._mxu_input,
-                bf16=self._f32_accumulate(), f64=self.h.dtype == torch.float64))
+        name = self._library_name()
+        if name is not None:
+            jk._library(name)
         me = weakref.proxy(self)
         return lambda steps=1: me.dd.run_step(me._step, steps, label="jacobi")
+
+    def _library_name(self):
+        """The ``csrc/jacobi_wavefront.cu`` build the installed route
+        launches on the card; None on the CPU or the torch engine."""
+        if self.kernel_impl != "cuda" or self.dd.device.type != "cuda":
+            return None
+        contracts = self._pallas_path in ("wrap", "wavefront")
+        return jk.library_name(self._compute_unit if contracts else "vpu", self._mxu_input,
+                               bf16=self._f32_accumulate(), f64=self.h.dtype == torch.float64)
+
+    def _rung_libraries(self):
+        """The library paths the current rung's build loads (``Rung.libraries``)."""
+        from stencil_tpu_torch.kernels import build
+
+        name = self._library_name()
+        return () if name is None else (build.library_path(name),)
 
     def _prefilter(self, rung):
         """The static reject: a wavefront depth whose kernel asks more
@@ -750,7 +764,8 @@ class Jacobi3D:
         me = weakref.proxy(self)
 
         def rung():
-            return Rung(name=me._rung_name(), build=lambda: me._build_current())
+            return Rung(name=me._rung_name(), build=lambda: me._build_current(),
+                        libraries=lambda: me._rung_libraries())
 
         def lower(rung_, cls, exc):
             return rung() if me._step_down(cls) else None

@@ -155,6 +155,7 @@ from stencil_tpu_torch.telemetry import names as tm
 
 __all__ = [
     "PlaneInfo", "PlaneView", "StreamKernel", "make_stream_step", "plan_stream",
+    "stream_pass_smem_bytes",
     "stream_plane_pass", "stream_plane_pass_plain", "stream_smem_bytes", "stream_smem_fits",
     "stream_wavefront_launch", "stream_wavefront_pass", "stream_wavefront_pass_plain", "stream_wrap_pass",
     "stream_wrap_pass_plain",
@@ -252,6 +253,23 @@ def stream_smem_bytes(m: int, n_fields: int, itemsize: int = 4, compute_unit: st
 
 def stream_smem_fits(m: int, n_fields: int, itemsize: int = 4, compute_unit: str = "vpu") -> bool:
     return stream_smem_bytes(m, n_fields, itemsize, compute_unit) <= SMEM_PER_BLOCK
+
+
+#: the staged tile of the wrap and plane kernels' contraction form, its
+#: one-cell apron included (``kSR`` x ``kSC`` in ``csrc/stream_wrap.cu`` and
+#: ``csrc/stream_plane.cu``)
+STREAM_PASS_TILE = (32, 64)
+
+
+def stream_pass_smem_bytes(n_fields: int, compute_unit: str = "vpu") -> int:
+    """The dynamic shared memory one block of the wrap or plane kernel asks
+    (what its launcher passes ``cudaFuncSetAttribute``): none in the vpu
+    form, which reads its neighbours from global memory one level a launch
+    whatever the depth; under a contracting ``compute_unit`` a staging tile
+    and one tile of sums a field, at float32 (``kMxuSmem``)."""
+    if not unit_uses_mxu(compute_unit):
+        return 0
+    return (1 + n_fields) * STREAM_PASS_TILE[0] * STREAM_PASS_TILE[1] * 4
 
 
 def ring_itemsize(dtypes: Sequence[torch.dtype]) -> int:
@@ -1373,7 +1391,10 @@ def _ladder_step(dd, plan: dict, kernel, mxu_kernel, x_radius: int, path: str, s
     def rung_for(p: dict) -> Rung:
         return Rung(name=_rung_name(p), build=lambda: _build_plan(
             dd, p, mxu_kernel if unit_uses_mxu(p["compute_unit"]) else kernel, x_radius),
-            state={"plan": p, "count": _step_counts(dd, p, x_radius)})
+            state={"plan": p, "count": _step_counts(dd, p, x_radius)},
+            # the plain versions need no build; on the card the generated
+            # templates' libraries are not named here (no cross-process stamp)
+            libraries=lambda: () if dd.device.type != "cuda" else None)
 
     def lower(rung, cls, exc):
         p = rung.state["plan"]

@@ -21,6 +21,7 @@ import torch
 
 from stencil_tpu_torch.core.dim3 import Dim3
 from stencil_tpu_torch.core.radius import Radius
+from stencil_tpu_torch.device import resolve_device
 from stencil_tpu_torch.parallel.partition import ManualPartition, NodePartition
 from stencil_tpu_torch.parallel.placement import Placement, make_placement
 from stencil_tpu_torch.parallel.topology import slots_on
@@ -52,12 +53,16 @@ def make_grid(
     subdomains: int = 1,
     strategy: PlacementStrategy = PlacementStrategy.NodeAware,
     force_dim: Optional[Dim3] = None,
-    device="cpu",
+    device=None,
 ) -> SubdomainGrid:
     """Partition ``size`` into subdomains: ``force_dim`` verbatim when given,
-    else the min-interface split of ``subdomains`` on one node."""
+    else the min-interface split of ``subdomains`` on one node.  ``device``
+    hosts the grid's slots; ``None`` is the port's default device
+    (``device.resolve_device``: the card, and without one the port's no-GPU
+    error; pass ``"cpu"`` for the CPU).  A device given is taken as it is:
+    the domain resolves its own at construction."""
     if force_dim is not None:
         part = ManualPartition(Dim3.of(size), force_dim)
     else:
         part = NodePartition(Dim3.of(size), radius, 1, int(subdomains))
-    return SubdomainGrid(part, strategy, radius, torch.device(device))
+    return SubdomainGrid(part, strategy, radius, resolve_device() if device is None else torch.device(device))

@@ -41,8 +41,10 @@ DIVERGENCE raises a typed ``DivergenceError``.  ``sigkill`` and ``sigterm``
 deliver a real signal to this process.  Capacity (``shrink`` / ``grow``)
 notices go to the handler the run supervisor registers for the length of
 its ``run()`` (``set_capacity_handler``); with none registered they are
-logged and dropped.  Slow-tenant notices are counted, logged and dropped:
-the port has no serving layer.
+logged and dropped.  Slow-tenant notices go to the handler the serving
+layer registers for a server's life (``set_slow_handler``, which inflates
+that request's service time); with none registered they are logged and
+dropped.
 
 The plan is parsed from the environment on first use and again whenever the
 variable's value changes; ``set_plan`` installs one programmatically.
@@ -87,8 +89,9 @@ _KILLS = ("sigkill", "sigterm")
 #: the REGISTERED capacity handler (``set_capacity_handler``; the run
 #: supervisor installs one for the length of ``run()``), else logs and drops
 _CAPACITY = ("shrink", "grow")
-#: seeded tenant slowdowns (no exception): dropped likewise, the port has no
-#: serving layer
+#: seeded tenant slowdowns (no exception): the hook calls the REGISTERED
+#: slow handler (``set_slow_handler``; the serving layer installs one that
+#: inflates the matched request's service time), else logs and drops
 _SLOW = ("slow_tenant",)
 
 #: The message each injected class carries — the REAL toolchain wording (the
@@ -284,17 +287,36 @@ def _capacity_notice(kind: str, phase: str, label: str) -> None:
     fn(kind, phase, label)
 
 
+#: the registered tenant-slowdown handler (``fn(phase, label)``), installed
+#: by the serving layer for a server's life
+_slow_handler = {"fn": None}
+
+
+def set_slow_handler(fn) -> object:
+    """Install (or clear, with ``None``) the slow-tenant handler; returns
+    the previous one, so nested servers can restore it."""
+    prev = _slow_handler["fn"]
+    _slow_handler["fn"] = fn
+    return prev
+
+
 def _slow_notice(phase: str, label: str) -> None:
-    """A seeded slow-tenant notice: counted, logged and dropped (the port
-    has no serving layer)."""
+    """A seeded slow-tenant notice, counted and handed to the registered
+    handler (the serving layer inflates the matched request's service
+    time).  No handler: logged and dropped, for the notice only means
+    something to a serving run."""
     from stencil_tpu_torch import telemetry
     from stencil_tpu_torch.telemetry import names as tm
     from stencil_tpu_torch.utils.logging import log_warn
 
     telemetry.inc(tm.FAULTS_INJECTED)
     telemetry.emit_event(tm.EVENT_FAULT, phase=phase, label=label, failure_class="slow_tenant")
-    log_warn(f"slow_tenant notice injected at {phase}:{label} but no handler is registered "
-             "(no serving layer running); dropped")
+    fn = _slow_handler["fn"]
+    if fn is None:
+        log_warn(f"slow_tenant notice injected at {phase}:{label} but no handler is registered "
+                 "(no serving layer running); dropped")
+        return
+    fn(phase, label)
 
 
 def _raise(cls: FailureClass, phase: str, label: str) -> None:

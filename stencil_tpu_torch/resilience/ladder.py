@@ -57,11 +57,16 @@ from stencil_tpu_torch.utils.logging import log_warn
 class Rung:
     """One ladder configuration: a name (for logs and fault-plan labels), a
     zero-argument ``build`` returning the step impl, and free-form state the
-    call site's ``lower`` reads to pick the next rung down."""
+    call site's ``lower`` reads to pick the next rung down.  ``libraries``,
+    where the call site can say, returns the ``kernels/build.py`` library
+    paths ``build`` loads (``()``: none); ``None``, or a call returning
+    ``None``, means it cannot say (``serve/aot.py`` then keeps no
+    cross-process stamp)."""
 
     name: str
     build: Callable[[], Callable]
     state: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    libraries: Optional[Callable[[], Optional[Tuple[str, ...]]]] = None
 
 
 class DegradationLadder:

@@ -9,9 +9,9 @@ heartbeat on a ``running`` phase means the process died without a word),
 checkpoint age, restarts, watchdog, the last numerics snapshot, the last
 error, the fabric observatory's link model (a heartbeat's ``fabric``: the
 per-axis link bandwidth, the slowest link, the link matrix; "-" without a
-probe), and the crash report's cause with its last events.  The serving
-layer's tenant table renders "-" until the port has it (ROADMAP.md queue 1
-item 14).
+probe), the serving layer's tenant table (a serve heartbeat's
+``tenants`` rows, rendered as the JAX package renders them; "-" without
+rows), and the crash report's cause with its last events.
 
 ``--json`` prints the two documents instead.  It imports neither torch nor
 the domain: inspecting a wedged run must not wait on a device.
@@ -77,6 +77,33 @@ def _numerics_lines(doc, indent: str = "  ") -> list:
         else:
             row += ", finite"
         lines.append(row)
+    return lines
+
+
+def _tenant_lines(rows, indent: str = "  ") -> list:
+    """The serving heartbeat's tenant table (``serve/server.py``
+    ``tenant_table`` rows): one aligned line per tenant, state, envelope
+    rung, request counters and the per-tenant latency percentiles, as
+    ``stencil_tpu/status.py:79-100`` renders them; "-" without rows."""
+    if not isinstance(rows, list) or not rows:
+        return [f"{indent}tenants: -"]
+    lines = [indent + "tenants:"]
+    for row in rows:
+        if not isinstance(row, dict):
+            continue
+        pcts = "/".join(
+            _fmt_stat(row.get(k)) for k in ("p50_ms", "p95_ms", "p99_ms")
+        )
+        line = (
+            f"{indent}  {row.get('tenant', '?')}: {row.get('state', '?')}"
+            f" prio {row.get('priority', 0)}, rung {row.get('rung', 0)},"
+            f" {row.get('completed', 0)}/{row.get('admitted', 0)} done,"
+            f" shed {row.get('shed', 0)}, retries {row.get('retries', 0)},"
+            f" p50/p95/p99 {pcts} ms"
+        )
+        if row.get("why"):
+            line += f" [{row['why']}]"
+        lines.append(line)
     return lines
 
 
@@ -163,8 +190,8 @@ def render(status, crash, stale_after: float = 300.0) -> str:
         # numerics observatory: the heartbeat's last per-quantity health
         # snapshot
         lines.extend(_numerics_lines(status.get("numerics")))
-        # the serving layer's tenant table: "-" until the port has it
-        lines.append("  tenants: -")
+        # serving heartbeats carry the per-tenant table
+        lines.extend(_tenant_lines(status.get("tenants")))
         # fabric observatory: the probed link model the run started under
         lines.extend(_fabric_lines(status.get("fabric")))
         if status.get("last_error"):

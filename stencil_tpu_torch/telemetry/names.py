@@ -112,6 +112,33 @@ FABRIC_CACHE_HIT = "fabric.cache.hit"
 #: corrupt file), as the tune cache's misses
 FABRIC_CACHE_MISS = "fabric.cache.miss"
 
+#: serving-layer requests ADMITTED past admission control (serve/server.py:
+#: the shared-memory verdict ok, the kernels built or built under budget, a
+#: queue slot)
+SERVE_ADMITTED = "serve.admitted"
+#: requests REFUSED at admission (shared-memory verdict, cold build over
+#: budget, queue full, tenant quarantined/evicted)
+SERVE_REJECTED = "serve.rejected"
+#: queued requests SHED under load (past-deadline first, then lowest
+#: priority to make room for a higher-priority arrival)
+SERVE_SHED = "serve.shed"
+#: tenants evicted/quarantined by the per-tenant fault envelope (their
+#: DIVERGENCE, a poisoned request, must not touch other tenants)
+SERVE_EVICTED = "serve.evicted"
+#: requests served to completion
+SERVE_COMPLETED = "serve.completed"
+#: ``StencilServer.drain`` runs that hit the ``max_cycles`` bound with work
+#: still queued (the truncation also logs the bound and the remaining depth)
+SERVE_DRAIN_TRUNCATED = "serve.drain.truncated"
+#: packed dispatches (batched group or sub-slice placement) that fell back
+#: to serial re-execution after a classified failure
+SERVE_BATCH_FALLBACKS = "serve.batch.fallbacks"
+#: successful BATCHED dispatches (always counted: digest equality alone
+#: cannot prove batching ran)
+SERVE_BATCH_DISPATCHES = "serve.batch.dispatches"
+#: successful sub-slice packed cycles (the same role for the bin-packer)
+SERVE_SUBSLICE_DISPATCHES = "serve.subslice.dispatches"
+
 #: the per-hop byte counter for one (grid axis, receive side)
 EXCHANGE_HOP_BYTES = {
     ("x", "low"): EXCHANGE_HOP_X_LOW_BYTES,
@@ -154,6 +181,15 @@ ALL_COUNTERS = frozenset({
     TUNE_TRIALS,
     TUNE_PRUNED,
     TUNE_SELECTED,
+    SERVE_ADMITTED,
+    SERVE_REJECTED,
+    SERVE_SHED,
+    SERVE_EVICTED,
+    SERVE_COMPLETED,
+    SERVE_DRAIN_TRUNCATED,
+    SERVE_BATCH_FALLBACKS,
+    SERVE_BATCH_DISPATCHES,
+    SERVE_SUBSLICE_DISPATCHES,
     *EXCHANGE_HOP_BYTES.values(),
     FABRIC_PROBE_RUNS,
     FABRIC_CACHE_HIT,
@@ -167,7 +203,22 @@ EXCHANGE_BYTES_PER_EXCHANGE = "domain.exchange.bytes_per_exchange"
 #: checkpoints the ring retains after pruning (io/checkpoint.py ``save_to_ring``)
 CHECKPOINT_RETAINED = "checkpoint.retained"
 
-ALL_GAUGES = frozenset({EXCHANGE_BYTES_PER_EXCHANGE, CHECKPOINT_RETAINED})
+#: serving request-queue depth after each admission/dispatch (the signal
+#: the elasticity policy watches)
+SERVE_QUEUE_DEPTH = "serve.queue.depth"
+#: tenants currently in the "active" state (admitted, not quarantined)
+SERVE_TENANTS_ACTIVE = "serve.tenants.active"
+#: fraction of the fleet's slots busy in the most recent dispatch (1.0 = a
+#: full-fleet or batched dispatch; a sub-slice pack sums its disjoint slices)
+SERVE_OCCUPANCY = "serve.occupancy"
+
+ALL_GAUGES = frozenset({
+    EXCHANGE_BYTES_PER_EXCHANGE,
+    CHECKPOINT_RETAINED,
+    SERVE_QUEUE_DEPTH,
+    SERVE_TENANTS_ACTIVE,
+    SERVE_OCCUPANCY,
+})
 
 # --- histograms (Statistics-backed) ------------------------------------------
 
@@ -192,6 +243,18 @@ NUMERICS_SNAPSHOT_SECONDS = "numerics.snapshot.seconds"
 #: wall seconds per in-memory grid move (plan, copies, the exchange's
 #: re-realize and the tuner's re-key: ``DistributedDomain.reshard``)
 RESHARD_SECONDS = "reshard.seconds"
+#: end-to-end wall seconds per served request (enqueue to response; the
+#: fleet-wide series, each tenant's p50/p95/p99 live in its own Statistics)
+SERVE_LATENCY_SECONDS = "serve.latency.seconds"
+#: wall seconds per admission-time build of a tenant's workload
+#: (serve/aot.py: the kernel library and the rung's step, the cost the
+#: admission budget bounds)
+SERVE_COMPILE_SECONDS = "serve.compile.seconds"
+#: requests carried per BATCHED dispatch (serve/pack.py: geometry-matched
+#: tenants' stacks copied into one stacked set and run in one call)
+SERVE_BATCH_SIZE = "serve.batch.size"
+#: tenants packed per sub-slice dispatch cycle (disjoint slices of the fleet)
+SERVE_SUBSLICE_COUNT = "serve.subslice.count"
 #: measured point-to-point copy bandwidth between slots, GB/s per probed
 #: neighbour edge (telemetry/fabric.py)
 FABRIC_LINK_GBPS = "fabric.link.gbps"
@@ -208,6 +271,10 @@ ALL_HISTOGRAMS = frozenset({
     CHECKPOINT_RESTORE_SECONDS,
     NUMERICS_SNAPSHOT_SECONDS,
     RESHARD_SECONDS,
+    SERVE_LATENCY_SECONDS,
+    SERVE_COMPILE_SECONDS,
+    SERVE_BATCH_SIZE,
+    SERVE_SUBSLICE_COUNT,
     FABRIC_LINK_GBPS,
     FABRIC_PROBE_SECONDS,
 })
@@ -333,6 +400,18 @@ EVENT_WATCHDOG_STALL = "watchdog.stall"
 #: a cadence device-profile capture finished (fields: dir, index, seconds;
 #: telemetry/device.py)
 EVENT_PROFILE_CAPTURE = "profile.capture"
+#: an admission decision (fields: tenant, admitted, why, queue_depth,
+#: compile_s when a cold key was built at admission)
+EVENT_SERVE_ADMISSION = "serve.admission"
+#: queued load was shed (fields: tenant, why=deadline|priority|injected,
+#: queue_depth, waited_s)
+EVENT_SERVE_SHED = "serve.load_shed"
+#: the per-tenant envelope quarantined/evicted a tenant (fields: tenant,
+#: failure_class, why)
+EVENT_SERVE_EVICTION = "serve.eviction"
+#: the load policy asked for capacity (fields: kind=grow|shrink,
+#: queue_depth, source)
+EVENT_SERVE_ELASTICITY = "serve.elasticity"
 #: a fabric-probe sweep resolved its link matrix (fields: source=cache|probe,
 #: topology, chip, edges, seconds, slowest_gbps; telemetry/fabric.py)
 EVENT_FABRIC_PROBE = "fabric.probe"
@@ -362,6 +441,10 @@ ALL_EVENTS = frozenset({
     EVENT_CHECKPOINT_FALLBACK,
     EVENT_WATCHDOG_STALL,
     EVENT_PROFILE_CAPTURE,
+    EVENT_SERVE_ADMISSION,
+    EVENT_SERVE_SHED,
+    EVENT_SERVE_EVICTION,
+    EVENT_SERVE_ELASTICITY,
     EVENT_FABRIC_PROBE,
     NUMERICS_DRIFT,
 })

@@ -2992,3 +2992,87 @@ def test_native_qap_builds_on_the_card_host():
     rng = np.random.default_rng(0)
     w, d = rng.random((8, 8)), rng.random((8, 8))
     assert native_qap.qap_solve(w, d)[0] == qap.qap_solve(w, d)[0]
+
+
+# --- the serving layer ------------------------------------------------------------------------
+
+
+def _serve_rounds(srv, order, rounds, steps):
+    from stencil_tpu_torch.serve import Request
+
+    for _ in range(rounds):
+        for tid in order:
+            srv.submit(Request(tenant=tid, steps=steps))
+        srv.drain()
+
+
+@pytest.mark.parametrize("size", [256, 160])
+def test_batched_equals_serial_on_the_wavefront_route_on_card(dev, size):
+    """Three ``Jacobi3D`` tenants on 2x2x2 (256^3: the z-ring wavefront;
+    160^3: its z-slab form) served batched and serially: bitwise equal, the
+    batched dispatches engaged, no fallback, each tenant's own stacks never
+    written by the batched call (the member steps run over copies)."""
+    from stencil_tpu_torch import telemetry
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.serve import StencilServer, TenantSpec
+    from stencil_tpu_torch.telemetry import names as tm
+
+    def tenants():
+        out = {}
+        for t in ("tenant-a", "tenant-b", "tenant-c"):
+            m = Jacobi3D(size, size, size, kernel_impl="cuda", subdomains=8, device=dev)
+            m.realize()
+            out[t] = m
+        return out
+
+    got = {}
+    for batch in (3, 0):
+        models = tenants()
+        steps = models["tenant-a"]._wavefront_m
+        before = telemetry.snapshot()["counters"]
+        srv = StencilServer(queue_max=16, batch_max=batch)
+        try:
+            for t, m in models.items():
+                srv.add_tenant(TenantSpec(tenant_id=t), m)
+            ledger.reset_launch_counts()
+            _serve_rounds(srv, sorted(models), 3, steps)
+            torch.cuda.synchronize()
+        finally:
+            srv.close()
+        after = telemetry.snapshot()["counters"]
+        counts = ledger.launch_counts()
+        got[batch] = {t: m.temperature() for t, m in models.items()}
+        form = "jacobi_zring_wavefront_step" if size == 256 else "jacobi_shell_wavefront_step"
+        assert counts[form] == 9 and counts["blend_slab"] > 0, counts
+        moved = after[tm.SERVE_BATCH_DISPATCHES] - before[tm.SERVE_BATCH_DISPATCHES]
+        assert (moved == 3) if batch else (moved == 0)
+        assert after[tm.SERVE_BATCH_FALLBACKS] == before[tm.SERVE_BATCH_FALLBACKS]
+        del models
+    for t in got[0]:
+        assert np.array_equal(got[3][t], got[0][t]), t
+
+
+def test_served_tenant_equals_the_plain_path_on_card(dev):
+    """A tenant served through admission, the queue and the envelope at
+    256^3 on 2x2x2 (the z-ring wavefront: a subdomain's z of 128): bitwise
+    equal to the plain periodic levels from the same initial field."""
+    from stencil_tpu_torch.kernels import ledger
+    from stencil_tpu_torch.serve import StencilServer, TenantSpec
+
+    m = Jacobi3D(256, 256, 256, kernel_impl="cuda", subdomains=8, device=dev)
+    m.realize()
+    plain = torch.from_numpy(m.temperature()).to(dev)
+    srv = StencilServer(queue_max=8)
+    try:
+        srv.add_tenant(TenantSpec(tenant_id="a"), m)
+        ledger.reset_launch_counts()
+        _serve_rounds(srv, ["a"], 3, 5)
+        torch.cuda.synchronize()
+    finally:
+        srv.close()
+    counts = ledger.launch_counts()
+    for _ in range(15):
+        plain = jk.jacobi_wrap_step_plain(plain, 1)
+    assert np.array_equal(m.temperature(), plain.cpu().numpy())
+    assert counts["jacobi_zring_wavefront_step"] > 0 and counts["blend_slab"] > 0, counts
+    assert srv.tenant_table()[0]["completed"] == 3

@@ -281,7 +281,7 @@ def test_link_models():
 
 
 def test_axis_edge_kinds_over_slot_grids():
-    one = make_grid((16, 16, 16), Radius.constant(1), force_dim=Dim3(2, 2, 1)).placement.slot_grid()
+    one = make_grid((16, 16, 16), Radius.constant(1), force_dim=Dim3(2, 2, 1), device="cpu").placement.slot_grid()
     assert cost.axis_edge_kinds(one) == ["device", "device", "self"]
     grid = np.empty((2, 1, 2), dtype=object)
     for i, (x, z) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)]):

@@ -44,6 +44,13 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 15 and os.path.exists(files[0])
+    # the serving layer and its drivers are among the files checked
+    rel = {os.path.relpath(f, PORT) for f in files}
+    assert {os.path.join("serve", m + ".py") for m in ("__init__", "request", "queue", "tenant", "policy", "aot",
+                                                      "pack", "server")} <= rel
+    assert {os.path.join("analysis", "__init__.py"), os.path.join("analysis", "vmem.py"),
+            os.path.join("bin", "stencil_serve.py"), os.path.join("bin", "run_soak.py"),
+            os.path.join("bin", "bench_serve.py")} <= rel
     bad = []
     for path in files:
         for mod in _imported_modules(path):
